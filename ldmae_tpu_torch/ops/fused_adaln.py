@@ -1,0 +1,140 @@
+"""Fused adaLN epilogue and fused SwiGLU gate: the CUDA kernels
+(``csrc/fused_norm_modulate.cu``, ``csrc/fused_matmul_silu.cu``) and their
+plain PyTorch versions.
+
+Counterpart of ``ldmae_tpu/ops/fused_adaln.py``'s ``fused_norm_modulate``
+(``_kernel``) and ``fused_matmul_silu`` (``_kernel_matmul_silu``), forward
+only. A wrapper runs the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises. ``<wrapper>.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import kernels
+
+
+def fused_norm_modulate_plain(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The kernel's math: the norm in fp32, cast to x's dtype, times the
+    weight (rms) in x's dtype, then y*(1+scale[b]) + shift[b] in x's dtype."""
+    xf = x.float()
+    if kind == "layer":
+        xc = xf - xf.mean(-1, keepdim=True)
+        y = (xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+    else:
+        y = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+        if weight is not None:
+            y = y * weight.to(x.dtype)
+    sc = scale.float().to(x.dtype)[:, None, :]
+    sh = shift.float().to(x.dtype)[:, None, :]
+    return y * (1.0 + sc) + sh
+
+
+def fused_norm_modulate(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x: (B, N, D); weight: (D,) RMSNorm weight (ignored for kind='layer');
+    shift/scale: (B, D). Returns modulate(norm(x), shift, scale)."""
+    if kind not in ("rms", "layer"):
+        raise ValueError(f"unknown norm kind {kind!r}")
+    if x.device.type == "cpu":
+        return fused_norm_modulate_plain(x, weight, shift, scale, kind=kind, eps=eps)
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("fused_norm_modulate: x must be a contiguous bf16 (B, N, D) tensor")
+    b, n, d = x.shape
+    if d % 8 or d > 2048:
+        raise ValueError(f"fused_norm_modulate: D={d} must be a multiple of 8 and <= 2048")
+    if shift.shape != (b, d) or scale.shape != (b, d):
+        raise ValueError(f"fused_norm_modulate: shift/scale must be ({b}, {d})")
+    # The kernel reads shift and scale as bf16 rows (as the adaLN projection
+    # writes them, a row stride apart); a cast here is the one rounding the
+    # TPU kernel does to x's dtype.
+    shift, scale = (t.to(device=x.device, dtype=torch.bfloat16) for t in (shift, scale))
+    shift, scale = (t if t.stride(-1) == 1 else t.contiguous() for t in (shift, scale))
+    f32 = dict(device=x.device, dtype=torch.float32)
+    w = None
+    if kind == "rms":
+        w = torch.ones(d, **f32) if weight is None else weight.to(**f32).contiguous()
+    out = torch.empty_like(x)
+    lib = kernels.load("fused_norm_modulate")
+    with torch.cuda.device(x.device):
+        err = lib.ldmae_fused_norm_modulate(
+            x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
+            scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(), b, n, d,
+            int(kind == "layer"), eps, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    kernels.check(err, "fused_norm_modulate")
+    fused_norm_modulate.launches += 1
+    return out
+
+
+fused_norm_modulate.launches = 0
+
+
+def fused_matmul_silu_plain(
+    x: torch.Tensor, w12: torch.Tensor, b12: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """silu(x1) * x2 of x @ w12^T + b12 (fp32 products of the compute-dtype
+    operands, fp32 bias and gate), cast to x's dtype."""
+    acc = torch.matmul(x.float(), w12.to(x.dtype).float().t())
+    if b12 is not None:
+        acc = acc + b12.float()
+    x1, x2 = acc.chunk(2, dim=-1)
+    return (x1 * torch.sigmoid(x1) * x2).to(x.dtype)
+
+
+def fused_matmul_silu(
+    x: torch.Tensor, w12: torch.Tensor, b12: Optional[torch.Tensor]
+) -> Optional[torch.Tensor]:
+    """SwiGLU first stage with the gate fused into the matmul epilogue.
+    x: (..., D); w12: (2H, D), the reference's packed ``w12`` weight; b12:
+    (2H,) or None. Returns (..., H), or None when the shape gate of the TPU
+    kernel fails (M % 128, D % 128 and 2H % 256 must all be 0), in which
+    case the caller runs the unfused path."""
+    d = x.shape[-1]
+    m = x.numel() // d
+    h2 = w12.shape[0]
+    if m % 128 or d % 128 or h2 % 256:
+        return None
+    if x.device.type == "cpu":
+        return fused_matmul_silu_plain(x, w12, b12)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("fused_matmul_silu: x must be a contiguous bf16 tensor")
+    if w12.shape != (h2, d):
+        raise ValueError(f"fused_matmul_silu: w12 must be (2H, {d}), got {tuple(w12.shape)}")
+    w = w12.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    bias = (
+        torch.zeros(h2, device=x.device, dtype=torch.float32) if b12 is None
+        else b12.to(device=x.device, dtype=torch.float32).contiguous()
+    )
+    out = torch.empty(*x.shape[:-1], h2 // 2, device=x.device, dtype=x.dtype)
+    lib = kernels.load("fused_matmul_silu")
+    with torch.cuda.device(x.device):
+        err = lib.ldmae_fused_matmul_silu(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    kernels.check(err, "fused_matmul_silu")
+    fused_matmul_silu.launches += 1
+    return out
+
+
+fused_matmul_silu.launches = 0

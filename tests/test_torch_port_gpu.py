@@ -1,0 +1,96 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``gpu``; each test skips (from a fixture, so every xdist worker
+collects the same tests) when there is no CUDA device. This file imports
+neither JAX nor ``ldmae_tpu``, so on a machine without JAX it runs with
+``python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py``.
+
+Tolerance: both sides round the output to bf16 and differ in fp32
+summation order and exp/rsqrt rounding; a one-ulp difference early can grow
+to two through the later bf16 roundings, so for the norm and the GEMM two
+bf16 ulps at the output's magnitude (~1; 2^-6). Attention: one ulp of the
+element (rtol 2^-7) plus 2^-8 of the largest |output| (the kernel rounds p
+before normalising it, the plain version after: an error absolute in the
+output's scale, ~0.05 for random q, k, v).
+"""
+
+import pytest
+import torch
+
+from ldmae_tpu_torch.ops import flash_attention as tfa
+from ldmae_tpu_torch.ops import fused_adaln as tfad
+from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+BF16_TOL = dict(rtol=2**-6, atol=2**-6)
+
+
+def _attn_tol(ref):
+    return dict(rtol=2**-7, atol=2**-8 * float(ref.float().abs().max()))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _bf16(shape, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "d,n,rope",
+    [(64, 1024, True), (16, 1024, False), (16, 1025, False), (16, 1000, False), (72, 200, True)],
+)
+def test_cuda_flash_attention_vs_plain(cuda, d, n, rope):
+    q, k, v = (_bf16((2, 3, n, d), s, cuda) for s in range(3))
+    if rope:
+        grid = int(n**0.5) + 1
+        cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(cuda)
+                    for t in build_rope_table(d // 2, grid))
+        out = tfa.flash_attention_rope(q, k, v, cos, sin)
+        ref = tfa.flash_attention_rope_plain(q, k, v, cos, sin)
+    else:
+        out = tfa.flash_attention(q, k, v)
+        ref = tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("mod", ["rows", "strided", "fp32"])
+def test_cuda_fused_norm_modulate_vs_plain(cuda, kind, mod):
+    x = _bf16((4, 256, 768), 0, cuda) * 3
+    w = 1 + 0.1 * _bf16((768,), 1, cuda).float()
+    ada = _bf16((4, 6, 768), 2, cuda) * 0.1  # shift, scale as the adaLN projection's views
+    sh, sc = ada[:, 0], ada[:, 1]
+    if mod == "rows":
+        sh, sc = sh.contiguous(), sc.contiguous()
+    elif mod == "fp32":  # rounded to x's dtype by the wrapper, as by the TPU kernel
+        sh, sc = (torch.randn(4, 768, device=cuda) * 0.1 for _ in range(2))
+    out = tfad.fused_norm_modulate(x, w, sh, sc, kind=kind)
+    ref = tfad.fused_norm_modulate_plain(x, w, sh, sc, kind=kind)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_matmul_silu_vs_plain(cuda):
+    x = _bf16((1024, 768), 0, cuda)
+    w12 = _bf16((4096, 768), 1, cuda) * 0.03
+    b12 = _bf16((4096,), 2, cuda).float() * 0.1
+    out = tfad.fused_matmul_silu(x, w12, b12)
+    ref = tfad.fused_matmul_silu_plain(x, w12, b12)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = _bf16((1, 2, 64, 48), 0, cuda)  # head dim 48 is not instantiated
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q.float(), q.float(), q.float())

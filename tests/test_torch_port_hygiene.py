@@ -1,0 +1,134 @@
+"""Import hygiene, device defaults and the CLI of the PyTorch port, on the CPU.
+
+* Every ``ldmae_tpu_torch`` module, and ``chip_smoke.py``, import without
+  JAX or any ``ldmae_tpu`` module (checked in a fresh interpreter).
+* Entry points default to ``cuda`` and raise when there is no CUDA device
+  unless the caller passes ``device="cpu"``.
+* A kernel wrapper given a tensor that is not on the CPU takes the kernel
+  path (and raises if it cannot launch), never the plain version.
+* ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_and_no_ldmae_tpu():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import ldmae_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(ldmae_tpu_torch.__path__, "ldmae_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "ldmae_tpu" or m.startswith("ldmae_tpu."))
+        assert not bad, bad
+        print(len(names))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_config(tmp_path):
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+
+    cfg = LDMAEConfig.from_dict({
+        "data": {"image_size": 32, "num_classes": 1000, "data_path": str(tmp_path / "none")},
+        "vae": {"model_name": "vmae_f8d16", "weight_path": ""},
+        "model": {"model_type": "LightningDiT-debug", "in_chans": 16},
+        "train": {"exp_name": "tiny", "output_dir": str(tmp_path)},
+        "sample": {"num_sampling_steps": 3, "cfg_scale": 4.0, "per_proc_batch_size": 2, "fid_num": 3},
+    })
+    return cfg
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from ldmae_tpu_torch.cli.inference import build_pipeline
+    from ldmae_tpu_torch.core import resolve_device
+    from ldmae_tpu_torch.eval.sampling import demo_labels, make_sample_fn
+    from ldmae_tpu_torch.models import VMAE, LightningDiT, dit_spec, production_vmae_spec
+    from ldmae_tpu_torch.transport import create_transport
+
+    spec = dit_spec("LightningDiT-debug")
+    for call in (
+        lambda: resolve_device(),
+        lambda: LightningDiT(spec),
+        lambda: VMAE(production_vmae_spec(32)),
+        lambda: make_sample_fn(spec, create_transport()),
+        lambda: demo_labels(),
+        lambda: build_pipeline(_tiny_config(tmp_path)),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    LightningDiT(spec, device="cpu")
+
+
+def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
+    """The plain version is chosen by the tensor's device alone: a tensor
+    elsewhere goes to the kernel launch, here stopped at the library load."""
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+
+    class Launch(Exception):
+        pass
+
+    def load(name):
+        raise Launch(name)
+
+    monkeypatch.setattr(kernels, "load", load)
+    q = torch.empty(1, 2, 64, 64, dtype=torch.bfloat16, device="meta")
+    cos = torch.empty(64, 64, device="meta")
+    x = torch.empty(2, 128, 128, dtype=torch.bfloat16, device="meta")
+    sh = torch.empty(2, 128, device="meta")
+    for call in (
+        lambda: fa.flash_attention(q, q, q),
+        lambda: fa.flash_attention_rope(q, q, q, cos, cos),
+        lambda: fad.fused_norm_modulate(x, None, sh, sh),
+        lambda: fad.fused_matmul_silu(x, torch.empty(256, 128, device="meta"), None),
+    ):
+        with pytest.raises(Launch):
+            call()
+
+
+def test_cli_demo_grid_on_cpu(tmp_path):
+    from PIL import Image
+
+    from ldmae_tpu_torch.cli import inference
+
+    cfg_path = tmp_path / "tiny.yaml"
+    _tiny_config(tmp_path).to_yaml(str(cfg_path))
+    out = tmp_path / "demo"
+    inference.main(["--config", str(cfg_path), "--demo", "--demo_out", str(out), "--device", "cpu"])
+    (png,) = list(out.iterdir())
+    img = np.asarray(Image.open(png))
+    assert img.shape == (2 * 32, 4 * 32, 3) and img.dtype == np.uint8
+
+
+def test_cli_writes_pngs_on_cpu(tmp_path):
+    from ldmae_tpu_torch.cli import inference
+
+    cfg = _tiny_config(tmp_path)
+    out_dir = inference.do_sample(cfg, device="cpu")
+    assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png", "000002.png"]
+    assert os.path.basename(out_dir) == inference.folder_name(cfg)
