@@ -8,33 +8,47 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
 per source, in parallel), then:
 
-  1. holds each kernel against its plain PyTorch version on the card in
-     bf16 at the shapes the main path below gives it (batch 8: the
+  1. holds each of the eight kernels against its plain PyTorch version on
+     the card at the shapes the sampling paths below give it (batch 8: the
      CFG-doubled DiT step and the VMAE decode), and times the kernel, the
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick only; the port never calls
-     it); then the same at ``bench.py``'s batch 36;
-  2. drives the main path through its entry points: LightningDiT-B/1 +
-     VMAE f8d16_prev at full width with seeded random weights (non-zero
+     it); then the same at ``bench.py``'s batch 36; then times the int8
+     product of the w8a8 leg (``torch._int_mm``, checked exact) beside
+     cuBLAS bf16 at the same shapes;
+  2. drives the bf16 main path through its entry points: LightningDiT-B/1
+     + VMAE f8d16_prev at full width with seeded random weights (non-zero
      gates), batch 8, 250 Euler steps, timestep shift 0.3, CFG 10 on
      [0.10, 1] with the phased split, decode to uint8 (8, 256, 256, 3),
      with every kernel's launch count zeroed just before and checked
      exactly just after;
-  3. runs the same pipeline for 10 steps through the kernels and through
-     the plain ``xla`` impls from the same noise and compares the latents
-     and the decoded images;
-  4. with ``--profile``, traces one 50-step batch with ``torch.profiler``
-     and prints device time by kernel and group and the idle share.
+  3. drives path (a), the w8a8 leg, the same way from the same weights
+     (quantized by ``quantize_dit_``) and the same noise, and holds its
+     images against the bf16 ones (PSNR >= 30 dB);
+  4. runs 10 steps from one noise and compares the latents and the decoded
+     images: the bf16 kernels against the plain ``xla`` impls, the w8a8
+     kernels against the w8a8 ``xla`` impls, and the opt-in attention
+     impls ``flash_qkr`` (c) and ``flash_fused`` (d) against
+     ``flash_rope``, each with its exact launch counts; then holds the
+     10-step w8a8 latents against the bf16 latents from the same noise
+     (relative L2 error within ``QUANT_REL_MAX``), and two wrongly
+     quantized DiTs, which must read above that bound;
+  5. with ``--profile``, traces one 50-step batch of the bf16 and of the
+     w8a8 path with ``torch.profiler`` and prints device time by kernel and
+     group and the idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(batch-8 shapes), and as its last line ``{"ok": true, "device": {...}}``.
+(batch-8 shapes; launches from the path that runs each kernel), and as its
+last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,23 +57,43 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at the 700 W l
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
-# (name, source, the Pallas call it replaces)
+# name -> (source, the Pallas call it replaces, the path whose launches it reports)
 KERNELS = {
-    "flash_attention_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:323"),
-    "flash_attention": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:77"),
-    "fused_norm_modulate": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", "ldmae_tpu/ops/fused_adaln.py:232"),
-    "fused_matmul_silu": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", "ldmae_tpu/ops/fused_adaln.py:199"),
+    "flash_attention_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:323", "bf16"),
+    "flash_attention": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:77", "bf16"),
+    "fused_norm_modulate": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", "ldmae_tpu/ops/fused_adaln.py:232", "bf16"),
+    "fused_matmul_silu": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", "ldmae_tpu/ops/fused_adaln.py:199", "bf16"),
+    "flash_attention_qknorm_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:282", "flash_qkr"),
+    "flash_attention_fused_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:550", "flash_fused"),
+    "fused_norm_modulate_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:99", "w8a8"),
+    "fused_silu_mul_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:144", "w8a8"),
 }
 
 BATCH, STEPS, CFG_SCALE, SHIFT, CFG_START = 8, 250, 10.0, 0.3, 0.10
+SHORT_STEPS = 10  # the comparisons between impls
 BENCH_BATCH = 36  # bench.py's batch: kernel shapes also checked and timed there
 N1 = 68  # single-batch Euler steps before the CFG interval at 250 steps, shift 0.3
 DEPTH, DEC_DEPTH = 12, 12
+PSNR_MIN = 30.0  # w8a8 vs bf16 images from the same noise (the JAX gate: perf_quant.py)
+# w8a8 vs bf16 10-step latents from noise z, ||w8a8 - bf16|| / ||bf16 - z||:
+# the bound of a sound quantization, and wrongly quantized DiTs that must read above it.
+# Set between the readings on an H100 SXM: sound 0.0132-0.0133, the two controls 0.038-0.042
+QUANT_REL_MAX = 0.025
+QUANT_NOISE_SEEDS = (2, 3)
+_NONE = dict.fromkeys(KERNELS, 0)
+_EVALS = (STEPS - 1) * DEPTH  # block forwards of one 250-step batch (the last step evaluates nothing)
+_SHORT = (SHORT_STEPS - 1) * DEPTH
+# exact launch counts per path: every wrapper is counted, so each dict names all eight
 EXPECTED_LAUNCHES = {
-    "flash_attention_rope": (STEPS - 1) * DEPTH,
-    "fused_norm_modulate": 2 * (STEPS - 1) * DEPTH,
-    "fused_matmul_silu": (STEPS - 1) * DEPTH,
-    "flash_attention": DEC_DEPTH,
+    "bf16": _NONE | {"flash_attention_rope": _EVALS, "fused_norm_modulate": 2 * _EVALS,
+                     "fused_matmul_silu": _EVALS, "flash_attention": DEC_DEPTH},
+    "w8a8": _NONE | {"fused_norm_modulate_quant": 2 * _EVALS, "fused_silu_mul_quant": _EVALS,
+                     "flash_attention_rope": _EVALS, "flash_attention": DEC_DEPTH},
+    # 10 steps, latents only (the decode is compared apart)
+    "flash_qkr": _NONE | {"flash_attention_qknorm_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
+                          "fused_matmul_silu": _SHORT},
+    "flash_fused": _NONE | {"flash_attention_fused_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
+                            "fused_matmul_silu": _SHORT},
 }
 
 
@@ -105,6 +139,28 @@ def compare(name: str, out, ref, rtol: float, atol: float) -> float:
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def compare_quant(name: str, out, ref) -> float:
+    """The int8 outputs within one step of the plain version's, at most
+    1e-3 of them off (a value on a rounding boundary after another fp32 row
+    sum), row scales within rtol 1e-6. Returns max |q * scale - q_ref *
+    scale_ref| (the dequantized values)."""
+    import torch
+
+    torch.cuda.synchronize()
+    (q, s), (q_ref, s_ref) = out, ref
+    dq = (q.int() - q_ref.int()).abs()
+    max_dq, flips = int(dq.max()), float((dq != 0).float().mean())
+    s_rel = float(((s - s_ref).abs() / s_ref.abs()).max())
+    err = float((q.float() * s - q_ref.float() * s_ref).abs().max())
+    ok = max_dq <= 1 and flips <= 1e-3 and s_rel <= 1e-6 and bool(torch.isfinite(s).all())
+    log(f"  {name}: max |dq| {max_dq} (tolerance 1), share of q off {flips:.3g} (tolerance 1e-3), "
+        f"scales max rel err {s_rel:.3g} (tolerance 1e-6), dequantized max_abs_err {err:.6g} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
 
 
 def kernel_phases(dev, batch: int) -> dict:
@@ -204,6 +260,68 @@ def kernel_phases(dev, batch: int) -> dict:
     rows["fused_matmul_silu"] = (err, ms, plain_ms, lib_ms,
                                  *bound((m * d + h2 * d + m * h2 // 2) * 2 + h2 * 4, 2 * m * d * h2))
     del x, w12
+
+    # -- 7: flash_attention_qknorm_rope, DiT attention under attention_impl flash_qkr
+    b, h, n, d = b2, 12, 1024, 64
+    log(f"[kernel] flash_attention_qknorm_rope q,k,v ({b},{h},{n},{d}) bf16, qk-norm weights ({d},) fp32")
+    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
+    qs, ks = (1 + 0.1 * randn(d, dtype=torch.float32) for _ in range(2))
+    ref = fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)
+    err = compare("flash_attention_qknorm_rope", fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin),
+                  ref, **attn_tol(ref))
+    ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin), 3, 1)
+    qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
+    rows["flash_attention_qknorm_rope"] = (err, ms, plain_ms, lib_ms, *bound(
+        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d))
+    del q, k, v, qr, kr, ref
+
+    # -- 8: flash_attention_fused_rope, DiT attention under attention_impl flash_fused
+    log(f"[kernel] flash_attention_fused_rope q,k ({b},{n},{h},{d}) bf16, v a view of qkv ({b},{n},3,{h},{d})")
+    qkv = randn(b, n, 3, h, d)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    ref = fa.flash_attention_fused_rope_plain(q, k, v, cos, sin)
+    err = compare("flash_attention_fused_rope", fa.flash_attention_fused_rope(q, k, v, cos, sin),
+                  ref, **attn_tol(ref))
+    ms = cuda_ms(lambda: fa.flash_attention_fused_rope(q, k, v, cos, sin), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 3, 1)
+    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (q, k))
+    vt = v.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vt), 20)
+    rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
+        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d))
+    del qkv, q, k, v, qr, kr, vt, ref
+
+    # -- 9: fused_norm_modulate_quant, the w8a8 adaLN epilogue in a CFG-doubled step
+    b, n, d = b2, 1024, 768
+    log(f"[kernel] fused_norm_modulate_quant x ({b},{n},{d}) bf16 -> int8 + ({b},{n},1) fp32")
+    x = randn(b, n, d, scale=3.0)
+    w = 1 + 0.1 * randn(d, dtype=torch.float32)
+    mod = randn(b, 6, d, scale=0.1)
+    sh, sc = mod[:, 0], mod[:, 1]
+    err = compare_quant("fused_norm_modulate_quant", fad.fused_norm_modulate_quant(x, w, sh, sc),
+                        fad.fused_norm_modulate_quant_plain(x, w, sh, sc))
+    ms = cuda_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc), 50)
+    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_quant_plain(x, w, sh, sc), 10)
+    # per element: square and sum, scale, weight, (1 + scale) product, shift,
+    # absmax, divide, round
+    rows["fused_norm_modulate_quant"] = (err, ms, plain_ms, None, *bound(
+        b * n * d * (2 + 1) + b * n * 4 + d * 4 + 2 * b * d * 2, fp32_flops=9 * b * n * d))
+    del x
+
+    # -- 10: fused_silu_mul_quant, the w8a8 SwiGLU gate (M = 2 * batch * 1024)
+    m, h = b2 * 1024, 2048
+    log(f"[kernel] fused_silu_mul_quant x12 ({b2},1024,{2 * h}) bf16 -> int8 ({b2},1024,{h}) + fp32 scales")
+    x12 = randn(b2, 1024, 2 * h, scale=2.0)
+    err = compare_quant("fused_silu_mul_quant", fad.fused_silu_mul_quant(x12),
+                        fad.fused_silu_mul_quant_plain(x12))
+    ms = cuda_ms(lambda: fad.fused_silu_mul_quant(x12), 50)
+    plain_ms = cuda_ms(lambda: fad.fused_silu_mul_quant_plain(x12), 10)
+    # per output: exp, add, divide, two products, absmax, divide, round
+    rows["fused_silu_mul_quant"] = (err, ms, plain_ms, None, *bound(
+        m * 2 * h * 2 + m * h + m * 4, fp32_flops=8 * m * h))
+    del x12
     torch.cuda.empty_cache()
 
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by) in rows.items():
@@ -211,6 +329,37 @@ def kernel_phases(dev, batch: int) -> dict:
         log(f"  {name} (batch {batch}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
     return rows
+
+
+def int8_gemm_phase(dev, batch: int) -> None:
+    """The int8 products of the w8a8 leg at the path's shapes: ``torch._int_mm``
+    with the weight as the transposed view of its contiguous (out, in) int8
+    tensor (the layout the port passes), checked exact against an fp64
+    product, timed beside cuBLAS bf16 (``F.linear``) at the same shape and
+    beside the whole ``qdense_pre`` (product + fp32 dequant passes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops.quant import QLinear, _int_mm, qdense_pre
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    m = 2 * batch * 1024
+    for name, rows_, k, n in (("qkv", m, 768, 2304), ("w12", m, 768, 4096), ("w3", m, 2048, 768),
+                              ("adaLN", 2 * batch, 768, 4608)):
+        a = torch.randint(-127, 128, (rows_, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        exact = torch.equal(_int_mm(a, w).double(), a.double() @ w.double().t())
+        if not exact:
+            raise SystemExit(f"torch._int_mm ({name}) is not the exact int32 product")
+        p = QLinear(w, torch.rand(n, generator=g, device=dev) * 1e-3, torch.zeros(n, device=dev))
+        xs = torch.rand(rows_, 1, generator=g, device=dev) * 1e-2
+        xb, wb = a.bfloat16(), w.bfloat16()
+        int_ms = cuda_ms(lambda: _int_mm(a, w), 20)
+        pre_ms = cuda_ms(lambda: qdense_pre(a, xs, p), 20)
+        bf_ms = cuda_ms(lambda: F.linear(xb, wb), 20)
+        log(f"  int8 GEMM {name} M={rows_} K={k} N={n} (batch {batch}): torch._int_mm {int_ms:.4f} ms "
+            f"(exact), qdense_pre {pre_ms:.4f} ms, cuBLAS bf16 {bf_ms:.4f} ms")
+    torch.cuda.empty_cache()
 
 
 def build_models(dev):
@@ -233,35 +382,40 @@ def build_models(dev):
     return spec, bundle
 
 
-def sampler(spec, steps, dev, kernels: bool):
+def sampler(spec, steps, dev, kernels: bool, quant=None, attn_impl="flash_rope"):
+    import torch
+
     from ldmae_tpu_torch.eval.sampling import make_sample_fn
     from ldmae_tpu_torch.transport import create_transport
 
-    impls = (dict(attn_impl="flash_rope", adaln_impl="fused", mlp_impl="fused") if kernels
+    impls = (dict(attn_impl=attn_impl, adaln_impl="fused", mlp_impl="fused") if kernels
              else dict(attn_impl="xla", adaln_impl="xla", mlp_impl="xla"))
-    import torch
-
     return make_sample_fn(
         spec, create_transport("Linear", "velocity", use_lognorm=True),
         num_steps=steps, sampling_method="euler", timestep_shift=SHIFT, cfg_scale=CFG_SCALE,
         cfg_interval=True, cfg_interval_start=CFG_START, cfg_channels=3,
-        compute_dtype=torch.bfloat16, rope_layout="half", device=dev, **impls,
+        compute_dtype=torch.bfloat16, rope_layout="half", quant_mode=quant, device=dev, **impls,
     )
 
 
-def pipeline_phases(dev, profile: bool = False) -> dict:
+def check_counts(path: str, counts: dict) -> None:
+    log(f"  launches: {counts}")
+    if counts != EXPECTED_LAUNCHES[path]:
+        raise SystemExit(f"{path}: launch counts {counts} != expected {EXPECTED_LAUNCHES[path]}")
+
+
+def full_path(path: str, spec, bundle, y, dev, quant=None):
+    """One 250-step batch through the entry points, launches counted from 0;
+    returns (images, launch counts, seconds)."""
     import torch
 
     from ldmae_tpu_torch import ops
 
-    spec, bundle = build_models(dev)
-    y = torch.arange(BATCH, device=dev) * 125 % 1000
-    sample_fn = sampler(spec, STEPS, dev, kernels=True)
-    log(f"[pipeline] warm-up: LightningDiT-B/1 + VMAE f8d16_prev, batch {BATCH}, 4 steps")
-    sampler(spec, 4, dev, kernels=True)(bundle, y, generator=torch.Generator(device=dev).manual_seed(1))
+    sample_fn = sampler(spec, STEPS, dev, kernels=True, quant=quant)
+    log(f"[pipeline] {path} warm-up: LightningDiT-B/1 + VMAE f8d16_prev, batch {BATCH}, 4 steps")
+    sampler(spec, 4, dev, kernels=True, quant=quant)(bundle, y, generator=torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
-
-    log(f"[pipeline] main path: batch {BATCH}, {STEPS} Euler steps, shift {SHIFT}, CFG {CFG_SCALE} "
+    log(f"[pipeline] {path} path: batch {BATCH}, {STEPS} Euler steps, shift {SHIFT}, CFG {CFG_SCALE} "
         f"on [{CFG_START}, 1] (phased: {N1} single-batch steps), decode to uint8")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -271,9 +425,7 @@ def pipeline_phases(dev, profile: bool = False) -> dict:
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches: {counts}")
-    if counts != EXPECTED_LAUNCHES:
-        raise SystemExit(f"launch counts {counts} != expected {EXPECTED_LAUNCHES}")
+    check_counts(path, counts)
     if imgs.shape != (BATCH, 256, 256, 3) or imgs.dtype != torch.uint8:
         raise SystemExit(f"images {tuple(imgs.shape)} {imgs.dtype}, expected ({BATCH}, 256, 256, 3) uint8")
     spread = float(imgs.float().std())
@@ -282,34 +434,152 @@ def pipeline_phases(dev, profile: bool = False) -> dict:
     log(f"  images {tuple(imgs.shape)} uint8, pixel std {spread:.3f}; {seconds:.4f} s per batch of "
         f"{BATCH}, {BATCH / seconds:.4f} images/s, peak memory {peak_gb:.3f} GB "
         f"on {torch.cuda.get_device_name(0)}")
+    return imgs, counts, seconds
 
-    log("[pipeline] 10 steps: kernels vs the plain xla impls from the same noise")
-    z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+
+def short_compare(what: str, spec, bundle, y, z, dev, kernel_kw: dict, ref_kw: dict, decode_impl: str,
+                  count_path=None):
+    """SHORT_STEPS steps from z through two impl sets; the latents within 5e-2
+    of their scale, and the kernel path's latents decoded by ``decode_impl``
+    within 8 levels of the plain ``xla`` decode of the same latents. With
+    ``count_path``, the first run's launches are counted exactly."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+
+    log(f"[pipeline] {SHORT_STEPS} steps: {what} from the same noise")
     latents = bundle | {"vae": None}
-    lat_k = sampler(spec, 10, dev, kernels=True)(latents, y, z=z)
-    lat_x = sampler(spec, 10, dev, kernels=False)(latents, y, z=z)
+    ops.reset_launch_counts()
+    lat_k = sampler(spec, SHORT_STEPS, dev, **kernel_kw)(latents, y, z=z)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if count_path:
+        check_counts(count_path, counts)
+    lat_x = sampler(spec, SHORT_STEPS, dev, **ref_kw)(latents, y, z=z)
     if not (torch.isfinite(lat_k).all() and lat_k.shape == (BATCH, 16, 32, 32)):
-        raise SystemExit("kernel-path latents are not finite (8, 16, 32, 32)")
+        raise SystemExit(f"{what}: latents are not finite ({BATCH}, 16, 32, 32)")
     lat_rel = float((lat_k - lat_x).abs().max() / lat_x.abs().max())
     moved = float((lat_x - z).abs().max())
     vae = bundle["vae"]
-    img_k = vae.decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="flash_rope")
+    img_k = vae.decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl=decode_impl)
     img_x = vae.decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="xla")
     px = int((img_k.int() - img_x.int()).abs().max())
+    px_paths = int((img_x.int() - vae.decode_to_images(lat_x, compute_dtype=torch.bfloat16,
+                                                       attn_impl="xla").int()).abs().max())
     ok = lat_rel <= 5e-2 and moved > 1e-2 and px <= 8
-    log(f"  latents max rel err {lat_rel:.6g} (tolerance 5e-2: bf16 roundings, and RoPE rotated in fp32 "
-        f"in the kernel but in bf16 by apply_rope_half, compounded over 10 CFG-10 steps); latents moved "
-        f"{moved:.4g} from z; decode kernel vs xla max pixel diff {px} (tolerance 8 levels) -> "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"  latents max rel err {lat_rel:.6g} (tolerance 5e-2: bf16 roundings in other places, "
+        f"compounded over {SHORT_STEPS} CFG-10 steps); latents moved {moved:.4g} from z; decode "
+        f"{decode_impl} vs xla max pixel diff {px} (tolerance 8 levels); images of the two paths' "
+        f"latents differ by up to {px_paths} levels -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("kernel path disagrees with the xla path")
+        raise SystemExit(f"{what}: the two paths disagree")
+    return counts
+
+
+def psnr(a, b) -> float:
+    """PSNR of two uint8 image batches, as perf_quant.py computes it."""
+    d = a.double() - b.double()
+    return 10 * math.log10(255.0**2 / max(float((d * d).mean()), 1e-9))
+
+
+def pipeline_phases(dev, profile: bool = False) -> dict:
+    import torch
+
+    from ldmae_tpu_torch.models import quantize_dit_
+
+    spec, bundle = build_models(dev)
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    imgs, counts_bf16, sec_bf16 = full_path("bf16", spec, bundle, y, dev)
+
+    # path (a): the same seeded weights, quantized, and the same noise
+    qbundle = bundle | {"dit": quantize_dit_(copy.deepcopy(bundle["dit"]))}
+    qimgs, counts_w8a8, sec_w8a8 = full_path("w8a8", spec, qbundle, y, dev, quant="w8a8")
+    db = psnr(qimgs, imgs)
+    mae = float((qimgs.float() - imgs.float()).abs().mean())
+    log(f"[pipeline] w8a8 vs bf16, {STEPS} steps, same weights and noise: PSNR {db:.4f} dB "
+        f"(gate {PSNR_MIN} dB), MAE {mae:.4f}/255; seconds per batch of {BATCH}: w8a8 {sec_w8a8:.4f} "
+        f"({BATCH / sec_w8a8:.4f} images/s), bf16 {sec_bf16:.4f} ({BATCH / sec_bf16:.4f} images/s), "
+        f"w8a8/bf16 time {sec_w8a8 / sec_bf16:.4f}")
+    if not db >= PSNR_MIN:
+        raise SystemExit(f"w8a8 images are {db:.2f} dB from the bf16 ones (gate {PSNR_MIN} dB)")
+
+    z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    short_compare("bf16 kernels vs the plain xla impls", spec, bundle, y, z, dev,
+                  dict(kernels=True), dict(kernels=False), "flash_rope")
+    short_compare("w8a8 kernels vs the w8a8 xla impls", spec, qbundle, y, z, dev,
+                  dict(kernels=True, quant="w8a8"), dict(kernels=False, quant="w8a8"), "flash_rope")
+    counts = {"bf16": counts_bf16, "w8a8": counts_w8a8}
+    for impl in ("flash_qkr", "flash_fused"):
+        counts[impl] = short_compare(f"attention_impl {impl} vs flash_rope", spec, bundle, y, z, dev,
+                                     dict(kernels=True, attn_impl=impl), dict(kernels=True), impl,
+                                     count_path=impl)
+    quant_gate(spec, bundle, qbundle, y, dev)
     if profile:
         profile_phase(spec, bundle, y, dev)
-    return {"counts": counts, "seconds": seconds}
+        profile_phase(spec, qbundle, y, dev, quant="w8a8")
+    return {"counts": counts, "seconds": {"bf16": sec_bf16, "w8a8": sec_w8a8}}
+
+
+def quant_gate(spec, bundle, qbundle, y, dev) -> None:
+    """The w8a8 leg against bf16 on what the DiT computes: SHORT_STEPS-step
+    latents of both kernel paths from the same noise z, their difference
+    relative to what the bf16 path moved the latents (L2 norms,
+    ||w8a8 - bf16|| / ||bf16 - z||) within QUANT_REL_MAX at each noise of
+    QUANT_NOISE_SEEDS. Two controls
+    show the bound can fail: the quantized DiT with every weight scale 10 %
+    high, and with its int8 weights on a 16-step (4-bit) grid; each must
+    read above the bound. (The PSNR of the decoded images cannot tell these
+    apart: the random-weight VMAE decodes to near-flat images.)"""
+    import torch
+
+    from ldmae_tpu_torch.ops.quant import QLinear
+
+    def control(fn):
+        dit = copy.deepcopy(qbundle["dit"])
+        with torch.no_grad():
+            for m in dit.modules():
+                if isinstance(m, QLinear):
+                    fn(m)
+        return qbundle | {"dit": dit}
+
+    def latents(b, z, quant):
+        return sampler(spec, SHORT_STEPS, dev, kernels=True, quant=quant)(b | {"vae": None}, y, z=z)
+
+    def rel(lat, ref, z):
+        if not (torch.isfinite(lat).all() and lat.shape == ref.shape):
+            raise SystemExit("quant gate: latents are not finite")
+        d, moved = lat.float() - ref.float(), ref.float() - z
+        return float(d.norm() / moved.norm()), float(d.abs().max() / moved.abs().max())
+
+    controls = {
+        "weight scales x 1.1": control(lambda m: m.w_scale.mul_(1.1)),
+        "int8 weights on a 16-step grid": control(
+            lambda m: m.w_q.copy_((m.w_q.float() / 16).round().mul(16).clamp(-127, 127).to(torch.int8))),
+    }
+    log(f"[pipeline] {SHORT_STEPS} steps: w8a8 vs bf16 latents from the same noise "
+        f"(bound {QUANT_REL_MAX} relative L2, relative to the bf16 path's move from the noise)")
+    ok = True
+    for seed in QUANT_NOISE_SEEDS:
+        z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        ref = latents(bundle, z, None)
+        l2, mx = rel(latents(qbundle, z, "w8a8"), ref, z)
+        ok &= l2 <= QUANT_REL_MAX
+        log(f"  noise seed {seed}: w8a8 relative L2 error {l2:.6g}, max err / max move {mx:.6g} "
+            f"(bound {QUANT_REL_MAX}) -> {'ok' if l2 <= QUANT_REL_MAX else 'FAIL'}")
+        if seed != QUANT_NOISE_SEEDS[0]:
+            continue
+        for name, b in controls.items():
+            l2, mx = rel(latents(b, z, "w8a8"), ref, z)
+            ok &= l2 > QUANT_REL_MAX
+            log(f"  noise seed {seed}: control ({name}) relative L2 error {l2:.6g}, max err / max move {mx:.6g} "
+                f"(must exceed {QUANT_REL_MAX}) -> {'ok' if l2 > QUANT_REL_MAX else 'FAIL'}")
+    if not ok:
+        raise SystemExit("quant gate: w8a8 latents out of bound, or a wrongly quantized DiT within it")
 
 
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
-OWN_KERNELS = ("flash_fwd_kernel", "rope_half_kernel", "norm_modulate_kernel", "matmul_silu_kernel")
+OWN_KERNELS = ("flash_fwd_kernel", "norm_rope_kernel", "norm_modulate_kernel", "matmul_silu_kernel",
+               "norm_modulate_quant_kernel", "silu_mul_quant_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -320,7 +590,7 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_phase(spec, bundle, y, dev) -> None:
+def profile_phase(spec, bundle, y, dev, quant=None) -> None:
     """Where the time goes: torch.profiler over one batch sampled at
     PROFILE_STEPS steps and decoded; device time by kernel, by group (the
     port's kernels, cuBLAS GEMMs, everything else) and the device's idle
@@ -329,7 +599,7 @@ def profile_phase(spec, bundle, y, dev) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn = sampler(spec, PROFILE_STEPS, dev, kernels=True)
+    fn = sampler(spec, PROFILE_STEPS, dev, kernels=True, quant=quant)
     fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(3))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -347,7 +617,8 @@ def profile_phase(spec, bundle, y, dev) -> None:
     for e in events:
         group = next(g for g, marks in PROFILE_GROUPS if any(m in e.key.lower() for m in marks))
         groups[group] += e.self_device_time_total / 1e3
-    log(f"[profile] batch {BATCH}, {PROFILE_STEPS} steps + decode under torch.profiler: wall {wall_ms:.1f} ms, "
+    log(f"[profile] {quant or 'bf16'} path, batch {BATCH}, {PROFILE_STEPS} steps + decode under torch.profiler: "
+        f"wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{sum(e.count for e in events)} kernel launches")
     for group, ms in groups.items():
@@ -392,14 +663,16 @@ def main() -> int:
     rows = kernel_phases(dev, BATCH)
     log(f"[kernel] the same at bench.py's batch {BENCH_BATCH}")
     kernel_phases(dev, BENCH_BATCH)
+    log("[kernel] int8 products of the w8a8 leg")
+    int8_gemm_phase(dev, BATCH)
     result = pipeline_phases(dev, profile="--profile" in sys.argv[1:])
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by) in rows.items():
-        source, replaces = KERNELS[name]
+        source, replaces, path = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": result["counts"][name], "max_abs_err": err, "ms": ms,
+            "launches": result["counts"][path][name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
     log(smi)

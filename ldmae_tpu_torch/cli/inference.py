@@ -2,7 +2,8 @@
 
 Builds the sampling pipeline from a reference-layout YAML exactly as the JAX
 CLI's ``_build_pipeline`` does (half-split RoPE layout, bf16, the
-configured attention / adaLN / MLP impls), loads the DiT EMA weights from
+configured attention / adaLN / MLP impls, int8 quantization when
+``parallel.quant`` or ``--quant`` asks for it), loads the DiT EMA weights from
 ``ckpt_path`` (a reference ``.pt``) and the VMAE from ``vae.weight_path``
 when those files exist, and otherwise uses seeded random weights. Writes
 PNGs (``--demo``: the reference's 2x4 demo grid).
@@ -13,7 +14,7 @@ tokenizers, latent statistics computed from shards (only an existing
 ``latents_stats.pt`` is read).
 
 Usage:
-    python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo]
+    python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..models import (
     dit_spec,
     permute_qk_for_half_rope,
     production_vmae_spec,
+    quantize_dit_,
     seeded_init_,
 )
 from ..transport import create_transport
@@ -87,8 +89,11 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
     else:
         print(f"no DiT checkpoint at {ckpt!r}: using seeded random weights (seed {seed})")
         sd = seeded_init_(dit, seed).state_dict()
-    # sampling always runs in the half-split RoPE layout
+    # sampling always runs in the half-split RoPE layout, quantized after it
     dit.load_state_dict(permute_qk_for_half_rope(sd, spec), strict=True)
+    quant = config.parallel.quant
+    if quant:
+        quantize_dit_(dit)
 
     if not config.vae.model_name.startswith("vmae"):
         raise NotImplementedError(
@@ -126,6 +131,7 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
         attn_impl=par.attention_impl,
         rope_layout="half",
         adaln_impl=par.adaln_impl,
+        quant_mode=quant,
         mlp_impl=par.mlp_impl,
         device=device,
     )
@@ -193,11 +199,17 @@ def main(argv=None):
     parser.add_argument("--demo", action="store_true")
     parser.add_argument("--demo_out", default=None)
     parser.add_argument("--ckpt", default=None)
+    parser.add_argument(
+        "--quant", default=None, choices=["w8", "w8a8"],
+        help="int8-quantize the DiT for sampling (overrides parallel.quant)",
+    )
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
     config = LDMAEConfig.from_yaml(args.config)
     if args.ckpt:
         config.ckpt_path = args.ckpt
+    if args.quant:
+        config.parallel.quant = args.quant
     return do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device)
 
 

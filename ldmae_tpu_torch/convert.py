@@ -7,6 +7,13 @@ packs qkv as (D, 3, D) and adaLN as (D, na, D); the reference state dicts
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this module
 needs no JAX. The result is in the canonical interleaved RoPE layout; apply
 ``models.permute_qk_for_half_rope`` for ``rope_layout="half"``.
+
+``dit_state_dict_from_jax`` also takes a tree from ``quantize_dit_params``
+(int8 ``w_q`` (L, in, out) and ``w_scale`` (L, out) in place of ``w``; it
+is made after the half-RoPE permutation, so its state dict is already in the
+half layout). Its quantized linears become ``QLinear`` entries (``w_q``
+(out, in) int8, ``w_scale``, ``bias``), which load into a model after
+``models.quantize_dit_``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,19 @@ StateDict = Dict[str, torch.Tensor]
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C", copy=True))
+
+
+def _block_linear(sd: StateDict, name: str, node, i: int, n_in: int, n_out: int) -> None:
+    """Block i of a stacked JAX linear {"w": (L, in, ...)} or its quantized
+    form {"w_q", "w_scale"}, plus "b", as nn.Linear or QLinear entries."""
+    if "w_q" in node:
+        w_q = np.asarray(node["w_q"][i]).reshape(n_in, n_out).T
+        sd[f"{name}.w_q"] = torch.from_numpy(np.ascontiguousarray(w_q, dtype=np.int8))
+        sd[f"{name}.w_scale"] = _t(np.asarray(node["w_scale"][i]).reshape(n_out))
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(node["w"][i]).reshape(n_in, n_out).T)
+    if node.get("b") is not None:
+        sd[f"{name}.bias"] = _t(np.asarray(node["b"][i]).reshape(n_out))
 
 
 def _conv_from_linear(w, p: int, c: int) -> torch.Tensor:
@@ -57,8 +77,7 @@ def dit_state_dict_from_jax(params: Any, spec: DiTSpec) -> StateDict:
     for i in range(spec.depth):
         pre = f"blocks.{i}"
         a = b["attn"]
-        sd[f"{pre}.attn.qkv.weight"] = _t(np.asarray(a["qkv"]["w"][i]).reshape(d, 3 * d).T)
-        sd[f"{pre}.attn.qkv.bias"] = _t(np.asarray(a["qkv"]["b"][i]).reshape(3 * d))
+        _block_linear(sd, f"{pre}.attn.qkv", a["qkv"], i, d, 3 * d)
         sd[f"{pre}.attn.proj.weight"] = _t(np.asarray(a["proj"]["w"][i]).T)
         sd[f"{pre}.attn.proj.bias"] = _t(a["proj"]["b"][i])
         if spec.use_qknorm:
@@ -68,22 +87,20 @@ def dit_state_dict_from_jax(params: Any, spec: DiTSpec) -> StateDict:
                     sd[f"{pre}.attn.{nk}.bias"] = _t(a[nk]["bias"][i])
         m = b["mlp"]
         if spec.use_swiglu:
+            h = spec.swiglu_hidden
             if "w12" in m:  # merged layout (merge_swiglu)
-                w12 = np.asarray(m["w12"]["w"][i]).T
-                b12 = np.asarray(m["w12"]["b"][i])
-            else:
-                w12 = np.concatenate([np.asarray(m["w1"]["w"][i]).T, np.asarray(m["w2"]["w"][i]).T])
-                b12 = np.concatenate([np.asarray(m["w1"]["b"][i]), np.asarray(m["w2"]["b"][i])])
-            sd[f"{pre}.mlp.w12.weight"] = _t(w12)
-            sd[f"{pre}.mlp.w12.bias"] = _t(b12)
-            sd[f"{pre}.mlp.w3.weight"] = _t(np.asarray(m["w3"]["w"][i]).T)
-            sd[f"{pre}.mlp.w3.bias"] = _t(m["w3"]["b"][i])
+                _block_linear(sd, f"{pre}.mlp.w12", m["w12"], i, d, 2 * h)
+            else:  # per-output-channel scales concatenate like the weights
+                halves = [{}, {}]
+                for half, node in zip(halves, (m["w1"], m["w2"])):
+                    _block_linear(half, "w12", node, i, d, h)
+                for key in halves[0]:
+                    sd[f"{pre}.mlp.{key}"] = torch.cat([halves[0][key], halves[1][key]])
+            _block_linear(sd, f"{pre}.mlp.w3", m["w3"], i, h, d)
         else:
-            for fc in ("fc1", "fc2"):
-                sd[f"{pre}.mlp.{fc}.weight"] = _t(np.asarray(m[fc]["w"][i]).T)
-                sd[f"{pre}.mlp.{fc}.bias"] = _t(m[fc]["b"][i])
-        sd[f"{pre}.adaLN_modulation.1.weight"] = _t(np.asarray(b["adaln"]["w"][i]).reshape(d, na * d).T)
-        sd[f"{pre}.adaLN_modulation.1.bias"] = _t(np.asarray(b["adaln"]["b"][i]).reshape(na * d))
+            _block_linear(sd, f"{pre}.mlp.fc1", m["fc1"], i, d, spec.mlp_hidden)
+            _block_linear(sd, f"{pre}.mlp.fc2", m["fc2"], i, spec.mlp_hidden, d)
+        _block_linear(sd, f"{pre}.adaLN_modulation.1", b["adaln"], i, d, na * d)
         if spec.use_rmsnorm:
             sd[f"{pre}.norm1.weight"] = _t(b["norm1"]["scale"][i])
             sd[f"{pre}.norm2.weight"] = _t(b["norm2"]["scale"][i])

@@ -1,12 +1,25 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in and out, non-causal.
 //
-// Replaces two Pallas TPU kernels of ldmae_tpu/ops/flash_attention.py:
+// Replaces four Pallas TPU kernels of ldmae_tpu/ops/flash_attention.py:
 //   * flash_attention_rope (_flash_rope_bhnd_kernel): half-split RoPE on q and
 //     k in fp32, cast back to bf16, then attention (DiT sampling, d = 64);
 //   * flash_attention forward (_flash_fwd_kernel): the same without RoPE, any
-//     sequence length (VMAE decoder, d = 16).
-// Both compute softmax(q k^T d^-1/2) v with fp32 logits, the probabilities
+//     sequence length (VMAE decoder, d = 16);
+//   * flash_attention_qknorm_rope (_flash_qknorm_rope_kernel): per-head RMS
+//     qk-norm with its fp32 weight, then RoPE, then attention (opt-in
+//     impl "flash_qkr");
+//   * flash_attention_fused_rope (_flash_rope_kernel): RoPE + attention on q,
+//     k, v in the (B, N, H*hd) layout of the qkv projection, the output
+//     written in that layout (opt-in impl "flash_fused").
+// All compute softmax(q k^T d^-1/2) v with fp32 logits, the probabilities
 // cast to bf16 before P.V, and P.V accumulated in fp32.
+//
+// Layouts: the attention core reads q, k, v and writes the output through
+// per-operand element strides of batch, head and row (a row is one token of
+// one head, its d elements contiguous), so the (B, H, N, d) tensors of the
+// first three kernels and the (B, N, H*hd) rows of the fourth, v read as a
+// strided view of the packed qkv, go through the same code with nothing
+// transposed or copied.
 //
 // What bounds it: at the sampling shapes (N = 1024, d = 64) the two products
 // are 4 N^2 d flops per head against 8 N d bytes, far above the card's ridge,
@@ -24,8 +37,10 @@
 // rotated each shared-memory tile stalled on its table loads (PERF.md has
 // its times). So a small elementwise pass rotates q and k once into scratch
 // (0.45 GB moved at B = 72), and the attention kernel reads the rotated
-// copies. The rounding is the TPU kernel's: fp32
-// x*cos + rot(x)*sin without fused multiply-add, one bf16 rounding.
+// copies. One pre-pass (norm_rope_kernel) serves all three RoPE kernels, the
+// per-head qk-norm of flash_attention_qknorm_rope a template switch of it. The
+// rounding is the TPU kernel's: fp32 x*cos + rot(x)*sin without fused
+// multiply-add, one bf16 rounding.
 //
 // Rounding that differs from the TPU kernel: p is rounded to bf16 before it
 // is normalised (the row sum stays fp32 and divides at the end), and exp runs
@@ -49,17 +64,35 @@ struct Shape {
                                                   // consecutive rows on other banks
   // q tile + two K and two V tiles
   static constexpr int kSmemBytes = 5 * kBlock * kLd * 2;
+  // Blocks per SM the register budget must allow: four fit the shared memory
+  // (46 KB each at d = 64) if a thread keeps to 128 registers; without the
+  // bound the strided indexing took d = 64 to 132 registers and three blocks.
+  static constexpr int kMinBlocks = D <= 64 ? 4 : 3;
 };
 
-// Asynchronous copy of a 64 x D tile (row stride D in global) into shared
-// memory (row stride kLd); rows >= valid are zero-filled.
+// One operand of the attention core: element (b, h, row, c) lives at
+// p + b * sb + h * sh + row * sr + c. Every stride and p are 16-byte aligned.
+struct Operand {
+  const bf16* p;
+  long long sb, sh;
+  int sr;
+};
+
+struct AttnArgs {
+  Operand q, k, v, o;  // o.p is written
+  int heads, n;
+  float scale_log2;
+};
+
+// Asynchronous copy of a 64 x D tile (row stride ld elements in global) into
+// shared memory (row stride kLd); rows >= valid are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int valid) {
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int ld, int valid) {
   constexpr int kVecs = D / 8;
   for (int i = threadIdx.x; i < kBlock * kVecs; i += kThreads) {
     const int r = i / kVecs, c = (i % kVecs) * 8;
     const int rr = r < valid ? r : 0;  // a valid address; nothing is read when r >= valid
-    cp_async16_zfill(s + r * Shape<D>::kLd + c, g + (size_t)rr * D + c, r < valid ? 16 : 0);
+    cp_async16_zfill(s + r * Shape<D>::kLd + c, g + rr * ld + c, r < valid ? 16 : 0);
   }
 }
 
@@ -73,12 +106,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// grid: (ceil(n / 64), batch * heads); q, k, v, out: (batch * heads, n, D).
+// grid: (ceil(n / 64), batch * heads).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int n,
-                     float scale_log2) {
+__global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kernel(const AttnArgs a) {
   constexpr int kDK = Shape<D>::kDK;
   constexpr int kLd = Shape<D>::kLd;
   constexpr int kKSteps = kDK / 16;  // mma steps over the head dim
@@ -88,8 +118,14 @@ __global__ void __launch_bounds__(kThreads)
   bf16* sk = sq + kBlock * kLd;      // two buffers
   bf16* sv = sk + 2 * kBlock * kLd;  // two buffers
 
+  const int n = a.n;
+  const float scale_log2 = a.scale_log2;
+  const int bi = blockIdx.y / a.heads, hi = blockIdx.y % a.heads;
+  const bf16* __restrict__ q = a.q.p + bi * a.q.sb + hi * a.q.sh;
+  const bf16* __restrict__ k = a.k.p + bi * a.k.sb + hi * a.k.sh;
+  const bf16* __restrict__ v = a.v.p + bi * a.v.sb + hi * a.v.sh;
+  bf16* __restrict__ out = const_cast<bf16*>(a.o.p) + bi * a.o.sb + hi * a.o.sh;
   const int q0 = blockIdx.x * kBlock;
-  const size_t head = (size_t)blockIdx.y * n * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int ntiles = (n + kBlock - 1) / kBlock;
@@ -98,10 +134,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < 5 * kBlock * (kDK - D); i += kThreads)
       sq[(i / (kDK - D)) * kLd + D + i % (kDK - D)] = __float2bfloat16_rn(0.f);
   }
-  load_tile_async<D>(sq, q + head + (size_t)q0 * D, n - q0);
+  load_tile_async<D>(sq, q + (long long)q0 * a.q.sr, a.q.sr, n - q0);
   cp_async_commit();
-  load_tile_async<D>(sk, k + head, n);
-  load_tile_async<D>(sv, v + head, n);
+  load_tile_async<D>(sk, k, a.k.sr, n);
+  load_tile_async<D>(sv, v, a.v.sr, n);
   cp_async_commit();
   cp_async_wait<1>();  // the q tile
   __syncthreads();
@@ -123,9 +159,11 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* kt = sk + (it & 1) * kBlock * kLd;
     const bf16* vt = sv + (it & 1) * kBlock * kLd;
     if (it + 1 < ntiles) {  // prefetch the next tile into the other buffers
-      const size_t next = head + (size_t)(kv0 + kBlock) * D;
-      load_tile_async<D>(sk + ((it + 1) & 1) * kBlock * kLd, k + next, n - kv0 - kBlock);
-      load_tile_async<D>(sv + ((it + 1) & 1) * kBlock * kLd, v + next, n - kv0 - kBlock);
+      const long long next = kv0 + kBlock;
+      load_tile_async<D>(sk + ((it + 1) & 1) * kBlock * kLd, k + next * a.k.sr, a.k.sr,
+                         n - kv0 - kBlock);
+      load_tile_async<D>(sv + ((it + 1) & 1) * kBlock * kLd, v + next * a.v.sr, a.v.sr,
+                         n - kv0 - kBlock);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -213,48 +251,93 @@ __global__ void __launch_bounds__(kThreads)
     const int col = i * 8 + 2 * t;
     if (col >= D) continue;
     if (r0 < n)
-      *reinterpret_cast<uint32_t*>(out + head + (size_t)r0 * D + col) =
+      *reinterpret_cast<uint32_t*>(out + (long long)r0 * a.o.sr + col) =
           pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
     if (r1 < n)
-      *reinterpret_cast<uint32_t*>(out + head + (size_t)r1 * D + col) =
+      *reinterpret_cast<uint32_t*>(out + (long long)r1 * a.o.sr + col) =
           pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
   }
 }
 
-// Half-split RoPE of q and k into qr and kr: for each row (position pos) and
-// column c < d/2, x*cos + [-x2 | x1]*sin in fp32 (no fused multiply-add), one
-// bf16 rounding. One thread per 4 columns of each half; d/2 % 4 == 0.
-__global__ void rope_half_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const float* __restrict__ cos, const float* __restrict__ sin,
-                                 bf16* __restrict__ qr, bf16* __restrict__ kr, long long rows,
-                                 int n, int d) {
-  const int half = d / 2, chunks = half / 4;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per = rows * chunks;
-  if (i >= 2 * per) return;
-  const bool is_k = i >= per;
-  if (is_k) i -= per;
-  const long long row = i / chunks;
-  const int c = (int)(i % chunks) * 4;
-  const int pos = (int)(row % n);
-  const bf16* x = (is_k ? k : q) + row * d;
-  bf16* y = (is_k ? kr : qr) + row * d;
-  const uint2 u1 = *reinterpret_cast<const uint2*>(x + c);
-  const uint2 u2 = *reinterpret_cast<const uint2*>(x + c + half);
-  const float4 c1 = *reinterpret_cast<const float4*>(cos + (size_t)pos * d + c);
-  const float4 c2 = *reinterpret_cast<const float4*>(cos + (size_t)pos * d + c + half);
-  const float4 s1 = *reinterpret_cast<const float4*>(sin + (size_t)pos * d + c);
-  const float4 s2 = *reinterpret_cast<const float4*>(sin + (size_t)pos * d + c + half);
-  const bf16* e1 = reinterpret_cast<const bf16*>(&u1);
-  const bf16* e2 = reinterpret_cast<const bf16*>(&u2);
-  const float cc1[4] = {c1.x, c1.y, c1.z, c1.w}, cc2[4] = {c2.x, c2.y, c2.z, c2.w};
-  const float ss1[4] = {s1.x, s1.y, s1.z, s1.w}, ss2[4] = {s2.x, s2.y, s2.z, s2.w};
+struct NormRopeArgs {
+  Operand x[2];          // q, k in
+  Operand y[2];          // rotated q, k out (p written)
+  const float* w[2];     // per-head RMS norm weights (d,) fp32 of q and k; unused without kNorm
+  const float* cos;      // (n, d) fp32 half-split tables
+  const float* sin;
+  long long rows;        // batch * heads * n
+  int heads, n, d;
+  float eps;
+};
+
+// Four consecutive fp32 values of a 16-byte aligned table.
+__device__ __forceinline__ void load4(float* v, const float* p) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+}
+
+// RoPE pre-pass of flash_attention_rope, flash_attention_fused_rope and (with
+// kNorm) flash_attention_qknorm_rope: kLanes lanes per row (one token of one head) of q (blockIdx.y == 0) or k
+// (blockIdx.y == 1); lane j of a row owns columns 4j..4j+3 of each half, read
+// and written 8 bytes at a time (d/2 <= 4 * kLanes). With kNorm, the TPU
+// kernel's cast order: the row normalised in fp32 (the sum of squares by
+// shuffles within the row's lanes, 1/sqrt without the approximate rsqrt),
+// rounded to bf16 and back, times the fp32 weight; then, as without it,
+// x*cos + [-x2 | x1]*sin in fp32 without fused multiply-add and one bf16
+// rounding. A first version, one warp per row with 2-byte accesses, took the
+// pre-pass to half the time of the attention after it.
+template <bool kNorm, int kLanes>
+__global__ void __launch_bounds__(256) norm_rope_kernel(const NormRopeArgs a) {
+  const long long row = (long long)blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int which = blockIdx.y;
+  const int half = a.d / 2, c = 4 * (threadIdx.x % kLanes);
+  // inactive lanes stay to the shuffles with zeros
+  const bool active = row < a.rows && c < half;
+  const int pos = active ? (int)(row % a.n) : 0;
+  const Operand xo = a.x[which], yo = a.y[which];
+  float x1[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
+  const bf16* x = nullptr;
+  bf16* y = nullptr;
+  if (active) {
+    const long long bh = row / a.n, b = bh / a.heads, h = bh % a.heads;
+    x = xo.p + b * xo.sb + h * xo.sh + (long long)pos * xo.sr;
+    y = const_cast<bf16*>(yo.p) + b * yo.sb + h * yo.sh + (long long)pos * yo.sr;
+    const uint2 u1 = *reinterpret_cast<const uint2*>(x + c);
+    const uint2 u2 = *reinterpret_cast<const uint2*>(x + c + half);
+    const bf16* e1 = reinterpret_cast<const bf16*>(&u1);
+    const bf16* e2 = reinterpret_cast<const bf16*>(&u2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x1[j] = __bfloat162float(e1[j]), x2[j] = __bfloat162float(e2[j]);
+  }
+  if (kNorm) {
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ss += __fadd_rn(__fmul_rn(x1[j], x1[j]), __fmul_rn(x2[j], x2[j]));
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o, kLanes);
+    const float rs = 1.f / sqrtf(__fdiv_rn(ss, (float)a.d) + a.eps);
+    if (active) {
+      float w1[4], w2[4];
+      load4(w1, a.w[which] + c);
+      load4(w2, a.w[which] + c + half);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x1[j] = __fmul_rn(round_bf16(__fmul_rn(x1[j], rs)), w1[j]);
+        x2[j] = __fmul_rn(round_bf16(__fmul_rn(x2[j], rs)), w2[j]);
+      }
+    }
+  }
+  if (!active) return;
+  float c1[4], c2[4], s1[4], s2[4];
+  load4(c1, a.cos + (size_t)pos * a.d + c);
+  load4(c2, a.cos + (size_t)pos * a.d + c + half);
+  load4(s1, a.sin + (size_t)pos * a.d + c);
+  load4(s2, a.sin + (size_t)pos * a.d + c + half);
   float o1[4], o2[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float x1 = __bfloat162float(e1[j]), x2 = __bfloat162float(e2[j]);
-    o1[j] = __fadd_rn(__fmul_rn(x1, cc1[j]), __fmul_rn(-x2, ss1[j]));
-    o2[j] = __fadd_rn(__fmul_rn(x2, cc2[j]), __fmul_rn(x1, ss2[j]));
+    o1[j] = __fadd_rn(__fmul_rn(x1[j], c1[j]), __fmul_rn(-x2[j], s1[j]));
+    o2[j] = __fadd_rn(__fmul_rn(x2[j], c2[j]), __fmul_rn(x1[j], s2[j]));
   }
   *reinterpret_cast<uint2*>(y + c) = make_uint2(pack_bf16(o1[0], o1[1]), pack_bf16(o1[2], o1[3]));
   *reinterpret_cast<uint2*>(y + c + half) =
@@ -262,28 +345,50 @@ __global__ void rope_half_kernel(const bf16* __restrict__ q, const bf16* __restr
 }
 
 template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int bh, int n,
-                   cudaStream_t stream) {
+cudaError_t launch(const AttnArgs& a, int bh, cudaStream_t stream) {
   constexpr int kSmem = Shape<D>::kSmemBytes;
   // Dynamic shared memory above 48 KB needs an opt-in, which CUDA keeps per
   // device: set it at every launch (cheap) so any card the caller picks has it.
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((n + kBlock - 1) / kBlock, bh);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(q, k, v, out, n, scale_log2);
+  const dim3 grid((a.n + kBlock - 1) / kBlock, bh);
+  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int bh, int n,
-                     int d, cudaStream_t s) {
+cudaError_t dispatch(const AttnArgs& a, int bh, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, bh, n, s);
-    case 64: return launch<64>(q, k, v, out, bh, n, s);
-    case 72: return launch<72>(q, k, v, out, bh, n, s);
+    case 16: return launch<16>(a, bh, s);
+    case 64: return launch<64>(a, bh, s);
+    case 72: return launch<72>(a, bh, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Contiguous (bh, n, d) operands: one "head" per batch index.
+Operand contiguous(const void* p, int n, int d) {
+  return Operand{static_cast<const bf16*>(p), (long long)n * d, 0, d};
+}
+
+AttnArgs contiguous_args(const void* q, const void* k, const void* v, void* out, int n, int d) {
+  return AttnArgs{contiguous(q, n, d), contiguous(k, n, d), contiguous(v, n, d),
+                  contiguous(out, n, d), 1, n, 1.4426950408889634f / sqrtf((float)d)};
+}
+
+template <int kLanes>
+void norm_rope_launch(const NormRopeArgs& a, bool norm, cudaStream_t s) {
+  const dim3 grid((unsigned)((a.rows + 256 / kLanes - 1) / (256 / kLanes)), 2);
+  if (norm) norm_rope_kernel<true, kLanes><<<grid, 256, 0, s>>>(a);
+  else norm_rope_kernel<false, kLanes><<<grid, 256, 0, s>>>(a);
+}
+
+cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
+  const int lanes = a.d / 8;  // lanes a row needs: 4 columns of each half per lane
+  if (a.d % 8 != 0 || lanes > 16) return cudaErrorInvalidValue;
+  if (lanes <= 8) norm_rope_launch<8>(a, norm, s);  // d <= 64
+  else norm_rope_launch<16>(a, norm, s);            // d = 72
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -292,9 +397,8 @@ cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int
 // launch (0 on success).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                          int bh, int n, int d, void* stream) {
-  return static_cast<int>(dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                   static_cast<const bf16*>(v), static_cast<bf16*>(out), bh, n,
-                                   d, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      dispatch(contiguous_args(q, k, v, out, n, d), bh, d, static_cast<cudaStream_t>(stream)));
 }
 
 // As above with half-split RoPE: cos, sin are contiguous (n, d) fp32 tables;
@@ -303,17 +407,50 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
                                               const float* cos, const float* sin, void* qr,
                                               void* kr, void* out, int bh, int n, int d,
                                               void* stream) {
-  if ((d / 2) % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)bh * n;
-  const long long work = 2 * rows * (d / 2 / 4);
-  const int threads = 256;
-  rope_half_kernel<<<(unsigned)((work + threads - 1) / threads), threads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), cos, sin, static_cast<bf16*>(qr),
-      static_cast<bf16*>(kr), rows, n, d);
-  const cudaError_t e = cudaGetLastError();
+  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
+                 {contiguous(qr, n, d), contiguous(kr, n, d)},
+                 {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
+  const cudaError_t e = norm_rope(a, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(dispatch(static_cast<const bf16*>(qr), static_cast<const bf16*>(kr),
-                                   static_cast<const bf16*>(v), static_cast<bf16*>(out), bh, n,
-                                   d, s));
+  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d), bh, d, s));
+}
+
+// As flash_attention_rope with the per-head RMS qk-norm first: qw, kw are
+// the (d,) fp32 norm weights of q and k, eps the norm's epsilon.
+extern "C" int ldmae_flash_attention_qknorm_rope_fwd(const void* q, const void* k, const void* v,
+                                                     const float* qw, const float* kw,
+                                                     const float* cos, const float* sin, void* qr,
+                                                     void* kr, void* out, int bh, int n, int d,
+                                                     float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
+                 {contiguous(qr, n, d), contiguous(kr, n, d)},
+                 {qw, kw}, cos, sin, (long long)bh * n, 1, n, d, eps};
+  const cudaError_t e = norm_rope(a, true, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d), bh, d, s));
+}
+
+// RoPE + attention in the (b, n, h * d) layout: q, k, v rows of token t are
+// at q + (bi * n + t) * q_rs (element row strides; v typically a view of the
+// packed qkv), head hi at + hi * d. qr, kr (scratch) and out are contiguous
+// (b, n, h * d). cos, sin: contiguous (n, d) fp32.
+extern "C" int ldmae_flash_attention_fused_rope_fwd(
+    const void* q, const void* k, const void* v, const float* cos, const float* sin, void* qr,
+    void* kr, void* out, int b, int h, int n, int d, long long q_rs, long long k_rs,
+    long long v_rs, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long hd = (long long)h * d;
+  auto rows = [&](const void* p, long long rs) {
+    return Operand{static_cast<const bf16*>(p), n * rs, d, static_cast<int>(rs)};
+  };
+  NormRopeArgs a{{rows(q, q_rs), rows(k, k_rs)},
+                 {rows(qr, hd), rows(kr, hd)},
+                 {nullptr, nullptr}, cos, sin, (long long)b * h * n, h, n, d, 0.f};
+  const cudaError_t e = norm_rope(a, false, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const AttnArgs args{rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n,
+                      1.4426950408889634f / sqrtf((float)d)};
+  return static_cast<int>(dispatch(args, b * h, d, s));
 }

@@ -41,6 +41,7 @@ def make_sample_fn(
     attn_impl: str = "xla",
     rope_layout: str = "interleaved",
     adaln_impl: str = "xla",
+    quant_mode: Optional[str] = None,
     mlp_impl: str = "xla",
     cfg_phase_split: bool = True,
     device=None,
@@ -53,7 +54,8 @@ def make_sample_fn(
              "latent_mean": (1, C, 1, 1) tensor or None, "latent_std": ...}
     y: (B,) int labels; CFG doubles the batch internally when cfg_scale > 1,
     with the null label num_classes. ``z`` overrides the initial noise,
-    otherwise it is drawn in float32 from ``generator``.
+    otherwise it is drawn in float32 from ``generator``. ``quant_mode``
+    ('w8' | 'w8a8') needs a DiT transformed by ``models.quantize_dit_``.
     """
     device = resolve_device(device)
     if mode.upper() != "ODE":
@@ -87,6 +89,7 @@ def make_sample_fn(
             return dit(
                 x, t, y, compute_dtype=compute_dtype, attn_impl=attn_impl,
                 rope_layout=rope_layout, adaln_impl=adaln_impl, mlp_impl=mlp_impl,
+                quant_mode=quant_mode,
             ).to(x.dtype)
 
         def guided_fn(x, t, y):

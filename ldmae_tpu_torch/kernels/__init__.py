@@ -42,6 +42,10 @@ LIBRARIES = {
         {
             "ldmae_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
             "ldmae_flash_attention_rope_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "ldmae_flash_attention_qknorm_rope_fwd":
+                [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+            "ldmae_flash_attention_fused_rope_fwd":
+                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
         },
     ),
     "fused_norm_modulate": (
@@ -51,6 +55,13 @@ LIBRARIES = {
     "fused_matmul_silu": (
         "fused_matmul_silu.cu",
         {"ldmae_fused_matmul_silu": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    ),
+    "fused_quant": (
+        "fused_quant.cu",
+        {
+            "ldmae_fused_norm_modulate_quant": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _F, _P],
+            "ldmae_fused_silu_mul_quant": [_P, _P, _P, _L, _I, _P],
+        },
     ),
 }
 

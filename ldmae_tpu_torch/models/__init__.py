@@ -7,6 +7,7 @@ from .lightningdit import (
     dit_spec,
     list_models,
     permute_qk_for_half_rope,
+    quantize_dit_,
 )
 from .vmae import VMAE, VMAEConsts, VMAESpec, list_archs, production_vmae_spec, vmae_spec
 
@@ -20,6 +21,7 @@ __all__ = [
     "dit_spec",
     "list_models",
     "permute_qk_for_half_rope",
+    "quantize_dit_",
     "VMAE",
     "VMAEConsts",
     "VMAESpec",

@@ -12,7 +12,8 @@ are constants rebuilt from the spec (``DiTConsts``); the ``pos_embed`` and
 
 ``rope_layout="half"`` needs weights transformed by
 ``permute_qk_for_half_rope`` (the same attention, RoPE as two contiguous
-halves).
+halves). ``quant_mode`` ('w8' | 'w8a8') needs a model transformed by
+``quantize_dit_`` (sampling only), applied after that permutation.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ from ..ops import (
     timestep_embedding_freqs,
     unpatchify,
 )
-from ..ops.fused_adaln import fused_norm_modulate
+from ..ops.fused_adaln import fused_norm_modulate, fused_norm_modulate_quant
 from ..ops.patchify import patch_embed
+from ..ops.quant import is_quantized, maybe_qdense, quantize_linear, swiglu_ffn_quant
 from ..ops.rope import rope_channel_permutation, to_half_layout
 
 
@@ -190,7 +192,7 @@ def _norm_modulate(x, norm, shift, scale, use_rmsnorm: bool, adaln_impl: str):
 
 
 class DiTBlock(nn.Module):
-    """One LightningDiT block (the non-quantized branch of ``_block``)."""
+    """One LightningDiT block (``_block``), full precision or quantized."""
 
     def __init__(self, spec: DiTSpec, device):
         super().__init__()
@@ -207,9 +209,9 @@ class DiTBlock(nn.Module):
         )
 
     def forward(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
-                adaln_impl: str, mlp_impl: str):
-        ada = self.adaLN_modulation[1]
-        mod = dense(c_mod, ada.weight, ada.bias).view(-1, spec.num_adaln, spec.hidden_size)
+                adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None):
+        mod = maybe_qdense(c_mod, self.adaLN_modulation[1], quant_mode)
+        mod = mod.view(-1, spec.num_adaln, spec.hidden_size)
         if spec.wo_shift:
             scale_msa, gate_msa, scale_mlp, gate_mlp = mod.unbind(1)
             shift_msa = shift_mlp = None
@@ -217,20 +219,41 @@ class DiTBlock(nn.Module):
             shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.unbind(1)
         kind = "rms" if spec.use_rmsnorm else "layer"
 
+        # w8a8 + fused epilogue: the adaLN kernel emits the int8 activation
+        # and its row scales, which feed the int8 qkv and w12 matmuls directly
+        fused_quant = (
+            quant_mode == "w8a8"
+            and adaln_impl == "fused"
+            and shift_msa is not None
+            and is_quantized(self.attn.qkv)
+            and spec.use_swiglu
+        )
+        if fused_quant:
+            w1 = None if self.norm1 is None else self.norm1.weight
+            h_q, h_s = fused_norm_modulate_quant(x, w1, shift_msa, scale_msa, kind=kind)
+            attn_out = multi_head_attention(
+                None, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
+                qk_norm_kind=kind, impl=attn_impl, x_quant=(h_q, h_s), out_dtype=x.dtype,
+            )
+            x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
+            w2 = None if self.norm2 is None else self.norm2.weight
+            h_q, h_s = fused_norm_modulate_quant(x, w2, shift_mlp, scale_mlp, kind=kind)
+            mlp_out = swiglu_ffn_quant(h_q, h_s, self.mlp, compute_dtype=x.dtype)
+            return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
+
         h = _norm_modulate(x, self.norm1, shift_msa, scale_msa, spec.use_rmsnorm, adaln_impl)
         attn_out = multi_head_attention(
             h, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
-            qk_norm_kind=kind, impl=attn_impl,
+            qk_norm_kind=kind, impl=attn_impl, quant_mode=quant_mode,
         )
         x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
 
         h = _norm_modulate(x, self.norm2, shift_mlp, scale_mlp, spec.use_rmsnorm, adaln_impl)
+        m = self.mlp
         if spec.use_swiglu:
-            m = self.mlp
-            mlp_out = swiglu_ffn(h, m.w12.weight, m.w12.bias, m.w3.weight, m.w3.bias, impl=mlp_impl)
+            mlp_out = swiglu_ffn(h, m.w12, m.w3, quant_mode=quant_mode, impl=mlp_impl)
         else:
-            m = self.mlp
-            mlp_out = mlp_gelu(h, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, approximate=True)
+            mlp_out = mlp_gelu(h, m.fc1, m.fc2, approximate=True, quant_mode=quant_mode)
         return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
 
 
@@ -285,8 +308,10 @@ class LightningDiT(nn.Module):
         rope_layout: str = "interleaved",
         adaln_impl: str = "xla",
         mlp_impl: str = "xla",
+        quant_mode: Optional[str] = None,
     ) -> torch.Tensor:
-        """x: (N, C, H, W) latents; t, y: (N,). Returns (N, C, H, W) float32."""
+        """x: (N, C, H, W) latents; t, y: (N,). Returns (N, C, H, W) float32.
+        ``quant_mode`` ('w8' | 'w8a8') needs ``quantize_dit_`` first."""
         spec, consts, cd = self.spec, self.consts, compute_dtype
         pe = self.x_embedder.proj
         tokens = patch_embed(x.to(cd), pe.weight, pe.bias, spec.patch_size, compute_dtype=cd)
@@ -305,7 +330,8 @@ class LightningDiT(nn.Module):
 
         rope = consts.rope_half if (rope_layout == "half" and consts.rope is not None) else consts.rope
         for blk in self.blocks:
-            tokens = blk(tokens, c_mod, spec, rope, attn_impl, rope_layout, adaln_impl, mlp_impl)
+            tokens = blk(tokens, c_mod, spec, rope, attn_impl, rope_layout, adaln_impl, mlp_impl,
+                         quant_mode)
 
         fl = self.final_layer
         ada = fl.adaLN_modulation[1]
@@ -348,6 +374,26 @@ def permute_qk_for_half_rope(
                 if key in out:
                     out[key] = out[key][perm.to(out[key].device)]
     return out
+
+
+@torch.no_grad()
+def quantize_dit_(model: LightningDiT) -> LightningDiT:
+    """int8-quantize the block matmul weights in place for sampling
+    (counterpart of ``quantize_dit_params``): each block's qkv, every MLP
+    linear and the adaLN projection become ``QLinear``s. The attention
+    out-projection, the embedders and the final layer stay fp32. Apply
+    after ``permute_qk_for_half_rope`` (it quantizes whatever layout it
+    finds); quantized linears are left as they are. Returns the model."""
+
+    def q(lin):
+        return lin if is_quantized(lin) else quantize_linear(lin)
+
+    for blk in model.blocks:
+        blk.attn.qkv = q(blk.attn.qkv)
+        for name, child in list(blk.mlp.named_children()):
+            setattr(blk.mlp, name, q(child))
+        blk.adaLN_modulation[1] = q(blk.adaLN_modulation[1])
+    return model
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,7 @@ class VitBlock(nn.Module):
         x = x + multi_head_attention(h, self.attn, num_heads, impl=attn_impl)
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, eps=1e-6)
         m = self.mlp
-        return x + mlp_gelu(h, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+        return x + mlp_gelu(h, m.fc1, m.fc2)
 
 
 class _LatentMLP(nn.Module):
@@ -185,7 +185,7 @@ class VMAE(nn.Module):
         fl = self.from_latent
         if self.spec.down_nonlinear:
             l0, l2 = fl.layers[0], fl.layers[2]
-            return mlp_gelu(x, l0.weight, l0.bias, l2.weight, l2.bias)
+            return mlp_gelu(x, l0, l2)
         return dense(x, fl.weight, fl.bias)
 
     def _decoder_pred(self, x: torch.Tensor) -> torch.Tensor:

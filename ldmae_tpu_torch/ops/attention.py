@@ -1,19 +1,23 @@
 """Multi-head attention (port of ``ldmae_tpu/ops/attention.py``).
 
 Packed qkv projection -> optional per-head qk-norm (RMS or LayerNorm over
-head_dim, outside any kernel) -> optional rotary embedding -> softmax(QK^T)V
--> output projection. ``p`` is an attention module with ``qkv`` and ``proj``
-``nn.Linear``s and ``q_norm``/``k_norm`` (or None), in the reference's
-state-dict layout.
+head_dim) -> optional rotary embedding -> softmax(QK^T)V -> output
+projection. ``p`` is an attention module with ``qkv`` and ``proj`` linears
+(``nn.Linear``, or ``ops.quant.QLinear`` for a quantized qkv) and
+``q_norm``/``k_norm`` (or None), in the reference's state-dict layout.
 
 ``impl`` selects the inner softmax(QK^T)V:
   * "xla":        fp32 logits and softmax in plain PyTorch
   * "flash":      the flash-attention kernel
-  * "flash_rope": the kernel with RoPE applied inside it (half layout);
-                  without RoPE it routes to the plain flash kernel, as every
-                  ``flash*`` impl does (VMAE attention)
-  * "flash_fused", "flash_qkr": not ported yet; they raise where their
-                  kernel would run.
+  * "flash_rope": the kernel with RoPE applied inside it (half layout)
+  * "flash_qkr":  the kernel with the RMS qk-norm and RoPE inside it (half
+                  layout, RMS qk-norm without bias; otherwise as flash_rope's
+                  fallback)
+  * "flash_fused": RoPE and attention on q, k, v in the (B, N, H*hd) layout
+                  of the qkv projection, nothing transposed (half layout;
+                  the qk-norm runs before it)
+Without RoPE every ``flash*`` impl routes to the plain flash kernel (VMAE
+attention).
 """
 
 from __future__ import annotations
@@ -22,9 +26,15 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention, flash_attention_rope
+from .flash_attention import (
+    flash_attention,
+    flash_attention_fused_rope,
+    flash_attention_qknorm_rope,
+    flash_attention_rope,
+)
 from .linear import dense
 from .norms import layer_norm, rms_norm
+from .quant import is_quantized, maybe_qdense, qdense, qdense_pre
 from .rope import apply_rope, apply_rope_half
 
 FLASH_IMPLS = ("flash", "flash_rope", "flash_fused", "flash_qkr")
@@ -50,7 +60,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "xla") -
 
 
 def multi_head_attention(
-    x: torch.Tensor,
+    x: Optional[torch.Tensor],
     p,
     num_heads: int,
     *,
@@ -58,28 +68,58 @@ def multi_head_attention(
     rope_layout: str = "interleaved",
     qk_norm_kind: str = "rms",
     impl: str = "xla",
+    quant_mode: Optional[str] = None,
+    x_quant: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """x: (B, N, D) -> (B, N, D) in x's dtype."""
-    b, n, d = x.shape
+    """x: (B, N, D) -> (B, N, D) in x's dtype.
+
+    x_quant: optional (int8 x, fp32 row scales) from a fused producer kernel,
+    used for the qkv matmul instead of x when the qkv weights are quantized
+    (the w8a8 fused sampling path). x may then be None; out_dtype sets the
+    compute and output dtype (default bfloat16)."""
+    if x is None:
+        if x_quant is None:
+            raise ValueError("multi_head_attention needs x or x_quant")
+        b, n, d = x_quant[0].shape
+        dtype = out_dtype or torch.bfloat16
+    else:
+        b, n, d = x.shape
+        dtype = x.dtype
     hd = d // num_heads
     half_rope = rope is not None and rope_layout == "half"
     q_norm, k_norm = getattr(p, "q_norm", None), getattr(p, "k_norm", None)
+
+    if is_quantized(p.qkv) and x_quant is not None:
+        qkv = qdense_pre(x_quant[0], x_quant[1], p.qkv, compute_dtype=dtype)
+    elif is_quantized(p.qkv):
+        qkv = qdense(x, p.qkv, mode=quant_mode or "w8a8")
+    else:
+        qkv = dense(x, p.qkv.weight, p.qkv.bias)
+    qkv = qkv.view(b, n, 3, num_heads, hd)
+
     if half_rope and impl == "flash_fused":
-        raise NotImplementedError(
-            "attention impl 'flash_fused' (flash_attention_fused_rope) is not ported yet; "
-            "it is queued with the opt-in kernels in ROADMAP.md"
-        )
+        # transpose-free: q, k normed in the (B, N, H, hd) layout, v a strided
+        # view of qkv, the output written as (B, N, H*hd) rows for proj
+        q = _apply_head_norm(qkv[:, :, 0], q_norm, qk_norm_kind)
+        k = _apply_head_norm(qkv[:, :, 1], k_norm, qk_norm_kind)
+        cos, sin = rope
+        out = flash_attention_fused_rope(q, k, qkv[:, :, 2], cos, sin).view(b, n, d)
+        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
+
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, hd)
+
     if (
         half_rope and impl == "flash_qkr" and qk_norm_kind == "rms"
         and q_norm is not None and getattr(q_norm, "bias", None) is None
     ):
-        raise NotImplementedError(
-            "attention impl 'flash_qkr' (flash_attention_qknorm_rope) is not ported yet; "
-            "it is queued with the opt-in kernels in ROADMAP.md"
-        )
+        # RMS qk-norm + RoPE + attention in one kernel
+        cos, sin = rope
+        out = flash_attention_qknorm_rope(
+            q.contiguous(), k.contiguous(), v.contiguous(), q_norm.weight, k_norm.weight, cos, sin)
+        out = out.transpose(1, 2).reshape(b, n, d)
+        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
 
-    qkv = dense(x, p.qkv.weight, p.qkv.bias)
-    q, k, v = qkv.view(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, hd)
     q = _apply_head_norm(q, q_norm, qk_norm_kind)
     k = _apply_head_norm(k, k_norm, qk_norm_kind)
 
@@ -94,4 +134,4 @@ def multi_head_attention(
             k = rope_fn(k, cos, sin)
         out = sdpa(q, k, v, impl=impl)
     out = out.transpose(1, 2).reshape(b, n, d)
-    return dense(out, p.proj.weight, p.proj.bias)
+    return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)

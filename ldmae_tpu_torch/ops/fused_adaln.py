@@ -1,12 +1,14 @@
 """Fused adaLN epilogue and fused SwiGLU gate: the CUDA kernels
-(``csrc/fused_norm_modulate.cu``, ``csrc/fused_matmul_silu.cu``) and their
-plain PyTorch versions.
+(``csrc/fused_norm_modulate.cu``, ``csrc/fused_matmul_silu.cu``,
+``csrc/fused_quant.cu``) and their plain PyTorch versions.
 
 Counterpart of ``ldmae_tpu/ops/fused_adaln.py``'s ``fused_norm_modulate``
-(``_kernel``) and ``fused_matmul_silu`` (``_kernel_matmul_silu``), forward
-only. A wrapper runs the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises. ``<wrapper>.launches`` counts
-kernel launches.
+(``_kernel``), ``fused_matmul_silu`` (``_kernel_matmul_silu``) and the two
+quantizing kernels of the w8a8 leg, ``fused_norm_modulate_quant``
+(``_kernel_quant``) and ``fused_silu_mul_quant``
+(``_kernel_silu_mul_quant``), forward only. A wrapper runs the plain
+version for CPU tensors only; for CUDA tensors it launches the kernel or
+raises. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -138,3 +140,119 @@ def fused_matmul_silu(
 
 
 fused_matmul_silu.launches = 0
+
+
+def quantize_rows_fp32(o: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 of fp32 ``o`` (..., K): scale = max(absmax /
+    127, 1e-8), q = round(o / scale) half-to-even. Returns (int8 (..., K),
+    fp32 (..., 1))."""
+    qs = torch.clamp_min(o.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return torch.round(o / qs).to(torch.int8), qs
+
+
+def fused_norm_modulate_quant_plain(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's math: norm, weight and modulation all in fp32 (nothing
+    rounded to x's dtype), then per-row int8."""
+    xf = x.float()
+    if kind == "layer":
+        xc = xf - xf.mean(-1, keepdim=True)
+        y = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    else:
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        if weight is not None:
+            y = y * weight.float()
+    o = y * (1.0 + scale.float()[:, None, :])
+    o = o + shift.float()[:, None, :]
+    return quantize_rows_fp32(o)
+
+
+def fused_norm_modulate_quant(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, N, D); weight: (D,) RMSNorm weight (ignored for kind='layer');
+    shift/scale: (B, D). Returns (int8 (B, N, D), fp32 row scales (B, N, 1))
+    with o_q * scales ~= modulate(norm(x), shift, scale) computed in fp32."""
+    if kind not in ("rms", "layer"):
+        raise ValueError(f"unknown norm kind {kind!r}")
+    if x.device.type == "cpu":
+        return fused_norm_modulate_quant_plain(x, weight, shift, scale, kind=kind, eps=eps)
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("fused_norm_modulate_quant: x must be a contiguous bf16 (B, N, D) tensor")
+    b, n, d = x.shape
+    if d % 8 or d > 2048:
+        raise ValueError(f"fused_norm_modulate_quant: D={d} must be a multiple of 8 and <= 2048")
+    for name, t in (("shift", shift), ("scale", scale)):
+        # read in place as bf16 rows a row stride apart; fp32 values would
+        # need a rounding the TPU kernel does not make
+        if t.shape != (b, d) or t.dtype != torch.bfloat16 or t.device != x.device or t.stride(-1) != 1:
+            raise ValueError(f"fused_norm_modulate_quant: {name} must be bf16 ({b}, {d}) rows "
+                             f"with unit column stride on {x.device}")
+    w = None
+    if kind == "rms" and weight is not None:
+        w = weight.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty(b, n, d, device=x.device, dtype=torch.int8)
+    scales = torch.empty(b, n, 1, device=x.device, dtype=torch.float32)
+    lib = kernels.load("fused_quant")
+    with torch.cuda.device(x.device):
+        err = lib.ldmae_fused_norm_modulate_quant(
+            x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
+            scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(),
+            scales.data_ptr(), b, n, d, int(kind == "layer"), eps,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    kernels.check(err, "fused_norm_modulate_quant")
+    fused_norm_modulate_quant.launches += 1
+    return out, scales
+
+
+fused_norm_modulate_quant.launches = 0
+
+
+def fused_silu_mul_quant_plain(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """silu(x1) * x2 in fp32 over the packed (..., 2H) pre-activation, then
+    per-row int8."""
+    xf = x12.float()
+    h = xf.shape[-1] // 2
+    x1, x2 = xf[..., :h], xf[..., h:]
+    return quantize_rows_fp32((x1 * torch.sigmoid(x1)) * x2)
+
+
+def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x12: (..., 2H) packed SwiGLU pre-activation (x1 the first H
+    channels). Returns (int8 (..., H), fp32 row scales (..., 1))."""
+    if x12.device.type == "cpu":
+        return fused_silu_mul_quant_plain(x12)
+    if x12.dtype != torch.bfloat16 or not x12.is_contiguous():
+        raise ValueError("fused_silu_mul_quant: x12 must be a contiguous bf16 tensor")
+    h = x12.shape[-1] // 2
+    if x12.shape[-1] % 16 or h > 8192:
+        raise ValueError(f"fused_silu_mul_quant: 2H={x12.shape[-1]} must be a multiple of 16 and <= 16384")
+    rows = x12.numel() // x12.shape[-1]
+    out = torch.empty(*x12.shape[:-1], h, device=x12.device, dtype=torch.int8)
+    scales = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
+    lib = kernels.load("fused_quant")
+    with torch.cuda.device(x12.device):
+        err = lib.ldmae_fused_silu_mul_quant(
+            x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows, h,
+            torch.cuda.current_stream(x12.device).cuda_stream,
+        )
+    kernels.check(err, "fused_silu_mul_quant")
+    fused_silu_mul_quant.launches += 1
+    return out, scales
+
+
+fused_silu_mul_quant.launches = 0

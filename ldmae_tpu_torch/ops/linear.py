@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .fused_adaln import fused_matmul_silu
+from .quant import is_quantized, maybe_qdense
 
 
 def dense(
@@ -55,37 +56,37 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 
 def mlp_gelu(
     x: torch.Tensor,
-    fc1_w: torch.Tensor,
-    fc1_b: Optional[torch.Tensor],
-    fc2_w: torch.Tensor,
-    fc2_b: Optional[torch.Tensor],
+    fc1,
+    fc2,
     approximate: bool = False,
+    quant_mode: Optional[str] = None,
 ) -> torch.Tensor:
-    """timm-style Mlp: fc1 -> GELU -> fc2. VMAE uses exact GELU, the DiT's
-    non-SwiGLU path the tanh approximation."""
-    h = gelu(dense(x, fc1_w, fc1_b), approximate=approximate)
-    return dense(h, fc2_w, fc2_b)
+    """timm-style Mlp: fc1 -> GELU -> fc2, over two linears (nn.Linear or
+    QLinear). VMAE uses exact GELU, the DiT's non-SwiGLU path the tanh
+    approximation."""
+    h = gelu(maybe_qdense(x, fc1, quant_mode), approximate=approximate)
+    return maybe_qdense(h, fc2, quant_mode)
 
 
 def swiglu_ffn(
     x: torch.Tensor,
-    w12: torch.Tensor,
-    b12: Optional[torch.Tensor],
-    w3: torch.Tensor,
-    b3: Optional[torch.Tensor],
+    w12,
+    w3,
+    quant_mode: Optional[str] = None,
     impl: str = "xla",
 ) -> torch.Tensor:
-    """SwiGLU FFN over the reference's packed ``w12`` (2H, D): x1 is the first
-    H output channels, x2 the rest. ``impl="fused"`` runs the gate inside the
-    w12 matmul kernel when its shape gate holds; otherwise (and for
-    ``impl="xla"``) x12 is rounded to the compute dtype before the silu."""
-    if impl == "fused":
-        hidden = fused_matmul_silu(x, w12, b12)
+    """SwiGLU FFN over the reference's packed ``w12`` linear (2H, D): x1 is
+    the first H output channels, x2 the rest. ``impl="fused"`` runs the gate
+    inside the w12 matmul kernel when w12 is full precision and the kernel's
+    shape gate holds; otherwise (and for ``impl="xla"``) x12 is rounded to
+    the compute dtype before the silu."""
+    if impl == "fused" and not is_quantized(w12):
+        hidden = fused_matmul_silu(x, w12.weight, w12.bias)
         if hidden is not None:
-            return dense(hidden, w3, b3)
-    x12 = dense(x, w12, b12)
+            return maybe_qdense(hidden, w3, quant_mode)
+    x12 = maybe_qdense(x, w12, quant_mode)
     x1, x2 = x12.chunk(2, dim=-1)
-    return dense(silu(x1) * x2, w3, b3)
+    return maybe_qdense(silu(x1) * x2, w3, quant_mode)
 
 
 def modulate(

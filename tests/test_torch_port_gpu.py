@@ -11,7 +11,10 @@ to two through the later bf16 roundings, so for the norm and the GEMM two
 bf16 ulps at the output's magnitude (~1; 2^-6). Attention: one ulp of the
 element (rtol 2^-7) plus 2^-8 of the largest |output| (the kernel rounds p
 before normalising it, the plain version after: an error absolute in the
-output's scale, ~0.05 for random q, k, v).
+output's scale, ~0.05 for random q, k, v). The quantizing kernels: the
+int8 values within one step of the plain version's, at most 1e-3 of them
+off by that step (a value on a rounding boundary after another fp32 row
+sum), the row scales within rtol 1e-6.
 """
 
 import pytest
@@ -94,3 +97,57 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tfa.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         tfa.flash_attention(q.float(), q.float(), q.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(64, 1024), (72, 200)])
+def test_cuda_flash_attention_qknorm_rope_vs_plain(cuda, d, n):
+    q, k, v = (_bf16((2, 3, n, d), s, cuda) for s in range(3))
+    qs, ks = (1 + 0.1 * _bf16((d,), s, cuda).float() for s in (3, 4))
+    grid = int(n**0.5) + 1
+    cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(cuda) for t in build_rope_table(d // 2, grid))
+    out = tfa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin)
+    ref = tfa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,n", [(64, 12, 1024), (72, 4, 200)])
+def test_cuda_flash_attention_fused_rope_vs_plain(cuda, d, h, n):
+    """q, k normed copies in the (B, N, H, d) layout, v a strided view of the
+    packed qkv, as the attention module passes them."""
+    qkv = _bf16((2, n, 3, h, d), 0, cuda)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1], qkv[:, :, 2]
+    grid = int(n**0.5) + 1
+    cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(cuda) for t in build_rope_table(d // 2, grid))
+    out = tfa.flash_attention_fused_rope(q, k, v, cos, sin)
+    ref = tfa.flash_attention_fused_rope_plain(q, k, v, cos, sin)
+    assert out.shape == (2, n, h, d) and out.is_contiguous()
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+def _assert_quant_close(out, ref):
+    (q, s), (q_ref, s_ref) = out, ref
+    torch.cuda.synchronize()
+    dq = (q.int() - q_ref.int()).abs()
+    assert int(dq.max()) <= 1
+    assert float((dq != 0).float().mean()) <= 1e-3
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_cuda_fused_norm_modulate_quant_vs_plain(cuda, kind):
+    x = _bf16((4, 256, 768), 0, cuda) * 3
+    w = 1 + 0.1 * _bf16((768,), 1, cuda).float()
+    ada = _bf16((4, 6, 768), 2, cuda) * 0.1
+    sh, sc = ada[:, 0], ada[:, 1]
+    _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
+                        tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [2048, 1000])
+def test_cuda_fused_silu_mul_quant_vs_plain(cuda, h):
+    x12 = _bf16((2, 512, 2 * h), 0, cuda) * 2
+    _assert_quant_close(tfad.fused_silu_mul_quant(x12), tfad.fused_silu_mul_quant_plain(x12))

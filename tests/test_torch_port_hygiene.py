@@ -6,7 +6,8 @@
   unless the caller passes ``device="cpu"``.
 * A kernel wrapper given a tensor that is not on the CPU takes the kernel
   path (and raises if it cannot launch), never the plain version.
-* ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid.
+* ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid,
+  also with ``--quant w8a8``; a config's ``parallel.quant`` quantizes the DiT.
 """
 
 import os
@@ -101,11 +102,17 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
     cos = torch.empty(64, 64, device="meta")
     x = torch.empty(2, 128, 128, dtype=torch.bfloat16, device="meta")
     sh = torch.empty(2, 128, device="meta")
+    w = torch.empty(64, device="meta")
+    qkv = torch.empty(1, 64, 3, 2, 64, dtype=torch.bfloat16, device="meta")
     for call in (
         lambda: fa.flash_attention(q, q, q),
         lambda: fa.flash_attention_rope(q, q, q, cos, cos),
         lambda: fad.fused_norm_modulate(x, None, sh, sh),
         lambda: fad.fused_matmul_silu(x, torch.empty(256, 128, device="meta"), None),
+        lambda: fa.flash_attention_qknorm_rope(q, q, q, w, w, cos, cos),
+        lambda: fa.flash_attention_fused_rope(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], cos, cos),
+        lambda: fad.fused_norm_modulate_quant(x, None, sh.bfloat16(), sh.bfloat16()),
+        lambda: fad.fused_silu_mul_quant(x),
     ):
         with pytest.raises(Launch):
             call()
@@ -123,6 +130,41 @@ def test_cli_demo_grid_on_cpu(tmp_path):
     (png,) = list(out.iterdir())
     img = np.asarray(Image.open(png))
     assert img.shape == (2 * 32, 4 * 32, 3) and img.dtype == np.uint8
+
+
+def test_cli_demo_grid_with_quant_on_cpu(tmp_path):
+    from PIL import Image
+
+    from ldmae_tpu_torch.cli import inference
+
+    cfg_path = tmp_path / "tiny.yaml"
+    _tiny_config(tmp_path).to_yaml(str(cfg_path))
+    out = tmp_path / "demo"
+    inference.main(["--config", str(cfg_path), "--demo", "--demo_out", str(out), "--device", "cpu",
+                    "--quant", "w8a8"])
+    (png,) = list(out.iterdir())
+    img = np.asarray(Image.open(png))
+    assert img.shape == (2 * 32, 4 * 32, 3) and img.dtype == np.uint8
+
+
+@pytest.mark.parametrize("quant", ["w8a8", "w8"])
+def test_config_parallel_quant_quantizes_the_dit(tmp_path, quant):
+    """A YAML that says parallel.quant samples quantized, as the JAX CLI
+    does: the DiT's block linears are int8, the out-projection is not, and
+    the sample function runs the quantized forward."""
+    from ldmae_tpu_torch.cli.inference import build_pipeline
+    from ldmae_tpu_torch.ops.quant import QLinear
+
+    cfg = _tiny_config(tmp_path)
+    cfg.parallel.quant = quant
+    sample_fn, bundle, spec = build_pipeline(cfg, device="cpu")
+    blk = bundle["dit"].blocks[0]
+    for lin in (blk.attn.qkv, blk.mlp.w12, blk.mlp.w3, blk.adaLN_modulation[1]):
+        assert isinstance(lin, QLinear) and lin.w_q.dtype == torch.int8
+    assert isinstance(blk.attn.proj, torch.nn.Linear)
+    lat = sample_fn(dict(bundle, vae=None), torch.tensor([1, 2]), generator=torch.Generator().manual_seed(0))
+    assert lat.shape == (2, spec.in_channels, spec.input_size, spec.input_size)
+    assert torch.isfinite(lat).all()
 
 
 def test_cli_writes_pngs_on_cpu(tmp_path):

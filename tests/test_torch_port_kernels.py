@@ -13,6 +13,8 @@ can flip one rounding, so the bound is a couple of bf16 ulps at the output's
 magnitude (2^-7 relative, plus 2^-7 absolute for values below 1).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -60,6 +62,41 @@ def test_flash_attention_rope_matches_pallas(dt):
     jout = jfa.flash_attention_rope(jq, jk, jv, jnp.asarray(cos), jnp.asarray(sin))
     tout = tfa.flash_attention_rope(tq, tk, tv, torch.from_numpy(cos), torch.from_numpy(sin))
     assert tout.dtype == tq.dtype and tout.shape == tq.shape
+    _close(jout, tout, dt)
+
+
+@pytest.mark.parametrize("d", [64, 72])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_qknorm_rope_matches_pallas(dt, d):
+    """The qk-norm kernel's own cast order (norm in fp32, rounded to q's
+    dtype, times the fp32 weight, rotated in fp32, one rounding)."""
+    b, h, grid = 2, 2, 16
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, (b, h, grid * grid, d), dt)
+    rng = np.random.default_rng(6)
+    qs, ks = ((1 + 0.1 * rng.standard_normal(d)).astype(np.float32) for _ in range(2))
+    cos, sin = (jhalf(t) for t in jbuild_rope(d // 2, grid))
+    jout = jfa.flash_attention_qknorm_rope(jq, jk, jv, jnp.asarray(qs), jnp.asarray(ks),
+                                           jnp.asarray(cos), jnp.asarray(sin))
+    tout = tfa.flash_attention_qknorm_rope(tq, tk, tv, torch.from_numpy(qs), torch.from_numpy(ks),
+                                           torch.from_numpy(cos), torch.from_numpy(sin))
+    assert tout.dtype == tq.dtype and tout.shape == tq.shape
+    _close(jout, tout, dt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_fused_rope_matches_pallas(dt):
+    """(B, N, H, d) operands, v a strided view of a packed qkv as the
+    attention module passes it."""
+    b, h, grid, d = 2, 4, 16, 64
+    n = grid * grid
+    rng = np.random.default_rng(7)
+    jqkv, tqkv = _pair(rng.standard_normal((b, n, 3, h, d)).astype(np.float32), dt)
+    cos, sin = (jhalf(t) for t in jbuild_rope(d // 2, grid))
+    jout = jfa.flash_attention_fused_rope(jqkv[:, :, 0], jqkv[:, :, 1], jqkv[:, :, 2],
+                                          jnp.asarray(cos), jnp.asarray(sin))
+    tout = tfa.flash_attention_fused_rope(tqkv[:, :, 0], tqkv[:, :, 1], tqkv[:, :, 2],
+                                          torch.from_numpy(cos), torch.from_numpy(sin))
+    assert tout.dtype == tqkv.dtype and tout.shape == (b, n, h, d) and tout.is_contiguous()
     _close(jout, tout, dt)
 
 
@@ -118,7 +155,7 @@ def test_fused_matmul_silu_gate_falls_back(m, d, h2):
           "w3": {"w": jnp.asarray(w3), "b": jnp.asarray(b3)}}
     jout = jlin.swiglu_ffn(jx, jp, impl="fused")
     tout = tlin.swiglu_ffn(
-        tx, torch.from_numpy(w12.T.copy()), torch.from_numpy(b12),
-        torch.from_numpy(w3.T.copy()), torch.from_numpy(b3), impl="fused",
+        tx, SimpleNamespace(weight=torch.from_numpy(w12.T.copy()), bias=torch.from_numpy(b12)),
+        SimpleNamespace(weight=torch.from_numpy(w3.T.copy()), bias=torch.from_numpy(b3)), impl="fused",
     )
     _close(jout, tout, "bfloat16")

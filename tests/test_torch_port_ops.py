@@ -103,13 +103,14 @@ def test_linear_family(dt):
     np.testing.assert_allclose(
         _np(tlin.dense(tx, tp["w1"], tp["b1"])),
         _np(jlin.dense(jx, {"w": jp["w1"], "b": jp["b1"]})), **TOL[dt])
+    fc1, fc2 = _Lin(tp["w1"], tp["b1"]), _Lin(tp["w2"], tp["b2"])
     for approx in (False, True):
-        out = tlin.mlp_gelu(tx, tp["w1"], tp["b1"], tp["w2"], tp["b2"], approximate=approx)
+        out = tlin.mlp_gelu(tx, fc1, fc2, approximate=approx)
         ref = jlin.mlp_gelu(jx, {"fc1": {"w": jp["w1"], "b": jp["b1"]},
                                  "fc2": {"w": jp["w2"], "b": jp["b2"]}}, approximate=approx)
         np.testing.assert_allclose(_np(out), _np(ref), **TOL[dt])
     # SwiGLU with the merged (2H, D) w12: H = 32
-    out = tlin.swiglu_ffn(tx, tp["w1"], tp["b1"], tp["w2"][:, :32].contiguous(), tp["b2"])
+    out = tlin.swiglu_ffn(tx, fc1, _Lin(tp["w2"][:, :32].contiguous(), tp["b2"]))
     ref = jlin.swiglu_ffn(jx, {"w12": {"w": jp["w1"], "b": jp["b1"]},
                                "w3": {"w": jp["w2"][:32], "b": jp["b2"]}})
     np.testing.assert_allclose(_np(out), _np(ref), **TOL[dt])
@@ -143,12 +144,18 @@ class _Attn:
 
 @pytest.mark.parametrize(
     "impl,layout,qk", [("xla", "interleaved", "rms"), ("flash", "interleaved", "layer"),
-                       ("flash_rope", "half", "rms"), ("flash_rope", None, None)],
+                       ("flash_rope", "half", "rms"), ("flash_rope", None, None),
+                       ("flash_qkr", "half", "rms"), ("flash_qkr", "half", "layer"),
+                       ("flash_fused", "half", "rms"), ("flash_fused", "half", None),
+                       ("flash_fused", None, None)],
 )
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_multi_head_attention(impl, layout, qk, dt):
-    """Packed qkv, per-head qk-norm outside the kernel, RoPE, and the routing
-    of a flash impl without RoPE to the plain flash kernel."""
+    """Packed qkv, per-head qk-norm outside the kernel (inside it for
+    flash_qkr with RMS norms; a LayerNorm with bias takes flash_rope's
+    fallback), RoPE, the (B, N, H*hd) layout of flash_fused (v a strided
+    view of qkv; without qk-norm q and k too), and the routing of a flash
+    impl without RoPE to the plain flash kernel."""
     rng = np.random.default_rng(4)
     d, heads, grid = 64, 4, 4
     hd = d // heads
@@ -182,16 +189,3 @@ def test_multi_head_attention(impl, layout, qk, dt):
         tx, tp, heads, rope=None if rope is None else tuple(map(torch.from_numpy, rope)), **kw)
     assert out.dtype == tx.dtype
     np.testing.assert_allclose(_np(out), _np(ref), **TOL[dt])
-
-
-@pytest.mark.parametrize("impl", ["flash_fused", "flash_qkr"])
-def test_unported_attention_impls_raise(impl):
-    tp = _Attn()
-    d = 32
-    tp.qkv = _Lin(torch.zeros(3 * d, d), None)
-    tp.proj = _Lin(torch.zeros(d, d), None)
-    tp.q_norm = tp.k_norm = _Lin(torch.ones(8), None)
-    cos = sin = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match=impl):
-        tatt.multi_head_attention(torch.zeros(1, 4, d), tp, 4, rope=(cos, sin),
-                                  rope_layout="half", impl=impl)
