@@ -33,12 +33,35 @@ per source, in parallel), then:
      10-step w8a8 latents against the bf16 latents from the same noise
      (relative L2 error within ``QUANT_REL_MAX``), and two wrongly
      quantized DiTs, which must read above that bound;
-  5. with ``--profile``, traces one 50-step batch of the bf16 and of the
-     w8a8 path with ``torch.profiler`` and prints device time by kernel and
-     group and the idle share.
+  5. holds the two flash-attention backward kernels against their plain
+     backward at the DiT training shapes (32, 12, 1024, 64) bf16 by a
+     per-output relative L2 error and an elementwise bound, which two wrong
+     backwards (no rowsum term; the RoPE Jacobian untransposed) must exceed,
+     and times them beside the plain backward and the backward of
+     ``F.scaled_dot_product_attention`` (fwd+bwd minus fwd); also the
+     forward kernels #1 and #3 at the training shapes;
+  6. checks one train step of B/1 at full width (depth 2, batch 8) on the
+     card: the loss and every parameter's gradient of the kernel path (the
+     shipped YAML's flash_rope, half-split RoPE, fused adaLN, remat 'attn')
+     against the plain xla path from the same weights, noise, t and label
+     drops, within GRAD_REL_L2, which the path with the untransposed RoPE
+     Jacobian must exceed;
+  7. trains LightningDiT-B/1 at full width and depth through the training
+     CLI (``cli.train_dit.main``) on a YAML made from the shipped one's
+     model, transport, optimizer and parallel sections, batch 32, 20 steps,
+     on synthetic 16-channel 32x32 latent shards this script writes, from
+     seeded non-zero weights (``train.weight_init``), with exact launch
+     counts; checks finite losses and gradient norms and that the weights
+     and the EMA moved; restarts to step 25 ("resumed from step 20"); and
+     prints steps/s, latents/s, TFLOP/s, MFU and peak memory; then 5 steps
+     of the ``rope_layout: interleaved`` configuration with exact counts;
+  8. with ``--profile``, traces one 50-step batch of the bf16 and of the
+     w8a8 path, and one training step, with ``torch.profiler`` and prints
+     device time by kernel and group and the idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(batch-8 shapes; launches from the path that runs each kernel), and as its
+(sampling kernels at the batch-8 shapes, the backward kernels at the
+training shapes; launches from the path that runs each kernel), and as its
 last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
@@ -49,8 +72,10 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at the 700 W limit
@@ -67,6 +92,8 @@ KERNELS = {
     "flash_attention_fused_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:550", "flash_fused"),
     "fused_norm_modulate_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:99", "w8a8"),
     "fused_silu_mul_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:144", "w8a8"),
+    "flash_attention_bwd": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:151", "interleaved"),
+    "flash_attention_rope_bwd": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:429", "train"),
 }
 
 BATCH, STEPS, CFG_SCALE, SHIFT, CFG_START = 8, 250, 10.0, 0.3, 0.10
@@ -80,6 +107,21 @@ PSNR_MIN = 30.0  # w8a8 vs bf16 images from the same noise (the JAX gate: perf_q
 # Set between the readings on an H100 SXM: sound 0.0132-0.0133, the two controls 0.038-0.042
 QUANT_REL_MAX = 0.025
 QUANT_NOISE_SEEDS = (2, 3)
+# DiT training: B/1 at full width and depth through the CLI, batch 32, then a
+# restart to step 25; the interleaved-RoPE configuration for 5 steps; the
+# gradient check at depth 2, batch 8
+TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, INTERLEAVED_STEPS = 32, 20, 25, 5
+GRAD_DEPTH, GRAD_BATCH, GRAD_T = 2, 8, 0.37
+# the backward kernels against their plain backward at the training shapes
+# (per output: relative L2 error, max |error| / max |value|); readings on an
+# H100 SXM: 0.0025-0.0028 and <= 0.0065 with unit inputs, 0.0028 and 0.0069
+# with q, k at twice that scale; the controls 0.93-1.74 and 1.75-3.37
+BWD_REL_L2, BWD_ELEM = 1e-2, 2e-2
+# per-leaf relative L2 error of the kernel path's gradients against the xla
+# path's, both in bf16 (the kernels round p and ds to bf16, the xla path
+# rounds other intermediates); readings on an H100 SXM: worst leaf 0.0026,
+# the untransposed-Jacobian control 1.16
+GRAD_REL_L2 = 1e-2
 _NONE = dict.fromkeys(KERNELS, 0)
 _EVALS = (STEPS - 1) * DEPTH  # block forwards of one 250-step batch (the last step evaluates nothing)
 _SHORT = (SHORT_STEPS - 1) * DEPTH
@@ -95,6 +137,22 @@ EXPECTED_LAUNCHES = {
     "flash_fused": _NONE | {"flash_attention_fused_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
                             "fused_matmul_silu": _SHORT},
 }
+# Training with remat_policy 'attn' (two checkpointed segments per block,
+# split at the attention output): per step and block the forward runs #1
+# (or #2) once and #3 twice, the backward recomputes both segments (#1 or #2
+# once more, #3 twice more) and runs the backward kernel #6 (or #5) once;
+# the final layer's norm is not fused, and the MLP stays 'xla' in training.
+def _train_counts(steps: int, depth: int = DEPTH) -> dict:
+    return dict(fwd=2 * depth * steps, adaln=4 * depth * steps, bwd=depth * steps)
+
+
+for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TRAIN_STEPS)):
+    _n = _train_counts(_steps)
+    EXPECTED_LAUNCHES[_path] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                        "flash_attention_rope_bwd": _n["bwd"]}
+_n = _train_counts(INTERLEAVED_STEPS)
+EXPECTED_LAUNCHES["interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                            "flash_attention_bwd": _n["bwd"]}
 
 
 def log(msg: str) -> None:
@@ -515,8 +573,8 @@ def pipeline_phases(dev, profile: bool = False) -> dict:
                                      count_path=impl)
     quant_gate(spec, bundle, qbundle, y, dev)
     if profile:
-        profile_phase(spec, bundle, y, dev)
-        profile_phase(spec, qbundle, y, dev, quant="w8a8")
+        sampling_profile(spec, bundle, y, dev)
+        sampling_profile(spec, qbundle, y, dev, quant="w8a8")
     return {"counts": counts, "seconds": {"bf16": sec_bf16, "w8a8": sec_w8a8}}
 
 
@@ -577,9 +635,358 @@ def quant_gate(spec, bundle, qbundle, y, dev) -> None:
         raise SystemExit("quant gate: w8a8 latents out of bound, or a wrongly quantized DiT within it")
 
 
+# ---------------------------------------------------------------------------
+# DiT training
+# ---------------------------------------------------------------------------
+
+
+def wrong_bwd_no_rowsum(q, k, v, g):
+    """A wrong backward (control): ds = p * dp, the rowsum(dp * p) term left out."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
+    ds = p * (gf @ vf.transpose(-1, -2))
+    return ((ds @ kf * scale).to(q.dtype), (ds.transpose(-1, -2) @ qf * scale).to(k.dtype),
+            (p.transpose(-1, -2) @ gf).to(v.dtype))
+
+
+def wrong_rope_bwd_untransposed(q, k, v, g, cos, sin):
+    """A wrong backward (control): the RoPE Jacobian applied to dq, dk
+    untransposed (the forward rotation instead of its transpose)."""
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    dqr, dkr, dv = fa._attention_bwd_fp32(fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g)
+    return (fa._rotate_fp32(dqr, cos, sin).to(q.dtype), fa._rotate_fp32(dkr, cos, sin).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def bwd_errors(outs, refs) -> tuple[float, float]:
+    """max over dq, dk, dv of the relative L2 error and of max |error| / max |value|."""
+    import torch
+
+    torch.cuda.synchronize()
+    rel = elem = 0.0
+    for out, ref in zip(outs, refs):
+        if not bool(torch.isfinite(out.float()).all()):
+            return math.inf, math.inf
+        d = out.float() - ref.float()
+        rel = max(rel, float(d.norm() / ref.float().norm()))
+        elem = max(elem, float(d.abs().max() / ref.float().abs().max()))
+    return rel, elem
+
+
+def train_kernel_phase(dev) -> dict:
+    """#5 and #6 at the DiT B/1 training shapes against their plain backward
+    and two wrong backwards; their times beside the plain backward and the
+    SDPA backward; #1 and #3 timed at the training shapes. Returns name ->
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, n, d = TRAIN_BATCH, 12, 1024, 64
+    # q and k at twice unit scale: peaked attention rows, where leaving out
+    # the rowsum term moves dq and dk by far more than the bound
+    q, k = (torch.randn(b, h, n, d, generator=gen, device=dev).mul(2).bfloat16() for _ in range(2))
+    v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(2))
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
+    rows = {}
+    for name, kernel, plain, wrongs, tables in (
+        ("flash_attention_bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+         {"no rowsum term": wrong_bwd_no_rowsum}, ()),
+        ("flash_attention_rope_bwd", fa.flash_attention_rope_bwd, fa.flash_attention_rope_bwd_plain,
+         {"no rowsum term": lambda q, k, v, g, cos, sin: wrong_bwd_no_rowsum(
+             fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g),
+          "untransposed RoPE Jacobian": wrong_rope_bwd_untransposed}, (cos, sin)),
+    ):
+        log(f"[train kernel] {name} q,k,v,g ({b},{h},{n},{d}) bf16" + (", cos/sin (1024,64) fp32" if tables else ""))
+        ref = plain(q, k, v, g, *tables)
+        out = kernel(q, k, v, g, *tables)
+        rel, elem = bwd_errors(out, ref)
+        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+        log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
+            f"{elem:.6g} (bound {BWD_ELEM}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: kernel disagrees with its plain backward")
+        for what, wrong in wrongs.items():
+            wrel, welem = bwd_errors(wrong(q, k, v, g, *tables), ref)
+            log(f"  control ({what}) vs plain backward: relative L2 {wrel:.6g}, max |err| / max |value| "
+                f"{welem:.6g} (must exceed {BWD_REL_L2} or {BWD_ELEM}) -> "
+                f"{'ok' if wrel > BWD_REL_L2 or welem > BWD_ELEM else 'FAIL'}")
+            if not (wrel > BWD_REL_L2 or welem > BWD_ELEM):
+                raise SystemExit(f"{name}: a wrong backward ({what}) reads within the bound")
+        err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
+        del out, ref
+        ms = cuda_ms(lambda: kernel(q, k, v, g, *tables), 10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, g, *tables), 3, 1)
+        qs, ks = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if tables else (q, k)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs)
+
+        fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 10)
+        bnd = bound(7 * b * h * n * d * 2 + (2 * n * d * 4 if tables else 0), 10 * b * h * n * n * d)
+        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd)
+        log(f"  {name} (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{fb_ms - f_ms:.4f} ms (SDPA backward = fwd+bwd {fb_ms:.4f} ms minus fwd {f_ms:.4f} ms), "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), share of bound {bnd[0] / ms:.3f}")
+        del qs, ks, vs
+
+    # the forward kernels of the training path at its shapes
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 20)
+    qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
+    bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d)
+    log(f"  flash_attention_rope (training shapes): kernel {fwd_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del q, k, v, g, qr, kr
+    x = torch.randn(b, n, 768, generator=gen, device=dev).mul(3).bfloat16()
+    w = 1 + 0.1 * torch.randn(768, generator=gen, device=dev)
+    mod = torch.randn(b, 6, 768, generator=gen, device=dev).mul(0.1).bfloat16()
+    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, mod[:, 0], mod[:, 1]), 50)
+    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, mod[:, 0], mod[:, 1]), 10)
+    bnd = bound(2 * b * n * 768 * 2 + 768 * 4 + 2 * b * 768 * 2, fp32_flops=6 * b * n * 768)
+    log(f"  fused_norm_modulate x ({b},{n},768) (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _yaml_config(**sections):
+    """The shipped B/1 YAML with its train and data sections replaced."""
+    import yaml
+
+    with open("configs/imagenet/lightningdit_b_vmae_f8d16.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(sections)
+    return cfg
+
+
+def grad_check_phase(dev) -> None:
+    """One train step of B/1 at full width, depth GRAD_DEPTH, batch
+    GRAD_BATCH: loss and per-leaf gradients of the kernel path (the YAML's
+    impls, remat 'attn') against the xla path (plain attention, xla adaLN,
+    no remat), from the same seeded weights, noise, t and label drops; then
+    the kernel path with the untransposed RoPE Jacobian, which must read
+    above the bound."""
+    import dataclasses
+
+    import torch
+
+    from ldmae_tpu_torch.models import LightningDiT, dit_spec, permute_qk_for_half_rope, seeded_init_
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.train import dit_loss
+    from ldmae_tpu_torch.transport import create_transport
+
+    spec = dit_spec("LightningDiT-B/1", depth=GRAD_DEPTH, input_size=32, in_channels=16, num_classes=1000,
+                    use_qknorm=True, use_swiglu=True, use_rope=True, use_rmsnorm=True)
+    sd = seeded_init_(LightningDiT(spec, device="cpu"), 5).state_dict()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x1, x0 = (torch.randn(GRAD_BATCH, 16, 32, 32, generator=gen, device=dev) for _ in range(2))
+    y = torch.arange(GRAD_BATCH, device=dev) * 97 % 1000
+    t = torch.linspace(0.1, 0.9, GRAD_BATCH, device=dev)
+    drop = (torch.arange(GRAD_BATCH, device=dev) % 4 == 0).int()
+    transport = create_transport("Linear", "velocity", use_lognorm=True)
+
+    def grads(kernels: bool):
+        s = dataclasses.replace(spec, use_checkpoint=kernels, remat_policy="attn")
+        model = LightningDiT(s, device=dev)
+        model.load_state_dict(permute_qk_for_half_rope(sd, s) if kernels else sd)
+        impls = (dict(attn_impl="flash_rope", rope_layout="half", adaln_impl="fused") if kernels
+                 else dict(attn_impl="xla", rope_layout="interleaved", adaln_impl="xla"))
+        loss = dit_loss(model, transport, x1, y, x0=x0, t=t, drop_ids=drop, compute_dtype=torch.bfloat16, **impls)
+        loss.backward()
+        out = {n: p.grad.float() for n, p in model.named_parameters()}
+        return float(loss.detach()), (permute_qk_for_half_rope(out, s, inverse=True) if kernels else out)
+
+    def worst(g, ref):
+        errs = {n: float((g[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)) for n in ref}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    log(f"[train] gradient check: B/1 width 768, depth {GRAD_DEPTH}, batch {GRAD_BATCH}, bf16; kernel path "
+        f"(flash_rope, half RoPE, fused adaLN, remat attn) vs xla path (plain attention, xla adaLN, no remat)")
+    loss_x, g_x = grads(False)
+    loss_k, g_k = grads(True)
+    err, leaf = worst(g_k, g_x)
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    ok = err <= GRAD_REL_L2 and loss_rel <= 1e-2 and all(bool(torch.isfinite(v).all()) for v in g_k.values())
+    log(f"  loss kernel {loss_k:.6f} vs xla {loss_x:.6f} (relative {loss_rel:.3g}, bound 1e-2); worst leaf "
+        f"{leaf}: relative L2 {err:.6g} (bound {GRAD_REL_L2}) over {len(g_x)} leaves -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("gradient check: the kernel path's gradients disagree with the xla path's")
+    saved = fa.flash_attention_rope_bwd
+    fa.flash_attention_rope_bwd = wrong_rope_bwd_untransposed  # the control, in this process only
+    try:
+        _, g_w = grads(True)
+    finally:
+        fa.flash_attention_rope_bwd = saved
+    err, leaf = worst(g_w, g_x)
+    log(f"  control (untransposed RoPE Jacobian): worst leaf {leaf}: relative L2 {err:.6g} "
+        f"(must exceed {GRAD_REL_L2}) -> {'ok' if err > GRAD_REL_L2 else 'FAIL'}")
+    if not err > GRAD_REL_L2:
+        raise SystemExit("gradient check: a wrong backward reads within the bound")
+    torch.cuda.empty_cache()
+
+
+def write_latent_shard(path: str, latents, labels) -> None:
+    """A shard in the safetensors layout (8-byte little-endian header length,
+    JSON header, raw little-endian buffers): latents, their flip, labels."""
+    import struct
+
+    import numpy as np
+
+    tensors = {"latents": latents, "latents_flip": np.ascontiguousarray(latents[..., ::-1]), "labels": labels}
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        dtype = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}[a.dtype]
+        header[name] = {"dtype": dtype, "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a).astype(a.dtype.newbyteorder("<")).tobytes())
+
+
+def check_train_counts(path: str, counts: dict) -> None:
+    log(f"  launches: {counts}")
+    if counts != EXPECTED_LAUNCHES[path]:
+        raise SystemExit(f"{path}: launch counts {counts} != expected {EXPECTED_LAUNCHES[path]}")
+
+
+def cli_train_phase(dev, smi: str, tmp: str) -> dict:
+    """B/1 at full width and depth through ``cli.train_dit.main``: 20 steps
+    and a checkpoint, a restart to 25, then 5 steps of the interleaved
+    configuration. Returns {"train": counts, "interleaved": counts}."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.models import LightningDiT, seeded_init_
+    from ldmae_tpu_torch.train.train_dit import spec_from_config
+    from ldmae_tpu_torch.utils.profiling import dit_forward_flops
+
+    data = os.path.join(tmp, "latents")
+    os.makedirs(data)
+    rng = np.random.default_rng(7)
+    for i in range(2):  # 512 latents
+        write_latent_shard(os.path.join(data, f"latents_rank00_shard{i:03d}.safetensors"),
+                           rng.standard_normal((256, 16, 32, 32), dtype=np.float32) * 1.5 + 0.2,
+                           rng.integers(0, 1000, 256).astype(np.int64))
+    weights = os.path.join(tmp, "seeded.pt")
+
+    def config(name: str, layout: str, steps: int) -> str:
+        cfg = _yaml_config(
+            data={"data_path": data, "image_size": 256, "num_classes": 1000, "latent_norm": True,
+                  "latent_multiplier": 1.0, "sample": False},
+            train={"max_steps": steps, "global_batch_size": TRAIN_BATCH, "global_seed": 0,
+                   "output_dir": tmp, "exp_name": name, "log_every": 5, "ckpt_every": TRAIN_STEPS,
+                   "use_checkpoint": True, "gradient_accumulation_steps": 1, "weight_init": weights})
+        cfg["parallel"]["rope_layout"] = layout
+        path = os.path.join(tmp, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    def run(argv, path):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_dit.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check_train_counts(path, counts)
+        return out, counts, seconds, torch.cuda.max_memory_allocated() / 1e9
+
+    cfg = config("b1", "half", TRAIN_STEPS)
+    c = LDMAEConfig.from_yaml(cfg)
+    spec = spec_from_config(c)
+    init = seeded_init_(LightningDiT(spec, device="cpu"), 3).state_dict()
+    torch.save({"model": init}, weights)  # the warm start: non-zero gates from step 1
+    log(f"[train] cli.train_dit: LightningDiT-B/1 (depth {spec.depth}, width {spec.hidden_size}), batch "
+        f"{TRAIN_BATCH}, {TRAIN_STEPS} steps, the shipped YAML's model/transport/optimizer/parallel sections "
+        f"(train_attention_impl {c.parallel.train_attention_impl}, rope_layout {c.parallel.rope_layout}, "
+        f"train_adaln_impl {c.parallel.train_adaln_impl}, remat_policy {c.model.remat_policy}, lr "
+        f"{c.optimizer.lr}, beta2 {c.optimizer.beta2}), seeded weights, 512 synthetic latents")
+    out, counts, seconds, peak_gb = run(["--config", cfg], "train")
+    # keep only what is read below, so the later runs' peak memory is their own
+    hist, exp_dir = out["history"], out["exp_dir"]
+    del out
+    log("  " + "; ".join(f"step {h['step']}: loss {h['loss']:.5f}, grad norm {h['grad_norm']:.5f}, "
+                         f"{h['steps_per_sec']:.4f} steps/s" for h in hist))
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in hist):
+        raise SystemExit("training: a non-finite loss or gradient norm")
+    ckpt = torch.load(os.path.join(exp_dir, "checkpoints", f"{TRAIN_STEPS:07d}.pt"), weights_only=True)
+    moved = {key: max(float((ckpt[key][k] - init[k]).abs().max()) for k in init) for key in ("model", "ema")}
+    log(f"  after {TRAIN_STEPS} steps: max |change| of the weights {moved['model']:.6g}, of the EMA "
+        f"{moved['ema']:.6g}")
+    if not (moved["model"] > 0 and moved["ema"] > 0 and ckpt["step"] == TRAIN_STEPS):
+        raise SystemExit("training: the weights or the EMA did not move")
+    steady = [h for h in hist[1:]]  # the first window holds the warm-up
+    sps = sum(h["steps_per_sec"] * h["seconds"] for h in steady) / sum(h["seconds"] for h in steady)
+    flops = 3 * dit_forward_flops(spec, TRAIN_BATCH)
+    log(f"  steady state (steps 6-{TRAIN_STEPS}): {sps:.4f} steps/s, {sps * TRAIN_BATCH:.4f} latents/s, "
+        f"{flops * sps / 1e12:.4f} TFLOP/s, MFU {flops * sps / PEAK_BF16_FLOPS:.4f} (3x forward FLOPs over "
+        f"989 TFLOP/s); {seconds:.2f} s for the whole call; peak memory {peak_gb:.3f} GB; on {smi}")
+
+    log(f"[train] restart to step {RESUME_STEPS} from the step-{TRAIN_STEPS} checkpoint")
+    _, resume_counts, _, _ = run(["--config", cfg, "--max_steps", str(RESUME_STEPS)], "train_resume")
+    with open(os.path.join(exp_dir, "log.txt")) as f:
+        if f"resumed from step {TRAIN_STEPS}" not in f.read():
+            raise SystemExit("training: the restart did not resume")
+    log(f"  log.txt: resumed from step {TRAIN_STEPS}")
+
+    log(f"[train] rope_layout interleaved: {INTERLEAVED_STEPS} steps, B/1, batch {TRAIN_BATCH} "
+        f"(RoPE outside the kernel, flash_attention and its backward)")
+    iout, icounts, iseconds, ipeak = run(["--config", config("b1_interleaved", "interleaved", INTERLEAVED_STEPS)],
+                                         "interleaved")
+    if not all(math.isfinite(h["loss"]) for h in iout["history"]):
+        raise SystemExit("interleaved training: a non-finite loss")
+    log(f"  losses {[round(h['loss'], 5) for h in iout['history']]}; {iseconds:.2f} s; peak memory {ipeak:.3f} GB")
+    return {"train": counts, "interleaved": icounts}
+
+
+def train_profile_phase(dev) -> None:
+    """Where one training step's time goes (B/1, batch 32, the YAML's impls)."""
+    import torch
+
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.models import seeded_init_
+    from ldmae_tpu_torch.train import build_from_config, init_train_state, make_optimizer
+
+    c = LDMAEConfig.from_dict(_yaml_config(train={"global_batch_size": TRAIN_BATCH, "use_checkpoint": True}))
+    spec, model, _, step_fn = build_from_config(c, dev, torch.Generator().manual_seed(0))
+    seeded_init_(model, 3)
+    state = init_train_state(model, make_optimizer(model.parameters(), c.optimizer.lr, c.optimizer.beta2))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"x": torch.randn(TRAIN_BATCH, 16, 32, 32, generator=gen, device=dev),
+             "y": torch.arange(TRAIN_BATCH, device=dev)}
+    profile_phase(f"one training step (B/1, batch {TRAIN_BATCH})", lambda: step_fn(state, batch, gen))
+
+
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
 OWN_KERNELS = ("flash_fwd_kernel", "norm_rope_kernel", "norm_modulate_kernel", "matmul_silu_kernel",
-               "norm_modulate_quant_kernel", "silu_mul_quant_kernel")
+               "norm_modulate_quant_kernel", "silu_mul_quant_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -590,21 +997,20 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_phase(spec, bundle, y, dev, quant=None) -> None:
-    """Where the time goes: torch.profiler over one batch sampled at
-    PROFILE_STEPS steps and decoded; device time by kernel, by group (the
-    port's kernels, cuBLAS GEMMs, everything else) and the device's idle
-    share of the wall time."""
+def profile_phase(what: str, fn) -> None:
+    """Where the time goes: torch.profiler over one call of ``fn`` after a
+    warm-up call; device time by kernel, by group (the port's kernels,
+    cuBLAS GEMMs, everything else) and the device's idle share of the wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn = sampler(spec, PROFILE_STEPS, dev, kernels=True, quant=quant)
-    fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(3))
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(3))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -617,8 +1023,7 @@ def profile_phase(spec, bundle, y, dev, quant=None) -> None:
     for e in events:
         group = next(g for g, marks in PROFILE_GROUPS if any(m in e.key.lower() for m in marks))
         groups[group] += e.self_device_time_total / 1e3
-    log(f"[profile] {quant or 'bf16'} path, batch {BATCH}, {PROFILE_STEPS} steps + decode under torch.profiler: "
-        f"wall {wall_ms:.1f} ms, "
+    log(f"[profile] {what} under torch.profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{sum(e.count for e in events)} kernel launches")
     for group, ms in groups.items():
@@ -626,6 +1031,15 @@ def profile_phase(spec, bundle, y, dev, quant=None) -> None:
     for e in events[:20]:
         ms = e.self_device_time_total / 1e3
         log(f"  {ms:9.2f} ms {e.count:6d}x {ms / busy_ms:6.3f}  {e.key[:110]}")
+
+
+def sampling_profile(spec, bundle, y, dev, quant=None) -> None:
+    """One batch sampled at PROFILE_STEPS steps and decoded."""
+    import torch
+
+    fn = sampler(spec, PROFILE_STEPS, dev, kernels=True, quant=quant)
+    profile_phase(f"{quant or 'bf16'} path, batch {BATCH}, {PROFILE_STEPS} steps + decode",
+                  lambda: fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(3)))
 
 
 def main() -> int:
@@ -665,7 +1079,14 @@ def main() -> int:
     kernel_phases(dev, BENCH_BATCH)
     log("[kernel] int8 products of the w8a8 leg")
     int8_gemm_phase(dev, BATCH)
-    result = pipeline_phases(dev, profile="--profile" in sys.argv[1:])
+    rows |= train_kernel_phase(dev)
+    profile = "--profile" in sys.argv[1:]
+    result = pipeline_phases(dev, profile=profile)
+    grad_check_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        result["counts"] |= cli_train_phase(dev, smi, tmp)
+    if profile:
+        train_profile_phase(dev)
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by) in rows.items():

@@ -1,0 +1,228 @@
+"""DiT training CLI (port of ``ldmae_tpu/cli/train_dit.py``).
+
+Loads a reference-layout YAML, builds the model (reference initialisation,
+or a warm start from the ``model`` weights of a ``.pt`` named by
+``train.weight_init``), the transport and AdamW, streams latent shards, and
+runs the train step, logging ``(step=NNNNNNN) Train Loss: x, Train
+Steps/Sec: y`` with TFLOP/s and MFU every ``log_every`` steps to stderr and
+``<exp_dir>/log.txt`` (and TensorBoard when it imports). It checkpoints
+every ``ckpt_every`` steps, on SIGTERM/SIGINT and at the end, and resumes
+from the latest checkpoint ("resumed from step N"). With ``rope_layout:
+half`` the q/k channels are permuted to the half-split layout for training
+and back on export, so checkpoints are in the canonical layout.
+
+It runs on the card unless ``--device cpu`` is given. Not ported yet
+(ROADMAP.md): multi-process data parallelism, the background prefetch
+thread, Orbax checkpoints, the profiler trace options.
+
+Usage:
+    python -m ldmae_tpu_torch.cli.train_dit --config configs/imagenet/lightningdit_b_vmae_f8d16.yaml
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..core.config import LDMAEConfig
+from ..core.device import resolve_device
+from ..data.latent_dataset import ImgLatentDataset
+from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
+from ..train.state import init_train_state, restore_checkpoint, save_checkpoint
+from ..train.train_dit import COMPUTE_DTYPES, build_from_config, evaluate_step, make_optimizer
+from ..utils.profiling import dit_forward_flops, format_tflops_mfu, resolve_peak_flops
+
+
+def setup_logger(exp_dir: str) -> logging.Logger:
+    """Timestamped lines to stderr and ``<exp_dir>/log.txt``."""
+    os.makedirs(exp_dir, exist_ok=True)
+    logger = logging.getLogger("ldmae_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    sh = logging.StreamHandler()
+    sh.setFormatter(logging.Formatter("[\033[34m%(asctime)s\033[0m] %(message)s", datefmt="%Y-%m-%d %H:%M:%S"))
+    fh = logging.FileHandler(os.path.join(exp_dir, "log.txt"))
+    fh.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
+    logger.addHandler(sh)
+    logger.addHandler(fh)
+    return logger
+
+
+def warm_start_(model: LightningDiT, path: str) -> int:
+    """Load the ``model`` weights of a reference ``.pt`` (canonical layout)
+    where the shapes match, the rest keeping their initialisation; a wider
+    patch embedding is cut to the model's input channels. Returns the number
+    of tensors loaded."""
+    # a checkpoint is a trusted file the user points at, as in the JAX CLI
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = dict(ckpt["model"] if "model" in ckpt else ckpt)
+    c = model.spec.in_channels
+    w = sd.get("x_embedder.proj.weight")
+    if w is not None and w.shape[1] > c:
+        sd["x_embedder.proj.weight"] = w[:, :c]
+    own = model.state_dict()
+    keep = {k: v for k, v in sd.items() if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.load_state_dict(keep, strict=False)
+    return len(keep)
+
+
+def _data_dir(config: LDMAEConfig) -> str:
+    path = config.data.data_path
+    if config.data.sample and not path.endswith("_sample") and os.path.isdir(path + "_sample"):
+        path += "_sample"  # the reference's naming of moment-latent shards
+    return path
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Train as the config says; returns {"state", "history", "exp_dir"}:
+    the final TrainState and one record per log line (step, loss, grad_norm,
+    steps_per_sec, seconds)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
+    parser.add_argument("--peak_tflops", type=float, default=None,
+                        help="peak bf16 TFLOP/s of the device for the MFU log (default: from the "
+                             "CUDA device name; unknown devices log 'MFU n/a')")
+    args = parser.parse_args(argv)
+
+    config = LDMAEConfig.from_yaml(args.config)
+    if args.max_steps is not None:
+        config.train.max_steps = args.max_steps
+    device = resolve_device(args.device)
+    tc = config.train
+    exp_dir = os.path.join(tc.output_dir, tc.exp_name)
+    logger = setup_logger(exp_dir)
+    logger.info(f"Experiment directory: {exp_dir}")
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    writer = None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer = SummaryWriter(os.path.join(exp_dir, "tensorboard"))
+    except ImportError:
+        logger.info("tensorboard unavailable; scalar logs go to log.txt only")
+
+    spec, model, transport, step_fn = build_from_config(
+        config, device, torch.Generator().manual_seed(tc.global_seed))
+    # the warm start precedes the half-RoPE permutation: imported weights are
+    # in the canonical layout
+    if tc.weight_init:
+        n = warm_start_(model, tc.weight_init)
+        logger.info(f"warm-started {n} tensors from {tc.weight_init}")
+    half = config.parallel.rope_layout == "half" and spec.use_rope
+    if half:
+        model.load_state_dict(permute_qk_for_half_rope(model.state_dict(), spec), strict=True)
+        logger.info("using half-split RoPE layout (checkpoints are saved in the canonical one)")
+    opt = config.optimizer
+    state = init_train_state(model, make_optimizer(model.parameters(), opt.lr, opt.beta2))
+    if restore_checkpoint(exp_dir, state, half_rope=half) is not None:
+        logger.info(f"resumed from step {state.step}")
+
+    dataset = ImgLatentDataset(_data_dir(config), latent_norm=config.data.latent_norm,
+                               latent_multiplier=config.data.latent_multiplier,
+                               sample=config.data.sample, seed=tc.global_seed)
+    logger.info(f"dataset: {len(dataset)} latents from {_data_dir(config)}")
+    accum = tc.gradient_accumulation_steps
+    micro = tc.global_batch_size // accum
+    # resume the data stream where the restored step left off (each epoch
+    # reshuffles with seed + epoch, so the step maps to an exact position)
+    per_epoch = max(len(dataset) // (micro * accum), 1)
+    batches = dataset.iter_batches(micro * accum, shuffle=True, seed=tc.global_seed,
+                                   start_epoch=state.step // per_epoch, skip_batches=state.step % per_epoch)
+
+    cd = COMPUTE_DTYPES[config.parallel.compute_dtype]
+    val_batch = None
+    if config.data.valid_path and os.path.isdir(config.data.valid_path):
+        vds = ImgLatentDataset(config.data.valid_path, latent_norm=config.data.latent_norm,
+                               latent_multiplier=config.data.latent_multiplier, sample=config.data.sample)
+        raw = next(vds.iter_batches(min(micro, len(vds)), shuffle=False, epochs=1, drop_last=False))
+        val_batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+
+    step_flops = 3 * dit_forward_flops(spec, tc.global_batch_size)  # forward + ~2x backward
+    peak = resolve_peak_flops(args.peak_tflops, device)
+    stop_signal: List[int] = []
+
+    def request_stop(signum, frame):
+        if stop_signal:  # a second signal: give up on the graceful path
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+        stop_signal.append(signum)
+
+    def save(what: str) -> None:
+        path = save_checkpoint(exp_dir, state, config=config.to_dict(), half_rope=half)
+        logger.info(f"Saved {what}checkpoint to {path}")
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, request_stop)
+        except ValueError:
+            pass  # not the main thread (embedded use)
+    gen = torch.Generator(device=device)
+    history: List[Dict[str, float]] = []
+    pending, log_steps = [], 0
+    logger.info(f"training for {tc.max_steps} steps (global_batch={tc.global_batch_size}, accum={accum})")
+    start = time.time()
+    try:
+        while state.step < tc.max_steps:
+            host = next(batches)
+            x = torch.from_numpy(host["x"]).to(device).reshape(accum, micro, *host["x"].shape[1:])
+            y = torch.from_numpy(host["y"]).to(device).reshape(accum, micro)
+            # one seed per step, so a resumed run draws its noise, t and label
+            # dropout as the uninterrupted one would
+            gen.manual_seed((tc.global_seed + 1) * 1_000_003 + state.step)
+            metrics = step_fn(state, {"x": x, "y": y}, gen)
+            pending.append(torch.stack([metrics["loss"], metrics["grad_norm"]]))
+            log_steps += 1
+
+            if state.step % tc.log_every == 0:
+                loss, gnorm = (float(v) for v in torch.stack(pending).mean(0))  # synchronises
+                dt = time.time() - start
+                logger.info(f"(step={state.step:07d}) Train Loss: {loss:.4f}, Train Steps/Sec: "
+                            f"{log_steps / dt:.2f}, " + format_tflops_mfu(step_flops * log_steps, dt, peak)
+                            + f", Grad Norm: {gnorm:.4f}")
+                history.append(dict(step=state.step, loss=loss, grad_norm=gnorm,
+                                    steps_per_sec=log_steps / dt, seconds=dt))
+                if writer is not None:
+                    writer.add_scalar("Loss/train", loss, state.step)
+                    writer.add_scalar("Perf/tflops", step_flops * log_steps / dt / 1e12, state.step)
+                pending, log_steps, start = [], 0, time.time()
+
+            if stop_signal:
+                logger.info(f"received signal {stop_signal[0]}; saving a preemption checkpoint at step {state.step}")
+                save("preemption ")
+                break
+
+            if state.step % tc.ckpt_every == 0:
+                save("")
+                if val_batch is not None:
+                    val = float(evaluate_step(
+                        state.model, transport, val_batch, torch.Generator(device=device).manual_seed(0),
+                        compute_dtype=cd, attn_impl=config.parallel.train_attention_impl,
+                        rope_layout=config.parallel.rope_layout))
+                    logger.info(f"Validation Loss: {val:.4f}")
+                    if writer is not None:
+                        writer.add_scalar("Loss/validation", val, state.step)
+        else:
+            save("final ")
+    finally:  # an embedding program gets its own handlers back
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        if writer is not None:
+            writer.close()
+    return {"state": state, "history": history, "exp_dir": exp_dir}
+
+
+if __name__ == "__main__":
+    main()

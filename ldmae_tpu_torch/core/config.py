@@ -74,7 +74,8 @@ class ModelConfig:
     # remat granularity: 'full' (min HBM) | 'dots' (save matmul/attention
     # outputs; backward recomputes only elementwise ops)
     remat_policy: str = "full"
-    # block-scan unroll factor (1 = rolled; depth = fully unrolled)
+    # the JAX block scan's unroll factor (1 = rolled; depth = fully unrolled);
+    # kept so configs map one to one, no effect on the port's eager block loop
     scan_unroll: int = 1
 
 

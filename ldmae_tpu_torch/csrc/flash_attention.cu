@@ -1,6 +1,8 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in and out, non-causal.
+// Flash attention for Hopper (sm_90a), bf16 in and out, non-causal: four
+// forward kernels here, the two backward kernels in the section "Backward"
+// below (its own note says what bounds them and where they round).
 //
-// Replaces four Pallas TPU kernels of ldmae_tpu/ops/flash_attention.py:
+// The forward replaces four Pallas TPU kernels of ldmae_tpu/ops/flash_attention.py:
 //   * flash_attention_rope (_flash_rope_bhnd_kernel): half-split RoPE on q and
 //     k in fp32, cast back to bf16, then attention (DiT sampling, d = 64);
 //   * flash_attention forward (_flash_fwd_kernel): the same without RoPE, any
@@ -82,6 +84,15 @@ struct AttnArgs {
   Operand q, k, v, o;  // o.p is written
   int heads, n;
   float scale_log2;
+  // The backward's statistics pass (flash_fwd_kernel<D, true>) writes, in
+  // place of o, per query row r of program bh: lse[bh * npad + r] = log2 of
+  // the softmax denominator in the kernel's log2 units (running max
+  // included) and delta[bh * npad + r] = rowsum(g * o) with o the fp32
+  // normalised output; rows n <= r < npad get 0.
+  Operand g;
+  float* lse;
+  float* delta;
+  int npad;
 };
 
 // Asynchronous copy of a 64 x D tile (row stride ld elements in global) into
@@ -106,8 +117,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// grid: (ceil(n / 64), batch * heads).
-template <int D>
+// grid: (ceil(n / 64), batch * heads). With kStats, the backward's
+// statistics pass: the same forward, whose epilogue writes lse and delta
+// (AttnArgs) instead of the output.
+template <int D, bool kStats>
 __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kernel(const AttnArgs a) {
   constexpr int kDK = Shape<D>::kDK;
   constexpr int kLd = Shape<D>::kLd;
@@ -244,8 +257,36 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
     __syncthreads();  // this tile's buffers are consumed before they are refilled
   }
 
-  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if constexpr (kStats) {
+    const bf16* gp = a.g.p + bi * a.g.sb + hi * a.g.sh;
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kOBlocks; ++i) {
+      const int col = i * 8 + 2 * t;
+      if (col >= D) continue;
+      if (r0 < n) {
+        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gp + (long long)r0 * a.g.sr + col);
+        d0 += __low2float(gv) * (o[i][0] * inv0) + __high2float(gv) * (o[i][1] * inv0);
+      }
+      if (r1 < n) {
+        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gp + (long long)r1 * a.g.sr + col);
+        d1 += __low2float(gv) * (o[i][2] * inv1) + __high2float(gv) * (o[i][3] * inv1);
+      }
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+    if (t == 0) {  // rows < npad: the grid covers ceil(n / 64) tiles of 64
+      const long long base = (long long)blockIdx.y * a.npad;
+      a.lse[base + r0] = r0 < n ? m0 + log2f(sum0) : 0.f;
+      a.delta[base + r0] = r0 < n ? d0 : 0.f;
+      a.lse[base + r1] = r1 < n ? m1 + log2f(sum1) : 0.f;
+      a.delta[base + r1] = r1 < n ? d1 : 0.f;
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < kOBlocks; ++i) {
     const int col = i * 8 + 2 * t;
@@ -350,10 +391,10 @@ cudaError_t launch(const AttnArgs& a, int bh, cudaStream_t stream) {
   // Dynamic shared memory above 48 KB needs an opt-in, which CUDA keeps per
   // device: set it at every launch (cheap) so any card the caller picks has it.
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.n + kBlock - 1) / kBlock, bh);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(a);
+  flash_fwd_kernel<D, false><<<grid, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -389,6 +430,398 @@ cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
   if (lanes <= 8) norm_rope_launch<8>(a, norm, s);  // d <= 64
   else norm_rope_launch<16>(a, norm, s);            // d = 72
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward: replaces the two Pallas backward kernels of
+// ldmae_tpu/ops/flash_attention.py, the custom VJPs of flash_attention
+// (_flash_bwd_kernel, pallas_call at :151) and of
+// flash_attention_rope_trainable (_flash_rope_bwd_kernel, pallas_call at :429).
+//
+// The TPU kernel holds a whole (N, d) head in VMEM per program and forms p,
+// dv = p^T g, dp = g v^T, ds = p (dp - rowsum(dp p)), dq = ds k d^-1/2 and
+// dk = ds^T q d^-1/2 at once. Here three kernels share the work, none of
+// them writing an (N, N) tensor, each deterministic (no atomics):
+//   1. statistics: the forward kernel (flash_fwd_kernel<D, true>) recomputes
+//      the softmax row maximum and denominator (the forward saves neither) as
+//      lse, and delta = rowsum(g * o) = rowsum(dp * p), with o the fp32
+//      output normalised by the fp32 row sum; o itself is not written;
+//   2. dK/dV: one block per (64-key tile, b*h), 16 keys per warp, its K and V
+//      fragments in registers; it streams the 64-row q and g tiles
+//      (double-buffered cp.async) and forms p^T = exp2(k q^T - lse), dp^T =
+//      v g^T, dv += p^T g and dk += ds^T q;
+//   3. dQ: one block per (64-query tile, b*h), its q and g fragments in
+//      registers; it streams the K and V tiles and forms p, dp = g v^T and
+//      dq += ds k.
+// All products run on the tensor cores (mma.sync m16n8k16, fp32 sums).
+//
+// Rounding: p and ds are rounded to bf16 as the A operand of the dv, dk and
+// dq products, and delta comes from an o whose p was rounded to bf16 before
+// P.V (the forward's rounding); the TPU kernel keeps p, dp and ds in fp32.
+// dq, dk, dv are fp32 until one rounding to bf16 at the end.
+//
+// RoPE (flash_attention_rope_trainable): q and k are rotated once by the
+// forward's pre-pass (norm_rope_kernel, no norm) into bf16 scratch, as the
+// TPU kernel rounds them; the kernels run on the rotated copies, and the
+// epilogue that writes dq and dk applies the transposed RoPE Jacobian
+// J^T y = y cos + [(y sin)_2 | -(y sin)_1] in fp32 through a shared-memory
+// staging tile (column c pairs with c +- d/2, which another thread holds).
+//
+// What bounds it, at the DiT B/1 training shapes (b h N d = 32 12 1024 64):
+// the minimum work is 10 b h N^2 d = 2.58e11 flops, 0.261 ms at 989 TFLOP/s,
+// against 352 MB of q, k, v, g in and dq, dk, dv out, 0.105 ms at 3.35 TB/s:
+// operations bound it. This design does 18 b h N^2 d (the statistics pass
+// repeats the forward's two products, and the dK/dV and dQ kernels both
+// recompute q k^T and g v^T), so it cannot come within 1.8x of that bound;
+// wgmma, TMA and a single pass with dq summed across blocks are later work.
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *g;  // (bh, n, d) contiguous; q, k rotated with RoPE
+  const float *lse, *delta;   // (bh, npad) from the statistics pass
+  bf16 *dq, *dk, *dv;         // (bh, n, d) contiguous, written
+  const float *cos, *sin;     // (n, d) fp32 half-split tables (kRope only)
+  int n, npad;
+  float scale_log2, scale;
+};
+
+template <int D>
+struct BwdShape {
+  static constexpr int kT = kBlock * Shape<D>::kLd;  // elements of one bf16 tile
+  static constexpr int kSt = Shape<D>::kDK + 4;       // fp32 staging row stride
+  // six bf16 tiles + lse and delta, two buffers of 64 each
+  static constexpr int kSmemBytes = 6 * kT * 2 + 4 * kBlock * 4;
+  static_assert(kBlock * kSt * 4 <= 4 * kT * 2, "the staging tile fits in four streamed tiles");
+};
+
+// The 64 x kDK fp32 accumulator of a block (warp w holds rows 16w..16w+15 in
+// the mma C layout) times `mul`, written as bf16 to rows row0.. (< n) of out
+// (row stride D) through the staging tile st, which may alias tiles the
+// block has finished reading. With kRope, the transposed RoPE Jacobian at
+// each row's position, in the TPU kernel's fp32 op order. Every thread of
+// the block calls it.
+template <int D, bool kRope>
+__device__ __forceinline__ void store_rows(const float (&acc)[Shape<D>::kDK / 8][4], float mul,
+                                           float* st, bf16* out, int row0, int n,
+                                           const float* cos, const float* sin) {
+  constexpr int kSt = BwdShape<D>::kSt, half = D / 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  __syncthreads();  // every warp is done with the tiles st aliases
+#pragma unroll
+  for (int i = 0; i < Shape<D>::kDK / 8; ++i) {
+    float* s0 = st + (warp * 16 + g) * kSt + i * 8 + 2 * t;
+    s0[0] = acc[i][0] * mul;
+    s0[1] = acc[i][1] * mul;
+    s0[8 * kSt] = acc[i][2] * mul;
+    s0[8 * kSt + 1] = acc[i][3] * mul;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D, row = row0 + r;
+    if (row >= n) continue;
+    const float* sr = st + r * kSt;
+    float y = sr[c];
+    if (kRope) {
+      const float* cs = cos + (size_t)row * D;
+      const float* sn = sin + (size_t)row * D;
+      const float rt = c < half ? __fmul_rn(sr[c + half], sn[c + half])
+                                : -__fmul_rn(sr[c - half], sn[c - half]);
+      y = __fadd_rn(__fmul_rn(y, cs[c]), rt);
+    }
+    out[(size_t)row * D + c] = __float2bfloat16_rn(y);
+  }
+}
+
+// A fragments (16 rows x kDK) of this warp's rows of a row-major tile.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[Shape<D>::kDK / 16][4], const bf16* tile) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < Shape<D>::kDK / 16; ++kk)
+    ldsm_x4(f[kk][0], f[kk][1], f[kk][2], f[kk][3],
+            smem_addr(tile + (warp * 16 + (lane & 15)) * Shape<D>::kLd + kk * 16 + (lane >> 4) * 8));
+}
+
+// c[8][4] += A (16 x kDK fragments) times the transpose of a 64-row tile:
+// the B operand is the tile's rows (n index) over its columns (k index).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[Shape<D>::kDK / 16][4],
+                                        const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < Shape<D>::kDK / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(b0, b1, b2, b3,
+              smem_addr(tile + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * Shape<D>::kLd + kk * 16 +
+                        ((lane >> 3) & 1) * 8));
+      mma_bf16_16816(c[2 * p], a[kk], b0, b1);
+      mma_bf16_16816(c[2 * p + 1], a[kk], b2, b3);
+    }
+  }
+}
+
+// c[kDK/8][4] += A (16 x 64, four k-steps of packed bf16) times a 64-row
+// tile read as the B operand (its rows are the k index), transposed on the
+// way by ldmatrix.
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&c)[Shape<D>::kDK / 8][4], const uint32_t (&a)[4][4],
+                                       const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int p = 0; p < Shape<D>::kDK / 16; ++p) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_trans(b0, b1, b2, b3,
+                    smem_addr(tile + (j * 16 + (lane & 15)) * Shape<D>::kLd + p * 16 + (lane >> 4) * 8));
+      mma_bf16_16816(c[2 * p], a[j], b0, b1);
+      mma_bf16_16816(c[2 * p + 1], a[j], b2, b3);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_padding(bf16* tiles, int ntiles) {
+  constexpr int kDK = Shape<D>::kDK, kLd = Shape<D>::kLd;
+  if (kDK > D) {  // the copies write columns < D only; the padding stays zero
+    for (int i = threadIdx.x; i < ntiles * kBlock * (kDK - D); i += kThreads)
+      tiles[(i / (kDK - D)) * kLd + D + i % (kDK - D)] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// grid: (ceil(n / 64) key tiles, bh).
+template <int D, bool kRope>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int kOBlocks = Shape<D>::kDK / 8, kT = BwdShape<D>::kT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + kT;
+  bf16* sq = sv + kT;      // two buffers
+  bf16* sg = sq + 2 * kT;  // two buffers
+  float* sl = reinterpret_cast<float*>(sg + 2 * kT);  // lse, two buffers of 64
+  float* sd = sl + 2 * kBlock;                         // delta, two buffers of 64
+
+  const int n = a.n;
+  const long long off = (long long)blockIdx.y * n * D;
+  const bf16* q = a.q + off;
+  const bf16* go = a.g + off;
+  const float* lse = a.lse + (long long)blockIdx.y * a.npad;
+  const float* delta = a.delta + (long long)blockIdx.y * a.npad;
+  const int k0 = blockIdx.x * kBlock;
+  const int t = threadIdx.x % 4;
+  const int ntiles = (n + kBlock - 1) / kBlock;
+
+  zero_padding<D>(sk, 6);
+  load_tile_async<D>(sk, a.k + off + (long long)k0 * D, D, n - k0);
+  load_tile_async<D>(sv, a.v + off + (long long)k0 * D, D, n - k0);
+  cp_async_commit();
+  // q, g, lse and delta of query tile `it` into buffer `buf` (lse and delta
+  // rows < npad are all written by the statistics pass)
+  auto load_query_tile = [&](int it, int buf) {
+    const int q0 = it * kBlock;
+    load_tile_async<D>(sq + buf * kT, q + (long long)q0 * D, D, n - q0);
+    load_tile_async<D>(sg + buf * kT, go + (long long)q0 * D, D, n - q0);
+    for (int i = threadIdx.x; i < 2 * (kBlock / 4); i += kThreads) {
+      const int which = i / (kBlock / 4), c = (i % (kBlock / 4)) * 4;
+      cp_async16((which ? sd : sl) + buf * kBlock + c, (which ? delta : lse) + q0 + c);
+    }
+    cp_async_commit();
+  };
+  load_query_tile(0, 0);
+  cp_async_wait<1>();  // the K and V tiles
+  __syncthreads();
+
+  uint32_t kf[Shape<D>::kDK / 16][4], vf[Shape<D>::kDK / 16][4];
+  load_a_frags<D>(kf, sk);
+  load_a_frags<D>(vf, sv);
+  float dk[kOBlocks][4], dv[kOBlocks][4];
+#pragma unroll
+  for (int i = 0; i < kOBlocks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    const bf16* qt = sq + buf * kT;
+    const bf16* gt = sg + buf * kT;
+    const float* lt = sl + buf * kBlock;
+    const float* dt = sd + buf * kBlock;
+    if (it + 1 < ntiles) {
+      load_query_tile(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `it` is in shared memory for every warp
+
+    // S^T = K Q^T and dP^T = V G^T: this warp's 16 keys x 64 queries
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    mma_abt<D>(s, kf, qt);
+    mma_abt<D>(dp, vf, gt);
+
+    // P^T = exp2(S^T scale - lse) and dS^T = P^T (dP^T - delta), as bf16 A
+    // operands; queries past n contribute nothing
+    const int valid = n - it * kBlock;
+    uint32_t pf[4][4], df[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = i * 8 + 2 * t + (e & 1);
+        p[e] = col < valid ? exp2f(s[i][e] * a.scale_log2 - lt[col]) : 0.f;
+        ds[e] = p[e] * (dp[i][e] - dt[col]);
+      }
+      pf[i / 2][(i % 2) * 2] = pack_bf16(p[0], p[1]);
+      pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      df[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      df[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    mma_ab<D>(dv, pf, gt);  // dV += P^T G
+    mma_ab<D>(dk, df, qt);  // dK += dS^T Q
+    __syncthreads();  // this tile's buffers are consumed before they are refilled
+  }
+  float* st = reinterpret_cast<float*>(sq);
+  store_rows<D, kRope>(dk, a.scale, st, a.dk + off, k0, n, a.cos, a.sin);
+  store_rows<D, false>(dv, 1.f, st, a.dv + off, k0, n, nullptr, nullptr);
+}
+
+// grid: (ceil(n / 64) query tiles, bh).
+template <int D, bool kRope>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int kOBlocks = Shape<D>::kDK / 8, kT = BwdShape<D>::kT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sg = sq + kT;
+  bf16* sk = sg + kT;      // two buffers
+  bf16* sv = sk + 2 * kT;  // two buffers
+
+  const int n = a.n;
+  const long long off = (long long)blockIdx.y * n * D;
+  const bf16* k = a.k + off;
+  const bf16* v = a.v + off;
+  const int q0 = blockIdx.x * kBlock;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ntiles = (n + kBlock - 1) / kBlock;
+
+  zero_padding<D>(sq, 6);
+  load_tile_async<D>(sq, a.q + off + (long long)q0 * D, D, n - q0);
+  load_tile_async<D>(sg, a.g + off + (long long)q0 * D, D, n - q0);
+  cp_async_commit();
+  load_tile_async<D>(sk, k, D, n);
+  load_tile_async<D>(sv, v, D, n);
+  cp_async_commit();
+  cp_async_wait<1>();  // the q and g tiles
+  __syncthreads();
+
+  uint32_t qf[Shape<D>::kDK / 16][4], gf[Shape<D>::kDK / 16][4];
+  load_a_frags<D>(qf, sq);
+  load_a_frags<D>(gf, sg);
+  const long long srow = (long long)blockIdx.y * a.npad + q0 + warp * 16 + g;  // rows < npad
+  const float lse0 = a.lse[srow], lse1 = a.lse[srow + 8];
+  const float del0 = a.delta[srow], del1 = a.delta[srow + 8];
+  float dq[kOBlocks][4];
+#pragma unroll
+  for (int i = 0; i < kOBlocks; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kv0 = it * kBlock;
+    const bf16* kt = sk + (it & 1) * kT;
+    const bf16* vt = sv + (it & 1) * kT;
+    if (it + 1 < ntiles) {
+      const long long next = kv0 + kBlock;
+      load_tile_async<D>(sk + ((it + 1) & 1) * kT, k + next * D, D, n - kv0 - kBlock);
+      load_tile_async<D>(sv + ((it + 1) & 1) * kT, v + next * D, D, n - kv0 - kBlock);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = G V^T: this warp's 16 queries x 64 keys
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    mma_abt<D>(s, qf, kt);
+    mma_abt<D>(dp, gf, vt);
+
+    // dS = P (dP - delta), keys past n masked
+    const int valid = n - kv0;
+    uint32_t df[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = i * 8 + 2 * t + (e & 1);
+        const float p = col < valid ? exp2f(s[i][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+        ds[e] = p * (dp[i][e] - (e < 2 ? del0 : del1));
+      }
+      df[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      df[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    mma_ab<D>(dq, df, kt);  // dQ += dS K
+    __syncthreads();
+  }
+  store_rows<D, kRope>(dq, a.scale, reinterpret_cast<float*>(sk), a.dq + off, q0, n, a.cos, a.sin);
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D, bool kRope>
+cudaError_t bwd_launch(const AttnArgs& stats, const BwdArgs& b, int bh, cudaStream_t s) {
+  const dim3 grid((b.n + kBlock - 1) / kBlock, bh);
+  constexpr int kFwd = Shape<D>::kSmemBytes, kBwd = BwdShape<D>::kSmemBytes;
+  cudaError_t e = set_smem(flash_fwd_kernel<D, true>, kFwd);
+  if (e != cudaSuccess) return e;
+  flash_fwd_kernel<D, true><<<grid, kThreads, kFwd, s>>>(stats);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = set_smem(flash_bwd_dkdv_kernel<D, kRope>, kBwd)) != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<D, kRope><<<grid, kThreads, kBwd, s>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = set_smem(flash_bwd_dq_kernel<D, kRope>, kBwd)) != cudaSuccess) return e;
+  flash_bwd_dq_kernel<D, kRope><<<grid, kThreads, kBwd, s>>>(b);
+  return cudaGetLastError();
+}
+
+template <bool kRope>
+cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return bwd_launch<16, kRope>(stats, b, bh, s);
+    case 64: return bwd_launch<64, kRope>(stats, b, bh, s);
+    case 72: return bwd_launch<72, kRope>(stats, b, bh, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The three passes on contiguous (bh, n, d) q, k (rotated for RoPE), v, g.
+template <bool kRope>
+cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const float* cos,
+                     const float* sin, void* dq, void* dk, void* dv, float* lse, float* delta,
+                     int bh, int n, int d, cudaStream_t s) {
+  const int npad = (n + kBlock - 1) / kBlock * kBlock;
+  AttnArgs stats = contiguous_args(q, k, v, nullptr, n, d);
+  stats.g = contiguous(g, n, d);
+  stats.lse = lse;
+  stats.delta = delta;
+  stats.npad = npad;
+  const BwdArgs b{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                  cos, sin, n, npad, stats.scale_log2, 1.f / sqrtf((float)d)};
+  return bwd_dispatch<kRope>(stats, b, bh, d, s);
 }
 
 }  // namespace
@@ -453,4 +886,33 @@ extern "C" int ldmae_flash_attention_fused_rope_fwd(
   const AttnArgs args{rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n,
                       1.4426950408889634f / sqrtf((float)d)};
   return static_cast<int>(dispatch(args, b * h, d, s));
+}
+
+// Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
+// contiguous (bh, n, d) bf16; dq, dk, dv written likewise; lse, delta are
+// (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64.
+extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
+                                         void* dq, void* dk, void* dv, float* lse, float* delta,
+                                         int bh, int n, int d, void* stream) {
+  return static_cast<int>(backward<false>(q, k, v, g, nullptr, nullptr, dq, dk, dv, lse, delta, bh,
+                                          n, d, static_cast<cudaStream_t>(stream)));
+}
+
+// Backward of ldmae_flash_attention_rope_fwd: as above with the (n, d) fp32
+// half-split tables cos, sin, and qr, kr (bh, n, d) bf16 scratch that
+// receive the rotated q and k; dq and dk are the gradients of the unrotated
+// q and k.
+extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, const void* v,
+                                              const void* g, const float* cos, const float* sin,
+                                              void* qr, void* kr, void* dq, void* dk, void* dv,
+                                              float* lse, float* delta, int bh, int n, int d,
+                                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
+                 {contiguous(qr, n, d), contiguous(kr, n, d)},
+                 {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
+  const cudaError_t e = norm_rope(a, false, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      backward<true>(qr, kr, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, s));
 }

@@ -46,6 +46,8 @@ LIBRARIES = {
                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
             "ldmae_flash_attention_fused_rope_fwd":
                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
+            "ldmae_flash_attention_bwd": [_P] * 9 + [_I, _I, _I, _P],
+            "ldmae_flash_attention_rope_bwd": [_P] * 13 + [_I, _I, _I, _P],
         },
     ),
     "fused_norm_modulate": (

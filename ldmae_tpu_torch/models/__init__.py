@@ -5,6 +5,7 @@ from .lightningdit import (
     DiTSpec,
     LightningDiT,
     dit_spec,
+    init_dit_weights_,
     list_models,
     permute_qk_for_half_rope,
     quantize_dit_,
@@ -19,6 +20,7 @@ __all__ = [
     "DiTSpec",
     "LightningDiT",
     "dit_spec",
+    "init_dit_weights_",
     "list_models",
     "permute_qk_for_half_rope",
     "quantize_dit_",

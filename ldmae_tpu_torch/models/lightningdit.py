@@ -1,5 +1,6 @@
-"""LightningDiT — diffusion transformer, eval forward (port of
-``ldmae_tpu/models/lightningdit.py``).
+"""LightningDiT — diffusion transformer (port of
+``ldmae_tpu/models/lightningdit.py``): the sampling forward, the training
+forward (label dropout, rematerialisation) and the reference initialisation.
 
 ``LightningDiT`` holds its parameters under the reference's state-dict keys
 (``blocks.{i}.attn.qkv.weight``, ``blocks.{i}.mlp.w12.weight``,
@@ -18,6 +19,7 @@ halves). ``quant_mode`` ('w8' | 'w8a8') needs a model transformed by
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..core.device import resolve_device
 from ..ops import (
@@ -64,6 +67,13 @@ class DiTSpec:
     use_rope: bool = False
     use_rmsnorm: bool = False
     wo_shift: bool = False
+    # rematerialisation in training (torch.utils.checkpoint), as the JAX
+    # package's jax.checkpoint: 'full' keeps only block boundaries, 'attn'
+    # also each block's attention output (the block runs as two segments split
+    # there), 'dots' every matmul output (selective checkpointing; the port's
+    # kernels are not aten ops, so they are always recomputed)
+    use_checkpoint: bool = False
+    remat_policy: str = "full"
     freq_embed_size: int = 256
 
     @property
@@ -175,6 +185,20 @@ class _Mlp(nn.Module):
         self.fc2 = nn.Linear(h, d, device=device)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat_policy 'dots': matmul outputs are kept, everything else is
+    recomputed (JAX's dots_with_no_batch_dims_saveable, with the block's
+    attention output kept as the proj product)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 def _norm(x, norm, use_rmsnorm: bool):
     if use_rmsnorm:
         return rms_norm(x, norm.weight)
@@ -208,15 +232,54 @@ class DiTBlock(nn.Module):
             nn.SiLU(), nn.Linear(d, spec.num_adaln * d, device=device)
         )
 
-    def forward(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
-                adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None):
+    def modulation(self, c_mod, spec: DiTSpec, quant_mode: Optional[str] = None):
+        """(shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp),
+        each (B, D); the shifts are None for ``wo_shift``."""
         mod = maybe_qdense(c_mod, self.adaLN_modulation[1], quant_mode)
         mod = mod.view(-1, spec.num_adaln, spec.hidden_size)
         if spec.wo_shift:
             scale_msa, gate_msa, scale_mlp, gate_mlp = mod.unbind(1)
-            shift_msa = shift_mlp = None
+            return None, scale_msa, gate_msa, None, scale_mlp, gate_mlp
+        return mod.unbind(1)
+
+    def attn_branch(self, x, shift, scale, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
+                    adaln_impl: str, quant_mode: Optional[str] = None):
+        """The block's attention output (after ``proj``), before its gate."""
+        h = _norm_modulate(x, self.norm1, shift, scale, spec.use_rmsnorm, adaln_impl)
+        return multi_head_attention(
+            h, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
+            qk_norm_kind="rms" if spec.use_rmsnorm else "layer", impl=attn_impl,
+            quant_mode=quant_mode,
+        )
+
+    def mlp_residual(self, x, attn_out, gate_msa, shift_mlp, scale_mlp, gate_mlp, spec: DiTSpec,
+                     adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None):
+        """The block's output from its input and attention output."""
+        x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
+        h = _norm_modulate(x, self.norm2, shift_mlp, scale_mlp, spec.use_rmsnorm, adaln_impl)
+        m = self.mlp
+        if spec.use_swiglu:
+            mlp_out = swiglu_ffn(h, m.w12, m.w3, quant_mode=quant_mode, impl=mlp_impl)
         else:
-            shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.unbind(1)
+            mlp_out = mlp_gelu(h, m.fc1, m.fc2, approximate=True, quant_mode=quant_mode)
+        return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
+
+    def forward_remat_attn(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
+                           adaln_impl: str, mlp_impl: str):
+        """remat_policy 'attn': the attention branch and the rest of the block
+        are two checkpointed segments, so the backward keeps the block input,
+        the (B, D) modulation vectors and the attention output, and
+        recomputes each segment's inside once."""
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(c_mod, spec)
+        attn_out = checkpoint(self.attn_branch, x, shift_msa, scale_msa, spec, rope, attn_impl,
+                              rope_layout, adaln_impl, use_reentrant=False)
+        return checkpoint(self.mlp_residual, x, attn_out, gate_msa, shift_mlp, scale_mlp, gate_mlp,
+                          spec, adaln_impl, mlp_impl, use_reentrant=False)
+
+    def forward(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
+                adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None):
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(
+            c_mod, spec, quant_mode)
         kind = "rms" if spec.use_rmsnorm else "layer"
 
         # w8a8 + fused epilogue: the adaLN kernel emits the int8 activation
@@ -241,20 +304,10 @@ class DiTBlock(nn.Module):
             mlp_out = swiglu_ffn_quant(h_q, h_s, self.mlp, compute_dtype=x.dtype)
             return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
 
-        h = _norm_modulate(x, self.norm1, shift_msa, scale_msa, spec.use_rmsnorm, adaln_impl)
-        attn_out = multi_head_attention(
-            h, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
-            qk_norm_kind=kind, impl=attn_impl, quant_mode=quant_mode,
-        )
-        x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
-
-        h = _norm_modulate(x, self.norm2, shift_mlp, scale_mlp, spec.use_rmsnorm, adaln_impl)
-        m = self.mlp
-        if spec.use_swiglu:
-            mlp_out = swiglu_ffn(h, m.w12, m.w3, quant_mode=quant_mode, impl=mlp_impl)
-        else:
-            mlp_out = mlp_gelu(h, m.fc1, m.fc2, approximate=True, quant_mode=quant_mode)
-        return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
+        attn_out = self.attn_branch(x, shift_msa, scale_msa, spec, rope, attn_impl, rope_layout,
+                                    adaln_impl, quant_mode)
+        return self.mlp_residual(x, attn_out, gate_msa, shift_mlp, scale_mlp, gate_mlp, spec,
+                                 adaln_impl, mlp_impl, quant_mode)
 
 
 class _FinalLayer(nn.Module):
@@ -295,13 +348,14 @@ class LightningDiT(nn.Module):
         self.blocks = nn.ModuleList(DiTBlock(spec, device) for _ in range(spec.depth))
         self.final_layer = _FinalLayer(spec, device)
 
-    @torch.no_grad()
     def forward(
         self,
         x: torch.Tensor,
         t: torch.Tensor,
         y: torch.Tensor,
         *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
         force_drop_ids: Optional[torch.Tensor] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         attn_impl: str = "xla",
@@ -311,7 +365,13 @@ class LightningDiT(nn.Module):
         quant_mode: Optional[str] = None,
     ) -> torch.Tensor:
         """x: (N, C, H, W) latents; t, y: (N,). Returns (N, C, H, W) float32.
-        ``quant_mode`` ('w8' | 'w8a8') needs ``quantize_dit_`` first."""
+
+        ``train`` drops each label with ``class_dropout_prob`` (a uniform draw
+        from ``generator``) unless ``force_drop_ids`` (1 = drop) is given.
+        With ``spec.use_checkpoint`` and grad enabled the blocks are
+        rematerialised by ``spec.remat_policy``. Sampling callers run it under
+        ``torch.no_grad()`` or ``torch.inference_mode()``. ``quant_mode``
+        ('w8' | 'w8a8') needs ``quantize_dit_`` first."""
         spec, consts, cd = self.spec, self.consts, compute_dtype
         pe = self.x_embedder.proj
         tokens = patch_embed(x.to(cd), pe.weight, pe.bias, spec.patch_size, compute_dtype=cd)
@@ -325,13 +385,26 @@ class LightningDiT(nn.Module):
         labels = y
         if force_drop_ids is not None:
             labels = torch.where(force_drop_ids == 1, spec.num_classes, labels)
+        elif train and spec.class_dropout_prob > 0:
+            drop = torch.rand(y.shape[0], generator=generator, device=y.device) < spec.class_dropout_prob
+            labels = torch.where(drop, spec.num_classes, labels)
         y_emb = F.embedding(labels, self.y_embedder.embedding_table.weight).to(cd)
         c_mod = silu(t_emb + y_emb)
 
         rope = consts.rope_half if (rope_layout == "half" and consts.rope is not None) else consts.rope
+        args = (c_mod, spec, rope, attn_impl, rope_layout, adaln_impl, mlp_impl)
+        remat = spec.remat_policy if spec.use_checkpoint and torch.is_grad_enabled() else None
+        if remat not in (None, "full", "attn", "dots"):
+            raise ValueError(f"unknown remat_policy {remat!r} (full | attn | dots)")
         for blk in self.blocks:
-            tokens = blk(tokens, c_mod, spec, rope, attn_impl, rope_layout, adaln_impl, mlp_impl,
-                         quant_mode)
+            if remat == "attn":
+                tokens = blk.forward_remat_attn(tokens, *args)
+            elif remat == "full":
+                tokens = checkpoint(blk, tokens, *args, use_reentrant=False)
+            elif remat == "dots":
+                tokens = checkpoint(blk, tokens, *args, use_reentrant=False, context_fn=_save_dots)
+            else:
+                tokens = blk(tokens, *args, quant_mode)
 
         fl = self.final_layer
         ada = fl.adaLN_modulation[1]
@@ -374,6 +447,41 @@ def permute_qk_for_half_rope(
                 if key in out:
                     out[key] = out[key][perm.to(out[key].device)]
     return out
+
+
+@torch.no_grad()
+def init_dit_weights_(model: LightningDiT, generator: Optional[torch.Generator] = None) -> LightningDiT:
+    """The reference initialisation in place (``init_dit_params`` of the JAX
+    package): xavier-uniform linears, the patch embedding treated as the
+    linear (D, C*p*p), N(0, 0.02) for the timestep MLP and the label table,
+    zero biases, unit norm weights, and zero adaLN projections and final
+    linear (so the model returns exactly 0 at the start). Draws come from
+    ``generator`` (CPU); the sin-cos and RoPE buffers are left as they are."""
+
+    def xavier(w: torch.Tensor, fan_in: int, fan_out: int) -> None:
+        a = float(np.sqrt(6.0 / (fan_in + fan_out)))
+        w.copy_(torch.rand(w.shape, generator=generator) * (2 * a) - a)
+
+    def normal(w: torch.Tensor) -> None:
+        w.copy_(torch.randn(w.shape, generator=generator) * 0.02)
+
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_out = m.weight.shape[0]
+            xavier(m.weight, m.weight[0].numel(), fan_out)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (RMSNorm, nn.LayerNorm)):
+            nn.init.ones_(m.weight)
+            if getattr(m, "bias", None) is not None:
+                nn.init.zeros_(m.bias)
+    for lin in (model.t_embedder.mlp[0], model.t_embedder.mlp[2]):
+        normal(lin.weight)
+    normal(model.y_embedder.embedding_table.weight)
+    for lin in [blk.adaLN_modulation[1] for blk in model.blocks] + [
+            model.final_layer.adaLN_modulation[1], model.final_layer.linear]:
+        nn.init.zeros_(lin.weight)
+        nn.init.zeros_(lin.bias)
+    return model
 
 
 @torch.no_grad()

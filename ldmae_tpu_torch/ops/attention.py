@@ -16,8 +16,11 @@ projection. ``p`` is an attention module with ``qkv`` and ``proj`` linears
   * "flash_fused": RoPE and attention on q, k, v in the (B, N, H*hd) layout
                   of the qkv projection, nothing transposed (half layout;
                   the qk-norm runs before it)
-Without RoPE every ``flash*`` impl routes to the plain flash kernel (VMAE
-attention).
+Without RoPE, or with the interleaved RoPE layout (applied here, outside
+the kernel), every ``flash*`` impl routes to the plain flash kernel (VMAE
+attention; DiT training with ``rope_layout: interleaved``). ``xla``,
+``flash`` and ``flash_rope`` are differentiable (training); the two opt-in
+impls are forward only, as in the JAX package, and raise under autograd.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ Counterpart of ``ldmae_tpu/ops/fused_adaln.py``'s ``fused_norm_modulate``
 (``_kernel``), ``fused_matmul_silu`` (``_kernel_matmul_silu``) and the two
 quantizing kernels of the w8a8 leg, ``fused_norm_modulate_quant``
 (``_kernel_quant``) and ``fused_silu_mul_quant``
-(``_kernel_silu_mul_quant``), forward only. A wrapper runs the plain
+(``_kernel_silu_mul_quant``). ``fused_norm_modulate`` is differentiable, as
+the JAX package's custom VJP is (``fused_norm_modulate_bwd``: plain PyTorch
+ops); the others are forward only (sampling). A wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel or
 raises. ``<wrapper>.launches`` counts kernel launches.
 """
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from .flash_attention import _acc
 
 
 def fused_norm_modulate_plain(
@@ -29,9 +32,10 @@ def fused_norm_modulate_plain(
     kind: str = "rms",
     eps: float = 1e-6,
 ) -> torch.Tensor:
-    """The kernel's math: the norm in fp32, cast to x's dtype, times the
-    weight (rms) in x's dtype, then y*(1+scale[b]) + shift[b] in x's dtype."""
-    xf = x.float()
+    """The kernel's math: the norm in fp32 (float64 for float64 x), cast to
+    x's dtype, times the weight (rms) in x's dtype, then y*(1+scale[b]) +
+    shift[b] in x's dtype."""
+    xf = _acc(x)
     if kind == "layer":
         xc = xf - xf.mean(-1, keepdim=True)
         y = (xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
@@ -39,9 +43,63 @@ def fused_norm_modulate_plain(
         y = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
         if weight is not None:
             y = y * weight.to(x.dtype)
-    sc = scale.float().to(x.dtype)[:, None, :]
-    sh = shift.float().to(x.dtype)[:, None, :]
+    sc = _acc(scale).to(x.dtype)[:, None, :]
+    sh = _acc(shift).to(x.dtype)[:, None, :]
     return y * (1.0 + sc) + sh
+
+
+def fused_norm_modulate_bwd(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+):
+    """(dx, dweight, dshift, dscale) of ``fused_norm_modulate`` for the
+    output gradient g: the JAX custom VJP's fp32 math
+    (``ldmae_tpu/ops/fused_adaln.py``, ``_fnm_custom_vjp``). That backward is
+    XLA there, not a Pallas kernel, so here it is plain PyTorch ops on every
+    device. dweight is summed over (B, N); it is None without a weight (and
+    zeros for kind='layer', whose norm takes no weight)."""
+    xf, gf = _acc(x), _acc(g)
+    dxh = gf * (1.0 + _acc(scale))[:, None, :]
+    dw = None
+    if kind == "layer":
+        xc = xf - xf.mean(-1, keepdim=True)
+        r = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+        xhat = xc * r
+        dx = r * (dxh - dxh.mean(-1, keepdim=True) - xhat * (dxh * xhat).mean(-1, keepdim=True))
+        if weight is not None:
+            dw = torch.zeros_like(weight)
+    else:
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        u = xf * r  # normalised, before the weight
+        wf = torch.ones_like(u[0, 0]) if weight is None else _acc(weight)
+        xhat = u * wf
+        if weight is not None:
+            dw = (dxh * u).sum(dim=(0, 1)).to(weight.dtype)
+        du = dxh * wf
+        dx = r * (u * -(du * u).mean(-1, keepdim=True) + du)
+    dshift = gf.sum(dim=1).to(shift.dtype)
+    dscale = (gf * xhat).sum(dim=1).to(scale.dtype)
+    return dx.to(x.dtype), dw, dshift, dscale
+
+
+class _FusedNormModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, shift, scale, kind, eps):
+        ctx.save_for_backward(x, weight, shift, scale)
+        ctx.kind, ctx.eps = kind, eps
+        return _fused_norm_modulate_fwd(x, weight, shift, scale, kind=kind, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, shift, scale = ctx.saved_tensors
+        return (*fused_norm_modulate_bwd(x, weight, shift, scale, g, kind=ctx.kind, eps=ctx.eps),
+                None, None)
 
 
 def fused_norm_modulate(
@@ -54,9 +112,17 @@ def fused_norm_modulate(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """x: (B, N, D); weight: (D,) RMSNorm weight (ignored for kind='layer');
-    shift/scale: (B, D). Returns modulate(norm(x), shift, scale)."""
+    shift/scale: (B, D). Returns modulate(norm(x), shift, scale).
+    Differentiable: the forward is the kernel (or, for CPU tensors, its
+    plain version), the backward ``fused_norm_modulate_bwd``."""
     if kind not in ("rms", "layer"):
         raise ValueError(f"unknown norm kind {kind!r}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, shift, scale)):
+        return _FusedNormModulate.apply(x, weight, shift, scale, kind, eps)
+    return _fused_norm_modulate_fwd(x, weight, shift, scale, kind=kind, eps=eps)
+
+
+def _fused_norm_modulate_fwd(x, weight, shift, scale, *, kind: str, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_norm_modulate_plain(x, weight, shift, scale, kind=kind, eps=eps)
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():

@@ -1,8 +1,12 @@
-"""Coupling-plan path math (port of ``ldmae_tpu/transport/paths.py``): the
-linear interpolant, which is what velocity prediction on the Linear path
-needs. The VP and GVP plans come with the training slice."""
+"""Coupling-plan path math for flow matching (port of
+``ldmae_tpu/transport/paths.py``): the linear interpolant (ICPlan,
+alpha_t = t, sigma_t = 1 - t), the VP plan and the GVP (sin/cos) plan, with
+the interpolation and target velocity the training loss uses. ``t`` is (B,)
+and is broadcast to the data's rank."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,3 +36,69 @@ class ICPlan:
         alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t)
         sigma_t, d_sigma_t = self.compute_sigma_t(t)
         return -alpha_ratio * x, alpha_ratio * (sigma_t**2) - sigma_t * d_sigma_t
+
+    def compute_mu_t(self, t, x0, x1):
+        t = expand_t_like_x(t, x1)
+        alpha_t, _ = self.compute_alpha_t(t)
+        sigma_t, _ = self.compute_sigma_t(t)
+        return alpha_t * x1 + sigma_t * x0
+
+    def compute_xt(self, t, x0, x1):
+        return self.compute_mu_t(t, x0, x1)
+
+    def compute_ut(self, t, x0, x1, xt):
+        t = expand_t_like_x(t, x1)
+        _, d_alpha_t = self.compute_alpha_t(t)
+        _, d_sigma_t = self.compute_sigma_t(t)
+        return d_alpha_t * x1 + d_sigma_t * x0
+
+    def plan(self, t, x0, x1):
+        """(t, x_t, u_t)."""
+        xt = self.compute_xt(t, x0, x1)
+        return t, xt, self.compute_ut(t, x0, x1, xt)
+
+
+class VPCPlan(ICPlan):
+    """Variance-preserving path."""
+
+    def __init__(self, sigma_min: float = 0.1, sigma_max: float = 20.0):
+        self.sigma_min = sigma_min
+        self.sigma_max = sigma_max
+
+    def log_mean_coeff(self, t):
+        return (-0.25 * ((1 - t) ** 2) * (self.sigma_max - self.sigma_min)
+                - 0.5 * (1 - t) * self.sigma_min)
+
+    def d_log_mean_coeff(self, t):
+        return 0.5 * (1 - t) * (self.sigma_max - self.sigma_min) + 0.5 * self.sigma_min
+
+    def compute_alpha_t(self, t):
+        alpha_t = torch.exp(self.log_mean_coeff(t))
+        return alpha_t, alpha_t * self.d_log_mean_coeff(t)
+
+    def compute_sigma_t(self, t):
+        p_sigma_t = 2 * self.log_mean_coeff(t)
+        sigma_t = torch.sqrt(1 - torch.exp(p_sigma_t))
+        d_sigma_t = torch.exp(p_sigma_t) * (2 * self.d_log_mean_coeff(t)) / (-2 * sigma_t)
+        return sigma_t, d_sigma_t
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return self.d_log_mean_coeff(t)
+
+    def compute_drift(self, x, t):
+        t = expand_t_like_x(t, x)
+        beta_t = self.sigma_min + (1 - t) * (self.sigma_max - self.sigma_min)
+        return -0.5 * beta_t * x, beta_t / 2
+
+
+class GVPCPlan(ICPlan):
+    """Generalised VP (sin/cos) path."""
+
+    def compute_alpha_t(self, t):
+        return torch.sin(t * math.pi / 2), math.pi / 2 * torch.cos(t * math.pi / 2)
+
+    def compute_sigma_t(self, t):
+        return torch.cos(t * math.pi / 2), -math.pi / 2 * torch.sin(t * math.pi / 2)
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return math.pi / (2 * torch.tan(t * math.pi / 2))

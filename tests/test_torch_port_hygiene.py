@@ -6,6 +6,7 @@
   unless the caller passes ``device="cpu"``.
 * A kernel wrapper given a tensor that is not on the CPU takes the kernel
   path (and raises if it cannot launch), never the plain version.
+* The forward-only attention kernels raise when autograd would record them.
 * ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid,
   also with ``--quant w8a8``; a config's ``parallel.quant`` quantizes the DiT.
 """
@@ -34,6 +35,11 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "ldmae_tpu" or m.startswith("ldmae_tpu."))
         assert not bad, bad
+        # the training slice's modules are among those checked
+        for name in ("ldmae_tpu_torch.train.train_dit", "ldmae_tpu_torch.train.state",
+                     "ldmae_tpu_torch.data.latent_dataset", "ldmae_tpu_torch.utils.profiling",
+                     "ldmae_tpu_torch.cli.train_dit"):
+            assert name in names, name
         print(len(names))
         """
     )
@@ -41,7 +47,7 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 28
 
 
 @pytest.fixture
@@ -63,6 +69,7 @@ def _tiny_config(tmp_path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from ldmae_tpu_torch.cli import train_dit
     from ldmae_tpu_torch.cli.inference import build_pipeline
     from ldmae_tpu_torch.core import resolve_device
     from ldmae_tpu_torch.eval.sampling import demo_labels, make_sample_fn
@@ -70,6 +77,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from ldmae_tpu_torch.transport import create_transport
 
     spec = dit_spec("LightningDiT-debug")
+    cfg_path = str(tmp_path / "tiny.yaml")
+    _tiny_config(tmp_path).to_yaml(cfg_path)
     for call in (
         lambda: resolve_device(),
         lambda: LightningDiT(spec),
@@ -77,6 +86,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         lambda: make_sample_fn(spec, create_transport()),
         lambda: demo_labels(),
         lambda: build_pipeline(_tiny_config(tmp_path)),
+        lambda: train_dit.main(["--config", cfg_path]),
+        lambda: train_dit.main(["--config", cfg_path, "--device", "cuda"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -113,9 +124,62 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
         lambda: fa.flash_attention_fused_rope(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], cos, cos),
         lambda: fad.fused_norm_modulate_quant(x, None, sh.bfloat16(), sh.bfloat16()),
         lambda: fad.fused_silu_mul_quant(x),
+        lambda: fa.flash_attention_bwd(q, q, q, q),
+        lambda: fa.flash_attention_rope_bwd(q, q, q, q, cos, cos),
     ):
         with pytest.raises(Launch):
             call()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_forward_only_kernels_raise_under_autograd(monkeypatch, device):
+    """The qk-norm and fused-layout attention kernels have no backward: with
+    inputs that require grad they raise before any launch, on the CPU and off
+    it, so no training run takes them and leaves the attention weights
+    without a gradient; under no_grad they run (off the CPU: they launch)."""
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import attention as att
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    class Launch(Exception):
+        pass
+
+    def load(name):
+        raise Launch(name)
+
+    monkeypatch.setattr(kernels, "load", load)
+    bf16 = dict(dtype=torch.bfloat16, device=device)
+    q = torch.zeros(1, 2, 64, 64, **bf16).requires_grad_()
+    qkv = torch.zeros(1, 64, 3, 2, 64, **bf16).requires_grad_()
+    cos, w = torch.ones(64, 64, device=device), torch.ones(64, device=device)
+    for call in (
+        lambda: fa.flash_attention_qknorm_rope(q, q, q, w, w, cos, cos),
+        lambda: fa.flash_attention_fused_rope(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], cos, cos),
+    ):
+        with pytest.raises(RuntimeError, match="forward only"):
+            call()
+        with torch.no_grad():
+            if device == "cpu":
+                assert call().shape[-1] == 64
+            else:
+                with pytest.raises(Launch):
+                    call()
+    if device != "cpu":
+        return
+    # through the attention module, as a train step with either impl would call it
+    d, heads, n = 32, 2, 16
+    p = torch.nn.Module()
+    p.qkv, p.proj = torch.nn.Linear(d, 3 * d), torch.nn.Linear(d, d)
+    p.q_norm, p.k_norm = torch.nn.Module(), torch.nn.Module()
+    p.q_norm.weight = p.k_norm.weight = torch.nn.Parameter(torch.ones(d // heads))
+    rope = (torch.ones(n, d // heads), torch.zeros(n, d // heads))
+    x = torch.randn(2, n, d)
+    for impl in ("flash_qkr", "flash_fused"):
+        kw = dict(rope=rope, rope_layout="half", qk_norm_kind="rms", impl=impl)
+        with pytest.raises(RuntimeError, match="forward only"):
+            att.multi_head_attention(x, p, heads, **kw)
+        with torch.no_grad():
+            assert att.multi_head_attention(x, p, heads, **kw).shape == x.shape
 
 
 def test_cli_demo_grid_on_cpu(tmp_path):

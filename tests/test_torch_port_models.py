@@ -73,8 +73,9 @@ def test_dit_forward_matches_jax(dt, impls):
     kw = dict(attn_impl=attn, rope_layout=layout, adaln_impl=adaln, mlp_impl=mlp)
     ref = jdit.dit_forward(jp, js, jdit.DiTConsts(js), jnp.asarray(x), jnp.asarray(t).astype(jd),
                            jnp.asarray(y), compute_dtype=jd, **kw)
-    out = model(torch.from_numpy(x), torch.from_numpy(t).to(td), torch.from_numpy(y),
-                compute_dtype=td, **kw)
+    with torch.no_grad():  # sampling callers turn grad off themselves
+        out = model(torch.from_numpy(x), torch.from_numpy(t).to(td), torch.from_numpy(y),
+                    compute_dtype=td, **kw)
     assert out.dtype == torch.float32 and out.shape == (2, 16, 16, 16)
     assert np.abs(np.asarray(ref)).max() > 1e-3  # the gates are non-zero
     assert rel_err(out.numpy(), ref) < REL[dt]

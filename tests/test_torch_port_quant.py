@@ -213,8 +213,9 @@ def test_quantized_dit_forward_matches_jax(dt, mode, impls):
     kw = dict(attn_impl=attn, rope_layout="half", adaln_impl=adaln, mlp_impl=mlp, quant_mode=mode)
     ref = jdit.dit_forward(jq, js, jdit.DiTConsts(js), jnp.asarray(x), jnp.asarray(t).astype(jd),
                            jnp.asarray(y), compute_dtype=jd, **kw)
-    out = model(torch.from_numpy(x), torch.from_numpy(t).to(td), torch.from_numpy(y),
-                compute_dtype=td, **kw)
+    with torch.no_grad():  # sampling callers turn grad off themselves
+        out = model(torch.from_numpy(x), torch.from_numpy(t).to(td), torch.from_numpy(y),
+                    compute_dtype=td, **kw)
     assert out.dtype == torch.float32 and out.shape == (2, 16, 16, 16)
     assert np.abs(np.asarray(ref)).max() > 1e-3
     assert rel_err(out.numpy(), ref) < {"float32": 1e-2, "bfloat16": 3e-2}[dt]
