@@ -6,14 +6,17 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py [--profile]
 
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
-per source, in parallel), then:
+per source, in parallel) and prints ``-Xptxas -v``'s registers, shared
+memory and spills of the two wgmma kernels, then:
 
   1. holds each of the eight kernels against its plain PyTorch version on
      the card at the shapes the sampling paths below give it (batch 8: the
      CFG-doubled DiT step and the VMAE decode), and times the kernel, the
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick only; the port never calls
-     it); then the same at ``bench.py``'s batch 36; then times the int8
+     it), and #1's two kernels apart (the RoPE pre-pass and the wgmma
+     attention, by kernel name under ``torch.profiler``); then the same at
+     ``bench.py``'s batch 36; then times the int8
      product of the w8a8 leg (``torch._int_mm``, checked exact) beside
      cuBLAS bf16 at the same shapes;
   2. drives the bf16 main path through its entry points: LightningDiT-B/1
@@ -174,6 +177,53 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, names, iters: int = 20) -> dict:
+    """Device time per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn`` after a
+    warm-up call: the parts of a wrapper that launches more than one kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3 / iters
+    if not all(out.values()):
+        raise SystemExit(f"the profiler saw none of {[n for n, v in out.items() if not v]}")
+    return out
+
+
+def rope_parts(fn) -> dict:
+    """#1's two kernels timed apart: the RoPE pre-pass and the attention."""
+    ms = kernel_device_ms(fn, ("norm_rope_kernel", "flash_fwd_wgmma_kernel"))
+    return {"prepass_ms": ms["norm_rope_kernel"], "attention_ms": ms["flash_fwd_wgmma_kernel"]}
+
+
+def ptxas_summary(log: str, kernel: str) -> str:
+    """``-Xptxas -v``'s report of one kernel: registers at entry, barriers,
+    static shared memory, stack and spills."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            props = []
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "registers" in nxt or "spill" in nxt:
+                    props.append(nxt.split("info    :")[-1].strip())
+            return "; ".join(props)
+    return "not in the report"
+
+
 def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> tuple[float, str]:
     """Least time in ms for the work: bytes over the memory rate, or
     tensor-core bf16 and plain fp32 operations over their peak rates."""
@@ -263,8 +313,9 @@ def kernel_phases(dev, batch: int) -> dict:
     plain_ms = cuda_ms(lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), 3, 1)
     qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
+    parts = rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin))
     rows["flash_attention_rope"] = (err, ms, plain_ms, lib_ms,
-                                    *bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d))
+                                    *bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d), parts)
     del q, k, v, qr, kr
 
     # -- 2: flash_attention, VMAE decoder attention (head dim 16)
@@ -283,7 +334,7 @@ def kernel_phases(dev, batch: int) -> dict:
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
     rows["flash_attention"] = (err, ms, plain_ms, lib_ms,
-                               *bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d))
+                               *bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d), {})
     del q, k, v
 
     # -- 3: fused_norm_modulate, the DiT adaLN epilogue in a CFG-doubled step
@@ -300,7 +351,7 @@ def kernel_phases(dev, batch: int) -> dict:
     # per element: square and sum, scale, weight, (1 + scale) product, shift
     rows["fused_norm_modulate"] = (err, ms, plain_ms, None,
                                    *bound(2 * b * n * d * 2 + d * 4 + 2 * b * d * 2,
-                                          fp32_flops=6 * b * n * d))
+                                          fp32_flops=6 * b * n * d), {})
     del x
 
     # -- 4: fused_matmul_silu, SwiGLU w12 in a CFG-doubled step (M = 2 * batch * 1024)
@@ -316,7 +367,7 @@ def kernel_phases(dev, batch: int) -> dict:
     b12_bf16 = b12.to(torch.bfloat16)
     lib_ms = cuda_ms(lambda: torch.addmm(b12_bf16, x, w12.t()), 20)
     rows["fused_matmul_silu"] = (err, ms, plain_ms, lib_ms,
-                                 *bound((m * d + h2 * d + m * h2 // 2) * 2 + h2 * 4, 2 * m * d * h2))
+                                 *bound((m * d + h2 * d + m * h2 // 2) * 2 + h2 * 4, 2 * m * d * h2), {})
     del x, w12
 
     # -- 7: flash_attention_qknorm_rope, DiT attention under attention_impl flash_qkr
@@ -332,7 +383,7 @@ def kernel_phases(dev, batch: int) -> dict:
     qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
     rows["flash_attention_qknorm_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d))
+        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d), {})
     del q, k, v, qr, kr, ref
 
     # -- 8: flash_attention_fused_rope, DiT attention under attention_impl flash_fused
@@ -348,7 +399,7 @@ def kernel_phases(dev, batch: int) -> dict:
     vt = v.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vt), 20)
     rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d))
+        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d), {})
     del qkv, q, k, v, qr, kr, vt, ref
 
     # -- 9: fused_norm_modulate_quant, the w8a8 adaLN epilogue in a CFG-doubled step
@@ -365,7 +416,7 @@ def kernel_phases(dev, batch: int) -> dict:
     # per element: square and sum, scale, weight, (1 + scale) product, shift,
     # absmax, divide, round
     rows["fused_norm_modulate_quant"] = (err, ms, plain_ms, None, *bound(
-        b * n * d * (2 + 1) + b * n * 4 + d * 4 + 2 * b * d * 2, fp32_flops=9 * b * n * d))
+        b * n * d * (2 + 1) + b * n * 4 + d * 4 + 2 * b * d * 2, fp32_flops=9 * b * n * d), {})
     del x
 
     # -- 10: fused_silu_mul_quant, the w8a8 SwiGLU gate (M = 2 * batch * 1024)
@@ -378,13 +429,14 @@ def kernel_phases(dev, batch: int) -> dict:
     plain_ms = cuda_ms(lambda: fad.fused_silu_mul_quant_plain(x12), 10)
     # per output: exp, add, divide, two products, absmax, divide, round
     rows["fused_silu_mul_quant"] = (err, ms, plain_ms, None, *bound(
-        m * 2 * h * 2 + m * h + m * 4, fp32_flops=8 * m * h))
+        m * 2 * h * 2 + m * h + m * 4, fp32_flops=8 * m * h), {})
     del x12
     torch.cuda.empty_cache()
 
-    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by) in rows.items():
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        log(f"  {name} (batch {batch}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
+        split = "".join(f", {k} {v:.4f}" for k, v in parts.items())
+        log(f"  {name} (batch {batch}): kernel {ms:.4f} ms{split}, plain {plain_ms:.4f} ms, library {lib} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
     return rows
 
@@ -737,7 +789,7 @@ def train_kernel_phase(dev) -> dict:
 
         fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 10)
         bnd = bound(7 * b * h * n * d * 2 + (2 * n * d * 4 if tables else 0), 10 * b * h * n * n * d)
-        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd)
+        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, {})
         log(f"  {name} (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{fb_ms - f_ms:.4f} ms (SDPA backward = fwd+bwd {fb_ms:.4f} ms minus fwd {f_ms:.4f} ms), "
             f"bound {bnd[0]:.4f} ms ({bnd[1]}), share of bound {bnd[0] / ms:.3f}")
@@ -748,8 +800,9 @@ def train_kernel_phase(dev) -> dict:
     qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
     bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d)
-    log(f"  flash_attention_rope (training shapes): kernel {fwd_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    parts = rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin))
+    log(f"  flash_attention_rope (training shapes): kernel {fwd_ms:.4f} ms (pre-pass {parts['prepass_ms']:.4f}, "
+        f"attention {parts['attention_ms']:.4f}), SDPA {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     del q, k, v, g, qr, kr
     x = torch.randn(b, n, 768, generator=gen, device=dev).mul(3).bfloat16()
     w = 1 + 0.1 * torch.randn(768, generator=gen, device=dev)
@@ -984,9 +1037,9 @@ def train_profile_phase(dev) -> None:
 
 
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
-OWN_KERNELS = ("flash_fwd_kernel", "norm_rope_kernel", "norm_modulate_kernel", "matmul_silu_kernel",
-               "norm_modulate_quant_kernel", "silu_mul_quant_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_modulate_kernel",
+               "matmul_silu_kernel", "norm_modulate_quant_kernel", "silu_mul_quant_kernel",
+               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -1073,6 +1126,10 @@ def main() -> int:
     for name, info in report.items():
         regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {info['seconds']:.2f} s" + "".join(f"\n    {r}" for r in regs))
+    # the wgmma kernels: registers at entry (setmaxnreg then gives the
+    # consumer warpgroups more), static shared memory (the rings are dynamic)
+    for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel")):
+        log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
 
     rows = kernel_phases(dev, BATCH)
     log(f"[kernel] the same at bench.py's batch {BENCH_BATCH}")
@@ -1089,13 +1146,13 @@ def main() -> int:
         train_profile_phase(dev)
 
     out = []
-    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by) in rows.items():
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
         source, replaces, path = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": result["counts"][path][name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        })
+        } | parts)
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

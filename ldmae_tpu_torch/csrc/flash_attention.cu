@@ -51,7 +51,12 @@
 // Head dims 16 (VMAE), 64 (DiT B/1 to 1p6B) and 72 (XL) are instantiated; d
 // is padded to the mma depth (a multiple of 16) with zeros in shared memory. A ragged last tile
 // (N not a multiple of 64) is zero-filled and its keys masked to -inf.
-#include "common.cuh"
+//
+// flash_attention_rope at d = 64 runs a second core, flash_fwd_wgmma_kernel
+// (wgmma, TMA, warp-specialised; its own note below); at d = 72 it runs this
+// one. The other forward kernels and the backward's statistics pass run
+// this one at every head dim.
+#include "hopper.cuh"
 
 namespace {
 
@@ -383,6 +388,291 @@ __global__ void __launch_bounds__(256) norm_rope_kernel(const NormRopeArgs a) {
   *reinterpret_cast<uint2*>(y + c) = make_uint2(pack_bf16(o1[0], o1[1]), pack_bf16(o1[2], o1[3]));
   *reinterpret_cast<uint2*>(y + c + half) =
       make_uint2(pack_bf16(o2[0], o2[1]), pack_bf16(o2[2], o2[3]));
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention_rope at d = 64 on wgmma and TMA: the main path's attention
+// (DiT sampling, and the training forward). With the RoPE pre-pass above it
+// replaces _flash_rope_bhnd_kernel (ldmae_tpu/ops/flash_attention.py,
+// pallas_call at :323); it computes what flash_fwd_kernel<64, false> does,
+// with the same roundings (p to bf16 before it is normalised), the logits
+// scaled inside the exponent's FMA, exp2 by the SFU's ex2.approx.
+//
+// What bounds it: at (16, 12, 1024, 64) the two products are 4 b h N^2 d =
+// 5.2e10 flops, 0.052 ms at 989 TFLOP/s, and the softmax's b h N^2 = 2.0e8
+// exponentials take as long on the SFUs (16 a clock per SM, 0.054 ms); the
+// 8 b h N d bytes (0.015 ms) do not bound it. So the design must keep the
+// tensor cores busy while the exponentials run; the mma.sync core neither
+// reached their full rate nor overlapped the two.
+//
+// Design (FlashAttention-3's for this head dim): persistent blocks, one per
+// SM, walk work tiles of 192 query rows of one (b, h), the tiles of a head
+// in a row so that its K and V stay in L2. Warpgroup 0 is the producer: one
+// thread loads each work tile's Q once and its 128-key K and V tiles into a
+// ring of kFaStages stages by TMA (128-byte swizzle; 3D tensor maps over
+// (bh, n, d), so keys and rows past n arrive as zeros), under full and empty
+// mbarriers; Q has its own, released after the tile's last Q K^T, so the
+// next tile's Q and first K and V load while this one finishes. Warpgroups
+// 1 to 3 own 64 query rows each (setmaxnreg: 160 registers, the producer
+// 24). S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+// memory; the online softmax runs in registers in exp2 units (ex2.approx);
+// P, rounded to bf16, stays in registers as the A operand of O += P V, wgmma
+// m64n64k16 with V read MN-major from its (key, d) tile. Each iteration
+// issues Q K^T of this tile and P V of the previous one back to back, and the
+// three warpgroups take turns at issuing through named barriers, so two
+// softmaxes run while the third warpgroup's products do (with two
+// warpgroups of 128-row tiles the softmax showed through; FA3's overlap
+// inside a warpgroup, the next Q K^T issued before this softmax, ran
+// slower at this head dim). Keys past n are
+// masked to -inf in the last tile; rows past n are computed on zeros and not
+// stored (at n = 1024, 128 of the last tile's 192: 1/9 of the work).
+
+// 2^x on the SFU (relative error about 2^-22; results below 2^-126 flush to
+// zero, far under the bf16 rounding of p)
+__device__ __forceinline__ float fa_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kFaWG = 3;               // consumer warpgroups, 64 query rows each
+constexpr int kFaRows = 64 * kFaWG;    // query rows per work tile
+constexpr int kFaKeys = 128;           // keys per K/V tile
+constexpr int kFaStages = 3;           // K/V ring depth
+constexpr int kFaTile = kFaKeys * 64 * 2;  // bytes of a K or V tile (128 rows of 64 bf16)
+constexpr int kFaQTile = kFaRows * 64 * 2;  // bytes of a Q tile
+constexpr int kFaThreads = 128 * (kFaWG + 1);
+constexpr int kFaSmem = kFaQTile + 2 * kFaStages * kFaTile + 1024;  // + slack to align to 1 KB
+
+// grid: one block per SM (at most one per work tile); work tile w is query
+// rows kFaRows (w % qtiles).. of (b, h) = w / qtiles.
+__global__ void __launch_bounds__(kFaThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                           const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
+                           int bh_count, int n, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sk = sq + kFaQTile;               // kFaStages tiles
+  unsigned char* sv = sk + kFaStages * kFaTile;    // kFaStages tiles
+  __shared__ __align__(8) uint64_t q_full, q_empty, k_full[kFaStages], v_full[kFaStages],
+      kv_empty[kFaStages];
+
+  const int ntiles = (n + kFaKeys - 1) / kFaKeys, qtiles = (n + kFaRows - 1) / kFaRows;
+  const int nwork = qtiles * bh_count;
+  // broadcast, so that ptxas sees the role branches as warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    hopper::mbar_init(&q_empty, 4 * kFaWG);  // one arrival per consumer warp
+    for (int s = 0; s < kFaStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], 4 * kFaWG);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, q_phase ^= 1) {
+        const int bh = w / qtiles, q0 = w % qtiles * kFaRows;
+        // the previous work tile's last Q K^T is done with the Q buffer
+        hopper::mbar_wait(&q_empty, q_phase ^ 1);
+        hopper::mbar_expect_tx(&q_full, kFaQTile);
+        hopper::tma_load_3d(sq, &tmap_q, &q_full, 0, q0, bh);
+        for (int it = 0; it < ntiles; ++it) {
+          hopper::mbar_wait(&kv_empty[stage], phase ^ 1);
+          hopper::mbar_expect_tx(&k_full[stage], kFaTile);
+          hopper::tma_load_3d(sk + stage * kFaTile, &tmap_k, &k_full[stage], 0, it * kFaKeys, bh);
+          hopper::mbar_expect_tx(&v_full[stage], kFaTile);
+          hopper::tma_load_3d(sv + stage * kFaTile, &tmap_v, &v_full[stage], 0, it * kFaKeys, bh);
+          if (++stage == kFaStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<160>();  // 3 x 128 x 160 + 128 x 24 <= 65,536
+    const int c = wg - 1;  // query rows q0 + 64c ..
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint64_t dq = hopper::desc_sw128(sq + c * (kFaQTile / kFaWG), 16, 1024);
+    // Accumulator layouts (column block j of 8): s[4j], s[4j+1] at row
+    // 16 warp + g, columns 8j + 2t, +1; s[4j+2], s[4j+3] at row + 8; o alike.
+    float s[64], o[32];
+    uint32_t p[8][4];  // P in bf16, the A fragments of the 8 key steps of 16
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
+
+    // Turns: consumer warpgroup c issues its products after bar_sync(1 + c)
+    // and then lets the next one issue (bar_arrive on its barrier); c = 0
+    // goes first. The arrivals match the syncs: the last warpgroup skips its
+    // very last one.
+    if (c == kFaWG - 1) hopper::bar_arrive(1, 256);
+    auto turn_end = [&](bool very_last) {
+      if (c < kFaWG - 1 || !very_last) hopper::bar_arrive(1 + (c + 1) % kFaWG, 256);
+    };
+    float m0, m1, l0, l1;  // running max of rows g and g+8 (log2 units), this thread's row sums
+    // The softmax of the S tile in s, up to P: masks keys past n (valid of
+    // the tile's 128), updates m and l, leaves exp2(s scale - m) in s and
+    // returns the factors (a0, a1) by which o must be rescaled.
+    auto softmax = [&](int valid, float& a0, float& a1) {
+      if (valid < kFaKeys) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * 8 + 2 * t + (e & 1) >= valid) s[4 * j + e] = -INFINITY;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float n0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+      const float n1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+      a0 = fa_exp2(m0 - n0);
+      a1 = fa_exp2(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s[4 * j] = fa_exp2(fmaf(s[4 * j], scale_log2, -m0));
+        s[4 * j + 1] = fa_exp2(fmaf(s[4 * j + 1], scale_log2, -m0));
+        s[4 * j + 2] = fa_exp2(fmaf(s[4 * j + 2], scale_log2, -m1));
+        s[4 * j + 3] = fa_exp2(fmaf(s[4 * j + 3], scale_log2, -m1));
+        r0 += s[4 * j] + s[4 * j + 1];
+        r1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * a0 + r0;
+      l1 = l1 * a1 + r1;
+    };
+    // o rescaled, and P = s in bf16 as the A fragments: blocks 2kk and 2kk+1
+    // form key step kk, a0 = (g, 2t), a1 = (g+8, 2t), a2 = (g, 8+2t), a3 = (g+8, 8+2t)
+    auto to_p = [&](float a0, float a1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        p[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        p[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+    auto fence_all = [&]() {
+      hopper::fence_regs(s);
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hopper::fence_regs(p[i]);  // read by P V until its wait
+    };
+
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, q_phase ^= 1) {
+      const int bh = w / qtiles, q0 = w % qtiles * kFaRows;
+      const bool last_work = w + (int)gridDim.x >= nwork;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.f;
+      hopper::mbar_wait(&q_full, q_phase);
+      int prev = 0;
+      uint32_t prev_phase = 0;
+      for (int it = 0; it < ntiles; ++it) {
+        // S = Q K^T of this tile and O += P V of the previous one, issued
+        // in this warpgroup's turn; then the softmax of S. (A warpgroup whose
+        // rows all lie past n computes on zeros: skipping its work behind a
+        // branch made ptxas serialise the wgmma pipeline, which cost more.)
+        hopper::mbar_wait(&k_full[stage], phase);
+        if (it > 0) hopper::mbar_wait(&v_full[prev], prev_phase);
+        hopper::bar_sync(1 + c, 256);
+        hopper::wgmma_fence();
+        const uint64_t dk = hopper::desc_sw128(sk + stage * kFaTile, 16, 1024);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) hopper::wgmma_m64n128k16_ss(s, dq + 2 * k, dk + 2 * k, k > 0);
+        if (it > 0) {
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)  // V MN-major: 16 keys = 2 KB
+            hopper::wgmma_m64n64k16_rs(
+                o, p[kk], hopper::desc_sw128(sv + prev * kFaTile + kk * 2048, kFaTile, 1024), 1);
+        }
+        hopper::wgmma_commit();
+        turn_end(last_work && it + 1 == ntiles);
+        hopper::wgmma_wait<0>();
+        fence_all();
+        if (lane == 0) {
+          if (it > 0) hopper::mbar_arrive(&kv_empty[prev]);
+          if (it + 1 == ntiles) hopper::mbar_arrive(&q_empty);  // the next Q may load
+        }
+        float a0, a1;
+        softmax(n - it * kFaKeys, a0, a1);
+        to_p(a0, a1);
+        prev = stage;
+        prev_phase = phase;
+        if (++stage == kFaStages) stage = 0, phase ^= 1;
+      }
+      hopper::mbar_wait(&v_full[prev], prev_phase);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64k16_rs(
+            o, p[kk], hopper::desc_sw128(sv + prev * kFaTile + kk * 2048, kFaTile, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_all();
+      if (lane == 0) hopper::mbar_arrive(&kv_empty[prev]);
+
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      const int r0 = q0 + c * 64 + warp * 16 + g, r1 = r0 + 8;
+      bf16* ob = out + (long long)bh * n * 64;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = i * 8 + 2 * t;
+        if (r0 < n)
+          *reinterpret_cast<uint32_t*>(ob + (long long)r0 * 64 + col) =
+              pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+        if (r1 < n)
+          *reinterpret_cast<uint32_t*>(ob + (long long)r1 * 64 + col) =
+              pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      }
+    }
+  }
+}
+
+// The wgmma forward on contiguous (bh, n, 64) q, k, v and out.
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int bh, int n,
+                         cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const cuuint64_t dims[3] = {64, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)n * 64 * 2};
+  const cuuint32_t q_box[3] = {64, kFaRows, 1}, kv_box[3] = {64, kFaKeys, 1};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t e = hopper::make_tmap_bf16(&maps[i], ptrs[i], 3, dims, strides, i ? kv_box : q_box);
+    if (e != cudaSuccess) return e;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
+  if (e != cudaSuccess) return e;
+  const long long work = (long long)(n + kFaRows - 1) / kFaRows * bh;
+  const int sms = hopper::sm_count();
+  const int grid = work < sms ? (int)work : sms;
+  flash_fwd_wgmma_kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2],
+                                                         static_cast<bf16*>(out), bh, n,
+                                                         1.4426950408889634f / 8.f);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -846,6 +1136,10 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
                  {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
   const cudaError_t e = norm_rope(a, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
+  // d = 64 (DiT B, 1p0B, 1p6B) on the wgmma kernel; the other head dims on
+  // the mma.sync core (d = 72, DiT XL: a 144-byte row is no 128-byte
+  // swizzle row, and Q K^T would need d padded to 80)
+  if (d == 64) return static_cast<int>(launch_wgmma(qr, kr, v, out, bh, n, s));
   return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d), bh, d, s));
 }
 

@@ -318,7 +318,13 @@ def flash_attention_rope(
     kernel's own elementwise pre-pass in fp32. cos/sin: (N, d) HALF-SPLIT
     tables. Differentiable in q, k and v through ``flash_attention_rope_bwd``
     (the JAX package's ``flash_attention_rope_trainable``); ``launches``
-    counts the forward kernel."""
+    counts the forward kernel.
+
+    The CUDA forward picks its attention kernel by head dim: d = 64 (DiT B,
+    1p0B, 1p6B) runs the wgmma/TMA kernel ``flash_fwd_wgmma_kernel``; d = 72
+    (DiT XL) runs the ``mma.sync`` core that the other attention kernels
+    share, because a 144-byte row is no 128-byte TMA swizzle row and Q K^T
+    would need d padded to 80."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
     return _flash_attention_rope_fwd(q, k, v, cos, sin)

@@ -50,7 +50,8 @@ def _bf16(shape, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "d,n,rope",
-    [(64, 1024, True), (16, 1024, False), (16, 1025, False), (16, 1000, False), (72, 200, True)],
+    [(64, 1024, True), (64, 256, True), (64, 1000, True), (16, 1024, False), (16, 1025, False),
+     (16, 1000, False), (72, 200, True)],
 )
 def test_cuda_flash_attention_vs_plain(cuda, d, n, rope):
     q, k, v = (_bf16((2, 3, n, d), s, cuda) for s in range(3))
@@ -85,10 +86,21 @@ def test_cuda_fused_norm_modulate_vs_plain(cuda, kind, mod):
 
 
 @pytest.mark.gpu
-def test_cuda_fused_matmul_silu_vs_plain(cuda):
-    x = _bf16((1024, 768), 0, cuda)
-    w12 = _bf16((4096, 768), 1, cuda) * 0.03
-    b12 = _bf16((4096,), 2, cuda).float() * 0.1
+@pytest.mark.parametrize(
+    "m,d,h2,bias",
+    [
+        (16384, 768, 4096, True),  # B/1 at batch 8, CFG-doubled: 2,048 tiles of 128 x 128
+        (384, 768, 4096, True),    # 48 tiles, fewer than the SMs
+        (1024, 1152, 6144, True),  # XL
+        (512, 1536, 8192, True),   # 1p0B
+        (128, 128, 256, True),     # the smallest shape the gate admits: one tile, two stages deep
+        (1024, 768, 4096, False),  # b12 None
+    ],
+)
+def test_cuda_fused_matmul_silu_vs_plain(cuda, m, d, h2, bias):
+    x = _bf16((m, d), 0, cuda)
+    w12 = _bf16((h2, d), 1, cuda) * d**-0.5
+    b12 = _bf16((h2,), 2, cuda).float() * 0.1 if bias else None
     out = tfad.fused_matmul_silu(x, w12, b12)
     ref = tfad.fused_matmul_silu_plain(x, w12, b12)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)

@@ -21,11 +21,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from ldmae_tpu.models import lightningdit as jdit
 from ldmae_tpu.ops import flash_attention as jfa
 from ldmae_tpu.ops import fused_adaln as jfad
 from ldmae_tpu.ops import linear as jlin
 from ldmae_tpu.ops.rope import build_rope_table as jbuild_rope, to_half_layout as jhalf
 
+from ldmae_tpu_torch.models import lightningdit as tdit
 from ldmae_tpu_torch.ops import flash_attention as tfa
 from ldmae_tpu_torch.ops import fused_adaln as tfad
 from ldmae_tpu_torch.ops import linear as tlin
@@ -55,10 +57,14 @@ def _qkv(seed, shape, dt):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_flash_attention_rope_matches_pallas(dt):
-    b, h, grid, d = 2, 2, 16, 64  # N = 256
-    (jq, tq), (jk, tk), (jv, tv) = _qkv(0, (b, h, grid * grid, d), dt)
-    cos, sin = (jhalf(t) for t in jbuild_rope(d // 2, grid))
+@pytest.mark.parametrize("d,n", [(64, 256), (72, 256), (64, 200)])
+def test_flash_attention_rope_matches_pallas(d, n, dt):
+    """d = 64 runs the wgmma kernel on the card, d = 72 the mma.sync core;
+    N = 200 leaves a ragged last key tile there (72 of 128 keys)."""
+    b, h = 2, 2
+    grid = int(np.ceil(np.sqrt(n)))
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(0, (b, h, n, d), dt)
+    cos, sin = (jhalf(t)[:n] for t in jbuild_rope(d // 2, grid))
     jout = jfa.flash_attention_rope(jq, jk, jv, jnp.asarray(cos), jnp.asarray(sin))
     tout = tfa.flash_attention_rope(tq, tk, tv, torch.from_numpy(cos), torch.from_numpy(sin))
     assert tout.dtype == tq.dtype and tout.shape == tq.shape
@@ -137,6 +143,29 @@ def test_fused_matmul_silu_matches_pallas(dt):
     tout = tfad.fused_matmul_silu(tx, torch.from_numpy(w12.T.copy()), torch.from_numpy(b12))
     assert tout.shape == (2, m // 2, h2 // 2) and tout.dtype == tx.dtype
     _close(jout, tout, dt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", ["B/1", "B/2", "L/2", "XL/1", "1p0B/1", "1p6B/1"])
+def test_fused_matmul_silu_registry_widths(model, dt):
+    """At each registry model's SwiGLU widths (D, 2H) and M = 128, the port
+    returns None exactly where the Pallas kernel's shape gate does (L: H =
+    2730, 1p6B: H = 4778), and elsewhere (B, XL, 1p0B: the shapes the wgmma
+    kernel takes on the card) matches the kernel in interpret mode."""
+    spec = jdit.dit_spec(f"LightningDiT-{model}")
+    d, h2 = spec.hidden_size, 2 * spec.swiglu_hidden
+    tspec = tdit.dit_spec(f"LightningDiT-{model}")
+    assert (tspec.hidden_size, tspec.swiglu_hidden) == (spec.hidden_size, spec.swiglu_hidden)
+    rng = np.random.default_rng(8)
+    jx, tx = _pair(rng.standard_normal((128, d)), dt)
+    w12 = (rng.standard_normal((d, h2)) * d**-0.5).astype(np.float32)  # JAX (D, 2H)
+    b12 = (0.1 * rng.standard_normal(h2)).astype(np.float32)
+    jout = jfad.fused_matmul_silu(jx, jnp.asarray(w12), jnp.asarray(b12))
+    tout = tfad.fused_matmul_silu(tx, torch.from_numpy(w12.T.copy()), torch.from_numpy(b12))
+    assert (tout is None) == (jout is None) == (model in ("L/2", "1p6B/1"))
+    if jout is not None:
+        assert tout.shape == (128, h2 // 2) and tout.dtype == tx.dtype
+        _close(jout, tout, dt)
 
 
 @pytest.mark.parametrize("m,d,h2", [(200, 128, 256), (256, 96, 256), (256, 128, 320)])
