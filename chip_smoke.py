@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
 per source, in parallel) and prints ``-Xptxas -v``'s registers, shared
-memory and spills of the two wgmma kernels, then:
+memory and spills of the wgmma kernels, then:
 
   1. holds each of the eight kernels against its plain PyTorch version on
      the card at the shapes the sampling paths below give it (batch 8: the
@@ -36,11 +36,14 @@ memory and spills of the two wgmma kernels, then:
      10-step w8a8 latents against the bf16 latents from the same noise
      (relative L2 error within ``QUANT_REL_MAX``), and two wrongly
      quantized DiTs, which must read above that bound;
-  5. holds the two flash-attention backward kernels against their plain
+  5. holds the two flash-attention backward kernels, given the forward's
+     output and lse as the autograd Functions give them, against their plain
      backward at the DiT training shapes (32, 12, 1024, 64) bf16 by a
      per-output relative L2 error and an elementwise bound, which two wrong
      backwards (no rowsum term; the RoPE Jacobian untransposed) must exceed,
-     and times them beside the plain backward and the backward of
+     and times them (the backward alone, and its kernels apart by name under
+     ``torch.profiler``: RoPE pre-pass, preprocess, single pass,
+     postprocess) beside the plain backward and the backward of
      ``F.scaled_dot_product_attention`` (fwd+bwd minus fwd); also the
      forward kernels #1 and #3 at the training shapes;
   6. checks one train step of B/1 at full width (depth 2, batch 8) on the
@@ -209,9 +212,10 @@ def rope_parts(fn) -> dict:
 
 
 def ptxas_summary(log: str, kernel: str) -> str:
-    """``-Xptxas -v``'s report of one kernel: registers at entry, barriers,
-    static shared memory, stack and spills."""
+    """``-Xptxas -v``'s report of a kernel, each instantiation: registers at
+    entry, barriers, static shared memory, stack and spills."""
     lines = log.splitlines()
+    found = []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
             props = []
@@ -220,8 +224,8 @@ def ptxas_summary(log: str, kernel: str) -> str:
                     break
                 if "registers" in nxt or "spill" in nxt:
                     props.append(nxt.split("info    :")[-1].strip())
-            return "; ".join(props)
-    return "not in the report"
+            found.append("; ".join(props))
+    return " | ".join(found) or "not in the report"
 
 
 def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> tuple[float, str]:
@@ -704,9 +708,10 @@ def wrong_bwd_no_rowsum(q, k, v, g):
             (p.transpose(-1, -2) @ gf).to(v.dtype))
 
 
-def wrong_rope_bwd_untransposed(q, k, v, g, cos, sin):
+def wrong_rope_bwd_untransposed(q, k, v, g, cos, sin, out=None, lse=None):
     """A wrong backward (control): the RoPE Jacobian applied to dq, dk
-    untransposed (the forward rotation instead of its transpose)."""
+    untransposed (the forward rotation instead of its transpose); takes and
+    ignores the forward's residuals, as the kernel's wrapper takes them."""
     from ldmae_tpu_torch.ops import flash_attention as fa
 
     dqr, dkr, dv = fa._attention_bwd_fp32(fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g)
@@ -730,10 +735,12 @@ def bwd_errors(outs, refs) -> tuple[float, float]:
 
 
 def train_kernel_phase(dev) -> dict:
-    """#5 and #6 at the DiT B/1 training shapes against their plain backward
-    and two wrong backwards; their times beside the plain backward and the
-    SDPA backward; #1 and #3 timed at the training shapes. Returns name ->
-    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    """#5 and #6 at the DiT B/1 training shapes, given the forward's output
+    and lse (the residuals the autograd Functions save), against their plain
+    backward and two wrong backwards; their times (the backward alone, and
+    by kernel) beside the plain backward and the SDPA backward; #1 and #3
+    timed at the training shapes. Returns name -> (max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by, parts)."""
     import torch
     import torch.nn.functional as F
 
@@ -757,9 +764,15 @@ def train_kernel_phase(dev) -> dict:
              fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g),
           "untransposed RoPE Jacobian": wrong_rope_bwd_untransposed}, (cos, sin)),
     ):
-        log(f"[train kernel] {name} q,k,v,g ({b},{h},{n},{d}) bf16" + (", cos/sin (1024,64) fp32" if tables else ""))
+        log(f"[train kernel] {name} q,k,v,g ({b},{h},{n},{d}) bf16" + (", cos/sin (1024,64) fp32" if tables else "")
+            + "; the forward's output and lse (fp32) passed in")
+        o, lse = fa._launch(q, k, v, name, *tables, with_lse=True)  # the library, uncounted
+
+        def run():
+            return kernel(q, k, v, g, *tables, out=o, lse=lse)
+
         ref = plain(q, k, v, g, *tables)
-        out = kernel(q, k, v, g, *tables)
+        out = run()
         rel, elem = bwd_errors(out, ref)
         ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
         log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
@@ -775,7 +788,12 @@ def train_kernel_phase(dev) -> dict:
                 raise SystemExit(f"{name}: a wrong backward ({what}) reads within the bound")
         err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
         del out, ref
-        ms = cuda_ms(lambda: kernel(q, k, v, g, *tables), 10)
+        ms = cuda_ms(run, 10)
+        kernel_of = ({"prepass": "norm_rope_kernel"} if tables else {}) | {
+            "preprocess": "flash_bwd_preprocess_kernel", "main": "flash_bwd_wgmma_kernel",
+            "postprocess": "flash_bwd_postprocess_kernel"}
+        by_name = kernel_device_ms(run, tuple(kernel_of.values()))
+        parts = {f"{part}_ms": by_name[kern] for part, kern in kernel_of.items()}
         plain_ms = cuda_ms(lambda: plain(q, k, v, g, *tables), 3, 1)
         qs, ks = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if tables else (q, k)
         qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
@@ -788,12 +806,17 @@ def train_kernel_phase(dev) -> dict:
                 F.scaled_dot_product_attention(qs, ks, vs)
 
         fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 10)
-        bnd = bound(7 * b * h * n * d * 2 + (2 * n * d * 4 if tables else 0), 10 * b * h * n * n * d)
-        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, {})
-        log(f"  {name} (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        # q, k, v, g, o in, dq, dk, dv out (bf16), lse in (fp32), the tables
+        bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + (2 * n * d * 4 if tables else 0),
+                    10 * b * h * n * n * d)
+        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, parts)
+        split = ", ".join(f"{key[:-3]} {v:.4f}" for key, v in parts.items())
+        log(f"  {name} (training shapes): kernel {ms:.4f} ms ({split}; main kernel's share of bound "
+            f"{bnd[0] / parts['main_ms']:.3f}), plain {plain_ms:.4f} ms, library "
             f"{fb_ms - f_ms:.4f} ms (SDPA backward = fwd+bwd {fb_ms:.4f} ms minus fwd {f_ms:.4f} ms), "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}), share of bound {bnd[0] / ms:.3f}")
-        del qs, ks, vs
+            f"kernel / library {ms / (fb_ms - f_ms):.3f}, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"share of bound {bnd[0] / ms:.3f}")
+        del qs, ks, vs, o, lse
 
     # the forward kernels of the training path at its shapes
     fwd_ms = cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 20)
@@ -1039,7 +1062,8 @@ def train_profile_phase(dev) -> None:
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
 OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_modulate_kernel",
                "matmul_silu_kernel", "norm_modulate_quant_kernel", "silu_mul_quant_kernel",
-               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_preprocess_kernel",
+               "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -1128,7 +1152,8 @@ def main() -> int:
         log(f"  {name}: {info['seconds']:.2f} s" + "".join(f"\n    {r}" for r in regs))
     # the wgmma kernels: registers at entry (setmaxnreg then gives the
     # consumer warpgroups more), static shared memory (the rings are dynamic)
-    for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel")):
+    for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel"),
+                        ("flash_attention", "flash_bwd_wgmma_kernel")):
         log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
 
     rows = kernel_phases(dev, BATCH)

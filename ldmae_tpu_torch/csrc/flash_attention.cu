@@ -52,10 +52,11 @@
 // is padded to the mma depth (a multiple of 16) with zeros in shared memory. A ragged last tile
 // (N not a multiple of 64) is zero-filled and its keys masked to -inf.
 //
-// flash_attention_rope at d = 64 runs a second core, flash_fwd_wgmma_kernel
-// (wgmma, TMA, warp-specialised; its own note below); at d = 72 it runs this
-// one. The other forward kernels and the backward's statistics pass run
-// this one at every head dim.
+// flash_attention_rope and flash_attention at d = 64 run a second core,
+// flash_fwd_wgmma_kernel (wgmma, TMA, warp-specialised; its own note below),
+// which can also write the softmax's lse for the backward; at d = 16 and 72
+// they run this one. The other two forward kernels, and the backward's
+// statistics pass at d = 16 and 72, run this one at every head dim.
 #include "hopper.cuh"
 
 namespace {
@@ -391,10 +392,12 @@ __global__ void __launch_bounds__(256) norm_rope_kernel(const NormRopeArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention_rope at d = 64 on wgmma and TMA: the main path's attention
-// (DiT sampling, and the training forward). With the RoPE pre-pass above it
-// replaces _flash_rope_bhnd_kernel (ldmae_tpu/ops/flash_attention.py,
-// pallas_call at :323); it computes what flash_fwd_kernel<64, false> does,
+// flash_attention_rope and flash_attention at d = 64 on wgmma and TMA: the
+// main path's attention (DiT sampling, and the training forward). With the
+// RoPE pre-pass above it replaces _flash_rope_bhnd_kernel
+// (ldmae_tpu/ops/flash_attention.py, pallas_call at :323), without it
+// _flash_fwd_kernel (:77) at this head dim; it computes what
+// flash_fwd_kernel<64, false> does,
 // with the same roundings (p to bf16 before it is normalised), the logits
 // scaled inside the exponent's FMA, exp2 by the SFU's ex2.approx.
 //
@@ -444,12 +447,18 @@ constexpr int kFaThreads = 128 * (kFaWG + 1);
 constexpr int kFaSmem = kFaQTile + 2 * kFaStages * kFaTile + 1024;  // + slack to align to 1 KB
 
 // grid: one block per SM (at most one per work tile); work tile w is query
-// rows kFaRows (w % qtiles).. of (b, h) = w / qtiles.
+// rows kFaRows (w % qtiles).. of (b, h) = w / qtiles. With kLse (training),
+// the epilogue also writes lse[bh * n + r] = m + log2(l) for rows r < n: the
+// softmax's log2 denominator, max included, in the exp2 units of the
+// logits scaled by scale_log2, which the backward subtracts before its exp2.
+// A template switch, so the sampling path (no lse) runs the same code as
+// before.
+template <bool kLse>
 __global__ void __launch_bounds__(kFaThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                            const __grid_constant__ CUtensorMap tmap_k,
                            const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
-                           int bh_count, int n, float scale_log2) {
+                           float* __restrict__ lse, int bh_count, int n, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -634,8 +643,14 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       fence_all();
       if (lane == 0) hopper::mbar_arrive(&kv_empty[prev]);
 
-      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+      const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
       const int r0 = q0 + c * 64 + warp * 16 + g, r1 = r0 + 8;
+      if (kLse && t == 0) {
+        float* lb = lse + (long long)bh * n;
+        if (r0 < n) lb[r0] = m0 + log2f(sum0);
+        if (r1 < n) lb[r1] = m1 + log2f(sum1);
+      }
       bf16* ob = out + (long long)bh * n * 64;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -651,27 +666,33 @@ __global__ void __launch_bounds__(kFaThreads, 1)
   }
 }
 
-// The wgmma forward on contiguous (bh, n, 64) q, k, v and out.
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int bh, int n,
-                         cudaStream_t stream) {
-  CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
+// Tensor map of a contiguous (bh, n, 64) bf16 tensor, copied in boxes of
+// `rows` rows of one (b, h).
+cudaError_t tmap_rows64(CUtensorMap* map, const void* p, int bh, int n, int rows) {
   const cuuint64_t dims[3] = {64, (cuuint64_t)n, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)n * 64 * 2};
-  const cuuint32_t q_box[3] = {64, kFaRows, 1}, kv_box[3] = {64, kFaKeys, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return hopper::make_tmap_bf16(map, p, 3, dims, strides, box);
+}
+
+// The wgmma forward on contiguous (bh, n, 64) q, k, v and out; with lse
+// (not null) also the (bh, n) fp32 log2 denominators.
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                         int n, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t e = hopper::make_tmap_bf16(&maps[i], ptrs[i], 3, dims, strides, i ? kv_box : q_box);
+    const cudaError_t e = tmap_rows64(&maps[i], ptrs[i], bh, n, i ? kFaKeys : kFaRows);
     if (e != cudaSuccess) return e;
   }
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
+  auto kernel = lse ? flash_fwd_wgmma_kernel<true> : flash_fwd_wgmma_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
   if (e != cudaSuccess) return e;
   const long long work = (long long)(n + kFaRows - 1) / kFaRows * bh;
   const int sms = hopper::sm_count();
   const int grid = work < sms ? (int)work : sms;
-  flash_fwd_wgmma_kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2],
-                                                         static_cast<bf16*>(out), bh, n,
-                                                         1.4426950408889634f / 8.f);
+  kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse,
+                                                bh, n, 1.4426950408889634f / 8.f);
   return cudaGetLastError();
 }
 
@@ -730,12 +751,24 @@ cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
 //
 // The TPU kernel holds a whole (N, d) head in VMEM per program and forms p,
 // dv = p^T g, dp = g v^T, ds = p (dp - rowsum(dp p)), dq = ds k d^-1/2 and
-// dk = ds^T q d^-1/2 at once. Here three kernels share the work, none of
-// them writing an (N, N) tensor, each deterministic (no atomics):
+// dk = ds^T q d^-1/2 at once, in fp32. K and V of a head do not fit in a
+// block's shared memory here, so the work is split over key tiles, and no
+// (N, N) tensor is written. Two designs, chosen by head dim:
+//
+// d = 64 (DiT B to 1p6B: the training path), single pass on wgmma and TMA
+// (FlashAttention-3's decomposition), in the section "Backward at d = 64"
+// below: the forward saves lse (flash_fwd_wgmma_kernel<true>) and its bf16
+// output; a preprocess kernel forms delta = rowsum(g * o) from them and
+// zeroes an fp32 dq accumulator; flash_bwd_wgmma_kernel does the 10 b h N^2
+// d operations once, dq summed across key-tile blocks by atomic adds; a
+// postprocess kernel scales dq (and applies the RoPE Jacobian) into bf16.
+//
+// d = 16 (VMAE) and 72 (DiT XL), three passes on mma.sync (this section),
+// deterministic (no atomics):
 //   1. statistics: the forward kernel (flash_fwd_kernel<D, true>) recomputes
-//      the softmax row maximum and denominator (the forward saves neither) as
-//      lse, and delta = rowsum(g * o) = rowsum(dp * p), with o the fp32
-//      output normalised by the fp32 row sum; o itself is not written;
+//      the softmax row maximum and denominator as lse, and delta = rowsum(g *
+//      o) = rowsum(dp * p), with o the fp32 output normalised by the fp32 row
+//      sum; o itself is not written;
 //   2. dK/dV: one block per (64-key tile, b*h), 16 keys per warp, its K and V
 //      fragments in registers; it streams the 64-row q and g tiles
 //      (double-buffered cp.async) and forms p^T = exp2(k q^T - lse), dp^T =
@@ -743,27 +776,23 @@ cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
 //   3. dQ: one block per (64-query tile, b*h), its q and g fragments in
 //      registers; it streams the K and V tiles and forms p, dp = g v^T and
 //      dq += ds k.
-// All products run on the tensor cores (mma.sync m16n8k16, fp32 sums).
+// It does 18 b h N^2 d operations (the statistics pass repeats the
+// forward's two products, and passes 2 and 3 both recompute q k^T and g
+// v^T); at these head dims it runs in the VMAE's and XL's training only,
+// which the port does not drive yet.
 //
-// Rounding: p and ds are rounded to bf16 as the A operand of the dv, dk and
-// dq products, and delta comes from an o whose p was rounded to bf16 before
-// P.V (the forward's rounding); the TPU kernel keeps p, dp and ds in fp32.
-// dq, dk, dv are fp32 until one rounding to bf16 at the end.
+// Rounding (both designs): p and ds are rounded to bf16 as the A operand of
+// the dv, dk and dq products; the TPU kernel keeps p, dp and ds in fp32. dq,
+// dk, dv are fp32 until one rounding to bf16 at the end. delta comes from the
+// forward's bf16 output at d = 64 and from its fp32 output here.
 //
 // RoPE (flash_attention_rope_trainable): q and k are rotated once by the
 // forward's pre-pass (norm_rope_kernel, no norm) into bf16 scratch, as the
-// TPU kernel rounds them; the kernels run on the rotated copies, and the
-// epilogue that writes dq and dk applies the transposed RoPE Jacobian
-// J^T y = y cos + [(y sin)_2 | -(y sin)_1] in fp32 through a shared-memory
-// staging tile (column c pairs with c +- d/2, which another thread holds).
-//
-// What bounds it, at the DiT B/1 training shapes (b h N d = 32 12 1024 64):
-// the minimum work is 10 b h N^2 d = 2.58e11 flops, 0.261 ms at 989 TFLOP/s,
-// against 352 MB of q, k, v, g in and dq, dk, dv out, 0.105 ms at 3.35 TB/s:
-// operations bound it. This design does 18 b h N^2 d (the statistics pass
-// repeats the forward's two products, and the dK/dV and dQ kernels both
-// recompute q k^T and g v^T), so it cannot come within 1.8x of that bound;
-// wgmma, TMA and a single pass with dq summed across blocks are later work.
+// TPU kernel rounds them; the kernels run on the rotated copies, and what
+// writes dq and dk applies the transposed RoPE Jacobian J^T y = y cos +
+// [(y sin)_2 | -(y sin)_1] in fp32 in the TPU kernel's op order (here
+// through a shared-memory staging tile: column c pairs with c +- d/2, which
+// another thread holds).
 
 struct BwdArgs {
   const bf16 *q, *k, *v, *g;  // (bh, n, d) contiguous; q, k rotated with RoPE
@@ -1086,11 +1115,11 @@ cudaError_t bwd_launch(const AttnArgs& stats, const BwdArgs& b, int bh, cudaStre
   return cudaGetLastError();
 }
 
+// d = 64 runs the single pass (backward64 below) instead
 template <bool kRope>
 cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, int d, cudaStream_t s) {
   switch (d) {
     case 16: return bwd_launch<16, kRope>(stats, b, bh, s);
-    case 64: return bwd_launch<64, kRope>(stats, b, bh, s);
     case 72: return bwd_launch<72, kRope>(stats, b, bh, s);
     default: return cudaErrorInvalidValue;
   }
@@ -1098,9 +1127,9 @@ cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, int d,
 
 // The three passes on contiguous (bh, n, d) q, k (rotated for RoPE), v, g.
 template <bool kRope>
-cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const float* cos,
-                     const float* sin, void* dq, void* dk, void* dv, float* lse, float* delta,
-                     int bh, int n, int d, cudaStream_t s) {
+cudaError_t backward3(const void* q, const void* k, const void* v, const void* g, const float* cos,
+                      const float* sin, void* dq, void* dk, void* dv, float* lse, float* delta,
+                      int bh, int n, int d, cudaStream_t s) {
   const int npad = (n + kBlock - 1) / kBlock * kBlock;
   AttnArgs stats = contiguous_args(q, k, v, nullptr, n, d);
   stats.g = contiguous(g, n, d);
@@ -1114,21 +1143,467 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* g,
   return bwd_dispatch<kRope>(stats, b, bh, d, s);
 }
 
+// ---------------------------------------------------------------------------
+// Backward at d = 64: flash_attention_bwd and flash_attention_rope_bwd on the
+// DiT training path, FlashAttention-3's single pass on wgmma and TMA.
+//
+// What bounds it, at the DiT B/1 training shapes (b h N d = 32 12 1024 64):
+// the five products are 10 b h N^2 d = 2.58e11 flops, 0.261 ms at 989
+// TFLOP/s; q, k, v, g, o and lse in and dq, dk, dv out are 404 MB, 0.121 ms
+// at 3.35 TB/s; the b h N^2 = 4.0e8 exponentials take 0.14 ms on the SFUs (16 a clock
+// per SM). Operations bound it. The three-pass design above does 18 b h N^2
+// d on mma.sync, which neither reaches the tensor cores' rate nor keeps them
+// busy while the exponentials run, and the forward had to be run again
+// because it saved no lse.
+//
+// Design:
+//   * the forward (flash_fwd_wgmma_kernel<true>) writes lse, and the
+//     autograd Functions save it and the bf16 output;
+//   * flash_bwd_preprocess_kernel: delta = rowsum(g * o) in fp32 from the
+//     bf16 o; lse copied into a row-padded (bh, npad) array with +inf past
+//     n; the fp32 dq accumulator (bh, npad, 64) zeroed. One pass over g and
+//     o, 8 lanes a row, 16-byte loads;
+//   * flash_bwd_wgmma_kernel<kRope>: one block per (128-key tile, b h), the
+//     key tiles of a head adjacent in the grid, so that all of them read the
+//     head's q and g tiles from L2. Warpgroup 0 is the producer (setmaxnreg
+//     24): one thread loads the block's K and V tiles once, then streams
+//     64-query tiles of q and g (TMA, 128-byte swizzle, 3D tensor maps over
+//     (bh, n, 64): rows past n arrive as zeros) with their lse and delta rows
+//     (bulk copies) through a ring of kBwStages stages under full and empty
+//     mbarriers. Warpgroups 1 and 2 own 64 keys each (setmaxnreg 240). Per
+//     query tile a consumer issues S^T = K Q^T and dP^T = V G^T (m64n64k16,
+//     both operands K-major in shared memory); forms P^T = exp2(S^T scale -
+//     lse) (ex2.approx) while dP^T runs; issues dV += P^T G with P^T, in bf16,
+//     as the register A operand and G read MN-major; forms dS^T = P^T (dP^T -
+//     delta) while dV runs; issues dK += dS^T Q alike; stores dS^T in bf16
+//     into a swizzled staging tile. After a named barrier between the two
+//     consumers (each having fenced its generic stores for the async proxy),
+//     each computes 32 of the 64 columns of dQ = dS K over the block's 128
+//     keys (m64n32k16 with dS and K both read MN-major: the descriptors
+//     transpose them), stages that part in shared memory and adds it into
+//     the accumulator with one TMA bulk reduction (cp.reduce.async.bulk
+//     .add.f32, FlashAttention-3's way), the accumulator laid out in such
+//     8 KB parts (dq_part). The staging tiles are double-buffered, so one
+//     barrier per tile also orders their reuse. Queries past n have lse =
+//     +inf, so p = 0 and they add nothing; keys past n arrive as zeros, add
+//     0 to dq, and their dk and dv rows are not stored: no branch surrounds
+//     a product (in the forward, any branch there made ptxas serialise the
+//     wgmma pipeline). The epilogue scales dK (and applies the RoPE
+//     Jacobian, in registers: columns c and c + 32 lie in one thread) and
+//     writes dK and dV in bf16 from registers;
+//     What was tried on an H100 (PERF.md): without the dq adds the
+//     backward ran about a quarter faster; per-thread vector atomics
+//     (red.global.add.v2/.v4.f32) cost more than the bulk reduction;
+//     staggering the blocks' query order gained nothing, and summing the
+//     parts of pairs of key tiles in 2-CTA clusters (through distributed
+//     shared memory, the merge even deferred by a tile) before one
+//     reduction ran slower, though it halved the reduced bytes; issuing the
+//     next tile's S^T and dP^T before waiting for dV and dK gained nothing;
+//   * flash_bwd_postprocess_kernel<kRope>: dq = bf16(J^T(dq_acc d^-1/2)).
+// The eight key-tile blocks of a head add into dq in an order that changes
+// from run to run, so dq is not bitwise reproducible (dk and dv are).
+
+constexpr int kBwKeys = 128;                   // keys per block, 64 per consumer warpgroup
+constexpr int kBwQ = 64;                       // queries per streamed tile
+constexpr int kBwStages = 3;                   // q/g ring depth
+constexpr int kBwKTile = kBwKeys * 128;        // bytes of a K or V tile (rows of 64 bf16)
+constexpr int kBwQTile = kBwQ * 128;           // bytes of a q or g tile
+constexpr int kBwDsTile = kBwKeys * kBwQ * 2;  // bytes of a dS^T staging tile
+constexpr int kBwDqPart = kBwQ * 32;           // fp32 values of a warpgroup's dQ part (64 x 32)
+constexpr int kBwThreads = 384;
+constexpr int kBwSmem = 2 * kBwKTile + 2 * kBwStages * kBwQTile + 2 * kBwDsTile + 4 * kBwDqPart * 4 +
+                        2 * kBwStages * kBwQ * 4 + 1024;
+
+// Offset in the dq accumulator of the dQ part (query tile qt, columns 32 c..)
+// of (b, h) bh: the parts lie in the order (bh, query tile, c), each 64 rows
+// of 32 values, row r's 8-value block j stored at block j ^ (r % 4) (so that
+// the consumers' stores to its staging copy in shared memory hit every bank).
+__host__ __device__ __forceinline__ long long dq_part(long long bh, int nq, int qt, int c) {
+  return ((bh * nq + qt) * 2 + c) * kBwDqPart;
+}
+
+struct Bwd64Args {
+  float* dq_acc;             // bh npad 64 fp32 as dQ parts (dq_part), zeroed; dq summed here
+  bf16 *dk, *dv;             // (bh, n, 64), written
+  const float *lse, *delta;  // (bh, npad): lse +inf and delta 0 past n
+  const float *cos, *sin;    // (n, 64) fp32 half-split tables (kRope only)
+  int n, npad;
+  float scale_log2, scale;
+};
+
+// grid: (rows / 32, 256 threads), eight lanes a row; rows = bh * npad.
+__global__ void __launch_bounds__(256)
+    flash_bwd_preprocess_kernel(const bf16* __restrict__ go, const bf16* __restrict__ o,
+                                const float* __restrict__ lse_fwd, float* __restrict__ lse,
+                                float* __restrict__ delta, float* __restrict__ dq_acc, long long rows,
+                                int n, int npad) {
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  const int j = threadIdx.x % 8;
+  const long long bh = row / npad;
+  const int r = (int)(row % npad);
+  float acc = 0.f;
+  if (row < rows && r < n) {
+    const long long off = (bh * n + r) * 64 + 8 * j;
+    const uint4 gu = *reinterpret_cast<const uint4*>(go + off);
+    const uint4 ou = *reinterpret_cast<const uint4*>(o + off);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gu);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ou);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += __bfloat162float(ge[e]) * __bfloat162float(oe[e]);
+  }
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m, 8);
+  if (row >= rows) return;
+  float4* z = reinterpret_cast<float4*>(dq_acc + row * 64 + 8 * j);
+  z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j == 0) {
+    delta[row] = acc;
+    lse[row] = r < n ? lse_fwd[bh * n + r] : INFINITY;
+  }
+}
+
+// grid: (ceil(n / 128), bh); see the note above.
+template <bool kRope>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                           const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v,
+                           const __grid_constant__ CUtensorMap tmap_g, const Bwd64Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sv = sk + kBwKTile;
+  unsigned char* sq = sv + kBwKTile;                 // kBwStages tiles
+  unsigned char* sg = sq + kBwStages * kBwQTile;     // kBwStages tiles
+  unsigned char* sds = sg + kBwStages * kBwQTile;    // two dS^T staging tiles
+  float* sdq = reinterpret_cast<float*>(sds + 2 * kBwDsTile);  // dQ parts, two per consumer
+  float* sl = sdq + 4 * kBwDqPart;                             // lse rows, kBwStages x kBwQ
+  float* sd = sl + kBwStages * kBwQ;                           // delta rows, likewise
+  __shared__ __align__(8) uint64_t kv_full, full[kBwStages], empty[kBwStages];
+
+  const int n = a.n, bh = blockIdx.y, k0 = blockIdx.x * kBwKeys;
+  const int nq = a.npad / kBwQ;
+  // broadcast, so that ptxas sees the role branches as warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&kv_full, 2 * kBwKTile);
+      hopper::tma_load_3d(sk, &tmap_k, &kv_full, 0, k0, bh);
+      hopper::tma_load_3d(sv, &tmap_v, &kv_full, 0, k0, bh);
+      const long long row0 = (long long)bh * a.npad;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < nq; ++it) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&full[stage], 2 * kBwQTile + 2 * kBwQ * 4);
+        const int q0 = it * kBwQ;
+        hopper::tma_load_3d(sq + stage * kBwQTile, &tmap_q, &full[stage], 0, q0, bh);
+        hopper::tma_load_3d(sg + stage * kBwQTile, &tmap_g, &full[stage], 0, q0, bh);
+        hopper::bulk_load(sl + stage * kBwQ, a.lse + row0 + q0, kBwQ * 4, &full[stage]);
+        hopper::bulk_load(sd + stage * kBwQ, a.delta + row0 + q0, kBwQ * 4, &full[stage]);
+        if (++stage == kBwStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hopper::reg_alloc<240>();  // 2 x 128 x 240 + 128 x 24 <= 65,536
+  const int c = wg - 1;      // keys k0 + 64c ..
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint64_t kdesc = hopper::desc_sw128(sk + c * (kBwKTile / 2), 16, 1024);
+  const uint64_t vdesc = hopper::desc_sw128(sv + c * (kBwKTile / 2), 16, 1024);
+  const float scale_log2 = a.scale_log2;
+  // Accumulator layouts (column block j of 8): x[4j], x[4j+1] at row 16 warp
+  // + g, columns 8j + 2t, +1; x[4j+2], x[4j+3] at row + 8. Rows of s, dp, dk,
+  // dv are this warpgroup's keys; columns of s, dp are the tile's queries,
+  // of dk, dv the head dim. Rows of dq are the tile's queries, its columns
+  // 32c + 8j + 2t.
+  float dk[32], dv[32], s[32], dp[32], dq[16];
+  uint32_t pf[4][4], df[4][4];  // P^T and dS^T in bf16: the A fragments of 4 query steps of 16
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+  // the staging row of this thread's first key (16-byte chunk j of row r is
+  // stored at chunk j ^ (r % 8), TMA's and wgmma's 128-byte swizzle)
+  const int srow = c * 64 + warp * 16 + g;
+  auto fence_all = [&]() {
+    hopper::fence_regs(dq);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // read by dV and dK until their wait
+      hopper::fence_regs(pf[i]);
+      hopper::fence_regs(df[i]);
+    }
+  };
+
+  hopper::mbar_wait(&kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < nq; ++it) {
+    hopper::mbar_wait(&full[stage], phase);
+    const unsigned char* qt = sq + stage * kBwQTile;
+    const unsigned char* gt = sg + stage * kBwQTile;
+    const float* lt = sl + stage * kBwQ;
+    const float* dt = sd + stage * kBwQ;
+    unsigned char* st = sds + (it & 1) * kBwDsTile;
+    const uint64_t qdesc = hopper::desc_sw128(qt, 16, 1024);
+    const uint64_t gdesc = hopper::desc_sw128(gt, 16, 1024);
+
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(s, kdesc + 2 * k, qdesc + 2 * k, k > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(dp, vdesc + 2 * k, gdesc + 2 * k, k > 0);
+    hopper::wgmma_commit();
+
+    // P^T = exp2(S^T scale - lse) while dP^T runs
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+      s[4 * j] = fa_exp2(fmaf(s[4 * j], scale_log2, -l.x));
+      s[4 * j + 1] = fa_exp2(fmaf(s[4 * j + 1], scale_log2, -l.y));
+      s[4 * j + 2] = fa_exp2(fmaf(s[4 * j + 2], scale_log2, -l.x));
+      s[4 * j + 3] = fa_exp2(fmaf(s[4 * j + 3], scale_log2, -l.y));
+      pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    // dV += P^T G, G MN-major: 16 queries = 2 KB
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_rs(dv, pf[kk], hopper::desc_sw128(gt + kk * 2048, kBwQTile, 1024), 1);
+    hopper::wgmma_commit();
+
+    // dS^T = P^T (dP^T - delta) while dV runs; into df and the staging tile
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(dt + 8 * j + 2 * t);
+      const uint32_t lo = pack_bf16(s[4 * j] * (dp[4 * j] - dl.x), s[4 * j + 1] * (dp[4 * j + 1] - dl.y));
+      const uint32_t hi =
+          pack_bf16(s[4 * j + 2] * (dp[4 * j + 2] - dl.x), s[4 * j + 3] * (dp[4 * j + 3] - dl.y));
+      df[j / 2][(j % 2) * 2] = lo;
+      df[j / 2][(j % 2) * 2 + 1] = hi;
+      *reinterpret_cast<uint32_t*>(st + srow * 128 + ((j ^ (srow & 7)) << 4) + 4 * t) = lo;
+      *reinterpret_cast<uint32_t*>(st + (srow + 8) * 128 + ((j ^ ((srow + 8) & 7)) << 4) + 4 * t) = hi;
+    }
+    // dK += dS^T Q, Q MN-major
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_rs(dk, df[kk], hopper::desc_sw128(qt + kk * 2048, kBwQTile, 1024), 1);
+    hopper::wgmma_commit();
+
+    // dQ[:, 32c..] = dS K over the block's 128 keys, once both consumers'
+    // dS^T rows are in the staging tile: dS^T and K both MN-major, 16 keys
+    // = 2 KB, this warpgroup's 32 columns 64 bytes into K's rows
+    hopper::fence_proxy_async();
+    hopper::bar_sync(1, 256);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      hopper::wgmma_m64n32k16_ss_tt(dq, hopper::desc_sw128(st + kk * 2048, kBwDsTile, 1024),
+                                    hopper::desc_sw128(sk + kk * 2048 + c * 64, kBwKTile, 1024), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);  // q, g, lse, delta of this stage are read
+
+    // The dQ part into the accumulator: staged in shared memory (two
+    // buffers a warpgroup), then one bulk reduction. The leader's wait before
+    // the barrier makes sure the previous tile's reduction has read the
+    // other buffer, which the next tile writes.
+    float* part = sdq + (c * 2 + (it & 1)) * kBwDqPart;
+    const int row = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int blk = 8 * (j ^ (row & 3)) + 2 * t;  // rows row and row + 8 swizzle alike
+      *reinterpret_cast<float2*>(part + row * 32 + blk) = make_float2(dq[4 * j], dq[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + (row + 8) * 32 + blk) = make_float2(dq[4 * j + 2], dq[4 * j + 3]);
+    }
+    hopper::fence_proxy_async();
+    const bool leader = threadIdx.x % 128 == 0;
+    if (leader) hopper::bulk_wait_read<0>();
+    hopper::bar_sync(2 + c, 128);
+    if (leader) {
+      hopper::bulk_reduce_add_f32(a.dq_acc + dq_part(bh, nq, it, c), part, kBwDqPart * 4);
+      hopper::bulk_commit();
+    }
+    if (++stage == kBwStages) stage = 0, phase ^= 1;
+  }
+  if (threadIdx.x % 128 == 0) hopper::bulk_wait<0>();  // the reductions are done with shared memory
+
+  // dV, and dK d^-1/2 (with kRope J^T of it), in bf16 for keys < n
+  const int r0 = k0 + srow, r1 = r0 + 8;
+  bf16* dvb = a.dv + (long long)bh * n * 64;
+  bf16* dkb = a.dk + (long long)bh * n * 64;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] *= a.scale;
+  if (kRope) {
+    // columns c < 32 pair with c + 32 (block j with j + 4), in this thread:
+    // out_lo = y_lo cos_lo + y_hi sin_hi, out_hi = y_hi cos_hi - y_lo sin_lo
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? r1 : r0;
+      if (row >= n) continue;
+      const float* cs = a.cos + (size_t)row * 64;
+      const float* sn = a.sin + (size_t)row * 64;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 c1 = *reinterpret_cast<const float2*>(cs + col);
+        const float2 c2 = *reinterpret_cast<const float2*>(cs + col + 32);
+        const float2 s1 = *reinterpret_cast<const float2*>(sn + col);
+        const float2 s2 = *reinterpret_cast<const float2*>(sn + col + 32);
+        float& y1a = dk[4 * j + 2 * h];
+        float& y1b = dk[4 * j + 2 * h + 1];
+        float& y2a = dk[4 * (j + 4) + 2 * h];
+        float& y2b = dk[4 * (j + 4) + 2 * h + 1];
+        const float o1a = __fadd_rn(__fmul_rn(y1a, c1.x), __fmul_rn(y2a, s2.x));
+        const float o1b = __fadd_rn(__fmul_rn(y1b, c1.y), __fmul_rn(y2b, s2.y));
+        const float o2a = __fadd_rn(__fmul_rn(y2a, c2.x), -__fmul_rn(y1a, s1.x));
+        const float o2b = __fadd_rn(__fmul_rn(y2b, c2.y), -__fmul_rn(y1b, s1.y));
+        y1a = o1a, y1b = o1b, y2a = o2a, y2b = o2b;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < n) {
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * 64 + col) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * 64 + col) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
+    }
+    if (r1 < n) {
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * 64 + col) =
+          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * 64 + col) =
+          pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+    }
+  }
+}
+
+// grid: (ceil(rows / 32), 256 threads); rows = bh * n. Eight lanes a row,
+// lane j owning columns 4j..4j+3 and their RoPE partners 4j+32..4j+35.
+template <bool kRope>
+__global__ void __launch_bounds__(256)
+    flash_bwd_postprocess_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
+                                 const float* __restrict__ cos, const float* __restrict__ sin,
+                                 long long rows, int n, int npad, float scale) {
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  if (row >= rows) return;
+  const int c = 4 * (threadIdx.x % 8), r = (int)(row % n), rr = r % kBwQ;
+  // columns c.. of the part of columns 0..31, and of the part of 32..63
+  const float* src = dq_acc + dq_part(row / n, npad / kBwQ, r / kBwQ, 0) + rr * 32 + 8 * ((c / 8) ^ (rr & 3)) + c % 8;
+  float y1[4], y2[4];
+  load4(y1, src);
+  load4(y2, src + kBwDqPart);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) y1[e] *= scale, y2[e] *= scale;
+  if (kRope) {
+    float c1[4], c2[4], s1[4], s2[4];
+    load4(c1, cos + (size_t)r * 64 + c);
+    load4(c2, cos + (size_t)r * 64 + c + 32);
+    load4(s1, sin + (size_t)r * 64 + c);
+    load4(s2, sin + (size_t)r * 64 + c + 32);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float o1 = __fadd_rn(__fmul_rn(y1[e], c1[e]), __fmul_rn(y2[e], s2[e]));
+      const float o2 = __fadd_rn(__fmul_rn(y2[e], c2[e]), -__fmul_rn(y1[e], s1[e]));
+      y1[e] = o1, y2[e] = o2;
+    }
+  }
+  bf16* out = dq + row * 64;
+  *reinterpret_cast<uint2*>(out + c) = make_uint2(pack_bf16(y1[0], y1[1]), pack_bf16(y1[2], y1[3]));
+  *reinterpret_cast<uint2*>(out + c + 32) = make_uint2(pack_bf16(y2[0], y2[1]), pack_bf16(y2[2], y2[3]));
+}
+
+// The single pass at d = 64 on contiguous (bh, n, 64) q, k (rotated for
+// RoPE), v, g, o; lse_fwd (bh, n) from the forward; lse, delta (bh, npad)
+// and dq_acc (bh, npad, 64) fp32 scratch.
+template <bool kRope>
+cudaError_t backward64(const void* q, const void* k, const void* v, const void* g, const void* o,
+                       const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
+                       void* dv, float* lse, float* delta, float* dq_acc, int bh, int n,
+                       cudaStream_t s) {
+  if (o == nullptr || lse_fwd == nullptr || dq_acc == nullptr) return cudaErrorInvalidValue;
+  const int npad = (n + kBwQ - 1) / kBwQ * kBwQ;
+  const long long prow = (long long)bh * npad;
+  flash_bwd_preprocess_kernel<<<(unsigned)((prow + 31) / 32), 256, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(o), lse_fwd, lse, delta, dq_acc, prow, n,
+      npad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, g};
+  for (int i = 0; i < 4; ++i)
+    if ((e = tmap_rows64(&maps[i], ptrs[i], bh, n, i == 1 || i == 2 ? kBwKeys : kBwQ)) != cudaSuccess)
+      return e;
+  if ((e = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<kRope>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem)) != cudaSuccess)
+    return e;
+  const Bwd64Args a{dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
+                    npad, 1.4426950408889634f / 8.f, 0.125f};
+  const dim3 grid((n + kBwKeys - 1) / kBwKeys, bh);
+  flash_bwd_wgmma_kernel<kRope><<<grid, kBwThreads, kBwSmem, s>>>(maps[0], maps[1], maps[2], maps[3], a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long rows = (long long)bh * n;
+  flash_bwd_postprocess_kernel<kRope><<<(unsigned)((rows + 31) / 32), 256, 0, s>>>(
+      dq_acc, static_cast<bf16*>(dq), cos, sin, rows, n, npad, 0.125f);
+  return cudaGetLastError();
+}
+
+// The backward on contiguous (bh, n, d) operands: the single pass at d = 64,
+// the three passes at the other head dims (o, lse_fwd, dq_acc unused there).
+template <bool kRope>
+cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const void* o,
+                     const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
+                     void* dv, float* lse, float* delta, float* dq_acc, int bh, int n, int d,
+                     cudaStream_t s) {
+  if (d == 64)
+    return backward64<kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
+  return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, s);
+}
+
 }  // namespace
 
-// q, k, v, out: contiguous (bh, n, d) bf16. Returns the CUDA error of the
-// launch (0 on success).
+// q, k, v, out: contiguous (bh, n, d) bf16; lse: null, or at d = 64 the
+// (bh, n) fp32 log2 softmax denominators the backward takes (written). d =
+// 64 (DiT B, 1p0B, 1p6B) runs the wgmma kernel; the other head dims the
+// mma.sync core (d = 16, VMAE; d = 72, DiT XL: a 144-byte row is no 128-byte
+// swizzle row, and Q K^T would need d padded to 80). Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                         int bh, int n, int d, void* stream) {
-  return static_cast<int>(
-      dispatch(contiguous_args(q, k, v, out, n, d), bh, d, static_cast<cudaStream_t>(stream)));
+                                         float* lse, int bh, int n, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return static_cast<int>(launch_wgmma(q, k, v, out, lse, bh, n, s));
+  if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(contiguous_args(q, k, v, out, n, d), bh, d, s));
 }
 
 // As above with half-split RoPE: cos, sin are contiguous (n, d) fp32 tables;
 // qr, kr are (bh, n, d) bf16 scratch that receive the rotated q and k.
 extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, const void* v,
                                               const float* cos, const float* sin, void* qr,
-                                              void* kr, void* out, int bh, int n, int d,
+                                              void* kr, void* out, float* lse, int bh, int n, int d,
                                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
@@ -1136,11 +1611,7 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
                  {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
   const cudaError_t e = norm_rope(a, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // d = 64 (DiT B, 1p0B, 1p6B) on the wgmma kernel; the other head dims on
-  // the mma.sync core (d = 72, DiT XL: a 144-byte row is no 128-byte
-  // swizzle row, and Q K^T would need d padded to 80)
-  if (d == 64) return static_cast<int>(launch_wgmma(qr, kr, v, out, bh, n, s));
-  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d), bh, d, s));
+  return ldmae_flash_attention_fwd(qr, kr, v, out, lse, bh, n, d, stream);
 }
 
 // As flash_attention_rope with the per-head RMS qk-norm first: qw, kw are
@@ -1184,12 +1655,15 @@ extern "C" int ldmae_flash_attention_fused_rope_fwd(
 
 // Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
 // contiguous (bh, n, d) bf16; dq, dk, dv written likewise; lse, delta are
-// (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64.
+// (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64. At d
+// = 64, o is the forward's output, lse_fwd its (bh, n) lse, and dq_acc
+// (bh, npad, 64) fp32 scratch; the other head dims ignore the three.
 extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                         void* dq, void* dk, void* dv, float* lse, float* delta,
-                                         int bh, int n, int d, void* stream) {
-  return static_cast<int>(backward<false>(q, k, v, g, nullptr, nullptr, dq, dk, dv, lse, delta, bh,
-                                          n, d, static_cast<cudaStream_t>(stream)));
+                                         const void* o, const float* lse_fwd, void* dq, void* dk,
+                                         void* dv, float* lse, float* delta, float* dq_acc, int bh,
+                                         int n, int d, void* stream) {
+  return static_cast<int>(backward<false>(q, k, v, g, o, lse_fwd, nullptr, nullptr, dq, dk, dv, lse,
+                                          delta, dq_acc, bh, n, d, static_cast<cudaStream_t>(stream)));
 }
 
 // Backward of ldmae_flash_attention_rope_fwd: as above with the (n, d) fp32
@@ -1197,16 +1671,16 @@ extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const voi
 // receive the rotated q and k; dq and dk are the gradients of the unrotated
 // q and k.
 extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, const void* v,
-                                              const void* g, const float* cos, const float* sin,
-                                              void* qr, void* kr, void* dq, void* dk, void* dv,
-                                              float* lse, float* delta, int bh, int n, int d,
-                                              void* stream) {
+                                              const void* g, const void* o, const float* lse_fwd,
+                                              const float* cos, const float* sin, void* qr, void* kr,
+                                              void* dq, void* dk, void* dv, float* lse, float* delta,
+                                              float* dq_acc, int bh, int n, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
                  {contiguous(qr, n, d), contiguous(kr, n, d)},
                  {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
   const cudaError_t e = norm_rope(a, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(
-      backward<true>(qr, kr, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, s));
+  return static_cast<int>(backward<true>(qr, kr, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta,
+                                         dq_acc, bh, n, d, s));
 }

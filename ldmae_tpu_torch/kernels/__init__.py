@@ -40,14 +40,14 @@ LIBRARIES = {
     "flash_attention": (
         "flash_attention.cu",
         {
-            "ldmae_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-            "ldmae_flash_attention_rope_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "ldmae_flash_attention_fwd": [_P] * 5 + [_I, _I, _I, _P],
+            "ldmae_flash_attention_rope_fwd": [_P] * 9 + [_I, _I, _I, _P],
             "ldmae_flash_attention_qknorm_rope_fwd":
                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
             "ldmae_flash_attention_fused_rope_fwd":
                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
-            "ldmae_flash_attention_bwd": [_P] * 9 + [_I, _I, _I, _P],
-            "ldmae_flash_attention_rope_bwd": [_P] * 13 + [_I, _I, _I, _P],
+            "ldmae_flash_attention_bwd": [_P] * 12 + [_I, _I, _I, _P],
+            "ldmae_flash_attention_rope_bwd": [_P] * 16 + [_I, _I, _I, _P],
         },
     ),
     "fused_norm_modulate": (

@@ -17,12 +17,17 @@ qk-norm kernel normalises in fp32, rounds to q's dtype, multiplies by the
 fp32 weight and rotates that fp32 value, one rounding at the end.
 
 ``flash_attention`` and ``flash_attention_rope`` are differentiable
-(``torch.autograd.Function``s that save only their inputs):
-the backward is the backward kernel for CUDA tensors and, for CPU tensors,
-its plain version, the TPU backward's math: p recomputed in fp32 and never
-rounded, dv = p^T g, ds = p (g v^T - rowsum(g v^T p)), dq = ds k d^-1/2,
-dk = ds^T q d^-1/2 on the rotated q, k, then for RoPE the transposed RoPE
-Jacobian on dq and dk; cos and sin get no gradient. The other two
+(``torch.autograd.Function``s that save their inputs, their output and the
+softmax's lse): the backward is the backward kernel for CUDA tensors and,
+for CPU tensors, its plain version, the TPU backward's math: p recomputed in
+fp32 and never rounded, dv = p^T g, ds = p (g v^T - rowsum(g v^T p)),
+dq = ds k d^-1/2, dk = ds^T q d^-1/2 on the rotated q, k, then for RoPE the
+transposed RoPE Jacobian on dq and dk; cos and sin get no gradient. lse is
+the log2 of each query row's softmax denominator, max included, in the
+units of the logits times log2(e) (``flash_attention_lse_plain``): the CUDA
+forward writes it at head dim 64, where the backward is one pass that takes
+it and the output instead of recomputing them; on the CPU the Functions save
+the plain lse, which the plain backward does not need. The other two
 wrappers are forward only (sampling), as in the JAX package, and raise when
 autograd would have to record them.
 
@@ -34,11 +39,15 @@ in fp32, or in float64 for float64 inputs (``torch.autograd.gradcheck``).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import kernels
 
 KERNEL_HEAD_DIMS = (16, 64, 72)  # VMAE decoder; DiT B/1 to 1p6B; DiT XL
+# the head dim of the wgmma kernels: the forward writes lse, the backward is one pass
+WGMMA_HEAD_DIM = 64
 _TILE = 64  # rows of a kernel tile; the backward's row statistics are padded to it
 
 
@@ -84,6 +93,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     logits = torch.matmul(_acc(q), _acc(k).transpose(-1, -2)) * q.shape[-1] ** -0.5
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(_acc(p), _acc(v)).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, H, N) log2 of each query row's softmax denominator: the natural
+    logsumexp of the fp32 logits q k^T d^-1/2 over ln 2, the kernels' lse."""
+    logits = torch.matmul(_acc(q), _acc(k).transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return torch.logsumexp(logits, dim=-1) * math.log2(math.e)
 
 
 def flash_attention_rope_plain(
@@ -170,24 +186,30 @@ def _tables(cos, sin, n: int, d: int, device, what: str):
     return cos, sin
 
 
-def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None) -> torch.Tensor:
+def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None, with_lse=False):
     """Contiguous (B, H, N, d) operands: plain attention, with RoPE, or with
-    the RMS qk-norm and RoPE."""
+    the RMS qk-norm and RoPE. Returns the output or, with ``with_lse``
+    (not for the qk-norm), (output, lse): lse (B, H, N) fp32 at head dim 64,
+    None at the others."""
     b, h, n, d = _check_bhnd(what, q=q, k=k, v=v)
     out = torch.empty_like(q)
+    lse = None
+    if with_lse and d == WGMMA_HEAD_DIM:
+        lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    lse_ptr = None if lse is None else lse.data_ptr()
     lib = kernels.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if cos is None:
             err = lib.ldmae_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, d, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, stream)
         else:
             cos, sin = _tables(cos, sin, n, d, q.device, what)
             qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
             if q_scale is None:
                 err = lib.ldmae_flash_attention_rope_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                    qr.data_ptr(), kr.data_ptr(), out.data_ptr(), b * h, n, d, stream)
+                    qr.data_ptr(), kr.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, stream)
             else:
                 qw, kw = (t.to(device=q.device, dtype=torch.float32).contiguous()
                           for t in (q_scale, k_scale))
@@ -198,53 +220,76 @@ def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None) 
                     cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
                     b * h, n, d, 1e-6, stream)
     kernels.check(err, what)
-    return out
+    return (out, lse) if with_lse else out
 
 
-def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None):
-    """The three backward passes on contiguous (B, H, N, d) operands; with
-    cos, sin the RoPE variant. Returns (dq, dk, dv)."""
+def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
+    """The backward on contiguous (B, H, N, d) operands; with cos, sin the
+    RoPE variant. At head dim 64 it is one pass that takes the forward's
+    output and lse; without them it first runs the forward kernel (through
+    the library, so ``<wrapper>.launches`` does not count it). Returns
+    (dq, dk, dv)."""
     b, h, n, d = _check_bhnd(what, q=q, k=k, v=v, g=g)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     npad = -(-n // _TILE) * _TILE
-    # per query row: the softmax's log2 denominator and rowsum(g * o) (scratch)
-    lse = torch.empty(b * h, npad, device=q.device, dtype=torch.float32)
-    delta = torch.empty_like(lse)
+    dq_acc = None
+    if d != WGMMA_HEAD_DIM:  # the three passes recompute the row statistics
+        out = lse = None
+    else:
+        if out is None or lse is None:
+            out, lse = _launch(q, k, v, what, cos, sin, with_lse=True)
+        _check_bhnd(what, q=q, out=out)
+        if (lse.device, lse.dtype, lse.shape) != (q.device, torch.float32, (b, h, n)) or not lse.is_contiguous():
+            raise ValueError(f"{what}: lse must be a contiguous fp32 {(b, h, n)} tensor on {q.device}")
+        # dq summed in fp32 over the key tiles (scratch)
+        dq_acc = torch.empty(b * h, npad, d, device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # per query row: the softmax's log2 denominator and rowsum(g * o), padded (scratch)
+    lse_pad = torch.empty(b * h, npad, device=q.device, dtype=torch.float32)
+    delta = torch.empty_like(lse_pad)
+    ptrs = [None if t is None else t.data_ptr() for t in (out, lse)]
+    scratch = [lse_pad.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr()]
+    grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
     lib = kernels.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if cos is None:
             err = lib.ldmae_flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, d, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, *grads, *scratch,
+                b * h, n, d, stream)
         else:
             cos, sin = _tables(cos, sin, n, d, q.device, what)
             qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
             err = lib.ldmae_flash_attention_rope_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), cos.data_ptr(),
-                sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, d, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, cos.data_ptr(),
+                sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), *grads, *scratch, b * h, n, d, stream)
     kernels.check(err, what)
     return dq, dk, dv
 
 
-def _flash_attention_fwd(q, k, v):
+def _flash_attention_fwd(q, k, v, with_lse=False):
+    """The counted forward; with ``with_lse``, (output, lse) (see the module note)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    out = _launch(q, k, v, "flash_attention")
+        out = flash_attention_plain(q, k, v)
+        return (out, flash_attention_lse_plain(q, k)) if with_lse else out
+    res = _launch(q, k, v, "flash_attention", with_lse=with_lse)
     flash_attention.launches += 1
-    return out
+    return res
 
 
 def flash_attention_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    out: torch.Tensor | None = None, lse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_attention`` for the output gradient g."""
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient g. out and
+    lse, the forward's output and lse, are what the CUDA kernel takes at head
+    dim 64; when either is missing (a standalone call) the forward kernel is
+    first run through the library, uncounted. The plain version (CPU) needs
+    neither."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g)
-    out = _launch_bwd(q, k, v, g, "flash_attention_bwd")
+    res = _launch_bwd(q, k, v, g, "flash_attention_bwd", out=out, lse=lse)
     flash_attention_bwd.launches += 1
-    return out
+    return res
 
 
 flash_attention_bwd.launches = 0
@@ -252,49 +297,57 @@ flash_attention_bwd.launches = 0
 
 def flash_attention_rope_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, cos: torch.Tensor,
-    sin: torch.Tensor,
+    sin: torch.Tensor, out: torch.Tensor | None = None, lse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_rope`` for the output gradient g;
-    dq and dk are the gradients of the unrotated q and k."""
+    dq and dk are the gradients of the unrotated q and k. out and lse as for
+    ``flash_attention_bwd``."""
     if q.device.type == "cpu":
         return flash_attention_rope_bwd_plain(q, k, v, g, cos, sin)
-    out = _launch_bwd(q, k, v, g, "flash_attention_rope_bwd", cos, sin)
+    res = _launch_bwd(q, k, v, g, "flash_attention_rope_bwd", cos, sin, out, lse)
     flash_attention_rope_bwd.launches += 1
-    return out
+    return res
 
 
 flash_attention_rope_bwd.launches = 0
 
 
+# Both Functions save their inputs (not the kernel's rotated scratch), the
+# output and lse: under checkpointing these are what the recomputation
+# gives back.
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _flash_attention_fwd(q, k, v)
+        out, lse = _flash_attention_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
         # autograd may hand in a non-contiguous gradient (a transposed view)
-        return flash_attention_bwd(*ctx.saved_tensors, g.contiguous())
+        return flash_attention_bwd(q, k, v, g.contiguous(), out, lse)
 
 
 class _FlashAttentionRope(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cos, sin):
-        # the inputs, not the kernel's rotated scratch: under checkpointing
-        # these are what the recomputation gives back
-        ctx.save_for_backward(q, k, v, cos, sin)
-        return _flash_attention_rope_fwd(q, k, v, cos, sin)
+        out, lse = _flash_attention_rope_fwd(q, k, v, cos, sin, with_lse=True)
+        ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, cos, sin = ctx.saved_tensors
-        return (*flash_attention_rope_bwd(q, k, v, g.contiguous(), cos, sin), None, None)
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        return (*flash_attention_rope_bwd(q, k, v, g.contiguous(), cos, sin, out, lse), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T d^-1/2) v for (B, H, N, d) operands, any N;
-    differentiable in q, k and v. ``launches`` counts the forward kernel."""
+    differentiable in q, k and v. ``launches`` counts the forward kernel. At
+    d = 64 the CUDA forward and backward are the wgmma kernels (see
+    ``flash_attention_rope``); at d = 16 (VMAE) and 72 the ``mma.sync`` core
+    and the three-pass backward."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     return _flash_attention_fwd(q, k, v)
@@ -303,12 +356,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 flash_attention.launches = 0
 
 
-def _flash_attention_rope_fwd(q, k, v, cos, sin):
+def _flash_attention_rope_fwd(q, k, v, cos, sin, with_lse=False):
     if q.device.type == "cpu":
-        return flash_attention_rope_plain(q, k, v, cos, sin)
-    out = _launch(q, k, v, "flash_attention_rope", cos, sin)
+        qr, kr = _rope_fp32(q, cos, sin), _rope_fp32(k, cos, sin)
+        out = flash_attention_plain(qr, kr, v)
+        return (out, flash_attention_lse_plain(qr, kr)) if with_lse else out
+    res = _launch(q, k, v, "flash_attention_rope", cos, sin, with_lse=with_lse)
     flash_attention_rope.launches += 1
-    return out
+    return res
 
 
 def flash_attention_rope(
@@ -320,11 +375,13 @@ def flash_attention_rope(
     (the JAX package's ``flash_attention_rope_trainable``); ``launches``
     counts the forward kernel.
 
-    The CUDA forward picks its attention kernel by head dim: d = 64 (DiT B,
-    1p0B, 1p6B) runs the wgmma/TMA kernel ``flash_fwd_wgmma_kernel``; d = 72
-    (DiT XL) runs the ``mma.sync`` core that the other attention kernels
-    share, because a 144-byte row is no 128-byte TMA swizzle row and Q K^T
-    would need d padded to 80."""
+    The CUDA forward picks its attention kernel by head dim, as
+    ``flash_attention`` does: d = 64 (DiT B, 1p0B, 1p6B) runs the wgmma/TMA
+    kernel ``flash_fwd_wgmma_kernel`` (which also writes lse for the
+    backward), and the backward is the single-pass ``flash_bwd_wgmma_kernel``;
+    d = 72 (DiT XL) runs the ``mma.sync`` core that the other attention
+    kernels share, because a 144-byte row is no 128-byte TMA swizzle row and
+    Q K^T would need d padded to 80, and the three-pass backward."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
     return _flash_attention_rope_fwd(q, k, v, cos, sin)

@@ -17,8 +17,15 @@ off by that step (a value on a rounding boundary after another fp32 row
 sum), the row scales within rtol 1e-6. The backward kernels round p and
 ds to bf16 for the tensor-core products (the plain version keeps them
 fp32): each of dq, dk, dv within relative L2 error BWD_REL_L2 and every
-element within BWD_ELEM of that output's largest |value|.
+element within BWD_ELEM of that output's largest |value|. At head dim 64 the
+backward sums dq over key tiles with atomic adds, in an order that changes
+from run to run: two runs' dq agree within BWD_REL_L2, dk and dv exactly.
+The forward's lse (log2 units, magnitude about log2 N plus the largest
+logit) within 1e-4 plus 1e-5 relative of the plain lse: both sum the same
+fp32 exponentials in another order, the kernel's by ex2.approx.
 """
+
+import re
 
 import pytest
 import torch
@@ -159,19 +166,65 @@ def _assert_bwd_close(outs, refs):
         assert rel <= BWD_REL_L2 and elem <= BWD_ELEM, (name, rel, elem)
 
 
+def _bwd_inputs(shape, rope, device):
+    q, k, v, g = (_bf16(shape, s, device) for s in range(4))
+    tables = _rope_tables(shape[-1], shape[-2], device) if rope else ()
+    return (q, k, v, g), tables
+
+
+# b, h, d, n: the single pass (d = 64) at ragged and whole tiles of 64 queries
+# and 128 keys, and at the DiT B/1 training shape; the three passes (d = 16, 72)
+_BWD_CASES = [(2, 3, 16, 1024), (2, 3, 64, 1024), (2, 3, 72, 200), (2, 3, 64, 1000), (2, 3, 16, 200),
+              (2, 3, 64, 64), (2, 3, 64, 128), (2, 3, 64, 200), (2, 3, 64, 256), (32, 12, 64, 1024)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
-@pytest.mark.parametrize("d,n", [(16, 1024), (64, 1024), (72, 200), (64, 1000), (16, 200)])
-def test_cuda_flash_attention_bwd_vs_plain(cuda, d, n, rope):
-    q, k, v, g = (_bf16((2, 3, n, d), s, cuda) for s in range(4))
+@pytest.mark.parametrize("b,h,d,n", _BWD_CASES)
+def test_cuda_flash_attention_bwd_vs_plain(cuda, b, h, d, n, rope):
+    (q, k, v, g), tables = _bwd_inputs((b, h, n, d), rope, cuda)
     if rope:
-        cos, sin = _rope_tables(d, n, cuda)
-        outs = tfa.flash_attention_rope_bwd(q, k, v, g, cos, sin)
-        refs = tfa.flash_attention_rope_bwd_plain(q, k, v, g, cos, sin)
+        outs = tfa.flash_attention_rope_bwd(q, k, v, g, *tables)
+        refs = tfa.flash_attention_rope_bwd_plain(q, k, v, g, *tables)
     else:
         outs = tfa.flash_attention_bwd(q, k, v, g)
         refs = tfa.flash_attention_bwd_plain(q, k, v, g)
     _assert_bwd_close(outs, refs)
+    if d == tfa.WGMMA_HEAD_DIM:  # the residuals passed in, as the autograd Functions pass them
+        out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
+        kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
+        _assert_bwd_close(kernel(q, k, v, g, *tables, out=out, lse=lse), refs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("n", [64, 200, 1024])
+def test_cuda_forward_lse_vs_plain(cuda, n, rope):
+    """The d = 64 forward's lse against the plain lse of the same (rotated,
+    bf16-rounded) q and k; the output is the forward without lse's."""
+    (q, k, v, _), tables = _bwd_inputs((2, 3, n, 64), rope, cuda)
+    out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
+    qr, kr = (tfa._rope_fp32(t, *tables) for t in (q, k)) if rope else (q, k)
+    assert lse.shape == (2, 3, n) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, tfa.flash_attention_lse_plain(qr, kr), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out, tfa._launch(q, k, v, "test", *tables), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+def test_cuda_bwd_dq_run_to_run(cuda, rope):
+    """dq's atomic sums over key tiles change order between runs: two runs
+    agree within BWD_REL_L2; dk and dv are written once, so exactly."""
+    (q, k, v, g), tables = _bwd_inputs((4, 12, 1024, 64), rope, cuda)
+    out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
+    kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
+    first = kernel(q, k, v, g, *tables, out=out, lse=lse)
+    second = kernel(q, k, v, g, *tables, out=out, lse=lse)
+    torch.cuda.synchronize()
+    rel = float((first[0].float() - second[0].float()).norm() / first[0].float().norm())
+    assert rel <= BWD_REL_L2, rel
+    torch.testing.assert_close(first[1], second[1], rtol=0, atol=0)
+    torch.testing.assert_close(first[2], second[2], rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -194,6 +247,44 @@ def test_cuda_autograd_functions_vs_plain_backward(cuda, rope):
     refs = (tfa.flash_attention_rope_bwd_plain(qd, kd, vd, g, cos, sin) if rope
             else tfa.flash_attention_bwd_plain(qd, kd, vd, g))
     _assert_bwd_close(grads, refs)
+
+
+def _kernel_names(fn) -> list:
+    """Names of the device kernels that ``fn`` launches, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+def test_cuda_autograd_backward_at_d64_is_one_pass(cuda, rope):
+    """At d = 64 the autograd Functions save the forward's output and lse and
+    pass them to the backward, which launches the preprocess, the single-pass
+    kernel and the postprocess (and for RoPE its pre-pass), and no forward or
+    statistics pass: one counted backward launch, no counted forward."""
+    q, k, v = (_bf16((2, 4, 256, 64), s, cuda).requires_grad_() for s in range(3))
+    g = _bf16((2, 4, 256, 64), 3, cuda)
+    cos, sin = _rope_tables(64, 256, cuda)
+    out = tfa.flash_attention_rope(q, k, v, cos, sin) if rope else tfa.flash_attention(q, k, v)
+    saved = out.grad_fn.saved_tensors
+    ref_lse = tfa._launch(q.detach(), k.detach(), v.detach(), "test", *((cos, sin) if rope else ()),
+                          with_lse=True)[1]
+    torch.testing.assert_close(saved[-1], ref_lse, rtol=0, atol=0)
+    torch.testing.assert_close(saved[-2], out.detach(), rtol=0, atol=0)
+    fwd = tfa.flash_attention_rope if rope else tfa.flash_attention
+    bwd = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
+    counts = fwd.launches, bwd.launches
+    names = _kernel_names(lambda: torch.autograd.grad(out, (q, k, v), g))
+    assert (fwd.launches, bwd.launches) == (counts[0], counts[1] + 1)
+    ours = sorted(m.group(1) for n in names if (m := re.search(r"(flash_\w+_kernel|norm_rope_kernel)", n)))
+    want = ["flash_bwd_postprocess_kernel", "flash_bwd_preprocess_kernel", "flash_bwd_wgmma_kernel"]
+    assert ours == sorted(want + (["norm_rope_kernel"] if rope else [])), names
 
 
 @pytest.mark.gpu
