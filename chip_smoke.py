@@ -7,18 +7,26 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
 per source, in parallel) and prints ``-Xptxas -v``'s registers, shared
-memory and spills of the wgmma kernels, then:
+memory and spills of the wgmma kernels, measures the SFU's ex2 and the bf16
+packing's throughput (the exponential term of the attention bounds), then:
 
-  1. holds each of the eight kernels against its plain PyTorch version on
-     the card at the shapes the sampling paths below give it (batch 8: the
-     CFG-doubled DiT step and the VMAE decode), and times the kernel, the
-     plain version and, where one exists, one PyTorch library call
-     computing the same function (a yardstick only; the port never calls
-     it), and #1's two kernels apart (the RoPE pre-pass and the wgmma
-     attention, by kernel name under ``torch.profiler``); then the same at
-     ``bench.py``'s batch 36; then times the int8
+  1. holds each of the sampling kernels against its plain PyTorch version
+     on the card at the shapes the sampling paths below give it (batch 8:
+     the CFG-doubled DiT step and the VMAE decode; #2 by the resident d = 16
+     kernel, also at N = 1025, 1000 and d = 8), and times the kernel, the plain
+     version and, where one exists, one PyTorch library call computing the
+     same function (a yardstick only; the port never calls it), #1's two
+     kernels apart (the RoPE pre-pass and the wgmma attention, by kernel
+     name under ``torch.profiler``), and #2 beside the ``mma.sync`` core it
+     replaced; then the same at ``bench.py``'s batch 36; then times the int8
      product of the w8a8 leg (``torch._int_mm``, checked exact) beside
      cuBLAS bf16 at the same shapes;
+  1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
+     80 and 128 against their plain versions; every fp32 instantiation
+     (#1, #2, #5, #6 at the training shape (32, 12, 1024, 64); #3, #4, #9,
+     #10 at the B/1 shapes; #7, #8 at batch 8) against its plain fp32
+     version, timed; ``dense`` in bf16 with an fp32 bias against fp64 math
+     (one rounding), with the bias rounded first as a control that fails;
   2. drives the bf16 main path through its entry points: LightningDiT-B/1
      + VMAE f8d16_prev at full width with seeded random weights (non-zero
      gates), batch 8, 250 Euler steps, timestep shift 0.3, CFG 10 on
@@ -32,7 +40,10 @@ memory and spills of the wgmma kernels, then:
      images: the bf16 kernels against the plain ``xla`` impls, the w8a8
      kernels against the w8a8 ``xla`` impls, and the opt-in attention
      impls ``flash_qkr`` (c) and ``flash_fused`` (d) against
-     ``flash_rope``, each with its exact launch counts; then holds the
+     ``flash_rope``, each with its exact launch counts, and the same four
+     in fp32 (``compute_dtype`` float32); decodes with two VMAE archs of
+     head dims 12 and 24 under ``flash`` against ``xla`` in bf16 and fp32;
+     then holds the
      10-step w8a8 latents against the bf16 latents from the same noise
      (relative L2 error within ``QUANT_REL_MAX``), and two wrongly
      quantized DiTs, which must read above that bound;
@@ -51,7 +62,8 @@ memory and spills of the wgmma kernels, then:
      shipped YAML's flash_rope, half-split RoPE, fused adaLN, remat 'attn')
      against the plain xla path from the same weights, noise, t and label
      drops, within GRAD_REL_L2, which the path with the untransposed RoPE
-     Jacobian must exceed;
+     Jacobian must exceed; then the same in fp32, half and interleaved
+     RoPE, within GRAD_F32_REL_L2, with exact launch counts;
   7. trains LightningDiT-B/1 at full width and depth through the training
      CLI (``cli.train_dit.main``) on a YAML made from the shipped one's
      model, transport, optimizer and parallel sections, batch 32, 20 steps,
@@ -60,15 +72,17 @@ memory and spills of the wgmma kernels, then:
      counts; checks finite losses and gradient norms and that the weights
      and the EMA moved; restarts to step 25 ("resumed from step 20"); and
      prints steps/s, latents/s, TFLOP/s, MFU and peak memory; then 5 steps
-     of the ``rope_layout: interleaved`` configuration with exact counts;
+     of the ``rope_layout: interleaved`` configuration and 5 steps with
+     ``parallel.compute_dtype: float32``, each with exact counts;
   8. with ``--profile``, traces one 50-step batch of the bf16 and of the
      w8a8 path, and one training step, with ``torch.profiler`` and prints
      device time by kernel and group and the idle share.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(sampling kernels at the batch-8 shapes, the backward kernels at the
-training shapes; launches from the path that runs each kernel), and as its
-last line ``{"ok": true, "device": {...}}``.
+(sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
+= 64 at the training shapes, the fp32 instantiations as their own entries;
+launches from the path that runs each kernel), and as its last line
+``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
 """
@@ -88,19 +102,43 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at the 700 W l
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
-# name -> (source, the Pallas call it replaces, the path whose launches it reports)
+_FA, _FA32 = "ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu_torch/csrc/flash_attention_fp32.cu"
+_PALLAS_FA, _PALLAS_AD = "ldmae_tpu/ops/flash_attention.py", "ldmae_tpu/ops/fused_adaln.py"
+# kernels-line name -> (source, the Pallas call it replaces, the path whose
+# launches it reports, the wrapper that counts them); the fp32 entries are
+# the fp32 instantiations (their own kernels) behind the same wrappers
 KERNELS = {
-    "flash_attention_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:323", "bf16"),
-    "flash_attention": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:77", "bf16"),
-    "fused_norm_modulate": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", "ldmae_tpu/ops/fused_adaln.py:232", "bf16"),
-    "fused_matmul_silu": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", "ldmae_tpu/ops/fused_adaln.py:199", "bf16"),
-    "flash_attention_qknorm_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:282", "flash_qkr"),
-    "flash_attention_fused_rope": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:550", "flash_fused"),
-    "fused_norm_modulate_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:99", "w8a8"),
-    "fused_silu_mul_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", "ldmae_tpu/ops/fused_adaln.py:144", "w8a8"),
-    "flash_attention_bwd": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:151", "interleaved"),
-    "flash_attention_rope_bwd": ("ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu/ops/flash_attention.py:429", "train"),
+    "flash_attention_rope": (_FA, f"{_PALLAS_FA}:323", "bf16", "flash_attention_rope"),
+    "flash_attention_resident": (_FA, f"{_PALLAS_FA}:77", "bf16", "flash_attention_resident"),
+    "flash_attention": (_FA, f"{_PALLAS_FA}:77", "interleaved", "flash_attention"),
+    "fused_norm_modulate": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", f"{_PALLAS_AD}:232", "bf16",
+                            "fused_norm_modulate"),
+    "fused_matmul_silu": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", f"{_PALLAS_AD}:199", "bf16", "fused_matmul_silu"),
+    "flash_attention_qknorm_rope": (_FA, f"{_PALLAS_FA}:282", "flash_qkr", "flash_attention_qknorm_rope"),
+    "flash_attention_fused_rope": (_FA, f"{_PALLAS_FA}:550", "flash_fused", "flash_attention_fused_rope"),
+    "fused_norm_modulate_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:99", "w8a8",
+                                  "fused_norm_modulate_quant"),
+    "fused_silu_mul_quant": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "w8a8", "fused_silu_mul_quant"),
+    "flash_attention_bwd": (_FA, f"{_PALLAS_FA}:151", "interleaved", "flash_attention_bwd"),
+    "flash_attention_rope_bwd": (_FA, f"{_PALLAS_FA}:429", "train", "flash_attention_rope_bwd"),
+    "flash_attention_rope_fp32": (_FA32, f"{_PALLAS_FA}:323", "train_fp32", "flash_attention_rope"),
+    "flash_attention_fp32": (_FA32, f"{_PALLAS_FA}:77", "decode_fp32", "flash_attention"),
+    "flash_attention_bwd_fp32": (_FA32, f"{_PALLAS_FA}:151", "grad_fp32_interleaved", "flash_attention_bwd"),
+    "flash_attention_rope_bwd_fp32": (_FA32, f"{_PALLAS_FA}:429", "train_fp32", "flash_attention_rope_bwd"),
+    "fused_norm_modulate_fp32": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", f"{_PALLAS_AD}:232", "train_fp32",
+                                 "fused_norm_modulate"),
+    "fused_matmul_silu_fp32": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", f"{_PALLAS_AD}:199", "sample_fp32",
+                               "fused_matmul_silu"),
+    "fused_norm_modulate_quant_fp32": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:99", "sample_fp32_w8a8",
+                                       "fused_norm_modulate_quant"),
+    "fused_silu_mul_quant_fp32": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "sample_fp32_w8a8",
+                                  "fused_silu_mul_quant"),
+    "flash_attention_qknorm_rope_fp32": (_FA32, f"{_PALLAS_FA}:282", "sample_fp32_qkr", "flash_attention_qknorm_rope"),
+    "flash_attention_fused_rope_fp32": (_FA32, f"{_PALLAS_FA}:550", "sample_fp32_fused", "flash_attention_fused_rope"),
 }
+WRAPPERS = ("flash_attention_rope", "flash_attention", "fused_norm_modulate", "fused_matmul_silu",
+            "flash_attention_qknorm_rope", "flash_attention_fused_rope", "fused_norm_modulate_quant",
+            "fused_silu_mul_quant", "flash_attention_bwd", "flash_attention_rope_bwd", "flash_attention_resident")
 
 BATCH, STEPS, CFG_SCALE, SHIFT, CFG_START = 8, 250, 10.0, 0.3, 0.10
 SHORT_STEPS = 10  # the comparisons between impls
@@ -116,7 +154,7 @@ QUANT_NOISE_SEEDS = (2, 3)
 # DiT training: B/1 at full width and depth through the CLI, batch 32, then a
 # restart to step 25; the interleaved-RoPE configuration for 5 steps; the
 # gradient check at depth 2, batch 8
-TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, INTERLEAVED_STEPS = 32, 20, 25, 5
+TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, INTERLEAVED_STEPS, FP32_STEPS = 32, 20, 25, 5, 5
 GRAD_DEPTH, GRAD_BATCH, GRAD_T = 2, 8, 0.37
 # the backward kernels against their plain backward at the training shapes
 # (per output: relative L2 error, max |error| / max |value|); readings on an
@@ -128,20 +166,32 @@ BWD_REL_L2, BWD_ELEM = 1e-2, 2e-2
 # rounds other intermediates); readings on an H100 SXM: worst leaf 0.0026,
 # the untransposed-Jacobian control 1.16
 GRAD_REL_L2 = 1e-2
-_NONE = dict.fromkeys(KERNELS, 0)
+GRAD_F32_REL_L2 = 1e-3  # the same in fp32: summation order only
+_NONE = dict.fromkeys(WRAPPERS, 0)
 _EVALS = (STEPS - 1) * DEPTH  # block forwards of one 250-step batch (the last step evaluates nothing)
 _SHORT = (SHORT_STEPS - 1) * DEPTH
-# exact launch counts per path: every wrapper is counted, so each dict names all eight
+# exact launch counts per path: every wrapper is counted, so each dict names all of them
 EXPECTED_LAUNCHES = {
     "bf16": _NONE | {"flash_attention_rope": _EVALS, "fused_norm_modulate": 2 * _EVALS,
-                     "fused_matmul_silu": _EVALS, "flash_attention": DEC_DEPTH},
+                     "fused_matmul_silu": _EVALS, "flash_attention_resident": DEC_DEPTH},
     "w8a8": _NONE | {"fused_norm_modulate_quant": 2 * _EVALS, "fused_silu_mul_quant": _EVALS,
-                     "flash_attention_rope": _EVALS, "flash_attention": DEC_DEPTH},
+                     "flash_attention_rope": _EVALS, "flash_attention_resident": DEC_DEPTH},
     # 10 steps, latents only (the decode is compared apart)
     "flash_qkr": _NONE | {"flash_attention_qknorm_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
                           "fused_matmul_silu": _SHORT},
     "flash_fused": _NONE | {"flash_attention_fused_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
                             "fused_matmul_silu": _SHORT},
+    # VMAE decode of an arch off the resident kernel's head dims (12, 24), bf16 or fp32
+    "decode": _NONE | {"flash_attention": DEC_DEPTH},
+}
+# the 10-step paths in fp32 (parallel.compute_dtype: float32), latents only
+EXPECTED_LAUNCHES |= {
+    "sample_fp32": _NONE | {"flash_attention_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
+                            "fused_matmul_silu": _SHORT},
+    "sample_fp32_w8a8": _NONE | {"fused_norm_modulate_quant": 2 * _SHORT, "fused_silu_mul_quant": _SHORT,
+                                 "flash_attention_rope": _SHORT},
+    "sample_fp32_qkr": EXPECTED_LAUNCHES["flash_qkr"],
+    "sample_fp32_fused": EXPECTED_LAUNCHES["flash_fused"],
 }
 # Training with remat_policy 'attn' (two checkpointed segments per block,
 # split at the attention output): per step and block the forward runs #1
@@ -159,6 +209,15 @@ for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TR
 _n = _train_counts(INTERLEAVED_STEPS)
 EXPECTED_LAUNCHES["interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
                                             "flash_attention_bwd": _n["bwd"]}
+_n = _train_counts(FP32_STEPS)
+EXPECTED_LAUNCHES["train_fp32"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                           "flash_attention_rope_bwd": _n["bwd"]}
+# the fp32 gradient checks: one step at depth GRAD_DEPTH, each layout
+_n = _train_counts(1, GRAD_DEPTH)
+EXPECTED_LAUNCHES["grad_fp32_half"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                               "flash_attention_rope_bwd": _n["bwd"]}
+EXPECTED_LAUNCHES["grad_fp32_interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                                      "flash_attention_bwd": _n["bwd"]}
 
 
 def log(msg: str) -> None:
@@ -180,29 +239,55 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, names, iters: int = 20) -> dict:
-    """Device time per call of each kernel whose name contains one of
-    ``names``, from torch.profiler over ``iters`` calls of ``fn`` after a
-    warm-up call: the parts of a wrapper that launches more than one kernel."""
+def _profiled(fn, iters: int):
+    """torch.profiler's device events of ``iters`` calls of ``fn`` after a
+    warm-up call, as (name, device ms per call) pairs. The profiler has come
+    back empty now and then on the card; an empty trace is taken again, up
+    to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events:
+            return events
+    return []
+
+
+def kernel_device_ms(fn, names, iters: int = 20) -> dict:
+    """Device time per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn`` after a
+    warm-up call: the parts of a wrapper that launches more than one kernel."""
     out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for name in names:
-                if name in e.key:
-                    out[name] += e.self_device_time_total / 1e3 / iters
+    for key, ms in _profiled(fn, iters):
+        for name in names:
+            if name in key:
+                out[name] += ms
     if not all(out.values()):
         raise SystemExit(f"the profiler saw none of {[n for n, v in out.items() if not v]}")
     return out
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn``, every kernel it launches summed
+    (torch.profiler): the kernel's time without the host's time to launch
+    it, which at batch 8 can exceed it. None ("not measured") when the
+    profiler records nothing: a yardstick beside the checked numbers, which
+    a failed trace does not fail."""
+    events = _profiled(fn, iters)
+    return sum(ms for _, ms in events) if events else None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def rope_parts(fn) -> dict:
@@ -228,10 +313,45 @@ def ptxas_summary(log: str, kernel: str) -> str:
     return " | ".join(found) or "not in the report"
 
 
-def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> tuple[float, str]:
-    """Least time in ms for the work: bytes over the memory rate, or
-    tensor-core bf16 and plain fp32 operations over their peak rates."""
-    t_ops = (bf16_flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FP32_FLOPS) * 1e3
+# exponentials per second of the card's SFUs (ex2.approx), measured by
+# rate_probes() at the start of the run: the exponential term of the
+# attention kernels' bounds
+RATES = {"ex2": None, "f2fp": None}
+
+
+def rate_probes(dev) -> None:
+    """The SFU's ex2 and the bf16 packing's (F2FP) throughput over the whole
+    card, from a kernel whose threads run 8 independent chains of the one
+    operation (``ldmae_rate_probe``); stored in RATES."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    lib = kernels.load("flash_attention")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = sms * 8, 4096
+    out = torch.empty(blocks * 256, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for which, name in ((0, "ex2"), (1, "f2fp")):
+        def run():
+            kernels.check(lib.ldmae_rate_probe(out.data_ptr(), which, blocks, iters, stream), "rate probe")
+
+        ms = cuda_ms(run, 5)
+        RATES[name] = blocks * 256 * iters * 8 / (ms * 1e-3)
+        clock = torch.cuda.get_device_properties(0).clock_rate * 1e3  # Hz, the boost clock
+        log(f"[rates] {name}: {RATES[name]:.4g} results/s on {sms} SMs ({RATES[name] / sms / clock:.2f} per SM "
+            f"per clock at the {clock / 1e9:.3f} GHz boost clock); {ms:.4f} ms for {blocks} blocks x 256 threads "
+            f"x {iters} x 8")
+
+
+def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0, exps: float = 0.0) -> tuple[float, str]:
+    """Least time in ms for the work: the larger of bytes over the memory
+    rate and the operations' time, itself the largest of tensor-core bf16
+    operations, plain fp32 operations and exponentials over their units'
+    rates (the units run side by side; exponentials over the measured SFU
+    rate)."""
+    t_ops = max(bf16_flops / PEAK_BF16_FLOPS, fp32_flops / PEAK_FP32_FLOPS,
+                exps / RATES["ex2"] if exps else 0.0) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -318,27 +438,40 @@ def kernel_phases(dev, batch: int) -> dict:
     qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
     parts = rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin))
-    rows["flash_attention_rope"] = (err, ms, plain_ms, lib_ms,
-                                    *bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d), parts)
+    rows["flash_attention_rope"] = (err, ms, plain_ms, lib_ms, *bound(
+        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), parts)
     del q, k, v, qr, kr
 
-    # -- 2: flash_attention, VMAE decoder attention (head dim 16)
+    # -- 2: flash_attention, VMAE decoder attention (head dim 16): the resident kernel
     b, h, n, d = batch, 12, 1024, 16
-    # ragged: N = 1000 leaves 40 keys in the last 64-row tile, so a dropped
-    # or mis-masked tile moves the outputs by far more than the tolerance
-    log(f"[kernel] flash_attention q,k,v ({b},{h},{n},{d}) bf16; ragged (2,{h},1000,{d})")
+    log(f"[kernel] flash_attention_resident q,k,v ({b},{h},{n},{d}) bf16; ragged N = 1025 and 1000, d = 8")
     q, k, v = randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d)
     ref = fa.flash_attention_plain(q, k, v)
-    err = compare("flash_attention", fa.flash_attention(q, k, v), ref, **attn_tol(ref))
-    qs, ks, vs = randn(2, h, 1000, d), randn(2, h, 1000, d), randn(2, h, 1000, d)
-    ref = fa.flash_attention_plain(qs, ks, vs)
-    compare("flash_attention[N=1000]", fa.flash_attention(qs, ks, vs), ref, **attn_tol(ref))
+    err = compare("flash_attention_resident", fa.flash_attention(q, k, v), ref, **attn_tol(ref))
+    # ragged: a cls token past 1,024 patches (1,025: one key in the last
+    # chunk of 128) and N = 1000 (104 keys there), so a dropped or mis-masked
+    # chunk moves the outputs by far more than the tolerance; d = 8 padded
+    for shape in ((2, h, 1025, d), (2, h, 1000, d), (b, h, n, 8)):
+        qs, ks, vs = randn(*shape), randn(*shape), randn(*shape)
+        r = fa.flash_attention_plain(qs, ks, vs)
+        compare(f"flash_attention_resident{list(shape)}", fa.flash_attention(qs, ks, vs), r, **attn_tol(r))
     del ref
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-    rows["flash_attention"] = (err, ms, plain_ms, lib_ms,
-                               *bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d), {})
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50)
+    # the mma.sync core the resident kernel replaced (the library's forward at d = 16)
+    core_ms = cuda_ms(lambda: fa._launch(q, k, v, "flash_attention"), 50)
+    # device time alone (the profiler): at batch 8 the host's launch work
+    # per call is of the kernel's order
+    alone = {"device_ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+             "mma_core_device_ms": device_ms(lambda: fa._launch(q, k, v, "flash_attention")),
+             "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v))}
+    bnd = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+    log(f"  flash_attention_resident (batch {batch}): resident {ms:.4f} ms, mma.sync core {core_ms:.4f} ms, "
+        f"SDPA {lib_ms:.4f} ms; SDPA / resident {lib_ms / ms:.3f}, core / resident {core_ms / ms:.3f}; bound "
+        f"{bnd[0]:.4f} ms ({b * h * n * n:.4g} exponentials at the measured {RATES['ex2']:.4g}/s), share "
+        f"{bnd[0] / ms:.3f}; device time alone: " + ", ".join(f"{k[:-3]} {fmt_ms(v)}" for k, v in alone.items()))
+    rows["flash_attention_resident"] = (err, ms, plain_ms, lib_ms, *bnd, {"mma_core_ms": core_ms} | alone)
     del q, k, v
 
     # -- 3: fused_norm_modulate, the DiT adaLN epilogue in a CFG-doubled step
@@ -387,7 +520,7 @@ def kernel_phases(dev, batch: int) -> dict:
     qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
     rows["flash_attention_qknorm_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d), {})
+        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), {})
     del q, k, v, qr, kr, ref
 
     # -- 8: flash_attention_fused_rope, DiT attention under attention_impl flash_fused
@@ -403,7 +536,7 @@ def kernel_phases(dev, batch: int) -> dict:
     vt = v.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vt), 20)
     rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d), {})
+        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), {})
     del qkv, q, k, v, qr, kr, vt, ref
 
     # -- 9: fused_norm_modulate_quant, the w8a8 adaLN epilogue in a CFG-doubled step
@@ -496,7 +629,7 @@ def build_models(dev):
     return spec, bundle
 
 
-def sampler(spec, steps, dev, kernels: bool, quant=None, attn_impl="flash_rope"):
+def sampler(spec, steps, dev, kernels: bool, quant=None, attn_impl="flash_rope", dtype=None):
     import torch
 
     from ldmae_tpu_torch.eval.sampling import make_sample_fn
@@ -508,7 +641,7 @@ def sampler(spec, steps, dev, kernels: bool, quant=None, attn_impl="flash_rope")
         spec, create_transport("Linear", "velocity", use_lognorm=True),
         num_steps=steps, sampling_method="euler", timestep_shift=SHIFT, cfg_scale=CFG_SCALE,
         cfg_interval=True, cfg_interval_start=CFG_START, cfg_channels=3,
-        compute_dtype=torch.bfloat16, rope_layout="half", quant_mode=quant, device=dev, **impls,
+        compute_dtype=dtype or torch.bfloat16, rope_layout="half", quant_mode=quant, device=dev, **impls,
     )
 
 
@@ -552,38 +685,42 @@ def full_path(path: str, spec, bundle, y, dev, quant=None):
 
 
 def short_compare(what: str, spec, bundle, y, z, dev, kernel_kw: dict, ref_kw: dict, decode_impl: str,
-                  count_path=None):
+                  count_path=None, dtype=None):
     """SHORT_STEPS steps from z through two impl sets; the latents within 5e-2
-    of their scale, and the kernel path's latents decoded by ``decode_impl``
-    within 8 levels of the plain ``xla`` decode of the same latents. With
-    ``count_path``, the first run's launches are counted exactly."""
+    of their scale (fp32: 1e-2, where the w8a8 leg's int8 roundings may
+    still flip), and the kernel path's latents decoded by ``decode_impl``
+    within 8 levels of the plain ``xla`` decode of the same latents (fp32: 2
+    levels). With ``count_path``, the first run's launches
+    are counted exactly."""
     import torch
 
     from ldmae_tpu_torch import ops
 
+    dtype = dtype or torch.bfloat16
+    lat_tol, px_tol = (1e-2, 2) if dtype == torch.float32 else (5e-2, 8)
     log(f"[pipeline] {SHORT_STEPS} steps: {what} from the same noise")
     latents = bundle | {"vae": None}
     ops.reset_launch_counts()
-    lat_k = sampler(spec, SHORT_STEPS, dev, **kernel_kw)(latents, y, z=z)
+    lat_k = sampler(spec, SHORT_STEPS, dev, dtype=dtype, **kernel_kw)(latents, y, z=z)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     if count_path:
         check_counts(count_path, counts)
-    lat_x = sampler(spec, SHORT_STEPS, dev, **ref_kw)(latents, y, z=z)
+    lat_x = sampler(spec, SHORT_STEPS, dev, dtype=dtype, **ref_kw)(latents, y, z=z)
     if not (torch.isfinite(lat_k).all() and lat_k.shape == (BATCH, 16, 32, 32)):
         raise SystemExit(f"{what}: latents are not finite ({BATCH}, 16, 32, 32)")
     lat_rel = float((lat_k - lat_x).abs().max() / lat_x.abs().max())
     moved = float((lat_x - z).abs().max())
     vae = bundle["vae"]
-    img_k = vae.decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl=decode_impl)
-    img_x = vae.decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="xla")
+    img_k = vae.decode_to_images(lat_k, compute_dtype=dtype, attn_impl=decode_impl)
+    img_x = vae.decode_to_images(lat_k, compute_dtype=dtype, attn_impl="xla")
     px = int((img_k.int() - img_x.int()).abs().max())
-    px_paths = int((img_x.int() - vae.decode_to_images(lat_x, compute_dtype=torch.bfloat16,
+    px_paths = int((img_x.int() - vae.decode_to_images(lat_x, compute_dtype=dtype,
                                                        attn_impl="xla").int()).abs().max())
-    ok = lat_rel <= 5e-2 and moved > 1e-2 and px <= 8
-    log(f"  latents max rel err {lat_rel:.6g} (tolerance 5e-2: bf16 roundings in other places, "
+    ok = lat_rel <= lat_tol and moved > 1e-2 and px <= px_tol
+    log(f"  latents max rel err {lat_rel:.6g} (tolerance {lat_tol:g}: {dtype} roundings in other places, "
         f"compounded over {SHORT_STEPS} CFG-10 steps); latents moved {moved:.4g} from z; decode "
-        f"{decode_impl} vs xla max pixel diff {px} (tolerance 8 levels); images of the two paths' "
+        f"{decode_impl} vs xla max pixel diff {px} (tolerance {px_tol} levels); images of the two paths' "
         f"latents differ by up to {px_paths} levels -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{what}: the two paths disagree")
@@ -627,6 +764,19 @@ def pipeline_phases(dev, profile: bool = False) -> dict:
         counts[impl] = short_compare(f"attention_impl {impl} vs flash_rope", spec, bundle, y, z, dev,
                                      dict(kernels=True, attn_impl=impl), dict(kernels=True), impl,
                                      count_path=impl)
+    # the same 10-step paths in fp32 (parallel.compute_dtype: float32): the
+    # fp32 kernels against the fp32 xla impls, the opt-in impls against fp32 flash_rope
+    f32 = torch.float32
+    fbundle, fqbundle = bundle, qbundle  # fp32 weights; the compute dtype casts
+    counts["sample_fp32"] = short_compare("fp32 kernels vs the fp32 xla impls", spec, fbundle, y, z, dev,
+                                          dict(kernels=True), dict(kernels=False), "flash", "sample_fp32", f32)
+    counts["sample_fp32_w8a8"] = short_compare(
+        "fp32 w8a8 kernels vs the fp32 w8a8 xla impls", spec, fqbundle, y, z, dev, dict(kernels=True, quant="w8a8"),
+        dict(kernels=False, quant="w8a8"), "flash", "sample_fp32_w8a8", f32)
+    for impl in ("flash_qkr", "flash_fused"):
+        counts[f"sample_fp32_{impl[6:]}"] = short_compare(
+            f"fp32 attention_impl {impl} vs fp32 flash_rope", spec, fbundle, y, z, dev,
+            dict(kernels=True, attn_impl=impl), dict(kernels=True), impl, f"sample_fp32_{impl[6:]}", f32)
     quant_gate(spec, bundle, qbundle, y, dev)
     if profile:
         sampling_profile(spec, bundle, y, dev)
@@ -808,7 +958,7 @@ def train_kernel_phase(dev) -> dict:
         fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 10)
         # q, k, v, g, o in, dq, dk, dv out (bf16), lse in (fp32), the tables
         bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + (2 * n * d * 4 if tables else 0),
-                    10 * b * h * n * n * d)
+                    10 * b * h * n * n * d, exps=b * h * n * n)
         rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, parts)
         split = ", ".join(f"{key[:-3]} {v:.4f}" for key, v in parts.items())
         log(f"  {name} (training shapes): kernel {ms:.4f} ms ({split}; main kernel's share of bound "
@@ -818,11 +968,25 @@ def train_kernel_phase(dev) -> dict:
             f"share of bound {bnd[0] / ms:.3f}")
         del qs, ks, vs, o, lse
 
+    # #2 at d = 64, the forward of the interleaved training (the wgmma kernel)
+    log(f"[train kernel] flash_attention q,k,v ({b},{h},{n},{d}) bf16 (no RoPE; the wgmma forward)")
+    ref = fa.flash_attention_plain(q, k, v)
+    err = compare("flash_attention[d=64]", fa.flash_attention(q, k, v), ref, rtol=2**-7,
+                  atol=2**-8 * float(ref.float().abs().max()))
+    del ref
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    bnd = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+    rows["flash_attention"] = (err, ms, plain_ms, lib_ms, *bnd, {})
+    log(f"  flash_attention (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}), share of bound {bnd[0] / ms:.3f}")
+
     # the forward kernels of the training path at its shapes
     fwd_ms = cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 20)
     qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
-    bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d)
+    bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n)
     parts = rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin))
     log(f"  flash_attention_rope (training shapes): kernel {fwd_ms:.4f} ms (pre-pass {parts['prepass_ms']:.4f}, "
         f"attention {parts['attention_ms']:.4f}), SDPA {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -850,16 +1014,23 @@ def _yaml_config(**sections):
     return cfg
 
 
-def grad_check_phase(dev) -> None:
+def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, grad_bound: float = GRAD_REL_L2):
     """One train step of B/1 at full width, depth GRAD_DEPTH, batch
     GRAD_BATCH: loss and per-leaf gradients of the kernel path (the YAML's
-    impls, remat 'attn') against the xla path (plain attention, xla adaLN,
-    no remat), from the same seeded weights, noise, t and label drops; then
-    the kernel path with the untransposed RoPE Jacobian, which must read
-    above the bound."""
+    impls, remat 'attn'; with ``layout`` 'interleaved', RoPE outside the
+    kernel, flash_attention and its backward) against the xla path (plain
+    attention, xla adaLN, no remat), from the same seeded weights, noise, t
+    and label drops, in ``dtype`` (bf16 by default); with ``count_path`` the
+    kernel path's launches counted exactly. In bf16 with half RoPE, then the
+    kernel path with the untransposed RoPE Jacobian, which must read above
+    the bound."""
     import dataclasses
 
     import torch
+
+    from ldmae_tpu_torch import ops
+
+    dtype = dtype or torch.bfloat16
 
     from ldmae_tpu_torch.models import LightningDiT, dit_spec, permute_qk_for_half_rope, seeded_init_
     from ldmae_tpu_torch.ops import flash_attention as fa
@@ -876,33 +1047,46 @@ def grad_check_phase(dev) -> None:
     drop = (torch.arange(GRAD_BATCH, device=dev) % 4 == 0).int()
     transport = create_transport("Linear", "velocity", use_lognorm=True)
 
+    half = layout == "half"
+    kernel_counts = {}
+
     def grads(kernels: bool):
         s = dataclasses.replace(spec, use_checkpoint=kernels, remat_policy="attn")
         model = LightningDiT(s, device=dev)
-        model.load_state_dict(permute_qk_for_half_rope(sd, s) if kernels else sd)
-        impls = (dict(attn_impl="flash_rope", rope_layout="half", adaln_impl="fused") if kernels
-                 else dict(attn_impl="xla", rope_layout="interleaved", adaln_impl="xla"))
-        loss = dit_loss(model, transport, x1, y, x0=x0, t=t, drop_ids=drop, compute_dtype=torch.bfloat16, **impls)
+        model.load_state_dict(permute_qk_for_half_rope(sd, s) if kernels and half else sd)
+        impls = (dict(attn_impl="flash_rope" if half else "flash", rope_layout=layout, adaln_impl="fused")
+                 if kernels else dict(attn_impl="xla", rope_layout="interleaved", adaln_impl="xla"))
+        ops.reset_launch_counts()
+        loss = dit_loss(model, transport, x1, y, x0=x0, t=t, drop_ids=drop, compute_dtype=dtype, **impls)
         loss.backward()
+        torch.cuda.synchronize()
+        if kernels:
+            kernel_counts.update(ops.launch_counts())
+            if count_path:
+                check_counts(count_path, kernel_counts)
         out = {n: p.grad.float() for n, p in model.named_parameters()}
-        return float(loss.detach()), (permute_qk_for_half_rope(out, s, inverse=True) if kernels else out)
+        return float(loss.detach()), (permute_qk_for_half_rope(out, s, inverse=True) if kernels and half else out)
 
     def worst(g, ref):
         errs = {n: float((g[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)) for n in ref}
         name = max(errs, key=errs.get)
         return errs[name], name
 
-    log(f"[train] gradient check: B/1 width 768, depth {GRAD_DEPTH}, batch {GRAD_BATCH}, bf16; kernel path "
-        f"(flash_rope, half RoPE, fused adaLN, remat attn) vs xla path (plain attention, xla adaLN, no remat)")
+    log(f"[train] gradient check: B/1 width 768, depth {GRAD_DEPTH}, batch {GRAD_BATCH}, {dtype}; kernel path "
+        f"({'flash_rope, half' if half else 'flash, interleaved'} RoPE, fused adaLN, remat attn) vs xla path "
+        f"(plain attention, xla adaLN, no remat)")
     loss_x, g_x = grads(False)
     loss_k, g_k = grads(True)
     err, leaf = worst(g_k, g_x)
     loss_rel = abs(loss_k - loss_x) / abs(loss_x)
-    ok = err <= GRAD_REL_L2 and loss_rel <= 1e-2 and all(bool(torch.isfinite(v).all()) for v in g_k.values())
+    ok = err <= grad_bound and loss_rel <= 1e-2 and all(bool(torch.isfinite(v).all()) for v in g_k.values())
     log(f"  loss kernel {loss_k:.6f} vs xla {loss_x:.6f} (relative {loss_rel:.3g}, bound 1e-2); worst leaf "
-        f"{leaf}: relative L2 {err:.6g} (bound {GRAD_REL_L2}) over {len(g_x)} leaves -> {'ok' if ok else 'FAIL'}")
+        f"{leaf}: relative L2 {err:.6g} (bound {grad_bound}) over {len(g_x)} leaves -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("gradient check: the kernel path's gradients disagree with the xla path's")
+    if dtype != torch.bfloat16 or not half:
+        torch.cuda.empty_cache()
+        return kernel_counts
     saved = fa.flash_attention_rope_bwd
     fa.flash_attention_rope_bwd = wrong_rope_bwd_untransposed  # the control, in this process only
     try:
@@ -915,6 +1099,7 @@ def grad_check_phase(dev) -> None:
     if not err > GRAD_REL_L2:
         raise SystemExit("gradient check: a wrong backward reads within the bound")
     torch.cuda.empty_cache()
+    return kernel_counts
 
 
 def write_latent_shard(path: str, latents, labels) -> None:
@@ -968,7 +1153,7 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
                            rng.integers(0, 1000, 256).astype(np.int64))
     weights = os.path.join(tmp, "seeded.pt")
 
-    def config(name: str, layout: str, steps: int) -> str:
+    def config(name: str, layout: str, steps: int, dtype: str = "bfloat16") -> str:
         cfg = _yaml_config(
             data={"data_path": data, "image_size": 256, "num_classes": 1000, "latent_norm": True,
                   "latent_multiplier": 1.0, "sample": False},
@@ -976,6 +1161,7 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
                    "output_dir": tmp, "exp_name": name, "log_every": 5, "ckpt_every": TRAIN_STEPS,
                    "use_checkpoint": True, "gradient_accumulation_steps": 1, "weight_init": weights})
         cfg["parallel"]["rope_layout"] = layout
+        cfg["parallel"]["compute_dtype"] = dtype
         path = os.path.join(tmp, f"{name}.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)
@@ -1038,7 +1224,17 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     if not all(math.isfinite(h["loss"]) for h in iout["history"]):
         raise SystemExit("interleaved training: a non-finite loss")
     log(f"  losses {[round(h['loss'], 5) for h in iout['history']]}; {iseconds:.2f} s; peak memory {ipeak:.3f} GB")
-    return {"train": counts, "interleaved": icounts}
+
+    log(f"[train] parallel.compute_dtype float32: {FP32_STEPS} steps, B/1, batch {TRAIN_BATCH} (the fp32 kernels: "
+        f"flash_attention_rope and its backward, fused adaLN)")
+    fout, fcounts, fseconds, fpeak = run(["--config", config("b1_fp32", "half", FP32_STEPS, "float32")],
+                                         "train_fp32")
+    fhist = fout["history"]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in fhist):
+        raise SystemExit("fp32 training: a non-finite loss or gradient norm")
+    log(f"  losses {[round(h['loss'], 5) for h in fhist]}; {fseconds:.2f} s for the call ({FP32_STEPS} steps, the "
+        f"first with the warm-up); peak memory {fpeak:.3f} GB; on {smi}")
+    return {"train": counts, "interleaved": icounts, "train_fp32": fcounts}
 
 
 def train_profile_phase(dev) -> None:
@@ -1063,7 +1259,8 @@ PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's s
 OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_modulate_kernel",
                "matmul_silu_kernel", "norm_modulate_quant_kernel", "silu_mul_quant_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_preprocess_kernel",
-               "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel")
+               "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel", "flash_fwd_resident_kernel",
+               "norm_rope_any_kernel", "flash32_", "matmul_silu_f32_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -1119,6 +1316,316 @@ def sampling_profile(spec, bundle, y, dev, quant=None) -> None:
                   lambda: fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(3)))
 
 
+# ---------------------------------------------------------------------------
+# Every head dim and fp32 (the kernels take what the Pallas kernels take)
+# ---------------------------------------------------------------------------
+
+# bf16 attention at the head dims of the registries' archs that the first
+# kernels refused (VMAE 8, 12, 24, 32, 80), an off-8 dim and the largest class
+ANY_HEAD_DIMS = (8, 12, 24, 32, 36, 80, 128)
+# fp32 kernels against their plain fp32 versions (TF32 off): forwards within
+# F32_FWD of the output's largest |value|, backwards within relative L2
+# F32_BWD per output (fp32 sums in another order)
+F32_FWD, F32_BWD = 2e-5, 1e-4
+
+
+def f32_compare(name: str, out, ref) -> float:
+    """max |out - ref|; fails unless within F32_FWD of ref's largest |value|."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    ok = bool(torch.isfinite(out).all()) and rel <= F32_FWD and out.dtype == torch.float32
+    log(f"  {name}: max_abs_err={err:.6g}, / max |ref| {rel:.3g} (tolerance {F32_FWD:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the fp32 kernel disagrees with its plain version")
+    return err
+
+
+def f32_bwd_compare(name: str, outs, refs) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    rels = [float((o - r).norm() / r.norm()) for o, r in zip(outs, refs)]
+    ok = max(rels) <= F32_BWD and all(bool(torch.isfinite(o).all()) for o in outs)
+    log(f"  {name}: relative L2 dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g} (tolerance {F32_BWD:g}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the fp32 backward disagrees with its plain version")
+    return max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+
+
+def head_dim_phase(dev) -> None:
+    """bf16 attention forward (plain, RoPE) and backward (three passes) at
+    every head dim of ANY_HEAD_DIMS, N = 1000 (ragged), against the plain
+    versions with the bf16 gates; then the forward and the backward timed
+    at (8, 12, 1024, d) beside SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for d in ANY_HEAD_DIMS:
+        b, h, n = 2, 12, 1000
+        log(f"[head dims] bf16 attention ({b},{h},{n},{d}): forward, RoPE forward, backward, RoPE backward")
+        q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+        grid = math.isqrt(n) + 1
+        from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+        cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(dev) for t in build_rope_table(d // 2, grid))
+        for name, out, ref in (
+            ("flash_attention", fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)),
+            ("flash_attention_rope", fa.flash_attention_rope(q, k, v, cos, sin),
+             fa.flash_attention_rope_plain(q, k, v, cos, sin)),
+        ):
+            compare(f"{name}[d={d}]", out, ref, rtol=2**-7, atol=2**-8 * float(ref.float().abs().max()))
+        for name, outs, refs in (
+            ("flash_attention_bwd", fa.flash_attention_bwd(q, k, v, g), fa.flash_attention_bwd_plain(q, k, v, g)),
+            ("flash_attention_rope_bwd", fa.flash_attention_rope_bwd(q, k, v, g, cos, sin),
+             fa.flash_attention_rope_bwd_plain(q, k, v, g, cos, sin)),
+        ):
+            rel, elem = bwd_errors(outs, refs)
+            ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+            log(f"  {name}[d={d}]: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| {elem:.6g} "
+                f"(bound {BWD_ELEM}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name} at d = {d}: kernel disagrees with its plain backward")
+        b, n = BATCH, 1024
+        q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        bnd = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+        bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), 5)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        fb_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g), 5)
+        bbnd = bound(7 * b * h * n * d * 2, 10 * b * h * n * n * d, exps=b * h * n * n)
+        log(f"  timed at ({b},{h},{n},{d}) bf16: forward {ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), share {bnd[0] / ms:.3f}; backward (statistics pass included) {bwd_ms:.4f} ms, SDPA's "
+            f"backward (fwd+bwd minus fwd) {fb_ms - lib_ms:.4f} ms, bound {bbnd[0]:.4f} ms, share {bbnd[0] / bwd_ms:.3f}")
+        del q, k, v, g, qs, ks, vs
+    torch.cuda.empty_cache()
+
+
+def fp32_kernel_phase(dev, batch: int) -> dict:
+    """Every kernel's fp32 instantiation against its plain fp32 version
+    (TF32 off) and timed beside it and a library call: #1, #2, #5 and #6 at
+    the training shape (32, 12, 1024, 64), #3, #4, #9 and #10 at the B/1
+    sampling shapes at ``batch`` (CFG-doubled), #7 and #8 at the sampling
+    attention shape. Returns name -> row of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    rows = {}
+    b, h, n, d = TRAIN_BATCH, 12, 1024, 64
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
+    q, k, v, g = (randn(b, h, n, d) for _ in range(4))
+    attn_bytes, attn_flops, exps = 4 * b * h * n * d * 4, 4 * b * h * n * n * d, b * h * n * n
+    log(f"[fp32] attention at the training shape ({b},{h},{n},{d}) fp32")
+    for name, kern, plain, lib, tables in (
+        ("flash_attention_fp32", fa.flash_attention, fa.flash_attention_plain, (q, k), ()),
+        ("flash_attention_rope_fp32", fa.flash_attention_rope, fa.flash_attention_rope_plain,
+         (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)), (cos, sin)),
+    ):
+        err = f32_compare(name, kern(q, k, v, *tables), plain(q, k, v, *tables))
+        ms = cuda_ms(lambda: kern(q, k, v, *tables), 5)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, *tables), 3, 1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*lib, v), 5)
+        bnd = bound(attn_bytes + (2 * n * d * 4 if tables else 0), fp32_flops=attn_flops, exps=exps)
+        rows[name] = (err, ms, plain_ms, lib_ms, *bnd, {})
+    for name, kern, plain, lib, tables in (
+        ("flash_attention_bwd_fp32", fa.flash_attention_bwd, fa.flash_attention_bwd_plain, (q, k), ()),
+        ("flash_attention_rope_bwd_fp32", fa.flash_attention_rope_bwd, fa.flash_attention_rope_bwd_plain,
+         (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)), (cos, sin)),
+    ):
+        o, lse = fa._launch(q, k, v, name, *tables, with_lse=True)  # the library, uncounted
+
+        def run():
+            return kern(q, k, v, g, *tables, out=o, lse=lse)
+
+        err = f32_bwd_compare(name, run(), plain(q, k, v, g, *tables))
+        ms = cuda_ms(run, 3)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, g, *tables), 2, 1)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (*lib, v))
+        fb_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g), 3)
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 3)
+        bnd = bound(8 * b * h * n * d * 4 + b * h * n * 4 + (2 * n * d * 4 if tables else 0),
+                    fp32_flops=10 * b * h * n * n * d, exps=exps)
+        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, {})
+        del o, lse, qs, ks, vs
+    del q, k, v, g
+
+    b2 = 2 * batch
+    b, h, n, d = b2, 12, 1024, 64
+    log(f"[fp32] opt-in attention at the sampling shape ({b},{h},{n},{d}) fp32")
+    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
+    qs_, ks_ = (1 + 0.1 * randn(d) for _ in range(2))
+    err = f32_compare("flash_attention_qknorm_rope_fp32", fa.flash_attention_qknorm_rope(q, k, v, qs_, ks_, cos, sin),
+                      fa.flash_attention_qknorm_rope_plain(q, k, v, qs_, ks_, cos, sin))
+    ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope(q, k, v, qs_, ks_, cos, sin), 5)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs_, ks_, cos, sin), 3, 1)
+    qr, kr = fa._qknorm_rope_fp32(q, qs_, cos, sin), fa._qknorm_rope_fp32(k, ks_, cos, sin)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 5)
+    bnd = bound(4 * b * h * n * d * 4, fp32_flops=4 * b * h * n * n * d, exps=b * h * n * n)
+    rows["flash_attention_qknorm_rope_fp32"] = (err, ms, plain_ms, lib_ms, *bnd, {})
+    qkv = randn(b, n, 3, h, d)
+    qf, kf, vf = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    err = f32_compare("flash_attention_fused_rope_fp32", fa.flash_attention_fused_rope(qf, kf, vf, cos, sin),
+                      fa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin))
+    ms = cuda_ms(lambda: fa.flash_attention_fused_rope(qf, kf, vf, cos, sin), 5)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin), 3, 1)
+    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (qf, kf))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vf.transpose(1, 2)), 5)
+    rows["flash_attention_fused_rope_fp32"] = (err, ms, plain_ms, lib_ms, *bnd, {})
+    del q, k, v, qr, kr, qkv, qf, kf, vf
+
+    b, n, d = b2, 1024, 768
+    log(f"[fp32] adaLN and SwiGLU kernels at the B/1 sampling shapes (batch {batch}, CFG-doubled) fp32")
+    x = randn(b, n, d, scale=3.0)
+    w = 1 + 0.1 * randn(d)
+    mod = randn(b, 6, d, scale=0.1)
+    sh, sc = mod[:, 0], mod[:, 1]
+    err = f32_compare("fused_norm_modulate_fp32", fad.fused_norm_modulate(x, w, sh, sc),
+                      fad.fused_norm_modulate_plain(x, w, sh, sc))
+    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, sh, sc), 20)
+    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, sh, sc), 5)
+    rows["fused_norm_modulate_fp32"] = (err, ms, plain_ms, None, *bound(
+        2 * b * n * d * 4 + d * 4 + 2 * b * d * 4, fp32_flops=6 * b * n * d), {})
+    err = compare_quant("fused_norm_modulate_quant_fp32", fad.fused_norm_modulate_quant(x, w, sh, sc),
+                        fad.fused_norm_modulate_quant_plain(x, w, sh, sc))
+    ms = cuda_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc), 20)
+    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_quant_plain(x, w, sh, sc), 5)
+    rows["fused_norm_modulate_quant_fp32"] = (err, ms, plain_ms, None, *bound(
+        b * n * d * (4 + 1) + b * n * 4 + d * 4 + 2 * b * d * 4, fp32_flops=9 * b * n * d), {})
+    del x
+    m, h2 = b2 * 1024, 4096
+    x = randn(m, d)
+    w12 = randn(h2, d, scale=d**-0.5)
+    b12 = randn(h2, scale=0.1)
+    err = f32_compare("fused_matmul_silu_fp32", fad.fused_matmul_silu(x, w12, b12),
+                      fad.fused_matmul_silu_plain(x, w12, b12))
+    ms = cuda_ms(lambda: fad.fused_matmul_silu(x, w12, b12), 5)
+    plain_ms = cuda_ms(lambda: fad.fused_matmul_silu_plain(x, w12, b12), 3, 1)
+    lib_ms = cuda_ms(lambda: torch.addmm(b12, x, w12.t()), 5)
+    rows["fused_matmul_silu_fp32"] = (err, ms, plain_ms, lib_ms, *bound(
+        (m * d + h2 * d + m * h2 // 2) * 4 + h2 * 4, fp32_flops=2 * m * d * h2), {})
+    del x, w12
+    x12 = randn(b2, 1024, h2, scale=2.0)
+    err = compare_quant("fused_silu_mul_quant_fp32", fad.fused_silu_mul_quant(x12), fad.fused_silu_mul_quant_plain(x12))
+    ms = cuda_ms(lambda: fad.fused_silu_mul_quant(x12), 20)
+    plain_ms = cuda_ms(lambda: fad.fused_silu_mul_quant_plain(x12), 5)
+    rows["fused_silu_mul_quant_fp32"] = (err, ms, plain_ms, None, *bound(
+        m * h2 * 4 + m * h2 // 2 + m * 4, fp32_flops=8 * m * h2 // 2), {})
+    del x12
+    torch.cuda.empty_cache()
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, _) in rows.items():
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), share of bound {bound_ms / ms:.3f}")
+    return rows
+
+
+def dense_ulp_error(out, x, w, b) -> float:
+    """max over the elements of (|out - exact| - 2^-14 sum |terms|) / ulp,
+    exact = x w^T + b in fp64 on the same bf16 operands and fp32 bias, sum
+    |terms| = |x| |w|^T + |b|, ulp = the bf16 ulp of exact's binade: one
+    rounding of an fp32 result reads at most 0.5 (the 2^-14 allows for the
+    fp32 sums, about 2^-18 of the terms over K = 2048; without it an exact
+    value near 0, whose ulp is tiny, would read as a huge error)."""
+    import torch
+
+    exact = x.double() @ w.double().t() + b.double()
+    mag = x.double().abs() @ w.double().abs().t() + b.double().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0**-100))) - 7)
+    return float((((out.double() - exact).abs() - 2.0**-14 * mag) / ulp).max())
+
+
+def dense_phase(dev) -> None:
+    """``dense`` in bf16 with an fp32 bias at the B/1 shapes (batch 8 under
+    CFG) and at the MAE-huge decoder head's ragged N = 588: within half a
+    bf16 ulp of fp64 math on the same operands rounded once
+    (``dense_ulp_error``), where the bias rounded to bf16 first (a bf16
+    F.linear, the port's dense before) must read above 0.6 ulp; both timed,
+    also by device time alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import dense
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    log("[dense] bf16 x bf16 + fp32 bias, one rounding (the wgmma GEMM's fp32-bias epilogue) vs fp64; error in "
+        "bf16 ulps")
+    for name, m, k, n in (("qkv", 16384, 768, 2304), ("proj", 16384, 768, 768), ("w3", 16384, 2048, 768),
+                          ("adaLN", 16, 768, 4608), ("final layer", 16384, 768, 16),
+                          ("patch-14 head", 2048, 512, 588)):
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(n, k, generator=gen, device=dev) * k**-0.5).bfloat16()
+        b = torch.randn(n, generator=gen, device=dev)
+        ours, parent = dense_ulp_error(dense(x, w, b), x, w, b), dense_ulp_error(F.linear(x, w, b.bfloat16()), x, w, b)
+        ms = cuda_ms(lambda: dense(x, w, b), 20)
+        lin_ms = cuda_ms(lambda: F.linear(x, w, b.bfloat16()), 20)
+        dev_ms, lin_dev_ms = device_ms(lambda: dense(x, w, b)), device_ms(lambda: F.linear(x, w, b.bfloat16()))
+        ok = ours <= 0.5 and parent > 0.6
+        log(f"  {name} ({m}x{k} -> {n}): dense max error {ours:.4f} ulp (bound 0.5); bias rounded "
+            f"to bf16 first {parent:.4f} ulp (must exceed 0.6); dense {ms:.4f} ms (device {fmt_ms(dev_ms)}), bf16 "
+            f"F.linear {lin_ms:.4f} ms (device {fmt_ms(lin_dev_ms)}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"dense ({name}): not one rounding after the fp32 bias, or the control reads within")
+        del x
+    torch.cuda.empty_cache()
+
+
+def vmae_decode_phase(dev) -> dict:
+    """VMAE decode of two archs off the resident kernel's head dims,
+    mae_for_ldmae_f8d16_small (decoder head dim 12) and ..._prev_large (24),
+    at 256^2 (1,024 tokens), batch 8, seeded weights, under ``flash``
+    against ``xla``, in bf16 (within 8 levels) and fp32 (within 1 level),
+    with exact launch counts. Returns {"decode_fp32": counts}."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models import VMAE, seeded_init_, vmae_spec
+
+    out = {}
+    z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(31), device=dev)
+    for arch in ("mae_for_ldmae_f8d16_small", "mae_for_ldmae_f8d16_prev_large"):
+        spec = vmae_spec(arch, img_size=256, ldmae_mode=True, no_cls=True, kl_loss_weight=True, smooth_output=True)
+        vae = seeded_init_(VMAE(spec, device=dev), 4)
+        hd = spec.decoder_embed_dim // spec.decoder_num_heads
+        for dtype, tol in ((torch.bfloat16, 8), (torch.float32, 1)):
+            ops.reset_launch_counts()
+            img_k = vae.decode_to_images(z, compute_dtype=dtype, attn_impl="flash")
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check_counts("decode", counts)
+            img_x = vae.decode_to_images(z, compute_dtype=dtype, attn_impl="xla")
+            px = int((img_k.int() - img_x.int()).abs().max())
+            spread = float(img_k.float().std())
+            ok = px <= tol and img_k.shape == (BATCH, 256, 256, 3) and spread > 1.0
+            log(f"[decode] {arch} (decoder head dim {hd}) {dtype}: flash vs xla max pixel diff {px} (tolerance "
+                f"{tol}), pixel std {spread:.3f} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"VMAE decode {arch} {dtype}: flash disagrees with xla")
+            if dtype == torch.float32:
+                out["decode_fp32"] = counts
+        del vae
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1153,8 +1660,9 @@ def main() -> int:
     # the wgmma kernels: registers at entry (setmaxnreg then gives the
     # consumer warpgroups more), static shared memory (the rings are dynamic)
     for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel"),
-                        ("flash_attention", "flash_bwd_wgmma_kernel")):
+                        ("flash_attention", "flash_bwd_wgmma_kernel"), ("flash_attention", "flash_fwd_resident_kernel")):
         log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
+    rate_probes(dev)
 
     rows = kernel_phases(dev, BATCH)
     log(f"[kernel] the same at bench.py's batch {BENCH_BATCH}")
@@ -1162,9 +1670,16 @@ def main() -> int:
     log("[kernel] int8 products of the w8a8 leg")
     int8_gemm_phase(dev, BATCH)
     rows |= train_kernel_phase(dev)
+    head_dim_phase(dev)
+    rows |= fp32_kernel_phase(dev, BATCH)
+    dense_phase(dev)
     profile = "--profile" in sys.argv[1:]
     result = pipeline_phases(dev, profile=profile)
+    result["counts"] |= vmae_decode_phase(dev)
     grad_check_phase(dev)
+    for layout in ("half", "interleaved"):
+        path = f"grad_fp32_{layout}"
+        result["counts"][path] = grad_check_phase(dev, torch.float32, layout, path, GRAD_F32_REL_L2)
     with tempfile.TemporaryDirectory() as tmp:
         result["counts"] |= cli_train_phase(dev, smi, tmp)
     if profile:
@@ -1172,12 +1687,15 @@ def main() -> int:
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
-        source, replaces, path = KERNELS[name]
+        source, replaces, path, wrapper = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": result["counts"][path][name], "max_abs_err": err, "ms": ms,
+            "launches": result["counts"][path][wrapper], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         } | parts)
+    missing = set(KERNELS) - set(rows)
+    if missing:
+        raise SystemExit(f"no measurement of {sorted(missing)}")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,6 +63,17 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, i
                "l"(gmem), "r"(src_bytes));
 }
 
+// 8 and 4 bytes alike (cached in L1: .cg takes 16 bytes only).
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

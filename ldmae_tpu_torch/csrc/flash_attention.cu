@@ -6,7 +6,7 @@
 //   * flash_attention_rope (_flash_rope_bhnd_kernel): half-split RoPE on q and
 //     k in fp32, cast back to bf16, then attention (DiT sampling, d = 64);
 //   * flash_attention forward (_flash_fwd_kernel): the same without RoPE, any
-//     sequence length (VMAE decoder, d = 16);
+//     sequence length (VMAE decoder, d = 16; VMAE archs from d = 8 to 80);
 //   * flash_attention_qknorm_rope (_flash_qknorm_rope_kernel): per-head RMS
 //     qk-norm with its fp32 weight, then RoPE, then attention (opt-in
 //     impl "flash_qkr");
@@ -48,49 +48,62 @@
 // is normalised (the row sum stays fp32 and divides at the end), and exp runs
 // as exp2 on pre-scaled logits.
 //
-// Head dims 16 (VMAE), 64 (DiT B/1 to 1p6B) and 72 (XL) are instantiated; d
-// is padded to the mma depth (a multiple of 16) with zeros in shared memory. A ragged last tile
-// (N not a multiple of 64) is zero-filled and its keys masked to -inf.
+// Any head dim 1 <= d <= 128: the core is instantiated for the classes DK =
+// 16, 32, .., 128 (d rounded up to the mma depth, padded with zeros in
+// shared memory), d itself a run-time value; rows are copied 16, 8 or 4
+// bytes at a time by cp.async, or 2 by plain loads for an odd d, whatever
+// their alignment allows (the wrapper passes it as `vec`). A ragged last
+// tile (N not a multiple of 64) is zero-filled and its keys masked to -inf.
+// The fp32 kernels are in flash_attention_fp32.cu.
 //
-// flash_attention_rope and flash_attention at d = 64 run a second core,
-// flash_fwd_wgmma_kernel (wgmma, TMA, warp-specialised; its own note below),
-// which can also write the softmax's lse for the backward; at d = 16 and 72
-// they run this one. The other two forward kernels, and the backward's
-// statistics pass at d = 16 and 72, run this one at every head dim.
+// Which kernel runs is chosen by shape (ldmae_flash_attention_fwd):
+// flash_attention_rope and flash_attention at d = 64 with 16-byte aligned
+// rows run a second core, flash_fwd_wgmma_kernel (wgmma, TMA,
+// warp-specialised; its own note below), which can also write the softmax's
+// lse for the backward; flash_attention without lse at d = 8 or 16 and N <=
+// 3,072 runs flash_fwd_resident_kernel (wgmma, K and V of a head resident in
+// shared memory; its own note below); every other shape runs this one, as
+// do the other two forward kernels and the backward's statistics pass.
+#include "attention_common.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using attn::quad_max;
+using attn::quad_sum;
+using attn::load4;
+using Operand = attn::Operand<bf16>;
+using NormRopeArgs = attn::NormRopeArgs<bf16>;
 
 constexpr int kBlock = 64;  // query rows per block (16 per warp) = key/value rows per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-template <int D>
+// The mma.sync core is instantiated for head-dim classes DK = 16, 32, .., 128
+// (the head dim d rounded up to the mma depth); d itself is a run-time value.
+template <int DK>
 struct Shape {
-  static constexpr int kDK = (D + 15) / 16 * 16;  // head dim padded to the mma depth
-  static constexpr int kLd = kDK + 8;             // smem row stride in bf16: 16-byte rows,
-                                                  // consecutive rows on other banks
+  static constexpr int kDK = DK;
+  static constexpr int kLd = DK + 8;  // smem row stride in bf16: 16-byte rows,
+                                      // consecutive rows on other banks
   // q tile + two K and two V tiles
   static constexpr int kSmemBytes = 5 * kBlock * kLd * 2;
   // Blocks per SM the register budget must allow: four fit the shared memory
   // (46 KB each at d = 64) if a thread keeps to 128 registers; without the
   // bound the strided indexing took d = 64 to 132 registers and three blocks.
-  static constexpr int kMinBlocks = D <= 64 ? 4 : 3;
+  static constexpr int kMinBlocks = DK <= 64 ? 4 : (DK <= 80 ? 3 : 2);
 };
 
-// One operand of the attention core: element (b, h, row, c) lives at
-// p + b * sb + h * sh + row * sr + c. Every stride and p are 16-byte aligned.
-struct Operand {
-  const bf16* p;
-  long long sb, sh;
-  int sr;
-};
+// The head-dim class of d (1 <= d <= 128).
+inline int head_class(int d) { return (d + 15) / 16 * 16; }
 
 struct AttnArgs {
   Operand q, k, v, o;  // o.p is written
   int heads, n;
   float scale_log2;
-  // The backward's statistics pass (flash_fwd_kernel<D, true>) writes, in
+  int d;    // head dim (<= the class DK)
+  int vec;  // elements (8, 4, 2 or 1) every row start and stride is aligned to
+  // The backward's statistics pass (flash_fwd_kernel<DK, true>) writes, in
   // place of o, per query row r of program bh: lse[bh * npad + r] = log2 of
   // the softmax denominator in the kernel's log2 units (running max
   // included) and delta[bh * npad + r] = rowsum(g * o) with o the fp32
@@ -101,35 +114,81 @@ struct AttnArgs {
   int npad;
 };
 
-// Asynchronous copy of a 64 x D tile (row stride ld elements in global) into
-// shared memory (row stride kLd); rows >= valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int ld, int valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlock * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    const int rr = r < valid ? r : 0;  // a valid address; nothing is read when r >= valid
-    cp_async16_zfill(s + r * Shape<D>::kLd + c, g + rr * ld + c, r < valid ? 16 : 0);
+// Asynchronous copy of a 64-row tile of d columns (row stride ld elements in
+// global) into shared memory (row stride kLd); rows >= valid are zero-
+// filled. vec elements per copy: 16-, 8- or 4-byte cp.async, or plain 2-byte
+// loads and stores for rows of an odd head dim. A full class (d == DK) with
+// 16-byte copies takes the loop with compile-time bounds, as before the
+// classes.
+template <int DK>
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int ld, int valid, int d, int vec) {
+  constexpr int kLd = Shape<DK>::kLd;
+  if (vec == 8 && d == DK) {
+    constexpr int kVecs = DK / 8;
+    for (int i = threadIdx.x; i < kBlock * kVecs; i += kThreads) {
+      const int r = i / kVecs, c = (i % kVecs) * 8;
+      const int rr = r < valid ? r : 0;  // a valid address; nothing is read when r >= valid
+      cp_async16_zfill(s + r * kLd + c, g + (long long)rr * ld + c, r < valid ? 16 : 0);
+    }
+  } else if (vec >= 2) {
+    const int nv = d / vec;
+    for (int i = threadIdx.x; i < kBlock * nv; i += kThreads) {
+      const int r = i / nv, c = (i % nv) * vec;
+      const int rr = r < valid ? r : 0;
+      const bf16* src = g + (long long)rr * ld + c;
+      const int bytes = r < valid ? 2 * vec : 0;
+      if (vec == 8) cp_async16_zfill(s + r * kLd + c, src, bytes);
+      else if (vec == 4) cp_async8_zfill(s + r * kLd + c, src, bytes);
+      else cp_async4_zfill(s + r * kLd + c, src, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBlock * d; i += kThreads) {
+      const int r = i / d, c = i % d;
+      s[r * kLd + c] = r < valid ? g[(long long)r * ld + c] : __float2bfloat16_rn(0.f);
+    }
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+// Zeroes columns d..DK-1 of `tiles` consecutive tiles: the copies write
+// columns < d only, so the padding the products read stays zero.
+template <int DK>
+__device__ __forceinline__ void zero_padding(bf16* tiles, int ntiles, int d) {
+  constexpr int kLd = Shape<DK>::kLd;
+  const int pad = DK - d;
+  if (pad > 0) {
+    for (int i = threadIdx.x; i < ntiles * kBlock * pad; i += kThreads)
+      tiles[(i / pad) * kLd + d + i % pad] = __float2bfloat16_rn(0.f);
+  }
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// Two values of columns col, col + 1 of a row at p (col even): one 4-byte
+// store when d is even (col < d implies col + 1 < d, and the row is 4-byte
+// aligned), else element by element.
+__device__ __forceinline__ void store_pair(bf16* p, int col, int d, float x0, float x1) {
+  if ((d & 1) == 0) {
+    if (col < d) *reinterpret_cast<uint32_t*>(p + col) = pack_bf16(x0, x1);
+  } else {
+    if (col < d) p[col] = __float2bfloat16_rn(x0);
+    if (col + 1 < d) p[col + 1] = __float2bfloat16_rn(x1);
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const bf16* p, int col, int d) {
+  if ((d & 1) == 0) {
+    if (col >= d) return make_float2(0.f, 0.f);
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + col);
+    return make_float2(__low2float(v), __high2float(v));
+  }
+  return make_float2(col < d ? __bfloat162float(p[col]) : 0.f, col + 1 < d ? __bfloat162float(p[col + 1]) : 0.f);
 }
 
 // grid: (ceil(n / 64), batch * heads). With kStats, the backward's
 // statistics pass: the same forward, whose epilogue writes lse and delta
 // (AttnArgs) instead of the output.
-template <int D, bool kStats>
-__global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kernel(const AttnArgs a) {
-  constexpr int kDK = Shape<D>::kDK;
-  constexpr int kLd = Shape<D>::kLd;
+template <int DK, bool kStats>
+__global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_kernel(const AttnArgs a) {
+  constexpr int kDK = Shape<DK>::kDK;
+  constexpr int kLd = Shape<DK>::kLd;
   constexpr int kKSteps = kDK / 16;  // mma steps over the head dim
   constexpr int kOBlocks = kDK / 8;  // 8-wide output column blocks
   extern __shared__ __align__(16) unsigned char smem[];
@@ -137,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
   bf16* sk = sq + kBlock * kLd;      // two buffers
   bf16* sv = sk + 2 * kBlock * kLd;  // two buffers
 
-  const int n = a.n;
+  const int n = a.n, d = a.d, vec = a.vec;
   const float scale_log2 = a.scale_log2;
   const int bi = blockIdx.y / a.heads, hi = blockIdx.y % a.heads;
   const bf16* __restrict__ q = a.q.p + bi * a.q.sb + hi * a.q.sh;
@@ -149,14 +208,11 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
   const int g = lane / 4, t = lane % 4;
   const int ntiles = (n + kBlock - 1) / kBlock;
 
-  if (kDK > D) {  // the copies write columns < D only; the padding stays zero
-    for (int i = threadIdx.x; i < 5 * kBlock * (kDK - D); i += kThreads)
-      sq[(i / (kDK - D)) * kLd + D + i % (kDK - D)] = __float2bfloat16_rn(0.f);
-  }
-  load_tile_async<D>(sq, q + (long long)q0 * a.q.sr, a.q.sr, n - q0);
+  zero_padding<DK>(sq, 5, d);
+  load_tile_async<DK>(sq, q + (long long)q0 * a.q.sr, a.q.sr, n - q0, d, vec);
   cp_async_commit();
-  load_tile_async<D>(sk, k, a.k.sr, n);
-  load_tile_async<D>(sv, v, a.v.sr, n);
+  load_tile_async<DK>(sk, k, a.k.sr, n, d, vec);
+  load_tile_async<DK>(sv, v, a.v.sr, n, d, vec);
   cp_async_commit();
   cp_async_wait<1>();  // the q tile
   __syncthreads();
@@ -179,10 +235,10 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
     const bf16* vt = sv + (it & 1) * kBlock * kLd;
     if (it + 1 < ntiles) {  // prefetch the next tile into the other buffers
       const long long next = kv0 + kBlock;
-      load_tile_async<D>(sk + ((it + 1) & 1) * kBlock * kLd, k + next * a.k.sr, a.k.sr,
-                         n - kv0 - kBlock);
-      load_tile_async<D>(sv + ((it + 1) & 1) * kBlock * kLd, v + next * a.v.sr, a.v.sr,
-                         n - kv0 - kBlock);
+      load_tile_async<DK>(sk + ((it + 1) & 1) * kBlock * kLd, k + next * a.k.sr, a.k.sr,
+                          n - kv0 - kBlock, d, vec);
+      load_tile_async<DK>(sv + ((it + 1) & 1) * kBlock * kLd, v + next * a.v.sr, a.v.sr,
+                          n - kv0 - kBlock, d, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -272,14 +328,14 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
 #pragma unroll
     for (int i = 0; i < kOBlocks; ++i) {
       const int col = i * 8 + 2 * t;
-      if (col >= D) continue;
+      if (col >= d) continue;
       if (r0 < n) {
-        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gp + (long long)r0 * a.g.sr + col);
-        d0 += __low2float(gv) * (o[i][0] * inv0) + __high2float(gv) * (o[i][1] * inv0);
+        const float2 gv = load_pair(gp + (long long)r0 * a.g.sr, col, d);
+        d0 += gv.x * (o[i][0] * inv0) + gv.y * (o[i][1] * inv0);
       }
       if (r1 < n) {
-        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gp + (long long)r1 * a.g.sr + col);
-        d1 += __low2float(gv) * (o[i][2] * inv1) + __high2float(gv) * (o[i][3] * inv1);
+        const float2 gv = load_pair(gp + (long long)r1 * a.g.sr, col, d);
+        d1 += gv.x * (o[i][2] * inv1) + gv.y * (o[i][3] * inv1);
       }
     }
     d0 = quad_sum(d0);
@@ -296,99 +352,9 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks) flash_fwd_kern
 #pragma unroll
   for (int i = 0; i < kOBlocks; ++i) {
     const int col = i * 8 + 2 * t;
-    if (col >= D) continue;
-    if (r0 < n)
-      *reinterpret_cast<uint32_t*>(out + (long long)r0 * a.o.sr + col) =
-          pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
-    if (r1 < n)
-      *reinterpret_cast<uint32_t*>(out + (long long)r1 * a.o.sr + col) =
-          pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
+    if (r0 < n) store_pair(out + (long long)r0 * a.o.sr, col, d, o[i][0] * inv0, o[i][1] * inv0);
+    if (r1 < n) store_pair(out + (long long)r1 * a.o.sr, col, d, o[i][2] * inv1, o[i][3] * inv1);
   }
-}
-
-struct NormRopeArgs {
-  Operand x[2];          // q, k in
-  Operand y[2];          // rotated q, k out (p written)
-  const float* w[2];     // per-head RMS norm weights (d,) fp32 of q and k; unused without kNorm
-  const float* cos;      // (n, d) fp32 half-split tables
-  const float* sin;
-  long long rows;        // batch * heads * n
-  int heads, n, d;
-  float eps;
-};
-
-// Four consecutive fp32 values of a 16-byte aligned table.
-__device__ __forceinline__ void load4(float* v, const float* p) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
-}
-
-// RoPE pre-pass of flash_attention_rope, flash_attention_fused_rope and (with
-// kNorm) flash_attention_qknorm_rope: kLanes lanes per row (one token of one head) of q (blockIdx.y == 0) or k
-// (blockIdx.y == 1); lane j of a row owns columns 4j..4j+3 of each half, read
-// and written 8 bytes at a time (d/2 <= 4 * kLanes). With kNorm, the TPU
-// kernel's cast order: the row normalised in fp32 (the sum of squares by
-// shuffles within the row's lanes, 1/sqrt without the approximate rsqrt),
-// rounded to bf16 and back, times the fp32 weight; then, as without it,
-// x*cos + [-x2 | x1]*sin in fp32 without fused multiply-add and one bf16
-// rounding. A first version, one warp per row with 2-byte accesses, took the
-// pre-pass to half the time of the attention after it.
-template <bool kNorm, int kLanes>
-__global__ void __launch_bounds__(256) norm_rope_kernel(const NormRopeArgs a) {
-  const long long row = (long long)blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
-  const int which = blockIdx.y;
-  const int half = a.d / 2, c = 4 * (threadIdx.x % kLanes);
-  // inactive lanes stay to the shuffles with zeros
-  const bool active = row < a.rows && c < half;
-  const int pos = active ? (int)(row % a.n) : 0;
-  const Operand xo = a.x[which], yo = a.y[which];
-  float x1[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
-  const bf16* x = nullptr;
-  bf16* y = nullptr;
-  if (active) {
-    const long long bh = row / a.n, b = bh / a.heads, h = bh % a.heads;
-    x = xo.p + b * xo.sb + h * xo.sh + (long long)pos * xo.sr;
-    y = const_cast<bf16*>(yo.p) + b * yo.sb + h * yo.sh + (long long)pos * yo.sr;
-    const uint2 u1 = *reinterpret_cast<const uint2*>(x + c);
-    const uint2 u2 = *reinterpret_cast<const uint2*>(x + c + half);
-    const bf16* e1 = reinterpret_cast<const bf16*>(&u1);
-    const bf16* e2 = reinterpret_cast<const bf16*>(&u2);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x1[j] = __bfloat162float(e1[j]), x2[j] = __bfloat162float(e2[j]);
-  }
-  if (kNorm) {
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ss += __fadd_rn(__fmul_rn(x1[j], x1[j]), __fmul_rn(x2[j], x2[j]));
-#pragma unroll
-    for (int o = kLanes / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o, kLanes);
-    const float rs = 1.f / sqrtf(__fdiv_rn(ss, (float)a.d) + a.eps);
-    if (active) {
-      float w1[4], w2[4];
-      load4(w1, a.w[which] + c);
-      load4(w2, a.w[which] + c + half);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x1[j] = __fmul_rn(round_bf16(__fmul_rn(x1[j], rs)), w1[j]);
-        x2[j] = __fmul_rn(round_bf16(__fmul_rn(x2[j], rs)), w2[j]);
-      }
-    }
-  }
-  if (!active) return;
-  float c1[4], c2[4], s1[4], s2[4];
-  load4(c1, a.cos + (size_t)pos * a.d + c);
-  load4(c2, a.cos + (size_t)pos * a.d + c + half);
-  load4(s1, a.sin + (size_t)pos * a.d + c);
-  load4(s2, a.sin + (size_t)pos * a.d + c + half);
-  float o1[4], o2[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    o1[j] = __fadd_rn(__fmul_rn(x1[j], c1[j]), __fmul_rn(-x2[j], s1[j]));
-    o2[j] = __fadd_rn(__fmul_rn(x2[j], c2[j]), __fmul_rn(x1[j], s2[j]));
-  }
-  *reinterpret_cast<uint2*>(y + c) = make_uint2(pack_bf16(o1[0], o1[1]), pack_bf16(o1[2], o1[3]));
-  *reinterpret_cast<uint2*>(y + c + half) =
-      make_uint2(pack_bf16(o2[0], o2[1]), pack_bf16(o2[2], o2[3]));
 }
 
 // ---------------------------------------------------------------------------
@@ -696,51 +662,271 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(const AttnArgs& a, int bh, cudaStream_t stream) {
-  constexpr int kSmem = Shape<D>::kSmemBytes;
-  // Dynamic shared memory above 48 KB needs an opt-in, which CUDA keeps per
-  // device: set it at every launch (cheap) so any card the caller picks has it.
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+// ---------------------------------------------------------------------------
+// flash_attention forward at d = 16 (the VMAE decoder's, and encoder's,
+// head dim; d = 8 shares it, padded with zeros by TMA) with K and V of a
+// head resident in shared memory: replaces _flash_fwd_kernel
+// (ldmae_tpu/ops/flash_attention.py, pallas_call at :77) at these head dims
+// on the no-grad path, N <= kRsMaxChunks * 128.
+//
+// What bounds it: at (8, 12, 1024, 16) the two products are 4 b h N^2 d =
+// 6.4e9 flops (0.0065 ms at 989 TFLOP/s), the 8 b h N d bytes 0.0038 ms,
+// but the b h N^2 = 1.0e8 exponentials take 0.024 ms at the SFUs' 16 a clock
+// per SM (1.98 GHz, 132 SMs): at d = 16 each exponential carries 16
+// multiply-adds per product where the tensor cores do about 120 of them in
+// the time the SFU does one. So the design keeps the SFUs busy and takes
+// part of their work away.
+//
+// Design: the TPU kernel's, which fits here at this head dim: K and V of one
+// head (2 x 32 KB at N = 1024) are loaded once per block into shared memory
+// by TMA (3D tensor maps over (bh, n, d) with the 32-byte swizzle of 32-byte
+// rows, chunks of 128 keys, one mbarrier each, so the first products start
+// when the first chunk lands; keys past n arrive as zeros), and each
+// consumer warpgroup owns 64 query rows. The softmax is exact, in two passes
+// over the resident K: pass 1 forms S = Q K^T chunk by chunk (wgmma
+// m64n128k16, both operands K-major from shared memory) and keeps only the
+// row maxima; pass 2 forms S again, p = exp2(S d^-1/2 log2 e - m), the row
+// sums, P rounded to bf16 in registers (cvt.rn.bf16x2.f32) and O += P V by
+// wgmma m64n16k16 with P as the register A operand and V read MN-major.
+// There is no online rescaling, and O is 8 fp32 registers a thread. Keys
+// past n, in the last chunk only, are masked to -inf after the product (no
+// branch around a product); rows past n are computed on zeros and not
+// stored.
+//
+// Exponentials: all on the SFU (ex2.approx.ftz). FlashAttention-4 moves a
+// share of them to the FMA pipes as a range-reduced cubic; on an H100 every
+// share tried (2, 3 and 4 of 8) was slower than none (PERF.md): without
+// Blackwell's paired FMA the cubic takes about as many issue slots of a warp
+// (8) as the SFU takes clocks for a warp's ex2 (32 lanes at 4 a clock), and
+// the softmax's other work needs those slots.
+//
+// Rounding as the other forward kernels: p rounded to bf16 before it is
+// normalised, the row sum in fp32, one division at the end.
+
+constexpr int kRsWG = 2;                    // consumer warpgroups, 64 query rows each
+constexpr int kRsRows = 64 * kRsWG;         // query rows per block
+constexpr int kRsKeys = 128;                // keys per chunk: one S = Q K^T product
+constexpr int kRsMaxChunks = 24;            // at most 3,072 keys resident (192 KB of K and V)
+constexpr int kRsChunk = kRsKeys * 32;      // bytes of a K or V chunk: 128 rows of 16 bf16
+constexpr int kRsQTile = kRsRows * 32;      // bytes of a block's Q tile
+constexpr int kRsThreads = 128 * kRsWG;
+
+inline int rs_smem(int chunks) { return 1024 + kRsQTile + 2 * chunks * kRsChunk; }
+
+// Keys valid.. of a 128-key S tile in registers (the accumulator layout
+// below) to -inf. Called for the last chunk only, behind a uniform branch:
+// a compare and a select per element in every chunk kept the ALU pipe,
+// not the SFU, the limit.
+__device__ __forceinline__ void mask_keys(float (&s)[64], int valid, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (8 * j + 2 * t + (i & 1) >= valid) s[4 * j + i] = -INFINITY;
+}
+
+// grid: (ceil(n / kRsRows), bh); dynamic shared memory rs_smem(ceil(n / 128)).
+__global__ void __launch_bounds__(kRsThreads, 2)
+    flash_fwd_resident_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                              const __grid_constant__ CUtensorMap tmap_k,
+                              const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out, int n,
+                              int d, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nchunks = (n + kRsKeys - 1) / kRsKeys;
+  unsigned char* sk = sq + kRsQTile;          // nchunks chunks
+  unsigned char* sv = sk + nchunks * kRsChunk;  // nchunks chunks
+  __shared__ __align__(8) uint64_t q_full, k_full[kRsMaxChunks], v_full[kRsMaxChunks];
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRsRows;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int c = 0; c < nchunks; ++c) hopper::mbar_init(&k_full[c], 1), hopper::mbar_init(&v_full[c], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // every load at once: K first, which pass 1 reads
+    hopper::mbar_expect_tx(&q_full, kRsQTile);
+    hopper::tma_load_3d(sq, &tmap_q, &q_full, 0, q0, bh);
+    for (int c = 0; c < nchunks; ++c) {
+      hopper::mbar_expect_tx(&k_full[c], kRsChunk);
+      hopper::tma_load_3d(sk + c * kRsChunk, &tmap_k, &k_full[c], 0, c * kRsKeys, bh);
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      hopper::mbar_expect_tx(&v_full[c], kRsChunk);
+      hopper::tma_load_3d(sv + c * kRsChunk, &tmap_v, &v_full[c], 0, c * kRsKeys, bh);
+    }
+  }
+  // broadcast, so that ptxas sees the warpgroup index as warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint64_t dq = hopper::desc_sw32(sq + wg * (kRsQTile / kRsWG), 16, 256);
+  // Accumulator layout (column block j of 8): s[4j], s[4j+1] at row 16 warp
+  // + g, columns 8j + 2t, +1; s[4j+2], s[4j+3] at row + 8; o alike.
+  float s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  hopper::mbar_wait(&q_full, 0);
+
+  // pass 1: the row maxima of S over every key
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+  for (int c = 0; c < nchunks; ++c) {
+    hopper::mbar_wait(&k_full[c], 0);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n128k16_ss(s, dq, hopper::desc_sw32(sk + c * kRsChunk, 16, 256), 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    const int valid = n - c * kRsKeys;
+    if (valid < kRsKeys) mask_keys(s, valid, t);  // the last, ragged chunk only
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+  const float m0 = quad_max(mx0) * scale_log2, m1 = quad_max(mx1) * scale_log2;
+
+  // pass 2: p, the row sums and O += P V
+  float o[8], l0 = 0.f, l1 = 0.f;
+  uint32_t p[8][4];  // P in bf16, the A fragments of the chunk's 8 key steps of 16
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    hopper::mbar_wait(&v_full[c], 0);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n128k16_ss(s, dq, hopper::desc_sw32(sk + c * kRsChunk, 16, 256), 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    const int valid = n - c * kRsKeys;
+    if (valid < kRsKeys) mask_keys(s, valid, t);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = fa_exp2(fmaf(s[4 * j + i], scale_log2, i < 2 ? -m0 : -m1));
+      l0 += e[0] + e[1];
+      l1 += e[2] + e[3];
+      p[j / 2][(j % 2) * 2] = pack_bf16(e[0], e[1]);
+      p[j / 2][(j % 2) * 2 + 1] = pack_bf16(e[2], e[3]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)  // V MN-major: 16 keys = 512 bytes
+      hopper::wgmma_m64n16k16_rs(o, p[kk], hopper::desc_sw32(sv + c * kRsChunk + kk * 512, kRsChunk, 256), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hopper::fence_regs(p[i]);
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+  bf16* ob = out + (long long)bh * n * d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col < d) {
+      if (r0 < n) *reinterpret_cast<uint32_t*>(ob + (long long)r0 * d + col) = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      if (r1 < n) *reinterpret_cast<uint32_t*>(ob + (long long)r1 * d + col) = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    }
+  }
+}
+
+// The resident kernel on contiguous (bh, n, d) q, k, v, out, d in {8, 16},
+// 16-byte aligned, n <= kRsMaxChunks * 128.
+cudaError_t launch_resident(const void* q, const void* k, const void* v, void* out, int bh, int n, int d,
+                            cudaStream_t stream) {
+  const int chunks = (n + kRsKeys - 1) / kRsKeys;
+  if ((d != 8 && d != 16) || chunks > kRsMaxChunks) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  // 16-element boxes of 32-byte rows: at d = 8 the columns past d arrive as zeros
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint32_t box[3] = {16, (cuuint32_t)(i ? kRsKeys : kRsRows), 1};
+    const cudaError_t e = hopper::make_tmap_bf16(&maps[i], ptrs[i], 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B);
+    if (e != cudaSuccess) return e;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_resident_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, rs_smem(kRsMaxChunks));
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + kBlock - 1) / kBlock, bh);
-  flash_fwd_kernel<D, false><<<grid, kThreads, kSmem, stream>>>(a);
+  const dim3 grid((n + kRsRows - 1) / kRsRows, bh);
+  flash_fwd_resident_kernel<<<grid, kRsThreads, rs_smem(chunks), stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), n, d, 1.4426950408889634f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const AttnArgs& a, int bh, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<16>(a, bh, s);
-    case 64: return launch<64>(a, bh, s);
-    case 72: return launch<72>(a, bh, s);
+// Throughput probes for the bound of the kernels above: each thread runs
+// `iters` rounds of 8 independent chains of one operation, so the unit that
+// executes it is the limit. kOp 0: ex2.approx.ftz.f32 (SFU); kOp 1: the bf16
+// packing cvt.rn.bf16x2.f32 (F2FP), each beside one fp32 add and one integer
+// operation.
+template <int kOp>
+__global__ void __launch_bounds__(256) rate_kernel(float* out, int iters) {
+  float x[8];
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = -1e-3f * (threadIdx.x + j);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kOp == 0) {
+        x[j] = fa_exp2(-x[j]);
+      } else {
+        acc += pack_bf16(x[j], x[(j + 1) % 8]);
+        x[j] = __fadd_rn(x[j], 1.f);
+      }
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += x[j];
+  out[blockIdx.x * 256 + threadIdx.x] = sum + (float)acc;
+}
+
+template <int DK>
+cudaError_t launch(const AttnArgs& a, int bh, cudaStream_t stream) {
+  constexpr int kSmem = Shape<DK>::kSmemBytes;
+  // Dynamic shared memory above 48 KB needs an opt-in, which CUDA keeps per
+  // device: set it at every launch (cheap) so any card the caller picks has it.
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<DK, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + kBlock - 1) / kBlock, bh);
+  flash_fwd_kernel<DK, false><<<grid, kThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+#define LDMAE_HEAD_CLASSES(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+// The mma.sync core at the class of a.d.
+cudaError_t dispatch(const AttnArgs& a, int bh, cudaStream_t s) {
+  switch (head_class(a.d)) {
+#define LDMAE_CASE(DK) \
+  case DK: return launch<DK>(a, bh, s);
+    LDMAE_HEAD_CLASSES(LDMAE_CASE)
+#undef LDMAE_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Contiguous (bh, n, d) operands: one "head" per batch index.
-Operand contiguous(const void* p, int n, int d) {
-  return Operand{static_cast<const bf16*>(p), (long long)n * d, 0, d};
+AttnArgs make_args(Operand q, Operand k, Operand v, Operand o, int heads, int n, int d, int vec) {
+  AttnArgs a{};
+  a.q = q, a.k = k, a.v = v, a.o = o;
+  a.heads = heads, a.n = n, a.d = d, a.vec = vec;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)d);
+  return a;
 }
 
-AttnArgs contiguous_args(const void* q, const void* k, const void* v, void* out, int n, int d) {
-  return AttnArgs{contiguous(q, n, d), contiguous(k, n, d), contiguous(v, n, d),
-                  contiguous(out, n, d), 1, n, 1.4426950408889634f / sqrtf((float)d)};
-}
-
-template <int kLanes>
-void norm_rope_launch(const NormRopeArgs& a, bool norm, cudaStream_t s) {
-  const dim3 grid((unsigned)((a.rows + 256 / kLanes - 1) / (256 / kLanes)), 2);
-  if (norm) norm_rope_kernel<true, kLanes><<<grid, 256, 0, s>>>(a);
-  else norm_rope_kernel<false, kLanes><<<grid, 256, 0, s>>>(a);
-}
-
-cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
-  const int lanes = a.d / 8;  // lanes a row needs: 4 columns of each half per lane
-  if (a.d % 8 != 0 || lanes > 16) return cudaErrorInvalidValue;
-  if (lanes <= 8) norm_rope_launch<8>(a, norm, s);  // d <= 64
-  else norm_rope_launch<16>(a, norm, s);            // d = 72
-  return cudaGetLastError();
+AttnArgs contiguous_args(const void* q, const void* k, const void* v, void* out, int n, int d, int vec) {
+  using attn::contiguous;
+  return make_args(contiguous<bf16>(q, n, d), contiguous<bf16>(k, n, d), contiguous<bf16>(v, n, d),
+                   contiguous<bf16>(out, n, d), 1, n, d, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -763,9 +949,10 @@ cudaError_t norm_rope(const NormRopeArgs& a, bool norm, cudaStream_t s) {
 // d operations once, dq summed across key-tile blocks by atomic adds; a
 // postprocess kernel scales dq (and applies the RoPE Jacobian) into bf16.
 //
-// d = 16 (VMAE) and 72 (DiT XL), three passes on mma.sync (this section),
+// Every other head dim (1 <= d <= 128, in the classes of the forward core:
+// VMAE d = 8 to 80, DiT XL 72), three passes on mma.sync (this section),
 // deterministic (no atomics):
-//   1. statistics: the forward kernel (flash_fwd_kernel<D, true>) recomputes
+//   1. statistics: the forward kernel (flash_fwd_kernel<DK, true>) recomputes
 //      the softmax row maximum and denominator as lse, and delta = rowsum(g *
 //      o) = rowsum(dp * p), with o the fp32 output normalised by the fp32 row
 //      sum; o itself is not written;
@@ -799,34 +986,33 @@ struct BwdArgs {
   const float *lse, *delta;   // (bh, npad) from the statistics pass
   bf16 *dq, *dk, *dv;         // (bh, n, d) contiguous, written
   const float *cos, *sin;     // (n, d) fp32 half-split tables (kRope only)
-  int n, npad;
+  int n, npad, d, vec;
   float scale_log2, scale;
 };
 
-template <int D>
+template <int DK>
 struct BwdShape {
-  static constexpr int kT = kBlock * Shape<D>::kLd;  // elements of one bf16 tile
-  static constexpr int kSt = Shape<D>::kDK + 4;       // fp32 staging row stride
+  static constexpr int kT = kBlock * Shape<DK>::kLd;  // elements of one bf16 tile
+  static constexpr int kSt = DK + 4;                   // fp32 staging row stride
   // six bf16 tiles + lse and delta, two buffers of 64 each
   static constexpr int kSmemBytes = 6 * kT * 2 + 4 * kBlock * 4;
   static_assert(kBlock * kSt * 4 <= 4 * kT * 2, "the staging tile fits in four streamed tiles");
 };
 
-// The 64 x kDK fp32 accumulator of a block (warp w holds rows 16w..16w+15 in
+// The 64 x DK fp32 accumulator of a block (warp w holds rows 16w..16w+15 in
 // the mma C layout) times `mul`, written as bf16 to rows row0.. (< n) of out
-// (row stride D) through the staging tile st, which may alias tiles the
+// (row stride d) through the staging tile st, which may alias tiles the
 // block has finished reading. With kRope, the transposed RoPE Jacobian at
 // each row's position, in the TPU kernel's fp32 op order. Every thread of
 // the block calls it.
-template <int D, bool kRope>
-__device__ __forceinline__ void store_rows(const float (&acc)[Shape<D>::kDK / 8][4], float mul,
-                                           float* st, bf16* out, int row0, int n,
-                                           const float* cos, const float* sin) {
-  constexpr int kSt = BwdShape<D>::kSt, half = D / 2;
+template <int DK, bool kRope>
+__device__ __forceinline__ void store_rows(const float (&acc)[DK / 8][4], float mul, float* st, bf16* out,
+                                           int row0, int n, int d, const float* cos, const float* sin) {
+  constexpr int kSt = BwdShape<DK>::kSt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   __syncthreads();  // every warp is done with the tiles st aliases
 #pragma unroll
-  for (int i = 0; i < Shape<D>::kDK / 8; ++i) {
+  for (int i = 0; i < DK / 8; ++i) {
     float* s0 = st + (warp * 16 + g) * kSt + i * 8 + 2 * t;
     s0[0] = acc[i][0] * mul;
     s0[1] = acc[i][1] * mul;
@@ -834,45 +1020,37 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Shape<D>::kDK / 8]
     s0[8 * kSt + 1] = acc[i][3] * mul;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, row = row0 + r;
+  for (int idx = threadIdx.x; idx < kBlock * d; idx += kThreads) {
+    const int r = idx / d, c = idx % d, row = row0 + r;
     if (row >= n) continue;
     const float* sr = st + r * kSt;
-    float y = sr[c];
-    if (kRope) {
-      const float* cs = cos + (size_t)row * D;
-      const float* sn = sin + (size_t)row * D;
-      const float rt = c < half ? __fmul_rn(sr[c + half], sn[c + half])
-                                : -__fmul_rn(sr[c - half], sn[c - half]);
-      y = __fadd_rn(__fmul_rn(y, cs[c]), rt);
-    }
-    out[(size_t)row * D + c] = __float2bfloat16_rn(y);
+    const float y = kRope ? attn::rope_transpose(sr, c, d, cos + (size_t)row * d, sin + (size_t)row * d) : sr[c];
+    out[(size_t)row * d + c] = __float2bfloat16_rn(y);
   }
 }
 
-// A fragments (16 rows x kDK) of this warp's rows of a row-major tile.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[Shape<D>::kDK / 16][4], const bf16* tile) {
+// A fragments (16 rows x DK) of this warp's rows of a row-major tile.
+template <int DK>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[DK / 16][4], const bf16* tile) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int kk = 0; kk < Shape<D>::kDK / 16; ++kk)
+  for (int kk = 0; kk < DK / 16; ++kk)
     ldsm_x4(f[kk][0], f[kk][1], f[kk][2], f[kk][3],
-            smem_addr(tile + (warp * 16 + (lane & 15)) * Shape<D>::kLd + kk * 16 + (lane >> 4) * 8));
+            smem_addr(tile + (warp * 16 + (lane & 15)) * Shape<DK>::kLd + kk * 16 + (lane >> 4) * 8));
 }
 
-// c[8][4] += A (16 x kDK fragments) times the transpose of a 64-row tile:
+// c[8][4] += A (16 x DK fragments) times the transpose of a 64-row tile:
 // the B operand is the tile's rows (n index) over its columns (k index).
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[Shape<D>::kDK / 16][4],
-                                        const bf16* tile) {
+template <int DK>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[DK / 16][4], const bf16* tile) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int kk = 0; kk < Shape<D>::kDK / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       uint32_t b0, b1, b2, b3;
       ldsm_x4(b0, b1, b2, b3,
-              smem_addr(tile + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * Shape<D>::kLd + kk * 16 +
+              smem_addr(tile + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * Shape<DK>::kLd + kk * 16 +
                         ((lane >> 3) & 1) * 8));
       mma_bf16_16816(c[2 * p], a[kk], b0, b1);
       mma_bf16_16816(c[2 * p + 1], a[kk], b2, b3);
@@ -880,39 +1058,29 @@ __device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[Sh
   }
 }
 
-// c[kDK/8][4] += A (16 x 64, four k-steps of packed bf16) times a 64-row
+// c[DK/8][4] += A (16 x 64, four k-steps of packed bf16) times a 64-row
 // tile read as the B operand (its rows are the k index), transposed on the
 // way by ldmatrix.
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&c)[Shape<D>::kDK / 8][4], const uint32_t (&a)[4][4],
-                                       const bf16* tile) {
+template <int DK>
+__device__ __forceinline__ void mma_ab(float (&c)[DK / 8][4], const uint32_t (&a)[4][4], const bf16* tile) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int p = 0; p < Shape<D>::kDK / 16; ++p) {
+    for (int p = 0; p < DK / 16; ++p) {
       uint32_t b0, b1, b2, b3;
       ldsm_x4_trans(b0, b1, b2, b3,
-                    smem_addr(tile + (j * 16 + (lane & 15)) * Shape<D>::kLd + p * 16 + (lane >> 4) * 8));
+                    smem_addr(tile + (j * 16 + (lane & 15)) * Shape<DK>::kLd + p * 16 + (lane >> 4) * 8));
       mma_bf16_16816(c[2 * p], a[j], b0, b1);
       mma_bf16_16816(c[2 * p + 1], a[j], b2, b3);
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero_padding(bf16* tiles, int ntiles) {
-  constexpr int kDK = Shape<D>::kDK, kLd = Shape<D>::kLd;
-  if (kDK > D) {  // the copies write columns < D only; the padding stays zero
-    for (int i = threadIdx.x; i < ntiles * kBlock * (kDK - D); i += kThreads)
-      tiles[(i / (kDK - D)) * kLd + D + i % (kDK - D)] = __float2bfloat16_rn(0.f);
-  }
-}
-
 // grid: (ceil(n / 64) key tiles, bh).
-template <int D, bool kRope>
+template <int DK, bool kRope>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs a) {
-  constexpr int kOBlocks = Shape<D>::kDK / 8, kT = BwdShape<D>::kT;
+  constexpr int kOBlocks = DK / 8, kT = BwdShape<DK>::kT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);
   bf16* sv = sk + kT;
@@ -921,8 +1089,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs 
   float* sl = reinterpret_cast<float*>(sg + 2 * kT);  // lse, two buffers of 64
   float* sd = sl + 2 * kBlock;                         // delta, two buffers of 64
 
-  const int n = a.n;
-  const long long off = (long long)blockIdx.y * n * D;
+  const int n = a.n, d = a.d, vec = a.vec;
+  const long long off = (long long)blockIdx.y * n * d;
   const bf16* q = a.q + off;
   const bf16* go = a.g + off;
   const float* lse = a.lse + (long long)blockIdx.y * a.npad;
@@ -931,16 +1099,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs 
   const int t = threadIdx.x % 4;
   const int ntiles = (n + kBlock - 1) / kBlock;
 
-  zero_padding<D>(sk, 6);
-  load_tile_async<D>(sk, a.k + off + (long long)k0 * D, D, n - k0);
-  load_tile_async<D>(sv, a.v + off + (long long)k0 * D, D, n - k0);
+  zero_padding<DK>(sk, 6, d);
+  load_tile_async<DK>(sk, a.k + off + (long long)k0 * d, d, n - k0, d, vec);
+  load_tile_async<DK>(sv, a.v + off + (long long)k0 * d, d, n - k0, d, vec);
   cp_async_commit();
   // q, g, lse and delta of query tile `it` into buffer `buf` (lse and delta
   // rows < npad are all written by the statistics pass)
   auto load_query_tile = [&](int it, int buf) {
     const int q0 = it * kBlock;
-    load_tile_async<D>(sq + buf * kT, q + (long long)q0 * D, D, n - q0);
-    load_tile_async<D>(sg + buf * kT, go + (long long)q0 * D, D, n - q0);
+    load_tile_async<DK>(sq + buf * kT, q + (long long)q0 * d, d, n - q0, d, vec);
+    load_tile_async<DK>(sg + buf * kT, go + (long long)q0 * d, d, n - q0, d, vec);
     for (int i = threadIdx.x; i < 2 * (kBlock / 4); i += kThreads) {
       const int which = i / (kBlock / 4), c = (i % (kBlock / 4)) * 4;
       cp_async16((which ? sd : sl) + buf * kBlock + c, (which ? delta : lse) + q0 + c);
@@ -951,9 +1119,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs 
   cp_async_wait<1>();  // the K and V tiles
   __syncthreads();
 
-  uint32_t kf[Shape<D>::kDK / 16][4], vf[Shape<D>::kDK / 16][4];
-  load_a_frags<D>(kf, sk);
-  load_a_frags<D>(vf, sv);
+  uint32_t kf[DK / 16][4], vf[DK / 16][4];
+  load_a_frags<DK>(kf, sk);
+  load_a_frags<DK>(vf, sv);
   float dk[kOBlocks][4], dv[kOBlocks][4];
 #pragma unroll
   for (int i = 0; i < kOBlocks; ++i)
@@ -980,8 +1148,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs 
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    mma_abt<D>(s, kf, qt);
-    mma_abt<D>(dp, vf, gt);
+    mma_abt<DK>(s, kf, qt);
+    mma_abt<DK>(dp, vf, gt);
 
     // P^T = exp2(S^T scale - lse) and dS^T = P^T (dP^T - delta), as bf16 A
     // operands; queries past n contribute nothing
@@ -1001,27 +1169,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdArgs 
       df[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
       df[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    mma_ab<D>(dv, pf, gt);  // dV += P^T G
-    mma_ab<D>(dk, df, qt);  // dK += dS^T Q
+    mma_ab<DK>(dv, pf, gt);  // dV += P^T G
+    mma_ab<DK>(dk, df, qt);  // dK += dS^T Q
     __syncthreads();  // this tile's buffers are consumed before they are refilled
   }
   float* st = reinterpret_cast<float*>(sq);
-  store_rows<D, kRope>(dk, a.scale, st, a.dk + off, k0, n, a.cos, a.sin);
-  store_rows<D, false>(dv, 1.f, st, a.dv + off, k0, n, nullptr, nullptr);
+  store_rows<DK, kRope>(dk, a.scale, st, a.dk + off, k0, n, d, a.cos, a.sin);
+  store_rows<DK, false>(dv, 1.f, st, a.dv + off, k0, n, d, nullptr, nullptr);
 }
 
 // grid: (ceil(n / 64) query tiles, bh).
-template <int D, bool kRope>
+template <int DK, bool kRope>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int kOBlocks = Shape<D>::kDK / 8, kT = BwdShape<D>::kT;
+  constexpr int kOBlocks = DK / 8, kT = BwdShape<DK>::kT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* sg = sq + kT;
   bf16* sk = sg + kT;      // two buffers
   bf16* sv = sk + 2 * kT;  // two buffers
 
-  const int n = a.n;
-  const long long off = (long long)blockIdx.y * n * D;
+  const int n = a.n, d = a.d, vec = a.vec;
+  const long long off = (long long)blockIdx.y * n * d;
   const bf16* k = a.k + off;
   const bf16* v = a.v + off;
   const int q0 = blockIdx.x * kBlock;
@@ -1029,19 +1197,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
   const int g = lane / 4, t = lane % 4;
   const int ntiles = (n + kBlock - 1) / kBlock;
 
-  zero_padding<D>(sq, 6);
-  load_tile_async<D>(sq, a.q + off + (long long)q0 * D, D, n - q0);
-  load_tile_async<D>(sg, a.g + off + (long long)q0 * D, D, n - q0);
+  zero_padding<DK>(sq, 6, d);
+  load_tile_async<DK>(sq, a.q + off + (long long)q0 * d, d, n - q0, d, vec);
+  load_tile_async<DK>(sg, a.g + off + (long long)q0 * d, d, n - q0, d, vec);
   cp_async_commit();
-  load_tile_async<D>(sk, k, D, n);
-  load_tile_async<D>(sv, v, D, n);
+  load_tile_async<DK>(sk, k, d, n, d, vec);
+  load_tile_async<DK>(sv, v, d, n, d, vec);
   cp_async_commit();
   cp_async_wait<1>();  // the q and g tiles
   __syncthreads();
 
-  uint32_t qf[Shape<D>::kDK / 16][4], gf[Shape<D>::kDK / 16][4];
-  load_a_frags<D>(qf, sq);
-  load_a_frags<D>(gf, sg);
+  uint32_t qf[DK / 16][4], gf[DK / 16][4];
+  load_a_frags<DK>(qf, sq);
+  load_a_frags<DK>(gf, sg);
   const long long srow = (long long)blockIdx.y * a.npad + q0 + warp * 16 + g;  // rows < npad
   const float lse0 = a.lse[srow], lse1 = a.lse[srow + 8];
   const float del0 = a.delta[srow], del1 = a.delta[srow + 8];
@@ -1055,8 +1223,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
     const bf16* vt = sv + (it & 1) * kT;
     if (it + 1 < ntiles) {
       const long long next = kv0 + kBlock;
-      load_tile_async<D>(sk + ((it + 1) & 1) * kT, k + next * D, D, n - kv0 - kBlock);
-      load_tile_async<D>(sv + ((it + 1) & 1) * kT, v + next * D, D, n - kv0 - kBlock);
+      load_tile_async<DK>(sk + ((it + 1) & 1) * kT, k + next * d, d, n - kv0 - kBlock, d, vec);
+      load_tile_async<DK>(sv + ((it + 1) & 1) * kT, v + next * d, d, n - kv0 - kBlock, d, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1070,8 +1238,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    mma_abt<D>(s, qf, kt);
-    mma_abt<D>(dp, gf, vt);
+    mma_abt<DK>(s, qf, kt);
+    mma_abt<DK>(dp, gf, vt);
 
     // dS = P (dP - delta), keys past n masked
     const int valid = n - kv0;
@@ -1088,10 +1256,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
       df[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
       df[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    mma_ab<D>(dq, df, kt);  // dQ += dS K
+    mma_ab<DK>(dq, df, kt);  // dQ += dS K
     __syncthreads();
   }
-  store_rows<D, kRope>(dq, a.scale, reinterpret_cast<float*>(sk), a.dq + off, q0, n, a.cos, a.sin);
+  store_rows<DK, kRope>(dq, a.scale, reinterpret_cast<float*>(sk), a.dq + off, q0, n, d, a.cos, a.sin);
 }
 
 template <typename K>
@@ -1099,28 +1267,29 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, bool kRope>
+template <int DK, bool kRope>
 cudaError_t bwd_launch(const AttnArgs& stats, const BwdArgs& b, int bh, cudaStream_t s) {
   const dim3 grid((b.n + kBlock - 1) / kBlock, bh);
-  constexpr int kFwd = Shape<D>::kSmemBytes, kBwd = BwdShape<D>::kSmemBytes;
-  cudaError_t e = set_smem(flash_fwd_kernel<D, true>, kFwd);
+  constexpr int kFwd = Shape<DK>::kSmemBytes, kBwd = BwdShape<DK>::kSmemBytes;
+  cudaError_t e = set_smem(flash_fwd_kernel<DK, true>, kFwd);
   if (e != cudaSuccess) return e;
-  flash_fwd_kernel<D, true><<<grid, kThreads, kFwd, s>>>(stats);
+  flash_fwd_kernel<DK, true><<<grid, kThreads, kFwd, s>>>(stats);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = set_smem(flash_bwd_dkdv_kernel<D, kRope>, kBwd)) != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<D, kRope><<<grid, kThreads, kBwd, s>>>(b);
+  if ((e = set_smem(flash_bwd_dkdv_kernel<DK, kRope>, kBwd)) != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<DK, kRope><<<grid, kThreads, kBwd, s>>>(b);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = set_smem(flash_bwd_dq_kernel<D, kRope>, kBwd)) != cudaSuccess) return e;
-  flash_bwd_dq_kernel<D, kRope><<<grid, kThreads, kBwd, s>>>(b);
+  if ((e = set_smem(flash_bwd_dq_kernel<DK, kRope>, kBwd)) != cudaSuccess) return e;
+  flash_bwd_dq_kernel<DK, kRope><<<grid, kThreads, kBwd, s>>>(b);
   return cudaGetLastError();
 }
 
-// d = 64 runs the single pass (backward64 below) instead
 template <bool kRope>
-cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return bwd_launch<16, kRope>(stats, b, bh, s);
-    case 72: return bwd_launch<72, kRope>(stats, b, bh, s);
+cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, cudaStream_t s) {
+  switch (head_class(b.d)) {
+#define LDMAE_CASE(DK) \
+  case DK: return bwd_launch<DK, kRope>(stats, b, bh, s);
+    LDMAE_HEAD_CLASSES(LDMAE_CASE)
+#undef LDMAE_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1129,18 +1298,18 @@ cudaError_t bwd_dispatch(const AttnArgs& stats, const BwdArgs& b, int bh, int d,
 template <bool kRope>
 cudaError_t backward3(const void* q, const void* k, const void* v, const void* g, const float* cos,
                       const float* sin, void* dq, void* dk, void* dv, float* lse, float* delta,
-                      int bh, int n, int d, cudaStream_t s) {
+                      int bh, int n, int d, int vec, cudaStream_t s) {
   const int npad = (n + kBlock - 1) / kBlock * kBlock;
-  AttnArgs stats = contiguous_args(q, k, v, nullptr, n, d);
-  stats.g = contiguous(g, n, d);
+  AttnArgs stats = contiguous_args(q, k, v, nullptr, n, d, vec);
+  stats.g = attn::contiguous<bf16>(g, n, d);
   stats.lse = lse;
   stats.delta = delta;
   stats.npad = npad;
   const BwdArgs b{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                  cos, sin, n, npad, stats.scale_log2, 1.f / sqrtf((float)d)};
-  return bwd_dispatch<kRope>(stats, b, bh, d, s);
+                  cos, sin, n, npad, d, vec, stats.scale_log2, 1.f / sqrtf((float)d)};
+  return bwd_dispatch<kRope>(stats, b, bh, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1571,32 +1740,51 @@ cudaError_t backward64(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// The backward on contiguous (bh, n, d) operands: the single pass at d = 64,
-// the three passes at the other head dims (o, lse_fwd, dq_acc unused there).
+// The backward on contiguous (bh, n, d) operands: the single pass at d = 64
+// with 16-byte aligned rows, the three passes otherwise (o, lse_fwd, dq_acc
+// unused there).
 template <bool kRope>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const void* o,
                      const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
-                     void* dv, float* lse, float* delta, float* dq_acc, int bh, int n, int d,
+                     void* dv, float* lse, float* delta, float* dq_acc, int bh, int n, int d, int vec,
                      cudaStream_t s) {
-  if (d == 64)
+  if (d == 64 && vec == 8)
     return backward64<kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
-  return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, s);
+  return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, vec, s);
+}
+
+NormRopeArgs rope_args(const void* q, const void* k, const float* w_q, const float* w_k, const float* cos,
+                       const float* sin, void* qr, void* kr, int bh, int n, int d, float eps) {
+  using attn::contiguous;
+  return NormRopeArgs{{contiguous<bf16>(q, n, d), contiguous<bf16>(k, n, d)},
+                      {contiguous<bf16>(qr, n, d), contiguous<bf16>(kr, n, d)},
+                      {w_q, w_k}, cos, sin, (long long)bh * n, 1, n, d, eps};
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (bh, n, d) bf16; lse: null, or at d = 64 the
-// (bh, n) fp32 log2 softmax denominators the backward takes (written). d =
-// 64 (DiT B, 1p0B, 1p6B) runs the wgmma kernel; the other head dims the
-// mma.sync core (d = 16, VMAE; d = 72, DiT XL: a 144-byte row is no 128-byte
-// swizzle row, and Q K^T would need d padded to 80). Returns the CUDA error
-// of the launch (0 on success).
+// q, k, v, out: contiguous (bh, n, d) bf16, 1 <= d <= 128; vec: the
+// elements (8, 4, 2 or 1) every pointer and row is aligned to; lse: null,
+// or at d = 64 with vec = 8 the (bh, n) fp32 log2 softmax denominators the
+// backward takes (written). By shape: d = 64, vec = 8 runs the wgmma kernel
+// (DiT B, 1p0B, 1p6B), every other shape the mma.sync core. Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                         float* lse, int bh, int n, int d, void* stream) {
+                                         float* lse, int bh, int n, int d, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return static_cast<int>(launch_wgmma(q, k, v, out, lse, bh, n, s));
+  if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64 && vec == 8) return static_cast<int>(launch_wgmma(q, k, v, out, lse, bh, n, s));
   if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(contiguous_args(q, k, v, out, n, d), bh, d, s));
+  return static_cast<int>(dispatch(contiguous_args(q, k, v, out, n, d, vec), bh, s));
+}
+
+// The resident kernel (no lse): q, k, v, out contiguous (bh, n, d) bf16, d
+// = 8 or 16, 16-byte aligned, n <= 3,072; flash_attention picks it for those
+// shapes when no gradient is recorded (ops/flash_attention.py). Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int ldmae_flash_attention_resident_fwd(const void* q, const void* k, const void* v, void* out,
+                                                  int bh, int n, int d, void* stream) {
+  return static_cast<int>(launch_resident(q, k, v, out, bh, n, d, static_cast<cudaStream_t>(stream)));
 }
 
 // As above with half-split RoPE: cos, sin are contiguous (n, d) fp32 tables;
@@ -1604,14 +1792,12 @@ extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const voi
 extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, const void* v,
                                               const float* cos, const float* sin, void* qr,
                                               void* kr, void* out, float* lse, int bh, int n, int d,
-                                              void* stream) {
+                                              int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
-                 {contiguous(qr, n, d), contiguous(kr, n, d)},
-                 {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
-  const cudaError_t e = norm_rope(a, false, s);
+  const cudaError_t e =
+      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return ldmae_flash_attention_fwd(qr, kr, v, out, lse, bh, n, d, stream);
+  return ldmae_flash_attention_fwd(qr, kr, v, out, lse, bh, n, d, vec, stream);
 }
 
 // As flash_attention_rope with the per-head RMS qk-norm first: qw, kw are
@@ -1620,50 +1806,47 @@ extern "C" int ldmae_flash_attention_qknorm_rope_fwd(const void* q, const void* 
                                                      const float* qw, const float* kw,
                                                      const float* cos, const float* sin, void* qr,
                                                      void* kr, void* out, int bh, int n, int d,
-                                                     float eps, void* stream) {
+                                                     int vec, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
-                 {contiguous(qr, n, d), contiguous(kr, n, d)},
-                 {qw, kw}, cos, sin, (long long)bh * n, 1, n, d, eps};
-  const cudaError_t e = norm_rope(a, true, s);
+  const cudaError_t e = attn::norm_rope(rope_args(q, k, qw, kw, cos, sin, qr, kr, bh, n, d, eps), true, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d), bh, d, s));
+  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d, vec), bh, s));
 }
 
 // RoPE + attention in the (b, n, h * d) layout: q, k, v rows of token t are
 // at q + (bi * n + t) * q_rs (element row strides; v typically a view of the
 // packed qkv), head hi at + hi * d. qr, kr (scratch) and out are contiguous
-// (b, n, h * d). cos, sin: contiguous (n, d) fp32.
+// (b, n, h * d). cos, sin: contiguous (n, d) fp32. vec: as for the others,
+// over every pointer and row stride.
 extern "C" int ldmae_flash_attention_fused_rope_fwd(
     const void* q, const void* k, const void* v, const float* cos, const float* sin, void* qr,
     void* kr, void* out, int b, int h, int n, int d, long long q_rs, long long k_rs,
-    long long v_rs, void* stream) {
+    long long v_rs, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long hd = (long long)h * d;
   auto rows = [&](const void* p, long long rs) {
     return Operand{static_cast<const bf16*>(p), n * rs, d, static_cast<int>(rs)};
   };
-  NormRopeArgs a{{rows(q, q_rs), rows(k, k_rs)},
-                 {rows(qr, hd), rows(kr, hd)},
-                 {nullptr, nullptr}, cos, sin, (long long)b * h * n, h, n, d, 0.f};
-  const cudaError_t e = norm_rope(a, false, s);
+  const NormRopeArgs a{{rows(q, q_rs), rows(k, k_rs)},
+                       {rows(qr, hd), rows(kr, hd)},
+                       {nullptr, nullptr}, cos, sin, (long long)b * h * n, h, n, d, 0.f};
+  const cudaError_t e = attn::norm_rope(a, false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const AttnArgs args{rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n,
-                      1.4426950408889634f / sqrtf((float)d)};
-  return static_cast<int>(dispatch(args, b * h, d, s));
+  return static_cast<int>(dispatch(make_args(rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n, d, vec),
+                                   b * h, s));
 }
 
 // Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
 // contiguous (bh, n, d) bf16; dq, dk, dv written likewise; lse, delta are
 // (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64. At d
-// = 64, o is the forward's output, lse_fwd its (bh, n) lse, and dq_acc
-// (bh, npad, 64) fp32 scratch; the other head dims ignore the three.
+// = 64 with vec = 8, o is the forward's output, lse_fwd its (bh, n) lse, and
+// dq_acc (bh, npad, 64) fp32 scratch; the other shapes ignore the three.
 extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                          const void* o, const float* lse_fwd, void* dq, void* dk,
                                          void* dv, float* lse, float* delta, float* dq_acc, int bh,
-                                         int n, int d, void* stream) {
+                                         int n, int d, int vec, void* stream) {
   return static_cast<int>(backward<false>(q, k, v, g, o, lse_fwd, nullptr, nullptr, dq, dk, dv, lse,
-                                          delta, dq_acc, bh, n, d, static_cast<cudaStream_t>(stream)));
+                                          delta, dq_acc, bh, n, d, vec, static_cast<cudaStream_t>(stream)));
 }
 
 // Backward of ldmae_flash_attention_rope_fwd: as above with the (n, d) fp32
@@ -1674,13 +1857,21 @@ extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, cons
                                               const void* g, const void* o, const float* lse_fwd,
                                               const float* cos, const float* sin, void* qr, void* kr,
                                               void* dq, void* dk, void* dv, float* lse, float* delta,
-                                              float* dq_acc, int bh, int n, int d, void* stream) {
+                                              float* dq_acc, int bh, int n, int d, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  NormRopeArgs a{{contiguous(q, n, d), contiguous(k, n, d)},
-                 {contiguous(qr, n, d), contiguous(kr, n, d)},
-                 {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
-  const cudaError_t e = norm_rope(a, false, s);
+  const cudaError_t e =
+      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(backward<true>(qr, kr, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta,
-                                         dq_acc, bh, n, d, s));
+                                         dq_acc, bh, n, d, vec, s));
+}
+
+// Throughput of the SFU's ex2 (which = 0) or of the bf16 packing F2FP
+// (which = 1): `blocks` blocks of 256 threads, each `iters` rounds of 8
+// operations; out (blocks * 256 floats) is written.
+extern "C" int ldmae_rate_probe(float* out, int which, int blocks, int iters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which == 0) rate_kernel<0><<<blocks, 256, 0, s>>>(out, iters);
+  else rate_kernel<1><<<blocks, 256, 0, s>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
 }

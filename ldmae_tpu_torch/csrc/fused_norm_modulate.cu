@@ -18,13 +18,24 @@
 // scale are read once per warp and held in registers as bf16; a first
 // version that re-read fp32 copies (12 bytes per element, three times x's
 // bytes) from L1 for every row ran at a third of the bandwidth bound.
-#include "common.cuh"
+// fp32 x (the configs' other compute dtype) runs the same kernel with the
+// element type a template parameter: the roundings to x's dtype vanish, the
+// weight, shift and scale are fp32, and they are read from L1 for each row
+// rather than held in registers (a row of up to 2,048 fp32 values already
+// takes 64 registers a lane).
+#include <type_traits>
+
+#include "attention_common.cuh"
 
 namespace {
 
+using attn::from_float;
+using attn::round_to;
+using attn::to_float;
+
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 4;
-constexpr int kMaxVec = 8;  // 16-byte vectors per lane: D <= 8 * 8 * 32 = 2048
+constexpr int kMaxElems = 64;  // elements of a row per lane: D <= 64 * 32 = 2048
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -32,54 +43,56 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// kVec: 16-byte vectors of the row per lane (D = kVec * 256 at most).
-template <int kVec>
+// kVec: 16-byte vectors of the row per lane (kE elements each: 8 bf16, 4 fp32).
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-    norm_modulate_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                         const bf16* __restrict__ shift, const bf16* __restrict__ scale,
-                         long long shift_stride, long long scale_stride, bf16* __restrict__ out,
+    norm_modulate_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                         const T* __restrict__ shift, const T* __restrict__ scale,
+                         long long shift_stride, long long scale_stride, T* __restrict__ out,
                          int rows, int n, int d, int layer, float eps) {
+  constexpr int kE = 16 / sizeof(T);
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const int lane = threadIdx.x % 32;
   const int row0 = (blockIdx.x * kWarps + threadIdx.x / 32) * kRowsPerWarp;
-  const int nvec = d / 8;
-  // bf16(w), bf16(1 + scale[b]) and shift[b] for this lane's columns, kept
-  // as bf16 (half the registers)
-  bf16 wv[kVec][8], onep[kVec][8], shv[kVec][8];
+  const int nvec = d / kE;
+  // bf16: bf16(w), bf16(1 + scale[b]) and shift[b] for this lane's columns,
+  // kept as bf16 (half the registers)
+  bf16 wv[kBf16 ? kVec : 1][kE], onep[kBf16 ? kVec : 1][kE], shv[kBf16 ? kVec : 1][kE];
   int b_loaded = -1;
 
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
     if (row >= rows) return;
     const int b = row / n;
-    if (b != b_loaded) {
-      const bf16* sh = shift + b * shift_stride;
-      const bf16* sc = scale + b * scale_stride;
+    const T* sh = shift + b * shift_stride;
+    const T* sc = scale + b * scale_stride;
+    if (kBf16 && b != b_loaded) {
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const int c0 = (lane + i * 32) * 8;
+      for (int i = 0; i < (kBf16 ? kVec : 1); ++i) {
+        const int c0 = (lane + i * 32) * kE;
         if (c0 >= d) continue;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kE; ++j) {
           wv[i][j] = __float2bfloat16_rn(layer ? 1.f : w[c0 + j]);
-          onep[i][j] = __float2bfloat16_rn(1.f + __bfloat162float(sc[c0 + j]));
-          shv[i][j] = sh[c0 + j];
+          onep[i][j] = __float2bfloat16_rn(1.f + to_float(sc[c0 + j]));
+          shv[i][j] = __float2bfloat16_rn(to_float(sh[c0 + j]));
         }
       }
       b_loaded = b;
     }
 
-    const bf16* xr = x + (size_t)row * d;
-    float xv[kVec][8];
+    const T* xr = x + (size_t)row * d;
+    float xv[kVec][kE];
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const int vi = lane + i * 32;
       if (vi < nvec) {
-        const uint4 u = *reinterpret_cast<const uint4*>(xr + vi * 8);
-        const bf16* e = reinterpret_cast<const bf16*>(&u);
+        const uint4 u = *reinterpret_cast<const uint4*>(xr + vi * kE);
+        const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          xv[i][j] = __bfloat162float(e[j]);
+        for (int j = 0; j < kE; ++j) {
+          xv[i][j] = to_float(e[j]);
           sum += layer ? xv[i][j] : xv[i][j] * xv[i][j];
         }
       }
@@ -92,7 +105,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int i = 0; i < kVec; ++i) {
         if (lane + i * 32 < nvec) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kE; ++j) {
             xv[i][j] -= mean;
             sq += xv[i][j] * xv[i][j];
           }
@@ -107,54 +120,67 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int i = 0; i < kVec; ++i) {
       const int vi = lane + i * 32;
       if (vi >= nvec) continue;
-      uint32_t packed[4];
+      alignas(16) T y[kE];
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        float y[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = round_bf16(xv[i][j + h] * rs);
-          if (!layer) v = round_bf16(v * __bfloat162float(wv[i][j + h]));
-          y[h] = round_bf16(v * __bfloat162float(onep[i][j + h])) +
-                 __bfloat162float(shv[i][j + h]);
+      for (int j = 0; j < kE; ++j) {
+        const int c = vi * kE + j;
+        float v = round_to<T>(xv[i][j] * rs);
+        if (kBf16) {
+          if (!layer) v = round_bf16(v * __bfloat162float(wv[i][j]));
+          y[j] = __float2bfloat16_rn(round_bf16(v * __bfloat162float(onep[i][j])) +
+                                     __bfloat162float(shv[i][j]));
+        } else {
+          if (!layer) v = __fmul_rn(v, w[c]);
+          y[j] = from_float<T>(__fadd_rn(__fmul_rn(v, __fadd_rn(1.f, to_float(sc[c]))), to_float(sh[c])));
         }
-        packed[j / 2] = pack_bf16(y[0], y[1]);
       }
-      *reinterpret_cast<uint4*>(out + (size_t)row * d + vi * 8) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      *reinterpret_cast<uint4*>(out + (size_t)row * d + vi * kE) = *reinterpret_cast<const uint4*>(y);
     }
   }
 }
 
-}  // namespace
-
-// x, out: contiguous (b, n, d) bf16 with d % 8 == 0 and d <= 2048; w: (d,)
-// fp32 (unused, may be null, when layer != 0); shift, scale: (b, d) bf16
-// with unit column stride, row i at shift + i * shift_stride (in elements).
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int ldmae_fused_norm_modulate(const void* x, const float* w, const void* shift,
-                                         const void* scale, long long shift_stride,
-                                         long long scale_stride, void* out, int b, int n, int d,
-                                         int layer, float eps, void* stream) {
-  if (d % 8 != 0 || d > kMaxVec * 8 * 32) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+cudaError_t launch(const void* x, const float* w, const void* shift, const void* scale, long long shift_stride,
+                   long long scale_stride, void* out, int b, int n, int d, int layer, float eps,
+                   cudaStream_t s) {
+  constexpr int kE = 16 / sizeof(T);
+  if (d % kE != 0 || d > kMaxElems * 32) return cudaErrorInvalidValue;
   const int rows = b * n;
   const int per_block = kWarps * kRowsPerWarp;
   const dim3 grid((rows + per_block - 1) / per_block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* ob = static_cast<bf16*>(out);
-  const bf16* shb = static_cast<const bf16*>(shift);
-  const bf16* scb = static_cast<const bf16*>(scale);
-  switch ((d / 8 + 31) / 32) {
-#define LDMAE_CASE(V)                                                                       \
-  case V:                                                                                   \
-    norm_modulate_kernel<V><<<grid, kWarps * 32, 0, s>>>(xb, w, shb, scb, shift_stride,     \
-                                                         scale_stride, ob, rows, n, d, layer, \
-                                                         eps);                               \
+  const T* xb = static_cast<const T*>(x);
+  T* ob = static_cast<T*>(out);
+  const T* shb = static_cast<const T*>(shift);
+  const T* scb = static_cast<const T*>(scale);
+  switch ((d / kE + 31) / 32) {
+#define LDMAE_CASE(V)                                                                             \
+  case V:                                                                                         \
+    if (V * kE <= kMaxElems)                                                                      \
+      norm_modulate_kernel<T, (V * kE <= kMaxElems ? V : 1)><<<grid, kWarps * 32, 0, s>>>(         \
+          xb, w, shb, scb, shift_stride, scale_stride, ob, rows, n, d, layer, eps);               \
     break;
-    LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4)
-    LDMAE_CASE(5) LDMAE_CASE(6) LDMAE_CASE(7) LDMAE_CASE(8)
+    LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4) LDMAE_CASE(5) LDMAE_CASE(6)
+    LDMAE_CASE(7) LDMAE_CASE(8) LDMAE_CASE(9) LDMAE_CASE(10) LDMAE_CASE(11) LDMAE_CASE(12)
+    LDMAE_CASE(13) LDMAE_CASE(14) LDMAE_CASE(15) LDMAE_CASE(16)
 #undef LDMAE_CASE
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, out: contiguous (b, n, d), bf16 (fp32 != 0: fp32), with d a multiple of
+// 8 (fp32: 4) and d <= 2048; w: (d,) fp32 (unused, may be null, when layer
+// != 0); shift, scale: (b, d) in x's dtype with unit column stride, row i at
+// shift + i * shift_stride (in elements). Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int ldmae_fused_norm_modulate(const void* x, const float* w, const void* shift,
+                                         const void* scale, long long shift_stride,
+                                         long long scale_stride, void* out, int b, int n, int d,
+                                         int layer, float eps, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      fp32 ? launch<float>(x, w, shift, scale, shift_stride, scale_stride, out, b, n, d, layer, eps, s)
+           : launch<bf16>(x, w, shift, scale, shift_stride, scale_stride, out, b, n, d, layer, eps, s);
+  return static_cast<int>(e);
 }

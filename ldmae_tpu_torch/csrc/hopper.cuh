@@ -229,6 +229,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// The same for a 32-byte-swizzled tile (rows of 32 bytes, 16 bf16; the
+// 16-byte chunk c of row r stored at chunk c ^ ((r / 4) % 2), each 256-byte
+// atom of 8 rows aligned to 256 bytes): K-major, sbo = 256 between 8-row
+// groups; MN-major, sbo = 256 between 8-deep groups and lbo between
+// 16-element column blocks.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3ffffu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
 // ---- wgmma: one wrapper per shape the kernels use, every accumulator register named ----
 
 // d (+)= A * B, m64n256k16, bf16 A and B both K-major in shared memory (128-byte
@@ -302,6 +313,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A * B, m64n16k16: A (64 x 16 bf16) from registers in the mma.sync A
+// fragment layout of each warp's 16 rows, B (16 x 16) from shared memory
+// MN-major (transpose bit set), fp32 accumulator of 8 registers a thread.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (+)= A * B, m64n64k16, bf16 A and B both K-major in shared memory (128-byte
 // swizzle), fp32 accumulator of 32 registers a thread.
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
@@ -359,17 +383,18 @@ inline EncodeTiledFn encode_tiled() {
 // Tensor map of a bf16 tensor of `rank` dimensions (dims[0] innermost and
 // contiguous; strides[i] the byte stride of dimension i + 1, a multiple of
 // 16; base 16-byte aligned), copied in boxes of box[] elements (box[0] * 2 =
-// 128 bytes) into 128-byte-swizzled shared memory; elements out of bounds
-// arrive as zeros.
+// the swizzle's row, 128 bytes by default) into swizzled shared memory;
+// elements out of bounds arrive as zeros.
 inline cudaError_t make_tmap_bf16(CUtensorMap* map, const void* base, int rank,
                                   const cuuint64_t* dims, const cuuint64_t* strides,
-                                  const cuuint32_t* box) {
+                                  const cuuint32_t* box,
+                                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

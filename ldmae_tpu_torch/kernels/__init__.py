@@ -2,7 +2,8 @@
 
 Each source is compiled at first use by ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``; no PyTorch header is included,
-so a build takes seconds. Builds go to ``build/ldmae_kernels/`` beside the
+so a build takes seconds (the attention sources, with a kernel for each
+head-dim class, take longest). Builds go to ``build/ldmae_kernels/`` beside the
 package under a name keyed on a hash of the sources, the flags and the
 compiler, so a changed source rebuilds and an unchanged one loads. ``build`` compiles several sources in
 parallel, one ``nvcc`` each. Importing this module needs neither ``nvcc``
@@ -35,34 +36,40 @@ NVCC_FLAGS = [
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+# The C entries of the two attention libraries, bf16 and fp32 (the same
+# names and arguments, so the wrappers pick a library by dtype).
+_ATTENTION = {
+    "ldmae_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "ldmae_flash_attention_rope_fwd": [_P] * 9 + [_I] * 4 + [_P],
+    "ldmae_flash_attention_qknorm_rope_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "ldmae_flash_attention_fused_rope_fwd": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_I, _P],
+    "ldmae_flash_attention_bwd": [_P] * 12 + [_I] * 4 + [_P],
+    "ldmae_flash_attention_rope_bwd": [_P] * 16 + [_I] * 4 + [_P],
+}
+
 # library name -> (source, {C entry: argtypes})
 LIBRARIES = {
     "flash_attention": (
         "flash_attention.cu",
-        {
-            "ldmae_flash_attention_fwd": [_P] * 5 + [_I, _I, _I, _P],
-            "ldmae_flash_attention_rope_fwd": [_P] * 9 + [_I, _I, _I, _P],
-            "ldmae_flash_attention_qknorm_rope_fwd":
-                [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-            "ldmae_flash_attention_fused_rope_fwd":
-                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
-            "ldmae_flash_attention_bwd": [_P] * 12 + [_I, _I, _I, _P],
-            "ldmae_flash_attention_rope_bwd": [_P] * 16 + [_I, _I, _I, _P],
-        },
+        _ATTENTION | {"ldmae_flash_attention_resident_fwd": [_P] * 4 + [_I] * 3 + [_P],
+                      "ldmae_rate_probe": [_P, _I, _I, _I, _P]},
     ),
+    "flash_attention_fp32": ("flash_attention_fp32.cu", _ATTENTION),
     "fused_norm_modulate": (
         "fused_norm_modulate.cu",
-        {"ldmae_fused_norm_modulate": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _F, _P]},
+        {"ldmae_fused_norm_modulate": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _F, _I, _P]},
     ),
     "fused_matmul_silu": (
         "fused_matmul_silu.cu",
-        {"ldmae_fused_matmul_silu": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        {"ldmae_fused_matmul_silu": [_P, _P, _P, _P, _I, _I, _I, _P],
+         "ldmae_fused_matmul_silu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+         "ldmae_dense_bias_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
     ),
     "fused_quant": (
         "fused_quant.cu",
         {
-            "ldmae_fused_norm_modulate_quant": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _F, _P],
-            "ldmae_fused_silu_mul_quant": [_P, _P, _P, _L, _I, _P],
+            "ldmae_fused_norm_modulate_quant": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+            "ldmae_fused_silu_mul_quant": [_P, _P, _P, _L, _I, _I, _P],
         },
     ),
 }

@@ -17,7 +17,8 @@ KERNEL_WRAPPERS = (_fa.flash_attention_rope, _fa.flash_attention,
                    _fad.fused_norm_modulate, _fad.fused_matmul_silu,
                    _fa.flash_attention_qknorm_rope, _fa.flash_attention_fused_rope,
                    _fad.fused_norm_modulate_quant, _fad.fused_silu_mul_quant,
-                   _fa.flash_attention_bwd, _fa.flash_attention_rope_bwd)
+                   _fa.flash_attention_bwd, _fa.flash_attention_rope_bwd,
+                   _fa.flash_attention_resident)
 
 
 def reset_launch_counts() -> None:

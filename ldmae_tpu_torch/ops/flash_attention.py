@@ -32,9 +32,15 @@ wrappers are forward only (sampling), as in the JAX package, and raise when
 autograd would have to record them.
 
 A wrapper runs the plain version for CPU tensors only; for CUDA tensors it
-launches the kernel (bf16, head dim 16, 64 or 72) or raises.
-``<wrapper>.launches`` counts kernel launches. The plain versions compute
-in fp32, or in float64 for float64 inputs (``torch.autograd.gradcheck``).
+launches the kernel or raises: bf16 or fp32 (the configs' two compute
+dtypes), any head dim 1 <= d <= 128 (every arch of both registries; d > 128
+raises), any N. bf16 runs ``csrc/flash_attention.cu``, fp32
+``csrc/flash_attention_fp32.cu``; within bf16 the kernel is chosen by shape
+(see ``flash_attention`` and ``flash_attention_rope``). In fp32 the forward
+always writes lse, and the backward takes it with the output, as at d = 64
+in bf16. ``<wrapper>.launches`` counts kernel launches. The plain versions
+compute in fp32, or in float64 for float64 inputs
+(``torch.autograd.gradcheck``).
 """
 
 from __future__ import annotations
@@ -45,9 +51,12 @@ import torch
 
 from .. import kernels
 
-KERNEL_HEAD_DIMS = (16, 64, 72)  # VMAE decoder; DiT B/1 to 1p6B; DiT XL
-# the head dim of the wgmma kernels: the forward writes lse, the backward is one pass
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_HEAD_DIM = 128  # the largest head-dim class of the CUDA kernels
+# the head dim of the bf16 wgmma kernels: the forward writes lse, the backward is one pass
 WGMMA_HEAD_DIM = 64
+# the resident forward (``flash_attention_resident``): bf16, these head dims, N keys at most
+RESIDENT_HEAD_DIMS, RESIDENT_MAX_N = (8, 16), 3072
 _TILE = 64  # rows of a kernel tile; the backward's row statistics are padded to it
 
 
@@ -74,10 +83,11 @@ def _rotate_fp32(xf: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
 
 def _rope_transpose(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """The transposed half-split RoPE Jacobian, y cos + [(y sin)_2 | -(y sin)_1],
-    in y's dtype, in the TPU backward's op order."""
-    half = y.shape[-1] // 2
+    in y's dtype, in the TPU backward's op order. (For an odd head dim the
+    halves are (d - d//2) and d//2 wide, the transpose of ``_rotate_fp32``.)"""
+    h1 = y.shape[-1] - y.shape[-1] // 2
     sy = y * sin.to(y.dtype)
-    return y * cos.to(y.dtype) + torch.cat([sy[..., half:], -sy[..., :half]], dim=-1)
+    return y * cos.to(y.dtype) + torch.cat([sy[..., h1:], -sy[..., :h1]], dim=-1)
 
 
 def _qknorm_rope_fp32(x, w, cos, sin, eps: float = 1e-6) -> torch.Tensor:
@@ -156,19 +166,62 @@ def flash_attention_rope_bwd_plain(
             dv.to(v.dtype))
 
 
+def flash_attention_resident_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The resident kernel's arithmetic in plain PyTorch (for the tests):
+    pass 1 the row maxima of the fp32 logits, pass 2 p = 2^(s d^-1/2 log2 e
+    - m), the fp32 row sums, p rounded to bf16, P.V in fp32 and one division
+    and rounding at the end."""
+    d = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    m = s.amax(-1, keepdim=True) * scale_log2
+    e = torch.exp2(s * scale_log2 - m)
+    out = torch.matmul(e.to(torch.bfloat16).float(), v.float()) / e.sum(-1, keepdim=True)
+    return out.to(q.dtype)
+
+
+def _vec(d: int, *tensors, strides=()) -> int:
+    """Elements (at most 16 bytes' worth) that d, every pointer and every
+    given stride are multiples of: how wide the kernels may copy a row."""
+    size = tensors[0].element_size()
+    vec = 16 // size
+    while vec > 1 and (d % vec or any(t.data_ptr() % (vec * size) for t in tensors)
+                       or any(st % vec for st in strides)):
+        vec //= 2
+    return vec
+
+
+def _lib(dtype: torch.dtype):
+    return kernels.load("flash_attention" if dtype == torch.bfloat16 else "flash_attention_fp32")
+
+
+def _uses_lse(dtype: torch.dtype, d: int, vec: int) -> bool:
+    """Whether the CUDA backward takes the forward's output and lse (one
+    pass at bf16 d = 64, and every fp32 backward) instead of recomputing the
+    row statistics (the bf16 three passes)."""
+    return dtype == torch.float32 or (d == WGMMA_HEAD_DIM and vec == 8)
+
+
 def _check_head_dim(what: str, b: int, h: int, d: int) -> None:
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} is not in 1..{MAX_HEAD_DIM}")
     if b * h > 65535:
         raise ValueError(f"{what}: batch*heads {b * h} exceeds the grid limit 65535")
 
 
+def _check_dtype(what: str, dtype: torch.dtype) -> None:
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the CUDA kernels take bf16 or fp32, got {dtype}")
+
+
 def _check_bhnd(what: str, **operands) -> tuple[int, int, int, int]:
-    """Contiguous bf16 (B, H, N, d) operands of one shape on one device."""
+    """Contiguous bf16 or fp32 (B, H, N, d) operands of one shape and dtype
+    on one device."""
     ref = next(iter(operands.values()))
+    _check_dtype(what, ref.dtype)
     for name, t in operands.items():
-        if t.device != ref.device or t.dtype != torch.bfloat16 or t.shape != ref.shape:
-            raise ValueError(f"{what}: {name} must be a bf16 {tuple(ref.shape)} tensor on {ref.device}")
+        if t.device != ref.device or t.dtype != ref.dtype or t.shape != ref.shape:
+            raise ValueError(f"{what}: {name} must be a {ref.dtype} {tuple(ref.shape)} tensor on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if ref.dim() != 4:
@@ -189,27 +242,28 @@ def _tables(cos, sin, n: int, d: int, device, what: str):
 def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None, with_lse=False):
     """Contiguous (B, H, N, d) operands: plain attention, with RoPE, or with
     the RMS qk-norm and RoPE. Returns the output or, with ``with_lse``
-    (not for the qk-norm), (output, lse): lse (B, H, N) fp32 at head dim 64,
-    None at the others."""
+    (not for the qk-norm), (output, lse): lse (B, H, N) fp32 where the
+    backward takes it (``_uses_lse``), else None."""
     b, h, n, d = _check_bhnd(what, q=q, k=k, v=v)
     out = torch.empty_like(q)
+    vec = _vec(d, q, k, v, out)
     lse = None
-    if with_lse and d == WGMMA_HEAD_DIM:
+    if with_lse and _uses_lse(q.dtype, d, vec):
         lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
     lse_ptr = None if lse is None else lse.data_ptr()
-    lib = kernels.load("flash_attention")
+    lib = _lib(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if cos is None:
             err = lib.ldmae_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, vec, stream)
         else:
             cos, sin = _tables(cos, sin, n, d, q.device, what)
             qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
             if q_scale is None:
                 err = lib.ldmae_flash_attention_rope_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                    qr.data_ptr(), kr.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, stream)
+                    qr.data_ptr(), kr.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, vec, stream)
             else:
                 qw, kw = (t.to(device=q.device, dtype=torch.float32).contiguous()
                           for t in (q_scale, k_scale))
@@ -218,21 +272,23 @@ def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None, 
                 err = lib.ldmae_flash_attention_qknorm_rope_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw.data_ptr(),
                     cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
-                    b * h, n, d, 1e-6, stream)
+                    b * h, n, d, vec, 1e-6, stream)
     kernels.check(err, what)
     return (out, lse) if with_lse else out
 
 
 def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
     """The backward on contiguous (B, H, N, d) operands; with cos, sin the
-    RoPE variant. At head dim 64 it is one pass that takes the forward's
-    output and lse; without them it first runs the forward kernel (through
-    the library, so ``<wrapper>.launches`` does not count it). Returns
-    (dq, dk, dv)."""
+    RoPE variant. Where it takes the forward's output and lse
+    (``_uses_lse``) and either is missing, it first runs the forward kernel
+    (through the library, so ``<wrapper>.launches`` does not count it).
+    Returns (dq, dk, dv)."""
     b, h, n, d = _check_bhnd(what, q=q, k=k, v=v, g=g)
     npad = -(-n // _TILE) * _TILE
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    vec = _vec(d, q, k, v, g, dq, dk, dv)
     dq_acc = None
-    if d != WGMMA_HEAD_DIM:  # the three passes recompute the row statistics
+    if not _uses_lse(q.dtype, d, vec):  # the three passes recompute the row statistics
         out = lse = None
     else:
         if out is None or lse is None:
@@ -240,30 +296,63 @@ def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
         _check_bhnd(what, q=q, out=out)
         if (lse.device, lse.dtype, lse.shape) != (q.device, torch.float32, (b, h, n)) or not lse.is_contiguous():
             raise ValueError(f"{what}: lse must be a contiguous fp32 {(b, h, n)} tensor on {q.device}")
-        # dq summed in fp32 over the key tiles (scratch)
-        dq_acc = torch.empty(b * h, npad, d, device=q.device, dtype=torch.float32)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if q.dtype == torch.bfloat16:  # dq summed in fp32 over the key tiles (scratch)
+            dq_acc = torch.empty(b * h, npad, d, device=q.device, dtype=torch.float32)
     # per query row: the softmax's log2 denominator and rowsum(g * o), padded (scratch)
     lse_pad = torch.empty(b * h, npad, device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse_pad)
     ptrs = [None if t is None else t.data_ptr() for t in (out, lse)]
     scratch = [lse_pad.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr()]
     grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
-    lib = kernels.load("flash_attention")
+    lib = _lib(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if cos is None:
             err = lib.ldmae_flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, *grads, *scratch,
-                b * h, n, d, stream)
+                b * h, n, d, vec, stream)
         else:
             cos, sin = _tables(cos, sin, n, d, q.device, what)
             qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
             err = lib.ldmae_flash_attention_rope_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, cos.data_ptr(),
-                sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), *grads, *scratch, b * h, n, d, stream)
+                sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), *grads, *scratch, b * h, n, d, vec, stream)
     kernels.check(err, what)
     return dq, dk, dv
+
+
+def _resident_fits(q, k, v) -> bool:
+    """Whether the resident kernel takes these contiguous (B, H, N, d) operands."""
+    n, d = q.shape[-2:]
+    return (q.dtype == torch.bfloat16 and d in RESIDENT_HEAD_DIMS and n <= RESIDENT_MAX_N
+            and _vec(d, q, k, v) == 8)
+
+
+def flash_attention_resident(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward of ``flash_attention`` by the resident kernel
+    (``flash_fwd_resident_kernel``: K and V of a head in shared memory, an
+    exact two-pass softmax): bf16, d = 8 or 16, N <= RESIDENT_MAX_N, 16-byte
+    aligned, forward only. ``flash_attention`` calls it for those shapes
+    when no gradient is recorded; ``launches`` counts its launches."""
+    _forward_only("flash_attention_resident", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    b, h, n, d = _check_bhnd("flash_attention_resident", q=q, k=k, v=v)
+    if not _resident_fits(q, k, v):
+        raise ValueError("flash_attention_resident: takes 16-byte aligned bf16 operands at d = 8 or 16, "
+                         f"N <= {RESIDENT_MAX_N}; got {q.dtype} {tuple(q.shape)}")
+    out = torch.empty_like(q)
+    lib = kernels.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.ldmae_flash_attention_resident_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, d,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash_attention_resident")
+    flash_attention_resident.launches += 1
+    return out
+
+
+flash_attention_resident.launches = 0
 
 
 def _flash_attention_fwd(q, k, v, with_lse=False):
@@ -271,6 +360,8 @@ def _flash_attention_fwd(q, k, v, with_lse=False):
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v)
         return (out, flash_attention_lse_plain(q, k)) if with_lse else out
+    if not with_lse and _resident_fits(q, k, v):
+        return flash_attention_resident(q, k, v)
     res = _launch(q, k, v, "flash_attention", with_lse=with_lse)
     flash_attention.launches += 1
     return res
@@ -281,10 +372,11 @@ def flash_attention_bwd(
     out: torch.Tensor | None = None, lse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient g. out and
-    lse, the forward's output and lse, are what the CUDA kernel takes at head
-    dim 64; when either is missing (a standalone call) the forward kernel is
-    first run through the library, uncounted. The plain version (CPU) needs
-    neither."""
+    lse, the forward's output and lse, are what the CUDA kernel takes in
+    bf16 at head dim 64 (one pass) and in fp32; when either is missing (a
+    standalone call) the forward kernel is first run through the library,
+    uncounted. The bf16 three passes at the other head dims and the plain
+    version (CPU) need neither."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g)
     res = _launch_bwd(q, k, v, g, "flash_attention_bwd", out=out, lse=lse)
@@ -343,11 +435,20 @@ class _FlashAttentionRope(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T d^-1/2) v for (B, H, N, d) operands, any N;
-    differentiable in q, k and v. ``launches`` counts the forward kernel. At
-    d = 64 the CUDA forward and backward are the wgmma kernels (see
-    ``flash_attention_rope``); at d = 16 (VMAE) and 72 the ``mma.sync`` core
-    and the three-pass backward."""
+    """softmax(q k^T d^-1/2) v for (B, H, N, d) operands, any N, d <= 128;
+    differentiable in q, k and v. The CUDA kernel is chosen by shape:
+
+    * bf16, d = 8 or 16 (VMAE), N <= RESIDENT_MAX_N, 16-byte aligned, no
+      gradient recorded: ``flash_attention_resident`` (which counts it);
+    * bf16, d = 64, 16-byte aligned: the wgmma forward ``flash_fwd_wgmma_kernel``
+      (see ``flash_attention_rope``) and the single-pass backward;
+    * every other bf16 shape (VMAE d = 8 to 80 under autograd or past
+      RESIDENT_MAX_N, DiT XL 72): the ``mma.sync`` core and the three-pass
+      backward;
+    * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``).
+
+    ``launches`` counts the forward launches but the resident kernel's
+    (``flash_attention_resident.launches``)."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     return _flash_attention_fwd(q, k, v)
@@ -375,13 +476,13 @@ def flash_attention_rope(
     (the JAX package's ``flash_attention_rope_trainable``); ``launches``
     counts the forward kernel.
 
-    The CUDA forward picks its attention kernel by head dim, as
-    ``flash_attention`` does: d = 64 (DiT B, 1p0B, 1p6B) runs the wgmma/TMA
-    kernel ``flash_fwd_wgmma_kernel`` (which also writes lse for the
-    backward), and the backward is the single-pass ``flash_bwd_wgmma_kernel``;
-    d = 72 (DiT XL) runs the ``mma.sync`` core that the other attention
-    kernels share, because a 144-byte row is no 128-byte TMA swizzle row and
-    Q K^T would need d padded to 80, and the three-pass backward."""
+    The CUDA forward picks its attention kernel by shape: bf16 at d = 64
+    (DiT B, 1p0B, 1p6B) with 16-byte aligned rows runs the wgmma/TMA kernel
+    ``flash_fwd_wgmma_kernel`` (which also writes lse for the backward), and
+    the backward is the single-pass ``flash_bwd_wgmma_kernel``; every other
+    bf16 head dim d <= 128 (DiT XL 72: a 144-byte row is no 128-byte TMA
+    swizzle row) runs the ``mma.sync`` core that the other attention kernels
+    share, and the three-pass backward; fp32 runs the fp32 kernels."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
     return _flash_attention_rope_fwd(q, k, v, cos, sin)
@@ -424,8 +525,6 @@ def _row_stride(t: torch.Tensor, what: str, name: str) -> int:
     b, n, h, d = t.shape
     if t.stride(3) != 1 or t.stride(2) != d or t.stride(0) != n * t.stride(1):
         raise ValueError(f"{what}: {name} must have (B, N, H*d) rows, got strides {t.stride()}")
-    if t.stride(1) % 8 or t.data_ptr() % 16:
-        raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
     return t.stride(1)
 
 
@@ -442,20 +541,22 @@ def flash_attention_fused_rope(
         return flash_attention_fused_rope_plain(q, k, v, cos, sin)
     if q.dim() != 4:
         raise ValueError(f"{what}: expected (B, N, H, d), got {tuple(q.shape)}")
+    _check_dtype(what, q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or t.shape != q.shape:
-            raise ValueError(f"{what}: {name} must be a bf16 {tuple(q.shape)} tensor on {q.device}")
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{what}: {name} must be a {q.dtype} {tuple(q.shape)} tensor on {q.device}")
     b, n, h, d = q.shape
     _check_head_dim(what, b, h, d)
     strides = [_row_stride(t, what, name) for name, t in (("q", q), ("k", k), ("v", v))]
     cos, sin = _tables(cos, sin, n, d, q.device, what)
     out = torch.empty(b, n, h, d, device=q.device, dtype=q.dtype)
     qr, kr = torch.empty_like(out), torch.empty_like(out)  # rotated q, k (scratch)
-    lib = kernels.load("flash_attention")
+    vec = _vec(d, q, k, v, out, strides=strides)
+    lib = _lib(q.dtype)
     with torch.cuda.device(q.device):
         err = lib.ldmae_flash_attention_fused_rope_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            qr.data_ptr(), kr.data_ptr(), out.data_ptr(), b, h, n, d, *strides,
+            qr.data_ptr(), kr.data_ptr(), out.data_ptr(), b, h, n, d, *strides, vec,
             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, what)
     flash_attention_fused_rope.launches += 1

@@ -10,7 +10,12 @@ quantizing kernels of the w8a8 leg, ``fused_norm_modulate_quant``
 the JAX package's custom VJP is (``fused_norm_modulate_bwd``: plain PyTorch
 ops); the others are forward only (sampling). A wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel or
-raises. ``<wrapper>.launches`` counts kernel launches.
+raises. The kernels take bf16 or fp32 (the configs' two compute dtypes);
+fp32 runs the same kernels with the element type a template parameter,
+except ``fused_matmul_silu``, whose fp32 kernel is a plain SIMT GEMM (the
+tensor cores take no fp32). Rows of D <= MAX_WIDTH elements, D a multiple
+of 8 (bf16) or 4 (fp32): every width of the DiT registry (64 to 1,792).
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,6 +26,18 @@ import torch
 
 from .. import kernels
 from .flash_attention import _acc
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_WIDTH = 2048  # row elements the norm kernels hold in registers (64 a lane)
+
+
+def _check_rows(what: str, x: torch.Tensor, d: int) -> None:
+    """x of a kernel dtype, its rows of d elements as the kernels take them."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the CUDA kernels take bf16 or fp32, got {x.dtype}")
+    unit = 16 // x.element_size()
+    if d % unit or d > MAX_WIDTH:
+        raise ValueError(f"{what}: D={d} must be a multiple of {unit} and <= {MAX_WIDTH} for {x.dtype}")
 
 
 def fused_norm_modulate_plain(
@@ -125,17 +142,16 @@ def fused_norm_modulate(
 def _fused_norm_modulate_fwd(x, weight, shift, scale, *, kind: str, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_norm_modulate_plain(x, weight, shift, scale, kind=kind, eps=eps)
-    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("fused_norm_modulate: x must be a contiguous bf16 (B, N, D) tensor")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused_norm_modulate: x must be a contiguous (B, N, D) tensor")
     b, n, d = x.shape
-    if d % 8 or d > 2048:
-        raise ValueError(f"fused_norm_modulate: D={d} must be a multiple of 8 and <= 2048")
+    _check_rows("fused_norm_modulate", x, d)
     if shift.shape != (b, d) or scale.shape != (b, d):
         raise ValueError(f"fused_norm_modulate: shift/scale must be ({b}, {d})")
-    # The kernel reads shift and scale as bf16 rows (as the adaLN projection
-    # writes them, a row stride apart); a cast here is the one rounding the
-    # TPU kernel does to x's dtype.
-    shift, scale = (t.to(device=x.device, dtype=torch.bfloat16) for t in (shift, scale))
+    # The kernel reads shift and scale as rows of x's dtype (as the adaLN
+    # projection writes them, a row stride apart); a cast here is the one
+    # rounding the TPU kernel does to x's dtype.
+    shift, scale = (t.to(device=x.device, dtype=x.dtype) for t in (shift, scale))
     shift, scale = (t if t.stride(-1) == 1 else t.contiguous() for t in (shift, scale))
     f32 = dict(device=x.device, dtype=torch.float32)
     w = None
@@ -147,7 +163,8 @@ def _fused_norm_modulate_fwd(x, weight, shift, scale, *, kind: str, eps: float) 
         err = lib.ldmae_fused_norm_modulate(
             x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
             scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(), b, n, d,
-            int(kind == "layer"), eps, torch.cuda.current_stream(x.device).cuda_stream,
+            int(kind == "layer"), eps, int(x.dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(err, "fused_norm_modulate")
     fused_norm_modulate.launches += 1
@@ -176,7 +193,8 @@ def fused_matmul_silu(
     x: (..., D); w12: (2H, D), the reference's packed ``w12`` weight; b12:
     (2H,) or None. Returns (..., H), or None when the shape gate of the TPU
     kernel fails (M % 128, D % 128 and 2H % 256 must all be 0), in which
-    case the caller runs the unfused path."""
+    case the caller runs the unfused path. bf16 runs the wgmma kernel, fp32
+    the SIMT one (``matmul_silu_f32_kernel``)."""
     d = x.shape[-1]
     m = x.numel() // d
     h2 = w12.shape[0]
@@ -184,19 +202,20 @@ def fused_matmul_silu(
         return None
     if x.device.type == "cpu":
         return fused_matmul_silu_plain(x, w12, b12)
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("fused_matmul_silu: x must be a contiguous bf16 tensor")
+    if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
+        raise ValueError("fused_matmul_silu: x must be a contiguous bf16 or fp32 tensor")
     if w12.shape != (h2, d):
         raise ValueError(f"fused_matmul_silu: w12 must be (2H, {d}), got {tuple(w12.shape)}")
-    w = w12.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    w = w12.to(device=x.device, dtype=x.dtype).contiguous()
     bias = (
         torch.zeros(h2, device=x.device, dtype=torch.float32) if b12 is None
         else b12.to(device=x.device, dtype=torch.float32).contiguous()
     )
     out = torch.empty(*x.shape[:-1], h2 // 2, device=x.device, dtype=x.dtype)
     lib = kernels.load("fused_matmul_silu")
+    entry = lib.ldmae_fused_matmul_silu if x.dtype == torch.bfloat16 else lib.ldmae_fused_matmul_silu_f32
     with torch.cuda.device(x.device):
-        err = lib.ldmae_fused_matmul_silu(
+        err = entry(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -256,16 +275,16 @@ def fused_norm_modulate_quant(
         raise ValueError(f"unknown norm kind {kind!r}")
     if x.device.type == "cpu":
         return fused_norm_modulate_quant_plain(x, weight, shift, scale, kind=kind, eps=eps)
-    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("fused_norm_modulate_quant: x must be a contiguous bf16 (B, N, D) tensor")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused_norm_modulate_quant: x must be a contiguous (B, N, D) tensor")
     b, n, d = x.shape
-    if d % 8 or d > 2048:
-        raise ValueError(f"fused_norm_modulate_quant: D={d} must be a multiple of 8 and <= 2048")
+    _check_rows("fused_norm_modulate_quant", x, d)
     for name, t in (("shift", shift), ("scale", scale)):
-        # read in place as bf16 rows a row stride apart; fp32 values would
-        # need a rounding the TPU kernel does not make
-        if t.shape != (b, d) or t.dtype != torch.bfloat16 or t.device != x.device or t.stride(-1) != 1:
-            raise ValueError(f"fused_norm_modulate_quant: {name} must be bf16 ({b}, {d}) rows "
+        # read in place as rows of x's dtype a row stride apart (as the adaLN
+        # projection writes them); a cast would be a rounding the TPU kernel
+        # does not make
+        if t.shape != (b, d) or t.dtype != x.dtype or t.device != x.device or t.stride(-1) != 1:
+            raise ValueError(f"fused_norm_modulate_quant: {name} must be {x.dtype} ({b}, {d}) rows "
                              f"with unit column stride on {x.device}")
     w = None
     if kind == "rms" and weight is not None:
@@ -277,7 +296,7 @@ def fused_norm_modulate_quant(
         err = lib.ldmae_fused_norm_modulate_quant(
             x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
             scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(),
-            scales.data_ptr(), b, n, d, int(kind == "layer"), eps,
+            scales.data_ptr(), b, n, d, int(kind == "layer"), eps, int(x.dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(err, "fused_norm_modulate_quant")
@@ -302,8 +321,8 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     channels). Returns (int8 (..., H), fp32 row scales (..., 1))."""
     if x12.device.type == "cpu":
         return fused_silu_mul_quant_plain(x12)
-    if x12.dtype != torch.bfloat16 or not x12.is_contiguous():
-        raise ValueError("fused_silu_mul_quant: x12 must be a contiguous bf16 tensor")
+    if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous() or x12.data_ptr() % 16:
+        raise ValueError("fused_silu_mul_quant: x12 must be a contiguous, 16-byte aligned bf16 or fp32 tensor")
     h = x12.shape[-1] // 2
     if x12.shape[-1] % 16 or h > 8192:
         raise ValueError(f"fused_silu_mul_quant: 2H={x12.shape[-1]} must be a multiple of 16 and <= 16384")
@@ -313,7 +332,7 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     lib = kernels.load("fused_quant")
     with torch.cuda.device(x12.device):
         err = lib.ldmae_fused_silu_mul_quant(
-            x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows, h,
+            x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows, h, int(x12.dtype == torch.float32),
             torch.cuda.current_stream(x12.device).cuda_stream,
         )
     kernels.check(err, "fused_silu_mul_quant")

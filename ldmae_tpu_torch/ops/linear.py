@@ -3,7 +3,8 @@
 Weights are in PyTorch's ``nn.Linear`` layout, (out, in), as the reference
 checkpoints store them. ``dense`` casts both operands to the compute dtype
 and lets the matmul accumulate in float32 (cuBLAS and oneDNN do for bf16),
-with one rounding to the compute dtype at the end.
+adds the float32 bias in float32 and rounds once to the compute dtype at
+the end.
 """
 
 from __future__ import annotations
@@ -14,8 +15,47 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from .fused_adaln import fused_matmul_silu
 from .quant import is_quantized, maybe_qdense
+
+def dense_bias_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(M, N) bf16: x (M, K) bf16 @ weight (N, K)^T bf16 with float32 sums,
+    plus bias (N,) float32 in float32, one rounding, on contiguous CUDA
+    tensors of any M, K and N: the wgmma GEMM of ``fused_matmul_silu`` with
+    an fp32-bias epilogue (``ldmae_dense_bias_f32``). A PyTorch bf16 linear
+    would round the bias to bf16 before adding it, and cuBLASLt's bias
+    epilogue takes the bias only in the output's dtype. TMA reads rows of
+    16-byte multiples from 16-byte aligned bases, so x and weight are first
+    zero-padded to a K that is a multiple of 8 where it is not (a patch
+    embedding at patch 14 has K = 588), and copied where their base is not
+    aligned; the zero columns add nothing to the sums."""
+    m, k = x.shape
+    n = weight.shape[0]
+    x, weight = (F.pad(t, (0, -k % 8)) if k % 8 or t.data_ptr() % 16 else t for t in (x, weight))
+    out = torch.empty(m, n, device=x.device, dtype=torch.bfloat16)
+    lib = kernels.load("fused_matmul_silu")
+    with torch.cuda.device(x.device):
+        err = lib.ldmae_dense_bias_f32(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), m,
+                                       x.shape[1], n, torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "dense_bias_f32")
+    return out
+
+
+class _DenseBiasF32(torch.autograd.Function):
+    """``dense_bias_f32`` with its gradients: dx = g w and dw = g^T x in bf16
+    (as a bf16 linear's backward), dbias the sum of g accumulated in float32
+    (no float32 copy of g)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return dense_bias_f32(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return g @ weight, g.t() @ x, g.sum(0, dtype=torch.float32)
 
 
 def dense(
@@ -24,15 +64,22 @@ def dense(
     bias: Optional[torch.Tensor] = None,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """x @ weight^T + bias with operands in the compute dtype, float32 sums
-    and one rounding at the end. On CUDA, cuBLAS accumulates in float32 and
-    adds the bias (in the compute dtype) in its epilogue. On the CPU the
-    product runs in float32 on the compute-dtype values with the float32
-    bias, as XLA does (a bf16 CPU matmul would round before the bias)."""
+    """x @ weight^T + bias with operands in the compute dtype, float32 sums,
+    the float32 bias added in float32 and one rounding at the end, as the
+    JAX package's dense. On CUDA in bf16 with a bias, ``dense_bias_f32``
+    (differentiable); without a bias, or in float32, cuBLAS through
+    ``F.linear``. On the CPU the product runs in
+    float32 on the compute-dtype values with the float32 bias, as XLA does
+    (a bf16 CPU matmul would round before the bias)."""
     cd = compute_dtype or x.dtype
     x, weight = x.to(cd), weight.to(cd)
-    if x.device.type == "cuda" or cd == torch.float32:
+    if cd == torch.float32 or (x.device.type != "cpu" and bias is None):
         return F.linear(x, weight, None if bias is None else bias.to(cd))
+    if x.device.type != "cpu" and cd == torch.bfloat16:
+        args = (x.reshape(-1, x.shape[-1]).contiguous(), weight.contiguous(), bias.float().contiguous())
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        out = _DenseBiasF32.apply(*args) if grad else dense_bias_f32(*args)
+        return out.view(*x.shape[:-1], weight.shape[0])
     b = None if bias is None else bias.float()
     return F.linear(x.float(), weight.float(), b).to(cd)
 

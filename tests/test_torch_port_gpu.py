@@ -23,6 +23,13 @@ from run to run: two runs' dq agree within BWD_REL_L2, dk and dv exactly.
 The forward's lse (log2 units, magnitude about log2 N plus the largest
 logit) within 1e-4 plus 1e-5 relative of the plain lse: both sum the same
 fp32 exponentials in another order, the kernel's by ex2.approx.
+
+fp32 (the configs' other compute dtype): forwards within F32_FWD (2e-5) of
+the output's largest |value| (fp32 sums in another order, exp2f), backwards
+within relative L2 F32_BWD (1e-4) per output, against the plain fp32
+versions with TF32 off. ``dense`` in bf16 with an fp32 bias: within half a
+bf16 ulp (beyond 2^-14 of the terms' magnitude, for the fp32 sums) of the
+fp64 product plus bias, where a bias rounded to bf16 first reads above.
 """
 
 import re
@@ -36,6 +43,10 @@ from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
 
 BF16_TOL = dict(rtol=2**-6, atol=2**-6)
 BWD_REL_L2, BWD_ELEM = 1e-2, 2e-2  # readings on an H100: 0.0025-0.0028 and <= 0.0065
+F32_FWD, F32_BWD = 2e-5, 1e-4
+# head dims of the registries' archs the kernels once refused (VMAE 8, 12,
+# 24, 32, 80; DiT XL 72 aside), an odd one, and the largest class
+ANY_HEAD_DIMS = [5, 8, 12, 24, 32, 36, 80, 128]
 
 
 def _attn_tol(ref):
@@ -46,6 +57,9 @@ def _attn_tol(ref):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # fp32 plain versions in full fp32 (these are PyTorch's defaults for
+    # matmuls; convolutions are not compared here)
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -115,11 +129,14 @@ def test_cuda_fused_matmul_silu_vs_plain(cuda, m, d, h2, bias):
 
 @pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    q = _bf16((1, 2, 64, 48), 0, cuda)  # head dim 48 is not instantiated
-    with pytest.raises(ValueError):
+    q = _bf16((1, 2, 64, 136), 0, cuda)  # head dim above the largest class, 128
+    with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        tfa.flash_attention(q.float(), q.float(), q.float())
+    q = _bf16((1, 2, 64, 48), 0, cuda)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tfa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tfad.fused_norm_modulate(q.half()[0], None, q.half()[0, :, 0], q.half()[0, :, 0])
 
 
 @pytest.mark.gpu
@@ -343,3 +360,214 @@ def test_cuda_fused_norm_modulate_quant_vs_plain(cuda, kind):
 def test_cuda_fused_silu_mul_quant_vs_plain(cuda, h):
     x12 = _bf16((2, 512, 2 * h), 0, cuda) * 2
     _assert_quant_close(tfad.fused_silu_mul_quant(x12), tfad.fused_silu_mul_quant_plain(x12))
+
+
+def _randn(shape, seed, device, dtype, scale=1.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dtype)
+
+
+def _assert_f32_close(out, ref, bound=F32_FWD):
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= bound, err
+
+
+def _assert_f32_bwd_close(outs, refs):
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+        rel = float((out - ref).norm() / ref.norm())
+        assert rel <= F32_BWD, (name, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_cuda_flash_attention_any_head_dim(cuda, d, dtype):
+    """The forward kernels (plain, RoPE, qk-norm + RoPE, and the fused rows)
+    at every head-dim class and an odd d, N ragged against the 64-row tile."""
+    n = 200
+    q, k, v = (_randn((2, 3, n, d), s, cuda, dtype) for s in range(3))
+    cos, sin = _rope_tables(d, n, cuda) if d % 2 == 0 else (
+        _randn((n, d), 7, cuda, torch.float32), _randn((n, d), 8, cuda, torch.float32))
+    qs, ks = (1 + 0.1 * _randn((d,), s, cuda, torch.float32) for s in (3, 4))
+    cases = [
+        (tfa.flash_attention(q, k, v), tfa.flash_attention_plain(q, k, v)),
+        (tfa.flash_attention_rope(q, k, v, cos, sin), tfa.flash_attention_rope_plain(q, k, v, cos, sin)),
+        (tfa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin),
+         tfa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)),
+    ]
+    qkv = _randn((2, n, 3, 3, d), 5, cuda, dtype)
+    qf, kf, vf = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    cases.append((tfa.flash_attention_fused_rope(qf, kf, vf, cos, sin),
+                  tfa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin)))
+    for out, ref in cases:
+        if dtype == torch.float32:
+            _assert_f32_close(out, ref)
+        else:
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_cuda_flash_attention_bwd_any_head_dim(cuda, d, dtype, rope):
+    """The backward (bf16: the three passes off d = 64; fp32: the fp32
+    kernels, given the forward's output and lse or running it first), N
+    ragged against the 64-row tile."""
+    n = 200
+    q, k, v, g = (_randn((2, 3, n, d), s, cuda, dtype) for s in range(4))
+    tables = ((_rope_tables(d, n, cuda) if d % 2 == 0 else
+               (_randn((n, d), 7, cuda, torch.float32), _randn((n, d), 8, cuda, torch.float32)))
+              if rope else ())
+    kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
+    plain = tfa.flash_attention_rope_bwd_plain if rope else tfa.flash_attention_bwd_plain
+    refs = plain(q, k, v, g, *tables)
+    outs = kernel(q, k, v, g, *tables)
+    if dtype == torch.float32:
+        _assert_f32_bwd_close(outs, refs)
+        out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
+        _assert_f32_bwd_close(kernel(q, k, v, g, *tables, out=out, lse=lse), refs)
+    else:
+        _assert_bwd_close(outs, refs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+def test_cuda_fp32_training_shape(cuda, rope):
+    """fp32 forward and backward at the DiT B/1 training shape (32, 12, 1024,
+    64), through the autograd Functions (the forward saves lse)."""
+    shape = (32, 12, 1024, 64)
+    q, k, v = (_randn(shape, s, cuda, torch.float32).requires_grad_() for s in range(3))
+    g = _randn(shape, 3, cuda, torch.float32)
+    tables = _rope_tables(64, 1024, cuda) if rope else ()
+    fwd = tfa.flash_attention_rope if rope else tfa.flash_attention
+    out = fwd(q, k, v, *tables)
+    assert out.grad_fn.saved_tensors[-1].shape == shape[:3]  # lse
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref = tfa.flash_attention_rope_plain(qd, kd, vd, *tables) if rope else tfa.flash_attention_plain(qd, kd, vd)
+    _assert_f32_close(out.detach(), ref)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    plain = tfa.flash_attention_rope_bwd_plain if rope else tfa.flash_attention_bwd_plain
+    _assert_f32_bwd_close(grads, plain(qd, kd, vd, g, *tables))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(8, 1024), (36, 1024), (2, 1025), (2, 1000), (2, 3072)])
+@pytest.mark.parametrize("d", [16, 8])
+def test_cuda_flash_attention_resident_vs_plain(cuda, b, n, d):
+    """The resident d = 16 kernel (d = 8 padded) at the VMAE shapes, ragged
+    N (a cls token, 1025; 1000) and the largest N it holds;
+    flash_attention launches it without a gradient and the mma.sync core
+    past RESIDENT_MAX_N."""
+    q, k, v = (_bf16((b, 12, n, d), s, cuda) for s in range(3))
+    ref = tfa.flash_attention_plain(q, k, v)
+    out = tfa.flash_attention_resident(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+    counts = tfa.flash_attention_resident.launches, tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v)
+    assert (tfa.flash_attention_resident.launches, tfa.flash_attention.launches) == (counts[0] + 1, counts[1])
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_past_resident_n_runs_the_core(cuda):
+    n = tfa.RESIDENT_MAX_N + 1
+    q, k, v = (_bf16((1, 2, n, 16), s, cuda) for s in range(3))
+    counts = tfa.flash_attention_resident.launches, tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v)
+    assert (tfa.flash_attention_resident.launches, tfa.flash_attention.launches) == (counts[0], counts[1] + 1)
+    ref = tfa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("d", [64, 768, 1024, 1152, 1536, 1792])  # every width of the DiT registry
+def test_cuda_fused_norm_modulate_registry_widths(cuda, d, kind):
+    """#3 and #9 at every DiT registry width, in bf16 and fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn((2, 64, d), 0, cuda, dtype, 3.0)
+        w = 1 + 0.1 * _randn((d,), 1, cuda, torch.float32)
+        ada = _randn((2, 6, d), 2, cuda, dtype, 0.1)
+        sh, sc = ada[:, 0], ada[:, 1]
+        out, ref = tfad.fused_norm_modulate(x, w, sh, sc, kind=kind), tfad.fused_norm_modulate_plain(x, w, sh, sc, kind=kind)
+        if dtype == torch.float32:
+            _assert_f32_close(out, ref)
+        else:
+            torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
+                            tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+
+
+@pytest.mark.gpu
+def test_cuda_fp32_adaln_and_mlp_kernels(cuda):
+    """#4 and #10 in fp32 at the B/1 sampling shapes (batch 8, CFG-doubled)."""
+    x = _randn((16384, 768), 0, cuda, torch.float32)
+    w12 = _randn((4096, 768), 1, cuda, torch.float32, 768**-0.5)
+    b12 = _randn((4096,), 2, cuda, torch.float32, 0.1)
+    _assert_f32_close(tfad.fused_matmul_silu(x, w12, b12), tfad.fused_matmul_silu_plain(x, w12, b12))
+    x12 = _randn((16, 1024, 4096), 3, cuda, torch.float32, 2.0)
+    _assert_quant_close(tfad.fused_silu_mul_quant(x12), tfad.fused_silu_mul_quant_plain(x12))
+
+
+def dense_ulp_error(out, x, w, b):
+    """max over the elements of (|out - exact| - 2^-14 sum |terms|) / ulp:
+    exact = x w^T + b in fp64 on the same bf16 operands and fp32 bias, sum
+    |terms| = |x| |w|^T + |b| (an allowance for the fp32 sums, which an
+    exact value near 0, whose ulp is tiny, would otherwise read as a huge
+    error), ulp the bf16 ulp of exact's binade. One rounding reads <= 0.5."""
+    exact = x.double() @ w.double().t() + b.double()
+    mag = x.double().abs() @ w.double().abs().t() + b.double().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0**-100))) - 7)
+    return float((((out.double() - exact).abs() - 2.0**-14 * mag) / ulp).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16384, 768, 2304), (16384, 768, 768), (16384, 2048, 768),
+                                   (16, 768, 4608), (16384, 768, 16), (8192, 192, 576), (8192, 16, 192),
+                                   (2048, 512, 588), (512, 588, 1280), (333, 100, 7)])
+def test_cuda_dense_fp32_bias_rounds_once(cuda, m, k, n):
+    """``dense`` in bf16 with an fp32 bias at the B/1 shapes (batch 8 under
+    CFG: qkv, proj, w3, the adaLN linear's 16 rows, the final layer's 16
+    columns), the VMAE decoder's (qkv 576 wide, from_latent's depth 16), the
+    patch-14 head's 588 columns and a patch-14 embedding's depth 588 (ragged
+    N and K), and a small odd shape:
+    the fp32 product plus the fp32 bias rounded once, within half a bf16 ulp
+    of fp64 math on the same operands (``dense_ulp_error``); the bias
+    rounded to bf16 first (a bf16 F.linear, the port's dense before) reads
+    above 0.6."""
+    from ldmae_tpu_torch.ops import dense
+    import torch.nn.functional as F
+
+    x = _bf16((m, k), 0, cuda)
+    w = (_bf16((n, k), 1, cuda).float() * k**-0.5).bfloat16()
+    b = _randn((n,), 2, cuda, torch.float32)
+    err = dense_ulp_error(dense(x, w, b), x, w, b)
+    assert err <= 0.5, err
+    assert dense_ulp_error(F.linear(x, w, b.bfloat16()), x, w, b) > 0.6
+
+
+@pytest.mark.gpu
+def test_cuda_dense_backward_vs_fp64(cuda):
+    """``dense``'s gradients in bf16 training (the autograd Function around
+    the wgmma GEMM): dx and dw as bf16 products of g (within relative L2
+    1e-2 of fp64 math on the same bf16 values), dbias the fp32 sum of g
+    (within 1e-5 relative)."""
+    from ldmae_tpu_torch.ops import dense
+
+    x = _bf16((4, 256, 768), 0, cuda).requires_grad_()
+    w = (_bf16((2304, 768), 1, cuda).float() * 768**-0.5).requires_grad_()
+    b = _randn((2304,), 2, cuda, torch.float32).requires_grad_()
+    g = _bf16((4, 256, 2304), 3, cuda)
+    out = dense(x, w, b, compute_dtype=torch.bfloat16)
+    dx, dw, db = torch.autograd.grad(out, (x, w, b), g)
+    gd, xd, wd = g.double().reshape(-1, 2304), x.detach().double().reshape(-1, 768), w.detach().bfloat16().double()
+    for got, ref in ((dx.reshape(-1, 768), gd @ wd), (dw, gd.t() @ xd)):
+        assert float((got.double() - ref).norm() / ref.norm()) <= 1e-2
+    assert db.dtype == torch.float32
+    torch.testing.assert_close(db.double(), gd.sum(0), rtol=1e-5, atol=1e-5 * float(gd.abs().sum(0).max()))

@@ -131,6 +131,47 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
             call()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_fp32_and_other_head_dims_never_run_the_plain_version_off_the_cpu(monkeypatch, dtype):
+    """The same in both kernel dtypes at head dims off the first kernels'
+    (12, 80) and for the resident d = 16 forward and the bf16 dense with an
+    fp32 bias (at a shape its wgmma kernel takes)."""
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops import linear as lin
+
+    class Launch(Exception):
+        pass
+
+    def load(name):
+        raise Launch(name)
+
+    monkeypatch.setattr(kernels, "load", load)
+    meta = dict(dtype=dtype, device="meta")
+    q12, q80 = torch.empty(1, 2, 64, 12, **meta), torch.empty(1, 2, 64, 80, **meta)
+    cos = torch.empty(64, 80, device="meta")
+    x = torch.empty(2, 128, 1152, **meta)
+    sh = torch.empty(2, 1152, **meta)
+    calls = [
+        lambda: fa.flash_attention(q12, q12, q12),
+        lambda: fa.flash_attention_rope(q80, q80, q80, cos, cos),
+        lambda: fa.flash_attention_bwd(q12, q12, q12, q12),
+        lambda: fa.flash_attention_rope_bwd(q80, q80, q80, q80, cos, cos),
+        lambda: fad.fused_norm_modulate(x, None, sh, sh),
+        lambda: fad.fused_norm_modulate_quant(x, None, sh, sh),
+        lambda: fad.fused_matmul_silu(x, torch.empty(512, 1152, device="meta"), None),
+        lambda: fad.fused_silu_mul_quant(x),
+    ]
+    if dtype == torch.bfloat16:
+        q16 = torch.empty(2, 12, 1024, 16, **meta)
+        calls += [lambda: fa.flash_attention_resident(q16, q16, q16),
+                  lambda: lin.dense(x, torch.empty(256, 1152, device="meta"), torch.empty(256, device="meta"))]
+    for call in calls:
+        with pytest.raises(Launch):
+            call()
+
+
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_forward_only_kernels_raise_under_autograd(monkeypatch, device):
     """The qk-norm and fused-layout attention kernels have no backward: with

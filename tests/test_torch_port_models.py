@@ -120,6 +120,11 @@ VMAE_VARIANTS = {
     "pred_with_conv": ("mae_for_ldmae_f8d16_prev", dict(smooth_output=True, pred_with_conv=True)),
     "linear_head_cls": ("mae_for_ldmae_f8d16_prev", dict(no_cls=False, ldmae_mode=False)),
     "down_nonlinear": ("mae_for_ldmae_f8d16", dict(smooth_output=True)),
+    # head dims the first CUDA kernels refused: 12 (decoder width 96, 8 heads), 24
+    "small": ("mae_for_ldmae_f8d16_small", dict(smooth_output=True)),
+    "prev_large": ("mae_for_ldmae_f8d16_prev_large", dict(smooth_output=True)),
+    # patch 14: the linear head's 14 x 14 x 3 = 588 outputs, not a multiple of 8
+    "huge_patch14": ("mae_vit_huge_patch14", dict(img_size=56)),
 }
 
 
@@ -147,7 +152,9 @@ def test_vmae_weight_bridge_matches_torch_export(variant):
     "variant,dt,impl",
     [("prod", "float32", "xla"), ("prod", "bfloat16", "flash_rope"),
      ("pred_with_conv", "float32", "flash"), ("linear_head_cls", "float32", "xla"),
-     ("down_nonlinear", "bfloat16", "xla")],
+     ("down_nonlinear", "bfloat16", "xla"), ("small", "float32", "flash"), ("small", "bfloat16", "flash"),
+     ("prev_large", "float32", "flash"), ("huge_patch14", "float32", "xla"),
+     ("huge_patch14", "bfloat16", "flash")],
 )
 def test_vmae_decode_matches_jax(variant, dt, impl):
     js, ts, params = _vmae(variant, seed=5)
@@ -157,7 +164,7 @@ def test_vmae_decode_matches_jax(variant, dt, impl):
     jd, td = DT[dt]
     ref = jvmae.decode(params, js, jvmae.VMAEConsts(js), jnp.asarray(z), compute_dtype=jd, attn_impl=impl)
     out = model.decode(torch.from_numpy(z), compute_dtype=td, attn_impl=impl)
-    assert out.shape == (2, 3, 32, 32) and out.dtype == torch.float32
+    assert out.shape == (2, 3, ts.img_size, ts.img_size) and out.dtype == torch.float32
     assert rel_err(out.numpy(), ref) < REL[dt]
     if variant == "prod":
         imgs = model.decode_to_images(torch.from_numpy(z), compute_dtype=td, attn_impl=impl)
