@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
 per source, in parallel) and prints ``-Xptxas -v``'s registers, shared
-memory and spills of the wgmma kernels, measures the SFU's ex2 and the bf16
-packing's throughput (the exponential term of the attention bounds), then:
+memory and spills of the wgmma kernels and the row engine, measures the
+SFU's ex2 and the bf16 packing's throughput (the exponential term of the
+attention bounds), then:
 
   1. holds each of the sampling kernels against its plain PyTorch version
      on the card at the shapes the sampling paths below give it (batch 8:
@@ -18,9 +19,12 @@ packing's throughput (the exponential term of the attention bounds), then:
      same function (a yardstick only; the port never calls it), #1's two
      kernels apart (the RoPE pre-pass and the wgmma attention, by kernel
      name under ``torch.profiler``), and #2 beside the ``mma.sync`` core it
-     replaced; then the same at ``bench.py``'s batch 36; then times the int8
-     product of the w8a8 leg (``torch._int_mm``, checked exact) beside
-     cuBLAS bf16 at the same shapes;
+     replaced, #3 and #9 (the streaming row engine) warm, with the
+     device's queue full and with a cold L2, and the host time a call of
+     their wrappers and of their bare C entries; then the same
+     at ``bench.py``'s batch 36; then times the int8 product of the w8a8
+     leg (``torch._int_mm``, checked exact) beside cuBLAS bf16 at the same
+     shapes;
   1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
      80 and 128 against their plain versions; every fp32 instantiation
      (#1, #2, #5, #6 at the training shape (32, 12, 1024, 64); #3, #4, #9,
@@ -56,7 +60,7 @@ packing's throughput (the exponential term of the attention bounds), then:
      ``torch.profiler``: RoPE pre-pass, preprocess, single pass,
      postprocess) beside the plain backward and the backward of
      ``F.scaled_dot_product_attention`` (fwd+bwd minus fwd); also the
-     forward kernels #1 and #3 at the training shapes;
+     forward kernels #1, #3 (and #9) at the training shapes;
   6. checks one train step of B/1 at full width (depth 2, batch 8) on the
      card: the loss and every parameter's gradient of the kernel path (the
      shipped YAML's flash_rope, half-split RoPE, fused adaLN, remat 'attn')
@@ -85,6 +89,13 @@ launches from the path that runs each kernel), and as its last line
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
+
+``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
+batch 36, the training shape, fp32) after building their two libraries,
+and ends with a ``{"rows": {...}}`` line: copied into a checkout of an
+earlier commit whose two C entries take the same arguments, it times that
+commit's kernels and wrappers by the same means, for comparisons within
+one call.
 """
 
 from __future__ import annotations
@@ -237,6 +248,71 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Time per call of ``iters`` back-to-back calls of ``fn`` queued behind
+    a spin of the device (``torch.cuda._sleep``, longer than the host takes
+    to launch them all): the kernels' own time, where ``cuda_ms`` reads the
+    host's launch time whenever that is the longer (a short kernel behind a
+    Python wrapper)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))  # ~0.1 s at the boost clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 100, windows: int = 5) -> float:
+    """Host time per call of ``fn`` (the Python wrapper: checks, output
+    allocation, the launch), the device kept busy by a spin so that no call
+    waits for it: the median of ``windows`` windows of ``iters`` calls (the
+    host's time drifts with its other load)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        torch.cuda._sleep(int(1e8))  # ~0.05 s at the boost clock, longer than a window's launches
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[windows // 2]
+
+
+FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Median time of one call of ``fn`` with a cold L2: before each call
+    the device writes a 256 MB buffer (the L2 then holds dirty lines of it,
+    as after another kernel's output, and nothing of fn's inputs), and each
+    call is timed by its own events. The write takes longer than the host
+    needs to launch the call, so the host's time does not show."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")  # freed on return: no later peak counts it
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in events)
+    return times[len(times) // 2]
 
 
 def _profiled(fn, iters: int):
@@ -395,6 +471,123 @@ def compare_quant(name: str, out, ref) -> float:
     return err
 
 
+def adaln_row_kernels(dev, b: int, what: str, dtype=None) -> dict:
+    """#3 and #9, the streaming row engine's two kernels, at x (b, 1024, 768)
+    with shift and scale strided views of a (b, 6, 768) projection output:
+    each against its plain version, timed warm (``cuda_ms``, as the earlier
+    PRs' rows), queued (``queued_ms``: the device's time alone) and with a
+    cold L2 (``cold_ms``), beside its plain version; and the host time a
+    call (``host_ms``; warm reads the larger of it and the device's time) of
+    the wrapper, of its bare C entry called with ready arguments, and of
+    that entry inside a ``torch.cuda.device`` guard with
+    ``torch.cuda.current_stream``'s handle (what the wrappers' ``_on_device``
+    skips when x's device is current). The
+    bound is the bytes moved, the share of it taken from the cold time.
+    Returns name -> row of the kernels line."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(b)
+    n, d = 1024, 768
+    log(f"[kernel] fused_norm_modulate(_quant) {what}: x ({b},{n},{d}) {str(dtype)[6:]}, w ({d},) fp32, "
+        f"shift/scale ({b},{d}) views of ({b},6,{d})")
+    x = (torch.randn(b, n, d, generator=g, device=dev) * 3).to(dtype)
+    w = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    mod = (torch.randn(b, 6, d, generator=g, device=dev) * 0.1).to(dtype)
+    sh, sc = mod[:, 0], mod[:, 1]
+    es = x.element_size()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    common = (x.data_ptr(), w.data_ptr(), sh.data_ptr(), sc.data_ptr(), sh.stride(0), sc.stride(0))
+    tail = (b, n, d, 0, 1e-6, int(not bf16))
+    out16 = torch.empty_like(x)
+    out8, scales = torch.empty(b, n, d, device=dev, dtype=torch.int8), torch.empty(b, n, 1, device=dev)
+    rows = {}
+    # per element: square and sum, scale, weight, (1 + scale) product, shift;
+    # #9 also absmax, reciprocal product, round
+    for name, kern, plain, out_bytes, flops, entry, outs in (
+        ("fused_norm_modulate", fad.fused_norm_modulate, fad.fused_norm_modulate_plain, es, 6,
+         kernels.load("fused_norm_modulate").ldmae_fused_norm_modulate, (out16.data_ptr(),)),
+        ("fused_norm_modulate_quant", fad.fused_norm_modulate_quant, fad.fused_norm_modulate_quant_plain, 1, 9,
+         kernels.load("fused_quant").ldmae_fused_norm_modulate_quant, (out8.data_ptr(), scales.data_ptr())),
+    ):
+        quant = name.endswith("_quant")
+        if quant:
+            check = compare_quant
+        elif bf16:
+            def check(label, out, ref):
+                return compare(label, out, ref, rtol=2**-6, atol=2**-6)
+        else:
+            check = f32_compare
+        ref = plain(x, w, sh, sc)
+        err = check(f"{name} {what}", kern(x, w, sh, sc), ref)
+
+        def run():
+            return kern(x, w, sh, sc)
+
+        args = common + outs + tail
+
+        def bare():
+            return entry(*args, stream)
+
+        def guarded():
+            with torch.cuda.device(x.device):
+                return entry(*args, torch.cuda.current_stream(x.device).cuda_stream)
+
+        warm = sorted(cuda_ms(run, 50) for _ in range(5))
+        ms = warm[2]
+        parts = {"warm_min_ms": warm[0], "warm_max_ms": warm[-1], "queued_ms": queued_ms(run),
+                 "cold_ms": cold_ms(run), "host_ms": host_ms(run), "entry_host_ms": host_ms(bare),
+                 "guarded_entry_host_ms": host_ms(guarded)}
+        plain_ms = cuda_ms(lambda: plain(x, w, sh, sc), 10)
+        bnd = bound(b * n * d * (es + out_bytes) + (b * n * 4 if quant else 0) + d * 4 + 2 * b * d * es,
+                    fp32_flops=flops * b * n * d)
+        parts["share_cold"] = bnd[0] / parts["cold_ms"]
+        log(f"  {name} {what}: warm {ms:.4f} ms (median of 5, {warm[0]:.4f}-{warm[-1]:.4f}), queued "
+            f"{parts['queued_ms']:.4f}, cold L2 {parts['cold_ms']:.4f}; host time a call: wrapper "
+            f"{parts['host_ms']:.4f}, C entry {parts['entry_host_ms']:.4f}, C entry in the device guard "
+            f"{parts['guarded_entry_host_ms']:.4f}; plain {plain_ms:.4f}; bound {bnd[0]:.4f} ms ({bnd[1]}), share "
+            f"of bound {parts['share_cold']:.3f} (cold), {bnd[0] / parts['queued_ms']:.3f} (queued)")
+        rows[name if bf16 else f"{name}_fp32"] = (err, ms, plain_ms, None, *bnd, parts)
+    del x, out16, out8
+    torch.cuda.empty_cache()
+    return rows
+
+
+def engine_ptxas(report: dict) -> None:
+    """ptxas's report of the row engine's instantiations at D = 768
+    (csrc/norm_rows.cuh): #3 and #9 in bf16 and fp32 (dynamic shared
+    memory)."""
+    for lib, epi in (("fused_norm_modulate", "8Modulate"), ("fused_quant", "13ModulateQuant")):
+        for what, inst in (("bf16", "I13__nv_bfloat16EELi3EE"), ("fp32", "IfEELi6EE")):
+            log(f"  ptxas norm_rows_kernel {lib} {what}: {ptxas_summary(report[lib]['ptxas'], epi + inst)}")
+
+
+def rows_only(dev) -> int:
+    """``--rows``: the #3 / #9 row phases alone, at every shape the full run
+    times them at, and a ``{"rows": ...}`` line of their numbers."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build(["fused_norm_modulate", "fused_quant"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s for the two row-kernel libraries")
+    engine_ptxas(report)
+    out = {}
+    for b, what, dtype in ((2 * BATCH, f"(batch {BATCH})", torch.bfloat16),
+                           (2 * BENCH_BATCH, f"(batch {BENCH_BATCH})", torch.bfloat16),
+                           (32, "(training shape)", torch.bfloat16),
+                           (2 * BATCH, f"fp32 (batch {BATCH})", torch.float32)):
+        for name, (err, ms, plain_ms, _, bound_ms, _, parts) in adaln_row_kernels(dev, b, what, dtype).items():
+            out[f"{name} {what}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms} | parts
+    log(json.dumps({"rows": out}))
+    return 0
+
+
 def kernel_phases(dev, batch: int) -> dict:
     """Each kernel against its plain version at the shapes that sampling at
     ``batch`` images gives it: the CFG-doubled DiT step (2 * batch) and the
@@ -474,22 +667,9 @@ def kernel_phases(dev, batch: int) -> dict:
     rows["flash_attention_resident"] = (err, ms, plain_ms, lib_ms, *bnd, {"mma_core_ms": core_ms} | alone)
     del q, k, v
 
-    # -- 3: fused_norm_modulate, the DiT adaLN epilogue in a CFG-doubled step
-    b, n, d = b2, 1024, 768
-    log(f"[kernel] fused_norm_modulate x ({b},{n},{d}) bf16, w ({d},) fp32, shift/scale ({b},{d}) bf16")
-    x = randn(b, n, d, scale=3.0)
-    w = 1 + 0.1 * randn(d, dtype=torch.float32)
-    mod = randn(b, 6, d, scale=0.1)  # shift and scale as strided views, as the adaLN projection gives them
-    sh, sc = mod[:, 0], mod[:, 1]
-    err = compare("fused_norm_modulate", fad.fused_norm_modulate(x, w, sh, sc),
-                  fad.fused_norm_modulate_plain(x, w, sh, sc), **tol)
-    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, sh, sc), 50)
-    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, sh, sc), 10)
-    # per element: square and sum, scale, weight, (1 + scale) product, shift
-    rows["fused_norm_modulate"] = (err, ms, plain_ms, None,
-                                   *bound(2 * b * n * d * 2 + d * 4 + 2 * b * d * 2,
-                                          fp32_flops=6 * b * n * d), {})
-    del x
+    # -- 3 and 9: fused_norm_modulate(_quant), the DiT adaLN epilogue (bf16
+    # and w8a8) in a CFG-doubled step
+    rows |= adaln_row_kernels(dev, b2, f"(batch {batch})")
 
     # -- 4: fused_matmul_silu, SwiGLU w12 in a CFG-doubled step (M = 2 * batch * 1024)
     m, d, h2 = b2 * 1024, 768, 4096
@@ -538,23 +718,6 @@ def kernel_phases(dev, batch: int) -> dict:
     rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
         4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), {})
     del qkv, q, k, v, qr, kr, vt, ref
-
-    # -- 9: fused_norm_modulate_quant, the w8a8 adaLN epilogue in a CFG-doubled step
-    b, n, d = b2, 1024, 768
-    log(f"[kernel] fused_norm_modulate_quant x ({b},{n},{d}) bf16 -> int8 + ({b},{n},1) fp32")
-    x = randn(b, n, d, scale=3.0)
-    w = 1 + 0.1 * randn(d, dtype=torch.float32)
-    mod = randn(b, 6, d, scale=0.1)
-    sh, sc = mod[:, 0], mod[:, 1]
-    err = compare_quant("fused_norm_modulate_quant", fad.fused_norm_modulate_quant(x, w, sh, sc),
-                        fad.fused_norm_modulate_quant_plain(x, w, sh, sc))
-    ms = cuda_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc), 50)
-    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_quant_plain(x, w, sh, sc), 10)
-    # per element: square and sum, scale, weight, (1 + scale) product, shift,
-    # absmax, divide, round
-    rows["fused_norm_modulate_quant"] = (err, ms, plain_ms, None, *bound(
-        b * n * d * (2 + 1) + b * n * 4 + d * 4 + 2 * b * d * 2, fp32_flops=9 * b * n * d), {})
-    del x
 
     # -- 10: fused_silu_mul_quant, the w8a8 SwiGLU gate (M = 2 * batch * 1024)
     m, h = b2 * 1024, 2048
@@ -895,7 +1058,6 @@ def train_kernel_phase(dev) -> dict:
     import torch.nn.functional as F
 
     from ldmae_tpu_torch.ops import flash_attention as fa
-    from ldmae_tpu_torch.ops import fused_adaln as fad
     from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -991,15 +1153,7 @@ def train_kernel_phase(dev) -> dict:
     log(f"  flash_attention_rope (training shapes): kernel {fwd_ms:.4f} ms (pre-pass {parts['prepass_ms']:.4f}, "
         f"attention {parts['attention_ms']:.4f}), SDPA {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     del q, k, v, g, qr, kr
-    x = torch.randn(b, n, 768, generator=gen, device=dev).mul(3).bfloat16()
-    w = 1 + 0.1 * torch.randn(768, generator=gen, device=dev)
-    mod = torch.randn(b, 6, 768, generator=gen, device=dev).mul(0.1).bfloat16()
-    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, mod[:, 0], mod[:, 1]), 50)
-    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, mod[:, 0], mod[:, 1]), 10)
-    bnd = bound(2 * b * n * 768 * 2 + 768 * 4 + 2 * b * 768 * 2, fp32_flops=6 * b * n * 768)
-    log(f"  fused_norm_modulate x ({b},{n},768) (training shapes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    del x
+    adaln_row_kernels(dev, b, "(training shape)")
     torch.cuda.empty_cache()
     return rows
 
@@ -1256,8 +1410,8 @@ def train_profile_phase(dev) -> None:
 
 
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
-OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_modulate_kernel",
-               "matmul_silu_kernel", "norm_modulate_quant_kernel", "silu_mul_quant_kernel",
+OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_rows_kernel",
+               "matmul_silu_kernel", "silu_mul_quant_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_preprocess_kernel",
                "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel", "flash_fwd_resident_kernel",
                "norm_rope_any_kernel", "flash32_", "matmul_silu_f32_kernel")
@@ -1492,25 +1646,9 @@ def fp32_kernel_phase(dev, batch: int) -> dict:
     rows["flash_attention_fused_rope_fp32"] = (err, ms, plain_ms, lib_ms, *bnd, {})
     del q, k, v, qr, kr, qkv, qf, kf, vf
 
-    b, n, d = b2, 1024, 768
     log(f"[fp32] adaLN and SwiGLU kernels at the B/1 sampling shapes (batch {batch}, CFG-doubled) fp32")
-    x = randn(b, n, d, scale=3.0)
-    w = 1 + 0.1 * randn(d)
-    mod = randn(b, 6, d, scale=0.1)
-    sh, sc = mod[:, 0], mod[:, 1]
-    err = f32_compare("fused_norm_modulate_fp32", fad.fused_norm_modulate(x, w, sh, sc),
-                      fad.fused_norm_modulate_plain(x, w, sh, sc))
-    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, sh, sc), 20)
-    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, sh, sc), 5)
-    rows["fused_norm_modulate_fp32"] = (err, ms, plain_ms, None, *bound(
-        2 * b * n * d * 4 + d * 4 + 2 * b * d * 4, fp32_flops=6 * b * n * d), {})
-    err = compare_quant("fused_norm_modulate_quant_fp32", fad.fused_norm_modulate_quant(x, w, sh, sc),
-                        fad.fused_norm_modulate_quant_plain(x, w, sh, sc))
-    ms = cuda_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc), 20)
-    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_quant_plain(x, w, sh, sc), 5)
-    rows["fused_norm_modulate_quant_fp32"] = (err, ms, plain_ms, None, *bound(
-        b * n * d * (4 + 1) + b * n * 4 + d * 4 + 2 * b * d * 4, fp32_flops=9 * b * n * d), {})
-    del x
+    rows |= adaln_row_kernels(dev, b2, f"fp32 (batch {batch})", torch.float32)
+    d = 768
     m, h2 = b2 * 1024, 4096
     x = randn(m, d)
     w12 = randn(h2, d, scale=d**-0.5)
@@ -1650,6 +1788,8 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
         f"count {torch.cuda.device_count()}")
+    if "--rows" in sys.argv[1:]:
+        return rows_only(dev)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -1662,6 +1802,7 @@ def main() -> int:
     for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel"),
                         ("flash_attention", "flash_bwd_wgmma_kernel"), ("flash_attention", "flash_fwd_resident_kernel")):
         log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
+    engine_ptxas(report)
     rate_probes(dev)
 
     rows = kernel_phases(dev, BATCH)

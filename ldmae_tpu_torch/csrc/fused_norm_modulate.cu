@@ -8,179 +8,137 @@
 // with the reductions in fp32 and every step after the normalisation rounded
 // to bf16, as the TPU kernel computes in x's dtype.
 //
-// What bounds it: a few flops per element against 4 bytes moved per element
-// (read x, write out), so device memory bandwidth. One warp owns four rows
-// of one batch element in turn and keeps each row in registers (16-byte
-// loads, up to 8 vectors per lane: D <= 2048), so x is read once and the
-// output written once. shift and scale are read as bf16 straight from the
-// adaLN projection's output (a row stride apart), as the TPU kernel casts
-// them to x's dtype anyway. The weight and that batch element's shift and
-// scale are read once per warp and held in registers as bf16; a first
-// version that re-read fp32 copies (12 bytes per element, three times x's
-// bytes) from L1 for every row ran at a third of the bandwidth bound.
-// fp32 x (the configs' other compute dtype) runs the same kernel with the
-// element type a template parameter: the roundings to x's dtype vanish, the
-// weight, shift and scale are fp32, and they are read from L1 for each row
-// rather than held in registers (a row of up to 2,048 fp32 values already
-// takes 64 registers a lane).
-#include <type_traits>
-
-#include "attention_common.cuh"
+// What bounds it: a few operations per element against 4 bytes moved per
+// element (read x, write out), so device memory bandwidth. It runs on the
+// streaming row engine (csrc/norm_rows.cuh: persistent grid, parameters
+// staged once per batch element, rows loaded ahead of the math); this file
+// is its epilogue. The parameters are staged as bf16(w), bf16(1 + scale[b])
+// and bf16(shift[b]), and the three roundings after bf16(x * rs) are
+// bf16x2 instructions (mul.rn / add.rn, two elements each): the product or
+// sum of two bf16 values rounded once to bf16, which is what fp32
+// arithmetic rounded to bf16 gives (exact in fp32: the product of two 8-bit
+// significands fits 24 bits; a sum is exact when the exponents differ by at
+// most 16, and otherwise the smaller term is below a quarter ulp of the
+// larger and both roundings return the larger), except for results below
+// 2^-126, where fp32's subnormals can round twice.
+// fp32 x (the configs' other compute dtype) runs the same engine with an
+// fp32 epilogue: the roundings to x's dtype vanish and the parameters are
+// staged as fp32 w, 1 + scale[b] and shift[b].
+#include "norm_rows.cuh"
 
 namespace {
 
-using attn::from_float;
-using attn::round_to;
-using attn::to_float;
-
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kMaxElems = 64;  // elements of a row per lane: D <= 64 * 32 = 2048
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
-// kVec: 16-byte vectors of the row per lane (kE elements each: 8 bf16, 4 fp32).
-template <typename T, int kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-    norm_modulate_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                         const T* __restrict__ shift, const T* __restrict__ scale,
-                         long long shift_stride, long long scale_stride, T* __restrict__ out,
-                         int rows, int n, int d, int layer, float eps) {
-  constexpr int kE = 16 / sizeof(T);
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * kWarps + threadIdx.x / 32) * kRowsPerWarp;
-  const int nvec = d / kE;
-  // bf16: bf16(w), bf16(1 + scale[b]) and shift[b] for this lane's columns,
-  // kept as bf16 (half the registers)
-  bf16 wv[kBf16 ? kVec : 1][kE], onep[kBf16 ? kVec : 1][kE], shv[kBf16 ? kVec : 1][kE];
-  int b_loaded = -1;
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
 
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + r;
-    if (row >= rows) return;
-    const int b = row / n;
-    const T* sh = shift + b * shift_stride;
-    const T* sc = scale + b * scale_stride;
-    if (kBf16 && b != b_loaded) {
-#pragma unroll
-      for (int i = 0; i < (kBf16 ? kVec : 1); ++i) {
-        const int c0 = (lane + i * 32) * kE;
-        if (c0 >= d) continue;
-#pragma unroll
-        for (int j = 0; j < kE; ++j) {
-          wv[i][j] = __float2bfloat16_rn(layer ? 1.f : w[c0 + j]);
-          onep[i][j] = __float2bfloat16_rn(1.f + to_float(sc[c0 + j]));
-          shv[i][j] = __float2bfloat16_rn(to_float(sh[c0 + j]));
-        }
-      }
-      b_loaded = b;
-    }
+__device__ __forceinline__ uint32_t word(const uint4& u, int p) { return reinterpret_cast<const uint32_t*>(&u)[p]; }
 
-    const T* xr = x + (size_t)row * d;
-    float xv[kVec][kE];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const int vi = lane + i * 32;
-      if (vi < nvec) {
-        const uint4 u = *reinterpret_cast<const uint4*>(xr + vi * kE);
-        const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-        for (int j = 0; j < kE; ++j) {
-          xv[i][j] = to_float(e[j]);
-          sum += layer ? xv[i][j] : xv[i][j] * xv[i][j];
-        }
-      }
-    }
-    const float mean = warp_sum(sum) / (float)d;
-    float rs;
-    if (layer) {
-      float sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        if (lane + i * 32 < nvec) {
-#pragma unroll
-          for (int j = 0; j < kE; ++j) {
-            xv[i][j] -= mean;
-            sq += xv[i][j] * xv[i][j];
-          }
-        }
-      }
-      rs = rsqrtf(warp_sum(sq) / (float)d + eps);
-    } else {
-      rs = rsqrtf(mean + eps);
-    }
+template <typename T>
+struct Modulate;
 
+// bf16: the staged parameters are [bf16(w) | bf16(1 + scale[b]) | bf16(shift[b])].
+template <>
+struct Modulate<bf16> {
+  using T = bf16;
+  using P = bf16;
+  static constexpr bool kExactRsqrt = false;
+
+  static __device__ __forceinline__ void stage(P* par, int d, int c, const float* w, const float* sc,
+                                               const float* sh) {
+    uint32_t pw[4], po[4], ps[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      pw[p] = pack_bf16(w[2 * p], w[2 * p + 1]);
+      po[p] = pack_bf16(__fadd_rn(1.f, sc[2 * p]), __fadd_rn(1.f, sc[2 * p + 1]));
+      ps[p] = pack_bf16(sh[2 * p], sh[2 * p + 1]);
+    }
+    *reinterpret_cast<uint4*>(par + c) = make_uint4(pw[0], pw[1], pw[2], pw[3]);
+    *reinterpret_cast<uint4*>(par + d + c) = make_uint4(po[0], po[1], po[2], po[3]);
+    *reinterpret_cast<uint4*>(par + 2 * d + c) = make_uint4(ps[0], ps[1], ps[2], ps[3]);
+  }
+
+  template <int kVec>
+  static __device__ __forceinline__ void finish(float (&v)[kVec][8], float rs, const P* par, const rows::Args& a,
+                                                long long row, int lane, int nvec) {
+    const uint4* pw = reinterpret_cast<const uint4*>(par);
+    const uint4* po = reinterpret_cast<const uint4*>(par + a.d);
+    const uint4* ps = reinterpret_cast<const uint4*>(par + 2 * a.d);
+    uint4* out = reinterpret_cast<uint4*>(static_cast<bf16*>(a.out) + row * a.d);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const int vi = lane + i * 32;
       if (vi >= nvec) continue;
-      alignas(16) T y[kE];
+      const uint4 w4 = pw[vi], o4 = po[vi], s4 = ps[vi];
+      uint32_t y[4];
 #pragma unroll
-      for (int j = 0; j < kE; ++j) {
-        const int c = vi * kE + j;
-        float v = round_to<T>(xv[i][j] * rs);
-        if (kBf16) {
-          if (!layer) v = round_bf16(v * __bfloat162float(wv[i][j]));
-          y[j] = __float2bfloat16_rn(round_bf16(v * __bfloat162float(onep[i][j])) +
-                                     __bfloat162float(shv[i][j]));
-        } else {
-          if (!layer) v = __fmul_rn(v, w[c]);
-          y[j] = from_float<T>(__fadd_rn(__fmul_rn(v, __fadd_rn(1.f, to_float(sc[c]))), to_float(sh[c])));
-        }
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t t = pack_bf16(__fmul_rn(v[i][2 * p], rs), __fmul_rn(v[i][2 * p + 1], rs));
+        y[p] = add_bf16x2(mul_bf16x2(mul_bf16x2(t, word(w4, p)), word(o4, p)), word(s4, p));
       }
-      *reinterpret_cast<uint4*>(out + (size_t)row * d + vi * kE) = *reinterpret_cast<const uint4*>(y);
+      out[vi] = make_uint4(y[0], y[1], y[2], y[3]);
     }
   }
-}
+};
 
-template <typename T>
-cudaError_t launch(const void* x, const float* w, const void* shift, const void* scale, long long shift_stride,
-                   long long scale_stride, void* out, int b, int n, int d, int layer, float eps,
-                   cudaStream_t s) {
-  constexpr int kE = 16 / sizeof(T);
-  if (d % kE != 0 || d > kMaxElems * 32) return cudaErrorInvalidValue;
-  const int rows = b * n;
-  const int per_block = kWarps * kRowsPerWarp;
-  const dim3 grid((rows + per_block - 1) / per_block);
-  const T* xb = static_cast<const T*>(x);
-  T* ob = static_cast<T*>(out);
-  const T* shb = static_cast<const T*>(shift);
-  const T* scb = static_cast<const T*>(scale);
-  switch ((d / kE + 31) / 32) {
-#define LDMAE_CASE(V)                                                                             \
-  case V:                                                                                         \
-    if (V * kE <= kMaxElems)                                                                      \
-      norm_modulate_kernel<T, (V * kE <= kMaxElems ? V : 1)><<<grid, kWarps * 32, 0, s>>>(         \
-          xb, w, shb, scb, shift_stride, scale_stride, ob, rows, n, d, layer, eps);               \
-    break;
-    LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4) LDMAE_CASE(5) LDMAE_CASE(6)
-    LDMAE_CASE(7) LDMAE_CASE(8) LDMAE_CASE(9) LDMAE_CASE(10) LDMAE_CASE(11) LDMAE_CASE(12)
-    LDMAE_CASE(13) LDMAE_CASE(14) LDMAE_CASE(15) LDMAE_CASE(16)
-#undef LDMAE_CASE
+// fp32: the staged parameters are [w | 1 + scale[b] | shift[b]], fp32.
+template <>
+struct Modulate<float> {
+  using T = float;
+  using P = float;
+  static constexpr bool kExactRsqrt = false;
+
+  static __device__ __forceinline__ void stage(P* par, int d, int c, const float* w, const float* sc,
+                                               const float* sh) {
+    *reinterpret_cast<float4*>(par + c) = make_float4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<float4*>(par + d + c) = make_float4(__fadd_rn(1.f, sc[0]), __fadd_rn(1.f, sc[1]),
+                                                          __fadd_rn(1.f, sc[2]), __fadd_rn(1.f, sc[3]));
+    *reinterpret_cast<float4*>(par + 2 * d + c) = make_float4(sh[0], sh[1], sh[2], sh[3]);
   }
-  return cudaGetLastError();
-}
+
+  template <int kVec>
+  static __device__ __forceinline__ void finish(float (&v)[kVec][4], float rs, const P* par, const rows::Args& a,
+                                                long long row, int lane, int nvec) {
+    const float4* pw = reinterpret_cast<const float4*>(par);
+    const float4* po = reinterpret_cast<const float4*>(par + a.d);
+    const float4* ps = reinterpret_cast<const float4*>(par + 2 * a.d);
+    float4* out = reinterpret_cast<float4*>(static_cast<float*>(a.out) + row * a.d);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int vi = lane + i * 32;
+      if (vi >= nvec) continue;
+      const float4 w4 = pw[vi], o4 = po[vi], s4 = ps[vi];
+      const float* wf = &w4.x;
+      const float* of = &o4.x;
+      const float* sf = &s4.x;
+      float y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(v[i][j], rs), wf[j]), of[j]), sf[j]);
+      out[vi] = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+};
 
 }  // namespace
 
-// x, out: contiguous (b, n, d), bf16 (fp32 != 0: fp32), with d a multiple of
-// 8 (fp32: 4) and d <= 2048; w: (d,) fp32 (unused, may be null, when layer
-// != 0); shift, scale: (b, d) in x's dtype with unit column stride, row i at
-// shift + i * shift_stride (in elements). Returns the CUDA error of the
-// launch (0 on success).
+// x, out: contiguous (b, n, d), bf16 (fp32 != 0: fp32), 16-byte aligned,
+// with d a multiple of 8 (fp32: 4) and d <= 2048; w: (d,) fp32, or null for
+// no weight (always unused when layer != 0); shift, scale: (b, d) in x's
+// dtype with unit column stride, row i at shift + i * shift_stride (in
+// elements). Returns the CUDA error of the launch (0 on success).
 extern "C" int ldmae_fused_norm_modulate(const void* x, const float* w, const void* shift,
                                          const void* scale, long long shift_stride,
                                          long long scale_stride, void* out, int b, int n, int d,
                                          int layer, float eps, int fp32, void* stream) {
+  const rows::Args a{x, w, shift, scale, shift_stride, scale_stride, out, nullptr, (long long)b * n, n, d, layer, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      fp32 ? launch<float>(x, w, shift, scale, shift_stride, scale_stride, out, b, n, d, layer, eps, s)
-           : launch<bf16>(x, w, shift, scale, shift_stride, scale_stride, out, b, n, d, layer, eps, s);
-  return static_cast<int>(e);
+  return static_cast<int>(fp32 ? rows::launch<Modulate<float>>(a, s) : rows::launch<Modulate<bf16>>(a, s));
 }

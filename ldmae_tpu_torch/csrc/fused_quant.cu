@@ -16,48 +16,31 @@
 // Rounding as the TPU kernels (XLA on the CPU) compute it: the divisions are
 // true divisions and no elementwise product is fused into a multiply-add
 // (the __f*_rn intrinsics), 1/sqrt instead of the approximate rsqrt, expf
-// instead of __expf, and q rounds half to even (rintf, as jnp.round). Only
-// the fp32 row sums differ: another order, and the compiler may fuse each
-// square into its add (keeping them apart cost the norm kernel a fifth of
-// its time), which can move q by one step in rare elements.
+// instead of __expf, and q rounds half to even (as jnp.round). Only the fp32
+// row sums differ: another order, and the compiler may fuse each square
+// into its add, which can move q by one step in rare elements.
 //
-// What bounds them: a handful of flops per element against 3 bytes moved
-// (bf16 in, int8 out) for the norm and 5 bytes per output for the gate, so
-// device memory bandwidth. The absmax needs the whole row before the first
-// int8 value is written, so each row stays in registers between the two
-// passes: one warp per row for the norm (as csrc/fused_norm_modulate.cu, the
-// weight and that batch element's shift and scale held in registers across
-// four rows), one block of 128 threads per row for the gate (2H = 4,096
-// values at B/1, 8 KB).
+// What bounds them: a handful of operations per element against 3 bytes
+// moved (bf16 in, int8 out) for the norm and 5 bytes per output for the
+// gate, so device memory bandwidth; at that rate the norm's fp32 epilogue
+// also needs a good part of the SMs' issue slots. The norm kernel runs on
+// the streaming row engine (csrc/norm_rows.cuh; the row stays in registers
+// between the absmax and the int8 pass) and this file holds its epilogue:
+// the parameters are staged as fp32 w, 1 + scale[b] and shift[b], and q
+// comes from a reciprocal, equal bit for bit to the true quotient's
+// rounding (the rule at kMagic below, applied in ModulateQuant::finish). The gate runs one block of 128 threads per row
+// (2H = 4,096 values at B/1, 8 KB).
 // fp32 input (the configs' other compute dtype) runs the same kernels with
-// the element type a template parameter (their arithmetic is fp32 already);
-// the norm kernel then reads the weight, shift and scale from L1 for each
-// row instead of holding them in registers.
-#include <type_traits>
-
-#include "attention_common.cuh"
+// the element type a template parameter (their arithmetic is fp32 already).
+#include "norm_rows.cuh"
 
 namespace {
 
 using attn::to_float;
+using rows::warp_max;
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kMaxElems = 64;    // norm: elements of a row per lane, D <= 64 * 32 = 2048
 constexpr int kGateThreads = 128;
 constexpr int kMaxGateVec = 8;   // gate: 8-output vectors per thread, H <= 8 * 8 * 128 = 8192
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // Eight values o / qs rounded half to even, as int8 in one 8-byte word.
 __device__ __forceinline__ uint2 quantize8(const float* o, float qs) {
@@ -68,17 +51,6 @@ __device__ __forceinline__ uint2 quantize8(const float* o, float qs) {
     w[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q))) << (8 * (j % 4));
   }
   return make_uint2(w[0], w[1]);
-}
-
-// Four values o / qs, as int8 in one 4-byte word.
-__device__ __forceinline__ uint32_t quantize4(const float* o, float qs) {
-  uint32_t w = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int q = static_cast<int>(rintf(__fdiv_rn(o[j], qs)));
-    w |= static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q))) << (8 * j);
-  }
-  return w;
 }
 
 __device__ __forceinline__ float row_scale(float absmax) {
@@ -100,117 +72,142 @@ struct Vec8 {
   __device__ __forceinline__ float operator[](int j) const { return to_float(reinterpret_cast<const T*>(u)[j]); }
 };
 
-// kVec: 16-byte vectors of the row per lane (kE elements each: 8 bf16, 4 fp32).
-template <typename T, int kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-    norm_modulate_quant_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                               const T* __restrict__ shift, const T* __restrict__ scale,
-                               long long shift_stride, long long scale_stride,
-                               int8_t* __restrict__ out, float* __restrict__ scales, int rows,
-                               int n, int d, int layer, float eps) {
-  constexpr int kE = 16 / sizeof(T);
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  constexpr int kHeld = kBf16 ? kVec : 1;  // fp32 reads the weight, shift and scale from L1
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * kWarps + threadIdx.x / 32) * kRowsPerWarp;
-  const int nvec = d / kE;
-  const bool affine = !layer && w != nullptr;
-  float wv[kHeld][kE];
-  T shv[kHeld][kE], scv[kHeld][kE];
-  if (kBf16) {
+// q = rint(o / qs) from the reciprocal r = 1 / qs (rounded), equal bit for
+// bit to the true quotient's rounding:
+//  * t = o * r is within 3 ulps of the true quotient Q = o / qs (r and the
+//    product each round once), and |t| < 128 (|o| <= absmax, qs >=
+//    absmax / 127), so t differs from the rounded quotient fl(Q) by less
+//    than 3 * 2^-24 * 128 < 2^-14;
+//  * y = t + 1.5 * 2^23 rounds t half to even to an integer (the ulp there
+//    is 1): y - 1.5 * 2^23 = rint(t), and y's low byte is rint(t) as int8;
+//  * f = t - rint(t) (exact) gives t's distance to the nearest half-integer,
+//    0.5 - |f|. When it exceeds 2^-14, no half-integer lies between t and
+//    fl(Q), so rint(t) = rint(fl(Q)). A lane with an element within 2^-14
+//    of a half-integer (|f| >= kNearHalf, or f NaN), and every lane of a row
+//    whose qs or r is not a normal number, redoes its elements with the true
+//    quotient (__fdiv_rn, converted as rintf then a cast would).
+// tests/test_torch_port_rowquant.py holds a numpy model of this rule to
+// numpy's true division.
+constexpr float kMagic = 12582912.f;
+constexpr float kNearHalf = 0.5f - 0x1p-14f;
+
+// Four int8 from the low bytes of four words.
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// The norm's epilogue: o in fp32 from the staged [w | 1 + scale[b] |
+// shift[b]] (fp32), the row's absmax and scale, then int8 stores: with bf16
+// x (8 elements a vector) two neighbouring lanes swap halves so that one of
+// them writes 16 bytes (when d % 16 == 0, else each writes its 8); with
+// fp32 x each lane writes its 4.
+template <typename T_>
+struct ModulateQuant {
+  using T = T_;
+  using P = float;
+  static constexpr bool kExactRsqrt = true;
+  static constexpr int kE = 16 / sizeof(T);
+
+  static __device__ __forceinline__ void stage(P* par, int d, int c, const float* w, const float* sc,
+                                               const float* sh) {
 #pragma unroll
-    for (int i = 0; i < kHeld; ++i) {
-      const int c0 = (lane + i * 32) * kE;
-#pragma unroll
-      for (int j = 0; j < kE; ++j) wv[i][j] = (affine && c0 < d) ? w[c0 + j] : 1.f;
+    for (int q = 0; q < kE / 4; ++q) {
+      const int j = 4 * q;
+      *reinterpret_cast<float4*>(par + c + j) = make_float4(w[j], w[j + 1], w[j + 2], w[j + 3]);
+      *reinterpret_cast<float4*>(par + d + c + j) = make_float4(__fadd_rn(1.f, sc[j]), __fadd_rn(1.f, sc[j + 1]),
+                                                                __fadd_rn(1.f, sc[j + 2]), __fadd_rn(1.f, sc[j + 3]));
+      *reinterpret_cast<float4*>(par + 2 * d + c + j) = make_float4(sh[j], sh[j + 1], sh[j + 2], sh[j + 3]);
     }
   }
-  int b_loaded = -1;
 
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + r;
-    if (row >= rows) return;
-    const int b = row / n;
-    const T* sh = shift + b * shift_stride;
-    const T* sc = scale + b * scale_stride;
-    if (kBf16 && b != b_loaded) {
-#pragma unroll
-      for (int i = 0; i < kHeld; ++i) {
-        const int c0 = (lane + i * 32) * kE;
-        if (c0 >= d) continue;
-#pragma unroll
-        for (int j = 0; j < kE; ++j) {
-          shv[i][j] = sh[c0 + j];
-          scv[i][j] = sc[c0 + j];
-        }
-      }
-      b_loaded = b;
-    }
-
-    const T* xr = x + (size_t)row * d;
-    float xv[kVec][kE];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const int vi = lane + i * 32;
-      if (vi < nvec) {
-        const uint4 u = *reinterpret_cast<const uint4*>(xr + vi * kE);
-        const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-        for (int j = 0; j < kE; ++j) {
-          xv[i][j] = to_float(e[j]);
-          sum += layer ? xv[i][j] : xv[i][j] * xv[i][j];
-        }
-      }
-    }
-    const float mean = __fdiv_rn(warp_sum(sum), (float)d);
-    float rs;
-    if (layer) {
-      float sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        if (lane + i * 32 < nvec) {
-#pragma unroll
-          for (int j = 0; j < kE; ++j) {
-            xv[i][j] = __fsub_rn(xv[i][j], mean);
-            sq += xv[i][j] * xv[i][j];
-          }
-        }
-      }
-      rs = 1.f / sqrtf(__fdiv_rn(warp_sum(sq), (float)d) + eps);
-    } else {
-      rs = 1.f / sqrtf(mean + eps);
-    }
-
+  template <int kVec>
+  static __device__ __forceinline__ void finish(float (&v)[kVec][kE], float rs, const P* par, const rows::Args& a,
+                                                long long row, int lane, int nvec) {
+    const float4* pw = reinterpret_cast<const float4*>(par);
+    const float4* po = reinterpret_cast<const float4*>(par + a.d);
+    const float4* ps = reinterpret_cast<const float4*>(par + 2 * a.d);
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
-      if (lane + i * 32 >= nvec) continue;
+      const int vi = lane + i * 32;
+      if (vi >= nvec) {  // no element: o = 0 keeps the int8 pass on its fast path
 #pragma unroll
-      for (int j = 0; j < kE; ++j) {
-        const int c = (lane + i * 32) * kE + j;
-        float y = __fmul_rn(xv[i][j], rs);
-        const float wj = kBf16 ? wv[kBf16 ? i : 0][j] : (affine ? w[c] : 1.f);
-        if (affine) y = __fmul_rn(y, wj);
-        const float scj = to_float(kBf16 ? scv[kBf16 ? i : 0][j] : sc[c]);
-        const float shj = to_float(kBf16 ? shv[kBf16 ? i : 0][j] : sh[c]);
-        const float onep = __fadd_rn(1.f, scj);
-        const float o = __fadd_rn(__fmul_rn(y, onep), shj);
-        xv[i][j] = o;
-        amax = fmaxf(amax, fabsf(o));
+        for (int j = 0; j < kE; ++j) v[i][j] = 0.f;
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < kE / 4; ++q) {
+        const float4 w4 = pw[vi * (kE / 4) + q], o4 = po[vi * (kE / 4) + q], s4 = ps[vi * (kE / 4) + q];
+        const float* wf = &w4.x;
+        const float* of = &o4.x;
+        const float* sf = &s4.x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float& e = v[i][4 * q + j];
+          e = __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(e, rs), wf[j]), of[j]), sf[j]);
+          amax = fmaxf(amax, fabsf(e));
+        }
       }
     }
-    const float qs = row_scale(warp_max(amax));
+    const float qs = fmaxf(__fdiv_rn(warp_max(amax), 127.f), 1e-8f);
+    const float r = __frcp_rn(qs);
+    bool redo = !(qs >= 0x1p-126f && r >= 0x1p-126f && r < 0x1p127f);
+    uint32_t pk[kVec][kE / 4];  // int8, four a word
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+#pragma unroll
+      for (int q = 0; q < kE / 4; ++q) {
+        uint32_t y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float t = __fmul_rn(v[i][4 * q + j], r);
+          const float yf = __fadd_rn(t, kMagic);
+          redo |= !(fabsf(__fsub_rn(t, __fsub_rn(yf, kMagic))) < kNearHalf);
+          y[j] = __float_as_uint(yf);
+        }
+        pk[i][q] = pack_low_bytes(y[0], y[1], y[2], y[3]);
+      }
+    }
+    if (redo) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+#pragma unroll
+        for (int q = 0; q < kE / 4; ++q) {
+          uint32_t y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) y[j] = static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v[i][4 * q + j], qs)));
+          pk[i][q] = pack_low_bytes(y[0], y[1], y[2], y[3]);
+        }
+      }
+    }
+    int8_t* out = static_cast<int8_t*>(a.out) + row * a.d;
+    const bool wide = a.d % 16 == 0;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const int vi = lane + i * 32;
-      if (vi >= nvec) continue;
-      if (kE == 8) *reinterpret_cast<uint2*>(out + (size_t)row * d + vi * kE) = quantize8(xv[i], qs);
-      else *reinterpret_cast<uint32_t*>(out + (size_t)row * d + vi * kE) = quantize4(xv[i], qs);
+      if constexpr (kE == 8) {
+        const uint2 mine = make_uint2(pk[i][0], pk[i][1]);
+        if (wide) {
+          // lanes 2k, 2k + 1 hold the 16 bytes at vector 2k: the even lane
+          // writes them for even i, the odd lane for odd i
+          const uint2 other = make_uint2(__shfl_xor_sync(0xffffffffu, mine.x, 1),
+                                         __shfl_xor_sync(0xffffffffu, mine.y, 1));
+          const int base = (lane & ~1) + i * 32;
+          if ((lane & 1) == (i & 1) && base < nvec) {
+            const uint4 pair = (lane & 1) ? make_uint4(other.x, other.y, mine.x, mine.y)
+                                          : make_uint4(mine.x, mine.y, other.x, other.y);
+            *reinterpret_cast<uint4*>(out + base * 8) = pair;
+          }
+        } else if (vi < nvec) {
+          *reinterpret_cast<uint2*>(out + vi * 8) = mine;
+        }
+      } else if (vi < nvec) {
+        *reinterpret_cast<uint32_t*>(out + vi * 4) = pk[i][0];
+      }
     }
-    if (lane == 0) scales[row] = qs;
+    if (lane == 0) a.scales[row] = qs;
   }
-}
+};
 
 // One block per row of x12 (2H elements); kVec: 8-output vectors per thread.
 template <typename T, int kVec>
@@ -252,34 +249,6 @@ __global__ void __launch_bounds__(kGateThreads)
 }
 
 template <typename T>
-cudaError_t norm_quant_launch(const void* x, const float* w, const void* shift, const void* scale,
-                              long long shift_stride, long long scale_stride, void* out, float* scales, int b,
-                              int n, int d, int layer, float eps, cudaStream_t s) {
-  constexpr int kE = 16 / sizeof(T);
-  if (d % kE != 0 || d > kMaxElems * 32) return cudaErrorInvalidValue;
-  const int rows = b * n;
-  const int per_block = kWarps * kRowsPerWarp;
-  const dim3 grid((rows + per_block - 1) / per_block);
-  const T* xb = static_cast<const T*>(x);
-  const T* shb = static_cast<const T*>(shift);
-  const T* scb = static_cast<const T*>(scale);
-  int8_t* ob = static_cast<int8_t*>(out);
-  switch ((d / kE + 31) / 32) {
-#define LDMAE_CASE(V)                                                                                  \
-  case V:                                                                                              \
-    if (V * kE <= kMaxElems)                                                                           \
-      norm_modulate_quant_kernel<T, (V * kE <= kMaxElems ? V : 1)><<<grid, kWarps * 32, 0, s>>>(        \
-          xb, w, shb, scb, shift_stride, scale_stride, ob, scales, rows, n, d, layer, eps);            \
-    break;
-    LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4) LDMAE_CASE(5) LDMAE_CASE(6)
-    LDMAE_CASE(7) LDMAE_CASE(8) LDMAE_CASE(9) LDMAE_CASE(10) LDMAE_CASE(11) LDMAE_CASE(12)
-    LDMAE_CASE(13) LDMAE_CASE(14) LDMAE_CASE(15) LDMAE_CASE(16)
-#undef LDMAE_CASE
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s) {
   if (h % 8 != 0 || h > kMaxGateVec * 8 * kGateThreads || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* xb = static_cast<const T*>(x12);
@@ -299,21 +268,20 @@ cudaError_t gate_launch(const void* x12, void* out, float* scales, long long row
 
 }  // namespace
 
-// x: contiguous (b, n, d), bf16 (fp32 != 0: fp32), d a multiple of 8 (fp32:
-// 4) and <= 2048; w: (d,) fp32, or null for no weight (always unused when
-// layer != 0); shift, scale: (b, d) in x's dtype with unit column stride,
-// row i at shift + i * shift_stride (in elements). Writes out: (b, n, d)
-// int8 and scales: (b, n) fp32. Returns the CUDA error of the launch (0 on
-// success).
+// x: contiguous (b, n, d), bf16 (fp32 != 0: fp32), 16-byte aligned, d a
+// multiple of 8 (fp32: 4) and <= 2048; w: (d,) fp32, or null for no weight
+// (always unused when layer != 0); shift, scale: (b, d) in x's dtype with
+// unit column stride, row i at shift + i * shift_stride (in elements).
+// Writes out: (b, n, d) int8 and scales: (b, n) fp32. Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int ldmae_fused_norm_modulate_quant(const void* x, const float* w, const void* shift,
                                                const void* scale, long long shift_stride,
                                                long long scale_stride, void* out, float* scales,
                                                int b, int n, int d, int layer, float eps, int fp32,
                                                void* stream) {
+  const rows::Args a{x, w, shift, scale, shift_stride, scale_stride, out, scales, (long long)b * n, n, d, layer, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      fp32 ? norm_quant_launch<float>(x, w, shift, scale, shift_stride, scale_stride, out, scales, b, n, d, layer, eps, s)
-           : norm_quant_launch<bf16>(x, w, shift, scale, shift_stride, scale_stride, out, scales, b, n, d, layer, eps, s));
+  return static_cast<int>(fp32 ? rows::launch<ModulateQuant<float>>(a, s) : rows::launch<ModulateQuant<bf16>>(a, s));
 }
 
 // x12: contiguous (rows, 2h), bf16 (fp32 != 0: fp32), with h % 8 == 0 and h

@@ -31,13 +31,50 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_WIDTH = 2048  # row elements the norm kernels hold in registers (64 a lane)
 
 
-def _check_rows(what: str, x: torch.Tensor, d: int) -> None:
-    """x of a kernel dtype, its rows of d elements as the kernels take them."""
+def _check_rows(what: str, x: torch.Tensor) -> tuple[int, int, int]:
+    """x a (B, N, D) tensor as the row kernels (#3, #9) take it: contiguous,
+    16-byte aligned, of a kernel dtype, rows of D elements they hold.
+    Returns (B, N, D)."""
+    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be a contiguous, 16-byte aligned (B, N, D) tensor")
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{what}: the CUDA kernels take bf16 or fp32, got {x.dtype}")
+    b, n, d = x.shape
     unit = 16 // x.element_size()
     if d % unit or d > MAX_WIDTH:
         raise ValueError(f"{what}: D={d} must be a multiple of {unit} and <= {MAX_WIDTH} for {x.dtype}")
+    return b, n, d
+
+
+def _on_device(x: torch.Tensor, entry, *args) -> int:
+    """``entry(*args, stream)`` with x's device current and ``stream`` its
+    current CUDA stream. The device guard is entered only when another device
+    is current, and the stream is read as a raw handle: the guard and a
+    ``torch.cuda.Stream`` object took about 0.01 ms of host time a call,
+    more than half of #3's device time at batch 8 (PERF.md section 6)."""
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+def _param_rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """shift or scale as #3's kernel reads it: rows of x's dtype on x's
+    device with unit column stride, in place where they already are (a row
+    stride apart, as the adaLN projection writes them); a cast here is the
+    one rounding the TPU kernel does to x's dtype."""
+    if t.dtype != x.dtype or t.device != x.device:
+        t = t.to(device=x.device, dtype=x.dtype)
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _row_weight(weight: Optional[torch.Tensor], x: torch.Tensor, kind: str) -> Optional[torch.Tensor]:
+    """The RMSNorm weight as the row kernels read it (fp32 on x's device), or
+    None, which they take as a weight of ones (and always for kind='layer')."""
+    if kind == "rms" and weight is not None:
+        return weight.to(device=x.device, dtype=torch.float32).contiguous()
+    return None
 
 
 def fused_norm_modulate_plain(
@@ -142,31 +179,20 @@ def fused_norm_modulate(
 def _fused_norm_modulate_fwd(x, weight, shift, scale, *, kind: str, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_norm_modulate_plain(x, weight, shift, scale, kind=kind, eps=eps)
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_norm_modulate: x must be a contiguous (B, N, D) tensor")
-    b, n, d = x.shape
-    _check_rows("fused_norm_modulate", x, d)
+    what = "fused_norm_modulate"
+    b, n, d = _check_rows(what, x)
     if shift.shape != (b, d) or scale.shape != (b, d):
-        raise ValueError(f"fused_norm_modulate: shift/scale must be ({b}, {d})")
-    # The kernel reads shift and scale as rows of x's dtype (as the adaLN
-    # projection writes them, a row stride apart); a cast here is the one
-    # rounding the TPU kernel does to x's dtype.
-    shift, scale = (t.to(device=x.device, dtype=x.dtype) for t in (shift, scale))
-    shift, scale = (t if t.stride(-1) == 1 else t.contiguous() for t in (shift, scale))
-    f32 = dict(device=x.device, dtype=torch.float32)
-    w = None
-    if kind == "rms":
-        w = torch.ones(d, **f32) if weight is None else weight.to(**f32).contiguous()
+        raise ValueError(f"{what}: shift/scale must be ({b}, {d})")
+    shift, scale = _param_rows(shift, x), _param_rows(scale, x)
+    w = _row_weight(weight, x, kind)
     out = torch.empty_like(x)
-    lib = kernels.load("fused_norm_modulate")
-    with torch.cuda.device(x.device):
-        err = lib.ldmae_fused_norm_modulate(
-            x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
-            scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(), b, n, d,
-            int(kind == "layer"), eps, int(x.dtype == torch.float32),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    kernels.check(err, "fused_norm_modulate")
+    lib = kernels.load(what)
+    err = _on_device(
+        x, lib.ldmae_fused_norm_modulate, x.data_ptr(), None if w is None else w.data_ptr(),
+        shift.data_ptr(), scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(), b, n, d,
+        int(kind == "layer"), eps, int(x.dtype == torch.float32),
+    )
+    kernels.check(err, what)
     fused_norm_modulate.launches += 1
     return out
 
@@ -214,11 +240,7 @@ def fused_matmul_silu(
     out = torch.empty(*x.shape[:-1], h2 // 2, device=x.device, dtype=x.dtype)
     lib = kernels.load("fused_matmul_silu")
     entry = lib.ldmae_fused_matmul_silu if x.dtype == torch.bfloat16 else lib.ldmae_fused_matmul_silu_f32
-    with torch.cuda.device(x.device):
-        err = entry(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    err = _on_device(x, entry, x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2)
     kernels.check(err, "fused_matmul_silu")
     fused_matmul_silu.launches += 1
     return out
@@ -275,31 +297,25 @@ def fused_norm_modulate_quant(
         raise ValueError(f"unknown norm kind {kind!r}")
     if x.device.type == "cpu":
         return fused_norm_modulate_quant_plain(x, weight, shift, scale, kind=kind, eps=eps)
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_norm_modulate_quant: x must be a contiguous (B, N, D) tensor")
-    b, n, d = x.shape
-    _check_rows("fused_norm_modulate_quant", x, d)
+    what = "fused_norm_modulate_quant"
+    b, n, d = _check_rows(what, x)
     for name, t in (("shift", shift), ("scale", scale)):
         # read in place as rows of x's dtype a row stride apart (as the adaLN
         # projection writes them); a cast would be a rounding the TPU kernel
         # does not make
         if t.shape != (b, d) or t.dtype != x.dtype or t.device != x.device or t.stride(-1) != 1:
-            raise ValueError(f"fused_norm_modulate_quant: {name} must be {x.dtype} ({b}, {d}) rows "
+            raise ValueError(f"{what}: {name} must be {x.dtype} ({b}, {d}) rows "
                              f"with unit column stride on {x.device}")
-    w = None
-    if kind == "rms" and weight is not None:
-        w = weight.to(device=x.device, dtype=torch.float32).contiguous()
+    w = _row_weight(weight, x, kind)
     out = torch.empty(b, n, d, device=x.device, dtype=torch.int8)
     scales = torch.empty(b, n, 1, device=x.device, dtype=torch.float32)
     lib = kernels.load("fused_quant")
-    with torch.cuda.device(x.device):
-        err = lib.ldmae_fused_norm_modulate_quant(
-            x.data_ptr(), None if w is None else w.data_ptr(), shift.data_ptr(),
-            scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(),
-            scales.data_ptr(), b, n, d, int(kind == "layer"), eps, int(x.dtype == torch.float32),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    kernels.check(err, "fused_norm_modulate_quant")
+    err = _on_device(
+        x, lib.ldmae_fused_norm_modulate_quant, x.data_ptr(), None if w is None else w.data_ptr(),
+        shift.data_ptr(), scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(),
+        scales.data_ptr(), b, n, d, int(kind == "layer"), eps, int(x.dtype == torch.float32),
+    )
+    kernels.check(err, what)
     fused_norm_modulate_quant.launches += 1
     return out, scales
 
@@ -330,11 +346,8 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     out = torch.empty(*x12.shape[:-1], h, device=x12.device, dtype=torch.int8)
     scales = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
     lib = kernels.load("fused_quant")
-    with torch.cuda.device(x12.device):
-        err = lib.ldmae_fused_silu_mul_quant(
-            x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows, h, int(x12.dtype == torch.float32),
-            torch.cuda.current_stream(x12.device).cuda_stream,
-        )
+    err = _on_device(x12, lib.ldmae_fused_silu_mul_quant, x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows,
+                     h, int(x12.dtype == torch.float32))
     kernels.check(err, "fused_silu_mul_quant")
     fused_silu_mul_quant.launches += 1
     return out, scales

@@ -344,15 +344,90 @@ def _assert_quant_close(out, ref):
     torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
 
 
+# (B, N) of the row-engine tests: rows ragged against every tile, one row,
+# fewer rows than the SMs, and bench.py's batch 36 CFG-doubled
+ROW_COUNTS = [(4, 256), (16, 200), (1, 1), (3, 7), (1, 100), (72, 1024)]
+
+
+def _six_views(ada):
+    """(shift, scale) pairs covering each of the six strided (B, D) views of
+    the adaLN projection's (B, 6, D) output as shift and as scale."""
+    return [(ada[:, k], ada[:, (k + 1) % 6]) for k in range(6)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["rms", "layer"])
-def test_cuda_fused_norm_modulate_quant_vs_plain(cuda, kind):
-    x = _bf16((4, 256, 768), 0, cuda) * 3
+@pytest.mark.parametrize("b,n", ROW_COUNTS)
+def test_cuda_fused_norm_modulate_quant_vs_plain(cuda, kind, b, n):
+    """#9 (and #3 beside it) at ragged, tiny and large row counts, shift and
+    scale as every strided view of the adaLN projection's output."""
+    x = _bf16((b, n, 768), 0, cuda) * 3
     w = 1 + 0.1 * _bf16((768,), 1, cuda).float()
-    ada = _bf16((4, 6, 768), 2, cuda) * 0.1
+    ada = _bf16((b, 6, 768), 2, cuda) * 0.1
+    for sh, sc in _six_views(ada):
+        _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
+                            tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+        torch.testing.assert_close(tfad.fused_norm_modulate(x, w, sh, sc, kind=kind).float(),
+                                   tfad.fused_norm_modulate_plain(x, w, sh, sc, kind=kind).float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_row_kernels_launch_on_the_current_stream(cuda):
+    """The wrappers launch on the caller's current stream (read as a raw
+    handle by ``_on_device``): on a side stream, x is written after a long
+    spin, so a launch on any other stream would read it unwritten."""
+    src = _bf16((16, 1024, 768), 0, cuda)
+    w = 1 + 0.1 * _bf16((768,), 1, cuda).float()
+    ada = _bf16((16, 6, 768), 2, cuda) * 0.1
     sh, sc = ada[:, 0], ada[:, 1]
-    _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
-                        tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e8))
+        x = src * 3
+        out = tfad.fused_norm_modulate(x, w, sh, sc)
+        q = tfad.fused_norm_modulate_quant(x, w, sh, sc)
+    side.synchronize()
+    torch.testing.assert_close(out.float(), tfad.fused_norm_modulate_plain(x, w, sh, sc).float(), **BF16_TOL)
+    _assert_quant_close(q, tfad.fused_norm_modulate_quant_plain(x, w, sh, sc))
+
+
+def _near_half_row(absmax, d, seed):
+    """d values whose quotients by the row scale max(absmax / 127, 1e-8)
+    lie within 0-4 fp32 ulps of k + 0.5, with +-absmax among them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.tensor(absmax, dtype=torch.float32)
+    qs = torch.clamp_min(a / 127, 1e-8)
+    t = (torch.randint(-127, 127, (d,), generator=g).float() + 0.5) * qs
+    for _ in range(4):  # up to four ulps either way
+        step = torch.randint(-1, 2, (d,), generator=g).float()
+        t = torch.nextafter(t, t + step * torch.inf).where(step != 0, t)
+    t = t.clamp(-a, a)
+    t[:2] = torch.stack([a, -a])
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_fused_norm_modulate_quant_int8_is_true_division_rounding(cuda, dtype):
+    """x = 0 makes the normalised row 0, so o = shift exactly: #9's int8
+    values (a reciprocal with a fix-up) are then bit for bit round(o / qs)
+    by true division, and its scales max(absmax / 127, 1e-8), on rows whose
+    quotients sit within a few ulps of half-integers, at qs's 1e-8 floor and
+    on seeded normal rows."""
+    d, n = 768, 4
+    rows = [_near_half_row(a, d, i) for i, a in enumerate((3.0, 0.37, 117.0, 15.875, 1.2e-6))]
+    rows += [_randn((d,), 5 + i, "cpu", torch.float32, s) for i, s in enumerate((0.05, 3.0))]
+    sh = torch.stack(rows).to(dtype)  # bf16: rounded once here; o is then this row exactly
+    b = len(rows)
+    sc = _randn((b, d), 9, cuda, dtype, 0.3)
+    x = torch.zeros(b, n, d, device=cuda, dtype=dtype)
+    q, s = tfad.fused_norm_modulate_quant(x, None, sh.to(cuda), sc)
+    torch.cuda.synchronize()
+    o = sh.float().to(cuda)[:, None, :].expand(b, n, d)
+    qs = torch.clamp_min(o.abs().amax(-1, keepdim=True) / 127, 1e-8)
+    assert torch.equal(s, qs)
+    assert torch.equal(q, torch.round(o / qs).to(torch.int8))
 
 
 @pytest.mark.gpu
@@ -489,19 +564,23 @@ def test_cuda_flash_attention_past_resident_n_runs_the_core(cuda):
 @pytest.mark.parametrize("kind", ["rms", "layer"])
 @pytest.mark.parametrize("d", [64, 768, 1024, 1152, 1536, 1792])  # every width of the DiT registry
 def test_cuda_fused_norm_modulate_registry_widths(cuda, d, kind):
-    """#3 and #9 at every DiT registry width, in bf16 and fp32."""
+    """#3 and #9 at every DiT registry width, in bf16 and fp32, at ragged
+    and small row counts (one row; fewer rows than the SMs), shift and
+    scale as every strided view of the adaLN projection's output."""
     for dtype in (torch.bfloat16, torch.float32):
-        x = _randn((2, 64, d), 0, cuda, dtype, 3.0)
-        w = 1 + 0.1 * _randn((d,), 1, cuda, torch.float32)
-        ada = _randn((2, 6, d), 2, cuda, dtype, 0.1)
-        sh, sc = ada[:, 0], ada[:, 1]
-        out, ref = tfad.fused_norm_modulate(x, w, sh, sc, kind=kind), tfad.fused_norm_modulate_plain(x, w, sh, sc, kind=kind)
-        if dtype == torch.float32:
-            _assert_f32_close(out, ref)
-        else:
-            torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
-        _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
-                            tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+        for b, n in ((2, 64), (16, 200), (1, 1), (3, 7), (1, 100)):
+            x = _randn((b, n, d), 0, cuda, dtype, 3.0)
+            w = 1 + 0.1 * _randn((d,), 1, cuda, torch.float32)
+            ada = _randn((b, 6, d), 2, cuda, dtype, 0.1)
+            for sh, sc in _six_views(ada):
+                out = tfad.fused_norm_modulate(x, w, sh, sc, kind=kind)
+                ref = tfad.fused_norm_modulate_plain(x, w, sh, sc, kind=kind)
+                if dtype == torch.float32:
+                    _assert_f32_close(out, ref)
+                else:
+                    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+                _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
+                                    tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
 
 
 @pytest.mark.gpu
