@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 It builds the port's CUDA kernels from ``ldmae_tpu_torch/csrc`` (one nvcc
 per source, in parallel) and prints ``-Xptxas -v``'s registers, shared
-memory and spills of the wgmma kernels and the row engine, measures the
+memory and spills of the wgmma kernels (the GEMM engine's instantiations
+among them) and the row engine, measures the
 SFU's ex2 and the bf16 packing's throughput (the exponential term of the
 attention bounds), then:
 
@@ -22,15 +23,21 @@ attention bounds), then:
      replaced, #3 and #9 (the streaming row engine) warm, with the
      device's queue full and with a cold L2, and the host time a call of
      their wrappers and of their bare C entries; then the same
-     at ``bench.py``'s batch 36; then times the int8 product of the w8a8
-     leg (``torch._int_mm``, checked exact) beside cuBLAS bf16 at the same
-     shapes;
+     at ``bench.py``'s batch 36; then ``int8_dense``, the w8a8 leg's linear
+     layer (int8 wgmma with the dequant in its epilogue, ``csrc/dense.cu``),
+     bit for bit against its plain version (``torch._int_mm`` and the fp32
+     dequant passes) at the path's four shapes at batch 8 and 36 (and in
+     fp32 out), timed warm, queued and cold beside that plain version,
+     ``torch._int_mm`` alone and cuBLAS bf16;
   1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
      80 and 128 against their plain versions; every fp32 instantiation
      (#1, #2, #5, #6 at the training shape (32, 12, 1024, 64); #3, #4, #9,
      #10 at the B/1 shapes; #7, #8 at batch 8) against its plain fp32
      version, timed; ``dense`` in bf16 with an fp32 bias against fp64 math
-     (one rounding), with the bias rounded first as a control that fails;
+     (one rounding), with the bias rounded first as a control that fails,
+     at every linear shape of the paths (the engine's Wide and Narrow
+     configurations), timed warm, queued and cold beside cuBLAS's bf16
+     ``F.linear``;
   2. drives the bf16 main path through its entry points: LightningDiT-B/1
      + VMAE f8d16_prev at full width with seeded random weights (non-zero
      gates), batch 8, 250 Euler steps, timestep shift 0.3, CFG 10 on
@@ -90,6 +97,10 @@ launches from the path that runs each kernel), and as its last line
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
 
+``python3 chip_smoke.py --linear`` times only the linear layers' kernels
+(#4, ``dense``, ``qdense_pre``) through wrappers that earlier commits have
+too, likewise for comparisons within one call.
+
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
 and ends with a ``{"rows": {...}}`` line: copied into a checkout of an
@@ -111,10 +122,12 @@ import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at the 700 W limit
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
 _FA, _FA32 = "ldmae_tpu_torch/csrc/flash_attention.cu", "ldmae_tpu_torch/csrc/flash_attention_fp32.cu"
 _PALLAS_FA, _PALLAS_AD = "ldmae_tpu/ops/flash_attention.py", "ldmae_tpu/ops/fused_adaln.py"
+_DENSE = "ldmae_tpu_torch/csrc/dense.cu"
 # kernels-line name -> (source, the Pallas call it replaces, the path whose
 # launches it reports, the wrapper that counts them); the fp32 entries are
 # the fp32 instantiations (their own kernels) behind the same wrappers
@@ -146,10 +159,16 @@ KERNELS = {
                                   "fused_silu_mul_quant"),
     "flash_attention_qknorm_rope_fp32": (_FA32, f"{_PALLAS_FA}:282", "sample_fp32_qkr", "flash_attention_qknorm_rope"),
     "flash_attention_fused_rope_fp32": (_FA32, f"{_PALLAS_FA}:550", "sample_fp32_fused", "flash_attention_fused_rope"),
+    # the port's own kernels for two XLA ops: dense's bf16 linear with its
+    # fp32 bias, and the w8a8 linear (int8 GEMM + dequant; bf16 and fp32 out)
+    "dense": (_DENSE, "ldmae_tpu/ops/linear.py:21", "bf16", "dense_bias_f32"),
+    "int8_dense": (_DENSE, "ldmae_tpu/ops/quant.py:97", "w8a8", "int8_dense"),
+    "int8_dense_fp32": (_DENSE, "ldmae_tpu/ops/quant.py:97", "sample_fp32_w8a8", "int8_dense"),
 }
 WRAPPERS = ("flash_attention_rope", "flash_attention", "fused_norm_modulate", "fused_matmul_silu",
             "flash_attention_qknorm_rope", "flash_attention_fused_rope", "fused_norm_modulate_quant",
-            "fused_silu_mul_quant", "flash_attention_bwd", "flash_attention_rope_bwd", "flash_attention_resident")
+            "fused_silu_mul_quant", "flash_attention_bwd", "flash_attention_rope_bwd", "flash_attention_resident",
+            "dense_bias_f32", "int8_dense")
 
 BATCH, STEPS, CFG_SCALE, SHIFT, CFG_START = 8, 250, 10.0, 0.3, 0.10
 SHORT_STEPS = 10  # the comparisons between impls
@@ -181,45 +200,59 @@ GRAD_F32_REL_L2 = 1e-3  # the same in fp32: summation order only
 _NONE = dict.fromkeys(WRAPPERS, 0)
 _EVALS = (STEPS - 1) * DEPTH  # block forwards of one 250-step batch (the last step evaluates nothing)
 _SHORT = (SHORT_STEPS - 1) * DEPTH
+# dense's launches (bf16 with a bias; fp32 runs cuBLAS): per DiT forward the
+# patch embedding, the timestep MLP's two linears and the final layer's two,
+# and per block the adaLN linear, qkv, proj and w3 (w12 is #4) in bf16, proj
+# alone in w8a8 (the other block linears are int8_dense's four); per VMAE
+# decode the latent projection, decoder_embed, the four linears of each
+# block and the pred head
+_DENSE_FWD, _DENSE_FWD_W8A8, _DENSE_DECODE = 5 + 4 * DEPTH, 5 + DEPTH, 3 + 4 * DEC_DEPTH
 # exact launch counts per path: every wrapper is counted, so each dict names all of them
 EXPECTED_LAUNCHES = {
     "bf16": _NONE | {"flash_attention_rope": _EVALS, "fused_norm_modulate": 2 * _EVALS,
-                     "fused_matmul_silu": _EVALS, "flash_attention_resident": DEC_DEPTH},
+                     "fused_matmul_silu": _EVALS, "flash_attention_resident": DEC_DEPTH,
+                     "dense_bias_f32": (STEPS - 1) * _DENSE_FWD + _DENSE_DECODE},
     "w8a8": _NONE | {"fused_norm_modulate_quant": 2 * _EVALS, "fused_silu_mul_quant": _EVALS,
-                     "flash_attention_rope": _EVALS, "flash_attention_resident": DEC_DEPTH},
+                     "flash_attention_rope": _EVALS, "flash_attention_resident": DEC_DEPTH,
+                     "int8_dense": 4 * _EVALS, "dense_bias_f32": (STEPS - 1) * _DENSE_FWD_W8A8 + _DENSE_DECODE},
     # 10 steps, latents only (the decode is compared apart)
     "flash_qkr": _NONE | {"flash_attention_qknorm_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
-                          "fused_matmul_silu": _SHORT},
+                          "fused_matmul_silu": _SHORT, "dense_bias_f32": (SHORT_STEPS - 1) * _DENSE_FWD},
     "flash_fused": _NONE | {"flash_attention_fused_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
-                            "fused_matmul_silu": _SHORT},
-    # VMAE decode of an arch off the resident kernel's head dims (12, 24), bf16 or fp32
-    "decode": _NONE | {"flash_attention": DEC_DEPTH},
+                            "fused_matmul_silu": _SHORT, "dense_bias_f32": (SHORT_STEPS - 1) * _DENSE_FWD},
+    # VMAE decode of an arch off the resident kernel's head dims (12, 24), bf16 and fp32
+    "decode": _NONE | {"flash_attention": DEC_DEPTH, "dense_bias_f32": _DENSE_DECODE},
+    "decode_fp32": _NONE | {"flash_attention": DEC_DEPTH},
 }
 # the 10-step paths in fp32 (parallel.compute_dtype: float32), latents only
 EXPECTED_LAUNCHES |= {
     "sample_fp32": _NONE | {"flash_attention_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
                             "fused_matmul_silu": _SHORT},
     "sample_fp32_w8a8": _NONE | {"fused_norm_modulate_quant": 2 * _SHORT, "fused_silu_mul_quant": _SHORT,
-                                 "flash_attention_rope": _SHORT},
-    "sample_fp32_qkr": EXPECTED_LAUNCHES["flash_qkr"],
-    "sample_fp32_fused": EXPECTED_LAUNCHES["flash_fused"],
+                                 "flash_attention_rope": _SHORT, "int8_dense": 4 * _SHORT},
+    "sample_fp32_qkr": _NONE | {"flash_attention_qknorm_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
+                                "fused_matmul_silu": _SHORT},
+    "sample_fp32_fused": _NONE | {"flash_attention_fused_rope": _SHORT, "fused_norm_modulate": 2 * _SHORT,
+                                  "fused_matmul_silu": _SHORT},
 }
 # Training with remat_policy 'attn' (two checkpointed segments per block,
 # split at the attention output): per step and block the forward runs #1
 # (or #2) once and #3 twice, the backward recomputes both segments (#1 or #2
 # once more, #3 twice more) and runs the backward kernel #6 (or #5) once;
 # the final layer's norm is not fused, and the MLP stays 'xla' in training.
+# dense in bf16: the forward's 5 + 5 per block (w12 too), and the recomputed
+# segments' four block linears a block again.
 def _train_counts(steps: int, depth: int = DEPTH) -> dict:
-    return dict(fwd=2 * depth * steps, adaln=4 * depth * steps, bwd=depth * steps)
+    return dict(fwd=2 * depth * steps, adaln=4 * depth * steps, bwd=depth * steps, dense=(5 + 9 * depth) * steps)
 
 
 for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TRAIN_STEPS)):
     _n = _train_counts(_steps)
     EXPECTED_LAUNCHES[_path] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                        "flash_attention_rope_bwd": _n["bwd"]}
+                                        "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
 _n = _train_counts(INTERLEAVED_STEPS)
 EXPECTED_LAUNCHES["interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                            "flash_attention_bwd": _n["bwd"]}
+                                            "flash_attention_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
 _n = _train_counts(FP32_STEPS)
 EXPECTED_LAUNCHES["train_fp32"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
                                            "flash_attention_rope_bwd": _n["bwd"]}
@@ -420,13 +453,14 @@ def rate_probes(dev) -> None:
             f"x {iters} x 8")
 
 
-def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0, exps: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0, exps: float = 0.0,
+          int8_ops: float = 0.0) -> tuple[float, str]:
     """Least time in ms for the work: the larger of bytes over the memory
     rate and the operations' time, itself the largest of tensor-core bf16
-    operations, plain fp32 operations and exponentials over their units'
-    rates (the units run side by side; exponentials over the measured SFU
-    rate)."""
-    t_ops = max(bf16_flops / PEAK_BF16_FLOPS, fp32_flops / PEAK_FP32_FLOPS,
+    operations, tensor-core int8 operations, plain fp32 operations and
+    exponentials over their units' rates (the units run side by side;
+    exponentials over the measured SFU rate)."""
+    t_ops = max(bf16_flops / PEAK_BF16_FLOPS, int8_ops / PEAK_INT8_OPS, fp32_flops / PEAK_FP32_FLOPS,
                 exps / RATES["ex2"] if exps else 0.0) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -566,6 +600,25 @@ def engine_ptxas(report: dict) -> None:
             log(f"  ptxas norm_rows_kernel {lib} {what}: {ptxas_summary(report[lib]['ptxas'], epi + inst)}")
 
 
+def gemm_ptxas(report: dict) -> None:
+    """ptxas's report of each instantiation of the GEMM engine
+    (csrc/gemm.cuh): #4 and the dense / int8_dense configurations, named
+    by operand type, accumulator columns, cluster, stages and epilogue."""
+    import re
+
+    for lib in ("fused_matmul_silu", "dense"):
+        log_ = report[lib]["ptxas"]
+        for name in sorted(set(re.findall(r"Compiling entry function '(_ZN4gemm11gemm_kernel[^']*)'", log_))):
+            cfg = re.search(r"ConfigI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE", name)
+            epi = re.search(r"(BiasEpi|GateEpi|DequantEpiI13__nv_bfloat16E|DequantEpiIfE)", name)
+            if cfg is None or epi is None:
+                log(f"  ptxas {name}: {ptxas_summary(log_, name)}")
+                continue
+            label = (f"{'bf16' if cfg[1].startswith('13') else 'int8'} BN={cfg[2]} cluster={cfg[3]} "
+                     f"stages={cfg[4]}x{cfg[5]} {epi[1].replace('I13__nv_bfloat16E', '<bf16>').replace('IfE', '<fp32>')}")
+            log(f"  ptxas gemm_kernel {label}: {ptxas_summary(log_, name)}")
+
+
 def rows_only(dev) -> int:
     """``--rows``: the #3 / #9 row phases alone, at every shape the full run
     times them at, and a ``{"rows": ...}`` line of their numbers."""
@@ -585,6 +638,59 @@ def rows_only(dev) -> int:
         for name, (err, ms, plain_ms, _, bound_ms, _, parts) in adaln_row_kernels(dev, b, what, dtype).items():
             out[f"{name} {what}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms} | parts
     log(json.dumps({"rows": out}))
+    return 0
+
+
+def linear_only(dev) -> int:
+    """``--linear``: the linear layers' kernels alone, through wrappers an
+    earlier commit has too (``ops.dense``, ``fused_matmul_silu``,
+    ``quant.qdense_pre``), so that copied into an unpacked parent it times
+    the parent's by the same means: #4 at its sampling shape, ``dense`` at
+    DENSE_SHAPES and ``qdense_pre`` at the int8 shapes of batch 8, each
+    queued (the device alone; median of three), cold and warm, with the
+    host time a call at the adaLN shapes; ``qdense_pre`` held bit for bit
+    against ``torch._int_mm`` and the fp32 dequant passes. Ends with a
+    ``{"linear": {...}}`` line."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import dense
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops import quant
+
+    t0 = time.perf_counter()
+    kernels.build([n for n in ("fused_matmul_silu", "dense") if n in kernels.LIBRARIES])
+    log(f"[build] {time.perf_counter() - t0:.2f} s for the GEMM libraries")
+    g = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+
+    def timed(key, run, host=False):
+        r = {"queued_ms": sorted(queued_ms(run) for _ in range(3))[1], "cold_ms": cold_ms(run),
+             "warm_ms": cuda_ms(run, 20)}
+        if host:
+            r["host_ms"] = host_ms(run)
+        out[key] = r
+        log(f"  {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+
+    x = torch.randn(16384, 768, generator=g, device=dev).bfloat16()
+    w12 = (torch.randn(4096, 768, generator=g, device=dev) * 768**-0.5).bfloat16()
+    b12 = torch.randn(4096, generator=g, device=dev) * 0.1
+    timed("fused_matmul_silu (16384x768 -> 2x2048)", lambda: fad.fused_matmul_silu(x, w12, b12))
+    for name, m, k, n in DENSE_SHAPES:
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        w = (torch.randn(n, k, generator=g, device=dev) * k**-0.5).bfloat16()
+        b = torch.randn(n, generator=g, device=dev)
+        timed(f"dense {name} ({m}x{k} -> {n})", lambda: dense(x, w, b), host=name == "adaLN")
+    for name, k, n in INT8_SHAPES:
+        m = 2 * BATCH * (1 if name == "adaLN" else 1024)
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        p = quant.QLinear(torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8),
+                          torch.rand(n, generator=g, device=dev) * 1e-3, torch.randn(n, generator=g, device=dev))
+        xs = torch.rand(m, 1, generator=g, device=dev) * 1e-2
+        if not torch.equal(quant.qdense_pre(a, xs, p), quant._dequant(quant._int_mm(a, p.w_q), xs, p, torch.bfloat16)):
+            raise SystemExit(f"qdense_pre {name}: not bit for bit torch._int_mm and the dequant passes")
+        timed(f"qdense_pre {name} ({m}x{k} -> {n})", lambda: quant.qdense_pre(a, xs, p), host=name == "adaLN")
+    log(json.dumps({"linear": out}))
     return 0
 
 
@@ -741,35 +847,86 @@ def kernel_phases(dev, batch: int) -> dict:
     return rows
 
 
-def int8_gemm_phase(dev, batch: int) -> None:
-    """The int8 products of the w8a8 leg at the path's shapes: ``torch._int_mm``
-    with the weight as the transposed view of its contiguous (out, in) int8
-    tensor (the layout the port passes), checked exact against an fp64
-    product, timed beside cuBLAS bf16 (``F.linear``) at the same shape and
-    beside the whole ``qdense_pre`` (product + fp32 dequant passes)."""
+def linear_timings(run, lib=None) -> dict:
+    """The times of a linear-layer kernel (and of its library yardstick):
+    warm (``cuda_ms``, median of three windows of 20 calls; reads the
+    host's launch time where that is the longer), queued (the device's time
+    alone) and with a cold L2."""
+    warm = sorted(cuda_ms(run, 20) for _ in range(3))
+    out = {"ms": warm[1], "queued_ms": queued_ms(run), "cold_ms": cold_ms(run)}
+    if lib is not None:
+        out |= {"library_ms": cuda_ms(lib, 20), "library_queued_ms": queued_ms(lib)}
+    return out
+
+
+# the w8a8 leg's int8 linears on B/1 (name, K, N); M = 2 * batch * 1024 tokens
+# under CFG, the adaLN linear's 2 * batch rows
+INT8_SHAPES = (("qkv", 768, 2304), ("w12", 768, 4096), ("w3", 2048, 768), ("adaLN", 768, 4608))
+
+
+def int8_gemm_phase(dev, batch: int) -> dict:
+    """``int8_dense``, the w8a8 linear (int8 wgmma with the dequant in its
+    epilogue), at the path's four shapes under CFG at ``batch`` images: bit
+    for bit its plain version (``torch._int_mm``, then the fp32 dequant
+    passes), and in fp32 out at qkv; timed warm, queued and cold
+    (``linear_timings``) beside the plain version, ``torch._int_mm`` alone
+    (the int32 product, no dequant) and cuBLAS bf16 (``F.linear``) at the
+    same shape; bound: int8 operations over 1,979 TOP/s or the bytes (x, w,
+    out, scales, bias once each). At batch 8 also the host time a call of
+    the wrapper at the adaLN shape, against the plain version's. Returns the
+    kernels line's rows: int8_dense at qkv with every shape's numbers among
+    its parts, int8_dense_fp32 at qkv."""
     import torch
     import torch.nn.functional as F
 
-    from ldmae_tpu_torch.ops.quant import QLinear, _int_mm, qdense_pre
+    from ldmae_tpu_torch.ops.quant import QLinear, _int_mm, int8_dense, int8_dense_plain
 
     g = torch.Generator(device=dev).manual_seed(5)
-    m = 2 * batch * 1024
-    for name, rows_, k, n in (("qkv", m, 768, 2304), ("w12", m, 768, 4096), ("w3", m, 2048, 768),
-                              ("adaLN", 2 * batch, 768, 4608)):
-        a = torch.randint(-127, 128, (rows_, k), generator=g, device=dev, dtype=torch.int8)
+    rows, parts = {}, {}
+    for name, k, n in INT8_SHAPES:
+        m = 2 * batch * (1 if name == "adaLN" else 1024)
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        exact = torch.equal(_int_mm(a, w).double(), a.double() @ w.double().t())
-        if not exact:
-            raise SystemExit(f"torch._int_mm ({name}) is not the exact int32 product")
-        p = QLinear(w, torch.rand(n, generator=g, device=dev) * 1e-3, torch.zeros(n, device=dev))
-        xs = torch.rand(rows_, 1, generator=g, device=dev) * 1e-2
-        xb, wb = a.bfloat16(), w.bfloat16()
-        int_ms = cuda_ms(lambda: _int_mm(a, w), 20)
-        pre_ms = cuda_ms(lambda: qdense_pre(a, xs, p), 20)
-        bf_ms = cuda_ms(lambda: F.linear(xb, wb), 20)
-        log(f"  int8 GEMM {name} M={rows_} K={k} N={n} (batch {batch}): torch._int_mm {int_ms:.4f} ms "
-            f"(exact), qdense_pre {pre_ms:.4f} ms, cuBLAS bf16 {bf_ms:.4f} ms")
+        p = QLinear(w, torch.rand(n, generator=g, device=dev) * 1e-3, torch.randn(n, generator=g, device=dev))
+        xs = torch.rand(m, 1, generator=g, device=dev) * 1e-2
+        for dtype in (torch.bfloat16, torch.float32) if name == "qkv" else (torch.bfloat16,):
+            out, ref = int8_dense(a, xs, p, dtype), int8_dense_plain(a, xs, p, dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise SystemExit(f"int8_dense {name} {dtype}: not bit for bit the plain version "
+                                 f"(max |diff| {float((out.float() - ref.float()).abs().max())})")
+            t = linear_timings(lambda: int8_dense(a, xs, p, dtype))
+            plain_ms = cuda_ms(lambda: int8_dense_plain(a, xs, p, dtype), 10)
+            int_mm_ms = queued_ms(lambda: _int_mm(a, w))
+            xb, wb = a.bfloat16(), w.bfloat16()
+            bf16_ms = queued_ms(lambda: F.linear(xb, wb))
+            bnd = bound(m * k + n * k + m * n * out.element_size() + 4 * m + 8 * n, int8_ops=2 * m * k * n)
+            fp32 = dtype == torch.float32
+            log(f"  int8_dense {name}{' fp32 out' if fp32 else ''} M={m} K={k} N={n} (batch {batch}): bit for bit "
+                f"the plain version; warm {t['ms']:.4f} ms, queued {t['queued_ms']:.4f}, cold L2 {t['cold_ms']:.4f}; "
+                f"torch._int_mm alone {int_mm_ms:.4f} (queued), plain qdense_pre {plain_ms:.4f}, cuBLAS bf16 "
+                f"{bf16_ms:.4f} (queued); bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / t['queued_ms']:.3f} "
+                f"(queued), {bnd[0] / t['cold_ms']:.3f} (cold); queued / torch._int_mm "
+                f"{t['queued_ms'] / int_mm_ms:.3f}")
+            key = "int8_dense_fp32" if fp32 else name
+            row = {"queued_ms": t["queued_ms"], "cold_ms": t["cold_ms"], "int_mm_ms": int_mm_ms,
+                   "cublas_bf16_ms": bf16_ms, "plain_ms": plain_ms, "bound_ms": bnd[0]}
+            if fp32:
+                rows["int8_dense_fp32"] = (0.0, t["ms"], plain_ms, None, *bnd, row)
+            elif name == "qkv":
+                rows["int8_dense"] = (0.0, t["ms"], plain_ms, None, *bnd, row)
+            else:
+                parts |= {f"{key}_{k_}": v for k_, v in row.items()} | {f"{key}_ms": t["ms"]}
+            if name == "adaLN" and batch == BATCH:
+                host = {"host_ms": host_ms(lambda: int8_dense(a, xs, p, dtype)),
+                        "plain_host_ms": host_ms(lambda: int8_dense_plain(a, xs, p, dtype))}
+                parts |= {f"adaLN_{k_}": v for k_, v in host.items()}
+                log(f"  int8_dense adaLN: host time a call {host['host_ms']:.4f} ms (the plain qdense_pre's "
+                    f"torch._int_mm and dequant passes {host['plain_host_ms']:.4f})")
+        del a, w, p
     torch.cuda.empty_cache()
+    rows["int8_dense"][-1].update(parts)
+    return rows
 
 
 def build_models(dev):
@@ -1411,7 +1568,7 @@ def train_profile_phase(dev) -> None:
 
 PROFILE_STEPS = 50  # 14 single-batch Euler steps, 35 doubled: the main path's split in proportion
 OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel", "norm_rows_kernel",
-               "matmul_silu_kernel", "silu_mul_quant_kernel",
+               "gemm_kernel", "silu_mul_quant_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_preprocess_kernel",
                "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel", "flash_fwd_resident_kernel",
                "norm_rope_any_kernel", "flash32_", "matmul_silu_f32_kernel")
@@ -1691,39 +1848,92 @@ def dense_ulp_error(out, x, w, b) -> float:
     return float((((out.double() - exact).abs() - 2.0**-14 * mag) / ulp).max())
 
 
-def dense_phase(dev) -> None:
-    """``dense`` in bf16 with an fp32 bias at the B/1 shapes (batch 8 under
-    CFG) and at the MAE-huge decoder head's ragged N = 588: within half a
+# dense's bf16 linears on the paths (name, M, K, N): B/1 under CFG at batch 8
+# (the adaLN, final adaLN and timestep linears take one row a sample), a
+# single-batch step's M = 8,192, the training forward's M = 32,768, the
+# patch-14 head
+DENSE_SHAPES = (("qkv", 16384, 768, 2304), ("proj", 16384, 768, 768), ("w3", 16384, 2048, 768),
+                ("adaLN", 16, 768, 4608), ("final adaLN", 16, 768, 1536), ("timestep MLP 1", 16, 256, 768),
+                ("timestep MLP 2", 16, 768, 768), ("final layer", 16384, 768, 16), ("qkv M=8192", 8192, 768, 2304),
+                ("w3 M=8192", 8192, 2048, 768), ("qkv training", 32768, 768, 2304),
+                ("patch-14 head", 2048, 512, 588))
+
+
+def dense_phase(dev) -> dict:
+    """``dense`` in bf16 with an fp32 bias at DENSE_SHAPES: within half a
     bf16 ulp of fp64 math on the same operands rounded once
     (``dense_ulp_error``), where the bias rounded to bf16 first (a bf16
-    F.linear, the port's dense before) must read above 0.6 ulp; both timed,
-    also by device time alone."""
+    F.linear, as the port's dense once did) must read above 0.6 ulp (over
+    512 rows where M is smaller); timed warm, queued and cold beside that
+    F.linear (``linear_timings``), with bound (bf16 flops over 989 TFLOP/s or
+    the bytes) and share; at the adaLN shape the host time a call of the
+    wrapper, of its bare C entry, and of that entry inside a
+    ``torch.cuda.device`` guard with ``torch.cuda.current_stream``'s handle
+    (the wrapper before ``kernels.on_device``). Returns the kernels line's
+    row: dense at qkv, every shape's numbers among its parts."""
     import torch
     import torch.nn.functional as F
 
+    from ldmae_tpu_torch import kernels
     from ldmae_tpu_torch.ops import dense
 
     gen = torch.Generator(device=dev).manual_seed(29)
-    log("[dense] bf16 x bf16 + fp32 bias, one rounding (the wgmma GEMM's fp32-bias epilogue) vs fp64; error in "
-        "bf16 ulps")
-    for name, m, k, n in (("qkv", 16384, 768, 2304), ("proj", 16384, 768, 768), ("w3", 16384, 2048, 768),
-                          ("adaLN", 16, 768, 4608), ("final layer", 16384, 768, 16),
-                          ("patch-14 head", 2048, 512, 588)):
+    log("[dense] bf16 x bf16 + fp32 bias, one rounding (the GEMM engine's dense kernel) vs fp64; error in "
+        "bf16 ulps; ms queued = device time alone, warm = with the host's launch time")
+    parts, row = {}, None
+    for name, m, k, n in DENSE_SHAPES:
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
         w = (torch.randn(n, k, generator=gen, device=dev) * k**-0.5).bfloat16()
         b = torch.randn(n, generator=gen, device=dev)
-        ours, parent = dense_ulp_error(dense(x, w, b), x, w, b), dense_ulp_error(F.linear(x, w, b.bfloat16()), x, w, b)
-        ms = cuda_ms(lambda: dense(x, w, b), 20)
-        lin_ms = cuda_ms(lambda: F.linear(x, w, b.bfloat16()), 20)
-        dev_ms, lin_dev_ms = device_ms(lambda: dense(x, w, b)), device_ms(lambda: F.linear(x, w, b.bfloat16()))
+        xc = x if m >= 512 else torch.randn(512, k, generator=gen, device=dev).bfloat16()
+        ours, parent = dense_ulp_error(dense(x, w, b), x, w, b), dense_ulp_error(F.linear(xc, w, b.bfloat16()), xc, w, b)
         ok = ours <= 0.5 and parent > 0.6
-        log(f"  {name} ({m}x{k} -> {n}): dense max error {ours:.4f} ulp (bound 0.5); bias rounded "
-            f"to bf16 first {parent:.4f} ulp (must exceed 0.6); dense {ms:.4f} ms (device {fmt_ms(dev_ms)}), bf16 "
-            f"F.linear {lin_ms:.4f} ms (device {fmt_ms(lin_dev_ms)}) -> {'ok' if ok else 'FAIL'}")
+        bb = b.bfloat16()
+        t = linear_timings(lambda: dense(x, w, b), lambda: F.linear(x, w, bb))
+        bnd = bound(2 * (m * k + n * k + m * n) + 4 * n, 2 * m * k * n)
+        log(f"  {name} ({m}x{k} -> {n}): dense max error {ours:.4f} ulp (bound 0.5); bias rounded to bf16 first "
+            f"{parent:.4f} ulp (must exceed 0.6) -> {'ok' if ok else 'FAIL'}; dense warm {t['ms']:.4f} ms, queued "
+            f"{t['queued_ms']:.4f}, cold L2 {t['cold_ms']:.4f}; bf16 F.linear warm {t['library_ms']:.4f}, queued "
+            f"{t['library_queued_ms']:.4f}; queued dense / F.linear {t['queued_ms'] / t['library_queued_ms']:.3f}; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / t['queued_ms']:.3f} (queued), "
+            f"{bnd[0] / t['cold_ms']:.3f} (cold)")
         if not ok:
             raise SystemExit(f"dense ({name}): not one rounding after the fp32 bias, or the control reads within")
-        del x
+        key = name.replace(" ", "_").replace("=", "")
+        if name == "qkv":
+            row = [None, t["ms"], None, t["library_ms"], *bnd,
+                   {k_: v for k_, v in t.items() if k_ != "ms"} | {"max_ulp": ours}]
+        else:
+            parts |= {f"{key}_{k_}": v for k_, v in t.items()} | {f"{key}_bound_ms": bnd[0], f"{key}_max_ulp": ours}
+        if name == "adaLN":
+            lib = kernels.load("dense")
+            out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
+            args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+
+            def guarded():
+                with torch.cuda.device(x.device):
+                    return lib.ldmae_dense_bias_f32(*args, torch.cuda.current_stream(x.device).cuda_stream)
+
+            host = {"host_ms": host_ms(lambda: dense(x, w, b)),
+                    "entry_host_ms": host_ms(lambda: lib.ldmae_dense_bias_f32(*args, stream)),
+                    "guarded_entry_host_ms": host_ms(guarded)}
+            parts |= {f"adaLN_{k_}": v for k_, v in host.items()}
+            log(f"  dense adaLN host time a call: wrapper {host['host_ms']:.4f} ms, C entry {host['entry_host_ms']:.4f}, "
+                f"C entry in the device guard with the Stream object {host['guarded_entry_host_ms']:.4f}")
+        del x, xc
+    # the plain version: the fp32 product of the bf16 operands plus the fp32
+    # bias, rounded once (dense's CPU path), at qkv: its time, and the
+    # kernel's largest difference from it (fp32 sums in another order: a
+    # bf16 ulp now and then)
+    x = torch.randn(16384, 768, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(2304, 768, generator=gen, device=dev) * 768**-0.5).bfloat16()
+    b = torch.randn(2304, generator=gen, device=dev)
+    row[0] = float((dense(x, w, b).float() - F.linear(x.float(), w.float(), b).bfloat16().float()).abs().max())
+    row[2] = cuda_ms(lambda: F.linear(x.float(), w.float(), b).bfloat16(), 10)
     torch.cuda.empty_cache()
+    row[-1] |= parts
+    return {"dense": tuple(row)}
 
 
 def vmae_decode_phase(dev) -> dict:
@@ -1748,7 +1958,7 @@ def vmae_decode_phase(dev) -> dict:
             img_k = vae.decode_to_images(z, compute_dtype=dtype, attn_impl="flash")
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            check_counts("decode", counts)
+            check_counts("decode" if dtype == torch.bfloat16 else "decode_fp32", counts)
             img_x = vae.decode_to_images(z, compute_dtype=dtype, attn_impl="xla")
             px = int((img_k.int() - img_x.int()).abs().max())
             spread = float(img_k.float().std())
@@ -1790,6 +2000,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     if "--rows" in sys.argv[1:]:
         return rows_only(dev)
+    if "--linear" in sys.argv[1:]:
+        return linear_only(dev)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -1799,21 +2011,23 @@ def main() -> int:
         log(f"  {name}: {info['seconds']:.2f} s" + "".join(f"\n    {r}" for r in regs))
     # the wgmma kernels: registers at entry (setmaxnreg then gives the
     # consumer warpgroups more), static shared memory (the rings are dynamic)
-    for lib, kernel in (("fused_matmul_silu", "matmul_silu_kernel"), ("flash_attention", "flash_fwd_wgmma_kernel"),
-                        ("flash_attention", "flash_bwd_wgmma_kernel"), ("flash_attention", "flash_fwd_resident_kernel")):
+    for lib, kernel in (("flash_attention", "flash_fwd_wgmma_kernel"), ("flash_attention", "flash_bwd_wgmma_kernel"),
+                        ("flash_attention", "flash_fwd_resident_kernel")):
         log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
+    gemm_ptxas(report)
     engine_ptxas(report)
     rate_probes(dev)
 
     rows = kernel_phases(dev, BATCH)
     log(f"[kernel] the same at bench.py's batch {BENCH_BATCH}")
     kernel_phases(dev, BENCH_BATCH)
-    log("[kernel] int8 products of the w8a8 leg")
-    int8_gemm_phase(dev, BATCH)
+    log("[kernel] the w8a8 leg's int8 linears (int8_dense)")
+    rows |= int8_gemm_phase(dev, BATCH)
+    int8_gemm_phase(dev, BENCH_BATCH)
     rows |= train_kernel_phase(dev)
     head_dim_phase(dev)
     rows |= fp32_kernel_phase(dev, BATCH)
-    dense_phase(dev)
+    rows |= dense_phase(dev)
     profile = "--profile" in sys.argv[1:]
     result = pipeline_phases(dev, profile=profile)
     result["counts"] |= vmae_decode_phase(dev)

@@ -10,7 +10,8 @@ parallel, one ``nvcc`` each. Importing this module needs neither ``nvcc``
 nor a GPU.
 
 Every C entry returns the CUDA error of its launch; ``check`` raises on a
-non-zero one.
+non-zero one. ``on_device`` calls an entry on a tensor's device and current
+stream.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -62,8 +65,12 @@ LIBRARIES = {
     "fused_matmul_silu": (
         "fused_matmul_silu.cu",
         {"ldmae_fused_matmul_silu": [_P, _P, _P, _P, _I, _I, _I, _P],
-         "ldmae_fused_matmul_silu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-         "ldmae_dense_bias_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
+         "ldmae_fused_matmul_silu_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    ),
+    "dense": (
+        "dense.cu",
+        {"ldmae_dense_bias_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+         "ldmae_int8_dense": [_P] * 6 + [_I] * 4 + [_P]},
     ),
     "fused_quant": (
         "fused_quant.cu",
@@ -142,3 +149,16 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def on_device(x, entry, *args) -> int:
+    """``entry(*args, stream)`` with x's device current and ``stream`` its
+    current CUDA stream. The device guard is entered only when another device
+    is current, and the stream is read as a raw handle: the guard and a
+    ``torch.cuda.Stream`` object took about 0.01 ms of host time a call,
+    more than half of #3's device time at batch 8 (PERF.md section 6)."""
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))

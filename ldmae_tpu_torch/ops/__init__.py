@@ -8,7 +8,7 @@ from .norms import rms_norm, layer_norm
 from .linear import dense, gelu, mlp_gelu, silu, swiglu_ffn, modulate
 from .patchify import patchify, unpatchify, patch_embed
 from .attention import multi_head_attention, sdpa
-from . import flash_attention as _fa, fused_adaln as _fad
+from . import flash_attention as _fa, fused_adaln as _fad, linear as _lin, quant as _quant
 
 # every kernel wrapper of the ported path; each counts its launches. (The
 # ``flash_attention`` function is not re-exported here: that name is its
@@ -18,7 +18,7 @@ KERNEL_WRAPPERS = (_fa.flash_attention_rope, _fa.flash_attention,
                    _fa.flash_attention_qknorm_rope, _fa.flash_attention_fused_rope,
                    _fad.fused_norm_modulate_quant, _fad.fused_silu_mul_quant,
                    _fa.flash_attention_bwd, _fa.flash_attention_rope_bwd,
-                   _fa.flash_attention_resident)
+                   _fa.flash_attention_resident, _lin.dense_bias_f32, _quant.int8_dense)
 
 
 def reset_launch_counts() -> None:

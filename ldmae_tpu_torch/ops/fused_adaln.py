@@ -46,19 +46,6 @@ def _check_rows(what: str, x: torch.Tensor) -> tuple[int, int, int]:
     return b, n, d
 
 
-def _on_device(x: torch.Tensor, entry, *args) -> int:
-    """``entry(*args, stream)`` with x's device current and ``stream`` its
-    current CUDA stream. The device guard is entered only when another device
-    is current, and the stream is read as a raw handle: the guard and a
-    ``torch.cuda.Stream`` object took about 0.01 ms of host time a call,
-    more than half of #3's device time at batch 8 (PERF.md section 6)."""
-    idx = x.device.index
-    if idx == torch.cuda.current_device():
-        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
-    with torch.cuda.device(idx):
-        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
-
-
 def _param_rows(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """shift or scale as #3's kernel reads it: rows of x's dtype on x's
     device with unit column stride, in place where they already are (a row
@@ -187,7 +174,7 @@ def _fused_norm_modulate_fwd(x, weight, shift, scale, *, kind: str, eps: float) 
     w = _row_weight(weight, x, kind)
     out = torch.empty_like(x)
     lib = kernels.load(what)
-    err = _on_device(
+    err = kernels.on_device(
         x, lib.ldmae_fused_norm_modulate, x.data_ptr(), None if w is None else w.data_ptr(),
         shift.data_ptr(), scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(), b, n, d,
         int(kind == "layer"), eps, int(x.dtype == torch.float32),
@@ -240,7 +227,7 @@ def fused_matmul_silu(
     out = torch.empty(*x.shape[:-1], h2 // 2, device=x.device, dtype=x.dtype)
     lib = kernels.load("fused_matmul_silu")
     entry = lib.ldmae_fused_matmul_silu if x.dtype == torch.bfloat16 else lib.ldmae_fused_matmul_silu_f32
-    err = _on_device(x, entry, x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2)
+    err = kernels.on_device(x, entry, x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2)
     kernels.check(err, "fused_matmul_silu")
     fused_matmul_silu.launches += 1
     return out
@@ -310,7 +297,7 @@ def fused_norm_modulate_quant(
     out = torch.empty(b, n, d, device=x.device, dtype=torch.int8)
     scales = torch.empty(b, n, 1, device=x.device, dtype=torch.float32)
     lib = kernels.load("fused_quant")
-    err = _on_device(
+    err = kernels.on_device(
         x, lib.ldmae_fused_norm_modulate_quant, x.data_ptr(), None if w is None else w.data_ptr(),
         shift.data_ptr(), scale.data_ptr(), shift.stride(0), scale.stride(0), out.data_ptr(),
         scales.data_ptr(), b, n, d, int(kind == "layer"), eps, int(x.dtype == torch.float32),
@@ -346,8 +333,8 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     out = torch.empty(*x12.shape[:-1], h, device=x12.device, dtype=torch.int8)
     scales = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
     lib = kernels.load("fused_quant")
-    err = _on_device(x12, lib.ldmae_fused_silu_mul_quant, x12.data_ptr(), out.data_ptr(), scales.data_ptr(), rows,
-                     h, int(x12.dtype == torch.float32))
+    err = kernels.on_device(x12, lib.ldmae_fused_silu_mul_quant, x12.data_ptr(), out.data_ptr(), scales.data_ptr(),
+                            rows, h, int(x12.dtype == torch.float32))
     kernels.check(err, "fused_silu_mul_quant")
     fused_silu_mul_quant.launches += 1
     return out, scales

@@ -19,27 +19,32 @@ from .. import kernels
 from .fused_adaln import fused_matmul_silu
 from .quant import is_quantized, maybe_qdense
 
+
 def dense_bias_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """(M, N) bf16: x (M, K) bf16 @ weight (N, K)^T bf16 with float32 sums,
     plus bias (N,) float32 in float32, one rounding, on contiguous CUDA
-    tensors of any M, K and N: the wgmma GEMM of ``fused_matmul_silu`` with
-    an fp32-bias epilogue (``ldmae_dense_bias_f32``). A PyTorch bf16 linear
-    would round the bias to bf16 before adding it, and cuBLASLt's bias
-    epilogue takes the bias only in the output's dtype. TMA reads rows of
-    16-byte multiples from 16-byte aligned bases, so x and weight are first
-    zero-padded to a K that is a multiple of 8 where it is not (a patch
-    embedding at patch 14 has K = 588), and copied where their base is not
-    aligned; the zero columns add nothing to the sums."""
+    tensors of any M, K and N: the wgmma GEMM engine's ``dense`` kernel
+    (``csrc/dense.cu``, ``ldmae_dense_bias_f32``), its tile configuration
+    chosen in the C entry by (M, N). A PyTorch bf16 linear would round the
+    bias to bf16 before adding it, and cuBLASLt's bias epilogue takes the
+    bias only in the output's dtype. TMA reads rows of 16-byte multiples
+    from 16-byte aligned bases, so x and weight are first zero-padded to a K
+    that is a multiple of 8 where it is not (a patch embedding at patch 14
+    has K = 588), and copied where their base is not aligned; the zero
+    columns add nothing to the sums."""
     m, k = x.shape
     n = weight.shape[0]
     x, weight = (F.pad(t, (0, -k % 8)) if k % 8 or t.data_ptr() % 16 else t for t in (x, weight))
     out = torch.empty(m, n, device=x.device, dtype=torch.bfloat16)
-    lib = kernels.load("fused_matmul_silu")
-    with torch.cuda.device(x.device):
-        err = lib.ldmae_dense_bias_f32(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), m,
-                                       x.shape[1], n, torch.cuda.current_stream(x.device).cuda_stream)
+    lib = kernels.load("dense")
+    err = kernels.on_device(x, lib.ldmae_dense_bias_f32, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), m, x.shape[1], n)
     kernels.check(err, "dense_bias_f32")
+    dense_bias_f32.launches += 1
     return out
+
+
+dense_bias_f32.launches = 0
 
 
 class _DenseBiasF32(torch.autograd.Function):

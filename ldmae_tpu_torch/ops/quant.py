@@ -5,10 +5,13 @@ Two modes, both inference-only transforms of a full-precision model:
   * ``w8`` (weight-only): int8 weights with a per-output-channel fp32 scale,
     dequantized to the compute dtype right before a float matmul.
   * ``w8a8`` (dynamic): int8 weights and per-row (per-token) dynamic int8
-    activations feed an int8 x int8 -> int32 matmul (``torch._int_mm``, the
-    counterpart of the product the JAX package leaves to XLA), dequantized
-    as (acc * row_scale) * col_scale + bias in fp32, one rounding to the
-    compute dtype.
+    activations feed an int8 x int8 -> int32 matmul, dequantized as (acc *
+    row_scale) * col_scale + bias in fp32, one rounding to the compute
+    dtype: on CUDA one kernel, ``int8_dense`` (``csrc/dense.cu``: int8
+    wgmma with the dequant in its epilogue, the counterpart of the XLA
+    fusion the JAX package's ``qdense_pre`` compiles to); its plain version
+    ``int8_dense_plain`` (``torch._int_mm``, then the fp32 passes) runs for
+    CPU tensors.
 
 A quantized linear is a ``QLinear``: ``w_q`` int8 (out, in) in nn.Linear's
 layout, ``w_scale`` fp32 (out,), ``bias`` fp32 (out,) or None. Weights are
@@ -23,13 +26,17 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from .. import kernels
 from .fused_adaln import fused_silu_mul_quant, quantize_rows_fp32
 
 _EPS = 1e-8
 # torch._int_mm on CUDA takes more than 16 rows; fewer (the adaLN projection
-# of c_mod has one row per sample) are padded with zero rows, which is exact.
+# of c_mod has one row per sample) are padded with zero rows, which is exact
+# (the plain version only).
 INT_MM_MIN_ROWS = 17
+INT8_OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 class QLinear(nn.Module):
@@ -86,6 +93,71 @@ def _dequant(acc, x_scale, p: QLinear, compute_dtype: torch.dtype) -> torch.Tens
     return out.to(compute_dtype)
 
 
+def int8_dense_plain(x_q: torch.Tensor, x_scale: torch.Tensor, p: QLinear, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``int8_dense``'s plain version: the exact int32 product
+    (``torch._int_mm``), then (acc * x_scale) * w_scale + bias in fp32 and
+    one rounding to ``compute_dtype``, as the JAX package's ``qdense_pre``."""
+    return _dequant(_int_mm(x_q, p.w_q), x_scale, p, compute_dtype)
+
+
+def _int8_args(x_q: torch.Tensor, x_scale: torch.Tensor, p: QLinear, compute_dtype: torch.dtype):
+    """The operands as ``ldmae_int8_dense`` takes them: x_q (M, K) and w_q
+    (N, K) int8, contiguous and 16-byte aligned, K zero-padded to a multiple
+    of 16 where it is not (TMA reads rows of 16-byte multiples; zero columns
+    add nothing to an int sum); x_scale (M rows of one fp32), w_scale (N,)
+    and the bias (N,) fp32 and contiguous, or None. Returns (x_q, w_q,
+    x_scale, w_scale, bias). Raises on what the kernel does not take; the
+    output (``compute_dtype``) is bf16 or fp32. Tensors already in the
+    kernel's form pass as they are (this runs four times a DiT block)."""
+    if compute_dtype not in INT8_OUT_DTYPES:
+        raise ValueError(f"int8_dense: the kernel writes bf16 or fp32, not {compute_dtype}")
+    w, ws, bias = p.w_q, p.w_scale, p.bias
+    k = x_q.shape[-1]
+    if x_q.dtype != torch.int8 or w.dtype != torch.int8 or w.dim() != 2 or w.shape[1] != k:
+        raise ValueError(f"int8_dense: x_q (..., {k}) and w_q (N, {k}) must be int8, "
+                         f"got {x_q.dtype} and {w.dtype} {tuple(w.shape)}")
+    a = x_q.reshape(-1, k)
+    if x_scale.dtype != torch.float32 or x_scale.numel() != a.shape[0] or x_scale.shape[-1] != 1:
+        raise ValueError(f"int8_dense: x_scale must be fp32 (..., 1) with one scale a row of x_q, "
+                         f"got {x_scale.dtype} {tuple(x_scale.shape)}")
+    if k % 16 or a.data_ptr() % 16 or not a.is_contiguous():
+        a = F.pad(a, (0, -k % 16))
+    if k % 16 or w.data_ptr() % 16 or not w.is_contiguous():
+        w = F.pad(w, (0, -k % 16))
+    if not x_scale.is_contiguous():
+        x_scale = x_scale.contiguous()
+    if ws.dtype != torch.float32 or not ws.is_contiguous():
+        ws = ws.to(torch.float32).contiguous()
+    if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()):
+        bias = bias.to(torch.float32).contiguous()
+    return a, w, x_scale, ws, bias
+
+
+def int8_dense(x_q: torch.Tensor, x_scale: torch.Tensor, p: QLinear, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The w8a8 linear layer: x_q int8 (..., K) with its fp32 row scales
+    (..., 1) times the QLinear's int8 weights (N, K), dequantized as (acc *
+    x_scale) * w_scale + bias in fp32 and rounded once to ``compute_dtype``
+    (bf16 or fp32). On CUDA the int8 wgmma GEMM with the dequant in its
+    epilogue (``ldmae_int8_dense``), bit for bit the plain version, which
+    runs for CPU tensors. ``int8_dense.launches`` counts launches."""
+    if x_q.device.type == "cpu":
+        return int8_dense_plain(x_q, x_scale, p, compute_dtype)
+    a, w, xs, ws, bias = _int8_args(x_q, x_scale, p, compute_dtype)
+    m, k = a.shape
+    n = w.shape[0]
+    out = torch.empty(m, n, device=a.device, dtype=compute_dtype)
+    lib = kernels.load("dense")
+    err = kernels.on_device(a, lib.ldmae_int8_dense, a.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                            None if bias is None else bias.data_ptr(), out.data_ptr(), m, k, n,
+                            int(compute_dtype == torch.float32))
+    kernels.check(err, "int8_dense")
+    int8_dense.launches += 1
+    return out.view(*x_q.shape[:-1], n)
+
+
+int8_dense.launches = 0
+
+
 def qdense(
     x: torch.Tensor,
     p: QLinear,
@@ -102,7 +174,7 @@ def qdense(
         return dense(x, w, p.bias, compute_dtype=cd)
     if mode == "w8a8":
         x_q, x_scale = _quantize_rows(x)
-        return _dequant(_int_mm(x_q, p.w_q), x_scale, p, cd)
+        return int8_dense(x_q, x_scale, p, cd)
     raise ValueError(f"unknown quant mode: {mode}")
 
 
@@ -115,7 +187,7 @@ def qdense_pre(
     """w8a8 matmul over an activation already quantized by a producer
     kernel (``fused_norm_modulate_quant`` / ``fused_silu_mul_quant``).
     x_q: int8 (..., K); x_scale: fp32 (..., 1)."""
-    return _dequant(_int_mm(x_q, p.w_q), x_scale, p, compute_dtype)
+    return int8_dense(x_q, x_scale, p, compute_dtype)
 
 
 def swiglu_ffn_quant(

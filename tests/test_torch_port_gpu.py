@@ -30,6 +30,8 @@ within relative L2 F32_BWD (1e-4) per output, against the plain fp32
 versions with TF32 off. ``dense`` in bf16 with an fp32 bias: within half a
 bf16 ulp (beyond 2^-14 of the terms' magnitude, for the fp32 sums) of the
 fp64 product plus bias, where a bias rounded to bf16 first reads above.
+``int8_dense`` (the w8a8 linear): bit for bit its plain version, an exact
+int32 product and the same fp32 dequant operations, each rounded once.
 """
 
 import re
@@ -374,8 +376,8 @@ def test_cuda_fused_norm_modulate_quant_vs_plain(cuda, kind, b, n):
 @pytest.mark.gpu
 def test_cuda_row_kernels_launch_on_the_current_stream(cuda):
     """The wrappers launch on the caller's current stream (read as a raw
-    handle by ``_on_device``): on a side stream, x is written after a long
-    spin, so a launch on any other stream would read it unwritten."""
+    handle by ``kernels.on_device``): on a side stream, x is written after a
+    long spin, so a launch on any other stream would read it unwritten."""
     src = _bf16((16, 1024, 768), 0, cuda)
     w = 1 + 0.1 * _bf16((768,), 1, cuda).float()
     ada = _bf16((16, 6, 768), 2, cuda) * 0.1
@@ -606,20 +608,27 @@ def dense_ulp_error(out, x, w, b):
     return float((((out.double() - exact).abs() - 2.0**-14 * mag) / ulp).max())
 
 
+# the B/1 shapes (batch 8 under CFG: qkv, proj, w3, the adaLN linear's 16
+# rows, the final layer's 16 columns), the VMAE decoder's (qkv 576 wide,
+# from_latent's depth 16), the patch-14 head's 588 columns and a patch-14
+# embedding's depth 588 (ragged N and K), a small odd shape; then every
+# configuration the C entry picks by (M, N): M from one row to the training
+# shape's tokens across N from 8 to the adaLN linear's 4,608
+_DENSE_SHAPES = [(16384, 768, 2304), (16384, 768, 768), (16384, 2048, 768), (16, 768, 4608), (16384, 768, 16),
+                 (8192, 192, 576), (8192, 16, 192), (2048, 512, 588), (512, 588, 1280), (333, 100, 7)]
+_DENSE_SHAPES += [(m, 768, n) for m in (1, 16, 17, 8192, 32768) for n in (8, 16, 588, 1536, 4608)]
+_DENSE_SHAPES += [(72, 768, 4608), (128, 768, 1536), (129, 768, 1536)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(16384, 768, 2304), (16384, 768, 768), (16384, 2048, 768),
-                                   (16, 768, 4608), (16384, 768, 16), (8192, 192, 576), (8192, 16, 192),
-                                   (2048, 512, 588), (512, 588, 1280), (333, 100, 7)])
+@pytest.mark.parametrize("m,k,n", _DENSE_SHAPES)
 def test_cuda_dense_fp32_bias_rounds_once(cuda, m, k, n):
-    """``dense`` in bf16 with an fp32 bias at the B/1 shapes (batch 8 under
-    CFG: qkv, proj, w3, the adaLN linear's 16 rows, the final layer's 16
-    columns), the VMAE decoder's (qkv 576 wide, from_latent's depth 16), the
-    patch-14 head's 588 columns and a patch-14 embedding's depth 588 (ragged
-    N and K), and a small odd shape:
-    the fp32 product plus the fp32 bias rounded once, within half a bf16 ulp
-    of fp64 math on the same operands (``dense_ulp_error``); the bias
-    rounded to bf16 first (a bf16 F.linear, the port's dense before) reads
-    above 0.6."""
+    """``dense`` in bf16 with an fp32 bias: the fp32 product plus the fp32
+    bias rounded once, within half a bf16 ulp of fp64 math on the same
+    operands (``dense_ulp_error``); the bias rounded to bf16 first (a bf16
+    F.linear, the port's dense before) reads above 0.6, over at least 512
+    rows of x (where m is smaller, 512 rows from the same seed with the same
+    w and b), so that some element shows it where the output has few."""
     from ldmae_tpu_torch.ops import dense
     import torch.nn.functional as F
 
@@ -628,7 +637,121 @@ def test_cuda_dense_fp32_bias_rounds_once(cuda, m, k, n):
     b = _randn((n,), 2, cuda, torch.float32)
     err = dense_ulp_error(dense(x, w, b), x, w, b)
     assert err <= 0.5, err
-    assert dense_ulp_error(F.linear(x, w, b.bfloat16()), x, w, b) > 0.6
+    xc = x if m >= 512 else _bf16((512, k), 0, cuda)
+    assert dense_ulp_error(F.linear(xc, w, b.bfloat16()), xc, w, b) > 0.6
+
+
+def _int8_linear(m, k, n, seed, device, bias=True):
+    """int8 x_q (m, k) with fp32 row scales, and a QLinear (n, k) with
+    per-column scales and an fp32 bias (or none), at the magnitudes of the
+    w8a8 leg (scales ~1e-2 and ~1e-3)."""
+    from ldmae_tpu_torch.ops.quant import QLinear
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x_q = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, 1, generator=g) * 1e-2 + 1e-4
+    w_q = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    ws = torch.rand(n, generator=g) * 1e-3 + 1e-5
+    b = torch.randn(n, generator=g) if bias else None
+    p = QLinear(w_q.to(device), ws.to(device), None if b is None else b.to(device))
+    return x_q.to(device), xs.to(device), p
+
+
+def _assert_int8_dense_bitwise(x_q, xs, p, dtype):
+    """int8_dense equal bit for bit to its plain version (on the card where
+    torch._int_mm takes the shape, K and N multiples of 8, else on the CPU)."""
+    from ldmae_tpu_torch.ops.quant import QLinear, int8_dense, int8_dense_plain
+
+    out = int8_dense(x_q, xs, p, dtype)
+    k, n = x_q.shape[-1], p.w_q.shape[0]
+    if k % 8 or n % 8:
+        cpu = QLinear(p.w_q.cpu(), p.w_scale.cpu(), None if p.bias is None else p.bias.cpu())
+        ref = int8_dense_plain(x_q.cpu(), xs.cpu(), cpu, dtype).to(out.device)
+    else:
+        ref = int8_dense_plain(x_q, xs, p, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,bias,dtype", [
+    (16384, 768, 2304, True, torch.bfloat16),   # qkv at batch 8 under CFG
+    (16384, 768, 4096, True, torch.bfloat16),   # w12
+    (16384, 2048, 768, True, torch.bfloat16),   # w3
+    (16, 768, 4608, True, torch.bfloat16),      # the adaLN linear
+    (8192, 768, 2304, True, torch.bfloat16),    # qkv on a single-batch step
+    (8, 768, 4608, True, torch.bfloat16),
+    (72, 768, 4608, True, torch.bfloat16),      # the adaLN linear at batch 36
+    (128, 768, 2304, True, torch.bfloat16),
+    (16384, 768, 2304, False, torch.bfloat16),  # no bias
+    (16384, 768, 2304, True, torch.float32),    # compute_dtype float32
+    (16, 768, 4608, False, torch.float32),
+    (333, 100, 7, True, torch.bfloat16),        # ragged M and N, K padded to 112
+    (1, 48, 5, True, torch.float32),
+    (200, 2730, 1000, True, torch.bfloat16),    # K padded, N past a 256-column unit
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_cuda_int8_dense_bitwise_vs_plain(cuda, m, k, n, bias, dtype):
+    """``int8_dense`` at the w8a8 path's shapes (B/1, batch 8 under CFG and
+    single), without a bias, in fp32, and at ragged M, N and K: bit for bit
+    the plain version."""
+    _assert_int8_dense_bitwise(*_int8_linear(m, k, n, 0, cuda, bias), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 384, 768, 1024, 1152, 1536, 1792])  # every width of the DiT registry
+def test_cuda_int8_dense_registry_widths(cuda, d):
+    """The quantized linears of a DiT of width d (qkv, w12, w3 with SwiGLU's
+    int(8/3 d) hidden width, the block adaLN's 16 rows), bit for bit."""
+    hidden = int(2 / 3 * 4 * d)
+    for i, (m, k, n) in enumerate(((512, d, 3 * d), (512, d, 2 * hidden), (512, hidden, d), (16, d, 6 * d))):
+        _assert_int8_dense_bitwise(*_int8_linear(m, k, n, i, cuda), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_qdense_launches_int8_dense_only(cuda):
+    """On CUDA, qdense (w8a8) and qdense_pre launch int8_dense, never
+    torch._int_mm, and the result is the plain version's."""
+    from unittest import mock
+
+    from ldmae_tpu_torch.ops import quant
+
+    x_q, xs, p = _int8_linear(16, 768, 4608, 3, cuda)
+    x = _bf16((2, 8, 768), 4, cuda)
+    before = quant.int8_dense.launches
+    with mock.patch.object(torch, "_int_mm", side_effect=AssertionError("torch._int_mm called")):
+        out_pre = quant.qdense_pre(x_q, xs, p)
+        out = quant.qdense(x, p, mode="w8a8")
+    assert quant.int8_dense.launches == before + 2
+    torch.testing.assert_close(out_pre, quant.int8_dense_plain(x_q, xs, p, torch.bfloat16), rtol=0, atol=0)
+    x_q2, xs2 = quant._quantize_rows(x)
+    torch.testing.assert_close(out, quant.int8_dense_plain(x_q2, xs2, p, torch.bfloat16), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        quant.int8_dense(x_q, xs, p, torch.float16)
+
+
+@pytest.mark.gpu
+def test_cuda_linear_kernels_launch_on_the_current_stream(cuda):
+    """dense and int8_dense launch on the caller's current stream, as the
+    row kernels do: their inputs are written on a side stream after a long
+    spin."""
+    from ldmae_tpu_torch.ops import dense
+    from ldmae_tpu_torch.ops.quant import int8_dense, int8_dense_plain
+
+    src = _bf16((16384, 768), 0, cuda)
+    w = _bf16((768, 768), 1, cuda)
+    b = _randn((768,), 2, cuda, torch.float32)
+    x_q0, xs, p = _int8_linear(16384, 768, 2304, 3, cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e8))
+        x, x_q = src * 2, x_q0 + 0
+        out = dense(x, w, b)
+        q = int8_dense(x_q, xs, p, torch.bfloat16)
+    side.synchronize()
+    assert dense_ulp_error(out, x, w, b) <= 0.5
+    assert torch.equal(q, int8_dense_plain(x_q, xs, p, torch.bfloat16))
 
 
 @pytest.mark.gpu
