@@ -17,9 +17,11 @@ attention bounds), then:
      the CFG-doubled DiT step and the VMAE decode; #2 by the resident d = 16
      kernel, also at N = 1025, 1000 and d = 8), and times the kernel, the plain
      version and, where one exists, one PyTorch library call computing the
-     same function (a yardstick only; the port never calls it), #1's two
-     kernels apart (the RoPE pre-pass and the wgmma attention, by kernel
-     name under ``torch.profiler``), and #2 beside the ``mma.sync`` core it
+     same function (a yardstick only; the port never calls it), #1's, #7's
+     and #8's two kernels apart (the pre-pass and the wgmma attention, by
+     kernel name under ``torch.profiler``; the run fails if #7 or #8 does
+     not launch ``flash_fwd_wgmma_kernel``), the host time a call of #7's
+     and #8's wrappers, and #2 beside the ``mma.sync`` core it
      replaced, #3 and #9 (the streaming row engine) warm, with the
      device's queue full and with a cold L2, and the host time a call of
      their wrappers and of their bare C entries; then the same
@@ -51,7 +53,8 @@ attention bounds), then:
      images: the bf16 kernels against the plain ``xla`` impls, the w8a8
      kernels against the w8a8 ``xla`` impls, and the opt-in attention
      impls ``flash_qkr`` (c) and ``flash_fused`` (d) against
-     ``flash_rope``, each with its exact launch counts, and the same four
+     ``flash_rope``, each with its exact launch counts, the three impls'
+     10-step seconds side by side, and the same four
      in fp32 (``compute_dtype`` float32); decodes with two VMAE archs of
      head dims 12 and 24 under ``flash`` against ``xla`` in bf16 and fp32;
      then holds the
@@ -99,7 +102,10 @@ outside the repository, it exits non-zero at once.
 
 ``python3 chip_smoke.py --linear`` times only the linear layers' kernels
 (#4, ``dense``, ``qdense_pre``) through wrappers that earlier commits have
-too, likewise for comparisons within one call.
+too, likewise for comparisons within one call; ``--attention`` the d = 64
+attention forwards (#7 and #8 by part, with their wrappers' host time a
+call, #1, #2) and the 10-step sampling seconds under flash_rope, flash_qkr
+and flash_fused.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -115,6 +121,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -399,10 +406,22 @@ def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def rope_parts(fn) -> dict:
-    """#1's two kernels timed apart: the RoPE pre-pass and the attention."""
-    ms = kernel_device_ms(fn, ("norm_rope_kernel", "flash_fwd_wgmma_kernel"))
-    return {"prepass_ms": ms["norm_rope_kernel"], "attention_ms": ms["flash_fwd_wgmma_kernel"]}
+def rope_parts(fn, strict: bool = True) -> dict:
+    """The two kernels of a RoPE attention wrapper (#1, #7, #8) timed apart:
+    the pre-pass and the wgmma attention; fails unless both ran. Not
+    strict (an earlier tree's wrappers, ``--attention``): the pre-pass and
+    whichever flash_fwd attention kernels ran, named."""
+    if strict:
+        ms = kernel_device_ms(fn, ("norm_rope_kernel", "flash_fwd_wgmma_kernel"))
+        return {"prepass_ms": ms["norm_rope_kernel"], "attention_ms": ms["flash_fwd_wgmma_kernel"]}
+    parts = {"prepass_ms": 0.0, "attention_ms": 0.0, "attention_kernels": []}
+    for key, ms in _profiled(fn, 20):
+        if "norm_rope" in key:
+            parts["prepass_ms"] += ms
+        elif "flash_fwd" in key:
+            parts["attention_ms"] += ms
+            parts["attention_kernels"].append(re.search(r"flash_fwd\w*", key)[0])
+    return parts
 
 
 def ptxas_summary(log: str, kernel: str) -> str:
@@ -604,8 +623,6 @@ def gemm_ptxas(report: dict) -> None:
     """ptxas's report of each instantiation of the GEMM engine
     (csrc/gemm.cuh): #4 and the dense / int8_dense configurations, named
     by operand type, accumulator columns, cluster, stages and epilogue."""
-    import re
-
     for lib in ("fused_matmul_silu", "dense"):
         log_ = report[lib]["ptxas"]
         for name in sorted(set(re.findall(r"Compiling entry function '(_ZN4gemm11gemm_kernel[^']*)'", log_))):
@@ -694,6 +711,131 @@ def linear_only(dev) -> int:
     return 0
 
 
+def attn_tol(ref) -> dict:
+    """One bf16 ulp of the element (rtol 2^-7: the two sides may round the
+    same value to neighbours) plus 2^-8 of the largest |output| (atol: the
+    kernel rounds p to bf16 before normalising it, the plain version after,
+    an error absolute in the output's scale, which is ~0.05 for random q, k,
+    v, not ~1)."""
+    return dict(rtol=2**-7, atol=2**-8 * float(ref.float().abs().max()))
+
+
+def opt_in_attention(dev, b: int, strict: bool = True) -> dict:
+    """#7 and #8 at the DiT B/1 attention shapes of a CFG-doubled batch of
+    b (b, 12, 1024, 64) bf16: each against its plain version, timed warm
+    beside its plain version and SDPA on the pre-normed and rotated q, k;
+    its pre-pass and attention apart (torch.profiler; strict: the attention
+    must be ``flash_fwd_wgmma_kernel``, else the run fails); the host time a
+    call of its wrapper. Returns name -> (max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by, parts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    h, n, d = 12, 1024, 64
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
+    # q, k, v (and out) once each, the tables; the two products and the exponentials
+    work = dict(bf16_flops=4 * b * h * n * n * d, exps=b * h * n * n)
+    rows = {}
+
+    log(f"[kernel] flash_attention_qknorm_rope q,k,v ({b},{h},{n},{d}) bf16, qk-norm weights ({d},) fp32")
+    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
+    qs, ks = (1 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+
+    def run7():
+        return fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin)
+
+    ref = fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)
+    err = compare("flash_attention_qknorm_rope", run7(), ref, **attn_tol(ref))
+    del ref
+    ms = cuda_ms(run7, 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin), 3, 1)
+    qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
+    parts = rope_parts(run7, strict) | {"host_ms": host_ms(run7)}
+    rows["flash_attention_qknorm_rope"] = (err, ms, plain_ms, lib_ms, *bound(
+        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, **work), parts)
+    del q, k, v, qr, kr
+
+    log(f"[kernel] flash_attention_fused_rope q,k ({b},{n},{h},{d}) bf16, v a view of qkv ({b},{n},3,{h},{d})")
+    qkv = randn(b, n, 3, h, d)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+
+    def run8():
+        return fa.flash_attention_fused_rope(q, k, v, cos, sin)
+
+    ref = fa.flash_attention_fused_rope_plain(q, k, v, cos, sin)
+    err = compare("flash_attention_fused_rope", run8(), ref, **attn_tol(ref))
+    ms = cuda_ms(run8, 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 3, 1)
+    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (q, k))
+    vt = v.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vt), 20)
+    parts = rope_parts(run8, strict) | {"host_ms": host_ms(run8)}
+    rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
+        4 * b * h * n * d * 2 + 2 * n * d * 4, **work), parts)
+    del qkv, q, k, v, qr, kr, vt, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def attention_only(dev) -> int:
+    """``--attention``: the d = 64 attention forwards alone, through
+    wrappers an earlier tree has too, so that copied into an unpacked
+    parent it times the parent's by the same means: #7 and #8 at batch 8
+    and 36 (``opt_in_attention``, not strict), #1 at batch 8 and 36 and at
+    the training shape and #2 at d = 64 at the training shape (kernel and
+    SDPA, warm; #1's two kernels apart), then the SHORT_STEPS-step sampling
+    seconds under flash_rope, flash_qkr and flash_fused. Ends with an
+    ``{"attention": {...}}`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rate_probes(dev)
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(12)
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(32, 32))
+    for what, b in ((f"batch {BATCH}", 2 * BATCH), (f"batch {BENCH_BATCH}", 2 * BENCH_BATCH),
+                    ("training", TRAIN_BATCH)):
+        if what != "training":
+            for name, (err, ms, plain_ms, lib_ms, bound_ms, _, parts) in opt_in_attention(dev, b, False).items():
+                out[f"{name} ({what})"] = {"max_abs_err": err, "ms": ms, "library_ms": lib_ms,
+                                           "bound_ms": bound_ms} | parts
+        q, k, v = (torch.randn(b, 12, 1024, 64, generator=g, device=dev).bfloat16() for _ in range(3))
+        qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
+        out[f"flash_attention_rope ({what})"] = {
+            "ms": cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 20),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20),
+        } | rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin), False)
+        if what == "training":
+            out[f"flash_attention d=64 ({what})"] = {
+                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 20),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+        del q, k, v, qr, kr
+    for key, r in out.items():
+        log(f"  {key}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+    spec, bundle = build_models(dev)
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    out["sampling_seconds"] = impl_seconds(spec, bundle, y, z, dev)
+    log(json.dumps({"attention": out}))
+    return 0
+
+
 def kernel_phases(dev, batch: int) -> dict:
     """Each kernel against its plain version at the shapes that sampling at
     ``batch`` images gives it: the CFG-doubled DiT step (2 * batch) and the
@@ -711,14 +853,6 @@ def kernel_phases(dev, batch: int) -> dict:
     # summation order, and a one-ulp flip early can grow to two through the
     # later bf16 roundings: two ulps of an output of magnitude ~1 (2^-6).
     tol = dict(rtol=2**-6, atol=2**-6)
-
-    def attn_tol(ref):
-        # one bf16 ulp of the element (rtol 2^-7: the two sides may round the
-        # same value to neighbours) plus 2^-8 of the largest |output| (atol:
-        # the kernel rounds p to bf16 before normalising it, the plain version
-        # after, an error absolute in the output's scale, which is ~0.05 for
-        # random q, k, v, not ~1)
-        return dict(rtol=2**-7, atol=2**-8 * float(ref.float().abs().max()))
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
@@ -793,37 +927,8 @@ def kernel_phases(dev, batch: int) -> dict:
                                  *bound((m * d + h2 * d + m * h2 // 2) * 2 + h2 * 4, 2 * m * d * h2), {})
     del x, w12
 
-    # -- 7: flash_attention_qknorm_rope, DiT attention under attention_impl flash_qkr
-    b, h, n, d = b2, 12, 1024, 64
-    log(f"[kernel] flash_attention_qknorm_rope q,k,v ({b},{h},{n},{d}) bf16, qk-norm weights ({d},) fp32")
-    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
-    qs, ks = (1 + 0.1 * randn(d, dtype=torch.float32) for _ in range(2))
-    ref = fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)
-    err = compare("flash_attention_qknorm_rope", fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin),
-                  ref, **attn_tol(ref))
-    ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin), 3, 1)
-    qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
-    rows["flash_attention_qknorm_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4 + 2 * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), {})
-    del q, k, v, qr, kr, ref
-
-    # -- 8: flash_attention_fused_rope, DiT attention under attention_impl flash_fused
-    log(f"[kernel] flash_attention_fused_rope q,k ({b},{n},{h},{d}) bf16, v a view of qkv ({b},{n},3,{h},{d})")
-    qkv = randn(b, n, 3, h, d)
-    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
-    ref = fa.flash_attention_fused_rope_plain(q, k, v, cos, sin)
-    err = compare("flash_attention_fused_rope", fa.flash_attention_fused_rope(q, k, v, cos, sin),
-                  ref, **attn_tol(ref))
-    ms = cuda_ms(lambda: fa.flash_attention_fused_rope(q, k, v, cos, sin), 20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin), 3, 1)
-    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (q, k))
-    vt = v.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vt), 20)
-    rows["flash_attention_fused_rope"] = (err, ms, plain_ms, lib_ms, *bound(
-        4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n), {})
-    del qkv, q, k, v, qr, kr, vt, ref
+    # -- 7 and 8: the opt-in impls flash_qkr and flash_fused, on the wgmma forward
+    rows |= opt_in_attention(dev, b2)
 
     # -- 10: fused_silu_mul_quant, the w8a8 SwiGLU gate (M = 2 * batch * 1024)
     m, h = b2 * 1024, 2048
@@ -841,7 +946,7 @@ def kernel_phases(dev, batch: int) -> dict:
 
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        split = "".join(f", {k} {v:.4f}" for k, v in parts.items())
+        split = "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}" for k, v in parts.items())
         log(f"  {name} (batch {batch}): kernel {ms:.4f} ms{split}, plain {plain_ms:.4f} ms, library {lib} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
     return rows
@@ -1047,6 +1152,48 @@ def short_compare(what: str, spec, bundle, y, z, dev, kernel_kw: dict, ref_kw: d
     return counts
 
 
+def impl_seconds(spec, bundle, y, z, dev) -> dict:
+    """Seconds of one SHORT_STEPS-step bf16 batch (latents only, from z)
+    under each DiT attention impl, flash_rope (#1), flash_qkr (#7) and
+    flash_fused (#8), and flash_qkr with its q, k, v copied contiguous
+    first (as the attention module passed them before #7 took views),
+    after a warm-up run of each, timed in turns and back: impl -> its two
+    readings."""
+    import torch
+
+    from ldmae_tpu_torch.ops import attention as attention_module
+
+    kernel = attention_module.flash_attention_qknorm_rope
+
+    def with_copies(q, k, v, *rest):
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(), *rest)
+
+    runs = {"flash_rope": "flash_rope", "flash_qkr": "flash_qkr", "flash_qkr+copies": "flash_qkr",
+            "flash_fused": "flash_fused"}
+    latents = bundle | {"vae": None}
+    fns = {impl: sampler(spec, SHORT_STEPS, dev, kernels=True, attn_impl=impl) for impl in set(runs.values())}
+
+    def run(label):
+        attention_module.flash_attention_qknorm_rope = with_copies if label.endswith("+copies") else kernel
+        try:
+            fns[runs[label]](latents, y, z=z)
+        finally:
+            attention_module.flash_attention_qknorm_rope = kernel
+
+    for label in runs:
+        run(label)
+    seconds = {label: [] for label in runs}
+    for label in [*runs, *reversed(runs)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(label)
+        torch.cuda.synchronize()
+        seconds[label].append(time.perf_counter() - t0)
+    log(f"[pipeline] {SHORT_STEPS} steps, batch {BATCH}, latents only, seconds by attention impl (in turns): "
+        + ", ".join(f"{impl} {' / '.join(f'{t:.4f}' for t in ts)}" for impl, ts in seconds.items()))
+    return seconds
+
+
 def psnr(a, b) -> float:
     """PSNR of two uint8 image batches, as perf_quant.py computes it."""
     d = a.double() - b.double()
@@ -1084,6 +1231,7 @@ def pipeline_phases(dev, profile: bool = False) -> dict:
         counts[impl] = short_compare(f"attention_impl {impl} vs flash_rope", spec, bundle, y, z, dev,
                                      dict(kernels=True, attn_impl=impl), dict(kernels=True), impl,
                                      count_path=impl)
+    impl_seconds(spec, bundle, y, z, dev)
     # the same 10-step paths in fp32 (parallel.compute_dtype: float32): the
     # fp32 kernels against the fp32 xla impls, the opt-in impls against fp32 flash_rope
     f32 = torch.float32
@@ -2002,6 +2150,8 @@ def main() -> int:
         return rows_only(dev)
     if "--linear" in sys.argv[1:]:
         return linear_only(dev)
+    if "--attention" in sys.argv[1:]:
+        return attention_only(dev)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -2011,9 +2161,14 @@ def main() -> int:
         log(f"  {name}: {info['seconds']:.2f} s" + "".join(f"\n    {r}" for r in regs))
     # the wgmma kernels: registers at entry (setmaxnreg then gives the
     # consumer warpgroups more), static shared memory (the rings are dynamic)
-    for lib, kernel in (("flash_attention", "flash_fwd_wgmma_kernel"), ("flash_attention", "flash_bwd_wgmma_kernel"),
-                        ("flash_attention", "flash_fwd_resident_kernel")):
-        log(f"  ptxas {kernel}: {ptxas_summary(report[lib]['ptxas'], kernel)}")
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel", "flash_fwd_resident_kernel"):
+        log(f"  ptxas {kernel}: {ptxas_summary(report['flash_attention']['ptxas'], kernel)}")
+    # the forward's two instantiations (sampling: no lse; training: lse) must not spill
+    for what, inst in (("<false>", "flash_fwd_wgmma_kernelILb0EE"), ("<true>", "flash_fwd_wgmma_kernelILb1EE")):
+        summary = ptxas_summary(report["flash_attention"]["ptxas"], inst)
+        log(f"  ptxas flash_fwd_wgmma_kernel{what}: {summary}")
+        if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
+            raise SystemExit(f"flash_fwd_wgmma_kernel{what}: ptxas reports spills (or no entry): {summary}")
     gemm_ptxas(report)
     engine_ptxas(report)
     rate_probes(dev)

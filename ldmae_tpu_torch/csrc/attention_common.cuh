@@ -29,6 +29,12 @@ inline Operand<T> contiguous(const void* p, int n, int d) {
   return Operand<T>{static_cast<const T*>(p), (long long)n * d, 0, d};
 }
 
+// A contiguous (b, h, n, d) tensor as an operand of h heads.
+template <typename T>
+inline Operand<T> bhnd(const void* p, int h, int n, int d) {
+  return Operand<T>{static_cast<const T*>(p), (long long)h * n * d, (long long)n * d, d};
+}
+
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
 

@@ -56,14 +56,20 @@
 // tile (N not a multiple of 64) is zero-filled and its keys masked to -inf.
 // The fp32 kernels are in flash_attention_fp32.cu.
 //
-// Which kernel runs is chosen by shape (ldmae_flash_attention_fwd):
-// flash_attention_rope and flash_attention at d = 64 with 16-byte aligned
-// rows run a second core, flash_fwd_wgmma_kernel (wgmma, TMA,
-// warp-specialised; its own note below), which can also write the softmax's
-// lse for the backward; flash_attention without lse at d = 8 or 16 and N <=
-// 3,072 runs flash_fwd_resident_kernel (wgmma, K and V of a head resident in
-// shared memory; its own note below); every other shape runs this one, as
-// do the other two forward kernels and the backward's statistics pass.
+// Which kernel runs is chosen by shape (forward()): all four forward
+// kernels at d = 64 with 16-byte aligned rows and strides run a second core,
+// flash_fwd_wgmma_kernel (wgmma, TMA, warp-specialised; its own note
+// below), which reads every operand through a 4D tensor map of its own
+// strides: flash_attention and flash_attention_rope on contiguous (B, H, N,
+// d), writing the softmax's lse for the backward when asked;
+// flash_attention_qknorm_rope on its pre-pass's contiguous scratch, v read
+// in place (contiguous, or the permuted view of the packed qkv);
+// flash_attention_fused_rope on its pre-pass's scratch, v read in place as
+// the strided view of the packed qkv, the output written as (B, N, H*d)
+// rows. flash_attention without lse at d = 8 or 16 and N <= 3,072 runs
+// flash_fwd_resident_kernel (wgmma, K and V of a head resident in shared
+// memory; its own note below). Every other shape (other head dims,
+// misaligned rows) runs this one, as does the backward's statistics pass.
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
@@ -358,14 +364,17 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention_rope and flash_attention at d = 64 on wgmma and TMA: the
-// main path's attention (DiT sampling, and the training forward). With the
+// The forward at d = 64 on wgmma and TMA: the main path's attention (DiT
+// sampling, and the training forward) and the two opt-in kernels. With the
 // RoPE pre-pass above it replaces _flash_rope_bhnd_kernel
 // (ldmae_tpu/ops/flash_attention.py, pallas_call at :323), without it
-// _flash_fwd_kernel (:77) at this head dim; it computes what
-// flash_fwd_kernel<64, false> does,
-// with the same roundings (p to bf16 before it is normalised), the logits
-// scaled inside the exponent's FMA, exp2 by the SFU's ex2.approx.
+// _flash_fwd_kernel (:77) at this head dim, with the qk-norm pre-pass
+// _flash_qknorm_rope_kernel (:282), and on (B, N, H*d) rows
+// _flash_rope_kernel (:550); it computes what flash_fwd_kernel<64, false>
+// does, with the same roundings (p to bf16 before it is normalised), the
+// logits scaled inside the exponent's FMA, exp2 by the SFU's ex2.approx.
+// Shapes: (16 or 72, 12, 1024, 64) for all four in sampling at batch 8 or
+// 36, (32, 12, 1024, 64) with lse in training.
 //
 // What bounds it: at (16, 12, 1024, 64) the two products are 4 b h N^2 d =
 // 5.2e10 flops, 0.052 ms at 989 TFLOP/s, and the softmax's b h N^2 = 2.0e8
@@ -378,8 +387,10 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 // SM, walk work tiles of 192 query rows of one (b, h), the tiles of a head
 // in a row so that its K and V stay in L2. Warpgroup 0 is the producer: one
 // thread loads each work tile's Q once and its 128-key K and V tiles into a
-// ring of kFaStages stages by TMA (128-byte swizzle; 3D tensor maps over
-// (bh, n, d), so keys and rows past n arrive as zeros), under full and empty
+// ring of kFaStages stages by TMA (128-byte swizzle; a 4D tensor map per
+// operand over (d, n, h, b) with that operand's row, head and batch strides,
+// so contiguous (B, H, N, d) and the (B, N, H*d) rows of #8 alike, and keys
+// and rows past n arrive as zeros), under full and empty
 // mbarriers; Q has its own, released after the tile's last Q K^T, so the
 // next tile's Q and first K and V load while this one finishes. Warpgroups
 // 1 to 3 own 64 query rows each (setmaxnreg: 160 registers, the producer
@@ -394,7 +405,8 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 // inside a warpgroup, the next Q K^T issued before this softmax, ran
 // slower at this head dim). Keys past n are
 // masked to -inf in the last tile; rows past n are computed on zeros and not
-// stored (at n = 1024, 128 of the last tile's 192: 1/9 of the work).
+// stored (at n = 1024, 128 of the last tile's 192: 1/9 of the work). The
+// epilogue stores O through the output's own row, head and batch strides.
 
 // 2^x on the SFU (relative error about 2^-22; results below 2^-126 flush to
 // zero, far under the bf16 rounding of p)
@@ -413,7 +425,9 @@ constexpr int kFaThreads = 128 * (kFaWG + 1);
 constexpr int kFaSmem = kFaQTile + 2 * kFaStages * kFaTile + 1024;  // + slack to align to 1 KB
 
 // grid: one block per SM (at most one per work tile); work tile w is query
-// rows kFaRows (w % qtiles).. of (b, h) = w / qtiles. With kLse (training),
+// rows kFaRows (w % qtiles).. of head bh = w / qtiles, (b, h) = (bh / heads,
+// bh % heads) in the maps and in out (element (b, h, row, c) at out.p + b
+// out.sb + h out.sh + row out.sr + c). With kLse (training),
 // the epilogue also writes lse[bh * n + r] = m + log2(l) for rows r < n: the
 // softmax's log2 denominator, max included, in the exp2 units of the
 // logits scaled by scale_log2, which the backward subtracts before its exp2.
@@ -423,8 +437,8 @@ template <bool kLse>
 __global__ void __launch_bounds__(kFaThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                            const __grid_constant__ CUtensorMap tmap_k,
-                           const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
-                           float* __restrict__ lse, int bh_count, int n, float scale_log2) {
+                           const __grid_constant__ CUtensorMap tmap_v, const Operand out,
+                           float* __restrict__ lse, int bh_count, int heads, int n, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -456,16 +470,17 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       uint32_t phase = 0, q_phase = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, q_phase ^= 1) {
         const int bh = w / qtiles, q0 = w % qtiles * kFaRows;
+        const int bi = bh / heads, hi = bh % heads;
         // the previous work tile's last Q K^T is done with the Q buffer
         hopper::mbar_wait(&q_empty, q_phase ^ 1);
         hopper::mbar_expect_tx(&q_full, kFaQTile);
-        hopper::tma_load_3d(sq, &tmap_q, &q_full, 0, q0, bh);
+        hopper::tma_load_4d(sq, &tmap_q, &q_full, 0, q0, hi, bi);
         for (int it = 0; it < ntiles; ++it) {
           hopper::mbar_wait(&kv_empty[stage], phase ^ 1);
           hopper::mbar_expect_tx(&k_full[stage], kFaTile);
-          hopper::tma_load_3d(sk + stage * kFaTile, &tmap_k, &k_full[stage], 0, it * kFaKeys, bh);
+          hopper::tma_load_4d(sk + stage * kFaTile, &tmap_k, &k_full[stage], 0, it * kFaKeys, hi, bi);
           hopper::mbar_expect_tx(&v_full[stage], kFaTile);
-          hopper::tma_load_3d(sv + stage * kFaTile, &tmap_v, &v_full[stage], 0, it * kFaKeys, bh);
+          hopper::tma_load_4d(sv + stage * kFaTile, &tmap_v, &v_full[stage], 0, it * kFaKeys, hi, bi);
           if (++stage == kFaStages) stage = 0, phase ^= 1;
         }
       }
@@ -617,23 +632,21 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         if (r0 < n) lb[r0] = m0 + log2f(sum0);
         if (r1 < n) lb[r1] = m1 + log2f(sum1);
       }
-      bf16* ob = out + (long long)bh * n * 64;
+      bf16* ob = const_cast<bf16*>(out.p) + (bh / heads) * out.sb + (bh % heads) * out.sh;
+      bf16* o0 = ob + (long long)r0 * out.sr;
+      bf16* o1 = ob + (long long)r1 * out.sr;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = i * 8 + 2 * t;
-        if (r0 < n)
-          *reinterpret_cast<uint32_t*>(ob + (long long)r0 * 64 + col) =
-              pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
-        if (r1 < n)
-          *reinterpret_cast<uint32_t*>(ob + (long long)r1 * 64 + col) =
-              pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+        if (r0 < n) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+        if (r1 < n) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
       }
     }
   }
 }
 
 // Tensor map of a contiguous (bh, n, 64) bf16 tensor, copied in boxes of
-// `rows` rows of one (b, h).
+// `rows` rows of one (b, h): the d = 64 backward's operands.
 cudaError_t tmap_rows64(CUtensorMap* map, const void* p, int bh, int n, int rows) {
   const cuuint64_t dims[3] = {64, (cuuint64_t)n, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)n * 64 * 2};
@@ -641,24 +654,41 @@ cudaError_t tmap_rows64(CUtensorMap* map, const void* p, int bh, int n, int rows
   return hopper::make_tmap_bf16(map, p, 3, dims, strides, box);
 }
 
-// The wgmma forward on contiguous (bh, n, 64) q, k, v and out; with lse
-// (not null) also the (bh, n) fp32 log2 denominators.
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-                         int n, cudaStream_t stream) {
+// Tensor map of one operand of the wgmma forward, element (b, h, row, c) at
+// x.p + b x.sb + h x.sh + row x.sr + c (c < 64): a 4D map over (64, n,
+// heads, batch) with the operand's own byte strides, copied in boxes of
+// `rows` rows of one (b, h). TMA takes the strides in any order (#8's head
+// stride, 128 bytes, is below its row stride) if each is a multiple of 16
+// bytes; a single head takes the batch stride (attn::contiguous gives it
+// 0). The map's n dimension ends each (b, h), so rows past n arrive as
+// zeros, as with the backward's 3D maps.
+cudaError_t tmap_heads64(CUtensorMap* map, const Operand& x, int batch, int heads, int n, int rows) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sr * 2, (cuuint64_t)(heads > 1 ? x.sh : x.sb) * 2,
+                                 (cuuint64_t)x.sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return hopper::make_tmap_bf16(map, x.p, 4, dims, strides, box);
+}
+
+// The wgmma forward (a.d = 64, a.vec = 8: every base and stride a multiple
+// of 16 bytes) over bh = batch * a.heads heads; with lse (not null) also the
+// (bh, n) fp32 log2 denominators.
+cudaError_t launch_wgmma(const AttnArgs& a, float* lse, int bh, cudaStream_t stream) {
+  const int batch = bh / a.heads;
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
+  const Operand* ops[3] = {&a.q, &a.k, &a.v};
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t e = tmap_rows64(&maps[i], ptrs[i], bh, n, i ? kFaKeys : kFaRows);
+    const cudaError_t e = tmap_heads64(&maps[i], *ops[i], batch, a.heads, a.n, i ? kFaKeys : kFaRows);
     if (e != cudaSuccess) return e;
   }
   auto kernel = lse ? flash_fwd_wgmma_kernel<true> : flash_fwd_wgmma_kernel<false>;
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
   if (e != cudaSuccess) return e;
-  const long long work = (long long)(n + kFaRows - 1) / kFaRows * bh;
+  const long long work = (long long)(a.n + kFaRows - 1) / kFaRows * bh;
   const int sms = hopper::sm_count();
   const int grid = work < sms ? (int)work : sms;
-  kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse,
-                                                bh, n, 1.4426950408889634f / 8.f);
+  kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2], a.o, lse, bh, a.heads, a.n,
+                                                a.scale_log2);
   return cudaGetLastError();
 }
 
@@ -927,6 +957,15 @@ AttnArgs contiguous_args(const void* q, const void* k, const void* v, void* out,
   using attn::contiguous;
   return make_args(contiguous<bf16>(q, n, d), contiguous<bf16>(k, n, d), contiguous<bf16>(v, n, d),
                    contiguous<bf16>(out, n, d), 1, n, d, vec);
+}
+
+// The forward of bh heads by shape: the wgmma kernel at d = 64 with 16-byte
+// aligned rows and strides (any layout of the operands), the mma.sync core
+// otherwise, which writes no lse.
+cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
+  if (a.d == 64 && a.vec == 8) return launch_wgmma(a, lse, bh, s);
+  if (lse != nullptr) return cudaErrorInvalidValue;
+  return dispatch(a, bh, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1753,12 +1792,13 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* g,
   return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, vec, s);
 }
 
-NormRopeArgs rope_args(const void* q, const void* k, const float* w_q, const float* w_k, const float* cos,
-                       const float* sin, void* qr, void* kr, int bh, int n, int d, float eps) {
+// The RoPE pre-pass's arguments for contiguous (bh, n, d) q, k and scratch qr, kr.
+NormRopeArgs rope_args(const void* q, const void* k, const float* cos, const float* sin, void* qr, void* kr,
+                       int bh, int n, int d) {
   using attn::contiguous;
   return NormRopeArgs{{contiguous<bf16>(q, n, d), contiguous<bf16>(k, n, d)},
                       {contiguous<bf16>(qr, n, d), contiguous<bf16>(kr, n, d)},
-                      {w_q, w_k}, cos, sin, (long long)bh * n, 1, n, d, eps};
+                      {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
 }
 
 }  // namespace
@@ -1771,11 +1811,8 @@ NormRopeArgs rope_args(const void* q, const void* k, const float* w_q, const flo
 // CUDA error of the launch (0 on success).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                          float* lse, int bh, int n, int d, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 64 && vec == 8) return static_cast<int>(launch_wgmma(q, k, v, out, lse, bh, n, s));
-  if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(contiguous_args(q, k, v, out, n, d, vec), bh, s));
+  return static_cast<int>(forward(contiguous_args(q, k, v, out, n, d, vec), lse, bh, static_cast<cudaStream_t>(stream)));
 }
 
 // The resident kernel (no lse): q, k, v, out contiguous (bh, n, d) bf16, d
@@ -1794,30 +1831,43 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
                                               void* kr, void* out, float* lse, int bh, int n, int d,
                                               int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
+  const cudaError_t e = attn::norm_rope(rope_args(q, k, cos, sin, qr, kr, bh, n, d), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return ldmae_flash_attention_fwd(qr, kr, v, out, lse, bh, n, d, vec, stream);
 }
 
 // As flash_attention_rope with the per-head RMS qk-norm first: qw, kw are
-// the (d,) fp32 norm weights of q and k, eps the norm's epsilon.
+// the (d,) fp32 norm weights of q and k, eps the norm's epsilon. q, k, v are
+// (b, h, n, d) in one layout, element (bi, hi, t, c) at p + bi sb + hi sh +
+// t sr + c (contiguous, or views of the packed qkv); qr, kr (scratch, the
+// normed and rotated q and k) and out are contiguous (b, h, n, d). The
+// attention reads v in place and is chosen as for flash_attention_rope
+// (without lse).
 extern "C" int ldmae_flash_attention_qknorm_rope_fwd(const void* q, const void* k, const void* v,
                                                      const float* qw, const float* kw,
                                                      const float* cos, const float* sin, void* qr,
-                                                     void* kr, void* out, int bh, int n, int d,
-                                                     int vec, float eps, void* stream) {
+                                                     void* kr, void* out, int b, int h, int n, int d,
+                                                     long long sb, long long sh, long long sr, int vec,
+                                                     float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = attn::norm_rope(rope_args(q, k, qw, kw, cos, sin, qr, kr, bh, n, d, eps), true, vec, s);
+  auto strided = [&](const void* p) { return Operand{static_cast<const bf16*>(p), sb, sh, static_cast<int>(sr)}; };
+  auto dense = [&](const void* p) { return attn::bhnd<bf16>(p, h, n, d); };
+  const NormRopeArgs a{{strided(q), strided(k)}, {dense(qr), dense(kr)}, {qw, kw}, cos, sin,
+                       (long long)b * h * n, h, n, d, eps};
+  const cudaError_t e = attn::norm_rope(a, true, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(dispatch(contiguous_args(qr, kr, v, out, n, d, vec), bh, s));
+  return static_cast<int>(
+      forward(make_args(dense(qr), dense(kr), strided(v), dense(out), h, n, d, vec), nullptr, b * h, s));
 }
 
 // RoPE + attention in the (b, n, h * d) layout: q, k, v rows of token t are
 // at q + (bi * n + t) * q_rs (element row strides; v typically a view of the
 // packed qkv), head hi at + hi * d. qr, kr (scratch) and out are contiguous
 // (b, n, h * d). cos, sin: contiguous (n, d) fp32. vec: as for the others,
-// over every pointer and row stride.
+// over every pointer and row stride. The attention reads v in place and
+// writes out directly: at d = 64 with vec = 8 the wgmma kernel (4D tensor
+// maps over the strided rows), otherwise the mma.sync core. (The scratch
+// laid out (b, h, n, d) instead timed the same.)
 extern "C" int ldmae_flash_attention_fused_rope_fwd(
     const void* q, const void* k, const void* v, const float* cos, const float* sin, void* qr,
     void* kr, void* out, int b, int h, int n, int d, long long q_rs, long long k_rs,
@@ -1832,8 +1882,8 @@ extern "C" int ldmae_flash_attention_fused_rope_fwd(
                        {nullptr, nullptr}, cos, sin, (long long)b * h * n, h, n, d, 0.f};
   const cudaError_t e = attn::norm_rope(a, false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(dispatch(make_args(rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n, d, vec),
-                                   b * h, s));
+  return static_cast<int>(
+      forward(make_args(rows(qr, hd), rows(kr, hd), rows(v, v_rs), rows(out, hd), h, n, d, vec), nullptr, b * h, s));
 }
 
 // Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
@@ -1859,8 +1909,7 @@ extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, cons
                                               void* dq, void* dk, void* dv, float* lse, float* delta,
                                               float* dq_acc, int bh, int n, int d, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
+  const cudaError_t e = attn::norm_rope(rope_args(q, k, cos, sin, qr, kr, bh, n, d), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(backward<true>(qr, kr, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta,
                                          dq_acc, bh, n, d, vec, s));

@@ -482,12 +482,13 @@ Fwd32Args contiguous_fwd(const void* q, const void* k, const void* v, void* out,
                   contiguous<float>(out, n, d), lse, 1, n, d);
 }
 
-NormRopeArgs rope_args(const void* q, const void* k, const float* w_q, const float* w_k, const float* cos,
-                       const float* sin, void* qr, void* kr, int bh, int n, int d, float eps) {
+// The RoPE pre-pass's arguments for contiguous (bh, n, d) q, k and scratch qr, kr.
+NormRopeArgs rope_args(const void* q, const void* k, const float* cos, const float* sin, void* qr, void* kr,
+                       int bh, int n, int d) {
   using attn::contiguous;
   return NormRopeArgs{{contiguous<float>(q, n, d), contiguous<float>(k, n, d)},
                       {contiguous<float>(qr, n, d), contiguous<float>(kr, n, d)},
-                      {w_q, w_k}, cos, sin, (long long)bh * n, 1, n, d, eps};
+                      {nullptr, nullptr}, cos, sin, (long long)bh * n, 1, n, d, 0.f};
 }
 
 }  // namespace
@@ -506,8 +507,7 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
                                               void* kr, void* out, float* lse, int bh, int n, int d,
                                               int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
+  const cudaError_t e = attn::norm_rope(rope_args(q, k, cos, sin, qr, kr, bh, n, d), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(fwd_dispatch(contiguous_fwd(qr, kr, v, out, lse, n, d), bh, s));
 }
@@ -515,12 +515,18 @@ extern "C" int ldmae_flash_attention_rope_fwd(const void* q, const void* k, cons
 extern "C" int ldmae_flash_attention_qknorm_rope_fwd(const void* q, const void* k, const void* v,
                                                      const float* qw, const float* kw,
                                                      const float* cos, const float* sin, void* qr,
-                                                     void* kr, void* out, int bh, int n, int d,
-                                                     int vec, float eps, void* stream) {
+                                                     void* kr, void* out, int b, int h, int n, int d,
+                                                     long long sb, long long sh, long long sr, int vec,
+                                                     float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = attn::norm_rope(rope_args(q, k, qw, kw, cos, sin, qr, kr, bh, n, d, eps), true, vec, s);
+  auto strided = [&](const void* p) { return Operand{static_cast<const float*>(p), sb, sh, static_cast<int>(sr)}; };
+  auto dense = [&](const void* p) { return attn::bhnd<float>(p, h, n, d); };
+  const NormRopeArgs a{{strided(q), strided(k)}, {dense(qr), dense(kr)}, {qw, kw}, cos, sin,
+                       (long long)b * h * n, h, n, d, eps};
+  const cudaError_t e = attn::norm_rope(a, true, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(fwd_dispatch(contiguous_fwd(qr, kr, v, out, nullptr, n, d), bh, s));
+  return static_cast<int>(
+      fwd_dispatch(fwd_args(dense(qr), dense(kr), strided(v), dense(out), nullptr, h, n, d), b * h, s));
 }
 
 extern "C" int ldmae_flash_attention_fused_rope_fwd(
@@ -559,8 +565,7 @@ extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, cons
                                               void* dq, void* dk, void* dv, float* lse, float* delta,
                                               float* dq_acc, int bh, int n, int d, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      attn::norm_rope(rope_args(q, k, nullptr, nullptr, cos, sin, qr, kr, bh, n, d, 0.f), false, vec, s);
+  const cudaError_t e = attn::norm_rope(rope_args(q, k, cos, sin, qr, kr, bh, n, d), false, vec, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(backward<true>(
       static_cast<const float*>(qr), static_cast<const float*>(kr), static_cast<const float*>(v),

@@ -89,7 +89,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ---------------------------------------------------------------------
 
-// Copies the box at coordinates (c0 innermost, c1[, c2]) of the tensor `map`
+// Copies the box at coordinates (c0 innermost, c1[, c2[, c3]]) of the tensor `map`
 // describes into shared memory at dst; completion is counted on bar. The map
 // must live in parameter, constant or global memory (a __grid_constant__
 // kernel parameter).
@@ -120,6 +120,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -353,18 +362,19 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a tensor of `rank` dimensions and element type `type`
-// (dims[0] innermost and contiguous; strides[i] the byte stride of dimension
-// i + 1, a multiple of 16; base 16-byte aligned), copied in boxes of box[]
-// elements (box[0] times the element's bytes = the swizzle's row, 128 bytes
-// by default) into swizzled shared memory; elements out of bounds arrive as
-// zeros.
+// Tensor map of a tensor of `rank` (1 to 5) dimensions and element type
+// `type` (dims[0] innermost and contiguous; strides[i] the byte stride of
+// dimension i + 1, a multiple of 16, in any order; base 16-byte aligned),
+// copied in boxes of box[] elements (box[0] times the element's bytes = the
+// swizzle's row, 128 bytes by default) into swizzled shared memory; elements
+// out of bounds arrive as zeros.
 inline cudaError_t make_tmap(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
                              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  if (rank < 1 || rank > 5) return cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};  // one per dimension of the map
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem_strides,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

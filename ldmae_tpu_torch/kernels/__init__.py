@@ -44,7 +44,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ATTENTION = {
     "ldmae_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
     "ldmae_flash_attention_rope_fwd": [_P] * 9 + [_I] * 4 + [_P],
-    "ldmae_flash_attention_qknorm_rope_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "ldmae_flash_attention_qknorm_rope_fwd": [_P] * 10 + [_I] * 4 + [_L] * 3 + [_I, _F, _P],
     "ldmae_flash_attention_fused_rope_fwd": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_I, _P],
     "ldmae_flash_attention_bwd": [_P] * 12 + [_I] * 4 + [_P],
     "ldmae_flash_attention_rope_bwd": [_P] * 16 + [_I] * 4 + [_P],

@@ -116,10 +116,9 @@ def multi_head_attention(
         half_rope and impl == "flash_qkr" and qk_norm_kind == "rms"
         and q_norm is not None and getattr(q_norm, "bias", None) is None
     ):
-        # RMS qk-norm + RoPE + attention in one kernel
+        # RMS qk-norm + RoPE + attention in one kernel, on the views of qkv
         cos, sin = rope
-        out = flash_attention_qknorm_rope(
-            q.contiguous(), k.contiguous(), v.contiguous(), q_norm.weight, k_norm.weight, cos, sin)
+        out = flash_attention_qknorm_rope(q, k, v, q_norm.weight, k_norm.weight, cos, sin)
         out = out.transpose(1, 2).reshape(b, n, d)
         return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
 

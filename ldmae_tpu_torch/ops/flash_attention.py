@@ -231,6 +231,23 @@ def _check_bhnd(what: str, **operands) -> tuple[int, int, int, int]:
     return b, h, n, d
 
 
+def _check_views(what: str, q, k, v) -> tuple[int, int, int, int]:
+    """bf16 or fp32 (B, H, N, d) operands of one shape, dtype and device in
+    one layout: the same strides, each row (d elements) contiguous."""
+    _check_dtype(what, q.dtype)
+    if q.dim() != 4:
+        raise ValueError(f"{what}: expected (B, H, N, d), got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{what}: {name} must be a {q.dtype} {tuple(q.shape)} tensor on {q.device}")
+    if q.stride(3) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError(f"{what}: q, k, v must share one layout with contiguous rows, got strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    b, h, n, d = q.shape
+    _check_head_dim(what, b, h, d)
+    return b, h, n, d
+
+
 def _tables(cos, sin, n: int, d: int, device, what: str):
     cos = cos.to(device=device, dtype=torch.float32).contiguous()
     sin = sin.to(device=device, dtype=torch.float32).contiguous()
@@ -239,11 +256,10 @@ def _tables(cos, sin, n: int, d: int, device, what: str):
     return cos, sin
 
 
-def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None, with_lse=False):
-    """Contiguous (B, H, N, d) operands: plain attention, with RoPE, or with
-    the RMS qk-norm and RoPE. Returns the output or, with ``with_lse``
-    (not for the qk-norm), (output, lse): lse (B, H, N) fp32 where the
-    backward takes it (``_uses_lse``), else None."""
+def _launch(q, k, v, what: str, cos=None, sin=None, with_lse=False):
+    """Contiguous (B, H, N, d) operands: plain attention, or with RoPE.
+    Returns the output or, with ``with_lse``, (output, lse): lse (B, H, N)
+    fp32 where the backward takes it (``_uses_lse``), else None."""
     b, h, n, d = _check_bhnd(what, q=q, k=k, v=v)
     out = torch.empty_like(q)
     vec = _vec(d, q, k, v, out)
@@ -252,27 +268,15 @@ def _launch(q, k, v, what: str, cos=None, sin=None, q_scale=None, k_scale=None, 
         lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
     lse_ptr = None if lse is None else lse.data_ptr()
     lib = _lib(q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if cos is None:
-            err = lib.ldmae_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, vec, stream)
-        else:
-            cos, sin = _tables(cos, sin, n, d, q.device, what)
-            qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
-            if q_scale is None:
-                err = lib.ldmae_flash_attention_rope_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                    qr.data_ptr(), kr.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, vec, stream)
-            else:
-                qw, kw = (t.to(device=q.device, dtype=torch.float32).contiguous()
-                          for t in (q_scale, k_scale))
-                if qw.shape != (d,) or kw.shape != (d,):
-                    raise ValueError(f"{what}: q_scale/k_scale must be ({d},)")
-                err = lib.ldmae_flash_attention_qknorm_rope_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), qw.data_ptr(), kw.data_ptr(),
-                    cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
-                    b * h, n, d, vec, 1e-6, stream)
+    if cos is None:
+        err = kernels.on_device(q, lib.ldmae_flash_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), lse_ptr, b * h, n, d, vec)
+    else:
+        cos, sin = _tables(cos, sin, n, d, q.device, what)
+        qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
+        err = kernels.on_device(
+            q, lib.ldmae_flash_attention_rope_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(), lse_ptr, b * h, n, d, vec)
     kernels.check(err, what)
     return (out, lse) if with_lse else out
 
@@ -305,18 +309,15 @@ def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
     scratch = [lse_pad.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr()]
     grads = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
     lib = _lib(q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if cos is None:
-            err = lib.ldmae_flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, *grads, *scratch,
-                b * h, n, d, vec, stream)
-        else:
-            cos, sin = _tables(cos, sin, n, d, q.device, what)
-            qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
-            err = lib.ldmae_flash_attention_rope_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs, cos.data_ptr(),
-                sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), *grads, *scratch, b * h, n, d, vec, stream)
+    if cos is None:
+        err = kernels.on_device(q, lib.ldmae_flash_attention_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                g.data_ptr(), *ptrs, *grads, *scratch, b * h, n, d, vec)
+    else:
+        cos, sin = _tables(cos, sin, n, d, q.device, what)
+        qr, kr = torch.empty_like(q), torch.empty_like(k)  # rotated q, k (scratch)
+        err = kernels.on_device(
+            q, lib.ldmae_flash_attention_rope_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *ptrs,
+            cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), *grads, *scratch, b * h, n, d, vec)
     kernels.check(err, what)
     return dq, dk, dv
 
@@ -343,10 +344,8 @@ def flash_attention_resident(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
                          f"N <= {RESIDENT_MAX_N}; got {q.dtype} {tuple(q.shape)}")
     out = torch.empty_like(q)
     lib = kernels.load("flash_attention")
-    with torch.cuda.device(q.device):
-        err = lib.ldmae_flash_attention_resident_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, d,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    err = kernels.on_device(q, lib.ldmae_flash_attention_resident_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b * h, n, d)
     kernels.check(err, "flash_attention_resident")
     flash_attention_resident.launches += 1
     return out
@@ -507,11 +506,29 @@ def flash_attention_qknorm_rope(
 ) -> torch.Tensor:
     """(B, H, N, d) flash attention with the per-head RMS qk-norm (weights
     q_scale, k_scale: (d,)) and half-split RoPE applied by the kernel's
-    pre-pass. Forward only (sampling)."""
-    _forward_only("flash_attention_qknorm_rope", q, k, v, q_scale, k_scale)
+    pre-pass. Forward only (sampling). q, k, v may be views in one layout
+    (the same strides, rows contiguous), as the attention module's
+    permuted views of the packed qkv are: the pre-pass reads q and k and the
+    attention reads v in place. Returns a contiguous (B, H, N, d) tensor.
+    The attention after the pre-pass is chosen by shape as in
+    ``flash_attention_rope`` (bf16 at d = 64: the wgmma kernel)."""
+    what = "flash_attention_qknorm_rope"
+    _forward_only(what, q, k, v, q_scale, k_scale)
     if q.device.type == "cpu":
         return flash_attention_qknorm_rope_plain(q, k, v, q_scale, k_scale, cos, sin)
-    out = _launch(q, k, v, "flash_attention_qknorm_rope", cos, sin, q_scale, k_scale)
+    b, h, n, d = _check_views(what, q, k, v)
+    cos, sin = _tables(cos, sin, n, d, q.device, what)
+    qw, kw = (t.to(device=q.device, dtype=torch.float32).contiguous() for t in (q_scale, k_scale))
+    if qw.shape != (d,) or kw.shape != (d,):
+        raise ValueError(f"{what}: q_scale/k_scale must be ({d},)")
+    out = torch.empty(b, h, n, d, device=q.device, dtype=q.dtype)
+    qr, kr = torch.empty_like(out), torch.empty_like(out)  # normed, rotated q, k (scratch)
+    strides = q.stride()[:3]
+    err = kernels.on_device(
+        q, _lib(q.dtype).ldmae_flash_attention_qknorm_rope_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        qw.data_ptr(), kw.data_ptr(), cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
+        b, h, n, d, *strides, _vec(d, q, k, v, out, strides=strides), 1e-6)
+    kernels.check(err, what)
     flash_attention_qknorm_rope.launches += 1
     return out
 
@@ -534,7 +551,14 @@ def flash_attention_fused_rope(
     """q, k, v: (B, N, H, d), each row (one token, all heads) contiguous,
     possibly a strided view of the packed qkv projection; cos/sin: (N, d)
     HALF-SPLIT tables. Returns (B, N, H, d), contiguous, so its (B, N, H*d)
-    view feeds the output projection. Forward only (sampling)."""
+    view feeds the output projection. Forward only (sampling).
+
+    The CUDA kernel's pre-pass rotates q and k into (B, N, H*d) scratch;
+    the attention reads that and v in place and writes the output rows
+    directly, nothing transposed: in bf16 at d = 64 with 16-byte aligned
+    rows and strides the wgmma kernel ``flash_fwd_wgmma_kernel`` (4D tensor
+    maps over the strided operands), else the ``mma.sync`` core; fp32 the
+    fp32 kernels."""
     what = "flash_attention_fused_rope"
     _forward_only(what, q, k, v)
     if q.device.type == "cpu":
@@ -552,12 +576,9 @@ def flash_attention_fused_rope(
     out = torch.empty(b, n, h, d, device=q.device, dtype=q.dtype)
     qr, kr = torch.empty_like(out), torch.empty_like(out)  # rotated q, k (scratch)
     vec = _vec(d, q, k, v, out, strides=strides)
-    lib = _lib(q.dtype)
-    with torch.cuda.device(q.device):
-        err = lib.ldmae_flash_attention_fused_rope_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            qr.data_ptr(), kr.data_ptr(), out.data_ptr(), b, h, n, d, *strides, vec,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    err = kernels.on_device(
+        q, _lib(q.dtype).ldmae_flash_attention_fused_rope_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(), b, h, n, d, *strides, vec)
     kernels.check(err, what)
     flash_attention_fused_rope.launches += 1
     return out

@@ -141,31 +141,67 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tfad.fused_norm_modulate(q.half()[0], None, q.half()[0, :, 0], q.half()[0, :, 0])
 
 
+def _assert_route(fn, d, aligned):
+    """fn's attention ran on the wgmma forward at d = 64 with 16-byte
+    aligned operands, else on the mma.sync core (by kernel name)."""
+    names = _kernel_names(fn)
+    wgmma = d == 64 and aligned
+    assert any("flash_fwd_wgmma_kernel" in k for k in names) == wgmma, names
+    assert any("flash_fwd_kernel" in k for k in names) == (not wgmma), names
+
+
+# N = 64 (one tile), 200, 1000 and 1025 (ragged last tiles) with an odd b * h;
+# q, k, v as the attention module's views of a packed qkv; v at an 8-byte
+# offset takes the mma.sync core
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,n", [(64, 1024), (72, 200)])
-def test_cuda_flash_attention_qknorm_rope_vs_plain(cuda, d, n):
-    q, k, v = (_bf16((2, 3, n, d), s, cuda) for s in range(3))
+@pytest.mark.parametrize("d,n,b,h,layout", [
+    pytest.param(64, 1024, 2, 3, "contiguous", id="64-1024"), pytest.param(72, 200, 2, 3, "contiguous", id="72-200"),
+    *(pytest.param(64, n, 3, 5, "contiguous", id=f"64-{n}-odd") for n in (64, 200, 1000, 1025)),
+    pytest.param(64, 1024, 2, 12, "views", id="64-1024-qkv-views"),
+    pytest.param(64, 200, 1, 3, "views", id="64-200-qkv-views"),
+    pytest.param(64, 256, 1, 3, "v8byte", id="64-256-v8byte"),
+])
+def test_cuda_flash_attention_qknorm_rope_vs_plain(cuda, d, n, b, h, layout):
+    offset = 4 if layout == "v8byte" else 0
+    q, k = (_bf16((b, h, n, d), s, cuda) for s in range(2))
+    v = _bf16((offset + b * h * n * d,), 2, cuda)[offset:].view(b, h, n, d)
+    if layout == "views":  # (B, N, 3, H, d) qkv, permuted as ops/attention.py does
+        q, k, v = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).contiguous().permute(2, 0, 3, 1, 4).unbind(0)
     qs, ks = (1 + 0.1 * _bf16((d,), s, cuda).float() for s in (3, 4))
     grid = int(n**0.5) + 1
     cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(cuda) for t in build_rope_table(d // 2, grid))
     out = tfa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin)
     ref = tfa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin)
+    assert out.shape == (b, h, n, d) and out.is_contiguous()
     torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+    _assert_route(lambda: tfa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin), d, offset == 0)
 
 
+# as above, and the packed qkv's rows padded past 3 H d (v's row stride)
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,h,n", [(64, 12, 1024), (72, 4, 200)])
-def test_cuda_flash_attention_fused_rope_vs_plain(cuda, d, h, n):
+@pytest.mark.parametrize("d,h,n,b,pad,offset", [
+    pytest.param(64, 12, 1024, 2, 0, 0, id="64-12-1024"), pytest.param(72, 4, 200, 2, 0, 0, id="72-4-200"),
+    *(pytest.param(64, 5, n, 1, 0, 0, id=f"64-5-{n}-odd") for n in (64, 200, 1000, 1025)),
+    pytest.param(64, 12, 1024, 2, 8, 0, id="64-12-1024-padded"),
+    pytest.param(64, 4, 256, 1, 0, 4, id="64-4-256-v8byte"),
+])
+def test_cuda_flash_attention_fused_rope_vs_plain(cuda, d, h, n, b, pad, offset):
     """q, k normed copies in the (B, N, H, d) layout, v a strided view of the
-    packed qkv, as the attention module passes them."""
-    qkv = _bf16((2, n, 3, h, d), 0, cuda)
-    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1], qkv[:, :, 2]
+    packed qkv, as the attention module passes them (with an offset, a view
+    of another qkv at an 8-byte aligned base)."""
+    hd, row = h * d, 3 * h * d + pad
+    qkv = _bf16((b * n * row,), 0, cuda).view(b, n, row)
+    q, k = qkv[..., :hd].view(b, n, h, d).contiguous(), qkv[..., hd:2 * hd].view(b, n, h, d)
+    vsrc = qkv if offset == 0 else _bf16((offset + b * n * row,), 1, cuda)[offset:].view(b, n, row)
+    v = vsrc[..., 2 * hd:3 * hd].view(b, n, h, d)
+    assert v.stride(1) == row
     grid = int(n**0.5) + 1
     cos, sin = (torch.from_numpy(to_half_layout(t)[:n]).to(cuda) for t in build_rope_table(d // 2, grid))
     out = tfa.flash_attention_fused_rope(q, k, v, cos, sin)
     ref = tfa.flash_attention_fused_rope_plain(q, k, v, cos, sin)
-    assert out.shape == (2, n, h, d) and out.is_contiguous()
+    assert out.shape == (b, n, h, d) and out.is_contiguous()
     torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+    _assert_route(lambda: tfa.flash_attention_fused_rope(q, k, v, cos, sin), d, offset == 0)
 
 
 def _rope_tables(d, n, device):

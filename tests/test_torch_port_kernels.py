@@ -71,16 +71,33 @@ def test_flash_attention_rope_matches_pallas(d, n, dt):
     _close(jout, tout, dt)
 
 
-@pytest.mark.parametrize("d", [64, 72])
+def _tables(d, n):
+    """(N, d) half-split RoPE tables: the rows of a grid of ceil(sqrt(N))^2."""
+    grid = int(np.ceil(np.sqrt(n)))
+    return [np.ascontiguousarray(jhalf(t)[:n]) for t in jbuild_rope(d // 2, grid)]
+
+
+# (b, h, n, d, views): d = 64 runs the wgmma forward on the card, d = 72
+# the mma.sync core; N = 200 and 1025 leave ragged last tiles there (the
+# Pallas kernel takes such an N as one block); H = 12 is B/1's; views: the
+# port's q, k, v are the attention module's permuted views of a packed qkv
+@pytest.mark.parametrize("shape", [
+    pytest.param((2, 2, 256, 64, False), id="64"), pytest.param((2, 2, 256, 72, False), id="72"),
+    pytest.param((1, 3, 200, 64, False), id="64-n200"), pytest.param((1, 1, 1025, 64, False), id="64-n1025"),
+    pytest.param((1, 12, 256, 64, False), id="64-h12"), pytest.param((2, 4, 256, 64, True), id="64-qkv-views"),
+])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_flash_attention_qknorm_rope_matches_pallas(dt, d):
+def test_flash_attention_qknorm_rope_matches_pallas(dt, shape):
     """The qk-norm kernel's own cast order (norm in fp32, rounded to q's
     dtype, times the fp32 weight, rotated in fp32, one rounding)."""
-    b, h, grid = 2, 2, 16
-    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, (b, h, grid * grid, d), dt)
+    b, h, n, d, views = shape
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, (b, h, n, d), dt)
+    if views:  # the same values, laid out as the attention module's views of qkv (B, N, 3, H, d)
+        tq, tk, tv = torch.stack([tq, tk, tv]).permute(1, 3, 0, 2, 4).contiguous().permute(2, 0, 3, 1, 4).unbind(0)
+        assert tv.stride() == (n * 3 * h * d, d, 3 * h * d, 1)
     rng = np.random.default_rng(6)
     qs, ks = ((1 + 0.1 * rng.standard_normal(d)).astype(np.float32) for _ in range(2))
-    cos, sin = (jhalf(t) for t in jbuild_rope(d // 2, grid))
+    cos, sin = _tables(d, n)
     jout = jfa.flash_attention_qknorm_rope(jq, jk, jv, jnp.asarray(qs), jnp.asarray(ks),
                                            jnp.asarray(cos), jnp.asarray(sin))
     tout = tfa.flash_attention_qknorm_rope(tq, tk, tv, torch.from_numpy(qs), torch.from_numpy(ks),
@@ -89,19 +106,30 @@ def test_flash_attention_qknorm_rope_matches_pallas(dt, d):
     _close(jout, tout, dt)
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_flash_attention_fused_rope_matches_pallas(dt):
+# (b, n, h, pad): qkv rows of 3 h d + pad elements; the first two cases are
+# the attention module's packed qkv at both dtypes
+_FUSED = (2, 256, 4, 0)
+
+
+@pytest.mark.parametrize("dt,shape", [
+    pytest.param("float32", _FUSED, id="float32"), pytest.param("bfloat16", _FUSED, id="bfloat16"),
+    *(pytest.param(dt, shape, id=f"{dt}-{name}") for dt in ("float32", "bfloat16") for name, shape in
+      (("n200-h12", (1, 200, 12, 0)), ("n1025", (1, 1025, 2, 0)), ("padded-rows", (2, 256, 4, 8)))),
+])
+def test_flash_attention_fused_rope_matches_pallas(dt, shape):
     """(B, N, H, d) operands, v a strided view of a packed qkv as the
-    attention module passes it."""
-    b, h, grid, d = 2, 4, 16, 64
-    n = grid * grid
+    attention module passes it (its row stride padded past 3 H d in one
+    case); ragged N and H = 12 as for the qk-norm kernel."""
+    b, n, h, pad = shape
+    d = 64
     rng = np.random.default_rng(7)
-    jqkv, tqkv = _pair(rng.standard_normal((b, n, 3, h, d)).astype(np.float32), dt)
-    cos, sin = (jhalf(t) for t in jbuild_rope(d // 2, grid))
-    jout = jfa.flash_attention_fused_rope(jqkv[:, :, 0], jqkv[:, :, 1], jqkv[:, :, 2],
-                                          jnp.asarray(cos), jnp.asarray(sin))
-    tout = tfa.flash_attention_fused_rope(tqkv[:, :, 0], tqkv[:, :, 1], tqkv[:, :, 2],
-                                          torch.from_numpy(cos), torch.from_numpy(sin))
+    jqkv, tqkv = _pair(rng.standard_normal((b, n, 3 * h * d + pad)).astype(np.float32), dt)
+    cos, sin = _tables(d, n)
+    jq, jk, jv = (jqkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d) for i in range(3))
+    tq, tk, tv = (tqkv[..., i * h * d:(i + 1) * h * d].view(b, n, h, d) for i in range(3))
+    assert tv.stride(1) == 3 * h * d + pad
+    jout = jfa.flash_attention_fused_rope(jq, jk, jv, jnp.asarray(cos), jnp.asarray(sin))
+    tout = tfa.flash_attention_fused_rope(tq, tk, tv, torch.from_numpy(cos), torch.from_numpy(sin))
     assert tout.dtype == tqkv.dtype and tout.shape == (b, n, h, d) and tout.is_contiguous()
     _close(jout, tout, dt)
 
