@@ -90,7 +90,23 @@ attention bounds), then:
      ``parallel.compute_dtype: float32``, each with exact counts;
   8. with ``--profile``, traces one 50-step batch of the bf16 and of the
      w8a8 path, and one training step, with ``torch.profiler`` and prints
-     device time by kernel and group and the idle share.
+     device time by kernel and group and the idle share;
+  9. the extraction and evaluation slice on 256 seeded PNGs (300 x 280, two
+     classes) with seeded VMAE, LPIPS and Inception weights: latent
+     extraction through ``cli.extract_features`` at --batch 64 (flip-doubled,
+     the CLI's xla attention, the shipped YAML's raw moments) with exact
+     launch counts, the shards read back (count, labels, each image's latents
+     and its flip's against a re-encode) and the statistics file against its
+     recomputation, images/s and peak memory; the encoder under ``flash``
+     (#2's resident kernel, exact counts) against ``xla``, #2 at the encoder's
+     (128, 12, 1024, 16) and ``dense`` at the encoder's linears (M = 131,072,
+     K = 192 and 768) against their plain versions, timed beside SDPA and
+     cuBLAS, with bounds (their own JSON line, ``{"encoder_kernels": [...]}``);
+     ``cli.evaluate_tokenizer`` on 64 of the images at batch 32 with exact
+     counts (finite rFID, PSNR, LPIPS, SSIM; LPIPS(x, x) = 0, SSIM(x, x) = 1)
+     and its roundtrip's images/s; the FID InceptionV3 on the card against
+     its CPU path and its images/s at batch 64; ``cli.fid_stats`` and
+     ``cli.evaluate`` on two seeded npz sets, and FID(a, a) = 0.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -117,6 +133,8 @@ one call.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import json
 import math
@@ -1561,33 +1579,6 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
     return kernel_counts
 
 
-def write_latent_shard(path: str, latents, labels) -> None:
-    """A shard in the safetensors layout (8-byte little-endian header length,
-    JSON header, raw little-endian buffers): latents, their flip, labels."""
-    import struct
-
-    import numpy as np
-
-    tensors = {"latents": latents, "latents_flip": np.ascontiguousarray(latents[..., ::-1]), "labels": labels}
-    header, offset = {}, 0
-    for name, a in tensors.items():
-        dtype = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}[a.dtype]
-        header[name] = {"dtype": dtype, "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)) + raw)
-        for a in tensors.values():
-            f.write(np.ascontiguousarray(a).astype(a.dtype.newbyteorder("<")).tobytes())
-
-
-def check_train_counts(path: str, counts: dict) -> None:
-    log(f"  launches: {counts}")
-    if counts != EXPECTED_LAUNCHES[path]:
-        raise SystemExit(f"{path}: launch counts {counts} != expected {EXPECTED_LAUNCHES[path]}")
-
-
 def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     """B/1 at full width and depth through ``cli.train_dit.main``: 20 steps
     and a checkpoint, a restart to 25, then 5 steps of the interleaved
@@ -1599,17 +1590,17 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     from ldmae_tpu_torch import ops
     from ldmae_tpu_torch.cli import train_dit
     from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.data.latent_dataset import LatentShardWriter
     from ldmae_tpu_torch.models import LightningDiT, seeded_init_
     from ldmae_tpu_torch.train.train_dit import spec_from_config
     from ldmae_tpu_torch.utils.profiling import dit_forward_flops
 
     data = os.path.join(tmp, "latents")
-    os.makedirs(data)
     rng = np.random.default_rng(7)
-    for i in range(2):  # 512 latents
-        write_latent_shard(os.path.join(data, f"latents_rank00_shard{i:03d}.safetensors"),
-                           rng.standard_normal((256, 16, 32, 32), dtype=np.float32) * 1.5 + 0.2,
-                           rng.integers(0, 1000, 256).astype(np.int64))
+    writer = LatentShardWriter(data, shard_size=256)
+    for _ in range(2):  # 512 latents in two shards
+        lat = rng.standard_normal((256, 16, 32, 32), dtype=np.float32) * 1.5 + 0.2
+        writer.add(lat, np.ascontiguousarray(lat[..., ::-1]), rng.integers(0, 1000, 256).astype(np.int64))
     weights = os.path.join(tmp, "seeded.pt")
 
     def config(name: str, layout: str, steps: int, dtype: str = "bfloat16") -> str:
@@ -1635,7 +1626,7 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = ops.launch_counts()
-        check_train_counts(path, counts)
+        check_counts(path, counts)
         return out, counts, seconds, torch.cuda.max_memory_allocated() / 1e9
 
     cfg = config("b1", "half", TRAIN_STEPS)
@@ -2122,6 +2113,408 @@ def vmae_decode_phase(dev) -> dict:
     return out
 
 
+# -- the extraction and evaluation slice -------------------------------------
+# extraction: EXTRACT_IMAGES seeded PNGs at --batch EXTRACT_BATCH (doubled by
+# the flips), the CLI's xla attention; the tokenizer evaluation of
+# EVAL_IMAGES of them at batch EVAL_BATCH; two seeded npz sets of NPZ_IMAGES
+EXTRACT_IMAGES, EXTRACT_BATCH, EVAL_IMAGES, EVAL_BATCH, NPZ_IMAGES, INCEPTION_BATCH = 256, 64, 64, 32, 128, 64
+# dense per VMAE f8d16 encode (patch embedding, 4 linears a block, to_latent)
+# and decode (from_latent, decoder_embed, 4 a block, the pred head)
+_DENSE_ENCODE = 2 + 4 * DEPTH
+EXPECTED_LAUNCHES |= {
+    "extract": _NONE | {"dense_bias_f32": EXTRACT_IMAGES // EXTRACT_BATCH * _DENSE_ENCODE},
+    "encode_flash": _NONE | {"flash_attention_resident": DEPTH, "dense_bias_f32": _DENSE_ENCODE},
+    "tokenizer_eval": _NONE | {"dense_bias_f32": EVAL_IMAGES // EVAL_BATCH * (_DENSE_ENCODE + _DENSE_DECODE)},
+}
+# the encoder's linears at a doubled batch of 64 (M = 128 x 1,024 tokens):
+# the patch embedding (K = 8 x 8 x 3) and proj share one shape; qkv, fc1, fc2
+ENCODER_DENSE_SHAPES = (("patch_embed+proj", 131072, 192, 192), ("qkv", 131072, 192, 576),
+                        ("fc1", 131072, 192, 768), ("fc2", 131072, 768, 192))
+
+
+@contextlib.contextmanager
+def dense_launches_by_shape():
+    """Tallies ``dense_bias_f32``'s launches by (M, K, N) while active.
+    ``dense`` calls the wrapper through its module's global name, so a
+    stand-in there sees every call. The wrapper adds one to the count of
+    whatever that name holds where it launches, so the stand-in carries the
+    count meanwhile and hands it back to the wrapper at the end."""
+    from ldmae_tpu_torch.ops import linear
+
+    real, tally = linear.dense_bias_f32, collections.Counter()
+
+    def counted(x, weight, bias):
+        before = counted.launches
+        out = real(x, weight, bias)
+        tally[(x.shape[0], x.shape[1], weight.shape[0])] += counted.launches - before
+        return out
+
+    counted.launches = 0
+    linear.dense_bias_f32 = counted
+    try:
+        yield tally
+    finally:
+        linear.dense_bias_f32 = real
+        real.launches += counted.launches
+
+
+@contextlib.contextmanager
+def tf32_convs(module):
+    """``module``'s float32 convolutions with TF32 allowed (the control of the
+    TF32-off checks)."""
+    import torch
+    import torch.nn.functional as F
+
+    saved = module.conv2d_fp32
+
+    def conv(x, w, bias=None, **kw):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            return F.conv2d(x.float(), w.float(), None if bias is None else bias.float(), **kw)
+
+    module.conv2d_fp32 = conv
+    try:
+        yield
+    finally:
+        module.conv2d_fp32 = saved
+
+
+def write_image_folder(root: str, n: int, seed: int) -> None:
+    """n seeded RGB PNGs of 300 x 280 (the ADM crop resizes them to 274 x
+    256 and crops) in two class folders; smooth gradients plus noise, so
+    neighbouring pixels correlate as in photographs."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:280, 0:300].astype(np.float32)
+    for i in range(n):
+        d = os.path.join(root, f"class{i * 2 // n}")
+        os.makedirs(d, exist_ok=True)
+        f = rng.uniform(0.005, 0.05, (3, 2))
+        base = 127 + 100 * np.sin(f[:, :1, None] * yy + f[:, 1:, None] * xx + rng.uniform(0, 6, (3, 1, 1)))
+        img = np.clip(base + rng.normal(0, 20, base.shape), 0, 255).astype(np.uint8).transpose(1, 2, 0)
+        Image.fromarray(img).save(os.path.join(d, f"{i:04d}.png"), compress_level=1)
+
+
+def extraction_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
+    """``cli.extract_features.main`` on EXTRACT_IMAGES PNGs at --batch
+    EXTRACT_BATCH with the shipped YAML's data section (data.sample: the raw
+    32-channel moments), seeded VMAE weights, exact launch counts; the shards
+    read back (count, labels in order, each image's latents and its flip's
+    against a re-encode: the same batch, and encode(flip(x)) apart) and the
+    statistics file against its recomputation; the call's images/s and peak
+    memory, and the encode's alone. Returns ({"extract": counts}, dense's
+    launches in the call by (M, K, N))."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import extract_features
+    from ldmae_tpu_torch.data.images import ImageFolderDataset
+    from ldmae_tpu_torch.data.latent_dataset import ImgLatentDataset, _load_stats, read_safetensors
+    from ldmae_tpu_torch.models import load_production_vmae
+
+    cfg = _yaml_config(data={"origin_path": origin, "data_path": os.path.join(tmp, "latents"), "image_size": 256,
+                             "num_classes": 1000, "latent_norm": True, "latent_multiplier": 1.0, "sample": True})
+    cfg["vae"]["weight_path"] = ""
+    path = os.path.join(tmp, "extract.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log(f"[extract] cli.extract_features: {EXTRACT_IMAGES} PNGs (300x280, ADM crop to 256), --batch {EXTRACT_BATCH} "
+        f"(flip-doubled to {2 * EXTRACT_BATCH}), VMAE f8d16_prev with seeded weights, bf16, the CLI's xla attention, "
+        f"data.sample true (raw moments)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with dense_launches_by_shape() as dense_shapes:
+        t0 = time.perf_counter()
+        out = extract_features.main(["--config", path, "--batch", str(EXTRACT_BATCH)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("extract", counts)
+    log(f"  dense launches by (M, K, N): {dict(dense_shapes)}")
+    if sum(dense_shapes.values()) != counts["dense_bias_f32"]:
+        raise SystemExit(f"extract: dense's launches by shape {dict(dense_shapes)} do not add up to its count")
+
+    names = sorted(os.listdir(out))
+    shard = read_safetensors(os.path.join(out, names[0]))
+    lat, flip, labels = (torch.from_numpy(np.array(shard[k])) for k in ("latents", "latents_flip", "labels"))
+    ok = (names == ["latents_rank00_shard000.safetensors", "latents_stats.pt"] and lat.shape == (EXTRACT_IMAGES, 32, 32, 32)
+          and flip.shape == lat.shape and labels.tolist() == [0] * (EXTRACT_IMAGES // 2) + [1] * (EXTRACT_IMAGES // 2)
+          and bool(torch.isfinite(lat).all() and torch.isfinite(flip).all()))
+    # the first batch again through the same encode (same weights, shapes)
+    vae = load_production_vmae("", 256, dev, 1)
+    ds = ImageFolderDataset(origin, 256)
+    u8 = np.stack([ds.get(i, raw_uint8=True)[0] for i in range(EXTRACT_BATCH)])
+    x = torch.from_numpy(u8).to(dev)
+    re, re_f = (t.cpu() for t in extract_features.encode_batch(vae, x, True))
+    scale = float(lat.abs().max())
+    self_err = float((lat[:EXTRACT_BATCH] - re).abs().max()) / scale
+    flip_err = float((flip[:EXTRACT_BATCH] - re_f).abs().max()) / scale
+    other_err = min(float((lat[i] - re[i + 1]).abs().max()) for i in range(EXTRACT_BATCH - 1)) / scale
+    # encode(flip(x)): the flipped crops as the unflipped half of a batch
+    ff, _ = extract_features.encode_batch(vae, torch.from_numpy(np.ascontiguousarray(u8[:, :, ::-1])).to(dev), True)
+    flip_direct = float((flip[:EXTRACT_BATCH] - ff.cpu()).abs().max()) / scale
+    stats = _load_stats(os.path.join(out, "latents_stats.pt"))
+    again = ImgLatentDataset(out, latent_norm=False, sample=True).compute_latent_stats()
+    stats_ok = all(stats[k].shape == (1, 16, 1, 1) and np.array_equal(stats[k], again[k]) for k in ("mean", "std"))
+    # the same weights on the same batch at the same shapes: the same bits
+    ok = ok and self_err == 0 and flip_err == 0 and flip_direct == 0 and other_err > 0 and stats_ok
+    log(f"  shards {names}; latents {tuple(lat.shape)}, labels in order; the first batch re-encoded: latents max rel "
+        f"err {self_err:.3g}, flips {flip_err:.3g} (must be 0), nearest other image {other_err:.3g}; flips vs "
+        f"encode(flip(x)) {flip_direct:.3g} (must be 0); latents_stats.pt (mean, std (1, 16, 1, 1) of sampled "
+        f"moments) equal to their recomputation: {stats_ok} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("extraction: the shards or the statistics are wrong")
+
+    # the encode alone at the CLI's batch (device time, steady)
+    ms = cuda_ms(lambda: extract_features.encode_batch(vae, x, True), 3, 1)
+    log(f"  extraction: {EXTRACT_IMAGES / seconds:.2f} images/s for the whole CLI call ({seconds:.2f} s: model build, "
+        f"PNG decode and crop, encode, shard and statistics writes); the encode of a batch of {EXTRACT_BATCH} "
+        f"(flip-doubled) {ms:.2f} ms = {EXTRACT_BATCH / ms * 1e3:.1f} images/s; peak memory {peak:.3f} GB "
+        f"(xla attention's fp32 logits of ({2 * EXTRACT_BATCH},12,1024,1024)); on {smi}")
+    del vae, x
+    torch.cuda.empty_cache()
+    return {"extract": counts}, dense_shapes
+
+
+def encoder_kernel_phase(dev, origin: str, dense_shapes: dict) -> list:
+    """The encoder at a doubled batch of EXTRACT_BATCH under ``flash`` (#2's
+    resident kernel, exact counts) against ``xla``; #2 at its shape
+    (2 x EXTRACT_BATCH, 12, 1024, 16) against its plain version, timed beside
+    it and SDPA, with its bound; ``dense`` at the encoder's linear shapes
+    (K = 192 and 768) within half a bf16 ulp of fp64 math, timed beside
+    cuBLAS's bf16 F.linear, each with its launches in the extraction run
+    (``dense_shapes``, by (M, K, N)). Returns the encoder line's rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.data.images import ImageFolderDataset, normalize_uint8_images
+    from ldmae_tpu_torch.models import load_production_vmae
+    from ldmae_tpu_torch.ops import dense
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    vae = load_production_vmae("", 256, dev, 1)
+    ds = ImageFolderDataset(origin, 256)
+    u8 = torch.from_numpy(np.stack([ds.get(i, raw_uint8=True)[0] for i in range(EXTRACT_BATCH)])).to(dev)
+    imgs = normalize_uint8_images(u8)
+    both = torch.cat([imgs, imgs.flip(-1)])
+    log(f"[encoder] VMAE encode of a doubled batch of {EXTRACT_BATCH} in bf16: flash (#2 resident) vs xla")
+    ops.reset_launch_counts()
+    m_flash = vae.ldmae_encode_moments(both, torch.bfloat16, "flash")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_counts("encode_flash", counts)
+    m_xla = vae.ldmae_encode_moments(both, torch.bfloat16, "xla")
+    rel = float((m_flash - m_xla).abs().max() / m_xla.abs().max())
+    ms_flash = cuda_ms(lambda: vae.ldmae_encode_moments(both, torch.bfloat16, "flash"), 3, 1)
+    ms_xla = cuda_ms(lambda: vae.ldmae_encode_moments(both, torch.bfloat16, "xla"), 3, 1)
+    ok = rel <= 5e-2 and bool(torch.isfinite(m_flash).all())
+    log(f"  moments max rel err {rel:.4g} (tolerance 5e-2); encode {ms_flash:.2f} ms under flash, {ms_xla:.2f} ms "
+        f"under xla -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("VMAE encode: flash disagrees with xla")
+    del vae, m_flash, m_xla, both, imgs
+    torch.cuda.empty_cache()
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(41)
+    b, h, n, d = 2 * EXTRACT_BATCH, 12, 1024, 16
+    log(f"[encoder] flash_attention_resident at the encoder's shape ({b},{h},{n},{d}) bf16")
+    q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).bfloat16() for _ in range(3))
+    ref = fa.flash_attention_plain(q, k, v)
+    err = compare("flash_attention_resident (encoder)", fa.flash_attention(q, k, v), ref, **attn_tol(ref))
+    del ref
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 2, 1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    bnd = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (SDPA / kernel {lib_ms / ms:.3f}); "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+    rows.append({"name": "flash_attention_resident", "route": "cuda", "source": _FA,
+                 "replaces": KERNELS["flash_attention_resident"][1], "shape": [b, h, n, d], "launches": counts[
+        "flash_attention_resident"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+        "bound_by": bnd[1], "library_ms": lib_ms})
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    log("[encoder] dense (the GEMM engine's bf16 kernel, fp32 bias) at the encoder's linears, M = 131,072 tokens, "
+        "vs fp64 (ulps) and cuBLAS's bf16 F.linear")
+    for name, m, kk, nn in ENCODER_DENSE_SHAPES:
+        x = torch.randn(m, kk, generator=g, device=dev).bfloat16()
+        w = (torch.randn(nn, kk, generator=g, device=dev) * kk**-0.5).bfloat16()
+        bias = torch.randn(nn, generator=g, device=dev)
+        ulp = dense_ulp_error(dense(x, w, bias), x, w, bias)
+        plain = F.linear(x.float(), w.float(), bias).bfloat16()
+        err = float((dense(x, w, bias).float() - plain.float()).abs().max())
+        bb = bias.bfloat16()
+        t = linear_timings(lambda: dense(x, w, bias), lambda: F.linear(x, w, bb))
+        plain_ms = cuda_ms(lambda: F.linear(x.float(), w.float(), bias).bfloat16(), 5)
+        bnd = bound(2 * (m * kk + nn * kk + m * nn) + 4 * nn, 2 * m * kk * nn)
+        ok = ulp <= 0.5
+        log(f"  {name} ({m}x{kk} -> {nn}): max error {ulp:.4f} ulp (bound 0.5) -> {'ok' if ok else 'FAIL'}; dense warm "
+            f"{t['ms']:.4f} ms, queued {t['queued_ms']:.4f}, cold {t['cold_ms']:.4f}; F.linear warm "
+            f"{t['library_ms']:.4f}, queued {t['library_queued_ms']:.4f}; queued dense / F.linear "
+            f"{t['queued_ms'] / t['library_queued_ms']:.3f}; plain {plain_ms:.4f} ms; bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), share {bnd[0] / t['queued_ms']:.3f} (queued)")
+        if not ok:
+            raise SystemExit(f"dense ({name}): not one rounding after the fp32 bias")
+        launches = dense_shapes.get((m, kk, nn), 0)
+        if not launches:
+            raise SystemExit(f"dense ({name}): no launch at {(m, kk, nn)} in the extraction run")
+        rows.append({"name": f"dense {name}", "route": "cuda", "source": _DENSE, "replaces": KERNELS["dense"][1],
+                     "shape": [m, kk, nn], "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": t["library_ms"],
+                     "queued_ms": t["queued_ms"], "cold_ms": t["cold_ms"], "library_queued_ms": t["library_queued_ms"],
+                     "max_ulp": ulp})
+        del x, w, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tokenizer_eval_phase(dev, smi: str, tmp: str, origin: str) -> dict:
+    """``cli.evaluate_tokenizer.main`` on the first EVAL_IMAGES PNGs at
+    --batch EVAL_BATCH (seeded VMAE, seeded random LPIPS and Inception
+    weights): exact launch counts, finite rFID, PSNR, LPIPS and SSIM, the
+    PNG folders; LPIPS(x, x) = 0 and SSIM(x, x) = 1 on the card; LPIPS on
+    the card against its CPU path (with a TF32 control); the roundtrip's
+    images/s at its batch. Returns {"tokenizer_eval": counts}."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import evaluate_tokenizer
+    from ldmae_tpu_torch.data.images import ImageFolderDataset, normalize_uint8_images
+    from ldmae_tpu_torch.eval.metrics import ssim
+    from ldmae_tpu_torch.models import load_production_vmae
+    from ldmae_tpu_torch.models import lpips as tlpips
+    from ldmae_tpu_torch.models.lpips import load_lpips
+
+    cfg = _yaml_config(data={"image_size": 256, "num_classes": 1000})
+    cfg["vae"]["weight_path"] = ""
+    path = os.path.join(tmp, "eval.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(tmp, "rfid")
+    log(f"[tokenizer] cli.evaluate_tokenizer: {EVAL_IMAGES} PNGs, --batch {EVAL_BATCH}, epsilon 0, seeded VMAE, "
+        f"random LPIPS and Inception weights (no weight files in the repository)")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (report,) = evaluate_tokenizer.main(["--config", path, "--data_path", origin, "--output_path", out,
+                                         "--batch", str(EVAL_BATCH), "--limit", str(EVAL_IMAGES)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_counts("tokenizer_eval", counts)
+    pngs = [len(os.listdir(os.path.join(out, d))) for d in ("reference", "vmae_f8d16_0.0")]
+    ok = all(math.isfinite(report[k]) for k in ("rfid", "psnr", "lpips", "ssim")) and pngs == [EVAL_IMAGES] * 2
+    # the metrics' identities on the card
+    ds = ImageFolderDataset(origin, 256)
+    u8 = torch.from_numpy(np.stack([ds.get(i, raw_uint8=True)[0] for i in range(EVAL_BATCH)])).to(dev)
+    x = normalize_uint8_images(u8)
+    lp = load_lpips(dev)
+    same_lpips = float(lp(x, x).abs().max())
+    same_ssim = float((ssim(x, x, data_range=(-1.0, 1.0), per_image=True) - 1).abs().max())
+    # LPIPS on the card against its CPU path (4 images and their
+    # reconstructions): the VGG features within relative L2 1e-5, TF32 off;
+    # TF32 convolutions must read above
+    cpu_lp = load_lpips("cpu")
+    rec = normalize_uint8_images(evaluate_tokenizer.roundtrip(load_production_vmae("", 256, dev, 1), lp, u8[:4])[0])
+    ref_f, ref_d = cpu_lp.net(x[:4].cpu()), cpu_lp(x[:4].cpu(), rec.cpu())
+
+    def lp_errs():
+        with torch.no_grad():
+            feats = lp.net(x[:4])
+        feat = max(float((f.cpu() - r).norm() / r.norm()) for f, r in zip(feats, ref_f))
+        return feat, float((lp(x[:4], rec).cpu() - ref_d).abs().max() / ref_d.abs().max())
+
+    off = lp_errs()
+    with tf32_convs(tlpips):
+        on = lp_errs()
+    ok = (ok and same_lpips == 0.0 and same_ssim <= 1e-6 and max(off) <= 1e-5 and on[0] > 1e-5)
+    log(f"  {report}; PNGs {pngs}; LPIPS(x, x) max {same_lpips:g} (must be 0), |SSIM(x, x) - 1| max {same_ssim:.3g} "
+        f"(tolerance 1e-6); LPIPS on the card vs its CPU path: VGG features rel L2 {off[0]:.3g}, distances "
+        f"{off[1]:.3g} of their largest (tolerance 1e-5, TF32 off), with TF32 convolutions {on[0]:.3g} (must "
+        f"exceed it), {on[1]:.3g} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("tokenizer evaluation: a metric is not finite, an identity fails, or LPIPS disagrees")
+    del cpu_lp
+    vae = load_production_vmae("", 256, dev, 1)
+    ms = cuda_ms(lambda: evaluate_tokenizer.roundtrip(vae, lp, u8), 3, 1)
+    log(f"  tokenizer evaluation: the roundtrip (encode, decode, LPIPS, SSIM) of a batch of {EVAL_BATCH} {ms:.2f} ms "
+        f"= {EVAL_BATCH / ms * 1e3:.1f} images/s; the whole CLI call {seconds:.2f} s for {EVAL_IMAGES} images "
+        f"(model builds, PNG decode and writes, rFID's Inception and sqrtm on the host); on {smi}")
+    del vae, lp
+    torch.cuda.empty_cache()
+    return {"tokenizer_eval": counts}
+
+
+def inception_fid_phase(dev, smi: str, tmp: str) -> None:
+    """The FID InceptionV3 on the card against its CPU path (batch 4,
+    seeded random weights: relative L2 1e-5, which the same network with
+    TF32 convolutions must exceed), its images/s at batch INCEPTION_BATCH;
+    then ``cli.fid_stats`` on one seeded npz of NPZ_IMAGES and
+    ``cli.evaluate`` (the ADM report) of a second against it, and ``evaluate
+    --fid`` of the statistics against themselves (FID 0 within 1e-3)."""
+    import numpy as np
+    import torch
+
+    from ldmae_tpu_torch.cli import evaluate, fid_stats
+    from ldmae_tpu_torch.models import inception as tinc
+
+    sd = tinc.import_inception_torch_state_dict(tinc.random_inception_torch_state_dict())
+    gpu, cpu = tinc.InceptionV3(dev), tinc.InceptionV3("cpu")
+    gpu.load_state_dict(sd)
+    cpu.load_state_dict(sd)
+    x = torch.rand(INCEPTION_BATCH, 256, 256, 3, generator=torch.Generator().manual_seed(43))
+    ref = cpu(x[:4], return_spatial=True)
+
+    def errs():
+        out = gpu(x[:4].to(dev), return_spatial=True)
+        return [float((o.cpu().double() - r.double()).norm() / r.double().norm()) for o, r in zip(out, ref)]
+
+    off = errs()
+    with tf32_convs(tinc):
+        on = errs()
+    xd = x.to(dev)
+    ms = cuda_ms(lambda: gpu(xd, return_spatial=True), 5)
+    ok = max(off) <= 1e-5 and min(on) > 1e-5
+    log(f"[inception] FID InceptionV3 on the card vs its CPU path (batch 4, 256^2 -> 299^2): pooled rel L2 "
+        f"{off[0]:.3g}, sFID tap {off[1]:.3g} (tolerance 1e-5, TF32 off); with TF32 convolutions {on[0]:.3g}, "
+        f"{on[1]:.3g} (must exceed it) -> {'ok' if ok else 'FAIL'}; batch {INCEPTION_BATCH} {ms:.2f} ms = "
+        f"{INCEPTION_BATCH / ms * 1e3:.1f} images/s; on {smi}")
+    if not ok:
+        raise SystemExit("Inception: the card disagrees with the CPU path, or the TF32 control reads within")
+    del gpu, cpu, xd
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(44)
+    for name in ("a", "b"):
+        np.savez(os.path.join(tmp, f"{name}.npz"), arr_0=rng.integers(0, 256, (NPZ_IMAGES, 256, 256, 3), dtype=np.uint8))
+    stats = os.path.join(tmp, "a_stats.npz")
+    t0 = time.perf_counter()
+    fid_stats.main(["--input", os.path.join(tmp, "a.npz"), "--out", stats])
+    t1 = time.perf_counter()
+    report = evaluate.main([os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz"), "--ref_stats", stats])
+    t2 = time.perf_counter()
+    same = evaluate.main([stats, stats, "--fid"])["fid"]
+    t3 = time.perf_counter()
+    ok = (all(math.isfinite(report[k]) for k in ("fid", "sfid", "precision", "recall")) and report["fid"] > 0
+          and abs(same) <= 1e-3 and "inception_score" not in report)
+    log(f"[fid] fid_stats ({NPZ_IMAGES} images) {t1 - t0:.2f} s; evaluate b vs a {t2 - t1:.2f} s: {report}; "
+        f"evaluate --fid a a {t3 - t2:.2f} s: FID {same:.3g} (must be 0 within 1e-3); no IS without the weights "
+        f"file's fc head -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("fid_stats / evaluate: a metric is not finite, or FID(a, a) is not 0")
+
+
 def main() -> int:
     try:
         import torch
@@ -2194,6 +2587,14 @@ def main() -> int:
         result["counts"] |= cli_train_phase(dev, smi, tmp)
     if profile:
         train_profile_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        origin = os.path.join(tmp, "images")
+        write_image_folder(origin, EXTRACT_IMAGES, 42)
+        counts, dense_shapes = extraction_phase(dev, smi, tmp, origin)
+        result["counts"] |= counts
+        encoder_rows = encoder_kernel_phase(dev, origin, dense_shapes)
+        result["counts"] |= tokenizer_eval_phase(dev, smi, tmp, origin)
+        inception_fid_phase(dev, smi, tmp)
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
@@ -2206,6 +2607,9 @@ def main() -> int:
     missing = set(KERNELS) - set(rows)
     if missing:
         raise SystemExit(f"no measurement of {sorted(missing)}")
+    # #2 and dense at the VMAE encoder's shapes (the extraction slice), apart
+    # from the kernels line's main-path shapes
+    log(json.dumps({"encoder_kernels": encoder_rows}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

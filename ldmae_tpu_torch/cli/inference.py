@@ -8,10 +8,14 @@ configured attention / adaLN / MLP impls, int8 quantization when
 when those files exist, and otherwise uses seeded random weights. Writes
 PNGs (``--demo``: the reference's 2x4 demo grid).
 
+After sampling (not with ``--demo`` or ``--skip_fid``) it computes the FID
+of the samples against ``data.fid_reference_file`` where that file exists.
+The latent statistics are ``latents_stats.pt`` in ``data.data_path``,
+computed from the shards there where the file is missing.
+
 Not ported yet (ROADMAP.md): batch-level resume, ``resume_manifest.json``,
 rank interleave across processes, Orbax checkpoints, the non-VMAE
-tokenizers, latent statistics computed from shards (only an existing
-``latents_stats.pt`` is read).
+tokenizers.
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
@@ -28,31 +32,18 @@ import torch
 
 from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
+from ..data.latent_dataset import ImgLatentDataset
 from ..eval.sampling import DEMO_LABELS, make_sample_fn
+from ..eval.save_npz import folder_name_from_config as folder_name
 from ..models import (
-    VMAE,
     LightningDiT,
     dit_spec,
+    load_production_vmae,
     permute_qk_for_half_rope,
-    production_vmae_spec,
     quantize_dit_,
     seeded_init_,
 )
 from ..transport import create_transport
-
-
-def folder_name(config) -> str:
-    """The reference's sample-folder naming (inference.py:45-52)."""
-    s = config.sample
-    stem = str(config.ckpt_path or "random").split("/")[-1].split(".")[0]
-    name = (
-        f"{config.model.model_type.replace('/', '-')}-ckpt-{stem}"
-        f"-{s.sampling_method}-{s.num_sampling_steps}"
-    ).lower()
-    if s.cfg_scale > 1.0:
-        name += f"-interval{(s.cfg_interval_start or 0):.2f}-cfg{s.cfg_scale:.2f}"
-        name += f"-shift{(s.timestep_shift or 0):.2f}"
-    return name
 
 
 def _load_checkpoint(path: str, key: str):
@@ -99,18 +90,21 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
         raise NotImplementedError(
             f"tokenizer {config.vae.model_name!r} is not ported yet (VMAE only)"
         )
-    vae = VMAE(production_vmae_spec(d.image_size), device=device)
-    if config.vae.weight_path and os.path.exists(config.vae.weight_path):
-        vae.load_state_dict(_load_checkpoint(config.vae.weight_path, "model"), strict=True)
-    else:
-        print(f"no VMAE weights at {config.vae.weight_path!r}: using seeded random weights")
-        seeded_init_(vae, seed + 1)
+    weights = config.vae.weight_path if os.path.exists(config.vae.weight_path or "") else ""
+    if config.vae.weight_path and not weights:
+        print(f"no VMAE weights at {config.vae.weight_path!r}")
+    vae = load_production_vmae(weights, d.image_size, device, seed + 1)
 
+    # the training latents' statistics: latents_stats.pt, computed from the
+    # shards (and saved) where it is missing
     latent_mean = latent_std = None
-    stats = os.path.join(d.data_path, "latents_stats.pt")
-    if d.latent_norm and os.path.exists(stats):
-        raw = torch.load(stats, map_location="cpu", weights_only=True)
-        latent_mean, latent_std = raw["mean"].float(), raw["std"].float()
+    if d.latent_norm and os.path.isdir(d.data_path):
+        try:
+            ds = ImgLatentDataset(d.data_path, latent_norm=True, sample=d.sample)
+            latent_mean = torch.from_numpy(ds._latent_mean).float()
+            latent_std = torch.from_numpy(ds._latent_std).float()
+        except FileNotFoundError:  # a folder without shards
+            pass
 
     t = config.transport
     transport = create_transport(t.path_type, t.prediction, t.loss_weight, t.train_eps, t.sample_eps)
@@ -199,6 +193,7 @@ def main(argv=None):
     parser.add_argument("--demo", action="store_true")
     parser.add_argument("--demo_out", default=None)
     parser.add_argument("--ckpt", default=None)
+    parser.add_argument("--skip_fid", action="store_true")
     parser.add_argument(
         "--quant", default=None, choices=["w8", "w8a8"],
         help="int8-quantize the DiT for sampling (overrides parallel.quant)",
@@ -210,7 +205,15 @@ def main(argv=None):
         config.ckpt_path = args.ckpt
     if args.quant:
         config.parallel.quant = args.quant
-    return do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device)
+    out_dir = do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device)
+    # FID against the reference statistics after sampling
+    ref = config.data.fid_reference_file
+    if not args.demo and not args.skip_fid and ref and os.path.exists(ref):
+        from ..eval.fid import calculate_fid_given_paths
+
+        fid = calculate_fid_given_paths([ref, out_dir], sp_len=config.sample.fid_num, device=args.device)
+        print(f"FID: {fid:.6f}")
+    return out_dir
 
 
 if __name__ == "__main__":

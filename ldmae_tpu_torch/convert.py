@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .models.lightningdit import DiTSpec
+from .models.lpips import VGG_SLICES
 from .models.vmae import VMAESpec
 from .ops.rope import build_rope_table
 from .ops.sincos import get_2d_sincos_pos_embed
@@ -170,4 +171,36 @@ def vmae_state_dict_from_jax(params: Any, spec: VMAESpec) -> StateDict:
         sd["decoder_pred.conv_smoother.bias"] = _t(dp["conv_smoother"]["b"])
     else:
         lin("decoder_pred", dp)
+    return sd
+
+
+def inception_state_dict_from_jax(params: Any) -> StateDict:
+    """The JAX package's folded InceptionV3 parameters ({conv: {w, scale,
+    shift}}, nested by Mixed block) -> ``models.inception.InceptionV3``'s
+    state dict."""
+    sd: StateDict = {}
+
+    def walk(prefix, node):
+        if "w" in node:
+            sd[f"{prefix}.weight"], sd[f"{prefix}.scale"], sd[f"{prefix}.shift"] = (
+                _t(node["w"]), _t(node["scale"]), _t(node["shift"]))
+            return
+        for name, child in node.items():
+            walk(f"{prefix}.{name}" if prefix else name, child)
+
+    walk("", params)
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Any) -> StateDict:
+    """The JAX package's LPIPS parameters ({"vgg": {"s{slice}_{conv}": {w,
+    b}}, "lins": [(1, C, 1, 1)]}) -> ``models.lpips.LPIPS``'s state dict."""
+    sd: StateDict = {}
+    for si, convs in enumerate(VGG_SLICES):
+        for li, (idx, _, _) in enumerate(convs):
+            p = params["vgg"][f"s{si}_{li}"]
+            sd[f"net.slice{si + 1}.{idx}.weight"] = _t(p["w"])
+            sd[f"net.slice{si + 1}.{idx}.bias"] = _t(p["b"])
+    for k, w in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _t(w)
     return sd

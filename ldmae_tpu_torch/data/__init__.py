@@ -1,3 +1,3 @@
-from .latent_dataset import ImgLatentDataset, read_safetensors
+from .latent_dataset import ImgLatentDataset, LatentShardWriter, read_safetensors, write_safetensors
 
-__all__ = ["ImgLatentDataset", "read_safetensors"]
+__all__ = ["ImgLatentDataset", "LatentShardWriter", "read_safetensors", "write_safetensors"]

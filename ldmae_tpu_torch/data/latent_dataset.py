@@ -5,12 +5,14 @@ The reference's extraction format: shards named
 ``latents_flip`` (N, C, h, w) and ``labels`` (N,), and a
 ``latents_stats.pt`` holding channelwise mean/std (1, C, 1, 1).
 
-The port reads the safetensors layout itself (``read_safetensors``): an
-8-byte little-endian header length, a JSON header naming each tensor's
-dtype, shape and byte range, then the raw little-endian buffers, memory-
-mapped with numpy. Item access, the flip choice, moment sampling, the
-latent statistics and the seeded batch order are the JAX package's, drawn
-from the same numpy generators, so both give the same batches.
+The port reads and writes the safetensors layout itself
+(``read_safetensors``, ``write_safetensors``): an 8-byte little-endian
+header length, a JSON header naming each tensor's dtype, shape and byte
+range, then the raw little-endian buffers (read memory-mapped with numpy).
+Item access, the flip choice, moment sampling, the latent statistics and
+the seeded batch order are the JAX package's, drawn from the same numpy
+generators, so both give the same batches. ``LatentShardWriter`` writes the
+extraction's shards; ``latents_stats.pt`` is written atomically.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import json
 import os
 import struct
 from glob import glob
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,29 @@ _DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64, "I32": np.int32,
     "I16": np.int16, "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_,
 }
+
+
+_NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: Dict[str, np.ndarray], metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write numpy arrays as a safetensors file (the header padded with
+    spaces to a multiple of 8 bytes, the buffers back to back in the given
+    order), through a temporary file renamed into place."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in tensors.items()}
+    header: Dict[str, object] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for name, a in arrays.items():
+        header[name] = {"dtype": _NAMES[a.dtype], "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for a in arrays.values():
+            f.write(a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes())
+    os.replace(tmp, path)
 
 
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
@@ -79,17 +104,11 @@ class ImgLatentDataset:
     # -- stats -------------------------------------------------------------
     def get_latent_stats(self) -> Tuple[np.ndarray, np.ndarray]:
         cache = os.path.join(self.data_dir, "latents_stats.pt")
-        if os.path.exists(cache):
-            raw = torch.load(cache, map_location="cpu", weights_only=True)
-            stats = {k: np.asarray(v.numpy()) for k, v in raw.items()}
-        elif os.path.exists(cache + ".npz"):
-            raw = np.load(cache + ".npz")
-            stats = {k: raw[k] for k in raw.files}
+        if os.path.exists(cache) or os.path.exists(cache + ".npz"):
+            stats = _load_stats(cache)
         else:
             stats = self.compute_latent_stats()
-            tmp = f"{cache}.tmp{os.getpid()}"
-            torch.save({k: torch.from_numpy(v) for k, v in stats.items()}, tmp)
-            os.replace(tmp, cache)
+            _save_stats(cache, stats)
         return stats["mean"], stats["std"]
 
     def compute_latent_stats(self, num_samples: int = 10000) -> Dict[str, np.ndarray]:
@@ -159,3 +178,61 @@ def _sample_moments_np(moments: np.ndarray, rng: np.random.Generator) -> np.ndar
     c = moments.shape[1] // 2
     mean, logvar = moments[:, :c], np.clip(moments[:, c:], -30.0, 20.0)
     return (mean + np.exp(0.5 * logvar) * rng.standard_normal(mean.shape)).astype(np.float32)
+
+
+def _save_stats(path: str, stats: Dict[str, np.ndarray]) -> None:
+    """``latents_stats.pt`` ({name: tensor} through ``torch.save``), written to
+    a temporary file and renamed, so a reader never sees part of it."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in stats.items()}, tmp)
+    os.replace(tmp, path)
+
+
+def _load_stats(path: str) -> Dict[str, np.ndarray]:
+    """``latents_stats.pt``, or the ``.npz`` the JAX package writes where it
+    has no torch."""
+    if os.path.exists(path):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        return {k: np.asarray(v.numpy()) for k, v in raw.items()}
+    raw = np.load(path + ".npz")
+    return {k: raw[k] for k in raw.files}
+
+
+class LatentShardWriter:
+    """The extraction's shard writer (one process, rank 0): buffers
+    ``shard_size`` encodings, then writes
+    ``latents_rank00_shard{S:03d}.safetensors`` with ``latents``,
+    ``latents_flip``, ``labels`` (int64) and the metadata ``total_size`` and
+    ``dtype``."""
+
+    def __init__(self, out_dir: str, shard_size: int = 10000):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self.shard_size = shard_size
+        self.shard_idx = 0
+        self._lat: List[np.ndarray] = []
+        self._flip: List[np.ndarray] = []
+        self._lab: List[np.ndarray] = []
+        self._count = 0
+
+    def add(self, latents: np.ndarray, latents_flip: np.ndarray, labels: np.ndarray) -> None:
+        self._lat.append(np.asarray(latents))
+        self._flip.append(np.asarray(latents_flip))
+        self._lab.append(np.asarray(labels))
+        self._count += len(labels)
+        if self._count >= self.shard_size:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._lab:
+            return
+        lat = np.concatenate(self._lat)
+        lab = np.concatenate(self._lab).astype(np.int64)
+        name = f"latents_rank00_shard{self.shard_idx:03d}.safetensors"
+        write_safetensors(
+            os.path.join(self.out_dir, name),
+            {"latents": lat, "latents_flip": np.concatenate(self._flip), "labels": lab},
+            metadata={"total_size": str(len(lab)), "dtype": str(lat.dtype)},
+        )
+        self.shard_idx += 1
+        self._lat, self._flip, self._lab, self._count = [], [], [], 0

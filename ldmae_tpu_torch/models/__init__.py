@@ -10,7 +10,7 @@ from .lightningdit import (
     permute_qk_for_half_rope,
     quantize_dit_,
 )
-from .vmae import VMAE, VMAEConsts, VMAESpec, list_archs, production_vmae_spec, vmae_spec
+from .vmae import VMAE, VMAEConsts, VMAESpec, list_archs, load_production_vmae, production_vmae_spec, vmae_spec
 
 __all__ = [
     "lightningdit",
@@ -28,6 +28,7 @@ __all__ = [
     "VMAEConsts",
     "VMAESpec",
     "list_archs",
+    "load_production_vmae",
     "production_vmae_spec",
     "vmae_spec",
 ]

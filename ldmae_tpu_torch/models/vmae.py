@@ -1,10 +1,11 @@
-"""VMAE tokenizer — the decode side (port of ``ldmae_tpu/models/vmae.py``).
+"""VMAE tokenizer — the docking API (port of ``ldmae_tpu/models/vmae.py``).
 
 ``VMAE`` declares the whole reference ``MaskedAutoencoderViT`` parameter set
-(encoder included) under its state-dict keys, so ``vmaef8d16.pth``-style
-checkpoints and ``convert.vmae_state_dict_from_jax`` load with
-``strict=True``; this slice implements ``decode`` and ``decode_to_images``.
-The encoder forward comes with the extraction slice (ROADMAP.md).
+under its state-dict keys, so ``vmaef8d16.pth``-style checkpoints and
+``convert.vmae_state_dict_from_jax`` load with ``strict=True``. It
+implements the full-image encode (``ldmae_encode_moments``, ``encode``),
+``decode`` and ``decode_to_images``; the masked training forwards come with
+the VMAE training slice (ROADMAP.md).
 
 The production arch is ``mae_for_ldmae_f8d16_prev``: patch 8, decoder width
 192, depth 12, 12 heads (head dim 16), latent 16, ``smooth_output`` (linear
@@ -13,6 +14,8 @@ pred + 3x3 conv smoother on RGB).
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,7 +25,9 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..ops import dense, get_2d_sincos_pos_embed, layer_norm, mlp_gelu, multi_head_attention
-from ..ops.patchify import patchify, unpatchify
+from ..ops.conv import conv2d_fp32
+from ..ops.gaussian import DiagonalGaussian, diagonal_gaussian
+from ..ops.patchify import patch_embed, patchify, unpatchify
 
 
 @dataclass(frozen=True)
@@ -135,13 +140,8 @@ class _SmoothPred(nn.Module):
 
 
 def _conv2d_fp32(x: torch.Tensor, conv: nn.Conv2d, padding) -> torch.Tensor:
-    """fp32 convolution as the JAX head computes it. cuDNN would run an fp32
-    convolution in TF32 by default (about three decimal digits); it is
-    turned off for this call."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        return F.conv2d(F.pad(x.float(), padding), conv.weight.float(), conv.bias.float())
+    """fp32 convolution as the JAX head computes it (TF32 off)."""
+    return conv2d_fp32(F.pad(x.float(), padding), conv.weight, conv.bias)
 
 
 class VMAE(nn.Module):
@@ -181,12 +181,12 @@ class VMAE(nn.Module):
         else:
             self.decoder_pred = nn.Linear(dd, pin, device=device)
 
-    def _from_latent(self, x: torch.Tensor) -> torch.Tensor:
-        fl = self.from_latent
+    def _latent_proj(self, x: torch.Tensor, proj: nn.Module) -> torch.Tensor:
+        """``to_latent`` / ``from_latent``: a linear, or with
+        ``down_nonlinear`` the exact-erf GELU MLP."""
         if self.spec.down_nonlinear:
-            l0, l2 = fl.layers[0], fl.layers[2]
-            return mlp_gelu(x, l0, l2)
-        return dense(x, fl.weight, fl.bias)
+            return mlp_gelu(x, proj.layers[0], proj.layers[2])
+        return dense(x, proj.weight, proj.bias)
 
     def _decoder_pred(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L, dd) -> (B, L, p*p*3)."""
@@ -204,6 +204,46 @@ class VMAE(nn.Module):
         img = _conv2d_fp32(img, dp.conv_smoother, (1, 1, 1, 1))
         return patchify(img, spec.patch_size).to(x.dtype)
 
+    def _encoder_tokens(self, imgs: torch.Tensor, compute_dtype: torch.dtype, attn_impl: str) -> torch.Tensor:
+        """Full-image (unmasked) encoder: patch embedding (patchify, then
+        ``dense`` on the Conv2d weight viewed as a linear) -> + PE (and the
+        cls token) -> blocks -> norm."""
+        spec = self.spec
+        pe_w = self.patch_embed.proj
+        x = patch_embed(imgs.to(compute_dtype), pe_w.weight, pe_w.bias, spec.patch_size,
+                        compute_dtype=compute_dtype)
+        pe = self.consts.pos_embed.to(compute_dtype)
+        if spec.no_cls:
+            x = x + pe[None]
+        else:
+            x = x + pe[None, 1:]
+            cls = self.cls_token.reshape(-1).to(x.dtype) + pe[0]
+            x = torch.cat([cls.expand(x.shape[0], 1, -1), x], dim=1)
+        for blk in self.blocks:
+            x = blk(x, spec.num_heads, attn_impl)
+        return layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6)
+
+    @torch.no_grad()
+    def ldmae_encode_moments(self, imgs: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+                             attn_impl: str = "xla") -> torch.Tensor:
+        """(B, 3, H, W) images in [-1, 1] -> the raw ``to_latent`` output
+        (2 latent_dim channels when variational) as (B, C, h, w) float32."""
+        x = self._encoder_tokens(imgs, compute_dtype, attn_impl)
+        if not self.spec.no_cls:
+            x = x[:, 1:]
+        x = self._latent_proj(x, self.to_latent)
+        r = self.spec.latent_resolution
+        return x.transpose(1, 2).reshape(x.shape[0], -1, r, r).float()
+
+    def encode(self, imgs: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+               attn_impl: str = "xla") -> DiagonalGaussian:
+        """The posterior over (B, latent_dim, h, w); a point mass (logvar
+        -inf) when the arch is not variational."""
+        moments = self.ldmae_encode_moments(imgs, compute_dtype, attn_impl)
+        if self.spec.kl_loss_weight is not None:
+            return diagonal_gaussian(moments, axis=1)
+        return DiagonalGaussian(mean=moments, logvar=torch.full_like(moments, -math.inf))
+
     @torch.no_grad()
     def decode(self, z: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
                attn_impl: str = "xla") -> torch.Tensor:
@@ -211,7 +251,7 @@ class VMAE(nn.Module):
         spec = self.spec
         b, c, h, w = z.shape
         x = z.reshape(b, c, h * w).transpose(1, 2).to(compute_dtype)
-        x = self._from_latent(x)
+        x = self._latent_proj(x, self.from_latent)
         x = dense(x, self.decoder_embed.weight, self.decoder_embed.bias)
         pe = self.consts.decoder_pos_embed.to(x.dtype)
         x = x + (pe[None] if spec.no_cls else pe[None, 1:])
@@ -267,6 +307,27 @@ def production_vmae_spec(img_size: int = 256) -> VMAESpec:
         "mae_for_ldmae_f8d16_prev", img_size=img_size, ldmae_mode=True, no_cls=True,
         kl_loss_weight=True, smooth_output=True,
     )
+
+
+def load_production_vmae(weight_path: str, img_size: int = 256, device=None, seed: int = 1) -> VMAE:
+    """The production tokenizer with the reference checkpoint's ``model``
+    state dict at ``weight_path``; an empty path gives seeded random weights
+    (``models.seeded_init_``) with a warning, and a path that does not exist
+    raises, as the JAX package's ``build_tokenizer_fns`` does."""
+    from .init import seeded_init_
+
+    vae = VMAE(production_vmae_spec(img_size), device=device)
+    if weight_path:
+        if not os.path.exists(weight_path):
+            raise FileNotFoundError(f"tokenizer checkpoint not found: {weight_path}")
+        # a trusted file the user points at; reference checkpoints pickle an
+        # argparse Namespace, which a weights-only load refuses
+        ckpt = torch.load(weight_path, map_location="cpu", weights_only=False)
+        vae.load_state_dict(ckpt.get("model", ckpt), strict=True)
+    else:
+        print(f"WARNING: no VMAE tokenizer weights given, using seeded random weights (seed {seed})")
+        seeded_init_(vae, seed)
+    return vae
 
 
 def list_archs():

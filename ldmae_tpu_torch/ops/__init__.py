@@ -8,6 +8,7 @@ from .norms import rms_norm, layer_norm
 from .linear import dense, gelu, mlp_gelu, silu, swiglu_ffn, modulate
 from .patchify import patchify, unpatchify, patch_embed
 from .attention import multi_head_attention, sdpa
+from .gaussian import DiagonalGaussian, diagonal_gaussian
 from . import flash_attention as _fa, fused_adaln as _fad, linear as _lin, quant as _quant
 
 # every kernel wrapper of the ported path; each counts its launches. (The
@@ -51,6 +52,8 @@ __all__ = [
     "patch_embed",
     "multi_head_attention",
     "sdpa",
+    "DiagonalGaussian",
+    "diagonal_gaussian",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
     "launch_counts",

@@ -809,3 +809,128 @@ def test_cuda_dense_backward_vs_fp64(cuda):
         assert float((got.double() - ref).norm() / ref.norm()) <= 1e-2
     assert db.dtype == torch.float32
     torch.testing.assert_close(db.double(), gd.sum(0), rtol=1e-5, atol=1e-5 * float(gd.abs().sum(0).max()))
+
+
+# -- the extraction and evaluation slice ------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_vmae_encode_flash_vs_xla(cuda):
+    """The production VMAE encoder at 256^2 (1,024 tokens, head dim 16) in
+    bf16 under ``flash`` (#2's resident kernel, 12 launches, and ``dense``)
+    against ``xla`` on the card: moments within 5e-2 of their largest
+    |value|, as the sampling comparisons hold latents."""
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models import VMAE, production_vmae_spec, seeded_init_
+
+    vae = seeded_init_(VMAE(production_vmae_spec(256), device=cuda), 5)
+    x = torch.rand(4, 3, 256, 256, generator=torch.Generator().manual_seed(6)).to(cuda) * 2 - 1
+    ops.reset_launch_counts()
+    flash = vae.ldmae_encode_moments(x, torch.bfloat16, "flash")
+    counts = ops.launch_counts()
+    xla = vae.ldmae_encode_moments(x, torch.bfloat16, "xla")
+    assert counts["flash_attention_resident"] == 12 and counts["dense_bias_f32"] == 1 + 4 * 12 + 1
+    assert flash.shape == (4, 32, 32, 32) and torch.isfinite(flash).all()
+    assert float((flash - xla).abs().max() / xla.abs().max()) <= 5e-2
+
+
+def _tf32_conv(monkeypatch, module):
+    """The module's float32 convolutions in TF32 (the control)."""
+    import torch.nn.functional as F
+
+    def conv(x, w, bias=None, **kw):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            return F.conv2d(x.float(), w.float(), None if bias is None else bias.float(), **kw)
+
+    monkeypatch.setattr(module, "conv2d_fp32", conv)
+
+
+@pytest.mark.gpu
+def test_cuda_inception_vs_cpu_and_tf32_control(cuda, monkeypatch):
+    """The FID InceptionV3 on the card against its CPU path (seeded random
+    weights, batch 4 at 256^2): pooled and sFID features within relative L2
+    1e-5 with TF32 off; the same network with TF32 convolutions reads above
+    that bound."""
+    from ldmae_tpu_torch.models import inception as tinc
+
+    sd = tinc.import_inception_torch_state_dict(tinc.random_inception_torch_state_dict())
+    cpu, gpu = tinc.InceptionV3("cpu"), tinc.InceptionV3(cuda)
+    cpu.load_state_dict(sd)
+    gpu.load_state_dict(sd)
+    x = torch.rand(4, 256, 256, 3, generator=torch.Generator().manual_seed(7))
+    ref = cpu(x, return_spatial=True)
+
+    def err():
+        out = gpu(x.to(cuda), return_spatial=True)
+        return max(float((o.cpu().double() - r.double()).norm() / r.double().norm()) for o, r in zip(out, ref))
+
+    assert err() <= 1e-5
+    _tf32_conv(monkeypatch, tinc)
+    assert err() > 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_lpips_ssim_vs_cpu_and_tf32_control(cuda, monkeypatch):
+    """LPIPS (VGG16, seeded random weights) at 256^2 against its CPU path with
+    TF32 off: the five VGG feature maps within relative L2 1e-5 and the
+    distances within 1e-5 of their largest value (readings on an H100:
+    2.8e-6 and 1.5e-7); with TF32 convolutions both read above (1.2e-3 and
+    4.1e-5). SSIM per image within 1e-6 of its CPU path: its depthwise
+    window runs no TF32 kernel (the same 6e-8 with TF32 allowed)."""
+    from ldmae_tpu_torch.eval import metrics
+    from ldmae_tpu_torch.models import lpips as tlpips
+
+    sd = tlpips.import_lpips_weights()
+    cpu, gpu = tlpips.LPIPS("cpu"), tlpips.LPIPS(cuda)
+    cpu.load_state_dict(sd)
+    gpu.load_state_dict(sd)
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand(4, 3, 256, 256, generator=g) * 2 - 1
+    y = (x + 0.2 * torch.randn(x.shape, generator=g)).clamp(-1, 1)
+    ref_l, ref_f = cpu(x, y), cpu.net(x)
+    ref_s = metrics.ssim(x, y, data_range=(-1.0, 1.0), per_image=True)
+    out_s = metrics.ssim(x.to(cuda), y.to(cuda), data_range=(-1.0, 1.0), per_image=True).cpu()
+    assert float((out_s - ref_s).abs().max()) <= 1e-6
+
+    def errs():
+        with torch.no_grad():
+            feats = gpu.net(x.to(cuda))
+        feat = max(float((f.cpu() - r).norm() / r.norm()) for f, r in zip(feats, ref_f))
+        return feat, float((gpu(x.to(cuda), y.to(cuda)).cpu() - ref_l).abs().max() / ref_l.abs().max())
+
+    feat, dist = errs()
+    assert feat <= 1e-5 and dist <= 1e-5
+    _tf32_conv(monkeypatch, tlpips)
+    feat, dist = errs()
+    assert feat > 1e-5 and dist > 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_manifold_distances_vs_host(cuda, monkeypatch):
+    """Precision/recall's k-NN radii on the card (float32 products, TF32
+    off) within 1e-4 relative of the numpy path, and the same fractions;
+    with TF32 products the radii read above that bound."""
+    import contextlib
+
+    from ldmae_tpu_torch.eval import evaluator
+
+    g = torch.Generator().manual_seed(9)
+    f1 = torch.rand(600, 2048, generator=g).numpy()
+    f2 = (torch.rand(500, 2048, generator=g) + 0.02).numpy()
+    host = evaluator.ManifoldEstimator(row_batch_size=256, col_batch_size=256)
+    dev = evaluator.ManifoldEstimator(row_batch_size=256, col_batch_size=256, device=cuda)
+    r1, r2 = host.manifold_radii(f1), host.manifold_radii(f2)
+    assert float(abs(dev.manifold_radii(f1) / r1 - 1).max()) <= 1e-4
+    ours, theirs = dev.evaluate_pr(f1, r1, f2, r2), host.evaluate_pr(f1, r1, f2, r2)
+    assert [x.tolist() for x in ours] == [x.tolist() for x in theirs]
+
+    @contextlib.contextmanager
+    def tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    monkeypatch.setattr(evaluator, "_fp32_matmul", tf32)
+    assert float(abs(dev.manifold_radii(f1) / r1 - 1).max()) > 1e-4

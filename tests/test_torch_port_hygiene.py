@@ -2,8 +2,10 @@
 
 * Every ``ldmae_tpu_torch`` module, and ``chip_smoke.py``, import without
   JAX or any ``ldmae_tpu`` module (checked in a fresh interpreter).
-* Entry points default to ``cuda`` and raise when there is no CUDA device
-  unless the caller passes ``device="cpu"``.
+* Entry points (the sampling, training, extraction and evaluation CLIs and
+  models) default to ``cuda`` and raise when there is no CUDA device unless
+  the caller passes ``device="cpu"``; PIL and ``safetensors`` are not
+  imported with the package.
 * A kernel wrapper given a tensor that is not on the CPU takes the kernel
   path (and raises if it cannot launch), never the plain version.
 * The forward-only attention kernels raise when autograd would record them.
@@ -35,10 +37,21 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "ldmae_tpu" or m.startswith("ldmae_tpu."))
         assert not bad, bad
-        # the training slice's modules are among those checked
+        # PIL is imported where an image is decoded; safetensors is read and
+        # written by the port itself
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "safetensors"))
+        assert not bad, bad
+        # the training slice's and the extraction and evaluation slice's
+        # modules are among those checked
         for name in ("ldmae_tpu_torch.train.train_dit", "ldmae_tpu_torch.train.state",
                      "ldmae_tpu_torch.data.latent_dataset", "ldmae_tpu_torch.utils.profiling",
-                     "ldmae_tpu_torch.cli.train_dit"):
+                     "ldmae_tpu_torch.cli.train_dit",
+                     "ldmae_tpu_torch.ops.gaussian", "ldmae_tpu_torch.models.vmae", "ldmae_tpu_torch.data.images",
+                     "ldmae_tpu_torch.cli.extract_features", "ldmae_tpu_torch.eval.metrics",
+                     "ldmae_tpu_torch.models.lpips", "ldmae_tpu_torch.models.inception", "ldmae_tpu_torch.eval.fid",
+                     "ldmae_tpu_torch.cli.evaluate_tokenizer", "ldmae_tpu_torch.eval.evaluator",
+                     "ldmae_tpu_torch.eval.save_npz", "ldmae_tpu_torch.cli.fid_stats", "ldmae_tpu_torch.cli.evaluate",
+                     "ldmae_tpu_torch.cli.inference", "ldmae_tpu_torch.ops.conv"):
             assert name in names, name
         print(len(names))
         """
@@ -47,7 +60,7 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 28
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40
 
 
 @pytest.fixture
@@ -69,8 +82,11 @@ def _tiny_config(tmp_path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
-    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.cli import evaluate, evaluate_tokenizer, extract_features, fid_stats, train_dit
     from ldmae_tpu_torch.cli.inference import build_pipeline
+    from ldmae_tpu_torch.eval.evaluator import Evaluator
+    from ldmae_tpu_torch.models.inception import InceptionV3
+    from ldmae_tpu_torch.models.lpips import LPIPS
     from ldmae_tpu_torch.core import resolve_device
     from ldmae_tpu_torch.eval.sampling import demo_labels, make_sample_fn
     from ldmae_tpu_torch.models import VMAE, LightningDiT, dit_spec, production_vmae_spec
@@ -79,6 +95,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     spec = dit_spec("LightningDiT-debug")
     cfg_path = str(tmp_path / "tiny.yaml")
     _tiny_config(tmp_path).to_yaml(cfg_path)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    npz = str(tmp_path / "a.npz")
+    np.savez(npz, arr_0=np.zeros((2, 8, 8, 3), np.uint8))
     for call in (
         lambda: resolve_device(),
         lambda: LightningDiT(spec),
@@ -88,6 +108,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         lambda: build_pipeline(_tiny_config(tmp_path)),
         lambda: train_dit.main(["--config", cfg_path]),
         lambda: train_dit.main(["--config", cfg_path, "--device", "cuda"]),
+        lambda: extract_features.main(["--config", cfg_path]),
+        lambda: evaluate_tokenizer.main(["--config", cfg_path, "--data_path", str(imgs),
+                                         "--output_path", str(tmp_path / "rfid")]),
+        lambda: fid_stats.main(["--input", npz, "--out", str(tmp_path / "s.npz")]),
+        lambda: evaluate.main([npz, npz]),
+        lambda: evaluate.main([npz, npz, "--fid"]),
+        lambda: LPIPS(),
+        lambda: InceptionV3(),
+        lambda: Evaluator(),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
