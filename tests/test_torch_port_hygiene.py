@@ -11,6 +11,8 @@
 * The forward-only attention kernels raise when autograd would record them.
 * ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid,
   also with ``--quant w8a8``; a config's ``parallel.quant`` quantizes the DiT.
+* A config naming a VMAE checkpoint that does not exist stops both packages'
+  sampling pipeline builders with ``FileNotFoundError``.
 """
 
 import os
@@ -308,3 +310,23 @@ def test_cli_writes_pngs_on_cpu(tmp_path):
     out_dir = inference.do_sample(cfg, device="cpu")
     assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png", "000002.png"]
     assert os.path.basename(out_dir) == inference.folder_name(cfg)
+
+
+def test_pipeline_builders_raise_for_a_missing_vmae_checkpoint(tmp_path):
+    """A ``vae.weight_path`` that names no file: the JAX CLI's tokenizer
+    loader raises (``ldmae_tpu/models/tokenizers.py``, ``_load_or_init``),
+    and so must the port's builder, rather than decode through seeded random
+    weights. (An empty path means seeded weights in both.)"""
+    from ldmae_tpu.cli.inference import build_pipeline as jbuild_pipeline
+    from ldmae_tpu.core.config import LDMAEConfig as JLDMAEConfig
+
+    from ldmae_tpu_torch.cli.inference import build_pipeline
+
+    cfg = _tiny_config(tmp_path)
+    cfg.vae.weight_path = str(tmp_path / "missing" / "vmaef8d16.pth")
+    cfg_path = str(tmp_path / "missing_vae.yaml")
+    cfg.to_yaml(cfg_path)
+    with pytest.raises(FileNotFoundError, match="vmaef8d16.pth"):
+        jbuild_pipeline(JLDMAEConfig.from_yaml(cfg_path))
+    with pytest.raises(FileNotFoundError, match="vmaef8d16.pth"):
+        build_pipeline(cfg, device="cpu")
