@@ -4,8 +4,9 @@ Builds the sampling pipeline from a reference-layout YAML exactly as the JAX
 CLI's ``_build_pipeline`` does (half-split RoPE layout, bf16, the
 configured attention / adaLN / MLP impls, int8 quantization when
 ``parallel.quant`` or ``--quant`` asks for it), loads the DiT EMA weights from
-``ckpt_path`` (a reference ``.pt``) and the VMAE from ``vae.weight_path``
-when those files exist, and otherwise uses seeded random weights. Writes
+``ckpt_path`` (a reference ``.pt``) when that file exists, and otherwise
+uses seeded random weights; the VMAE from ``vae.weight_path`` (a path that
+names no file raises, an empty one means seeded weights). Writes
 PNGs (``--demo``: the reference's 2x4 demo grid).
 
 After sampling (not with ``--demo`` or ``--skip_fid``) it computes the FID
@@ -90,10 +91,9 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
         raise NotImplementedError(
             f"tokenizer {config.vae.model_name!r} is not ported yet (VMAE only)"
         )
-    weights = config.vae.weight_path if os.path.exists(config.vae.weight_path or "") else ""
-    if config.vae.weight_path and not weights:
-        print(f"no VMAE weights at {config.vae.weight_path!r}")
-    vae = load_production_vmae(weights, d.image_size, device, seed + 1)
+    # a path that names no file raises, as the JAX CLI's tokenizer loader
+    # does; an empty one means seeded weights
+    vae = load_production_vmae(config.vae.weight_path or "", d.image_size, device, seed + 1)
 
     # the training latents' statistics: latents_stats.pt, computed from the
     # shards (and saved) where it is missing
