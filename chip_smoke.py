@@ -2133,29 +2133,39 @@ ENCODER_DENSE_SHAPES = (("patch_embed+proj", 131072, 192, 192), ("qkv", 131072, 
 
 
 @contextlib.contextmanager
-def dense_launches_by_shape():
-    """Tallies ``dense_bias_f32``'s launches by (M, K, N) while active.
-    ``dense`` calls the wrapper through its module's global name, so a
-    stand-in there sees every call. The wrapper adds one to the count of
-    whatever that name holds where it launches, so the stand-in carries the
-    count meanwhile and hands it back to the wrapper at the end."""
-    from ldmae_tpu_torch.ops import linear
+def launches_by_shape(module, fn_name: str, counter: str, key):
+    """Tallies the launches counted on ``module.<counter>.launches`` while
+    active by ``key(*positional args)`` of each call of ``module.<fn_name>``.
+    A stand-in under that module name sees every call made through it.
+    Where the function counts on itself (``fn_name == counter``), the
+    wrapper adds one to the count of whatever that name holds where it
+    launches, so the stand-in carries the count meanwhile and hands it back
+    to the wrapper at the end."""
+    real, tally = getattr(module, fn_name), collections.Counter()
 
-    real, tally = linear.dense_bias_f32, collections.Counter()
-
-    def counted(x, weight, bias):
-        before = counted.launches
-        out = real(x, weight, bias)
-        tally[(x.shape[0], x.shape[1], weight.shape[0])] += counted.launches - before
+    def counted(*args, **kw):
+        before = getattr(module, counter).launches
+        out = real(*args, **kw)
+        tally[key(*args)] += getattr(module, counter).launches - before
         return out
 
     counted.launches = 0
-    linear.dense_bias_f32 = counted
+    setattr(module, fn_name, counted)
     try:
         yield tally
     finally:
-        linear.dense_bias_f32 = real
-        real.launches += counted.launches
+        setattr(module, fn_name, real)
+        if fn_name == counter:
+            real.launches += counted.launches
+
+
+def dense_launches_by_shape():
+    """``dense_bias_f32``'s launches by (M, K, N) while active (``dense``
+    calls the wrapper through its module's global name)."""
+    from ldmae_tpu_torch.ops import linear
+
+    return launches_by_shape(linear, "dense_bias_f32", "dense_bias_f32",
+                             lambda x, weight, bias: (x.shape[0], x.shape[1], weight.shape[0]))
 
 
 @contextlib.contextmanager
@@ -2515,6 +2525,495 @@ def inception_fid_phase(dev, smi: str, tmp: str) -> None:
         raise SystemExit("fid_stats / evaluate: a metric is not finite, or FID(a, a) is not 0")
 
 
+# ---------------------------------------------------------------------------
+# The VMAE training slice (scripts/train_ae.sh's stages 1 and 3)
+# ---------------------------------------------------------------------------
+
+# the recipe's flags; the cut is the step count (epochs x steps_per_epoch)
+VMAE_ARCH = "mae_for_ldmae_f8d16_prev"
+VMAE_STAGE1 = dict(input_size=128, batch_size=128, accum_iter=2, warmup_epochs=10, blr=1e-4, weight_decay=0.05,
+                   mask_ratio=0.25, visible_loss_ratio=0.75, perceptual_loss_ratio=0.5, fixed_std=1e-3,
+                   kl_loss_weight=1e-6)
+VMAE_STAGE3 = dict(input_size=256, batch_size=16, accum_iter=16, save_epochs=1, warmup_epochs=0, blr=1e-5,
+                   weight_decay=0.05, mask_ratio=0.0, visible_loss_ratio=0.5, perceptual_loss_ratio=10.0,
+                   kl_loss_weight=0.0)
+VMAE_EPOCHS, VMAE_STEPS_PER_EPOCH = 2, 2  # the recipe: 400 and 10 epochs of len(ImageNet) // 256 steps
+
+
+def _vmae_flags(stage: dict) -> list:
+    return [f for k, v in stage.items() for f in (f"--{k}", str(v))] + ["--no_cls", "--smooth_output"]
+
+
+def vmae_dense_shapes(spec, m: int, mask_ratio: float, tune_decoder: bool) -> collections.Counter:
+    """``dense``'s launches by (M, K, N) in one micro-batch of m images: the
+    patch embedding on all L tokens, the encoder's blocks, to_latent,
+    from_latent and decoder_embed on the kept ones (all of them in stage 3),
+    the decoder's blocks and the pred head on all L. The backward launches
+    none (``_DenseBiasF32``'s gradients are cuBLAS products)."""
+    n_tok = spec.num_patches
+    n_keep = n_tok if tune_decoder else int(n_tok * (1 - mask_ratio))
+    d, dd, pin, lat = spec.embed_dim, spec.decoder_embed_dim, spec.patch_size**2 * 3, spec.latent_dim
+    c = collections.Counter({(m * n_tok, pin, d): 1})
+    for rows, w, depth in ((m * n_keep, d, spec.depth), (m * n_tok, dd, spec.decoder_depth)):
+        h = int(w * spec.mlp_ratio)
+        for shape in ((rows, w, 3 * w), (rows, w, w), (rows, w, h), (rows, h, w)):
+            c[shape] += depth
+    c[(m * n_keep, d, spec.encoder_latent_dim)] += 1
+    c[(m * n_keep, lat, d)] += 1
+    c[(m * n_keep, d, dd)] += 1
+    c[(m * n_tok, dd, pin)] += 1
+    return c
+
+
+def check_shapes(what: str, tally, want: dict) -> None:
+    """A launch tally by shape must equal ``want`` exactly."""
+    got = {k: v for k, v in tally.items() if v}
+    log(f"  {what}: {got}")
+    if got != {k: v for k, v in want.items() if v}:
+        raise SystemExit(f"{what}: launches by shape {got}, expected {want}")
+
+
+def _vmae_cli(dev, smi: str, what: str, argv: list, stage: dict, tune_decoder: bool) -> dict:
+    """One ``cli.train_vmae.main`` run, counted: the launches (dense's exactly,
+    by (M, K, N); nothing else launches under xla), finite losses, and the
+    last epoch's steps/s, images/s, TFLOP/s, MFU and peak memory."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import train_vmae
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with dense_launches_by_shape() as shapes:
+        t0 = time.perf_counter()
+        res = train_vmae.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = VMAE_EPOCHS * VMAE_STEPS_PER_EPOCH
+    micro = vmae_dense_shapes(_vmae_spec(stage, tune_decoder), stage["batch_size"], stage["mask_ratio"],
+                              tune_decoder)
+    want = {k: v * stage["accum_iter"] * steps for k, v in micro.items()}
+    EXPECTED_LAUNCHES[what] = _NONE | {"dense_bias_f32": sum(want.values())}
+    check_counts(what, counts)
+    check_shapes(f"{what}: dense by (M, K, N)", shapes, want)
+    hist = res["history"]
+    finite = all(math.isfinite(h[k]) for h in hist for k in ("loss", "vis_loss", "mask_loss", "kl_loss", "p_loss"))
+    last = hist[-1]
+    per_step = stage["batch_size"] * stage["accum_iter"]
+    ok = finite and res["state"].step == steps and len(hist) == VMAE_EPOCHS and last["p_loss"] > 0
+    log(f"  {what}: {steps} steps in {seconds:.2f} s (model build, PNG decode and augmentation, the steps, "
+        f"checkpoints); losses finite: {finite}; last epoch: loss {last['loss']:.6g} (vis {last['vis_loss']:.6g}, "
+        f"mask {last['mask_loss']:.6g}, kl {last['kl_loss']:.6g}, lpips {last['p_loss']:.6g}), "
+        f"{last['img_per_sec'] / per_step:.4f} steps/s, {last['img_per_sec']:.2f} images/s, "
+        f"{last['tflops']:.4g} TFLOP/s, MFU {'n/a' if last['mfu'] is None else format(last['mfu'], '.4g')} (3x the analytic VMAE forward over 989 TFLOP/s; "
+        f"LPIPS not counted), peak memory {peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{what}: a loss is not finite, or the run did not take its steps")
+    return {"counts": counts, "state": res["state"], "seconds": seconds, "peak_gb": peak, "last": last}
+
+
+def _vmae_spec(stage: dict, tune_decoder: bool):
+    """The spec the CLI builds from the stage's flags."""
+    from ldmae_tpu_torch.models import vmae_spec
+
+    return vmae_spec(VMAE_ARCH, img_size=stage["input_size"], no_cls=True, smooth_output=True,
+                     kl_loss_weight=stage["kl_loss_weight"], fixed_std=stage.get("fixed_std"),
+                     perceptual_loss_ratio=stage["perceptual_loss_ratio"], ldmae_mode=tune_decoder)
+
+
+def _vmae_batch(dev, stage: dict, tune_decoder: bool, seed: int):
+    """A micro-batch of the stage's shape (uint8 pixels) with fixed mask and
+    posterior noise."""
+    import torch
+
+    m, size, n_tok = stage["batch_size"], stage["input_size"], _vmae_spec(stage, tune_decoder).num_patches
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (m, size, size, 3), generator=gen, device=dev, dtype=torch.uint8)
+    n_keep = n_tok if tune_decoder else int(n_tok * (1 - stage["mask_ratio"]))
+    return x, dict(mask_noise=torch.rand(m, n_tok, generator=gen, device=dev),
+                   latent_noise=torch.randn(m, 16, n_keep, generator=gen, device=dev))
+
+
+def _vmae_model(dev, stage: dict, tune_decoder: bool, seed: int = 13):
+    """The stage's model with the reference initialisation from a seed."""
+    import torch
+
+    from ldmae_tpu_torch.models import VMAE, init_vmae_weights_
+
+    return init_vmae_weights_(VMAE(_vmae_spec(stage, tune_decoder), device=dev), torch.Generator().manual_seed(seed))
+
+
+def vmae_grad_phase(dev, stage: dict, tune_decoder: bool, lp_fn) -> None:
+    """One micro-batch of the stage at full size: the per-leaf gradients of
+    the CLI's path (bf16, ``dense``'s kernel, xla attention) against the same
+    path with ``dense``'s plain version (fp32 sums of the same bf16 values,
+    the fp32 bias, one rounding) within GRAD_REL_L2; the gradient that LPIPS
+    passes to the reconstruction is nonzero and finite; the bf16 path
+    against the fp32 plain path is printed, not gated."""
+    import torch
+
+    from ldmae_tpu_torch.data.images import normalize_uint8_images
+    from ldmae_tpu_torch.ops import linear
+    from ldmae_tpu_torch.ops.patchify import unpatchify
+    from ldmae_tpu_torch.train.train_vmae import make_vmae_optimizer, vmae_loss
+
+    name = "stage 3" if tune_decoder else "stage 1"
+    x, noise = _vmae_batch(dev, stage, tune_decoder, 14)
+    kw = dict(tune_decoder=tune_decoder, mask_ratio=stage["mask_ratio"],
+              visible_loss_ratio=stage["visible_loss_ratio"], perceptual_loss_fn=lp_fn, **noise)
+
+    def grads(dtype):
+        model = _vmae_model(dev, stage, tune_decoder)
+        make_vmae_optimizer(model, tune_decoder=tune_decoder)  # the stage-3 freeze
+        out = vmae_loss(model, x, compute_dtype=dtype, **kw)
+        out["loss"].backward()
+        return float(out["loss"]), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+    def worst(g, ref):
+        errs = {n: float((g[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)) for n in ref}
+        leaf = max(errs, key=errs.get)
+        return errs[leaf], leaf
+
+    loss_k, g_k = grads(torch.bfloat16)
+    real = linear.dense_bias_f32
+
+    def plain(x, weight, bias):
+        return torch.nn.functional.linear(x.float(), weight.float(), bias).bfloat16()
+
+    plain.launches = 0
+    linear.dense_bias_f32 = plain
+    try:
+        loss_p, g_p = grads(torch.bfloat16)
+    finally:
+        linear.dense_bias_f32 = real
+    loss_32, g_32 = grads(torch.float32)
+    err, leaf = worst(g_k, g_p)
+    err32, leaf32 = worst(g_k, g_32)
+    # the perceptual term's gradient in the reconstruction
+    imgs = normalize_uint8_images(x)
+    with torch.no_grad():
+        pred = _vmae_model(dev, stage, tune_decoder).reconstruct(imgs, compute_dtype=torch.bfloat16)
+    recon = unpatchify(pred.float(), 8, 3).requires_grad_()
+    (g_rec,) = torch.autograd.grad(lp_fn(imgs, recon).mean(), recon)
+    g_norm = float(g_rec.norm())
+    ok = (err <= GRAD_REL_L2 and abs(loss_k - loss_p) <= 1e-2 * abs(loss_p) and g_norm > 0
+          and math.isfinite(g_norm) and all(bool(torch.isfinite(v).all()) for v in g_k.values()))
+    log(f"  {name} gradients ({len(g_k)} leaves, a micro-batch of {stage['batch_size']} at "
+        f"{stage['input_size']}^2): loss kernel {loss_k:.6g} vs plain dense {loss_p:.6g}; worst leaf {leaf}: "
+        f"relative L2 {err:.4g} (bound {GRAD_REL_L2}); against the fp32 plain path (loss {loss_32:.6g}, not "
+        f"gated): worst leaf {leaf32} {err32:.4g}; LPIPS's gradient in the reconstruction: norm {g_norm:.4g} "
+        f"(must be nonzero) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"VMAE {name}: the kernel path's gradients disagree, or LPIPS passes no gradient")
+    torch.cuda.empty_cache()
+
+
+def vmae_flash_leg(dev, stage: dict, tune_decoder: bool, lp_fn) -> dict:
+    """``make_vmae_train_step(attn_impl="flash")``: one micro-batch's
+    gradients against the xla leg's (both bf16) within GRAD_REL_L2; one full
+    step of the recipe (accum_iter micro-batches) under each impl with
+    exact launch counts (#2's and #5's by shape), timed. Returns {"counts",
+    "fwd_shapes", "bwd_shapes"}."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.train import TrainState
+    from ldmae_tpu_torch.train.train_vmae import lr_schedule, make_vmae_optimizer, make_vmae_train_step, vmae_loss
+
+    name = "stage 3" if tune_decoder else "stage 1"
+    x, noise = _vmae_batch(dev, stage, tune_decoder, 15)
+    kw = dict(mask_ratio=stage["mask_ratio"], visible_loss_ratio=stage["visible_loss_ratio"],
+              perceptual_loss_fn=lp_fn, compute_dtype=torch.bfloat16)
+
+    def grads(attn_impl):
+        model = _vmae_model(dev, stage, tune_decoder)
+        make_vmae_optimizer(model, tune_decoder=tune_decoder)  # the freeze
+        out = vmae_loss(model, x, tune_decoder=tune_decoder, attn_impl=attn_impl, **kw, **noise)
+        out["loss"].backward()
+        return float(out["loss"]), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+    loss_x, g_x = grads("xla")
+    loss_f, g_f = grads("flash")
+    errs = {n: float((g_f[n] - g_x[n]).norm() / g_x[n].norm().clamp_min(1e-30)) for n in g_x}
+    leaf = max(errs, key=errs.get)
+    ok = errs[leaf] <= GRAD_REL_L2 and abs(loss_f - loss_x) <= 1e-2 * abs(loss_x)
+    log(f"  {name}, flash vs xla (bf16, a micro-batch): loss {loss_f:.6g} vs {loss_x:.6g}; worst leaf {leaf}: "
+        f"relative L2 {errs[leaf]:.4g} (bound {GRAD_REL_L2}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"VMAE {name}: the flash leg's gradients disagree with the xla leg's")
+
+    a = stage["accum_iter"]
+    batch = {"x": x.expand(a, *x.shape)}
+    # per step: dense's forward launches; under flash #2 and #5 on each
+    # block with a gradient (stage 3's encoder runs without: the resident
+    # forward)
+    spec = _vmae_spec(stage, tune_decoder)
+    m, n_tok = stage["batch_size"], spec.num_patches
+    n_keep = n_tok if tune_decoder else int(n_tok * (1 - stage["mask_ratio"]))
+    dense_n = a * sum(vmae_dense_shapes(spec, m, stage["mask_ratio"], tune_decoder).values())
+    enc = (m, spec.num_heads, n_keep, spec.embed_dim // spec.num_heads)
+    dec = (m, spec.decoder_num_heads, n_tok, spec.decoder_embed_dim // spec.decoder_num_heads)
+    want = collections.Counter({dec: a * spec.decoder_depth})
+    if not tune_decoder:
+        want[enc] += a * spec.depth
+    what = f"vmae_flash_{'stage3' if tune_decoder else 'stage1'}"
+    EXPECTED_LAUNCHES[f"{what}_xla"] = _NONE | {"dense_bias_f32": dense_n}
+    EXPECTED_LAUNCHES[what] = _NONE | {"dense_bias_f32": dense_n, "flash_attention": sum(want.values()),
+                                       "flash_attention_bwd": sum(want.values()),
+                                       "flash_attention_resident": a * spec.depth if tune_decoder else 0}
+    out = {}
+    for attn_impl in ("xla", "flash"):
+        model = _vmae_model(dev, stage, tune_decoder)
+        state = TrainState(0, model, None, make_vmae_optimizer(model, tune_decoder=tune_decoder))
+        step = make_vmae_train_step(lr_schedule(10, 1e-4, warmup_epochs=0, total_epochs=10), attn_impl=attn_impl,
+                                    tune_decoder=tune_decoder, grad_accum=a, **kw)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        step(state, batch, gen)  # warm-up (cuDNN's algorithm choice, the kernels' first launch)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        shape = lambda q, *rest: tuple(q.shape)  # noqa: E731
+        with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention", shape) as fwd, \
+                launches_by_shape(fa, "flash_attention_bwd", "flash_attention_bwd", shape) as bwd:
+            t0 = time.perf_counter()
+            metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        log(f"  {name}, one step of {a} x {m} under {attn_impl}: {ms:.1f} ms ({a * m / ms * 1e3:.1f} images/s), "
+            f"loss {float(metrics['loss']):.6g}; launches { {k: v for k, v in counts.items() if v} }")
+        check_counts(what if attn_impl == "flash" else f"{what}_xla", counts)
+        if attn_impl == "flash":
+            check_shapes(f"{what}: #2 by shape", fwd, want)
+            check_shapes(f"{what}: #5 by shape", bwd, want)
+        out[attn_impl] = dict(counts=counts, fwd_shapes=dict(fwd), bwd_shapes=dict(bwd), ms=ms)
+        if not bool(metrics["loss_finite"]):
+            raise SystemExit(f"VMAE {name}: a non-finite loss under {attn_impl}")
+        del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def vmae_attention_rows(dev, shapes: dict, bwd_shapes: dict) -> list:
+    """#2's forward (the mma.sync core with autograd recording; d = 16) and
+    #5's three-pass backward at the VMAE training shapes against their plain
+    versions, timed beside SDPA's forward and backward (fwd+bwd minus fwd),
+    with their bounds (bytes: q, k, v in and the output out for #2; q, k,
+    v, g in and dq, dk, dv out for #5; operations: 4 and 10 b h N^2 d bf16
+    FLOPs; b h N^2 exponentials). ``shapes`` / ``bwd_shapes``: launches a
+    step by shape, from the flash leg."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for shape, launches in sorted(shapes.items()):
+        b, h, n, d = shape
+        q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+        ref = fa.flash_attention_plain(q, k, v)
+        err_f = compare(f"flash_attention {shape}", fa._launch(q, k, v, "flash_attention", with_lse=True)[0], ref,
+                        **attn_tol(ref))
+        fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, "flash_attention", with_lse=True), 20)
+        plain_f = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs)
+
+        fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 20)
+        bnd_f = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+        rows.append({"name": "flash_attention", "route": "cuda", "source": _FA, "replaces": f"{_PALLAS_FA}:77",
+                     "shape": list(shape), "launches": launches, "max_abs_err": err_f, "ms": fwd_ms,
+                     "plain_ms": plain_f, "bound_ms": bnd_f[0], "bound_by": bnd_f[1], "library_ms": f_ms})
+        refs = fa.flash_attention_bwd_plain(q, k, v, g)
+        outs = fa.flash_attention_bwd(q, k, v, g)
+        rel, elem = bwd_errors(outs, refs)
+        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+        err_b = max(float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs))
+        del outs, refs
+        bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), 10)
+        # the three passes: the row statistics (the forward kernel), dk and dv, dq
+        parts = kernel_device_ms(lambda: fa.flash_attention_bwd(q, k, v, g),
+                                 ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+        plain_b = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g), 3, 1)
+        bnd_b = bound(7 * b * h * n * d * 2, 10 * b * h * n * n * d, exps=b * h * n * n)
+        log(f"[vmae kernel] {shape} bf16: #2 forward {fwd_ms:.4f} ms (SDPA {f_ms:.4f}, plain {plain_f:.4f}, "
+            f"bound {bnd_f[0]:.4f} ({bnd_f[1]}), share {bnd_f[0] / fwd_ms:.3f}); #5 backward vs plain: relative L2 "
+            f"{rel:.4g} (bound {BWD_REL_L2}), max |err| / max |value| {elem:.4g} (bound {BWD_ELEM}) -> "
+            f"{'ok' if ok else 'FAIL'}; {bwd_ms:.4f} ms (stats {parts['flash_fwd_kernel']:.4f}, dkdv "
+            f"{parts['flash_bwd_dkdv_kernel']:.4f}, dq {parts['flash_bwd_dq_kernel']:.4f}), SDPA backward {fb_ms - f_ms:.4f} ms (fwd+bwd {fb_ms:.4f} minus "
+            f"fwd {f_ms:.4f}), kernel / library {bwd_ms / (fb_ms - f_ms):.3f}, plain {plain_b:.4f}, bound "
+            f"{bnd_b[0]:.4f} ({bnd_b[1]}), share {bnd_b[0] / bwd_ms:.3f}; launches a step {launches} / "
+            f"{bwd_shapes.get(shape, 0)}")
+        if not ok:
+            raise SystemExit(f"flash_attention_bwd {shape}: kernel disagrees with its plain backward")
+        rows.append({"name": "flash_attention_bwd", "route": "cuda", "source": _FA,
+                     "replaces": f"{_PALLAS_FA}:151", "shape": list(shape), "launches": bwd_shapes.get(shape, 0),
+                     "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": plain_b, "bound_ms": bnd_b[0],
+                     "bound_by": bnd_b[1], "library_ms": fb_ms - f_ms,
+                     "stats_ms": parts["flash_fwd_kernel"], "dkdv_ms": parts["flash_bwd_dkdv_kernel"],
+                     "dq_ms": parts["flash_bwd_dq_kernel"]})
+        del q, k, v, g, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+# device-time groups of a VMAE training step: by the aten op that launched a
+# kernel (its self device time), the port's kernels by kernel name
+VMAE_SPLIT_OPS = {
+    "attention (xla: bmm, softmax)": ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data"),
+    "linear backward (cuBLAS mm)": ("aten::mm", "aten::addmm"),
+    "convolutions (LPIPS VGG16, smoother)": ("aten::cudnn_convolution", "aten::convolution_backward",
+                                             "aten::_convolution"),
+}
+VMAE_SPLIT_KERNELS = {"dense (the port's GEMM)": ("gemm_kernel",), "attention kernels (flash)": ("flash",)}
+
+
+def vmae_step_split(what: str, fn) -> None:
+    """Where one call of ``fn`` (a micro-batch's forward and backward) spends
+    device time: torch.profiler after a warm-up call; groups by the aten op
+    that launched each kernel, the port's kernels by name, the rest
+    (elementwise, norms, reductions, casts, the optimizer) as one group; the
+    idle share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        log(f"[vmae profile] {what}: the profiler recorded no device time (split not measured)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {g: sum(e.self_device_time_total for e in avg if e.device_type == DeviceType.CPU and e.key in keys) / 1e3
+              for g, keys in VMAE_SPLIT_OPS.items()}
+    groups |= {g: sum(e.self_device_time_total for e in kernels if any(m in e.key for m in marks)) / 1e3
+               for g, marks in VMAE_SPLIT_KERNELS.items()}
+    groups["other (elementwise, norms, reductions, casts)"] = busy - sum(groups.values())
+    log(f"[vmae profile] {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches; " + "; ".join(
+            f"{g} {ms:.1f} ms ({ms / busy:.3f})" for g, ms in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:110]}")
+
+
+def vmae_train_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
+    """The VMAE training slice: stage 1 and stage 3 of ``scripts/train_ae.sh``
+    through ``cli.train_vmae.main`` on the seeded PNGs (LPIPS on the
+    package's seeded random weights), the recipe's flags with the step count
+    cut, exact launch counts (dense's by shape); stage 3 from stage 1's
+    ``checkpoint-0.pth`` with the frozen parameters bitwise unchanged; the
+    gradient checks at each stage's micro-batch; the flash leg with #2's and
+    #5's launches; the d = 16 attention kernels timed; one micro-batch's
+    device time split. Returns ({path: counts}, the kernels' rows)."""
+    import torch
+
+    from ldmae_tpu_torch.models.lpips import load_lpips, make_lpips_fn
+    from ldmae_tpu_torch.train.train_vmae import vmae_loss
+
+    counts = {}
+    common = ["--model", VMAE_ARCH, "--data_path", origin, "--epochs", str(VMAE_EPOCHS),
+              "--steps_per_epoch", str(VMAE_STEPS_PER_EPOCH), "--num_workers", "8", "--seed", "0"]
+    out1, out3 = os.path.join(tmp, "vmae_stage1"), os.path.join(tmp, "vmae_stage3")
+    log(f"[vmae] cli.train_vmae stage 1: {VMAE_ARCH} (width 192, depth 12 / 12, 12 heads of 16), "
+        f"{_vmae_flags(VMAE_STAGE1)}, {VMAE_EPOCHS} epochs x {VMAE_STEPS_PER_EPOCH} steps, bf16, xla attention")
+    s1 = _vmae_cli(dev, smi, "vmae_stage1", common + ["--output_dir", out1] + _vmae_flags(VMAE_STAGE1),
+                   VMAE_STAGE1, False)
+    counts["vmae_stage1"] = s1["counts"]
+    ckpt0 = os.path.join(out1, "checkpoints", "checkpoint-0.pth")
+    if not (os.path.exists(ckpt0) and os.path.exists(os.path.join(out1, "checkpoints", "checkpoint-1.pth"))):
+        raise SystemExit("VMAE stage 1: checkpoint-0.pth / checkpoint-1.pth missing")
+    del s1
+    torch.cuda.empty_cache()
+    log(f"[vmae] cli.train_vmae stage 3: {_vmae_flags(VMAE_STAGE3)} --tune_decoder --resume checkpoint-0.pth, "
+        f"{VMAE_EPOCHS} epochs x {VMAE_STEPS_PER_EPOCH} steps")
+    s3 = _vmae_cli(dev, smi, "vmae_stage3", common + ["--output_dir", out3, "--tune_decoder", "--resume", ckpt0]
+                   + _vmae_flags(VMAE_STAGE3), VMAE_STAGE3, True)
+    counts["vmae_stage3"] = s3["counts"]
+    before = torch.load(ckpt0, map_location="cpu", weights_only=True)["model"]
+    frozen = moved = 0
+    for name, p in s3["state"].model.named_parameters():
+        same = torch.equal(p.detach().cpu(), before[name])
+        if name.split(".")[0].startswith(("decoder", "from_latent")):
+            moved += not same
+        elif same:
+            frozen += 1
+        else:
+            raise SystemExit(f"VMAE stage 3: frozen parameter {name} changed")
+    log(f"  stage 3: {frozen} frozen parameters bitwise equal to checkpoint-0's, {moved} decoder / from_latent "
+        f"parameters moved -> {'ok' if moved else 'FAIL'}")
+    if not moved:
+        raise SystemExit("VMAE stage 3: the decoder did not train")
+    del s3, before
+    torch.cuda.empty_cache()
+
+    lp_fn = make_lpips_fn(load_lpips(dev))
+    log("[vmae] gradient checks on the card (seeded init, fixed noise)")
+    vmae_grad_phase(dev, VMAE_STAGE1, False, lp_fn)
+    vmae_grad_phase(dev, VMAE_STAGE3, True, lp_fn)
+    log("[vmae] the flash leg: make_vmae_train_step(attn_impl='flash'), #2 and #5 at head dim 16")
+    fwd, bwd = collections.Counter(), collections.Counter()
+    for stage, tune in ((VMAE_STAGE1, False), (VMAE_STAGE3, True)):
+        leg = vmae_flash_leg(dev, stage, tune, lp_fn)
+        counts[f"vmae_flash_{'stage3' if tune else 'stage1'}"] = leg["flash"]["counts"]
+        fwd.update(leg["flash"]["fwd_shapes"])
+        bwd.update(leg["flash"]["bwd_shapes"])
+    rows = vmae_attention_rows(dev, dict(fwd), dict(bwd))
+    for stage, tune in ((VMAE_STAGE1, False), (VMAE_STAGE3, True)):
+        x, noise = _vmae_batch(dev, stage, tune, 18)
+        model = _vmae_model(dev, stage, tune)
+
+        def micro():
+            out = vmae_loss(model, x, tune_decoder=tune, mask_ratio=stage["mask_ratio"],
+                            visible_loss_ratio=stage["visible_loss_ratio"], perceptual_loss_fn=lp_fn,
+                            compute_dtype=torch.bfloat16, **noise)
+            out["loss"].backward()
+            model.zero_grad(set_to_none=True)
+
+        vmae_step_split(f"{'stage 3' if tune else 'stage 1'}, one micro-batch of {stage['batch_size']} at "
+                        f"{stage['input_size']}^2 (forward, LPIPS, backward; xla attention, bf16)", micro)
+        del model
+        torch.cuda.empty_cache()
+    return counts, rows
+
+
+def vmae_only(dev, smi: str) -> int:
+    """``--vmae``: build, then the VMAE training phase alone, ending with its
+    kernels' line."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        origin = os.path.join(tmp, "images")
+        write_image_folder(origin, EXTRACT_IMAGES, 42)
+        _, rows = vmae_train_phase(dev, smi, tmp, origin)
+    log(smi)
+    log(json.dumps({"vmae_train_kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2545,6 +3044,8 @@ def main() -> int:
         return linear_only(dev)
     if "--attention" in sys.argv[1:]:
         return attention_only(dev)
+    if "--vmae" in sys.argv[1:]:
+        return vmae_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -2595,6 +3096,8 @@ def main() -> int:
         encoder_rows = encoder_kernel_phase(dev, origin, dense_shapes)
         result["counts"] |= tokenizer_eval_phase(dev, smi, tmp, origin)
         inception_fid_phase(dev, smi, tmp)
+        counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
+        result["counts"] |= counts
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
@@ -2610,6 +3113,8 @@ def main() -> int:
     # #2 and dense at the VMAE encoder's shapes (the extraction slice), apart
     # from the kernels line's main-path shapes
     log(json.dumps({"encoder_kernels": encoder_rows}))
+    # #2 and #5 at the VMAE training shapes (d = 16, the flash leg's launches a step)
+    log(json.dumps({"vmae_train_kernels": vmae_rows}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

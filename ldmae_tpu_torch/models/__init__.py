@@ -10,7 +10,17 @@ from .lightningdit import (
     permute_qk_for_half_rope,
     quantize_dit_,
 )
-from .vmae import VMAE, VMAEConsts, VMAESpec, list_archs, load_production_vmae, production_vmae_spec, vmae_spec
+from .vmae import (
+    VMAE,
+    VMAEConsts,
+    VMAESpec,
+    init_vmae_weights_,
+    list_archs,
+    load_production_vmae,
+    load_vmae_weights_,
+    production_vmae_spec,
+    vmae_spec,
+)
 
 __all__ = [
     "lightningdit",
@@ -27,8 +37,10 @@ __all__ = [
     "VMAE",
     "VMAEConsts",
     "VMAESpec",
+    "init_vmae_weights_",
     "list_archs",
     "load_production_vmae",
+    "load_vmae_weights_",
     "production_vmae_spec",
     "vmae_spec",
 ]

@@ -5,7 +5,9 @@ feature maps at relu1_2, relu2_2, relu3_3, relu4_3 and relu5_3, each
 normalised to unit length over its channels, the squared difference
 weighted by a learned 1x1 projection without bias, averaged over space and
 summed over the five. Everything runs in float32, the convolutions with
-TF32 off.
+TF32 off (in their backward too). ``lpips`` is the evaluation metric (no
+gradient); ``make_lpips_fn`` is the VMAE trainers' loss, differentiable in
+the images, with the LPIPS weights frozen.
 
 ``LPIPS``'s state dict has taming's key layout (``net.slice{1-5}.{i}`` at
 torchvision's ``vgg16.features`` indices, ``lin{k}.model.1.weight``).
@@ -81,6 +83,11 @@ class LPIPS(nn.Module):
     @torch.no_grad()
     def forward(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
         """(N, 3, H, W) images in [-1, 1] -> (N, 1, 1, 1) distances."""
+        return self.distance(img0, img1)
+
+    def distance(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        """``forward`` with autograd on: differentiable in both images (and
+        in the weights, unless they are frozen, as ``make_lpips_fn`` does)."""
         f0 = self.net((img0.float() - self.shift) / self.scale)
         f1 = self.net((img1.float() - self.shift) / self.scale)
         val = 0.0
@@ -99,6 +106,18 @@ def _normalize_tensor(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 def lpips(model: LPIPS, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
     """(N, 3, H, W) images in [-1, 1] -> (N, 1, 1, 1) LPIPS distances."""
     return model(img0, img1)
+
+
+def make_lpips_fn(model: LPIPS):
+    """The VMAE trainers' perceptual loss: (imgs, recon) -> (N,) float32
+    distances with a gradient for both images; the LPIPS weights are frozen
+    (``requires_grad`` off), as the JAX package holds them constant."""
+    model.requires_grad_(False)
+
+    def fn(imgs: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+        return model.distance(imgs, recon).reshape(-1)
+
+    return fn
 
 
 def import_lpips_weights(vgg_sd: Optional[Dict[str, np.ndarray]] = None,

@@ -1,15 +1,22 @@
-"""VMAE tokenizer — the docking API (port of ``ldmae_tpu/models/vmae.py``).
+"""VMAE tokenizer (port of ``ldmae_tpu/models/vmae.py``).
 
 ``VMAE`` declares the whole reference ``MaskedAutoencoderViT`` parameter set
 under its state-dict keys, so ``vmaef8d16.pth``-style checkpoints and
 ``convert.vmae_state_dict_from_jax`` load with ``strict=True``. It
-implements the full-image encode (``ldmae_encode_moments``, ``encode``),
-``decode`` and ``decode_to_images``; the masked training forwards come with
-the VMAE training slice (ROADMAP.md).
+implements the docking API (the full-image ``ldmae_encode_moments`` and
+``encode``, ``decode``, ``decode_to_images``) and the training forwards:
+``forward_vanilla`` (stage 1: the masked encoder, the KL bottleneck, the
+mask-token decoder, the visible/masked MSE split, the perceptual term) and
+``forward_ldmae`` (stage 3: the full-image round trip through a frozen
+encoder, pixel MSE plus the perceptual term). Their two random draws, the
+shuffle noise and the posterior's eps, are passed in or drawn from a
+``torch.Generator``. ``init_vmae_weights_`` is the reference
+initialisation; ``load_vmae_weights_`` merges a checkpoint with
+``strict=False`` semantics (the trainer's ``--resume``).
 
-The production arch is ``mae_for_ldmae_f8d16_prev``: patch 8, decoder width
-192, depth 12, 12 heads (head dim 16), latent 16, ``smooth_output`` (linear
-pred + 3x3 conv smoother on RGB).
+The production arch is ``mae_for_ldmae_f8d16_prev``: patch 8, encoder and
+decoder width 192, depth 12, 12 heads (head dim 16), latent 16,
+``smooth_output`` (linear pred + 3x3 conv smoother on RGB).
 """
 
 from __future__ import annotations
@@ -17,16 +24,18 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core.device import resolve_device
 from ..ops import dense, get_2d_sincos_pos_embed, layer_norm, mlp_gelu, multi_head_attention
 from ..ops.conv import conv2d_fp32
 from ..ops.gaussian import DiagonalGaussian, diagonal_gaussian
+from ..ops.masking import random_masking, unshuffle_with_mask_tokens
 from ..ops.patchify import patch_embed, patchify, unpatchify
 
 
@@ -49,6 +58,11 @@ class VMAESpec:
     kl_loss_weight: Optional[float] = None
     smooth_output: bool = False
     pred_with_conv: bool = False
+    # training only
+    norm_pix_loss: bool = False
+    perceptual_loss_ratio: float = 1.0
+    fixed_std: Optional[float] = None
+    use_checkpoint: bool = False  # per-block recomputation in the backward
 
     @property
     def grid(self) -> int:
@@ -219,9 +233,33 @@ class VMAE(nn.Module):
             x = x + pe[None, 1:]
             cls = self.cls_token.reshape(-1).to(x.dtype) + pe[0]
             x = torch.cat([cls.expand(x.shape[0], 1, -1), x], dim=1)
-        for blk in self.blocks:
-            x = blk(x, spec.num_heads, attn_impl)
+        x = self._run_blocks(x, self.blocks, spec.num_heads, attn_impl)
         return layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6)
+
+    def _run_blocks(self, x: torch.Tensor, blocks: nn.ModuleList, num_heads: int, attn_impl: str) -> torch.Tensor:
+        """The block stack; with ``spec.use_checkpoint`` under autograd each
+        block's activations are recomputed in the backward (the JAX package's
+        per-block remat)."""
+        remat = self.spec.use_checkpoint and torch.is_grad_enabled()
+        for blk in blocks:
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(blk, x, num_heads, attn_impl, use_reentrant=False)
+            else:
+                x = blk(x, num_heads, attn_impl)
+        return x
+
+    def _decode_tokens(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        """Latent tokens (B, L, latent_dim) in the compute dtype -> the
+        patched prediction (B, L, p*p*3): from_latent, decoder_embed, the
+        positional table, the decoder blocks, the norm and the pred head."""
+        spec = self.spec
+        x = self._latent_proj(x, self.from_latent)
+        x = dense(x, self.decoder_embed.weight, self.decoder_embed.bias)
+        pe = self.consts.decoder_pos_embed.to(x.dtype)
+        x = x + (pe[None] if spec.no_cls else pe[None, 1:])
+        x = self._run_blocks(x, self.decoder_blocks, spec.decoder_num_heads, attn_impl)
+        x = layer_norm(x, self.decoder_norm.weight, self.decoder_norm.bias, eps=1e-6)
+        return self._decoder_pred(x)
 
     @torch.no_grad()
     def ldmae_encode_moments(self, imgs: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
@@ -248,24 +286,152 @@ class VMAE(nn.Module):
     def decode(self, z: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
                attn_impl: str = "xla") -> torch.Tensor:
         """(B, latent_dim, h, w) latents -> (B, 3, H, W) float32 images."""
-        spec = self.spec
         b, c, h, w = z.shape
-        x = z.reshape(b, c, h * w).transpose(1, 2).to(compute_dtype)
-        x = self._latent_proj(x, self.from_latent)
-        x = dense(x, self.decoder_embed.weight, self.decoder_embed.bias)
-        pe = self.consts.decoder_pos_embed.to(x.dtype)
-        x = x + (pe[None] if spec.no_cls else pe[None, 1:])
-        for blk in self.decoder_blocks:
-            x = blk(x, spec.decoder_num_heads, attn_impl)
-        x = layer_norm(x, self.decoder_norm.weight, self.decoder_norm.bias, eps=1e-6)
-        x = self._decoder_pred(x)
-        return unpatchify(x.float(), spec.patch_size, 3)
+        x = self._decode_tokens(z.reshape(b, c, h * w).transpose(1, 2).to(compute_dtype), attn_impl)
+        return unpatchify(x.float(), self.spec.patch_size, 3)
 
     def decode_to_images(self, z: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
                          attn_impl: str = "xla") -> torch.Tensor:
         """decode -> uint8 (B, H, W, 3): clamp(127.5x + 128, 0, 255)."""
         imgs = torch.clamp(127.5 * self.decode(z, compute_dtype, attn_impl) + 128.0, 0, 255)
         return imgs.permute(0, 2, 3, 1).to(torch.uint8)
+
+    # -- training forwards ---------------------------------------------------
+
+    def forward_encoder(self, imgs: torch.Tensor, mask_ratio: float, mask_noise: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.float32, attn_impl: str = "xla"):
+        """Masked encoder: patch embedding, + PE, ``random_masking`` by
+        ``mask_noise`` (B, L), the cls token, blocks, norm. Returns (x, mask,
+        ids_restore)."""
+        spec = self.spec
+        pe_w = self.patch_embed.proj
+        x = patch_embed(imgs.to(compute_dtype), pe_w.weight, pe_w.bias, spec.patch_size,
+                        compute_dtype=compute_dtype)
+        pe = self.consts.pos_embed.to(compute_dtype)
+        x = x + (pe[None] if spec.no_cls else pe[None, 1:])
+        x, mask, ids_restore = random_masking(x, mask_ratio, mask_noise)
+        if not spec.no_cls:
+            cls = self.cls_token.reshape(-1).to(x.dtype) + pe[0]
+            x = torch.cat([cls.expand(x.shape[0], 1, -1), x], dim=1)
+        x = self._run_blocks(x, self.blocks, spec.num_heads, attn_impl)
+        x = layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6)
+        return x, mask, ids_restore
+
+    def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
+        """Decoder of the kept tokens: decoder_embed, the mask tokens put
+        back in place, + PE, blocks, norm, pred head; (B, L, p*p*3)."""
+        spec = self.spec
+        x = dense(x, self.decoder_embed.weight, self.decoder_embed.bias)
+        if spec.no_cls:
+            x = unshuffle_with_mask_tokens(x, self.mask_token, ids_restore)
+        else:
+            x = torch.cat([x[:, :1], unshuffle_with_mask_tokens(x[:, 1:], self.mask_token, ids_restore)], dim=1)
+        x = x + self.consts.decoder_pos_embed.to(x.dtype)[None]
+        x = self._run_blocks(x, self.decoder_blocks, spec.decoder_num_heads, attn_impl)
+        x = layer_norm(x, self.decoder_norm.weight, self.decoder_norm.bias, eps=1e-6)
+        x = self._decoder_pred(x)
+        return x if spec.no_cls else x[:, 1:]
+
+    def forward_vanilla(
+        self, imgs: torch.Tensor, mask_ratio: float = 0.75, visible_loss_ratio: float = 0.5,
+        perceptual_loss_fn: Optional[Callable] = None, compute_dtype: torch.dtype = torch.float32,
+        attn_impl: str = "xla", mask_noise: Optional[torch.Tensor] = None,
+        latent_noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Stage-1 training forward of (B, 3, H, W) float32 images in [-1, 1].
+
+        mask_noise (B, L) uniform and latent_noise (B, latent_dim, L_kept)
+        standard normal are the two random draws, taken from ``generator``
+        when not given. The loss is (1 - visible_loss_ratio) x the masked
+        tokens' MSE + visible_loss_ratio x the kept tokens' (against the
+        per-patch normalised pixels with ``norm_pix_loss``), plus
+        perceptual_loss_ratio x the mean of ``perceptual_loss_fn(imgs,
+        recon)``, plus kl_loss_weight x the KL per token (against
+        ``fixed_std`` when set), all in float32."""
+        spec = self.spec
+        b = imgs.shape[0]
+        if mask_noise is None:
+            mask_noise = torch.rand(b, spec.num_patches, generator=generator, device=imgs.device)
+        latent, mask, ids_restore = self.forward_encoder(imgs, mask_ratio, mask_noise, compute_dtype, attn_impl)
+        latent = self._latent_proj(latent, self.to_latent)
+
+        kl_loss = None
+        if spec.kl_loss_weight is not None:
+            n_tokens = latent.shape[1]
+            posterior = diagonal_gaussian(latent.float().transpose(1, 2), axis=1)
+            kl = posterior.kl(fixed_std=spec.fixed_std)  # per-sample sum
+            kl_loss = kl.sum() / kl.shape[0] / n_tokens
+            latent = posterior.sample(latent_noise, generator).transpose(1, 2).to(compute_dtype)
+
+        pred = self.forward_decoder(self._latent_proj(latent, self.from_latent), ids_restore, attn_impl)
+        target = patchify(imgs, spec.patch_size)
+        if spec.norm_pix_loss:
+            mean = target.mean(dim=-1, keepdim=True)
+            var = target.var(dim=-1, unbiased=False, keepdim=True)
+            target = (target - mean) / (var + 1e-6) ** 0.5
+        loss = ((pred.float() - target) ** 2).mean(dim=-1)  # (B, L)
+        mask = mask.float()
+        visible_loss = (loss * (1 - mask)).sum() / (1 - mask).sum()
+        mask_loss = (loss * mask).sum() / mask.sum()
+        loss = (1 - visible_loss_ratio) * mask_loss + visible_loss_ratio * visible_loss
+        if perceptual_loss_fn is not None:
+            p_loss = perceptual_loss_fn(imgs, unpatchify(pred.float(), spec.patch_size, 3)).mean()
+            loss = loss + spec.perceptual_loss_ratio * p_loss
+        else:
+            p_loss = torch.zeros_like(loss)
+        if kl_loss is not None:
+            loss = loss + spec.kl_loss_weight * kl_loss
+        return {"loss": loss, "pred": pred, "mask": mask, "vis_loss": visible_loss, "mask_loss": mask_loss,
+                "kl_loss": kl_loss if kl_loss is not None else torch.zeros_like(loss), "p_loss": p_loss}
+
+    def reconstruct(
+        self, imgs: torch.Tensor, latent_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, use_mode: bool = True,
+        compute_dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
+        stop_encoder_gradient: bool = True,
+    ) -> torch.Tensor:
+        """Full-image encode -> decode, the patched prediction (B, L,
+        p*p*3). The latent is the posterior's mode, or with ``use_mode``
+        False a sample (eps ``latent_noise`` (B, latent_dim, L), else drawn
+        from ``generator``). ``stop_encoder_gradient``: the encoder runs
+        without autograd (the stage-3 decoder tuning)."""
+        spec = self.spec
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_encoder_gradient):
+            x = self._encoder_tokens(imgs, compute_dtype, attn_impl)
+            if not spec.no_cls:
+                x = x[:, 1:]
+            latent = self._latent_proj(x, self.to_latent)
+            if spec.kl_loss_weight is not None:
+                posterior = diagonal_gaussian(latent.float().transpose(1, 2), axis=1)
+                z = posterior.mode() if use_mode else posterior.sample(latent_noise, generator)
+                latent = z.transpose(1, 2).to(compute_dtype)
+        x = self._decode_tokens(latent, attn_impl)
+        # as the JAX package's reconstruct (a cls arch's first token goes)
+        return x if spec.no_cls else x[:, 1:]
+
+    def forward_ldmae(
+        self, imgs: torch.Tensor, perceptual_loss_fn: Optional[Callable] = None,
+        compute_dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
+        latent_noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+        use_mode: Optional[bool] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Stage-3 decoder-tuning forward: ``reconstruct`` with the encoder
+        frozen, loss = pixel MSE + perceptual_loss_ratio x the mean of
+        ``perceptual_loss_fn(imgs, recon)``. The posterior is sampled, as the
+        JAX train step (which passes a key) samples it, unless ``use_mode``
+        or neither ``latent_noise`` nor ``generator`` is given."""
+        if use_mode is None:
+            use_mode = latent_noise is None and generator is None
+        pred = self.reconstruct(imgs, latent_noise, generator, use_mode, compute_dtype, attn_impl)
+        recon = unpatchify(pred.float(), self.spec.patch_size, 3)
+        vis_loss = ((recon - imgs) ** 2).mean()
+        if perceptual_loss_fn is not None:
+            p_loss = perceptual_loss_fn(imgs, recon).mean()
+            loss = vis_loss + self.spec.perceptual_loss_ratio * p_loss
+        else:
+            p_loss = torch.zeros_like(vis_loss)
+            loss = vis_loss
+        return {"loss": loss, "pred": pred, "vis_loss": vis_loss, "p_loss": p_loss}
 
 
 _BASE = dict(mlp_ratio=4.0)
@@ -328,6 +494,63 @@ def load_production_vmae(weight_path: str, img_size: int = 256, device=None, see
         print(f"WARNING: no VMAE tokenizer weights given, using seeded random weights (seed {seed})")
         seeded_init_(vae, seed)
     return vae
+
+
+@torch.no_grad()
+def init_vmae_weights_(model: VMAE, generator: torch.Generator) -> VMAE:
+    """The reference initialisation (the JAX package's ``init_vmae_params``)
+    drawn from ``generator`` on the CPU: xavier-uniform linears with the JAX
+    package's fans (qkv as one (D, 3D) matrix; the patch embedding as its
+    (p*p*C, D) matmul; a convolution with fan-in C_in k k and fan-out
+    C_out: the 3x3 smoother's 27 and 3), zero
+    biases, unit LayerNorms and N(0, 0.02) cls and mask tokens. The
+    distributions are the JAX package's; the draws are not (the generators
+    differ)."""
+    def xavier(t: torch.Tensor, fan_in: int, fan_out: int) -> None:
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        t.copy_(torch.empty(t.shape).uniform_(-a, a, generator=generator))
+
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            xavier(m.weight, m.in_features, m.out_features)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
+            # fan-out without the kernel's area (torch's xavier_uniform_ would
+            # count it): the smoother's 3, the patch embedding's D
+            cout, cin, kh, kw = m.weight.shape
+            xavier(m.weight, cin * kh * kw, cout)
+            nn.init.zeros_(m.bias)
+    for name in ("cls_token", "mask_token"):
+        if hasattr(model, name):
+            t = getattr(model, name)
+            t.copy_(torch.randn(t.shape, generator=generator) * 0.02)
+    return model
+
+
+def load_vmae_weights_(model: VMAE, path: str) -> Dict[str, list]:
+    """Merge the ``model`` state dict of a reference-layout checkpoint into
+    ``model`` with ``strict=False`` semantics: every tensor whose name and
+    shape match is loaded; a missing name or another shape keeps the
+    model's value. Returns {"loaded", "missing", "unexpected"} name lists
+    (a shape mismatch is listed as missing, with both shapes)."""
+    # a trusted file the user points at (reference checkpoints pickle an
+    # argparse Namespace, which a weights-only load refuses)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt)
+    own = model.state_dict()
+    loaded, missing = [], []
+    for k, v in own.items():
+        if k not in sd:
+            missing.append(k)
+        elif tuple(sd[k].shape) != tuple(v.shape):
+            missing.append(f"{k} (shape {tuple(sd[k].shape)} != {tuple(v.shape)})")
+        else:
+            loaded.append(k)
+    model.load_state_dict({k: sd[k] for k in loaded}, strict=False)
+    return {"loaded": loaded, "missing": missing, "unexpected": sorted(k for k in sd if k not in own)}
 
 
 def list_archs():

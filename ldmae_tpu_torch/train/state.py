@@ -1,7 +1,8 @@
 """Train state and ``.pt`` checkpoints (port of ``ldmae_tpu/train/state.py``).
 
 A checkpoint is the reference's DiT layout, ``{model, ema, opt, config,
-step}`` (the JAX package's Orbax checkpoints mirror it), written to
+step}`` (the JAX package's Orbax checkpoints mirror it; a VMAE state has no
+EMA and its checkpoint no ``ema``), written to
 ``<exp_dir>/checkpoints/<step:07d>.pt``: ``model`` and ``ema`` are state
 dicts in the canonical interleaved RoPE layout, so the inference CLI and the
 reference load them as they are; ``opt`` is the AdamW state dict, its
@@ -19,22 +20,27 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn as nn
 
 from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
 
 
 @dataclass
 class TrainState:
+    """The step, the model (a ``LightningDiT`` or a ``VMAE``), its EMA (None
+    for the VMAE, whose trainer keeps none) and the optimizer."""
+
     step: int
-    model: LightningDiT
-    ema: LightningDiT
+    model: nn.Module
+    ema: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
 
 
-def init_train_state(model: LightningDiT, optimizer: torch.optim.Optimizer) -> TrainState:
-    """Step 0, with the EMA a copy of the model that takes no gradient."""
-    ema = copy.deepcopy(model).requires_grad_(False)
-    return TrainState(step=0, model=model, ema=ema, optimizer=optimizer)
+def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, ema: bool = True) -> TrainState:
+    """Step 0, with the EMA a copy of the model that takes no gradient (with
+    ``ema`` False, none)."""
+    copy_ = copy.deepcopy(model).requires_grad_(False) if ema else None
+    return TrainState(step=0, model=model, ema=copy_, optimizer=optimizer)
 
 
 def _ckpt_dir(base: str) -> str:
@@ -77,13 +83,10 @@ def save_checkpoint(base_dir: str, state: TrainState, config: Optional[Dict] = N
     opt = state.optimizer.state_dict()
     if half_rope:
         opt = _permute_opt_state(opt, state.model, inverse=True)
-    ckpt = {
-        "model": canonical(state.model.state_dict()),
-        "ema": canonical(state.ema.state_dict()),
-        "opt": opt,
-        "config": config,
-        "step": int(state.step),
-    }
+    ckpt = {"model": canonical(state.model.state_dict())}
+    if state.ema is not None:
+        ckpt["ema"] = canonical(state.ema.state_dict())
+    ckpt |= {"opt": opt, "config": config, "step": int(state.step)}
     d = _ckpt_dir(base_dir)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"{int(state.step):07d}.pt")
@@ -105,6 +108,8 @@ def restore_checkpoint(base_dir: str, state: TrainState, step: Optional[int] = N
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     spec = state.model.spec
     for module, key in ((state.model, "model"), (state.ema, "ema")):
+        if module is None:
+            continue
         sd = ckpt[key]
         module.load_state_dict(permute_qk_for_half_rope(sd, spec) if half_rope else sd, strict=True)
     opt = ckpt["opt"]

@@ -1,7 +1,7 @@
-"""FLOP accounting for the training log (port of the parts of
-``ldmae_tpu/utils/profiling.py`` the train CLI uses): the analytic forward
-FLOPs of a LightningDiT, the device's peak for MFU, and the log's TFLOP/s
-and MFU text."""
+"""FLOP accounting for the training logs (port of the parts of
+``ldmae_tpu/utils/profiling.py`` the train CLIs use): the analytic forward
+FLOPs of a LightningDiT and of a VMAE, the device's peak for MFU, and the
+log's TFLOP/s and MFU text."""
 
 from __future__ import annotations
 
@@ -53,3 +53,29 @@ def dit_forward_flops(spec, batch: int) -> float:
     adaln_flops = 2 * depth * spec.num_adaln * d * d
     embed = 2 * n * spec.patch_size**2 * spec.in_channels * d
     return (matmul_flops + attn_flops + adaln_flops + embed) * batch
+
+
+def _vit_stack_flops(n: int, d: int, depth: int, mlp_ratio: float) -> float:
+    """Matmul and attention FLOPs of ``depth`` pre-LN ViT blocks on ``n``
+    tokens of width ``d`` (qkv + proj 4 d^2, the MLP 2 d (d mlp_ratio))."""
+    per_layer_params = 4 * d * d + 2 * d * int(d * mlp_ratio)
+    return depth * (2 * n * per_layer_params + 4 * n * n * d)
+
+
+def vmae_forward_flops(spec, batch: int, mask_ratio: float = 0.0) -> float:
+    """Analytic FLOPs of one VMAE forward for MFU: the encoder on the
+    ``L (1 - mask_ratio)`` kept tokens, the decoder on all ``L``, and the
+    patch embedding, latent projections, decoder_embed and pred head (the
+    smoother and any perceptual loss are not counted)."""
+    n_tok = spec.num_patches
+    n_vis = int(n_tok * (1 - mask_ratio)) + spec.num_extra_tokens
+    enc = _vit_stack_flops(n_vis, spec.embed_dim, spec.depth, spec.mlp_ratio)
+    dec = _vit_stack_flops(n_tok + spec.num_extra_tokens, spec.decoder_embed_dim, spec.decoder_depth,
+                           spec.mlp_ratio)
+    p2c = spec.patch_size**2 * spec.in_chans
+    heads = (2 * n_tok * p2c * spec.embed_dim
+             + 2 * n_vis * spec.embed_dim * spec.encoder_latent_dim
+             + 2 * n_tok * spec.latent_dim * spec.embed_dim
+             + 2 * n_tok * spec.embed_dim * spec.decoder_embed_dim
+             + 2 * n_tok * spec.decoder_embed_dim * p2c)
+    return (enc + dec + heads) * batch

@@ -934,3 +934,109 @@ def test_cuda_manifold_distances_vs_host(cuda, monkeypatch):
 
     monkeypatch.setattr(evaluator, "_fp32_matmul", tf32)
     assert float(abs(dev.manifold_radii(f1) / r1 - 1).max()) > 1e-4
+
+
+# -- the VMAE training slice -------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_conv2d_fp32_backward_vs_float64(cuda):
+    """``conv2d_fp32`` under autograd (LPIPS's VGG16 shape and the VMAE
+    smoother's): the output and the input, weight and bias gradients within
+    relative L2 1e-5 of float64 math, TF32 off in the backward too; a
+    convolution whose backward runs with cuDNN's default (TF32 allowed)
+    reads above that bound."""
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops.conv import conv2d_fp32
+
+    g = torch.Generator().manual_seed(10)
+    for (n, cin, cout, hw) in ((4, 64, 128, 64), (8, 3, 3, 128)):
+        x = torch.randn(n, cin, hw, hw, generator=g)
+        w = torch.randn(cout, cin, 3, 3, generator=g) * (cin * 9) ** -0.5
+        b = torch.randn(cout, generator=g)
+        go = torch.randn(n, cout, hw, hw, generator=g)
+        ref_in = [t.double().requires_grad_() for t in (x, w, b)]
+        ref_out = F.conv2d(*ref_in, padding=1)
+        refs = [ref_out.detach(), *torch.autograd.grad(ref_out, ref_in, go.double())]
+
+        def errs(conv):
+            ins = [t.to(cuda).requires_grad_() for t in (x, w, b)]
+            out = conv(*ins)
+            got = [out.detach(), *torch.autograd.grad(out, ins, go.to(cuda))]
+            return [float((a.cpu().double() - r).norm() / r.norm()) for a, r in zip(got, refs)]
+
+        assert max(errs(lambda x, w, b: conv2d_fp32(x, w, b, padding=1))) <= 1e-5
+
+        def tf32_conv(x, w, b):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                return F.conv2d(x, w, b, padding=1)
+
+        if cin > 3:  # the 3-channel smoother's products are too short to show TF32
+            assert max(errs(tf32_conv)[1:3]) > 1e-5
+
+
+def _vmae_grads(cuda, dtype, attn_impl, tune_decoder=False):
+    """One micro-batch's gradients of the production VMAE at full width
+    (depth 2 / 2) on the card, the recipe's stage-1 (128^2) or stage-3
+    (256^2) flags with LPIPS on seeded random weights, fixed noise."""
+    from ldmae_tpu_torch.models import VMAE, init_vmae_weights_, vmae_spec
+    from ldmae_tpu_torch.models.lpips import LPIPS, import_lpips_weights, make_lpips_fn
+    from ldmae_tpu_torch.train.train_vmae import vmae_loss
+
+    size, kw = ((256, dict(kl_loss_weight=0.0, perceptual_loss_ratio=10.0, ldmae_mode=True)) if tune_decoder
+                else (128, dict(kl_loss_weight=1e-6, fixed_std=1e-3, perceptual_loss_ratio=0.5)))
+    spec = vmae_spec("mae_for_ldmae_f8d16_prev", img_size=size, depth=2, decoder_depth=2, no_cls=True,
+                     smooth_output=True, **kw)
+    model = init_vmae_weights_(VMAE(spec, device=cuda), torch.Generator().manual_seed(11))
+    lp = LPIPS(cuda)
+    lp.load_state_dict(import_lpips_weights())
+    gen = torch.Generator().manual_seed(12)
+    n_tok = spec.num_patches
+    n_keep = n_tok if tune_decoder else int(n_tok * 0.75)
+    x = torch.randint(0, 256, (4, size, size, 3), generator=gen, dtype=torch.uint8).to(cuda)
+    noise = dict(mask_noise=torch.rand(4, n_tok, generator=gen).to(cuda),
+                 latent_noise=torch.randn(4, 16, n_keep, generator=gen).to(cuda))
+    out = vmae_loss(model, x, tune_decoder=tune_decoder, mask_ratio=0.0 if tune_decoder else 0.25,
+                    visible_loss_ratio=0.75, perceptual_loss_fn=make_lpips_fn(lp), compute_dtype=dtype,
+                    attn_impl=attn_impl, **noise)
+    out["loss"].backward()
+    return float(out["loss"]), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _worst_leaf(got, ref):
+    assert got.keys() == ref.keys()
+    return max(float((got[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)) for n in ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tune_decoder", [False, True], ids=["stage1", "stage3"])
+def test_cuda_vmae_train_step_vs_plain(cuda, tune_decoder, monkeypatch):
+    """One VMAE training micro-batch on the card against the plain path on
+    the card: in fp32, the ``flash`` attention kernels (#2 and #5 at head dim
+    16) against ``xla``, every gradient leaf within relative L2 1e-3 and the
+    loss within 1e-5; in bf16 (the CLI's configuration), ``dense``'s kernel
+    against its plain version (fp32 sums of the same bf16 values, the fp32
+    bias, one rounding), every leaf within relative L2 1e-2."""
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.ops import linear
+
+    loss_x, g_x = _vmae_grads(cuda, torch.float32, "xla", tune_decoder)
+    ops.reset_launch_counts()
+    loss_f, g_f = _vmae_grads(cuda, torch.float32, "flash", tune_decoder)
+    counts = ops.launch_counts()
+    # fp32 has no resident kernel: stage 3's encoder (no gradient) runs the fp32 forward too
+    assert counts["flash_attention"] == 4 and counts["flash_attention_bwd"] == (2 if tune_decoder else 4)
+    assert abs(loss_f - loss_x) <= 1e-5 * abs(loss_x) and _worst_leaf(g_f, g_x) <= 1e-3
+
+    ops.reset_launch_counts()
+    loss_k, g_k = _vmae_grads(cuda, torch.bfloat16, "xla", tune_decoder)
+    assert ops.launch_counts()["dense_bias_f32"] > 0
+
+    def plain(x, weight, bias):
+        return torch.nn.functional.linear(x.float(), weight.float(), bias).bfloat16()
+
+    plain.launches = 0
+    monkeypatch.setattr(linear, "dense_bias_f32", plain)
+    loss_p, g_p = _vmae_grads(cuda, torch.bfloat16, "xla", tune_decoder)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p) and _worst_leaf(g_k, g_p) <= 1e-2
