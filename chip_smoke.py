@@ -106,7 +106,20 @@ attention bounds), then:
      counts (finite rFID, PSNR, LPIPS, SSIM; LPIPS(x, x) = 0, SSIM(x, x) = 1)
      and its roundtrip's images/s; the FID InceptionV3 on the card against
      its CPU path and its images/s at batch 64; ``cli.fid_stats`` and
-     ``cli.evaluate`` on two seeded npz sets, and FID(a, a) = 0.
+     ``cli.evaluate`` on two seeded npz sets, and FID(a, a) = 0;
+ 10. VMAE training on those PNGs: stage 1 and stage 3 of
+     ``scripts/train_ae.sh`` through ``cli.train_vmae`` (the production arch
+     at full width and depth, the recipe's flags, 2 epochs x 2 steps each,
+     LPIPS on seeded random weights), ``dense``'s launches counted by (M,
+     K, N) exactly, finite losses, stage 3 from stage 1's
+     ``checkpoint-0.pth`` with its frozen parameters bitwise unchanged,
+     steps/s, images/s, TFLOP/s, MFU and peak memory; a micro-batch's
+     gradients against ``dense``'s plain version and LPIPS's gradient in
+     the reconstruction; the flash leg (#2 and #5 at head dim 16 counted by
+     shape, gradients against xla, one step timed under each); #2 and #5 at
+     the three d = 16 shapes against their plain versions beside SDPA,
+     with bounds (their own JSON line, ``{"vmae_train_kernels": [...]}``);
+     one micro-batch's device time split by group.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -122,6 +135,8 @@ too, likewise for comparisons within one call; ``--attention`` the d = 64
 attention forwards (#7 and #8 by part, with their wrappers' host time a
 call, #1, #2) and the 10-step sampling seconds under flash_rope, flash_qkr
 and flash_fused.
+
+``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -2868,12 +2883,12 @@ def vmae_attention_rows(dev, shapes: dict, bwd_shapes: dict) -> list:
 
 
 # device-time groups of a VMAE training step: by the aten op that launched a
-# kernel (its self device time), the port's kernels by kernel name
+# kernel (its self device time; an op whose name holds one of the marks),
+# the port's kernels by kernel name
 VMAE_SPLIT_OPS = {
-    "attention (xla: bmm, softmax)": ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data"),
+    "attention (xla: bmm, softmax)": ("aten::bmm", "softmax"),
     "linear backward (cuBLAS mm)": ("aten::mm", "aten::addmm"),
-    "convolutions (LPIPS VGG16, smoother)": ("aten::cudnn_convolution", "aten::convolution_backward",
-                                             "aten::_convolution"),
+    "convolutions (LPIPS VGG16, smoother)": ("convolution",),
 }
 VMAE_SPLIT_KERNELS = {"dense (the port's GEMM)": ("gemm_kernel",), "attention kernels (flash)": ("flash",)}
 
@@ -2901,8 +2916,9 @@ def vmae_step_split(what: str, fn) -> None:
         log(f"[vmae profile] {what}: the profiler recorded no device time (split not measured)")
         return
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {g: sum(e.self_device_time_total for e in avg if e.device_type == DeviceType.CPU and e.key in keys) / 1e3
-              for g, keys in VMAE_SPLIT_OPS.items()}
+    groups = {g: sum(e.self_device_time_total for e in avg
+                     if e.device_type == DeviceType.CPU and any(m in e.key for m in marks)) / 1e3
+              for g, marks in VMAE_SPLIT_OPS.items()}
     groups |= {g: sum(e.self_device_time_total for e in kernels if any(m in e.key for m in marks)) / 1e3
                for g, marks in VMAE_SPLIT_KERNELS.items()}
     groups["other (elementwise, norms, reductions, casts)"] = busy - sum(groups.values())
@@ -3003,6 +3019,7 @@ def vmae_only(dev, smi: str) -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rate_probes(dev)  # the exponential term of the attention bounds
     with tempfile.TemporaryDirectory() as tmp:
         origin = os.path.join(tmp, "images")
         write_image_folder(origin, EXTRACT_IMAGES, 42)

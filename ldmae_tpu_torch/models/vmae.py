@@ -218,23 +218,27 @@ class VMAE(nn.Module):
         img = _conv2d_fp32(img, dp.conv_smoother, (1, 1, 1, 1))
         return patchify(img, spec.patch_size).to(x.dtype)
 
-    def _encoder_tokens(self, imgs: torch.Tensor, compute_dtype: torch.dtype, attn_impl: str) -> torch.Tensor:
-        """Full-image (unmasked) encoder: patch embedding (patchify, then
-        ``dense`` on the Conv2d weight viewed as a linear) -> + PE (and the
-        cls token) -> blocks -> norm."""
-        spec = self.spec
+    def _embed(self, imgs: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        """Patch embedding (patchify, then ``dense`` on the Conv2d weight
+        viewed as a linear) plus the patch tokens' positional table."""
         pe_w = self.patch_embed.proj
-        x = patch_embed(imgs.to(compute_dtype), pe_w.weight, pe_w.bias, spec.patch_size,
+        x = patch_embed(imgs.to(compute_dtype), pe_w.weight, pe_w.bias, self.spec.patch_size,
                         compute_dtype=compute_dtype)
         pe = self.consts.pos_embed.to(compute_dtype)
-        if spec.no_cls:
-            x = x + pe[None]
-        else:
-            x = x + pe[None, 1:]
-            cls = self.cls_token.reshape(-1).to(x.dtype) + pe[0]
+        return x + (pe[None] if self.spec.no_cls else pe[None, 1:])
+
+    def _encode(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        """Embedded tokens -> the cls token (with its table row) -> blocks -> norm."""
+        spec = self.spec
+        if not spec.no_cls:
+            cls = self.cls_token.reshape(-1).to(x.dtype) + self.consts.pos_embed[0].to(x.dtype)
             x = torch.cat([cls.expand(x.shape[0], 1, -1), x], dim=1)
         x = self._run_blocks(x, self.blocks, spec.num_heads, attn_impl)
         return layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6)
+
+    def _encoder_tokens(self, imgs: torch.Tensor, compute_dtype: torch.dtype, attn_impl: str) -> torch.Tensor:
+        """The full-image (unmasked) encoder."""
+        return self._encode(self._embed(imgs, compute_dtype), attn_impl)
 
     def _run_blocks(self, x: torch.Tensor, blocks: nn.ModuleList, num_heads: int, attn_impl: str) -> torch.Tensor:
         """The block stack; with ``spec.use_checkpoint`` under autograd each
@@ -256,8 +260,11 @@ class VMAE(nn.Module):
         x = self._latent_proj(x, self.from_latent)
         x = dense(x, self.decoder_embed.weight, self.decoder_embed.bias)
         pe = self.consts.decoder_pos_embed.to(x.dtype)
-        x = x + (pe[None] if spec.no_cls else pe[None, 1:])
-        x = self._run_blocks(x, self.decoder_blocks, spec.decoder_num_heads, attn_impl)
+        return self._decode(x + (pe[None] if spec.no_cls else pe[None, 1:]), attn_impl)
+
+    def _decode(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        """Decoder tokens with their positional table -> blocks -> norm -> pred head."""
+        x = self._run_blocks(x, self.decoder_blocks, self.spec.decoder_num_heads, attn_impl)
         x = layer_norm(x, self.decoder_norm.weight, self.decoder_norm.bias, eps=1e-6)
         return self._decoder_pred(x)
 
@@ -300,22 +307,11 @@ class VMAE(nn.Module):
 
     def forward_encoder(self, imgs: torch.Tensor, mask_ratio: float, mask_noise: torch.Tensor,
                         compute_dtype: torch.dtype = torch.float32, attn_impl: str = "xla"):
-        """Masked encoder: patch embedding, + PE, ``random_masking`` by
-        ``mask_noise`` (B, L), the cls token, blocks, norm. Returns (x, mask,
+        """Masked encoder: the embedded tokens kept by ``random_masking`` of
+        ``mask_noise`` (B, L) through the encoder. Returns (x, mask,
         ids_restore)."""
-        spec = self.spec
-        pe_w = self.patch_embed.proj
-        x = patch_embed(imgs.to(compute_dtype), pe_w.weight, pe_w.bias, spec.patch_size,
-                        compute_dtype=compute_dtype)
-        pe = self.consts.pos_embed.to(compute_dtype)
-        x = x + (pe[None] if spec.no_cls else pe[None, 1:])
-        x, mask, ids_restore = random_masking(x, mask_ratio, mask_noise)
-        if not spec.no_cls:
-            cls = self.cls_token.reshape(-1).to(x.dtype) + pe[0]
-            x = torch.cat([cls.expand(x.shape[0], 1, -1), x], dim=1)
-        x = self._run_blocks(x, self.blocks, spec.num_heads, attn_impl)
-        x = layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6)
-        return x, mask, ids_restore
+        x, mask, ids_restore = random_masking(self._embed(imgs, compute_dtype), mask_ratio, mask_noise)
+        return self._encode(x, attn_impl), mask, ids_restore
 
     def forward_decoder(self, x: torch.Tensor, ids_restore: torch.Tensor, attn_impl: str = "xla") -> torch.Tensor:
         """Decoder of the kept tokens: decoder_embed, the mask tokens put
@@ -326,10 +322,7 @@ class VMAE(nn.Module):
             x = unshuffle_with_mask_tokens(x, self.mask_token, ids_restore)
         else:
             x = torch.cat([x[:, :1], unshuffle_with_mask_tokens(x[:, 1:], self.mask_token, ids_restore)], dim=1)
-        x = x + self.consts.decoder_pos_embed.to(x.dtype)[None]
-        x = self._run_blocks(x, self.decoder_blocks, spec.decoder_num_heads, attn_impl)
-        x = layer_norm(x, self.decoder_norm.weight, self.decoder_norm.bias, eps=1e-6)
-        x = self._decoder_pred(x)
+        x = self._decode(x + self.consts.decoder_pos_embed.to(x.dtype)[None], attn_impl)
         return x if spec.no_cls else x[:, 1:]
 
     def forward_vanilla(
@@ -388,15 +381,14 @@ class VMAE(nn.Module):
         self, imgs: torch.Tensor, latent_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None, use_mode: bool = True,
         compute_dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
-        stop_encoder_gradient: bool = True,
     ) -> torch.Tensor:
         """Full-image encode -> decode, the patched prediction (B, L,
         p*p*3). The latent is the posterior's mode, or with ``use_mode``
         False a sample (eps ``latent_noise`` (B, latent_dim, L), else drawn
-        from ``generator``). ``stop_encoder_gradient``: the encoder runs
-        without autograd (the stage-3 decoder tuning)."""
+        from ``generator``). The encoder runs without autograd (the JAX
+        package's stop-gradient on the latent: stage 3 tunes the decoder)."""
         spec = self.spec
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_encoder_gradient):
+        with torch.no_grad():
             x = self._encoder_tokens(imgs, compute_dtype, attn_impl)
             if not spec.no_cls:
                 x = x[:, 1:]

@@ -36,11 +36,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, ema: bool = True) -> TrainState:
-    """Step 0, with the EMA a copy of the model that takes no gradient (with
-    ``ema`` False, none)."""
-    copy_ = copy.deepcopy(model).requires_grad_(False) if ema else None
-    return TrainState(step=0, model=model, ema=copy_, optimizer=optimizer)
+def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> TrainState:
+    """Step 0, with the EMA a copy of the model that takes no gradient."""
+    ema = copy.deepcopy(model).requires_grad_(False)
+    return TrainState(step=0, model=model, ema=ema, optimizer=optimizer)
 
 
 def _ckpt_dir(base: str) -> str:

@@ -23,6 +23,8 @@ dim 12), batch 3, with seeded non-zero weights.
   through LPIPS alone is nonzero and matches JAX's.
 * ``forward_ldmae`` (stage 3) with the same posterior noise: loss and the
   decoder / from_latent gradients as above; the encoder gets none.
+  ``use_checkpoint`` (per-block recomputation) gives the same loss and
+  gradients (1e-6) in both stages.
 * The optimizer: ``cosine_lr`` (1e-9 absolute: JAX computes it in float32); the weight-decay mask leaf
   by leaf against ``_decay_mask``; one update given the same gradients
   against ``make_vmae_optimizer``'s optax chain, stage 1 and stage 3, every
@@ -251,6 +253,32 @@ def test_forward_ldmae_matches_jax(monkeypatch):
     with torch.no_grad():
         mode = model.forward_ldmae(torch.from_numpy(imgs), perceptual_loss_fn=tfn)
     assert float(mode["loss"]) != float(tout["loss"])
+
+
+@pytest.mark.parametrize("tune_decoder", [False, True], ids=["stage1", "stage3"])
+def test_per_block_recomputation_gives_the_same_gradients(tune_decoder):
+    """``use_checkpoint`` (the JAX package's per-block remat) recomputes each
+    block in the backward: the same loss and gradients (1e-6 relative)."""
+    import dataclasses
+
+    _, _, _, model = _pair(7, **(STAGE3 if tune_decoder else STAGE1))
+    remat = VMAE(dataclasses.replace(model.spec, use_checkpoint=True), device="cpu")
+    remat.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8))
+    n_keep = model.spec.num_patches if tune_decoder else 12
+    noise = dict(mask_noise=torch.from_numpy(rng.uniform(size=(B, 16)).astype(np.float32)),
+                 latent_noise=torch.from_numpy(rng.standard_normal((B, 16, n_keep)).astype(np.float32)))
+    losses = []
+    for m in (model, remat):
+        out = ttrain.vmae_loss(m, x, tune_decoder=tune_decoder, mask_ratio=0.25, **noise)
+        out["loss"].backward()
+        losses.append(float(out["loss"]))
+    assert losses[0] == losses[1]
+    for (n, p), q in zip(model.named_parameters(), remat.parameters()):
+        assert (p.grad is None) == (q.grad is None), n
+        if p.grad is not None:
+            assert float((p.grad - q.grad).abs().max()) <= 1e-6 * float(p.grad.abs().max()), n
 
 
 # ---------------------------------------------------------------------------
