@@ -119,7 +119,23 @@ attention bounds), then:
      shape, gradients against xla, one step timed under each); #2 and #5 at
      the three d = 16 shapes against their plain versions beside SDPA,
      with bounds (their own JSON line, ``{"vmae_train_kernels": [...]}``);
-     one micro-batch's device time split by group.
+     one micro-batch's device time split by group; then stage 1 with
+     ``--gradual_resol`` (patch 4: 1,024 tokens either side of the token
+     convolutions; the micro-batch cut to 32 x 8), dense counted by shape,
+     finite losses, the reference's gradual checkpoint layout, and one
+     micro-batch under ``flash`` (#2 and #5 counted by shape) against xla;
+ 11. the tokenizer family: the SD-VAE, VA-VAE and MAR-VAE at full size
+     (256^2, ch 128, seeded weights) through ``build_tokenizer_fns``,
+     ``encode_moments`` and ``decode`` of 8 of the PNGs on the card against
+     the same module's float32 CPU run (1 image; with a TF32 control), no
+     convolution with TF32 allowed, ms a batch, images/s, TFLOP/s and peak
+     memory (their own JSON line, ``{"conv_tokenizers": [...]}``); the
+     sampling CLI's ``build_pipeline`` with ``vae.model_name: sdv3``
+     (LightningDiT-B/1, batch 8, 250 steps, CFG 10, bf16; #1, #3, #4 and
+     dense counted exactly, uint8 (8, 256, 256, 3) equal to the SD-VAE's
+     decode of the run's latents); ``cli.extract_features`` with the SD-VAE
+     on the 256 PNGs and ``cli.evaluate_tokenizer`` with the VA-VAE on 64,
+     images/s and peak memory.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -136,7 +152,8 @@ attention forwards (#7 and #8 by part, with their wrappers' host time a
 call, #1, #2) and the 10-step sampling seconds under flash_rope, flash_qkr
 and flash_fused.
 
-``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone.
+``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
+``--tokenizers`` phase 11 alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -151,6 +168,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -2238,7 +2256,7 @@ def extraction_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
     from ldmae_tpu_torch.cli import extract_features
     from ldmae_tpu_torch.data.images import ImageFolderDataset
     from ldmae_tpu_torch.data.latent_dataset import ImgLatentDataset, _load_stats, read_safetensors
-    from ldmae_tpu_torch.models import load_production_vmae
+    from ldmae_tpu_torch.models.tokenizers import build_tokenizer_fns
 
     cfg = _yaml_config(data={"origin_path": origin, "data_path": os.path.join(tmp, "latents"), "image_size": 256,
                              "num_classes": 1000, "latent_norm": True, "latent_multiplier": 1.0, "sample": True})
@@ -2271,17 +2289,17 @@ def extraction_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
           and flip.shape == lat.shape and labels.tolist() == [0] * (EXTRACT_IMAGES // 2) + [1] * (EXTRACT_IMAGES // 2)
           and bool(torch.isfinite(lat).all() and torch.isfinite(flip).all()))
     # the first batch again through the same encode (same weights, shapes)
-    vae = load_production_vmae("", 256, dev, 1)
+    tok = build_tokenizer_fns("vmae_f8d16", "", 256, dev, 1)
     ds = ImageFolderDataset(origin, 256)
     u8 = np.stack([ds.get(i, raw_uint8=True)[0] for i in range(EXTRACT_BATCH)])
     x = torch.from_numpy(u8).to(dev)
-    re, re_f = (t.cpu() for t in extract_features.encode_batch(vae, x, True))
+    re, re_f = (t.cpu() for t in extract_features.encode_batch(tok, x, True))
     scale = float(lat.abs().max())
     self_err = float((lat[:EXTRACT_BATCH] - re).abs().max()) / scale
     flip_err = float((flip[:EXTRACT_BATCH] - re_f).abs().max()) / scale
     other_err = min(float((lat[i] - re[i + 1]).abs().max()) for i in range(EXTRACT_BATCH - 1)) / scale
     # encode(flip(x)): the flipped crops as the unflipped half of a batch
-    ff, _ = extract_features.encode_batch(vae, torch.from_numpy(np.ascontiguousarray(u8[:, :, ::-1])).to(dev), True)
+    ff, _ = extract_features.encode_batch(tok, torch.from_numpy(np.ascontiguousarray(u8[:, :, ::-1])).to(dev), True)
     flip_direct = float((flip[:EXTRACT_BATCH] - ff.cpu()).abs().max()) / scale
     stats = _load_stats(os.path.join(out, "latents_stats.pt"))
     again = ImgLatentDataset(out, latent_norm=False, sample=True).compute_latent_stats()
@@ -2296,12 +2314,12 @@ def extraction_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
         raise SystemExit("extraction: the shards or the statistics are wrong")
 
     # the encode alone at the CLI's batch (device time, steady)
-    ms = cuda_ms(lambda: extract_features.encode_batch(vae, x, True), 3, 1)
+    ms = cuda_ms(lambda: extract_features.encode_batch(tok, x, True), 3, 1)
     log(f"  extraction: {EXTRACT_IMAGES / seconds:.2f} images/s for the whole CLI call ({seconds:.2f} s: model build, "
         f"PNG decode and crop, encode, shard and statistics writes); the encode of a batch of {EXTRACT_BATCH} "
         f"(flip-doubled) {ms:.2f} ms = {EXTRACT_BATCH / ms * 1e3:.1f} images/s; peak memory {peak:.3f} GB "
         f"(xla attention's fp32 logits of ({2 * EXTRACT_BATCH},12,1024,1024)); on {smi}")
-    del vae, x
+    del tok, x
     torch.cuda.empty_cache()
     return {"extract": counts}, dense_shapes
 
@@ -2418,9 +2436,9 @@ def tokenizer_eval_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     from ldmae_tpu_torch.cli import evaluate_tokenizer
     from ldmae_tpu_torch.data.images import ImageFolderDataset, normalize_uint8_images
     from ldmae_tpu_torch.eval.metrics import ssim
-    from ldmae_tpu_torch.models import load_production_vmae
     from ldmae_tpu_torch.models import lpips as tlpips
     from ldmae_tpu_torch.models.lpips import load_lpips
+    from ldmae_tpu_torch.models.tokenizers import build_tokenizer_fns
 
     cfg = _yaml_config(data={"image_size": 256, "num_classes": 1000})
     cfg["vae"]["weight_path"] = ""
@@ -2451,7 +2469,8 @@ def tokenizer_eval_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     # reconstructions): the VGG features within relative L2 1e-5, TF32 off;
     # TF32 convolutions must read above
     cpu_lp = load_lpips("cpu")
-    rec = normalize_uint8_images(evaluate_tokenizer.roundtrip(load_production_vmae("", 256, dev, 1), lp, u8[:4])[0])
+    tok = build_tokenizer_fns("vmae_f8d16", "", 256, dev, 1)
+    rec = normalize_uint8_images(evaluate_tokenizer.roundtrip(tok, lp, u8[:4])[0])
     ref_f, ref_d = cpu_lp.net(x[:4].cpu()), cpu_lp(x[:4].cpu(), rec.cpu())
 
     def lp_errs():
@@ -2471,14 +2490,311 @@ def tokenizer_eval_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     if not ok:
         raise SystemExit("tokenizer evaluation: a metric is not finite, an identity fails, or LPIPS disagrees")
     del cpu_lp
-    vae = load_production_vmae("", 256, dev, 1)
-    ms = cuda_ms(lambda: evaluate_tokenizer.roundtrip(vae, lp, u8), 3, 1)
+    ms = cuda_ms(lambda: evaluate_tokenizer.roundtrip(tok, lp, u8), 3, 1)
     log(f"  tokenizer evaluation: the roundtrip (encode, decode, LPIPS, SSIM) of a batch of {EVAL_BATCH} {ms:.2f} ms "
         f"= {EVAL_BATCH / ms * 1e3:.1f} images/s; the whole CLI call {seconds:.2f} s for {EVAL_IMAGES} images "
         f"(model builds, PNG decode and writes, rFID's Inception and sqrtm on the host); on {smi}")
-    del vae, lp
+    del tok, lp
     torch.cuda.empty_cache()
     return {"tokenizer_eval": counts}
+
+
+# -- the tokenizer-family slice (SD-VAE, VA-VAE, MAR-VAE) --------------------
+# the three conv VAEs at full size (256^2, ch 128, seeded weights) on
+# CONV_BATCH of the seeded PNGs, the card against the CPU on CONV_CPU of them
+# (float32 on both, TF32 off: summation order only; max |err| / max |value|)
+CONV_TOKENIZERS = (("sdv3", "SD-VAE f8d16"), ("vavae", "VA-VAE f16d32"), ("marvae", "MAR-VAE f16d16"))
+CONV_BATCH, CONV_CPU, CONV_TOL = 8, 1, 1e-4
+_bf16 = EXPECTED_LAUNCHES["bf16"]
+EXPECTED_LAUNCHES |= {
+    # the same DiT as the bf16 VMAE pipeline, the float32 SD-VAE decode (no
+    # port kernel) in place of the VMAE's (#2 and dense)
+    "sdvae_pipeline": _NONE | {k: _bf16[k] for k in ("flash_attention_rope", "fused_norm_modulate",
+                                                     "fused_matmul_silu")}
+                            | {"dense_bias_f32": _bf16["dense_bias_f32"] - _DENSE_DECODE},
+    "conv_tokenizer": _NONE,
+    "extract_sdvae": _NONE,
+    "tokenizer_eval_vavae": _NONE,
+}
+
+
+@contextlib.contextmanager
+def counted_convs():
+    """While active: the FLOPs of every ``F.conv2d`` (2 x output elements x
+    C_in k k / groups) and ``torch.bmm`` call, the convolutions' count and
+    how many ran with cuDNN's TF32 allowed. Yields that tally."""
+    import torch
+    import torch.nn.functional as F
+
+    tally = {"flops": 0, "convs": 0, "tf32": 0}
+    conv, bmm = F.conv2d, torch.bmm
+
+    def conv2d(x, w, *args, **kw):
+        out = conv(x, w, *args, **kw)
+        tally["flops"] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        tally["convs"] += 1
+        tally["tf32"] += bool(torch.backends.cudnn.allow_tf32)
+        return out
+
+    def bmm_(a, b):
+        tally["flops"] += 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+        return bmm(a, b)
+
+    F.conv2d, torch.bmm = conv2d, bmm_
+    try:
+        yield tally
+    finally:
+        F.conv2d, torch.bmm = conv, bmm
+
+
+def _seeded_crops(dev, origin: str, n: int):
+    """The first n seeded PNGs, ADM-cropped to 256, as (n, 3, 256, 256) in [-1, 1]."""
+    import numpy as np
+    import torch
+
+    from ldmae_tpu_torch.data.images import ImageFolderDataset, normalize_uint8_images
+
+    ds = ImageFolderDataset(origin, 256)
+    return normalize_uint8_images(torch.from_numpy(np.stack([ds.get(i, raw_uint8=True)[0] for i in range(n)])).to(dev))
+
+
+def conv_tokenizer_phase(dev, smi: str, origin: str) -> dict:
+    """Each conv tokenizer through ``build_tokenizer_fns`` at full size with
+    seeded weights: ``encode_moments`` and ``decode`` of CONV_BATCH images
+    on the card against the same module's float32 run on the CPU (CONV_CPU
+    images, within CONV_TOL of the largest |value|; the encode with TF32
+    convolutions must read above it), no convolution with TF32 allowed, no
+    port kernel launched; ms a batch, images/s, TFLOP/s (the convolutions'
+    and the attention's FLOPs as counted in the run) and peak memory.
+    Returns {"conv_tokenizer": counts} and the readings."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models import conv_vae as cv
+    from ldmae_tpu_torch.models.tokenizers import build_tokenizer_fns
+
+    x = _seeded_crops(dev, origin, CONV_BATCH)
+    readings = []
+    for name, label in CONV_TOKENIZERS:
+        tok = build_tokenizer_fns(name, "", 256, dev, 1)
+        model, lat = tok.model, tok.latent_dim
+        ops.reset_launch_counts()
+        with counted_convs() as enc:
+            moments = tok.encode_moments(model, x)
+        z = moments[:, :lat].contiguous()
+        with counted_convs() as dec:
+            imgs = tok.decode(model, z)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts("conv_tokenizer", counts)
+        torch.cuda.reset_peak_memory_stats()
+        enc_ms = cuda_ms(lambda: tok.encode_moments(model, x), 3, 1)
+        dec_ms = cuda_ms(lambda: tok.decode(model, z), 3, 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # where the device time of an encode and a decode goes, by kernel
+        events = sorted(_profiled(lambda: tok.decode(model, tok.encode_moments(model, x)[:, :lat]), 1),
+                        key=lambda e: -e[1])
+        busy = sum(ms for _, ms in events)
+        log(f"[tokenizers] {name}: encode + decode device time {busy:.2f} ms by kernel (top 6): " + "; ".join(
+            f"{ms:.2f} ms {k[:70]}" for k, ms in events[:6]))
+        cpu = cv.ConvVAE(model.spec, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        t0 = time.perf_counter()
+        ref_m = cpu.encode_moments(x[:CONV_CPU].cpu())
+        ref_d = cpu.decode(z[:CONV_CPU].cpu())
+        cpu_s = time.perf_counter() - t0
+
+        def err(out, ref):
+            return float((out[:CONV_CPU].cpu() - ref).abs().max() / ref.abs().max())
+
+        err_m, err_d = err(moments, ref_m), err(imgs, ref_d)
+        with tf32_convs(cv):
+            err_tf32 = err(tok.encode_moments(model, x[:CONV_CPU]), ref_m)
+        ok = (err_m <= CONV_TOL and err_d <= CONV_TOL and err_tf32 > CONV_TOL and enc["convs"] > 0
+              and enc["tf32"] == 0 and dec["tf32"] == 0 and tuple(moments.shape) == (CONV_BATCH, 2 * lat) + (
+                  256 // (2 ** (len(model.spec.ch_mult) - 1)),) * 2
+              and tuple(imgs.shape) == (CONV_BATCH, 3, 256, 256) and bool(torch.isfinite(imgs).all()))
+        r = {"tokenizer": name, "encode_ms": enc_ms, "decode_ms": dec_ms, "peak_gb": peak,
+             "encode_gflop_per_image": enc["flops"] / CONV_BATCH / 1e9,
+             "decode_gflop_per_image": dec["flops"] / CONV_BATCH / 1e9,
+             "encode_tflops": enc["flops"] / enc_ms / 1e9, "decode_tflops": dec["flops"] / dec_ms / 1e9,
+             "err_moments": err_m, "err_decode": err_d, "err_tf32_control": err_tf32}
+        readings.append(r)
+        log(f"[tokenizers] {name} ({label}, seeded weights, float32): encode {enc_ms:.2f} ms a batch of {CONV_BATCH} "
+            f"({CONV_BATCH / enc_ms * 1e3:.1f} images/s, {r['encode_gflop_per_image']:.1f} GFLOP an image, "
+            f"{r['encode_tflops']:.2f} TFLOP/s), decode {dec_ms:.2f} ms ({CONV_BATCH / dec_ms * 1e3:.1f} images/s, "
+            f"{r['decode_gflop_per_image']:.1f} GFLOP an image, {r['decode_tflops']:.2f} TFLOP/s), peak memory "
+            f"{peak:.3f} GB; {enc['convs']} + {dec['convs']} convolutions, {enc['tf32'] + dec['tf32']} with TF32 "
+            f"allowed (must be 0); card vs CPU ({CONV_CPU} images, {cpu_s:.1f} s on the host): moments "
+            f"{err_m:.3g}, images {err_d:.3g} of the largest |value| (tolerance {CONV_TOL}), the encode with TF32 "
+            f"convolutions {err_tf32:.3g} (must exceed it); on {smi} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"conv tokenizer {name}: the card disagrees with the CPU, a TF32 convolution ran, "
+                             "or a shape is wrong")
+        del tok, model, cpu, moments, imgs, z
+        torch.cuda.empty_cache()
+    log(json.dumps({"conv_tokenizers": readings}))
+    return {"conv_tokenizer": counts}
+
+
+def sdvae_pipeline_phase(dev, smi: str) -> dict:
+    """The sampling CLI's ``build_pipeline`` on the shipped YAML with
+    ``vae.model_name: sdv3`` (LightningDiT-B/1 at full width and depth with
+    seeded weights, bf16, 250 steps, CFG 10, the seeded SD-VAE): a batch of 8
+    with the launches of #1, #3, #4 and dense counted exactly (the bf16 VMAE
+    pipeline's DiT counts), uint8 (8, 256, 256, 3) out, equal to the SD-VAE's
+    decode of the same run's latents; seconds a batch. Returns
+    {"sdvae_pipeline": counts}."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import inference
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+
+    cfg = LDMAEConfig.from_dict(_yaml_config(vae={"model_name": "sdv3", "downsample_ratio": 8, "weight_path": ""}))
+    sample_fn, bundle, spec = inference.build_pipeline(cfg, device=dev)
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    log(f"[sdvae pipeline] cli.inference.build_pipeline, vae.model_name sdv3: LightningDiT-B/1 + SD-VAE f8d16 "
+        f"(seeded), batch {BATCH}, {cfg.sample.num_sampling_steps} Euler steps, CFG {cfg.sample.cfg_scale}, "
+        f"attention {cfg.parallel.attention_impl}, bf16 DiT, float32 decode")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    imgs = sample_fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("sdvae_pipeline", counts)
+    lat = sample_fn(dict(bundle, vae=None), y, generator=torch.Generator(device=dev).manual_seed(0))
+    again = bundle["vae"].decode_to_images(lat)
+    spread = float(imgs.float().std())
+    ok = (tuple(imgs.shape) == (BATCH, 256, 256, 3) and imgs.dtype == torch.uint8 and torch.equal(imgs, again)
+          and tuple(lat.shape) == (BATCH, 16, 32, 32) and spread > 0)
+    log(f"  images {tuple(imgs.shape)} {imgs.dtype}, pixel std {spread:.3f}, equal to the SD-VAE decode of the "
+        f"run's latents: {torch.equal(imgs, again)}; {seconds:.4f} s per batch of {BATCH} ({BATCH / seconds:.4f} "
+        f"images/s), peak memory {peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SD-VAE pipeline: wrong images, or they are not the SD-VAE's decode of the latents")
+    del bundle, sample_fn
+    torch.cuda.empty_cache()
+    return {"sdvae_pipeline": counts}
+
+
+def extraction_sdvae_phase(dev, smi: str, tmp: str, origin: str) -> dict:
+    """``cli.extract_features`` with ``vae.model_name: sdv3`` on the
+    EXTRACT_IMAGES PNGs at --batch EXTRACT_BATCH (flip-doubled; float32,
+    seeded SD-VAE): no port kernel, no TF32 convolution, the shard's raw
+    moments (N, 32, 32, 32) finite, labels in order, the statistics (1, 16,
+    1, 1); images/s and peak memory. Returns {"extract_sdvae": counts}."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import extract_features
+    from ldmae_tpu_torch.data.latent_dataset import _load_stats, read_safetensors
+
+    cfg = _yaml_config(data={"origin_path": origin, "data_path": os.path.join(tmp, "latents_sdvae"), "image_size": 256,
+                             "num_classes": 1000, "latent_norm": True, "latent_multiplier": 1.0, "sample": True},
+                       vae={"model_name": "sdv3", "downsample_ratio": 8, "weight_path": ""})
+    path = os.path.join(tmp, "extract_sdvae.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log(f"[extract sdvae] cli.extract_features, vae.model_name sdv3: {EXTRACT_IMAGES} PNGs, --batch {EXTRACT_BATCH} "
+        f"(flip-doubled to {2 * EXTRACT_BATCH}), seeded SD-VAE, float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with counted_convs() as tally:
+        t0 = time.perf_counter()
+        out = extract_features.main(["--config", path, "--batch", str(EXTRACT_BATCH)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("extract_sdvae", counts)
+    shard = read_safetensors(os.path.join(out, "latents_rank00_shard000.safetensors"))
+    lat, flip = (np.array(shard[k]) for k in ("latents", "latents_flip"))
+    stats = _load_stats(os.path.join(out, "latents_stats.pt"))
+    ok = (lat.shape == flip.shape == (EXTRACT_IMAGES, 32, 32, 32) and np.isfinite(lat).all() and np.isfinite(flip).all()
+          and np.array(shard["labels"]).tolist() == [0] * (EXTRACT_IMAGES // 2) + [1] * (EXTRACT_IMAGES // 2)
+          and stats["mean"].shape == (1, 16, 1, 1) and tally["convs"] > 0 and tally["tf32"] == 0
+          and not np.array_equal(lat, flip))
+    log(f"  {EXTRACT_IMAGES / seconds:.2f} images/s for the whole CLI call ({seconds:.2f} s), {tally['flops'] / 1e12:.1f} "
+        f"TFLOP of convolutions and attention ({tally['flops'] / 1e12 / seconds:.2f} TFLOP/s over the call), "
+        f"{tally['convs']} convolutions, {tally['tf32']} with TF32 allowed; shard {lat.shape}, statistics "
+        f"{stats['mean'].shape}; peak memory {peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SD-VAE extraction: wrong shards or statistics, or a TF32 convolution")
+    torch.cuda.empty_cache()
+    return {"extract_sdvae": counts}
+
+
+def tokenizer_eval_vavae_phase(dev, smi: str, tmp: str, origin: str) -> dict:
+    """``cli.evaluate_tokenizer`` with ``vae.model_name: vavae`` on the first
+    EVAL_IMAGES PNGs at --batch EVAL_BATCH (seeded VA-VAE, LPIPS and
+    Inception): no port kernel, no TF32 convolution, finite rFID, PSNR,
+    LPIPS and SSIM, the PNG folders; the roundtrip's images/s at its batch
+    and the call's peak memory. Returns {"tokenizer_eval_vavae": counts}."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import evaluate_tokenizer
+    from ldmae_tpu_torch.data.images import ImageFolderDataset
+    from ldmae_tpu_torch.models.lpips import load_lpips
+    from ldmae_tpu_torch.models.tokenizers import build_tokenizer_fns
+
+    cfg = _yaml_config(data={"image_size": 256, "num_classes": 1000},
+                       vae={"model_name": "vavae", "downsample_ratio": 16, "weight_path": ""})
+    path = os.path.join(tmp, "eval_vavae.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(tmp, "rfid_vavae")
+    log(f"[tokenizer vavae] cli.evaluate_tokenizer, vae.model_name vavae: {EVAL_IMAGES} PNGs, --batch {EVAL_BATCH}, "
+        f"seeded VA-VAE (float32), LPIPS and Inception")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with counted_convs() as tally:
+        t0 = time.perf_counter()
+        (report,) = evaluate_tokenizer.main(["--config", path, "--data_path", origin, "--output_path", out,
+                                             "--batch", str(EVAL_BATCH), "--limit", str(EVAL_IMAGES)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("tokenizer_eval_vavae", counts)
+    pngs = [len(os.listdir(os.path.join(out, d))) for d in ("reference", "vavae_0.0")]
+    ok = (all(math.isfinite(report[k]) for k in ("rfid", "psnr", "lpips", "ssim")) and pngs == [EVAL_IMAGES] * 2
+          and tally["convs"] > 0 and tally["tf32"] == 0)
+    tok = build_tokenizer_fns("vavae", "", 256, dev, 1)
+    lp = load_lpips(dev)
+    ds = ImageFolderDataset(origin, 256)
+    u8 = torch.from_numpy(np.stack([ds.get(i, raw_uint8=True)[0] for i in range(EVAL_BATCH)])).to(dev)
+    ms = cuda_ms(lambda: evaluate_tokenizer.roundtrip(tok, lp, u8), 3, 1)
+    log(f"  {report}; PNGs {pngs}; {tally['convs']} convolutions, {tally['tf32']} with TF32 allowed; the roundtrip "
+        f"(encode, decode, LPIPS, SSIM) of a batch of {EVAL_BATCH} {ms:.2f} ms = {EVAL_BATCH / ms * 1e3:.1f} images/s; "
+        f"the whole CLI call {seconds:.2f} s for {EVAL_IMAGES} images; peak memory {peak:.3f} GB; on {smi} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("VA-VAE tokenizer evaluation: a metric is not finite, PNGs are missing, or a TF32 convolution")
+    del tok, lp
+    torch.cuda.empty_cache()
+    return {"tokenizer_eval_vavae": counts}
+
+
+def tokenizer_family_phases(dev, smi: str, tmp: str, origin: str) -> dict:
+    """The conv tokenizers, the SD-VAE sampling pipeline, the SD-VAE
+    extraction and the VA-VAE tokenizer evaluation; their launch counts."""
+    counts = conv_tokenizer_phase(dev, smi, origin)
+    counts |= sdvae_pipeline_phase(dev, smi)
+    counts |= extraction_sdvae_phase(dev, smi, tmp, origin)
+    counts |= tokenizer_eval_vavae_phase(dev, smi, tmp, origin)
+    return counts
 
 
 def inception_fid_phase(dev, smi: str, tmp: str) -> None:
@@ -2588,10 +2904,11 @@ def check_shapes(what: str, tally, want: dict) -> None:
         raise SystemExit(f"{what}: launches by shape {got}, expected {want}")
 
 
-def _vmae_cli(dev, smi: str, what: str, argv: list, stage: dict, tune_decoder: bool) -> dict:
+def _vmae_cli(dev, smi: str, what: str, argv: list, stage: dict, tune_decoder: bool, micro=None) -> dict:
     """One ``cli.train_vmae.main`` run, counted: the launches (dense's exactly,
-    by (M, K, N); nothing else launches under xla), finite losses, and the
-    last epoch's steps/s, images/s, TFLOP/s, MFU and peak memory."""
+    by (M, K, N), ``micro`` a micro-batch's, by default the stage's
+    ``vmae_dense_shapes``; nothing else launches under xla), finite losses,
+    and the last epoch's steps/s, images/s, TFLOP/s, MFU and peak memory."""
     import torch
 
     from ldmae_tpu_torch import ops
@@ -2608,8 +2925,8 @@ def _vmae_cli(dev, smi: str, what: str, argv: list, stage: dict, tune_decoder: b
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = VMAE_EPOCHS * VMAE_STEPS_PER_EPOCH
-    micro = vmae_dense_shapes(_vmae_spec(stage, tune_decoder), stage["batch_size"], stage["mask_ratio"],
-                              tune_decoder)
+    micro = micro or vmae_dense_shapes(_vmae_spec(stage, tune_decoder), stage["batch_size"], stage["mask_ratio"],
+                                       tune_decoder)
     want = {k: v * stage["accum_iter"] * steps for k, v in micro.items()}
     EXPECTED_LAUNCHES[what] = _NONE | {"dense_bias_f32": sum(want.values())}
     check_counts(what, counts)
@@ -2929,6 +3246,117 @@ def vmae_step_split(what: str, fn) -> None:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:110]}")
 
 
+# the gradual-resolution stage 1 (--gradual_resol: patch 4 at 128^2, 1,024
+# tokens before the token downsample and after the upsample). The recipe's
+# micro-batch of 128 would keep xla attention's fp32 (128, 12, 1024, 1024)
+# logits and probabilities for the backward, about 10 GB a layer: it is cut to
+# 32 with accum_iter 8, the same effective batch of 256
+VMAE_GRADUAL = VMAE_STAGE1 | dict(batch_size=32, accum_iter=8)
+
+
+def vmae_gradual_dense_shapes(spec, m: int, down_after: int, up_after: int) -> collections.Counter:
+    """``dense``'s launches by (M, K, N) in one gradual micro-batch of m
+    images: the patch embedding on all L tokens, the encoder's first
+    ``down_after`` blocks on all L (the mask tokens are back in), the rest
+    on L / 4, to_latent, from_latent and decoder_embed on L / 4, the
+    decoder's first ``up_after`` blocks on L / 4, the rest and the pred head
+    on L. The token convolutions are ``conv2d_fp32``'s."""
+    n_tok, n_low = spec.num_patches, spec.num_patches // 4
+    d, dd, pin, lat = spec.embed_dim, spec.decoder_embed_dim, spec.patch_size**2 * 3, spec.latent_dim
+    c = collections.Counter({(m * n_tok, pin, d): 1})
+    for rows, w, depth in ((m * n_tok, d, down_after), (m * n_low, d, spec.depth - down_after),
+                           (m * n_low, dd, up_after), (m * n_tok, dd, spec.decoder_depth - up_after)):
+        h = int(w * spec.mlp_ratio)
+        for shape in ((rows, w, 3 * w), (rows, w, w), (rows, w, h), (rows, h, w)):
+            c[shape] += depth
+    c[(m * n_low, d, spec.encoder_latent_dim)] += 1
+    c[(m * n_low, lat, d)] += 1
+    c[(m * n_low, d, dd)] += 1
+    c[(m * n_tok, dd, pin)] += 1
+    return c
+
+
+def vmae_gradual_phase(dev, smi: str, tmp: str, common: list, lp_fn) -> dict:
+    """Stage 1 with ``--gradual_resol`` through ``cli.train_vmae.main`` (the
+    recipe's flags, the micro-batch cut to VMAE_GRADUAL's): dense counted by
+    shape, finite losses, the reference's gradual layout in its checkpoint;
+    then one micro-batch's gradients under ``flash`` (#2 and #5 at head dim
+    16, 1,024 and 256 tokens, counted by shape) against ``xla`` within
+    GRAD_REL_L2 per leaf, each timed. Returns the two runs' counts."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models.vmae_variants import GradualVMAE, init_gradual_weights_
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.train.train_vmae import vmae_loss
+
+    stage = VMAE_GRADUAL
+    spec = dataclasses.replace(_vmae_spec(stage, False), patch_size=_vmae_spec(stage, False).patch_size // 2)
+    down, up = spec.depth // 2, spec.decoder_depth - spec.depth // 2
+    m, n_tok = stage["batch_size"], spec.num_patches
+    out_dir = os.path.join(tmp, "vmae_gradual")
+    log(f"[vmae gradual] cli.train_vmae --gradual_resol: {VMAE_ARCH} at patch {spec.patch_size} ({n_tok} tokens, "
+        f"{n_tok // 4} after the downsample at block {down}), {_vmae_flags(stage)} (micro-batch cut from 128 x 2 to "
+        f"{m} x {stage['accum_iter']}), {VMAE_EPOCHS} epochs x {VMAE_STEPS_PER_EPOCH} steps, bf16, xla attention")
+    run = _vmae_cli(dev, smi, "vmae_gradual", common + ["--output_dir", out_dir, "--gradual_resol"] + _vmae_flags(stage),
+                    stage, False, vmae_gradual_dense_shapes(spec, m, down, up))
+    sd = torch.load(os.path.join(out_dir, "checkpoints", "checkpoint-1.pth"), map_location="cpu",
+                    weights_only=False)["model"]
+    layout = (sd[f"blocks.{down}.conv.weight"].shape == (spec.embed_dim,) * 2 + (3, 3)
+              and f"decoder_blocks.{up}.conv.bias" in sd and f"blocks.{spec.depth}.norm1.weight" in sd)
+    log(f"  checkpoint-1.pth in the reference's gradual layout (blocks.{down}.conv, decoder_blocks.{up}.conv, "
+        f"blocks.{spec.depth}): {layout}")
+    if not layout:
+        raise SystemExit("VMAE gradual: the checkpoint is not in the reference's gradual layout")
+    del run["state"]
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randint(0, 256, (m, stage["input_size"], stage["input_size"], 3), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    noise = dict(mask_noise=torch.rand(m, n_tok, generator=gen, device=dev),
+                 latent_noise=torch.randn(m, 16, n_tok // 4, generator=gen, device=dev))
+
+    def grads(attn_impl):
+        model = init_gradual_weights_(GradualVMAE(spec, device=dev), torch.Generator().manual_seed(13))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vmae_loss(model, x, mask_ratio=stage["mask_ratio"], visible_loss_ratio=stage["visible_loss_ratio"],
+                        perceptual_loss_fn=lp_fn, compute_dtype=torch.bfloat16, attn_impl=attn_impl, **noise)
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return float(out["loss"]), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}, ms
+
+    grads("xla")  # warm-up
+    want = collections.Counter({(m, spec.num_heads, n_tok, 16): down + spec.decoder_depth - up,
+                                (m, spec.num_heads, n_tok // 4, 16): spec.depth - down + up})
+    EXPECTED_LAUNCHES["vmae_gradual_flash"] = _NONE | {
+        "flash_attention": sum(want.values()), "flash_attention_bwd": sum(want.values()),
+        "dense_bias_f32": sum(vmae_gradual_dense_shapes(spec, m, down, up).values())}
+    ops.reset_launch_counts()
+    shape = lambda q, *rest: tuple(q.shape)  # noqa: E731
+    with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention", shape) as fwd, \
+            launches_by_shape(fa, "flash_attention_bwd", "flash_attention_bwd", shape) as bwd:
+        loss_f, g_f, _ = grads("flash")
+    counts = ops.launch_counts()
+    check_counts("vmae_gradual_flash", counts)
+    check_shapes("vmae_gradual_flash: #2 by shape", fwd, want)
+    check_shapes("vmae_gradual_flash: #5 by shape", bwd, want)
+    loss_x, g_x, ms_x = grads("xla")
+    _, _, ms_f = grads("flash")
+    errs = {n: float((g_f[n] - g_x[n]).norm() / g_x[n].norm().clamp_min(1e-30)) for n in g_x}
+    leaf = max(errs, key=errs.get)
+    ok = errs[leaf] <= GRAD_REL_L2 and abs(loss_f - loss_x) <= 1e-2 * abs(loss_x) and math.isfinite(loss_f)
+    log(f"  gradual, flash vs xla (bf16, a micro-batch of {m}): loss {loss_f:.6g} vs {loss_x:.6g}; worst leaf {leaf}: "
+        f"relative L2 {errs[leaf]:.4g} (bound {GRAD_REL_L2}); a micro-batch's forward, LPIPS and backward "
+        f"{ms_x:.1f} ms under xla, {ms_f:.1f} ms under flash; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("VMAE gradual: the flash leg's gradients disagree with the xla leg's")
+    torch.cuda.empty_cache()
+    return {"vmae_gradual": run["counts"], "vmae_gradual_flash": counts}
+
+
 def vmae_train_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
     """The VMAE training slice: stage 1 and stage 3 of ``scripts/train_ae.sh``
     through ``cli.train_vmae.main`` on the seeded PNGs (LPIPS on the
@@ -3006,6 +3434,7 @@ def vmae_train_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
                         f"{stage['input_size']}^2 (forward, LPIPS, backward; xla attention, bf16)", micro)
         del model
         torch.cuda.empty_cache()
+    counts |= vmae_gradual_phase(dev, smi, tmp, common, lp_fn)
     return counts, rows
 
 
@@ -3026,6 +3455,25 @@ def vmae_only(dev, smi: str) -> int:
         _, rows = vmae_train_phase(dev, smi, tmp, origin)
     log(smi)
     log(json.dumps({"vmae_train_kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tokenizers_only(dev, smi: str) -> int:
+    """``--tokenizers``: build, then the tokenizer-family phases alone."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        origin = os.path.join(tmp, "images")
+        write_image_folder(origin, EXTRACT_IMAGES, 42)
+        tokenizer_family_phases(dev, smi, tmp, origin)
+    log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
@@ -3063,6 +3511,8 @@ def main() -> int:
         return attention_only(dev)
     if "--vmae" in sys.argv[1:]:
         return vmae_only(dev, smi)
+    if "--tokenizers" in sys.argv[1:]:
+        return tokenizers_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -3113,6 +3563,7 @@ def main() -> int:
         encoder_rows = encoder_kernel_phase(dev, origin, dense_shapes)
         result["counts"] |= tokenizer_eval_phase(dev, smi, tmp, origin)
         inception_fid_phase(dev, smi, tmp)
+        result["counts"] |= tokenizer_family_phases(dev, smi, tmp, origin)
         counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
         result["counts"] |= counts
 

@@ -1,14 +1,16 @@
 """Tokenizer reconstruction evaluation and latent-noise robustness (port of
 ``ldmae_tpu/cli/evaluate_tokenizer.py``).
 
-Encodes the images of ``--data_path`` through the VMAE tokenizer (posterior
-mode), optionally adds eps * N(0, 1) * the latent std (the std of
+Encodes the images of ``--data_path`` through the tokenizer that
+``vae.model_name`` names (``models.tokenizers.build_tokenizer_fns``; an
+unknown name or a ``vae.weight_path`` that names no file raises), takes the
+posterior mode, optionally adds eps * N(0, 1) * the latent std (the std of
 ``--latent_stats``' ``latents_stats.pt``, else of the batch), decodes, and
 writes the reference and reconstruction PNGs under ``--output_path``
 (``reference/`` and ``{model}_{eps}/``); reports rFID between the two
 folders, PSNR (per image, from the uint8 pixels), LPIPS and SSIM (means of
-the batch means). Encode and decode run in bf16 with the ``xla`` attention,
-as the JAX CLI's.
+the batch means). The VMAE encodes and decodes in bf16 with the ``xla``
+attention, the conv VAEs in float32, as the JAX CLI's.
 
 Single process: the JAX CLI's rank interleave and metric all-reduce are
 not ported yet, and the PNGs are written with PIL (ROADMAP.md, item 15).
@@ -35,23 +37,23 @@ from ..data.latent_dataset import _load_stats
 from ..eval.fid import calculate_fid_given_paths
 from ..eval.metrics import psnr_batch_np, ssim
 from ..models.lpips import LPIPS, load_lpips
-from ..models.vmae import VMAE, load_production_vmae
+from ..models.tokenizers import TokenizerFns, build_tokenizer_fns
 from ..ops.gaussian import diagonal_gaussian
 
 
 @torch.no_grad()
-def roundtrip(vae: VMAE, lpips_model: LPIPS, imgs_u8: torch.Tensor, epsilon: float = 0.0,
+def roundtrip(tok: TokenizerFns, lpips_model: LPIPS, imgs_u8: torch.Tensor, epsilon: float = 0.0,
               latent_std=None, generator=None):
     """(B, H, W, 3) uint8 on the model's device -> (reconstructions as
     (B, H, W, 3) uint8, per-image LPIPS, per-image SSIM)."""
     imgs = normalize_uint8_images(imgs_u8)
-    moments = vae.ldmae_encode_moments(imgs, compute_dtype=torch.bfloat16)
+    moments = tok.encode_moments(tok.model, imgs, compute_dtype=torch.bfloat16)
     latents = diagonal_gaussian(moments, axis=1).mode()
     if epsilon > 0:
         std = latent_std if latent_std is not None else latents.std(dim=(0, 2, 3), keepdim=True, correction=0)
         noise = torch.randn(latents.shape, generator=generator, device=latents.device)
         latents = latents + epsilon * noise * std
-    decoded = vae.decode(latents, compute_dtype=torch.bfloat16)
+    decoded = tok.decode(tok.model, latents, compute_dtype=torch.bfloat16)
     lp = lpips_model(decoded, imgs).reshape(-1)
     ss = ssim(decoded, imgs, data_range=(-1.0, 1.0), per_image=True)
     u8 = torch.clamp(127.5 * decoded + 128.0, 0, 255).permute(0, 2, 3, 1).to(torch.uint8)
@@ -96,8 +98,8 @@ def evaluate_tokenizer(config: LDMAEConfig, data_path: str, output_path: str, ep
     save_dir = os.path.join(output_path, f"{config.vae.model_name}_{epsilon}")
     os.makedirs(ref_path, exist_ok=True)
     os.makedirs(save_dir, exist_ok=True)
-    vae = load_production_vmae(config.vae.weight_path, config.data.image_size, device,
-                               config.train.global_seed + 1)
+    tok = build_tokenizer_fns(config.vae.model_name, config.vae.weight_path, config.data.image_size, device,
+                              config.train.global_seed + 1)
     lpips_model = load_lpips(device)
     latent_std = None
     if latent_stats and os.path.exists(latent_stats):
@@ -123,7 +125,7 @@ def evaluate_tokenizer(config: LDMAEConfig, data_path: str, output_path: str, ep
                 steady = (time.time(), idx)
             take = min(len(ref_u8), n_total - idx)
             ref_u8 = ref_u8[:take]
-            u8, lp, ss = roundtrip(vae, lpips_model, torch.from_numpy(ref_u8).to(device), epsilon, latent_std, gen)
+            u8, lp, ss = roundtrip(tok, lpips_model, torch.from_numpy(ref_u8).to(device), epsilon, latent_std, gen)
             u8 = u8.cpu().numpy()
             lpips_vals.append(float(lp.mean()))
             ssim_vals.append(float(ss.mean()))

@@ -5,9 +5,12 @@ CLI's ``_build_pipeline`` does (half-split RoPE layout, bf16, the
 configured attention / adaLN / MLP impls, int8 quantization when
 ``parallel.quant`` or ``--quant`` asks for it), loads the DiT EMA weights from
 ``ckpt_path`` (a reference ``.pt``) when that file exists, and otherwise
-uses seeded random weights; the VMAE from ``vae.weight_path`` (a path that
-names no file raises, an empty one means seeded weights). Writes
-PNGs (``--demo``: the reference's 2x4 demo grid).
+uses seeded random weights; the tokenizer that ``vae.model_name`` names
+(``models.tokenizers.build_tokenizer_fns``: the VMAE, the SD-VAE, VA-VAE or
+MAR-VAE; an unknown name raises) from ``vae.weight_path`` (a path that names
+no file raises, an empty one means seeded weights), which decodes under
+``parallel.attention_impl``. Writes PNGs (``--demo``: the reference's 2x4
+demo grid).
 
 After sampling (not with ``--demo`` or ``--skip_fid``) it computes the FID
 of the samples against ``data.fid_reference_file`` where that file exists.
@@ -15,8 +18,7 @@ The latent statistics are ``latents_stats.pt`` in ``data.data_path``,
 computed from the shards there where the file is missing.
 
 Not ported yet (ROADMAP.md): batch-level resume, ``resume_manifest.json``,
-rank interleave across processes, Orbax checkpoints, the non-VMAE
-tokenizers.
+rank interleave across processes, Orbax checkpoints.
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
@@ -36,14 +38,8 @@ from ..core.device import resolve_device
 from ..data.latent_dataset import ImgLatentDataset
 from ..eval.sampling import DEMO_LABELS, make_sample_fn
 from ..eval.save_npz import folder_name_from_config as folder_name
-from ..models import (
-    LightningDiT,
-    dit_spec,
-    load_production_vmae,
-    permute_qk_for_half_rope,
-    quantize_dit_,
-    seeded_init_,
-)
+from ..models import LightningDiT, dit_spec, permute_qk_for_half_rope, quantize_dit_, seeded_init_
+from ..models.tokenizers import build_tokenizer_fns
 from ..transport import create_transport
 
 
@@ -87,13 +83,9 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
     if quant:
         quantize_dit_(dit)
 
-    if not config.vae.model_name.startswith("vmae"):
-        raise NotImplementedError(
-            f"tokenizer {config.vae.model_name!r} is not ported yet (VMAE only)"
-        )
-    # a path that names no file raises, as the JAX CLI's tokenizer loader
-    # does; an empty one means seeded weights
-    vae = load_production_vmae(config.vae.weight_path or "", d.image_size, device, seed + 1)
+    # the tokenizer config.vae.model_name names; a path that names no file
+    # raises, an empty one means seeded weights
+    tok = build_tokenizer_fns(config.vae.model_name, config.vae.weight_path or "", d.image_size, device, seed + 1)
 
     # the training latents' statistics: latents_stats.pt, computed from the
     # shards (and saved) where it is missing
@@ -127,9 +119,11 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
         adaln_impl=par.adaln_impl,
         quant_mode=quant,
         mlp_impl=par.mlp_impl,
+        vae_decode_images_fn=lambda vae, z: tok.decode_to_images(
+            vae, z, compute_dtype=torch.bfloat16, attn_impl=par.attention_impl),
         device=device,
     )
-    bundle = {"dit": dit, "vae": vae, "latent_mean": latent_mean, "latent_std": latent_std}
+    bundle = {"dit": dit, "vae": tok.model, "latent_mean": latent_mean, "latent_std": latent_std}
     return sample_fn, bundle, spec
 
 

@@ -25,10 +25,17 @@ overrides ``--resume``. ``--resume x.pth`` merges a reference-layout
 ``model`` state dict (missing names and other shapes keep the
 initialisation, and are printed).
 
+``--gradual_resol`` trains stage 1 on the gradual-resolution model
+(``models.vmae_variants.GradualVMAE``): the arch's patch halved, a token
+downsample mid-encoder and an upsample mid-decoder, built from ``--seed``;
+``--resume`` merges a gradual ``.pth`` of the reference's layout (the two
+convolutions inside the block lists) the same way. It trains stage 1 only
+(with ``--tune_decoder`` it raises ``ValueError``).
+
 It runs on the card unless ``--device cpu`` is given. Not ported
-(ROADMAP.md): ``--gradual_resol`` (item 18), ``--resume`` of an Orbax
-directory, ``--dp`` other than -1 or 1 and the profiler options (item 15);
-each raises ``NotImplementedError``.
+(ROADMAP.md item 15): ``--resume`` of an Orbax directory, ``--dp`` other
+than -1 or 1 and the profiler options; each raises
+``NotImplementedError``.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_vmae --model mae_for_ldmae_f8d16_prev \\
@@ -38,6 +45,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
@@ -52,6 +60,7 @@ from ..core.device import resolve_device
 from ..data.augment import train_augment
 from ..data.images import ImageFolderDataset
 from ..models.vmae import VMAE, init_vmae_weights_, load_vmae_weights_, vmae_spec
+from ..models.vmae_variants import GradualVMAE, init_gradual_weights_
 from ..train.state import TrainState, restore_checkpoint, save_checkpoint
 from ..train.train_vmae import (
     METRIC_KEYS,
@@ -83,7 +92,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--perceptual_loss_ratio", type=float, default=None)
     p.add_argument("--use_lpips", action="store_true")
     p.add_argument("--tune_decoder", action="store_true")
-    p.add_argument("--gradual_resol", action="store_true", help="not ported (ROADMAP.md item 18)")
+    p.add_argument("--gradual_resol", action="store_true",
+                   help="gradual-resolution variant (halved patch, token down/upsample mid-encoder/decoder)")
     p.add_argument("--use_checkpoint", action="store_true", help="recompute each block in the backward")
     p.add_argument("--fixed_lr", action="store_true")
     p.add_argument("--weight_decay", type=float, default=0.05)
@@ -110,9 +120,8 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.gradual_resol:
-        raise NotImplementedError("--gradual_resol needs models/vmae_variants.py, not ported yet "
-                                  "(ROADMAP.md Queue 1 item 18)")
+    if args.gradual_resol and args.tune_decoder:
+        raise ValueError("--gradual_resol trains stage 1; the decoder-tuning forward has no gradual form")
     if args.dp not in (-1, 1):
         raise NotImplementedError(f"--dp {args.dp}: data parallelism is not ported yet (ROADMAP.md Queue 1 "
                                   "item 15); the port trains on one device")
@@ -157,8 +166,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         perceptual_loss_ratio=1.0 if args.perceptual_loss_ratio is None else args.perceptual_loss_ratio,
         ldmae_mode=args.tune_decoder, use_checkpoint=args.use_checkpoint,
     )
-    model = VMAE(spec, device=device)
-    init_vmae_weights_(model, torch.Generator().manual_seed(args.seed))
+    if args.gradual_resol:
+        # the reference halves the patch in the gradual model's constructor
+        spec = dataclasses.replace(spec, patch_size=spec.patch_size // 2)
+        model = init_gradual_weights_(GradualVMAE(spec, device=device), torch.Generator().manual_seed(args.seed))
+    else:
+        model = init_vmae_weights_(VMAE(spec, device=device), torch.Generator().manual_seed(args.seed))
     if args.resume:
         if not os.path.exists(args.resume):
             raise FileNotFoundError(f"--resume {args.resume}: not found")
@@ -236,6 +249,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             pass  # not the main thread (embedded use)
 
     # forward + ~2x backward of the analytic forward; LPIPS is not counted
+    # (the gradual model is counted as the JAX CLI counts it: its halved-patch
+    # spec as a plain VMAE)
     step_flops = 3 * vmae_forward_flops(spec, per_step, mask_ratio=0.0 if args.tune_decoder else args.mask_ratio)
     peak = resolve_peak_flops(args.peak_tflops, device)
     epoch_lr = cosine_lr(lr, args.min_lr, args.warmup_epochs, args.epochs, args.fixed_lr)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .models.lightningdit import DiTSpec
+from .models.conv_vae import ConvVAESpec
 from .models.lpips import VGG_SLICES
 from .models.vmae import VMAESpec
 from .ops.rope import build_rope_table
@@ -171,6 +172,70 @@ def vmae_state_dict_from_jax(params: Any, spec: VMAESpec) -> StateDict:
         sd["decoder_pred.conv_smoother.bias"] = _t(dp["conv_smoother"]["b"])
     else:
         lin("decoder_pred", dp)
+    return sd
+
+
+def _stack(trees: list) -> Any:
+    """A list of nested dicts of arrays -> one nested dict of arrays stacked
+    on a new leading axis (the JAX package's stacked block layout)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def vmae_gradual_state_dict_from_jax(params: Any, spec: VMAESpec, down_after: int, up_after: int) -> StateDict:
+    """A ``vmae_variants.init_gradual_params`` tree (block lists, the token
+    convolutions ``encoder_downsample`` / ``decoder_upsample``) -> the
+    ``GradualVMAE`` state dict, the reference's gradual layout: the
+    convolution at ``blocks.{down_after}.conv`` and
+    ``decoder_blocks.{up_after}.conv``, the later blocks one index up; the
+    decoder's positional table on grid // 2."""
+    tree = dict(params, blocks=_stack(params["blocks"]), decoder_blocks=_stack(params["decoder_blocks"]))
+    flat = vmae_state_dict_from_jax(tree, spec)
+    sd: StateDict = {}
+    for key, v in flat.items():
+        head, _, rest = key.partition(".")
+        at = {"blocks": down_after, "decoder_blocks": up_after}.get(head)
+        if at is not None:
+            i, _, rest = rest.partition(".")
+            key = f"{head}.{int(i) + (int(i) >= at)}.{rest}"
+        sd[key] = v
+    for head, at, node in (("blocks", down_after, params["encoder_downsample"]),
+                           ("decoder_blocks", up_after, params["decoder_upsample"])):
+        sd[f"{head}.{at}.conv.weight"] = _t(node["w"])
+        sd[f"{head}.{at}.conv.bias"] = _t(node["b"])
+    sd["decoder_pos_embed"] = _t(get_2d_sincos_pos_embed(spec.decoder_embed_dim, spec.grid // 2)[None])
+    sd["pos_embed"] = _t(get_2d_sincos_pos_embed(spec.embed_dim, spec.grid)[None])
+    return sd
+
+
+def conv_vae_state_dict_from_jax(params: Any, spec: ConvVAESpec) -> StateDict:
+    """The JAX package's conv VAE parameters -> ``ConvVAE``'s (the reference
+    LDM) state dict: the tree's names are the LDM names, convolutions' {w,
+    b} become weight / bias and group norms' {scale, bias} weight / bias.
+    Raises if the keys are not those of ``ConvVAE(spec)``."""
+    from .models.conv_vae import ConvVAE
+
+    sd: StateDict = {}
+
+    def walk(prefix, node):
+        if "w" in node or "scale" in node:
+            sd[f"{prefix}.weight"] = _t(node["w"] if "w" in node else node["scale"])
+            sd[f"{prefix}.bias"] = _t(node["b"] if "w" in node else node["bias"])
+            return
+        for name, child in node.items():
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(child, (list, tuple)):
+                for i, item in enumerate(child):
+                    walk(f"{path}.{i}", item)
+            else:
+                walk(path, child)
+
+    walk("", params)
+    want = set(ConvVAE(spec, device="meta").state_dict())
+    if set(sd) != want:
+        raise KeyError(f"conv VAE keys differ: missing {sorted(want - set(sd))[:5]}, "
+                       f"unexpected {sorted(set(sd) - want)[:5]}")
     return sd
 
 

@@ -1,8 +1,9 @@
 """End-to-end class-conditional sampling (port of ``ldmae_tpu/eval/sampling.py``).
 
 The Euler ODE with CFG batch doubling, the latent denormalisation
-``samples * latent_std / latent_multiplier + latent_mean`` and the VMAE
-decode to uint8 images. Phased CFG: below ``cfg_interval_start`` guidance
+``samples * latent_std / latent_multiplier + latent_mean`` and the decode
+to uint8 images: by the VMAE, or by any tokenizer through
+``vae_decode_images_fn`` (``models.tokenizers.build_tokenizer_fns``). Phased CFG: below ``cfg_interval_start`` guidance
 is inactive, so the leading steps of the static Euler grid run at single
 batch and the batch doubles at the phase boundary ``n1``, the same split
 as the JAX package.
@@ -44,14 +45,19 @@ def make_sample_fn(
     quant_mode: Optional[str] = None,
     mlp_impl: str = "xla",
     cfg_phase_split: bool = True,
+    vae_decode_images_fn: Optional[Callable] = None,
     device=None,
 ) -> Callable[..., torch.Tensor]:
     """Build sample_fn(bundle, y, z=None, generator=None) -> uint8 images
     (B, H, W, 3) when the bundle has a VAE, else denormalised latents
     (B, C, h, w) in float32.
 
-    bundle: {"dit": LightningDiT, "vae": VMAE or None,
+    bundle: {"dit": LightningDiT, "vae": VMAE, a tokenizer's module or None,
              "latent_mean": (1, C, 1, 1) tensor or None, "latent_std": ...}
+    ``vae_decode_images_fn(vae, latents)`` -> uint8 images decodes with
+    bundle["vae"] when given (the sampling CLI passes its tokenizer's
+    ``decode_to_images``); otherwise the VMAE decodes in ``compute_dtype``
+    with ``attn_impl``.
     y: (B,) int labels; CFG doubles the batch internally when cfg_scale > 1,
     with the null label num_classes. ``z`` overrides the initial noise,
     otherwise it is drawn in float32 from ``generator``. ``quant_mode``
@@ -129,6 +135,8 @@ def make_sample_fn(
         vae = bundle.get("vae")
         if vae is None:
             return samples
+        if vae_decode_images_fn is not None:
+            return vae_decode_images_fn(vae, samples)
         return vae.decode_to_images(samples, compute_dtype=compute_dtype, attn_impl=attn_impl)
 
     return sample_fn

@@ -468,13 +468,18 @@ def production_vmae_spec(img_size: int = 256) -> VMAESpec:
 
 
 def load_production_vmae(weight_path: str, img_size: int = 256, device=None, seed: int = 1) -> VMAE:
-    """The production tokenizer with the reference checkpoint's ``model``
-    state dict at ``weight_path``; an empty path gives seeded random weights
+    """The production tokenizer, ``load_vmae`` of ``production_vmae_spec``."""
+    return load_vmae(production_vmae_spec(img_size), weight_path, device, seed)
+
+
+def load_vmae(spec: VMAESpec, weight_path: str, device=None, seed: int = 1) -> VMAE:
+    """A VMAE of ``spec`` with the reference checkpoint's ``model`` state
+    dict at ``weight_path``; an empty path gives seeded random weights
     (``models.seeded_init_``) with a warning, and a path that does not exist
     raises, as the JAX package's ``build_tokenizer_fns`` does."""
     from .init import seeded_init_
 
-    vae = VMAE(production_vmae_spec(img_size), device=device)
+    vae = VMAE(spec, device=device)
     if weight_path:
         if not os.path.exists(weight_path):
             raise FileNotFoundError(f"tokenizer checkpoint not found: {weight_path}")

@@ -3,7 +3,9 @@
 The three stages of the reference recipe (``scripts/train_ae.sh``):
 
   * stage 1: ``VMAE.forward_vanilla`` (masked encoder, KL bottleneck,
-    visible/masked MSE split, optional LPIPS);
+    visible/masked MSE split, optional LPIPS), or with ``--gradual_resol``
+    its gradual-resolution form, the same forward of a
+    ``models.vmae_variants.GradualVMAE``;
   * stage 2: the positional-table resize, ``cli.pe_reset`` (the model's
     sin-cos tables are recomputed for any resolution, so training needs it
     only for checkpoints read elsewhere);
@@ -52,14 +54,17 @@ def cosine_lr(base_lr: float, min_lr: float, warmup_epochs: float, total_epochs:
     return fn
 
 
-def decays(name: str, p: torch.Tensor) -> bool:
+def decays(name: str, p: torch.Tensor, stacked: bool = True) -> bool:
     """The JAX package's weight-decay mask on the port's names. It decays
-    every leaf of two or more dims in its own layout, where the blocks'
-    parameters are stacked on a depth axis: so every parameter of the
-    encoder and decoder blocks decays (their norms and biases too), and
-    outside them the matrices and convolution kernels; the cls and mask
-    tokens, (1, 1, D) here, are vectors there and do not."""
-    if name.split(".")[0] in ("blocks", "decoder_blocks"):
+    every leaf of two or more dims in its own layout. There the blocks'
+    parameters are stacked on a depth axis (``stacked``): so every
+    parameter of the encoder and decoder blocks decays (their norms and
+    biases too), and outside them the matrices and convolution kernels. The
+    gradual model keeps its blocks in lists (not ``stacked``), so there the
+    blocks' matrices and kernels decay, and the qkv bias, which is (3, D)
+    there. The cls and mask tokens, (1, 1, D) here, are vectors there and
+    do not."""
+    if name.split(".")[0] in ("blocks", "decoder_blocks") and (stacked or name.endswith("attn.qkv.bias")):
         return True
     return p.ndim >= 2 and name not in ("cls_token", "mask_token")
 
@@ -78,10 +83,13 @@ def make_vmae_optimizer(model: VMAE, *, weight_decay: float = 0.05,
     not train are left out and their ``requires_grad`` turned off (optax's
     ``set_to_zero`` gives them no update and no decay). The learning rate is
     set before each update by the train step."""
+    from ..models.vmae_variants import GradualVMAE
+
+    stacked = not isinstance(model, GradualVMAE)
     groups = ([], [])
     for name, p in model.named_parameters():
         if trains(name, tune_decoder):
-            groups[decays(name, p)].append(p)
+            groups[decays(name, p, stacked)].append(p)
         else:
             p.requires_grad_(False)
     return torch.optim.AdamW(
@@ -136,7 +144,8 @@ def vmae_loss(model: VMAE, x: torch.Tensor, *, tune_decoder: bool = False, mask_
               latent_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One micro-batch's losses, {"loss", "vis_loss", "mask_loss", "kl_loss",
     "p_loss"}: ``forward_ldmae`` with the posterior sampled (stage 3) or
-    ``forward_vanilla``. x: (m, 3, H, W) float32 in [-1, 1], or (m, H, W, 3)
+    ``forward_vanilla`` (for a ``models.vmae_variants.GradualVMAE`` the
+    gradual forward, ``forward_vanilla_gradual``). x: (m, 3, H, W) float32 in [-1, 1], or (m, H, W, 3)
     uint8 pixels normalised here."""
     if x.dtype == torch.uint8:
         x = normalize_uint8_images(x)

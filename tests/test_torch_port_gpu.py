@@ -1040,3 +1040,119 @@ def test_cuda_vmae_train_step_vs_plain(cuda, tune_decoder, monkeypatch):
     monkeypatch.setattr(linear, "dense_bias_f32", plain)
     loss_p, g_p = _vmae_grads(cuda, torch.bfloat16, "xla", tune_decoder)
     assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p) and _worst_leaf(g_k, g_p) <= 1e-2
+
+
+def _conv_vae_pair(cuda, name):
+    """A conv VAE of each spec cut to ch 64, ch_mult (1, 2, 2), 16 groups at
+    64^2 (the VA-VAE's and MAR-VAE's attention at 16^2 in a level), seeded
+    weights, on the CPU and on the card; seeded images."""
+    import dataclasses
+
+    from ldmae_tpu_torch.models import conv_vae as cv
+
+    spec = dataclasses.replace(getattr(cv, f"{name}_spec")(), ch=64, ch_mult=(1, 2, 2), num_groups=16,
+                               resolution=64)
+    cpu = cv.init_conv_vae_weights_(cv.ConvVAE(spec, device="cpu"), torch.Generator().manual_seed(20))
+    gpu = cv.ConvVAE(spec, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(21)) * 2 - 1
+    return cpu, gpu, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sdvae", "vavae", "marvae"])
+def test_cuda_conv_vae_vs_cpu_and_tf32_control(cuda, name, monkeypatch):
+    """``encode_moments`` and ``decode`` on the card against the same
+    module's float32 run on the CPU: within 1e-4 of the output's largest
+    |value| (both float32, TF32 off: summation order only); with the
+    convolutions in TF32 (cuDNN's default) the encode reads above it."""
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.models import conv_vae as cv
+
+    cpu, gpu, x = _conv_vae_pair(cuda, name)
+    ref_m = cpu.encode_moments(x)
+    z = ref_m[:, :cpu.spec.embed_dim]
+    ref_d = cpu.decode(z)
+
+    def err(out, ref):
+        return float((out.cpu() - ref).abs().max() / ref.abs().max())
+
+    assert err(gpu.encode_moments(x.to(cuda)), ref_m) <= 1e-4
+    assert err(gpu.decode(z.to(cuda)), ref_d) <= 1e-4
+
+    def tf32_conv(x, w, bias=None, **kw):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            return F.conv2d(x.float(), w.float(), bias, **kw)
+
+    monkeypatch.setattr(cv, "conv2d_fp32", tf32_conv)
+    assert err(gpu.encode_moments(x.to(cuda)), ref_m) > 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_conv_vae_runs_no_tf32_convolution(cuda, monkeypatch):
+    """Every convolution of the conv VAE's encode and decode runs with
+    cuDNN's TF32 off (counted at ``F.conv2d``)."""
+    import torch.nn.functional as F
+
+    _, gpu, x = _conv_vae_pair(cuda, "vavae")
+    real, calls = F.conv2d, []
+
+    def conv2d(*args, **kw):
+        calls.append(torch.backends.cudnn.allow_tf32)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(F, "conv2d", conv2d)
+    gpu.decode(gpu.encode(x.to(cuda)).mode())
+    assert len(calls) > 40 and not any(calls)
+
+
+@pytest.mark.gpu
+def test_cuda_gradual_vmae_micro_batch_vs_plain(cuda, monkeypatch):
+    """One ``--gradual_resol`` micro-batch (the production arch at full
+    width, depth 2 / 2, 128^2 at patch 4: 1,024 tokens either side of the
+    token convolutions) on the card: in fp32 the ``flash`` kernels (#2 and
+    #5 at head dim 16, 1,024 and 256 tokens) against ``xla``, every gradient
+    leaf within relative L2 1e-3 and the loss within 1e-5; in bf16
+    ``dense``'s kernel against its plain version, every leaf within 1e-2."""
+    import dataclasses
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models import vmae_spec
+    from ldmae_tpu_torch.models.vmae_variants import GradualVMAE, init_gradual_weights_
+    from ldmae_tpu_torch.ops import linear
+    from ldmae_tpu_torch.train.train_vmae import vmae_loss
+
+    spec = vmae_spec("mae_for_ldmae_f8d16_prev", img_size=128, depth=2, decoder_depth=2, no_cls=True,
+                     smooth_output=True, kl_loss_weight=1e-6, fixed_std=1e-3)
+    spec = dataclasses.replace(spec, patch_size=4)
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randint(0, 256, (4, 128, 128, 3), generator=gen, dtype=torch.uint8).to(cuda)
+    noise = dict(mask_noise=torch.rand(4, 1024, generator=gen).to(cuda),
+                 latent_noise=torch.randn(4, 16, 256, generator=gen).to(cuda))
+
+    def grads(dtype, attn_impl):
+        model = init_gradual_weights_(GradualVMAE(spec, device=cuda), torch.Generator().manual_seed(23))
+        out = vmae_loss(model, x, mask_ratio=0.25, visible_loss_ratio=0.75, compute_dtype=dtype,
+                        attn_impl=attn_impl, **noise)
+        out["loss"].backward()
+        return float(out["loss"]), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+    loss_x, g_x = grads(torch.float32, "xla")
+    ops.reset_launch_counts()
+    loss_f, g_f = grads(torch.float32, "flash")
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 4 and counts["flash_attention_bwd"] == 4
+    assert abs(loss_f - loss_x) <= 1e-5 * abs(loss_x) and _worst_leaf(g_f, g_x) <= 1e-3
+
+    ops.reset_launch_counts()
+    loss_k, g_k = grads(torch.bfloat16, "xla")
+    assert ops.launch_counts()["dense_bias_f32"] > 0
+
+    def plain(x, weight, bias):
+        return torch.nn.functional.linear(x.float(), weight.float(), bias).bfloat16()
+
+    plain.launches = 0
+    monkeypatch.setattr(linear, "dense_bias_f32", plain)
+    loss_p, g_p = grads(torch.bfloat16, "xla")
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p) and _worst_leaf(g_k, g_p) <= 1e-2

@@ -330,3 +330,47 @@ def test_pipeline_builders_raise_for_a_missing_vmae_checkpoint(tmp_path):
         jbuild_pipeline(JLDMAEConfig.from_yaml(cfg_path))
     with pytest.raises(FileNotFoundError, match="vmaef8d16.pth"):
         build_pipeline(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("model_name", ["sdv3", "vavae", "marvae"])
+def test_clis_default_to_cuda_with_a_conv_tokenizer(no_cuda, tmp_path, model_name):
+    """With a conv tokenizer named in the config, the sampling, extraction
+    and tokenizer-evaluation entries still default to ``cuda`` and raise
+    without it, before any model is built."""
+    from ldmae_tpu_torch.cli import evaluate_tokenizer, extract_features, inference
+    from ldmae_tpu_torch.cli.inference import build_pipeline
+
+    cfg = _tiny_config(tmp_path)
+    cfg.vae.model_name = model_name
+    cfg_path = str(tmp_path / "conv.yaml")
+    cfg.to_yaml(cfg_path)
+    for call in (
+        lambda: build_pipeline(cfg),
+        lambda: inference.main(["--config", cfg_path, "--demo"]),
+        lambda: extract_features.main(["--config", cfg_path]),
+        lambda: evaluate_tokenizer.main(["--config", cfg_path, "--data_path", str(tmp_path),
+                                         "--output_path", str(tmp_path / "rfid")]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_cli_demo_grid_with_the_sdvae_on_cpu(tmp_path):
+    """``vae.model_name: sdv3``: the sampling CLI decodes through the SD-VAE
+    (full width, seeded weights) on the CPU when asked."""
+    from PIL import Image
+
+    from ldmae_tpu_torch.cli import inference
+    from ldmae_tpu_torch.models.conv_vae import ConvVAE
+
+    cfg = _tiny_config(tmp_path)
+    cfg.vae.model_name = "sdv3"
+    _, bundle, _ = inference.build_pipeline(cfg, demo=True, device="cpu")
+    assert isinstance(bundle["vae"], ConvVAE) and bundle["vae"].spec.ch_mult == (1, 2, 4, 4)
+    cfg_path = tmp_path / "sdv3.yaml"
+    cfg.to_yaml(str(cfg_path))
+    out = tmp_path / "demo"
+    inference.main(["--config", str(cfg_path), "--demo", "--demo_out", str(out), "--device", "cpu"])
+    (png,) = list(out.iterdir())
+    img = np.asarray(Image.open(png))
+    assert img.shape == (2 * 32, 4 * 32, 3) and img.dtype == np.uint8 and img.std() > 1.0

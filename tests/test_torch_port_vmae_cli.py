@@ -11,7 +11,8 @@ CPU, on a tiny PNG folder, beside the JAX CLI.
   only ``decoder*`` and ``from_latent`` change; every other parameter keeps
   the stage-1 checkpoint's bits.
 * A diverging run (``--blr 1e18``) warns of the non-finite loss and skips
-  the update; the options that are not ported raise ``NotImplementedError``;
+  the update; the options that are not ported raise ``NotImplementedError``
+  (``--gradual_resol`` with ``--tune_decoder`` ``ValueError``);
   without ``--device cpu`` and without a card the CLI raises.
 """
 
@@ -108,10 +109,17 @@ def test_non_finite_loss_warns_and_skips(image_folder, tmp_path, capsys):  # noq
     assert res["state"].step == 3
 
 
-@pytest.mark.parametrize("flags", [["--gradual_resol"], ["--dp", "4"], ["--profile_dir", "trace"], ["--resume", "."]],
-                         ids=["gradual_resol", "dp", "profile", "orbax_resume"])
-def test_options_not_ported_raise(flags, image_folder, tmp_path):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--gradual_resol", "--tune_decoder"], ValueError, "gradual_resol"),
+    (["--dp", "4"], NotImplementedError, "ROADMAP.md"),
+    (["--profile_dir", "trace"], NotImplementedError, "ROADMAP.md"),
+    (["--resume", "."], NotImplementedError, "ROADMAP.md"),
+], ids=["gradual_resol", "dp", "profile", "orbax_resume"])
+def test_options_not_ported_raise(flags, error, match, image_folder, tmp_path):  # noqa: F811
+    """The options the port refuses. ``--gradual_resol`` is ported for stage
+    1 (``tests/test_torch_port_vmae_variants.py``); with ``--tune_decoder``,
+    which has no gradual form, it raises before any model is built."""
+    with pytest.raises(error, match=match):
         train_vmae.main(["--data_path", image_folder, "--output_dir", str(tmp_path), "--device", "cpu",
                          *TINY, *flags])
 
