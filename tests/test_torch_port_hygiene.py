@@ -355,7 +355,7 @@ def test_clis_default_to_cuda_with_a_conv_tokenizer(no_cuda, tmp_path, model_nam
             call()
 
 
-def test_cli_demo_grid_with_the_sdvae_on_cpu(tmp_path):
+def test_cli_demo_grid_with_the_sdvae_on_cpu(tmp_path, monkeypatch):
     """``vae.model_name: sdv3``: the sampling CLI decodes through the SD-VAE
     (full width, seeded weights) on the CPU when asked."""
     from PIL import Image
@@ -363,14 +363,21 @@ def test_cli_demo_grid_with_the_sdvae_on_cpu(tmp_path):
     from ldmae_tpu_torch.cli import inference
     from ldmae_tpu_torch.models.conv_vae import ConvVAE
 
+    decoded = []
+    real = ConvVAE.decode_to_images
+
+    def spy(self, z):
+        decoded.append(self.spec.ch_mult)
+        return real(self, z)
+
+    monkeypatch.setattr(ConvVAE, "decode_to_images", spy)
     cfg = _tiny_config(tmp_path)
     cfg.vae.model_name = "sdv3"
-    _, bundle, _ = inference.build_pipeline(cfg, demo=True, device="cpu")
-    assert isinstance(bundle["vae"], ConvVAE) and bundle["vae"].spec.ch_mult == (1, 2, 4, 4)
     cfg_path = tmp_path / "sdv3.yaml"
     cfg.to_yaml(str(cfg_path))
     out = tmp_path / "demo"
     inference.main(["--config", str(cfg_path), "--demo", "--demo_out", str(out), "--device", "cpu"])
+    assert decoded == [(1, 2, 4, 4)]
     (png,) = list(out.iterdir())
     img = np.asarray(Image.open(png))
     assert img.shape == (2 * 32, 4 * 32, 3) and img.dtype == np.uint8 and img.std() > 1.0

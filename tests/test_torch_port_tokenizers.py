@@ -301,10 +301,15 @@ def test_build_tokenizer_fns_dispatch_matches_jax(monkeypatch, name, latent, f):
     assert u8.dtype == torch.uint8 and tuple(u8.shape) == (1, 32, 32, 3)
 
 
-def test_sdvae_family_names_and_errors(tmp_path):
+def test_sdvae_family_names_and_errors(tmp_path, monkeypatch):
+    from types import SimpleNamespace
+
+    # the family rule alone: a stand-in for the seeded model records the spec
+    monkeypatch.setattr(ttok, "_seeded_conv", lambda spec, device, seed: SimpleNamespace(spec=spec))
     for name in ("ae", "dae", "vae", "sdv3", "ae_f8", "sdv3_x"):
         tt = ttok.build_tokenizer_fns(name, "", img_size=32, device="cpu")
         assert tt.model.spec == tcv.ConvVAESpec(**dataclasses.asdict(jcv.sdvae_spec())), name
+    monkeypatch.undo()
     for pkg, kw in ((jtok, {}), (ttok, {"device": "cpu"})):
         for name in ("bogus", "sdvae", "vmaef8"):
             with pytest.raises(ValueError, match="unknown tokenizer"):

@@ -19,8 +19,8 @@ smooth_output, KL with fixed_std 1e-3, mask ratio 0.25, visible_loss_ratio
   once.
 * ``forward_vanilla_gradual``: loss within 1e-5 relative and every gradient
   leaf within relative L2 2e-3 in float32 (``xla`` and ``flash``, the Pallas
-  kernels in interpret mode; summation order only), 1e-2 and 3e-2 in bf16
-  (``tests/test_torch_port_vmae_train.py``'s bounds).
+  kernels in interpret mode; summation order only;
+  ``tests/test_torch_port_vmae_train.py``'s bounds).
 * A gradual ``.pth`` in the reference layout (the convolutions inside the
   block lists), written from the port's model, read by
   ``import_vmae_state_dict_gradual``: the same loss (1e-5); the weight
@@ -35,7 +35,6 @@ smooth_output, KL with fixed_std 1e-3, mask ratio 0.25, visible_loss_ratio
 
 import dataclasses
 import json
-import os
 
 import jax
 import jax.numpy as jnp
@@ -61,7 +60,6 @@ STAGE1 = dict(img_size=IMG, depth=2, decoder_depth=2, no_cls=True, smooth_output
               fixed_std=1e-3)
 MASK_RATIO, VIS_RATIO = 0.25, 0.75
 GRAD_REL_L2, LOSS_REL = 2e-3, 1e-5
-BF16_GRAD_REL_L2, BF16_LOSS_REL = 3e-2, 1e-2
 
 
 def _rel_l2(a, b):
@@ -216,7 +214,7 @@ def test_gradual_layout_and_consts():
     assert x.shape == (B, 16, 96) and mask.shape == (B, 64) and pred.shape == (B, 64, 48)
 
 
-@pytest.mark.parametrize("impl,dtype", [("xla", "float32"), ("flash", "float32"), ("xla", "bfloat16")])
+@pytest.mark.parametrize("impl,dtype", [("xla", "float32"), ("flash", "float32")])
 def test_forward_vanilla_gradual_matches_jax(impl, dtype):
     js, params, (down, up), model = _gradual_pair(1)
     imgs, mask_noise, latent_noise = _gradual_inputs(2, js)
@@ -236,17 +234,16 @@ def test_forward_vanilla_gradual_matches_jax(impl, dtype):
         latent_noise=torch.from_numpy(latent_noise))
     out["loss"].backward()
     out = {k: v.detach() for k, v in out.items()}
-    loss_rel, grad_rel = (LOSS_REL, GRAD_REL_L2) if dtype == "float32" else (BF16_LOSS_REL, BF16_GRAD_REL_L2)
-    assert abs(float(out["loss"]) - float(jl)) <= loss_rel * abs(float(jl))
+    assert abs(float(out["loss"]) - float(jl)) <= LOSS_REL * abs(float(jl))
     for k in ("vis_loss", "mask_loss", "kl_loss"):
-        assert abs(float(out[k]) - float(jout[k])) <= loss_rel * abs(float(jout[k])) + 1e-12, k
+        assert abs(float(out[k]) - float(jout[k])) <= LOSS_REL * abs(float(jout[k])) + 1e-12, k
     np.testing.assert_array_equal(out["mask"].numpy(), np.asarray(jout["mask"], np.float32))
     ref = vmae_gradual_state_dict_from_jax(to_numpy(jgrads), model.spec, down, up)
     checked = 0
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         err = _rel_l2(p.grad.numpy(), ref[name].numpy())
-        assert err <= grad_rel, (name, err)
+        assert err <= GRAD_REL_L2, (name, err)
         checked += 1
     assert checked == len(ref) - 2  # every parameter; the two positional tables are buffers
 
@@ -356,23 +353,24 @@ def test_train_vmae_cli_gradual_resol(tmp_path, capsys):
             Image.fromarray(rng.integers(0, 256, (40, 44, 3), dtype=np.uint8)).save(
                 tmp_path / "imgs" / f"c{c}" / f"{i}.png")
     flags = ["--model", "mae_for_ldmae_f8d16_small", "--data_path", str(tmp_path / "imgs"), "--input_size", "32",
-             "--batch_size", "2", "--epochs", "2", "--warmup_epochs", "1", "--save_epochs", "1",
-             "--steps_per_epoch", "1", "--mask_ratio", "0.25", "--no_cls", "--smooth_output",
-             "--kl_loss_weight", "1e-6", "--gradual_resol", "--device", "cpu", "--num_workers", "2"]
-    res = train_vmae.main(flags + ["--output_dir", str(tmp_path / "a")])
+             "--batch_size", "2", "--warmup_epochs", "1", "--save_epochs", "1", "--steps_per_epoch", "2",
+             "--mask_ratio", "0.25", "--no_cls", "--smooth_output", "--kl_loss_weight", "1e-6", "--gradual_resol",
+             "--device", "cpu", "--num_workers", "2"]
+    res = train_vmae.main(flags + ["--output_dir", str(tmp_path / "a"), "--epochs", "1"])
     model = res["state"].model
     assert isinstance(model, tvv.GradualVMAE) and model.spec.patch_size == 4 and res["state"].step == 2
     assert all(np.isfinite(h[k]) for h in res["history"] for k in ("loss", "vis_loss", "mask_loss", "kl_loss"))
     lines = [json.loads(ln) for ln in open(tmp_path / "a" / "log.txt")]
-    assert len(lines) == 2 and lines[-1]["train_epoch"] == 1
-    ckpt = str(tmp_path / "a" / "checkpoints" / "checkpoint-1.pth")
+    assert len(lines) == 1 and lines[0]["train_epoch"] == 0
+    ckpt = str(tmp_path / "a" / "checkpoints" / "checkpoint-0.pth")
     sd = torch.load(ckpt, map_location="cpu", weights_only=False)["model"]
     assert sd["blocks.6.conv.weight"].shape == (96, 96, 3, 3) and "decoder_blocks.6.conv.bias" in sd
     assert sd["decoder_pos_embed"].shape == (1, 16, 96)
     capsys.readouterr()
-    again = train_vmae.main(flags + ["--output_dir", str(tmp_path / "b"), "--resume", ckpt, "--epochs", "1"])
+    again = train_vmae.main(flags + ["--output_dir", str(tmp_path / "b"), "--resume", ckpt, "--epochs", "0"])
     assert "missing=[], unexpected=[]" in capsys.readouterr().out  # every tensor of the gradual .pth loaded
-    assert again["state"].step == 1 and os.path.exists(tmp_path / "b" / "checkpoints" / "checkpoint-0.pth")
+    for name, p in again["state"].model.state_dict().items():
+        assert torch.equal(p, sd[name]), name
     with pytest.raises(ValueError, match="gradual_resol"):
         train_vmae.main(flags + ["--output_dir", str(tmp_path / "c"), "--tune_decoder"])
 
