@@ -135,7 +135,26 @@ attention bounds), then:
      dense counted exactly, uint8 (8, 256, 256, 3) equal to the SD-VAE's
      decode of the run's latents); ``cli.extract_features`` with the SD-VAE
      on the 256 PNGs and ``cli.evaluate_tokenizer`` with the VA-VAE on 64,
-     images/s and peak memory.
+     images/s and peak memory;
+ 12. the multi-process slice: two ranks on the one card (spawned by
+     ``torch.multiprocessing``, gloo, LOCAL_RANK 0 each, the CLIs' own
+     ``init_distributed_mode`` finding the group started) through
+     ``cli.inference`` (the shipped YAML's B/1 pipeline, 250 steps,
+     per_proc_batch_size cut to 8 and fid_num to 40: every index once, the
+     manifest's world 2, #1-#4 and ``dense`` counted exactly per rank for its
+     3 or 2 batches; batch 3's PNGs moved away and resampled alone, pixel for
+     pixel; a rerun at batch 4 refused by the manifest), ``cli.train_dit --dp
+     2`` (B/1, global batch 32, 10 steps, counts per rank; the ranks' weights
+     bitwise equal; rank 0's checkpoint against one process stepping on the
+     concatenated rank batches with the CLI's seeds, within
+     ``MP_TRAIN_REL_L2``, which the halves swapped must exceed; a restart to
+     12), ``cli.extract_features --limit 200`` (rank shards, 100 each, the
+     statistics against their recomputation) and ``cli.evaluate_tokenizer``
+     on 64 (rank-named PNGs, rFID on rank 0, PSNR, LPIPS and SSIM against one
+     process within ``MP_METRIC_REL``), the native PNG writer on every
+     rank; then 10 training steps of the plain CLI here beside 10 under DDP
+     in an NCCL group of one (a spawned process), counts exact; its own JSON
+     line ``{"multiproc": ...}`` before the card's name.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -153,7 +172,7 @@ call, #1, #2) and the 10-step sampling seconds under flash_rope, flash_qkr
 and flash_fused.
 
 ``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
-``--tokenizers`` phase 11 alone.
+``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -1612,6 +1631,21 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
     return kernel_counts
 
 
+def write_latent_shards(data: str) -> str:
+    """512 synthetic 16-channel 32 x 32 latents (seeded normals, scale 1.5,
+    shift 0.2) with their flips and labels, in two shards; returns ``data``."""
+    import numpy as np
+
+    from ldmae_tpu_torch.data.latent_dataset import LatentShardWriter
+
+    rng = np.random.default_rng(7)
+    writer = LatentShardWriter(data, shard_size=256)
+    for _ in range(2):
+        lat = rng.standard_normal((256, 16, 32, 32), dtype=np.float32) * 1.5 + 0.2
+        writer.add(lat, np.ascontiguousarray(lat[..., ::-1]), rng.integers(0, 1000, 256).astype(np.int64))
+    return data
+
+
 def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     """B/1 at full width and depth through ``cli.train_dit.main``: 20 steps
     and a checkpoint, a restart to 25, then 5 steps of the interleaved
@@ -1623,17 +1657,11 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     from ldmae_tpu_torch import ops
     from ldmae_tpu_torch.cli import train_dit
     from ldmae_tpu_torch.core.config import LDMAEConfig
-    from ldmae_tpu_torch.data.latent_dataset import LatentShardWriter
     from ldmae_tpu_torch.models import LightningDiT, seeded_init_
     from ldmae_tpu_torch.train.train_dit import spec_from_config
     from ldmae_tpu_torch.utils.profiling import dit_forward_flops
 
-    data = os.path.join(tmp, "latents")
-    rng = np.random.default_rng(7)
-    writer = LatentShardWriter(data, shard_size=256)
-    for _ in range(2):  # 512 latents in two shards
-        lat = rng.standard_normal((256, 16, 32, 32), dtype=np.float32) * 1.5 + 0.2
-        writer.add(lat, np.ascontiguousarray(lat[..., ::-1]), rng.integers(0, 1000, 256).astype(np.int64))
+    data = write_latent_shards(os.path.join(tmp, "latents"))
     weights = os.path.join(tmp, "seeded.pt")
 
     def config(name: str, layout: str, steps: int, dtype: str = "bfloat16") -> str:
@@ -3438,6 +3466,415 @@ def vmae_train_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
     return counts, rows
 
 
+# The multi-process phase: two ranks on the one card (gloo), then one rank on
+# NCCL. Sampling: the shipped YAML's B/1 pipeline, per_proc_batch_size cut
+# from 256 to MP_BATCH and fid_num from 50,000 to MP_FID (five batches: rank
+# 0 takes 0, 2, 4 and rank 1 takes 1, 3); batch MP_RESUME_BATCH's PNGs are
+# moved away and resampled. DiT training at global batch MP_TRAIN_BATCH (16 a
+# rank) for MP_STEPS steps, then a restart to MP_RESTART. Extraction of
+# MP_EXTRACT_LIMIT of the PNGs (a global --limit), the tokenizer evaluation
+# of EVAL_IMAGES at EVAL_BATCH.
+MP_BATCH, MP_FID, MP_RESUME_BATCH = 8, 40, 3
+MP_TRAIN_BATCH, MP_STEPS, MP_RESTART, MP_EXTRACT_LIMIT = 32, 10, 12, 200
+# per-leaf relative L2 error of the two-rank checkpoint against one process
+# stepping on the concatenated batches (bf16 compute, fp32 master weights)
+MP_TRAIN_REL_L2 = 1e-2
+# the metrics' relative difference between the two-rank evaluation and one
+# process's on the same images
+MP_METRIC_REL = 1e-6
+
+
+def _mp_configs(tmp: str, origin: str, data: str, weights: str) -> dict:
+    """The phase's YAMLs, by name -> path."""
+    import yaml
+
+    paths = {}
+
+    def put(name, cfg):
+        paths[name] = os.path.join(tmp, f"mp_{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+
+    sample = _yaml_config(train={"global_seed": 0, "output_dir": os.path.join(tmp, "mp_out"), "exp_name": "sample"})
+    sample["ckpt_path"] = None  # seeded weights
+    sample["vae"]["weight_path"] = ""
+    sample["sample"].update(per_proc_batch_size=MP_BATCH, fid_num=MP_FID)
+    put("sample", sample)
+    sample["sample"]["per_proc_batch_size"] = MP_BATCH // 2
+    put("sample_batch4", sample)
+
+    def train(name):
+        cfg = _yaml_config(
+            data={"data_path": data, "image_size": 256, "num_classes": 1000, "latent_norm": True,
+                  "latent_multiplier": 1.0, "sample": False},
+            train={"max_steps": MP_STEPS, "global_batch_size": MP_TRAIN_BATCH, "global_seed": 0,
+                   "output_dir": os.path.join(tmp, "mp_out"), "exp_name": name, "log_every": 5,
+                   "ckpt_every": MP_STEPS, "use_checkpoint": True, "gradient_accumulation_steps": 1,
+                   "weight_init": weights})
+        put(name, cfg)
+
+    for name in ("dit_dp2", "dit_plain", "dit_nccl"):
+        train(name)
+    ext = _yaml_config(data={"origin_path": origin, "data_path": os.path.join(tmp, "mp_latents"), "image_size": 256,
+                             "num_classes": 1000, "latent_norm": True, "latent_multiplier": 1.0, "sample": True})
+    ext["vae"]["weight_path"] = ""
+    put("extract", ext)
+    return paths
+
+
+def _mp_leg(out: dict, name: str, fn) -> None:
+    """Run ``fn`` with the launch counts zeroed just before and read just
+    after; record them with the seconds and the peak memory."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    extra = fn() or {}
+    torch.cuda.synchronize()
+    out[name] = {"seconds": time.perf_counter() - t0, "counts": ops.launch_counts(),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
+
+
+def _mp_rank(rank: int, port: int, tmp: str, origin: str, paths: dict) -> None:
+    """One of two ranks on the card (spawned): ``init_distributed_mode`` on
+    gloo with the torchrun environment, then the four CLIs' ``main``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import gc
+    import shutil
+
+    import torch
+
+    from ldmae_tpu_torch.cli import evaluate_tokenizer, extract_features, inference, train_dit
+    from ldmae_tpu_torch.data import native_io
+    from ldmae_tpu_torch.parallel import barrier, init_distributed_mode
+
+    init_distributed_mode(backend="gloo")
+    out = {}
+    sample = ["--config", paths["sample"], "--skip_fid"]
+    _mp_leg(out, "sample", lambda: {"folder": inference.main(sample)})
+    folder = out["sample"]["folder"]
+    moved = os.path.join(tmp, "mp_moved")
+    barrier("moved")
+    if rank == 0:  # batch MP_RESUME_BATCH's PNGs out of the folder, kept for the pixel check
+        os.makedirs(moved)
+        for i in range(MP_RESUME_BATCH * MP_BATCH, (MP_RESUME_BATCH + 1) * MP_BATCH):
+            shutil.move(os.path.join(folder, f"{i:06d}.png"), moved)
+    barrier("moved")
+    _mp_leg(out, "resume", lambda: {"folder": inference.main(sample)})
+    out["pngs"] = sorted(int(f[:-4]) for f in os.listdir(folder) if f.endswith(".png"))
+    # a complete folder is skipped whole, so the refusal is shown with the
+    # last PNG held out of it
+    last = os.path.join(folder, f"{MP_FID - 1:06d}.png")
+    barrier("held")
+    if rank == 0:
+        shutil.move(last, tmp)
+    barrier("held")
+    try:
+        inference.main(["--config", paths["sample_batch4"], "--skip_fid"])
+        out["refused"] = None
+    except SystemExit as e:
+        out["refused"] = str(e)
+    barrier("refused")
+    if rank == 0:
+        shutil.move(os.path.join(tmp, os.path.basename(last)), folder)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def train():
+        res = train_dit.main(["--config", paths["dit_dp2"], "--dp", "2"])
+        torch.save(res["state"].model.state_dict(), os.path.join(tmp, f"mp_dit_rank{rank}.pt"))
+        return {"history": res["history"]}
+
+    _mp_leg(out, "train", train)
+    _mp_leg(out, "train_restart", lambda: {"history": train_dit.main(
+        ["--config", paths["dit_dp2"], "--dp", "2", "--max_steps", str(MP_RESTART)])["history"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mp_leg(out, "extract", lambda: {"folder": extract_features.main(
+        ["--config", paths["extract"], "--batch", str(EXTRACT_BATCH), "--limit", str(MP_EXTRACT_LIMIT)])})
+    _mp_leg(out, "evaluate", lambda: {"reports": evaluate_tokenizer.main(
+        ["--config", paths["extract"], "--data_path", origin, "--output_path", os.path.join(tmp, "mp_rfid"),
+         "--batch", str(EVAL_BATCH), "--limit", str(EVAL_IMAGES)])})
+    out["native_pngs"] = dict(native_io.WRITTEN)
+    with open(os.path.join(tmp, f"mp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mp_nccl(rank: int, port: int, tmp: str, paths: dict) -> None:
+    """The training CLI in one process (spawned) for MP_STEPS steps under an
+    NCCL group of one (DDP's buckets and all-reduce on the card)."""
+    import torch.distributed as dist
+
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.parallel import init_distributed_mode
+
+    out = {}
+    init_distributed_mode(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0, local_rank=0)
+    _mp_leg(out, "nccl", lambda: {"history": train_dit.main(["--config", paths["dit_nccl"]])["history"],
+                                  "backend": dist.get_backend()})
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, "mp_nccl.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _steady_sps(history: list) -> float:
+    """steps/s of the log windows after the first (which holds the warm-up)."""
+    steady = history[1:]
+    return sum(h["steps_per_sec"] * h["seconds"] for h in steady) / sum(h["seconds"] for h in steady)
+
+
+def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
+    """The multi-process slice on the one card: two ranks (torch.multiprocessing,
+    gloo, LOCAL_RANK 0 each) through the sampling CLI (coverage, per-rank
+    launch counts, the batch-level resume pixel for pixel, the manifest's
+    refusal), the DiT training CLI under --dp 2 (the ranks' weights equal, the
+    checkpoint against one process on the concatenated batches, with a
+    control, the restart), extraction and tokenizer evaluation (rank names,
+    the global --limit, the statistics, the metrics against one process);
+    then DDP at world 1 on NCCL against the plain CLI. Returns the
+    ``{"multiproc": ...}`` record."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from PIL import Image
+
+    from ldmae_tpu_torch.cli import evaluate_tokenizer, train_dit
+    from ldmae_tpu_torch.cli.train_dit import warm_start_
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.data.latent_dataset import ImgLatentDataset, _load_stats
+    from ldmae_tpu_torch.models import LightningDiT, permute_qk_for_half_rope, seeded_init_
+    from ldmae_tpu_torch.train import init_train_state, make_optimizer
+    from ldmae_tpu_torch.train.train_dit import build_from_config, spec_from_config
+
+    phase_t0 = time.perf_counter()
+    data = write_latent_shards(os.path.join(tmp, "mp_train_latents"))
+    ImgLatentDataset(data, latent_norm=True)  # latents_stats.pt first, so no rank's dataset draws for it
+    weights = os.path.join(tmp, "mp_seeded.pt")
+    paths = _mp_configs(tmp, origin, data, weights)
+    spec = spec_from_config(LDMAEConfig.from_yaml(paths["dit_dp2"]))
+    torch.save({"model": seeded_init_(LightningDiT(spec, device="cpu"), 3).state_dict()}, weights)
+
+    log(f"[multiproc] two ranks on the card (torch.multiprocessing, gloo, LOCAL_RANK 0 each): cli.inference "
+        f"(B/1 + VMAE f8d16_prev, seeded, bf16, {STEPS} steps, CFG {CFG_SCALE} on [{CFG_START}, 1], shift {SHIFT}; "
+        f"per_proc_batch_size {MP_BATCH}, fid_num {MP_FID}), its resume with batch {MP_RESUME_BATCH}'s PNGs moved "
+        f"away, a rerun at per_proc_batch_size {MP_BATCH // 2}; cli.train_dit --dp 2 (B/1, global batch "
+        f"{MP_TRAIN_BATCH}, {MP_STEPS} steps, restart to {MP_RESTART}); cli.extract_features --limit "
+        f"{MP_EXTRACT_LIMIT}; cli.evaluate_tokenizer on {EVAL_IMAGES}")
+    t0 = time.perf_counter()
+    mp.start_processes(_mp_rank, args=(_free_port(), tmp, origin, paths), nprocs=2, join=True,
+                       start_method="spawn")
+    two_rank_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"mp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # (a) sampling: coverage, manifest, launches per rank, the resume, the refusal
+    folder = ranks[0]["sample"]["folder"]
+    idx = ranks[0]["pngs"]  # after the resume
+    with open(os.path.join(folder, "resume_manifest.json")) as f:
+        manifest = json.load(f)
+    per_batch = EXPECTED_LAUNCHES["bf16"]
+    n_batches = (MP_FID + MP_BATCH - 1) // MP_BATCH
+    for r in range(2):
+        mine = len(range(r, n_batches, 2))
+        resumed = int(r == MP_RESUME_BATCH % 2)
+        for leg, n in (("sample", mine), ("resume", resumed)):
+            want = {k: v * n for k, v in per_batch.items()}
+            if ranks[r][leg]["counts"] != want:
+                raise SystemExit(f"multiproc {leg}, rank {r}: launches {ranks[r][leg]['counts']} != {want}")
+    moved = os.path.join(tmp, "mp_moved")
+    pixel_diff = max(
+        int(np.abs(np.asarray(Image.open(os.path.join(moved, f)), np.int16)
+                   - np.asarray(Image.open(os.path.join(folder, f)), np.int16)).max())
+        for f in sorted(os.listdir(moved)))
+    refused = [ranks[r]["refused"] or "" for r in range(2)]
+    sample_ok = (idx == list(range(MP_FID)) and manifest["world"] == 2 and len(os.listdir(moved)) == MP_BATCH
+                 and all("per_proc_batch_size was 8, now 4" in m for m in refused))
+    img_s = [len(range(r, n_batches, 2)) * MP_BATCH / ranks[r]["sample"]["seconds"] for r in range(2)]
+    log(f"  sampling: PNG indices 0-{MP_FID - 1} each once: {idx == list(range(MP_FID))}; manifest {manifest}; "
+        f"launches per rank exact (rank 0: 3 batches, rank 1: 2, each {per_batch}); images/s a rank (the CLI "
+        f"call, build included) {[round(v, 4) for v in img_s]}, both ranks {MP_FID / max(ranks[r]['sample']['seconds'] for r in range(2)):.4f}; "
+        f"peak memory a rank {[round(ranks[r]['sample']['peak_gb'], 3) for r in range(2)]} GB")
+    log(f"  resume: batch {MP_RESUME_BATCH} (rank {MP_RESUME_BATCH % 2}) resampled alone "
+        f"({MP_BATCH} generated + {MP_FID - MP_BATCH} resumed), {max(ranks[r]['resume']['seconds'] for r in range(2)):.2f} s; "
+        f"max |pixel difference| against the first run {pixel_diff} (must be 0); per_proc_batch_size {MP_BATCH // 2} "
+        f"refused on both ranks: {refused[0][:90]!r}...")
+    if not sample_ok or pixel_diff != 0:
+        raise SystemExit("multiproc sampling: coverage, manifest, resume pixels or the refusal failed")
+
+    # (b) DiT training under --dp 2
+    counts = _train_counts(MP_STEPS)
+    want_train = _NONE | {"flash_attention_rope": counts["fwd"], "fused_norm_modulate": counts["adaln"],
+                          "flash_attention_rope_bwd": counts["bwd"], "dense_bias_f32": counts["dense"]}
+    counts = _train_counts(MP_RESTART - MP_STEPS)
+    want_restart = _NONE | {"flash_attention_rope": counts["fwd"], "fused_norm_modulate": counts["adaln"],
+                            "flash_attention_rope_bwd": counts["bwd"], "dense_bias_f32": counts["dense"]}
+    for r in range(2):
+        for leg, want in (("train", want_train), ("train_restart", want_restart)):
+            if ranks[r][leg]["counts"] != want:
+                raise SystemExit(f"multiproc {leg}, rank {r}: launches {ranks[r][leg]['counts']} != {want}")
+    sds = [torch.load(os.path.join(tmp, f"mp_dit_rank{r}.pt"), weights_only=True) for r in range(2)]
+    ranks_equal = all(torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
+    hist = ranks[0]["train"]["history"]
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist)
+    config = LDMAEConfig.from_yaml(paths["dit_dp2"])
+    seed = config.train.global_seed
+
+    def replay(order):
+        """One process, MP_STEPS steps on each step's two rank slices
+        concatenated in ``order``, seeded as the CLI seeds each step."""
+        spec_, model, _, step_fn = build_from_config(config, dev, torch.Generator().manual_seed(seed))
+        warm_start_(model, weights)
+        model.load_state_dict(permute_qk_for_half_rope(model.state_dict(), spec_), strict=True)
+        state = init_train_state(model, make_optimizer(model.parameters(), config.optimizer.lr,
+                                                       config.optimizer.beta2))
+        streams = [ImgLatentDataset(data, latent_norm=True, sample=False, seed=seed).iter_batches(
+            MP_TRAIN_BATCH // 2, shuffle=True, seed=seed, process_index=r, process_count=2) for r in range(2)]
+        gen = torch.Generator(device=dev)
+        for step in range(MP_STEPS):
+            parts = [next(it) for it in streams]
+            x = torch.from_numpy(np.concatenate([parts[r]["x"] for r in order])).to(dev)[None]
+            y = torch.from_numpy(np.concatenate([parts[r]["y"] for r in order])).to(dev)[None]
+            gen.manual_seed((seed + 1) * 1_000_003 + step)
+            step_fn(state, {"x": x, "y": y}, gen)
+        return permute_qk_for_half_rope({k: v.detach().cpu() for k, v in model.state_dict().items()}, spec_,
+                                        inverse=True)
+
+    ckpt = torch.load(os.path.join(tmp, "mp_out", "dit_dp2", "checkpoints", f"{MP_STEPS:07d}.pt"), weights_only=True)
+
+    def worst(ref):
+        errs = {k: float((ckpt["model"][k].double() - v.double()).norm() / v.double().norm().clamp_min(1e-30))
+                for k, v in ref.items() if v.is_floating_point()}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    err, leaf = worst(replay((0, 1)))
+    control, cleaf = worst(replay((1, 0)))  # each rank's latents with the other rank's noise rows
+    with open(os.path.join(tmp, "mp_out", "dit_dp2", "log.txt")) as f:
+        resumed = f"resumed from step {MP_STEPS}" in f.read()
+    dp2_sps = _steady_sps(hist)
+    log(f"  training: launches per rank exact ({MP_STEPS} steps: {want_train}); the ranks' weights bitwise equal: "
+        f"{ranks_equal}; losses {[round(h['loss'], 5) for h in hist]}; the step-{MP_STEPS} checkpoint against one "
+        f"process on the concatenated batches: worst leaf rel L2 {err:.3g} ({leaf}), bound {MP_TRAIN_REL_L2}; the "
+        f"control (the halves swapped) {control:.3g} ({cleaf}), must exceed it; restart: resumed from step "
+        f"{MP_STEPS}: {resumed}; {dp2_sps:.4f} steps/s a rank (steady, two ranks sharing the card); peak memory a "
+        f"rank {[round(ranks[r]['train']['peak_gb'], 3) for r in range(2)]} GB")
+    if not (ranks_equal and finite and err <= MP_TRAIN_REL_L2 < control and resumed):
+        raise SystemExit("multiproc training: the ranks, the checkpoint, the control or the restart failed")
+
+    # (c) extraction and tokenizer evaluation
+    ext = ranks[0]["extract"]["folder"]
+    names = sorted(os.listdir(ext))
+    sizes = [int(_load_shard_len(os.path.join(ext, f"latents_rank{r:02d}_shard000.safetensors"))) for r in range(2)]
+    stats = _load_stats(os.path.join(ext, "latents_stats.pt"))
+    again = ImgLatentDataset(ext, latent_norm=False, sample=True).compute_latent_stats()
+    stats_ok = all(np.array_equal(stats[k], again[k]) for k in ("mean", "std"))
+    want_names = ["latents_rank00_shard000.safetensors", "latents_rank01_shard000.safetensors", "latents_stats.pt"]
+    pngs_ok = all(sorted(os.listdir(os.path.join(tmp, "mp_rfid", d))) == sorted(
+        f"{p}_rank_{r}_{i}.png" for r in range(2) for i in range(EVAL_IMAGES // 2))
+        for d, p in (("reference", "ref_image"), ("vmae_f8d16_0.0", "decoded_image")))
+    (two,) = ranks[0]["evaluate"]["reports"]
+    real_fid = evaluate_tokenizer.calculate_fid_given_paths
+    evaluate_tokenizer.calculate_fid_given_paths = lambda paths_, **kw: 0.0  # the metrics alone
+    try:
+        (one,) = evaluate_tokenizer.main(["--config", paths["extract"], "--data_path", origin, "--output_path",
+                                          os.path.join(tmp, "mp_rfid_one"), "--batch", str(EVAL_BATCH), "--limit",
+                                          str(EVAL_IMAGES)])
+    finally:
+        evaluate_tokenizer.calculate_fid_given_paths = real_fid
+    rel = {k: abs(two[k] - one[k]) / abs(one[k]) for k in ("psnr", "lpips", "ssim")}
+    log(f"  extraction: {names}, {sizes} latents a rank of --limit {MP_EXTRACT_LIMIT}; statistics equal to their "
+        f"recomputation over both shards: {stats_ok}; {MP_EXTRACT_LIMIT / max(ranks[r]['extract']['seconds'] for r in range(2)):.2f} "
+        f"images/s for the two-rank call")
+    log(f"  tokenizer evaluation: rank-named PNGs {EVAL_IMAGES // 2} a rank: {pngs_ok}; rFID {two['rfid']:.4f} on rank "
+        f"0 (rank 1 reports {ranks[1]['evaluate']['reports']}); PSNR, LPIPS, SSIM over both ranks against one process "
+        f"on the same images: relative differences {rel} (bound {MP_METRIC_REL})")
+    ext_ok = (names == want_names and sizes == [MP_EXTRACT_LIMIT // 2] * 2 and stats_ok and pngs_ok
+              and ranks[1]["evaluate"]["reports"] == [None] and math.isfinite(two["rfid"]))
+    native = [ranks[r]["native_pngs"] for r in range(2)]
+    log(f"  PNGs written a rank by route: {native}")
+    if not ext_ok or max(rel.values()) > MP_METRIC_REL or not all(n["native"] > 0 and n["pil"] == 0 for n in native):
+        raise SystemExit("multiproc extraction / evaluation: names, budget, statistics, metrics or the native "
+                         "writer failed")
+
+    # DDP at world 1 on NCCL (a spawned process), beside the plain CLI here
+    log(f"[multiproc] world 1 on NCCL: cli.train_dit {MP_STEPS} steps with no process group (this process), then "
+        f"{MP_STEPS} steps under an NCCL group of one (DDP, a spawned process)")
+    nccl = {}
+    _mp_leg(nccl, "plain", lambda: {"history": train_dit.main(["--config", paths["dit_plain"]])["history"]})
+    torch.cuda.empty_cache()
+    mp.start_processes(_mp_nccl, args=(_free_port(), tmp, paths), nprocs=1, join=True, start_method="spawn")
+    with open(os.path.join(tmp, "mp_nccl.json")) as f:
+        nccl |= json.load(f)
+    for leg in ("plain", "nccl"):
+        if nccl[leg]["counts"] != want_train:
+            raise SystemExit(f"multiproc {leg}: launches {nccl[leg]['counts']} != {want_train}")
+    plain_sps, nccl_sps = _steady_sps(nccl["plain"]["history"]), _steady_sps(nccl["nccl"]["history"])
+    log(f"  backend {nccl['nccl']['backend']}; launches exact in both; steady steps/s: plain {plain_sps:.4f}, DDP on "
+        f"NCCL {nccl_sps:.4f} (DDP/plain {nccl_sps / plain_sps:.4f}); peak memory {nccl['plain']['peak_gb']:.3f} / "
+        f"{nccl['nccl']['peak_gb']:.3f} GB; the two-rank spawn took {two_rank_s:.2f} s; on {smi}")
+    if nccl["nccl"]["backend"] != "nccl":
+        raise SystemExit("multiproc: the world-1 leg did not run on NCCL")
+    phase_s = time.perf_counter() - phase_t0
+    log(f"  the multi-process phase took {phase_s:.2f} s")
+    return {
+        "phase_s": phase_s,
+        "sample_img_per_s_rank": img_s,
+        "sample_img_per_s": MP_FID / max(ranks[r]["sample"]["seconds"] for r in range(2)),
+        "resume_s": max(ranks[r]["resume"]["seconds"] for r in range(2)),
+        "resume_pixel_diff": pixel_diff,
+        "ddp_steps_per_s_world1_nccl": nccl_sps, "plain_steps_per_s": plain_sps,
+        "ddp_steps_per_s_world2_gloo": dp2_sps,
+        "train_worst_rel_l2": err, "train_control_rel_l2": control,
+        "metric_rel_diff": rel,
+        "peak_gb_rank": {leg: [ranks[r][leg]["peak_gb"] for r in range(2)]
+                         for leg in ("sample", "train", "extract", "evaluate")},
+        "native_png_writer": all(n["native"] > 0 for n in native),
+        "two_rank_s": two_rank_s,
+        "card": smi,
+    }
+
+
+def _load_shard_len(path: str) -> int:
+    from ldmae_tpu_torch.data.latent_dataset import read_safetensors
+
+    return len(read_safetensors(path)["labels"])
+
+
+def multiproc_only(dev, smi: str) -> int:
+    """``--multiproc``: build, then the multi-process phase alone."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        origin = os.path.join(tmp, "images")
+        write_image_folder(origin, EXTRACT_IMAGES, 42)
+        record = multiproc_phase(dev, smi, tmp, origin)
+    log(smi)
+    log(json.dumps({"multiproc": record}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def vmae_only(dev, smi: str) -> int:
     """``--vmae``: build, then the VMAE training phase alone, ending with its
     kernels' line."""
@@ -3513,6 +3950,8 @@ def main() -> int:
         return vmae_only(dev, smi)
     if "--tokenizers" in sys.argv[1:]:
         return tokenizers_only(dev, smi)
+    if "--multiproc" in sys.argv[1:]:
+        return multiproc_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -3566,6 +4005,7 @@ def main() -> int:
         result["counts"] |= tokenizer_family_phases(dev, smi, tmp, origin)
         counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
         result["counts"] |= counts
+        multiproc = multiproc_phase(dev, smi, tmp, origin)
 
     out = []
     for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
@@ -3583,6 +4023,8 @@ def main() -> int:
     log(json.dumps({"encoder_kernels": encoder_rows}))
     # #2 and #5 at the VMAE training shapes (d = 16, the flash leg's launches a step)
     log(json.dumps({"vmae_train_kernels": vmae_rows}))
+    # the two-rank and NCCL legs of the multi-process slice
+    log(json.dumps({"multiproc": multiproc}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

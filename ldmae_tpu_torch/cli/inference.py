@@ -17,17 +17,33 @@ of the samples against ``data.fid_reference_file`` where that file exists.
 The latent statistics are ``latents_stats.pt`` in ``data.data_path``,
 computed from the shards there where the file is missing.
 
-Not ported yet (ROADMAP.md): batch-level resume, ``resume_manifest.json``,
-rank interleave across processes, Orbax checkpoints.
+Across processes (``torchrun``, SLURM or Open MPI; ``parallel.
+init_distributed_mode``) rank r samples batches r, r + world, ... with
+labels from ``default_rng(seed + rank)`` and noise seeded by the batch
+index, the last batch cut to ``fid_num``; each rank logs ``[rank r] batch
+i/n ...``; the FID runs on rank 0 after a barrier, and every rank waits for
+it. The run resumes at batch granularity: a folder holding ``fid_num`` PNGs
+is skipped whole before the pipeline is built, else every batch whose PNGs
+are all on disk is skipped (its labels still drawn), and
+``resume_manifest.json`` stops a resume whose batch size, world size, seed
+or class count differ from the first leg's. PNGs are written by the native
+encoder on a background thread, each renamed from a ``.tmp`` file.
+
+Not ported yet (ROADMAP.md Queue 1 item 15): ``--tp`` above 1 (it raises),
+Orbax checkpoints.
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
+    torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.inference --config ....yaml
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import queue
+import threading
 import time
 
 import numpy as np
@@ -36,10 +52,12 @@ import torch
 from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..data.latent_dataset import ImgLatentDataset
+from ..data.native_io import write_pngs
 from ..eval.sampling import DEMO_LABELS, make_sample_fn
 from ..eval.save_npz import folder_name_from_config as folder_name
 from ..models import LightningDiT, dit_spec, permute_qk_for_half_rope, quantize_dit_, seeded_init_
 from ..models.tokenizers import build_tokenizer_fns
+from ..parallel import barrier, create_mesh, get_rank, get_world_size, init_distributed_mode
 from ..transport import create_transport
 
 
@@ -135,12 +153,87 @@ def _write_png(img: np.ndarray, path: str) -> None:
     os.replace(tmp, path)
 
 
+class AsyncPngWriter:
+    """The JAX CLI's PNG writer: one dispatcher thread hands each batch to
+    the native encoder (``data.native_io.write_pngs``, its own threads), so
+    the writes overlap the next batch's device work. Each image is written
+    to ``<index>.png.tmp`` and renamed, so a kill mid-write never leaves a
+    truncated ``.png`` (the batch-level resume takes any ``.png`` as
+    complete). A failed write is raised by ``close``."""
+
+    def __init__(self, out_dir: str, workers: int = 8):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir, self.workers = out_dir, workers
+        self.q: "queue.Queue" = queue.Queue(maxsize=8)
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self.q.get()
+            if item is None:
+                break
+            if self.error is not None:
+                continue  # drain; close() raises the first error
+            images, indices = item
+            try:
+                names = [f"{int(i):06d}.png" for i in indices]
+                tmp = [os.path.join(self.out_dir, n + ".tmp") for n in names]
+                write_pngs(images, tmp, level=1, num_threads=self.workers)
+                for t, n in zip(tmp, names):
+                    os.replace(t, os.path.join(self.out_dir, n))
+            except Exception as e:  # raised by close() on the caller's thread
+                self.error = e
+
+    def submit(self, images: np.ndarray, indices) -> None:
+        self.q.put((np.ascontiguousarray(images), np.asarray(indices)))
+
+    def close(self) -> None:
+        self.q.put(None)
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def _check_manifest(out_dir: str, stream_id: dict) -> None:
+    """``resume_manifest.json``: the batch grid, world size, seed and class
+    count that the PNGs in ``out_dir`` were sampled under (the folder name
+    pins the model, solver, CFG and shift, not these). A resume under other
+    settings would mix two label streams, so it stops with the JAX CLI's
+    message; rank 0 writes the file on the first leg."""
+    path = os.path.join(out_dir, "resume_manifest.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            recorded = json.load(f)
+        diff = {k: (recorded.get(k), v) for k, v in stream_id.items() if recorded.get(k) != v}
+        if diff:
+            raise SystemExit(
+                f"resume settings mismatch in {out_dir}: "
+                + ", ".join(f"{k} was {a}, now {b}" for k, (a, b) in diff.items())
+                + f" — existing pngs were sampled from a different "
+                f"label stream; delete {path} (and the pngs) "
+                f"to restart, or rerun with the recorded settings"
+            )
+    elif get_rank() == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(stream_id, f)
+        os.replace(tmp, path)
+
+
 def do_sample(config: LDMAEConfig, demo: bool = False, out_root=None, demo_out=None, device=None):
-    device = resolve_device(device)
-    sample_fn, bundle, _ = build_pipeline(config, demo=demo, device=device)
+    """Sample (``demo``: the 2x4 grid, on rank 0) or write this rank's share
+    of ``sample.fid_num`` PNGs; returns the output folder."""
     s = config.sample
     seed = config.train.global_seed
+    rank, world = get_rank(), get_world_size()
     if demo:
+        if rank != 0:
+            return demo_out or "demo_images"
+        sample_fn, bundle, _ = build_pipeline(config, demo=True, device=device)
+        device = resolve_device(device)
         y = torch.tensor(DEMO_LABELS if s.cfg_scale > 1.0 else [0] * 8)
         gen = torch.Generator(device=device).manual_seed(seed)
         imgs = sample_fn(bundle, y, generator=gen).cpu().numpy()
@@ -161,23 +254,56 @@ def do_sample(config: LDMAEConfig, demo: bool = False, out_root=None, demo_out=N
     out_dir = os.path.join(
         out_root or os.path.join(config.train.output_dir, config.train.exp_name), folder_name(config)
     )
-    os.makedirs(out_dir, exist_ok=True)
-    per_batch = s.per_proc_batch_size
-    n_batches = (s.fid_num + per_batch - 1) // per_batch
-    rng = np.random.default_rng(seed)
-    t0 = time.time()
+    fid_num, per_batch = s.fid_num, s.per_proc_batch_size
+    # the resume, before the pipeline is built: all-or-nothing when the
+    # folder holds fid_num PNGs, else batch by batch below
+    have = set()
+    if os.path.isdir(out_dir):
+        have = {int(f[:-4]) for f in os.listdir(out_dir) if f.endswith(".png") and f[:-4].isdigit()}
+        if len(have) >= fid_num:
+            print(f"{out_dir} already has {len(have)} >= {fid_num} pngs, skipping")
+            return out_dir
+    _check_manifest(out_dir, {"per_proc_batch_size": int(per_batch), "world": int(world),
+                              "global_seed": int(seed), "num_classes": int(config.data.num_classes)})
+
+    # rank r owns batches r, r + world, ...; its labels come from
+    # default_rng(seed + rank), drawn for every batch it owns, sampled or
+    # resumed, so a resumed run's label stream is the fresh run's
+    n_batches = (fid_num + per_batch - 1) // per_batch
+    rng = np.random.default_rng(seed + rank)
+    todo, skipped = [], 0
+    for i in range(rank, n_batches, world):
+        y = rng.integers(0, config.data.num_classes, size=per_batch)
+        indices = np.arange(i * per_batch, (i + 1) * per_batch)
+        keep = indices < fid_num
+        if have and all(int(j) in have for j in indices[keep]):
+            skipped += int(keep.sum())
+        else:
+            todo.append((i, y, indices[keep]))
+
     done = 0
-    for i in range(n_batches):
-        y = torch.from_numpy(rng.integers(0, config.data.num_classes, size=per_batch))
-        gen = torch.Generator(device=device).manual_seed(seed * 100003 + i)
-        imgs = sample_fn(bundle, y, generator=gen).cpu().numpy()
-        for j, img in enumerate(imgs):
-            idx = i * per_batch + j
-            if idx < s.fid_num:
-                _write_png(img, os.path.join(out_dir, f"{idx:06d}.png"))
-                done += 1
-        print(f"batch {i + 1}/{n_batches} ({done} imgs, {done / (time.time() - t0):.2f} img/s)",
-              flush=True)
+    t0 = time.time()
+    if todo:  # a rank whose batches are all on disk builds nothing
+        device = resolve_device(device)
+        sample_fn, bundle, _ = build_pipeline(config, device=device)
+        writer = AsyncPngWriter(out_dir)
+        try:
+            for i, y, indices in todo:
+                gen = torch.Generator(device=device).manual_seed(seed * 100003 + i)
+                tb = time.time()
+                imgs = sample_fn(bundle, torch.from_numpy(y), generator=gen).cpu().numpy()
+                dt = time.time() - tb
+                writer.submit(imgs[:len(indices)], indices)
+                done += len(indices)
+                print(f"[rank {rank}] batch {i + 1}/{n_batches} ({done} imgs, "
+                      f"{done / (time.time() - t0):.2f} img/s, last {per_batch / dt:.2f} img/s"
+                      + (f", {skipped} resumed" if skipped else "") + f") {time.strftime('%H:%M:%S')}",
+                      flush=True)
+        finally:
+            writer.close()
+    dt = max(time.time() - t0, 1e-9)
+    print(f"[rank {rank}] sampling done: {done} generated" + (f" + {skipped} resumed" if skipped else "")
+          + f" in {dt / 3600:.2f} h ({done / dt:.3f} img/s sustained incl. compile)", flush=True)
     return out_dir
 
 
@@ -192,21 +318,33 @@ def main(argv=None):
         "--quant", default=None, choices=["w8", "w8a8"],
         help="int8-quantize the DiT for sampling (overrides parallel.quant)",
     )
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree; only 1 is ported (ROADMAP.md Queue 1 item 15)")
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
+    if args.tp > 1:
+        create_mesh(dp=-1, tp=args.tp)  # raises NotImplementedError
+    # the rendezvous (torchrun, SLURM or Open MPI environment) before any
+    # device work; a no-op for one process
+    init_distributed_mode(device=args.device)
     config = LDMAEConfig.from_yaml(args.config)
     if args.ckpt:
         config.ckpt_path = args.ckpt
     if args.quant:
         config.parallel.quant = args.quant
     out_dir = do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device)
-    # FID against the reference statistics after sampling
+    # FID against the reference statistics, on rank 0 once every rank's
+    # PNGs are written
     ref = config.data.fid_reference_file
     if not args.demo and not args.skip_fid and ref and os.path.exists(ref):
-        from ..eval.fid import calculate_fid_given_paths
+        barrier("inference_sampled")
+        if get_rank() == 0:
+            from ..eval.fid import calculate_fid_given_paths
 
-        fid = calculate_fid_given_paths([ref, out_dir], sp_len=config.sample.fid_num, device=args.device)
-        print(f"FID: {fid:.6f}")
+            fid = calculate_fid_given_paths([ref, out_dir], sp_len=config.sample.fid_num, device=args.device)
+            print(f"FID: {fid:.6f}")
+    # the other ranks wait for rank 0's FID (the reference's trailing barrier)
+    barrier("inference_done")
     return out_dir
 
 

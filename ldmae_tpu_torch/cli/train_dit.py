@@ -11,12 +11,24 @@ from the latest checkpoint ("resumed from step N"). With ``rope_layout:
 half`` the q/k channels are permuted to the half-split layout for training
 and back on export, so checkpoints are in the canonical layout.
 
-It runs on the card unless ``--device cpu`` is given. Not ported yet
-(ROADMAP.md): multi-process data parallelism, the background prefetch
-thread, Orbax checkpoints, the profiler trace options.
+It runs on the card unless ``--device cpu`` is given. Across processes
+(``torchrun``, SLURM or Open MPI; ``--dp`` defaults to the world size) the
+model runs in ``DistributedDataParallel``: each micro-batch of the global
+batch is split over the ranks (``micro // world`` each), rank r reads every
+world-th latent from r with the resume offset of its own stream, the noise
+is the global batch's rows (``train.train_dit.make_train_step``), the logged
+loss is the mean over the ranks, the TFLOP/s and MFU count the global batch
+over every rank's card, and rank 0 alone logs, writes TensorBoard and the
+checkpoints (the EMA and weights of the module itself, so a checkpoint is a
+one-process run's). A signal on any rank stops every rank at the same step
+with a checkpoint. A background thread reads the next batch.
+
+Not ported yet (ROADMAP.md Queue 1 item 15): ``--fsdp`` and ``--tp`` above 1
+(they raise), Orbax checkpoints, the profiler trace options.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_dit --config configs/imagenet/lightningdit_b_vmae_f8d16.yaml
+    torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml
 """
 
 from __future__ import annotations
@@ -34,13 +46,17 @@ from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..data.latent_dataset import ImgLatentDataset
 from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
+from ..parallel import (all_reduce_sum, any_rank, barrier, create_mesh, get_rank, get_world_size,
+                        init_distributed_mode, wrap_data_parallel)
 from ..train.state import init_train_state, restore_checkpoint, save_checkpoint
 from ..train.train_dit import COMPUTE_DTYPES, build_from_config, evaluate_step, make_optimizer
+from ..utils.prefetch import Prefetcher
 from ..utils.profiling import dit_forward_flops, format_tflops_mfu, resolve_peak_flops
 
 
 def setup_logger(exp_dir: str) -> logging.Logger:
-    """Timestamped lines to stderr and ``<exp_dir>/log.txt``."""
+    """Timestamped lines to stderr and ``<exp_dir>/log.txt``, on rank 0 (the
+    other ranks' logger has no handler and prints nothing)."""
     os.makedirs(exp_dir, exist_ok=True)
     logger = logging.getLogger("ldmae_tpu_torch")
     logger.setLevel(logging.INFO)
@@ -48,6 +64,9 @@ def setup_logger(exp_dir: str) -> logging.Logger:
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    if get_rank() != 0:
+        logger.addHandler(logging.NullHandler())
+        return logger
     sh = logging.StreamHandler()
     sh.setFormatter(logging.Formatter("[\033[34m%(asctime)s\033[0m] %(message)s", datefmt="%Y-%m-%d %H:%M:%S"))
     fh = logging.FileHandler(os.path.join(exp_dir, "log.txt"))
@@ -88,12 +107,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     steps_per_sec, seconds)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
+    parser.add_argument("--dp", type=int, default=-1, help="data-parallel ranks (-1: the world size)")
+    parser.add_argument("--fsdp", type=int, default=1, help="only 1 is ported (ROADMAP.md Queue 1 item 15)")
+    parser.add_argument("--tp", type=int, default=1, help="only 1 is ported (ROADMAP.md Queue 1 item 15)")
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     parser.add_argument("--peak_tflops", type=float, default=None,
                         help="peak bf16 TFLOP/s of the device for the MFU log (default: from the "
                              "CUDA device name; unknown devices log 'MFU n/a')")
     args = parser.parse_args(argv)
+    # the rendezvous (torchrun, SLURM or Open MPI environment) before any
+    # device work; a no-op for one process
+    init_distributed_mode(device=args.device)
+    create_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp)  # checks the degrees against the world
+    rank, world = get_rank(), get_world_size()
 
     config = LDMAEConfig.from_yaml(args.config)
     if args.max_steps is not None:
@@ -103,15 +130,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     exp_dir = os.path.join(tc.output_dir, tc.exp_name)
     logger = setup_logger(exp_dir)
     logger.info(f"Experiment directory: {exp_dir}")
-    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + f", {world} process(es)")
 
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if rank == 0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(exp_dir, "tensorboard"))
-    except ImportError:
-        logger.info("tensorboard unavailable; scalar logs go to log.txt only")
+            writer = SummaryWriter(os.path.join(exp_dir, "tensorboard"))
+        except ImportError:
+            logger.info("tensorboard unavailable; scalar logs go to log.txt only")
 
     spec, model, transport, step_fn = build_from_config(
         config, device, torch.Generator().manual_seed(tc.global_seed))
@@ -129,28 +158,44 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if restore_checkpoint(exp_dir, state, half_rope=half) is not None:
         logger.info(f"resumed from step {state.step}")
 
-    dataset = ImgLatentDataset(_data_dir(config), latent_norm=config.data.latent_norm,
-                               latent_multiplier=config.data.latent_multiplier,
-                               sample=config.data.sample, seed=tc.global_seed)
+    state.ddp = wrap_data_parallel(model, device)  # DDP whenever a process group exists
+
+    def load_dataset():
+        return ImgLatentDataset(_data_dir(config), latent_norm=config.data.latent_norm,
+                                latent_multiplier=config.data.latent_multiplier,
+                                sample=config.data.sample, seed=tc.global_seed)
+
+    # rank 0 first: where latents_stats.pt is missing it computes and writes
+    # it, and the other ranks read it
+    dataset = load_dataset() if rank == 0 else None
+    barrier("train_dit_stats")
+    if dataset is None:
+        dataset = load_dataset()
     logger.info(f"dataset: {len(dataset)} latents from {_data_dir(config)}")
     accum = tc.gradient_accumulation_steps
     micro = tc.global_batch_size // accum
+    assert micro % world == 0, f"per-accum batch {micro} must divide across {world} processes"
+    micro_local = micro // world  # this rank's slice of each micro-batch
     # resume the data stream where the restored step left off (each epoch
-    # reshuffles with seed + epoch, so the step maps to an exact position)
-    per_epoch = max(len(dataset) // (micro * accum), 1)
-    batches = dataset.iter_batches(micro * accum, shuffle=True, seed=tc.global_seed,
-                                   start_epoch=state.step // per_epoch, skip_batches=state.step % per_epoch)
+    # reshuffles with seed + epoch, so the step maps to an exact position);
+    # rank r reads every world-th latent from r
+    n_host = len(range(rank, len(dataset), world))
+    per_epoch = max(n_host // (micro_local * accum), 1)
+    batches = Prefetcher(dataset.iter_batches(
+        micro_local * accum, shuffle=True, seed=tc.global_seed, process_index=rank, process_count=world,
+        start_epoch=state.step // per_epoch, skip_batches=state.step % per_epoch), buffer_size=4)
 
     cd = COMPUTE_DTYPES[config.parallel.compute_dtype]
     val_batch = None
     if config.data.valid_path and os.path.isdir(config.data.valid_path):
         vds = ImgLatentDataset(config.data.valid_path, latent_norm=config.data.latent_norm,
                                latent_multiplier=config.data.latent_multiplier, sample=config.data.sample)
-        raw = next(vds.iter_batches(min(micro, len(vds)), shuffle=False, epochs=1, drop_last=False))
+        raw = next(vds.iter_batches(min(micro_local, len(vds)), shuffle=False, epochs=1, drop_last=False))
         val_batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
-    step_flops = 3 * dit_forward_flops(spec, tc.global_batch_size)  # forward + ~2x backward
+    step_flops = 3 * dit_forward_flops(spec, tc.global_batch_size)  # forward + ~2x backward, global batch
     peak = resolve_peak_flops(args.peak_tflops, device)
+    peak = peak * world if peak else None  # every rank's card
     stop_signal: List[int] = []
 
     def request_stop(signum, frame):
@@ -177,17 +222,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     try:
         while state.step < tc.max_steps:
             host = next(batches)
-            x = torch.from_numpy(host["x"]).to(device).reshape(accum, micro, *host["x"].shape[1:])
-            y = torch.from_numpy(host["y"]).to(device).reshape(accum, micro)
-            # one seed per step, so a resumed run draws its noise, t and label
-            # dropout as the uninterrupted one would
+            x = torch.from_numpy(host["x"]).to(device).reshape(accum, micro_local, *host["x"].shape[1:])
+            y = torch.from_numpy(host["y"]).to(device).reshape(accum, micro_local)
+            # one seed per step, alike on every rank, so a resumed run draws
+            # its noise, t and label dropout as the uninterrupted one would
             gen.manual_seed((tc.global_seed + 1) * 1_000_003 + state.step)
             metrics = step_fn(state, {"x": x, "y": y}, gen)
             pending.append(torch.stack([metrics["loss"], metrics["grad_norm"]]))
             log_steps += 1
 
             if state.step % tc.log_every == 0:
-                loss, gnorm = (float(v) for v in torch.stack(pending).mean(0))  # synchronises
+                # the mean over this rank's steps (synchronises), then over the ranks
+                loss, gnorm = all_reduce_sum(torch.stack(pending).mean(0).double().cpu().numpy()) / world
                 dt = time.time() - start
                 logger.info(f"(step={state.step:07d}) Train Loss: {loss:.4f}, Train Steps/Sec: "
                             f"{log_steps / dt:.2f}, " + format_tflops_mfu(step_flops * log_steps, dt, peak)
@@ -199,14 +245,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     writer.add_scalar("Perf/tflops", step_flops * log_steps / dt / 1e12, state.step)
                 pending, log_steps, start = [], 0, time.time()
 
-            if stop_signal:
-                logger.info(f"received signal {stop_signal[0]}; saving a preemption checkpoint at step {state.step}")
+            # a signal on any rank stops every rank at this step (the
+            # checkpoint is collective: rank 0 writes, all wait)
+            if any_rank(bool(stop_signal)):
+                logger.info(f"received signal {stop_signal[0] if stop_signal else 'on another rank'}; saving a "
+                            f"preemption checkpoint at step {state.step}")
                 save("preemption ")
                 break
 
             if state.step % tc.ckpt_every == 0:
                 save("")
-                if val_batch is not None:
+                if val_batch is not None and rank == 0:
                     val = float(evaluate_step(
                         state.model, transport, val_batch, torch.Generator(device=device).manual_seed(0),
                         compute_dtype=cd, attn_impl=config.parallel.train_attention_impl,

@@ -32,10 +32,20 @@ downsample mid-encoder and an upsample mid-decoder, built from ``--seed``;
 convolutions inside the block lists) the same way. It trains stage 1 only
 (with ``--tune_decoder`` it raises ``ValueError``).
 
-It runs on the card unless ``--device cpu`` is given. Not ported
-(ROADMAP.md item 15): ``--resume`` of an Orbax directory, ``--dp`` other
-than -1 or 1 and the profiler options; each raises
-``NotImplementedError``.
+It runs on the card unless ``--device cpu`` is given. Across processes
+(``torchrun``, SLURM or Open MPI; ``--dp`` defaults to the world size, and
+another value must equal it) the model trains in
+``DistributedDataParallel``: the effective batch (for the learning rate and
+the epoch length) is batch_size x accum_iter x world, rank r loads the r-th
+contiguous slice of each global batch (``local_batch_indices``) with the
+image seeds a one-process run at the global batch draws for those images,
+the masks and latent noise are the global batch's rows, and the epoch's
+mean losses are averaged over the ranks; rank 0 alone writes log.txt,
+TensorBoard, the checkpoints and their links. So with accum_iter 1 a run
+on two ranks equals one process with ``--batch_size`` doubled.
+
+Not ported (ROADMAP.md Queue 1 item 15): ``--resume`` of an Orbax directory
+and the profiler options; each raises ``NotImplementedError``.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_vmae --model mae_for_ldmae_f8d16_prev \\
@@ -61,14 +71,17 @@ from ..data.augment import train_augment
 from ..data.images import ImageFolderDataset
 from ..models.vmae import VMAE, init_vmae_weights_, load_vmae_weights_, vmae_spec
 from ..models.vmae_variants import GradualVMAE, init_gradual_weights_
+from ..parallel import any_rank, create_mesh, get_rank, get_world_size, init_distributed_mode, wrap_data_parallel
 from ..train.state import TrainState, restore_checkpoint, save_checkpoint
 from ..train.train_vmae import (
     METRIC_KEYS,
+    VMAELoss,
     cosine_lr,
     lr_schedule,
     make_vmae_optimizer,
     make_vmae_train_step,
 )
+from ..utils.meters import all_reduce_mean
 from ..utils.profiling import resolve_peak_flops, vmae_forward_flops
 
 
@@ -108,7 +121,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_epochs", type=int, default=10)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--steps_per_epoch", type=int, default=None, help="override for small datasets / smoke runs")
-    p.add_argument("--dp", type=int, default=-1, help="one process, one device: -1 or 1 (ROADMAP.md item 15)")
+    p.add_argument("--dp", type=int, default=-1, help="data-parallel ranks (-1: the world size)")
     p.add_argument("--profile_dir", type=str, default=None, help="not ported (ROADMAP.md item 15)")
     p.add_argument("--profile_start", type=int, default=10)
     p.add_argument("--profile_steps", type=int, default=5)
@@ -122,9 +135,6 @@ def get_args_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.gradual_resol and args.tune_decoder:
         raise ValueError("--gradual_resol trains stage 1; the decoder-tuning forward has no gradual form")
-    if args.dp not in (-1, 1):
-        raise NotImplementedError(f"--dp {args.dp}: data parallelism is not ported yet (ROADMAP.md Queue 1 "
-                                  "item 15); the port trains on one device")
     if args.profile_dir:
         raise NotImplementedError("--profile_dir: the profiler options are not ported yet (ROADMAP.md Queue 1 "
                                   "item 15)")
@@ -142,6 +152,14 @@ def step_indices(order: np.ndarray, step: int, per_step: int) -> np.ndarray:
     return idx
 
 
+def local_batch_indices(order: np.ndarray, step: int, per_step: int, process_index: int,
+                        process_count: int) -> np.ndarray:
+    """This process's slice of global batch ``step`` (the JAX CLI's rule): the
+    global batch split into ``process_count`` contiguous equal parts."""
+    local = per_step // process_count
+    return step_indices(order, step, per_step)[process_index * local:(process_index + 1) * local]
+
+
 def _link_epoch(path: str, epoch: int) -> None:
     """``checkpoint-<epoch>.pth`` beside the step checkpoint, a relative link
     (the reference's epoch naming, which train_ae.sh hands to stage 3)."""
@@ -156,6 +174,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     the final TrainState and one record per epoch (the log line's values)."""
     args = get_args_parser().parse_args(argv)
     _refuse_unported(args)
+    # the rendezvous (torchrun, SLURM or Open MPI environment) before any
+    # device work; a no-op for one process
+    init_distributed_mode(device=args.device)
+    create_mesh(dp=args.dp)  # checks the degree against the world
+    rank, world = get_rank(), get_world_size()
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -179,11 +202,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         print(f"resumed weights from torch checkpoint {args.resume} "
               f"(missing={merged['missing']}, unexpected={merged['unexpected']})")
 
-    eff_batch = args.batch_size * args.accum_iter
+    eff_batch = args.batch_size * args.accum_iter * world  # the reference's batch x accum x world size
     lr = args.lr if args.lr is not None else args.blr * eff_batch / 256
-    print(f"actual lr: {lr:.2e}  effective batch size: {eff_batch}")
+    if rank == 0:
+        print(f"actual lr: {lr:.2e}  effective batch size: {eff_batch}")
     dataset = ImageFolderDataset(args.data_path, args.input_size)
-    per_step = eff_batch  # one update takes accum_iter micro-batches
+    per_step = eff_batch  # one update takes accum_iter micro-batches on every rank
     steps_per_epoch = args.steps_per_epoch or max(len(dataset) // per_step, 1)
 
     optimizer = make_vmae_optimizer(model, weight_decay=args.weight_decay, tune_decoder=args.tune_decoder)
@@ -202,17 +226,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if restore_checkpoint(args.output_dir, state) is not None:
         # this stage's own checkpoint is later progress than a --resume warm start
         print(f"resumed from step {state.step}" + (" (overrides --resume warm start)" if args.resume else ""))
+    state.ddp = wrap_data_parallel(VMAELoss(model), device)  # DDP whenever a process group exists
 
     gen = torch.Generator(device=device)
     data_rng = np.random.default_rng(args.seed)
     log_path = os.path.join(args.output_dir, "log.txt")
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if rank == 0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.output_dir, "tensorboard"))
-    except ImportError:
-        pass
+            writer = SummaryWriter(os.path.join(args.output_dir, "tensorboard"))
+        except ImportError:
+            pass
 
     def load_one(i: int, seed: int) -> np.ndarray:
         from PIL import Image
@@ -221,12 +247,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             return train_augment(img, np.random.default_rng(seed), args.input_size, raw_uint8=True)
 
     def epoch_batches(pool, order, skip):
-        """uint8 (per_step, H, W, 3) batches; the next one loads while the
-        caller trains on this one. Each image's seed is drawn here, in
-        order, so the stream does not depend on the threads."""
+        """This rank's uint8 (per_step / world, H, W, 3) slices of the global
+        batches; the next one loads while the caller trains on this one.
+        Every rank draws the whole global batch's image seeds here, in order
+        (so the stream does not depend on the threads), and keeps its
+        slice's: each rank's images are a one-process run's at the global
+        batch."""
         def submit(s):
-            idx = step_indices(order, s, per_step)
-            return [pool.submit(load_one, int(i), int(data_rng.integers(2**31))) for i in idx]
+            idx = local_batch_indices(order, s, per_step, rank, world)
+            seeds = [int(data_rng.integers(2**31)) for _ in range(per_step)][rank * len(idx):(rank + 1) * len(idx)]
+            return [pool.submit(load_one, int(i), seed) for i, seed in zip(idx, seeds)]
 
         pending = submit(skip) if skip < steps_per_epoch else None
         for s in range(skip, steps_per_epoch):
@@ -274,22 +304,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     n_steps += 1
                     if not host["loss_finite"]:
                         print(f"WARNING: non-finite loss at step {state.step} (update skipped)")
-                    if stop_signal:
+                    if any_rank(bool(stop_signal)):  # every rank stops at this step
                         path = save_checkpoint(args.output_dir, state, config=vars(args))
-                        print(f"received signal {stop_signal[0]}; saved preemption checkpoint {path}")
+                        print(f"received signal {stop_signal[0] if stop_signal else 'on another rank'}; saved "
+                              f"preemption checkpoint {path}")
                         return {"state": state, "history": history, "output_dir": args.output_dir}
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                stats: Dict[str, Any] = {k: v / max(n_steps, 1) for k, v in sums.items()}
+                # the epoch's mean losses over the ranks (equal local batches)
+                stats: Dict[str, Any] = {k: all_reduce_mean(v / max(n_steps, 1)) for k, v in sums.items()}
                 stats["lr"] = epoch_lr(epoch + 0.5)  # the schedule at the epoch's midpoint
                 stats.update(epoch=epoch, time=time.time() - t0)
                 stats["img_per_sec"] = n_steps * per_step / stats["time"]
                 stats["tflops"] = step_flops * n_steps / stats["time"] / 1e12
-                stats["mfu"] = step_flops * n_steps / stats["time"] / peak if peak else None
+                stats["mfu"] = step_flops * n_steps / stats["time"] / (peak * world) if peak else None
                 line = json.dumps({f"train_{k}": v for k, v in stats.items()})
-                print(line)
-                with open(log_path, "a") as f:
-                    f.write(line + "\n")
+                if rank == 0:
+                    print(line)
+                    with open(log_path, "a") as f:
+                        f.write(line + "\n")
                 history.append(stats)
                 if writer is not None:
                     x_axis = int((epoch + 1) * 1000)  # the reference's epoch_1000x axis
@@ -298,8 +331,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                         writer.add_scalar(tb, stats[name], x_axis)
                 if epoch % args.save_epochs == 0 or epoch + 1 == args.epochs:
                     path = save_checkpoint(args.output_dir, state, config=vars(args))
-                    _link_epoch(path, epoch)
-                    print(f"saved checkpoint {path} (checkpoint-{epoch})")
+                    if rank == 0:
+                        _link_epoch(path, epoch)
+                        print(f"saved checkpoint {path} (checkpoint-{epoch})")
     finally:  # an embedding program gets its own handlers back
         for sig, handler in previous.items():
             signal.signal(sig, handler)

@@ -76,14 +76,20 @@ class ImageFolderDataset:
         path, label = self.samples[idx]
         return load_image(path, self.image_size, raw_uint8), label
 
-    def iter_batches(self, batch_size: int, raw_uint8: bool = False) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """(images, labels) in folder order; the last batch may be short.
-        Images decode on a thread pool (PIL releases the interpreter lock
-        while it decodes)."""
+    def iter_batches(self, batch_size: int, raw_uint8: bool = False, process_index: int = 0,
+                     process_count: int = 1, drop_last: bool = False) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """(images, labels) in folder order over this process's images, the
+        JAX rule's interleave ``range(process_index, len, process_count)``
+        (a sequential DistributedSampler); the last batch may be short unless
+        ``drop_last``. Images decode on a thread pool (PIL releases the
+        interpreter lock while it decodes)."""
         from concurrent.futures import ThreadPoolExecutor
 
+        idxs = range(process_index, len(self.samples), process_count)
         with ThreadPoolExecutor(16) as pool:
-            for s in range(0, len(self.samples), batch_size):
-                chunk = range(s, min(s + batch_size, len(self.samples)))
+            for s in range(0, len(idxs), batch_size):
+                chunk = idxs[s:s + batch_size]
+                if drop_last and len(chunk) < batch_size:
+                    break
                 results = list(pool.map(lambda i: self.get(i, raw_uint8), chunk))
                 yield np.stack([r[0] for r in results]), np.asarray([r[1] for r in results], np.int64)

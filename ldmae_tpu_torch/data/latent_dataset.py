@@ -199,15 +199,15 @@ def _load_stats(path: str) -> Dict[str, np.ndarray]:
 
 
 class LatentShardWriter:
-    """The extraction's shard writer (one process, rank 0): buffers
-    ``shard_size`` encodings, then writes
-    ``latents_rank00_shard{S:03d}.safetensors`` with ``latents``,
-    ``latents_flip``, ``labels`` (int64) and the metadata ``total_size`` and
-    ``dtype``."""
+    """The extraction's shard writer for one rank: buffers ``shard_size``
+    encodings, then writes ``latents_rank{R:02d}_shard{S:03d}.safetensors``
+    with ``latents``, ``latents_flip``, ``labels`` (int64) and the metadata
+    ``total_size`` and ``dtype``."""
 
-    def __init__(self, out_dir: str, shard_size: int = 10000):
+    def __init__(self, out_dir: str, rank: int = 0, shard_size: int = 10000):
         os.makedirs(out_dir, exist_ok=True)
         self.out_dir = out_dir
+        self.rank = rank
         self.shard_size = shard_size
         self.shard_idx = 0
         self._lat: List[np.ndarray] = []
@@ -228,7 +228,7 @@ class LatentShardWriter:
             return
         lat = np.concatenate(self._lat)
         lab = np.concatenate(self._lab).astype(np.int64)
-        name = f"latents_rank00_shard{self.shard_idx:03d}.safetensors"
+        name = f"latents_rank{self.rank:02d}_shard{self.shard_idx:03d}.safetensors"
         write_safetensors(
             os.path.join(self.out_dir, name),
             {"latents": lat, "latents_flip": np.concatenate(self._flip), "labels": lab},

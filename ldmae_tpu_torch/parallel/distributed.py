@@ -1,0 +1,177 @@
+"""Process groups (port of ``ldmae_tpu/parallel/distributed.py``).
+
+``init_distributed_mode`` is the reference's process-group bootstrap
+(``VMAE/util/misc.py:367-402``): the env:// rendezvous of ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` /
+``LOCAL_RANK``), SLURM (``SLURM_PROCID`` / ``SLURM_NTASKS`` /
+``SLURM_LOCALID``) or Open MPI (``OMPI_COMM_WORLD_*``), read in that order,
+as the JAX function reads them. The group is NCCL on CUDA and gloo on the
+CPU, with the reference's 30-minute timeout, and each process is pinned to
+its ``LOCAL_RANK`` card. One process with none of that environment starts no
+group, and every helper below then answers for a world of one.
+
+Host-side collectives (the barriers, the CLIs' metric sums, the training
+CLIs' stop flag) go through gloo on CPU tensors: the default group when it is
+gloo, else a gloo group beside the NCCL one. So they never wait for the card,
+and a rank that dies closes its gloo sockets, which fails the others' next
+collective at once instead of leaving them at a barrier.
+
+``global_batch_draws`` makes a data-parallel rank draw its random numbers as
+a one-process run on the global batch would (see its docstring).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.overrides import TorchFunctionMode
+
+TIMEOUT_S = 1800  # the reference's init_process_group timeout
+
+_host_group = None  # gloo group for the host-side collectives when the default group is not gloo
+
+
+def _from_env() -> Optional[Tuple[int, int, int]]:
+    """(rank, world, local rank) from the launcher's environment, or None for
+    a single process."""
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env and int(env["WORLD_SIZE"]) > 1:
+        return int(env["RANK"]), int(env["WORLD_SIZE"]), int(env.get("LOCAL_RANK", 0))
+    if "SLURM_PROCID" in env and int(env.get("SLURM_NTASKS", "1")) > 1:
+        return int(env["SLURM_PROCID"]), int(env["SLURM_NTASKS"]), int(env.get("SLURM_LOCALID", 0))
+    if "OMPI_COMM_WORLD_SIZE" in env and int(env["OMPI_COMM_WORLD_SIZE"]) > 1:
+        return (int(env["OMPI_COMM_WORLD_RANK"]), int(env["OMPI_COMM_WORLD_SIZE"]),
+                int(env.get("OMPI_COMM_WORLD_LOCAL_RANK", 0)))
+    return None
+
+
+def init_distributed_mode(
+    backend: Optional[str] = None,
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    local_rank: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    timeout_s: int = TIMEOUT_S,
+) -> None:
+    """Start the process group; a no-op for one process without a launcher's
+    environment, and when a group already exists.
+
+    Explicit ``world_size`` and ``rank`` win over the environment (with
+    ``init_method`` defaulting to ``tcp://MASTER_ADDR:MASTER_PORT``).
+    ``backend`` defaults to NCCL where CUDA is available and ``device`` is
+    not the CPU, else gloo. On CUDA the process is pinned to its local rank's
+    card before the group starts. Ends with a barrier while the ranks are
+    still close together (the JAX function's reason: a first collective
+    behind minutes of per-rank set-up meets a loaded host)."""
+    global _host_group
+    if dist.is_initialized():
+        return
+    env = os.environ
+    if world_size is None:
+        found = _from_env()
+        if found is None:
+            return
+        rank, world_size, env_local = found
+        local_rank = env_local if local_rank is None else local_rank
+    if rank is None:
+        raise ValueError("init_distributed_mode: world_size given without rank")
+    if init_method is None:
+        init_method = f"tcp://{env.get('MASTER_ADDR', '127.0.0.1')}:{env.get('MASTER_PORT', '29500')}"
+    local_rank = int(env.get("LOCAL_RANK", 0)) if local_rank is None else local_rank
+    use_cuda = torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda")
+    backend = backend or ("nccl" if use_cuda else "gloo")
+    if use_cuda:
+        torch.cuda.set_device(local_rank)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank, timeout=timeout)
+    _host_group = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo", timeout=timeout)
+    barrier("init_distributed_mode")
+
+
+def get_rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def get_world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_main_process() -> bool:
+    return get_rank() == 0
+
+
+def barrier(name: str = "barrier", timeout_s: int = TIMEOUT_S) -> None:
+    """Wait for every rank (the reference's ``dist.barrier``), up to
+    ``timeout_s``.
+
+    ``monitored_barrier`` on the gloo group, not a collective with a timeout
+    of seconds: the JAX docstring records the gloo ``DEADLINE_EXCEEDED``
+    cascade that a short one caused while rank 0 scanned shards or ran a
+    trailing FID. On a timeout rank 0 names the ranks that did not arrive."""
+    if get_world_size() == 1:
+        return
+    try:
+        dist.monitored_barrier(group=_host_group, timeout=datetime.timedelta(seconds=timeout_s),
+                               wait_all_ranks=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"barrier {name!r} failed on rank {get_rank()}: {e}") from e
+
+
+def all_reduce_sum(x) -> np.ndarray:
+    """The elementwise sum over ranks of a host array (a copy for one
+    process); float64 and int64 stay exact for the CLIs' sums and counts."""
+    x = np.asarray(x)
+    if get_world_size() == 1:
+        return x.copy()
+    t = torch.from_numpy(np.array(x, copy=True))
+    dist.all_reduce(t, group=_host_group)
+    return t.numpy()
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any (the training CLIs'
+    stop signal, so that every rank checkpoints at the same step)."""
+    return bool(all_reduce_sum(np.array([int(flag)], np.int64))[0])
+
+
+class _GlobalBatchDraws(TorchFunctionMode):
+    _DRAWS = (torch.rand, torch.randn)
+
+    def __init__(self, generator: torch.Generator, local: int, rank: int, world: int):
+        super().__init__()
+        self.generator, self.local, self.rank, self.world = generator, local, rank, world
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self._DRAWS and kwargs.get("generator") is self.generator:
+            size = tuple(args[0]) if len(args) == 1 and not isinstance(args[0], int) else tuple(args)
+            if size and size[0] == self.local:
+                out = func((self.local * self.world, *size[1:]), **kwargs)
+                return out[self.rank * self.local:(self.rank + 1) * self.local]
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def global_batch_draws(generator: Optional[torch.Generator], local_batch: int):
+    """Inside it, a ``torch.rand`` / ``torch.randn`` from ``generator`` whose
+    leading dim is ``local_batch`` is drawn for the global batch (``local_batch``
+    x world rows) and this rank's rows kept: rank r gets rows [r m, (r + 1) m).
+
+    Every rank seeds ``generator`` alike, so the ranks' noise, timesteps,
+    label drops and masks are the rows that one process training on the
+    concatenated global batch draws, as the JAX step draws them for its
+    global batch. Draws of another generator or another leading dim pass
+    through. A no-op for one process."""
+    world = get_world_size()
+    if world == 1 or generator is None:
+        yield
+        return
+    with _GlobalBatchDraws(generator, local_batch, get_rank(), world):
+        yield

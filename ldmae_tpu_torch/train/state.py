@@ -9,6 +9,12 @@ reference load them as they are; ``opt`` is the AdamW state dict, its
 moments re-indexed the same way. A run in the half-split layout is
 permuted back on save and forward again on restore. Resume picks the
 largest step. Orbax checkpoints are not read or written here.
+
+Under data parallelism the state also holds the ``DistributedDataParallel``
+wrapper that the step runs through (``ddp``); ``model`` stays the module
+itself, so the EMA and the checkpoints are the module's, and a checkpoint
+file is what a one-process run writes. Rank 0 writes it and every rank
+waits at a barrier until it is on disk; every rank restores.
 """
 
 from __future__ import annotations
@@ -23,17 +29,21 @@ import torch
 import torch.nn as nn
 
 from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
+from ..parallel.distributed import barrier, get_rank
 
 
 @dataclass
 class TrainState:
-    """The step, the model (a ``LightningDiT`` or a ``VMAE``), its EMA (None
-    for the VMAE, whose trainer keeps none) and the optimizer."""
+    """The step, the model (a ``LightningDiT`` or a ``VMAE``, never a
+    wrapper), its EMA (None for the VMAE, whose trainer keeps none), the
+    optimizer, and under data parallelism the ``DistributedDataParallel``
+    wrapper the train step calls (None for one process)."""
 
     step: int
     model: nn.Module
     ema: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
+    ddp: Optional[nn.Module] = None
 
 
 def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> TrainState:
@@ -71,27 +81,29 @@ def _permute_opt_state(opt_sd: Dict[str, Any], model: LightningDiT, inverse: boo
 
 def save_checkpoint(base_dir: str, state: TrainState, config: Optional[Dict] = None,
                     half_rope: bool = False) -> str:
-    """Write ``<base_dir>/checkpoints/<step:07d>.pt`` (atomically) and return
-    its path; ``half_rope``: the run trains in the half-split layout."""
+    """Write ``<base_dir>/checkpoints/<step:07d>.pt`` (atomically, on rank 0,
+    with every rank waiting until it is written) and return its path;
+    ``half_rope``: the run trains in the half-split layout."""
     spec = state.model.spec
+    path = os.path.join(_ckpt_dir(base_dir), f"{int(state.step):07d}.pt")
+    if get_rank() == 0:
 
-    def canonical(sd):
-        sd = {k: v.detach().cpu() for k, v in sd.items()}
-        return permute_qk_for_half_rope(sd, spec, inverse=True) if half_rope else sd
+        def canonical(sd):
+            sd = {k: v.detach().cpu() for k, v in sd.items()}
+            return permute_qk_for_half_rope(sd, spec, inverse=True) if half_rope else sd
 
-    opt = state.optimizer.state_dict()
-    if half_rope:
-        opt = _permute_opt_state(opt, state.model, inverse=True)
-    ckpt = {"model": canonical(state.model.state_dict())}
-    if state.ema is not None:
-        ckpt["ema"] = canonical(state.ema.state_dict())
-    ckpt |= {"opt": opt, "config": config, "step": int(state.step)}
-    d = _ckpt_dir(base_dir)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, f"{int(state.step):07d}.pt")
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
+        opt = state.optimizer.state_dict()
+        if half_rope:
+            opt = _permute_opt_state(opt, state.model, inverse=True)
+        ckpt = {"model": canonical(state.model.state_dict())}
+        if state.ema is not None:
+            ckpt["ema"] = canonical(state.ema.state_dict())
+        ckpt |= {"opt": opt, "config": config, "step": int(state.step)}
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+    barrier("save_checkpoint")
     return path
 
 

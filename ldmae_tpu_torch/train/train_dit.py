@@ -15,6 +15,7 @@ max_norm / norm when norm >= max_norm and left alone otherwise
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -22,6 +23,7 @@ import torch
 from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..models.lightningdit import DiTSpec, LightningDiT, dit_spec, init_dit_weights_
+from ..parallel.distributed import global_batch_draws
 from ..transport.transport import Transport, create_transport
 from .state import TrainState
 
@@ -123,7 +125,15 @@ def make_train_step(
     and ``drop_ids`` override the generator's draws, in the batch's layout.
     ``loss`` is the mean total optimised loss over the micro-batches and
     ``grad_norm`` the global norm of the averaged gradient before clipping;
-    both stay on the device (0-dim tensors)."""
+    both stay on the device (0-dim tensors).
+
+    With ``state.ddp`` (data parallelism) the forward runs through the
+    ``DistributedDataParallel`` wrapper on this rank's (A, m) slice of the
+    global batch: DDP averages the ranks' gradients, each of the mean loss
+    over m local samples, which is the gradient of the mean over the global
+    batch; the generator's draws are the global batch's rows, so with every
+    rank seeding it alike a step equals one process's step on the
+    concatenated batch. ``loss`` stays this rank's."""
     impls = dict(compute_dtype=compute_dtype, attn_impl=attn_impl, rope_layout=rope_layout,
                  adaln_impl=adaln_impl)
 
@@ -138,11 +148,18 @@ def make_train_step(
         if x.shape[0] != grad_accum:
             raise ValueError(f"batch leading (accumulation) dim {x.shape[0]} != grad_accum={grad_accum}")
         total = torch.zeros((), device=x.device)
+        ddp = state.ddp
         for i in range(grad_accum):
-            loss = dit_loss(state.model, transport, x[i], y[i], generator,
-                            x0=None if x0_ is None else x0_[i], t=None if t_ is None else t_[i],
-                            drop_ids=None if drop_ is None else drop_[i], **impls)
-            loss.backward()  # the gradients sum over the micro-batches
+            # under DDP the gradients are all-reduced in the last
+            # micro-batch's backward only, and the draws are the global
+            # batch's rows (parallel.global_batch_draws)
+            last = ddp is None or i == grad_accum - 1
+            with (contextlib.nullcontext() if last else ddp.no_sync()), \
+                    (contextlib.nullcontext() if ddp is None else global_batch_draws(generator, x.shape[1])):
+                loss = dit_loss(state.model if ddp is None else ddp, transport, x[i], y[i], generator,
+                                x0=None if x0_ is None else x0_[i], t=None if t_ is None else t_[i],
+                                drop_ids=None if drop_ is None else drop_[i], **impls)
+                loss.backward()  # the gradients sum over the micro-batches
             total += loss.detach()
         if grad_accum > 1:
             with torch.no_grad():

@@ -26,13 +26,16 @@ float32 master weights; the losses are float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn as nn
 
 from ..data.images import normalize_uint8_images
 from ..models.vmae import VMAE
+from ..parallel.distributed import any_rank, global_batch_draws
 from .state import TrainState
 
 METRIC_KEYS = ("loss", "vis_loss", "mask_loss", "kl_loss", "p_loss")
@@ -161,6 +164,19 @@ def vmae_loss(model: VMAE, x: torch.Tensor, *, tune_decoder: bool = False, mask_
     return {k: out[k] for k in METRIC_KEYS}
 
 
+class VMAELoss(nn.Module):
+    """``vmae_loss`` of ``model`` as a module's forward, so that
+    ``DistributedDataParallel``, which sees calls of ``forward`` only, can
+    wrap the training forwards (``forward_vanilla`` / ``forward_ldmae``)."""
+
+    def __init__(self, model: VMAE):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor, **kw) -> Dict[str, torch.Tensor]:
+        return vmae_loss(self.model, x, **kw)
+
+
 def make_vmae_train_step(
     schedule: Callable[[int], float],
     *,
@@ -181,8 +197,15 @@ def make_vmae_train_step(
     float32 (m, 3, H, W) micro-batches; for A == 1 a flat batch is also
     taken. ``mask_noise`` (A, m, L) and ``latent_noise`` (A, m, latent_dim,
     tokens) override the generator's draws. metrics: the micro-batch means
-    of ``METRIC_KEYS`` and ``loss_finite``, 0-dim tensors on the device; a
-    loss that is not finite applies no update (``apply_vmae_update_``)."""
+    of ``METRIC_KEYS`` (0-dim tensors on the device) and ``loss_finite``; a
+    loss that is not finite applies no update (``apply_vmae_update_``).
+
+    With ``state.ddp`` (a ``DistributedDataParallel`` of ``VMAELoss``) each
+    micro-batch runs through the wrapper on this rank's m images, the
+    gradients averaged over the ranks (the mean over the global micro-batch),
+    the generator's draws the global batch's rows
+    (``parallel.global_batch_draws``); the metrics stay this rank's, and
+    a loss that is not finite on any rank skips every rank's update."""
     kw = dict(tune_decoder=tune_decoder, mask_ratio=mask_ratio, visible_loss_ratio=visible_loss_ratio,
               perceptual_loss_fn=perceptual_loss_fn, compute_dtype=compute_dtype, attn_impl=attn_impl)
 
@@ -198,19 +221,28 @@ def make_vmae_train_step(
         if x.shape[0] != grad_accum:
             raise ValueError(f"batch leading (accumulation) dim {x.shape[0]} != grad_accum={grad_accum}")
         sums = torch.zeros(len(METRIC_KEYS), device=x.device)
+        ddp = state.ddp
         for i in range(grad_accum):
-            out = vmae_loss(state.model, x[i], generator=generator,
-                            mask_noise=None if mask_noise is None else mask_noise[i],
-                            latent_noise=None if latent_noise is None else latent_noise[i], **kw)
-            out["loss"].backward()  # the gradients sum over the micro-batches
+            noise = dict(mask_noise=None if mask_noise is None else mask_noise[i],
+                         latent_noise=None if latent_noise is None else latent_noise[i])
+            last = ddp is None or i == grad_accum - 1
+            with (contextlib.nullcontext() if last else ddp.no_sync()), \
+                    (contextlib.nullcontext() if ddp is None else global_batch_draws(generator, x.shape[1])):
+                if ddp is None:
+                    out = vmae_loss(state.model, x[i], generator=generator, **noise, **kw)
+                else:
+                    out = ddp(x[i], generator=generator, **noise, **kw)
+                out["loss"].backward()  # the gradients sum over the micro-batches
             sums += torch.stack([out[k].detach().float() for k in METRIC_KEYS])
         params = [p for p in state.model.parameters() if p.grad is not None]
         if grad_accum > 1:
             with torch.no_grad():
                 torch._foreach_div_([p.grad for p in params], float(grad_accum))
         means = sums / grad_accum
-        finite = torch.isfinite(means[0])
-        apply_vmae_update_(state, schedule, bool(finite))
-        return dict(zip(METRIC_KEYS, means.unbind(0)), loss_finite=finite)
+        finite = bool(torch.isfinite(means[0]))
+        if ddp is not None:  # the gradients are averaged: one rank's non-finite loss skips every rank's update
+            finite = not any_rank(not finite)
+        apply_vmae_update_(state, schedule, finite)
+        return dict(zip(METRIC_KEYS, means.unbind(0)), loss_finite=torch.tensor(finite))
 
     return train_step

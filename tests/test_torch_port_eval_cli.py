@@ -121,7 +121,8 @@ def test_inference_fid_pass_and_computed_stats(tmp_path, monkeypatch, skip):
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     out_dir = inference.main(["--config", path, "--device", "cpu"] + (["--skip_fid"] if skip else []))
-    assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png"]
+    # the PNGs and the stream-identity manifest of the batch-level resume
+    assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png", "resume_manifest.json"]
     assert calls == ([] if skip else [([ref, out_dir], {"sp_len": 2, "device": "cpu"})])
     stats = tld._load_stats(os.path.join(data, "latents_stats.pt"))
     expect = tld.ImgLatentDataset(data, latent_norm=False).compute_latent_stats()

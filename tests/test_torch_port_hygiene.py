@@ -308,7 +308,8 @@ def test_cli_writes_pngs_on_cpu(tmp_path):
 
     cfg = _tiny_config(tmp_path)
     out_dir = inference.do_sample(cfg, device="cpu")
-    assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png", "000002.png"]
+    # the PNGs and the stream-identity manifest of the batch-level resume
+    assert sorted(os.listdir(out_dir)) == ["000000.png", "000001.png", "000002.png", "resume_manifest.json"]
     assert os.path.basename(out_dir) == inference.folder_name(cfg)
 
 

@@ -574,15 +574,16 @@ def test_train_cli_sigterm_saves_a_preemption_checkpoint(tmp_path, shards, monke
     raw["data"]["valid_path"] = shards
     raw["train"]["ckpt_every"] = 1
     open(cfg, "w").write(yaml.safe_dump(raw))
-    real = ImgLatentDataset.iter_batches
+    taken = []
 
-    def iter_batches(self, *a, **kw):
-        for i, batch in enumerate(real(self, *a, **kw)):
-            if i == 2 and kw.get("shuffle", True):  # the training stream, as step 3 starts
+    class Prefetcher(train_dit.Prefetcher):  # the training stream's background reader
+        def __next__(self):
+            taken.append(1)
+            if len(taken) == 3:  # as step 3 starts, on the training loop's thread
                 os.kill(os.getpid(), signal.SIGTERM)
-            yield batch
+            return super().__next__()
 
-    monkeypatch.setattr(ImgLatentDataset, "iter_batches", iter_batches)
+    monkeypatch.setattr(train_dit, "Prefetcher", Prefetcher)
     mine = signal.signal(signal.SIGTERM, signal.SIG_IGN)
     try:
         out = train_dit.main(["--config", cfg, "--device", "cpu"])

@@ -111,14 +111,15 @@ def test_non_finite_loss_warns_and_skips(image_folder, tmp_path, capsys):  # noq
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--gradual_resol", "--tune_decoder"], ValueError, "gradual_resol"),
-    (["--dp", "4"], NotImplementedError, "ROADMAP.md"),
+    (["--dp", "4"], AssertionError, "mesh 4x1x1 != 1 devices"),  # create_mesh's check, as in the JAX package
     (["--profile_dir", "trace"], NotImplementedError, "ROADMAP.md"),
     (["--resume", "."], NotImplementedError, "ROADMAP.md"),
 ], ids=["gradual_resol", "dp", "profile", "orbax_resume"])
 def test_options_not_ported_raise(flags, error, match, image_folder, tmp_path):  # noqa: F811
     """The options the port refuses. ``--gradual_resol`` is ported for stage
     1 (``tests/test_torch_port_vmae_variants.py``); with ``--tune_decoder``,
-    which has no gradual form, it raises before any model is built."""
+    which has no gradual form, it raises before any model is built. ``--dp
+    4`` in one process is a mesh that does not match the world size."""
     with pytest.raises(error, match=match):
         train_vmae.main(["--data_path", image_folder, "--output_dir", str(tmp_path), "--device", "cpu",
                          *TINY, *flags])
