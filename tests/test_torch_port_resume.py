@@ -67,7 +67,12 @@ def _jax_stream(cfg_path, out_root, rank, world, monkeypatch):
         labels.append(np.asarray(y))
         return jnp.zeros((len(y), 8, 8, 3), jnp.uint8)
 
+    def pil_pngs(images, paths, level=1, num_threads=0):  # the JAX writer without its g++ build
+        for img, path in zip(images, paths):
+            Image.fromarray(img).save(path, format="PNG")
+
     monkeypatch.setattr(jinference, "build_pipeline", lambda config, demo=False: (fake, {}, None))
+    monkeypatch.setattr("ldmae_tpu.data.native_io.write_pngs", pil_pngs)
     monkeypatch.setattr(jax, "jit", lambda f, **kw: f)
     monkeypatch.setattr(jax, "process_index", lambda: rank)
     monkeypatch.setattr(jax, "process_count", lambda: world)
