@@ -139,6 +139,18 @@ def test_create_mesh_raises_as_the_jax_function(kw, error, match):
         tmesh.create_mesh(**kw)
 
 
+@pytest.mark.parametrize("cli,flags", [("train_dit", ["--fsdp", "2"]), ("train_dit", ["--tp", "2"]),
+                                       ("inference", ["--tp", "2"])], ids=["train_dit-fsdp", "train_dit-tp",
+                                                                           "inference-tp"])
+def test_clis_raise_for_fsdp_and_tp(cli, flags, tmp_path):
+    """The CLIs refuse fsdp / tp above 1 before they read the config."""
+    import importlib
+
+    main = importlib.import_module(f"ldmae_tpu_torch.cli.{cli}").main
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+        main(["--config", str(tmp_path / "unread.yaml"), "--device", "cpu", *flags])
+
+
 def test_create_mesh_without_a_group():
     assert tmesh.create_mesh() is None and tmesh.create_mesh(dp=1) is None
     assert tmesh.wrap_data_parallel(torch.nn.Linear(2, 2)) is None
