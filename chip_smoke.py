@@ -61,6 +61,41 @@ attention bounds), then:
      10-step w8a8 latents against the bf16 latents from the same noise
      (relative L2 error within ``QUANT_REL_MAX``), and two wrongly
      quantized DiTs, which must read above that bound;
+  4b. the sampler slice (also alone under ``--samplers``): the same B/1 +
+     VMAE pipeline through ``make_sample_fn`` in each sampling mode the
+     sampling CLI reads from its YAML, batch 8, CFG 10 on [0.10, 1], bf16,
+     each leg timed (seconds per batch, images/s) with its launches counted
+     from 0 and checked exactly. The SDE legs run the Linear path with noise
+     prediction and eps 1e-3 (the production velocity transport's eps 0
+     starts the SBDM SDE at t0 = 0, where its 1/t drift is infinite); each
+     SDE drift evaluation is one DiT forward. Doubled forwards a batch and
+     launches (dense besides: 53 a forward, 51 the decode):
+
+       leg                              forwards   #1      #3      #4     #2  #6
+       SDE Euler, 250 steps, Mean       249 + 1    3,000   6,000   3,000  12  -
+       SDE Heun, 50 steps               49x2 + 1   1,188   2,376   1,188  12  -
+       ODE RK4, 50 steps, shift 0.3     49x4       2,352   4,704   2,352  12  -
+       ODE dopri5 (rtol 1e-3, atol      1 + 6 x    12 a forward, from the
+         1e-6; at most 100 attempted)   attempted  solver's own tally
+       likelihood, rk4, 20 nodes,       19x4       912     1,824   0      -   912
+         unguided batch 8, fp32 state   (batch 8; the MLP xla, #4 having no
+                                        backward; dense 65 an evaluation)
+       ODE Euler 250 under sdpa         68 + 181   0       5,976   2,988  0   -
+         (phased CFG; decode under sdpa too; beside the flash_rope
+         pipeline, the two in turns: #1's end-to-end library yardstick)
+
+     Two SDE Euler batches from ``torch.Generator(device).manual_seed(0)``
+     are pixel for pixel equal (control: the same z, other SDE noise). The
+     likelihood (``transport.adaptive.make_likelihood_fn``) is of the bf16
+     ODE pipeline's latents. Gates, each with a control that must fail:
+     10-step latents of the SDE Euler, SDE Heun, RK4 and sdpa legs with the
+     kernels against the same leg under xla with the same z and injected
+     SDE noise within 5e-2 of their scale (control: another SDE noise draw,
+     for the ODE legs another z); dopri5 in fp32, 8 attempted steps, kernels
+     against xla within 1e-3, both tallies reported; the likelihood at 5
+     nodes, per-sample logp within 1e-4 relative and the divergence
+     integral within 5e-2 of its scale (control: eps = 0). Its own JSON line
+     ``{"samplers": ...}``;
   5. holds the two flash-attention backward kernels, given the forward's
      output and lse as the autograd Functions give them, against their plain
      backward at the DiT training shapes (32, 12, 1024, 64) bf16 by a
@@ -172,7 +207,8 @@ call, #1, #2) and the 10-step sampling seconds under flash_rope, flash_qkr
 and flash_fused.
 
 ``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
-``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone.
+``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
+``--samplers`` phase 4b alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -3849,6 +3885,379 @@ def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     }
 
 
+# -- the sampler slice: SDE Euler / Heun, RK4, dopri5, the likelihood and the
+# sdpa attention impl through the sampling entry points, B/1 at full width and
+# depth, batch 8 (16 under CFG)
+SDE_STEPS, HEUN_STEPS, RK4_STEPS, LIK_STEPS, LIK_GATE_STEPS = 250, 50, 50, 20, 5
+DOPRI5_MAX_STEPS = 100  # attempted steps of the bf16 dopri5 leg (the solver's default is 1000)
+DOPRI5_GATE_MAX_STEPS = 8  # of the fp32 kernels-vs-plain dopri5 comparison
+# The SDE legs' transport: the linear path with noise prediction and eps 1e-3,
+# as the JAX package's own SDE tests run it; the production velocity
+# transport's eps 0 starts the SBDM SDE at t0 = 0, where ICPlan's 1/t drift
+# ratio is infinite (in the reference too). The DiT's forward, and so its
+# kernels, are the same whatever the prediction type.
+SDE_TRANSPORT = dict(path_type="Linear", prediction="noise", train_eps=1e-3, sample_eps=1e-3)
+SAMPLER_LEGS = {"sde_euler": ("SDE", "euler"), "sde_heun": ("SDE", "heun"), "rk4": ("ODE", "rk4"),
+                "dopri5": ("ODE", "dopri5"), "sdpa": ("ODE", "euler")}
+SAMPLER_LAT_REL = 5e-2  # 10-step latents, kernels vs plain: the ODE gate's bound
+DOPRI5_F32_REL = 1e-3  # fp32 final latents, kernels vs plain (summation order only)
+# The likelihood, kernels vs plain, both bf16 compute on an fp32 state: the
+# per-sample logp is about prior(z) (-2.3e4 at 16,384 dimensions), so z's
+# bf16 roundings move it by about 1e-5 of itself: bound 1e-4. The divergence
+# integral prior(z) - logp is a few thousandths of logp, so it is held
+# apart, relative to its own scale: bound 5e-2 (bf16 noise in eps^T J eps
+# summed over 16,384 terms); the control without it (eps = 0) reads 1 there.
+LIK_LOGP_REL, LIK_DIV_REL = 1e-4, 5e-2
+
+
+def _sampler_launches(forwards: int, attn: str = "flash_attention_rope", decode: bool = True) -> dict:
+    """Exact counts of ``forwards`` B/1 forwards (bf16, fused adaLN and MLP)
+    and a VMAE decode under flash_rope (#2's resident kernel) or sdpa."""
+    n = forwards * DEPTH
+    out = _NONE | {"fused_norm_modulate": 2 * n, "fused_matmul_silu": n,
+                   "dense_bias_f32": forwards * _DENSE_FWD + (_DENSE_DECODE if decode else 0)}
+    if attn:
+        out[attn] = n
+    if decode and attn:
+        out["flash_attention_resident"] = DEC_DEPTH
+    return out
+
+
+_LIK_EVALS = (LIK_STEPS - 1) * 4
+EXPECTED_LAUNCHES |= {
+    "sde_euler": _sampler_launches(SDE_STEPS),  # 249 steps and the Mean step: one forward each
+    "sde_heun": _sampler_launches((HEUN_STEPS - 1) * 2 + 1),
+    "rk4": _sampler_launches((RK4_STEPS - 1) * 4),
+    "sdpa": _sampler_launches(STEPS - 1, attn=None),
+    # unguided batch of 8, the MLP xla (#4 has no backward): per drift
+    # evaluation a forward (#1, #3 twice, dense 5 + 5 a block) and #6 a block
+    "likelihood": _NONE | {"flash_attention_rope": _LIK_EVALS * DEPTH, "flash_attention_rope_bwd": _LIK_EVALS * DEPTH,
+                           "fused_norm_modulate": 2 * _LIK_EVALS * DEPTH, "dense_bias_f32": _LIK_EVALS * (5 + 5 * DEPTH)},
+}
+
+
+def sampler_leg(spec, dev, leg: str, steps: int, kernels: bool = True, dtype=None, decode_fn=None):
+    """make_sample_fn for one leg of SAMPLER_LEGS: CFG 10 on [0.10, 1], the
+    first 3 channels guided, timestep shift 0.3 (the ODE legs), the kernel
+    impls (sdpa: the library attention) or the plain xla ones."""
+    import torch
+
+    from ldmae_tpu_torch.eval.sampling import make_sample_fn
+    from ldmae_tpu_torch.transport import create_transport
+
+    mode, method = SAMPLER_LEGS[leg]
+    transport = (create_transport(**SDE_TRANSPORT) if mode == "SDE"
+                 else create_transport("Linear", "velocity", use_lognorm=True))
+    impls = (dict(attn_impl="sdpa" if leg == "sdpa" else "flash_rope", adaln_impl="fused", mlp_impl="fused")
+             if kernels else dict(attn_impl="xla", adaln_impl="xla", mlp_impl="xla"))
+    return make_sample_fn(
+        spec, transport, num_steps=steps, sampling_method=method, mode=mode, timestep_shift=SHIFT,
+        cfg_scale=CFG_SCALE, cfg_interval=True, cfg_interval_start=CFG_START, cfg_channels=3,
+        compute_dtype=dtype or torch.bfloat16, rope_layout="half", device=dev, vae_decode_images_fn=decode_fn,
+        **impls)
+
+
+@contextlib.contextmanager
+def dopri5_cap(max_steps: int):
+    """The sampler's dopri5 with ``max_steps`` attempted steps (its tallies
+    still counted on ``adaptive.dopri5``)."""
+    import functools
+
+    from ldmae_tpu_torch.transport import adaptive, samplers
+
+    samplers.dopri5 = functools.partial(adaptive.dopri5, max_steps=max_steps)
+    try:
+        yield
+    finally:
+        samplers.dopri5 = adaptive.dopri5
+
+
+def timed_leg(name: str, fn, counts_path=None):
+    """One batch through ``fn`` (returning images or latents), launches
+    counted from 0 and, with ``counts_path``, checked exactly; returns
+    (output, launch counts, seconds)."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts_path:
+        check_counts(counts_path, counts)
+    log(f"  {name}: {seconds:.4f} s per batch of {BATCH}, {BATCH / seconds:.4f} images/s")
+    return out, counts, seconds
+
+
+def check_images(what: str, imgs) -> None:
+    import torch
+
+    if imgs.shape != (BATCH, 256, 256, 3) or imgs.dtype != torch.uint8:
+        raise SystemExit(f"{what}: images {tuple(imgs.shape)} {imgs.dtype}, expected ({BATCH}, 256, 256, 3) uint8")
+    if not float(imgs.float().std()) > 1.0:
+        raise SystemExit(f"{what}: images are flat: the pipeline did not move them")
+
+
+def sampler_gates(spec, bundle, y, dev) -> dict:
+    """SHORT_STEPS-step latents of the SDE Euler, SDE Heun, RK4 and sdpa legs
+    with the kernels against the same leg under xla/xla/xla, the same z and
+    (SDE) the same injected noise, within SAMPLER_LAT_REL of their scale;
+    the control feeds the plain leg another SDE noise draw (the ODE legs:
+    another z) and must read above the bound."""
+    import torch
+
+    latents = bundle | {"vae": None}
+    gen = torch.Generator(device=dev)
+    z = torch.randn(BATCH, 16, 32, 32, generator=gen.manual_seed(2), device=dev)
+    z_other = torch.randn(BATCH, 16, 32, 32, generator=gen.manual_seed(3), device=dev)
+
+    def draws(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(2 * BATCH, 16, 32, 32, generator=g, device=dev, dtype=torch.bfloat16)
+                for _ in range(SHORT_STEPS - 1)]
+
+    readings = {}
+    for leg in ("sde_euler", "sde_heun", "rk4", "sdpa"):
+        sde = SAMPLER_LEGS[leg][0] == "SDE"
+        kw, other = (dict(sde_noise=draws(4)), dict(z=z, sde_noise=draws(5))) if sde else ({}, dict(z=z_other))
+        lat_k = sampler_leg(spec, dev, leg, SHORT_STEPS)(latents, y, z=z, **kw)
+        plain = sampler_leg(spec, dev, leg, SHORT_STEPS, kernels=False)
+        lat_x = plain(latents, y, z=z, **kw)
+        lat_c = plain(latents, y, **other)
+        if not (torch.isfinite(lat_k).all() and lat_k.shape == (BATCH, 16, 32, 32)):
+            raise SystemExit(f"{leg}: latents are not finite ({BATCH}, 16, 32, 32)")
+        scale = float(lat_x.abs().max())
+        rel, ctl = float((lat_k - lat_x).abs().max()) / scale, float((lat_c - lat_k).abs().max()) / scale
+        ok = rel <= SAMPLER_LAT_REL < ctl
+        log(f"[samplers] {SHORT_STEPS} steps, {leg}: kernels vs xla max rel err {rel:.6g} (bound {SAMPLER_LAT_REL:g}; "
+            f"latent scale {scale:.6g}); control ({'another SDE noise draw' if sde else 'another z'}) {ctl:.6g} "
+            f"(must exceed the bound) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{leg}: the kernel path and the plain path disagree, or the control passed")
+        readings[leg] = {"rel": rel, "control": ctl, "scale": scale}
+    return readings
+
+
+def dopri5_gate(spec, bundle, y, dev) -> dict:
+    """fp32 compute (state and DiT): DOPRI5_GATE_MAX_STEPS attempted dopri5
+    steps with the fp32 kernels against the fp32 plain impls from the same
+    z; the final latents within DOPRI5_F32_REL of their scale, and the two
+    runs' accepted/rejected tallies reported (equal when no decision sits on
+    a rounding)."""
+    import torch
+
+    from ldmae_tpu_torch.transport import adaptive
+
+    latents = bundle | {"vae": None}
+    z = torch.randn(BATCH, 16, 32, 32, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    out, tallies = {}, {}
+    with dopri5_cap(DOPRI5_GATE_MAX_STEPS):
+        for kernels in (True, False):
+            adaptive.dopri5.accepted = adaptive.dopri5.rejected = 0
+            out[kernels] = sampler_leg(spec, dev, "dopri5", 2, kernels=kernels, dtype=torch.float32)(latents, y, z=z)
+            tallies[kernels] = (adaptive.dopri5.accepted, adaptive.dopri5.rejected)
+    scale = float(out[False].abs().max())
+    rel = float((out[True] - out[False]).abs().max()) / scale
+    ok = rel <= DOPRI5_F32_REL and bool(torch.isfinite(out[True]).all())
+    log(f"[samplers] dopri5 fp32, {DOPRI5_GATE_MAX_STEPS} attempted steps: kernels vs xla max rel err {rel:.6g} "
+        f"(bound {DOPRI5_F32_REL:g}); accepted/rejected kernels {tallies[True]}, plain {tallies[False]} "
+        f"({'matched' if tallies[True] == tallies[False] else 'differ'}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("dopri5: the fp32 kernel path and the plain path disagree")
+    return {"rel": rel, "tally_kernels": tallies[True], "tally_plain": tallies[False]}
+
+
+def likelihood_run(spec, bundle, x, y, dev, steps: int, kernels: bool = True, eps=None):
+    """(logp, z) of the fp32 latents x through the probability-flow ODE
+    (rk4, ``steps`` grid nodes, the production velocity transport), the DiT
+    in bf16: flash_rope (#1 forward, #6 backward), the fused adaLN (#3 and
+    its plain fp32 backward), the MLP xla (#4 is forward only); or all xla."""
+    import torch
+
+    from ldmae_tpu_torch.transport import create_transport
+    from ldmae_tpu_torch.transport.adaptive import make_likelihood_fn
+
+    dit = bundle["dit"]
+    impls = (dict(attn_impl="flash_rope", adaln_impl="fused", mlp_impl="xla") if kernels
+             else dict(attn_impl="xla", adaln_impl="xla", mlp_impl="xla"))
+
+    def model_fn(xx, t, y):
+        return dit(xx, t, y, compute_dtype=torch.bfloat16, rope_layout="half", **impls).to(xx.dtype)
+
+    fn = make_likelihood_fn(create_transport("Linear", "velocity", use_lognorm=True), steps, "rk4")
+    if eps is None:
+        eps = torch.randint(0, 2, x.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev) * 2.0 - 1
+    return fn(x, model_fn, eps=eps, module=dit, y=y)
+
+
+def likelihood_gate(spec, bundle, x, y, dev) -> dict:
+    """LIK_GATE_STEPS grid nodes: per-sample logp of the kernel path against
+    the plain path within LIK_LOGP_REL, and the divergence integral
+    prior(z) - logp within LIK_DIV_REL of its scale; the control drops the
+    divergence (eps = 0) and must read above that bound."""
+    import torch
+
+    from ldmae_tpu_torch.transport.adaptive import prior_logp
+
+    (lk, zk), (lx, zx) = (likelihood_run(spec, bundle, x, y, dev, LIK_GATE_STEPS, kernels=k) for k in (True, False))
+    lc, zc = likelihood_run(spec, bundle, x, y, dev, LIK_GATE_STEPS, eps=torch.zeros_like(x))
+    div_k, div_x, div_c = (prior_logp(z) - lp for z, lp in ((zk, lk), (zx, lx), (zc, lc)))
+    div_scale = float(div_x.abs().max())
+    logp_rel = float(((lk - lx).abs() / lx.abs()).max())
+    div_rel, ctl = (float((d - div_x).abs().max()) / div_scale for d in (div_k, div_c))
+    z_rel = float((zk - zx).abs().max() / zx.abs().max())
+    ok = logp_rel <= LIK_LOGP_REL and div_rel <= LIK_DIV_REL < ctl and bool(torch.isfinite(lk).all())
+    log(f"[samplers] likelihood, {LIK_GATE_STEPS} nodes: logp kernels {[round(v, 3) for v in lk.tolist()]}, "
+        f"plain {[round(v, 3) for v in lx.tolist()]}; max rel err {logp_rel:.6g} (bound {LIK_LOGP_REL:g}); "
+        f"divergence integral plain {[round(v, 4) for v in div_x.tolist()]}, kernels' max err {div_rel:.6g} of its "
+        f"scale (bound {LIK_DIV_REL:g}); control without it {ctl:.6g} (must exceed); z max rel err {z_rel:.6g} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("likelihood: the kernel path and the plain path disagree, or the control passed")
+    return {"logp_rel": logp_rel, "div_rel": div_rel, "control": ctl, "z_rel": z_rel, "div_scale": div_scale}
+
+
+def samplers_phase(dev) -> dict:
+    """Each leg of SAMPLER_LEGS and the likelihood at full width and depth,
+    batch 8, timed with exact launch counts (dopri5's from its tallies); the
+    SDE resume pixel for pixel; the bf16 ODE Euler pipeline under sdpa beside
+    flash_rope's, alternated; then the gates."""
+    import torch
+
+    from ldmae_tpu_torch.transport import adaptive
+
+    t_phase = time.perf_counter()
+    spec, bundle = build_models(dev)
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    record = {"legs": {}, "counts": {}}
+
+    def keep(leg, counts, seconds, **extra):
+        record["legs"][leg] = {"seconds": seconds, "images_per_s": BATCH / seconds} | extra
+        record["counts"][leg] = counts
+
+    log(f"[samplers] LightningDiT-B/1 + VMAE f8d16_prev, batch {BATCH}, CFG {CFG_SCALE} on [{CFG_START}, 1], "
+        f"bf16; SDE legs on the Linear/noise transport, eps 1e-3")
+    for leg, steps in (("sde_euler", 4), ("sde_heun", 4), ("rk4", 4)):  # warm-up
+        sampler_leg(spec, dev, leg, steps)(bundle | {"vae": None}, y, generator=torch.Generator(device=dev).manual_seed(1))
+
+    # SDE Euler (Mean last step), with its latents kept from the decode
+    kept = []
+
+    def decode_keeping(v, lat):
+        kept.append(lat)
+        return v.decode_to_images(lat, compute_dtype=torch.bfloat16, attn_impl="flash_rope")
+
+    fn = sampler_leg(spec, dev, "sde_euler", SDE_STEPS, decode_fn=decode_keeping)
+    imgs, counts, sec = timed_leg(f"SDE Euler, {SDE_STEPS} steps, Mean last step",
+                                  lambda: fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(0)),
+                                  "sde_euler")
+    check_images("sde_euler", imgs)
+    sde_scale = float(kept[0].abs().max())
+    keep("sde_euler", counts, sec, latent_scale=sde_scale)
+    # the resume: a batch from a generator seeded alike is the same batch;
+    # control: the same z (the generator's first draws), other SDE noise
+    again = fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(0)
+    z0 = torch.randn(BATCH, 16, 32, 32, generator=g, device=dev)
+    ctl = fn(bundle, y, z=z0, sde_noise=[torch.randn(2 * BATCH, 16, 32, 32, generator=g, device=dev,
+                                                     dtype=torch.bfloat16) * -1 for _ in range(SDE_STEPS - 1)])
+    same, ctl_diff = int((again.int() - imgs.int()).abs().max()), int((ctl.int() - imgs.int()).abs().max())
+    log(f"  SDE resume: a second batch from manual_seed(0) differs by {same} levels (must be 0); the control with "
+        f"the same z and negated SDE noise by {ctl_diff} (must be > 0) -> {'ok' if same == 0 < ctl_diff else 'FAIL'}")
+    if not same == 0 < ctl_diff:
+        raise SystemExit("SDE resume: the batch is not reproduced from its generator, or the control matched")
+    record["sde_resume"] = {"max_level_diff": same, "control": ctl_diff}
+
+    for leg, steps, what in (("sde_heun", HEUN_STEPS, f"SDE Heun, {HEUN_STEPS} steps"),
+                             ("rk4", RK4_STEPS, f"ODE RK4, {RK4_STEPS} steps, shift {SHIFT}")):
+        fn = sampler_leg(spec, dev, leg, steps)
+        imgs, counts, sec = timed_leg(what, lambda: fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(0)),
+                                      leg)
+        check_images(leg, imgs)
+        keep(leg, counts, sec)
+
+    # dopri5 (bf16, rtol 1e-3, atol 1e-6 as the sampling CLI runs it), capped
+    fn = sampler_leg(spec, dev, "dopri5", 2)
+    adaptive.dopri5.accepted = adaptive.dopri5.rejected = 0
+    with dopri5_cap(DOPRI5_MAX_STEPS):
+        imgs, counts, sec = timed_leg(f"ODE dopri5, at most {DOPRI5_MAX_STEPS} attempted steps",
+                                      lambda: fn(bundle, y, generator=torch.Generator(device=dev).manual_seed(0)))
+    acc, rej = adaptive.dopri5.accepted, adaptive.dopri5.rejected
+    EXPECTED_LAUNCHES["dopri5"] = _sampler_launches(1 + 6 * (acc + rej))
+    log(f"  dopri5: {acc} accepted, {rej} rejected steps (cap {DOPRI5_MAX_STEPS} attempted"
+        f"{', reached' if acc + rej >= DOPRI5_MAX_STEPS else ''}): {1 + 6 * (acc + rej)} doubled forwards")
+    check_counts("dopri5", counts)
+    check_images("dopri5", imgs)
+    keep("dopri5", counts, sec, accepted=acc, rejected=rej, max_steps=DOPRI5_MAX_STEPS)
+
+    # the bf16 ODE Euler pipeline under sdpa beside flash_rope's, in turns
+    fns = {"flash_rope": sampler(spec, STEPS, dev, kernels=True),
+           "sdpa": sampler_leg(spec, dev, "sdpa", STEPS)}
+    sampler_leg(spec, dev, "sdpa", 4)(bundle, y, generator=torch.Generator(device=dev).manual_seed(1))
+    seconds = {"flash_rope": [], "sdpa": []}
+    images = {}
+    for impl in ("flash_rope", "sdpa", "sdpa", "flash_rope"):
+        out, counts, sec = timed_leg(f"ODE Euler {STEPS} steps (phased CFG) under {impl}",
+                                     lambda: fns[impl](bundle, y, generator=torch.Generator(device=dev).manual_seed(0)),
+                                     "sdpa" if impl == "sdpa" else "bf16")
+        seconds[impl].append(sec)
+        images[impl] = out
+        if impl == "sdpa":
+            record["counts"]["sdpa"] = counts
+    check_images("sdpa", images["sdpa"])
+    px = int((images["sdpa"].int() - images["flash_rope"].int()).abs().max())
+    log(f"  sdpa vs flash_rope {STEPS}-step images, same noise: max difference {px} levels (bf16 roundings; "
+        f"the 10-step gate below holds the latents)")
+    record["legs"]["sdpa"] = {"seconds": seconds["sdpa"], "flash_rope_seconds": seconds["flash_rope"]}
+
+    # the likelihood of the bf16 ODE pipeline's latents (fp32 state); the SDE
+    # legs' latents grow to the scale printed above under the random
+    # noise-predicting DiT, where an fp32 logp (about -|x|^2 / 2) no longer
+    # resolves the divergence
+    x = sampler(spec, STEPS, dev, kernels=True)(bundle | {"vae": None}, y,
+                                                generator=torch.Generator(device=dev).manual_seed(0)).float()
+    likelihood_run(spec, bundle, x, y, dev, 3)  # warm-up
+    (logp, z), counts, sec = timed_leg(f"likelihood, rk4 over {LIK_STEPS} nodes ({_LIK_EVALS} drift evaluations), "
+                                       f"unguided, fp32 state", lambda: likelihood_run(spec, bundle, x, y, dev, LIK_STEPS),
+                                       "likelihood")
+    if not (torch.isfinite(logp).all() and logp.shape == (BATCH,) and torch.isfinite(z).all()):
+        raise SystemExit("likelihood: logp or z not finite")
+    log(f"  logp per sample {[round(v, 3) for v in logp.tolist()]}; latent scale {float(x.abs().max()):.4g}; "
+        f"grads of the DiT's parameters left unset: {all(p.grad is None for p in bundle['dit'].parameters())}")
+    keep("likelihood", counts, sec, logp=logp.tolist())
+
+    log(f"[samplers] gates: {SHORT_STEPS} steps, kernels vs plain")
+    record["gates"] = sampler_gates(spec, bundle, y, dev)
+    record["gates"]["dopri5"] = dopri5_gate(spec, bundle, y, dev)
+    record["gates"]["likelihood"] = likelihood_gate(spec, bundle, x, y, dev)
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"[samplers] phase: {record['seconds']:.2f} s")
+    del bundle
+    torch.cuda.empty_cache()
+    return record
+
+
+def samplers_only(dev, smi: str) -> int:
+    """``--samplers``: build, then the sampler phase alone."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    record = samplers_phase(dev)
+    log(json.dumps({"samplers": record}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _load_shard_len(path: str) -> int:
     from ldmae_tpu_torch.data.latent_dataset import read_safetensors
 
@@ -3952,6 +4361,8 @@ def main() -> int:
         return tokenizers_only(dev, smi)
     if "--multiproc" in sys.argv[1:]:
         return multiproc_only(dev, smi)
+    if "--samplers" in sys.argv[1:]:
+        return samplers_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -3986,6 +4397,8 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     result = pipeline_phases(dev, profile=profile)
     result["counts"] |= vmae_decode_phase(dev)
+    samplers = samplers_phase(dev)
+    result["counts"] |= samplers["counts"]
     grad_check_phase(dev)
     for layout in ("half", "interleaved"):
         path = f"grad_fp32_{layout}"
@@ -4025,6 +4438,8 @@ def main() -> int:
     log(json.dumps({"vmae_train_kernels": vmae_rows}))
     # the two-rank and NCCL legs of the multi-process slice
     log(json.dumps({"multiproc": multiproc}))
+    # the sampler slice's legs, launches, gates
+    log(json.dumps({"samplers": samplers}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,8 +9,10 @@ uses seeded random weights; the tokenizer that ``vae.model_name`` names
 (``models.tokenizers.build_tokenizer_fns``: the VMAE, the SD-VAE, VA-VAE or
 MAR-VAE; an unknown name raises) from ``vae.weight_path`` (a path that names
 no file raises, an empty one means seeded weights), which decodes under
-``parallel.attention_impl``. Writes PNGs (``--demo``: the reference's 2x4
-demo grid).
+``parallel.attention_impl``. Samples in the YAML's ``sample.mode`` (ODE or
+SDE) and ``sample.sampling_method`` (ODE: euler, heun, rk4, dopri5 at
+``Sampler.sample_ode``'s rtol/atol, as the JAX CLI runs it; SDE: euler,
+heun). Writes PNGs (``--demo``: the reference's 2x4 demo grid).
 
 After sampling (not with ``--demo`` or ``--skip_fid``) it computes the FID
 of the samples against ``data.fid_reference_file`` where that file exists.

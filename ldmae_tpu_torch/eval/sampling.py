@@ -1,12 +1,15 @@
 """End-to-end class-conditional sampling (port of ``ldmae_tpu/eval/sampling.py``).
 
-The Euler ODE with CFG batch doubling, the latent denormalisation
-``samples * latent_std / latent_multiplier + latent_mean`` and the decode
-to uint8 images: by the VMAE, or by any tokenizer through
-``vae_decode_images_fn`` (``models.tokenizers.build_tokenizer_fns``). Phased CFG: below ``cfg_interval_start`` guidance
-is inactive, so the leading steps of the static Euler grid run at single
-batch and the batch doubles at the phase boundary ``n1``, the same split
-as the JAX package.
+The ODE (Euler, Heun, RK4 or adaptive dopri5) or the SDE (Euler-Maruyama
+or Heun, then the ``sde_last_step`` rule) with CFG batch doubling, the
+latent denormalisation ``samples * latent_std / latent_multiplier +
+latent_mean`` and the decode to uint8 images: by the VMAE, or by any
+tokenizer through ``vae_decode_images_fn``
+(``models.tokenizers.build_tokenizer_fns``). Phased CFG (Euler ODE only, as
+in the JAX package): below ``cfg_interval_start`` guidance is inactive, so
+the leading steps of the static Euler grid run at single batch and the
+batch doubles at the phase boundary ``n1``. Every other method doubles the
+batch over the whole grid.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def make_sample_fn(
     cfg_channels: int = 3,
     truncation: Optional[float] = None,
     mode: str = "ODE",
+    sde_last_step: Optional[str] = "Mean",
     latent_multiplier: float = 1.0,
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "xla",
@@ -60,20 +64,28 @@ def make_sample_fn(
     with ``attn_impl``.
     y: (B,) int labels; CFG doubles the batch internally when cfg_scale > 1,
     with the null label num_classes. ``z`` overrides the initial noise,
-    otherwise it is drawn in float32 from ``generator``. ``quant_mode``
+    otherwise it is drawn in float32 from ``generator``. ``mode="SDE"``
+    draws its per-step noise from ``generator`` after z (a batch sampled
+    from a generator seeded alike is the same batch), or takes it from
+    ``sde_noise``: num_steps - 1 draws of the integrated state's shape
+    (the doubled batch under CFG) in ``compute_dtype``. ``quant_mode``
     ('w8' | 'w8a8') needs a DiT transformed by ``models.quantize_dit_``.
     """
     device = resolve_device(device)
-    if mode.upper() != "ODE":
-        raise NotImplementedError("SDE sampling is not ported yet (ROADMAP.md Queue 1)")
     sampler = Sampler(transport)
     use_cfg = cfg_scale > 1.0
-    ode_fn = sampler.sample_ode(
-        sampling_method=sampling_method, num_steps=num_steps, timestep_shift=timestep_shift
-    )
+    sde = mode.upper() == "SDE"
+    if sde:
+        integrate = sampler.sample_sde(
+            sampling_method=sampling_method.capitalize(), num_steps=num_steps, last_step=sde_last_step
+        )
+    else:
+        integrate = sampler.sample_ode(
+            sampling_method=sampling_method, num_steps=num_steps, timestep_shift=timestep_shift
+        )
     phase1_fn = phase2_fn = None
     if (
-        cfg_phase_split and use_cfg and cfg_interval
+        not sde and cfg_phase_split and use_cfg and cfg_interval
         and sampling_method == "euler" and cfg_interval_start is not None
     ):
         grid = sampler.ode_time_grid(num_steps, timestep_shift)
@@ -88,6 +100,7 @@ def make_sample_fn(
         y: torch.Tensor,
         z: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        sde_noise=None,
     ) -> torch.Tensor:
         dit = bundle["dit"]
 
@@ -117,15 +130,20 @@ def make_sample_fn(
                 z.normal_(generator=generator)
             z = z.to(compute_dtype)
 
+        def run(z0, fn, y_arg):
+            if sde:
+                return integrate(z0, fn, noise=sde_noise, generator=generator, y=y_arg)
+            return integrate(z0, fn, y=y_arg)
+
         if use_cfg:
             y_all = torch.cat([y, torch.full_like(y, spec.num_classes)], dim=0)
             if phase1_fn is not None:
                 z1 = phase1_fn(z, model_fn, y=y)  # sub-threshold steps, cond only
                 samples = phase2_fn(torch.cat([z1, z1], dim=0), guided_fn, y=y_all)[:b]
             else:
-                samples = ode_fn(torch.cat([z, z], dim=0), guided_fn, y=y_all)[:b]
+                samples = run(torch.cat([z, z], dim=0), guided_fn, y_all)[:b]
         else:
-            samples = ode_fn(z, model_fn, y=y)
+            samples = run(z, model_fn, y)
 
         samples = samples.float()
         if bundle.get("latent_std") is not None:

@@ -16,6 +16,10 @@ projection. ``p`` is an attention module with ``qkv`` and ``proj`` linears
   * "flash_fused": RoPE and attention on q, k, v in the (B, N, H*hd) layout
                   of the qkv projection, nothing transposed (half layout;
                   the qk-norm runs before it)
+  * "sdpa", "cudnn": ``F.scaled_dot_product_attention`` after RoPE applied
+                  here, the library call the JAX package makes for both
+                  names (``jax.nn.dot_product_attention``); no kernel of the
+                  port, and differentiable
 Without RoPE, or with the interleaved RoPE layout (applied here, outside
 the kernel), every ``flash*`` impl routes to the plain flash kernel (VMAE
 attention; DiT training with ``rope_layout: interleaved``). ``xla``,
@@ -28,6 +32,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .flash_attention import (
     flash_attention,
@@ -55,8 +60,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "xla") -
     """softmax(q k^T / sqrt(d)) v for (B, H, N, hd) operands."""
     if impl in FLASH_IMPLS:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    if impl in ("sdpa", "cudnn"):
+        return F.scaled_dot_product_attention(q, k, v)
     if impl != "xla":
-        raise NotImplementedError(f"attention impl {impl!r} is not ported (use 'xla' or 'flash*')")
+        raise ValueError(f"unknown attention impl {impl!r} (xla, sdpa, cudnn or {', '.join(FLASH_IMPLS)})")
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(weights.float(), v.float()).to(v.dtype)

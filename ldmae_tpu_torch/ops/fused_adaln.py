@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .flash_attention import _acc
+from .flash_attention import _acc, _needs_grad
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_WIDTH = 2048  # row elements the norm kernels hold in registers (64 a lane)
@@ -207,7 +207,11 @@ def fused_matmul_silu(
     (2H,) or None. Returns (..., H), or None when the shape gate of the TPU
     kernel fails (M % 128, D % 128 and 2H % 256 must all be 0), in which
     case the caller runs the unfused path. bf16 runs the wgmma kernel, fp32
-    the SIMT one (``matmul_silu_f32_kernel``)."""
+    the SIMT one (``matmul_silu_f32_kernel``). Forward only, as the JAX
+    kernel is: off the CPU, where autograd would record the call (an input
+    that requires grad, grad enabled) it raises before any launch, since
+    the kernel's output would carry no gradient to x, w12 or b12; on the
+    CPU the plain version stays differentiable."""
     d = x.shape[-1]
     m = x.numel() // d
     h2 = w12.shape[0]
@@ -215,6 +219,10 @@ def fused_matmul_silu(
         return None
     if x.device.type == "cpu":
         return fused_matmul_silu_plain(x, w12, b12)
+    if _needs_grad(x, w12, *(() if b12 is None else (b12,))):
+        raise RuntimeError(
+            "fused_matmul_silu is forward only (sampling); differentiate the DiT with mlp_impl 'xla', "
+            "or call it under torch.no_grad()")
     if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
         raise ValueError("fused_matmul_silu: x must be a contiguous bf16 or fp32 tensor")
     if w12.shape != (h2, d):

@@ -60,7 +60,9 @@ class _DenseBiasF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        return g @ weight, g.t() @ x, g.sum(0, dtype=torch.float32)
+        need_x, need_w, need_b = ctx.needs_input_grad
+        return (g @ weight if need_x else None, g.t() @ x if need_w else None,
+                g.sum(0, dtype=torch.float32) if need_b else None)
 
 
 def dense(

@@ -1,8 +1,9 @@
 """Coupling-plan path math for flow matching (port of
 ``ldmae_tpu/transport/paths.py``): the linear interpolant (ICPlan,
 alpha_t = t, sigma_t = 1 - t), the VP plan and the GVP (sin/cos) plan, with
-the interpolation and target velocity the training loss uses. ``t`` is (B,)
-and is broadcast to the data's rank."""
+the interpolation and target velocity the training loss uses, and the
+diffusion coefficients and score / velocity / noise conversions of the SDE
+sampler. ``t`` is (B,) and is broadcast to the data's rank."""
 
 from __future__ import annotations
 
@@ -36,6 +37,45 @@ class ICPlan:
         alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t)
         sigma_t, d_sigma_t = self.compute_sigma_t(t)
         return -alpha_ratio * x, alpha_ratio * (sigma_t**2) - sigma_t * d_sigma_t
+
+    def compute_diffusion(self, x, t, form: str = "constant", norm: float = 1.0):
+        """The SDE's diffusion coefficient w(t); ``form`` keeps the
+        reference's names, its misspelled ``inccreasing-decreasing`` too."""
+        t = expand_t_like_x(t, x)
+        if form == "constant":
+            return torch.tensor(norm, device=x.device)
+        if form == "SBDM":
+            return norm * self.compute_drift(x, t)[1]
+        if form == "sigma":
+            return norm * self.compute_sigma_t(t)[0]
+        if form == "linear":
+            return norm * (1 - t)
+        if form == "decreasing":
+            return 0.25 * (norm * torch.cos(math.pi * t) + 1) ** 2
+        if form == "inccreasing-decreasing":  # sic, the reference's spelling
+            return norm * torch.sin(math.pi * t) ** 2
+        raise NotImplementedError(f"Diffusion form {form} not implemented")
+
+    def get_score_from_velocity(self, velocity, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = sigma_t**2 - reverse_alpha_ratio * d_sigma_t * sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def get_noise_from_velocity(self, velocity, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = reverse_alpha_ratio * d_sigma_t - sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+    def get_velocity_from_score(self, score, x, t):
+        t = expand_t_like_x(t, x)
+        drift, var = self.compute_drift(x, t)
+        return var * score - drift
 
     def compute_mu_t(self, t, x0, x1):
         t = expand_t_like_x(t, x1)

@@ -1,6 +1,6 @@
 """Flow-matching transport (port of ``ldmae_tpu/transport/transport.py``):
 the training losses, the t sampling they use, ``check_interval``,
-``get_drift`` and ``create_transport``.
+``get_drift``, ``get_score`` and ``create_transport``.
 
 Randomness comes from an explicit ``torch.Generator``; torch and JAX draw
 different numbers from one seed, so the tests inject the noise ``x0`` and
@@ -229,6 +229,42 @@ class Transport:
         if self.model_type == ModelType.SCORE:
             return score_ode
         return velocity_ode
+
+    def get_score(self):
+        """score(x, t, model, **kwargs): the model's output as a score."""
+        def noise_score(x, t, model, **kwargs):
+            return model(x, t, **kwargs) / -self.path_sampler.compute_sigma_t(expand_t_like_x(t, x))[0]
+
+        def score(x, t, model, **kwargs):
+            return model(x, t, **kwargs)
+
+        def velocity_score(x, t, model, **kwargs):
+            return self.path_sampler.get_score_from_velocity(model(x, t, **kwargs), x, t)
+
+        if self.model_type == ModelType.NOISE:
+            return noise_score
+        if self.model_type == ModelType.SCORE:
+            return score
+        return velocity_score
+
+    def get_drift_and_score(self):
+        """(drift, score)(x, t, model, **kwargs) from ONE model evaluation.
+        The JAX sampler calls ``get_drift()`` and ``get_score()`` apart, each
+        evaluating the model, and under ``jax.jit`` XLA merges the two
+        identical forwards; run eagerly they would be two DiT forwards. Both
+        formulas here read the one output, so the numbers are the same and
+        the forwards halve."""
+        drift, score = self.get_drift(), self.get_score()
+
+        def drift_and_score(x, t, model, **kwargs):
+            out = model(x, t, **kwargs)
+
+            def evaluated(*args, **kw):
+                return out
+
+            return drift(x, t, evaluated), score(x, t, evaluated)
+
+        return drift_and_score
 
 
 def create_transport(

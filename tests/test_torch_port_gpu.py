@@ -1249,3 +1249,92 @@ def test_cuda_ddp_at_world_one_on_nccl_equals_the_plain_step(cuda, tmp_path):
     out = torch.load(tmp_path / "nccl.pt")
     for k, v in out["plain"].items():
         torch.testing.assert_close(out["ddp"][k], v, rtol=0, atol=0, msg=k)
+
+
+def _sampler_dit(device, seed=0):
+    """A small DiT in the half RoPE layout (width 128, 2 heads of 64: the
+    d = 64 wgmma kernels, #4's shape gate), seeded non-zero weights."""
+    from ldmae_tpu_torch.models import LightningDiT, dit_spec, permute_qk_for_half_rope, seeded_init_
+
+    spec = dit_spec("LightningDiT-debug", input_size=16, in_channels=16, num_classes=10, hidden_size=128,
+                    num_heads=2, depth=2, use_qknorm=True, use_swiglu=True, use_rope=True, use_rmsnorm=True)
+    dit = LightningDiT(spec, device=device)
+    seeded_init_(dit, seed)
+    dit.load_state_dict(permute_qk_for_half_rope(dit.state_dict(), spec))
+    return spec, dit
+
+
+@pytest.mark.gpu
+def test_cuda_fused_matmul_silu_raises_under_autograd(cuda):
+    x = torch.randn(2, 128, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(256, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfad.fused_matmul_silu(x, w, None)
+    with torch.no_grad():
+        out = tfad.fused_matmul_silu(x, w, None)
+    torch.testing.assert_close(out.float(), tfad.fused_matmul_silu_plain(x.detach(), w, None).float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["sde_euler", "sde_heun", "rk4", "dopri5"])
+def test_cuda_samplers_fp32_vs_cpu(cuda, leg):
+    """The sampler legs in fp32 through the kernels on the card against the
+    same leg on the CPU (plain versions), same z and SDE noise: within 1e-4
+    of the latents' scale (fp32 summation order; the SDE legs 1e-3, as an
+    SDE from t0 = 1e-3 grows a rounding by up to a few hundred times),
+    dopri5 with the same accepted/rejected tally."""
+    from ldmae_tpu_torch.eval.sampling import make_sample_fn
+    from ldmae_tpu_torch.transport import adaptive, create_transport
+
+    mode, method = {"sde_euler": ("SDE", "euler"), "sde_heun": ("SDE", "heun"), "rk4": ("ODE", "rk4"),
+                    "dopri5": ("ODE", "dopri5")}[leg]
+    transport = (create_transport("Linear", "noise", train_eps=1e-3, sample_eps=1e-3) if mode == "SDE"
+                 else create_transport())
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn(2, 16, 16, 16, generator=g)
+    noise = [torch.randn(4, 16, 16, 16, generator=g) for _ in range(5)]
+    out, tally = {}, {}
+    for dev in ("cpu", cuda):
+        spec, dit = _sampler_dit(dev)
+        fn = make_sample_fn(spec, transport, num_steps=6, sampling_method=method, mode=mode, timestep_shift=0.3,
+                            cfg_scale=4.0, cfg_interval=True, cfg_interval_start=0.1, compute_dtype=torch.float32,
+                            attn_impl="flash_rope", rope_layout="half", adaln_impl="fused", mlp_impl="fused",
+                            device=dev)
+        adaptive.dopri5.accepted = adaptive.dopri5.rejected = 0
+        kw = {"sde_noise": noise} if mode == "SDE" else {}
+        out[str(dev)] = fn({"dit": dit, "vae": None}, torch.tensor([1, 7]), z=z, **kw).cpu()
+        tally[str(dev)] = (adaptive.dopri5.accepted, adaptive.dopri5.rejected)
+    ref = out["cpu"]
+    assert float((out["cuda"] - ref).abs().max()) <= (1e-3 if mode == "SDE" else 1e-4) * float(ref.abs().max())
+    assert tally["cuda"] == tally["cpu"]
+
+
+@pytest.mark.gpu
+def test_cuda_likelihood_through_the_backward_kernel(cuda):
+    """The likelihood (fp32 state and compute) through flash_rope's
+    forward and #6's backward and the fused adaLN, against the all-xla DiT
+    on the card: logp within 1e-5 relative, the divergence integral within
+    1e-3 of its scale; #6 launches once a layer a drift evaluation."""
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.transport import create_transport
+    from ldmae_tpu_torch.transport.adaptive import make_likelihood_fn, prior_logp
+
+    spec, dit = _sampler_dit(cuda, seed=2)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 16, 16, 16, generator=g).to(cuda)
+    eps = (torch.randint(0, 2, x.shape, generator=g) * 2.0 - 1).to(cuda)
+    fn = make_likelihood_fn(create_transport(), 3, "rk4")
+    res = {}
+    for impl in ("kernels", "xla"):
+        kw = (dict(attn_impl="flash_rope", adaln_impl="fused", mlp_impl="xla") if impl == "kernels"
+              else dict(attn_impl="xla", adaln_impl="xla", mlp_impl="xla"))
+        ops.reset_launch_counts()
+        logp, z = fn(x, lambda xx, t, y: dit(xx, t, y, compute_dtype=torch.float32, rope_layout="half", **kw),
+                     eps=eps, module=dit, y=torch.tensor([1, 7], device=cuda))
+        res[impl] = (logp, prior_logp(z) - logp, ops.launch_counts())
+    (lk, dk, counts), (lx, dx, _) = res["kernels"], res["xla"]
+    assert counts["flash_attention_rope_bwd"] == 2 * 4 * spec.depth  # 2 steps x 4 evaluations x depth
+    assert counts["flash_attention_rope"] == 2 * 4 * spec.depth and counts["fused_matmul_silu"] == 0
+    assert float(((lk - lx).abs() / lx.abs()).max()) <= 1e-5
+    assert float((dk - dx).abs().max()) <= 1e-3 * float(dx.abs().max())
+    assert all(p.requires_grad for p in dit.parameters())

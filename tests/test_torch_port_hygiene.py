@@ -8,7 +8,8 @@
   imported with the package.
 * A kernel wrapper given a tensor that is not on the CPU takes the kernel
   path (and raises if it cannot launch), never the plain version.
-* The forward-only attention kernels raise when autograd would record them.
+* The forward-only attention kernels, and ``fused_matmul_silu`` off the
+  CPU, raise when autograd would record them.
 * ``python -m ldmae_tpu_torch.cli.inference --demo`` writes the demo grid,
   also with ``--quant w8a8``; a config's ``parallel.quant`` quantizes the DiT.
 * A config naming a VMAE checkpoint that does not exist stops both packages'
@@ -53,7 +54,9 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
                      "ldmae_tpu_torch.models.lpips", "ldmae_tpu_torch.models.inception", "ldmae_tpu_torch.eval.fid",
                      "ldmae_tpu_torch.cli.evaluate_tokenizer", "ldmae_tpu_torch.eval.evaluator",
                      "ldmae_tpu_torch.eval.save_npz", "ldmae_tpu_torch.cli.fid_stats", "ldmae_tpu_torch.cli.evaluate",
-                     "ldmae_tpu_torch.cli.inference", "ldmae_tpu_torch.ops.conv"):
+                     "ldmae_tpu_torch.cli.inference", "ldmae_tpu_torch.ops.conv",
+                     "ldmae_tpu_torch.transport.adaptive", "ldmae_tpu_torch.transport.utils",
+                     "ldmae_tpu_torch.transport.samplers", "ldmae_tpu_torch.transport.paths"):
             assert name in names, name
         print(len(names))
         """
@@ -252,6 +255,36 @@ def test_forward_only_kernels_raise_under_autograd(monkeypatch, device):
             att.multi_head_attention(x, p, heads, **kw)
         with torch.no_grad():
             assert att.multi_head_attention(x, p, heads, **kw).shape == x.shape
+
+
+def test_fused_matmul_silu_raises_under_autograd_off_the_cpu(monkeypatch):
+    """#4 has no backward: off the CPU, with an input that requires grad
+    and grad enabled, it raises before any kernel loads (its output would
+    carry no gradient to the SwiGLU's w12); under no_grad it launches. On
+    the CPU the plain version stays differentiable."""
+    from ldmae_tpu_torch import kernels
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+
+    class Launch(Exception):
+        pass
+
+    def load(name):
+        raise Launch(name)
+
+    monkeypatch.setattr(kernels, "load", load)
+    x = torch.empty(2, 128, 128, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(256, 128, device="meta")
+    for args in ((x.requires_grad_(), w, None), (x.detach(), w.requires_grad_(), None),
+                 (x.detach(), w.detach(), torch.empty(256, device="meta").requires_grad_())):
+        with pytest.raises(RuntimeError, match="fused_matmul_silu is forward only"):
+            fad.fused_matmul_silu(*args)
+        with torch.no_grad(), pytest.raises(Launch):
+            fad.fused_matmul_silu(*args)
+    xc = torch.randn(2, 128, 128, requires_grad=True)
+    wc = torch.randn(256, 128, requires_grad=True)
+    out = fad.fused_matmul_silu(xc, wc, None)
+    out.sum().backward()
+    assert xc.grad is not None and wc.grad is not None and float(wc.grad.abs().sum()) > 0
 
 
 def test_cli_demo_grid_on_cpu(tmp_path):
