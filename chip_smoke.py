@@ -189,7 +189,26 @@ attention bounds), then:
      process within ``MP_METRIC_REL``), the native PNG writer on every
      rank; then 10 training steps of the plain CLI here beside 10 under DDP
      in an NCCL group of one (a spawned process), counts exact; its own JSON
-     line ``{"multiproc": ...}`` before the card's name.
+     line ``{"multiproc": ...}`` before the card's name;
+ 13. tensor parallelism (also alone under ``--parallel``): the four kernel
+     pieces of tp at LightningDiT-1p0B/1's per-rank shapes under tp 2
+     (batch 8 doubled: M = 16,384): ``dense_f32_out`` (proj, w3) with
+     bf16(out + bias) equal to ``dense_bias_f32`` bit for bit,
+     ``int8_dense_i32`` (w3) equal to ``torch._int_mm`` bit for bit and its
+     dequant to ``int8_dense``'s, #10's halves ``silu_mul_amax`` and
+     ``silu_mul_quant_scaled`` on two rank slices equal to #10 on the whole
+     row bit for bit, each against its plain version and timed beside its
+     bound, #1 and #4 at their tp shapes; then two ranks on the card
+     (gloo) through ``cli.inference --tp 2`` on 1p0B/1 at full width, depth
+     cut to 8, batch 8, 10 steps, phased CFG 10, VMAE decode on the first
+     rank, bf16 then w8a8: exact launches a rank, the PNGs and the
+     manifest's tp, both ranks' latents bitwise equal, the 10-step latents
+     within ``TP_LAT_REL`` relative L2 of one process at tp 1 from the same
+     noise, which a w12 shard that is not gate-aligned must exceed; seconds
+     a batch at tp 1 and tp 2 (two ranks time-slice the card); its own
+     JSON line ``{"tensor_parallel": ...}``. FSDP has no leg here: over
+     gloo on CUDA tensors the full state dicts a checkpoint gathers
+     segfault (``scripts/gloo_cuda_probe.py``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -208,7 +227,7 @@ and flash_fused.
 
 ``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
 ``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
-``--samplers`` phase 4b alone.
+``--samplers`` phase 4b alone, ``--parallel`` phase 13 alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -277,11 +296,20 @@ KERNELS = {
     "dense": (_DENSE, "ldmae_tpu/ops/linear.py:21", "bf16", "dense_bias_f32"),
     "int8_dense": (_DENSE, "ldmae_tpu/ops/quant.py:97", "w8a8", "int8_dense"),
     "int8_dense_fp32": (_DENSE, "ldmae_tpu/ops/quant.py:97", "sample_fp32_w8a8", "int8_dense"),
+    # tensor parallelism (phase 13, launches per rank of the --tp 2 CLI leg):
+    # the row-parallel partials (the fp32 sum under the JAX psum of dense's
+    # dot, the int32 sum under the psum of qdense_pre's int8 dot) and #10's
+    # two halves around the all-reduce of the row maxima
+    "dense_f32_out": (_DENSE, "ldmae_tpu/ops/linear.py:21", "tp_bf16", "dense_f32_out"),
+    "int8_dense_i32": (_DENSE, "ldmae_tpu/ops/quant.py:107", "tp_w8a8", "int8_dense_i32"),
+    "silu_mul_amax": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "tp_w8a8", "silu_mul_amax"),
+    "silu_mul_quant_scaled": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "tp_w8a8",
+                              "silu_mul_quant_scaled"),
 }
 WRAPPERS = ("flash_attention_rope", "flash_attention", "fused_norm_modulate", "fused_matmul_silu",
             "flash_attention_qknorm_rope", "flash_attention_fused_rope", "fused_norm_modulate_quant",
             "fused_silu_mul_quant", "flash_attention_bwd", "flash_attention_rope_bwd", "flash_attention_resident",
-            "dense_bias_f32", "int8_dense")
+            "dense_bias_f32", "int8_dense", "dense_f32_out", "int8_dense_i32", "silu_mul_amax", "silu_mul_quant_scaled")
 
 BATCH, STEPS, CFG_SCALE, SHIFT, CFG_START = 8, 250, 10.0, 0.3, 0.10
 SHORT_STEPS = 10  # the comparisons between impls
@@ -4258,6 +4286,346 @@ def samplers_only(dev, smi: str) -> int:
     return 0
 
 
+
+# -- phase 13: tensor parallelism. Two ranks share the card over gloo (NCCL
+# refuses two ranks on one device) and run the sampling CLI under --tp 2 on
+# LightningDiT-1p0B/1 at full width (D 1,536, 24 heads of 64, SwiGLU hidden
+# 4,096), its depth cut from 24 to TP_DEPTH and its steps from 250 to
+# TP_STEPS: over gloo every row-parallel partial (2 a block a forward, 100
+# MB of fp32 at the doubled batch) crosses the host, 0.153 s each on an
+# NVIDIA H100 80GB HBM3 at 700 W (scripts/gloo_cuda_probe.py). Batch
+# TP_BATCH, phased CFG 10 on [0.10, 1], VMAE f8d16 decode on the group's
+# first rank.
+TP_MODEL, TP_DEPTH, TP_STEPS, TP_BATCH = "LightningDiT-1p0B/1", 8, 10, 8
+# 10-step latents at tp 2 against tp 1 in one process from the same noise,
+# relative L2 ||tp2 - tp1|| / ||tp1||: the row-parallel fp32 sums
+# reassociate and move bf16 roundings, which CFG 10 amplifies step by step;
+# a w12 shard that is not gate-aligned pairs the wrong gate halves and must
+# read above. Also printed against the DiT's movement of the latents,
+# ||tp2 - tp1|| / ||tp1 - z||, the scale of the w8a8 gate (QUANT_REL_MAX)
+TP_LAT_REL = 1e-2
+_TP_FWD = TP_STEPS - 1  # DiT forwards of a batch (the last step evaluates nothing)
+
+
+def _tp_counts(quant, lead: bool) -> dict:
+    """Exact launches of one TP_STEPS batch on one rank under --tp 2: every
+    rank runs the same DiT calls (a block's proj and w3 are row-parallel,
+    its adaLN, qkv and w12 column-parallel), the group's first rank also
+    decodes. A forward adds the patch embedding, the timestep MLP's two
+    linears and the final layer's two (dense, whole on every rank)."""
+    f, depth = _TP_FWD, TP_DEPTH
+    if quant is None:
+        c = {"flash_attention_rope": f * depth, "fused_norm_modulate": 2 * f * depth, "fused_matmul_silu": f * depth,
+             "dense_bias_f32": f * (5 + 2 * depth), "dense_f32_out": 2 * f * depth}
+    else:
+        c = {"fused_norm_modulate_quant": 2 * f * depth, "flash_attention_rope": f * depth,
+             "int8_dense": 3 * f * depth, "int8_dense_i32": f * depth, "silu_mul_amax": f * depth,
+             "silu_mul_quant_scaled": f * depth, "dense_f32_out": f * depth, "dense_bias_f32": 5 * f}
+    if lead:
+        c["flash_attention_resident"] = DEC_DEPTH
+        c["dense_bias_f32"] += _DENSE_DECODE
+    return _NONE | c
+
+
+def _tp_cut_depth() -> None:
+    """The phase's depth cut, in this process's model registry (the CLI
+    reads the depth from there)."""
+    from ldmae_tpu_torch.models import lightningdit
+
+    lightningdit._REGISTRY[TP_MODEL] = dict(lightningdit._REGISTRY[TP_MODEL], depth=TP_DEPTH)
+
+
+def _tp_inputs(dev):
+    import torch
+
+    g = torch.Generator().manual_seed(21)
+    z = torch.randn(TP_BATCH, 16, 32, 32, generator=g).to(dev)
+    y = torch.randint(0, 1000, (TP_BATCH,), generator=g)
+    return z, y
+
+
+def _tp_configs(tmp: str) -> dict:
+    import yaml
+
+    paths = {}
+    for leg, quant in (("bf16", None), ("w8a8", "w8a8")):
+        cfg = _yaml_config(train={"global_seed": 0, "output_dir": os.path.join(tmp, "tp_out"), "exp_name": leg})
+        cfg["ckpt_path"] = None  # seeded weights
+        cfg["model"]["model_type"] = TP_MODEL
+        cfg["vae"]["weight_path"] = ""
+        cfg["sample"].update(num_sampling_steps=TP_STEPS, per_proc_batch_size=TP_BATCH, fid_num=TP_BATCH)
+        cfg["parallel"]["quant"] = quant
+        paths[leg] = os.path.join(tmp, f"tp_{leg}.yaml")
+        with open(paths[leg], "w") as f:
+            yaml.safe_dump(cfg, f)
+    return paths
+
+
+def _tp_latents(sample_fn, bundle, z, y) -> tuple:
+    """(latents, seconds) of one batch from noise z, no decode."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = sample_fn(dict(bundle, vae=None), y, z=z)
+    torch.cuda.synchronize()
+    return lat.cpu(), time.perf_counter() - t0
+
+
+def _tp_rank(rank: int, port: int, tmp: str, paths: dict) -> None:
+    """One of two ranks on the card (spawned): the sampling CLI under --tp 2
+    for each leg, launches counted, then the same pipeline's latents from a
+    given noise at tp 2 (and, for bf16, with w12 sharded contiguously: the
+    control)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from ldmae_tpu_torch.cli import inference
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.parallel import create_mesh, init_distributed_mode, shard_dit_for_tp_
+
+    init_distributed_mode(backend="gloo")
+    _tp_cut_depth()
+    dev = torch.device("cuda", 0)
+    z, y = _tp_inputs(dev)
+    group = create_mesh(dp=-1, tp=2).get_group("tp")
+    out = {}
+    for leg in ("bf16", "w8a8"):
+        _mp_leg(out, leg, lambda: {"folder": inference.main(["--config", paths[leg], "--tp", "2", "--skip_fid"])})
+        sample_fn, bundle, _ = inference.build_pipeline(LDMAEConfig.from_yaml(paths[leg]), device=dev)
+        dit = bundle["dit"]
+        full_w12 = [{k: v.clone() for k, v in blk.mlp.w12.state_dict().items()} for blk in dit.blocks]
+        shard_dit_for_tp_(dit, group)
+        lat, sec = _tp_latents(sample_fn, bundle, z, y)
+        torch.save(lat, os.path.join(tmp, f"tp_{leg}_rank{rank}.pt"))
+        out[leg] |= {"latent_s": sec}
+        if leg == "bf16":  # the control: [w1; w2] rows r of 2, the gate halves mispaired
+            for blk, full in zip(dit.blocks, full_w12):
+                rows = full["weight"].shape[0] // 2
+                blk.mlp.w12.load_state_dict({k: v[rank * rows:(rank + 1) * rows] for k, v in full.items()})
+            lat, _ = _tp_latents(sample_fn, bundle, z, y)
+            torch.save(lat, os.path.join(tmp, f"tp_control_rank{rank}.pt"))
+        del sample_fn, bundle, dit, full_w12
+        torch.cuda.empty_cache()
+    with open(os.path.join(tmp, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_kernel_phase(dev) -> dict:
+    """The tensor-parallel kernel pieces at the per-rank shapes of 1p0B/1
+    under tp 2, batch 8 doubled by CFG (M = 16,384 tokens): the fp32 and
+    int32 partial epilogues at proj (K 768) and w3 (K 2,048) against their
+    plain math, bit for bit where the math is the same, and #10's two halves
+    against #10 on the whole row, bit for bit; #1 and #4 at their tp shapes.
+    Returns name -> (max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by, parts)."""
+    import torch
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops import linear as lin
+    from ldmae_tpu_torch.ops import quant as qt
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def randq(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    rows = {}
+    m, d, hl = 2 * TP_BATCH * 1024, 1536, 2048  # tokens, width, a rank's SwiGLU hidden
+
+    # -- the fp32 partial (bf16 row-parallel proj and w3)
+    for what, k in (("proj", d // 2), ("w3", hl)):
+        x, w = randn(m, k), randn(d, k, scale=k**-0.5)
+        b = randn(d, scale=0.1, dtype=torch.float32)
+        log(f"[tp kernel] dense_f32_out at {what}: x ({m},{k}) bf16, w ({d},{k}) bf16 -> fp32 ({m},{d})")
+        out = lin.dense_f32_out(x, w)
+        same = torch.equal(out.add(b).to(torch.bfloat16), lin.dense_bias_f32(x, w, b))
+        log(f"  bf16(dense_f32_out + bias) == dense_bias_f32 bit for bit: {same}")
+        if not same:
+            raise SystemExit("dense_f32_out: its sums are not dense_bias_f32's")
+        ref = lin.dense_f32_out_plain(x, w)
+        # fp32 sums of the same products in another order: 1e-5 of the row's scale
+        err = compare(f"dense_f32_out[{what}]", out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+        ms = cuda_ms(lambda: lin.dense_f32_out(x, w), 20)
+        plain_ms = cuda_ms(lambda: lin.dense_f32_out_plain(x, w), 5)
+        try:  # cuBLAS bf16 x bf16 -> fp32, where this torch has it
+            lib_ms = cuda_ms(lambda: torch.mm(x, w.t(), out_dtype=torch.float32), 20)
+        except (TypeError, RuntimeError):
+            lib_ms = None
+        if what == "proj":
+            rows["dense_f32_out"] = (err, ms, plain_ms, lib_ms, *bound((m * k + d * k) * 2 + m * d * 4, 2 * m * k * d),
+                                     {})
+        else:
+            log(f"  dense_f32_out at w3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms} ms")
+        del x, w, out, ref
+
+    # -- the int32 partial (w8a8 row-parallel w3)
+    xq, wq = randq(m, hl), randq(d, hl)
+    log(f"[tp kernel] int8_dense_i32 at w3: x_q ({m},{hl}) int8, w_q ({d},{hl}) int8 -> int32 ({m},{d})")
+    acc = qt.int8_dense_i32(xq, wq)
+    ref = torch._int_mm(xq, wq.t())
+    same = torch.equal(acc, ref)
+    p = qt.QLinear(wq, torch.rand(d, generator=g, device=dev) * 1e-2 + 1e-3, randn(d, scale=0.1, dtype=torch.float32))
+    xs = torch.rand(m, 1, generator=g, device=dev) * 1e-2 + 1e-3
+    dequant_same = torch.equal(qt._dequant(acc, xs, p, torch.bfloat16), qt.int8_dense(xq, xs, p, torch.bfloat16))
+    log(f"  == torch._int_mm bit for bit: {same}; its dequant == int8_dense bit for bit: {dequant_same}")
+    if not (same and dequant_same):
+        raise SystemExit("int8_dense_i32: not the exact int32 product")
+    ms = cuda_ms(lambda: qt.int8_dense_i32(xq, wq), 20)
+    lib_ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()), 20)
+    rows["int8_dense_i32"] = (0.0, ms, lib_ms, lib_ms, *bound(m * hl + d * hl + m * d * 4, int8_ops=2 * m * hl * d), {})
+    del xq, wq, acc, ref
+
+    # -- #10's two halves: rank slices [x1_r | x2_r] of the whole row's [x1 | x2]
+    x12 = randn(m, 4 * hl, scale=2.0)
+    x1, x2 = x12[:, :2 * hl], x12[:, 2 * hl:]
+    parts = [torch.cat([x1[:, r * hl:(r + 1) * hl], x2[:, r * hl:(r + 1) * hl]], dim=1).contiguous() for r in range(2)]
+    log(f"[tp kernel] silu_mul_amax / silu_mul_quant_scaled on rank slices ({m},{2 * hl}) of x12 ({m},{4 * hl}) bf16")
+    amaxes = [fad.silu_mul_amax(pt) for pt in parts]
+    amax = torch.maximum(*amaxes)
+    halves = [fad.silu_mul_quant_scaled(pt, amax) for pt in parts]
+    whole_q, whole_s = fad.fused_silu_mul_quant(x12)
+    same = (torch.equal(torch.cat([h[0] for h in halves], dim=1), whole_q)
+            and all(torch.equal(h[1], whole_s) for h in halves))
+    log(f"  the two halves on the two slices == #10 on the whole row bit for bit: {same}")
+    if not same:
+        raise SystemExit("#10's halves disagree with #10 on the whole row")
+    pt = parts[0]
+    ref_amax = fad.silu_mul_amax_plain(pt)
+    # fp32 silu through expf against torch's sigmoid: an ulp of the row's absmax
+    err = compare("silu_mul_amax", amaxes[0], ref_amax, rtol=1e-6, atol=0.0)
+    ms = cuda_ms(lambda: fad.silu_mul_amax(pt), 50)
+    plain_ms = cuda_ms(lambda: fad.silu_mul_amax_plain(pt), 10)
+    rows["silu_mul_amax"] = (err, ms, plain_ms, None, *bound(m * 2 * hl * 2 + m * 4, fp32_flops=6 * m * hl), {})
+    err = compare_quant("silu_mul_quant_scaled", halves[0], fad.silu_mul_quant_scaled_plain(pt, amax))
+    ms = cuda_ms(lambda: fad.silu_mul_quant_scaled(pt, amax), 50)
+    plain_ms = cuda_ms(lambda: fad.silu_mul_quant_scaled_plain(pt, amax), 10)
+    rows["silu_mul_quant_scaled"] = (err, ms, plain_ms, None, *bound(
+        m * 2 * hl * 2 + m * 4 + m * hl + m * 4, fp32_flops=8 * m * hl), {})
+    del x12, parts, halves
+
+    # -- #1 (12 heads a rank) and #4 (a rank's gate-aligned w12) at their tp shapes
+    b, h, n, hd = 2 * TP_BATCH, 12, 1024, 64
+    q, k, v = randn(b, h, n, hd), randn(b, h, n, hd), randn(b, h, n, hd)
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(hd // 2, 32))
+    ref = fa.flash_attention_rope_plain(q, k, v, cos, sin)
+    log(f"[tp kernel] flash_attention_rope ({b},{h},{n},{hd}); fused_matmul_silu x ({m},{d}), w12 ({2 * hl},{d})")
+    compare("flash_attention_rope[tp 2]", fa.flash_attention_rope(q, k, v, cos, sin), ref, **attn_tol(ref))
+    x, w12 = randn(m, d), randn(2 * hl, d, scale=d**-0.5)
+    b12 = randn(2 * hl, scale=0.1, dtype=torch.float32)
+    compare("fused_matmul_silu[tp 2]", fad.fused_matmul_silu(x, w12, b12), fad.fused_matmul_silu_plain(x, w12, b12),
+            rtol=2**-6, atol=2**-6)
+    del q, k, v, ref, x, w12
+    torch.cuda.empty_cache()
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, _) in rows.items():
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {name} (tp 2, 1p0B/1, batch {TP_BATCH}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+    return rows
+
+
+def tp_phase(dev, smi: str, tmp: str) -> tuple:
+    """Phase 13: the kernel pieces, then the sampling CLI under --tp 2 on two
+    ranks sharing the card, bf16 and w8a8, with exact launches per rank and
+    the latents against one process at tp 1. Returns (record, kernel rows,
+    launch counts by path)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from PIL import Image
+
+    from ldmae_tpu_torch.cli import inference
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+
+    phase_t0 = time.perf_counter()
+    rows = tp_kernel_phase(dev)
+    _tp_cut_depth()
+    paths = _tp_configs(tmp)
+    log(f"[tp] two ranks on the card (torch.multiprocessing, gloo): cli.inference --tp 2 on {TP_MODEL} (full width, "
+        f"depth cut 24 -> {TP_DEPTH}, seeded), batch {TP_BATCH}, {TP_STEPS} Euler steps (cut from 250), shift {SHIFT}, "
+        f"CFG {CFG_SCALE} on [{CFG_START}, 1], VMAE f8d16 decode on the first rank; bf16 then w8a8")
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(_free_port(), tmp, paths), nprocs=2, join=True, start_method="spawn")
+    two_rank_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    z, y = _tp_inputs(dev)
+    record, counts = {"two_rank_s": two_rank_s, "card": smi, "depth": TP_DEPTH, "steps": TP_STEPS}, {}
+    for leg, quant in (("bf16", None), ("w8a8", "w8a8")):
+        for r in range(2):
+            want = _tp_counts(quant, lead=r == 0)
+            if ranks[r][leg]["counts"] != want:
+                raise SystemExit(f"tp {leg}, rank {r}: launches {ranks[r][leg]['counts']} != {want}")
+        counts[f"tp_{leg}"] = ranks[0][leg]["counts"]
+        folder = ranks[0][leg]["folder"]
+        pngs = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+        imgs = np.stack([np.asarray(Image.open(os.path.join(folder, f))) for f in pngs])
+        with open(os.path.join(folder, "resume_manifest.json")) as f:
+            manifest = json.load(f)
+        lats = [torch.load(os.path.join(tmp, f"tp_{leg}_rank{r}.pt")) for r in range(2)]
+        # one process at tp 1 from the same weights (the CLI's build_pipeline, its seed) and noise
+        sample_fn, bundle, _ = inference.build_pipeline(LDMAEConfig.from_yaml(paths[leg]), device=dev)
+        _tp_latents(sample_fn, bundle, z, y)  # warm-up
+        ref, one_s = _tp_latents(sample_fn, bundle, z, y)
+        del sample_fn, bundle
+        torch.cuda.empty_cache()
+        scale, moved = float(ref.double().norm()), float((ref - z.cpu()).double().norm())
+        diff = float((lats[0] - ref).double().norm())
+        err = diff / scale
+        entry = {"rel_l2_vs_tp1": err, "rel_l2_of_movement": diff / moved, "tp1_s_batch": one_s,
+                 "tp2_s_batch": ranks[0][leg]["latent_s"],
+                 "cli_s": ranks[0][leg]["seconds"], "peak_gb_rank": [ranks[r][leg]["peak_gb"] for r in range(2)],
+                 "ranks_equal": bool(torch.equal(lats[0], lats[1]))}
+        ok = (pngs == [f"{i:06d}.png" for i in range(TP_BATCH)] and imgs.shape == (TP_BATCH, 256, 256, 3)
+              and manifest.get("tp") == 2 and entry["ranks_equal"] and err <= TP_LAT_REL)
+        if leg == "bf16":
+            control = float((torch.load(os.path.join(tmp, "tp_control_rank0.pt")) - ref).double().norm())
+            entry |= {"control_rel_l2": control / scale, "control_rel_l2_of_movement": control / moved}
+            ok = ok and entry["control_rel_l2"] > TP_LAT_REL
+        log(f"  {leg}: launches per rank exact (rank 0 {ranks[0][leg]['counts']}; rank 1 the same without the "
+            f"decode); PNGs {pngs[0]}..{pngs[-1]} {imgs.shape}, manifest {manifest}; the ranks' latents bitwise "
+            f"equal: {entry['ranks_equal']}; {TP_STEPS}-step latents vs tp 1 in one process: rel L2 {err:.4g} (bound "
+            f"{TP_LAT_REL}; {entry['rel_l2_of_movement']:.4g} of the latents' movement from z)"
+            + (f", control (w12 rows contiguous, not gate-aligned) {entry['control_rel_l2']:.4g} (must exceed it; "
+               f"{entry['control_rel_l2_of_movement']:.4g} of the movement)" if leg == "bf16" else "")
+            + f"; seconds a batch (latents, no decode): tp 1 {one_s:.4f}, tp 2 {entry['tp2_s_batch']:.4f} (two ranks "
+            f"over gloo time-slice one card: not a speed claim); the CLI call {entry['cli_s']:.2f} s a rank; peak "
+            f"memory a rank {[round(v, 3) for v in entry['peak_gb_rank']]} GB")
+        if not ok:
+            raise SystemExit(f"tp {leg}: PNGs, manifest, the ranks' latents, the gate or its control failed")
+        record[leg] = entry
+    record["phase_s"] = time.perf_counter() - phase_t0
+    log(f"  the tensor-parallel phase took {record['phase_s']:.2f} s (two-rank spawn {two_rank_s:.2f} s); on {smi}")
+    return record, rows, counts
+
+
+def parallel_only(dev, smi: str) -> int:
+    """``--parallel``: build, then phase 13 alone, ending with its kernels."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        record, rows, counts = tp_phase(dev, smi, tmp)
+    log(json.dumps({"tensor_parallel": record}))
+    log(smi)
+    log(json.dumps({"kernels": kernel_rows(rows, counts)}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _load_shard_len(path: str) -> int:
     from ldmae_tpu_torch.data.latent_dataset import read_safetensors
 
@@ -4325,6 +4693,20 @@ def tokenizers_only(dev, smi: str) -> int:
     return 0
 
 
+def kernel_rows(rows: dict, counts: dict) -> list:
+    """The kernels line's entries: each measured kernel with its launches on
+    the path that runs it (``KERNELS``)."""
+    out = []
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
+        source, replaces, path, wrapper = KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[path][wrapper], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        } | parts)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4363,6 +4745,8 @@ def main() -> int:
         return multiproc_only(dev, smi)
     if "--samplers" in sys.argv[1:]:
         return samplers_only(dev, smi)
+    if "--parallel" in sys.argv[1:]:
+        return parallel_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -4419,15 +4803,11 @@ def main() -> int:
         counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
         result["counts"] |= counts
         multiproc = multiproc_phase(dev, smi, tmp, origin)
+        tensor_parallel, tp_rows, counts = tp_phase(dev, smi, tmp)
+        rows |= tp_rows
+        result["counts"] |= counts
 
-    out = []
-    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, parts) in rows.items():
-        source, replaces, path, wrapper = KERNELS[name]
-        out.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": result["counts"][path][wrapper], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        } | parts)
+    out = kernel_rows(rows, result["counts"])
     missing = set(KERNELS) - set(rows)
     if missing:
         raise SystemExit(f"no measurement of {sorted(missing)}")
@@ -4438,6 +4818,8 @@ def main() -> int:
     log(json.dumps({"vmae_train_kernels": vmae_rows}))
     # the two-rank and NCCL legs of the multi-process slice
     log(json.dumps({"multiproc": multiproc}))
+    # the --tp 2 legs of the tensor-parallel slice
+    log(json.dumps({"tensor_parallel": tensor_parallel}))
     # the sampler slice's legs, launches, gates
     log(json.dumps({"samplers": samplers}))
     log(smi)

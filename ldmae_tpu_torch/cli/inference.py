@@ -31,12 +31,24 @@ are all on disk is skipped (its labels still drawn), and
 or class count differ from the first leg's. PNGs are written by the native
 encoder on a background thread, each renamed from a ``.tmp`` file.
 
-Not ported yet (ROADMAP.md Queue 1 item 15): ``--tp`` above 1 (it raises),
-Orbax checkpoints.
+``--tp N`` samples each batch on a group of N consecutive ranks, each
+holding 1/N of the DiT's weights (``parallel.shard_dit_for_tp_``: heads,
+the MLP's hidden dim and the adaLN outputs; the JAX CLI lays the same tp
+axis over one process's devices, the port one process a card). Group g =
+rank // N takes the batches g, g + world/N, ... with labels from
+``default_rng(seed + g)``, so ``--tp 2`` at world 2 writes the names and
+labels of world 1; every rank of the group runs the same DiT calls in the
+same order, and only its first rank decodes (no collective there), writes
+the PNGs and counts toward the FID. ``resume_manifest.json`` records tp.
+At a world size that N does not divide the JAX CLI's warning is printed
+and sampling runs at tp 1, as the JAX CLI does.
+
+Not ported yet (ROADMAP.md Queue 1 item 15): Orbax checkpoints.
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
     torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.inference --config ....yaml
+    torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.inference --config ....yaml --tp 2
 """
 
 from __future__ import annotations
@@ -59,7 +71,8 @@ from ..eval.sampling import DEMO_LABELS, make_sample_fn
 from ..eval.save_npz import folder_name_from_config as folder_name
 from ..models import LightningDiT, dit_spec, permute_qk_for_half_rope, quantize_dit_, seeded_init_
 from ..models.tokenizers import build_tokenizer_fns
-from ..parallel import barrier, create_mesh, get_rank, get_world_size, init_distributed_mode
+from ..parallel import (barrier, create_mesh, get_rank, get_world_size, group_all_reduce_, init_distributed_mode,
+                        shard_dit_for_tp_)
 from ..transport import create_transport
 
 
@@ -198,17 +211,22 @@ class AsyncPngWriter:
             raise self.error
 
 
+_MANIFEST_DEFAULTS = {"tp": 1}  # recorded only when it differs (the JAX CLI's file has no tp)
+
+
 def _check_manifest(out_dir: str, stream_id: dict) -> None:
-    """``resume_manifest.json``: the batch grid, world size, seed and class
-    count that the PNGs in ``out_dir`` were sampled under (the folder name
-    pins the model, solver, CFG and shift, not these). A resume under other
-    settings would mix two label streams, so it stops with the JAX CLI's
-    message; rank 0 writes the file on the first leg."""
+    """``resume_manifest.json``: the batch grid, world size, tp (when above
+    1), seed and class count that the PNGs in ``out_dir`` were sampled
+    under (the folder name pins the model, solver, CFG and shift, not
+    these). A resume under other settings would mix two label streams, so it
+    stops with the JAX CLI's message; rank 0 writes the file on the first
+    leg."""
     path = os.path.join(out_dir, "resume_manifest.json")
     if os.path.exists(path):
         with open(path) as f:
-            recorded = json.load(f)
-        diff = {k: (recorded.get(k), v) for k, v in stream_id.items() if recorded.get(k) != v}
+            recorded = _MANIFEST_DEFAULTS | json.load(f)
+        current = _MANIFEST_DEFAULTS | stream_id
+        diff = {k: (recorded.get(k), v) for k, v in current.items() if recorded.get(k) != v}
         if diff:
             raise SystemExit(
                 f"resume settings mismatch in {out_dir}: "
@@ -225,20 +243,40 @@ def _check_manifest(out_dir: str, stream_id: dict) -> None:
         os.replace(tmp, path)
 
 
-def do_sample(config: LDMAEConfig, demo: bool = False, out_root=None, demo_out=None, device=None):
-    """Sample (``demo``: the 2x4 grid, on rank 0) or write this rank's share
-    of ``sample.fid_num`` PNGs; returns the output folder."""
+def _tp_layout(tp: int, per_batch: int):
+    """(tp, group, index in it, group id, groups) for ``--tp``: the JAX CLI's
+    warning, and tp 1, where the world size is not a multiple of tp."""
+    world = get_world_size()
+    if tp > 1 and world % tp != 0:
+        print(f"WARNING: --tp {tp} ignored (n_local={world}, per_proc_batch_size={per_batch} not divisible)")
+        tp = 1
+    if tp == 1:
+        return 1, None, 0, get_rank(), world
+    group = create_mesh(dp=-1, tp=tp).get_group("tp")  # tp innermost: ranks [g tp, (g + 1) tp)
+    return tp, group, get_rank() % tp, get_rank() // tp, world // tp
+
+
+def do_sample(config: LDMAEConfig, demo: bool = False, out_root=None, demo_out=None, device=None, tp: int = 1):
+    """Sample (``demo``: the 2x4 grid, on rank 0's tp group) or write this
+    rank's share of ``sample.fid_num`` PNGs; returns the output folder."""
     s = config.sample
     seed = config.train.global_seed
-    rank, world = get_rank(), get_world_size()
+    per_batch = s.per_proc_batch_size
+    tp, group, index, gid, groups = _tp_layout(tp, per_batch)
+    lead = index == 0  # decodes, writes and counts toward the FID
     if demo:
-        if rank != 0:
+        if gid != 0:
             return demo_out or "demo_images"
         sample_fn, bundle, _ = build_pipeline(config, demo=True, device=device)
+        if group is not None:  # after build_pipeline's permutation and quantization
+            shard_dit_for_tp_(bundle["dit"], group)
         device = resolve_device(device)
         y = torch.tensor(DEMO_LABELS if s.cfg_scale > 1.0 else [0] * 8)
         gen = torch.Generator(device=device).manual_seed(seed)
-        imgs = sample_fn(bundle, y, generator=gen).cpu().numpy()
+        imgs = sample_fn(bundle if lead else dict(bundle, vae=None), y, generator=gen)
+        if not lead:
+            return demo_out or "demo_images"
+        imgs = imgs.cpu().numpy()
         grid = imgs.reshape(2, 4, *imgs.shape[1:]).transpose(0, 2, 1, 3, 4)
         grid = grid.reshape(2 * imgs.shape[1], 4 * imgs.shape[2], 3)
         demo_dir = demo_out or "demo_images"
@@ -256,56 +294,72 @@ def do_sample(config: LDMAEConfig, demo: bool = False, out_root=None, demo_out=N
     out_dir = os.path.join(
         out_root or os.path.join(config.train.output_dir, config.train.exp_name), folder_name(config)
     )
-    fid_num, per_batch = s.fid_num, s.per_proc_batch_size
+    fid_num = s.fid_num
     # the resume, before the pipeline is built: all-or-nothing when the
     # folder holds fid_num PNGs, else batch by batch below
     have = set()
     if os.path.isdir(out_dir):
         have = {int(f[:-4]) for f in os.listdir(out_dir) if f.endswith(".png") and f[:-4].isdigit()}
-        if len(have) >= fid_num:
+        # under tp the group decides together below: a rank returning here
+        # alone would leave its partners waiting in a collective
+        if len(have) >= fid_num and group is None:
             print(f"{out_dir} already has {len(have)} >= {fid_num} pngs, skipping")
             return out_dir
-    _check_manifest(out_dir, {"per_proc_batch_size": int(per_batch), "world": int(world),
-                              "global_seed": int(seed), "num_classes": int(config.data.num_classes)})
+    _check_manifest(out_dir, {"per_proc_batch_size": int(per_batch), "world": int(get_world_size()),
+                              **({"tp": tp} if tp > 1 else {}), "global_seed": int(seed),
+                              "num_classes": int(config.data.num_classes)})
 
-    # rank r owns batches r, r + world, ...; its labels come from
-    # default_rng(seed + rank), drawn for every batch it owns, sampled or
-    # resumed, so a resumed run's label stream is the fresh run's
+    # group g (rank g under tp 1) owns batches g, g + groups, ...; its labels
+    # come from default_rng(seed + g), drawn for every batch it owns, sampled
+    # or resumed, so a resumed run's label stream is the fresh run's
     n_batches = (fid_num + per_batch - 1) // per_batch
-    rng = np.random.default_rng(seed + rank)
-    todo, skipped = [], 0
-    for i in range(rank, n_batches, world):
+    rng = np.random.default_rng(seed + gid)
+    owned = []
+    for i in range(gid, n_batches, groups):
         y = rng.integers(0, config.data.num_classes, size=per_batch)
         indices = np.arange(i * per_batch, (i + 1) * per_batch)
         keep = indices < fid_num
-        if have and all(int(j) in have for j in indices[keep]):
-            skipped += int(keep.sum())
-        else:
-            todo.append((i, y, indices[keep]))
+        owned.append((i, y, indices[keep], bool(have) and all(int(j) in have for j in indices[keep])))
+    if group is not None:
+        # the group samples a batch when any of its ranks misses a PNG of it,
+        # so its ranks make the same DiT calls in the same order
+        missing = torch.tensor([not done for *_, done in owned], dtype=torch.int32,
+                               device=resolve_device(device))
+        missing = group_all_reduce_(missing, group, "max").tolist()
+        owned = [(i, y, idx, not m) for (i, y, idx, _), m in zip(owned, missing)]
+    todo = [(i, y, idx) for i, y, idx, done in owned if not done]
+    skipped = sum(len(idx) for i, y, idx, done in owned if done)
 
     done = 0
     t0 = time.time()
-    if todo:  # a rank whose batches are all on disk builds nothing
+    if todo:  # a group whose batches are all on disk builds nothing
         device = resolve_device(device)
         sample_fn, bundle, _ = build_pipeline(config, device=device)
-        writer = AsyncPngWriter(out_dir)
+        if group is not None:  # after build_pipeline's permutation and quantization
+            shard_dit_for_tp_(bundle["dit"], group)
+        if not lead:
+            bundle = dict(bundle, vae=None)  # the latents alone: the first rank decodes
+        writer = AsyncPngWriter(out_dir) if lead else None
         try:
             for i, y, indices in todo:
                 gen = torch.Generator(device=device).manual_seed(seed * 100003 + i)
                 tb = time.time()
-                imgs = sample_fn(bundle, torch.from_numpy(y), generator=gen).cpu().numpy()
+                out = sample_fn(bundle, torch.from_numpy(y), generator=gen).cpu().numpy()
                 dt = time.time() - tb
-                writer.submit(imgs[:len(indices)], indices)
+                if writer is not None:
+                    writer.submit(out[:len(indices)], indices)
                 done += len(indices)
-                print(f"[rank {rank}] batch {i + 1}/{n_batches} ({done} imgs, "
+                print(f"[rank {get_rank()}] batch {i + 1}/{n_batches} ({done} imgs, "
                       f"{done / (time.time() - t0):.2f} img/s, last {per_batch / dt:.2f} img/s"
                       + (f", {skipped} resumed" if skipped else "") + f") {time.strftime('%H:%M:%S')}",
                       flush=True)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
     dt = max(time.time() - t0, 1e-9)
-    print(f"[rank {rank}] sampling done: {done} generated" + (f" + {skipped} resumed" if skipped else "")
-          + f" in {dt / 3600:.2f} h ({done / dt:.3f} img/s sustained incl. compile)", flush=True)
+    print(f"[rank {get_rank()}] sampling done: {done} generated" + (f" + {skipped} resumed" if skipped else "")
+          + f" in {dt / 3600:.2f} h ({done / dt:.3f} img/s sustained incl. compile)"
+          + ("" if lead else f" (tp rank {index}: no PNGs)"), flush=True)
     return out_dir
 
 
@@ -321,11 +375,10 @@ def main(argv=None):
         help="int8-quantize the DiT for sampling (overrides parallel.quant)",
     )
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree; only 1 is ported (ROADMAP.md Queue 1 item 15)")
+                        help="tensor-parallel degree: consecutive groups of this many ranks sample a batch "
+                             "together, each holding 1/tp of the DiT's weights")
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        create_mesh(dp=-1, tp=args.tp)  # raises NotImplementedError
     # the rendezvous (torchrun, SLURM or Open MPI environment) before any
     # device work; a no-op for one process
     init_distributed_mode(device=args.device)
@@ -334,7 +387,7 @@ def main(argv=None):
         config.ckpt_path = args.ckpt
     if args.quant:
         config.parallel.quant = args.quant
-    out_dir = do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device)
+    out_dir = do_sample(config, demo=args.demo, demo_out=args.demo_out, device=args.device, tp=args.tp)
     # FID against the reference statistics, on rank 0 once every rank's
     # PNGs are written
     ref = config.data.fid_reference_file

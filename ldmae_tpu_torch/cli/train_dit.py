@@ -23,12 +23,24 @@ checkpoints (the EMA and weights of the module itself, so a checkpoint is a
 one-process run's). A signal on any rank stops every rank at the same step
 with a checkpoint. A background thread reads the next batch.
 
-Not ported yet (ROADMAP.md Queue 1 item 15): ``--fsdp`` and ``--tp`` above 1
-(they raise), Orbax checkpoints, the profiler trace options.
+``--fsdp N`` (with ``--dp`` x N = the world size) shards the model, its
+gradients, the EMA and the AdamW state over N ranks with FSDP2
+(``parallel.wrap_fsdp``; with ``--dp`` above 1 hybrid sharding, replicated
+over dp) in place of DDP. The batch is split over (dp, fsdp) jointly, as in
+the JAX step, so each rank reads, draws and steps as under DDP, and the
+checkpoints are the full state dicts a one-process run writes (every rank
+takes part in gathering them; rank 0 writes), so a run resumes across
+``--fsdp`` settings. ``--fsdp N`` at a world size that N does not divide
+raises the JAX ``create_mesh``'s AssertionError.
+
+Not ported yet (ROADMAP.md Queue 1 item 15): ``--tp`` above 1 (it raises;
+training under tp needs the backward of the sharded layers), Orbax
+checkpoints, the profiler trace options.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_dit --config configs/imagenet/lightningdit_b_vmae_f8d16.yaml
     torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml
+    torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml --dp 2 --fsdp 4
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from ..data.latent_dataset import ImgLatentDataset
 from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
 from ..parallel import (all_reduce_sum, any_rank, barrier, create_mesh, get_rank, get_world_size,
                         init_distributed_mode, wrap_data_parallel)
-from ..train.state import init_train_state, restore_checkpoint, save_checkpoint
+from ..train.state import init_sharded_train_state, init_train_state, restore_checkpoint, save_checkpoint
 from ..train.train_dit import COMPUTE_DTYPES, build_from_config, evaluate_step, make_optimizer
 from ..utils.prefetch import Prefetcher
 from ..utils.profiling import dit_forward_flops, format_tflops_mfu, resolve_peak_flops
@@ -108,30 +120,38 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--dp", type=int, default=-1, help="data-parallel ranks (-1: the world size)")
-    parser.add_argument("--fsdp", type=int, default=1, help="only 1 is ported (ROADMAP.md Queue 1 item 15)")
-    parser.add_argument("--tp", type=int, default=1, help="only 1 is ported (ROADMAP.md Queue 1 item 15)")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="ranks the parameters, gradients, EMA and AdamW state are sharded over (FSDP2)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="only 1 is ported for training (ROADMAP.md Queue 1 item 15)")
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     parser.add_argument("--peak_tflops", type=float, default=None,
                         help="peak bf16 TFLOP/s of the device for the MFU log (default: from the "
                              "CUDA device name; unknown devices log 'MFU n/a')")
     args = parser.parse_args(argv)
+    if args.tp > 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: tensor parallelism in training needs the backward of the sharded layers, not "
+            "ported yet (ROADMAP.md Queue 1 item 15); the sampling CLI takes --tp")
     # the rendezvous (torchrun, SLURM or Open MPI environment) before any
     # device work; a no-op for one process
     init_distributed_mode(device=args.device)
-    create_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp)  # checks the degrees against the world
+    device = resolve_device(args.device)
+    # checks the degrees against the world (the JAX assertions); FSDP's mesh
+    # is on the parameters' device type
+    mesh = create_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp, device_type=device.type if args.fsdp > 1 else None)
     rank, world = get_rank(), get_world_size()
 
     config = LDMAEConfig.from_yaml(args.config)
     if args.max_steps is not None:
         config.train.max_steps = args.max_steps
-    device = resolve_device(args.device)
     tc = config.train
     exp_dir = os.path.join(tc.output_dir, tc.exp_name)
     logger = setup_logger(exp_dir)
     logger.info(f"Experiment directory: {exp_dir}")
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-                + f", {world} process(es)")
+                + f", {world} process(es)" + (f", FSDP over {args.fsdp} ranks" if args.fsdp > 1 else ""))
 
     writer = None
     if rank == 0:
@@ -154,11 +174,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         model.load_state_dict(permute_qk_for_half_rope(model.state_dict(), spec), strict=True)
         logger.info("using half-split RoPE layout (checkpoints are saved in the canonical one)")
     opt = config.optimizer
-    state = init_train_state(model, make_optimizer(model.parameters(), opt.lr, opt.beta2))
+    if args.fsdp > 1:
+        state = init_sharded_train_state(model, mesh, lambda params: make_optimizer(params, opt.lr, opt.beta2))
+    else:
+        state = init_train_state(model, make_optimizer(model.parameters(), opt.lr, opt.beta2))
     if restore_checkpoint(exp_dir, state, half_rope=half) is not None:
         logger.info(f"resumed from step {state.step}")
 
-    state.ddp = wrap_data_parallel(model, device)  # DDP whenever a process group exists
+    if args.fsdp == 1:
+        state.ddp = wrap_data_parallel(model, device)  # DDP whenever a process group exists
 
     def load_dataset():
         return ImgLatentDataset(_data_dir(config), latent_norm=config.data.latent_norm,
@@ -255,12 +279,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
             if state.step % tc.ckpt_every == 0:
                 save("")
-                if val_batch is not None and rank == 0:
+                # under FSDP every rank runs the sharded forward (its gathers
+                # are collective); rank 0 logs
+                if val_batch is not None and (rank == 0 or args.fsdp > 1):
                     val = float(evaluate_step(
                         state.model, transport, val_batch, torch.Generator(device=device).manual_seed(0),
                         compute_dtype=cd, attn_impl=config.parallel.train_attention_impl,
                         rope_layout=config.parallel.rope_layout))
-                    logger.info(f"Validation Loss: {val:.4f}")
+                    logger.info(f"Validation Loss: {val:.4f}")  # rank 0's logger alone prints
                     if writer is not None:
                         writer.add_scalar("Loss/validation", val, state.step)
         else:

@@ -17,6 +17,18 @@
 // product never reaches device memory. x_q and w_q are both K-major, the
 // layout int8 wgmma reads.
 //
+// Tensor parallelism (ldmae_tpu/parallel/mesh.py, the tp rules: proj and
+// w3 sharded on their input dim) adds two more epilogues on the same
+// mainloops. A row-parallel layer's partial product goes to an all-reduce
+// before the bias and the dequant, as the JAX package's psum does:
+//  * dense_f32_out: out (m, n) fp32 = x (m, k) @ w (n, k)^T in fp32, no
+//    bias, no rounding (ldmae_tpu/ops/linear.py:21's fp32 sum under the
+//    psum); bf16(out + bias) equals ldmae_dense_bias_f32 on the same x, w
+//    and bias bit for bit (the same configuration and sums);
+//  * int8_dense_i32: out (m, n) int32 = x_q @ w_q^T, the exact sum
+//    (ldmae_tpu/ops/quant.py:107's int32 dot under the psum), equal to
+//    torch._int_mm.
+//
 // What bounds them on the path (B/1 under CFG at batch 8): at m = 16,384
 // the tensor cores (int8 qkv 0.029 ms at 1,979 TOP/s; bf16 proj 0.020 ms at
 // 989 TFLOP/s); at m = 16 (the adaLN linear) the bytes of w (7.1 MB of bf16,
@@ -78,6 +90,26 @@ struct DequantEpi {
   }
 };
 
+// fp32(acc) as it is: a row-parallel layer's partial sum
+struct F32Epi {
+  static constexpr bool kPaired = false;
+  using Out = float;
+  float* out;
+  __device__ __forceinline__ float row(int, int) const { return 0.f; }
+  __device__ __forceinline__ float2 col(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ __forceinline__ float apply(float acc, float, float2) const { return acc; }
+};
+
+// the exact int32 sum as it is: a row-parallel int8 layer's partial sum
+struct I32Epi {
+  static constexpr bool kPaired = false;
+  using Out = int;
+  int* out;
+  __device__ __forceinline__ float row(int, int) const { return 0.f; }
+  __device__ __forceinline__ float2 col(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ __forceinline__ int apply(int acc, float, float2) const { return acc; }
+};
+
 }  // namespace
 
 // The linear layer of `dense` in bf16 with an fp32 bias, one rounding: out
@@ -106,4 +138,20 @@ extern "C" int ldmae_int8_dense(const void* x_q, const void* w_q, const float* x
         dispatch<int8_t>(x_q, w_q, DequantEpi<float>{x_scale, w_scale, bias, static_cast<float*>(out)}, m, k, n, s));
   return static_cast<int>(
       dispatch<int8_t>(x_q, w_q, DequantEpi<bf16>{x_scale, w_scale, bias, static_cast<bf16*>(out)}, m, k, n, s));
+}
+
+// A row-parallel layer's partial product: out (m, n) fp32 = x (m, d) @ w (n,
+// d)^T with fp32 sums, bf16 operands as ldmae_dense_bias_f32 takes them, no
+// bias and no rounding. Returns the CUDA error of the launch (0 on success).
+extern "C" int ldmae_dense_f32_out(const void* x, const void* w, float* out, int m, int d, int n, void* stream) {
+  if (m < 1 || n < 1 || d < 1 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<bf16>(x, w, F32Epi{out}, m, d, n, static_cast<cudaStream_t>(stream)));
+}
+
+// A row-parallel int8 layer's partial product: out (m, n) int32 = x_q (m, k)
+// @ w_q (n, k)^T, exact, operands as ldmae_int8_dense takes them. Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int ldmae_int8_dense_i32(const void* x_q, const void* w_q, int* out, int m, int k, int n, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || k % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<int8_t>(x_q, w_q, I32Epi{out}, m, k, n, static_cast<cudaStream_t>(stream)));
 }

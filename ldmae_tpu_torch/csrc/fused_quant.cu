@@ -209,11 +209,20 @@ struct ModulateQuant {
   }
 };
 
+// What the gate kernel writes: #10 whole (int8 rows and their scales), or
+// one of its two halves for a hidden dim split over tensor-parallel ranks:
+// the row's absmax alone (kGateAmax), then, once the ranks' absmaxes are
+// reduced with max, the int8 rows and scales from that absmax (kGateScaled).
+// The two halves on each rank's slice equal #10 on the whole row bit for
+// bit: max is exact in any order, and each element's quotient is the same.
+enum GateMode { kGateFull, kGateAmax, kGateScaled };
+
 // One block per row of x12 (2H elements); kVec: 8-output vectors per thread.
-template <typename T, int kVec>
+// amax: written (kGateAmax) or read (kGateScaled), one fp32 a row.
+template <typename T, int kVec, GateMode kMode>
 __global__ void __launch_bounds__(kGateThreads)
     silu_mul_quant_kernel(const T* __restrict__ x12, int8_t* __restrict__ out,
-                          float* __restrict__ scales, int h) {
+                          float* __restrict__ scales, float* __restrict__ amax_row, int h) {
   __shared__ float part[kGateThreads / 32];
   const long long row = blockIdx.x;
   const T* x1 = x12 + row * 2 * h;
@@ -234,11 +243,19 @@ __global__ void __launch_bounds__(kGateThreads)
       amax = fmaxf(amax, fabsf(o[i][j]));
     }
   }
-  amax = warp_max(amax);
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
-  __syncthreads();
+  if constexpr (kMode == kGateScaled) {
+    amax = amax_row[row];
+  } else {
+    amax = warp_max(amax);
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kGateThreads / 32; ++i) amax = fmaxf(amax, part[i]);
+    for (int i = 0; i < kGateThreads / 32; ++i) amax = fmaxf(amax, part[i]);
+    if constexpr (kMode == kGateAmax) {
+      if (threadIdx.x == 0) amax_row[row] = amax;
+      return;
+    }
+  }
   const float qs = row_scale(amax);
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -248,8 +265,9 @@ __global__ void __launch_bounds__(kGateThreads)
   if (threadIdx.x == 0) scales[row] = qs;
 }
 
-template <typename T>
-cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s) {
+template <typename T, GateMode kMode = kGateFull>
+cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s,
+                        float* amax = nullptr) {
   if (h % 8 != 0 || h > kMaxGateVec * 8 * kGateThreads || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* xb = static_cast<const T*>(x12);
   int8_t* ob = static_cast<int8_t*>(out);
@@ -257,7 +275,7 @@ cudaError_t gate_launch(const void* x12, void* out, float* scales, long long row
   switch ((h / 8 + kGateThreads - 1) / kGateThreads) {
 #define LDMAE_CASE(V)                                                                   \
   case V:                                                                               \
-    silu_mul_quant_kernel<T, V><<<grid, kGateThreads, 0, s>>>(xb, ob, scales, h);       \
+    silu_mul_quant_kernel<T, V, kMode><<<grid, kGateThreads, 0, s>>>(xb, ob, scales, amax, h); \
     break;
     LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4)
     LDMAE_CASE(5) LDMAE_CASE(6) LDMAE_CASE(7) LDMAE_CASE(8)
@@ -292,4 +310,25 @@ extern "C" int ldmae_fused_silu_mul_quant(const void* x12, void* out, float* sca
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(fp32 ? gate_launch<float>(x12, out, scales, rows, h, s)
                                : gate_launch<bf16>(x12, out, scales, rows, h, s));
+}
+
+// #10's first half on a rank's slice of the hidden dim: x12 as above (the
+// slice [x1_r | x2_r], h its width); writes amax: (rows,) fp32, the absmax of
+// each row of silu(x1) * x2. Returns the CUDA error of the launch.
+extern "C" int ldmae_silu_mul_amax(const void* x12, float* amax, long long rows, int h, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(fp32 ? gate_launch<float, kGateAmax>(x12, nullptr, nullptr, rows, h, s, amax)
+                               : gate_launch<bf16, kGateAmax>(x12, nullptr, nullptr, rows, h, s, amax));
+}
+
+// #10's second half: given amax (rows,) fp32, the absmax of each whole row
+// (the ranks' values reduced with max), writes out (rows, h) int8 and scales
+// (rows,) fp32 as #10 does for the whole row. Returns the CUDA error of the
+// launch.
+extern "C" int ldmae_silu_mul_quant_scaled(const void* x12, const float* amax, void* out, float* scales,
+                                           long long rows, int h, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = const_cast<float*>(amax);  // read only in this mode
+  return static_cast<int>(fp32 ? gate_launch<float, kGateScaled>(x12, out, scales, rows, h, s, a)
+                               : gate_launch<bf16, kGateScaled>(x12, out, scales, rows, h, s, a));
 }

@@ -8,7 +8,10 @@
 //  * dense (csrc/dense.cu): the bf16 linear layer with an fp32 bias added in
 //    fp32 and one rounding;
 //  * int8_dense (csrc/dense.cu): the w8a8 linear layer, int8 x int8 with the
-//    per-row and per-column dequant and the fp32 bias in its epilogue.
+//    per-row and per-column dequant and the fp32 bias in its epilogue;
+//  * the row-parallel partials of tensor parallelism (csrc/dense.cu): the
+//    bf16 product's fp32 sums and the int8 product's int32 sums, stored as
+//    they are for the all-reduce that follows.
 //
 // What bounds them: at the DiT's token shapes (m = 16,384) the tensor
 // cores; at m <= 128 rows (the adaLN and timestep linears) and at n <= 64
@@ -235,6 +238,9 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
+__device__ __forceinline__ void store_pair(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
 
 // The staged store: the warpgroup stages the tile's column values
 // epi.col(c, n) (a float2 a column, zeros past n) once, then per chunk of
@@ -287,7 +293,8 @@ __device__ __forceinline__ void store_staged(const Epi& epi, const typename Cfg:
 // rows j.. of x1 and n + j.. of x2, kBN / 2 output columns, and Epi stores
 // the tile itself, `store<Cfg>(acc, tile)`) or else the staged store's
 // `Out`, `out`, `float row(r, m)`, `float2 col(c, n)` and
-// `float apply(acc, row value, column value)`.
+// `apply(acc, row value, column value)`, which returns a float (an int for
+// an int32 output).
 // a_bytes: the bytes of x a swizzle row of depth loads (the TMA box's rows x
 // 128).
 template <class Cfg, class Epi>

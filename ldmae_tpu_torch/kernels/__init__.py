@@ -70,13 +70,17 @@ LIBRARIES = {
     "dense": (
         "dense.cu",
         {"ldmae_dense_bias_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-         "ldmae_int8_dense": [_P] * 6 + [_I] * 4 + [_P]},
+         "ldmae_int8_dense": [_P] * 6 + [_I] * 4 + [_P],
+         "ldmae_dense_f32_out": [_P, _P, _P, _I, _I, _I, _P],
+         "ldmae_int8_dense_i32": [_P, _P, _P, _I, _I, _I, _P]},
     ),
     "fused_quant": (
         "fused_quant.cu",
         {
             "ldmae_fused_norm_modulate_quant": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _F, _I, _P],
             "ldmae_fused_silu_mul_quant": [_P, _P, _P, _L, _I, _I, _P],
+            "ldmae_silu_mul_amax": [_P, _P, _L, _I, _I, _P],
+            "ldmae_silu_mul_quant_scaled": [_P, _P, _P, _P, _L, _I, _I, _P],
         },
     ),
 }

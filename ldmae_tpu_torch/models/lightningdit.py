@@ -15,6 +15,12 @@ are constants rebuilt from the spec (``DiTConsts``); the ``pos_embed`` and
 ``permute_qk_for_half_rope`` (the same attention, RoPE as two contiguous
 halves). ``quant_mode`` ('w8' | 'w8a8') needs a model transformed by
 ``quantize_dit_`` (sampling only), applied after that permutation.
+
+Tensor parallelism (sampling): ``parallel.mesh.shard_dit_for_tp_`` keeps a
+rank's slices of each block's linears and sets ``DiTBlock.tp_group``; a
+block then attends over its heads, runs its slice of the MLP's hidden dim
+and all-gathers the adaLN modulations, with proj and w3 (fc2) row-parallel.
+The embedders and the final layer stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..ops.fused_adaln import fused_norm_modulate, fused_norm_modulate_quant
 from ..ops.patchify import patch_embed
 from ..ops.quant import is_quantized, maybe_qdense, quantize_linear, swiglu_ffn_quant
 from ..ops.rope import rope_channel_permutation, to_half_layout
+from ..parallel.distributed import group_all_gather, group_size
 
 
 @dataclass(frozen=True)
@@ -216,7 +223,11 @@ def _norm_modulate(x, norm, shift, scale, use_rmsnorm: bool, adaln_impl: str):
 
 
 class DiTBlock(nn.Module):
-    """One LightningDiT block (``_block``), full precision or quantized."""
+    """One LightningDiT block (``_block``), full precision or quantized.
+    ``tp_group``: the tensor-parallel group whose ranks hold this block's
+    slices (``parallel.mesh.shard_dit_for_tp_``), None when whole."""
+
+    tp_group = None
 
     def __init__(self, spec: DiTSpec, device):
         super().__init__()
@@ -236,6 +247,7 @@ class DiTBlock(nn.Module):
         """(shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp),
         each (B, D); the shifts are None for ``wo_shift``."""
         mod = maybe_qdense(c_mod, self.adaLN_modulation[1], quant_mode)
+        mod = group_all_gather(mod, self.tp_group)  # a rank holds a contiguous slice of the 6D outputs
         mod = mod.view(-1, spec.num_adaln, spec.hidden_size)
         if spec.wo_shift:
             scale_msa, gate_msa, scale_mlp, gate_mlp = mod.unbind(1)
@@ -247,9 +259,9 @@ class DiTBlock(nn.Module):
         """The block's attention output (after ``proj``), before its gate."""
         h = _norm_modulate(x, self.norm1, shift, scale, spec.use_rmsnorm, adaln_impl)
         return multi_head_attention(
-            h, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
+            h, self.attn, spec.num_heads // group_size(self.tp_group), rope=rope, rope_layout=rope_layout,
             qk_norm_kind="rms" if spec.use_rmsnorm else "layer", impl=attn_impl,
-            quant_mode=quant_mode,
+            quant_mode=quant_mode, tp_group=self.tp_group,
         )
 
     def mlp_residual(self, x, attn_out, gate_msa, shift_mlp, scale_mlp, gate_mlp, spec: DiTSpec,
@@ -257,11 +269,11 @@ class DiTBlock(nn.Module):
         """The block's output from its input and attention output."""
         x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
         h = _norm_modulate(x, self.norm2, shift_mlp, scale_mlp, spec.use_rmsnorm, adaln_impl)
-        m = self.mlp
+        m, g = self.mlp, self.tp_group
         if spec.use_swiglu:
-            mlp_out = swiglu_ffn(h, m.w12, m.w3, quant_mode=quant_mode, impl=mlp_impl)
+            mlp_out = swiglu_ffn(h, m.w12, m.w3, quant_mode=quant_mode, impl=mlp_impl, row_group=g)
         else:
-            mlp_out = mlp_gelu(h, m.fc1, m.fc2, approximate=True, quant_mode=quant_mode)
+            mlp_out = mlp_gelu(h, m.fc1, m.fc2, approximate=True, quant_mode=quant_mode, row_group=g)
         return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
 
     def forward_remat_attn(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
@@ -277,7 +289,12 @@ class DiTBlock(nn.Module):
                           spec, adaln_impl, mlp_impl, use_reentrant=False)
 
     def forward(self, x, c_mod, spec: DiTSpec, rope, attn_impl: str, rope_layout: str,
-                adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None):
+                adaln_impl: str, mlp_impl: str, quant_mode: Optional[str] = None, remat_attn: bool = False):
+        """The block's output; ``remat_attn``: ``forward_remat_attn`` (called
+        through the module, so hooks on the block, FSDP's among them, see
+        it)."""
+        if remat_attn:
+            return self.forward_remat_attn(x, c_mod, spec, rope, attn_impl, rope_layout, adaln_impl, mlp_impl)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(
             c_mod, spec, quant_mode)
         kind = "rms" if spec.use_rmsnorm else "layer"
@@ -295,13 +312,14 @@ class DiTBlock(nn.Module):
             w1 = None if self.norm1 is None else self.norm1.weight
             h_q, h_s = fused_norm_modulate_quant(x, w1, shift_msa, scale_msa, kind=kind)
             attn_out = multi_head_attention(
-                None, self.attn, spec.num_heads, rope=rope, rope_layout=rope_layout,
-                qk_norm_kind=kind, impl=attn_impl, x_quant=(h_q, h_s), out_dtype=x.dtype,
+                None, self.attn, spec.num_heads // group_size(self.tp_group), rope=rope,
+                rope_layout=rope_layout, qk_norm_kind=kind, impl=attn_impl, x_quant=(h_q, h_s),
+                out_dtype=x.dtype, tp_group=self.tp_group,
             )
             x = x + gate_msa[:, None, :].to(x.dtype) * attn_out
             w2 = None if self.norm2 is None else self.norm2.weight
             h_q, h_s = fused_norm_modulate_quant(x, w2, shift_mlp, scale_mlp, kind=kind)
-            mlp_out = swiglu_ffn_quant(h_q, h_s, self.mlp, compute_dtype=x.dtype)
+            mlp_out = swiglu_ffn_quant(h_q, h_s, self.mlp, compute_dtype=x.dtype, row_group=self.tp_group)
             return x + gate_mlp[:, None, :].to(x.dtype) * mlp_out
 
         attn_out = self.attn_branch(x, shift_msa, scale_msa, spec, rope, attn_impl, rope_layout,
@@ -398,7 +416,7 @@ class LightningDiT(nn.Module):
             raise ValueError(f"unknown remat_policy {remat!r} (full | attn | dots)")
         for blk in self.blocks:
             if remat == "attn":
-                tokens = blk.forward_remat_attn(tokens, *args)
+                tokens = blk(tokens, *args, remat_attn=True)
             elif remat == "full":
                 tokens = checkpoint(blk, tokens, *args, use_reentrant=False)
             elif remat == "dots":

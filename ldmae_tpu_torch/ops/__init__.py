@@ -19,7 +19,9 @@ KERNEL_WRAPPERS = (_fa.flash_attention_rope, _fa.flash_attention,
                    _fa.flash_attention_qknorm_rope, _fa.flash_attention_fused_rope,
                    _fad.fused_norm_modulate_quant, _fad.fused_silu_mul_quant,
                    _fa.flash_attention_bwd, _fa.flash_attention_rope_bwd,
-                   _fa.flash_attention_resident, _lin.dense_bias_f32, _quant.int8_dense)
+                   _fa.flash_attention_resident, _lin.dense_bias_f32, _quant.int8_dense,
+                   # the tensor-parallel pieces: row-parallel partials, #10's halves
+                   _lin.dense_f32_out, _quant.int8_dense_i32, _fad.silu_mul_amax, _fad.silu_mul_quant_scaled)
 
 
 def reset_launch_counts() -> None:

@@ -81,22 +81,31 @@ def multi_head_attention(
     quant_mode: Optional[str] = None,
     x_quant: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     out_dtype: Optional[torch.dtype] = None,
+    tp_group=None,
 ) -> torch.Tensor:
     """x: (B, N, D) -> (B, N, D) in x's dtype.
 
     x_quant: optional (int8 x, fp32 row scales) from a fused producer kernel,
     used for the qkv matmul instead of x when the qkv weights are quantized
     (the w8a8 fused sampling path). x may then be None; out_dtype sets the
-    compute and output dtype (default bfloat16)."""
+    compute and output dtype (default bfloat16).
+
+    tp_group: tensor parallelism over heads. ``p.qkv`` holds this rank's
+    ``num_heads`` heads of q, k and v (their rows in the [q; k; v] layout),
+    the qk-norm weights are whole, and ``p.proj`` holds the matching input
+    columns: the rank attends over its heads and proj's partial products
+    are summed over the group (``dense_row_parallel``)."""
     if x is None:
         if x_quant is None:
             raise ValueError("multi_head_attention needs x or x_quant")
-        b, n, d = x_quant[0].shape
+        b, n = x_quant[0].shape[:2]
         dtype = out_dtype or torch.bfloat16
     else:
-        b, n, d = x.shape
+        b, n = x.shape[:2]
         dtype = x.dtype
-    hd = d // num_heads
+    w_qkv = p.qkv.w_q if is_quantized(p.qkv) else p.qkv.weight
+    hd = w_qkv.shape[0] // (3 * num_heads)
+    d = num_heads * hd  # the width this rank attends over (D under no tp)
     half_rope = rope is not None and rope_layout == "half"
     q_norm, k_norm = getattr(p, "q_norm", None), getattr(p, "k_norm", None)
 
@@ -115,7 +124,7 @@ def multi_head_attention(
         k = _apply_head_norm(qkv[:, :, 1], k_norm, qk_norm_kind)
         cos, sin = rope
         out = flash_attention_fused_rope(q, k, qkv[:, :, 2], cos, sin).view(b, n, d)
-        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
+        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype, row_group=tp_group)
 
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, hd)
 
@@ -127,7 +136,7 @@ def multi_head_attention(
         cos, sin = rope
         out = flash_attention_qknorm_rope(q, k, v, q_norm.weight, k_norm.weight, cos, sin)
         out = out.transpose(1, 2).reshape(b, n, d)
-        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
+        return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype, row_group=tp_group)
 
     q = _apply_head_norm(q, q_norm, qk_norm_kind)
     k = _apply_head_norm(k, k_norm, qk_norm_kind)
@@ -143,4 +152,4 @@ def multi_head_attention(
             k = rope_fn(k, cos, sin)
         out = sdpa(q, k, v, impl=impl)
     out = out.transpose(1, 2).reshape(b, n, d)
-    return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype)
+    return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype, row_group=tp_group)

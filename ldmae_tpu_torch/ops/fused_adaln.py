@@ -16,6 +16,11 @@ except ``fused_matmul_silu``, whose fp32 kernel is a plain SIMT GEMM (the
 tensor cores take no fp32). Rows of D <= MAX_WIDTH elements, D a multiple
 of 8 (bf16) or 4 (fp32): every width of the DiT registry (64 to 1,792).
 ``<wrapper>.launches`` counts kernel launches.
+
+Under tensor parallelism a rank holds a slice [x1_r | x2_r] of the SwiGLU
+hidden dim, so #10 runs as its two halves (``silu_mul_amax``, then
+``silu_mul_quant_scaled`` with the ranks' maxima reduced): two modes of the
+same gate kernel, which together equal #10 on the whole row bit for bit.
 """
 
 from __future__ import annotations
@@ -244,11 +249,15 @@ def fused_matmul_silu(
 fused_matmul_silu.launches = 0
 
 
-def quantize_rows_fp32(o: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows_fp32(o: torch.Tensor, amax: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 of fp32 ``o`` (..., K): scale = max(absmax /
-    127, 1e-8), q = round(o / scale) half-to-even. Returns (int8 (..., K),
-    fp32 (..., 1))."""
-    qs = torch.clamp_min(o.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    127, 1e-8), q = round(o / scale) half-to-even. ``amax`` (..., 1), when
+    given, is the row's absmax (a row split across ranks: the max of every
+    rank's slice), else it is taken over ``o``. Returns (int8 (..., K), fp32
+    (..., 1))."""
+    if amax is None:
+        amax = o.abs().amax(dim=-1, keepdim=True)
+    qs = torch.clamp_min(amax / 127.0, 1e-8)
     return torch.round(o / qs).to(torch.int8), qs
 
 
@@ -318,13 +327,28 @@ def fused_norm_modulate_quant(
 fused_norm_modulate_quant.launches = 0
 
 
-def fused_silu_mul_quant_plain(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """silu(x1) * x2 in fp32 over the packed (..., 2H) pre-activation, then
-    per-row int8."""
+def _silu_mul_fp32(x12: torch.Tensor) -> torch.Tensor:
+    """silu(x1) * x2 in fp32 over the packed (..., 2H) pre-activation."""
     xf = x12.float()
     h = xf.shape[-1] // 2
     x1, x2 = xf[..., :h], xf[..., h:]
-    return quantize_rows_fp32((x1 * torch.sigmoid(x1)) * x2)
+    return (x1 * torch.sigmoid(x1)) * x2
+
+
+def fused_silu_mul_quant_plain(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """silu(x1) * x2 in fp32 over the packed (..., 2H) pre-activation, then
+    per-row int8."""
+    return quantize_rows_fp32(_silu_mul_fp32(x12))
+
+
+def _gate_rows(what: str, x12: torch.Tensor) -> tuple[int, int]:
+    """x12 as the gate kernel takes it; returns (rows, H)."""
+    if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous() or x12.data_ptr() % 16:
+        raise ValueError(f"{what}: x12 must be a contiguous, 16-byte aligned bf16 or fp32 tensor")
+    h = x12.shape[-1] // 2
+    if x12.shape[-1] % 16 or h > 8192:
+        raise ValueError(f"{what}: 2H={x12.shape[-1]} must be a multiple of 16 and <= 16384")
+    return x12.numel() // x12.shape[-1], h
 
 
 def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -332,12 +356,7 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     channels). Returns (int8 (..., H), fp32 row scales (..., 1))."""
     if x12.device.type == "cpu":
         return fused_silu_mul_quant_plain(x12)
-    if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous() or x12.data_ptr() % 16:
-        raise ValueError("fused_silu_mul_quant: x12 must be a contiguous, 16-byte aligned bf16 or fp32 tensor")
-    h = x12.shape[-1] // 2
-    if x12.shape[-1] % 16 or h > 8192:
-        raise ValueError(f"fused_silu_mul_quant: 2H={x12.shape[-1]} must be a multiple of 16 and <= 16384")
-    rows = x12.numel() // x12.shape[-1]
+    rows, h = _gate_rows("fused_silu_mul_quant", x12)
     out = torch.empty(*x12.shape[:-1], h, device=x12.device, dtype=torch.int8)
     scales = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
     lib = kernels.load("fused_quant")
@@ -349,3 +368,60 @@ def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
 
 
 fused_silu_mul_quant.launches = 0
+
+
+# #10 on a hidden dim split over tensor-parallel ranks (each holds [x1_r |
+# x2_r]): the row's absmax, reduced with max over the ranks, then the int8
+# rows from that absmax. Together they equal #10 on the whole row bit for bit.
+
+
+def silu_mul_amax_plain(x12: torch.Tensor) -> torch.Tensor:
+    """The absmax (..., 1) fp32 of each row of silu(x1) * x2 in fp32."""
+    return _silu_mul_fp32(x12).abs().amax(dim=-1, keepdim=True)
+
+
+def silu_mul_quant_scaled_plain(x12: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """silu(x1) * x2 in fp32, per-row int8 with the whole row's ``amax``."""
+    return quantize_rows_fp32(_silu_mul_fp32(x12), amax)
+
+
+def silu_mul_amax(x12: torch.Tensor) -> torch.Tensor:
+    """x12: (..., 2H) a rank's slice [x1_r | x2_r]. Returns the absmax (...,
+    1) fp32 of each row of silu(x1_r) * x2_r (``ldmae_silu_mul_amax``, the
+    first pass of #10's gate kernel)."""
+    if x12.device.type == "cpu":
+        return silu_mul_amax_plain(x12)
+    rows, h = _gate_rows("silu_mul_amax", x12)
+    amax = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
+    lib = kernels.load("fused_quant")
+    err = kernels.on_device(x12, lib.ldmae_silu_mul_amax, x12.data_ptr(), amax.data_ptr(), rows, h,
+                            int(x12.dtype == torch.float32))
+    kernels.check(err, "silu_mul_amax")
+    silu_mul_amax.launches += 1
+    return amax
+
+
+silu_mul_amax.launches = 0
+
+
+def silu_mul_quant_scaled(x12: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x12: (..., 2H) a rank's slice; amax: (..., 1) fp32, the whole row's
+    absmax. Returns (int8 (..., H), fp32 row scales (..., 1)) as #10 writes
+    them for the whole row (``ldmae_silu_mul_quant_scaled``)."""
+    if x12.device.type == "cpu":
+        return silu_mul_quant_scaled_plain(x12, amax)
+    rows, h = _gate_rows("silu_mul_quant_scaled", x12)
+    if amax.dtype != torch.float32 or amax.numel() != rows or amax.device != x12.device:
+        raise ValueError(f"silu_mul_quant_scaled: amax must be fp32 with one value a row ({rows}) on {x12.device}")
+    amax = amax.contiguous()
+    out = torch.empty(*x12.shape[:-1], h, device=x12.device, dtype=torch.int8)
+    scales = torch.empty(*x12.shape[:-1], 1, device=x12.device, dtype=torch.float32)
+    lib = kernels.load("fused_quant")
+    err = kernels.on_device(x12, lib.ldmae_silu_mul_quant_scaled, x12.data_ptr(), amax.data_ptr(), out.data_ptr(),
+                            scales.data_ptr(), rows, h, int(x12.dtype == torch.float32))
+    kernels.check(err, "silu_mul_quant_scaled")
+    silu_mul_quant_scaled.launches += 1
+    return out, scales
+
+
+silu_mul_quant_scaled.launches = 0

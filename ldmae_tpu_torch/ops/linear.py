@@ -5,6 +5,13 @@ checkpoints store them. ``dense`` casts both operands to the compute dtype
 and lets the matmul accumulate in float32 (cuBLAS and oneDNN do for bf16),
 adds the float32 bias in float32 and rounds once to the compute dtype at
 the end.
+
+Under tensor parallelism a column-parallel layer (its output dim split
+over the ranks) is the local ``dense`` on the rank's rows. A row-parallel
+layer (its input dim split: proj, w3, fc2) is ``dense_row_parallel``: the
+fp32 partial product without the bias (``dense_f32_out``, the GEMM engine's
+fp32 epilogue), all-reduced in fp32, then the fp32 bias and one rounding,
+the math of the JAX package's psum over its fp32 dot.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.distributed import group_all_reduce_
 from .fused_adaln import fused_matmul_silu
 from .quant import is_quantized, maybe_qdense
 
@@ -91,6 +99,66 @@ def dense(
     return F.linear(x.float(), weight.float(), b).to(cd)
 
 
+def dense_f32_out_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``dense_f32_out``'s plain version: fp32 x @ weight^T of the operands'
+    values, no bias, no rounding."""
+    return F.linear(x.float(), weight.float())
+
+
+def dense_f32_out(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(M, N) fp32: x (M, K) bf16 @ weight (N, K)^T bf16 with fp32 sums, no
+    bias and no rounding: a row-parallel layer's partial product. On CUDA
+    the GEMM engine's fp32 epilogue (``ldmae_dense_f32_out``; operands
+    padded and aligned as ``dense_bias_f32``'s), on the same mainloop and
+    configuration as ``dense_bias_f32``, so bf16(out + bias) is that
+    kernel's output bit for bit; for CPU tensors the plain version.
+    ``dense_f32_out.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return dense_f32_out_plain(x, weight)
+    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+        raise ValueError(f"dense_f32_out: the kernel takes bf16 operands, got {x.dtype} and {weight.dtype}")
+    m, k = x.shape
+    n = weight.shape[0]
+    x, weight = (F.pad(t, (0, -k % 8)) if k % 8 or t.data_ptr() % 16 or not t.is_contiguous() else t
+                 for t in (x, weight))
+    out = torch.empty(m, n, device=x.device, dtype=torch.float32)
+    lib = kernels.load("dense")
+    err = kernels.on_device(x, lib.ldmae_dense_f32_out, x.data_ptr(), weight.data_ptr(), out.data_ptr(), m,
+                            x.shape[1], n)
+    kernels.check(err, "dense_f32_out")
+    dense_f32_out.launches += 1
+    return out
+
+
+dense_f32_out.launches = 0
+
+
+def dense_row_parallel(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    group,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``dense`` of a layer whose input dim is split over ``group``: x (...,
+    K_r) and weight (N, K_r) are this rank's slices, the bias (N,) whole.
+    The fp32 partial products are summed over the group, then the fp32 bias
+    is added and the sum rounded once to the compute dtype (the JAX psum's
+    math). bf16 runs ``dense_f32_out``; fp32 the fp32 product ``dense`` runs
+    in fp32. Forward only (sampling)."""
+    cd = compute_dtype or x.dtype
+    x, weight = x.to(cd), weight.to(cd)
+    rows = x.reshape(-1, x.shape[-1])
+    if cd == torch.bfloat16:
+        part = dense_f32_out(rows, weight)
+    else:
+        part = F.linear(rows.float(), weight.float())
+    group_all_reduce_(part, group)
+    if bias is not None:
+        part = part + bias.float()
+    return part.to(cd).view(*x.shape[:-1], weight.shape[0])
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.silu in its op order, x * (1 / (1 + exp(-x))), each op rounded
     to x's dtype as the JAX package's lowering does."""
@@ -114,12 +182,14 @@ def mlp_gelu(
     fc2,
     approximate: bool = False,
     quant_mode: Optional[str] = None,
+    row_group=None,
 ) -> torch.Tensor:
     """timm-style Mlp: fc1 -> GELU -> fc2, over two linears (nn.Linear or
     QLinear). VMAE uses exact GELU, the DiT's non-SwiGLU path the tanh
-    approximation."""
+    approximation. ``row_group``: fc1 holds this rank's hidden rows and fc2
+    is row-parallel over the group."""
     h = gelu(maybe_qdense(x, fc1, quant_mode), approximate=approximate)
-    return maybe_qdense(h, fc2, quant_mode)
+    return maybe_qdense(h, fc2, quant_mode, row_group=row_group)
 
 
 def swiglu_ffn(
@@ -128,19 +198,22 @@ def swiglu_ffn(
     w3,
     quant_mode: Optional[str] = None,
     impl: str = "xla",
+    row_group=None,
 ) -> torch.Tensor:
     """SwiGLU FFN over the reference's packed ``w12`` linear (2H, D): x1 is
     the first H output channels, x2 the rest. ``impl="fused"`` runs the gate
     inside the w12 matmul kernel when w12 is full precision and the kernel's
     shape gate holds; otherwise (and for ``impl="xla"``) x12 is rounded to
-    the compute dtype before the silu."""
+    the compute dtype before the silu. ``row_group``: w12 holds this rank's
+    gate-aligned rows [w1_r | w2_r] (so x1 and x2 stay paired on the rank)
+    and w3 is row-parallel over the group."""
     if impl == "fused" and not is_quantized(w12):
         hidden = fused_matmul_silu(x, w12.weight, w12.bias)
         if hidden is not None:
-            return maybe_qdense(hidden, w3, quant_mode)
+            return maybe_qdense(hidden, w3, quant_mode, row_group=row_group)
     x12 = maybe_qdense(x, w12, quant_mode)
     x1, x2 = x12.chunk(2, dim=-1)
-    return maybe_qdense(silu(x1) * x2, w3, quant_mode)
+    return maybe_qdense(silu(x1) * x2, w3, quant_mode, row_group=row_group)
 
 
 def modulate(

@@ -13,6 +13,14 @@ Two modes, both inference-only transforms of a full-precision model:
     ``int8_dense_plain`` (``torch._int_mm``, then the fp32 passes) runs for
     CPU tensors.
 
+Under tensor parallelism a row-parallel layer (its input dim split over
+the ranks of ``row_group``: w3, and fc2 of the GELU MLP) quantizes its
+sharded input with the whole row's absmax (the ranks' maxima reduced with
+max), takes the exact int32 partial product (``int8_dense_i32``, the GEMM
+engine's raw int32 epilogue), all-reduces it and dequantizes after, as the
+JAX package's psum of the int32 dot does: the result equals the unsharded
+layer's bit for bit.
+
 A quantized linear is a ``QLinear``: ``w_q`` int8 (out, in) in nn.Linear's
 layout, ``w_scale`` fp32 (out,), ``bias`` fp32 (out,) or None. Weights are
 quantized symmetrically per output channel, so the absmax is taken over the
@@ -29,7 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import kernels
-from .fused_adaln import fused_silu_mul_quant, quantize_rows_fp32
+from ..parallel.distributed import group_all_reduce_
+from .fused_adaln import fused_silu_mul_quant, quantize_rows_fp32, silu_mul_amax, silu_mul_quant_scaled
 
 _EPS = 1e-8
 # torch._int_mm on CUDA takes more than 16 rows; fewer (the adaLN projection
@@ -158,23 +167,65 @@ def int8_dense(x_q: torch.Tensor, x_scale: torch.Tensor, p: QLinear, compute_dty
 int8_dense.launches = 0
 
 
+def int8_dense_i32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product (..., N) of x_q int8 (..., K) and w_q int8 (N,
+    K): a row-parallel layer's partial sum, dequantized after the
+    all-reduce. On CUDA the int8 wgmma GEMM with its raw int32 epilogue
+    (``ldmae_int8_dense_i32``), equal to its plain version
+    (``torch._int_mm``), which runs for CPU tensors. Operands are padded and
+    aligned as ``int8_dense``'s. ``int8_dense_i32.launches`` counts
+    launches."""
+    if x_q.device.type == "cpu":
+        return _int_mm(x_q, w_q)
+    k = x_q.shape[-1]
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[1] != k:
+        raise ValueError(f"int8_dense_i32: x_q (..., {k}) and w_q (N, {k}) must be int8, "
+                         f"got {x_q.dtype} and {w_q.dtype} {tuple(w_q.shape)}")
+    a = x_q.reshape(-1, k)
+    if k % 16 or a.data_ptr() % 16 or not a.is_contiguous():
+        a = F.pad(a, (0, -k % 16))
+    if k % 16 or w_q.data_ptr() % 16 or not w_q.is_contiguous():
+        w_q = F.pad(w_q, (0, -k % 16))
+    m, n = a.shape[0], w_q.shape[0]
+    out = torch.empty(m, n, device=a.device, dtype=torch.int32)
+    lib = kernels.load("dense")
+    err = kernels.on_device(a, lib.ldmae_int8_dense_i32, a.data_ptr(), w_q.data_ptr(), out.data_ptr(), m,
+                            a.shape[1], n)
+    kernels.check(err, "int8_dense_i32")
+    int8_dense_i32.launches += 1
+    return out.view(*x_q.shape[:-1], n)
+
+
+int8_dense_i32.launches = 0
+
+
 def qdense(
     x: torch.Tensor,
     p: QLinear,
     mode: str = "w8a8",
     compute_dtype: Optional[torch.dtype] = None,
+    row_group=None,
 ) -> torch.Tensor:
     """Quantized counterpart of ``linear.dense``. Output dtype follows the
-    input (like dense)."""
-    from .linear import dense
+    input (like dense). ``row_group``: ``p`` holds this rank's slice of the
+    input dim (w_scale and the bias whole) and the partial products are
+    summed over the group (module docstring)."""
+    from .linear import dense, dense_row_parallel
 
     cd = compute_dtype or x.dtype
     if mode == "w8":
         w = p.w_q.to(cd) * p.w_scale.to(cd)[:, None]
+        if row_group is not None:
+            return dense_row_parallel(x, w, p.bias, row_group, compute_dtype=cd)
         return dense(x, w, p.bias, compute_dtype=cd)
     if mode == "w8a8":
-        x_q, x_scale = _quantize_rows(x)
-        return int8_dense(x_q, x_scale, p, cd)
+        if row_group is None:
+            x_q, x_scale = _quantize_rows(x)
+            return int8_dense(x_q, x_scale, p, cd)
+        xf = x.float()
+        amax = group_all_reduce_(xf.abs().amax(dim=-1, keepdim=True), row_group, "max")
+        x_q, x_scale = quantize_rows_fp32(xf, amax)
+        return qdense_pre(x_q, x_scale, p, cd, row_group)
     raise ValueError(f"unknown quant mode: {mode}")
 
 
@@ -183,11 +234,17 @@ def qdense_pre(
     x_scale: torch.Tensor,
     p: QLinear,
     compute_dtype: torch.dtype = torch.bfloat16,
+    row_group=None,
 ) -> torch.Tensor:
     """w8a8 matmul over an activation already quantized by a producer
     kernel (``fused_norm_modulate_quant`` / ``fused_silu_mul_quant``).
-    x_q: int8 (..., K); x_scale: fp32 (..., 1)."""
-    return int8_dense(x_q, x_scale, p, compute_dtype)
+    x_q: int8 (..., K); x_scale: fp32 (..., 1). ``row_group``: x_q and
+    ``p.w_q`` are this rank's slices of K; the int32 partials are summed
+    over the group (exact) before the dequant."""
+    if row_group is None:
+        return int8_dense(x_q, x_scale, p, compute_dtype)
+    acc = group_all_reduce_(int8_dense_i32(x_q, p.w_q), row_group)
+    return _dequant(acc, x_scale, p, compute_dtype)
 
 
 def swiglu_ffn_quant(
@@ -195,13 +252,21 @@ def swiglu_ffn_quant(
     x_scale: torch.Tensor,
     mlp,
     compute_dtype: torch.dtype = torch.bfloat16,
+    row_group=None,
 ) -> torch.Tensor:
     """SwiGLU FFN over a pre-quantized input, the silu gate and the w3
     input quantization in one kernel (``fused_silu_mul_quant``). ``mlp``
-    has quantized ``w12`` and ``w3``."""
+    has quantized ``w12`` and ``w3``. ``row_group``: w12 holds this rank's
+    gate-aligned rows [w1_r | w2_r] and w3 the matching input columns; the
+    gate runs as #10's two halves around the all-reduce of the row
+    maxima."""
     x12 = qdense_pre(x_q, x_scale, mlp.w12, compute_dtype)
-    h_q, h_s = fused_silu_mul_quant(x12)
-    return qdense_pre(h_q, h_s, mlp.w3, compute_dtype)
+    if row_group is None:
+        h_q, h_s = fused_silu_mul_quant(x12)
+    else:
+        amax = group_all_reduce_(silu_mul_amax(x12), row_group, "max")
+        h_q, h_s = silu_mul_quant_scaled(x12, amax)
+    return qdense_pre(h_q, h_s, mlp.w3, compute_dtype, row_group)
 
 
 def is_quantized(lin) -> bool:
@@ -213,11 +278,15 @@ def maybe_qdense(
     lin,
     mode: Optional[str],
     compute_dtype: Optional[torch.dtype] = None,
+    row_group=None,
 ) -> torch.Tensor:
     """dense() over either an nn.Linear or a QLinear, so one forward serves
-    quantized and full-precision models."""
-    from .linear import dense
+    quantized and full-precision models. ``row_group``: ``lin`` is
+    row-parallel over that group (``dense_row_parallel`` / ``qdense``)."""
+    from .linear import dense, dense_row_parallel
 
     if is_quantized(lin):
-        return qdense(x, lin, mode=mode or "w8a8", compute_dtype=compute_dtype)
+        return qdense(x, lin, mode=mode or "w8a8", compute_dtype=compute_dtype, row_group=row_group)
+    if row_group is not None:
+        return dense_row_parallel(x, lin.weight, lin.bias, row_group, compute_dtype=compute_dtype)
     return dense(x, lin.weight, lin.bias, compute_dtype=compute_dtype)

@@ -18,6 +18,12 @@ collective at once instead of leaving them at a barrier.
 
 ``global_batch_draws`` makes a data-parallel rank draw its random numbers as
 a one-process run on the global batch would (see its docstring).
+
+Device-side collectives on a group (tensor parallelism's partial sums, row
+maxima and gathered modulations): ``group_all_reduce_`` (sum or max, in
+place) and ``group_all_gather`` (concatenated along a dim). They run on
+whatever backend the group has, NCCL across cards or gloo for ranks that
+share one, and a failed collective raises.
 """
 
 from __future__ import annotations
@@ -175,3 +181,32 @@ def global_batch_draws(generator: Optional[torch.Generator], local_batch: int):
         return
     with _GlobalBatchDraws(generator, local_batch, get_rank(), world):
         yield
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def group_size(group) -> int:
+    """Ranks in ``group`` (1 for None: no group, nothing to reduce)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over ``group``'s ranks in place (``op`` 'sum' or 'max')
+    and returned; every rank ends with the same values. No-op without a
+    group. Integer sums are exact; a float sum's order is the backend's."""
+    if group_size(group) > 1:
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+    return t
+
+
+def group_all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in group-rank order (the
+    shards of a tensor split contiguously along ``dim``)."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return torch.cat(out.view(n, *t.shape).unbind(0), dim=dim)

@@ -1,4 +1,5 @@
-from .state import TrainState, init_train_state, list_checkpoints, restore_checkpoint, save_checkpoint
+from .state import (TrainState, init_sharded_train_state, init_train_state, list_checkpoints, restore_checkpoint,
+                    save_checkpoint)
 from .train_dit import (
     apply_update_,
     build_from_config,
@@ -11,6 +12,7 @@ from .train_dit import (
 __all__ = [
     "TrainState",
     "init_train_state",
+    "init_sharded_train_state",
     "list_checkpoints",
     "restore_checkpoint",
     "save_checkpoint",

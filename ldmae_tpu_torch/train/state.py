@@ -15,6 +15,14 @@ wrapper that the step runs through (``ddp``); ``model`` stays the module
 itself, so the EMA and the checkpoints are the module's, and a checkpoint
 file is what a one-process run writes. Rank 0 writes it and every rank
 waits at a barrier until it is on disk; every rank restores.
+
+Under FSDP (``init_sharded_train_state``) the model, the EMA and the AdamW
+state are sharded: a checkpoint gathers their full state dicts
+(``torch.distributed.checkpoint.state_dict``, every rank taking part) and
+writes the same file, the optimizer state indexed by parameter as
+``torch.optim`` indexes it; a restore hands each rank the full state dicts
+to shard. So a checkpoint written under ``--fsdp`` restores in one process
+and the reverse.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import copy
 import os
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -52,6 +60,76 @@ def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Trai
     return TrainState(step=0, model=model, ema=ema, optimizer=optimizer)
 
 
+def init_sharded_train_state(model: nn.Module, mesh, make_optimizer: Callable) -> TrainState:
+    """Step 0 under FSDP: the EMA copied from the whole model, then the model
+    and the EMA sharded alike (``parallel.wrap_fsdp``), and the optimizer
+    built by ``make_optimizer(parameters)`` over the sharded parameters."""
+    from ..parallel.mesh import wrap_fsdp
+
+    ema = copy.deepcopy(model).requires_grad_(False)
+    wrap_fsdp(model, mesh)
+    wrap_fsdp(ema, mesh)
+    return TrainState(step=0, model=model, ema=ema, optimizer=make_optimizer(model.parameters()))
+
+
+def _sharded(module: Optional[nn.Module]) -> bool:
+    return module is not None and hasattr(module, "set_requires_gradient_sync")
+
+
+def _full_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's state dict with whole tensors on the CPU: under FSDP
+    gathered (collective; rank 0 gets the tensors), else as it is."""
+    if not _sharded(module):
+        return module.state_dict()
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+    return get_model_state_dict(module, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+
+
+def _param_names(model: nn.Module) -> List[str]:
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _full_optimizer_state(state: TrainState) -> Dict[str, Any]:
+    """The optimizer's state dict as ``torch.optim`` writes it (parameters
+    by index); under FSDP gathered from the shards (collective)."""
+    if not _sharded(state.model):
+        return state.optimizer.state_dict()
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_optimizer_state_dict
+
+    osd = get_optimizer_state_dict(state.model, state.optimizer,
+                                   options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+    if not osd:  # ranks other than 0
+        return osd
+    index = {n: i for i, n in enumerate(_param_names(state.model))}
+    # the groups as torch.optim writes them (its own values and indices)
+    return {"state": {index[n]: s for n, s in osd["state"].items()},
+            "param_groups": state.optimizer.state_dict()["param_groups"]}
+
+
+def _load_optimizer_state(state: TrainState, opt: Dict[str, Any]) -> None:
+    if not _sharded(state.model):
+        state.optimizer.load_state_dict(opt)
+        return
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_optimizer_state_dict
+
+    names = _param_names(state.model)
+    by_name = {"state": {names[i]: s for i, s in opt["state"].items()},
+               "param_groups": [dict(g, params=[names[i] for i in g["params"]]) for g in opt["param_groups"]]}
+    set_optimizer_state_dict(state.model, state.optimizer, by_name, options=StateDictOptions(full_state_dict=True))
+    for group, saved in zip(state.optimizer.param_groups, opt["param_groups"]):  # the values as written
+        group.update({k: v for k, v in saved.items() if k != "params"})
+
+
+def _load_module_state(module: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    if not _sharded(module):
+        module.load_state_dict(sd, strict=True)
+        return
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+
+    set_model_state_dict(module, sd, options=StateDictOptions(full_state_dict=True, strict=True))
+
+
 def _ckpt_dir(base: str) -> str:
     return os.path.abspath(os.path.join(base, "checkpoints"))
 
@@ -66,7 +144,7 @@ def list_checkpoints(base_dir: str) -> List[int]:
 def _permute_opt_state(opt_sd: Dict[str, Any], model: LightningDiT, inverse: bool) -> Dict[str, Any]:
     """The AdamW moments of the q/k channels moved between the RoPE layouts
     (optimizer state is indexed by the parameters' order in the model)."""
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    names = _param_names(model)
     state = opt_sd["state"]
     out = {"state": {i: dict(s) for i, s in state.items()}, "param_groups": opt_sd["param_groups"]}
     for key in ("exp_avg", "exp_avg_sq"):
@@ -86,18 +164,20 @@ def save_checkpoint(base_dir: str, state: TrainState, config: Optional[Dict] = N
     ``half_rope``: the run trains in the half-split layout."""
     spec = state.model.spec
     path = os.path.join(_ckpt_dir(base_dir), f"{int(state.step):07d}.pt")
+    # every rank takes part in the gathers under FSDP; rank 0 writes
+    model_sd, opt = _full_state(state.model), _full_optimizer_state(state)
+    ema_sd = None if state.ema is None else _full_state(state.ema)
     if get_rank() == 0:
 
         def canonical(sd):
             sd = {k: v.detach().cpu() for k, v in sd.items()}
             return permute_qk_for_half_rope(sd, spec, inverse=True) if half_rope else sd
 
-        opt = state.optimizer.state_dict()
         if half_rope:
             opt = _permute_opt_state(opt, state.model, inverse=True)
-        ckpt = {"model": canonical(state.model.state_dict())}
-        if state.ema is not None:
-            ckpt["ema"] = canonical(state.ema.state_dict())
+        ckpt = {"model": canonical(model_sd)}
+        if ema_sd is not None:
+            ckpt["ema"] = canonical(ema_sd)
         ckpt |= {"opt": opt, "config": config, "step": int(state.step)}
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
@@ -122,10 +202,10 @@ def restore_checkpoint(base_dir: str, state: TrainState, step: Optional[int] = N
         if module is None:
             continue
         sd = ckpt[key]
-        module.load_state_dict(permute_qk_for_half_rope(sd, spec) if half_rope else sd, strict=True)
+        _load_module_state(module, permute_qk_for_half_rope(sd, spec) if half_rope else sd)
     opt = ckpt["opt"]
     if half_rope:
         opt = _permute_opt_state(opt, state.model, inverse=False)
-    state.optimizer.load_state_dict(opt)
+    _load_optimizer_state(state, opt)
     state.step = int(ckpt["step"])
     return state

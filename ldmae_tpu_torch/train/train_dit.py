@@ -11,6 +11,12 @@ PyTorch, with the port's kernels inside the model's forward and backward.
 Clipping follows ``optax.clip_by_global_norm``: gradients are scaled by
 max_norm / norm when norm >= max_norm and left alone otherwise
 (``torch.nn.utils.clip_grad_norm_`` would divide by norm + 1e-6).
+
+Under FSDP (``parallel.wrap_fsdp``) the parameters, their gradients and
+the EMA are sharded DTensors: the global norm sums every shard's squares
+over the shard ranks, and clipping, the accumulation's division and the EMA
+update run on the local shards, which hold the same elements in the model,
+its gradients and the EMA.
 """
 
 from __future__ import annotations
@@ -19,11 +25,12 @@ import contextlib
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..models.lightningdit import DiTSpec, LightningDiT, dit_spec, init_dit_weights_
-from ..parallel.distributed import global_batch_draws
+from ..parallel.distributed import global_batch_draws, group_all_reduce_
 from ..transport.transport import Transport, create_transport
 from .state import TrainState
 
@@ -36,8 +43,23 @@ def make_optimizer(params, lr: float, beta2: float = 0.95) -> torch.optim.AdamW:
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, beta2), eps=1e-8, weight_decay=0.0)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place ops update it), else t."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
+    """sqrt of the sum of squares of every element (``optax.global_norm``).
+    For FSDP's sharded gradients: the local shards' squares summed, then
+    summed over the mesh dims they are sharded on."""
+    tensors = list(tensors)
+    if tensors and isinstance(tensors[0], DTensor):
+        sq = torch.stack([torch.linalg.vector_norm(_local(t).float()) ** 2 for t in tensors]).sum()
+        mesh = tensors[0].device_mesh
+        for dim, placement in enumerate(tensors[0].placements):
+            if placement.is_shard():
+                group_all_reduce_(sq, mesh.get_group(dim))
+        return sq.sqrt()
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
@@ -45,14 +67,14 @@ def global_norm(tensors) -> torch.Tensor:
 def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
     """``optax.clip_by_global_norm`` in place, given the global norm."""
     coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, coef)
+    torch._foreach_mul_([_local(g) for g in grads], coef)
 
 
 @torch.no_grad()
 def update_ema_(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> None:
-    e = [p for p in ema.parameters()]
+    e = [_local(p) for p in ema.parameters()]
     torch._foreach_mul_(e, decay)
-    torch._foreach_add_(e, [p.detach() for p in model.parameters()], alpha=1.0 - decay)
+    torch._foreach_add_(e, [_local(p.detach()) for p in model.parameters()], alpha=1.0 - decay)
 
 
 def dit_loss(
@@ -133,7 +155,10 @@ def make_train_step(
     over m local samples, which is the gradient of the mean over the global
     batch; the generator's draws are the global batch's rows, so with every
     rank seeding it alike a step equals one process's step on the
-    concatenated batch. ``loss`` stays this rank's."""
+    concatenated batch. ``loss`` stays this rank's. A model under FSDP
+    (``parallel.wrap_fsdp``) runs the same way through itself: FSDP
+    averages the gradients over the (dp, fsdp) ranks in the last
+    micro-batch's backward."""
     impls = dict(compute_dtype=compute_dtype, attn_impl=attn_impl, rope_layout=rope_layout,
                  adaln_impl=adaln_impl)
 
@@ -149,13 +174,17 @@ def make_train_step(
             raise ValueError(f"batch leading (accumulation) dim {x.shape[0]} != grad_accum={grad_accum}")
         total = torch.zeros((), device=x.device)
         ddp = state.ddp
+        fsdp = hasattr(state.model, "set_requires_gradient_sync")
         for i in range(grad_accum):
-            # under DDP the gradients are all-reduced in the last
+            # under DDP or FSDP the gradients are reduced in the last
             # micro-batch's backward only, and the draws are the global
             # batch's rows (parallel.global_batch_draws)
-            last = ddp is None or i == grad_accum - 1
-            with (contextlib.nullcontext() if last else ddp.no_sync()), \
-                    (contextlib.nullcontext() if ddp is None else global_batch_draws(generator, x.shape[1])):
+            last = i == grad_accum - 1
+            if fsdp:
+                state.model.set_requires_gradient_sync(last)
+            with (ddp.no_sync() if ddp is not None and not last else contextlib.nullcontext()), \
+                    (global_batch_draws(generator, x.shape[1]) if ddp is not None or fsdp
+                     else contextlib.nullcontext()):
                 loss = dit_loss(state.model if ddp is None else ddp, transport, x[i], y[i], generator,
                                 x0=None if x0_ is None else x0_[i], t=None if t_ is None else t_[i],
                                 drop_ids=None if drop_ is None else drop_[i], **impls)
@@ -163,7 +192,7 @@ def make_train_step(
             total += loss.detach()
         if grad_accum > 1:
             with torch.no_grad():
-                torch._foreach_div_([p.grad for p in state.model.parameters() if p.grad is not None],
+                torch._foreach_div_([_local(p.grad) for p in state.model.parameters() if p.grad is not None],
                                     float(grad_accum))
         norm = apply_update_(state, max_grad_norm=max_grad_norm, ema_decay=ema_decay)
         return {"loss": total / grad_accum, "grad_norm": norm}

@@ -1338,3 +1338,50 @@ def test_cuda_likelihood_through_the_backward_kernel(cuda):
     assert float(((lk - lx).abs() / lx.abs()).max()) <= 1e-5
     assert float((dk - dx).abs().max()) <= 1e-3 * float(dx.abs().max())
     assert all(p.requires_grad for p in dit.parameters())
+
+
+# -- tensor parallelism's kernel pieces: the row-parallel partials and #10's halves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16384, 768, 1536), (16384, 2048, 1536), (8192, 85, 64), (333, 100, 7)],
+                         ids=lambda v: str(v))
+def test_cuda_row_parallel_partials(cuda, m, k, n):
+    """``dense_f32_out``: bf16(out + bias) is ``dense_bias_f32`` bit for bit
+    (the same mainloop and configuration), and out is the fp32 product
+    within 1e-5 of its scale (another summation order); ``int8_dense_i32``
+    is ``torch._int_mm`` bit for bit. At 1p0B/1's proj and w3 under tp 2,
+    and at ragged shapes (K padded)."""
+    from ldmae_tpu_torch.ops import linear as lin
+    from ldmae_tpu_torch.ops import quant as qt
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=cuda) * k**-0.5).to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device=cuda)
+    out = lin.dense_f32_out(x, w)
+    assert out.dtype == torch.float32 and lin.dense_f32_out.launches > 0
+    assert torch.equal(out.add(b).to(torch.bfloat16), lin.dense_bias_f32(x, w, b))
+    ref = lin.dense_f32_out_plain(x, w)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    assert torch.equal(qt.int8_dense_i32(xq, wq), qt.int8_dense_i32(xq.cpu(), wq.cpu()).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_cuda_silu_mul_halves_equal_fused_silu_mul_quant(cuda, dtype):
+    """#10's two halves on two rank slices [x1_r | x2_r], around the max of
+    their row maxima, equal #10 on the whole row bit for bit (1p0B/1's
+    hidden 4,096 split in two)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    h = 2048
+    x12 = (torch.randn(4096, 4 * h, generator=g, device=cuda) * 2).to(dtype)
+    x1, x2 = x12[:, :2 * h], x12[:, 2 * h:]
+    parts = [torch.cat([x1[:, r * h:(r + 1) * h], x2[:, r * h:(r + 1) * h]], 1).contiguous() for r in range(2)]
+    amax = torch.maximum(*[tfad.silu_mul_amax(p) for p in parts])
+    halves = [tfad.silu_mul_quant_scaled(p, amax) for p in parts]
+    q, s = tfad.fused_silu_mul_quant(x12)
+    assert torch.equal(torch.cat([hq for hq, _ in halves], 1), q)
+    assert all(torch.equal(hs, s) for _, hs in halves)

@@ -6,8 +6,8 @@ evaluation, held against the JAX package's rules and one-process runs.
   torchrun, SLURM and Open MPI variables read as the JAX function reads
   them; on CUDA the rank is pinned to its ``LOCAL_RANK`` card and
   ``resolve_device`` answers that card.
-* ``create_mesh``: the JAX function's assertions (same messages) and
-  ``NotImplementedError`` for fsdp or tp above 1.
+* ``create_mesh``: the JAX function's assertions (same messages), for fsdp
+  and tp as for dp; the CLIs' answers to --fsdp / --tp at world 1.
 * The rules that are pure functions in the JAX package, in process: the
   image interleave, ``local_batch_indices``; ``_prune_rank_files`` against
   the JAX CLI's rule (a closure there, restated here).
@@ -27,6 +27,7 @@ evaluation, held against the JAX package's rules and one-process runs.
 import datetime
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -118,37 +119,59 @@ def test_init_pins_the_local_rank_card_and_resolve_device_answers_it(clean_env):
     assert current[0] == 1 and resolve_device(None) == torch.device("cuda", 1)
 
 
-@pytest.mark.parametrize("kw,error,match", [
-    (dict(dp=4), AssertionError, None),
-    (dict(dp=2, fsdp=1, tp=1), AssertionError, None),
-    (dict(dp=-1, fsdp=2), NotImplementedError, "ROADMAP.md Queue 1 item 15"),
-    (dict(dp=1, tp=2), NotImplementedError, "ROADMAP.md Queue 1 item 15"),
-], ids=["dp4", "dp2", "fsdp2", "tp2"])
-def test_create_mesh_raises_as_the_jax_function(kw, error, match):
-    """A mismatched product raises the JAX ``create_mesh``'s AssertionError
-    with its message (one process: one device); fsdp or tp above 1 is not
-    ported."""
-    if match is None:
-        import jax
-        from ldmae_tpu.parallel.mesh import create_mesh as jcreate_mesh
+def _jax_mesh_error(**kw) -> str:
+    """The JAX ``create_mesh``'s AssertionError message for one device, as a
+    pattern that matches it literally."""
+    import jax
+    from ldmae_tpu.parallel.mesh import create_mesh as jcreate_mesh
 
-        with pytest.raises(AssertionError) as jerr:
-            jcreate_mesh(devices=jax.devices()[:1], **kw)
-        match = str(jerr.value)
-    with pytest.raises(error, match=match):
+    with pytest.raises(AssertionError) as jerr:
+        jcreate_mesh(devices=jax.devices()[:1], **kw)
+    return re.escape(str(jerr.value))
+
+
+@pytest.mark.parametrize("kw", [dict(dp=4), dict(dp=2, fsdp=1, tp=1), dict(dp=-1, fsdp=2), dict(dp=1, tp=2)],
+                         ids=["dp4", "dp2", "fsdp2", "tp2"])
+def test_create_mesh_raises_as_the_jax_function(kw):
+    """A product that is not the world size raises the JAX ``create_mesh``'s
+    AssertionError with its message (one process: one device), for fsdp and
+    tp as for dp."""
+    with pytest.raises(AssertionError, match=_jax_mesh_error(**kw)):
         tmesh.create_mesh(**kw)
 
 
 @pytest.mark.parametrize("cli,flags", [("train_dit", ["--fsdp", "2"]), ("train_dit", ["--tp", "2"]),
                                        ("inference", ["--tp", "2"])], ids=["train_dit-fsdp", "train_dit-tp",
                                                                            "inference-tp"])
-def test_clis_raise_for_fsdp_and_tp(cli, flags, tmp_path):
-    """The CLIs refuse fsdp / tp above 1 before they read the config."""
+def test_clis_raise_for_fsdp_and_tp(cli, flags, tmp_path, capsys):
+    """At world 1: ``train_dit --fsdp 2`` raises the JAX ``create_mesh``'s
+    AssertionError before it reads the config; ``train_dit --tp 2`` raises
+    NotImplementedError (training under tp is not ported); ``inference --tp
+    2`` prints the JAX CLI's warning and samples at tp 1."""
     import importlib
 
     main = importlib.import_module(f"ldmae_tpu_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        main(["--config", str(tmp_path / "unread.yaml"), "--device", "cpu", *flags])
+    unread = ["--config", str(tmp_path / "unread.yaml"), "--device", "cpu", *flags]
+    if flags == ["--fsdp", "2"]:
+        with pytest.raises(AssertionError, match=_jax_mesh_error(dp=-1, fsdp=2)):
+            main(unread)
+    elif cli == "train_dit":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+            main(unread)
+    else:
+        from ldmae_tpu_torch.core.config import LDMAEConfig
+
+        cfg = str(tmp_path / "tiny.yaml")
+        LDMAEConfig.from_dict({
+            "data": {"image_size": 32, "num_classes": 10, "data_path": str(tmp_path / "none")},
+            "vae": {"model_name": "vmae_f8d16", "weight_path": ""},
+            "model": {"model_type": "LightningDiT-debug", "in_chans": 16},
+            "train": {"exp_name": "tiny", "output_dir": str(tmp_path)},
+            "sample": {"num_sampling_steps": 2, "cfg_scale": 4.0, "per_proc_batch_size": 2, "fid_num": 2},
+        }).to_yaml(cfg)
+        folder = main(["--config", cfg, "--device", "cpu", "--skip_fid", *flags])
+        assert "WARNING: --tp 2 ignored (n_local=1, per_proc_batch_size=2 not divisible)" in capsys.readouterr().out
+        assert sorted(f for f in os.listdir(folder) if f.endswith(".png")) == ["000000.png", "000001.png"]
 
 
 def test_create_mesh_without_a_group():

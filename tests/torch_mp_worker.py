@@ -22,7 +22,15 @@ is one rank of a case:
   (``vmae_step_in_fp32``);
 * ``evaluate_tokenizer``: ``cli.evaluate_tokenizer.main`` with the rFID
   replaced by a count of the PNGs rank 0 sees (the FID's own tests are
-  elsewhere; on the CPU it takes scipy's sqrtm of 2048 x 2048 matrices).
+  elsewhere; on the CPU it takes scipy's sqrtm of 2048 x 2048 matrices);
+* ``tp_forward``: the DiT forward of ``<dir>/inputs.pt`` with its weights
+  sharded over a tp group of every rank, one leg a dtype / quantization
+  (and a control leg with w12 sharded contiguously, not gate-aligned), and
+  the sampling chain of ``make_sample_fn`` from the given noise, writing
+  each leg's output;
+* ``fsdp_steps``: the DiT train step of ``<dir>/inputs.pt`` under FSDP2
+  (``wrap_fsdp`` over a (dp, fsdp) mesh, ``--fsdp`` taken from the file),
+  writing the full weights, EMA and AdamW state as a checkpoint holds them.
 
 Imports torch and the port only, so the GPU tests can use it where JAX is
 not installed.
@@ -46,6 +54,12 @@ def free_port() -> int:
 def spawn(argvs, timeout: float = 240, env=None):
     """Run ``python <argv>`` once a rank (rank r gets ``argvs[r]``); returns
     the ranks' stdout. Raises with every rank's output if any fails."""
+    return join(start(argvs, env), timeout)
+
+
+def start(argvs, env=None):
+    """``spawn``'s ranks started, not waited for (``join`` waits): the caller
+    computes its references meanwhile."""
     port, world = free_port(), len(argvs)
     procs = []
     for rank, argv in enumerate(argvs):
@@ -54,6 +68,12 @@ def spawn(argvs, timeout: float = 240, env=None):
         e.update(env or {})
         procs.append(subprocess.Popen([sys.executable, *argv], cwd=REPO, env=e, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def join(procs, timeout: float = 240):
+    """Wait for ``start``'s ranks; returns their stdout, or raises with every
+    rank's output if any failed."""
     results = []
     for p in procs:
         try:
@@ -164,6 +184,81 @@ def _nccl_dit_steps(d: str) -> None:
     torch.save(out, os.path.join(d, "nccl.pt"))
 
 
+def tp_model(inp: dict, leg: dict, group):
+    """The leg's DiT for sampling (half-split RoPE, quantized if the leg
+    says so) with this rank's slices kept; ``leg["control"]``: w12 then
+    holds contiguous rows of the packed [w1; w2] instead of its
+    gate-aligned rows."""
+    import torch
+
+    from ldmae_tpu_torch.models import LightningDiT, permute_qk_for_half_rope, quantize_dit_
+    from ldmae_tpu_torch.models import lightningdit as tdit
+    from ldmae_tpu_torch.parallel import shard_dit_for_tp_
+
+    spec = tdit.DiTSpec(**inp["dims"])
+    model = LightningDiT(spec, device="cpu")
+    model.load_state_dict(permute_qk_for_half_rope(inp["sd"], spec))
+    if leg["quant"]:
+        quantize_dit_(model)
+    full_w12 = [b.mlp.w12.state_dict() for b in model.blocks]
+    shard_dit_for_tp_(model, group)
+    if leg.get("control"):
+        n, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+        for blk, full in zip(model.blocks, full_w12):
+            rows = full[next(iter(full))].shape[0] // n
+            blk.mlp.w12.load_state_dict({k: v[r * rows:(r + 1) * rows] for k, v in full.items()})
+    return model
+
+
+def _tp_forward(d: str) -> None:
+    import torch
+
+    from ldmae_tpu_torch.eval.sampling import make_sample_fn
+    from ldmae_tpu_torch.parallel import create_mesh, get_rank, init_distributed_mode
+    from ldmae_tpu_torch.transport import create_transport
+
+    init_distributed_mode(device="cpu")
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    group = create_mesh(dp=1, tp=int(os.environ["WORLD_SIZE"])).get_group("tp")
+    out = {}
+    for leg in inp["legs"]:
+        model = tp_model(inp, leg, group)
+        dt = getattr(torch, leg["dtype"])
+        kw = dict(compute_dtype=dt, quant_mode=leg["quant"], **inp["impls"])
+        with torch.no_grad():
+            out[leg["name"]] = model(inp["x"], inp["t"].to(dt), inp["y"], **kw)
+        if leg.get("chain"):
+            fn = make_sample_fn(model.spec, create_transport(), device="cpu", **inp["chain"], **kw)
+            out[leg["name"] + "_chain"] = fn({"dit": model, "vae": None}, inp["y_chain"], z=inp["z"])
+    torch.save(out, os.path.join(d, f"rank{get_rank()}.pt"))
+
+
+def _fsdp_steps(d: str) -> None:
+    import torch
+
+    from ldmae_tpu_torch.models import lightningdit as tdit
+    from ldmae_tpu_torch.parallel import create_mesh, get_rank, get_world_size, init_distributed_mode
+    from ldmae_tpu_torch.train import init_sharded_train_state, make_optimizer, make_train_step, save_checkpoint
+    from ldmae_tpu_torch.transport import create_transport
+
+    init_distributed_mode(device="cpu")
+    rank, world = get_rank(), get_world_size()
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    mesh = create_mesh(dp=-1, fsdp=inp["fsdp"], device_type="cpu")
+    model = tdit.LightningDiT(tdit.DiTSpec(**inp["dims"]), device="cpu")
+    model.load_state_dict(inp["sd"])
+    state = init_sharded_train_state(model, mesh, lambda p: make_optimizer(p, inp["lr"], inp["beta2"]))
+    step = make_train_step(model.spec, create_transport(**inp["transport"]), grad_accum=inp["accum"],
+                           max_grad_norm=inp["clip"], **inp["impls"])
+    m = inp["x"].shape[2] // world
+    rows = slice(rank * m, (rank + 1) * m)
+    gen = torch.Generator()
+    for s in range(inp["x"].shape[0]):
+        gen.manual_seed(1000 + s)
+        step(state, {"x": inp["x"][s][:, rows], "y": inp["y"][s][:, rows]}, gen)
+    save_checkpoint(d, state)  # the full model, EMA and AdamW state, as one process writes them
+
+
 def vmae_step_in_fp32(train_vmae) -> None:
     """``cli.train_vmae`` with its train step computing in float32 (the CLI
     runs bf16): then two runs that split a batch differently agree to the
@@ -189,6 +284,10 @@ if __name__ == "__main__":
         _cli("train_vmae", sys.argv[2:])
     elif case == "dit_steps":
         _dit_steps(d)
+    elif case == "fsdp_steps":
+        _fsdp_steps(d)
+    elif case == "tp_forward":
+        _tp_forward(d)
     elif case == "evaluate_tokenizer":
         _evaluate_tokenizer(d, sys.argv[3:])
     else:
