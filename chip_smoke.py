@@ -208,7 +208,32 @@ attention bounds), then:
      a batch at tp 1 and tp 2 (two ranks time-slice the card); its own
      JSON line ``{"tensor_parallel": ...}``. FSDP has no leg here: over
      gloo on CUDA tensors the full state dicts a checkpoint gathers
-     segfault (``scripts/gloo_cuda_probe.py``).
+     segfault (``scripts/gloo_cuda_probe.py``);
+ 14. tensor parallelism in training (also under ``--parallel``, after 13):
+     the training kernels at a rank's shapes of 1p0B/1 under tp 2, batch 8
+     (M = 8,192): #1 and #6 at (8, 12, 1024, 64), #3 at (8, 1024, 1536),
+     ``dense_bias_f32`` at a rank's qkv with its backward, ``dense_f32_out``
+     at proj and w3 and under ``dense_row_parallel``'s backward, each
+     against its plain version, timed beside its bound and library call;
+     then two ranks on the card (gloo) through ``cli.train_dit --tp 2`` on
+     1p0B/1 at full width, depth cut to 8, the shipped YAML's training
+     sections (bf16, flash_rope, fused adaLN, remat attn), global batch 8,
+     a seeded warm start (std ``TPT_WARM_STD``): 4 steps and a checkpoint, a
+     resume to 6, and the control (copy-to-tp's all-reduce left out of the
+     backward); one process at tp 1 twice (the second run: the one-process
+     path's own spread from run to run, #6's atomic dq sums). Per rank
+     and step: #1 16, #3 32, #6 8, ``dense_bias_f32`` 45, ``dense_f32_out``
+     56 (7 a block: proj and w3 forward and recomputed, the fp32 partial dx
+     of adaLN, qkv and w12) launches and 65 all-reduces and 8 all-gathers
+     over gloo, exact (a
+     checkpoint adds 256 all-gathers); each step's loss within
+     ``TPT_LOSS_REL`` and the update theta_4 - theta_0 of the gathered
+     checkpoint within ``TPT_UPDATE_REL`` relative L2 of one process at tp 1
+     from the same weights and data (the control must read above), the
+     step-6 checkpoint restored in one process bit for bit; seconds a step
+     at tp 1 and tp 2, peak memory a rank; its own JSON line
+     ``{"tensor_parallel_training": ...}``. No FSDP x tp leg, for the same
+     segfault.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
@@ -227,7 +252,7 @@ and flash_fused.
 
 ``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
 ``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
-``--samplers`` phase 4b alone, ``--parallel`` phase 13 alone.
+``--samplers`` phase 4b alone, ``--parallel`` phases 13 and 14 alone.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -305,6 +330,15 @@ KERNELS = {
     "silu_mul_amax": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "tp_w8a8", "silu_mul_amax"),
     "silu_mul_quant_scaled": ("ldmae_tpu_torch/csrc/fused_quant.cu", f"{_PALLAS_AD}:144", "tp_w8a8",
                               "silu_mul_quant_scaled"),
+    # tensor parallelism in training (phase 14, launches per rank of the
+    # --tp 2 CLI leg's 4 steps): the training path's kernels at a rank's
+    # shapes of 1p0B/1 at batch 8
+    "flash_attention_rope_tp_train": (_FA, f"{_PALLAS_FA}:323", "tp_train", "flash_attention_rope"),
+    "flash_attention_rope_bwd_tp_train": (_FA, f"{_PALLAS_FA}:429", "tp_train", "flash_attention_rope_bwd"),
+    "fused_norm_modulate_tp_train": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", f"{_PALLAS_AD}:232", "tp_train",
+                                     "fused_norm_modulate"),
+    "dense_tp_train": (_DENSE, "ldmae_tpu/ops/linear.py:21", "tp_train", "dense_bias_f32"),
+    "dense_f32_out_tp_train": (_DENSE, "ldmae_tpu/ops/linear.py:21", "tp_train", "dense_f32_out"),
 }
 WRAPPERS = ("flash_attention_rope", "flash_attention", "fused_norm_modulate", "fused_matmul_silu",
             "flash_attention_qknorm_rope", "flash_attention_fused_rope", "fused_norm_modulate_quant",
@@ -4607,8 +4641,416 @@ def tp_phase(dev, smi: str, tmp: str) -> tuple:
     return record, rows, counts
 
 
+# -- phase 14: tensor parallelism in DiT training. Two ranks share the card
+# over gloo and run the training CLI under --tp 2 on LightningDiT-1p0B/1 at
+# full width, depth cut to TP_DEPTH (as phase 13), the shipped YAML's
+# training sections (bf16, flash_rope with half-split RoPE, fused adaLN,
+# remat 'attn'), global batch TPT_BATCH, from seeded weights (a warm
+# start): TPT_STEPS steps and a checkpoint, a resume to TPT_RESUME, and the
+# control. Over gloo each row-parallel fp32 partial (8,192 x 1,536, 50 MB)
+# crosses the host. FSDP x tp has no leg here: over gloo on CUDA tensors the
+# full state dicts a checkpoint gathers segfault (scripts/gloo_cuda_probe.py).
+TPT_STEPS, TPT_RESUME, TPT_BATCH = 4, 6, 8
+# each step's loss at tp 2 against tp 1 (relative), and the update
+# theta_4 - theta_0 of the gathered checkpoint against tp 1's (relative L2
+# over every parameter): bf16 roundings move where the partial sums
+# reassociate, and AdamW's first steps follow the gradients' signs; the
+# control (copy-to-tp's all-reduce left out of the backward: every weight
+# below a column-parallel layer gets a partial gradient) must read above
+TPT_LOSS_REL, TPT_UPDATE_REL = 1e-2, 1e-2
+# the warm start's scale (``seeded_init_``'s std): at 0.02 the first steps
+# diverge (loss 2.84 then 5.43 at lr 2e-4), and AdamW's sign-like first
+# updates carry bf16 rounding differences into the update, the one-process
+# run against itself included (PERF.md section 6); at 0.01 the loss
+# falls from 2.20 to 2.05 over the 4 steps, every gate non-zero
+TPT_WARM_STD = 0.01
+
+
+def _tpt_counts(steps: int, control: bool = False) -> dict:
+    """Exact launches a rank of ``steps`` tp-2 training steps at TP_DEPTH
+    with remat 'attn': per block the forward runs adaLN, qkv and w12
+    (``dense_bias_f32``) and proj and w3 (``dense_f32_out``), #1 once, #3
+    twice; the backward recomputes both segments (qkv, w12, proj, w3, #1,
+    #3 twice more), runs #6 once and takes the fp32 partial dx of the three
+    column-parallel layers (adaLN, qkv, w12: ``dense_f32_out``; the
+    control takes the bf16 dx of one rank alone instead); 5 whole linears a
+    forward (the embeddings, the final layer)."""
+    d = TP_DEPTH
+    return _NONE | {"flash_attention_rope": 2 * d * steps, "fused_norm_modulate": 4 * d * steps,
+                    "flash_attention_rope_bwd": d * steps, "dense_bias_f32": (5 + 5 * d) * steps,
+                    "dense_f32_out": (4 if control else 7) * d * steps}
+
+
+def _tpt_collectives(steps: int, control: bool = False) -> dict:
+    """Exact gloo collectives a rank of ``steps`` steps and one checkpoint:
+    per block the forward's two row-parallel all-reduces (proj, w3) and the
+    modulations' all-gather, the recomputation's w3 all-reduce (proj's is
+    the attention segment's last op, which saves nothing: checkpointing's
+    early stop skips it), the backward's five copy-to-tp all-reduces
+    (adaLN's c, qkv's and w12's inputs, the q and k norms' weights; none in
+    the control); one a step for the global norm. The checkpoint
+    all-gathers the 8 split entries a block of the model, the EMA and the
+    two AdamW moments."""
+    d = TP_DEPTH
+    return {"all_reduce": ((3 if control else 8) * d + 1) * steps, "all_gather": d * steps + 4 * 8 * d}
+
+
+def _tpt_configs(tmp: str, data: str, weights: str) -> dict:
+    import yaml
+
+    paths = {}
+    for name in ("tpt_tp2", "tpt_tp1", "tpt_tp1_again", "tpt_control"):
+        cfg = _yaml_config(
+            data={"data_path": data, "image_size": 256, "num_classes": 1000, "latent_norm": True,
+                  "latent_multiplier": 1.0, "sample": False},
+            train={"max_steps": TPT_STEPS, "global_batch_size": TPT_BATCH, "global_seed": 0, "output_dir": tmp,
+                   "exp_name": name, "log_every": 1, "ckpt_every": 1000, "use_checkpoint": True,
+                   "gradient_accumulation_steps": 1, "weight_init": weights})
+        cfg["model"]["model_type"] = TP_MODEL
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    return paths
+
+
+def _tpt_rank(rank: int, port: int, tmp: str, paths: dict) -> None:
+    """One of two ranks on the card (spawned): ``cli.train_dit --tp 2`` for
+    TPT_STEPS steps, the resume to TPT_RESUME, then the control, each with
+    its launches and gloo collectives counted from 0."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.ops import linear as lin
+    from ldmae_tpu_torch.parallel import distributed, init_distributed_mode
+
+    init_distributed_mode(backend="gloo")
+    _tp_cut_depth()
+    out = {}
+
+    def leg(name, argv):
+        distributed.reset_collectives()
+        _mp_leg(out, name, lambda: {"history": train_dit.main(argv)["history"]})
+        out[name]["collectives"] = dict(distributed.COLLECTIVES)
+        torch.cuda.empty_cache()
+
+    leg("train", ["--config", paths["tpt_tp2"], "--tp", "2"])
+    leg("resume", ["--config", paths["tpt_tp2"], "--tp", "2", "--max_steps", str(TPT_RESUME)])
+    # the control: no all-reduce of the replicated inputs' gradients (the
+    # column-parallel layers' dx, the qk norms' weights)
+    real = distributed._CopyToTP.backward, lin._DenseBiasF32.backward
+
+    def partial_dx(ctx, g):
+        ctx.group = None  # this rank's partial dx, taken as the whole
+        return real[1](ctx, g)
+
+    distributed._CopyToTP.backward, lin._DenseBiasF32.backward = (lambda ctx, g: (g, None)), partial_dx
+    try:
+        leg("control", ["--config", paths["tpt_control"], "--tp", "2"])
+    finally:
+        distributed._CopyToTP.backward, lin._DenseBiasF32.backward = real
+    with open(os.path.join(tmp, f"tpt_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tpt_kernel_phase(dev) -> dict:
+    """The kernels of tp-2 training at 1p0B/1's per-rank shapes, batch 8
+    (M = 8,192 tokens): #1 (8, 12, 1024, 64) and #6 at the same shape given
+    the forward's output and lse, #3 at (8, 1024, 1536), ``dense_bias_f32``
+    at a rank's qkv (8,192 x 1,536 -> 2,304) with its backward (cuBLAS) against
+    the fp32 math, ``dense_f32_out`` at proj (K 768) and w3 (K 2,048), through
+    ``dense_row_parallel``'s backward and as qkv's fp32 partial dx; each against its plain
+    version and timed beside its bound and library call. Returns name ->
+    row of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops import linear as lin
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+    b, h, n, d = TPT_BATCH, 12, 1024, 64
+    m, width = b * n, 1536
+    q, k = randn(b, h, n, d, scale=2.0), randn(b, h, n, d, scale=2.0)
+    v, go = randn(b, h, n, d), randn(b, h, n, d)
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
+
+    # -- #1 forward, 12 heads a rank
+    log(f"[tp train kernel] flash_attention_rope q,k,v ({b},{h},{n},{d}) bf16 (tp 2: 12 of 24 heads)")
+    ref = fa.flash_attention_rope_plain(q, k, v, cos, sin)
+    err = compare("flash_attention_rope[tp train]", fa.flash_attention_rope(q, k, v, cos, sin), ref, **attn_tol(ref))
+    del ref
+    ms = cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), 3, 1)
+    qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 20)
+    parts = rope_parts(lambda: fa.flash_attention_rope(q, k, v, cos, sin))
+    bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n)
+    rows["flash_attention_rope_tp_train"] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+
+    # -- #6 backward at the same shape, given the forward's output and lse
+    log(f"[tp train kernel] flash_attention_rope_bwd q,k,v,g ({b},{h},{n},{d}) bf16, the forward's output and lse")
+    o, lse = fa._launch(q, k, v, "flash_attention_rope_bwd", cos, sin, with_lse=True)  # the library, uncounted
+
+    def bwd():
+        return fa.flash_attention_rope_bwd(q, k, v, go, cos, sin, out=o, lse=lse)
+
+    ref = fa.flash_attention_rope_bwd_plain(q, k, v, go, cos, sin)
+    out = bwd()
+    rel, elem = bwd_errors(out, ref)
+    log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
+        f"{elem:.6g} (bound {BWD_ELEM})")
+    if not (rel <= BWD_REL_L2 and elem <= BWD_ELEM):
+        raise SystemExit("flash_attention_rope_bwd (tp train): kernel disagrees with its plain backward")
+    err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(out, ref))
+    del out, ref
+    ms = cuda_ms(bwd, 10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_rope_bwd_plain(q, k, v, go, cos, sin), 3, 1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qr, kr, v))
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), go)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs)
+
+    fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 10)
+    bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + 2 * n * d * 4, 10 * b * h * n * n * d, exps=b * h * n * n)
+    rows["flash_attention_rope_bwd_tp_train"] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, {})
+    del q, k, v, go, qr, kr, qs, ks, vs, o, lse
+
+    # -- #3 at the full width (the adaLN epilogue runs on the replicated x)
+    log(f"[tp train kernel] fused_norm_modulate x ({b},{n},{width}) bf16, shift/scale views of ({b},6,{width})")
+    x = randn(b, n, width, scale=3.0)
+    w = 1 + 0.1 * torch.randn(width, generator=g, device=dev)
+    mod = randn(b, 6, width, scale=0.1)
+    sh, sc = mod[:, 0], mod[:, 1]
+    err = compare("fused_norm_modulate[tp train]", fad.fused_norm_modulate(x, w, sh, sc),
+                  fad.fused_norm_modulate_plain(x, w, sh, sc), rtol=2**-6, atol=2**-6)
+    ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, sh, sc), 50)
+    plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, sh, sc), 10)
+    bnd = bound(m * width * 4 + width * 4 + 2 * b * width * 2, fp32_flops=6 * m * width)
+    rows["fused_norm_modulate_tp_train"] = (err, ms, plain_ms, None, *bnd, {})
+    del x, mod
+
+    # -- dense_bias_f32 at a rank's qkv, and its backward (cuBLAS) against the fp32 math
+    kq, nq = width, 3 * width // 2
+    log(f"[tp train kernel] dense_bias_f32 x ({m},{kq}) bf16 @ w ({nq},{kq}) bf16 + b fp32 (a rank's qkv), with "
+        f"its backward")
+    x, w, bias = randn(m, kq), randn(nq, kq, scale=kq**-0.5), randn(nq, scale=0.1, dtype=torch.float32)
+    ref = (x.float() @ w.float().t() + bias).to(torch.bfloat16)
+    err = compare("dense_bias_f32[tp train]", lin.dense_bias_f32(x, w, bias), ref, rtol=2**-7, atol=2**-12)
+    xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, bias))
+    gout = randn(m, nq)
+    lin._DenseBiasF32.apply(xs, ws, bs, None).backward(gout)
+    dx_ref = gout.float() @ w.float()
+    for name, got, want in (("dx", xs.grad, dx_ref), ("dw", ws.grad, gout.float().t() @ x.float()),
+                            ("db", bs.grad, gout.float().sum(0))):
+        compare(f"dense_bias_f32[tp train] backward {name}", got, want, rtol=2**-6,
+                atol=2**-6 * float(want.abs().max()) if name != "db" else 1e-5 * float(want.abs().max()))
+    # under tp the backward's dx is this rank's fp32 partial, dense_f32_out on w^T
+    compare("dense_f32_out[tp train, qkv's partial dx]", lin.dense_f32_out(gout, w.t().contiguous()), dx_ref,
+            rtol=1e-5, atol=1e-5 * float(dx_ref.abs().max()))
+    ms = cuda_ms(lambda: lin.dense_bias_f32(x, w, bias), 20)
+    bwd_ms = cuda_ms(lambda: (gout @ w, gout.t() @ x, gout.sum(0, dtype=torch.float32)), 20)
+    plain_ms = cuda_ms(lambda: (x.float() @ w.float().t() + bias).to(torch.bfloat16), 10)
+    bias16 = bias.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.linear(x, w, bias16), 20)
+    bnd = bound((m * kq + nq * kq + m * nq) * 2 + nq * 4, 2 * m * kq * nq)
+    rows["dense_tp_train"] = (err, ms, plain_ms, lib_ms, *bnd, {"backward_ms": bwd_ms})
+    del x, w, xs, ws, bs, gout, ref
+
+    # -- dense_f32_out at a rank's proj and w3, and inside dense_row_parallel's backward
+    for what, kk in (("proj", width // 2), ("w3", 2048)):
+        log(f"[tp train kernel] dense_f32_out x ({m},{kk}) bf16 @ w ({width},{kk}) bf16 -> fp32 (a rank's {what})")
+        x, w = randn(m, kk), randn(width, kk, scale=kk**-0.5)
+        ref = lin.dense_f32_out_plain(x, w)
+        err = compare(f"dense_f32_out[tp train, {what}]", lin.dense_f32_out(x, w), ref, rtol=1e-5,
+                      atol=1e-5 * float(ref.abs().max()))
+        xs, ws = x.detach().requires_grad_(), w.float().detach().requires_grad_()
+        bs = torch.zeros(width, device=dev, requires_grad=True)
+        gout = randn(m, width)
+        lin.dense_row_parallel(xs, ws, bs, None, compute_dtype=torch.bfloat16).backward(gout)
+        for name, got, want in (("dx", xs.grad, gout.float() @ w.float()),
+                                ("dw", ws.grad, gout.float().t() @ x.float()), ("db", bs.grad, gout.float().sum(0))):
+            compare(f"dense_row_parallel[tp train, {what}] backward {name}", got, want, rtol=2**-6,
+                    atol=(1e-5 if name == "db" else 2**-6) * float(want.abs().max()))
+        ms = cuda_ms(lambda: lin.dense_f32_out(x, w), 20)
+        plain_ms = cuda_ms(lambda: lin.dense_f32_out_plain(x, w), 5)
+        try:  # cuBLAS bf16 x bf16 -> fp32, where this torch has it
+            lib_ms = cuda_ms(lambda: torch.mm(x, w.t(), out_dtype=torch.float32), 20)
+        except (TypeError, RuntimeError):
+            lib_ms = None
+        bnd = bound((m * kk + width * kk) * 2 + m * width * 4, 2 * m * kk * width)
+        if what == "proj":
+            rows["dense_f32_out_tp_train"] = (err, ms, plain_ms, lib_ms, *bnd, {})
+        else:
+            rows["dense_f32_out_tp_train"][-1]["w3"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                                        "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+        del x, w, xs, ws, bs, gout, ref
+    torch.cuda.empty_cache()
+    for name, (err, ms, plain_ms, lib_ms, bound_ms, bound_by, _) in rows.items():
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"  {name} (1p0B/1, tp 2, batch {TPT_BATCH}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+    return rows
+
+
+def _update_rel(ckpt_path: str, ref: dict, init: dict) -> tuple:
+    """(||(theta - theta_0) - (ref - theta_0)|| / ||ref - theta_0|| over
+    every parameter of the checkpoint's model (read in place), the three
+    parameters with the largest such error of their own)."""
+    import torch
+
+    model = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)["model"]
+    num = {k: float((model[k].double() - ref[k].double()).square().sum()) for k in ref}
+    den = {k: float((ref[k].double() - init[k].double()).square().sum()) for k in ref}
+    worst = sorted(ref, key=lambda k: -num[k] / max(den[k], 1e-300))[:3]
+    return (sum(num.values()) / sum(den.values())) ** 0.5, {k: (num[k] / max(den[k], 1e-300)) ** 0.5 for k in worst}
+
+
+def tp_train_phase(dev, smi: str, tmp: str) -> tuple:
+    """Phase 14: the kernels at the tp-local shapes, then ``cli.train_dit
+    --tp 2`` on two ranks sharing the card against one process at tp 1 from
+    the same weights and data. Returns (record, kernel rows, launch counts
+    by path)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.models import LightningDiT, permute_qk_for_half_rope, seeded_init_
+    from ldmae_tpu_torch.train import init_train_state, make_optimizer, restore_checkpoint
+    from ldmae_tpu_torch.train.train_dit import spec_from_config
+
+    phase_t0 = time.perf_counter()
+    rows = tpt_kernel_phase(dev)
+    _tp_cut_depth()
+    data = write_latent_shards(os.path.join(tmp, "tpt_latents"))
+    weights = os.path.join(tmp, "tpt_seeded.pt")
+    paths = _tpt_configs(tmp, data, weights)
+    spec = spec_from_config(LDMAEConfig.from_yaml(paths["tpt_tp1"]))
+    init = seeded_init_(LightningDiT(spec, device="cpu"), 3, std=TPT_WARM_STD).state_dict()
+    torch.save({"model": init}, weights)  # the warm start: non-zero gates from step 1
+    log(f"[tp train] two ranks on the card (torch.multiprocessing, gloo): cli.train_dit --tp 2 on {TP_MODEL} (full "
+        f"width {spec.hidden_size}, {spec.num_heads} heads, SwiGLU {spec.swiglu_hidden}; depth cut 24 -> {TP_DEPTH}; "
+        f"seeded warm start, std {TPT_WARM_STD}), the shipped YAML's training sections (bf16, flash_rope, half RoPE, fused adaLN, remat "
+        f"attn), global batch {TPT_BATCH}: {TPT_STEPS} steps and a checkpoint, a resume to {TPT_RESUME}, then the "
+        f"control ({TPT_STEPS} steps, copy-to-tp's all-reduce left out)")
+    t0 = time.perf_counter()
+    mp.start_processes(_tpt_rank, args=(_free_port(), tmp, paths), nprocs=2, join=True, start_method="spawn")
+    two_rank_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"tpt_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r in range(2):
+        for leg, steps in (("train", TPT_STEPS), ("resume", TPT_RESUME - TPT_STEPS), ("control", TPT_STEPS)):
+            got, want = ranks[r][leg]["counts"], _tpt_counts(steps, control=leg == "control")
+            coll = {key: ranks[r][leg]["collectives"][key] for key in ("all_reduce", "all_gather")}
+            want_coll = _tpt_collectives(steps, control=leg == "control")
+            if got != want or coll != want_coll:
+                raise SystemExit(f"tp train {leg}, rank {r}: launches {got} (want {want}), collectives {coll} "
+                                 f"(want {want_coll})")
+    with open(os.path.join(tmp, "tpt_tp2", "log.txt")) as f:
+        resumed = f"resumed from step {TPT_STEPS}" in f.read()
+
+    # one process at tp 1: the same weights, data and seeds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist1 = train_dit.main(["--config", paths["tpt_tp1"]])["history"]
+    torch.cuda.synchronize()
+    tp1_call_s, tp1_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    n = _train_counts(TPT_STEPS, TP_DEPTH)
+    counts1 = ops.launch_counts()
+    want1 = _NONE | {"flash_attention_rope": n["fwd"], "fused_norm_modulate": n["adaln"],
+                     "flash_attention_rope_bwd": n["bwd"], "dense_bias_f32": n["dense"]}
+    if counts1 != want1:
+        raise SystemExit(f"tp train at tp 1: launches {counts1} != {want1}")
+    # the same one-process run again: the path's own spread from run to run
+    # (#6 sums dq with atomic adds, in an order that changes between runs)
+    train_dit.main(["--config", paths["tpt_tp1_again"]])
+    hist2 = ranks[0]["train"]["history"]
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist2, hist1)]
+    ckpt = f"{TPT_STEPS:07d}.pt"
+    ref = torch.load(os.path.join(tmp, "tpt_tp1", "checkpoints", ckpt), map_location="cpu", weights_only=True,
+                     mmap=True)["model"]
+    ref = {k: v for k, v in ref.items() if k in dict(LightningDiT(spec, device="meta").named_parameters())}
+    update, update_worst = _update_rel(os.path.join(tmp, "tpt_tp2", "checkpoints", ckpt), ref, init)
+    control, _ = _update_rel(os.path.join(tmp, "tpt_control", "checkpoints", ckpt), ref, init)
+    spread, spread_worst = _update_rel(os.path.join(tmp, "tpt_tp1_again", "checkpoints", ckpt), ref, init)
+    for name in ("tpt_control", "tpt_tp1", "tpt_tp1_again"):
+        os.remove(os.path.join(tmp, name, "checkpoints", ckpt))
+
+    # the tp-2 checkpoint restores in one process
+    model = LightningDiT(spec, device=dev)
+    state = init_train_state(model, make_optimizer(model.parameters(), 2e-4, 0.95))
+    restored = restore_checkpoint(os.path.join(tmp, "tpt_tp2"), state, step=TPT_RESUME, half_rope=True)
+    saved = torch.load(os.path.join(tmp, "tpt_tp2", "checkpoints", f"{TPT_RESUME:07d}.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)["model"]
+    back = permute_qk_for_half_rope(state.model.state_dict(), spec, inverse=True)
+    restores = restored is not None and state.step == TPT_RESUME and all(
+        torch.equal(back[k].cpu(), saved[k]) for k in saved)
+    moments = sum(1 for s in state.optimizer.state.values() if "exp_avg" in s)
+    del model, state, back, saved
+    torch.cuda.empty_cache()
+
+    def steady(hist):
+        later = hist[1:]  # the first step holds the warm-up
+        return sum(h["seconds"] for h in later) / len(later)
+
+    steps_coll = {key: ranks[0]["train"]["collectives"][key] / TPT_STEPS for key in ("all_reduce", "all_gather")}
+    record = {
+        "card": smi, "depth": TP_DEPTH, "batch": TPT_BATCH, "steps": TPT_STEPS, "two_rank_s": two_rank_s,
+        "loss_tp2": [h["loss"] for h in hist2], "loss_tp1": [h["loss"] for h in hist1], "loss_rel": loss_rel,
+        "update_rel_l2": update, "update_worst_leaves": update_worst, "control_update_rel_l2": control,
+        "tp1_again_update_rel_l2": spread, "tp1_again_worst_leaves": spread_worst, "resumed": resumed,
+        "restores": restores,
+        "s_step_tp1": steady(hist1), "s_step_tp2": steady(hist2), "tp1_call_s": tp1_call_s,
+        "tp2_call_s": [ranks[r]["train"]["seconds"] for r in range(2)], "tp1_peak_gb": tp1_peak,
+        "peak_gb_rank": [ranks[r]["train"]["peak_gb"] for r in range(2)],
+        # without the checkpoint's gathers (the all-gathers of _tpt_collectives' last term)
+        "collectives_per_step": {"all_reduce": steps_coll["all_reduce"],
+                                 "all_gather": steps_coll["all_gather"] - 4 * 8 * TP_DEPTH / TPT_STEPS},
+        "gloo_bytes_train_leg_rank0": ranks[0]["train"]["collectives"]["bytes"],
+    }
+    ok = (all(e <= TPT_LOSS_REL for e in loss_rel) and len(loss_rel) == TPT_STEPS and update <= TPT_UPDATE_REL
+          < control and resumed and restores and moments == len(list(LightningDiT(spec, device="meta").parameters()))
+          and all(math.isfinite(h["loss"]) for h in hist2 + ranks[0]["resume"]["history"]))
+    log(f"  launches per rank exact (train {ranks[0]['train']['counts']}); gloo collectives per rank exact, per step "
+        f"{record['collectives_per_step']} (a checkpoint adds {4 * 8 * TP_DEPTH} all-gathers), the train leg's "
+        f"{record['gloo_bytes_train_leg_rank0'] / 1e9:.3f} GB through gloo on rank 0; losses tp 2 "
+        f"{[round(v, 6) for v in record['loss_tp2']]} vs tp 1 {[round(v, 6) for v in record['loss_tp1']]} (relative "
+        f"{[round(v, 6) for v in loss_rel]}, bound {TPT_LOSS_REL}); the update theta_{TPT_STEPS} - theta_0 vs tp 1: "
+        f"relative L2 {update:.6g} (bound {TPT_UPDATE_REL}; worst leaves {update_worst}), control (copy-to-tp's "
+        f"all-reduce left out) {control:.6g} (must exceed it); the same tp-1 run again vs tp 1 {spread:.6g} (worst "
+        f"leaves {spread_worst}); resumed from step {TPT_STEPS}: {resumed}; the step-{TPT_RESUME} tp-2 "
+        f"checkpoint restores in one process bit for bit (model, EMA, {moments} AdamW moment pairs): {restores}")
+    log(f"  seconds a step (steady, steps 2-{TPT_STEPS}): tp 1 {record['s_step_tp1']:.4f}, tp 2 "
+        f"{record['s_step_tp2']:.4f} (two ranks over gloo time-slice one card: not a speed claim); peak memory a rank "
+        f"{[round(v, 3) for v in record['peak_gb_rank']]} GB (tp 1: {tp1_peak:.3f} GB); on {smi}")
+    if not ok:
+        raise SystemExit("tp train: a loss, the update, the control, the resume or the restore failed")
+    record["phase_s"] = time.perf_counter() - phase_t0
+    log(f"  the tensor-parallel training phase took {record['phase_s']:.2f} s (two-rank spawn {two_rank_s:.2f} s)")
+    return record, rows, {"tp_train": ranks[0]["train"]["counts"]}
+
+
 def parallel_only(dev, smi: str) -> int:
-    """``--parallel``: build, then phase 13 alone, ending with its kernels."""
+    """``--parallel``: build, then phases 13 and 14 alone, ending with their
+    kernels."""
     import torch
 
     from ldmae_tpu_torch import kernels
@@ -4616,9 +5058,14 @@ def parallel_only(dev, smi: str) -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rate_probes(dev)  # the exponential term of the attention bounds
     with tempfile.TemporaryDirectory() as tmp:
         record, rows, counts = tp_phase(dev, smi, tmp)
+        train_record, train_rows, train_counts = tp_train_phase(dev, smi, tmp)
+    rows |= train_rows
+    counts |= train_counts
     log(json.dumps({"tensor_parallel": record}))
+    log(json.dumps({"tensor_parallel_training": train_record}))
     log(smi)
     log(json.dumps({"kernels": kernel_rows(rows, counts)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4806,6 +5253,9 @@ def main() -> int:
         tensor_parallel, tp_rows, counts = tp_phase(dev, smi, tmp)
         rows |= tp_rows
         result["counts"] |= counts
+        tp_training, tp_rows, counts = tp_train_phase(dev, smi, tmp)
+        rows |= tp_rows
+        result["counts"] |= counts
 
     out = kernel_rows(rows, result["counts"])
     missing = set(KERNELS) - set(rows)
@@ -4818,8 +5268,9 @@ def main() -> int:
     log(json.dumps({"vmae_train_kernels": vmae_rows}))
     # the two-rank and NCCL legs of the multi-process slice
     log(json.dumps({"multiproc": multiproc}))
-    # the --tp 2 legs of the tensor-parallel slice
+    # the --tp 2 legs of the tensor-parallel slice: sampling, training
     log(json.dumps({"tensor_parallel": tensor_parallel}))
+    log(json.dumps({"tensor_parallel_training": tp_training}))
     # the sampler slice's legs, launches, gates
     log(json.dumps({"samplers": samplers}))
     log(smi)

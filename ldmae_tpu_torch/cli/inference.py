@@ -5,7 +5,8 @@ CLI's ``_build_pipeline`` does (half-split RoPE layout, bf16, the
 configured attention / adaLN / MLP impls, int8 quantization when
 ``parallel.quant`` or ``--quant`` asks for it), loads the DiT EMA weights from
 ``ckpt_path`` (a reference ``.pt``) when that file exists, and otherwise
-uses seeded random weights; the tokenizer that ``vae.model_name`` names
+uses seeded random weights (a directory, the JAX package's Orbax
+checkpoint, raises and names its conversion); the tokenizer that ``vae.model_name`` names
 (``models.tokenizers.build_tokenizer_fns``: the VMAE, the SD-VAE, VA-VAE or
 MAR-VAE; an unknown name raises) from ``vae.weight_path`` (a path that names
 no file raises, an empty one means seeded weights), which decodes under
@@ -43,7 +44,8 @@ the PNGs and counts toward the FID. ``resume_manifest.json`` records tp.
 At a world size that N does not divide the JAX CLI's warning is printed
 and sampling runs at tp 1, as the JAX CLI does.
 
-Not ported yet (ROADMAP.md Queue 1 item 15): Orbax checkpoints.
+Not ported yet (ROADMAP.md Queue 1 item 15): Orbax checkpoints (a
+directory as ``--ckpt`` raises and names the conversion to a ``.pt``).
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]
@@ -73,6 +75,7 @@ from ..models import LightningDiT, dit_spec, permute_qk_for_half_rope, quantize_
 from ..models.tokenizers import build_tokenizer_fns
 from ..parallel import (barrier, create_mesh, get_rank, get_world_size, group_all_reduce_, init_distributed_mode,
                         shard_dit_for_tp_)
+from ..train.state import ORBAX_HINT
 from ..transport import create_transport
 
 
@@ -86,7 +89,14 @@ def _load_checkpoint(path: str, key: str):
 
 def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, device=None):
     """(sample_fn, bundle, spec) for ``config``. ``demo`` applies the
-    reference's demo overrides: CFG interval off, timestep shift 0."""
+    reference's demo overrides: CFG interval off, timestep shift 0. A
+    checkpoint that is a directory (the JAX package's Orbax layout) raises
+    ``NotImplementedError`` naming its conversion, before any model is
+    built."""
+    ckpt = ckpt_path or config.ckpt_path
+    if ckpt and os.path.isdir(str(ckpt)):
+        raise NotImplementedError(f"--ckpt {ckpt} is a directory (an Orbax checkpoint of the JAX package): "
+                                  f"{ORBAX_HINT}")
     device = resolve_device(device)
     m, d = config.model, config.data
     spec = dit_spec(
@@ -104,7 +114,6 @@ def build_pipeline(config: LDMAEConfig, ckpt_path=None, demo: bool = False, devi
     )
     seed = config.train.global_seed
     dit = LightningDiT(spec, device=device)
-    ckpt = ckpt_path or config.ckpt_path
     if ckpt and os.path.exists(str(ckpt)) and str(ckpt).endswith((".pt", ".pth")):
         sd = _load_checkpoint(str(ckpt), "ema")
     else:

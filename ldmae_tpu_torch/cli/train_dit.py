@@ -33,14 +33,29 @@ takes part in gathering them; rank 0 writes), so a run resumes across
 ``--fsdp`` settings. ``--fsdp N`` at a world size that N does not divide
 raises the JAX ``create_mesh``'s AssertionError.
 
-Not ported yet (ROADMAP.md Queue 1 item 15): ``--tp`` above 1 (it raises;
-training under tp needs the backward of the sharded layers), Orbax
-checkpoints, the profiler trace options.
+``--tp N`` shards every block over a group of N consecutive ranks
+(``parallel.shard_dit_for_tp_``, the JAX tp rules: a rank's heads, its
+slice of the MLP's hidden dim and of adaLN's outputs, proj and w3
+row-parallel), after every rank has built and seeded the whole model alike.
+The ranks of a tp group read the same rows and draw the same noise (their
+data index is ``rank // N`` among ``world // N``), with DDP over the dp
+ranks, or with ``--fsdp`` FSDP2 over the fsdp ranks of each tp slice
+(fsdp x tp). Checkpoints stay the one-process file (gathered over fsdp and
+tp; a restore slices), so a run resumes across ``--tp`` settings. The JAX
+package's Orbax checkpoint directories are not read: a resume that finds
+one raises and names the conversion (``train.state``).
+
+``--profile_dir`` writes a ``torch.profiler`` trace (CPU and CUDA
+activities, one Chrome / TensorBoard file a rank) of steps
+[``--profile_start``, ``--profile_start`` + ``--profile_steps``) of the
+run's step counter, closed early at ``max_steps`` or on a signal, as the JAX
+CLI traces.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_dit --config configs/imagenet/lightningdit_b_vmae_f8d16.yaml
     torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml
     torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml --dp 2 --fsdp 4
+    torchrun --nproc_per_node 8 -m ldmae_tpu_torch.cli.train_dit --config ....yaml --dp 2 --fsdp 2 --tp 2
 """
 
 from __future__ import annotations
@@ -58,12 +73,12 @@ from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..data.latent_dataset import ImgLatentDataset
 from ..models.lightningdit import LightningDiT, permute_qk_for_half_rope
-from ..parallel import (all_reduce_sum, any_rank, barrier, create_mesh, get_rank, get_world_size,
-                        init_distributed_mode, wrap_data_parallel)
+from ..parallel import (all_reduce_sum, any_rank, barrier, create_mesh, data_index, data_world, get_rank,
+                        get_world_size, init_distributed_mode, wrap_data_parallel)
 from ..train.state import init_sharded_train_state, init_train_state, restore_checkpoint, save_checkpoint
 from ..train.train_dit import COMPUTE_DTYPES, build_from_config, evaluate_step, make_optimizer
 from ..utils.prefetch import Prefetcher
-from ..utils.profiling import dit_forward_flops, format_tflops_mfu, resolve_peak_flops
+from ..utils.profiling import TraceWindow, dit_forward_flops, format_tflops_mfu, resolve_peak_flops
 
 
 def setup_logger(exp_dir: str) -> logging.Logger:
@@ -123,17 +138,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser.add_argument("--fsdp", type=int, default=1,
                         help="ranks the parameters, gradients, EMA and AdamW state are sharded over (FSDP2)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="only 1 is ported for training (ROADMAP.md Queue 1 item 15)")
+                        help="ranks (consecutive) each block's heads and hidden dims are split over")
     parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace (Chrome / TensorBoard) of --profile_steps steps here")
+    parser.add_argument("--profile_start", type=int, default=10, help="optimizer step at which the trace starts")
+    parser.add_argument("--profile_steps", type=int, default=5, help="number of steps to trace")
     parser.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     parser.add_argument("--peak_tflops", type=float, default=None,
                         help="peak bf16 TFLOP/s of the device for the MFU log (default: from the "
                              "CUDA device name; unknown devices log 'MFU n/a')")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism in training needs the backward of the sharded layers, not "
-            "ported yet (ROADMAP.md Queue 1 item 15); the sampling CLI takes --tp")
     # the rendezvous (torchrun, SLURM or Open MPI environment) before any
     # device work; a no-op for one process
     init_distributed_mode(device=args.device)
@@ -142,6 +157,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # is on the parameters' device type
     mesh = create_mesh(dp=args.dp, fsdp=args.fsdp, tp=args.tp, device_type=device.type if args.fsdp > 1 else None)
     rank, world = get_rank(), get_world_size()
+    # this rank's share of the batch (the ranks of a tp group share one)
+    shard, shards = data_index(args.tp), data_world(args.tp)
 
     config = LDMAEConfig.from_yaml(args.config)
     if args.max_steps is not None:
@@ -151,7 +168,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     logger = setup_logger(exp_dir)
     logger.info(f"Experiment directory: {exp_dir}")
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-                + f", {world} process(es)" + (f", FSDP over {args.fsdp} ranks" if args.fsdp > 1 else ""))
+                + f", {world} process(es)" + (f", FSDP over {args.fsdp} ranks" if args.fsdp > 1 else "")
+                + (f", tp {args.tp} (each block split over {args.tp} ranks)" if args.tp > 1 else ""))
 
     writer = None
     if rank == 0:
@@ -174,15 +192,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         model.load_state_dict(permute_qk_for_half_rope(model.state_dict(), spec), strict=True)
         logger.info("using half-split RoPE layout (checkpoints are saved in the canonical one)")
     opt = config.optimizer
-    if args.fsdp > 1:
+    if args.fsdp > 1 or args.tp > 1:
         state = init_sharded_train_state(model, mesh, lambda params: make_optimizer(params, opt.lr, opt.beta2))
     else:
         state = init_train_state(model, make_optimizer(model.parameters(), opt.lr, opt.beta2))
     if restore_checkpoint(exp_dir, state, half_rope=half) is not None:
         logger.info(f"resumed from step {state.step}")
 
-    if args.fsdp == 1:
-        state.ddp = wrap_data_parallel(model, device)  # DDP whenever a process group exists
+    if args.fsdp == 1:  # DDP whenever a process group exists, over the dp ranks
+        state.ddp = wrap_data_parallel(model, device, mesh["dp"].get_group() if args.tp > 1 else None)
 
     def load_dataset():
         return ImgLatentDataset(_data_dir(config), latent_norm=config.data.latent_norm,
@@ -190,23 +208,26 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                                 sample=config.data.sample, seed=tc.global_seed)
 
     # rank 0 first: where latents_stats.pt is missing it computes and writes
-    # it, and the other ranks read it
+    # it, and then every rank reads it. Computing the statistics draws from
+    # the dataset's generator, which also picks each latent's flip, so rank
+    # 0 then builds its dataset again: the ranks of a tp group must read the
+    # same latents
     dataset = load_dataset() if rank == 0 else None
     barrier("train_dit_stats")
-    if dataset is None:
+    if world > 1 or dataset is None:
         dataset = load_dataset()
     logger.info(f"dataset: {len(dataset)} latents from {_data_dir(config)}")
     accum = tc.gradient_accumulation_steps
     micro = tc.global_batch_size // accum
-    assert micro % world == 0, f"per-accum batch {micro} must divide across {world} processes"
-    micro_local = micro // world  # this rank's slice of each micro-batch
+    assert micro % shards == 0, f"per-accum batch {micro} must divide across {shards} data shards"
+    micro_local = micro // shards  # this rank's slice of each micro-batch
     # resume the data stream where the restored step left off (each epoch
     # reshuffles with seed + epoch, so the step maps to an exact position);
-    # rank r reads every world-th latent from r
-    n_host = len(range(rank, len(dataset), world))
+    # data index i reads every shards-th latent from i
+    n_host = len(range(shard, len(dataset), shards))
     per_epoch = max(n_host // (micro_local * accum), 1)
     batches = Prefetcher(dataset.iter_batches(
-        micro_local * accum, shuffle=True, seed=tc.global_seed, process_index=rank, process_count=world,
+        micro_local * accum, shuffle=True, seed=tc.global_seed, process_index=shard, process_count=shards,
         start_epoch=state.step // per_epoch, skip_batches=state.step % per_epoch), buffer_size=4)
 
     cd = COMPUTE_DTYPES[config.parallel.compute_dtype]
@@ -239,6 +260,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         except ValueError:
             pass  # not the main thread (embedded use)
     gen = torch.Generator(device=device)
+    trace = TraceWindow(args.profile_dir, args.profile_start, args.profile_steps, device, logger.info)
     history: List[Dict[str, float]] = []
     pending, log_steps = [], 0
     logger.info(f"training for {tc.max_steps} steps (global_batch={tc.global_batch_size}, accum={accum})")
@@ -251,7 +273,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             # one seed per step, alike on every rank, so a resumed run draws
             # its noise, t and label dropout as the uninterrupted one would
             gen.manual_seed((tc.global_seed + 1) * 1_000_003 + state.step)
+            trace.before_step(state.step)
             metrics = step_fn(state, {"x": x, "y": y}, gen)
+            trace.after_step(state.step)
             pending.append(torch.stack([metrics["loss"], metrics["grad_norm"]]))
             log_steps += 1
 
@@ -272,6 +296,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             # a signal on any rank stops every rank at this step (the
             # checkpoint is collective: rank 0 writes, all wait)
             if any_rank(bool(stop_signal)):
+                trace.close()  # flush a trace in flight
                 logger.info(f"received signal {stop_signal[0] if stop_signal else 'on another rank'}; saving a "
                             f"preemption checkpoint at step {state.step}")
                 save("preemption ")
@@ -279,9 +304,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
             if state.step % tc.ckpt_every == 0:
                 save("")
-                # under FSDP every rank runs the sharded forward (its gathers
-                # are collective); rank 0 logs
-                if val_batch is not None and (rank == 0 or args.fsdp > 1):
+                # under FSDP or tp every rank runs the sharded forward (its
+                # collectives take every rank); rank 0 logs
+                if val_batch is not None and (rank == 0 or args.fsdp > 1 or args.tp > 1):
                     val = float(evaluate_step(
                         state.model, transport, val_batch, torch.Generator(device=device).manual_seed(0),
                         compute_dtype=cd, attn_impl=config.parallel.train_attention_impl,
@@ -290,6 +315,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     if writer is not None:
                         writer.add_scalar("Loss/validation", val, state.step)
         else:
+            trace.close()  # max_steps ended inside the trace window
             save("final ")
     finally:  # an embedding program gets its own handlers back
         for sig, handler in previous.items():

@@ -44,8 +44,14 @@ mean losses are averaged over the ranks; rank 0 alone writes log.txt,
 TensorBoard, the checkpoints and their links. So with accum_iter 1 a run
 on two ranks equals one process with ``--batch_size`` doubled.
 
+``--profile_dir`` writes a ``torch.profiler`` trace (CPU and CUDA
+activities, one Chrome / TensorBoard file a rank) of steps
+[``--profile_start``, ``--profile_start`` + ``--profile_steps``) of this
+run (counted from 0 at its start, as the JAX CLI counts them), closed early
+at an epoch's end or on a signal.
+
 Not ported (ROADMAP.md Queue 1 item 15): ``--resume`` of an Orbax directory
-and the profiler options; each raises ``NotImplementedError``.
+raises ``NotImplementedError`` and names the conversion route.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_vmae --model mae_for_ldmae_f8d16_prev \\
@@ -82,7 +88,7 @@ from ..train.train_vmae import (
     make_vmae_train_step,
 )
 from ..utils.meters import all_reduce_mean
-from ..utils.profiling import resolve_peak_flops, vmae_forward_flops
+from ..utils.profiling import TraceWindow, resolve_peak_flops, vmae_forward_flops
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -122,8 +128,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--steps_per_epoch", type=int, default=None, help="override for small datasets / smoke runs")
     p.add_argument("--dp", type=int, default=-1, help="data-parallel ranks (-1: the world size)")
-    p.add_argument("--profile_dir", type=str, default=None, help="not ported (ROADMAP.md item 15)")
-    p.add_argument("--profile_start", type=int, default=10)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace (Chrome / TensorBoard) of --profile_steps steps here")
+    p.add_argument("--profile_start", type=int, default=10, help="step of this run at which the trace starts")
     p.add_argument("--profile_steps", type=int, default=5)
     p.add_argument("--peak_tflops", type=float, default=None,
                    help="peak bf16 TFLOP/s of the device for the MFU log (default: from the CUDA device "
@@ -135,9 +142,6 @@ def get_args_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.gradual_resol and args.tune_decoder:
         raise ValueError("--gradual_resol trains stage 1; the decoder-tuning forward has no gradual form")
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir: the profiler options are not ported yet (ROADMAP.md Queue 1 "
-                                  "item 15)")
     if args.resume and os.path.isdir(args.resume):
         raise NotImplementedError(f"--resume {args.resume}: Orbax checkpoint directories are not read yet "
                                   "(ROADMAP.md Queue 1 item 15); name a .pth / .pt file")
@@ -286,6 +290,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     epoch_lr = cosine_lr(lr, args.min_lr, args.warmup_epochs, args.epochs, args.fixed_lr)
     history: List[Dict[str, Any]] = []
     start_epoch, resume_skip = divmod(state.step, steps_per_epoch)
+    trace = TraceWindow(args.profile_dir, args.profile_start, args.profile_steps, device,
+                        print if rank == 0 else (lambda msg: None))
+    run_steps = 0  # this run's steps: the trace window's counter
     try:
         with ThreadPoolExecutor(max_workers=args.num_workers) as pool:
             for epoch in range(start_epoch, args.epochs):
@@ -297,7 +304,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     x = torch.from_numpy(imgs).to(device).reshape(args.accum_iter, args.batch_size, *imgs.shape[1:])
                     # one seed per step: a resumed run draws as the uninterrupted one
                     gen.manual_seed((args.seed + 1) * 1_000_003 + state.step)
+                    trace.before_step(run_steps)
                     metrics = step_fn(state, {"x": x}, gen)
+                    run_steps += 1
+                    trace.after_step(run_steps)
                     host = {k: float(v) for k, v in metrics.items()}
                     for k in METRIC_KEYS:
                         sums[k] += host[k]
@@ -305,10 +315,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     if not host["loss_finite"]:
                         print(f"WARNING: non-finite loss at step {state.step} (update skipped)")
                     if any_rank(bool(stop_signal)):  # every rank stops at this step
+                        trace.close()
                         path = save_checkpoint(args.output_dir, state, config=vars(args))
                         print(f"received signal {stop_signal[0] if stop_signal else 'on another rank'}; saved "
                               f"preemption checkpoint {path}")
                         return {"state": state, "history": history, "output_dir": args.output_dir}
+                trace.close()  # the epoch ended inside the trace window
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 # the epoch's mean losses over the ranks (equal local batches)

@@ -16,11 +16,17 @@ are constants rebuilt from the spec (``DiTConsts``); the ``pos_embed`` and
 halves). ``quant_mode`` ('w8' | 'w8a8') needs a model transformed by
 ``quantize_dit_`` (sampling only), applied after that permutation.
 
-Tensor parallelism (sampling): ``parallel.mesh.shard_dit_for_tp_`` keeps a
-rank's slices of each block's linears and sets ``DiTBlock.tp_group``; a
-block then attends over its heads, runs its slice of the MLP's hidden dim
-and all-gathers the adaLN modulations, with proj and w3 (fc2) row-parallel.
-The embedders and the final layer stay whole on every rank.
+Tensor parallelism (sampling and training): ``parallel.mesh.shard_dit_for_tp_``
+keeps a rank's slices of each block's linears and sets
+``DiTBlock.tp_group``; a block then attends over its heads, runs its slice
+of the MLP's hidden dim and all-gathers the adaLN modulations, with proj
+and w3 (fc2) row-parallel. The embedders and the final layer stay whole on
+every rank. Under autograd the replicated inputs of the column-parallel
+layers (adaLN's c, qkv's and w12's or fc1's h: ``ops.dense``'s
+``tp_group``, fp32 partials rounded once) and the shared qk-norm weights sum their gradients over the
+group, the gathered modulations keep this rank's slice of theirs, and the
+row-parallel sums pass theirs through (``parallel.distributed``'s
+Functions).
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ from ..ops.fused_adaln import fused_norm_modulate, fused_norm_modulate_quant
 from ..ops.patchify import patch_embed
 from ..ops.quant import is_quantized, maybe_qdense, quantize_linear, swiglu_ffn_quant
 from ..ops.rope import rope_channel_permutation, to_half_layout
-from ..parallel.distributed import group_all_gather, group_size
+from ..parallel.distributed import gather_from_tp, group_size
 
 
 @dataclass(frozen=True)
@@ -246,8 +252,8 @@ class DiTBlock(nn.Module):
     def modulation(self, c_mod, spec: DiTSpec, quant_mode: Optional[str] = None):
         """(shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp),
         each (B, D); the shifts are None for ``wo_shift``."""
-        mod = maybe_qdense(c_mod, self.adaLN_modulation[1], quant_mode)
-        mod = group_all_gather(mod, self.tp_group)  # a rank holds a contiguous slice of the 6D outputs
+        mod = maybe_qdense(c_mod, self.adaLN_modulation[1], quant_mode, col_group=self.tp_group)
+        mod = gather_from_tp(mod, self.tp_group)  # a rank holds a contiguous slice of the 6D outputs
         mod = mod.view(-1, spec.num_adaln, spec.hidden_size)
         if spec.wo_shift:
             scale_msa, gate_msa, scale_mlp, gate_mlp = mod.unbind(1)
@@ -281,7 +287,9 @@ class DiTBlock(nn.Module):
         """remat_policy 'attn': the attention branch and the rest of the block
         are two checkpointed segments, so the backward keeps the block input,
         the (B, D) modulation vectors and the attention output, and
-        recomputes each segment's inside once."""
+        recomputes each segment's inside once. Under tensor parallelism each
+        segment holds a row-parallel all-reduce (proj's, w3's), which the
+        recomputation runs again; every rank recomputes in the same order."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(c_mod, spec)
         attn_out = checkpoint(self.attn_branch, x, shift_msa, scale_msa, spec, rope, attn_impl,
                               rope_layout, adaln_impl, use_reentrant=False)

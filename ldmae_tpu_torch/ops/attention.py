@@ -40,6 +40,7 @@ from .flash_attention import (
     flash_attention_qknorm_rope,
     flash_attention_rope,
 )
+from ..parallel.distributed import copy_to_tp
 from .linear import dense
 from .norms import layer_norm, rms_norm
 from .quant import is_quantized, maybe_qdense, qdense, qdense_pre
@@ -48,12 +49,15 @@ from .rope import apply_rope, apply_rope_half
 FLASH_IMPLS = ("flash", "flash_rope", "flash_fused", "flash_qkr")
 
 
-def _apply_head_norm(x: torch.Tensor, norm, kind: str) -> torch.Tensor:
+def _apply_head_norm(x: torch.Tensor, norm, kind: str, tp_group=None) -> torch.Tensor:
+    """The per-head qk-norm. Its weights are shared by every head, so under
+    tensor parallelism (a rank holding some heads) their gradient is summed
+    over the group (``copy_to_tp``)."""
     if norm is None:
         return x
     if kind == "rms":
-        return rms_norm(x, norm.weight)
-    return layer_norm(x, norm.weight, norm.bias)
+        return rms_norm(x, copy_to_tp(norm.weight, tp_group))
+    return layer_norm(x, copy_to_tp(norm.weight, tp_group), copy_to_tp(norm.bias, tp_group))
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "xla") -> torch.Tensor:
@@ -94,7 +98,9 @@ def multi_head_attention(
     ``num_heads`` heads of q, k and v (their rows in the [q; k; v] layout),
     the qk-norm weights are whole, and ``p.proj`` holds the matching input
     columns: the rank attends over its heads and proj's partial products
-    are summed over the group (``dense_row_parallel``)."""
+    are summed over the group (``dense_row_parallel``). Under autograd x's
+    gradient (qkv is column-parallel: ``dense``'s ``tp_group``) and the
+    qk-norm's are summed over the group."""
     if x is None:
         if x_quant is None:
             raise ValueError("multi_head_attention needs x or x_quant")
@@ -114,7 +120,7 @@ def multi_head_attention(
     elif is_quantized(p.qkv):
         qkv = qdense(x, p.qkv, mode=quant_mode or "w8a8")
     else:
-        qkv = dense(x, p.qkv.weight, p.qkv.bias)
+        qkv = dense(x, p.qkv.weight, p.qkv.bias, tp_group=tp_group)
     qkv = qkv.view(b, n, 3, num_heads, hd)
 
     if half_rope and impl == "flash_fused":
@@ -138,8 +144,8 @@ def multi_head_attention(
         out = out.transpose(1, 2).reshape(b, n, d)
         return maybe_qdense(out, p.proj, quant_mode, compute_dtype=dtype, row_group=tp_group)
 
-    q = _apply_head_norm(q, q_norm, qk_norm_kind)
-    k = _apply_head_norm(k, k_norm, qk_norm_kind)
+    q = _apply_head_norm(q, q_norm, qk_norm_kind, tp_group)
+    k = _apply_head_norm(k, k_norm, qk_norm_kind, tp_group)
 
     if half_rope and impl == "flash_rope":
         cos, sin = rope

@@ -7,11 +7,17 @@ adds the float32 bias in float32 and rounds once to the compute dtype at
 the end.
 
 Under tensor parallelism a column-parallel layer (its output dim split
-over the ranks) is the local ``dense`` on the rank's rows. A row-parallel
+over the ranks) is the local ``dense`` on the rank's rows; under autograd
+its replicated input's gradient is summed over the ranks in the backward
+(``dense``'s ``tp_group``, ``maybe_qdense``'s ``col_group``) from the
+ranks' fp32 partials, rounded once: ``copy_to_tp`` on the fp32 operand, or
+on the card the fp32 partial dx of ``dense_f32_out``. A row-parallel
 layer (its input dim split: proj, w3, fc2) is ``dense_row_parallel``: the
-fp32 partial product without the bias (``dense_f32_out``, the GEMM engine's
-fp32 epilogue), all-reduced in fp32, then the fp32 bias and one rounding,
-the math of the JAX package's psum over its fp32 dot.
+fp32 partial product without the bias (``dense_f32_out``, the GEMM
+engine's fp32 epilogue), all-reduced in fp32 (``reduce_from_tp``), then
+the fp32 bias and one rounding, the math of the JAX package's psum over
+its fp32 dot; it is differentiable (dx = g w_r, dw = g^T x_r, dbias = the
+sum of g in fp32).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..parallel.distributed import group_all_reduce_
+from ..parallel.distributed import copy_to_tp, group_all_reduce_, group_size, reduce_from_tp
 from .fused_adaln import fused_matmul_silu
 from .quant import is_quantized, maybe_qdense
 
@@ -58,19 +64,27 @@ dense_bias_f32.launches = 0
 class _DenseBiasF32(torch.autograd.Function):
     """``dense_bias_f32`` with its gradients: dx = g w and dw = g^T x in bf16
     (as a bf16 linear's backward), dbias the sum of g accumulated in float32
-    (no float32 copy of g)."""
+    (no float32 copy of g). With a tp ``group`` (a column-parallel layer: x
+    replicated, w this rank's output rows) dx is this rank's fp32 partial
+    g w (``dense_f32_out`` on w^T), summed over the group in fp32 and
+    rounded once."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias):
+    def forward(ctx, x, weight, bias, group):
         ctx.save_for_backward(x, weight)
+        ctx.group = group
         return dense_bias_f32(x, weight, bias)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad
-        return (g @ weight if need_x else None, g.t() @ x if need_w else None,
-                g.sum(0, dtype=torch.float32) if need_b else None)
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = None
+        if need_x and group_size(ctx.group) > 1:
+            dx = group_all_reduce_(dense_f32_out(g, weight.t().contiguous()), ctx.group).to(x.dtype)
+        elif need_x:
+            dx = g @ weight
+        return dx, g.t() @ x if need_w else None, g.sum(0, dtype=torch.float32) if need_b else None, None
 
 
 def dense(
@@ -78,6 +92,7 @@ def dense(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    tp_group=None,
 ) -> torch.Tensor:
     """x @ weight^T + bias with operands in the compute dtype, float32 sums,
     the float32 bias added in float32 and one rounding at the end, as the
@@ -85,18 +100,25 @@ def dense(
     (differentiable); without a bias, or in float32, cuBLAS through
     ``F.linear``. On the CPU the product runs in
     float32 on the compute-dtype values with the float32 bias, as XLA does
-    (a bf16 CPU matmul would round before the bias)."""
+    (a bf16 CPU matmul would round before the bias).
+
+    ``tp_group``: the layer is column-parallel over the group (x replicated,
+    weight and bias this rank's output rows). Under autograd dx is then
+    summed over the group in the backward (``copy_to_tp``), from the ranks'
+    fp32 partials and rounded once to x's dtype, the JAX psum of its fp32
+    transposed dot: a bf16 dx is the one-process dx but for the sum's
+    order."""
     cd = compute_dtype or x.dtype
     x, weight = x.to(cd), weight.to(cd)
     if cd == torch.float32 or (x.device.type != "cpu" and bias is None):
-        return F.linear(x, weight, None if bias is None else bias.to(cd))
+        return F.linear(copy_to_tp(x, tp_group), weight, None if bias is None else bias.to(cd))
     if x.device.type != "cpu" and cd == torch.bfloat16:
         args = (x.reshape(-1, x.shape[-1]).contiguous(), weight.contiguous(), bias.float().contiguous())
         grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
-        out = _DenseBiasF32.apply(*args) if grad else dense_bias_f32(*args)
+        out = _DenseBiasF32.apply(*args, tp_group) if grad else dense_bias_f32(*args)
         return out.view(*x.shape[:-1], weight.shape[0])
     b = None if bias is None else bias.float()
-    return F.linear(x.float(), weight.float(), b).to(cd)
+    return F.linear(copy_to_tp(x.float(), tp_group), weight.float(), b).to(cd)
 
 
 def dense_f32_out_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -133,6 +155,27 @@ def dense_f32_out(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 dense_f32_out.launches = 0
 
 
+class _PartialProduct(torch.autograd.Function):
+    """x_r (M, K_r) @ w_r (N, K_r)^T with fp32 sums out: ``dense_f32_out``
+    for bf16 operands, else the product in the operands' dtype. The
+    backward takes the (fp32) gradient of the sum, which holds bf16 values
+    when the operands are bf16 (it is the gradient of the rounded output),
+    and returns dx = g w_r and dw = g^T x_r in the operands' dtype, as a
+    bf16 linear's backward does."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return dense_f32_out(x, weight) if x.dtype == torch.bfloat16 else F.linear(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        g = g.to(x.dtype)
+        return g @ weight if need_x else None, g.t() @ x if need_w else None
+
+
 def dense_row_parallel(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -145,17 +188,16 @@ def dense_row_parallel(
     The fp32 partial products are summed over the group, then the fp32 bias
     is added and the sum rounded once to the compute dtype (the JAX psum's
     math). bf16 runs ``dense_f32_out``; fp32 the fp32 product ``dense`` runs
-    in fp32. Forward only (sampling)."""
+    in fp32. Differentiable: the all-reduce's transpose is the identity, so
+    dx = g w_r, dw = g^T x_r (the operands' dtype) and dbias = the sum of g
+    in fp32, g the gradient of the rounded output, every rank holding it
+    whole."""
     cd = compute_dtype or x.dtype
     x, weight = x.to(cd), weight.to(cd)
     rows = x.reshape(-1, x.shape[-1])
-    if cd == torch.bfloat16:
-        part = dense_f32_out(rows, weight)
-    else:
-        part = F.linear(rows.float(), weight.float())
-    group_all_reduce_(part, group)
+    part = reduce_from_tp(_PartialProduct.apply(rows, weight), group)
     if bias is not None:
-        part = part + bias.float()
+        part = part + bias.to(part.dtype)
     return part.to(cd).view(*x.shape[:-1], weight.shape[0])
 
 
@@ -188,7 +230,7 @@ def mlp_gelu(
     QLinear). VMAE uses exact GELU, the DiT's non-SwiGLU path the tanh
     approximation. ``row_group``: fc1 holds this rank's hidden rows and fc2
     is row-parallel over the group."""
-    h = gelu(maybe_qdense(x, fc1, quant_mode), approximate=approximate)
+    h = gelu(maybe_qdense(x, fc1, quant_mode, col_group=row_group), approximate=approximate)
     return maybe_qdense(h, fc2, quant_mode, row_group=row_group)
 
 
@@ -211,7 +253,7 @@ def swiglu_ffn(
         hidden = fused_matmul_silu(x, w12.weight, w12.bias)
         if hidden is not None:
             return maybe_qdense(hidden, w3, quant_mode, row_group=row_group)
-    x12 = maybe_qdense(x, w12, quant_mode)
+    x12 = maybe_qdense(x, w12, quant_mode, col_group=row_group)
     x1, x2 = x12.chunk(2, dim=-1)
     return maybe_qdense(silu(x1) * x2, w3, quant_mode, row_group=row_group)
 

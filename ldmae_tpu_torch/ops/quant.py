@@ -279,14 +279,17 @@ def maybe_qdense(
     mode: Optional[str],
     compute_dtype: Optional[torch.dtype] = None,
     row_group=None,
+    col_group=None,
 ) -> torch.Tensor:
     """dense() over either an nn.Linear or a QLinear, so one forward serves
     quantized and full-precision models. ``row_group``: ``lin`` is
-    row-parallel over that group (``dense_row_parallel`` / ``qdense``)."""
+    row-parallel over that group (``dense_row_parallel`` / ``qdense``);
+    ``col_group``: ``lin`` is column-parallel over that group, x replicated
+    (``dense``'s ``tp_group``: dx summed over the group under autograd)."""
     from .linear import dense, dense_row_parallel
 
     if is_quantized(lin):
         return qdense(x, lin, mode=mode or "w8a8", compute_dtype=compute_dtype, row_group=row_group)
     if row_group is not None:
         return dense_row_parallel(x, lin.weight, lin.bias, row_group, compute_dtype=compute_dtype)
-    return dense(x, lin.weight, lin.bias, compute_dtype=compute_dtype)
+    return dense(x, lin.weight, lin.bias, compute_dtype=compute_dtype, tp_group=col_group)

@@ -17,13 +17,28 @@ and a rank that dies closes its gloo sockets, which fails the others' next
 collective at once instead of leaving them at a barrier.
 
 ``global_batch_draws`` makes a data-parallel rank draw its random numbers as
-a one-process run on the global batch would (see its docstring).
+a one-process run on the global batch would (see its docstring). Under
+tensor parallelism the ranks of a tp group (consecutive: tp is the mesh's
+innermost axis) share one slice of the batch: a rank's data index is
+``rank // tp`` among ``world // tp`` (``data_index``, ``data_world``).
 
 Device-side collectives on a group (tensor parallelism's partial sums, row
 maxima and gathered modulations): ``group_all_reduce_`` (sum or max, in
 place) and ``group_all_gather`` (concatenated along a dim). They run on
 whatever backend the group has, NCCL across cards or gloo for ranks that
-share one, and a failed collective raises.
+share one, and a failed collective raises; ``COLLECTIVES`` counts them and
+their bytes. Under autograd (tp training) three Functions carry them, each
+the identity without a group:
+
+* ``copy_to_tp``: identity forward, the gradient all-reduced backward (the
+  replicated input of a column-parallel layer, whose rank gets only its
+  rows' share of dx);
+* ``reduce_from_tp``: all-reduce forward (in place), identity backward
+  (the partial products of a row-parallel layer);
+* ``gather_from_tp``: all-gather forward, this rank's slice of the
+  gradient backward (everything downstream is replicated, so every rank
+  holds the whole gradient already: a reduce-scatter would multiply it by
+  the group's size).
 """
 
 from __future__ import annotations
@@ -147,6 +162,18 @@ def any_rank(flag: bool) -> bool:
     return bool(all_reduce_sum(np.array([int(flag)], np.int64))[0])
 
 
+def data_index(tp: int = 1) -> int:
+    """This rank's share of the batch: ranks of one tp group (consecutive)
+    read and draw the same rows."""
+    return get_rank() // tp
+
+
+def data_world(tp: int = 1) -> int:
+    """The number of distinct batch shares (data-parallel ranks x fsdp
+    ranks)."""
+    return get_world_size() // tp
+
+
 class _GlobalBatchDraws(TorchFunctionMode):
     _DRAWS = (torch.rand, torch.randn)
 
@@ -165,25 +192,33 @@ class _GlobalBatchDraws(TorchFunctionMode):
 
 
 @contextlib.contextmanager
-def global_batch_draws(generator: Optional[torch.Generator], local_batch: int):
+def global_batch_draws(generator: Optional[torch.Generator], local_batch: int, tp: int = 1):
     """Inside it, a ``torch.rand`` / ``torch.randn`` from ``generator`` whose
     leading dim is ``local_batch`` is drawn for the global batch (``local_batch``
-    x world rows) and this rank's rows kept: rank r gets rows [r m, (r + 1) m).
+    x ``data_world(tp)`` rows) and this rank's rows kept: data index i gets
+    rows [i m, (i + 1) m), so the ranks of a tp group draw alike.
 
     Every rank seeds ``generator`` alike, so the ranks' noise, timesteps,
     label drops and masks are the rows that one process training on the
     concatenated global batch draws, as the JAX step draws them for its
     global batch. Draws of another generator or another leading dim pass
-    through. A no-op for one process."""
-    world = get_world_size()
+    through. A no-op for one data share."""
+    world = data_world(tp)
     if world == 1 or generator is None:
         yield
         return
-    with _GlobalBatchDraws(generator, local_batch, get_rank(), world):
+    with _GlobalBatchDraws(generator, local_batch, data_index(tp), world):
         yield
 
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# the group collectives run (the tp path's all-reduces and all-gathers) and
+# the bytes each rank sent into them; reset by the caller
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.update(all_reduce=0, all_gather=0, bytes=0)
 
 
 def group_size(group) -> int:
@@ -197,6 +232,8 @@ def group_all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     group. Integer sums are exact; a float sum's order is the backend's."""
     if group_size(group) > 1:
         dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+        COLLECTIVES["all_reduce"] += 1
+        COLLECTIVES["bytes"] += t.numel() * t.element_size()
     return t
 
 
@@ -209,4 +246,62 @@ def group_all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t, group=group)
+    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["bytes"] += t.numel() * t.element_size()
     return torch.cat(out.view(n, *t.shape).unbind(0), dim=dim)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        return group_all_reduce_(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group_all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        rank = dist.get_rank(ctx.group) if n > 1 else 0
+        return g.chunk(n, dim=ctx.dim)[rank].contiguous(), None, None
+
+
+def copy_to_tp(x: Optional[torch.Tensor], group) -> Optional[torch.Tensor]:
+    """x itself, whose gradient is summed over ``group`` in the backward:
+    the replicated input of a column-parallel layer (each rank's dx holds
+    only its output rows' share), or a replicated weight that each rank
+    uses on its own slice. Without a group (or for None), x."""
+    return x if x is None or group_size(group) == 1 else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """x (contiguous) summed over ``group`` in place and returned; the
+    gradient passes through unchanged (the transpose of a sum of partials
+    that every rank then holds whole). Without a group, x."""
+    return x if group_size(group) == 1 else _ReduceFromTP.apply(x, group)
+
+
+def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """``group_all_gather`` under autograd: the backward keeps this rank's
+    slice of the (replicated) gradient along ``dim``. Without a group, x."""
+    return x if group_size(group) == 1 else _GatherFromTP.apply(x, group, dim)

@@ -17,8 +17,8 @@ a tp group are consecutive.
   ranks, and with dp > 1 shards over fsdp and replicates over dp (hybrid
   sharding). The batch is split over (dp, fsdp) jointly, as in the JAX
   step, so a rank's data index is its rank.
-* ``tp`` (sampling): ``shard_dit_for_tp_`` keeps a rank's slices of every
-  block's linears, by the JAX tp rules: qkv's output rows a rank's heads of
+* ``tp`` (sampling and training): ``shard_dit_for_tp_`` keeps a rank's
+  slices of every block's linears, by the JAX tp rules: qkv's output rows a rank's heads of
   q, k and v, proj's input columns, adaLN's output rows contiguously, the
   MLP's hidden dim (fc1 rows, fc2 columns; w3 columns). The per-out-channel
   int8 scales are those of the full weight (it quantizes before it shards).
@@ -27,8 +27,16 @@ a tp group are consecutive.
   package shards it on its contracting dim because XLA cannot partition #4:
   here #4 runs whole on each rank's rows (every column it writes is the
   column it writes at tp 1) and the MLP needs one all-reduce, after w3.
-  Ranks of a tp group sample one batch together; its data index (the
-  batch rows it owns) is ``rank // tp``.
+  Ranks of a tp group sample (or train on) one batch together; its data
+  index (the batch rows it owns) is ``rank // tp``. In training every rank
+  builds and seeds the whole model alike and then keeps its slices, so the
+  slices are those of the one-process model; ``tp_state_gather`` is the
+  exact inverse of ``tp_state_slice`` (checkpoints hold the whole model).
+  With dp > 1, DDP runs over the dp ranks (``wrap_data_parallel``'s
+  ``group``); with fsdp > 1, FSDP2 shards each rank's tp-local parameters
+  over the fsdp (or dp x fsdp) ranks on dim 0, so a rank holds 1/(tp fsdp)
+  of a split leaf, as the JAX 2-D layout does (ROADMAP, kept differences:
+  the JAX rule shards fsdp on the complementary dim).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from .distributed import get_world_size
+from .distributed import get_world_size, group_all_gather
 
 AXES = ("dp", "fsdp", "tp")
 
@@ -67,9 +75,10 @@ def create_mesh(dp: int = -1, fsdp: int = 1, tp: int = 1, device_type: Optional[
     return init_device_mesh(device_type, (dp, fsdp, tp), mesh_dim_names=AXES)
 
 
-def wrap_data_parallel(module: nn.Module, device: Optional[Union[str, torch.device]] = None
+def wrap_data_parallel(module: nn.Module, device: Optional[Union[str, torch.device]] = None, group=None
                        ) -> Optional[nn.parallel.DistributedDataParallel]:
-    """``module`` in ``DistributedDataParallel`` whenever a process group
+    """``module`` in ``DistributedDataParallel`` over ``group`` (default:
+    every rank; under tp the mesh's dp group) whenever a process group
     exists (at world 1 too, so one card runs DDP's buckets and all-reduce),
     else None. Every parameter takes a gradient in each step
     (``find_unused_parameters=False``); the buffers are constants that every
@@ -79,7 +88,7 @@ def wrap_data_parallel(module: nn.Module, device: Optional[Union[str, torch.devi
     device = torch.device(device) if device is not None else next(module.parameters()).device
     return nn.parallel.DistributedDataParallel(
         module, device_ids=[device.index] if device.type == "cuda" else None,
-        find_unused_parameters=False, broadcast_buffers=False)
+        find_unused_parameters=False, broadcast_buffers=False, process_group=group)
 
 
 def wrap_fsdp(module: nn.Module, mesh) -> nn.Module:
@@ -88,7 +97,9 @@ def wrap_fsdp(module: nn.Module, mesh) -> nn.Module:
     sharding (shard over fsdp, replicate over dp) when dp > 1. Parameters
     are gathered in fp32, as the one-process step holds them, and the model
     casts them where it uses them (no mixed-precision policy), so the
-    forward's numbers are the one-process forward's. Returns ``module``."""
+    forward's numbers are the one-process forward's. Under tp the module
+    holds this rank's slices (``shard_dit_for_tp_`` first), which FSDP2
+    shards on dim 0 over this rank's fsdp group. Returns ``module``."""
     from torch.distributed.fsdp import fully_shard
 
     sub = mesh["dp", "fsdp"] if mesh["dp"].size() > 1 else mesh["fsdp"]
@@ -162,6 +173,46 @@ def tp_state_slice(state: dict, spec, n: int, r: int) -> dict:
         found = tp_slice_index(key, spec, n, r)
         out[key] = t if found is None else t.detach().index_select(found[0], found[1].to(t.device)).contiguous()
     return out
+
+
+def tp_state_gather(parts: list, spec) -> dict:
+    """The whole DiT state dict from every rank's ``tp_state_slice`` (a list
+    in rank order, n = its length): each split entry put back at its
+    index, every other entry rank 0's. ``tp_state_gather([tp_state_slice(sd,
+    spec, n, r) for r in range(n)], spec)`` equals ``sd`` bit for bit."""
+    n, out = len(parts), {}
+    for key, t0 in parts[0].items():
+        found = tp_slice_index(key, spec, n, 0)
+        if found is None:
+            out[key] = t0
+            continue
+        dim = found[0]
+        full = t0.new_empty(*[t0.shape[i] * n if i == dim else t0.shape[i] for i in range(t0.dim())])
+        for r, part in enumerate(parts):
+            full.index_copy_(dim, tp_slice_index(key, spec, n, r)[1].to(t0.device), part[key])
+        out[key] = full
+    return out
+
+
+def all_gather_tp_state(sd: dict, spec, group) -> dict:
+    """The whole state dict from every tp rank's slices ``sd`` (a state dict
+    of parameter names, or of gradients or optimizer moments by those
+    names): collective, each split entry all-gathered over ``group`` in
+    ``sd``'s order, which every rank of the group shares."""
+    n = dist.get_world_size(group)
+    parts = [dict(sd)] + [{} for _ in range(n - 1)]
+    for key, t in sd.items():
+        if tp_slice_index(key, spec, n, 0) is not None:
+            for r, part in enumerate(group_all_gather(t.detach().unsqueeze(0), group, dim=0).unbind(0)):
+                parts[r][key] = part
+    return tp_state_gather(parts, spec)
+
+
+def tp_group_of(model: nn.Module):
+    """The tp group a DiT's blocks were sharded over
+    (``shard_dit_for_tp_``), or None."""
+    blocks = getattr(model, "blocks", None)
+    return getattr(blocks[0], "tp_group", None) if blocks else None
 
 
 def _check_tp(spec, n: int) -> None:

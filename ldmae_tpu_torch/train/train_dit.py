@@ -16,7 +16,11 @@ Under FSDP (``parallel.wrap_fsdp``) the parameters, their gradients and
 the EMA are sharded DTensors: the global norm sums every shard's squares
 over the shard ranks, and clipping, the accumulation's division and the EMA
 update run on the local shards, which hold the same elements in the model,
-its gradients and the EMA.
+its gradients and the EMA. Under tensor parallelism (``shard_dit_for_tp_``)
+a rank holds its slices of the split leaves and the whole of the others:
+the global norm sums the split leaves' squares over the tp group and counts
+the replicated ones once, which is ``optax.clip_by_global_norm`` on the
+logical parameters; AdamW and the EMA act on the local slices.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from torch.distributed.tensor import DTensor
 from ..core.config import LDMAEConfig
 from ..core.device import resolve_device
 from ..models.lightningdit import DiTSpec, LightningDiT, dit_spec, init_dit_weights_
-from ..parallel.distributed import global_batch_draws, group_all_reduce_
+from ..parallel.distributed import global_batch_draws, group_all_reduce_, group_size
+from ..parallel.mesh import tp_group_of, tp_slice_index
 from ..transport.transport import Transport, create_transport
 from .state import TrainState
 
@@ -48,19 +53,38 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, split=None, tp_group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``).
     For FSDP's sharded gradients: the local shards' squares summed, then
-    summed over the mesh dims they are sharded on."""
+    summed over the mesh dims they are sharded on. ``split`` (one bool a
+    tensor) marks the tensors that hold this rank's slice under tensor
+    parallelism over ``tp_group``: their squares are summed over the group,
+    the others' (replicated: every rank holds them whole) counted once."""
     tensors = list(tensors)
-    if tensors and isinstance(tensors[0], DTensor):
-        sq = torch.stack([torch.linalg.vector_norm(_local(t).float()) ** 2 for t in tensors]).sum()
+    sharded = bool(tensors) and isinstance(tensors[0], DTensor)
+    if not sharded and tp_group is None:
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+    squares = [torch.linalg.vector_norm(_local(t).float()) ** 2 for t in tensors]
+    sq = torch.stack(squares).sum()
+    if tp_group is not None:
+        part = torch.stack([q for q, s in zip(squares, split) if s]).sum()
+        sq = sq - part + group_all_reduce_(part.clone(), tp_group)
+    if sharded:
         mesh = tensors[0].device_mesh
         for dim, placement in enumerate(tensors[0].placements):
             if placement.is_shard():
                 group_all_reduce_(sq, mesh.get_group(dim))
-        return sq.sqrt()
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+    return sq.sqrt()
+
+
+def tp_split_mask(model: torch.nn.Module, names) -> tuple:
+    """(one bool a parameter name: split over the tp group, the group) for a
+    DiT sharded by ``shard_dit_for_tp_``; (None, None) without tp."""
+    group = tp_group_of(model)
+    if group is None:
+        return None, None
+    n = group_size(group)
+    return [tp_slice_index(name, model.spec, n, 0) is not None for name in names], group
 
 
 @torch.no_grad()
@@ -115,8 +139,9 @@ def apply_update_(state: TrainState, *, max_grad_norm: Optional[float] = None,
     """One optimizer step from the parameters' ``.grad``: the global norm
     (returned, before clipping), optional clipping, AdamW, then the EMA;
     the gradients are cleared and the step counted."""
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    norm = global_norm(grads)
+    named = [(n, p.grad) for n, p in state.model.named_parameters() if p.grad is not None]
+    grads = [g for _, g in named]
+    norm = global_norm(grads, *tp_split_mask(state.model, [n for n, _ in named]))
     if max_grad_norm is not None:
         clip_by_global_norm_(grads, max_grad_norm, norm)
     state.optimizer.step()
@@ -158,7 +183,9 @@ def make_train_step(
     concatenated batch. ``loss`` stays this rank's. A model under FSDP
     (``parallel.wrap_fsdp``) runs the same way through itself: FSDP
     averages the gradients over the (dp, fsdp) ranks in the last
-    micro-batch's backward."""
+    micro-batch's backward. Under tensor parallelism the ranks of a tp
+    group take the same rows and draws (``parallel.data_index``) and
+    compute one model together."""
     impls = dict(compute_dtype=compute_dtype, attn_impl=attn_impl, rope_layout=rope_layout,
                  adaln_impl=adaln_impl)
 
@@ -175,6 +202,7 @@ def make_train_step(
         total = torch.zeros((), device=x.device)
         ddp = state.ddp
         fsdp = hasattr(state.model, "set_requires_gradient_sync")
+        tp = group_size(tp_group_of(state.model))
         for i in range(grad_accum):
             # under DDP or FSDP the gradients are reduced in the last
             # micro-batch's backward only, and the draws are the global
@@ -183,7 +211,7 @@ def make_train_step(
             if fsdp:
                 state.model.set_requires_gradient_sync(last)
             with (ddp.no_sync() if ddp is not None and not last else contextlib.nullcontext()), \
-                    (global_batch_draws(generator, x.shape[1]) if ddp is not None or fsdp
+                    (global_batch_draws(generator, x.shape[1], tp) if ddp is not None or fsdp
                      else contextlib.nullcontext()):
                 loss = dit_loss(state.model if ddp is None else ddp, transport, x[i], y[i], generator,
                                 x0=None if x0_ is None else x0_[i], t=None if t_ is None else t_[i],

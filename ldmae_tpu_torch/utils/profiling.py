@@ -1,13 +1,59 @@
-"""FLOP accounting for the training logs (port of the parts of
-``ldmae_tpu/utils/profiling.py`` the train CLIs use): the analytic forward
-FLOPs of a LightningDiT and of a VMAE, the device's peak for MFU, and the
-log's TFLOP/s and MFU text."""
+"""Profiling for the training CLIs (port of the parts of
+``ldmae_tpu/utils/profiling.py`` they use): the profiler trace of the
+``--profile_dir`` window, the analytic forward FLOPs of a LightningDiT and
+of a VMAE, the device's peak for MFU, and the log's TFLOP/s and MFU text."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+
+
+class TraceWindow:
+    """The training CLIs' ``--profile_dir / --profile_start /
+    --profile_steps`` window (the JAX CLIs' ``jax.profiler`` trace): a
+    ``torch.profiler`` trace of the CPU and, on a CUDA device, CUDA
+    activities over steps [start, start + steps) of the counter the CLI
+    passes, written to ``logdir`` as a Chrome / TensorBoard trace
+    (``<host>_<pid>.<time>.pt.trace.json``, one a rank). The CLI calls
+    ``before_step`` and ``after_step`` around each step and ``close`` where
+    the run ends early (a signal, ``max_steps`` or an epoch inside the
+    window), each with the JAX CLI's log line. Without ``logdir`` every
+    call does nothing."""
+
+    def __init__(self, logdir: Optional[str], start: int, steps: int, device, log=print):
+        self.logdir, self.start, self.steps, self.log = logdir, start, steps, log
+        self.device = torch.device(device)
+        self.prof = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def before_step(self, step: int) -> None:
+        if self.logdir and step == self.start and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+            os.makedirs(self.logdir, exist_ok=True)
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self._sync()
+            self.prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(self.logdir))
+            self.prof.start()
+            self.log(f"profiler trace started -> {self.logdir}")
+
+    def after_step(self, step: int) -> None:
+        """``step``: the counter after the step (the JAX CLIs' order)."""
+        if self.prof is not None and step >= self.start + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is not None:
+            self._sync()
+            self.prof.stop()  # writes the trace (on_trace_ready)
+            self.prof = None
+            self.log(f"profiler trace written to {self.logdir}")
 
 # Dense bf16 tensor-core peaks by CUDA device name (NVIDIA's data sheets), for
 # MFU only; the first key found in the lower-cased name wins. Any other

@@ -1385,3 +1385,81 @@ def test_cuda_silu_mul_halves_equal_fused_silu_mul_quant(cuda, dtype):
     q, s = tfad.fused_silu_mul_quant(x12)
     assert torch.equal(torch.cat([hq for hq, _ in halves], 1), q)
     assert all(torch.equal(hs, s) for _, hs in halves)
+
+
+# -- tensor parallelism in training: the row-parallel dense under autograd
+
+
+@pytest.mark.gpu
+def test_cuda_dense_row_parallel_backward_vs_plain(cuda):
+    """``dense_row_parallel`` at group size 1 under autograd, at 1p0B/1's
+    proj under tp 2 (K 768) with a batch-2 token count: the card's forward
+    (``dense_f32_out``) and backward against its plain version on the same
+    values on the CPU: dx and dw (bf16, another summation order) within two
+    bf16 ulps of their scale, dbias (fp32 sums of the bf16 gradient) within
+    1e-5 of its scale."""
+    from ldmae_tpu_torch.ops import linear as lin
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    m, k, n = 2048, 768, 1536
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g, device=cuda) * k**-0.5
+    b = torch.randn(n, generator=g, device=cuda) * 0.1
+    gout = torch.randn(m, n, generator=g, device=cuda).to(torch.bfloat16)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ws, bs = (t.detach().to(dev).requires_grad_(True) for t in (x, w, b))
+        before = lin.dense_f32_out.launches
+        out = lin.dense_row_parallel(xs, ws, bs, None, compute_dtype=torch.bfloat16)
+        assert out.dtype == torch.bfloat16 and lin.dense_f32_out.launches == before + (dev.type == "cuda")
+        out.backward(gout.to(dev))
+        grads.append([t.grad.float().cpu() for t in (xs, ws, bs)])
+    for name, got, ref in zip(("dx", "dw", "db"), *grads):
+        tol = 1e-5 if name == "db" else 2**-6
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_cuda_tp_forward_under_autograd_keeps_proj_w3_and_adaln_gradients(cuda):
+    """A DiT block whose ``tp_group`` is a gloo group of one (so proj and w3
+    run ``dense_row_parallel``, adaLN the gather): on the card under
+    autograd every parameter of proj, w3 and adaLN takes a non-zero
+    gradient, ``dense_f32_out`` launches, and the gradients equal the
+    unsharded block's within 1e-5 relative L2 (the same products; dbias
+    sums in another order)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.models import LightningDiT, dit_spec, seeded_init_
+    from ldmae_tpu_torch.train import dit_loss
+    from ldmae_tpu_torch.transport import create_transport
+
+    spec = dit_spec("LightningDiT-B/1", depth=1, input_size=32, in_channels=16, use_qknorm=True, use_swiglu=True,
+                    use_rope=True, use_rmsnorm=True)
+    sd = seeded_init_(LightningDiT(spec, device="cpu"), 4).state_dict()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x1, x0 = (torch.randn(2, 16, 32, 32, generator=gen, device=cuda) for _ in range(2))
+    y, t = torch.tensor([3, 7], device=cuda), torch.tensor([0.3, 0.7], device=cuda)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        grads = []
+        for group in (dist.group.WORLD, None):
+            model = LightningDiT(spec, device=cuda)
+            model.load_state_dict(sd)
+            model.blocks[0].tp_group = group
+            ops.reset_launch_counts()
+            dit_loss(model, create_transport(use_lognorm=True), x1, y, x0=x0, t=t, drop_ids=torch.zeros_like(y),
+                     compute_dtype=torch.bfloat16, attn_impl="flash_rope", adaln_impl="fused").backward()
+            assert (ops.launch_counts()["dense_f32_out"] > 0) == (group is not None)
+            grads.append({n: p.grad.float() for n, p in model.named_parameters()})
+    finally:
+        dist.destroy_process_group()
+    for name, grad in grads[0].items():
+        if any(part in name for part in ("attn.proj", "mlp.w3", "adaLN_modulation")):
+            assert float(grad.abs().max()) > 0, name
+        assert float((grad - grads[1][name]).norm()) <= 1e-5 * float(grads[1][name].norm()) + 1e-12, name

@@ -14,6 +14,12 @@
   also with ``--quant w8a8``; a config's ``parallel.quant`` quantizes the DiT.
 * A config naming a VMAE checkpoint that does not exist stops both packages'
   sampling pipeline builders with ``FileNotFoundError``.
+* The JAX package's Orbax checkpoints (directories) are refused, naming
+  their conversion: the sampling pipeline given one as its checkpoint, and
+  the DiT training CLI in an experiment directory whose checkpoints are
+  Orbax-named, raise ``NotImplementedError`` instead of running from seeded
+  weights or from step 0; a ``.pt`` path that does not exist keeps the
+  seeded fallback both packages share.
 """
 
 import os
@@ -364,6 +370,56 @@ def test_pipeline_builders_raise_for_a_missing_vmae_checkpoint(tmp_path):
         jbuild_pipeline(JLDMAEConfig.from_yaml(cfg_path))
     with pytest.raises(FileNotFoundError, match="vmaef8d16.pth"):
         build_pipeline(cfg, device="cpu")
+
+
+def _orbax_refusal(err) -> None:
+    """The refusal names the conversion and says that AdamW's moments do
+    not cross (the export writes an empty ``opt``)."""
+    msg = str(err.value)
+    assert "python -m ldmae_tpu.cli.export_torch" in msg and "AdamW's moments do not cross" in msg, msg
+
+
+def test_pipeline_builder_raises_for_an_orbax_checkpoint_directory(tmp_path, monkeypatch, capsys):
+    """An existing directory as the DiT checkpoint (the JAX CLI restores it
+    with Orbax) raises before the DiT is built; a missing ``.pt`` path
+    keeps the seeded fallback."""
+    from ldmae_tpu_torch.cli import inference
+
+    orbax = tmp_path / "checkpoints" / "0100000"
+    orbax.mkdir(parents=True)
+    built = []
+    monkeypatch.setattr(inference, "LightningDiT", lambda *a, **kw: built.append(a) or pytest.fail("DiT built"))
+    with pytest.raises(NotImplementedError) as err:
+        inference.build_pipeline(_tiny_config(tmp_path), ckpt_path=str(orbax), device="cpu")
+    _orbax_refusal(err)
+    assert not built
+    monkeypatch.undo()
+    inference.build_pipeline(_tiny_config(tmp_path), ckpt_path=str(tmp_path / "missing.pt"), device="cpu")
+    assert "using seeded random weights" in capsys.readouterr().out
+
+
+def test_train_cli_raises_for_orbax_checkpoints_instead_of_starting_at_step_0(tmp_path, monkeypatch):
+    """An experiment directory that holds only an Orbax-named
+    ``checkpoints/0000002/`` (the JAX CLI resumes from it): the port's
+    training CLI raises rather than train from step 0."""
+    import yaml
+
+    from ldmae_tpu_torch.cli import train_dit
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    (tmp_path / "out" / "tiny" / "checkpoints" / "0000002").mkdir(parents=True)
+    cfg = {
+        "data": {"data_path": str(tmp_path / "none"), "image_size": 32, "num_classes": 10},
+        "vae": {"model_name": "vmae_f8d16", "weight_path": ""},
+        "model": {"model_type": "LightningDiT-debug", "in_chans": 16},
+        "train": {"max_steps": 4, "global_batch_size": 2, "output_dir": str(tmp_path / "out"), "exp_name": "tiny"},
+    }
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match="0000002") as err:
+        train_dit.main(["--config", str(path), "--device", "cpu"])
+    _orbax_refusal(err)
+    assert sorted(os.listdir(tmp_path / "out" / "tiny" / "checkpoints")) == ["0000002"]
 
 
 @pytest.mark.parametrize("model_name", ["sdv3", "vavae", "marvae"])

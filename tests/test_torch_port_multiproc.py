@@ -144,19 +144,16 @@ def test_create_mesh_raises_as_the_jax_function(kw):
                                        ("inference", ["--tp", "2"])], ids=["train_dit-fsdp", "train_dit-tp",
                                                                            "inference-tp"])
 def test_clis_raise_for_fsdp_and_tp(cli, flags, tmp_path, capsys):
-    """At world 1: ``train_dit --fsdp 2`` raises the JAX ``create_mesh``'s
-    AssertionError before it reads the config; ``train_dit --tp 2`` raises
-    NotImplementedError (training under tp is not ported); ``inference --tp
-    2`` prints the JAX CLI's warning and samples at tp 1."""
+    """At world 1: ``train_dit --fsdp 2`` and ``train_dit --tp 2`` raise
+    the JAX ``create_mesh``'s AssertionError before they read the config;
+    ``inference --tp 2`` prints the JAX CLI's warning and samples at tp 1."""
     import importlib
 
     main = importlib.import_module(f"ldmae_tpu_torch.cli.{cli}").main
     unread = ["--config", str(tmp_path / "unread.yaml"), "--device", "cpu", *flags]
-    if flags == ["--fsdp", "2"]:
-        with pytest.raises(AssertionError, match=_jax_mesh_error(dp=-1, fsdp=2)):
-            main(unread)
-    elif cli == "train_dit":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+    if cli == "train_dit":
+        degrees = {flags[0][2:]: int(flags[1])}
+        with pytest.raises(AssertionError, match=_jax_mesh_error(dp=-1, **degrees)):
             main(unread)
     else:
         from ldmae_tpu_torch.core.config import LDMAEConfig

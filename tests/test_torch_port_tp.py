@@ -5,8 +5,8 @@ against the JAX package's unsharded functions and the port at tp 1.
   ``dit_param_spec`` tp rules with w12 gate-aligned): at the 1p0B/1 and
   1p6B/1 shapes, on ``meta`` tensors, no entry above 50 MB stays whole on
   a rank under tp 2 (``tests/test_prod_sharding.py``'s rule), in the fp32
-  and the int8 layouts; every rank's slices, gathered, rebuild each weight
-  bit for bit.
+  and the int8 layouts; every rank's slices, gathered
+  (``tp_state_gather``), rebuild each weight bit for bit.
 * The new pieces' plain versions: #10's two halves (the row's absmax, then
   int8 from the whole row's absmax) on rank slices equal
   ``fused_silu_mul_quant_plain`` on the whole row bit for bit; the fp32
@@ -54,7 +54,7 @@ from ldmae_tpu_torch.models import lightningdit as tdit
 from ldmae_tpu_torch.ops import fused_adaln as fad
 from ldmae_tpu_torch.ops import linear as lin
 from ldmae_tpu_torch.ops import quant as qt
-from ldmae_tpu_torch.parallel import tp_slice_index, tp_state_slice
+from ldmae_tpu_torch.parallel import tp_slice_index, tp_state_gather, tp_state_slice
 
 WORKER = os.path.join(REPO, "tests", "torch_mp_worker.py")
 BIG_LEAF = 50e6  # bytes (tests/test_prod_sharding.py)
@@ -109,24 +109,6 @@ def test_no_big_entry_stays_whole_on_a_rank(model):
         assert 0.5 < mine / full < 0.53, (layout, mine / full)
 
 
-def _gather(shards: list, spec) -> dict:
-    """The full state dict from every rank's ``tp_state_slice`` (rank
-    order): each sliced entry put back at its index."""
-    n, out = len(shards), {}
-    for key, t0 in shards[0].items():
-        found = tp_slice_index(key, spec, n, 0)
-        if found is None:
-            out[key] = t0
-            continue
-        dim = found[0]
-        full = t0.new_empty(*[sum(s[key].shape[dim] for s in shards) if i == dim else t0.shape[i]
-                              for i in range(t0.dim())])
-        for r, s in enumerate(shards):
-            full.index_copy_(dim, tp_slice_index(key, spec, n, r)[1], s[key])
-        out[key] = full
-    return out
-
-
 @pytest.mark.parametrize("layout", ["fp32", "int8"])
 def test_rank_slices_gather_to_the_full_weights(layout):
     spec = tdit.DiTSpec(**DIMS)
@@ -141,7 +123,7 @@ def test_rank_slices_gather_to_the_full_weights(layout):
     qkv = shards[0]["blocks.0.attn.qkv." + ("w_q" if layout == "int8" else "weight")]
     assert qkv.shape == (3 * 384 // 2, 384)  # 3 of 6 heads of q, k and v
     assert shards[0]["blocks.0.mlp.w3.bias"].shape == (384,)  # a row split keeps the bias whole
-    back = _gather(shards, spec)
+    back = tp_state_gather(shards, spec)
     for k, v in sd.items():
         assert torch.equal(back[k], v), k
 

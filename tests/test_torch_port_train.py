@@ -508,6 +508,26 @@ def _cli_config(tmp_path, shards, max_steps):
     return str(path)
 
 
+def test_train_cli_writes_a_profiler_trace_over_its_window(tmp_path, shards, monkeypatch, caplog):
+    """``--profile_dir`` with the window at steps 1-2 (``--profile_start 1
+    --profile_steps 2``) and ``max_steps`` 2 inside it: the trace starts
+    before step 1's update, closes at max_steps (the JAX CLI's lines), and
+    its file holds the step's ops."""
+    from ldmae_tpu_torch.cli import train_dit
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    trace = tmp_path / "trace"
+    out = train_dit.main(["--config", _cli_config(tmp_path, shards, 2), "--device", "cpu", "--profile_dir",
+                          str(trace), "--profile_start", "1", "--profile_steps", "2"])
+    log = open(os.path.join(out["exp_dir"], "log.txt")).read()
+    assert f"profiler trace started -> {trace}" in log and f"profiler trace written to {trace}" in log
+    assert log.index("profiler trace started") > log.index("(step=0000001)")
+    assert log.index("profiler trace written") < log.index("Saved final checkpoint")
+    (name,) = os.listdir(trace)
+    text = (trace / name).read_text()
+    assert name.endswith(".pt.trace.json") and "aten::" in text and "Optimizer.step#AdamW.step" in text
+
+
 def test_train_cli_checkpoints_resumes_and_samples(tmp_path, shards, monkeypatch):
     """3 steps and a checkpoint that restores the run's state exactly (model,
     EMA and AdamW moments, through the canonical RoPE layout on disk); a

@@ -112,17 +112,29 @@ def test_non_finite_loss_warns_and_skips(image_folder, tmp_path, capsys):  # noq
 @pytest.mark.parametrize("flags,error,match", [
     (["--gradual_resol", "--tune_decoder"], ValueError, "gradual_resol"),
     (["--dp", "4"], AssertionError, "mesh 4x1x1 != 1 devices"),  # create_mesh's check, as in the JAX package
-    (["--profile_dir", "trace"], NotImplementedError, "ROADMAP.md"),
+    (["--profile_dir", "trace", "--profile_start", "1", "--profile_steps", "2"], None, None),
     (["--resume", "."], NotImplementedError, "ROADMAP.md"),
 ], ids=["gradual_resol", "dp", "profile", "orbax_resume"])
-def test_options_not_ported_raise(flags, error, match, image_folder, tmp_path):  # noqa: F811
+def test_options_not_ported_raise(flags, error, match, image_folder, tmp_path, capsys, monkeypatch):  # noqa: F811
     """The options the port refuses. ``--gradual_resol`` is ported for stage
     1 (``tests/test_torch_port_vmae_variants.py``); with ``--tune_decoder``,
     which has no gradual form, it raises before any model is built. ``--dp
-    4`` in one process is a mesh that does not match the world size."""
-    with pytest.raises(error, match=match):
-        train_vmae.main(["--data_path", image_folder, "--output_dir", str(tmp_path), "--device", "cpu",
-                         *TINY, *flags])
+    4`` in one process is a mesh that does not match the world size.
+    ``--profile_dir`` is ported: with the window at steps 1-2 and an epoch
+    of 2 steps (the JAX CLI's window, closed at the epoch's end), it writes
+    a ``torch.profiler`` trace holding the step's ops."""
+    argv = ["--data_path", image_folder, "--output_dir", str(tmp_path), "--device", "cpu", *TINY, *flags]
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_vmae.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)  # the trace directory is relative
+    train_vmae.main(argv + ["--epochs", "1", "--mask_ratio", "0.25", "--no_cls"])  # TINY: 2 steps an epoch
+    out = capsys.readouterr().out
+    assert "profiler trace started -> trace" in out and "profiler trace written to trace" in out
+    (trace,) = os.listdir(tmp_path / "trace")
+    text = (tmp_path / "trace" / trace).read_text()
+    assert trace.endswith(".pt.trace.json") and "aten::" in text and "Optimizer.step#AdamW.step" in text
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(image_folder, tmp_path, monkeypatch):  # noqa: F811

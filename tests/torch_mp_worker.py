@@ -30,7 +30,13 @@ is one rank of a case:
   each leg's output;
 * ``fsdp_steps``: the DiT train step of ``<dir>/inputs.pt`` under FSDP2
   (``wrap_fsdp`` over a (dp, fsdp) mesh, ``--fsdp`` taken from the file),
-  writing the full weights, EMA and AdamW state as a checkpoint holds them.
+  writing the full weights, EMA and AdamW state as a checkpoint holds them;
+* ``tp_train``: the legs of ``<dir>/inputs.pt`` in turn, each on its own
+  (dp, fsdp, tp) mesh over every rank: train steps (DDP over dp, or FSDP2
+  over fsdp, on each tp slice), writing the gathered checkpoint, optionally
+  with the gather's backward replaced by a reduce-scatter (a control); one
+  backward whose gathered gradients rank 0 writes; or ``cli.train_dit`` on
+  the leg's arguments.
 
 Imports torch and the port only, so the GPU tests can use it where JAX is
 not installed.
@@ -259,6 +265,68 @@ def _fsdp_steps(d: str) -> None:
     save_checkpoint(d, state)  # the full model, EMA and AdamW state, as one process writes them
 
 
+def _reduce_scatter_backward(ctx, g):
+    """The control's backward of ``gather_from_tp``: a reduce-scatter of the
+    replicated gradient (so every slice comes back multiplied by n)."""
+    import torch.distributed as dist
+
+    from ldmae_tpu_torch.parallel.distributed import group_all_reduce_
+
+    n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+    return group_all_reduce_(g.contiguous().clone(), ctx.group).chunk(n, dim=ctx.dim)[r].contiguous(), None, None
+
+
+def _tp_train(d: str) -> None:
+    import torch
+
+    from ldmae_tpu_torch.models import lightningdit as tdit
+    from ldmae_tpu_torch.parallel import (all_gather_tp_state, create_mesh, data_index, data_world, get_rank,
+                                          init_distributed_mode, tp_group_of, wrap_data_parallel)
+    from ldmae_tpu_torch.parallel import distributed
+    from ldmae_tpu_torch.train import dit_loss, init_sharded_train_state, make_optimizer, make_train_step
+    from ldmae_tpu_torch.train import save_checkpoint
+    from ldmae_tpu_torch.transport import create_transport
+
+    init_distributed_mode(device="cpu")
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    real_backward = distributed._GatherFromTP.backward
+    for leg in inp["legs"]:
+        if leg["kind"] == "cli":
+            _cli("train_dit", leg["argv"])
+            continue
+        mesh = create_mesh(dp=leg["dp"], fsdp=leg["fsdp"], tp=leg["tp"], device_type="cpu")
+        src = inp[leg["kind"]]
+        model = tdit.LightningDiT(tdit.DiTSpec(**src["dims"]), device="cpu")
+        model.load_state_dict(src["sd"])
+        state = init_sharded_train_state(model, mesh, lambda p: make_optimizer(p, inp["lr"], inp["beta2"]))
+        transport = create_transport(**src["transport"])
+        if leg["kind"] == "grads":  # one backward on the whole batch, the gradients gathered
+            loss = dit_loss(model, transport, src["x1"], src["y"], x0=src["x0"], t=src["t"], drop_ids=src["drop"],
+                            **src["impls"])
+            loss.backward()
+            grads = all_gather_tp_state({n: p.grad for n, p in model.named_parameters()}, model.spec,
+                                        tp_group_of(model))
+            if get_rank() == 0:
+                torch.save({"loss": float(loss.detach()), "grads": grads}, os.path.join(d, f"{leg['name']}.pt"))
+            continue
+        if leg["fsdp"] == 1:
+            state.ddp = wrap_data_parallel(model, "cpu", mesh["dp"].get_group())
+        step = make_train_step(model.spec, transport, grad_accum=inp["accum"], max_grad_norm=inp["clip"],
+                               **src["impls"])
+        m = src["x"].shape[2] // data_world(leg["tp"])
+        rows = slice(data_index(leg["tp"]) * m, (data_index(leg["tp"]) + 1) * m)
+        gen = torch.Generator()
+        if leg.get("control"):
+            distributed._GatherFromTP.backward = _reduce_scatter_backward
+        try:
+            for s in range(src["x"].shape[0]):
+                gen.manual_seed(1000 + s)
+                step(state, {"x": src["x"][s][:, rows], "y": src["y"][s][:, rows]}, gen)
+        finally:
+            distributed._GatherFromTP.backward = real_backward
+        save_checkpoint(os.path.join(d, leg["name"]), state)  # gathered over fsdp and tp: the one-process file
+
+
 def vmae_step_in_fp32(train_vmae) -> None:
     """``cli.train_vmae`` with its train step computing in float32 (the CLI
     runs bf16): then two runs that split a batch differently agree to the
@@ -286,6 +354,8 @@ if __name__ == "__main__":
         _dit_steps(d)
     elif case == "fsdp_steps":
         _fsdp_steps(d)
+    elif case == "tp_train":
+        _tp_train(d)
     elif case == "tp_forward":
         _tp_forward(d)
     elif case == "evaluate_tokenizer":
