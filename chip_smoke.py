@@ -360,6 +360,12 @@ QUANT_NOISE_SEEDS = (2, 3)
 # restart to step 25; the interleaved-RoPE configuration for 5 steps; the
 # gradient check at depth 2, batch 8
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, INTERLEAVED_STEPS, FP32_STEPS = 32, 20, 25, 5, 5
+# the Orbax route's card leg: a JAX run converted at step ORBAX_STEP (by
+# train.jax_import), resumed for ORBAX_RESUMED steps; a control with its
+# AdamW moments zeroed must move the first update by more than
+# ORBAX_CONTROL_REL (relative L2), the bound the identical rerun's spread
+# must stay under
+ORBAX_STEP, ORBAX_RESUMED, ORBAX_CONTROL_REL = 1000, 2, 1e-2
 GRAD_DEPTH, GRAD_BATCH, GRAD_T = 2, 8, 0.37
 # the backward kernels against their plain backward at the training shapes
 # (per output: relative L2 error, max |error| / max |value|); readings on an
@@ -421,7 +427,8 @@ def _train_counts(steps: int, depth: int = DEPTH) -> dict:
     return dict(fwd=2 * depth * steps, adaln=4 * depth * steps, bwd=depth * steps, dense=(5 + 9 * depth) * steps)
 
 
-for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TRAIN_STEPS)):
+for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TRAIN_STEPS),
+                      ("orbax_resume", ORBAX_RESUMED)):
     _n = _train_counts(_steps)
     EXPECTED_LAUNCHES[_path] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
                                         "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
@@ -1762,13 +1769,13 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
     data = write_latent_shards(os.path.join(tmp, "latents"))
     weights = os.path.join(tmp, "seeded.pt")
 
-    def config(name: str, layout: str, steps: int, dtype: str = "bfloat16") -> str:
+    def config(name: str, layout: str, steps: int, dtype: str = "bfloat16", warm: bool = True) -> str:
         cfg = _yaml_config(
             data={"data_path": data, "image_size": 256, "num_classes": 1000, "latent_norm": True,
                   "latent_multiplier": 1.0, "sample": False},
             train={"max_steps": steps, "global_batch_size": TRAIN_BATCH, "global_seed": 0,
                    "output_dir": tmp, "exp_name": name, "log_every": 5, "ckpt_every": TRAIN_STEPS,
-                   "use_checkpoint": True, "gradient_accumulation_steps": 1, "weight_init": weights})
+                   "use_checkpoint": True, "gradient_accumulation_steps": 1, "weight_init": weights if warm else ""})
         cfg["parallel"]["rope_layout"] = layout
         cfg["parallel"]["compute_dtype"] = dtype
         path = os.path.join(tmp, f"{name}.yaml")
@@ -1843,7 +1850,136 @@ def cli_train_phase(dev, smi: str, tmp: str) -> dict:
         raise SystemExit("fp32 training: a non-finite loss or gradient norm")
     log(f"  losses {[round(h['loss'], 5) for h in fhist]}; {fseconds:.2f} s for the call ({FP32_STEPS} steps, the "
         f"first with the warm-up); peak memory {fpeak:.3f} GB; on {smi}")
-    return {"train": counts, "interleaved": icounts, "train_fp32": fcounts}
+    ocounts = orbax_resume_leg(smi, tmp, config("b1_orbax", "half", ORBAX_STEP + ORBAX_RESUMED, warm=False), run)
+    return {"train": counts, "interleaved": icounts, "train_fp32": fcounts, "orbax_resume": ocounts}
+
+
+def orbax_resume_leg(smi: str, tmp: str, cfg: str, run) -> dict:
+    """The port side of the Orbax route (``scripts/convert_orbax.py`` runs in
+    the JAX environment, which the GPU machine lacks). B/1 at full width and
+    depth on the shipped YAML (``cfg``, rope_layout half): seeded weights,
+    EMA and AdamW moments, drawn like a trained run's (mu ~ N(0, 1e-3), nu =
+    mu^2 + 1e-8), in the run's half layout as the conversion hands them
+    over, written by ``train.jax_import`` at step ORBAX_STEP into a fresh
+    experiment; ``cli.train_dit`` resumes there for ORBAX_RESUMED steps, a
+    second time from the same file (the spread), and from a file with the
+    moments zeroed (the control). Gates: the resume at ORBAX_STEP, the end
+    at ORBAX_STEP + ORBAX_RESUMED, the weights, EMA, moments and AdamW steps
+    on the card before the first update equal to the written ones bit for
+    bit, the control's first update more than ORBAX_CONTROL_REL (relative
+    L2) from the resumed one and the spread under it, and exact launches
+    (``run`` checks them). Returns the first run's launch counts."""
+    import shutil
+
+    import torch
+    import yaml
+
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.models import LightningDiT, seeded_init_
+    from ldmae_tpu_torch.train.jax_import import write_dit_checkpoint
+    from ldmae_tpu_torch.train.train_dit import spec_from_config
+
+    t0 = time.perf_counter()
+    with open(cfg) as f:
+        raw = yaml.safe_load(f)
+    spec = spec_from_config(LDMAEConfig.from_dict(raw))
+    model = seeded_init_(LightningDiT(spec, device="cpu"), 11)
+    gen = torch.Generator().manual_seed(12)
+    params = model.state_dict()
+    ema = dict(params)
+    mu, nu = {}, {}
+    for n, p in model.named_parameters():
+        ema[n] = p.detach() + 1e-3 * torch.randn(p.shape, generator=gen)
+        mu[n] = 1e-3 * torch.randn(p.shape, generator=gen)
+        nu[n] = mu[n] * mu[n] + 1e-8
+    zeros = {n: torch.zeros_like(m) for n, m in mu.items()}
+    exp = os.path.join(tmp, raw["train"]["exp_name"])
+    t_draw = time.perf_counter() - t0
+    path = write_dit_checkpoint(os.path.join(tmp, "orbax_resumed"), raw, params, ema, mu, nu, step=ORBAX_STEP,
+                                count=ORBAX_STEP, rope_layout="half")
+    t_write = time.perf_counter() - t0 - t_draw
+    # the control: the same file with its moments zeroed
+    ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    for state in ckpt["opt"]["state"].values():
+        state["exp_avg"], state["exp_avg_sq"] = torch.zeros_like(state["exp_avg"]), torch.zeros_like(state["exp_avg"])
+    os.makedirs(os.path.join(tmp, "orbax_control", "checkpoints"))
+    torch.save(ckpt, os.path.join(tmp, "orbax_control", "checkpoints", os.path.basename(path)))
+    del ckpt
+    t_control = time.perf_counter() - t0 - t_draw - t_write
+    log(f"[train] the Orbax route's port side: B/1 (depth {spec.depth}, width {spec.hidden_size}) weights, EMA "
+        f"and AdamW moments drawn in {t_draw:.2f} s; train.jax_import wrote them at step {ORBAX_STEP} (half layout "
+        f"in, canonical on disk, {os.path.getsize(path) / 1e9:.3f} GB) in {t_write:.2f} s; the control (the moments "
+        f"zeroed) in {t_control:.2f} s; cli.train_dit resumes for {ORBAX_RESUMED} steps, batch {TRAIN_BATCH}")
+
+    seen = {}
+    real_build = train_dit.build_from_config
+
+    def build(*args, **kw):  # the CLI's step, watched before and after the first resumed update
+        spec_, model_, transport, step_fn = real_build(*args, **kw)
+
+        def step(state, batch, generator=None, **k):
+            if state.step == ORBAX_STEP:
+                want = (mu, nu) if seen["moments"] == "resumed" else (zeros, zeros)
+                bad = [n for n, p in state.model.named_parameters()
+                       if not (torch.equal(p.detach().cpu(), params[n])
+                               and torch.equal(state.ema.get_parameter(n).cpu(), ema[n])
+                               and torch.equal(state.optimizer.state[p]["exp_avg"].cpu(), want[0][n])
+                               and torch.equal(state.optimizer.state[p]["exp_avg_sq"].cpu(), want[1][n])
+                               and float(state.optimizer.state[p]["step"]) == ORBAX_STEP)]
+                seen["mismatched"] = bad
+                seen["before"] = [p.detach().clone() for p in state.model.parameters()]
+            out = step_fn(state, batch, generator, **k)
+            if state.step == ORBAX_STEP + 1:
+                seen["update"] = torch.cat([(p.detach() - w).flatten().float()
+                                            for p, w in zip(state.model.parameters(), seen.pop("before"))])
+            return out
+
+        return spec_, model_, transport, step
+
+    updates, counts = {}, None
+    train_dit.build_from_config = build
+    try:
+        for label, source in (("resumed", "resumed"), ("rerun", "resumed"), ("control", "control")):
+            shutil.rmtree(exp, ignore_errors=True)
+            # linked, not copied: the run writes its own files beside the written one
+            shutil.copytree(os.path.join(tmp, f"orbax_{source}"), exp, copy_function=os.link)
+            seen.clear()
+            seen["moments"] = source
+            t1 = time.perf_counter()
+            out, c, _, peak_gb = run(["--config", cfg], "orbax_resume")
+            seconds = time.perf_counter() - t1
+            counts = counts or c
+            with open(os.path.join(exp, "log.txt")) as f:
+                resumed = f"resumed from step {ORBAX_STEP}" in f.read()
+            end = out["state"].step
+            del out
+            bad = seen.get("mismatched", ["(the first resumed step never ran)"])
+            log(f"  {label}: log.txt resumed from step {ORBAX_STEP}: {resumed}; ended at step {end}; parameters "
+                f"whose weight, EMA, moments or AdamW step on the card differ from the written ones before the "
+                f"first update: {len(bad)} {bad[:3]}; {seconds:.2f} s for the call; peak memory {peak_gb:.3f} GB")
+            if not resumed or end != ORBAX_STEP + ORBAX_RESUMED or bad or "update" not in seen:
+                raise SystemExit(f"Orbax route ({label}): no resume at {ORBAX_STEP}, another end than "
+                                 f"{ORBAX_STEP + ORBAX_RESUMED}, or the card's state is not the written one")
+            updates[label] = seen.pop("update")
+    finally:
+        train_dit.build_from_config = real_build
+    ref = updates["resumed"]
+    spread = float((updates["rerun"] - ref).norm() / ref.norm())
+    control = float((updates["control"] - ref).norm() / ref.norm())
+    seconds = time.perf_counter() - t0
+    ok = spread < ORBAX_CONTROL_REL < control
+    log(f"  first update (step {ORBAX_STEP + 1}), relative L2 against the resumed run's: rerun (spread) "
+        f"{spread:.6g}, control with zeroed moments {control:.6g} (bound {ORBAX_CONTROL_REL}: spread under it, "
+        f"control above) -> {'ok' if ok else 'FAIL'}")
+    log(f"  Orbax leg: {seconds:.2f} s in all; on {smi}")
+    if not ok:
+        raise SystemExit("Orbax route: the moments carried do not set the first update apart from zeroed ones")
+    for name in ("resumed", "control"):
+        shutil.rmtree(os.path.join(tmp, f"orbax_{name}"), ignore_errors=True)
+    shutil.rmtree(exp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def train_profile_phase(dev) -> None:

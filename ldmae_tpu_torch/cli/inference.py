@@ -44,8 +44,11 @@ the PNGs and counts toward the FID. ``resume_manifest.json`` records tp.
 At a world size that N does not divide the JAX CLI's warning is printed
 and sampling runs at tp 1, as the JAX CLI does.
 
-Not ported yet (ROADMAP.md Queue 1 item 15): Orbax checkpoints (a
-directory as ``--ckpt`` raises and names the conversion to a ``.pt``).
+The JAX package's Orbax checkpoints are sampled through a conversion run in
+the JAX environment: ``scripts/convert_orbax.py dit`` writes
+``checkpoints/<step:07d>.pt`` beside the Orbax step, in the canonical RoPE
+layout, and ``--ckpt`` takes that file (a directory as ``--ckpt`` raises
+and names the script).
 
 Usage:
     python -m ldmae_tpu_torch.cli.inference --config configs/imagenet/....yaml [--demo] [--quant w8a8]

@@ -41,9 +41,12 @@ The ranks of a tp group read the same rows and draw the same noise (their
 data index is ``rank // N`` among ``world // N``), with DDP over the dp
 ranks, or with ``--fsdp`` FSDP2 over the fsdp ranks of each tp slice
 (fsdp x tp). Checkpoints stay the one-process file (gathered over fsdp and
-tp; a restore slices), so a run resumes across ``--tp`` settings. The JAX
-package's Orbax checkpoint directories are not read: a resume that finds
-one raises and names the conversion (``train.state``).
+tp; a restore slices), so a run resumes across ``--tp`` settings. A JAX
+run continues here from the same YAML once ``scripts/convert_orbax.py dit``
+(run in the JAX environment) has written ``checkpoints/<step:07d>.pt``
+beside its Orbax step, with the weights, the EMA, AdamW's moments and the
+step; an Orbax step later than every ``.pt`` raises and names the script
+(``train.state``).
 
 ``--profile_dir`` writes a ``torch.profiler`` trace (CPU and CUDA
 activities, one Chrome / TensorBoard file a rank) of steps

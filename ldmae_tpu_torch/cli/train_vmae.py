@@ -50,8 +50,12 @@ activities, one Chrome / TensorBoard file a rank) of steps
 run (counted from 0 at its start, as the JAX CLI counts them), closed early
 at an epoch's end or on a signal.
 
-Not ported (ROADMAP.md Queue 1 item 15): ``--resume`` of an Orbax directory
-raises ``NotImplementedError`` and names the conversion route.
+The JAX package's Orbax checkpoints are read through a conversion run in the
+JAX environment (``scripts/convert_orbax.py vmae``): it writes this stage's
+``checkpoints/<step:07d>.pt`` (weights, AdamW's moments, the step), which a
+rerun resumes from, or with ``--weights_only`` the reference ``.pth`` that
+``--resume`` merges. ``--resume`` of an Orbax directory itself raises
+``NotImplementedError`` and names that script.
 
 Usage:
     python -m ldmae_tpu_torch.cli.train_vmae --model mae_for_ldmae_f8d16_prev \\
@@ -75,10 +79,10 @@ import torch
 from ..core.device import resolve_device
 from ..data.augment import train_augment
 from ..data.images import ImageFolderDataset
-from ..models.vmae import VMAE, init_vmae_weights_, load_vmae_weights_, vmae_spec
+from ..models.vmae import VMAE, VMAESpec, init_vmae_weights_, load_vmae_weights_, vmae_spec
 from ..models.vmae_variants import GradualVMAE, init_gradual_weights_
 from ..parallel import any_rank, create_mesh, get_rank, get_world_size, init_distributed_mode, wrap_data_parallel
-from ..train.state import TrainState, restore_checkpoint, save_checkpoint
+from ..train.state import ORBAX_HINT, TrainState, restore_checkpoint, save_checkpoint
 from ..train.train_vmae import (
     METRIC_KEYS,
     VMAELoss,
@@ -139,12 +143,25 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
+def model_spec(args) -> VMAESpec:
+    """The model's spec from the flags (with ``--gradual_resol`` the arch's
+    patch halved, as the reference's gradual constructor halves it)."""
+    spec = vmae_spec(
+        args.model, img_size=args.input_size, no_cls=args.no_cls, kl_loss_weight=args.kl_loss_weight,
+        fixed_std=args.fixed_std, smooth_output=args.smooth_output, pred_with_conv=args.pred_with_conv,
+        down_nonlinear=args.down_nonlinear, norm_pix_loss=args.norm_pix_loss,
+        perceptual_loss_ratio=1.0 if args.perceptual_loss_ratio is None else args.perceptual_loss_ratio,
+        ldmae_mode=args.tune_decoder, use_checkpoint=args.use_checkpoint,
+    )
+    return dataclasses.replace(spec, patch_size=spec.patch_size // 2) if args.gradual_resol else spec
+
+
 def _refuse_unported(args) -> None:
     if args.gradual_resol and args.tune_decoder:
         raise ValueError("--gradual_resol trains stage 1; the decoder-tuning forward has no gradual form")
     if args.resume and os.path.isdir(args.resume):
-        raise NotImplementedError(f"--resume {args.resume}: Orbax checkpoint directories are not read yet "
-                                  "(ROADMAP.md Queue 1 item 15); name a .pth / .pt file")
+        raise NotImplementedError(f"--resume {args.resume} is a directory (an Orbax checkpoint of the JAX "
+                                  f"package): {ORBAX_HINT}")
 
 
 def step_indices(order: np.ndarray, step: int, per_step: int) -> np.ndarray:
@@ -186,16 +203,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
 
-    spec = vmae_spec(
-        args.model, img_size=args.input_size, no_cls=args.no_cls, kl_loss_weight=args.kl_loss_weight,
-        fixed_std=args.fixed_std, smooth_output=args.smooth_output, pred_with_conv=args.pred_with_conv,
-        down_nonlinear=args.down_nonlinear, norm_pix_loss=args.norm_pix_loss,
-        perceptual_loss_ratio=1.0 if args.perceptual_loss_ratio is None else args.perceptual_loss_ratio,
-        ldmae_mode=args.tune_decoder, use_checkpoint=args.use_checkpoint,
-    )
+    spec = model_spec(args)
     if args.gradual_resol:
-        # the reference halves the patch in the gradual model's constructor
-        spec = dataclasses.replace(spec, patch_size=spec.patch_size // 2)
         model = init_gradual_weights_(GradualVMAE(spec, device=device), torch.Generator().manual_seed(args.seed))
     else:
         model = init_vmae_weights_(VMAE(spec, device=device), torch.Generator().manual_seed(args.seed))

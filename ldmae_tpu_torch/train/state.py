@@ -33,9 +33,10 @@ and rank 0 writes the whole model; a restore hands each rank its slices
 restores in one process and the reverse.
 
 The JAX package's Orbax checkpoints (``checkpoints/NNNNNNN/`` directories)
-are not read: a restore that finds one later than every ``.pt`` raises and
-names the conversion (``python -m ldmae_tpu.cli.export_torch``), rather
-than start again from step 0.
+are not read here: ``scripts/convert_orbax.py``, run in the JAX environment,
+writes ``checkpoints/NNNNNNN.pt`` beside one (``train.jax_import``), and a
+restore that finds an Orbax step later than every ``.pt`` raises and names
+that script, rather than resume from an older step or from step 0.
 """
 
 from __future__ import annotations
@@ -55,10 +56,11 @@ from ..parallel.mesh import all_gather_tp_state, tp_group_of, tp_state_slice
 
 # what the refusals of the JAX package's Orbax checkpoints say to do instead
 ORBAX_HINT = ("the port reads .pt / .pth checkpoints only (it does not import jax or orbax): convert the directory in "
-              "the JAX environment with `python -m ldmae_tpu.cli.export_torch --config <yaml> --ckpt <dir> --out "
-              "<file>.pt` and pass the .pt (sampling: --ckpt; training: train.weight_init). The export holds the "
-              "model and the EMA; AdamW's moments do not cross (it writes an empty opt), so a training run "
-              "continued on the port restarts them")
+              "the JAX environment with `python scripts/convert_orbax.py dit --config <yaml> --ckpt <dir>` (or "
+              "`python scripts/convert_orbax.py vmae --ckpt <dir>`), which writes checkpoints/<step>.pt beside it "
+              "with the weights, the EMA, AdamW's moments and the step: the training CLIs resume from it and the "
+              "sampling CLI takes it as --ckpt (`vmae ... --weights_only <file>.pth` writes the weights alone, for "
+              "cli.train_vmae --resume)")
 
 
 @dataclass

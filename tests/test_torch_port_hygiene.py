@@ -62,7 +62,8 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
                      "ldmae_tpu_torch.eval.save_npz", "ldmae_tpu_torch.cli.fid_stats", "ldmae_tpu_torch.cli.evaluate",
                      "ldmae_tpu_torch.cli.inference", "ldmae_tpu_torch.ops.conv",
                      "ldmae_tpu_torch.transport.adaptive", "ldmae_tpu_torch.transport.utils",
-                     "ldmae_tpu_torch.transport.samplers", "ldmae_tpu_torch.transport.paths"):
+                     "ldmae_tpu_torch.transport.samplers", "ldmae_tpu_torch.transport.paths",
+                     "ldmae_tpu_torch.train.jax_import"):
             assert name in names, name
         print(len(names))
         """
@@ -72,6 +73,47 @@ def test_port_imports_no_jax_and_no_ldmae_tpu():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 40
+
+
+def test_jax_import_writes_checkpoints_without_jax(tmp_path):
+    """``train.jax_import``, the port side of the Orbax conversion, runs
+    where JAX is not installed: in a fresh interpreter it writes a DiT and a
+    VMAE checkpoint from seeded state dicts, and neither its imports nor the
+    ones it makes while writing load ``jax`` or ``ldmae_tpu``."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        import torch
+        from ldmae_tpu_torch.cli.train_vmae import model_spec
+        from ldmae_tpu_torch.core.config import LDMAEConfig
+        from ldmae_tpu_torch.models import VMAE, LightningDiT
+        from ldmae_tpu_torch.train.jax_import import vmae_args, write_dit_checkpoint, write_vmae_checkpoint
+        from ldmae_tpu_torch.train.train_dit import spec_from_config
+
+        def seeded(module, seed):
+            g = torch.Generator().manual_seed(seed)
+            return {{k: torch.randn(v.shape, generator=g) for k, v in module.state_dict().items()}}
+
+        cfg = {{"model": {{"model_type": "LightningDiT-debug", "in_chans": 16}},
+               "data": {{"image_size": 32, "num_classes": 10}}, "parallel": {{"rope_layout": "half"}}}}
+        dit = LightningDiT(spec_from_config(LDMAEConfig.from_dict(cfg)), device="cpu")
+        sd = seeded(dit, 0)
+        path = write_dit_checkpoint({str(tmp_path / "dit")!r}, cfg, sd, sd, sd, sd, step=5, count=5,
+                                    rope_layout="half")
+        assert torch.load(path, weights_only=True)["step"] == 5
+        args = {{"model": "mae_for_ldmae_f8d16_small", "input_size": 32, "no_cls": True}}
+        vmae = VMAE(model_spec(vmae_args(args)), device="cpu")
+        sd = seeded(vmae, 1)
+        path = write_vmae_checkpoint({str(tmp_path / "vmae")!r}, args, sd, sd, sd, step=6, count=6)
+        assert set(torch.load(path, weights_only=False)) == {{"model", "opt", "config", "step"}}
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "ldmae_tpu" or m.startswith("ldmae_tpu."))
+        assert not bad, bad
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture
@@ -373,10 +415,11 @@ def test_pipeline_builders_raise_for_a_missing_vmae_checkpoint(tmp_path):
 
 
 def _orbax_refusal(err) -> None:
-    """The refusal names the conversion and says that AdamW's moments do
-    not cross (the export writes an empty ``opt``)."""
+    """The refusal names the conversion script, run in the JAX environment,
+    which carries AdamW's moments into the ``.pt``."""
     msg = str(err.value)
-    assert "python -m ldmae_tpu.cli.export_torch" in msg and "AdamW's moments do not cross" in msg, msg
+    assert "python scripts/convert_orbax.py dit" in msg and "in the JAX environment" in msg, msg
+    assert "AdamW's moments and the step" in msg and "export_torch" not in msg, msg
 
 
 def test_pipeline_builder_raises_for_an_orbax_checkpoint_directory(tmp_path, monkeypatch, capsys):

@@ -113,7 +113,7 @@ def test_non_finite_loss_warns_and_skips(image_folder, tmp_path, capsys):  # noq
     (["--gradual_resol", "--tune_decoder"], ValueError, "gradual_resol"),
     (["--dp", "4"], AssertionError, "mesh 4x1x1 != 1 devices"),  # create_mesh's check, as in the JAX package
     (["--profile_dir", "trace", "--profile_start", "1", "--profile_steps", "2"], None, None),
-    (["--resume", "."], NotImplementedError, "ROADMAP.md"),
+    (["--resume", "."], NotImplementedError, "scripts/convert_orbax.py vmae"),
 ], ids=["gradual_resol", "dp", "profile", "orbax_resume"])
 def test_options_not_ported_raise(flags, error, match, image_folder, tmp_path, capsys, monkeypatch):  # noqa: F811
     """The options the port refuses. ``--gradual_resol`` is ported for stage
