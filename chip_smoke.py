@@ -106,6 +106,12 @@ attention bounds), then:
      postprocess) beside the plain backward and the backward of
      ``F.scaled_dot_product_attention`` (fwd+bwd minus fwd); also the
      forward kernels #1, #3 (and #9) at the training shapes;
+  5b. the XL slice's kernels at head dim 72 (also under --xl): #1 at (16,
+     16, 1024, 72) and (72, 16, 1024, 72), #2, #7 and #8 at the first, #6
+     and #5 at (32, 16, 1024, 72) given the forward's output and lse, each
+     against its plain version (the forward and backward gates above, with
+     the wrong backwards as controls), timed beside SDPA and the bound, and
+     each run's kernels named by torch.profiler: the wgmma kernels alone;
   6. checks one train step of B/1 at full width (depth 2, batch 8) on the
      card: the loss and every parameter's gradient of the kernel path (the
      shipped YAML's flash_rope, half-split RoPE, fused adaLN, remat 'attn')
@@ -123,6 +129,17 @@ attention bounds), then:
      prints steps/s, latents/s, TFLOP/s, MFU and peak memory; then 5 steps
      of the ``rope_layout: interleaved`` configuration and 5 steps with
      ``parallel.compute_dtype: float32``, each with exact counts;
+  7b. the XL legs (also under --xl): LightningDiT-XL/1 (28 blocks, D
+     1,152, 16 heads of 72) on the shipped YAML with model.model_type
+     changed (``xl_yaml``), seeded weights: 10 steps of the YAML's kernels
+     against the plain xla impls from one noise (the B/1 gate, 5e-2; the
+     control another noise); ``cli.inference`` on one batch of 8, 250
+     Euler steps, phased CFG 10, VMAE decode to PNGs, launches exact (#1
+     6,972, #3 13,944, #4 6,972, #2 12), seconds a batch; ``cli.train_dit``
+     at batch 32 (cut from 256), 4 steps, remat attn, launches exact (a
+     step: #1 56, #3 112, #6 28), finite losses, steps/s, MFU, peak memory
+     (the final checkpoint's 11 GB write left out); the gradient check of
+     6. at XL width, depth 4, with its launches and control;
   8. with ``--profile``, traces one 50-step batch of the bf16 and of the
      w8a8 path, and one training step, with ``torch.profiler`` and prints
      device time by kernel and group and the idle share;
@@ -237,8 +254,9 @@ attention bounds), then:
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
-= 64 at the training shapes, the fp32 instantiations as their own entries;
-launches from the path that runs each kernel), and as its last line
+= 64 at the training shapes, the fp32 instantiations as their own entries,
+the d = 72 kernels as ``..._xl`` entries; launches from the path that runs
+each kernel), and as its last line
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
@@ -252,7 +270,12 @@ and flash_fused.
 
 ``python3 chip_smoke.py --vmae`` builds the kernels and runs phase 10 alone,
 ``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
-``--samplers`` phase 4b alone, ``--parallel`` phases 13 and 14 alone.
+``--samplers`` phase 4b alone, ``--parallel`` phases 13 and 14 alone,
+``--xl`` phases 5b and 7b alone (their kernels as an ``{"xl_kernels":
+[...]}`` line). ``--xl-kernels`` builds the attention library and runs 5b
+without asserting which kernels ran: copied into an unpacked earlier commit
+(``git archive`` into a git-ignored directory), it times that commit's
+kernels at the same shapes.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -783,6 +806,23 @@ def adaln_row_kernels(dev, b: int, what: str, dtype=None) -> dict:
     del x, out16, out8
     torch.cuda.empty_cache()
     return rows
+
+
+def wgmma_ptxas(report: dict) -> None:
+    """ptxas's registers at entry (setmaxnreg then gives the consumer
+    warpgroups more), static shared memory (the rings are dynamic) and
+    spills of the attention library's wgmma kernels; every instantiation of
+    the forward and the single-pass backward (d = 64 and 72, with and
+    without lse / RoPE) must not spill."""
+    log_ = report["flash_attention"]["ptxas"]
+    log(f"  ptxas flash_fwd_resident_kernel: {ptxas_summary(log_, 'flash_fwd_resident_kernel')}")
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel"):
+        for d in (64, 72):
+            for flag in (0, 1):
+                summary = ptxas_summary(log_, f"{kernel}ILi{d}ELb{flag}EE")
+                log(f"  ptxas {kernel}<{d}, {bool(flag)}>: {summary}")
+                if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
+                    raise SystemExit(f"{kernel}<{d}, {bool(flag)}>: ptxas reports spills (or no entry): {summary}")
 
 
 def engine_ptxas(report: dict) -> None:
@@ -1648,8 +1688,10 @@ def _yaml_config(**sections):
     return cfg
 
 
-def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, grad_bound: float = GRAD_REL_L2):
-    """One train step of B/1 at full width, depth GRAD_DEPTH, batch
+def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, grad_bound: float = GRAD_REL_L2,
+                     model_type: str = "LightningDiT-B/1", depth: int = GRAD_DEPTH):
+    """One train step of ``model_type`` (B/1; XL/1 for the XL slice) at full
+    width, depth ``depth``, batch
     GRAD_BATCH: loss and per-leaf gradients of the kernel path (the YAML's
     impls, remat 'attn'; with ``layout`` 'interleaved', RoPE outside the
     kernel, flash_attention and its backward) against the xla path (plain
@@ -1671,7 +1713,7 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
     from ldmae_tpu_torch.train import dit_loss
     from ldmae_tpu_torch.transport import create_transport
 
-    spec = dit_spec("LightningDiT-B/1", depth=GRAD_DEPTH, input_size=32, in_channels=16, num_classes=1000,
+    spec = dit_spec(model_type, depth=depth, input_size=32, in_channels=16, num_classes=1000,
                     use_qknorm=True, use_swiglu=True, use_rope=True, use_rmsnorm=True)
     sd = seeded_init_(LightningDiT(spec, device="cpu"), 5).state_dict()
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1684,7 +1726,7 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
     half = layout == "half"
     kernel_counts = {}
 
-    def grads(kernels: bool):
+    def grads(kernels: bool, count: bool = False):
         s = dataclasses.replace(spec, use_checkpoint=kernels, remat_policy="attn")
         model = LightningDiT(s, device=dev)
         model.load_state_dict(permute_qk_for_half_rope(sd, s) if kernels and half else sd)
@@ -1694,7 +1736,7 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
         loss = dit_loss(model, transport, x1, y, x0=x0, t=t, drop_ids=drop, compute_dtype=dtype, **impls)
         loss.backward()
         torch.cuda.synchronize()
-        if kernels:
+        if count:  # the kernel path's own run (not the control's)
             kernel_counts.update(ops.launch_counts())
             if count_path:
                 check_counts(count_path, kernel_counts)
@@ -1706,11 +1748,12 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
         name = max(errs, key=errs.get)
         return errs[name], name
 
-    log(f"[train] gradient check: B/1 width 768, depth {GRAD_DEPTH}, batch {GRAD_BATCH}, {dtype}; kernel path "
+    log(f"[train] gradient check: {model_type} width {spec.hidden_size}, head dim {spec.hidden_size // spec.num_heads}, "
+        f"depth {depth}, batch {GRAD_BATCH}, {dtype}; kernel path "
         f"({'flash_rope, half' if half else 'flash, interleaved'} RoPE, fused adaLN, remat attn) vs xla path "
         f"(plain attention, xla adaLN, no remat)")
     loss_x, g_x = grads(False)
-    loss_k, g_k = grads(True)
+    loss_k, g_k = grads(True, count=True)
     err, leaf = worst(g_k, g_x)
     loss_rel = abs(loss_k - loss_x) / abs(loss_x)
     ok = err <= grad_bound and loss_rel <= 1e-2 and all(bool(torch.isfinite(v).all()) for v in g_k.values())
@@ -5276,6 +5319,493 @@ def tokenizers_only(dev, smi: str) -> int:
     return 0
 
 
+
+# -- the XL slice: LightningDiT-XL/1 (28 blocks, D 1,152, 16 heads of 72,
+# SwiGLU hidden 3,072) through the sampling and training CLIs on the shipped
+# YAML with model.model_type changed (xl_yaml), and the attention kernels at
+# head dim 72, where #1's forward and #6's backward (#5 by the same switch,
+# #2, #7 and #8 by the forward's dispatch) run the wgmma kernels on a
+# 128-byte and a 32-byte swizzled part of each 144-byte row. Also alone
+# under --xl; --xl-kernels runs the kernel phase without asserting which
+# kernels ran, so that copied into an unpacked earlier commit it times that
+# commit's kernels at these shapes (the mma.sync core and the three passes).
+XL_MODEL, XL_DEPTH, XL_HEADS, XL_HEAD_DIM = "LightningDiT-XL/1", 28, 16, 72
+# training: batch cut from the YAML's 256, a few steps (no checkpoint
+# write: the final one is 11 GB of fp32 weights, EMA and moments); the
+# gradient check at full width, depth cut so the plain oracle's logits fit
+XL_TRAIN_BATCH, XL_TRAIN_STEPS, XL_GRAD_DEPTH = 32, 4, 4
+XL_SAMPLE_STEPS = STEPS  # the sampling leg's timed batch (the first cut if the script runs long)
+_XL_EVALS = (XL_SAMPLE_STEPS - 1) * XL_DEPTH
+_XL_SHORT = (SHORT_STEPS - 1) * XL_DEPTH
+EXPECTED_LAUNCHES |= {
+    # one batch of 8 through cli.inference: the DiT's forwards and the VMAE decode
+    "xl_bf16": _NONE | {"flash_attention_rope": _XL_EVALS, "fused_norm_modulate": 2 * _XL_EVALS,
+                        "fused_matmul_silu": _XL_EVALS, "flash_attention_resident": DEC_DEPTH,
+                        "dense_bias_f32": (XL_SAMPLE_STEPS - 1) * (5 + 4 * XL_DEPTH) + _DENSE_DECODE},
+    # the 10-step comparison, latents only
+    "xl_short": _NONE | {"flash_attention_rope": _XL_SHORT, "fused_norm_modulate": 2 * _XL_SHORT,
+                         "fused_matmul_silu": _XL_SHORT, "dense_bias_f32": (SHORT_STEPS - 1) * (5 + 4 * XL_DEPTH)},
+}
+_n = _train_counts(XL_TRAIN_STEPS, XL_DEPTH)
+EXPECTED_LAUNCHES["xl_train"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                         "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
+_n = _train_counts(1, XL_GRAD_DEPTH)
+EXPECTED_LAUNCHES["xl_grad"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
+                                        "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
+# kernels-line rows at d = 72: launches from the XL legs (no XL path
+# launches #2 at this head dim, #5, #7 or #8)
+KERNELS |= {
+    "flash_attention_rope_xl": (_FA, f"{_PALLAS_FA}:323", "xl_bf16", "flash_attention_rope"),
+    "flash_attention_rope_bwd_xl": (_FA, f"{_PALLAS_FA}:429", "xl_train", "flash_attention_rope_bwd"),
+    "flash_attention_bwd_xl": (_FA, f"{_PALLAS_FA}:151", "xl_train", "flash_attention_bwd"),
+    "flash_attention_xl": (_FA, f"{_PALLAS_FA}:77", "xl_bf16", "flash_attention"),
+    "flash_attention_qknorm_rope_xl": (_FA, f"{_PALLAS_FA}:282", "xl_bf16", "flash_attention_qknorm_rope"),
+    "flash_attention_fused_rope_xl": (_FA, f"{_PALLAS_FA}:550", "xl_bf16", "flash_attention_fused_rope"),
+}
+# the kernels the d = 72 paths must run, and the older ones they must not
+XL_OWN = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel", "flash_bwd_preprocess_kernel",
+          "flash_bwd_postprocess_kernel", "norm_rope_kernel")
+XL_OLD = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+
+
+def xl_yaml(path: str, **sections) -> str:
+    """Writes to ``path`` the shipped YAML with model.model_type
+    LightningDiT-XL/1 and nothing else changed, then each of ``sections``
+    (a top-level key: a value, or a dict merged into that section) as a leg
+    needs it; returns ``path``."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "imagenet", "lightningdit_b_vmae_f8d16.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["model_type"] = XL_MODEL
+    for key, value in sections.items():
+        cfg[key] = dict(cfg.get(key) or {}, **value) if isinstance(value, dict) else value
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def xl_spec():
+    from ldmae_tpu_torch.models import dit_spec
+
+    spec = dit_spec(XL_MODEL, input_size=32, in_channels=16, num_classes=1000, use_qknorm=True, use_swiglu=True,
+                    use_rope=True, use_rmsnorm=True)
+    assert (spec.depth, spec.hidden_size // spec.num_heads) == (XL_DEPTH, XL_HEAD_DIM)
+    return spec
+
+
+def device_split(fn, iters: int = 10) -> dict:
+    """Device ms per call of every kernel ``fn`` launches, by short name
+    (torch.profiler)."""
+    out = collections.defaultdict(float)
+    for key, ms in _profiled(fn, iters):
+        m = re.search(r"(\w+_kernel)\b", key)
+        out[m[1] if m else key[:40]] += ms
+    return dict(out)
+
+
+def xl_route(what: str, split: dict, strict: bool) -> dict:
+    """The d = 72 call's kernels by name; strict: fails unless they are the
+    wgmma kernels (and their pre-, pre- and post-passes) alone."""
+    names = sorted(split)
+    ok = any(n in XL_OWN for n in names) and not any(n in XL_OLD for n in names)
+    log(f"  {what}: kernels that ran {names} -> {'the wgmma kernels' if ok else 'NOT the wgmma kernels'}")
+    if strict and not ok:
+        raise SystemExit(f"{what}: at d = 72 the call ran {names}, not the wgmma kernels")
+    return {"kernels_ms": split}
+
+
+def xl_kernel_phase(dev, strict: bool = True) -> dict:
+    """5(a): the attention kernels at head dim 72 against their plain
+    versions (the forward gates rtol 2^-7 and 2^-8 of the largest output;
+    the backward BWD_REL_L2 and BWD_ELEM, each with wrong backwards that
+    must read above), timed beside the plain version, SDPA (on pre-rotated
+    or pre-normed q, k; the backward as fwd+bwd minus fwd) and the bound,
+    the kernels that ran named by the profiler (strict: the wgmma kernels
+    alone). #1 at (16, 16, 1024, 72) and at bench.py's batch 36 doubled, (72,
+    16, 1024, 72); #2, #7, #8 at the first; #6 and #5 at the training shape
+    (32, 16, 1024, 72), given the forward's output and lse. Returns name ->
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by, parts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    h, n, d = XL_HEADS, 1024, XL_HEAD_DIM
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+
+    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
+    tables = 2 * n * d * 4
+    rows = {}
+
+    def fwd_row(name, b, run, plain, lib, extra_bytes):
+        ref = plain()
+        err = compare(f"{name} ({b},{h},{n},{d})", run(), ref, **attn_tol(ref))
+        del ref
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 3, 1)
+        lib_ms = cuda_ms(lib, 20)
+        bnd = bound(4 * b * h * n * d * 2 + extra_bytes, 4 * b * h * n * n * d, exps=b * h * n * n)
+        parts = xl_route(name, device_split(run), strict)
+        log(f"  {name} ({b},{h},{n},{d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+            f"(kernel / SDPA {ms / lib_ms:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+        return err, ms, plain_ms, lib_ms, *bnd, parts
+
+    for b in (2 * BATCH, 2 * BENCH_BATCH):
+        log(f"[xl kernel] flash_attention_rope q,k,v ({b},{h},{n},{d}) bf16, cos/sin ({n},{d}) fp32")
+        q, k, v = randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d)
+        qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
+        row = fwd_row("flash_attention_rope", b, lambda: fa.flash_attention_rope(q, k, v, cos, sin),
+                      lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin),
+                      lambda: F.scaled_dot_product_attention(qr, kr, v), tables)
+        if b == 2 * BATCH:
+            rows["flash_attention_rope_xl"] = row
+            log(f"[xl kernel] flash_attention q,k,v ({b},{h},{n},{d}) bf16 (no RoPE, no gradient)")
+            rows["flash_attention_xl"] = fwd_row(
+                "flash_attention", b, lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+                lambda: F.scaled_dot_product_attention(q, k, v), 0)
+        else:
+            err, ms, plain_ms, lib_ms, bnd, by, parts = row
+            rows["flash_attention_rope_xl"][6].update(
+                {f"batch{BENCH_BATCH}": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                         "bound_ms": bnd, "bound_by": by} | parts})
+        del q, k, v, qr, kr
+        torch.cuda.empty_cache()
+
+    b = 2 * BATCH
+    log(f"[xl kernel] flash_attention_qknorm_rope q,k,v ({b},{h},{n},{d}) bf16, qk-norm weights ({d},) fp32")
+    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
+    qs, ks = (1 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+    qr, kr = fa._qknorm_rope_fp32(q, qs, cos, sin), fa._qknorm_rope_fp32(k, ks, cos, sin)
+    rows["flash_attention_qknorm_rope_xl"] = fwd_row(
+        "flash_attention_qknorm_rope", b, lambda: fa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin),
+        lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin),
+        lambda: F.scaled_dot_product_attention(qr, kr, v), tables + 2 * d * 4)
+    del q, k, v, qr, kr
+
+    log(f"[xl kernel] flash_attention_fused_rope q,k ({b},{n},{h},{d}) bf16, v a view of qkv ({b},{n},3,{h},{d})")
+    qkv = randn(b, n, 3, h, d)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (q, k))
+    vt = v.transpose(1, 2)
+    rows["flash_attention_fused_rope_xl"] = fwd_row(
+        "flash_attention_fused_rope", b, lambda: fa.flash_attention_fused_rope(q, k, v, cos, sin),
+        lambda: fa.flash_attention_fused_rope_plain(q, k, v, cos, sin),
+        lambda: F.scaled_dot_product_attention(qr, kr, vt), tables)
+    del qkv, q, k, v, qr, kr, vt
+    torch.cuda.empty_cache()
+
+    # the backward at the training shape, q and k at twice unit scale (peaked
+    # rows, where the controls move dq and dk by far more than the bound)
+    b = XL_TRAIN_BATCH
+    q, k = randn(b, h, n, d, scale=2.0), randn(b, h, n, d, scale=2.0)
+    v, gr = randn(b, h, n, d), randn(b, h, n, d)
+    for name, kernel, plain, wrongs, tab in (
+        ("flash_attention_rope_bwd", fa.flash_attention_rope_bwd, fa.flash_attention_rope_bwd_plain,
+         {"no rowsum term": lambda q, k, v, g, cos, sin: wrong_bwd_no_rowsum(
+             fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g),
+          "untransposed RoPE Jacobian": wrong_rope_bwd_untransposed}, (cos, sin)),
+        ("flash_attention_bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+         {"no rowsum term": wrong_bwd_no_rowsum}, ()),
+    ):
+        log(f"[xl kernel] {name} q,k,v,g ({b},{h},{n},{d}) bf16; the forward's output and lse passed in")
+        o, lse = fa._launch(q, k, v, name, *tab, with_lse=True)  # the library, uncounted
+
+        def run():
+            return kernel(q, k, v, gr, *tab, out=o, lse=lse)
+
+        ref = plain(q, k, v, gr, *tab)
+        rel, elem = bwd_errors(run(), ref)
+        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+        log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
+            f"{elem:.6g} (bound {BWD_ELEM}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} at d = 72: kernel disagrees with its plain backward")
+        for what, wrong in wrongs.items():
+            wrel, welem = bwd_errors(wrong(q, k, v, gr, *tab), ref)
+            bad = wrel > BWD_REL_L2 or welem > BWD_ELEM
+            log(f"  control ({what}): relative L2 {wrel:.6g}, max |err| / max |value| {welem:.6g} (must exceed "
+                f"{BWD_REL_L2} or {BWD_ELEM}) -> {'ok' if bad else 'FAIL'}")
+            if not bad:
+                raise SystemExit(f"{name} at d = 72: a wrong backward ({what}) reads within the bound")
+        err = max(float((x.float() - r.float()).abs().max()) for x, r in zip(run(), ref))
+        del ref
+        ms = cuda_ms(run, 10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, gr, *tab), 3, 1)
+        qs, ks = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if tab else (q, k)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), gr)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs)
+
+        lib_ms = cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10)
+        bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + (tables if tab else 0), 10 * b * h * n * n * d,
+                    exps=b * h * n * n)
+        parts = xl_route(name, device_split(run), strict)
+        rows[f"{name}_xl"] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+        log(f"  {name} ({b},{h},{n},{d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms "
+            f"(kernel / SDPA {ms / lib_ms:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+        del qs, ks, vs, o, lse
+    del q, k, v, gr
+    torch.cuda.empty_cache()
+    return rows
+
+
+def xl_sampling_leg(dev, smi: str, tmp: str) -> tuple:
+    """5(b): XL/1 through cli.inference on xl_yaml (seeded weights, VMAE f8d16
+    seeded, bf16): first SHORT_STEPS steps from one noise under the YAML's
+    kernels against the plain xla impls (the B/1 gate, 5e-2 of the latents'
+    scale; control: the kernel path from another noise), then one batch of
+    8 through the CLI at XL_SAMPLE_STEPS steps, CFG 10 on [0.10, 1] phased,
+    decoded to PNGs, launches exact, the batch's seconds timed inside the
+    CLI's own pipeline. Returns (record, {path: counts})."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import inference
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+
+    out_root = os.path.join(tmp, "xl_out")
+    path = xl_yaml(os.path.join(tmp, "xl_sample.yaml"), ckpt_path=None, vae={"weight_path": ""},
+                   train={"output_dir": out_root, "exp_name": "xl"},
+                   sample={"num_sampling_steps": XL_SAMPLE_STEPS, "per_proc_batch_size": BATCH, "fid_num": BATCH})
+    cfg = LDMAEConfig.from_yaml(path)
+    spec = xl_spec()
+    record, counts = {"card": smi}, {}
+
+    log(f"[xl] {SHORT_STEPS} steps: {XL_MODEL} (the CLI's build_pipeline, seeded), batch {BATCH}, the YAML's kernels "
+        f"({cfg.parallel.attention_impl}, fused adaLN and SwiGLU) vs the plain xla impls from the same noise")
+    _, bundle, _ = inference.build_pipeline(cfg, device=dev)
+    latents = dict(bundle, vae=None)
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    gen = torch.Generator(device=dev)
+    z, z2 = (torch.randn(BATCH, 16, 32, 32, generator=gen.manual_seed(s), device=dev) for s in (2, 3))
+    fk = sampler(spec, SHORT_STEPS, dev, kernels=True)
+    fx = sampler(spec, SHORT_STEPS, dev, kernels=False)
+    fk(latents, y, z=z)  # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_k = fk(latents, y, z=z)
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t0
+    counts["xl_short"] = ops.launch_counts()
+    check_counts("xl_short", counts["xl_short"])
+    lat_x = fx(latents, y, z=z)
+    lat_c = fk(latents, y, z=z2)
+    scale = float(lat_x.abs().max())
+    rel, control = (float((t - lat_x).abs().max()) / scale for t in (lat_k, lat_c))
+    moved = float((lat_x - z).abs().max())
+    img_k = bundle["vae"].decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="flash_rope")
+    img_x = bundle["vae"].decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="xla")
+    px = int((img_k.int() - img_x.int()).abs().max())
+    ok = (bool(torch.isfinite(lat_k).all()) and lat_k.shape == (BATCH, 16, 32, 32) and rel <= 5e-2
+          and control > 5e-2 and moved > 1e-2 and px <= 8)
+    record["short"] = {"rel": rel, "control": control, "moved": moved, "decode_px": px, "seconds": short_s}
+    log(f"  latents max rel err {rel:.6g} (tolerance 5e-2, the B/1 gate); control (the kernels from another noise) "
+        f"{control:.6g} (must exceed 5e-2); latents moved {moved:.4g} from z; decode flash vs xla max pixel diff {px} (tolerance 8); {short_s:.4f} s for the "
+        f"{SHORT_STEPS}-step batch (latents) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("xl: the 10-step latents disagree with xla, or the control reads within the gate")
+    del bundle, latents, lat_k, lat_x, lat_c, img_k, img_x, fk, fx
+    torch.cuda.empty_cache()
+
+    log(f"[xl] cli.inference: {XL_MODEL} + VMAE f8d16 (seeded), batch {BATCH}, {XL_SAMPLE_STEPS} Euler steps, shift "
+        f"{cfg.sample.timestep_shift}, CFG {cfg.sample.cfg_scale} on [{cfg.sample.cfg_interval_start}, 1] (phased), "
+        f"bf16, PNGs")
+    build = inference.build_pipeline
+    batch_s = []
+
+    def timed_pipeline(*args, **kwargs):
+        fn, bundle, spec_ = build(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            imgs = fn(*a, **kw)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t)
+            return imgs
+
+        return timed, bundle, spec_
+
+    inference.build_pipeline = timed_pipeline
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        folder = inference.main(["--config", path, "--skip_fid"])
+    finally:
+        inference.build_pipeline = build
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts["xl_bf16"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("xl_bf16", counts["xl_bf16"])
+    pngs = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(folder, f))) for f in pngs])
+    ok = (pngs == [f"{i:06d}.png" for i in range(BATCH)] and imgs.shape == (BATCH, 256, 256, 3)
+          and float(imgs.std()) > 1.0 and len(batch_s) == 1)
+    record["cli"] = {"seconds_batch": batch_s[0] if batch_s else None, "cli_s": cli_s, "peak_gb": peak,
+                     "steps": XL_SAMPLE_STEPS}
+    log(f"  launches exact; PNGs {pngs[0]}..{pngs[-1]} {imgs.shape}, pixel std {float(imgs.std()):.3f}; "
+        f"{record['cli']['seconds_batch']:.4f} s per batch of {BATCH} ({BATCH / record['cli']['seconds_batch']:.4f} "
+        f"images/s), the whole CLI call {cli_s:.2f} s (model builds, seeded weights, PNG writes); peak memory "
+        f"{peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("xl: the sampling CLI's PNGs are not the batch's 8 images")
+    torch.cuda.empty_cache()
+    return record, counts
+
+
+def xl_training_leg(dev, smi: str, tmp: str) -> tuple:
+    """5(c): XL/1 through cli.train_dit on xl_yaml's training sections (bf16,
+    flash_rope, half RoPE, fused adaLN, remat attn), batch XL_TRAIN_BATCH,
+    XL_TRAIN_STEPS steps on the synthetic latent shards, warm-started with
+    seeded adaLN and final-layer weights (the reference init zeroes them, and
+    no kernel's output would reach the loss); the final checkpoint's write
+    is left out. Launches exact, finite losses, steps/s, MFU, peak memory;
+    then the gradient check at full width, depth XL_GRAD_DEPTH. Returns
+    (record, {path: counts})."""
+    import numpy as np
+    import torch
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+    from ldmae_tpu_torch.models import LightningDiT
+    from ldmae_tpu_torch.train.train_dit import spec_from_config
+    from ldmae_tpu_torch.utils.profiling import dit_forward_flops
+
+    data = os.path.join(tmp, "xl_latents")
+    if not os.path.isdir(data):
+        write_latent_shards(data)
+    weights = os.path.join(tmp, "xl_gates.pt")
+    path = xl_yaml(
+        os.path.join(tmp, "xl_train.yaml"),
+        data={"data_path": data, "sample": False},
+        train={"max_steps": XL_TRAIN_STEPS, "global_batch_size": XL_TRAIN_BATCH, "global_seed": 0,
+               "output_dir": tmp, "exp_name": "xl_train", "log_every": 1, "ckpt_every": 10 * XL_TRAIN_STEPS,
+               "weight_init": weights})
+    cfg = LDMAEConfig.from_yaml(path)
+    spec = spec_from_config(cfg)
+    model = LightningDiT(spec, device=dev)
+    rng = np.random.default_rng(3)
+    gates = {name: torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)).bfloat16()
+             for name, p in model.named_parameters() if "adaLN_modulation" in name or name.startswith("final_layer")}
+    del model
+    torch.save({"model": gates}, weights)
+    saved = []
+    save = train_dit.save_checkpoint
+
+    def no_write(exp_dir, state, **kw):  # the 11 GB final checkpoint is not this leg's measurement
+        saved.append(state.step)
+        return os.path.join(exp_dir, "checkpoints", "not-written")
+
+    log(f"[xl] cli.train_dit: {XL_MODEL} (depth {spec.depth}, width {spec.hidden_size}, head dim "
+        f"{spec.hidden_size // spec.num_heads}), batch {XL_TRAIN_BATCH}, {XL_TRAIN_STEPS} steps, the shipped YAML's "
+        f"model/transport/optimizer/parallel sections (train_attention_impl {cfg.parallel.train_attention_impl}, "
+        f"rope_layout {cfg.parallel.rope_layout}, remat {cfg.model.remat_policy}), {len(gates)} seeded gate tensors")
+    train_dit.save_checkpoint = no_write
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_dit.main(["--config", path])
+    finally:
+        train_dit.save_checkpoint = save
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"xl_train": ops.launch_counts()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("xl_train", counts["xl_train"])
+    hist = out["history"]
+    del out
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in hist)
+    steady = hist[1:]  # the first step holds the warm-up
+    sps = sum(h["steps_per_sec"] * h["seconds"] for h in steady) / sum(h["seconds"] for h in steady)
+    flops = 3 * dit_forward_flops(spec, XL_TRAIN_BATCH)
+    record = {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist], "steps_per_s": sps,
+              "latents_per_s": sps * XL_TRAIN_BATCH, "tflops": flops * sps / 1e12,
+              "mfu": flops * sps / PEAK_BF16_FLOPS, "peak_gb": peak, "cli_s": seconds, "card": smi}
+    log("  " + "; ".join(f"step {h['step']}: loss {h['loss']:.5f}, grad norm {h['grad_norm']:.5f}, "
+                         f"{h['steps_per_sec']:.4f} steps/s" for h in hist))
+    log(f"  steady state (steps 2-{XL_TRAIN_STEPS}): {sps:.4f} steps/s, {sps * XL_TRAIN_BATCH:.4f} latents/s, "
+        f"{record['tflops']:.4f} TFLOP/s, MFU {record['mfu']:.4f} (3x forward FLOPs over 989 TFLOP/s); "
+        f"{seconds:.2f} s for the whole call; peak memory {peak:.3f} GB; final checkpoint at step {saved} not "
+        f"written; on {smi} -> {'ok' if finite else 'FAIL'}")
+    if not finite or saved != [XL_TRAIN_STEPS]:
+        raise SystemExit("xl training: a non-finite loss or gradient norm, or the run did not end at its last step")
+    counts["xl_grad"] = grad_check_phase(dev, count_path="xl_grad", model_type=XL_MODEL, depth=XL_GRAD_DEPTH)
+    return record, counts
+
+
+def xl_legs(dev, smi: str, tmp: str) -> tuple:
+    """5(b) and (c). Returns (record, launch counts by path)."""
+    t0 = time.perf_counter()
+    record, counts = {}, {}
+    record["sampling"], c = xl_sampling_leg(dev, smi, tmp)
+    counts |= c
+    record["training"], c = xl_training_leg(dev, smi, tmp)
+    counts |= c
+    record["legs_s"] = time.perf_counter() - t0
+    log(f"  the XL legs took {record['legs_s']:.2f} s; on {smi}")
+    return record, counts
+
+
+def xl_only(dev, smi: str) -> int:
+    """``--xl``: build, then the XL phase alone, its kernels as a
+    ``{"xl_kernels": [...]}`` line in the kernels line's form."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    wgmma_ptxas(report)
+    rate_probes(dev)
+    rows = xl_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        record, counts = xl_legs(dev, smi, tmp)
+    log(json.dumps({"xl": record}))
+    log(smi)
+    log(json.dumps({"xl_kernels": kernel_rows(rows, counts)}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def xl_kernels_only(dev) -> int:
+    """``--xl-kernels``: the attention library alone, then 5(a) without the
+    route assertion, through wrappers an earlier tree has too; ends with an
+    ``{"xl_kernel_times": {...}}`` line."""
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build(["flash_attention"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    rate_probes(dev)
+    rows = xl_kernel_phase(dev, strict=False)
+    log(json.dumps({"xl_kernel_times": {name: {"ms": r[1], "library_ms": r[3], "bound_ms": r[4], "parts": r[6]}
+                                        for name, r in rows.items()}}))
+    return 0
+
+
 def kernel_rows(rows: dict, counts: dict) -> list:
     """The kernels line's entries: each measured kernel with its launches on
     the path that runs it (``KERNELS``)."""
@@ -5330,6 +5860,10 @@ def main() -> int:
         return samplers_only(dev, smi)
     if "--parallel" in sys.argv[1:]:
         return parallel_only(dev, smi)
+    if "--xl-kernels" in sys.argv[1:]:
+        return xl_kernels_only(dev)
+    if "--xl" in sys.argv[1:]:
+        return xl_only(dev, smi)
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -5337,16 +5871,7 @@ def main() -> int:
     for name, info in report.items():
         regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {info['seconds']:.2f} s" + "".join(f"\n    {r}" for r in regs))
-    # the wgmma kernels: registers at entry (setmaxnreg then gives the
-    # consumer warpgroups more), static shared memory (the rings are dynamic)
-    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel", "flash_fwd_resident_kernel"):
-        log(f"  ptxas {kernel}: {ptxas_summary(report['flash_attention']['ptxas'], kernel)}")
-    # the forward's two instantiations (sampling: no lse; training: lse) must not spill
-    for what, inst in (("<false>", "flash_fwd_wgmma_kernelILb0EE"), ("<true>", "flash_fwd_wgmma_kernelILb1EE")):
-        summary = ptxas_summary(report["flash_attention"]["ptxas"], inst)
-        log(f"  ptxas flash_fwd_wgmma_kernel{what}: {summary}")
-        if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
-            raise SystemExit(f"flash_fwd_wgmma_kernel{what}: ptxas reports spills (or no entry): {summary}")
+    wgmma_ptxas(report)
     gemm_ptxas(report)
     engine_ptxas(report)
     rate_probes(dev)
@@ -5358,6 +5883,9 @@ def main() -> int:
     rows |= int8_gemm_phase(dev, BATCH)
     int8_gemm_phase(dev, BENCH_BATCH)
     rows |= train_kernel_phase(dev)
+    # early in the process: later, the profiler's per-kernel splits have
+    # come back short of records
+    rows |= xl_kernel_phase(dev)
     head_dim_phase(dev)
     rows |= fp32_kernel_phase(dev, BATCH)
     rows |= dense_phase(dev)
@@ -5372,6 +5900,9 @@ def main() -> int:
         result["counts"][path] = grad_check_phase(dev, torch.float32, layout, path, GRAD_F32_REL_L2)
     with tempfile.TemporaryDirectory() as tmp:
         result["counts"] |= cli_train_phase(dev, smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        xl_record, counts = xl_legs(dev, smi, tmp)
+    result["counts"] |= counts
     if profile:
         train_profile_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5409,6 +5940,8 @@ def main() -> int:
     log(json.dumps({"tensor_parallel_training": tp_training}))
     # the sampler slice's legs, launches, gates
     log(json.dumps({"samplers": samplers}))
+    # the XL slice's sampling and training legs
+    log(json.dumps({"xl": xl_record}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -113,14 +113,18 @@ __device__ __forceinline__ void store4(float* p, const float* v) {
 // fp32 weight; then, as without it, x*cos + [-x2 | x1]*sin in fp32 without
 // fused multiply-add and one rounding to T. A first version, one warp per
 // row with 2-byte accesses, took the pre-pass to half the time of the
-// attention after it.
+// attention after it. Without kNorm (no shuffles) kLanes may be d / 8 when
+// that is no power of two: 9 at DiT XL's d = 72, where 16 lanes left 7 of a
+// row's idle (the last 256 % 9 threads of a block take no row).
 template <typename T, bool kNorm, int kLanes>
 __global__ void __launch_bounds__(256) norm_rope_kernel(const NormRopeArgs<T> a) {
+  static_assert(!kNorm || (kLanes & (kLanes - 1)) == 0, "the qk-norm's shuffles take power-of-two lanes");
   const long long row = (long long)blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
   const int which = blockIdx.y;
   const int half = a.d / 2, c = 4 * (threadIdx.x % kLanes);
   // inactive lanes stay to the shuffles with zeros
-  const bool active = row < a.rows && c < half;
+  bool active = row < a.rows && c < half;
+  if constexpr (256 % kLanes != 0) active = active && threadIdx.x < 256 / kLanes * kLanes;
   const int pos = active ? (int)(row % a.n) : 0;
   const Operand<T> xo = a.x[which], yo = a.y[which];
   float x1[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
@@ -230,6 +234,7 @@ cudaError_t norm_rope(const NormRopeArgs<T>& a, bool norm, int vec, cudaStream_t
   if (a.d < 1 || a.d > 128) return cudaErrorInvalidValue;
   if (a.d % 8 == 0 && vec >= 4) {
     if (a.d <= 64) norm_rope_launch<T, 8>(a, norm, s);
+    else if (a.d == 72 && !norm) norm_rope_kernel<T, false, 9><<<dim3((unsigned)((a.rows + 27) / 28), 2), 256, 0, s>>>(a);
     else norm_rope_launch<T, 16>(a, norm, s);
   } else {
     const dim3 grid((unsigned)((a.rows + 7) / 8), 2);

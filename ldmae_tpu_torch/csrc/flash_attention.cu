@@ -57,7 +57,8 @@
 // The fp32 kernels are in flash_attention_fp32.cu.
 //
 // Which kernel runs is chosen by shape (forward()): all four forward
-// kernels at d = 64 with 16-byte aligned rows and strides run a second core,
+// kernels at d = 64 and 72 (DiT B to 1p6B, and XL) with 16-byte aligned rows
+// and strides run a second core,
 // flash_fwd_wgmma_kernel (wgmma, TMA, warp-specialised; its own note
 // below), which reads every operand through a 4D tensor map of its own
 // strides: flash_attention and flash_attention_rope on contiguous (B, H, N,
@@ -364,24 +365,27 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 }
 
 // ---------------------------------------------------------------------------
-// The forward at d = 64 on wgmma and TMA: the main path's attention (DiT
-// sampling, and the training forward) and the two opt-in kernels. With the
-// RoPE pre-pass above it replaces _flash_rope_bhnd_kernel
-// (ldmae_tpu/ops/flash_attention.py, pallas_call at :323), without it
-// _flash_fwd_kernel (:77) at this head dim, with the qk-norm pre-pass
-// _flash_qknorm_rope_kernel (:282), and on (B, N, H*d) rows
-// _flash_rope_kernel (:550); it computes what flash_fwd_kernel<64, false>
-// does, with the same roundings (p to bf16 before it is normalised), the
-// logits scaled inside the exponent's FMA, exp2 by the SFU's ex2.approx.
-// Shapes: (16 or 72, 12, 1024, 64) for all four in sampling at batch 8 or
-// 36, (32, 12, 1024, 64) with lse in training.
+// The forward at d = 64 and d = 72 on wgmma and TMA: the main path's
+// attention (DiT sampling, and the training forward; d = 72 is DiT XL's
+// head dim) and the two opt-in kernels. With the RoPE pre-pass above it
+// replaces _flash_rope_bhnd_kernel (ldmae_tpu/ops/flash_attention.py,
+// pallas_call at :323), without it _flash_fwd_kernel (:77) at these head
+// dims, with the qk-norm pre-pass _flash_qknorm_rope_kernel (:282), and on
+// (B, N, H*d) rows _flash_rope_kernel (:550); it computes what
+// flash_fwd_kernel<DK, false> does, with the same roundings (p to bf16
+// before it is normalised), the logits scaled inside the exponent's FMA,
+// exp2 by the SFU's ex2.approx. Shapes: (16 or 72, 12, 1024, 64) for all
+// four in sampling at batch 8 or 36, (32, 12, 1024, 64) with lse in
+// training; XL (16, 16, 1024, 72) and (32, 16, 1024, 72).
 //
 // What bounds it: at (16, 12, 1024, 64) the two products are 4 b h N^2 d =
 // 5.2e10 flops, 0.052 ms at 989 TFLOP/s, and the softmax's b h N^2 = 2.0e8
 // exponentials take as long on the SFUs (16 a clock per SM, 0.054 ms); the
 // 8 b h N d bytes (0.015 ms) do not bound it. So the design must keep the
 // tensor cores busy while the exponentials run; the mma.sync core neither
-// reached their full rate nor overlapped the two.
+// reached their full rate nor overlapped the two. At (16, 16, 1024, 72) the
+// products are 7.7e10 flops (0.078 ms) against 2.7e8 exponentials (0.065
+// ms at the measured rate): the products bound it.
 //
 // Design (FlashAttention-3's for this head dim): persistent blocks, one per
 // SM, walk work tiles of 192 query rows of one (b, h), the tiles of a head
@@ -394,9 +398,10 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 // mbarriers; Q has its own, released after the tile's last Q K^T, so the
 // next tile's Q and first K and V load while this one finishes. Warpgroups
 // 1 to 3 own 64 query rows each (setmaxnreg: 160 registers, the producer
-// 24). S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
-// memory; the online softmax runs in registers in exp2 units (ex2.approx);
-// P, rounded to bf16, stays in registers as the A operand of O += P V, wgmma
+// 24; at d = 72 warpgroups 1 and 2, 240 registers). S = Q K^T is wgmma
+// m64n128k16 with both operands K-major in shared memory; the online
+// softmax runs in registers in exp2 units (ex2.approx); P, rounded to
+// bf16, stays in registers as the A operand of O += P V, wgmma
 // m64n64k16 with V read MN-major from its (key, d) tile. Each iteration
 // issues Q K^T of this tile and P V of the previous one back to back, and the
 // three warpgroups take turns at issuing through named barriers, so two
@@ -407,6 +412,27 @@ __global__ void __launch_bounds__(kThreads, Shape<DK>::kMinBlocks) flash_fwd_ker
 // masked to -inf in the last tile; rows past n are computed on zeros and not
 // stored (at n = 1024, 128 of the last tile's 192: 1/9 of the work). The
 // epilogue stores O through the output's own row, head and batch strides.
+//
+// d = 72 (kD, a template switch; the d = 64 code is unchanged): a 144-byte
+// row is no 128-byte swizzle row, and 72 is no multiple of wgmma's depth of
+// 16. Each tile is loaded as two boxes of two tensor maps over the same
+// (72, n, h, b) tensor: columns 0-63 under the 128-byte swizzle, as at d =
+// 64, and columns 64-79 as a 16-column box under the 32-byte swizzle (its
+// rows are 32 bytes), stored after the first part; the map's inner extent of
+// 72 makes TMA fill columns 72-79 with zeros. So the d = 64 products run
+// unchanged on the first part, and the second adds one more wgmma of each
+// kind on descriptors of the 32-byte layout (the resident kernel's, below):
+// a fifth k-step of Q K^T (m64n128k16 on the 16 columns, 8 of them zero) and
+// O[:, 64..80) += P V[:, 64..80) (m64n16k16, V MN-major), whose columns
+// 72-79 stay zero and are not stored. The zero columns cost 80/72 of the
+// d = 72 work in the tensor cores; one n = 72 product would need V's 72
+// columns in one swizzle layout, which no box of 144-byte rows gives. A
+// consumer holds 8 more accumulator registers (o, 40): at 160 registers
+// three consumer warpgroups spilled them inside the loop (32 bytes; 0.33 ms
+// of attention at (16, 16, 1024, 72), 0.20 ms with the tail product left
+// out), so d = 72 runs two (128-row work tiles, 240 registers, no spills:
+// 0.23 ms, PERF.md). K and V tiles grow from 16 to 20 KB, a 128-row Q tile
+// is 20 KB: 140 KB of ring and Q.
 
 // 2^x on the SFU (relative error about 2^-22; results below 2^-126 flush to
 // zero, far under the bf16 rounding of p)
@@ -415,17 +441,35 @@ __device__ __forceinline__ float fa_exp2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-constexpr int kFaWG = 3;               // consumer warpgroups, 64 query rows each
-constexpr int kFaRows = 64 * kFaWG;    // query rows per work tile
 constexpr int kFaKeys = 128;           // keys per K/V tile
 constexpr int kFaStages = 3;           // K/V ring depth
-constexpr int kFaTile = kFaKeys * 64 * 2;  // bytes of a K or V tile (128 rows of 64 bf16)
-constexpr int kFaQTile = kFaRows * 64 * 2;  // bytes of a Q tile
-constexpr int kFaThreads = 128 * (kFaWG + 1);
-constexpr int kFaSmem = kFaQTile + 2 * kFaStages * kFaTile + 1024;  // + slack to align to 1 KB
+
+// Geometry by head dim: consumer warpgroups (64 query rows each) and their
+// registers (kWG x 128 x kRegs + 128 x 24 <= 65,536); tile bytes, the
+// 128-byte-swizzled part (columns 0-63) and, at d = 72, the 32-byte-swizzled
+// part (columns 64-79) after it.
+template <int kD>
+struct Fa {
+  static_assert(kD == 64 || kD == 72, "the wgmma forward takes d = 64 or 72");
+  static constexpr bool kTail = kD > 64;
+  static constexpr int kWG = kTail ? 2 : 3;
+  static constexpr int kRows = 64 * kWG;  // query rows per work tile
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kRegs = kWG == 3 ? 160 : 240;
+  static constexpr int kTileMain = kFaKeys * 64 * 2;               // a K or V tile's first part
+  static constexpr int kTile = kTileMain + (kTail ? kFaKeys * 32 : 0);
+  static constexpr int kQMain = kRows * 64 * 2;                    // a Q tile's first part
+  static constexpr int kQTile = kQMain + (kTail ? kRows * 32 : 0);
+  static constexpr int kSmem = kQTile + 2 * kFaStages * kTile + 1024;  // + slack to align to 1 KB
+};
+
+// The maps of columns 64-79 (d = 72); unused at d = 64.
+struct FaTailMaps {
+  CUtensorMap q, k, v;
+};
 
 // grid: one block per SM (at most one per work tile); work tile w is query
-// rows kFaRows (w % qtiles).. of head bh = w / qtiles, (b, h) = (bh / heads,
+// rows kRows (w % qtiles).. of head bh = w / qtiles, (b, h) = (bh / heads,
 // bh % heads) in the maps and in out (element (b, h, row, c) at out.p + b
 // out.sb + h out.sh + row out.sr + c). With kLse (training),
 // the epilogue also writes lse[bh * n + r] = m + log2(l) for rows r < n: the
@@ -433,31 +477,34 @@ constexpr int kFaSmem = kFaQTile + 2 * kFaStages * kFaTile + 1024;  // + slack t
 // logits scaled by scale_log2, which the backward subtracts before its exp2.
 // A template switch, so the sampling path (no lse) runs the same code as
 // before.
-template <bool kLse>
-__global__ void __launch_bounds__(kFaThreads, 1)
+template <int kD, bool kLse>
+__global__ void __launch_bounds__(Fa<kD>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                            const __grid_constant__ CUtensorMap tmap_k,
                            const __grid_constant__ CUtensorMap tmap_v, const Operand out,
-                           float* __restrict__ lse, int bh_count, int heads, int n, float scale_log2) {
+                           float* __restrict__ lse, int bh_count, int heads, int n, float scale_log2,
+                           const __grid_constant__ FaTailMaps tail) {
+  using F = Fa<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* sk = sq + kFaQTile;               // kFaStages tiles
-  unsigned char* sv = sk + kFaStages * kFaTile;    // kFaStages tiles
+  unsigned char* sk = sq + F::kQTile;               // kFaStages tiles
+  unsigned char* sv = sk + kFaStages * F::kTile;    // kFaStages tiles
   __shared__ __align__(8) uint64_t q_full, q_empty, k_full[kFaStages], v_full[kFaStages],
       kv_empty[kFaStages];
 
-  const int ntiles = (n + kFaKeys - 1) / kFaKeys, qtiles = (n + kFaRows - 1) / kFaRows;
+  constexpr int kWG = F::kWG, kRows = F::kRows;
+  const int ntiles = (n + kFaKeys - 1) / kFaKeys, qtiles = (n + kRows - 1) / kRows;
   const int nwork = qtiles * bh_count;
   // broadcast, so that ptxas sees the role branches as warp-uniform
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
     hopper::mbar_init(&q_full, 1);
-    hopper::mbar_init(&q_empty, 4 * kFaWG);  // one arrival per consumer warp
+    hopper::mbar_init(&q_empty, 4 * kWG);  // one arrival per consumer warp
     for (int s = 0; s < kFaStages; ++s) {
       hopper::mbar_init(&k_full[s], 1);
       hopper::mbar_init(&v_full[s], 1);
-      hopper::mbar_init(&kv_empty[s], 4 * kFaWG);
+      hopper::mbar_init(&kv_empty[s], 4 * kWG);
     }
     hopper::fence_mbar_init();
   }
@@ -469,32 +516,44 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, q_phase ^= 1) {
-        const int bh = w / qtiles, q0 = w % qtiles * kFaRows;
+        const int bh = w / qtiles, q0 = w % qtiles * kRows;
         const int bi = bh / heads, hi = bh % heads;
         // the previous work tile's last Q K^T is done with the Q buffer
         hopper::mbar_wait(&q_empty, q_phase ^ 1);
-        hopper::mbar_expect_tx(&q_full, kFaQTile);
+        hopper::mbar_expect_tx(&q_full, F::kQTile);
         hopper::tma_load_4d(sq, &tmap_q, &q_full, 0, q0, hi, bi);
+        if constexpr (F::kTail) hopper::tma_load_4d(sq + F::kQMain, &tail.q, &q_full, 64, q0, hi, bi);
         for (int it = 0; it < ntiles; ++it) {
+          unsigned char* kt = sk + stage * F::kTile;
+          unsigned char* vt = sv + stage * F::kTile;
           hopper::mbar_wait(&kv_empty[stage], phase ^ 1);
-          hopper::mbar_expect_tx(&k_full[stage], kFaTile);
-          hopper::tma_load_4d(sk + stage * kFaTile, &tmap_k, &k_full[stage], 0, it * kFaKeys, hi, bi);
-          hopper::mbar_expect_tx(&v_full[stage], kFaTile);
-          hopper::tma_load_4d(sv + stage * kFaTile, &tmap_v, &v_full[stage], 0, it * kFaKeys, hi, bi);
+          hopper::mbar_expect_tx(&k_full[stage], F::kTile);
+          hopper::tma_load_4d(kt, &tmap_k, &k_full[stage], 0, it * kFaKeys, hi, bi);
+          if constexpr (F::kTail)
+            hopper::tma_load_4d(kt + F::kTileMain, &tail.k, &k_full[stage], 64, it * kFaKeys, hi, bi);
+          hopper::mbar_expect_tx(&v_full[stage], F::kTile);
+          hopper::tma_load_4d(vt, &tmap_v, &v_full[stage], 0, it * kFaKeys, hi, bi);
+          if constexpr (F::kTail)
+            hopper::tma_load_4d(vt + F::kTileMain, &tail.v, &v_full[stage], 64, it * kFaKeys, hi, bi);
           if (++stage == kFaStages) stage = 0, phase ^= 1;
         }
       }
     }
   } else {
-    hopper::reg_alloc<160>();  // 3 x 128 x 160 + 128 x 24 <= 65,536
+    hopper::reg_alloc<F::kRegs>();
     const int c = wg - 1;  // query rows q0 + 64c ..
     const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
-    const uint64_t dq = hopper::desc_sw128(sq + c * (kFaQTile / kFaWG), 16, 1024);
+    const uint64_t dq = hopper::desc_sw128(sq + c * (F::kQMain / kWG), 16, 1024);
     // Accumulator layouts (column block j of 8): s[4j], s[4j+1] at row
     // 16 warp + g, columns 8j + 2t, +1; s[4j+2], s[4j+3] at row + 8; o alike.
     float s[64], o[32];
     uint32_t p[8][4];  // P in bf16, the A fragments of the 8 key steps of 16
+    // d = 72: O's columns 64 + 8j + 2t.. (j = 1: the zero columns 72-79) and Q's
+    // second part, 64 rows of 32 bytes a consumer
+    float ot[F::kTail ? 8 : 1];
+    uint64_t dq_tail = 0;
+    if constexpr (F::kTail) dq_tail = hopper::desc_sw32(sq + F::kQMain + c * 64 * 32, 16, 256);
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
 #pragma unroll
@@ -504,9 +563,9 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     // and then lets the next one issue (bar_arrive on its barrier); c = 0
     // goes first. The arrivals match the syncs: the last warpgroup skips its
     // very last one.
-    if (c == kFaWG - 1) hopper::bar_arrive(1, 256);
+    if (c == kWG - 1) hopper::bar_arrive(1, 256);
     auto turn_end = [&](bool very_last) {
-      if (c < kFaWG - 1 || !very_last) hopper::bar_arrive(1 + (c + 1) % kFaWG, 256);
+      if (c < kWG - 1 || !very_last) hopper::bar_arrive(1 + (c + 1) % kWG, 256);
     };
     float m0, m1, l0, l1;  // running max of rows g and g+8 (log2 units), this thread's row sums
     // The softmax of the S tile in s, up to P: masks keys past n (valid of
@@ -555,6 +614,12 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         o[4 * i + 2] *= a1;
         o[4 * i + 3] *= a1;
       }
+      if constexpr (F::kTail) {  // ot[4..7], the zero columns, stay zero
+        ot[0] *= a0;
+        ot[1] *= a0;
+        ot[2] *= a1;
+        ot[3] *= a1;
+      }
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         p[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
@@ -564,17 +629,36 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     auto fence_all = [&]() {
       hopper::fence_regs(s);
       hopper::fence_regs(o);
+      if constexpr (F::kTail) hopper::fence_regs(ot);
 #pragma unroll
       for (int i = 0; i < 8; ++i) hopper::fence_regs(p[i]);  // read by P V until its wait
+    };
+    // O += P V of the tile in stage st: V MN-major, 16 keys = 2 KB of the
+    // first part (512 bytes of the second)
+    auto pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_m64n64k16_rs(
+            o, p[kk], hopper::desc_sw128(sv + st * F::kTile + kk * 2048, F::kTileMain, 1024), 1);
+      if constexpr (F::kTail) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_m64n16k16_rs(
+              ot, p[kk], hopper::desc_sw32(sv + st * F::kTile + F::kTileMain + kk * 512, kFaKeys * 32, 256), 1);
+      }
     };
 
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
     for (int w = blockIdx.x; w < nwork; w += gridDim.x, q_phase ^= 1) {
-      const int bh = w / qtiles, q0 = w % qtiles * kFaRows;
+      const int bh = w / qtiles, q0 = w % qtiles * kRows;
       const bool last_work = w + (int)gridDim.x >= nwork;
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      if constexpr (F::kTail) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+      }
       m0 = m1 = -INFINITY;
       l0 = l1 = 0.f;
       hopper::mbar_wait(&q_full, q_phase);
@@ -589,15 +673,13 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         if (it > 0) hopper::mbar_wait(&v_full[prev], prev_phase);
         hopper::bar_sync(1 + c, 256);
         hopper::wgmma_fence();
-        const uint64_t dk = hopper::desc_sw128(sk + stage * kFaTile, 16, 1024);
+        const uint64_t dk = hopper::desc_sw128(sk + stage * F::kTile, 16, 1024);
 #pragma unroll
         for (int k = 0; k < 4; ++k) hopper::wgmma_m64n128k16_ss(s, dq + 2 * k, dk + 2 * k, k > 0);
-        if (it > 0) {
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk)  // V MN-major: 16 keys = 2 KB
-            hopper::wgmma_m64n64k16_rs(
-                o, p[kk], hopper::desc_sw128(sv + prev * kFaTile + kk * 2048, kFaTile, 1024), 1);
-        }
+        if constexpr (F::kTail)  // the fifth k-step: columns 64-79 (72-79 zero)
+          hopper::wgmma_m64n128k16_ss(s, dq_tail,
+                                      hopper::desc_sw32(sk + stage * F::kTile + F::kTileMain, 16, 256), 1);
+        if (it > 0) pv(prev);
         hopper::wgmma_commit();
         turn_end(last_work && it + 1 == ntiles);
         hopper::wgmma_wait<0>();
@@ -615,10 +697,7 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       }
       hopper::mbar_wait(&v_full[prev], prev_phase);
       hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        hopper::wgmma_m64n64k16_rs(
-            o, p[kk], hopper::desc_sw128(sv + prev * kFaTile + kk * 2048, kFaTile, 1024), 1);
+      pv(prev);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       fence_all();
@@ -641,54 +720,70 @@ __global__ void __launch_bounds__(kFaThreads, 1)
         if (r0 < n) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
         if (r1 < n) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
       }
+      if constexpr (F::kTail) {  // columns 64 + 2t, +1
+        if (r0 < n) *reinterpret_cast<uint32_t*>(o0 + 64 + 2 * t) = pack_bf16(ot[0] * inv0, ot[1] * inv0);
+        if (r1 < n) *reinterpret_cast<uint32_t*>(o1 + 64 + 2 * t) = pack_bf16(ot[2] * inv1, ot[3] * inv1);
+      }
     }
   }
 }
 
-// Tensor map of a contiguous (bh, n, 64) bf16 tensor, copied in boxes of
-// `rows` rows of one (b, h): the d = 64 backward's operands.
-cudaError_t tmap_rows64(CUtensorMap* map, const void* p, int bh, int n, int rows) {
-  const cuuint64_t dims[3] = {64, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)n * 64 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  return hopper::make_tmap_bf16(map, p, 3, dims, strides, box);
+// Tensor map of a contiguous (bh, n, d) bf16 tensor, copied in boxes of
+// `rows` rows of one (b, h) and `cols` columns (64 under the 128-byte
+// swizzle, or 16 under the 32-byte one: d = 72's columns 64-79): the
+// single-pass backward's operands.
+cudaError_t tmap_rows(CUtensorMap* map, const void* p, int d, int bh, int n, int rows, int cols = 64,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  return hopper::make_tmap_bf16(map, p, 3, dims, strides, box, swizzle);
 }
 
 // Tensor map of one operand of the wgmma forward, element (b, h, row, c) at
-// x.p + b x.sb + h x.sh + row x.sr + c (c < 64): a 4D map over (64, n,
+// x.p + b x.sb + h x.sh + row x.sr + c (c < d): a 4D map over (d, n,
 // heads, batch) with the operand's own byte strides, copied in boxes of
-// `rows` rows of one (b, h). TMA takes the strides in any order (#8's head
-// stride, 128 bytes, is below its row stride) if each is a multiple of 16
-// bytes; a single head takes the batch stride (attn::contiguous gives it
-// 0). The map's n dimension ends each (b, h), so rows past n arrive as
-// zeros, as with the backward's 3D maps.
-cudaError_t tmap_heads64(CUtensorMap* map, const Operand& x, int batch, int heads, int n, int rows) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+// `rows` rows of one (b, h) and `cols` columns (as tmap_rows). TMA takes
+// the strides in any order (#8's head stride, 128 bytes, is below its row
+// stride) if each is a multiple of 16 bytes; a single head takes the batch
+// stride (attn::contiguous gives it 0). The map's n dimension ends each (b,
+// h), so rows past n arrive as zeros, as with the backward's 3D maps; its
+// d dimension ends each row, so at d = 72 columns 72-79 arrive as zeros.
+cudaError_t tmap_heads(CUtensorMap* map, const Operand& x, int d, int batch, int heads, int n, int rows,
+                       int cols = 64, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)x.sr * 2, (cuuint64_t)(heads > 1 ? x.sh : x.sb) * 2,
                                  (cuuint64_t)x.sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return hopper::make_tmap_bf16(map, x.p, 4, dims, strides, box);
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  return hopper::make_tmap_bf16(map, x.p, 4, dims, strides, box, swizzle);
 }
 
-// The wgmma forward (a.d = 64, a.vec = 8: every base and stride a multiple
+// The wgmma forward (a.d = kD, a.vec = 8: every base and stride a multiple
 // of 16 bytes) over bh = batch * a.heads heads; with lse (not null) also the
 // (bh, n) fp32 log2 denominators.
+template <int kD>
 cudaError_t launch_wgmma(const AttnArgs& a, float* lse, int bh, cudaStream_t stream) {
+  using F = Fa<kD>;
   const int batch = bh / a.heads;
   CUtensorMap maps[3];
+  FaTailMaps tail{};
+  CUtensorMap* tails[3] = {&tail.q, &tail.k, &tail.v};
   const Operand* ops[3] = {&a.q, &a.k, &a.v};
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t e = tmap_heads64(&maps[i], *ops[i], batch, a.heads, a.n, i ? kFaKeys : kFaRows);
+    const int rows = i ? kFaKeys : F::kRows;
+    cudaError_t e = tmap_heads(&maps[i], *ops[i], kD, batch, a.heads, a.n, rows);
+    if (e == cudaSuccess && F::kTail)
+      e = tmap_heads(tails[i], *ops[i], kD, batch, a.heads, a.n, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B);
     if (e != cudaSuccess) return e;
   }
-  auto kernel = lse ? flash_fwd_wgmma_kernel<true> : flash_fwd_wgmma_kernel<false>;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
+  auto kernel = lse ? flash_fwd_wgmma_kernel<kD, true> : flash_fwd_wgmma_kernel<kD, false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
   if (e != cudaSuccess) return e;
-  const long long work = (long long)(a.n + kFaRows - 1) / kFaRows * bh;
+  const long long work = (long long)(a.n + F::kRows - 1) / F::kRows * bh;
   const int sms = hopper::sm_count();
   const int grid = work < sms ? (int)work : sms;
-  kernel<<<grid, kFaThreads, kFaSmem, stream>>>(maps[0], maps[1], maps[2], a.o, lse, bh, a.heads, a.n,
-                                                a.scale_log2);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(maps[0], maps[1], maps[2], a.o, lse, bh, a.heads, a.n,
+                                                 a.scale_log2, tail);
   return cudaGetLastError();
 }
 
@@ -959,11 +1054,12 @@ AttnArgs contiguous_args(const void* q, const void* k, const void* v, void* out,
                    contiguous<bf16>(out, n, d), 1, n, d, vec);
 }
 
-// The forward of bh heads by shape: the wgmma kernel at d = 64 with 16-byte
-// aligned rows and strides (any layout of the operands), the mma.sync core
-// otherwise, which writes no lse.
+// The forward of bh heads by shape: the wgmma kernel at d = 64 or 72 with
+// 16-byte aligned rows and strides (any layout of the operands), the
+// mma.sync core otherwise, which writes no lse.
 cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
-  if (a.d == 64 && a.vec == 8) return launch_wgmma(a, lse, bh, s);
+  if (a.d == 64 && a.vec == 8) return launch_wgmma<64>(a, lse, bh, s);
+  if (a.d == 72 && a.vec == 8) return launch_wgmma<72>(a, lse, bh, s);
   if (lse != nullptr) return cudaErrorInvalidValue;
   return dispatch(a, bh, s);
 }
@@ -980,16 +1076,17 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 // block's shared memory here, so the work is split over key tiles, and no
 // (N, N) tensor is written. Two designs, chosen by head dim:
 //
-// d = 64 (DiT B to 1p6B: the training path), single pass on wgmma and TMA
-// (FlashAttention-3's decomposition), in the section "Backward at d = 64"
-// below: the forward saves lse (flash_fwd_wgmma_kernel<true>) and its bf16
+// d = 64 and 72 (DiT B to 1p6B, and XL: the training path), single pass on
+// wgmma and TMA (FlashAttention-3's decomposition), in the section "Backward
+// at d = 64 and 72" below: the forward saves lse (flash_fwd_wgmma_kernel<kD,
+// true>) and its bf16
 // output; a preprocess kernel forms delta = rowsum(g * o) from them and
 // zeroes an fp32 dq accumulator; flash_bwd_wgmma_kernel does the 10 b h N^2
 // d operations once, dq summed across key-tile blocks by atomic adds; a
 // postprocess kernel scales dq (and applies the RoPE Jacobian) into bf16.
 //
 // Every other head dim (1 <= d <= 128, in the classes of the forward core:
-// VMAE d = 8 to 80, DiT XL 72), three passes on mma.sync (this section),
+// VMAE d = 8 to 80), three passes on mma.sync (this section),
 // deterministic (no atomics):
 //   1. statistics: the forward kernel (flash_fwd_kernel<DK, true>) recomputes
 //      the softmax row maximum and denominator as lse, and delta = rowsum(g *
@@ -1004,13 +1101,13 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 //      dq += ds k.
 // It does 18 b h N^2 d operations (the statistics pass repeats the
 // forward's two products, and passes 2 and 3 both recompute q k^T and g
-// v^T); at these head dims it runs in the VMAE's and XL's training only,
-// which the port does not drive yet.
+// v^T); at these head dims it runs in the VMAE's training only (under
+// attn_impl "flash", which no CLI passes).
 //
 // Rounding (both designs): p and ds are rounded to bf16 as the A operand of
 // the dv, dk and dq products; the TPU kernel keeps p, dp and ds in fp32. dq,
 // dk, dv are fp32 until one rounding to bf16 at the end. delta comes from the
-// forward's bf16 output at d = 64 and from its fp32 output here.
+// forward's bf16 output at d = 64 and 72 and from its fp32 output here.
 //
 // RoPE (flash_attention_rope_trainable): q and k are rotated once by the
 // forward's pre-pass (norm_rope_kernel, no norm) into bf16 scratch, as the
@@ -1352,8 +1449,8 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 }
 
 // ---------------------------------------------------------------------------
-// Backward at d = 64: flash_attention_bwd and flash_attention_rope_bwd on the
-// DiT training path, FlashAttention-3's single pass on wgmma and TMA.
+// Backward at d = 64 and 72: flash_attention_bwd and flash_attention_rope_bwd
+// on the DiT training path, FlashAttention-3's single pass on wgmma and TMA.
 //
 // What bounds it, at the DiT B/1 training shapes (b h N d = 32 12 1024 64):
 // the five products are 10 b h N^2 d = 2.58e11 flops, 0.261 ms at 989
@@ -1362,21 +1459,22 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 // per SM). Operations bound it. The three-pass design above does 18 b h N^2
 // d on mma.sync, which neither reaches the tensor cores' rate nor keeps them
 // busy while the exponentials run, and the forward had to be run again
-// because it saved no lse.
+// because it saved no lse. At XL's (32, 16, 1024, 72): 3.87e11 flops, 0.391
+// ms; 5.4e8 exponentials, 0.13 ms; 604 MB, 0.18 ms: operations again.
 //
 // Design:
-//   * the forward (flash_fwd_wgmma_kernel<true>) writes lse, and the
+//   * the forward (flash_fwd_wgmma_kernel<kD, true>) writes lse, and the
 //     autograd Functions save it and the bf16 output;
 //   * flash_bwd_preprocess_kernel: delta = rowsum(g * o) in fp32 from the
 //     bf16 o; lse copied into a row-padded (bh, npad) array with +inf past
-//     n; the fp32 dq accumulator (bh, npad, 64) zeroed. One pass over g and
+//     n; the fp32 dq accumulator (bh, npad, d) zeroed. One pass over g and
 //     o, 8 lanes a row, 16-byte loads;
-//   * flash_bwd_wgmma_kernel<kRope>: one block per (128-key tile, b h), the
+//   * flash_bwd_wgmma_kernel<kD, kRope>: one block per (128-key tile, b h), the
 //     key tiles of a head adjacent in the grid, so that all of them read the
 //     head's q and g tiles from L2. Warpgroup 0 is the producer (setmaxnreg
 //     24): one thread loads the block's K and V tiles once, then streams
 //     64-query tiles of q and g (TMA, 128-byte swizzle, 3D tensor maps over
-//     (bh, n, 64): rows past n arrive as zeros) with their lse and delta rows
+//     (bh, n, d): rows past n arrive as zeros) with their lse and delta rows
 //     (bulk copies) through a ring of kBwStages stages under full and empty
 //     mbarriers. Warpgroups 1 and 2 own 64 keys each (setmaxnreg 240). Per
 //     query tile a consumer issues S^T = K Q^T and dP^T = V G^T (m64n64k16,
@@ -1407,39 +1505,78 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 //     shared memory, the merge even deferred by a tile) before one
 //     reduction ran slower, though it halved the reduced bytes; issuing the
 //     next tile's S^T and dP^T before waiting for dV and dK gained nothing;
-//   * flash_bwd_postprocess_kernel<kRope>: dq = bf16(J^T(dq_acc d^-1/2)).
+//   * flash_bwd_postprocess_kernel<kD, kRope>: dq = bf16(J^T(dq_acc d^-1/2)).
 // The eight key-tile blocks of a head add into dq in an order that changes
 // from run to run, so dq is not bitwise reproducible (dk and dv are).
+//
+// d = 72 (kD; the d = 64 code is unchanged): every tile of K, V, q and g is
+// loaded as the forward's two boxes, columns 0-63 (128-byte swizzle) and
+// 64-79 (32-byte swizzle, 72-79 zero-filled by TMA) after them. S^T and
+// dP^T take a fifth k-step on the second parts; dV and dK a second product,
+// m64n16k16 into 8 more registers each (columns 64-79; 72-79 stay zero and
+// are not stored); dQ's columns 64-79 are one more m64n16k16 (dS and K's
+// second part both MN-major), split by keys, not columns: each consumer sums
+// its own 64 keys (4 k-steps) into a 64 x 8 part that it adds into the
+// accumulator with a second bulk reduction, so both consumers issue the same
+// products (no branch on the warpgroup around a product) and the two
+// partial sums meet in the accumulator's fp32 adds. The accumulator of a
+// (b h, 64-query tile) holds 64 x 72 values as the two 64 x 32 parts and
+// the 64 x 8 part (2 KB, 32-byte rows) after them. The RoPE pairs c with c
+// + 36, in another thread: dK d^-1/2 is staged in fp32 in shared memory
+// (64 x 72 a consumer) for the Jacobian, and the postprocess pairs c with c
+// + 36 across the parts. Registers: dK and dV 40 each, dQ 24.
 
 constexpr int kBwKeys = 128;                   // keys per block, 64 per consumer warpgroup
 constexpr int kBwQ = 64;                       // queries per streamed tile
 constexpr int kBwStages = 3;                   // q/g ring depth
-constexpr int kBwKTile = kBwKeys * 128;        // bytes of a K or V tile (rows of 64 bf16)
-constexpr int kBwQTile = kBwQ * 128;           // bytes of a q or g tile
 constexpr int kBwDsTile = kBwKeys * kBwQ * 2;  // bytes of a dS^T staging tile
 constexpr int kBwDqPart = kBwQ * 32;           // fp32 values of a warpgroup's dQ part (64 x 32)
 constexpr int kBwThreads = 384;
-constexpr int kBwSmem = 2 * kBwKTile + 2 * kBwStages * kBwQTile + 2 * kBwDsTile + 4 * kBwDqPart * 4 +
-                        2 * kBwStages * kBwQ * 4 + 1024;
 
-// Offset in the dq accumulator of the dQ part (query tile qt, columns 32 c..)
-// of (b, h) bh: the parts lie in the order (bh, query tile, c), each 64 rows
-// of 32 values, row r's 8-value block j stored at block j ^ (r % 4) (so that
-// the consumers' stores to its staging copy in shared memory hit every bank).
+// Shared-memory bytes by head dim; at d = 72 each tile adds its 32-byte-row
+// second part, and the dQ parts of columns 64-71 and the dK staging follow.
+template <int kD>
+struct Bw {
+  static_assert(kD == 64 || kD == 72, "the single-pass backward takes d = 64 or 72");
+  static constexpr bool kTail = kD > 64;
+  static constexpr int kKMain = kBwKeys * 128;                      // a K or V tile's first part
+  static constexpr int kKTile = kKMain + (kTail ? kBwKeys * 32 : 0);
+  static constexpr int kQMain = kBwQ * 128;                         // a q or g tile's first part
+  static constexpr int kQTile = kQMain + (kTail ? kBwQ * 32 : 0);
+  static constexpr int kDqTail = kTail ? kBwQ * 8 : 0;              // fp32 values of a dQ part of columns 64-71
+  static constexpr int kStRow = 76;                                 // fp32 row stride of the dK staging
+  static constexpr int kDkStage = kTail ? 64 * kStRow : 0;          // fp32 values of a consumer's dK staging
+  static constexpr int kSmem = 2 * kKTile + 2 * kBwStages * kQTile + 2 * kBwDsTile + 4 * kBwDqPart * 4 +
+                               2 * kBwStages * kBwQ * 4 + 4 * kDqTail * 4 + 2 * kDkStage * 4 + 1024;
+};
+
+// Offset in the dq accumulator of the dQ part (query tile qt; c = 0, 1: columns
+// 32 c..; c = 2 at d = 72: columns 64-71) of (b, h) bh: the parts of a
+// query tile lie together in the order (bh, query tile), 64 x kD values,
+// each 64 x 32 part's row r's 8-value block j stored at block j ^ (r % 4)
+// (so that the consumers' stores to its staging copy in shared memory hit
+// every bank), the 64 x 8 part in plain rows.
+template <int kD>
 __host__ __device__ __forceinline__ long long dq_part(long long bh, int nq, int qt, int c) {
-  return ((bh * nq + qt) * 2 + c) * kBwDqPart;
+  return (bh * nq + qt) * (kBwQ * kD) + c * kBwDqPart;
 }
 
-struct Bwd64Args {
-  float* dq_acc;             // bh npad 64 fp32 as dQ parts (dq_part), zeroed; dq summed here
-  bf16 *dk, *dv;             // (bh, n, 64), written
+struct BwdWgmmaArgs {
+  float* dq_acc;             // bh npad d fp32 as dQ parts (dq_part), zeroed; dq summed here
+  bf16 *dk, *dv;             // (bh, n, d), written
   const float *lse, *delta;  // (bh, npad): lse +inf and delta 0 past n
-  const float *cos, *sin;    // (n, 64) fp32 half-split tables (kRope only)
+  const float *cos, *sin;    // (n, d) fp32 half-split tables (kRope only)
   int n, npad;
   float scale_log2, scale;
 };
 
+// The maps of columns 64-79 (d = 72); unused at d = 64.
+struct BwTailMaps {
+  CUtensorMap q, k, v, g;
+};
+
 // grid: (rows / 32, 256 threads), eight lanes a row; rows = bh * npad.
+template <int kD>
 __global__ void __launch_bounds__(256)
     flash_bwd_preprocess_kernel(const bf16* __restrict__ go, const bf16* __restrict__ o,
                                 const float* __restrict__ lse_fwd, float* __restrict__ lse,
@@ -1450,20 +1587,32 @@ __global__ void __launch_bounds__(256)
   const long long bh = row / npad;
   const int r = (int)(row % npad);
   float acc = 0.f;
-  if (row < rows && r < n) {
-    const long long off = (bh * n + r) * 64 + 8 * j;
+  // the 8-value chunk ch of the row: lane j's is j (at d = 72 lane 0 also adds the ninth)
+  auto chunk = [&](int ch) {
+    const long long off = (bh * n + r) * kD + 8 * ch;
     const uint4 gu = *reinterpret_cast<const uint4*>(go + off);
     const uint4 ou = *reinterpret_cast<const uint4*>(o + off);
     const bf16* ge = reinterpret_cast<const bf16*>(&gu);
     const bf16* oe = reinterpret_cast<const bf16*>(&ou);
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc += __bfloat162float(ge[e]) * __bfloat162float(oe[e]);
+  };
+  if (row < rows && r < n) {
+    chunk(j);
+    if constexpr (kD == 72) {
+      if (j == 0) chunk(8);
+    }
   }
 #pragma unroll
   for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m, 8);
   if (row >= rows) return;
-  float4* z = reinterpret_cast<float4*>(dq_acc + row * 64 + 8 * j);
-  z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kD == 64) {
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * 64 + 8 * j);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {  // the row's kD values of the accumulator, as a flat range (the parts tile it)
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * kD);
+    for (int f = j; f < kD / 4; f += 8) z[f] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (j == 0) {
     delta[row] = acc;
     lse[row] = r < n ? lse_fwd[bh * n + r] : INFINITY;
@@ -1471,22 +1620,26 @@ __global__ void __launch_bounds__(256)
 }
 
 // grid: (ceil(n / 128), bh); see the note above.
-template <bool kRope>
+template <int kD, bool kRope>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                            const __grid_constant__ CUtensorMap tmap_k,
                            const __grid_constant__ CUtensorMap tmap_v,
-                           const __grid_constant__ CUtensorMap tmap_g, const Bwd64Args a) {
+                           const __grid_constant__ CUtensorMap tmap_g, const BwdWgmmaArgs a,
+                           const __grid_constant__ BwTailMaps tail) {
+  using B = Bw<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* sv = sk + kBwKTile;
-  unsigned char* sq = sv + kBwKTile;                 // kBwStages tiles
-  unsigned char* sg = sq + kBwStages * kBwQTile;     // kBwStages tiles
-  unsigned char* sds = sg + kBwStages * kBwQTile;    // two dS^T staging tiles
+  unsigned char* sv = sk + B::kKTile;
+  unsigned char* sq = sv + B::kKTile;                // kBwStages tiles
+  unsigned char* sg = sq + kBwStages * B::kQTile;    // kBwStages tiles
+  unsigned char* sds = sg + kBwStages * B::kQTile;   // two dS^T staging tiles
   float* sdq = reinterpret_cast<float*>(sds + 2 * kBwDsTile);  // dQ parts, two per consumer
   float* sl = sdq + 4 * kBwDqPart;                             // lse rows, kBwStages x kBwQ
   float* sd = sl + kBwStages * kBwQ;                           // delta rows, likewise
+  float* sdqt = sd + kBwStages * kBwQ;  // d = 72: dQ parts of columns 64-71, two per consumer
+  float* sdk = sdqt + 4 * B::kDqTail;   // d = 72 with RoPE: dK d^-1/2 staged, one per consumer
   __shared__ __align__(8) uint64_t kv_full, full[kBwStages], empty[kBwStages];
 
   const int n = a.n, bh = blockIdx.y, k0 = blockIdx.x * kBwKeys;
@@ -1506,18 +1659,28 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   if (wg == 0) {
     hopper::reg_dealloc<24>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(&kv_full, 2 * kBwKTile);
+      hopper::mbar_expect_tx(&kv_full, 2 * B::kKTile);
       hopper::tma_load_3d(sk, &tmap_k, &kv_full, 0, k0, bh);
       hopper::tma_load_3d(sv, &tmap_v, &kv_full, 0, k0, bh);
+      if constexpr (B::kTail) {
+        hopper::tma_load_3d(sk + B::kKMain, &tail.k, &kv_full, 64, k0, bh);
+        hopper::tma_load_3d(sv + B::kKMain, &tail.v, &kv_full, 64, k0, bh);
+      }
       const long long row0 = (long long)bh * a.npad;
       int stage = 0;
       uint32_t phase = 0;
       for (int it = 0; it < nq; ++it) {
+        unsigned char* qt = sq + stage * B::kQTile;
+        unsigned char* gt = sg + stage * B::kQTile;
         hopper::mbar_wait(&empty[stage], phase ^ 1);
-        hopper::mbar_expect_tx(&full[stage], 2 * kBwQTile + 2 * kBwQ * 4);
+        hopper::mbar_expect_tx(&full[stage], 2 * B::kQTile + 2 * kBwQ * 4);
         const int q0 = it * kBwQ;
-        hopper::tma_load_3d(sq + stage * kBwQTile, &tmap_q, &full[stage], 0, q0, bh);
-        hopper::tma_load_3d(sg + stage * kBwQTile, &tmap_g, &full[stage], 0, q0, bh);
+        hopper::tma_load_3d(qt, &tmap_q, &full[stage], 0, q0, bh);
+        hopper::tma_load_3d(gt, &tmap_g, &full[stage], 0, q0, bh);
+        if constexpr (B::kTail) {
+          hopper::tma_load_3d(qt + B::kQMain, &tail.q, &full[stage], 64, q0, bh);
+          hopper::tma_load_3d(gt + B::kQMain, &tail.g, &full[stage], 64, q0, bh);
+        }
         hopper::bulk_load(sl + stage * kBwQ, a.lse + row0 + q0, kBwQ * 4, &full[stage]);
         hopper::bulk_load(sd + stage * kBwQ, a.delta + row0 + q0, kBwQ * 4, &full[stage]);
         if (++stage == kBwStages) stage = 0, phase ^= 1;
@@ -1530,8 +1693,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   const int c = wg - 1;      // keys k0 + 64c ..
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const uint64_t kdesc = hopper::desc_sw128(sk + c * (kBwKTile / 2), 16, 1024);
-  const uint64_t vdesc = hopper::desc_sw128(sv + c * (kBwKTile / 2), 16, 1024);
+  const uint64_t kdesc = hopper::desc_sw128(sk + c * (B::kKMain / 2), 16, 1024);
+  const uint64_t vdesc = hopper::desc_sw128(sv + c * (B::kKMain / 2), 16, 1024);
   const float scale_log2 = a.scale_log2;
   // Accumulator layouts (column block j of 8): x[4j], x[4j+1] at row 16 warp
   // + g, columns 8j + 2t, +1; x[4j+2], x[4j+3] at row + 8. Rows of s, dp, dk,
@@ -1540,6 +1703,17 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   // 32c + 8j + 2t.
   float dk[32], dv[32], s[32], dp[32], dq[16];
   uint32_t pf[4][4], df[4][4];  // P^T and dS^T in bf16: the A fragments of 4 query steps of 16
+  // d = 72: columns 64 + 8j + 2t of dK, dV and dQ (j = 1: the zero columns
+  // 72-79), and the second parts of K and V, 64 rows of 32 bytes a consumer
+  constexpr int kT = B::kTail ? 8 : 1;
+  float dkt[kT], dvt[kT], dqt[kT];
+  uint64_t kdesc_tail = 0, vdesc_tail = 0;
+  if constexpr (B::kTail) {
+    kdesc_tail = hopper::desc_sw32(sk + B::kKMain + c * 64 * 32, 16, 256);
+    vdesc_tail = hopper::desc_sw32(sv + B::kKMain + c * 64 * 32, 16, 256);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dkt[i] = dvt[i] = dqt[i] = 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = s[i] = dp[i] = 0.f;
 #pragma unroll
@@ -1551,6 +1725,11 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     hopper::fence_regs(dq);
     hopper::fence_regs(dk);
     hopper::fence_regs(dv);
+    if constexpr (B::kTail) {
+      hopper::fence_regs(dqt);
+      hopper::fence_regs(dkt);
+      hopper::fence_regs(dvt);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // read by dV and dK until their wait
       hopper::fence_regs(pf[i]);
@@ -1563,8 +1742,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   uint32_t phase = 0;
   for (int it = 0; it < nq; ++it) {
     hopper::mbar_wait(&full[stage], phase);
-    const unsigned char* qt = sq + stage * kBwQTile;
-    const unsigned char* gt = sg + stage * kBwQTile;
+    const unsigned char* qt = sq + stage * B::kQTile;
+    const unsigned char* gt = sg + stage * B::kQTile;
     const float* lt = sl + stage * kBwQ;
     const float* dt = sd + stage * kBwQ;
     unsigned char* st = sds + (it & 1) * kBwDsTile;
@@ -1574,9 +1753,13 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(s, kdesc + 2 * k, qdesc + 2 * k, k > 0);
+    if constexpr (B::kTail)  // the fifth k-step: columns 64-79 (72-79 zero)
+      hopper::wgmma_m64n64k16_ss(s, kdesc_tail, hopper::desc_sw32(qt + B::kQMain, 16, 256), 1);
     hopper::wgmma_commit();
 #pragma unroll
     for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(dp, vdesc + 2 * k, gdesc + 2 * k, k > 0);
+    if constexpr (B::kTail)
+      hopper::wgmma_m64n64k16_ss(dp, vdesc_tail, hopper::desc_sw32(gt + B::kQMain, 16, 256), 1);
     hopper::wgmma_commit();
 
     // P^T = exp2(S^T scale - lse) while dP^T runs
@@ -1592,11 +1775,16 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
       pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
     }
-    // dV += P^T G, G MN-major: 16 queries = 2 KB
+    // dV += P^T G, G MN-major: 16 queries = 2 KB (512 bytes of the second part)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_rs(dv, pf[kk], hopper::desc_sw128(gt + kk * 2048, kBwQTile, 1024), 1);
+      hopper::wgmma_m64n64k16_rs(dv, pf[kk], hopper::desc_sw128(gt + kk * 2048, B::kQMain, 1024), 1);
+    if constexpr (B::kTail) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n16k16_rs(dvt, pf[kk], hopper::desc_sw32(gt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
+    }
     hopper::wgmma_commit();
 
     // dS^T = P^T (dP^T - delta) while dV runs; into df and the staging tile
@@ -1617,19 +1805,34 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_rs(dk, df[kk], hopper::desc_sw128(qt + kk * 2048, kBwQTile, 1024), 1);
+      hopper::wgmma_m64n64k16_rs(dk, df[kk], hopper::desc_sw128(qt + kk * 2048, B::kQMain, 1024), 1);
+    if constexpr (B::kTail) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n16k16_rs(dkt, df[kk], hopper::desc_sw32(qt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
+    }
     hopper::wgmma_commit();
 
     // dQ[:, 32c..] = dS K over the block's 128 keys, once both consumers'
     // dS^T rows are in the staging tile: dS^T and K both MN-major, 16 keys
-    // = 2 KB, this warpgroup's 32 columns 64 bytes into K's rows
+    // = 2 KB, this warpgroup's 32 columns 64 bytes into K's rows; at d = 72
+    // also dQ[:, 64..80) over this warpgroup's 64 keys (16 keys = 512 bytes
+    // of K's second part)
     hopper::fence_proxy_async();
     hopper::bar_sync(1, 256);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
       hopper::wgmma_m64n32k16_ss_tt(dq, hopper::desc_sw128(st + kk * 2048, kBwDsTile, 1024),
-                                    hopper::desc_sw128(sk + kk * 2048 + c * 64, kBwKTile, 1024), kk > 0);
+                                    hopper::desc_sw128(sk + kk * 2048 + c * 64, B::kKMain, 1024), kk > 0);
+    if constexpr (B::kTail) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ks = 4 * c + kk;  // this warpgroup's key steps
+        hopper::wgmma_m64n16k16_ss_tt(dqt, hopper::desc_sw128(st + ks * 2048, kBwDsTile, 1024),
+                                      hopper::desc_sw32(sk + B::kKMain + ks * 512, kBwKeys * 32, 256), kk > 0);
+      }
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     fence_all();
@@ -1647,12 +1850,19 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       *reinterpret_cast<float2*>(part + row * 32 + blk) = make_float2(dq[4 * j], dq[4 * j + 1]);
       *reinterpret_cast<float2*>(part + (row + 8) * 32 + blk) = make_float2(dq[4 * j + 2], dq[4 * j + 3]);
     }
+    float* part_t = sdqt + (c * 2 + (it & 1)) * B::kDqTail;
+    if constexpr (B::kTail) {  // columns 64-71: rows of 8 values
+      *reinterpret_cast<float2*>(part_t + row * 8 + 2 * t) = make_float2(dqt[0], dqt[1]);
+      *reinterpret_cast<float2*>(part_t + (row + 8) * 8 + 2 * t) = make_float2(dqt[2], dqt[3]);
+    }
     hopper::fence_proxy_async();
     const bool leader = threadIdx.x % 128 == 0;
     if (leader) hopper::bulk_wait_read<0>();
     hopper::bar_sync(2 + c, 128);
     if (leader) {
-      hopper::bulk_reduce_add_f32(a.dq_acc + dq_part(bh, nq, it, c), part, kBwDqPart * 4);
+      hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, c), part, kBwDqPart * 4);
+      if constexpr (B::kTail)
+        hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 2), part_t, B::kDqTail * 4);
       hopper::bulk_commit();
     }
     if (++stage == kBwStages) stage = 0, phase ^= 1;
@@ -1661,11 +1871,15 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 
   // dV, and dK d^-1/2 (with kRope J^T of it), in bf16 for keys < n
   const int r0 = k0 + srow, r1 = r0 + 8;
-  bf16* dvb = a.dv + (long long)bh * n * 64;
-  bf16* dkb = a.dk + (long long)bh * n * 64;
+  bf16* dvb = a.dv + (long long)bh * n * kD;
+  bf16* dkb = a.dk + (long long)bh * n * kD;
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] *= a.scale;
-  if (kRope) {
+  if constexpr (B::kTail) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dkt[i] *= a.scale;
+  }
+  if (kD == 64 && kRope) {
     // columns c < 32 pair with c + 32 (block j with j + 4), in this thread:
     // out_lo = y_lo cos_lo + y_hi sin_hi, out_hi = y_hi cos_hi - y_lo sin_lo
 #pragma unroll
@@ -1697,98 +1911,173 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   for (int j = 0; j < 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (r0 < n) {
-      *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * 64 + col) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * 64 + col) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + col) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      if (kD == 64 || !kRope)
+        *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + col) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
     }
     if (r1 < n) {
-      *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * 64 + col) =
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + col) =
           pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
-      *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * 64 + col) =
-          pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+      if (kD == 64 || !kRope)
+        *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + col) =
+            pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+    }
+  }
+  if constexpr (B::kTail) {  // columns 64 + 2t, +1
+    if (r0 < n) *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + 64 + 2 * t) = pack_bf16(dvt[0], dvt[1]);
+    if (r1 < n) *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + 64 + 2 * t) = pack_bf16(dvt[2], dvt[3]);
+    if constexpr (!kRope) {
+      if (r0 < n) *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + 64 + 2 * t) = pack_bf16(dkt[0], dkt[1]);
+      if (r1 < n) *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + 64 + 2 * t) = pack_bf16(dkt[2], dkt[3]);
+    } else {
+      // c pairs with c + 36, in another thread: this warpgroup's 64 x 72
+      // rows of dK d^-1/2 through shared memory, then J^T element by element
+      float* stg = sdk + c * B::kDkStage;
+      const int lr = warp * 16 + g;  // this thread's rows lr and lr + 8 of the warpgroup's 64 keys
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(stg + lr * B::kStRow + 8 * j + 2 * t) = make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 8 * j + 2 * t) =
+            make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+      }
+      *reinterpret_cast<float2*>(stg + lr * B::kStRow + 64 + 2 * t) = make_float2(dkt[0], dkt[1]);
+      *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 64 + 2 * t) = make_float2(dkt[2], dkt[3]);
+      hopper::bar_sync(2 + c, 128);
+      const int key0 = k0 + c * 64;
+      for (int idx = threadIdx.x % 128; idx < 64 * kD; idx += 128) {
+        const int r = idx / kD, col = idx % kD, key = key0 + r;
+        if (key >= n) continue;
+        const float y = attn::rope_transpose(stg + r * B::kStRow, col, kD, a.cos + (size_t)key * kD,
+                                             a.sin + (size_t)key * kD);
+        dkb[(long long)key * kD + col] = __float2bfloat16_rn(y);
+      }
     }
   }
 }
 
-// grid: (ceil(rows / 32), 256 threads); rows = bh * n. Eight lanes a row,
-// lane j owning columns 4j..4j+3 and their RoPE partners 4j+32..4j+35.
-template <bool kRope>
+// grid: (ceil(rows / 32), 256 threads) at d = 64, rows = bh * n: eight lanes
+// a row, lane j owning columns 4j..4j+3 and their RoPE partners
+// 4j+32..4j+35. At d = 72: ceil(rows * 36 / 256) blocks, a thread a pair of
+// columns (c, c + 36) of a row, which lie in different parts.
+template <int kD, bool kRope>
 __global__ void __launch_bounds__(256)
     flash_bwd_postprocess_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
                                  const float* __restrict__ cos, const float* __restrict__ sin,
                                  long long rows, int n, int npad, float scale) {
-  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
-  if (row >= rows) return;
-  const int c = 4 * (threadIdx.x % 8), r = (int)(row % n), rr = r % kBwQ;
-  // columns c.. of the part of columns 0..31, and of the part of 32..63
-  const float* src = dq_acc + dq_part(row / n, npad / kBwQ, r / kBwQ, 0) + rr * 32 + 8 * ((c / 8) ^ (rr & 3)) + c % 8;
-  float y1[4], y2[4];
-  load4(y1, src);
-  load4(y2, src + kBwDqPart);
+  if constexpr (kD == 64) {
+    const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+    if (row >= rows) return;
+    const int c = 4 * (threadIdx.x % 8), r = (int)(row % n), rr = r % kBwQ;
+    // columns c.. of the part of columns 0..31, and of the part of 32..63
+    const float* src = dq_acc + dq_part<64>(row / n, npad / kBwQ, r / kBwQ, 0) + rr * 32 + 8 * ((c / 8) ^ (rr & 3)) + c % 8;
+    float y1[4], y2[4];
+    load4(y1, src);
+    load4(y2, src + kBwDqPart);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) y1[e] *= scale, y2[e] *= scale;
-  if (kRope) {
-    float c1[4], c2[4], s1[4], s2[4];
-    load4(c1, cos + (size_t)r * 64 + c);
-    load4(c2, cos + (size_t)r * 64 + c + 32);
-    load4(s1, sin + (size_t)r * 64 + c);
-    load4(s2, sin + (size_t)r * 64 + c + 32);
+    for (int e = 0; e < 4; ++e) y1[e] *= scale, y2[e] *= scale;
+    if (kRope) {
+      float c1[4], c2[4], s1[4], s2[4];
+      load4(c1, cos + (size_t)r * 64 + c);
+      load4(c2, cos + (size_t)r * 64 + c + 32);
+      load4(s1, sin + (size_t)r * 64 + c);
+      load4(s2, sin + (size_t)r * 64 + c + 32);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float o1 = __fadd_rn(__fmul_rn(y1[e], c1[e]), __fmul_rn(y2[e], s2[e]));
-      const float o2 = __fadd_rn(__fmul_rn(y2[e], c2[e]), -__fmul_rn(y1[e], s1[e]));
-      y1[e] = o1, y2[e] = o2;
+      for (int e = 0; e < 4; ++e) {
+        const float o1 = __fadd_rn(__fmul_rn(y1[e], c1[e]), __fmul_rn(y2[e], s2[e]));
+        const float o2 = __fadd_rn(__fmul_rn(y2[e], c2[e]), -__fmul_rn(y1[e], s1[e]));
+        y1[e] = o1, y2[e] = o2;
+      }
     }
+    bf16* out = dq + row * 64;
+    *reinterpret_cast<uint2*>(out + c) = make_uint2(pack_bf16(y1[0], y1[1]), pack_bf16(y1[2], y1[3]));
+    *reinterpret_cast<uint2*>(out + c + 32) = make_uint2(pack_bf16(y2[0], y2[1]), pack_bf16(y2[2], y2[3]));
+  } else {
+    constexpr int kHalf = kD / 2;
+    const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (idx >= rows * kHalf) return;
+    const long long row = idx / kHalf;
+    const int c = (int)(idx % kHalf), r = (int)(row % n), rr = r % kBwQ;
+    const float* blk = dq_acc + dq_part<kD>(row / n, npad / kBwQ, r / kBwQ, 0);
+    auto at = [&](int col) {  // element (rr, col) of the query tile's parts
+      if (col < 64) {
+        const int cc = col % 32;
+        return blk[(col / 32) * kBwDqPart + rr * 32 + 8 * ((cc / 8) ^ (rr & 3)) + cc % 8];
+      }
+      return blk[2 * kBwDqPart + rr * 8 + col - 64];
+    };
+    float y1 = at(c) * scale, y2 = at(c + kHalf) * scale;
+    if (kRope) {  // J^T: (c, c + half), in the TPU kernel's op order
+      const float* cs = cos + (size_t)r * kD;
+      const float* sn = sin + (size_t)r * kD;
+      const float o1 = __fadd_rn(__fmul_rn(y1, cs[c]), __fmul_rn(y2, sn[c + kHalf]));
+      const float o2 = __fadd_rn(__fmul_rn(y2, cs[c + kHalf]), -__fmul_rn(y1, sn[c]));
+      y1 = o1, y2 = o2;
+    }
+    bf16* out = dq + row * kD;
+    out[c] = __float2bfloat16_rn(y1);
+    out[c + kHalf] = __float2bfloat16_rn(y2);
   }
-  bf16* out = dq + row * 64;
-  *reinterpret_cast<uint2*>(out + c) = make_uint2(pack_bf16(y1[0], y1[1]), pack_bf16(y1[2], y1[3]));
-  *reinterpret_cast<uint2*>(out + c + 32) = make_uint2(pack_bf16(y2[0], y2[1]), pack_bf16(y2[2], y2[3]));
 }
 
-// The single pass at d = 64 on contiguous (bh, n, 64) q, k (rotated for
-// RoPE), v, g, o; lse_fwd (bh, n) from the forward; lse, delta (bh, npad)
-// and dq_acc (bh, npad, 64) fp32 scratch.
-template <bool kRope>
-cudaError_t backward64(const void* q, const void* k, const void* v, const void* g, const void* o,
-                       const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
-                       void* dv, float* lse, float* delta, float* dq_acc, int bh, int n,
-                       cudaStream_t s) {
+// The single pass at d = kD (64 or 72) on contiguous (bh, n, kD) q, k
+// (rotated for RoPE), v, g, o; lse_fwd (bh, n) from the forward; lse, delta
+// (bh, npad) and dq_acc (bh, npad, kD) fp32 scratch.
+template <int kD, bool kRope>
+cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const void* g, const void* o,
+                           const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
+                           void* dv, float* lse, float* delta, float* dq_acc, int bh, int n,
+                           cudaStream_t s) {
+  using B = Bw<kD>;
   if (o == nullptr || lse_fwd == nullptr || dq_acc == nullptr) return cudaErrorInvalidValue;
   const int npad = (n + kBwQ - 1) / kBwQ * kBwQ;
   const long long prow = (long long)bh * npad;
-  flash_bwd_preprocess_kernel<<<(unsigned)((prow + 31) / 32), 256, 0, s>>>(
+  flash_bwd_preprocess_kernel<kD><<<(unsigned)((prow + 31) / 32), 256, 0, s>>>(
       static_cast<const bf16*>(g), static_cast<const bf16*>(o), lse_fwd, lse, delta, dq_acc, prow, n,
       npad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap maps[4];
+  BwTailMaps tail{};
+  CUtensorMap* tails[4] = {&tail.q, &tail.k, &tail.v, &tail.g};
   const void* ptrs[4] = {q, k, v, g};
-  for (int i = 0; i < 4; ++i)
-    if ((e = tmap_rows64(&maps[i], ptrs[i], bh, n, i == 1 || i == 2 ? kBwKeys : kBwQ)) != cudaSuccess)
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 1 || i == 2 ? kBwKeys : kBwQ;
+    if ((e = tmap_rows(&maps[i], ptrs[i], kD, bh, n, rows)) != cudaSuccess) return e;
+    if (B::kTail && (e = tmap_rows(tails[i], ptrs[i], kD, bh, n, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B)) != cudaSuccess)
       return e;
-  if ((e = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<kRope>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem)) != cudaSuccess)
+  }
+  if ((e = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<kD, kRope>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem)) != cudaSuccess)
     return e;
-  const Bwd64Args a{dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
-                    npad, 1.4426950408889634f / 8.f, 0.125f};
+  // d = 64: the scales exactly as before (8 = sqrt(64)); d = 72: the forward's
+  // scale_log2 (make_args), which its lse is in
+  const float scale_log2 = kD == 64 ? 1.4426950408889634f / 8.f : 1.4426950408889634f / sqrtf((float)kD);
+  const float scale = kD == 64 ? 0.125f : 1.f / sqrtf((float)kD);
+  const BwdWgmmaArgs a{dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
+                       npad, scale_log2, scale};
   const dim3 grid((n + kBwKeys - 1) / kBwKeys, bh);
-  flash_bwd_wgmma_kernel<kRope><<<grid, kBwThreads, kBwSmem, s>>>(maps[0], maps[1], maps[2], maps[3], a);
+  flash_bwd_wgmma_kernel<kD, kRope><<<grid, kBwThreads, B::kSmem, s>>>(maps[0], maps[1], maps[2], maps[3], a,
+                                                                        tail);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long rows = (long long)bh * n;
-  flash_bwd_postprocess_kernel<kRope><<<(unsigned)((rows + 31) / 32), 256, 0, s>>>(
-      dq_acc, static_cast<bf16*>(dq), cos, sin, rows, n, npad, 0.125f);
+  const long long threads = kD == 64 ? rows * 8 : rows * (kD / 2);
+  flash_bwd_postprocess_kernel<kD, kRope><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      dq_acc, static_cast<bf16*>(dq), cos, sin, rows, n, npad, scale);
   return cudaGetLastError();
 }
 
 // The backward on contiguous (bh, n, d) operands: the single pass at d = 64
-// with 16-byte aligned rows, the three passes otherwise (o, lse_fwd, dq_acc
-// unused there).
+// and 72 with 16-byte aligned rows, the three passes otherwise (o, lse_fwd,
+// dq_acc unused there).
 template <bool kRope>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const void* o,
                      const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
                      void* dv, float* lse, float* delta, float* dq_acc, int bh, int n, int d, int vec,
                      cudaStream_t s) {
   if (d == 64 && vec == 8)
-    return backward64<kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
+    return backward_wgmma<64, kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
+  if (d == 72 && vec == 8)
+    return backward_wgmma<72, kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
   return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, vec, s);
 }
 
@@ -1805,10 +2094,10 @@ NormRopeArgs rope_args(const void* q, const void* k, const float* cos, const flo
 
 // q, k, v, out: contiguous (bh, n, d) bf16, 1 <= d <= 128; vec: the
 // elements (8, 4, 2 or 1) every pointer and row is aligned to; lse: null,
-// or at d = 64 with vec = 8 the (bh, n) fp32 log2 softmax denominators the
-// backward takes (written). By shape: d = 64, vec = 8 runs the wgmma kernel
-// (DiT B, 1p0B, 1p6B), every other shape the mma.sync core. Returns the
-// CUDA error of the launch (0 on success).
+// or at d = 64 or 72 with vec = 8 the (bh, n) fp32 log2 softmax denominators
+// the backward takes (written). By shape: d = 64 or 72, vec = 8 runs the
+// wgmma kernel (DiT B, 1p0B, 1p6B; XL), every other shape the mma.sync core.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                          float* lse, int bh, int n, int d, int vec, void* stream) {
   if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -1865,7 +2154,7 @@ extern "C" int ldmae_flash_attention_qknorm_rope_fwd(const void* q, const void* 
 // packed qkv), head hi at + hi * d. qr, kr (scratch) and out are contiguous
 // (b, n, h * d). cos, sin: contiguous (n, d) fp32. vec: as for the others,
 // over every pointer and row stride. The attention reads v in place and
-// writes out directly: at d = 64 with vec = 8 the wgmma kernel (4D tensor
+// writes out directly: at d = 64 or 72 with vec = 8 the wgmma kernel (4D tensor
 // maps over the strided rows), otherwise the mma.sync core. (The scratch
 // laid out (b, h, n, d) instead timed the same.)
 extern "C" int ldmae_flash_attention_fused_rope_fwd(
@@ -1889,8 +2178,9 @@ extern "C" int ldmae_flash_attention_fused_rope_fwd(
 // Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
 // contiguous (bh, n, d) bf16; dq, dk, dv written likewise; lse, delta are
 // (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64. At d
-// = 64 with vec = 8, o is the forward's output, lse_fwd its (bh, n) lse, and
-// dq_acc (bh, npad, 64) fp32 scratch; the other shapes ignore the three.
+// = 64 or 72 with vec = 8, o is the forward's output, lse_fwd its (bh, n)
+// lse, and dq_acc (bh, npad, d) fp32 scratch; the other shapes ignore the
+// three.
 extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                          const void* o, const float* lse_fwd, void* dq, void* dk,
                                          void* dv, float* lse, float* delta, float* dq_acc, int bh,

@@ -336,6 +336,19 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss_tt(float (&d)[16], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A * B, m64n16k16, bf16 A and B both MN-major in shared memory (both
+// transpose bits set; each descriptor carries its own swizzle), fp32
+// accumulator of 8 registers a thread.
+__device__ __forceinline__ void wgmma_m64n16k16_ss_tt(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 
 // ---- host --------------------------------------------------------------------
 

@@ -25,8 +25,8 @@ dq = ds k d^-1/2, dk = ds^T q d^-1/2 on the rotated q, k, then for RoPE the
 transposed RoPE Jacobian on dq and dk; cos and sin get no gradient. lse is
 the log2 of each query row's softmax denominator, max included, in the
 units of the logits times log2(e) (``flash_attention_lse_plain``): the CUDA
-forward writes it at head dim 64, where the backward is one pass that takes
-it and the output instead of recomputing them; on the CPU the Functions save
+forward writes it at head dims 64 and 72, where the backward is one pass that
+takes it and the output instead of recomputing them; on the CPU the Functions save
 the plain lse, which the plain backward does not need. The other two
 wrappers are forward only (sampling), as in the JAX package, and raise when
 autograd would have to record them.
@@ -38,8 +38,8 @@ raises), any N. bf16 runs ``csrc/flash_attention.cu``, fp32
 ``csrc/flash_attention_fp32.cu``; within bf16 the kernel is chosen by shape
 (see ``flash_attention`` and ``flash_attention_rope``). In fp32 the forward
 always writes lse, and the backward takes it with the output, as at d = 64
-in bf16. ``<wrapper>.launches`` counts kernel launches. The plain versions
-compute in fp32, or in float64 for float64 inputs
+and 72 in bf16. ``<wrapper>.launches`` counts kernel launches. The plain
+versions compute in fp32, or in float64 for float64 inputs
 (``torch.autograd.gradcheck``).
 """
 
@@ -53,8 +53,9 @@ from .. import kernels
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 128  # the largest head-dim class of the CUDA kernels
-# the head dim of the bf16 wgmma kernels: the forward writes lse, the backward is one pass
-WGMMA_HEAD_DIM = 64
+# the head dims of the bf16 wgmma kernels (DiT B to 1p6B; XL): the forward writes
+# lse, the backward is one pass
+WGMMA_HEAD_DIMS = (64, 72)
 # the resident forward (``flash_attention_resident``): bf16, these head dims, N keys at most
 RESIDENT_HEAD_DIMS, RESIDENT_MAX_N = (8, 16), 3072
 _TILE = 64  # rows of a kernel tile; the backward's row statistics are padded to it
@@ -197,9 +198,10 @@ def _lib(dtype: torch.dtype):
 
 def _uses_lse(dtype: torch.dtype, d: int, vec: int) -> bool:
     """Whether the CUDA backward takes the forward's output and lse (one
-    pass at bf16 d = 64, and every fp32 backward) instead of recomputing the
-    row statistics (the bf16 three passes)."""
-    return dtype == torch.float32 or (d == WGMMA_HEAD_DIM and vec == 8)
+    pass at bf16 d = 64 or 72 with 16-byte aligned rows, and every fp32
+    backward) instead of recomputing the row statistics (the bf16 three
+    passes)."""
+    return dtype == torch.float32 or (d in WGMMA_HEAD_DIMS and vec == 8)
 
 
 def _check_head_dim(what: str, b: int, h: int, d: int) -> None:
@@ -372,9 +374,9 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient g. out and
     lse, the forward's output and lse, are what the CUDA kernel takes in
-    bf16 at head dim 64 (one pass) and in fp32; when either is missing (a
-    standalone call) the forward kernel is first run through the library,
-    uncounted. The bf16 three passes at the other head dims and the plain
+    bf16 at head dims 64 and 72 (one pass) and in fp32; when either is
+    missing (a standalone call) the forward kernel is first run through the
+    library, uncounted. The bf16 three passes at the other head dims and the plain
     version (CPU) need neither."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g)
@@ -439,11 +441,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     * bf16, d = 8 or 16 (VMAE), N <= RESIDENT_MAX_N, 16-byte aligned, no
       gradient recorded: ``flash_attention_resident`` (which counts it);
-    * bf16, d = 64, 16-byte aligned: the wgmma forward ``flash_fwd_wgmma_kernel``
-      (see ``flash_attention_rope``) and the single-pass backward;
+    * bf16, d = 64 or 72, 16-byte aligned: the wgmma forward
+      ``flash_fwd_wgmma_kernel`` (see ``flash_attention_rope``) and the
+      single-pass backward ``flash_bwd_wgmma_kernel``;
     * every other bf16 shape (VMAE d = 8 to 80 under autograd or past
-      RESIDENT_MAX_N, DiT XL 72): the ``mma.sync`` core and the three-pass
-      backward;
+      RESIDENT_MAX_N): the ``mma.sync`` core and the three-pass backward;
     * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``).
 
     ``launches`` counts the forward launches but the resident kernel's
@@ -476,12 +478,13 @@ def flash_attention_rope(
     counts the forward kernel.
 
     The CUDA forward picks its attention kernel by shape: bf16 at d = 64
-    (DiT B, 1p0B, 1p6B) with 16-byte aligned rows runs the wgmma/TMA kernel
-    ``flash_fwd_wgmma_kernel`` (which also writes lse for the backward), and
-    the backward is the single-pass ``flash_bwd_wgmma_kernel``; every other
-    bf16 head dim d <= 128 (DiT XL 72: a 144-byte row is no 128-byte TMA
-    swizzle row) runs the ``mma.sync`` core that the other attention kernels
-    share, and the three-pass backward; fp32 runs the fp32 kernels."""
+    (DiT B, 1p0B, 1p6B) or 72 (DiT XL: its rows are loaded as a 128-byte and
+    a 32-byte swizzled part) with 16-byte aligned rows runs the wgmma/TMA
+    kernel ``flash_fwd_wgmma_kernel`` (which also writes lse for the
+    backward), and the backward is the single-pass ``flash_bwd_wgmma_kernel``;
+    every other bf16 head dim d <= 128 runs the ``mma.sync`` core that the
+    other attention kernels share, and the three-pass backward; fp32 runs
+    the fp32 kernels."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
     return _flash_attention_rope_fwd(q, k, v, cos, sin)
@@ -511,7 +514,7 @@ def flash_attention_qknorm_rope(
     permuted views of the packed qkv are: the pre-pass reads q and k and the
     attention reads v in place. Returns a contiguous (B, H, N, d) tensor.
     The attention after the pre-pass is chosen by shape as in
-    ``flash_attention_rope`` (bf16 at d = 64: the wgmma kernel)."""
+    ``flash_attention_rope`` (bf16 at d = 64 or 72: the wgmma kernel)."""
     what = "flash_attention_qknorm_rope"
     _forward_only(what, q, k, v, q_scale, k_scale)
     if q.device.type == "cpu":
@@ -555,8 +558,8 @@ def flash_attention_fused_rope(
 
     The CUDA kernel's pre-pass rotates q and k into (B, N, H*d) scratch;
     the attention reads that and v in place and writes the output rows
-    directly, nothing transposed: in bf16 at d = 64 with 16-byte aligned
-    rows and strides the wgmma kernel ``flash_fwd_wgmma_kernel`` (4D tensor
+    directly, nothing transposed: in bf16 at d = 64 or 72 with 16-byte
+    aligned rows and strides the wgmma kernel ``flash_fwd_wgmma_kernel`` (4D tensor
     maps over the strided operands), else the ``mma.sync`` core; fp32 the
     fp32 kernels."""
     what = "flash_attention_fused_rope"

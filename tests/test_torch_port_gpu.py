@@ -74,7 +74,7 @@ def _bf16(shape, seed, device):
 @pytest.mark.parametrize(
     "d,n,rope",
     [(64, 1024, True), (64, 256, True), (64, 1000, True), (16, 1024, False), (16, 1025, False),
-     (16, 1000, False), (72, 200, True)],
+     (16, 1000, False), (72, 200, True), (72, 1024, True), (72, 1024, False), (72, 1000, False)],
 )
 def test_cuda_flash_attention_vs_plain(cuda, d, n, rope):
     q, k, v = (_bf16((2, 3, n, d), s, cuda) for s in range(3))
@@ -142,10 +142,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def _assert_route(fn, d, aligned):
-    """fn's attention ran on the wgmma forward at d = 64 with 16-byte
+    """fn's attention ran on the wgmma forward at d = 64 or 72 with 16-byte
     aligned operands, else on the mma.sync core (by kernel name)."""
     names, _ = _kernel_names(fn)
-    wgmma = d == 64 and aligned
+    wgmma = d in tfa.WGMMA_HEAD_DIMS and aligned
     assert any("flash_fwd_wgmma_kernel" in k for k in names) == wgmma, names
     assert any("flash_fwd_kernel" in k for k in names) == (not wgmma), names
 
@@ -156,6 +156,7 @@ def _assert_route(fn, d, aligned):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,n,b,h,layout", [
     pytest.param(64, 1024, 2, 3, "contiguous", id="64-1024"), pytest.param(72, 200, 2, 3, "contiguous", id="72-200"),
+    pytest.param(72, 1024, 2, 16, "views", id="72-1024-qkv-views"),
     *(pytest.param(64, n, 3, 5, "contiguous", id=f"64-{n}-odd") for n in (64, 200, 1000, 1025)),
     pytest.param(64, 1024, 2, 12, "views", id="64-1024-qkv-views"),
     pytest.param(64, 200, 1, 3, "views", id="64-200-qkv-views"),
@@ -181,6 +182,7 @@ def test_cuda_flash_attention_qknorm_rope_vs_plain(cuda, d, n, b, h, layout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,h,n,b,pad,offset", [
     pytest.param(64, 12, 1024, 2, 0, 0, id="64-12-1024"), pytest.param(72, 4, 200, 2, 0, 0, id="72-4-200"),
+    pytest.param(72, 16, 1024, 2, 0, 0, id="72-16-1024"),
     *(pytest.param(64, 5, n, 1, 0, 0, id=f"64-5-{n}-odd") for n in (64, 200, 1000, 1025)),
     pytest.param(64, 12, 1024, 2, 8, 0, id="64-12-1024-padded"),
     pytest.param(64, 4, 256, 1, 0, 4, id="64-4-256-v8byte"),
@@ -227,10 +229,12 @@ def _bwd_inputs(shape, rope, device):
     return (q, k, v, g), tables
 
 
-# b, h, d, n: the single pass (d = 64) at ragged and whole tiles of 64 queries
-# and 128 keys, and at the DiT B/1 training shape; the three passes (d = 16, 72)
+# b, h, d, n: the single pass (d = 64, 72) at ragged and whole tiles of 64
+# queries and 128 keys, and at the DiT B/1 and XL training shapes; the three
+# passes (d = 16)
 _BWD_CASES = [(2, 3, 16, 1024), (2, 3, 64, 1024), (2, 3, 72, 200), (2, 3, 64, 1000), (2, 3, 16, 200),
-              (2, 3, 64, 64), (2, 3, 64, 128), (2, 3, 64, 200), (2, 3, 64, 256), (32, 12, 64, 1024)]
+              (2, 3, 64, 64), (2, 3, 64, 128), (2, 3, 64, 200), (2, 3, 64, 256), (32, 12, 64, 1024),
+              (2, 3, 72, 1024), (2, 3, 72, 1000), (32, 16, 72, 1024)]
 
 
 @pytest.mark.gpu
@@ -245,7 +249,7 @@ def test_cuda_flash_attention_bwd_vs_plain(cuda, b, h, d, n, rope):
         outs = tfa.flash_attention_bwd(q, k, v, g)
         refs = tfa.flash_attention_bwd_plain(q, k, v, g)
     _assert_bwd_close(outs, refs)
-    if d == tfa.WGMMA_HEAD_DIM:  # the residuals passed in, as the autograd Functions pass them
+    if d in tfa.WGMMA_HEAD_DIMS:  # the residuals passed in, as the autograd Functions pass them
         out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
         kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
         _assert_bwd_close(kernel(q, k, v, g, *tables, out=out, lse=lse), refs)
@@ -257,12 +261,31 @@ def test_cuda_flash_attention_bwd_vs_plain(cuda, b, h, d, n, rope):
 def test_cuda_forward_lse_vs_plain(cuda, n, rope):
     """The d = 64 forward's lse against the plain lse of the same (rotated,
     bf16-rounded) q and k; the output is the forward without lse's."""
-    (q, k, v, _), tables = _bwd_inputs((2, 3, n, 64), rope, cuda)
+    _check_forward_lse((2, 3, n, 64), rope, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("b,h,n", [(2, 3, 200), (2, 3, 1024), (16, 16, 1024)])
+def test_cuda_forward_lse_vs_plain_d72(cuda, b, h, n, rope):
+    """As above at DiT XL's head dim 72 (the wgmma forward on its two swizzle
+    parts), up to XL's sampling shape (16, 16, 1024, 72): the output within
+    the attention tolerance of the plain version, the lse as above."""
+    q, k, v, tables, out = _check_forward_lse((b, h, n, 72), rope, cuda)
+    ref = tfa.flash_attention_rope_plain(q, k, v, *tables) if rope else tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+
+
+def _check_forward_lse(shape, rope, device):
+    """The lse checks above; returns the inputs, tables and output."""
+    (q, k, v, _), tables = _bwd_inputs(shape, rope, device)
     out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
     qr, kr = (tfa._rope_fp32(t, *tables) for t in (q, k)) if rope else (q, k)
-    assert lse.shape == (2, 3, n) and lse.dtype == torch.float32
+    assert lse.shape == shape[:3] and lse.dtype == torch.float32
     torch.testing.assert_close(lse, tfa.flash_attention_lse_plain(qr, kr), rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(out, tfa._launch(q, k, v, "test", *tables), rtol=0, atol=0)
+    return q, k, v, tables, out
 
 
 @pytest.mark.gpu
@@ -270,7 +293,19 @@ def test_cuda_forward_lse_vs_plain(cuda, n, rope):
 def test_cuda_bwd_dq_run_to_run(cuda, rope):
     """dq's atomic sums over key tiles change order between runs: two runs
     agree within BWD_REL_L2; dk and dv are written once, so exactly."""
-    (q, k, v, g), tables = _bwd_inputs((4, 12, 1024, 64), rope, cuda)
+    _check_dq_run_to_run((4, 12, 1024, 64), rope, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+def test_cuda_bwd_dq_run_to_run_d72(cuda, rope):
+    """As above at head dim 72, where dq's columns 64-71 are summed by both
+    consumer warpgroups of a key tile into one part."""
+    _check_dq_run_to_run((4, 16, 1024, 72), rope, cuda)
+
+
+def _check_dq_run_to_run(shape, rope, device):
+    (q, k, v, g), tables = _bwd_inputs(shape, rope, device)
     out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
     kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
     first = kernel(q, k, v, g, *tables, out=out, lse=lse)
@@ -314,6 +349,7 @@ def _traced_names(fn) -> list:
     marker = torch.empty(_MARKER_N, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marker.fill_(0.0)
         fn()
         marker.fill_(1.0)
         torch.cuda.synchronize()
@@ -330,7 +366,9 @@ def _kernel_names(fn, attempts: int = 3) -> tuple:
     after ``fn`` and the device synchronised before the session closes; a
     trace without any device record is taken again (``fn`` must be
     callable again), at most ``attempts`` times in all. A trace with device
-    records is returned whole, whatever it holds."""
+    records is returned whole, whatever it holds. In a long pytest process
+    traces have also come back without the session's first kernel record
+    (PERF.md), so the marker also runs first."""
     for calls in range(1, attempts + 1):
         names = _traced_names(fn)
         if names:
@@ -345,9 +383,23 @@ def test_cuda_autograd_backward_at_d64_is_one_pass(cuda, rope):
     pass them to the backward, which launches the preprocess, the single-pass
     kernel and the postprocess (and for RoPE its pre-pass), and no forward or
     statistics pass: one counted backward launch, no counted forward."""
-    q, k, v = (_bf16((2, 4, 256, 64), s, cuda).requires_grad_() for s in range(3))
-    g = _bf16((2, 4, 256, 64), 3, cuda)
-    cos, sin = _rope_tables(64, 256, cuda)
+    _check_one_pass((2, 4, 256, 64), rope, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+def test_cuda_autograd_backward_at_d72_is_one_pass(cuda, rope):
+    """As above at DiT XL's head dim 72 and N = 1024: no mma.sync forward and
+    none of the three passes' kernels run, the gradients within the
+    backward's bounds of the plain backward."""
+    _check_one_pass((2, 4, 1024, 72), rope, cuda)
+
+
+def _check_one_pass(shape, rope, device):
+    n, d = shape[-2:]
+    q, k, v = (_bf16(shape, s, device).requires_grad_() for s in range(3))
+    g = _bf16(shape, 3, device)
+    cos, sin = _rope_tables(d, n, device)
     out = tfa.flash_attention_rope(q, k, v, cos, sin) if rope else tfa.flash_attention(q, k, v)
     saved = out.grad_fn.saved_tensors
     ref_lse = tfa._launch(q.detach(), k.detach(), v.detach(), "test", *((cos, sin) if rope else ()),
@@ -362,6 +414,10 @@ def test_cuda_autograd_backward_at_d64_is_one_pass(cuda, rope):
     ours = sorted(m.group(1) for n in names if (m := re.search(r"(flash_\w+_kernel|norm_rope_kernel)", n)))
     want = ["flash_bwd_postprocess_kernel", "flash_bwd_preprocess_kernel", "flash_bwd_wgmma_kernel"]
     assert ours == sorted(want + (["norm_rope_kernel"] if rope else [])), names
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    refs = (tfa.flash_attention_rope_bwd_plain(qd, kd, vd, g, cos, sin) if rope
+            else tfa.flash_attention_bwd_plain(qd, kd, vd, g))
+    _assert_bwd_close(torch.autograd.grad(out, (q, k, v), g), refs)
 
 
 @pytest.mark.gpu
@@ -550,7 +606,7 @@ def test_cuda_flash_attention_any_head_dim(cuda, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", ANY_HEAD_DIMS)
 def test_cuda_flash_attention_bwd_any_head_dim(cuda, d, dtype, rope):
-    """The backward (bf16: the three passes off d = 64; fp32: the fp32
+    """The backward (bf16: the three passes off d = 64 and 72; fp32: the fp32
     kernels, given the forward's output and lse or running it first), N
     ragged against the 64-row tile."""
     n = 200
