@@ -140,6 +140,22 @@ attention bounds), then:
      step: #1 56, #3 112, #6 28), finite losses, steps/s, MFU, peak memory
      (the final checkpoint's 11 GB write left out); the gradient check of
      6. at XL width, depth 4, with its launches and control;
+  7c. the registry slice (also under --registry): early, beside 5b, the
+     slice's kernel shapes against their plain versions, timed beside the
+     bound (#10 at L/2's and 1p6B/1's SwiGLU widths 2,730 and 4,778, which
+     run its element-wise instantiation, and at XL's 3,072; #9 at D 1,152
+     and 1,792; #1 at the patch-2 archs' (16, 16, 256, 64) and (16, 16,
+     256, 72) beside SDPA; int8_dense at XL's and 1p6B's w12 and w3); then
+     every arch and parallel.quant mode through the sampling CLI's pipeline
+     builder on the shipped YAML with model.model_type and parallel.quant
+     changed, seeded weights, batch 8, CFG 10 phased, shift 0.3: XL/1 under
+     w8a8 and B/1 under w8 through ``cli.inference`` (250 steps, PNGs,
+     launches exact, seconds a batch, images/s, peak memory), and L/2, XL/2
+     and 1p6B/1 at full width and depth for 10 steps in bf16 and w8a8; for
+     each leg, each mode's 10-step latents within 5e-2 relative L2 of the
+     plain xla path with no port kernel launched (control: another noise),
+     each quantized mode within ``QUANT_REL_MAX`` of bf16 (control: the
+     weight scales 10 % high), launches exact, images not flat;
   8. with ``--profile``, traces one 50-step batch of the bf16 and of the
      w8a8 path, and one training step, with ``torch.profiler`` and prints
      device time by kernel and group and the idle share;
@@ -233,7 +249,7 @@ attention bounds), then:
      at proj and w3 and under ``dense_row_parallel``'s backward, each
      against its plain version, timed beside its bound and library call;
      then two ranks on the card (gloo) through ``cli.train_dit --tp 2`` on
-     1p0B/1 at full width, depth cut to 8, the shipped YAML's training
+     1p0B/1 at full width, depth cut to 4, the shipped YAML's training
      sections (bf16, flash_rope, fused adaLN, remat attn), global batch 8,
      a seeded warm start (std ``TPT_WARM_STD``): 4 steps and a checkpoint, a
      resume to 6, and the control (copy-to-tp's all-reduce left out of the
@@ -255,8 +271,9 @@ attention bounds), then:
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
 = 64 at the training shapes, the fp32 instantiations as their own entries,
-the d = 72 kernels as ``..._xl`` entries; launches from the path that runs
-each kernel), and as its last line
+the d = 72 kernels as ``..._xl`` entries, the registry's shapes as
+entries named by arch; launches from the path that runs each kernel), and
+as its last line
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
 outside the repository, it exits non-zero at once.
@@ -272,7 +289,9 @@ and flash_fused.
 ``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
 ``--samplers`` phase 4b alone, ``--parallel`` phases 13 and 14 alone,
 ``--xl`` phases 5b and 7b alone (their kernels as an ``{"xl_kernels":
-[...]}`` line). ``--xl-kernels`` builds the attention library and runs 5b
+[...]}`` line), ``--registry`` phase 7c alone (a ``{"registry_kernels":
+[...]}`` line). The default run prints ``[time]`` lines, the seconds into
+the run after each phase. ``--xl-kernels`` builds the attention library and runs 5b
 without asserting which kernels ran: copied into an unpacked earlier commit
 (``git archive`` into a git-ignored directory), it times that commit's
 kernels at the same shapes.
@@ -4509,7 +4528,9 @@ def samplers_only(dev, smi: str) -> int:
 # NVIDIA H100 80GB HBM3 at 700 W (scripts/gloo_cuda_probe.py). Batch
 # TP_BATCH, phased CFG 10 on [0.10, 1], VMAE f8d16 decode on the group's
 # first rank.
-TP_MODEL, TP_DEPTH, TP_STEPS, TP_BATCH = "LightningDiT-1p0B/1", 8, 10, 8
+# (depth 4 keeps the whole run within its time limit: at tp 2 the gloo
+# all-reduces, two a block, take the batch's time)
+TP_MODEL, TP_DEPTH, TP_STEPS, TP_BATCH = "LightningDiT-1p0B/1", 4, 10, 8
 # 10-step latents at tp 2 against tp 1 in one process from the same noise,
 # relative L2 ||tp2 - tp1|| / ||tp1||: the row-parallel fp32 sums
 # reassociate and move bf16 roundings, which CFG 10 amplifies step by step;
@@ -5368,17 +5389,18 @@ XL_OWN = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel", "flash_bwd_preproc
 XL_OLD = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
-def xl_yaml(path: str, **sections) -> str:
+def xl_yaml(path: str, model_type: str = XL_MODEL, **sections) -> str:
     """Writes to ``path`` the shipped YAML with model.model_type
-    LightningDiT-XL/1 and nothing else changed, then each of ``sections``
-    (a top-level key: a value, or a dict merged into that section) as a leg
-    needs it; returns ``path``."""
+    ``model_type`` (LightningDiT-XL/1 unless given) and nothing else
+    changed, then each of ``sections`` (a top-level key: a value, or a dict
+    merged into that section, parallel.quant among them) as a leg needs it;
+    returns ``path``."""
     import yaml
 
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "configs", "imagenet", "lightningdit_b_vmae_f8d16.yaml")) as f:
         cfg = yaml.safe_load(f)
-    cfg["model"]["model_type"] = XL_MODEL
+    cfg["model"]["model_type"] = model_type
     for key, value in sections.items():
         cfg[key] = dict(cfg.get(key) or {}, **value) if isinstance(value, dict) else value
     with open(path, "w") as f:
@@ -5806,6 +5828,571 @@ def xl_kernels_only(dev) -> int:
     return 0
 
 
+# -- the registry slice: every LightningDiT arch of the registry and every
+# parallel.quant mode through the sampling CLI's pipeline builder, on the
+# shipped YAML with model.model_type and parallel.quant changed (xl_yaml):
+# XL/1 under w8a8 and B/1 under w8 through cli.inference at 250 steps; L/2,
+# XL/2 and 1p6B/1 at 10 steps in bf16 and w8a8 (the patch-2 archs' 256
+# tokens; L's and 1p6B's SwiGLU widths 2,730 and 4,778, which #10 takes by
+# its element-wise instantiation; the row engine's widest D, 1,792). Each at
+# full width and depth, seeded weights, batch 8, CFG 10, shift 0.3. Also
+# alone under --registry.
+# the 250-step legs through cli.inference: name -> (arch, parallel.quant, depth)
+REG_CLI = {"xl1_w8a8": (XL_MODEL, "w8a8", XL_DEPTH), "b1_w8": ("LightningDiT-B/1", "w8", DEPTH)}
+# the 10-step legs: arch -> (name, depth, tokens, whether #4's tiling takes
+# its w12 at every batch of the chain: M % 128, D % 128 and 2H % 256)
+REG_SHORT = {"LightningDiT-L/2": ("l2", 24, 256, False), "LightningDiT-XL/2": ("xl2", 28, 256, True),
+             "LightningDiT-1p6B/1": ("1p6b1", 28, 1024, False)}
+REG_LAT_REL = 5e-2  # 10-step latents, kernels vs the plain xla path: relative L2 (the B/1 and XL gates' bound)
+# The quant gate's bound is QUANT_REL_MAX (set at B/1) wherever the plain
+# xla paths, with no port kernel, read within it themselves. At an arch where
+# the quantization's own error reads above it (1p6B/1: 0.0357 against bf16 on
+# an H100 80GB HBM3 at 700 W), the kernels are held to that reading: within
+# QUANT_PLAIN_REL times it (at every registry leg on an H100 the kernels read
+# within 1 % of the plain paths; the weight-scale control reads 5x above).
+QUANT_PLAIN_REL = 1.05
+
+
+def _reg_counts(depth: int, steps: int, quant=None, fused_w12: bool = True, decode: bool = False) -> dict:
+    """Exact launches of ``steps`` Euler steps (steps - 1 DiT forwards, single
+    or CFG-doubled alike) at ``depth``: bf16 and w8 run #1 once and #3 twice
+    a block, #4 where its tiling takes w12 (bf16 only: under w8 w12 is a
+    quantized linear), and dense the forward's five linears plus the block's
+    adaLN, qkv, proj, w3 and w12 (unless #4); w8a8 runs #1, #9 twice, #10
+    and int8_dense four times a block, dense the five and proj. ``decode``:
+    and the VMAE decode's."""
+    f = (steps - 1) * depth
+    if quant == "w8a8":
+        c = {"flash_attention_rope": f, "fused_norm_modulate_quant": 2 * f, "fused_silu_mul_quant": f,
+             "int8_dense": 4 * f, "dense_bias_f32": (steps - 1) * (5 + depth)}
+    else:
+        w12 = fused_w12 and quant is None
+        c = {"flash_attention_rope": f, "fused_norm_modulate": 2 * f, "fused_matmul_silu": f if w12 else 0,
+             "dense_bias_f32": (steps - 1) * (5 + (4 if w12 else 5) * depth)}
+    if decode:
+        c |= {"flash_attention_resident": DEC_DEPTH, "dense_bias_f32": c["dense_bias_f32"] + _DENSE_DECODE}
+    return _NONE | c
+
+
+for _name, (_arch, _quant, _depth) in REG_CLI.items():
+    EXPECTED_LAUNCHES[f"reg_{_name}"] = _reg_counts(_depth, STEPS, _quant, decode=True)
+    EXPECTED_LAUNCHES[f"reg_{_name}_short"] = _reg_counts(_depth, SHORT_STEPS, _quant)
+    EXPECTED_LAUNCHES[f"reg_{_name.split('_')[0]}_bf16_short"] = _reg_counts(_depth, SHORT_STEPS)
+for _name, _depth, _tokens, _w12 in REG_SHORT.values():
+    for _quant in ("bf16", "w8a8"):
+        EXPECTED_LAUNCHES[f"reg_{_name}_{_quant}_short"] = _reg_counts(
+            _depth, SHORT_STEPS, None if _quant == "bf16" else _quant, _w12)
+EXPECTED_LAUNCHES["reg_xla"] = dict(_NONE)  # the plain reference path: no port kernel
+# kernels-line rows of the registry's new shapes: launches from the leg that runs each
+_FQ = "ldmae_tpu_torch/csrc/fused_quant.cu"
+KERNELS |= {
+    "fused_silu_mul_quant_l2": (_FQ, f"{_PALLAS_AD}:144", "reg_l2_w8a8_short", "fused_silu_mul_quant"),
+    "fused_silu_mul_quant_1p6b1": (_FQ, f"{_PALLAS_AD}:144", "reg_1p6b1_w8a8_short", "fused_silu_mul_quant"),
+    "fused_silu_mul_quant_xl1": (_FQ, f"{_PALLAS_AD}:144", "reg_xl1_w8a8", "fused_silu_mul_quant"),
+    "fused_norm_modulate_quant_xl1": (_FQ, f"{_PALLAS_AD}:99", "reg_xl1_w8a8", "fused_norm_modulate_quant"),
+    "fused_norm_modulate_quant_1p6b1": (_FQ, f"{_PALLAS_AD}:99", "reg_1p6b1_w8a8_short", "fused_norm_modulate_quant"),
+    "flash_attention_rope_l2": (_FA, f"{_PALLAS_FA}:323", "reg_l2_bf16_short", "flash_attention_rope"),
+    "flash_attention_rope_xl2": (_FA, f"{_PALLAS_FA}:323", "reg_xl2_bf16_short", "flash_attention_rope"),
+    "int8_dense_xl1_w12": (_DENSE, "ldmae_tpu/ops/quant.py:97", "reg_xl1_w8a8", "int8_dense"),
+    "int8_dense_xl1_w3": (_DENSE, "ldmae_tpu/ops/quant.py:97", "reg_xl1_w8a8", "int8_dense"),
+    "int8_dense_1p6b1_w12": (_DENSE, "ldmae_tpu/ops/quant.py:97", "reg_1p6b1_w8a8_short", "int8_dense"),
+    "int8_dense_1p6b1_w3": (_DENSE, "ldmae_tpu/ops/quant.py:97", "reg_1p6b1_w8a8_short", "int8_dense"),
+}
+
+
+def _gate_instantiation(fn) -> str:
+    """Which instantiation of the gate kernel ``fn`` launched, by its name
+    under torch.profiler: 'element-wise', 'vector', or 'not measured' when
+    the trace holds no record of it."""
+    names = [key for key, _ in _profiled(fn, 3) if "silu_mul_quant_kernel" in key]
+    if not names:
+        return "not measured"
+    return "element-wise" if all("true>" in k for k in names) else "vector" if all("false>" in k for k in names) \
+        else f"unclear ({names})"
+
+
+def int8_dense_plain_any(x_q, x_scale, p, compute_dtype):
+    """``int8_dense``'s plain version at any K and N: torch._int_mm takes K
+    and N that are multiples of 8 on the card, so both are zero-padded to
+    one (zero columns and rows add nothing to the int32 sums) and the padded
+    columns dropped after the fp32 dequant."""
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops.quant import QLinear, int8_dense_plain
+
+    k, n = x_q.shape[-1], p.w_q.shape[0]
+    if k % 8 == 0 and n % 8 == 0:
+        return int8_dense_plain(x_q, x_scale, p, compute_dtype)
+    a = F.pad(x_q.reshape(-1, k), (0, -k % 8))
+    padded = QLinear(F.pad(p.w_q, (0, -k % 8, 0, -n % 8)), F.pad(p.w_scale, (0, -n % 8)),
+                     None if p.bias is None else F.pad(p.bias, (0, -n % 8)))
+    out = int8_dense_plain(a, x_scale.reshape(-1, 1), padded, compute_dtype)
+    return out[:, :n].reshape(*x_q.shape[:-1], n)
+
+
+@contextlib.contextmanager
+def plain_linears():
+    """The xla path with no port kernel in it: the two linear kernels that
+    the xla impls still reach, ``dense``'s bf16 linear and the w8a8 linear,
+    replaced by plain versions (cuBLAS bf16 with fp32 sums out, then the
+    fp32 bias and one rounding, as ``dense_bias_f32`` computes; and
+    ``int8_dense_plain_any``). The kernels' wrappers count no launch."""
+    import torch
+
+    from ldmae_tpu_torch.ops import linear, quant
+
+    def dense_plain(x, weight, bias):
+        return (torch.mm(x, weight.t(), out_dtype=torch.float32) + bias).to(torch.bfloat16)
+
+    saved = linear.dense_bias_f32, quant.int8_dense
+    linear.dense_bias_f32, quant.int8_dense = dense_plain, int8_dense_plain_any
+    try:
+        yield
+    finally:
+        linear.dense_bias_f32, quant.int8_dense = saved
+
+
+@contextlib.contextmanager
+def seeded_once():
+    """The sampling CLI's pipeline builder with its seeded DiT weights drawn
+    once an arch (numpy draws 1.6e9 values at 1p6B, about 30 s): the first
+    build of an arch keeps a copy of them on the card, a later build (another
+    parallel.quant, the CLI call itself, the XL and the registry slices'
+    XL/1) loads that copy."""
+    from ldmae_tpu_torch.cli import inference
+
+    real, cache = inference.seeded_init_, {}
+
+    def init(module, seed, std=0.02):
+        key = (getattr(module, "spec", None), seed, std)
+        if key in cache:
+            module.load_state_dict(cache[key], strict=True)
+            return module
+        real(module, seed, std)
+        cache[key] = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        return module
+
+    inference.seeded_init_ = init
+    try:
+        yield
+    finally:
+        inference.seeded_init_ = real
+        cache.clear()
+
+
+def gate_ptxas(report: dict) -> None:
+    """ptxas's registers and spills of the gate kernel's instantiations
+    (#10 and its halves: vector and element-wise)."""
+    lines = report["fused_quant"]["ptxas"].splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "silu_mul_quant_kernel" in line:
+            name = re.sub(r".*silu_mul_quant_kernel", "silu_mul_quant_kernel", line).strip()
+            stats = [ln.strip() for ln in lines[i + 1:i + 5] if "registers" in ln or "spill" in ln]
+            log(f"  ptxas {name}: {'; '.join(stats)}")
+
+
+def registry_kernel_phase(dev) -> dict:
+    """The registry's new kernel shapes, early in the process: #10 at L/2's
+    and 1p6B/1's SwiGLU widths (H 2,730 at 16 x 256 rows, 4,778 at 16 x
+    1,024; the element-wise instantiation) and at XL's 3,072 (the vector
+    one), #9 at D 1,152 and 1,792, #1 at the patch-2 archs' (16, 16, 256, 64)
+    and (16, 16, 256, 72), and int8_dense at XL's and 1p6B's w12 and w3, each
+    against its plain version (the quantizing kernels within one int8 step;
+    #1 the attention tolerance; int8_dense bit for bit), timed beside the
+    plain version, SDPA for #1 and the bound. Returns the kernels line's
+    rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops.quant import QLinear, _int_mm, int8_dense
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+    for name, tokens, h, want in (("fused_silu_mul_quant_l2", 256, 2730, "element-wise"),
+                                  ("fused_silu_mul_quant_1p6b1", 1024, 4778, "element-wise"),
+                                  ("fused_silu_mul_quant_xl1", 1024, 3072, "vector")):
+        b = 2 * BATCH
+        log(f"[registry kernel] fused_silu_mul_quant x12 ({b},{tokens},{2 * h}) bf16 -> int8 ({b},{tokens},{h})")
+        x12 = randn(b, tokens, 2 * h, scale=2.0)
+        err = compare_quant(name, fad.fused_silu_mul_quant(x12), fad.fused_silu_mul_quant_plain(x12))
+        ms = cuda_ms(lambda: fad.fused_silu_mul_quant(x12), 50)
+        parts = {"queued_ms": queued_ms(lambda: fad.fused_silu_mul_quant(x12))}
+        plain_ms = cuda_ms(lambda: fad.fused_silu_mul_quant_plain(x12), 10)
+        m = b * tokens
+        bnd = bound(m * 2 * h * 2 + m * h + m * 4, fp32_flops=8 * m * h)
+        parts["instantiation"] = how = _gate_instantiation(lambda: fad.fused_silu_mul_quant(x12))
+        log(f"  {name}: kernel {ms:.4f} ms, queued {parts['queued_ms']:.4f} ({how} instantiation), plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+        if how not in (want, "not measured"):
+            raise SystemExit(f"{name}: H = {h} ran the {how} instantiation, not the {want} one")
+        rows[name] = (err, ms, plain_ms, None, *bnd, parts)
+        del x12
+
+    for name, d in (("fused_norm_modulate_quant_xl1", 1152), ("fused_norm_modulate_quant_1p6b1", 1792)):
+        b, n = 2 * BATCH, 1024
+        log(f"[registry kernel] fused_norm_modulate_quant x ({b},{n},{d}) bf16, shift/scale views of ({b},6,{d})")
+        x = randn(b, n, d, scale=3.0)
+        w = 1 + 0.1 * randn(d, dtype=torch.float32)
+        mod = randn(b, 6, d, scale=0.1)
+        sh, sc = mod[:, 0], mod[:, 1]
+        err = compare_quant(name, fad.fused_norm_modulate_quant(x, w, sh, sc),
+                            fad.fused_norm_modulate_quant_plain(x, w, sh, sc))
+        ms = cuda_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc), 50)
+        parts = {"queued_ms": queued_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc)),
+                 "cold_ms": cold_ms(lambda: fad.fused_norm_modulate_quant(x, w, sh, sc))}
+        plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_quant_plain(x, w, sh, sc), 10)
+        bnd = bound(b * n * d * 3 + b * n * 4 + d * 4 + 2 * b * d * 2, fp32_flops=9 * b * n * d)
+        log(f"  {name}: kernel {ms:.4f} ms, queued {parts['queued_ms']:.4f}, cold L2 {parts['cold_ms']:.4f}; plain "
+            f"{plain_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+        rows[name] = (err, ms, plain_ms, None, *bnd, parts)
+        del x, mod
+
+    for name, d in (("flash_attention_rope_l2", 64), ("flash_attention_rope_xl2", 72)):
+        b, h, n = 2 * BATCH, 16, 256
+        log(f"[registry kernel] flash_attention_rope q,k,v ({b},{h},{n},{d}) bf16, cos/sin ({n},{d}) fp32")
+        q, k, v = randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d)
+        cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 16))
+        ref = fa.flash_attention_rope_plain(q, k, v, cos, sin)
+        err = compare(name, fa.flash_attention_rope(q, k, v, cos, sin), ref, **attn_tol(ref))
+        del ref
+        ms = cuda_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin), 50)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), 5, 1)
+        qr, kr = fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 50)
+        bnd = bound(4 * b * h * n * d * 2 + 2 * n * d * 4, 4 * b * h * n * n * d, exps=b * h * n * n)
+        parts = xl_route(name, device_split(lambda: fa.flash_attention_rope(q, k, v, cos, sin)), True)
+        parts |= {"queued_ms": queued_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin)),
+                  "library_queued_ms": queued_ms(lambda: F.scaled_dot_product_attention(qr, kr, v)),
+                  "host_ms": host_ms(lambda: fa.flash_attention_rope(q, k, v, cos, sin))}
+        log(f"  {name}: kernel {ms:.4f} ms (queued {parts['queued_ms']:.4f}, host a call {parts['host_ms']:.4f}; "
+            + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in parts["kernels_ms"].items())
+            + f"), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (queued {parts['library_queued_ms']:.4f}; kernel / "
+            f"SDPA {ms / lib_ms:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
+        rows[name] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+        del q, k, v, qr, kr
+
+    m = 2 * BATCH * 1024
+    for name, k, n in (("int8_dense_xl1_w12", 1152, 6144), ("int8_dense_xl1_w3", 3072, 1152),
+                       ("int8_dense_1p6b1_w12", 1792, 9556), ("int8_dense_1p6b1_w3", 4778, 1792)):
+        log(f"[registry kernel] int8_dense x_q ({m},{k}) int8, w_q ({n},{k}) int8, fp32 scales and bias -> bf16")
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        p = QLinear(w, torch.rand(n, generator=g, device=dev) * 1e-3, torch.randn(n, generator=g, device=dev))
+        xs = torch.rand(m, 1, generator=g, device=dev) * 1e-2
+        out, ref = int8_dense(a, xs, p, torch.bfloat16), int8_dense_plain_any(a, xs, p, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise SystemExit(f"{name}: not bit for bit the plain version "
+                             f"(max |diff| {float((out.float() - ref.float()).abs().max())})")
+        ms = cuda_ms(lambda: int8_dense(a, xs, p, torch.bfloat16), 20)
+        parts = {"queued_ms": queued_ms(lambda: int8_dense(a, xs, p, torch.bfloat16))}
+        plain_ms = cuda_ms(lambda: int8_dense_plain_any(a, xs, p, torch.bfloat16), 10)
+        takes = k % 8 == 0 and n % 8 == 0
+        parts["int_mm_ms"] = queued_ms(lambda: _int_mm(a, w)) if takes else None
+        bnd = bound(m * k + n * k + m * n * 2 + 4 * m + 8 * n, int8_ops=2 * m * k * n)
+        log(f"  {name} M={m} K={k} N={n}: bit for bit the plain version; kernel {ms:.4f} ms, queued "
+            f"{parts['queued_ms']:.4f}; plain (torch._int_mm{'' if takes else ' on K and N padded to 8'} + the "
+            f"dequant) {plain_ms:.4f} ms; torch._int_mm alone {fmt_ms(parts['int_mm_ms'])}"
+            f"{'' if takes else ' (it takes no K or N off a multiple of 8)'}; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"share {bnd[0] / ms:.3f}")
+        rows[name] = (0.0, ms, plain_ms, None, *bnd, parts)
+        del a, w, p, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _reg_rel(lat, ref) -> tuple:
+    """(relative L2 ||lat - ref|| / ||ref||, max |lat - ref| / max |ref|)."""
+    d = lat.float() - ref.float()
+    return float(d.norm() / ref.float().norm()), float(d.abs().max() / ref.float().abs().max())
+
+
+def _reg_run(what: str, fn, path=None):
+    """One 10-step chain, timed, its launches counted from 0 (with ``path``
+    checked exactly). Returns (latents, seconds, launch counts)."""
+    import torch
+
+    from ldmae_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if path is not None:
+        check_counts(path, counts)
+    if not (torch.isfinite(lat).all() and lat.shape == (BATCH, 16, 32, 32)):
+        raise SystemExit(f"{what}: the latents are not finite ({BATCH}, 16, 32, 32)")
+    return lat, seconds, counts
+
+
+def _scales_up(qdit):
+    """The quantized DiT with every weight scale 10 % high: the quant gate's control."""
+    import torch
+
+    from ldmae_tpu_torch.ops.quant import QLinear
+
+    dit = copy.deepcopy(qdit)
+    with torch.no_grad():
+        for m in dit.modules():
+            if isinstance(m, QLinear):
+                m.w_scale.mul_(1.1)
+    return dit
+
+
+def registry_gates(dev, what: str, spec, bundles: dict, counts_of: dict, y) -> dict:
+    """The 10-step gates of one leg, from the pipeline builder's bundles
+    (``bundles``: quant mode -> bundle, None for bf16): each mode's kernels
+    (launches exact, ``counts_of[mode]``) against the same mode's plain xla
+    path with no port kernel (``plain_linears``; its launches all 0) from
+    one noise z, within REG_LAT_REL relative L2 (control: the kernels from
+    another noise, which must read above); each quantized mode against the
+    bf16 kernels from z, ||q - bf16|| / ||bf16 - z|| within QUANT_REL_MAX,
+    or within QUANT_PLAIN_REL of the plain xla paths' own reading where that
+    is above QUANT_REL_MAX (control: the weight scales 10 % high, which must
+    read above the bound); each
+    mode's latents decoded (#2) to finite images that are not flat. Returns
+    (the readings and seconds, {path: counts})."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    z, z2 = (torch.randn(BATCH, 16, 32, 32, generator=gen.manual_seed(s), device=dev) for s in QUANT_NOISE_SEEDS)
+    record, lats, plain, counts = {}, {}, {}, {}
+    for quant, bundle in bundles.items():
+        mode = quant or "bf16"
+        latents = dict(bundle, vae=None)
+        fk = sampler(spec, SHORT_STEPS, dev, kernels=True, quant=quant)
+        fx = sampler(spec, SHORT_STEPS, dev, kernels=False, quant=quant)
+        fk(latents, y, z=z)  # warm-up
+        lat_k, sec_k, counts[counts_of[quant]] = _reg_run(f"{what} {mode} kernels", lambda: fk(latents, y, z=z),
+                                                          counts_of[quant])
+        with plain_linears():
+            lat_x, sec_x, _ = _reg_run(f"{what} {mode} xla", lambda: fx(latents, y, z=z), "reg_xla")
+        lat_c, _, _ = _reg_run(f"{what} {mode} control", lambda: fk(latents, y, z=z2))
+        (rel, rel_max), (control, _) = _reg_rel(lat_k, lat_x), _reg_rel(lat_c, lat_x)
+        moved = float((lat_x - z).abs().max())
+        imgs = bundle["vae"].decode_to_images(lat_k, compute_dtype=torch.bfloat16, attn_impl="flash_rope")
+        std = float(imgs.float().std())
+        ok = rel <= REG_LAT_REL and control > REG_LAT_REL and moved > 1e-2 and std > 1.0
+        record[mode] = {"rel_l2": rel, "rel_max": rel_max, "control_rel_l2": control, "moved": moved,
+                        "image_std": std, "kernels_s": sec_k, "xla_s": sec_x}
+        log(f"  {what} {mode}: {SHORT_STEPS}-step latents vs the plain xla path (no port kernel): relative L2 "
+            f"{rel:.6g} (bound {REG_LAT_REL}), max rel {rel_max:.6g}; control (another noise) {control:.6g} (must "
+            f"exceed {REG_LAT_REL}); moved {moved:.4g} from z; decoded images {tuple(imgs.shape)} pixel std "
+            f"{std:.3f}; {sec_k:.4f} s a batch (kernels), {sec_x:.4f} s (xla) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{what} {mode}: the kernels' latents disagree with xla, the control reads within "
+                             f"the gate, or the images are flat")
+        lats[quant], plain[quant] = lat_k, lat_x
+        del lat_c, imgs
+    for quant, bundle in bundles.items():
+        if quant is None:
+            continue
+        ref = lats[None]
+        moved = (ref.float() - z).norm()
+        rel = float((lats[quant].float() - ref.float()).norm() / moved)
+        control_dit = _scales_up(bundle["dit"])
+        fc = sampler(spec, SHORT_STEPS, dev, kernels=True, quant=quant)
+        lat_c, _, _ = _reg_run(f"{what} {quant} control", lambda: fc(dict(bundle, vae=None, dit=control_dit), y, z=z))
+        control = float((lat_c.float() - ref.float()).norm() / moved)
+        # the same reading of the plain xla paths (no port kernel): the quantization's own error at this arch
+        plain_rel = float((plain[quant].float() - plain[None].float()).norm() / (plain[None].float() - z).norm())
+        bound_ = QUANT_REL_MAX if plain_rel <= QUANT_REL_MAX else QUANT_PLAIN_REL * plain_rel
+        ok = rel <= bound_ and control > bound_
+        record[quant] |= {"quant_rel": rel, "quant_control_rel": control, "plain_quant_rel": plain_rel,
+                          "quant_bound": bound_, "within_quant_rel_max": rel <= QUANT_REL_MAX}
+        log(f"  {what} {quant} vs bf16 kernels from one noise: ||{quant} - bf16|| / ||bf16 - z|| {rel:.6g}; the "
+            f"plain xla paths' own reading {plain_rel:.6g}; bound {bound_:.6g} (QUANT_REL_MAX {QUANT_REL_MAX}"
+            + ("" if bound_ == QUANT_REL_MAX else f", which the plain paths exceed: {QUANT_PLAIN_REL} x their reading")
+            + f"); control (weight scales x 1.1) {control:.6g} (must exceed the bound) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{what}: {quant} latents out of bound, or the control within it")
+        del control_dit, lat_c
+    del plain
+    torch.cuda.empty_cache()
+    return record, counts
+
+
+def _reg_config(tmp: str, name: str, arch: str, quant, **sample):
+    from ldmae_tpu_torch.core.config import LDMAEConfig
+
+    out_root = os.path.join(tmp, f"reg_{name}_out")
+    path = xl_yaml(os.path.join(tmp, f"reg_{name}_{quant or 'bf16'}.yaml"), arch, ckpt_path=None,
+                   vae={"weight_path": ""}, parallel={"quant": quant},
+                   train={"output_dir": out_root, "exp_name": f"reg_{name}"},
+                   sample={"per_proc_batch_size": BATCH, "fid_num": BATCH} | sample)
+    return path, LDMAEConfig.from_yaml(path)
+
+
+def registry_cli_leg(dev, smi: str, tmp: str, name: str) -> tuple:
+    """XL/1 under w8a8 or B/1 under w8 (``REG_CLI[name]``): the 10-step gates
+    from the pipeline builder's bf16 and quantized bundles, then one batch of
+    8 through ``cli.inference`` on the YAML with parallel.quant set, 250
+    Euler steps, CFG 10 on [0.10, 1] phased, decoded to PNGs, launches
+    exact, the batch's seconds timed inside the CLI's pipeline, images/s,
+    peak memory. Returns (record, {path: counts})."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import inference
+
+    arch, quant, depth = REG_CLI[name]
+    path, cfg = _reg_config(tmp, name, arch, quant, num_sampling_steps=STEPS)
+    _, bf16_cfg = _reg_config(tmp, name, arch, None)
+    short = name.split("_")[0]
+    log(f"[registry] {arch} under parallel.quant {quant}: {SHORT_STEPS}-step gates (the CLI's build_pipeline, "
+        f"seeded), batch {BATCH}")
+    _, qbundle, spec = inference.build_pipeline(cfg, device=dev)
+    _, bundle, _ = inference.build_pipeline(bf16_cfg, device=dev)
+    if (spec.depth, spec.num_patches) != (depth, 1024):
+        raise SystemExit(f"{arch}: depth {spec.depth}, {spec.num_patches} tokens")
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    record, counts = registry_gates(dev, arch, spec, {None: bundle, quant: qbundle},
+                                    {None: f"reg_{short}_bf16_short", quant: f"reg_{name}_short"}, y)
+    del bundle, qbundle
+    torch.cuda.empty_cache()
+
+    log(f"[registry] cli.inference: {arch} + VMAE f8d16 (seeded), parallel.quant {quant}, batch {BATCH}, {STEPS} "
+        f"Euler steps, shift {cfg.sample.timestep_shift}, CFG {cfg.sample.cfg_scale} on "
+        f"[{cfg.sample.cfg_interval_start}, 1] (phased), PNGs")
+    build = inference.build_pipeline
+    batch_s = []
+
+    def timed_pipeline(*args, **kwargs):
+        fn, bundle_, spec_ = build(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            imgs = fn(*a, **kw)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t)
+            return imgs
+
+        return timed, bundle_, spec_
+
+    inference.build_pipeline = timed_pipeline
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        folder = inference.main(["--config", path, "--skip_fid"])
+    finally:
+        inference.build_pipeline = build
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts[f"reg_{name}"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(f"reg_{name}", counts[f"reg_{name}"])
+    pngs = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(folder, f))) for f in pngs])
+    ok = (pngs == [f"{i:06d}.png" for i in range(BATCH)] and imgs.shape == (BATCH, 256, 256, 3)
+          and float(imgs.std()) > 1.0 and len(batch_s) == 1)
+    sec = batch_s[0] if batch_s else float("nan")
+    record["cli"] = {"seconds_batch": sec, "images_per_s": BATCH / sec, "cli_s": cli_s, "peak_gb": peak,
+                     "steps": STEPS, "quant": quant}
+    log(f"  launches exact; PNGs {pngs[0]}..{pngs[-1]} {imgs.shape}, pixel std {float(imgs.std()):.3f}; {sec:.4f} s "
+        f"per batch of {BATCH} ({BATCH / sec:.4f} images/s), the whole CLI call {cli_s:.2f} s; peak memory "
+        f"{peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"registry {name}: the sampling CLI's PNGs are not the batch's 8 images")
+    torch.cuda.empty_cache()
+    return record, counts
+
+
+def registry_short_leg(dev, smi: str, tmp: str, arch: str) -> tuple:
+    """``arch`` (``REG_SHORT``) at full width and depth through the sampling
+    CLI's pipeline builder, bf16 and parallel.quant w8a8: the 10-step gates
+    (``registry_gates``), each run's seconds, the leg's peak memory.
+    Returns (record, {path: counts})."""
+    import torch
+
+    from ldmae_tpu_torch.cli import inference
+
+    name, depth, tokens, fused_w12 = REG_SHORT[arch]
+    _, cfg = _reg_config(tmp, name, arch, None)
+    _, qcfg = _reg_config(tmp, name, arch, "w8a8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, bundle, spec = inference.build_pipeline(cfg, device=dev)
+    _, qbundle, _ = inference.build_pipeline(qcfg, device=dev)
+    build_s = time.perf_counter() - t0
+    m = 2 * BATCH * spec.num_patches
+    takes = m % 128 == 0 and spec.hidden_size % 128 == 0 and 2 * spec.swiglu_hidden % 256 == 0
+    if (spec.depth, spec.num_patches, takes) != (depth, tokens, fused_w12):
+        raise SystemExit(f"{arch}: depth {spec.depth}, {spec.num_patches} tokens, #4 takes w12: {takes}")
+    log(f"[registry] {arch} (depth {spec.depth}, width {spec.hidden_size}, {spec.num_heads} heads of "
+        f"{spec.head_dim}, SwiGLU {spec.swiglu_hidden}, {spec.num_patches} tokens): {SHORT_STEPS} steps, batch "
+        f"{BATCH}, bf16 and w8a8 through the CLI's build_pipeline (seeded, built in {build_s:.2f} s)")
+    y = torch.arange(BATCH, device=dev) * 125 % 1000
+    record, counts = registry_gates(dev, arch, spec, {None: bundle, "w8a8": qbundle},
+                                    {None: f"reg_{name}_bf16_short", "w8a8": f"reg_{name}_w8a8_short"}, y)
+    record |= {"build_s": build_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {arch}: peak memory {record['peak_gb']:.3f} GB; on {smi}")
+    del bundle, qbundle
+    torch.cuda.empty_cache()
+    return record, counts
+
+
+def registry_legs(dev, smi: str, tmp: str) -> tuple:
+    """The registry slice's legs: the two 250-step CLI legs, then the three
+    10-step legs, inside the caller's ``seeded_once``. Returns (record,
+    {path: counts})."""
+    t0 = time.perf_counter()
+    record, counts = {}, {}
+    for name in REG_CLI:
+        t1 = time.perf_counter()
+        record[name], c = registry_cli_leg(dev, smi, tmp, name)
+        record[name]["leg_s"] = time.perf_counter() - t1
+        counts |= c
+    for arch in REG_SHORT:
+        t1 = time.perf_counter()
+        leg, c = registry_short_leg(dev, smi, tmp, arch)
+        record[REG_SHORT[arch][0]] = leg | {"leg_s": time.perf_counter() - t1}
+        counts |= c
+    log("  seconds a leg: " + ", ".join(f"{k} {v['leg_s']:.2f}" for k, v in record.items()))
+    record["legs_s"] = time.perf_counter() - t0
+    log(f"  the registry legs took {record['legs_s']:.2f} s; on {smi}")
+    return record, counts
+
+
+def registry_only(dev, smi: str) -> int:
+    """``--registry``: build, then the registry slice alone (its kernel
+    phase, then its legs), its kernels as a ``{"registry_kernels": [...]}``
+    line in the kernels line's form."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    gate_ptxas(report)
+    rate_probes(dev)
+    rows = registry_kernel_phase(dev)
+    with seeded_once(), tempfile.TemporaryDirectory() as tmp:
+        record, counts = registry_legs(dev, smi, tmp)
+    log(json.dumps({"registry": record}))
+    log(smi)
+    log(json.dumps({"registry_kernels": kernel_rows(rows, counts)}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def kernel_rows(rows: dict, counts: dict) -> list:
     """The kernels line's entries: each measured kernel with its launches on
     the path that runs it (``KERNELS``)."""
@@ -5864,8 +6451,14 @@ def main() -> int:
         return xl_kernels_only(dev)
     if "--xl" in sys.argv[1:]:
         return xl_only(dev, smi)
+    if "--registry" in sys.argv[1:]:
+        return registry_only(dev, smi)
 
     t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:  # where the script's time limit goes
+        log(f"[time] {time.perf_counter() - t0:.1f} s into the run, after {phase}")
+
     report = kernels.build()
     log(f"[build] {time.perf_counter() - t0:.2f} s for {len(report)} libraries (nvcc in parallel)")
     for name, info in report.items():
@@ -5875,6 +6468,7 @@ def main() -> int:
     gemm_ptxas(report)
     engine_ptxas(report)
     rate_probes(dev)
+    mark("the build")
 
     rows = kernel_phases(dev, BATCH)
     log(f"[kernel] the same at bench.py's batch {BENCH_BATCH}")
@@ -5886,23 +6480,33 @@ def main() -> int:
     # early in the process: later, the profiler's per-kernel splits have
     # come back short of records
     rows |= xl_kernel_phase(dev)
+    rows |= registry_kernel_phase(dev)
+    mark("the kernel phases")
     head_dim_phase(dev)
     rows |= fp32_kernel_phase(dev, BATCH)
     rows |= dense_phase(dev)
+    mark("the head-dim, fp32 and dense phases")
     profile = "--profile" in sys.argv[1:]
     result = pipeline_phases(dev, profile=profile)
     result["counts"] |= vmae_decode_phase(dev)
+    mark("the B/1 pipeline phases")
     samplers = samplers_phase(dev)
     result["counts"] |= samplers["counts"]
+    mark("the sampler slice")
     grad_check_phase(dev)
     for layout in ("half", "interleaved"):
         path = f"grad_fp32_{layout}"
         result["counts"][path] = grad_check_phase(dev, torch.float32, layout, path, GRAD_F32_REL_L2)
     with tempfile.TemporaryDirectory() as tmp:
         result["counts"] |= cli_train_phase(dev, smi, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
+    mark("the gradient checks and DiT training")
+    with seeded_once(), tempfile.TemporaryDirectory() as tmp:  # XL/1's seeded weights drawn once for both slices
         xl_record, counts = xl_legs(dev, smi, tmp)
-    result["counts"] |= counts
+        result["counts"] |= counts
+        mark("the XL legs")
+        registry, counts = registry_legs(dev, smi, tmp)
+        result["counts"] |= counts
+        mark("the registry legs")
     if profile:
         train_profile_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5913,16 +6517,21 @@ def main() -> int:
         encoder_rows = encoder_kernel_phase(dev, origin, dense_shapes)
         result["counts"] |= tokenizer_eval_phase(dev, smi, tmp, origin)
         inception_fid_phase(dev, smi, tmp)
+        mark("extraction and evaluation")
         result["counts"] |= tokenizer_family_phases(dev, smi, tmp, origin)
+        mark("the tokenizer family")
         counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
         result["counts"] |= counts
+        mark("VMAE training")
         multiproc = multiproc_phase(dev, smi, tmp, origin)
+        mark("the multi-process slice")
         tensor_parallel, tp_rows, counts = tp_phase(dev, smi, tmp)
         rows |= tp_rows
         result["counts"] |= counts
         tp_training, tp_rows, counts = tp_train_phase(dev, smi, tmp)
         rows |= tp_rows
         result["counts"] |= counts
+        mark("tensor parallelism")
 
     out = kernel_rows(rows, result["counts"])
     missing = set(KERNELS) - set(rows)
@@ -5942,6 +6551,8 @@ def main() -> int:
     log(json.dumps({"samplers": samplers}))
     # the XL slice's sampling and training legs
     log(json.dumps({"xl": xl_record}))
+    # the registry slice's legs: XL/1 w8a8 and B/1 w8 through cli.inference, L/2, XL/2, 1p6B/1 at 10 steps
+    log(json.dumps({"registry": registry}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,15 @@
 // the parameters are staged as fp32 w, 1 + scale[b] and shift[b], and q
 // comes from a reciprocal, equal bit for bit to the true quotient's
 // rounding (the rule at kMagic below, applied in ModulateQuant::finish). The gate runs one block of 128 threads per row
-// (2H = 4,096 values at B/1, 8 KB).
+// (2H = 4,096 values at B/1, 8 KB), in 16-byte loads and 8-byte stores where
+// H is a multiple of 8 and the bases are aligned; any other H (the SwiGLU
+// widths int(2/3 * 4D) of L and 1p6B, 2,730 and 4,778, and their halves
+// under tensor parallelism, 1,365 and 2,389) runs an element-wise
+// instantiation: a bf16 row of 2H = 5,460 values starts every 10,920 bytes,
+// 8 mod 16, and at an odd H x2 starts 2 mod 4 bytes past x1. On an H100 the
+// vector one reads at 0.74 of the bytes bound, the element-wise one at
+// 0.18-0.23 (PERF.md); both of the registry's unaligned widths are even, so
+// a 2-element instantiation would serve them and leave this one to odd H.
 // fp32 input (the configs' other compute dtype) runs the same kernels with
 // the element type a template parameter (their arithmetic is fp32 already).
 #include "norm_rows.cuh"
@@ -40,7 +48,7 @@ using attn::to_float;
 using rows::warp_max;
 
 constexpr int kGateThreads = 128;
-constexpr int kMaxGateVec = 8;   // gate: 8-output vectors per thread, H <= 8 * 8 * 128 = 8192
+constexpr int kMaxGateVec = 8;   // gate: 8 outputs a thread kMaxGateVec times, H <= 8 * 8 * 128 = 8192
 
 // Eight values o / qs rounded half to even, as int8 in one 8-byte word.
 __device__ __forceinline__ uint2 quantize8(const float* o, float qs) {
@@ -217,9 +225,14 @@ struct ModulateQuant {
 // bit: max is exact in any order, and each element's quotient is the same.
 enum GateMode { kGateFull, kGateAmax, kGateScaled };
 
-// One block per row of x12 (2H elements); kVec: 8-output vectors per thread.
-// amax: written (kGateAmax) or read (kGateScaled), one fp32 a row.
-template <typename T, int kVec, GateMode kMode>
+// One block per row of x12 (2H elements); kVec: 8 outputs a thread, kVec
+// times. amax: written (kGateAmax) or read (kGateScaled), one fp32 a row.
+// kNarrow: element by element, output e of the row at thread e % 128 (so a
+// warp reads 32 neighbouring values, 64 or 128 bytes, and writes 32 bytes),
+// for any H and any element-aligned bases; else 8 neighbouring outputs a
+// thread in 16-byte loads and 8-byte stores (H % 8 == 0, aligned bases).
+// Both compute each output and its int8 by the same operations.
+template <typename T, int kVec, GateMode kMode, bool kNarrow>
 __global__ void __launch_bounds__(kGateThreads)
     silu_mul_quant_kernel(const T* __restrict__ x12, int8_t* __restrict__ out,
                           float* __restrict__ scales, float* __restrict__ amax_row, int h) {
@@ -232,15 +245,27 @@ __global__ void __launch_bounds__(kGateThreads)
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const int vi = threadIdx.x + i * kGateThreads;
-    if (vi >= nvec) continue;
-    const Vec8<T> e1(x1 + vi * 8), e2(x2 + vi * 8);
+    if constexpr (kNarrow) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float a = e1[j];
-      const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
-      o[i][j] = __fmul_rn(__fmul_rn(a, sig), e2[j]);
-      amax = fmaxf(amax, fabsf(o[i][j]));
+      for (int j = 0; j < 8; ++j) {
+        const int e = threadIdx.x + (i * 8 + j) * kGateThreads;
+        if (e >= h) continue;
+        const float a = to_float(x1[e]);
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
+        o[i][j] = __fmul_rn(__fmul_rn(a, sig), to_float(x2[e]));
+        amax = fmaxf(amax, fabsf(o[i][j]));
+      }
+    } else {
+      const int vi = threadIdx.x + i * kGateThreads;
+      if (vi >= nvec) continue;
+      const Vec8<T> e1(x1 + vi * 8), e2(x2 + vi * 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float a = e1[j];
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
+        o[i][j] = __fmul_rn(__fmul_rn(a, sig), e2[j]);
+        amax = fmaxf(amax, fabsf(o[i][j]));
+      }
     }
   }
   if constexpr (kMode == kGateScaled) {
@@ -257,31 +282,51 @@ __global__ void __launch_bounds__(kGateThreads)
     }
   }
   const float qs = row_scale(amax);
+  int8_t* orow = out + row * h;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const int vi = threadIdx.x + i * kGateThreads;
-    if (vi < nvec) *reinterpret_cast<uint2*>(out + row * h + vi * 8) = quantize8(o[i], qs);
+    if constexpr (kNarrow) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = threadIdx.x + (i * 8 + j) * kGateThreads;
+        if (e < h) orow[e] = static_cast<int8_t>(static_cast<int>(rintf(__fdiv_rn(o[i][j], qs))));
+      }
+    } else {
+      const int vi = threadIdx.x + i * kGateThreads;
+      if (vi < nvec) *reinterpret_cast<uint2*>(orow + vi * 8) = quantize8(o[i], qs);
+    }
   }
   if (threadIdx.x == 0) scales[row] = qs;
 }
 
-template <typename T, GateMode kMode = kGateFull>
-cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s,
-                        float* amax = nullptr) {
-  if (h % 8 != 0 || h > kMaxGateVec * 8 * kGateThreads || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const T* xb = static_cast<const T*>(x12);
-  int8_t* ob = static_cast<int8_t*>(out);
+template <typename T, GateMode kMode, bool kNarrow>
+cudaError_t gate_launch_as(const T* x12, int8_t* out, float* scales, long long rows, int h, cudaStream_t s,
+                           float* amax) {
   const dim3 grid(static_cast<unsigned>(rows));
-  switch ((h / 8 + kGateThreads - 1) / kGateThreads) {
-#define LDMAE_CASE(V)                                                                   \
-  case V:                                                                               \
-    silu_mul_quant_kernel<T, V, kMode><<<grid, kGateThreads, 0, s>>>(xb, ob, scales, amax, h); \
+  switch ((h + 8 * kGateThreads - 1) / (8 * kGateThreads)) {
+#define LDMAE_CASE(V)                                                                              \
+  case V:                                                                                          \
+    silu_mul_quant_kernel<T, V, kMode, kNarrow><<<grid, kGateThreads, 0, s>>>(x12, out, scales, amax, h); \
     break;
     LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4)
     LDMAE_CASE(5) LDMAE_CASE(6) LDMAE_CASE(7) LDMAE_CASE(8)
 #undef LDMAE_CASE
   }
   return cudaGetLastError();
+}
+
+// Any 1 <= h <= 8192; the vector instantiation where h % 8 == 0, x12 is
+// 16-byte and out 8-byte aligned, else the element-wise one.
+template <typename T, GateMode kMode = kGateFull>
+cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s,
+                        float* amax = nullptr) {
+  if (h < 1 || h > kMaxGateVec * 8 * kGateThreads || rows < 1 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const T* xb = static_cast<const T*>(x12);
+  int8_t* ob = static_cast<int8_t*>(out);
+  const bool vec =
+      h % 8 == 0 && reinterpret_cast<uintptr_t>(x12) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  return vec ? gate_launch_as<T, kMode, false>(xb, ob, scales, rows, h, s, amax)
+             : gate_launch_as<T, kMode, true>(xb, ob, scales, rows, h, s, amax);
 }
 
 }  // namespace
@@ -302,9 +347,10 @@ extern "C" int ldmae_fused_norm_modulate_quant(const void* x, const float* w, co
   return static_cast<int>(fp32 ? rows::launch<ModulateQuant<float>>(a, s) : rows::launch<ModulateQuant<bf16>>(a, s));
 }
 
-// x12: contiguous (rows, 2h), bf16 (fp32 != 0: fp32), with h % 8 == 0 and h
-// <= 8192, 16-byte aligned. Writes out: (rows, h) int8 and scales: (rows,)
-// fp32. Returns the CUDA error of the launch (0 on success).
+// x12: contiguous (rows, 2h), bf16 (fp32 != 0: fp32), 1 <= h <= 8192, rows
+// >= 1. Writes out: (rows, h) int8 and scales: (rows,) fp32. Returns the
+// CUDA error of the launch (0 on success; cudaErrorInvalidValue for a shape
+// outside those bounds).
 extern "C" int ldmae_fused_silu_mul_quant(const void* x12, void* out, float* scales,
                                           long long rows, int h, int fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

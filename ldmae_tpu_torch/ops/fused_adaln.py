@@ -17,8 +17,10 @@ tensor cores take no fp32). Rows of D <= MAX_WIDTH elements, D a multiple
 of 8 (bf16) or 4 (fp32): every width of the DiT registry (64 to 1,792).
 ``<wrapper>.launches`` counts kernel launches.
 
-Under tensor parallelism a rank holds a slice [x1_r | x2_r] of the SwiGLU
-hidden dim, so #10 runs as its two halves (``silu_mul_amax``, then
+The gate kernel (#10) takes any hidden width 1 <= H <= MAX_GATE_H, as the
+TPU kernel does (its block spans the whole row). Under tensor parallelism a
+rank holds a slice [x1_r | x2_r] of the SwiGLU hidden dim, so #10 runs as
+its two halves (``silu_mul_amax``, then
 ``silu_mul_quant_scaled`` with the ranks' maxima reduced): two modes of the
 same gate kernel, which together equal #10 on the whole row bit for bit.
 """
@@ -34,6 +36,7 @@ from .flash_attention import _acc, _needs_grad
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_WIDTH = 2048  # row elements the norm kernels hold in registers (64 a lane)
+MAX_GATE_H = 8192  # SwiGLU hidden width the gate kernel (#10) holds in registers (64 a thread)
 
 
 def _check_rows(what: str, x: torch.Tensor) -> tuple[int, int, int]:
@@ -342,13 +345,17 @@ def fused_silu_mul_quant_plain(x12: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 
 def _gate_rows(what: str, x12: torch.Tensor) -> tuple[int, int]:
-    """x12 as the gate kernel takes it; returns (rows, H)."""
-    if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous() or x12.data_ptr() % 16:
-        raise ValueError(f"{what}: x12 must be a contiguous, 16-byte aligned bf16 or fp32 tensor")
-    h = x12.shape[-1] // 2
-    if x12.shape[-1] % 16 or h > 8192:
-        raise ValueError(f"{what}: 2H={x12.shape[-1]} must be a multiple of 16 and <= 16384")
-    return x12.numel() // x12.shape[-1], h
+    """x12 as the gate kernel takes it: contiguous bf16 or fp32 rows of 2H
+    values, 1 <= H <= MAX_GATE_H, at least one row. Any such H and base: the
+    kernel reads 16-byte vectors where H % 8 == 0 and the bases are aligned,
+    else element by element (the SwiGLU widths of L and 1p6B, 2,730 and
+    4,778, and their halves under tensor parallelism). Returns (rows, H)."""
+    if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous():
+        raise ValueError(f"{what}: x12 must be a contiguous bf16 or fp32 tensor")
+    h2 = x12.shape[-1]
+    if h2 % 2 or not 1 <= h2 // 2 <= MAX_GATE_H or x12.numel() == 0:
+        raise ValueError(f"{what}: 2H={h2} must be even with 1 <= H <= {MAX_GATE_H}, over at least one row")
+    return x12.numel() // h2, h2 // 2
 
 
 def fused_silu_mul_quant(x12: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1519,3 +1519,132 @@ def test_cuda_tp_forward_under_autograd_keeps_proj_w3_and_adaln_gradients(cuda):
         if any(part in name for part in ("attn.proj", "mlp.w3", "adaLN_modulation")):
             assert float(grad.abs().max()) > 0, name
         assert float((grad - grads[1][name]).norm()) <= 1e-5 * float(grads[1][name].norm()) + 1e-12, name
+
+
+# -- the registry slice: every arch's shapes (L/2, XL/2, 1p6B/1 beside B/1, XL/1)
+
+# #10's hidden widths H: the SwiGLU widths int(2/3 * 4D) of L (2,730) and
+# 1p6B (4,778), no multiple of 8 (the element-wise instantiation), their
+# halves at tp 2 (1,365, 2,389), and XL's 3,072 (the vector one)
+REGISTRY_GATE_H = [1365, 2389, 2730, 3072, 4778]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("h", REGISTRY_GATE_H)
+def test_cuda_gate_kernel_registry_swiglu_widths(cuda, h, dtype):
+    """#10 and its two tp halves (``silu_mul_amax``; ``silu_mul_quant_scaled``
+    given the plain amax) at each width, each launching its kernel, against
+    their plain versions; the control, the plain version of x12 with x1 and
+    x2 swapped, must fail the same gate."""
+    x12 = _randn((4, 256, 2 * h), 0, cuda, dtype, 2.0)
+    before = (tfad.fused_silu_mul_quant.launches, tfad.silu_mul_amax.launches, tfad.silu_mul_quant_scaled.launches)
+    out = tfad.fused_silu_mul_quant(x12)
+    amax = tfad.silu_mul_amax(x12)
+    ref_amax = tfad.silu_mul_amax_plain(x12)
+    scaled = tfad.silu_mul_quant_scaled(x12, ref_amax)
+    after = (tfad.fused_silu_mul_quant.launches, tfad.silu_mul_amax.launches, tfad.silu_mul_quant_scaled.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert out[0].shape == scaled[0].shape == (4, 256, h) and amax.shape == (4, 256, 1)
+    _assert_quant_close(out, tfad.fused_silu_mul_quant_plain(x12))
+    torch.testing.assert_close(amax, ref_amax, rtol=1e-6, atol=0)
+    _assert_quant_close(scaled, tfad.silu_mul_quant_scaled_plain(x12, ref_amax))
+    swapped = torch.cat([x12[..., h:], x12[..., :h]], dim=-1)
+    with pytest.raises(AssertionError):
+        _assert_quant_close(out, tfad.fused_silu_mul_quant_plain(swapped))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [2730, 4778])
+def test_cuda_gate_halves_equal_the_whole_row_at_odd_rank_widths(cuda, h):
+    """L's and 1p6B's rows split gate-aligned over two tp ranks (odd widths
+    1,365 and 2,389 a rank): the halves' amax reduced with max, then each
+    rank's int8 and scales, equal #10 on the whole row bit for bit."""
+    x12 = _bf16((2, 1024, 2 * h), 3, cuda) * 2
+    hr = h // 2
+    slices = [torch.cat([x12[..., r * hr:(r + 1) * hr], x12[..., h + r * hr:h + (r + 1) * hr]], dim=-1)
+              for r in range(2)]
+    amax = torch.maximum(*(tfad.silu_mul_amax(s) for s in slices))
+    parts = [tfad.silu_mul_quant_scaled(s, amax) for s in slices]
+    q, s = tfad.fused_silu_mul_quant(x12)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([p[0] for p in parts], dim=-1), q)
+    assert all(torch.equal(p[1], s) for p in parts)
+
+
+@pytest.mark.gpu
+def test_cuda_gate_kernel_takes_unaligned_bases(cuda):
+    """An aligned width (2,048) whose x12 starts 2 bytes past an aligned base
+    (a contiguous view at a storage offset) runs the element-wise
+    instantiation; its result is the plain version's."""
+    h = 2048
+    x12 = _bf16((1 + 512 * 2 * h,), 4, cuda)[1:].view(512, 2 * h)
+    assert x12.data_ptr() % 16 == 2
+    _assert_quant_close(tfad.fused_silu_mul_quant(x12), tfad.fused_silu_mul_quant_plain(x12))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 72])
+def test_cuda_flash_attention_rope_at_patch2_tokens(cuda, d):
+    """#1 at the patch-2 archs' 256 tokens and their batch-8 CFG shape, (16,
+    16, 256, d): L/2 and B/2 at d = 64, XL/2 at d = 72; the control,
+    attention without RoPE, must fail the same tolerance. (That these shapes
+    run the wgmma forward ``chip_smoke.py``'s registry kernel phase checks,
+    early in its process: late in a long pytest process the profiler has
+    returned traces without any device record.)"""
+    q, k, v = (_bf16((16, 16, 256, d), s, cuda) for s in range(3))
+    cos, sin = _rope_tables(d, 256, cuda)
+    out = tfa.flash_attention_rope(q, k, v, cos, sin)
+    ref = tfa.flash_attention_rope_plain(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **_attn_tol(ref))
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(out.float(), tfa.flash_attention_plain(q, k, v).float(), **_attn_tol(ref))
+
+
+# (M, K, N) of the registry's linears that no B/1 or XL path has: L/2's w12
+# (N = 5,460, no multiple of the epilogue's vector) and w3 (K = 2,730,
+# padded), 1p6B/1's w12 (N = 9,556) and w3 (K = 4,778), M rows of a batch
+_REGISTRY_LINEARS = [(4096, 1024, 5460), (4096, 2730, 1024), (1024, 1792, 9556), (1024, 4778, 1792)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", _REGISTRY_LINEARS)
+def test_cuda_registry_linears_vs_plain(cuda, m, k, n):
+    """``dense`` (bf16, fp32 bias) within half a bf16 ulp of fp64 math, its
+    control the bias rounded to bf16 first (above 0.6); ``int8_dense`` bit for
+    bit its plain version, its control the plain version with the column
+    scales one fp32 ulp up (not equal)."""
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import dense
+    from ldmae_tpu_torch.ops.quant import QLinear, int8_dense, int8_dense_plain
+
+    x = _bf16((m, k), 0, cuda)
+    w = (_bf16((n, k), 1, cuda).float() * k**-0.5).bfloat16()
+    b = _randn((n,), 2, cuda, torch.float32)
+    assert dense_ulp_error(dense(x, w, b), x, w, b) <= 0.5
+    assert dense_ulp_error(F.linear(x, w, b.bfloat16()), x, w, b) > 0.6
+    x_q, xs, p = _int8_linear(m, k, n, 3, cuda)
+    _assert_int8_dense_bitwise(x_q, xs, p, torch.bfloat16)
+    up = QLinear(p.w_q.cpu(), torch.nextafter(p.w_scale, torch.full_like(p.w_scale, 1.0)).cpu(), p.bias.cpu())
+    assert not torch.equal(int8_dense(x_q, xs, p, torch.bfloat16).cpu(),
+                           int8_dense_plain(x_q.cpu(), xs.cpu(), up, torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_cuda_fused_norm_modulate_quant_at_1p6b_width(cuda, kind):
+    """#9 at 1p6B's width (D 1,792, the row engine's widest), on the w8a8
+    path's batch-8 CFG shape (16, 1024, 1792), shift and scale as views of
+    the adaLN projection; the control, the plain version with shift and
+    scale swapped, must fail the same gate."""
+    d = 1792
+    x = _bf16((16, 1024, d), 0, cuda) * 3
+    w = 1 + 0.1 * _bf16((d,), 1, cuda).float()
+    ada = _bf16((16, 6, d), 2, cuda) * 0.1
+    sh, sc = ada[:, 0], ada[:, 1]
+    out = tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind)
+    _assert_quant_close(out, tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+    with pytest.raises(AssertionError):
+        _assert_quant_close(out, tfad.fused_norm_modulate_quant_plain(x, w, sc, sh, kind=kind))
