@@ -72,7 +72,7 @@ attention bounds), then:
      launches (dense besides: 53 a forward, 51 the decode):
 
        leg                              forwards   #1      #3      #4     #2  #6
-       SDE Euler, 250 steps, Mean       249 + 1    3,000   6,000   3,000  12  -
+       SDE Euler, 50 steps, Mean        49 + 1     600     1,200   600    12  -
        SDE Heun, 50 steps               49x2 + 1   1,188   2,376   1,188  12  -
        ODE RK4, 50 steps, shift 0.3     49x4       2,352   4,704   2,352  12  -
        ODE dopri5 (rtol 1e-3, atol      1 + 6 x    12 a forward, from the
@@ -80,7 +80,7 @@ attention bounds), then:
        likelihood, rk4, 20 nodes,       19x4       912     1,824   0      -   912
          unguided batch 8, fp32 state   (batch 8; the MLP xla, #4 having no
                                         backward; dense 65 an evaluation)
-       ODE Euler 250 under sdpa         68 + 181   0       5,976   2,988  0   -
+       ODE Euler 50 under sdpa          49         0       1,176   588    0   -
          (phased CFG; decode under sdpa too; beside the flash_rope
          pipeline, the two in turns: #1's end-to-end library yardstick)
 
@@ -133,11 +133,12 @@ attention bounds), then:
      1,152, 16 heads of 72) on the shipped YAML with model.model_type
      changed (``xl_yaml``), seeded weights: 10 steps of the YAML's kernels
      against the plain xla impls from one noise (the B/1 gate, 5e-2; the
-     control another noise); ``cli.inference`` on one batch of 8, 250
-     Euler steps, phased CFG 10, VMAE decode to PNGs, launches exact (#1
-     6,972, #3 13,944, #4 6,972, #2 12), seconds a batch; ``cli.train_dit``
-     at batch 32 (cut from 256), 4 steps, remat attn, launches exact (a
-     step: #1 56, #3 112, #6 28), finite losses, steps/s, MFU, peak memory
+     control another noise); ``cli.inference`` on one batch of 8, 50
+     Euler steps (cut from 250), phased CFG 10, VMAE decode to PNGs,
+     launches exact (#1 392, #3 784, #4 392, #2 12), seconds a batch, both
+     at depth 8 (cut from 28); ``cli.train_dit`` at full depth, batch 32
+     (cut from 256), 4 steps, remat attn, launches exact (a step: #1 56, #3
+     112, #6 28), finite losses, steps/s, MFU, peak memory
      (the final checkpoint's 11 GB write left out); the gradient check of
      6. at XL width, depth 4, with its launches and control;
   7c. the registry slice (also under --registry): early, beside 5b, the
@@ -149,13 +150,29 @@ attention bounds), then:
      every arch and parallel.quant mode through the sampling CLI's pipeline
      builder on the shipped YAML with model.model_type and parallel.quant
      changed, seeded weights, batch 8, CFG 10 phased, shift 0.3: XL/1 under
-     w8a8 and B/1 under w8 through ``cli.inference`` (250 steps, PNGs,
+     w8a8 and B/1 under w8 through ``cli.inference`` (50 steps, PNGs,
      launches exact, seconds a batch, images/s, peak memory), and L/2, XL/2
-     and 1p6B/1 at full width and depth for 10 steps in bf16 and w8a8; for
+     and 1p6B/1 at full width, depth cut to 8, for 10 steps in bf16 and
+     w8a8; for
      each leg, each mode's 10-step latents within 5e-2 relative L2 of the
      plain xla path with no port kernel launched (control: another noise),
      each quantized mode within ``QUANT_REL_MAX`` of bf16 (control: the
      weight scales 10 % high), launches exact, images not flat;
+  7d. the registry's training slice (also under --registry): early, beside
+     5b, the training kernels at batch 32 against their plain versions, each
+     timed beside its bound and library call, the route named by
+     torch.profiler (#1 with lse and #6 at L/2's (32, 16, 256, 64), XL/2's
+     (32, 16, 256, 72) and 1p6B/1's (32, 28, 1024, 64), with the wrong
+     backwards as controls and dq from run to run; #2 and #5 at the first
+     two; #3 through its autograd Function at D 1,024, 1,152 and 1,792;
+     dense_bias_f32 and its backward at L's and 1p6B's SwiGLU linears, N
+     5,460 / 9,556 and K 2,730 / 4,778, beside cuBLAS); then
+     ``cli.train_dit`` at L/2, XL/2 and 1p6B/1 at full width and depth as
+     7b's XL/1 (batch 32, 4 steps, seeded gates, no final checkpoint
+     write): launches exact, finite losses and gradient norms, the weights
+     and the EMA moved, steps/s, MFU, peak memory; the gradient check of 6.
+     at each arch's full width, depth 4, and under rope_layout interleaved
+     at L/2 and XL/2 (control: #5 without the rowsum term);
   8. with ``--profile``, traces one 50-step batch of the bf16 and of the
      w8a8 path, and one training step, with ``torch.profiler`` and prints
      device time by kernel and group and the idle share;
@@ -207,7 +224,7 @@ attention bounds), then:
  12. the multi-process slice: two ranks on the one card (spawned by
      ``torch.multiprocessing``, gloo, LOCAL_RANK 0 each, the CLIs' own
      ``init_distributed_mode`` finding the group started) through
-     ``cli.inference`` (the shipped YAML's B/1 pipeline, 250 steps,
+     ``cli.inference`` (the shipped YAML's B/1 pipeline, 50 steps,
      per_proc_batch_size cut to 8 and fid_num to 40: every index once, the
      manifest's world 2, #1-#4 and ``dense`` counted exactly per rank for its
      3 or 2 batches; batch 3's PNGs moved away and resampled alone, pixel for
@@ -233,9 +250,9 @@ attention bounds), then:
      row bit for bit, each against its plain version and timed beside its
      bound, #1 and #4 at their tp shapes; then two ranks on the card
      (gloo) through ``cli.inference --tp 2`` on 1p0B/1 at full width, depth
-     cut to 8, batch 8, 10 steps, phased CFG 10, VMAE decode on the first
+     cut to 4, batch 8, 5 steps, phased CFG 10, VMAE decode on the first
      rank, bf16 then w8a8: exact launches a rank, the PNGs and the
-     manifest's tp, both ranks' latents bitwise equal, the 10-step latents
+     manifest's tp, both ranks' latents bitwise equal, the 5-step latents
      within ``TP_LAT_REL`` relative L2 of one process at tp 1 from the same
      noise, which a w12 shard that is not gate-aligned must exceed; seconds
      a batch at tp 1 and tp 2 (two ranks time-slice the card); its own
@@ -271,8 +288,9 @@ attention bounds), then:
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (sampling kernels at the batch-8 shapes, the backward kernels and #2 at d
 = 64 at the training shapes, the fp32 instantiations as their own entries,
-the d = 72 kernels as ``..._xl`` entries, the registry's shapes as
-entries named by arch; launches from the path that runs each kernel), and
+the d = 72 kernels as ``..._xl`` entries, the registry's sampling and
+training shapes as entries named by arch; launches from the path that
+runs each kernel), and
 as its last line
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without that line; without a CUDA device, or
@@ -289,9 +307,9 @@ and flash_fused.
 ``--tokenizers`` phase 11 alone, ``--multiproc`` phase 12 alone,
 ``--samplers`` phase 4b alone, ``--parallel`` phases 13 and 14 alone,
 ``--xl`` phases 5b and 7b alone (their kernels as an ``{"xl_kernels":
-[...]}`` line), ``--registry`` phase 7c alone (a ``{"registry_kernels":
-[...]}`` line). The default run prints ``[time]`` lines, the seconds into
-the run after each phase. ``--xl-kernels`` builds the attention library and runs 5b
+[...]}`` line), ``--registry`` phases 7c and 7d alone (a
+``{"registry_kernels": [...]}`` line). The default run prints ``[time]``
+lines, the seconds into the run after each phase. ``--xl-kernels`` builds the attention library and runs 5b
 without asserting which kernels ran: copied into an unpacked earlier commit
 (``git archive`` into a git-ignored directory), it times that commit's
 kernels at the same shapes.
@@ -469,23 +487,25 @@ def _train_counts(steps: int, depth: int = DEPTH) -> dict:
     return dict(fwd=2 * depth * steps, adaln=4 * depth * steps, bwd=depth * steps, dense=(5 + 9 * depth) * steps)
 
 
+def _counts_of(layout: str, steps: int, depth: int = DEPTH, dense: bool = True) -> dict:
+    """Exact launches of ``steps`` training steps at ``depth``: #1 and #6
+    (half RoPE) or #2 and #5 (interleaved), #3, and in bf16 (``dense``)
+    dense_bias_f32."""
+    n = _train_counts(steps, depth)
+    fwd, bwd = (("flash_attention_rope", "flash_attention_rope_bwd") if layout == "half"
+                else ("flash_attention", "flash_attention_bwd"))
+    return _NONE | {fwd: n["fwd"], "fused_norm_modulate": n["adaln"], bwd: n["bwd"]} | (
+        {"dense_bias_f32": n["dense"]} if dense else {})
+
+
 for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TRAIN_STEPS),
                       ("orbax_resume", ORBAX_RESUMED)):
-    _n = _train_counts(_steps)
-    EXPECTED_LAUNCHES[_path] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                        "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
-_n = _train_counts(INTERLEAVED_STEPS)
-EXPECTED_LAUNCHES["interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                            "flash_attention_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
-_n = _train_counts(FP32_STEPS)
-EXPECTED_LAUNCHES["train_fp32"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                           "flash_attention_rope_bwd": _n["bwd"]}
+    EXPECTED_LAUNCHES[_path] = _counts_of("half", _steps)
+EXPECTED_LAUNCHES["interleaved"] = _counts_of("interleaved", INTERLEAVED_STEPS)
+EXPECTED_LAUNCHES["train_fp32"] = _counts_of("half", FP32_STEPS, dense=False)
 # the fp32 gradient checks: one step at depth GRAD_DEPTH, each layout
-_n = _train_counts(1, GRAD_DEPTH)
-EXPECTED_LAUNCHES["grad_fp32_half"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                               "flash_attention_rope_bwd": _n["bwd"]}
-EXPECTED_LAUNCHES["grad_fp32_interleaved"] = _NONE | {"flash_attention": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                                      "flash_attention_bwd": _n["bwd"]}
+for _layout in ("half", "interleaved"):
+    EXPECTED_LAUNCHES[f"grad_fp32_{_layout}"] = _counts_of(_layout, 1, GRAD_DEPTH, dense=False)
 
 
 def log(msg: str) -> None:
@@ -1586,6 +1606,84 @@ def bwd_errors(outs, refs) -> tuple[float, float]:
     return rel, elem
 
 
+def attention_bwd_row(label: str, bwd_name: str, q, k, v, g, tab: tuple, route) -> tuple:
+    """The backward kernel ``bwd_name`` (``flash_attention_bwd``, or with the
+    RoPE tables ``tab`` ``flash_attention_rope_bwd``) given the forward's
+    output and lse, as the autograd Functions pass them: against its plain
+    backward (BWD_REL_L2, BWD_ELEM), the wrong backwards (no rowsum term;
+    under RoPE also the Jacobian untransposed) above those bounds, dq within
+    BWD_REL_L2 from run to run and dk, dv equal; timed warm and with the
+    device's queue full beside the plain backward and SDPA's on the rotated
+    q, k (fwd+bwd minus fwd), with the bound. ``route`` takes the kernels
+    that ran, by name (torch.profiler), and returns the row's parts or
+    fails. Returns the kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = q.shape
+    kernel, plain = getattr(fa, bwd_name), getattr(fa, f"{bwd_name}_plain")
+    wrongs = {"no rowsum term": lambda *a: wrong_bwd_no_rowsum(
+        *((fa._rope_fp32(a[0], *tab), fa._rope_fp32(a[1], *tab)) if tab else a[:2]), a[2], a[3])}
+    if tab:
+        wrongs["untransposed RoPE Jacobian"] = wrong_rope_bwd_untransposed
+    log(f"[{label}] {bwd_name} q,k,v,g ({b},{h},{n},{d}) bf16; the forward's output and lse passed in")
+    o, lse = fa._launch(q, k, v, bwd_name, *tab, with_lse=True)  # the library, uncounted
+
+    def run():
+        return kernel(q, k, v, g, *tab, out=o, lse=lse)
+
+    ref = plain(q, k, v, g, *tab)
+    first = run()
+    rel, elem = bwd_errors(first, ref)
+    ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+    log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
+        f"{elem:.6g} (bound {BWD_ELEM}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label} {bwd_name}: kernel disagrees with its plain backward")
+    for what, wrong in wrongs.items():
+        wrel, welem = bwd_errors(wrong(q, k, v, g, *tab), ref)
+        bad = wrel > BWD_REL_L2 or welem > BWD_ELEM
+        log(f"  control ({what}): relative L2 {wrel:.6g}, max |err| / max |value| {welem:.6g} (must exceed "
+            f"{BWD_REL_L2} or {BWD_ELEM}) -> {'ok' if bad else 'FAIL'}")
+        if not bad:
+            raise SystemExit(f"{label} {bwd_name}: a wrong backward ({what}) reads within the bound")
+    second = run()
+    torch.cuda.synchronize()
+    spread = float((first[0].float() - second[0].float()).norm() / first[0].float().norm())
+    same = torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    log(f"  run to run: dq relative L2 {spread:.6g} (bound {BWD_REL_L2}), dk and dv equal: {same} -> "
+        f"{'ok' if spread <= BWD_REL_L2 and same else 'FAIL'}")
+    if not (spread <= BWD_REL_L2 and same):
+        raise SystemExit(f"{label} {bwd_name}: dq spreads past the bound from run to run, or dk, dv differ")
+    err = max(float((x.float() - r.float()).abs().max()) for x, r in zip(first, ref))
+    del first, second, ref
+    ms, plain_ms = cuda_ms(run, 10), cuda_ms(lambda: plain(q, k, v, g, *tab), 3, 1)
+    qs, ks = (fa._rope_fp32(q, *tab), fa._rope_fp32(k, *tab)) if tab else (q, k)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs)
+
+    lib_ms = cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10)
+    bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + (2 * n * d * 4 if tab else 0), 10 * b * h * n * n * d,
+                exps=b * h * n * n)
+    # where the work is small the host's launch time can exceed the device's: also timed with the queue full
+    parts = route(device_split(run)) | {
+        "queued_ms": queued_ms(run, 20), "dq_run_to_run": spread,
+        "library_queued_ms": queued_ms(sdpa_fwd_bwd, 20) - queued_ms(sdpa_fwd, 20)}
+    log(f"  {bwd_name} ({b},{h},{n},{d}): kernel {ms:.4f} ms (queued {parts['queued_ms']:.4f}), plain {plain_ms:.4f} "
+        f"ms, SDPA backward {lib_ms:.4f} ms (queued {parts['library_queued_ms']:.4f}; queued kernel / SDPA "
+        f"{parts['queued_ms'] / parts['library_queued_ms']:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share "
+        f"{bnd[0] / ms:.3f} (queued {bnd[0] / parts['queued_ms']:.3f})")
+    return (err, ms, plain_ms, lib_ms, *bnd, parts)
+
+
 def train_kernel_phase(dev) -> dict:
     """#5 and #6 at the DiT B/1 training shapes, given the forward's output
     and lse (the residuals the autograd Functions save), against their plain
@@ -1716,9 +1814,10 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
     kernel, flash_attention and its backward) against the xla path (plain
     attention, xla adaLN, no remat), from the same seeded weights, noise, t
     and label drops, in ``dtype`` (bf16 by default); with ``count_path`` the
-    kernel path's launches counted exactly. In bf16 with half RoPE, then the
-    kernel path with the untransposed RoPE Jacobian, which must read above
-    the bound."""
+    kernel path's launches counted exactly. In bf16, then the kernel path
+    with a wrong backward (half RoPE: the untransposed RoPE Jacobian;
+    interleaved: #5 without the rowsum term), which must read above the
+    bound."""
     import dataclasses
 
     import torch
@@ -1780,17 +1879,24 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
         f"{leaf}: relative L2 {err:.6g} (bound {grad_bound}) over {len(g_x)} leaves -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("gradient check: the kernel path's gradients disagree with the xla path's")
-    if dtype != torch.bfloat16 or not half:
+    if dtype != torch.bfloat16:
         torch.cuda.empty_cache()
         return kernel_counts
-    saved = fa.flash_attention_rope_bwd
-    fa.flash_attention_rope_bwd = wrong_rope_bwd_untransposed  # the control, in this process only
+    if half:
+        target, wrong, what = "flash_attention_rope_bwd", wrong_rope_bwd_untransposed, "untransposed RoPE Jacobian"
+    else:
+        target, what = "flash_attention_bwd", "no rowsum term"
+
+        def wrong(q, k, v, g, out=None, lse=None):
+            return wrong_bwd_no_rowsum(q, k, v, g)
+    saved = getattr(fa, target)
+    setattr(fa, target, wrong)  # the control, in this process only
     try:
         _, g_w = grads(True)
     finally:
-        fa.flash_attention_rope_bwd = saved
+        setattr(fa, target, saved)
     err, leaf = worst(g_w, g_x)
-    log(f"  control (untransposed RoPE Jacobian): worst leaf {leaf}: relative L2 {err:.6g} "
+    log(f"  control ({what}): worst leaf {leaf}: relative L2 {err:.6g} "
         f"(must exceed {GRAD_REL_L2}) -> {'ok' if err > GRAD_REL_L2 else 'FAIL'}")
     if not err > GRAD_REL_L2:
         raise SystemExit("gradient check: a wrong backward reads within the bound")
@@ -3771,6 +3877,7 @@ def vmae_train_phase(dev, smi: str, tmp: str, origin: str) -> tuple:
 # MP_EXTRACT_LIMIT of the PNGs (a global --limit), the tokenizer evaluation
 # of EVAL_IMAGES at EVAL_BATCH.
 MP_BATCH, MP_FID, MP_RESUME_BATCH = 8, 40, 3
+MP_SAMPLE_STEPS = 50  # the sampling chain, cut from 250 to keep the script inside its time limit
 MP_TRAIN_BATCH, MP_STEPS, MP_RESTART, MP_EXTRACT_LIMIT = 32, 10, 12, 200
 # per-leaf relative L2 error of the two-rank checkpoint against one process
 # stepping on the concatenated batches (bf16 compute, fp32 master weights)
@@ -3794,7 +3901,7 @@ def _mp_configs(tmp: str, origin: str, data: str, weights: str) -> dict:
     sample = _yaml_config(train={"global_seed": 0, "output_dir": os.path.join(tmp, "mp_out"), "exp_name": "sample"})
     sample["ckpt_path"] = None  # seeded weights
     sample["vae"]["weight_path"] = ""
-    sample["sample"].update(per_proc_batch_size=MP_BATCH, fid_num=MP_FID)
+    sample["sample"].update(per_proc_batch_size=MP_BATCH, fid_num=MP_FID, num_sampling_steps=MP_SAMPLE_STEPS)
     put("sample", sample)
     sample["sample"]["per_proc_batch_size"] = MP_BATCH // 2
     put("sample_batch4", sample)
@@ -3964,8 +4071,8 @@ def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     torch.save({"model": seeded_init_(LightningDiT(spec, device="cpu"), 3).state_dict()}, weights)
 
     log(f"[multiproc] two ranks on the card (torch.multiprocessing, gloo, LOCAL_RANK 0 each): cli.inference "
-        f"(B/1 + VMAE f8d16_prev, seeded, bf16, {STEPS} steps, CFG {CFG_SCALE} on [{CFG_START}, 1], shift {SHIFT}; "
-        f"per_proc_batch_size {MP_BATCH}, fid_num {MP_FID}), its resume with batch {MP_RESUME_BATCH}'s PNGs moved "
+        f"(B/1 + VMAE f8d16_prev, seeded, bf16, {MP_SAMPLE_STEPS} steps, CFG {CFG_SCALE} on [{CFG_START}, 1], "
+        f"shift {SHIFT}; per_proc_batch_size {MP_BATCH}, fid_num {MP_FID}), its resume with batch {MP_RESUME_BATCH}'s PNGs moved "
         f"away, a rerun at per_proc_batch_size {MP_BATCH // 2}; cli.train_dit --dp 2 (B/1, global batch "
         f"{MP_TRAIN_BATCH}, {MP_STEPS} steps, restart to {MP_RESTART}); cli.extract_features --limit "
         f"{MP_EXTRACT_LIMIT}; cli.evaluate_tokenizer on {EVAL_IMAGES}")
@@ -3983,7 +4090,7 @@ def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
     idx = ranks[0]["pngs"]  # after the resume
     with open(os.path.join(folder, "resume_manifest.json")) as f:
         manifest = json.load(f)
-    per_batch = EXPECTED_LAUNCHES["bf16"]
+    per_batch = _reg_counts(DEPTH, MP_SAMPLE_STEPS, decode=True)
     n_batches = (MP_FID + MP_BATCH - 1) // MP_BATCH
     for r in range(2):
         mine = len(range(r, n_batches, 2))
@@ -4013,12 +4120,7 @@ def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
         raise SystemExit("multiproc sampling: coverage, manifest, resume pixels or the refusal failed")
 
     # (b) DiT training under --dp 2
-    counts = _train_counts(MP_STEPS)
-    want_train = _NONE | {"flash_attention_rope": counts["fwd"], "fused_norm_modulate": counts["adaln"],
-                          "flash_attention_rope_bwd": counts["bwd"], "dense_bias_f32": counts["dense"]}
-    counts = _train_counts(MP_RESTART - MP_STEPS)
-    want_restart = _NONE | {"flash_attention_rope": counts["fwd"], "fused_norm_modulate": counts["adaln"],
-                            "flash_attention_rope_bwd": counts["bwd"], "dense_bias_f32": counts["dense"]}
+    want_train, want_restart = _counts_of("half", MP_STEPS), _counts_of("half", MP_RESTART - MP_STEPS)
     for r in range(2):
         for leg, want in (("train", want_train), ("train_restart", want_restart)):
             if ranks[r][leg]["counts"] != want:
@@ -4148,7 +4250,9 @@ def multiproc_phase(dev, smi: str, tmp: str, origin: str) -> dict:
 # -- the sampler slice: SDE Euler / Heun, RK4, dopri5, the likelihood and the
 # sdpa attention impl through the sampling entry points, B/1 at full width and
 # depth, batch 8 (16 under CFG)
-SDE_STEPS, HEUN_STEPS, RK4_STEPS, LIK_STEPS, LIK_GATE_STEPS = 250, 50, 50, 20, 5
+# SDE Euler and the ODE Euler turns under flash_rope and sdpa cut from 250
+# steps to keep the script inside its time limit
+SDE_STEPS, HEUN_STEPS, RK4_STEPS, LIK_STEPS, LIK_GATE_STEPS, ODE_STEPS = 50, 50, 50, 20, 5, 50
 DOPRI5_MAX_STEPS = 100  # attempted steps of the bf16 dopri5 leg (the solver's default is 1000)
 DOPRI5_GATE_MAX_STEPS = 8  # of the fp32 kernels-vs-plain dopri5 comparison
 # The SDE legs' transport: the linear path with noise prediction and eps 1e-3,
@@ -4188,7 +4292,8 @@ EXPECTED_LAUNCHES |= {
     "sde_euler": _sampler_launches(SDE_STEPS),  # 249 steps and the Mean step: one forward each
     "sde_heun": _sampler_launches((HEUN_STEPS - 1) * 2 + 1),
     "rk4": _sampler_launches((RK4_STEPS - 1) * 4),
-    "sdpa": _sampler_launches(STEPS - 1, attn=None),
+    "ode_euler": _sampler_launches(ODE_STEPS - 1),
+    "sdpa": _sampler_launches(ODE_STEPS - 1, attn=None),
     # unguided batch of 8, the MLP xla (#4 has no backward): per drift
     # evaluation a forward (#1, #3 twice, dense 5 + 5 a block) and #6 a block
     "likelihood": _NONE | {"flash_attention_rope": _LIK_EVALS * DEPTH, "flash_attention_rope_bwd": _LIK_EVALS * DEPTH,
@@ -4455,22 +4560,22 @@ def samplers_phase(dev) -> dict:
     keep("dopri5", counts, sec, accepted=acc, rejected=rej, max_steps=DOPRI5_MAX_STEPS)
 
     # the bf16 ODE Euler pipeline under sdpa beside flash_rope's, in turns
-    fns = {"flash_rope": sampler(spec, STEPS, dev, kernels=True),
-           "sdpa": sampler_leg(spec, dev, "sdpa", STEPS)}
+    fns = {"flash_rope": sampler(spec, ODE_STEPS, dev, kernels=True),
+           "sdpa": sampler_leg(spec, dev, "sdpa", ODE_STEPS)}
     sampler_leg(spec, dev, "sdpa", 4)(bundle, y, generator=torch.Generator(device=dev).manual_seed(1))
     seconds = {"flash_rope": [], "sdpa": []}
     images = {}
     for impl in ("flash_rope", "sdpa", "sdpa", "flash_rope"):
-        out, counts, sec = timed_leg(f"ODE Euler {STEPS} steps (phased CFG) under {impl}",
+        out, counts, sec = timed_leg(f"ODE Euler {ODE_STEPS} steps (phased CFG) under {impl}",
                                      lambda: fns[impl](bundle, y, generator=torch.Generator(device=dev).manual_seed(0)),
-                                     "sdpa" if impl == "sdpa" else "bf16")
+                                     "sdpa" if impl == "sdpa" else "ode_euler")
         seconds[impl].append(sec)
         images[impl] = out
         if impl == "sdpa":
             record["counts"]["sdpa"] = counts
     check_images("sdpa", images["sdpa"])
     px = int((images["sdpa"].int() - images["flash_rope"].int()).abs().max())
-    log(f"  sdpa vs flash_rope {STEPS}-step images, same noise: max difference {px} levels (bf16 roundings; "
+    log(f"  sdpa vs flash_rope {ODE_STEPS}-step images, same noise: max difference {px} levels (bf16 roundings; "
         f"the 10-step gate below holds the latents)")
     record["legs"]["sdpa"] = {"seconds": seconds["sdpa"], "flash_rope_seconds": seconds["flash_rope"]}
 
@@ -4478,7 +4583,7 @@ def samplers_phase(dev) -> dict:
     # legs' latents grow to the scale printed above under the random
     # noise-predicting DiT, where an fp32 logp (about -|x|^2 / 2) no longer
     # resolves the divergence
-    x = sampler(spec, STEPS, dev, kernels=True)(bundle | {"vae": None}, y,
+    x = sampler(spec, ODE_STEPS, dev, kernels=True)(bundle | {"vae": None}, y,
                                                 generator=torch.Generator(device=dev).manual_seed(0)).float()
     likelihood_run(spec, bundle, x, y, dev, 3)  # warm-up
     (logp, z), counts, sec = timed_leg(f"likelihood, rk4 over {LIK_STEPS} nodes ({_LIK_EVALS} drift evaluations), "
@@ -4528,10 +4633,10 @@ def samplers_only(dev, smi: str) -> int:
 # NVIDIA H100 80GB HBM3 at 700 W (scripts/gloo_cuda_probe.py). Batch
 # TP_BATCH, phased CFG 10 on [0.10, 1], VMAE f8d16 decode on the group's
 # first rank.
-# (depth 4 keeps the whole run within its time limit: at tp 2 the gloo
-# all-reduces, two a block, take the batch's time)
-TP_MODEL, TP_DEPTH, TP_STEPS, TP_BATCH = "LightningDiT-1p0B/1", 4, 10, 8
-# 10-step latents at tp 2 against tp 1 in one process from the same noise,
+# (depth 4 and 5 steps keep the whole run within its time limit: at tp 2
+# the gloo all-reduces, two a block, take the batch's time)
+TP_MODEL, TP_DEPTH, TP_STEPS, TP_BATCH = "LightningDiT-1p0B/1", 4, 5, 8
+# TP_STEPS-step latents at tp 2 against tp 1 in one process from the same noise,
 # relative L2 ||tp2 - tp1|| / ||tp1||: the row-parallel fp32 sums
 # reassociate and move bf16 roundings, which CFG 10 amplifies step by step;
 # a w12 shard that is not gate-aligned pairs the wrong gate halves and must
@@ -5173,10 +5278,8 @@ def tp_train_phase(dev, smi: str, tmp: str) -> tuple:
     hist1 = train_dit.main(["--config", paths["tpt_tp1"]])["history"]
     torch.cuda.synchronize()
     tp1_call_s, tp1_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
-    n = _train_counts(TPT_STEPS, TP_DEPTH)
     counts1 = ops.launch_counts()
-    want1 = _NONE | {"flash_attention_rope": n["fwd"], "fused_norm_modulate": n["adaln"],
-                     "flash_attention_rope_bwd": n["bwd"], "dense_bias_f32": n["dense"]}
+    want1 = _counts_of("half", TPT_STEPS, TP_DEPTH)
     if counts1 != want1:
         raise SystemExit(f"tp train at tp 1: launches {counts1} != {want1}")
     # the same one-process run again: the path's own spread from run to run
@@ -5355,24 +5458,24 @@ XL_MODEL, XL_DEPTH, XL_HEADS, XL_HEAD_DIM = "LightningDiT-XL/1", 28, 16, 72
 # write: the final one is 11 GB of fp32 weights, EMA and moments); the
 # gradient check at full width, depth cut so the plain oracle's logits fit
 XL_TRAIN_BATCH, XL_TRAIN_STEPS, XL_GRAD_DEPTH = 32, 4, 4
-XL_SAMPLE_STEPS = STEPS  # the sampling leg's timed batch (the first cut if the script runs long)
-_XL_EVALS = (XL_SAMPLE_STEPS - 1) * XL_DEPTH
-_XL_SHORT = (SHORT_STEPS - 1) * XL_DEPTH
+# the sampling legs (this slice's and the registry's XL/1 w8a8 CLI leg): the
+# timed batch's steps and the depth, cut from 250 and 28 to keep the script
+# inside its time limit (the width, head dim and tokens stay)
+XL_SAMPLE_STEPS, XL_SAMPLE_DEPTH = 50, 8
+_XL_EVALS = (XL_SAMPLE_STEPS - 1) * XL_SAMPLE_DEPTH
+_XL_SHORT = (SHORT_STEPS - 1) * XL_SAMPLE_DEPTH
 EXPECTED_LAUNCHES |= {
     # one batch of 8 through cli.inference: the DiT's forwards and the VMAE decode
     "xl_bf16": _NONE | {"flash_attention_rope": _XL_EVALS, "fused_norm_modulate": 2 * _XL_EVALS,
                         "fused_matmul_silu": _XL_EVALS, "flash_attention_resident": DEC_DEPTH,
-                        "dense_bias_f32": (XL_SAMPLE_STEPS - 1) * (5 + 4 * XL_DEPTH) + _DENSE_DECODE},
+                        "dense_bias_f32": (XL_SAMPLE_STEPS - 1) * (5 + 4 * XL_SAMPLE_DEPTH) + _DENSE_DECODE},
     # the 10-step comparison, latents only
     "xl_short": _NONE | {"flash_attention_rope": _XL_SHORT, "fused_norm_modulate": 2 * _XL_SHORT,
-                         "fused_matmul_silu": _XL_SHORT, "dense_bias_f32": (SHORT_STEPS - 1) * (5 + 4 * XL_DEPTH)},
+                         "fused_matmul_silu": _XL_SHORT,
+                         "dense_bias_f32": (SHORT_STEPS - 1) * (5 + 4 * XL_SAMPLE_DEPTH)},
 }
-_n = _train_counts(XL_TRAIN_STEPS, XL_DEPTH)
-EXPECTED_LAUNCHES["xl_train"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                         "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
-_n = _train_counts(1, XL_GRAD_DEPTH)
-EXPECTED_LAUNCHES["xl_grad"] = _NONE | {"flash_attention_rope": _n["fwd"], "fused_norm_modulate": _n["adaln"],
-                                        "flash_attention_rope_bwd": _n["bwd"], "dense_bias_f32": _n["dense"]}
+EXPECTED_LAUNCHES["xl_train"] = _counts_of("half", XL_TRAIN_STEPS, XL_DEPTH)
+EXPECTED_LAUNCHES["xl_grad"] = _counts_of("half", 1, XL_GRAD_DEPTH)
 # kernels-line rows at d = 72: launches from the XL legs (no XL path
 # launches #2 at this head dim, #5, #7 or #8)
 KERNELS |= {
@@ -5408,13 +5511,29 @@ def xl_yaml(path: str, model_type: str = XL_MODEL, **sections) -> str:
     return path
 
 
-def xl_spec():
-    from ldmae_tpu_torch.models import dit_spec
+def train_yaml(path: str, arch: str, data: str, weights: str, output_dir: str, exp_name: str) -> str:
+    """The training legs' YAML (``xl_yaml``): the shipped one with
+    model.model_type ``arch``, its data the latent shards at ``data``, batch
+    XL_TRAIN_BATCH, XL_TRAIN_STEPS steps, a log line a step, the warm start
+    ``weights``; returns ``path``."""
+    return xl_yaml(path, arch, data={"data_path": data, "sample": False},
+                   train={"max_steps": XL_TRAIN_STEPS, "global_batch_size": XL_TRAIN_BATCH, "global_seed": 0,
+                          "output_dir": output_dir, "exp_name": exp_name, "log_every": 1,
+                          "ckpt_every": 10 * XL_TRAIN_STEPS, "weight_init": weights})
 
-    spec = dit_spec(XL_MODEL, input_size=32, in_channels=16, num_classes=1000, use_qknorm=True, use_swiglu=True,
-                    use_rope=True, use_rmsnorm=True)
-    assert (spec.depth, spec.hidden_size // spec.num_heads) == (XL_DEPTH, XL_HEAD_DIM)
-    return spec
+
+@contextlib.contextmanager
+def registry_depth(arch: str, depth: int):
+    """``arch`` at ``depth`` in this process's model registry (the CLIs read
+    the depth from there) inside the block: the depth cuts of sampling legs."""
+    from ldmae_tpu_torch.models import lightningdit
+
+    full = lightningdit._REGISTRY[arch]
+    lightningdit._REGISTRY[arch] = dict(full, depth=depth)
+    try:
+        yield
+    finally:
+        lightningdit._REGISTRY[arch] = full
 
 
 def device_split(fn, iters: int = 10) -> dict:
@@ -5527,56 +5646,9 @@ def xl_kernel_phase(dev, strict: bool = True) -> dict:
     b = XL_TRAIN_BATCH
     q, k = randn(b, h, n, d, scale=2.0), randn(b, h, n, d, scale=2.0)
     v, gr = randn(b, h, n, d), randn(b, h, n, d)
-    for name, kernel, plain, wrongs, tab in (
-        ("flash_attention_rope_bwd", fa.flash_attention_rope_bwd, fa.flash_attention_rope_bwd_plain,
-         {"no rowsum term": lambda q, k, v, g, cos, sin: wrong_bwd_no_rowsum(
-             fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin), v, g),
-          "untransposed RoPE Jacobian": wrong_rope_bwd_untransposed}, (cos, sin)),
-        ("flash_attention_bwd", fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
-         {"no rowsum term": wrong_bwd_no_rowsum}, ()),
-    ):
-        log(f"[xl kernel] {name} q,k,v,g ({b},{h},{n},{d}) bf16; the forward's output and lse passed in")
-        o, lse = fa._launch(q, k, v, name, *tab, with_lse=True)  # the library, uncounted
-
-        def run():
-            return kernel(q, k, v, gr, *tab, out=o, lse=lse)
-
-        ref = plain(q, k, v, gr, *tab)
-        rel, elem = bwd_errors(run(), ref)
-        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
-        log(f"  kernel vs plain backward: relative L2 {rel:.6g} (bound {BWD_REL_L2}), max |err| / max |value| "
-            f"{elem:.6g} (bound {BWD_ELEM}) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"{name} at d = 72: kernel disagrees with its plain backward")
-        for what, wrong in wrongs.items():
-            wrel, welem = bwd_errors(wrong(q, k, v, gr, *tab), ref)
-            bad = wrel > BWD_REL_L2 or welem > BWD_ELEM
-            log(f"  control ({what}): relative L2 {wrel:.6g}, max |err| / max |value| {welem:.6g} (must exceed "
-                f"{BWD_REL_L2} or {BWD_ELEM}) -> {'ok' if bad else 'FAIL'}")
-            if not bad:
-                raise SystemExit(f"{name} at d = 72: a wrong backward ({what}) reads within the bound")
-        err = max(float((x.float() - r.float()).abs().max()) for x, r in zip(run(), ref))
-        del ref
-        ms = cuda_ms(run, 10)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, gr, *tab), 3, 1)
-        qs, ks = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if tab else (q, k)
-        qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), gr)
-
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qs, ks, vs)
-
-        lib_ms = cuda_ms(sdpa_fwd_bwd, 10) - cuda_ms(sdpa_fwd, 10)
-        bnd = bound(8 * b * h * n * d * 2 + b * h * n * 4 + (tables if tab else 0), 10 * b * h * n * n * d,
-                    exps=b * h * n * n)
-        parts = xl_route(name, device_split(run), strict)
-        rows[f"{name}_xl"] = (err, ms, plain_ms, lib_ms, *bnd, parts)
-        log(f"  {name} ({b},{h},{n},{d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms "
-            f"(kernel / SDPA {ms / lib_ms:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}")
-        del qs, ks, vs, o, lse
+    for name, tab in (("flash_attention_rope_bwd", (cos, sin)), ("flash_attention_bwd", ())):
+        rows[f"{name}_xl"] = attention_bwd_row("xl kernel", name, q, k, v, gr, tab,
+                                               lambda split, name=name: xl_route(name, split, strict))
     del q, k, v, gr
     torch.cuda.empty_cache()
     return rows
@@ -5603,12 +5675,14 @@ def xl_sampling_leg(dev, smi: str, tmp: str) -> tuple:
                    train={"output_dir": out_root, "exp_name": "xl"},
                    sample={"num_sampling_steps": XL_SAMPLE_STEPS, "per_proc_batch_size": BATCH, "fid_num": BATCH})
     cfg = LDMAEConfig.from_yaml(path)
-    spec = xl_spec()
     record, counts = {"card": smi}, {}
 
-    log(f"[xl] {SHORT_STEPS} steps: {XL_MODEL} (the CLI's build_pipeline, seeded), batch {BATCH}, the YAML's kernels "
-        f"({cfg.parallel.attention_impl}, fused adaLN and SwiGLU) vs the plain xla impls from the same noise")
-    _, bundle, _ = inference.build_pipeline(cfg, device=dev)
+    log(f"[xl] {SHORT_STEPS} steps: {XL_MODEL} (the CLI's build_pipeline, seeded; depth {XL_SAMPLE_DEPTH}), batch "
+        f"{BATCH}, the YAML's kernels ({cfg.parallel.attention_impl}, fused adaLN and SwiGLU) vs the plain xla impls "
+        f"from the same noise")
+    _, bundle, spec = inference.build_pipeline(cfg, device=dev)
+    if (spec.depth, spec.head_dim) != (XL_SAMPLE_DEPTH, XL_HEAD_DIM):
+        raise SystemExit(f"xl: depth {spec.depth}, head dim {spec.head_dim}")
     latents = dict(bundle, vae=None)
     y = torch.arange(BATCH, device=dev) * 125 % 1000
     gen = torch.Generator(device=dev)
@@ -5692,15 +5766,17 @@ def xl_sampling_leg(dev, smi: str, tmp: str) -> tuple:
     return record, counts
 
 
-def xl_training_leg(dev, smi: str, tmp: str) -> tuple:
-    """5(c): XL/1 through cli.train_dit on xl_yaml's training sections (bf16,
-    flash_rope, half RoPE, fused adaLN, remat attn), batch XL_TRAIN_BATCH,
-    XL_TRAIN_STEPS steps on the synthetic latent shards, warm-started with
-    seeded adaLN and final-layer weights (the reference init zeroes them, and
-    no kernel's output would reach the loss); the final checkpoint's write
-    is left out. Launches exact, finite losses, steps/s, MFU, peak memory;
-    then the gradient check at full width, depth XL_GRAD_DEPTH. Returns
-    (record, {path: counts})."""
+def training_leg(dev, smi: str, tmp: str, arch: str = XL_MODEL, name: str = "xl") -> tuple:
+    """5(c) and 7d: ``arch`` (XL/1 for the XL slice) at full width and depth
+    through cli.train_dit on xl_yaml's training sections (bf16, flash_rope,
+    half RoPE, fused adaLN, remat attn), batch XL_TRAIN_BATCH, XL_TRAIN_STEPS
+    steps on the synthetic latent shards, warm-started with seeded adaLN and
+    final-layer weights (the reference init zeroes them, and no kernel's
+    output would reach the loss); the final checkpoint's write is left out
+    (11 GB at XL, 32 GB at 1p6B). Launches exact (path ``{name}_train``),
+    finite losses and gradient norms, the weights and the EMA moved,
+    steps/s, MFU, peak memory; then the gradient check at full width, depth
+    XL_GRAD_DEPTH (path ``{name}_grad``). Returns (record, {path: counts})."""
     import numpy as np
     import torch
 
@@ -5714,32 +5790,30 @@ def xl_training_leg(dev, smi: str, tmp: str) -> tuple:
     data = os.path.join(tmp, "xl_latents")
     if not os.path.isdir(data):
         write_latent_shards(data)
-    weights = os.path.join(tmp, "xl_gates.pt")
-    path = xl_yaml(
-        os.path.join(tmp, "xl_train.yaml"),
-        data={"data_path": data, "sample": False},
-        train={"max_steps": XL_TRAIN_STEPS, "global_batch_size": XL_TRAIN_BATCH, "global_seed": 0,
-               "output_dir": tmp, "exp_name": "xl_train", "log_every": 1, "ckpt_every": 10 * XL_TRAIN_STEPS,
-               "weight_init": weights})
+    weights = os.path.join(tmp, f"{name}_gates.pt")
+    path = train_yaml(os.path.join(tmp, f"{name}_train.yaml"), arch, data, weights, tmp, f"{name}_train")
     cfg = LDMAEConfig.from_yaml(path)
     spec = spec_from_config(cfg)
-    model = LightningDiT(spec, device=dev)
+    shapes = {n: tuple(p.shape) for n, p in LightningDiT(spec, device="meta").named_parameters()
+              if "adaLN_modulation" in n or n.startswith("final_layer")}
     rng = np.random.default_rng(3)
-    gates = {name: torch.from_numpy(rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)).bfloat16()
-             for name, p in model.named_parameters() if "adaLN_modulation" in name or name.startswith("final_layer")}
-    del model
+    gates = {n: torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * np.float32(0.02)).bfloat16()
+             for n, s in shapes.items()}
     torch.save({"model": gates}, weights)
-    saved = []
+    saved, moved = [], {}
     save = train_dit.save_checkpoint
 
-    def no_write(exp_dir, state, **kw):  # the 11 GB final checkpoint is not this leg's measurement
+    def no_write(exp_dir, state, **kw):  # the final checkpoint is not this leg's measurement
         saved.append(state.step)
+        moved.update({key: max(float((t.get_parameter(n).detach().float().cpu() - g.float()).abs().max())
+                                for n, g in gates.items()) for key, t in (("model", state.model), ("ema", state.ema))})
         return os.path.join(exp_dir, "checkpoints", "not-written")
 
-    log(f"[xl] cli.train_dit: {XL_MODEL} (depth {spec.depth}, width {spec.hidden_size}, head dim "
-        f"{spec.hidden_size // spec.num_heads}), batch {XL_TRAIN_BATCH}, {XL_TRAIN_STEPS} steps, the shipped YAML's "
-        f"model/transport/optimizer/parallel sections (train_attention_impl {cfg.parallel.train_attention_impl}, "
-        f"rope_layout {cfg.parallel.rope_layout}, remat {cfg.model.remat_policy}), {len(gates)} seeded gate tensors")
+    log(f"[{name}] cli.train_dit: {arch} (depth {spec.depth}, width {spec.hidden_size}, {spec.num_heads} heads of "
+        f"{spec.head_dim}, SwiGLU {spec.swiglu_hidden}, {spec.num_patches} tokens), batch {XL_TRAIN_BATCH}, "
+        f"{XL_TRAIN_STEPS} steps, the shipped YAML's model/transport/optimizer/parallel sections "
+        f"(train_attention_impl {cfg.parallel.train_attention_impl}, rope_layout {cfg.parallel.rope_layout}, "
+        f"remat {cfg.model.remat_policy}), {len(gates)} seeded gate tensors")
     train_dit.save_checkpoint = no_write
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5751,9 +5825,9 @@ def xl_training_leg(dev, smi: str, tmp: str) -> tuple:
         train_dit.save_checkpoint = save
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"xl_train": ops.launch_counts()}
+    counts = {f"{name}_train": ops.launch_counts()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("xl_train", counts["xl_train"])
+    check_counts(f"{name}_train", counts[f"{name}_train"])
     hist = out["history"]
     del out
     torch.cuda.empty_cache()
@@ -5763,16 +5837,20 @@ def xl_training_leg(dev, smi: str, tmp: str) -> tuple:
     flops = 3 * dit_forward_flops(spec, XL_TRAIN_BATCH)
     record = {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist], "steps_per_s": sps,
               "latents_per_s": sps * XL_TRAIN_BATCH, "tflops": flops * sps / 1e12,
-              "mfu": flops * sps / PEAK_BF16_FLOPS, "peak_gb": peak, "cli_s": seconds, "card": smi}
+              "mfu": flops * sps / PEAK_BF16_FLOPS, "peak_gb": peak, "cli_s": seconds, "card": smi,
+              "gates_moved": moved}
     log("  " + "; ".join(f"step {h['step']}: loss {h['loss']:.5f}, grad norm {h['grad_norm']:.5f}, "
                          f"{h['steps_per_sec']:.4f} steps/s" for h in hist))
+    ok = finite and saved == [XL_TRAIN_STEPS] and moved.get("model", 0) > 0 and moved.get("ema", 0) > 0
     log(f"  steady state (steps 2-{XL_TRAIN_STEPS}): {sps:.4f} steps/s, {sps * XL_TRAIN_BATCH:.4f} latents/s, "
         f"{record['tflops']:.4f} TFLOP/s, MFU {record['mfu']:.4f} (3x forward FLOPs over 989 TFLOP/s); "
-        f"{seconds:.2f} s for the whole call; peak memory {peak:.3f} GB; final checkpoint at step {saved} not "
-        f"written; on {smi} -> {'ok' if finite else 'FAIL'}")
-    if not finite or saved != [XL_TRAIN_STEPS]:
-        raise SystemExit("xl training: a non-finite loss or gradient norm, or the run did not end at its last step")
-    counts["xl_grad"] = grad_check_phase(dev, count_path="xl_grad", model_type=XL_MODEL, depth=XL_GRAD_DEPTH)
+        f"{seconds:.2f} s for the whole call; peak memory {peak:.3f} GB; max |change| of the seeded gate weights "
+        f"{moved.get('model', 0):.6g}, of their EMA {moved.get('ema', 0):.6g}; final checkpoint at step {saved} not "
+        f"written; on {smi} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{arch} training: a non-finite loss or gradient norm, the weights or the EMA did not move, "
+                         "or the run did not end at its last step")
+    counts[f"{name}_grad"] = grad_check_phase(dev, count_path=f"{name}_grad", model_type=arch, depth=XL_GRAD_DEPTH)
     return record, counts
 
 
@@ -5780,9 +5858,10 @@ def xl_legs(dev, smi: str, tmp: str) -> tuple:
     """5(b) and (c). Returns (record, launch counts by path)."""
     t0 = time.perf_counter()
     record, counts = {}, {}
-    record["sampling"], c = xl_sampling_leg(dev, smi, tmp)
+    with registry_depth(XL_MODEL, XL_SAMPLE_DEPTH):
+        record["sampling"], c = xl_sampling_leg(dev, smi, tmp)
     counts |= c
-    record["training"], c = xl_training_leg(dev, smi, tmp)
+    record["training"], c = training_leg(dev, smi, tmp)
     counts |= c
     record["legs_s"] = time.perf_counter() - t0
     log(f"  the XL legs took {record['legs_s']:.2f} s; on {smi}")
@@ -5831,18 +5910,23 @@ def xl_kernels_only(dev) -> int:
 # -- the registry slice: every LightningDiT arch of the registry and every
 # parallel.quant mode through the sampling CLI's pipeline builder, on the
 # shipped YAML with model.model_type and parallel.quant changed (xl_yaml):
-# XL/1 under w8a8 and B/1 under w8 through cli.inference at 250 steps; L/2,
+# XL/1 under w8a8 and B/1 under w8 through cli.inference at 50 steps; L/2,
 # XL/2 and 1p6B/1 at 10 steps in bf16 and w8a8 (the patch-2 archs' 256
 # tokens; L's and 1p6B's SwiGLU widths 2,730 and 4,778, which #10 takes by
-# its element-wise instantiation; the row engine's widest D, 1,792). Each at
-# full width and depth, seeded weights, batch 8, CFG 10, shift 0.3. Also
-# alone under --registry.
-# the 250-step legs through cli.inference: name -> (arch, parallel.quant, depth)
-REG_CLI = {"xl1_w8a8": (XL_MODEL, "w8a8", XL_DEPTH), "b1_w8": ("LightningDiT-B/1", "w8", DEPTH)}
+# its element-wise instantiation; the row engine's widest D, 1,792), at
+# depth REG_SHORT_DEPTH. Each at full width, seeded weights, batch 8, CFG
+# 10, shift 0.3. Also alone under --registry.
+# the legs through cli.inference: name -> (arch, parallel.quant, depth), at
+# REG_CLI_STEPS (cut from 250 to keep the script inside its time limit)
+REG_CLI_STEPS = 50
+REG_CLI = {"xl1_w8a8": (XL_MODEL, "w8a8", XL_SAMPLE_DEPTH), "b1_w8": ("LightningDiT-B/1", "w8", DEPTH)}
 # the 10-step legs: arch -> (name, depth, tokens, whether #4's tiling takes
 # its w12 at every batch of the chain: M % 128, D % 128 and 2H % 256)
 REG_SHORT = {"LightningDiT-L/2": ("l2", 24, 256, False), "LightningDiT-XL/2": ("xl2", 28, 256, True),
              "LightningDiT-1p6B/1": ("1p6b1", 28, 1024, False)}
+# their depth, cut from the arch's to keep the script inside its time limit
+# (every width, head dim and token count stays; the seeded draws shrink)
+REG_SHORT_DEPTH = 8
 REG_LAT_REL = 5e-2  # 10-step latents, kernels vs the plain xla path: relative L2 (the B/1 and XL gates' bound)
 # The quant gate's bound is QUANT_REL_MAX (set at B/1) wherever the plain
 # xla paths, with no port kernel, read within it themselves. At an arch where
@@ -5875,13 +5959,13 @@ def _reg_counts(depth: int, steps: int, quant=None, fused_w12: bool = True, deco
 
 
 for _name, (_arch, _quant, _depth) in REG_CLI.items():
-    EXPECTED_LAUNCHES[f"reg_{_name}"] = _reg_counts(_depth, STEPS, _quant, decode=True)
+    EXPECTED_LAUNCHES[f"reg_{_name}"] = _reg_counts(_depth, REG_CLI_STEPS, _quant, decode=True)
     EXPECTED_LAUNCHES[f"reg_{_name}_short"] = _reg_counts(_depth, SHORT_STEPS, _quant)
     EXPECTED_LAUNCHES[f"reg_{_name.split('_')[0]}_bf16_short"] = _reg_counts(_depth, SHORT_STEPS)
 for _name, _depth, _tokens, _w12 in REG_SHORT.values():
     for _quant in ("bf16", "w8a8"):
         EXPECTED_LAUNCHES[f"reg_{_name}_{_quant}_short"] = _reg_counts(
-            _depth, SHORT_STEPS, None if _quant == "bf16" else _quant, _w12)
+            REG_SHORT_DEPTH, SHORT_STEPS, None if _quant == "bf16" else _quant, _w12)
 EXPECTED_LAUNCHES["reg_xla"] = dict(_NONE)  # the plain reference path: no port kernel
 # kernels-line rows of the registry's new shapes: launches from the leg that runs each
 _FQ = "ldmae_tpu_torch/csrc/fused_quant.cu"
@@ -6095,15 +6179,19 @@ def registry_kernel_phase(dev) -> dict:
         parts = {"queued_ms": queued_ms(lambda: int8_dense(a, xs, p, torch.bfloat16))}
         plain_ms = cuda_ms(lambda: int8_dense_plain_any(a, xs, p, torch.bfloat16), 10)
         takes = k % 8 == 0 and n % 8 == 0
-        parts["int_mm_ms"] = queued_ms(lambda: _int_mm(a, w)) if takes else None
+        # torch._int_mm takes K and N that are multiples of 8 on the card: off
+        # them, the same product on operands zero-padded to 8 (padded once,
+        # outside the timing)
+        ap, wp = (a, w) if takes else (F.pad(a, (0, -k % 8)), F.pad(w, (0, -k % 8, 0, -n % 8)))
+        parts |= {"int_mm_ms": queued_ms(lambda: _int_mm(ap, wp)), "int_mm_padded": not takes}
         bnd = bound(m * k + n * k + m * n * 2 + 4 * m + 8 * n, int8_ops=2 * m * k * n)
         log(f"  {name} M={m} K={k} N={n}: bit for bit the plain version; kernel {ms:.4f} ms, queued "
             f"{parts['queued_ms']:.4f}; plain (torch._int_mm{'' if takes else ' on K and N padded to 8'} + the "
-            f"dequant) {plain_ms:.4f} ms; torch._int_mm alone {fmt_ms(parts['int_mm_ms'])}"
-            f"{'' if takes else ' (it takes no K or N off a multiple of 8)'}; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"dequant) {plain_ms:.4f} ms; torch._int_mm alone {parts['int_mm_ms']:.4f}"
+            f"{'' if takes else ' (on K and N padded to 8, as it takes them)'}; bound {bnd[0]:.4f} ms ({bnd[1]}), "
             f"share {bnd[0] / ms:.3f}")
         rows[name] = (0.0, ms, plain_ms, None, *bnd, parts)
-        del a, w, p, out, ref
+        del a, w, p, out, ref, ap, wp
     torch.cuda.empty_cache()
     return rows
 
@@ -6248,7 +6336,7 @@ def registry_cli_leg(dev, smi: str, tmp: str, name: str) -> tuple:
     from ldmae_tpu_torch.cli import inference
 
     arch, quant, depth = REG_CLI[name]
-    path, cfg = _reg_config(tmp, name, arch, quant, num_sampling_steps=STEPS)
+    path, cfg = _reg_config(tmp, name, arch, quant, num_sampling_steps=REG_CLI_STEPS)
     _, bf16_cfg = _reg_config(tmp, name, arch, None)
     short = name.split("_")[0]
     log(f"[registry] {arch} under parallel.quant {quant}: {SHORT_STEPS}-step gates (the CLI's build_pipeline, "
@@ -6263,8 +6351,8 @@ def registry_cli_leg(dev, smi: str, tmp: str, name: str) -> tuple:
     del bundle, qbundle
     torch.cuda.empty_cache()
 
-    log(f"[registry] cli.inference: {arch} + VMAE f8d16 (seeded), parallel.quant {quant}, batch {BATCH}, {STEPS} "
-        f"Euler steps, shift {cfg.sample.timestep_shift}, CFG {cfg.sample.cfg_scale} on "
+    log(f"[registry] cli.inference: {arch} + VMAE f8d16 (seeded), parallel.quant {quant}, batch {BATCH}, "
+        f"{REG_CLI_STEPS} Euler steps, shift {cfg.sample.timestep_shift}, CFG {cfg.sample.cfg_scale} on "
         f"[{cfg.sample.cfg_interval_start}, 1] (phased), PNGs")
     build = inference.build_pipeline
     batch_s = []
@@ -6302,7 +6390,7 @@ def registry_cli_leg(dev, smi: str, tmp: str, name: str) -> tuple:
           and float(imgs.std()) > 1.0 and len(batch_s) == 1)
     sec = batch_s[0] if batch_s else float("nan")
     record["cli"] = {"seconds_batch": sec, "images_per_s": BATCH / sec, "cli_s": cli_s, "peak_gb": peak,
-                     "steps": STEPS, "quant": quant}
+                     "steps": REG_CLI_STEPS, "quant": quant}
     log(f"  launches exact; PNGs {pngs[0]}..{pngs[-1]} {imgs.shape}, pixel std {float(imgs.std()):.3f}; {sec:.4f} s "
         f"per batch of {BATCH} ({BATCH / sec:.4f} images/s), the whole CLI call {cli_s:.2f} s; peak memory "
         f"{peak:.3f} GB; on {smi} -> {'ok' if ok else 'FAIL'}")
@@ -6313,26 +6401,28 @@ def registry_cli_leg(dev, smi: str, tmp: str, name: str) -> tuple:
 
 
 def registry_short_leg(dev, smi: str, tmp: str, arch: str) -> tuple:
-    """``arch`` (``REG_SHORT``) at full width and depth through the sampling
-    CLI's pipeline builder, bf16 and parallel.quant w8a8: the 10-step gates
+    """``arch`` (``REG_SHORT``) at full width, depth REG_SHORT_DEPTH (cut in
+    this process's model registry while the CLI's pipeline builder reads
+    it), bf16 and parallel.quant w8a8: the 10-step gates
     (``registry_gates``), each run's seconds, the leg's peak memory.
     Returns (record, {path: counts})."""
     import torch
 
     from ldmae_tpu_torch.cli import inference
 
-    name, depth, tokens, fused_w12 = REG_SHORT[arch]
+    name, _, tokens, fused_w12 = REG_SHORT[arch]
     _, cfg = _reg_config(tmp, name, arch, None)
     _, qcfg = _reg_config(tmp, name, arch, "w8a8")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, bundle, spec = inference.build_pipeline(cfg, device=dev)
-    _, qbundle, _ = inference.build_pipeline(qcfg, device=dev)
+    with registry_depth(arch, REG_SHORT_DEPTH):
+        _, bundle, spec = inference.build_pipeline(cfg, device=dev)
+        _, qbundle, _ = inference.build_pipeline(qcfg, device=dev)
     build_s = time.perf_counter() - t0
     m = 2 * BATCH * spec.num_patches
     takes = m % 128 == 0 and spec.hidden_size % 128 == 0 and 2 * spec.swiglu_hidden % 256 == 0
-    if (spec.depth, spec.num_patches, takes) != (depth, tokens, fused_w12):
+    if (spec.depth, spec.num_patches, takes) != (REG_SHORT_DEPTH, tokens, fused_w12):
         raise SystemExit(f"{arch}: depth {spec.depth}, {spec.num_patches} tokens, #4 takes w12: {takes}")
     log(f"[registry] {arch} (depth {spec.depth}, width {spec.hidden_size}, {spec.num_heads} heads of "
         f"{spec.head_dim}, SwiGLU {spec.swiglu_hidden}, {spec.num_patches} tokens): {SHORT_STEPS} steps, batch "
@@ -6353,9 +6443,10 @@ def registry_legs(dev, smi: str, tmp: str) -> tuple:
     {path: counts})."""
     t0 = time.perf_counter()
     record, counts = {}, {}
-    for name in REG_CLI:
+    for name, (arch, _, depth) in REG_CLI.items():
         t1 = time.perf_counter()
-        record[name], c = registry_cli_leg(dev, smi, tmp, name)
+        with registry_depth(arch, depth):
+            record[name], c = registry_cli_leg(dev, smi, tmp, name)
         record[name]["leg_s"] = time.perf_counter() - t1
         counts |= c
     for arch in REG_SHORT:
@@ -6369,10 +6460,279 @@ def registry_legs(dev, smi: str, tmp: str) -> tuple:
     return record, counts
 
 
+# -- the registry's training slice (phase 7d; also under --registry):
+# cli.train_dit at LightningDiT-L/2 (24 blocks, D 1,024, 16 heads of 64,
+# SwiGLU 2,730, 256 tokens), XL/2 (28, 1,152, 16 of 72, 3,072, 256) and
+# 1p6B/1 (28, 1,792, 28 of 64, 4,778, 1,024), each at full width and depth
+# on the shipped YAML with model.model_type changed (``training_leg``, the
+# XL leg's settings: batch 32, 4 steps); B/2, 1p0B/2 and 1p6B/2 train at
+# these N, d and widths. The gradient check at each arch's full width,
+# depth 4, and at L/2 and XL/2 under rope_layout interleaved (#2, #5).
+# arch -> leg name: the archs of the registry's 10-step sampling legs
+REG_TRAIN = {arch: leg[0] for arch, leg in REG_SHORT.items()}
+REG_TRAIN_INTERLEAVED = ("LightningDiT-L/2", "LightningDiT-XL/2")
+
+
+def _reg_spec(arch: str):
+    """``arch`` at 32^2 latents with the shipped YAML's model flags."""
+    from ldmae_tpu_torch.models import dit_spec
+
+    return dit_spec(arch, input_size=32, in_channels=16, num_classes=1000, use_qknorm=True, use_swiglu=True,
+                    use_rope=True, use_rmsnorm=True)
+
+
+_FNM = "ldmae_tpu_torch/csrc/fused_norm_modulate.cu"
+for _name, _depth, _, _ in REG_SHORT.values():
+    EXPECTED_LAUNCHES[f"reg_{_name}_train"] = _counts_of("half", XL_TRAIN_STEPS, _depth)
+    EXPECTED_LAUNCHES[f"reg_{_name}_grad"] = _counts_of("half", 1, XL_GRAD_DEPTH)
+    EXPECTED_LAUNCHES[f"reg_{_name}_grad_interleaved"] = _counts_of("interleaved", 1, XL_GRAD_DEPTH)
+    KERNELS |= {
+        f"flash_attention_rope_train_{_name}": (_FA, f"{_PALLAS_FA}:323", f"reg_{_name}_train", "flash_attention_rope"),
+        f"flash_attention_rope_bwd_train_{_name}": (_FA, f"{_PALLAS_FA}:429", f"reg_{_name}_train",
+                                                    "flash_attention_rope_bwd"),
+        f"fused_norm_modulate_train_{_name}": (_FNM, f"{_PALLAS_AD}:232", f"reg_{_name}_train", "fused_norm_modulate"),
+    }
+for _arch in REG_TRAIN_INTERLEAVED:
+    _name = REG_TRAIN[_arch]
+    KERNELS |= {
+        f"flash_attention_train_{_name}": (_FA, f"{_PALLAS_FA}:77", f"reg_{_name}_grad_interleaved", "flash_attention"),
+        f"flash_attention_bwd_train_{_name}": (_FA, f"{_PALLAS_FA}:151", f"reg_{_name}_grad_interleaved",
+                                               "flash_attention_bwd"),
+    }
+for _name in ("l2", "1p6b1"):  # the SwiGLU widths off a multiple of 8: w12's N, w3's K
+    for _what in ("w12", "w3"):
+        KERNELS[f"dense_train_{_name}_{_what}"] = (_DENSE, "ldmae_tpu/ops/linear.py:21", f"reg_{_name}_train",
+                                                   "dense_bias_f32")
+# the backward's kernels at the d = 64 and 72 single pass (and #6's RoPE pre-pass)
+BWD_ROUTE = ("flash_bwd_preprocess_kernel", "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel")
+
+
+def train_route(what: str, split: dict, want: tuple, absent: tuple = XL_OLD) -> dict:
+    """Fails unless the call ran every kernel of ``want`` and none of
+    ``absent`` (the mma.sync core and three passes); returns the parts by
+    name."""
+    names = sorted(split)
+    ok = all(w in names for w in want) and not any(n in absent for n in names)
+    log(f"  {what}: kernels that ran {names} -> {'the route' if ok else 'NOT the route'} {list(want)}")
+    if not ok:
+        raise SystemExit(f"{what}: ran {names}, not {list(want)}")
+    return {"kernels_ms": split}
+
+
+def reg_train_kernel_phase(dev) -> dict:
+    """Phase 7d's kernel rows at the training batch (32), early in the
+    process: for each of L/2 (32, 16, 256, 64), XL/2 (32, 16, 256, 72) and
+    1p6B/1 (32, 28, 1024, 64): #1 with lse, as the autograd Function runs it
+    (output within the attention tolerance of the plain version, lse within
+    1e-4 + 1e-5 relative), and #6 given that output and lse against the
+    plain backward (BWD_REL_L2, BWD_ELEM; controls: no rowsum term, the
+    Jacobian untransposed), dq within BWD_REL_L2 from run to run and dk, dv
+    equal; at L/2's and XL/2's shape #2 with lse and #5 the same way; each
+    timed beside SDPA (its backward as fwd+bwd minus fwd) and the bound, its
+    kernels named by torch.profiler (the wgmma forward, the single-pass
+    backward). #3 at the three training row shapes through its autograd
+    Function: the forward kernel against its plain version, the gradients
+    equal to ``fused_norm_modulate_bwd`` (the plain fp32 backward), both
+    timed. ``dense_bias_f32`` at L/2's and 1p6B/1's w12 (N 5,460, 9,556)
+    and w3 (K 2,730, 4,778) through ``_DenseBiasF32``: the forward within
+    half a bf16 ulp of fp64 (control: the bias rounded first), dx and dw
+    within relative L2 1e-2 of the fp32 products and dbias within 1e-5,
+    forward and backward timed beside cuBLAS's F.linear. Returns the
+    kernels line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+    from ldmae_tpu_torch.ops import linear as lin
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    b, rows = XL_TRAIN_BATCH, {}
+    for arch, name in REG_TRAIN.items():
+        spec = _reg_spec(arch)
+        h, n, d = spec.num_heads, spec.num_patches, spec.head_dim
+        cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, int(n**0.5)))
+        # q and k at twice unit scale: peaked rows, where the controls move dq and dk past the bound
+        q, k = randn(b, h, n, d, scale=2.0), randn(b, h, n, d, scale=2.0)
+        v, go = randn(b, h, n, d), randn(b, h, n, d)
+        for fwd_name, tab in (("flash_attention_rope", (cos, sin)), ("flash_attention", ())):
+            if not tab and arch not in REG_TRAIN_INTERLEAVED:
+                continue
+            label = f"{fwd_name}_train_{name}"
+            log(f"[registry train kernel] {fwd_name} with lse q,k,v ({b},{h},{n},{d}) bf16"
+                + (f", cos/sin ({n},{d}) fp32" if tab else " (interleaved: RoPE outside the kernel)"))
+            fwd = fa._flash_attention_rope_fwd if tab else fa._flash_attention_fwd
+            qr, kr = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if tab else (q, k)
+
+            def run(fwd=fwd, tab=tab):
+                return fwd(q, k, v, *tab, with_lse=True)
+
+            def plain(tab=tab):
+                return fa.flash_attention_rope_plain(q, k, v, *tab) if tab else fa.flash_attention_plain(q, k, v)
+
+            ref = plain()
+            o, lse = run()
+            err = compare(f"{label} output", o, ref, **attn_tol(ref))
+            del ref
+            compare(f"{label} lse", lse, fa.flash_attention_lse_plain(qr, kr), rtol=1e-5, atol=1e-4)
+            ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 3, 1)
+
+            def lib():
+                return F.scaled_dot_product_attention(qr, kr, v)
+
+            lib_ms = cuda_ms(lib, 20)
+            tables = 2 * n * d * 4 if tab else 0
+            bnd = bound(4 * b * h * n * d * 2 + b * h * n * 4 + tables, 4 * b * h * n * n * d, exps=b * h * n * n)
+            parts = train_route(label, device_split(run),
+                                ("flash_fwd_wgmma_kernel",) + (("norm_rope_kernel",) if tab else ()))
+            # at N 256 the host's launch time can exceed the device's: also both with the queue full
+            parts |= {"queued_ms": queued_ms(run, 20), "library_queued_ms": queued_ms(lib, 20)}
+            rows[label] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+            log(f"  {label}: kernel {ms:.4f} ms (queued {parts['queued_ms']:.4f}), plain {plain_ms:.4f} ms, SDPA "
+                f"{lib_ms:.4f} ms (queued {parts['library_queued_ms']:.4f}; queued kernel / SDPA "
+                f"{parts['queued_ms'] / parts['library_queued_ms']:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share "
+                f"{bnd[0] / ms:.3f} (queued {bnd[0] / parts['queued_ms']:.3f})")
+
+            label = f"{fwd_name}_bwd_train_{name}"
+            want = BWD_ROUTE + (("norm_rope_kernel",) if tab else ())
+            rows[label] = attention_bwd_row("registry train kernel", f"{fwd_name}_bwd", q, k, v, go, tab,
+                                            lambda split, label=label, want=want: train_route(
+                                                label, split, want, XL_OLD + ("flash_fwd_wgmma_kernel",)))
+            del o, lse, qr, kr
+        del q, k, v, go
+        torch.cuda.empty_cache()
+
+        # #3 at the block's rows, through its autograd Function
+        dim, label = spec.hidden_size, f"fused_norm_modulate_train_{name}"
+        log(f"[registry train kernel] fused_norm_modulate x ({b},{n},{dim}) bf16, shift/scale views of ({b},6,{dim}), "
+            "under autograd")
+        x = randn(b, n, dim, scale=3.0)
+        w = 1 + 0.1 * torch.randn(dim, generator=gen, device=dev)
+        ada = randn(b, 6, dim, scale=0.1)
+        go = randn(b, n, dim)
+        xs, ws, adas = (t.detach().requires_grad_() for t in (x, w, ada))
+        out = fad.fused_norm_modulate(xs, ws, adas[:, 0], adas[:, 1])
+        err = compare(label, out.detach(), fad.fused_norm_modulate_plain(x, w, ada[:, 0], ada[:, 1]), rtol=2**-6,
+                      atol=2**-6)
+
+        def back():
+            return torch.autograd.grad(out, (xs, ws, adas), go, retain_graph=True)
+
+        dx, dw, dada = back()
+        rx, rw, rsh, rsc = fad.fused_norm_modulate_bwd(x, w, ada[:, 0], ada[:, 1], go)
+        same = all(torch.equal(a_, r_) for a_, r_ in ((dx, rx), (dw, rw), (dada[:, 0], rsh), (dada[:, 1], rsc)))
+        log(f"  the Function's gradients equal fused_norm_modulate_bwd's (the plain fp32 backward): {same}")
+        if not same:
+            raise SystemExit(f"{label}: the autograd Function's gradients are not fused_norm_modulate_bwd's")
+        ms = cuda_ms(lambda: fad.fused_norm_modulate(x, w, ada[:, 0], ada[:, 1]), 50)
+        plain_ms = cuda_ms(lambda: fad.fused_norm_modulate_plain(x, w, ada[:, 0], ada[:, 1]), 10)
+        bwd_ms = cuda_ms(back, 10)
+        m = b * n
+        bnd = bound(m * dim * 4 + dim * 4 + 2 * b * dim * 2, fp32_flops=6 * m * dim)
+        bwd_bound = bound(m * dim * 6 + dim * 4 + 4 * b * dim * 2, fp32_flops=12 * m * dim)
+        rows[label] = (err, ms, plain_ms, None, *bnd, {"backward_ms": bwd_ms, "backward_bound_ms": bwd_bound[0]})
+        log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), share "
+            f"{bnd[0] / ms:.3f}; the Function's backward (plain fp32 ops) {bwd_ms:.4f} ms against its bound "
+            f"{bwd_bound[0]:.4f} ms")
+        del x, w, ada, go, xs, ws, adas, out, dx, dw, dada, rx, rw, rsh, rsc
+        torch.cuda.empty_cache()
+
+    # dense_bias_f32 at the SwiGLU linears whose N or K is off a multiple of 8
+    for arch in ("LightningDiT-L/2", "LightningDiT-1p6B/1"):
+        spec, name = _reg_spec(arch), REG_TRAIN[arch]
+        m, dim, hid = b * spec.num_patches, spec.hidden_size, spec.swiglu_hidden
+        for what, kk, nn in (("w12", dim, 2 * hid), ("w3", hid, dim)):
+            label = f"dense_train_{name}_{what}"
+            log(f"[registry train kernel] dense_bias_f32 x ({m},{kk}) bf16 @ w ({nn},{kk}) bf16 + b fp32 ({arch} "
+                f"{what}), with its backward (_DenseBiasF32)")
+            # the bias at the output's scale, where rounding it to bf16 first moves the result by an ulp
+            x, w, bias = randn(m, kk), randn(nn, kk, scale=kk**-0.5), randn(nn, dtype=torch.float32)
+            y = lin.dense_bias_f32(x, w, bias)
+            err = float((y.float() - (x.float() @ w.float().t() + bias).bfloat16().float()).abs().max())
+            ulp = dense_ulp_error(y, x, w, bias)
+            del y
+            control = dense_ulp_error(F.linear(x, w, bias.bfloat16()), x, w, bias)
+            ok = ulp <= 0.5 and control > 0.6
+            log(f"  forward: {ulp:.4f} bf16 ulp of fp64 (bound 0.5); the bias rounded to bf16 first {control:.4f} "
+                f"(must exceed 0.6) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{label}: not one rounding after the fp32 bias, or the control reads within")
+            xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, bias))
+            go = randn(m, nn)
+            out = lin._DenseBiasF32.apply(xs, ws, bs, None)
+
+            def back():
+                return torch.autograd.grad(out, (xs, ws, bs), go, retain_graph=True)
+
+            dx, dw, db = back()
+            errs = {"dx": float((dx.float() - go.float() @ w.float()).norm() / (go.float() @ w.float()).norm())}
+            dw_ref = go.float().t() @ x.float()
+            errs["dw"] = float((dw.float() - dw_ref).norm() / dw_ref.norm())
+            db_ref = go.float().sum(0)
+            errs["db"] = float((db - db_ref).abs().max() / db_ref.abs().max())
+            ok = errs["dx"] <= 1e-2 and errs["dw"] <= 1e-2 and errs["db"] <= 1e-5 and db.dtype == torch.float32
+            log(f"  backward: dx, dw relative L2 {errs['dx']:.3g}, {errs['dw']:.3g} of the fp32 products (bound "
+                f"1e-2), dbias (fp32) {errs['db']:.3g} of its largest (bound 1e-5) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{label}: the backward disagrees with the fp32 products")
+            del dx, dw, db, dw_ref, db_ref
+            ms = cuda_ms(lambda: lin.dense_bias_f32(x, w, bias), 20)
+            plain_ms = cuda_ms(lambda: (x.float() @ w.float().t() + bias).to(torch.bfloat16), 5)
+            bwd_ms = cuda_ms(back, 10)
+            bias16 = bias.bfloat16()
+            lib_ms = cuda_ms(lambda: F.linear(x, w, bias16), 20)
+            xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, bias16))
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(F.linear(xl, wl, bl), (xl, wl, bl), go)
+
+            lib_bwd_ms = cuda_ms(lib_fwd_bwd, 10) - lib_ms
+            bnd = bound((m * kk + nn * kk + m * nn) * 2 + nn * 4, 2 * m * kk * nn)
+            bwd_bound = bound((2 * m * nn + 2 * m * kk + 2 * nn * kk) * 2 + nn * 4, 4 * m * kk * nn)
+            rows[label] = (err, ms, plain_ms, lib_ms, *bnd,
+                           {"max_ulp": ulp, "backward_ms": bwd_ms, "library_backward_ms": lib_bwd_ms,
+                            "backward_bound_ms": bwd_bound[0], "backward_rel_l2": errs})
+            log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear {lib_ms:.4f} ms (kernel / F.linear "
+                f"{ms / lib_ms:.3f}), bound {bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / ms:.3f}; backward (cuBLAS on "
+                f"the unpadded operands) {bwd_ms:.4f} ms, F.linear's backward {lib_bwd_ms:.4f} ms, bound "
+                f"{bwd_bound[0]:.4f} ms")
+            del x, w, bias, xs, ws, bs, go, out, xl, wl, bl
+            torch.cuda.empty_cache()
+    return rows
+
+
+def reg_train_legs(dev, smi: str, tmp: str) -> tuple:
+    """Phase 7d's legs: ``training_leg`` at each arch of REG_TRAIN (through
+    cli.train_dit, then the gradient check at depth XL_GRAD_DEPTH), then the
+    gradient check under rope_layout interleaved at REG_TRAIN_INTERLEAVED.
+    Returns (record, {path: counts})."""
+    t0 = time.perf_counter()
+    record, counts = {}, {}
+    for arch, name in REG_TRAIN.items():
+        t1 = time.perf_counter()
+        record[name], c = training_leg(dev, smi, tmp, arch, f"reg_{name}")
+        record[name]["leg_s"] = time.perf_counter() - t1
+        counts |= c
+    for arch in REG_TRAIN_INTERLEAVED:
+        path = f"reg_{REG_TRAIN[arch]}_grad_interleaved"
+        counts[path] = grad_check_phase(dev, layout="interleaved", count_path=path, model_type=arch,
+                                        depth=XL_GRAD_DEPTH)
+    log("  seconds a leg: " + ", ".join(f"{k} {v['leg_s']:.2f}" for k, v in record.items()))
+    record["legs_s"] = time.perf_counter() - t0
+    log(f"  the registry training legs took {record['legs_s']:.2f} s; on {smi}")
+    return record, counts
+
+
 def registry_only(dev, smi: str) -> int:
-    """``--registry``: build, then the registry slice alone (its kernel
-    phase, then its legs), its kernels as a ``{"registry_kernels": [...]}``
-    line in the kernels line's form."""
+    """``--registry``: build, then the registry slices alone (7c's and 7d's
+    kernel phases, then the sampling legs and the training legs), their
+    kernels as a ``{"registry_kernels": [...]}`` line in the kernels line's
+    form."""
     import torch
 
     from ldmae_tpu_torch import kernels
@@ -6383,9 +6743,14 @@ def registry_only(dev, smi: str) -> int:
     gate_ptxas(report)
     rate_probes(dev)
     rows = registry_kernel_phase(dev)
+    rows |= reg_train_kernel_phase(dev)
     with seeded_once(), tempfile.TemporaryDirectory() as tmp:
         record, counts = registry_legs(dev, smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        training, c = reg_train_legs(dev, smi, tmp)
+        counts |= c
     log(json.dumps({"registry": record}))
+    log(json.dumps({"registry_training": training}))
     log(smi)
     log(json.dumps({"registry_kernels": kernel_rows(rows, counts)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6481,6 +6846,7 @@ def main() -> int:
     # come back short of records
     rows |= xl_kernel_phase(dev)
     rows |= registry_kernel_phase(dev)
+    rows |= reg_train_kernel_phase(dev)
     mark("the kernel phases")
     head_dim_phase(dev)
     rows |= fp32_kernel_phase(dev, BATCH)
@@ -6507,6 +6873,10 @@ def main() -> int:
         registry, counts = registry_legs(dev, smi, tmp)
         result["counts"] |= counts
         mark("the registry legs")
+    with tempfile.TemporaryDirectory() as tmp:  # after seeded_once's copies of the sampling weights are freed
+        reg_training, counts = reg_train_legs(dev, smi, tmp)
+        result["counts"] |= counts
+        mark("the registry training legs")
     if profile:
         train_profile_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -6553,6 +6923,8 @@ def main() -> int:
     log(json.dumps({"xl": xl_record}))
     # the registry slice's legs: XL/1 w8a8 and B/1 w8 through cli.inference, L/2, XL/2, 1p6B/1 at 10 steps
     log(json.dumps({"registry": registry}))
+    # the registry's training legs: L/2, XL/2, 1p6B/1 through cli.train_dit, the gradient checks
+    log(json.dumps({"registry_training": reg_training}))
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1648,3 +1648,155 @@ def test_cuda_fused_norm_modulate_quant_at_1p6b_width(cuda, kind):
     _assert_quant_close(out, tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
     with pytest.raises(AssertionError):
         _assert_quant_close(out, tfad.fused_norm_modulate_quant_plain(x, w, sc, sh, kind=kind))
+
+
+# -- the registry's training slice ------------------------------------------
+
+
+def _wrong_bwd(q, k, v, g, cos=None, sin=None):
+    """The backward the kernels must not match: without the rowsum term of
+    ds (ds = p * dp), and under RoPE with the Jacobian applied untransposed
+    (the forward rotation instead of its transpose)."""
+    rope = cos is not None
+    qr, kr = (tfa._rope_fp32(q, cos, sin), tfa._rope_fp32(k, cos, sin)) if rope else (q, k)
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (qr, kr, v, g))
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
+    ds = p * (gf @ vf.transpose(-1, -2))
+    dq, dk, dv = ds @ kf * scale, ds.transpose(-1, -2) @ qf * scale, p.transpose(-1, -2) @ gf
+    if rope:
+        dq, dk = tfa._rotate_fp32(dq, cos, sin), tfa._rotate_fp32(dk, cos, sin)
+    return dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("d", [64, 72])
+def test_cuda_backward_at_patch2_tokens(cuda, d, rope):
+    """#6 (rope) and #5 at the patch-2 archs' 256 tokens, (4, 16, 256, d):
+    L/2 and B/2 at d = 64, XL/2 at 72. Each head has two 128-key tiles, so
+    each query tile's dq is summed from two bulk reductions. Given the
+    forward's output and lse as the autograd Functions pass them: within the
+    backward bounds of the plain backward; dq within BWD_REL_L2 from run to
+    run, dk and dv equal; the control (no rowsum term; under RoPE also the
+    Jacobian untransposed), with q and k at twice unit scale (peaked rows),
+    must fail the same bounds."""
+    shape = (4, 16, 256, d)
+    (q, k, v, g), tables = _bwd_inputs(shape, rope, cuda)
+    q, k = q * 2, k * 2
+    out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
+    kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
+    plain = tfa.flash_attention_rope_bwd_plain if rope else tfa.flash_attention_bwd_plain
+    refs = plain(q, k, v, g, *tables)
+    first = kernel(q, k, v, g, *tables, out=out, lse=lse)
+    _assert_bwd_close(first, refs)
+    second = kernel(q, k, v, g, *tables, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert float((first[0].float() - second[0].float()).norm() / first[0].float().norm()) <= BWD_REL_L2
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    with pytest.raises(AssertionError):
+        _assert_bwd_close(_wrong_bwd(q, k, v, g, *tables), refs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1024, 1792])  # L's and 1p6B's widths
+def test_cuda_fused_norm_modulate_function_backward_registry_widths(cuda, d):
+    """#3's autograd Function at L's and 1p6B's widths on patch-2-sized rows:
+    the forward kernel runs (counted) within BF16_TOL of its plain version,
+    the gradients are ``fused_norm_modulate_bwd``'s; the control, that
+    backward with shift and scale swapped, must differ."""
+    x = (_bf16((4, 256, d), 0, cuda) * 3).requires_grad_()
+    w = (1 + 0.1 * _bf16((d,), 1, cuda).float()).requires_grad_()
+    ada = (_bf16((4, 6, d), 2, cuda) * 0.1).requires_grad_()
+    g = _bf16((4, 256, d), 3, cuda)
+    before = tfad.fused_norm_modulate.launches
+    out = tfad.fused_norm_modulate(x, w, ada[:, 0], ada[:, 1])
+    assert tfad.fused_norm_modulate.launches == before + 1
+    xd, wd, sh, sc = x.detach(), w.detach(), ada[:, 0].detach(), ada[:, 1].detach()
+    torch.testing.assert_close(out.detach().float(), tfad.fused_norm_modulate_plain(xd, wd, sh, sc).float(),
+                               **BF16_TOL)
+    dx, dw, dada = torch.autograd.grad(out, (x, w, ada), g)
+    rx, rw, rsh, rsc = tfad.fused_norm_modulate_bwd(xd, wd, sh, sc, g)
+    for got, want in ((dx, rx), (dw, rw), (dada[:, 0], rsh), (dada[:, 1], rsc)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(dx, tfad.fused_norm_modulate_bwd(xd, wd, sc, sh, g)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", _REGISTRY_LINEARS)
+def test_cuda_dense_backward_at_registry_swiglu_widths(cuda, m, k, n):
+    """``dense``'s autograd Function (``_DenseBiasF32``) at L's and 1p6B's
+    SwiGLU linears, whose N (w12) or K (w3) is off a multiple of 8: the
+    forward kernel runs (counted) on x and w padded to a K multiple of 8,
+    the backward's cuBLAS products take the unpadded operands; dx and dw
+    within relative L2 1e-2 of fp64 math on the same bf16 values, dbias the
+    fp32 sum of g within 1e-5 (``test_cuda_dense_backward_vs_fp64``'s
+    bounds); the control, a bf16 F.linear's dbias (g summed in bf16), must
+    read above that bound."""
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import dense
+    from ldmae_tpu_torch.ops import linear as tlin
+
+    x = _bf16((m, k), 0, cuda).requires_grad_()
+    w = (_bf16((n, k), 1, cuda).float() * k**-0.5).requires_grad_()
+    b = _randn((n,), 2, cuda, torch.float32).requires_grad_()
+    g = _bf16((m, n), 3, cuda)
+    before = tlin.dense_bias_f32.launches
+    dx, dw, db = torch.autograd.grad(dense(x, w, b, compute_dtype=torch.bfloat16), (x, w, b), g)
+    assert tlin.dense_bias_f32.launches == before + 1
+    gd, xd, wd = g.double(), x.detach().double(), w.detach().bfloat16().double()
+    for got, ref in ((dx, gd @ wd), (dw, gd.t() @ xd)):
+        assert float((got.double() - ref).norm() / ref.norm()) <= 1e-2
+    assert db.dtype == torch.float32
+    db_tol = dict(rtol=1e-5, atol=1e-5 * float(gd.abs().sum(0).max()))
+    torch.testing.assert_close(db.double(), gd.sum(0), **db_tol)
+    xb, wb, bb = (t.detach().bfloat16().requires_grad_() for t in (x, w, b))
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(torch.autograd.grad(F.linear(xb, wb, bb), bb, g)[0].double(), gd.sum(0), **db_tol)
+
+
+@pytest.mark.gpu
+def test_cuda_train_cli_step_at_l2_depth2(cuda, tmp_path, monkeypatch):
+    """One ``cli.train_dit`` step of LightningDiT-L/2 (width 1,024, 16 heads
+    of 64, SwiGLU 2,730, 256 tokens) cut to depth 2 in the model registry,
+    on the training legs' YAML (``chip_smoke.train_yaml``: the shipped one's
+    training sections, batch 32): exact launches (#1 2 a block, #3 4, #6 1,
+    dense 5 + 9 a block), a finite loss and gradient norm; the control, the
+    same step under rope_layout interleaved, launches #2 and #5 instead,
+    exactly, so the half layout's counts do not hold there."""
+    import math
+    import os
+    import sys
+
+    import yaml
+
+    from ldmae_tpu_torch import ops
+    from ldmae_tpu_torch.cli import train_dit
+    from ldmae_tpu_torch.models import lightningdit
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    arch = "LightningDiT-L/2"
+    monkeypatch.setitem(lightningdit._REGISTRY, arch, dict(lightningdit._REGISTRY[arch], depth=2))
+    data = chip_smoke.write_latent_shards(str(tmp_path / "latents"))
+    counts = {}
+    for layout in ("half", "interleaved"):
+        path = chip_smoke.train_yaml(str(tmp_path / f"{layout}.yaml"), arch, data, "", str(tmp_path), layout)
+        cfg = yaml.safe_load(open(path))
+        cfg["train"]["max_steps"] = 1
+        cfg["parallel"]["rope_layout"] = layout
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        ops.reset_launch_counts()
+        hist = train_dit.main(["--config", path])["history"]
+        torch.cuda.synchronize()
+        counts[layout] = ops.launch_counts()
+        assert len(hist) == 1 and math.isfinite(hist[0]["loss"]) and math.isfinite(hist[0]["grad_norm"])
+    for layout in counts:
+        assert counts[layout] == chip_smoke._counts_of(layout, 1, 2), layout
+    assert counts["interleaved"] != chip_smoke._counts_of("half", 1, 2)
