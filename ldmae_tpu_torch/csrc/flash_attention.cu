@@ -1082,8 +1082,9 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 // true>) and its bf16
 // output; a preprocess kernel forms delta = rowsum(g * o) from them and
 // zeroes an fp32 dq accumulator; flash_bwd_wgmma_kernel does the 10 b h N^2
-// d operations once, dq summed across key-tile blocks by atomic adds; a
-// postprocess kernel scales dq (and applies the RoPE Jacobian) into bf16.
+// d operations once, dq summed across key-tile blocks by bulk reductions in
+// key-tile order; a postprocess kernel scales dq (and applies the RoPE
+// Jacobian) into bf16.
 //
 // Every other head dim (1 <= d <= 128, in the classes of the forward core:
 // VMAE d = 8 to 80), three passes on mma.sync (this section),
@@ -1506,8 +1507,14 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 //     reduction ran slower, though it halved the reduced bytes; issuing the
 //     next tile's S^T and dP^T before waiting for dV and dK gained nothing;
 //   * flash_bwd_postprocess_kernel<kD, kRope>: dq = bf16(J^T(dq_acc d^-1/2)).
-// The eight key-tile blocks of a head add into dq in an order that changes
-// from run to run, so dq is not bitwise reproducible (dk and dv are).
+// The key-tile blocks of a head add into dq in key-tile order: a warp of the
+// producer warpgroup (the reducer) takes both consumers' staged parts of a
+// query tile (mbarriers dq_full, dq_empty), waits until that tile's counter
+// (dq_sem, zeroed by the preprocess) reads its key tile, issues the bulk
+// reductions, waits for them to complete and bumps the counter. So dq is
+// the same bits from run to run, as dk and dv are; the consumers go on with
+// the next tiles meanwhile (two staging buffers). A block waits only on
+// blocks of smaller key tiles of its head, which sit before it in the grid.
 //
 // d = 72 (kD; the d = 64 code is unchanged): every tile of K, V, q and g is
 // loaded as the forward's two boxes, columns 0-63 (128-byte swizzle) and
@@ -1563,6 +1570,7 @@ __host__ __device__ __forceinline__ long long dq_part(long long bh, int nq, int 
 
 struct BwdWgmmaArgs {
   float* dq_acc;             // bh npad d fp32 as dQ parts (dq_part), zeroed; dq summed here
+  int* dq_sem;               // bh npad / kBwQ, zeroed: key tiles of a (b h, query tile) that have added
   bf16 *dk, *dv;             // (bh, n, d), written
   const float *lse, *delta;  // (bh, npad): lse +inf and delta 0 past n
   const float *cos, *sin;    // (n, d) fp32 half-split tables (kRope only)
@@ -1580,8 +1588,8 @@ template <int kD>
 __global__ void __launch_bounds__(256)
     flash_bwd_preprocess_kernel(const bf16* __restrict__ go, const bf16* __restrict__ o,
                                 const float* __restrict__ lse_fwd, float* __restrict__ lse,
-                                float* __restrict__ delta, float* __restrict__ dq_acc, long long rows,
-                                int n, int npad) {
+                                float* __restrict__ delta, float* __restrict__ dq_acc,
+                                int* __restrict__ dq_sem, long long rows, int n, int npad) {
   const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
   const int j = threadIdx.x % 8;
   const long long bh = row / npad;
@@ -1616,6 +1624,7 @@ __global__ void __launch_bounds__(256)
   if (j == 0) {
     delta[row] = acc;
     lse[row] = r < n ? lse_fwd[bh * n + r] : INFINITY;
+    if (r % kBwQ == 0) dq_sem[row / kBwQ] = 0;
   }
 }
 
@@ -1641,6 +1650,9 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   float* sdqt = sd + kBwStages * kBwQ;  // d = 72: dQ parts of columns 64-71, two per consumer
   float* sdk = sdqt + 4 * B::kDqTail;   // d = 72 with RoPE: dK d^-1/2 staged, one per consumer
   __shared__ __align__(8) uint64_t kv_full, full[kBwStages], empty[kBwStages];
+  // the dQ staging buffers (two, each holding both consumers' parts) between
+  // the consumers and the reducer warp
+  __shared__ __align__(8) uint64_t dq_full[2], dq_empty[2];
 
   const int n = a.n, bh = blockIdx.y, k0 = blockIdx.x * kBwKeys;
   const int nq = a.npad / kBwQ;
@@ -1651,6 +1663,10 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     for (int s = 0; s < kBwStages; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&dq_full[b], 2);  // each consumer's leader
+      hopper::mbar_init(&dq_empty[b], 1);  // the reducer
     }
     hopper::fence_mbar_init();
   }
@@ -1684,6 +1700,41 @@ __global__ void __launch_bounds__(kBwThreads, 1)
         hopper::bulk_load(sl + stage * kBwQ, a.lse + row0 + q0, kBwQ * 4, &full[stage]);
         hopper::bulk_load(sd + stage * kBwQ, a.delta + row0 + q0, kBwQ * 4, &full[stage]);
         if (++stage == kBwStages) stage = 0, phase ^= 1;
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      // The reducer warp: each query tile's dQ parts of both consumers into
+      // the accumulator, in key-tile order: the block of key tile j waits
+      // until the counter of (b h, query tile) reads j, adds its parts (one
+      // bulk reduction each), waits for them to complete and bumps the
+      // counter, so every run sums dq in the same order.
+      const int lane = threadIdx.x % 32;
+      int* sem = a.dq_sem + (long long)bh * nq;
+      for (int it = 0; it < nq; ++it) {
+        const int buf = it & 1;
+        hopper::mbar_wait(&dq_full[buf], (it >> 1) & 1);
+        if constexpr (B::kTail) {  // columns 64-71: consumer 1's part added to consumer 0's, in that order
+          float* t0 = sdqt + buf * B::kDqTail;
+          const float* t1 = sdqt + (2 + buf) * B::kDqTail;
+          for (int i = lane; i < B::kDqTail; i += 32) t0[i] += t1[i];
+          hopper::fence_proxy_async();
+        }
+        __syncwarp();
+        if (lane == 0) {
+          hopper::wait_eq_acquire(sem + it, blockIdx.x);
+          hopper::fence_proxy_async_global();
+          hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 0), sdq + buf * kBwDqPart, kBwDqPart * 4);
+          hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 1), sdq + (2 + buf) * kBwDqPart,
+                                      kBwDqPart * 4);
+          if constexpr (B::kTail)
+            hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 2), sdqt + buf * B::kDqTail,
+                                        B::kDqTail * 4);
+          hopper::bulk_commit();
+          hopper::bulk_wait<0>();
+          hopper::fence_proxy_async_global();
+          hopper::red_add_release(sem + it, 1);
+          hopper::mbar_arrive(&dq_empty[buf]);
+        }
+        __syncwarp();
       }
     }
     return;
@@ -1838,10 +1889,9 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     fence_all();
     if (lane == 0) hopper::mbar_arrive(&empty[stage]);  // q, g, lse, delta of this stage are read
 
-    // The dQ part into the accumulator: staged in shared memory (two
-    // buffers a warpgroup), then one bulk reduction. The leader's wait before
-    // the barrier makes sure the previous tile's reduction has read the
-    // other buffer, which the next tile writes.
+    // The dQ part staged in shared memory (two buffers a warpgroup) for the
+    // reducer warp, once it is done with the buffer's previous tile.
+    if (it >= 2) hopper::mbar_wait(&dq_empty[it & 1], ((it >> 1) - 1) & 1);
     float* part = sdq + (c * 2 + (it & 1)) * kBwDqPart;
     const int row = warp * 16 + g;
 #pragma unroll
@@ -1856,18 +1906,10 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       *reinterpret_cast<float2*>(part_t + (row + 8) * 8 + 2 * t) = make_float2(dqt[2], dqt[3]);
     }
     hopper::fence_proxy_async();
-    const bool leader = threadIdx.x % 128 == 0;
-    if (leader) hopper::bulk_wait_read<0>();
     hopper::bar_sync(2 + c, 128);
-    if (leader) {
-      hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, c), part, kBwDqPart * 4);
-      if constexpr (B::kTail)
-        hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 2), part_t, B::kDqTail * 4);
-      hopper::bulk_commit();
-    }
+    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&dq_full[it & 1]);
     if (++stage == kBwStages) stage = 0, phase ^= 1;
   }
-  if (threadIdx.x % 128 == 0) hopper::bulk_wait<0>();  // the reductions are done with shared memory
 
   // dV, and dK d^-1/2 (with kRope J^T of it), in bf16 for keys < n
   const int r0 = k0 + srow, r1 = r0 + 8;
@@ -2021,7 +2063,8 @@ __global__ void __launch_bounds__(256)
 
 // The single pass at d = kD (64 or 72) on contiguous (bh, n, kD) q, k
 // (rotated for RoPE), v, g, o; lse_fwd (bh, n) from the forward; lse, delta
-// (bh, npad) and dq_acc (bh, npad, kD) fp32 scratch.
+// (bh, npad) and dq_acc (bh, npad, kD) fp32 scratch, followed by bh npad /
+// 64 ints (the reduction order's counters).
 template <int kD, bool kRope>
 cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const void* g, const void* o,
                            const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
@@ -2031,8 +2074,9 @@ cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const vo
   if (o == nullptr || lse_fwd == nullptr || dq_acc == nullptr) return cudaErrorInvalidValue;
   const int npad = (n + kBwQ - 1) / kBwQ * kBwQ;
   const long long prow = (long long)bh * npad;
+  int* dq_sem = reinterpret_cast<int*>(dq_acc + prow * kD);  // after the accumulator, prow / kBwQ of them
   flash_bwd_preprocess_kernel<kD><<<(unsigned)((prow + 31) / 32), 256, 0, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(o), lse_fwd, lse, delta, dq_acc, prow, n,
+      static_cast<const bf16*>(g), static_cast<const bf16*>(o), lse_fwd, lse, delta, dq_acc, dq_sem, prow, n,
       npad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -2053,7 +2097,7 @@ cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const vo
   // scale_log2 (make_args), which its lse is in
   const float scale_log2 = kD == 64 ? 1.4426950408889634f / 8.f : 1.4426950408889634f / sqrtf((float)kD);
   const float scale = kD == 64 ? 0.125f : 1.f / sqrtf((float)kD);
-  const BwdWgmmaArgs a{dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
+  const BwdWgmmaArgs a{dq_acc, dq_sem, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
                        npad, scale_log2, scale};
   const dim3 grid((n + kBwKeys - 1) / kBwKeys, bh);
   flash_bwd_wgmma_kernel<kD, kRope><<<grid, kBwThreads, B::kSmem, s>>>(maps[0], maps[1], maps[2], maps[3], a,

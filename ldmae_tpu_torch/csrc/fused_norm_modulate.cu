@@ -24,6 +24,11 @@
 // fp32 x (the configs' other compute dtype) runs the same engine with an
 // fp32 epilogue: the roundings to x's dtype vanish and the parameters are
 // staged as fp32 w, 1 + scale[b] and shift[b].
+//
+// The backward (the JAX package's custom VJP of the kernel, hand-written
+// XLA math there: ldmae_tpu/ops/fused_adaln.py, _fnm_custom_vjp) runs on
+// the same engine's row walk: rows::bwd in csrc/norm_rows.cuh, whose
+// comment gives its math and design.
 #include "norm_rows.cuh"
 
 namespace {
@@ -141,4 +146,36 @@ extern "C" int ldmae_fused_norm_modulate(const void* x, const float* w, const vo
   const rows::Args a{x, w, shift, scale, shift_stride, scale_stride, out, nullptr, (long long)b * n, n, d, layer, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(fp32 ? rows::launch<Modulate<float>>(a, s) : rows::launch<Modulate<bf16>>(a, s));
+}
+
+// The backward's grid for this shape on the current device (>= 1), or the
+// negated CUDA error: ldmae_fused_norm_modulate_bwd takes a workspace of
+// (grid + b) * 3 * d floats. stream is unused (the entries share one
+// calling convention).
+extern "C" int ldmae_fused_norm_modulate_bwd_grid(int b, int n, int d, int fp32, void* stream) {
+  (void)stream;
+  const rows::BwdArgs a{nullptr, nullptr, nullptr, nullptr, 0, nullptr, nullptr, (long long)b * n, n, d, 0, 0.f};
+  long long grid = 0;
+  const cudaError_t e = fp32 ? rows::bwd<float>(a, b, 0, nullptr, nullptr, nullptr, false, false, &grid, nullptr)
+                             : rows::bwd<bf16>(a, b, 0, nullptr, nullptr, nullptr, false, false, &grid, nullptr);
+  return e == cudaSuccess ? static_cast<int>(grid) : -static_cast<int>(e);
+}
+
+// #3's backward. x, g, dx: contiguous (b, n, d), bf16 (fp32 != 0: fp32),
+// 16-byte aligned, d as the forward takes it; w: (d,) fp32 or null (unused
+// when layer != 0); scale: (b, d) in x's dtype with unit column stride, row i
+// at scale + i * scale_stride (in elements); ws: ws_slots * 3 * d floats,
+// ws_slots >= the grid of ldmae_fused_norm_modulate_bwd_grid + b. Writes dx
+// (x's dtype), dw (d,) fp32 (only with a weight and layer == 0), and dshift
+// and dscale (b, d), bf16 when sums_bf16 != 0, else fp32. Returns the CUDA
+// error of the launches (0 on success).
+extern "C" int ldmae_fused_norm_modulate_bwd(const void* x, const void* g, const float* w, const void* scale,
+                                             long long scale_stride, void* dx, float* dw, void* dshift,
+                                             void* dscale, float* ws, long long ws_slots, int b, int n, int d,
+                                             int layer, float eps, int fp32, int sums_bf16, void* stream) {
+  const rows::BwdArgs a{x, g, w, scale, scale_stride, dx, ws, (long long)b * n, n, d, layer, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long grid = 0;
+  return static_cast<int>(fp32 ? rows::bwd<float>(a, b, ws_slots, dw, dshift, dscale, sums_bf16, true, &grid, s)
+                               : rows::bwd<bf16>(a, b, ws_slots, dw, dshift, dscale, sums_bf16, true, &grid, s));
 }

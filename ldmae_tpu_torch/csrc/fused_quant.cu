@@ -30,14 +30,19 @@
 // comes from a reciprocal, equal bit for bit to the true quotient's
 // rounding (the rule at kMagic below, applied in ModulateQuant::finish). The gate runs one block of 128 threads per row
 // (2H = 4,096 values at B/1, 8 KB), in 16-byte loads and 8-byte stores where
-// H is a multiple of 8 and the bases are aligned; any other H (the SwiGLU
+// H is a multiple of 8 and the bases are aligned. Any other H (the SwiGLU
 // widths int(2/3 * 4D) of L and 1p6B, 2,730 and 4,778, and their halves
-// under tensor parallelism, 1,365 and 2,389) runs an element-wise
-// instantiation: a bf16 row of 2H = 5,460 values starts every 10,920 bytes,
-// 8 mod 16, and at an odd H x2 starts 2 mod 4 bytes past x1. On an H100 the
-// vector one reads at 0.74 of the bytes bound, the element-wise one at
-// 0.18-0.23 (PERF.md); both of the registry's unaligned widths are even, so
-// a 2-element instantiation would serve them and leave this one to odd H.
+// under tensor parallelism, 1,365 and 2,389; a bf16 row of 2H = 5,460 values
+// starts every 10,920 bytes, 8 mod 16, and at an odd H x2 starts 2 mod 4
+// bytes past x1) runs silu_mul_quant_any_kernel, which moves 16-byte units
+// too: each thread makes one aligned 16-byte word of the int8 row, its 16
+// inputs of x1 and of x2 read as the aligned 16-byte words that enclose them
+// and realigned in registers (funnel shifts); the words wholly inside the
+// row are written as one 16-byte store, the ragged first and last word of
+// a row (which share their 16 bytes with the neighbouring rows, written by
+// other blocks) in aligned stores of 8, 4, 2 and 1 bytes that cover the
+// row's bytes alone. Its element-by-element predecessor read at 0.18-0.22
+// of the bytes bound on an H100, issue-bound on one load per element.
 // fp32 input (the configs' other compute dtype) runs the same kernels with
 // the element type a template parameter (their arithmetic is fp32 already).
 #include "norm_rows.cuh"
@@ -63,6 +68,17 @@ __device__ __forceinline__ uint2 quantize8(const float* o, float qs) {
 
 __device__ __forceinline__ float row_scale(float absmax) {
   return fmaxf(__fdiv_rn(absmax, 127.f), 1e-8f);
+}
+
+// The block's largest of its threads' values (part: a float a warp, at
+// most kMaxWarps warps).
+constexpr int kMaxWarps = 8;
+__device__ __forceinline__ float block_max(float v, float* part) {
+  v = warp_max(v);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
+  __syncthreads();
+  for (int i = 0; i < (int)blockDim.x / 32; ++i) v = fmaxf(v, part[i]);
+  return v;
 }
 
 // Eight consecutive elements as loaded (16 bytes of bf16, 32 of fp32;
@@ -226,17 +242,14 @@ struct ModulateQuant {
 enum GateMode { kGateFull, kGateAmax, kGateScaled };
 
 // One block per row of x12 (2H elements); kVec: 8 outputs a thread, kVec
-// times. amax: written (kGateAmax) or read (kGateScaled), one fp32 a row.
-// kNarrow: element by element, output e of the row at thread e % 128 (so a
-// warp reads 32 neighbouring values, 64 or 128 bytes, and writes 32 bytes),
-// for any H and any element-aligned bases; else 8 neighbouring outputs a
-// thread in 16-byte loads and 8-byte stores (H % 8 == 0, aligned bases).
-// Both compute each output and its int8 by the same operations.
-template <typename T, int kVec, GateMode kMode, bool kNarrow>
+// times, 8 neighbouring outputs a thread in 16-byte loads and 8-byte stores
+// (H % 8 == 0, aligned bases). amax: written (kGateAmax) or read
+// (kGateScaled), one fp32 a row.
+template <typename T, int kVec, GateMode kMode>
 __global__ void __launch_bounds__(kGateThreads)
     silu_mul_quant_kernel(const T* __restrict__ x12, int8_t* __restrict__ out,
                           float* __restrict__ scales, float* __restrict__ amax_row, int h) {
-  __shared__ float part[kGateThreads / 32];
+  __shared__ float part[kMaxWarps];
   const long long row = blockIdx.x;
   const T* x1 = x12 + row * 2 * h;
   const T* x2 = x1 + h;
@@ -245,37 +258,21 @@ __global__ void __launch_bounds__(kGateThreads)
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    if constexpr (kNarrow) {
+    const int vi = threadIdx.x + i * kGateThreads;
+    if (vi >= nvec) continue;
+    const Vec8<T> e1(x1 + vi * 8), e2(x2 + vi * 8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int e = threadIdx.x + (i * 8 + j) * kGateThreads;
-        if (e >= h) continue;
-        const float a = to_float(x1[e]);
-        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
-        o[i][j] = __fmul_rn(__fmul_rn(a, sig), to_float(x2[e]));
-        amax = fmaxf(amax, fabsf(o[i][j]));
-      }
-    } else {
-      const int vi = threadIdx.x + i * kGateThreads;
-      if (vi >= nvec) continue;
-      const Vec8<T> e1(x1 + vi * 8), e2(x2 + vi * 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float a = e1[j];
-        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
-        o[i][j] = __fmul_rn(__fmul_rn(a, sig), e2[j]);
-        amax = fmaxf(amax, fabsf(o[i][j]));
-      }
+    for (int j = 0; j < 8; ++j) {
+      const float a = e1[j];
+      const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
+      o[i][j] = __fmul_rn(__fmul_rn(a, sig), e2[j]);
+      amax = fmaxf(amax, fabsf(o[i][j]));
     }
   }
   if constexpr (kMode == kGateScaled) {
     amax = amax_row[row];
   } else {
-    amax = warp_max(amax);
-    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = amax;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kGateThreads / 32; ++i) amax = fmaxf(amax, part[i]);
+    amax = block_max(amax, part);
     if constexpr (kMode == kGateAmax) {
       if (threadIdx.x == 0) amax_row[row] = amax;
       return;
@@ -285,28 +282,167 @@ __global__ void __launch_bounds__(kGateThreads)
   int8_t* orow = out + row * h;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    if constexpr (kNarrow) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int e = threadIdx.x + (i * 8 + j) * kGateThreads;
-        if (e < h) orow[e] = static_cast<int8_t>(static_cast<int>(rintf(__fdiv_rn(o[i][j], qs))));
-      }
-    } else {
-      const int vi = threadIdx.x + i * kGateThreads;
-      if (vi < nvec) *reinterpret_cast<uint2*>(orow + vi * 8) = quantize8(o[i], qs);
-    }
+    const int vi = threadIdx.x + i * kGateThreads;
+    if (vi < nvec) *reinterpret_cast<uint2*>(orow + vi * 8) = quantize8(o[i], qs);
   }
   if (threadIdx.x == 0) scales[row] = qs;
 }
 
-template <typename T, GateMode kMode, bool kNarrow>
-cudaError_t gate_launch_as(const T* x12, int8_t* out, float* scales, long long rows, int h, cudaStream_t s,
-                           float* amax) {
+// The 32-bit words r[0, kR) of the bytes that start `shift` (0..15) bytes
+// into w (little endian: the lower address in the lower bits), w holding
+// kR + 4 words. shift is the same for a whole row, so the switch does not
+// diverge.
+template <int kR>
+__device__ __forceinline__ void realign(const uint32_t (&w)[kR + 4], int shift, uint32_t (&r)[kR]) {
+  const unsigned bits = 8u * (shift & 3);
+  switch (shift >> 2) {
+#define LDMAE_CASE(S)                                                          \
+  case S:                                                                      \
+    _Pragma("unroll") for (int q = 0; q < kR; ++q) r[q] = __funnelshift_r(w[q + S], w[q + S + 1], bits); \
+    break;
+    LDMAE_CASE(0) LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3)
+#undef LDMAE_CASE
+  }
+}
+
+// Elements e0 .. e0 + 15 of p's row [p, p + h) as fp32 (0 outside it): the
+// aligned 16-byte words that enclose them are loaded, except words that hold
+// no byte of the row (so nothing outside the tensor is read), and realigned.
+// kEdge false: all 16 lie in the row (no element is masked).
+template <typename T, bool kEdge>
+__device__ __forceinline__ void load16(const T* p, int e0, int h, float (&v)[16]) {
+  constexpr int kR = 16 * sizeof(T) / 4;  // 32-bit words of 16 elements
+  constexpr int kIn = kR / 4 + 1;         // 16-byte words that enclose them
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(p), hi = lo + (uintptr_t)h * sizeof(T);
+  const uintptr_t start = lo + (intptr_t)e0 * (intptr_t)sizeof(T);
+  const uintptr_t base = start & ~(uintptr_t)15;
+  const int shift = static_cast<int>(start - base);
+  uint32_t w[kR + 4];
+#pragma unroll
+  for (int k = 0; k < kIn; ++k) {
+    const uintptr_t a = base + 16 * k;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if ((k < kIn - 1 || shift != 0) && (!kEdge || (a < hi && a + 16 > lo))) u = *reinterpret_cast<const uint4*>(a);
+    w[4 * k] = u.x, w[4 * k + 1] = u.y, w[4 * k + 2] = u.z, w[4 * k + 3] = u.w;
+  }
+  uint32_t r[kR];
+  realign<kR>(w, shift, r);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float x;
+    if constexpr (sizeof(T) == 2) {
+      x = __uint_as_float(j % 2 ? r[j / 2] & 0xffff0000u : r[j / 2] << 16);
+    } else {
+      x = __uint_as_float(r[j]);
+    }
+    v[j] = !kEdge || (e0 + j >= 0 && e0 + j < h) ? x : 0.f;
+  }
+}
+
+// Bytes [lo, hi) of the 16-byte word q (16 int8, four a word) to dst, a
+// 16-byte aligned address: one 16-byte store for the whole word, else
+// aligned stores of 8, 4, 2 and 1 bytes that write those bytes alone.
+__device__ __forceinline__ void store_bytes(int8_t* dst, const uint32_t (&q)[4], int lo, int hi) {
+  if (lo == 0 && hi == 16) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(q[0], q[1], q[2], q[3]);
+    return;
+  }
+  // q indexed by constants only (a runtime index would put it in local memory)
+  const auto at = [&](int i) { return i == 0 ? q[0] : i == 1 ? q[1] : i == 2 ? q[2] : q[3]; };
+  for (int p = lo; p < hi;) {
+    const uint32_t word = at(p / 4);
+    if (p % 8 == 0 && p + 8 <= hi) {
+      *reinterpret_cast<uint2*>(dst + p) = make_uint2(word, at(p / 4 + 1));
+      p += 8;
+    } else if (p % 4 == 0 && p + 4 <= hi) {
+      *reinterpret_cast<uint32_t*>(dst + p) = word;
+      p += 4;
+    } else if (p % 2 == 0 && p + 2 <= hi) {
+      *reinterpret_cast<uint16_t*>(dst + p) = static_cast<uint16_t>(word >> (8 * (p % 4)));
+      p += 2;
+    } else {
+      dst[p] = static_cast<int8_t>(word >> (8 * (p % 4)));
+      p += 1;
+    }
+  }
+}
+
+// #10 at any 1 <= H <= 8192 and any element-aligned bases. One block per
+// row; thread t makes the aligned 16-byte words t, t + blockDim.x, ...
+// (kWords of them) of the row's int8 output: word k holds outputs e0 = 16 k
+// - a0 .. e0 + 15, a0 the output row's offset from the 16-byte boundary
+// before it (0 in kGateAmax, which writes no row). The block has as many
+// warps as keep its threads busy at this H (gate_launch_any). Each output
+// and its int8 come from the vector kernel's operations, so the two agree
+// bit for bit.
+template <typename T, int kWords, GateMode kMode>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    silu_mul_quant_any_kernel(const T* __restrict__ x12, int8_t* __restrict__ out,
+                              float* __restrict__ scales, float* __restrict__ amax_row, int h) {
+  __shared__ float part[kMaxWarps];
+  const long long row = blockIdx.x;
+  const T* x1 = x12 + row * 2 * h;
+  const T* x2 = x1 + h;
+  int8_t* orow = kMode == kGateAmax ? nullptr : out + row * h;
+  const int a0 = static_cast<int>(reinterpret_cast<uintptr_t>(orow) % 16);
+  const int nw = (a0 + h + 15) / 16;
+  float o[kWords][16];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const int k = threadIdx.x + i * blockDim.x;
+    if (k >= nw) continue;
+    const int e0 = 16 * k - a0;
+    float v1[16], v2[16];
+    if (e0 >= 0 && e0 + 16 <= h) {  // a word inside the row: every thread but the first and last word's
+      load16<T, false>(x1, e0, h, v1);
+      load16<T, false>(x2, e0, h, v2);
+    } else {
+      load16<T, true>(x1, e0, h, v1);
+      load16<T, true>(x2, e0, h, v2);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float a = v1[j];
+      const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
+      o[i][j] = __fmul_rn(__fmul_rn(a, sig), v2[j]);  // 0 outside the row
+      amax = fmaxf(amax, fabsf(o[i][j]));
+    }
+  }
+  if constexpr (kMode == kGateScaled) {
+    amax = amax_row[row];
+  } else {
+    amax = block_max(amax, part);
+    if constexpr (kMode == kGateAmax) {
+      if (threadIdx.x == 0) amax_row[row] = amax;
+      return;
+    }
+  }
+  const float qs = row_scale(amax);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const int k = threadIdx.x + i * blockDim.x;
+    if (k >= nw) continue;
+    const int e0 = 16 * k - a0;
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int v = static_cast<int>(rintf(__fdiv_rn(o[i][j], qs)));
+      q[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(v))) << (8 * (j % 4));
+    }
+    store_bytes(orow + e0, q, max(0, -e0), min(16, h - e0));
+  }
+  if (threadIdx.x == 0) scales[row] = qs;
+}
+
+template <typename T, GateMode kMode>
+cudaError_t gate_launch_vec(const T* x12, int8_t* out, float* scales, long long rows, int h, cudaStream_t s,
+                            float* amax) {
   const dim3 grid(static_cast<unsigned>(rows));
   switch ((h + 8 * kGateThreads - 1) / (8 * kGateThreads)) {
 #define LDMAE_CASE(V)                                                                              \
   case V:                                                                                          \
-    silu_mul_quant_kernel<T, V, kMode, kNarrow><<<grid, kGateThreads, 0, s>>>(x12, out, scales, amax, h); \
+    silu_mul_quant_kernel<T, V, kMode><<<grid, kGateThreads, 0, s>>>(x12, out, scales, amax, h);   \
     break;
     LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3) LDMAE_CASE(4)
     LDMAE_CASE(5) LDMAE_CASE(6) LDMAE_CASE(7) LDMAE_CASE(8)
@@ -315,8 +451,27 @@ cudaError_t gate_launch_as(const T* x12, int8_t* out, float* scales, long long r
   return cudaGetLastError();
 }
 
-// Any 1 <= h <= 8192; the vector instantiation where h % 8 == 0, x12 is
-// 16-byte and out 8-byte aligned, else the element-wise one.
+// kWords words a thread and as many warps (at most kMaxWarps) as the row's
+// words (at most (15 + h + 15) / 16 with the output's offset) need.
+template <typename T, GateMode kMode>
+cudaError_t gate_launch_any(const T* x12, int8_t* out, float* scales, long long rows, int h, cudaStream_t s,
+                            float* amax) {
+  const dim3 grid(static_cast<unsigned>(rows));
+  const int words = (h + 30) / 16, per = (words + kMaxWarps * 32 - 1) / (kMaxWarps * 32);
+  const int threads = ((words + per - 1) / per + 31) / 32 * 32;
+  switch (per) {
+#define LDMAE_CASE(W)                                                                            \
+  case W:                                                                                        \
+    silu_mul_quant_any_kernel<T, W, kMode><<<grid, threads, 0, s>>>(x12, out, scales, amax, h);  \
+    break;
+    LDMAE_CASE(1) LDMAE_CASE(2) LDMAE_CASE(3)
+#undef LDMAE_CASE
+  }
+  return cudaGetLastError();
+}
+
+// Any 1 <= h <= 8192; the vector kernel where h % 8 == 0, x12 is 16-byte and
+// out 8-byte aligned, else silu_mul_quant_any_kernel.
 template <typename T, GateMode kMode = kGateFull>
 cudaError_t gate_launch(const void* x12, void* out, float* scales, long long rows, int h, cudaStream_t s,
                         float* amax = nullptr) {
@@ -325,8 +480,8 @@ cudaError_t gate_launch(const void* x12, void* out, float* scales, long long row
   int8_t* ob = static_cast<int8_t*>(out);
   const bool vec =
       h % 8 == 0 && reinterpret_cast<uintptr_t>(x12) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  return vec ? gate_launch_as<T, kMode, false>(xb, ob, scales, rows, h, s, amax)
-             : gate_launch_as<T, kMode, true>(xb, ob, scales, rows, h, s, amax);
+  return vec ? gate_launch_vec<T, kMode>(xb, ob, scales, rows, h, s, amax)
+             : gate_launch_any<T, kMode>(xb, ob, scales, rows, h, s, amax);
 }
 
 }  // namespace

@@ -87,6 +87,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- counters across blocks (an order of bulk reductions) ------------------
+
+// Waits until the int at p (global) reads `want`, with acquire semantics at
+// GPU scope; traps after billions of cycles, as mbar_wait does.
+__device__ __forceinline__ void wait_eq_acquire(const int* p, int want) {
+  long long t0 = 0;
+  for (uint32_t spin = 1;; ++spin) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    if (v == want) return;
+    if ((spin & 0xfffu) == 0) {
+      if (t0 == 0) t0 = clock64();
+      else if (clock64() - t0 > (1ll << 34)) __trap();
+    }
+  }
+}
+
+// Adds v to the int at p (global) with release semantics at GPU scope.
+__device__ __forceinline__ void red_add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Orders this thread's async-proxy accesses to global memory (bulk
+// reductions) with its generic-proxy ones.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // ---- TMA ---------------------------------------------------------------------
 
 // Copies the box at coordinates (c0 innermost, c1[, c2[, c3]]) of the tensor `map`

@@ -32,9 +32,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ldmae_kernels"
 
+# --split-compile=0: nvcc runs a source's device-code optimisation in as
+# many threads as the machine has CPUs (the attention sources' many
+# instantiations took about twice as long in one thread each)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -60,7 +63,9 @@ LIBRARIES = {
     "flash_attention_fp32": ("flash_attention_fp32.cu", _ATTENTION),
     "fused_norm_modulate": (
         "fused_norm_modulate.cu",
-        {"ldmae_fused_norm_modulate": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _F, _I, _P]},
+        {"ldmae_fused_norm_modulate": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _F, _I, _P],
+         "ldmae_fused_norm_modulate_bwd_grid": [_I, _I, _I, _I, _P],
+         "ldmae_fused_norm_modulate_bwd": [_P] * 4 + [_L] + [_P] * 5 + [_L] + [_I] * 4 + [_F, _I, _I, _P]},
     ),
     "fused_matmul_silu": (
         "fused_matmul_silu.cu",

@@ -15,7 +15,7 @@ from . import flash_attention as _fa, fused_adaln as _fad, linear as _lin, quant
 # ``flash_attention`` function is not re-exported here: that name is its
 # module's.)
 KERNEL_WRAPPERS = (_fa.flash_attention_rope, _fa.flash_attention,
-                   _fad.fused_norm_modulate, _fad.fused_matmul_silu,
+                   _fad.fused_norm_modulate, _fad.fused_norm_modulate_bwd_kernel, _fad.fused_matmul_silu,
                    _fa.flash_attention_qknorm_rope, _fa.flash_attention_fused_rope,
                    _fad.fused_norm_modulate_quant, _fad.fused_silu_mul_quant,
                    _fa.flash_attention_bwd, _fa.flash_attention_rope_bwd,

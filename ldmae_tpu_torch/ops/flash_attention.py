@@ -302,8 +302,8 @@ def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
         _check_bhnd(what, q=q, out=out)
         if (lse.device, lse.dtype, lse.shape) != (q.device, torch.float32, (b, h, n)) or not lse.is_contiguous():
             raise ValueError(f"{what}: lse must be a contiguous fp32 {(b, h, n)} tensor on {q.device}")
-        if q.dtype == torch.bfloat16:  # dq summed in fp32 over the key tiles (scratch)
-            dq_acc = torch.empty(b * h, npad, d, device=q.device, dtype=torch.float32)
+        if q.dtype == torch.bfloat16:  # dq summed in fp32 over the key tiles, then the order's counters (scratch)
+            dq_acc = torch.empty(b * h * npad * d + b * h * npad // _TILE, device=q.device, dtype=torch.float32)
     # per query row: the softmax's log2 denominator and rowsum(g * o), padded (scratch)
     lse_pad = torch.empty(b * h, npad, device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse_pad)

@@ -7,8 +7,9 @@ Counterpart of ``ldmae_tpu/ops/fused_adaln.py``'s ``fused_norm_modulate``
 quantizing kernels of the w8a8 leg, ``fused_norm_modulate_quant``
 (``_kernel_quant``) and ``fused_silu_mul_quant``
 (``_kernel_silu_mul_quant``). ``fused_norm_modulate`` is differentiable, as
-the JAX package's custom VJP is (``fused_norm_modulate_bwd``: plain PyTorch
-ops); the others are forward only (sampling). A wrapper runs the plain
+the JAX package's custom VJP is (``fused_norm_modulate_bwd_kernel``, with
+``fused_norm_modulate_bwd`` its plain PyTorch version); the others are
+forward only (sampling). A wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel or
 raises. The kernels take bf16 or fp32 (the configs' two compute dtypes);
 fp32 runs the same kernels with the element type a template parameter,
@@ -27,6 +28,7 @@ same gate kernel, which together equal #10 on the whole row bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -109,10 +111,11 @@ def fused_norm_modulate_bwd(
 ):
     """(dx, dweight, dshift, dscale) of ``fused_norm_modulate`` for the
     output gradient g: the JAX custom VJP's fp32 math
-    (``ldmae_tpu/ops/fused_adaln.py``, ``_fnm_custom_vjp``). That backward is
-    XLA there, not a Pallas kernel, so here it is plain PyTorch ops on every
-    device. dweight is summed over (B, N); it is None without a weight (and
-    zeros for kind='layer', whose norm takes no weight)."""
+    (``ldmae_tpu/ops/fused_adaln.py``, ``_fnm_custom_vjp``) in plain
+    PyTorch ops: the CPU path and the oracle of the kernel
+    (``fused_norm_modulate_bwd_kernel``). dweight is summed over (B, N); it
+    is None without a weight (and zeros for kind='layer', whose norm takes
+    no weight)."""
     xf, gf = _acc(x), _acc(g)
     dxh = gf * (1.0 + _acc(scale))[:, None, :]
     dw = None
@@ -147,8 +150,79 @@ class _FusedNormModulate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, shift, scale = ctx.saved_tensors
-        return (*fused_norm_modulate_bwd(x, weight, shift, scale, g, kind=ctx.kind, eps=ctx.eps),
-                None, None)
+        bwd = fused_norm_modulate_bwd if x.device.type == "cpu" else fused_norm_modulate_bwd_kernel
+        return (*bwd(x, weight, shift, scale, g, kind=ctx.kind, eps=ctx.eps), None, None)
+
+
+def fused_norm_modulate_bwd_kernel(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    kind: str = "rms",
+    eps: float = 1e-6,
+):
+    """``fused_norm_modulate_bwd`` by the CUDA kernel (``rows::bwd`` in
+    ``csrc/norm_rows.cuh``): the same fp32 math, dx in x's dtype, the column
+    sums (dweight, dshift, dscale) in fp32 without atomics, so the same bits
+    from run to run, each cast once to its input's dtype. Takes what the
+    forward kernel takes; raises otherwise, or on a launch error."""
+    what = "fused_norm_modulate_bwd"
+    b, n, d = _check_rows(what, x)
+    if shift.shape != (b, d) or scale.shape != (b, d) or g.shape != x.shape:
+        raise ValueError(f"{what}: shift/scale must be ({b}, {d}) and g {tuple(x.shape)}")
+    if g.dtype != x.dtype or not g.is_contiguous():
+        g = g.to(dtype=x.dtype).contiguous()
+    scale_r = _param_rows(scale, x)
+    w = _row_weight(weight, x, kind)
+    fp32 = int(x.dtype == torch.float32)
+    slots = _bwd_grid(x.device, b, n, d, fp32) + b
+    # the partials' workspace, then dshift and dscale unless they come out in
+    # bf16 (their dtype; one rounding of the fp32 sums), as a tensor of
+    # their own; dw apart (it becomes the weight's .grad)
+    sums_bf16 = shift.dtype == scale.dtype == torch.bfloat16
+    nw = slots * 3 * d
+    ws = torch.empty(nw + (0 if sums_bf16 else 2 * b * d), device=x.device, dtype=torch.float32)
+    sums = torch.empty(2, b, d, device=x.device, dtype=torch.bfloat16) if sums_bf16 else ws[nw:].view(2, b, d)
+    dw = None if w is None else torch.empty(d, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    lib = kernels.load("fused_norm_modulate")
+    err = kernels.on_device(
+        x, lib.ldmae_fused_norm_modulate_bwd, x.data_ptr(), g.data_ptr(), None if w is None else w.data_ptr(),
+        scale_r.data_ptr(), scale_r.stride(0), dx.data_ptr(), None if dw is None else dw.data_ptr(),
+        sums.data_ptr(), sums.data_ptr() + b * d * sums.element_size(), ws.data_ptr(), slots, b, n, d,
+        int(kind == "layer"), eps, fp32, int(sums_bf16),
+    )
+    kernels.check(err, what)
+    fused_norm_modulate_bwd_kernel.launches += 1
+    if weight is None:
+        dweight = None
+    elif dw is None:  # kind 'layer': the norm takes no weight
+        dweight = torch.zeros_like(weight)
+    else:
+        dweight = dw if weight.dtype == torch.float32 else dw.to(weight.dtype)
+    dshift, dscale = sums[0], sums[1]
+    if dshift.dtype != shift.dtype:
+        dshift = dshift.to(shift.dtype)
+    if dscale.dtype != scale.dtype:
+        dscale = dscale.to(scale.dtype)
+    return dx, dweight, dshift, dscale
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_grid(device: torch.device, b: int, n: int, d: int, fp32: int) -> int:
+    """Blocks of the backward kernel's grid at this shape on ``device`` (its
+    workspace holds one partial a block and batch element it meets)."""
+    lib = kernels.load("fused_norm_modulate")
+    grid = kernels.on_device(torch.empty(0, device=device), lib.ldmae_fused_norm_modulate_bwd_grid, b, n, d, fp32)
+    if grid < 1:
+        kernels.check(-grid or -1, "fused_norm_modulate_bwd")
+    return grid
+
+
+fused_norm_modulate_bwd_kernel.launches = 0
 
 
 def fused_norm_modulate(
@@ -163,7 +237,8 @@ def fused_norm_modulate(
     """x: (B, N, D); weight: (D,) RMSNorm weight (ignored for kind='layer');
     shift/scale: (B, D). Returns modulate(norm(x), shift, scale).
     Differentiable: the forward is the kernel (or, for CPU tensors, its
-    plain version), the backward ``fused_norm_modulate_bwd``."""
+    plain version), the backward ``fused_norm_modulate_bwd_kernel`` (for CPU
+    tensors ``fused_norm_modulate_bwd``)."""
     if kind not in ("rms", "layer"):
         raise ValueError(f"unknown norm kind {kind!r}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, shift, scale)):
@@ -347,9 +422,10 @@ def fused_silu_mul_quant_plain(x12: torch.Tensor) -> tuple[torch.Tensor, torch.T
 def _gate_rows(what: str, x12: torch.Tensor) -> tuple[int, int]:
     """x12 as the gate kernel takes it: contiguous bf16 or fp32 rows of 2H
     values, 1 <= H <= MAX_GATE_H, at least one row. Any such H and base: the
-    kernel reads 16-byte vectors where H % 8 == 0 and the bases are aligned,
-    else element by element (the SwiGLU widths of L and 1p6B, 2,730 and
-    4,778, and their halves under tensor parallelism). Returns (rows, H)."""
+    vector kernel where H % 8 == 0 and the bases are aligned, else the
+    realigning one, which reads and writes 16-byte words too (the SwiGLU
+    widths of L and 1p6B, 2,730 and 4,778, and their halves under tensor
+    parallelism). Returns (rows, H)."""
     if x12.dtype not in KERNEL_DTYPES or not x12.is_contiguous():
         raise ValueError(f"{what}: x12 must be a contiguous bf16 or fp32 tensor")
     h2 = x12.shape[-1]
