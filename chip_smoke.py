@@ -33,9 +33,18 @@ attention bounds), then:
      ``torch._int_mm`` alone and cuBLAS bf16;
   1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
      80 and 128 against their plain versions; every fp32 instantiation
-     (#1, #2, #5, #6 at the training shape (32, 12, 1024, 64); #3, #4, #9,
-     #10 at the B/1 shapes; #7, #8 at batch 8) against its plain fp32
-     version, timed; ``dense`` in bf16 with an fp32 bias against fp64 math
+     (#1, #2 at the training shape (32, 12, 1024, 64); #3, #4, #9, #10 at
+     the B/1 shapes; #7, #8 at batch 8) against its plain fp32 version,
+     timed; #5 and #6 in fp32, on the tensor cores as 3xTF32 at d = 64 and
+     72 (``fp32_bwd_phase``): against the plain fp32 backward at B/1's and
+     XL/1's training shapes, N = 256 and a ragged N, against the fp64
+     backward with the plain backward under TF32 matmuls as the control
+     that must fail, bit for bit from run to run, the kernels that ran
+     named by torch.profiler, timed warm and queued by kernel beside SDPA's
+     fp32 backward and the bound by both routes (3xTF32, FMA pipes); the
+     SIMT fp32 backward at d = 16 and 128 against the plain version, bit
+     for bit, its kernels named;
+     ``dense`` in bf16 with an fp32 bias against fp64 math
      (one rounding), with the bias rounded first as a control that fails,
      at every linear shape of the paths (the engine's Wide and Narrow
      configurations), timed warm, queued and cold beside cuBLAS's bf16
@@ -123,7 +132,8 @@ attention bounds), then:
      against the plain xla path from the same weights, noise, t and label
      drops, within GRAD_REL_L2, which the path with the untransposed RoPE
      Jacobian must exceed; then the same in fp32, half and interleaved
-     RoPE, within GRAD_F32_REL_L2, with exact launch counts;
+     RoPE, within GRAD_F32_REL_L2, with exact launch counts, at B/1 and at
+     XL/1 (head dim 72: the fp32 backward's ``_xl`` entries' launches);
   7. trains LightningDiT-B/1 at full width and depth through the training
      CLI (``cli.train_dit.main``) on a YAML made from the shipped one's
      model, transport, optimizer and parallel sections, batch 32, 20 steps,
@@ -318,7 +328,10 @@ and flash_fused.
 lines, the seconds into the run after each phase. ``--xl-kernels`` builds the attention library and runs 5b
 without asserting which kernels ran: copied into an unpacked earlier commit
 (``git archive`` into a git-ignored directory), it times that commit's
-kernels at the same shapes.
+kernels at the same shapes. ``--fp32-bwd`` builds the attention libraries
+and runs the fp32 backward's gates and times (phase 1b's
+``fp32_bwd_phase``) alone, ending with an ``{"fp32_bwd_times": {...}}``
+line.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -335,6 +348,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import multiprocessing
@@ -347,6 +361,7 @@ import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at the 700 W limit
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (an fp32 product as 3xTF32 is three)
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
@@ -375,6 +390,9 @@ KERNELS = {
     "flash_attention_fp32": (_FA32, f"{_PALLAS_FA}:77", "decode_fp32", "flash_attention"),
     "flash_attention_bwd_fp32": (_FA32, f"{_PALLAS_FA}:151", "grad_fp32_interleaved", "flash_attention_bwd"),
     "flash_attention_rope_bwd_fp32": (_FA32, f"{_PALLAS_FA}:429", "train_fp32", "flash_attention_rope_bwd"),
+    # the same at XL's head dim 72, launched by the fp32 gradient checks at XL/1
+    "flash_attention_bwd_fp32_xl": (_FA32, f"{_PALLAS_FA}:151", "grad_fp32_xl_interleaved", "flash_attention_bwd"),
+    "flash_attention_rope_bwd_fp32_xl": (_FA32, f"{_PALLAS_FA}:429", "grad_fp32_xl_half", "flash_attention_rope_bwd"),
     "fused_norm_modulate_fp32": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", f"{_PALLAS_AD}:232", "train_fp32",
                                  "fused_norm_modulate"),
     "fused_matmul_silu_fp32": ("ldmae_tpu_torch/csrc/fused_matmul_silu.cu", f"{_PALLAS_AD}:199", "sample_fp32",
@@ -531,9 +549,11 @@ for _path, _steps in (("train", TRAIN_STEPS), ("train_resume", RESUME_STEPS - TR
     EXPECTED_LAUNCHES[_path] = _counts_of("half", _steps)
 EXPECTED_LAUNCHES["interleaved"] = _counts_of("interleaved", INTERLEAVED_STEPS)
 EXPECTED_LAUNCHES["train_fp32"] = _counts_of("half", FP32_STEPS, dense=False)
-# the fp32 gradient checks: one step at depth GRAD_DEPTH, each layout
+# the fp32 gradient checks: one step at depth GRAD_DEPTH, each layout, at B/1
+# and at XL/1 (head dim 72)
 for _layout in ("half", "interleaved"):
     EXPECTED_LAUNCHES[f"grad_fp32_{_layout}"] = _counts_of(_layout, 1, GRAD_DEPTH, dense=False)
+    EXPECTED_LAUNCHES[f"grad_fp32_xl_{_layout}"] = _counts_of(_layout, 1, GRAD_DEPTH, dense=False)
 
 
 def log(msg: str) -> None:
@@ -773,14 +793,15 @@ def rate_probes(dev) -> None:
 
 
 def bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0, exps: float = 0.0,
-          int8_ops: float = 0.0) -> tuple[float, str]:
+          int8_ops: float = 0.0, tf32x3_flops: float = 0.0) -> tuple[float, str]:
     """Least time in ms for the work: the larger of bytes over the memory
     rate and the operations' time, itself the largest of tensor-core bf16
-    operations, tensor-core int8 operations, plain fp32 operations and
-    exponentials over their units' rates (the units run side by side;
-    exponentials over the measured SFU rate)."""
+    operations, tensor-core int8 operations, plain fp32 operations (on the
+    FMA pipes), fp32 products as 3xTF32 (three TF32 tensor-core products
+    each) and exponentials over their units' rates (the units run side by
+    side; exponentials over the measured SFU rate)."""
     t_ops = max(bf16_flops / PEAK_BF16_FLOPS, int8_ops / PEAK_INT8_OPS, fp32_flops / PEAK_FP32_FLOPS,
-                exps / RATES["ex2"] if exps else 0.0) * 1e3
+                3 * tf32x3_flops / PEAK_TF32_FLOPS, exps / RATES["ex2"] if exps else 0.0) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -971,18 +992,22 @@ def fnm_bwd_row(dev, label: str, b: int, n: int, d: int, seed: int, dtype=None) 
 def wgmma_ptxas(report: dict) -> None:
     """ptxas's registers at entry (setmaxnreg then gives the consumer
     warpgroups more), static shared memory (the rings are dynamic) and
-    spills of the attention library's wgmma kernels; every instantiation of
-    the forward and the single-pass backward (d = 64 and 72, with and
-    without lse / RoPE) must not spill."""
-    log_ = report["flash_attention"]["ptxas"]
-    log(f"  ptxas flash_fwd_resident_kernel: {ptxas_summary(log_, 'flash_fwd_resident_kernel')}")
-    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel"):
-        for d in (64, 72):
-            for flag in (0, 1):
-                summary = ptxas_summary(log_, f"{kernel}ILi{d}ELb{flag}EE")
-                log(f"  ptxas {kernel}<{d}, {bool(flag)}>: {summary}")
-                if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
-                    raise SystemExit(f"{kernel}<{d}, {bool(flag)}>: ptxas reports spills (or no entry): {summary}")
+    spills of the attention library's wgmma kernels and of the fp32
+    library's tensor-core backward; every instantiation of the forward and
+    the single-pass backward (d = 64 and 72, with and without lse / RoPE)
+    and of the fp32 backward's two kernels must not spill."""
+    log(f"  ptxas flash_fwd_resident_kernel: "
+        f"{ptxas_summary(report['flash_attention']['ptxas'], 'flash_fwd_resident_kernel')}")
+    for lib, names in (("flash_attention", ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")),
+                       ("flash_attention_fp32", ("tf32x3_bwd_dkdv_kernel", "tf32x3_bwd_dq_kernel"))):
+        for kernel in names:
+            for d in (64, 72):
+                for flag in (0, 1):
+                    summary = ptxas_summary(report[lib]["ptxas"], f"{kernel}ILi{d}ELb{flag}EE")
+                    log(f"  ptxas {kernel}<{d}, {bool(flag)}>: {summary}")
+                    if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
+                        raise SystemExit(f"{kernel}<{d}, {bool(flag)}>: ptxas reports spills (or no entry): "
+                                         f"{summary}")
 
 
 def engine_ptxas(report: dict) -> None:
@@ -1931,6 +1956,17 @@ def _yaml_config(**sections):
     return cfg
 
 
+@functools.lru_cache(maxsize=1)
+def _seeded_state(model_type: str, depth: int) -> dict:
+    """The gradient checks' seeded DiT weights (CPU), drawn once for
+    consecutive checks of one arch and depth."""
+    from ldmae_tpu_torch.models import LightningDiT, dit_spec, seeded_init_
+
+    spec = dit_spec(model_type, depth=depth, input_size=32, in_channels=16, num_classes=1000,
+                    use_qknorm=True, use_swiglu=True, use_rope=True, use_rmsnorm=True)
+    return seeded_init_(LightningDiT(spec, device="cpu"), 5).state_dict()
+
+
 def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, grad_bound: float = GRAD_REL_L2,
                      model_type: str = "LightningDiT-B/1", depth: int = GRAD_DEPTH):
     """One train step of ``model_type`` (B/1; XL/1 for the XL slice) at full
@@ -1952,14 +1988,14 @@ def grad_check_phase(dev, dtype=None, layout: str = "half", count_path=None, gra
 
     dtype = dtype or torch.bfloat16
 
-    from ldmae_tpu_torch.models import LightningDiT, dit_spec, permute_qk_for_half_rope, seeded_init_
+    from ldmae_tpu_torch.models import LightningDiT, dit_spec, permute_qk_for_half_rope
     from ldmae_tpu_torch.ops import flash_attention as fa
     from ldmae_tpu_torch.train import dit_loss
     from ldmae_tpu_torch.transport import create_transport
 
     spec = dit_spec(model_type, depth=depth, input_size=32, in_channels=16, num_classes=1000,
                     use_qknorm=True, use_swiglu=True, use_rope=True, use_rmsnorm=True)
-    sd = seeded_init_(LightningDiT(spec, device="cpu"), 5).state_dict()
+    sd = _seeded_state(model_type, depth)
     gen = torch.Generator(device=dev).manual_seed(6)
     x1, x0 = (torch.randn(GRAD_BATCH, 16, 32, 32, generator=gen, device=dev) for _ in range(2))
     y = torch.arange(GRAD_BATCH, device=dev) * 97 % 1000
@@ -2447,12 +2483,176 @@ def head_dim_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# The fp32 backward (#5, #6) on the tensor cores as 3xTF32 at d = 64 and 72
+# (tf32x3_bwd_dkdv_kernel and tf32x3_bwd_dq_kernel after the preprocess):
+# against the plain fp32 backward within F32_BWD at F32_BWD_SHAPES (the
+# training shapes of B/1 and XL/1, the patch-2 archs' N = 256, a ragged N);
+# against the fp64 backward at F32_F64_SHAPES, each output within
+# max(F64_SLACK x the plain fp32 backward's error, F64_FLOOR) (relative L2),
+# which the plain backward with TF32 matmuls (one TF32 product) must exceed;
+# dq, dk, dv equal bit for bit between two calls (nothing is summed across
+# blocks); the kernels that ran named by torch.profiler, the SIMT kernels
+# absent. At F32_SIMT_BWD_SHAPES (head dims the tensor-core kernels do not
+# take) the SIMT kernels (flash32_bwd_dkdv_kernel, flash32_bwd_dq_kernel)
+# are held the same way: F32_BWD, bit for bit, their route with the
+# tensor-core kernels absent
+F32_BWD_SHAPES = ((TRAIN_BATCH, 12, 1024, 64), (TRAIN_BATCH, 16, 1024, 72), (TRAIN_BATCH, 16, 256, 64),
+                  (2, 12, 1000, 64))
+F32_SIMT_BWD_SHAPES = ((2, 12, 1000, 16), (2, 12, 1000, 128))
+F32_F64_SHAPES = ((4, 12, 1024, 64), (4, 16, 1024, 72))
+F64_SLACK, F64_FLOOR = 4.0, 1e-5
+TF32X3_BWD = ("flash32_bwd_preprocess_kernel", "tf32x3_bwd_dkdv_kernel", "tf32x3_bwd_dq_kernel")
+SIMT_F32_BWD = ("flash32_bwd_dkdv_kernel", "flash32_bwd_dq_kernel")
+
+
+def _fmt3(xs) -> str:
+    return ", ".join(f"{x:.3g}" for x in xs)
+
+
+def fp32_bwd_phase(dev) -> dict:
+    """#5 and #6 in fp32 by the gates above; at (32, 12, 1024, 64) and XL's
+    (32, 16, 1024, 72) timed warm and with the device's queue full, by
+    kernel (torch.profiler), beside the plain backward and SDPA's fp32
+    backward (fwd+bwd minus fwd, warm and queued) and the bound by both
+    routes: 3xTF32 on the tensor cores (the kernels line's bound_ms) and
+    the FMA pipes (``fma_bound_ms``). Returns the kernels line's rows
+    (``..._fp32`` at d = 64, ``..._fp32_xl`` at 72)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldmae_tpu_torch.ops import flash_attention as fa
+    from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def inputs(shape):
+        b, h, n, d = shape
+        grid = math.isqrt(n - 1) + 1
+        tab = tuple(torch.from_numpy(to_half_layout(t)[:n]).to(dev) for t in build_rope_table(d // 2, grid))
+        return [torch.randn(*shape, generator=gen, device=dev) for _ in range(4)], tab
+
+    def calls(q, k, v, g, tab):
+        for rope in (False, True):
+            name = "flash_attention_rope_bwd" if rope else "flash_attention_bwd"
+            tables = tab if rope else ()
+            o, lse = fa._launch(q, k, v, name, *tables, with_lse=True)  # the library, uncounted
+            kern, plain = getattr(fa, name), getattr(fa, f"{name}_plain")
+            yield name, tables, (lambda: kern(q, k, v, g, *tables, out=o, lse=lse)), plain
+
+    rows = {}
+    log(f"[fp32] the backward (#5, #6) on the tensor cores as 3xTF32 at {list(F32_BWD_SHAPES)}, "
+        f"on the SIMT kernels at {list(F32_SIMT_BWD_SHAPES)}")
+    for shape in F32_BWD_SHAPES + F32_SIMT_BWD_SHAPES:
+        (q, k, v, g), tab = inputs(shape)
+        b, h, n, d = shape
+        for name, tables, run, plain in calls(q, k, v, g, tab):
+            first = run()
+            err = f32_bwd_compare(f"{name} fp32 {shape}", first, plain(q, k, v, g, *tables))
+            second = run()
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            log(f"  run to run: dq, dk and dv equal bit for bit: {same} -> {'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"{name} fp32 {shape}: dq, dk or dv differ from run to run")
+            del first, second
+            rope_pass = ("norm_rope_kernel",) if tables else ()
+            if shape in F32_SIMT_BWD_SHAPES:
+                train_route(f"{name} fp32 {shape}", run, TF32X3_BWD[:1] + SIMT_F32_BWD + rope_pass, TF32X3_BWD[1:])
+                continue
+            if shape not in F32_BWD_SHAPES[:2]:
+                continue
+            want = TF32X3_BWD + rope_pass
+            parts = train_route(f"{name} fp32 {shape}", run, want, SIMT_F32_BWD)
+            ms, queued = cuda_ms(run, 5), queued_ms(run, 10)
+            plain_ms = cuda_ms(lambda: plain(q, k, v, g, *tables), 2, 1)
+            qs, ks = (fa._rope_fp32(q, *tab), fa._rope_fp32(k, *tab)) if tables else (q, k)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, v))
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qs, ks, vs)
+
+            lib_ms = cuda_ms(sdpa_fwd_bwd, 5) - cuda_ms(sdpa_fwd, 5)
+            lib_queued = queued_ms(sdpa_fwd_bwd, 10) - queued_ms(sdpa_fwd, 10)
+            nbytes = 8 * b * h * n * d * 4 + b * h * n * 4 + (2 * n * d * 4 if tables else 0)
+            flops, exps = 10 * b * h * n * n * d, b * h * n * n
+            bnd = bound(nbytes, tf32x3_flops=flops, exps=exps)
+            fma = bound(nbytes, fp32_flops=flops, exps=exps)[0]
+            key = f"{name}_fp32" + ("_xl" if d == 72 else "")
+            parts |= {"queued_ms": queued, "library_queued_ms": lib_queued, "fma_bound_ms": fma}
+            log(f"  {key} {shape}: kernel {ms:.4f} ms (queued {queued:.4f}), parts "
+                f"{ {n_: round(v_, 4) for n_, v_ in parts['kernels_ms'].items()} }, plain {plain_ms:.4f} ms, SDPA's "
+                f"fp32 backward {lib_ms:.4f} ms (queued {lib_queued:.4f}; kernel / SDPA {ms / lib_ms:.3f}), bound "
+                f"3xTF32 {bnd[0]:.4f} ms ({bnd[1]}; share {bnd[0] / ms:.3f}), FMA pipes {fma:.4f} ms (share "
+                f"{fma / ms:.3f})")
+            rows[key] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+            del qs, ks, vs
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    for shape in F32_F64_SHAPES:
+        (q, k, v, g), tab = inputs(shape)
+        for name, tables, run, plain in calls(q, k, v, g, tab):
+            exact = plain(*(t.double() for t in (q, k, v, g)), *tables)
+
+            def rels(outs):
+                return [float((x.double() - r).norm() / r.norm()) for x, r in zip(outs, exact)]
+
+            kernel, f32 = rels(run()), rels(plain(q, k, v, g, *tables))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = rels(plain(q, k, v, g, *tables))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            bounds = [max(F64_SLACK * e, F64_FLOOR) for e in f32]
+            ok = all(e <= bd for e, bd in zip(kernel, bounds))
+            control = all(e > bd for e, bd in zip(tf32, bounds))
+            log(f"  {name} fp32 {shape} against fp64 (dq, dk, dv): kernel {_fmt3(kernel)}, plain fp32 "
+                f"{_fmt3(f32)}, bound {_fmt3(bounds)} -> {'ok' if ok else 'FAIL'}; control (plain, TF32 matmuls) "
+                f"{_fmt3(tf32)} must exceed it -> {'ok' if control else 'FAIL'}")
+            if not (ok and control):
+                raise SystemExit(f"{name} fp32 {shape}: the fp64 gate failed, or its TF32 control read within it")
+            del exact
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp32_bwd_only(dev) -> int:
+    """``--fp32-bwd``: ``fp32_bwd_phase`` alone, after the attention
+    libraries' build (ptxas's registers and spills printed) and the rate
+    probes; ends with an ``{"fp32_bwd_times": {...}}`` line. Run it in two
+    unpacked commits in one call to compare them on one card."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build(["flash_attention", "flash_attention_fp32"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    regs = [ln.strip() for ln in report["flash_attention_fp32"]["ptxas"].splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("  flash_attention_fp32:" + "".join(f"\n    {r}" for r in regs))
+    rate_probes(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.perf_counter()
+    rows = fp32_bwd_phase(dev)
+    log(f"[time] the fp32 backward phase {time.perf_counter() - t1:.1f} s")
+    log(json.dumps({"fp32_bwd_times": {name: {"ms": r[1], "plain_ms": r[2], "library_ms": r[3], "bound_ms": r[4],
+                                              "parts": r[6]} for name, r in rows.items()}}))
+    return 0
+
+
 def fp32_kernel_phase(dev, batch: int) -> dict:
     """Every kernel's fp32 instantiation against its plain fp32 version
-    (TF32 off) and timed beside it and a library call: #1, #2, #5 and #6 at
-    the training shape (32, 12, 1024, 64), #3, #4, #9 and #10 at the B/1
-    sampling shapes at ``batch`` (CFG-doubled), #7 and #8 at the sampling
-    attention shape. Returns name -> row of the kernels line."""
+    (TF32 off) and timed beside it and a library call: #1 and #2 at the
+    training shape (32, 12, 1024, 64), #5 and #6 by ``fp32_bwd_phase``,
+    #3, #4, #9 and #10 at the B/1 sampling shapes at ``batch``
+    (CFG-doubled), #7 and #8 at the sampling attention shape. Returns name
+    -> row of the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -2484,28 +2684,8 @@ def fp32_kernel_phase(dev, batch: int) -> dict:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*lib, v), 5)
         bnd = bound(attn_bytes + (2 * n * d * 4 if tables else 0), fp32_flops=attn_flops, exps=exps)
         rows[name] = (err, ms, plain_ms, lib_ms, *bnd, {})
-    for name, kern, plain, lib, tables in (
-        ("flash_attention_bwd_fp32", fa.flash_attention_bwd, fa.flash_attention_bwd_plain, (q, k), ()),
-        ("flash_attention_rope_bwd_fp32", fa.flash_attention_rope_bwd, fa.flash_attention_rope_bwd_plain,
-         (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)), (cos, sin)),
-    ):
-        o, lse = fa._launch(q, k, v, name, *tables, with_lse=True)  # the library, uncounted
-
-        def run():
-            return kern(q, k, v, g, *tables, out=o, lse=lse)
-
-        err = f32_bwd_compare(name, run(), plain(q, k, v, g, *tables))
-        ms = cuda_ms(run, 3)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, g, *tables), 2, 1)
-        qs, ks, vs = (t.detach().requires_grad_() for t in (*lib, v))
-        fb_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), g), 3)
-        with torch.no_grad():
-            f_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 3)
-        bnd = bound(8 * b * h * n * d * 4 + b * h * n * 4 + (2 * n * d * 4 if tables else 0),
-                    fp32_flops=10 * b * h * n * n * d, exps=exps)
-        rows[name] = (err, ms, plain_ms, fb_ms - f_ms, *bnd, {})
-        del o, lse, qs, ks, vs
     del q, k, v, g
+    rows |= fp32_bwd_phase(dev)
 
     b2 = 2 * batch
     b, h, n, d = b2, 12, 1024, 64
@@ -7023,6 +7203,8 @@ def main() -> int:
         return parallel_only(dev, smi)
     if "--xl-kernels" in sys.argv[1:]:
         return xl_kernels_only(dev)
+    if "--fp32-bwd" in sys.argv[1:]:
+        return fp32_bwd_only(dev)
     if "--xl" in sys.argv[1:]:
         return xl_only(dev, smi)
     if "--registry" in sys.argv[1:]:
@@ -7058,9 +7240,11 @@ def main() -> int:
     rows |= reg_train_kernel_phase(dev)
     mark("the kernel phases")
     head_dim_phase(dev)
+    mark("the head-dim phase")
     rows |= fp32_kernel_phase(dev, BATCH)
+    mark("the fp32 phase")
     rows |= dense_phase(dev)
-    mark("the head-dim, fp32 and dense phases")
+    mark("the dense phase")
     profile = "--profile" in sys.argv[1:]
     result = pipeline_phases(dev, profile=profile)
     result["counts"] |= vmae_decode_phase(dev)
@@ -7069,9 +7253,11 @@ def main() -> int:
     result["counts"] |= samplers["counts"]
     mark("the sampler slice")
     grad_check_phase(dev)
-    for layout in ("half", "interleaved"):
-        path = f"grad_fp32_{layout}"
-        result["counts"][path] = grad_check_phase(dev, torch.float32, layout, path, GRAD_F32_REL_L2)
+    for arch, name in (("LightningDiT-B/1", "grad_fp32"), (XL_MODEL, "grad_fp32_xl")):
+        for layout in ("half", "interleaved"):
+            path = f"{name}_{layout}"
+            result["counts"][path] = grad_check_phase(dev, torch.float32, layout, path, GRAD_F32_REL_L2,
+                                                      model_type=arch)
     with tempfile.TemporaryDirectory() as tmp:
         result["counts"] |= cli_train_phase(dev, smi, tmp)
     mark("the gradient checks and DiT training")

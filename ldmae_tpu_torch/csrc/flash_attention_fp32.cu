@@ -14,22 +14,52 @@
 // kernels' astype(v.dtype) is a no-op in fp32), P.V in fp32; the backward
 // recomputes p from the forward's lse and forms dv = p^T g, ds = p (g v^T -
 // rowsum(g o)), dq = ds k d^-1/2, dk = ds^T q d^-1/2 in fp32, no product
-// rounded. RoPE and the qk-norm run the shared pre-pass (attention_common.cuh)
-// instantiated for fp32, where its roundings to the element type vanish.
+// rounded to one TF32 or bf16 value. RoPE and the qk-norm run the shared
+// pre-pass (attention_common.cuh) instantiated for fp32, where its
+// roundings to the element type vanish.
 //
-// What bounds them: every product runs on the CUDA cores' fp32 FMA (67
-// TFLOP/s; the tensor cores take bf16 or TF32, and TF32 keeps 10 mantissa
-// bits, far from the plain fp32 version). At (32, 12, 1024, 64) the forward
-// does 4 b h N^2 d = 1.03e11 flops, 1.5 ms at that rate. The design is the
-// plain tiled one, right first: a block of 256 threads owns 64 query rows
-// (forward, dQ) or 64 keys (dK/dV) and streams 64-row tiles of the other
-// side through shared memory (rows padded to an odd stride, so a column of
-// rows hits 32 banks); thread (ty, tx) of 16 x 16 owns rows ty + 16 i and
-// columns tx + 16 j (i, j < 4) of each 64 x 64 score tile, and columns tx +
-// 16 c of each output row; the probabilities go through a shared 64 x 64
-// tile into the second product. Shared-memory loads, two per FMA in the
-// score products, bound it before the FMA pipes do: speed at fp32 is later
-// work.
+// Two routes, chosen by shape in the C dispatch (backward()):
+//
+// * The backward at d = 64 and 72 with 16-byte aligned rows (every DiT
+//   registry arch; what fp32 training launches) runs every product on the
+//   tensor cores as 3xTF32 (tf32x3_bwd_dkdv_kernel, tf32x3_bwd_dq_kernel,
+//   the section below). One TF32 product keeps 10 mantissa bits, far from
+//   fp32; the sum of three (a_lo b_hi + a_hi b_lo + a_hi b_hi) keeps about
+//   22, as SDPA's fp32 backward does: on an H100, 1.7e-6 relative L2 from
+//   an fp64 backward at (4, 12, 1024, 64), against the plain fp32
+//   backward's 6.6e-7 and SDPA's 8.5e-7 (PERF.md). What bounds it at (32,
+//   12, 1024, 64): the five products, 10 b h N^2 d = 2.58e11 operations,
+//   are three TF32 products each, 1.56 ms at the tensor cores' 495 TFLOP/s
+//   (3.85 ms on the FMA pipes); mma.sync reaches about half that TF32
+//   rate (wgmma takes TF32 only with both shared-memory operands K-major,
+//   which dV = P^T G, dK = dS^T Q and dQ = dS K's are not), and the two
+//   kernels do 14 b h N^2 d, S and dP in both. Design: a block of 8 warps keeps 128 rows
+//   of one side in shared memory (K, V for dK/dV; q, g for dQ), each warp
+//   16 of them, and streams 64-row tiles of the other side by cp.async, the
+//   next tile's fp32 copy in flight while the block works on the current
+//   one, which it has split once into a hi and a lo tile (every warp reads
+//   the same tile: splitting it per warp was 45 % of the instructions).
+//   Fragments come by ldmatrix (the first products' operands) and 32-bit
+//   loads, rows padded to d + 4 floats so that neither meets a bank
+//   conflict; P and dS pass from the first products' accumulators to the
+//   second products as A operands in registers. The second products are
+//   summed over a tile from zero and added to the running sums in fp32:
+//   the tensor cores truncate each sum into the accumulator, and over all
+//   N / 8 steps that bias read 8e-6. Nothing is summed across blocks, so
+//   dq, dk and dv are the same bits from run to run.
+//
+// * The forward, and the backward at other head dims, run on the CUDA
+//   cores' fp32 FMA pipes (67 TFLOP/s; at (32, 12, 1024, 64) the forward's
+//   4 b h N^2 d = 1.03e11 flops take 1.5 ms at that rate). The design is
+//   the plain tiled one, right first: a block of 256 threads owns 64 query
+//   rows (forward, dQ) or 64 keys (dK/dV) and streams 64-row tiles of the
+//   other side through shared memory (rows padded to an odd stride, so a
+//   column of rows hits 32 banks); thread (ty, tx) of 16 x 16 owns rows ty
+//   + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64 score tile, and
+//   columns tx + 16 c of each output row; the probabilities go through a
+//   shared 64 x 64 tile into the second product. Shared-memory loads, two
+//   per FMA in the score products, bound it before the FMA pipes do; the
+//   forwards on the tensor cores are later work.
 #include "attention_common.cuh"
 
 namespace {
@@ -406,6 +436,412 @@ __global__ void __launch_bounds__(kThreads) flash32_bwd_dq_kernel(const Bwd32Arg
   store_rows32<kC, kRope>(dq, a.scale, sk, a.dq + off, q0, n, d, a.cos, a.sin);
 }
 
+// ---- The backward on the tensor cores as 3xTF32 (d = 64 and 72) -----------
+//
+// Each fp32 operand x is split into x = hi + lo + e, hi the TF32 rounding of
+// x (cvt.rna.tf32.f32's: to nearest, ties away from zero), lo that of x - hi
+// (exact in fp32), |e| <= 2^-22 |x|; a product a b is accumulated in fp32
+// as a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first (CUTLASS's
+// OpMultiplyAddFastF32, what SDPA's fp32 path runs), each by mma.sync
+// m16n8k8 tf32. The a_lo b_lo term left out is below 2^-22 of the product.
+// p and ds are split alike: neither is rounded to one TF32 value.
+//
+// m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4):
+//   A (16x8, row): a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
+//   B (8x8, col):  b0 = (k = t, n = g), b1 = (k = t+4, n = g)
+//   C (16x8):      c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// The second products (dV = P^T G, dK = dS^T Q, dQ = dS K) take P and dS
+// from the first products' accumulators as A without a shuffle: their k
+// index (keys or queries) is summed, so k = t stands for column 2t of the
+// accumulator and k = t+4 for 2t+1, and B reads rows 2t and 2t+1 to match.
+
+// cvt.rna.tf32.f32 by integer operations: + 2^12 on the magnitude bits, the
+// 13 low bits cleared (the sign bit stands apart). ptxas lowers the cvt to
+// about five instructions with its NaN checks; this is two, the same bits
+// for every finite x.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__float_as_uint(x));
+  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b as 3xTF32
+__device__ __forceinline__ void mma3(float* c, const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+constexpr int kTcThreads = 256;  // 8 warps, 16 resident rows each
+constexpr int kTcRows = 128;     // resident rows of a block (keys for dK/dV, queries for dQ)
+constexpr int kTcTile = 64;      // rows of a streamed tile
+
+// Tiles in shared memory have row stride kD + 4 (= 4 mod 8): a warp's
+// 32-bit fragment loads, rows g (8) by columns t (4) or rows 2t and 2t + 1
+// by columns g, touch 32 different banks, and ldmatrix's 8 rows of 16 bytes
+// fall in 8 different 16-byte bank groups; rows stay 16-byte aligned for
+// cp.async. The resident tiles (A operands, 128 rows) are fp32 and split as
+// a warp loads them; each streamed tile (B operands, 64 rows) arrives in fp32
+// by cp.async while the block works on the one before, and is split once for
+// the block into a hi and a lo tile, which every warp then reads as they are.
+template <int kD>
+struct TcShape {
+  static constexpr int kLd = kD + 4;
+  static constexpr int kRes = kTcRows * kLd;   // floats of a resident tile
+  static constexpr int kTile = kTcTile * kLd;  // floats of a streamed tile
+  // two resident tiles, two streamed ones in fp32 (the next tile's) and split
+  // (hi, lo: the current tile's); dK/dV adds two stages of the query tiles'
+  // lse and delta
+  static constexpr int kSmemDq = (2 * kRes + 6 * kTile) * 4;
+  static constexpr int kSmemDkdv = kSmemDq + 4 * kTcTile * 4;
+  // the first products' k loop unrolled whole at d = 64; at d = 72 by 3,
+  // where whole it spilled (the dQ kernel 256-436 bytes) at no gain
+  static constexpr int kUnrollK = kD / 8 > 8 ? 3 : kD / 8;
+};
+
+// rows 0..rows-1 of a contiguous (., kD) operand at g into a tile of row
+// stride kD + 4 by 16-byte cp.async; rows >= valid are zeros
+template <int kD>
+__device__ __forceinline__ void tile_async(float* s, const float* g, int rows, int valid) {
+  constexpr int kC = kD / 4, kLd = TcShape<kD>::kLd;
+  for (int i = threadIdx.x; i < rows * kC; i += kTcThreads) {
+    const int r = i / kC, c = 4 * (i % kC);
+    const bool in = r < valid;
+    cp_async16_zfill(s + r * kLd + c, in ? g + (long long)r * kD + c : g, in ? 16 : 0);
+  }
+}
+
+// a streamed fp32 tile into its hi tile and the lo tile kTile floats after it
+template <int kD>
+__device__ __forceinline__ void split_tile(float* hi, const float* raw) {
+  constexpr int kC = kD / 4, kLd = TcShape<kD>::kLd, kTile = TcShape<kD>::kTile;
+  for (int i = threadIdx.x; i < kTcTile * kC; i += kTcThreads) {
+    const int at = i / kC * kLd + 4 * (i % kC);
+    const float4 x = *reinterpret_cast<const float4*>(raw + at);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(hi + kTile + at) = l;
+  }
+}
+
+// ldmatrix's lane offsets: an 8 x 8 b16 matrix is an 8 x 4 fp32 one, lane l
+// receiving element (l / 4, l % 4). A: rows 0-15 by columns 0-7 of a
+// resident tile as matrices (rows 0-7 | 8-15) x (columns 0-3 | 4-7); B: two
+// n tiles (rows 0-15) by columns 0-7 of a streamed tile as matrices
+// (columns 0-3 | 4-7) x (rows 0-7 | 8-15).
+template <int kLd>
+__device__ __forceinline__ int a_lane() {
+  const int l = threadIdx.x % 32;
+  return ((l & 7) + (l & 8)) * kLd + (l >> 4) * 4;
+}
+template <int kLd>
+__device__ __forceinline__ int b_lane() {
+  const int l = threadIdx.x % 32;
+  return ((l & 7) + (l >> 4) * 8) * kLd + (l & 8) / 2;
+}
+
+// A of a resident fp32 tile (ldmatrix, then the split); addr: this lane's row
+__device__ __forceinline__ void ldsm_a(FragA& f, const float* addr) {
+  uint32_t r[4];
+  ldsm_x4(r[0], r[1], r[2], r[3], smem_addr(addr));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), f.hi[i], f.lo[i]);
+}
+
+// B of two n tiles of a split streamed tile (hi at addr, lo kTile floats on)
+template <int kTile>
+__device__ __forceinline__ void ldsm_b2(FragB& f0, FragB& f1, const float* addr) {
+  ldsm_x4(f0.hi[0], f0.hi[1], f1.hi[0], f1.hi[1], smem_addr(addr));
+  ldsm_x4(f0.lo[0], f0.lo[1], f1.lo[0], f1.lo[1], smem_addr(addr + kTile));
+}
+
+// B (k x n) of a split streamed tile read k-major with k permuted as above;
+// s points at the hi tile's (k + 2t, n + g)
+template <int kLd, int kTile>
+__device__ __forceinline__ void load_b_kn(FragB& f, const float* s) {
+  f.hi[0] = __float_as_uint(s[0]);
+  f.hi[1] = __float_as_uint(s[kLd]);
+  f.lo[0] = __float_as_uint(s[kTile]);
+  f.lo[1] = __float_as_uint(s[kTile + kLd]);
+}
+
+// A from one 16 x 8 accumulator tile (k permuted as above)
+__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
+// S = A B^T and dP = A' B'^T for this warp's 16 resident rows (A, A' at
+// ra, ra', their rows 16 w..) and the 64 rows of the split streamed tiles
+// sb, sb': 16 x 64 fp32 accumulators, summed from zero over the d / 8 k
+// steps
+template <int kD>
+__device__ __forceinline__ void first_products(float (&s)[8][4], float (&dp)[8][4], const float* ra,
+                                               const float* ra2, const float* sb, const float* sb2) {
+  using S = TcShape<kD>;
+  constexpr int kLd = S::kLd;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
+  const int ao = (threadIdx.x / 32) * 16 * kLd + a_lane<kLd>(), bo = b_lane<kLd>();
+#pragma unroll(S::kUnrollK)
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    FragA a, a2;
+    ldsm_a(a, ra + ao + 8 * ks);
+    ldsm_a(a2, ra2 + ao + 8 * ks);
+#pragma unroll
+    for (int nt = 0; nt < 8; nt += 2) {
+      FragB b0, b1;
+      ldsm_b2<S::kTile>(b0, b1, sb + 8 * nt * kLd + bo + 8 * ks);
+      mma3(s[nt], a, b0);
+      mma3(s[nt + 1], a, b1);
+      ldsm_b2<S::kTile>(b0, b1, sb2 + 8 * nt * kLd + bo + 8 * ks);
+      mma3(dp[nt], a2, b0);
+      mma3(dp[nt + 1], a2, b1);
+    }
+  }
+}
+
+// out += a b for this warp's 16 x 64 accumulator tile a (k permuted as
+// above) and the split streamed tile b (64 x kD, hi at sb): the product
+// summed from zero over the tile's 8 k steps, then added to out in fp32,
+// rounded to nearest. The tensor cores truncate each sum into the
+// accumulator; carried over all N / 8 steps of a row, that bias read 8e-6
+// of dq, dk, dv at N = 1,024 (relative L2), where a tile's 8 steps keep
+// them within 2e-6 of fp64.
+template <int kD>
+__device__ __forceinline__ void tile_product(float (&out)[kD / 8][4], const float (&a)[8][4], const float* sb) {
+  using S = TcShape<kD>;
+  const int lane = threadIdx.x % 32;
+  const float* b = sb + 2 * (lane % 4) * S::kLd + lane / 4;
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nd][j] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    FragA fa;
+    acc_to_a(fa, a[kk]);
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      FragB fb;
+      load_b_kn<S::kLd, S::kTile>(fb, b + 8 * kk * S::kLd + 8 * nd);
+      mma3(acc[nd], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[nd][j] += acc[nd][j];
+}
+
+// this warp's accumulator rows (16 x kD, C layout) times mul into its rows
+// of the staging tile st
+template <int kD>
+__device__ __forceinline__ void stage_acc(float* st, const float (&acc)[kD / 8][4], float mul) {
+  constexpr int kLd = TcShape<kD>::kLd;
+  const int lane = threadIdx.x % 32;
+  float* row = st + (threadIdx.x / 32 * 16 + lane / 4) * kLd + 2 * (lane % 4);
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+    *reinterpret_cast<float2*>(row + 8 * nd) = make_float2(acc[nd][0] * mul, acc[nd][1] * mul);
+    *reinterpret_cast<float2*>(row + 8 * kLd + 8 * nd) = make_float2(acc[nd][2] * mul, acc[nd][3] * mul);
+  }
+}
+
+// the 128 staged rows into rows row0.. (< n) of out (row stride kD); with
+// kRope through the transposed RoPE Jacobian
+template <int kD, bool kRope>
+__device__ __forceinline__ void store_staged(const float* st, float* out, int row0, int n, const float* cos,
+                                             const float* sin) {
+  constexpr int kLd = TcShape<kD>::kLd;
+  if constexpr (!kRope) {
+    for (int i = threadIdx.x; i < kTcRows * kD / 4; i += kTcThreads) {
+      const int r = i / (kD / 4), c = 4 * (i % (kD / 4));
+      if (row0 + r < n)
+        *reinterpret_cast<float4*>(out + (long long)(row0 + r) * kD + c) =
+            *reinterpret_cast<const float4*>(st + r * kLd + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTcRows * kD; i += kTcThreads) {
+      const int r = i / kD, c = i % kD, row = row0 + r;
+      if (row < n)
+        out[(long long)row * kD + c] =
+            attn::rope_transpose(st + r * kLd, c, kD, cos + (size_t)row * kD, sin + (size_t)row * kD);
+    }
+  }
+}
+
+// dK and dV of 128 keys: for each 64-query tile, S^T = K Q^T and dP^T =
+// V G^T, P^T = exp2(S^T scale - lse), dS^T = P^T (dP^T - delta), dV += P^T
+// G, dK += dS^T Q; warp w owns keys 16w..16w+15. grid: (ceil(n / 128), bh).
+template <int kD, bool kRope>
+__global__ void __launch_bounds__(kTcThreads, 1) tf32x3_bwd_dkdv_kernel(const Bwd32Args a) {
+  using S = TcShape<kD>;
+  constexpr int kN = kD / 8;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* sk = smem_tc;             // resident, fp32
+  float* sv = sk + S::kRes;
+  float* rq = sv + S::kRes;        // the next query tile's q, g in fp32
+  float* rg = rq + S::kTile;
+  float* sq = rg + S::kTile;       // the current one's, split: hi, lo
+  float* sg = sq + 2 * S::kTile;
+  float* sl = sg + 2 * S::kTile;   // lse of the query tiles, two stages
+  float* sd = sl + 2 * kTcTile;    // delta
+
+  const int n = a.n;
+  const long long off = (long long)blockIdx.y * n * kD;
+  const float* lse = a.lse + (long long)blockIdx.y * a.npad;
+  const float* delta = a.delta + (long long)blockIdx.y * a.npad;
+  const int k0 = blockIdx.x * kTcRows;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+
+  // rows q0.. of q and g into the fp32 tiles, lse and delta (padded to npad) into stage buf
+  auto fetch = [&](int q0, int buf) {
+    tile_async<kD>(rq, a.q + off + (long long)q0 * kD, kTcTile, n - q0);
+    tile_async<kD>(rg, a.g + off + (long long)q0 * kD, kTcTile, n - q0);
+    const int i = threadIdx.x % (kTcTile / 4);
+    if (threadIdx.x < kTcTile / 4) cp_async16(sl + buf * kTcTile + 4 * i, lse + q0 + 4 * i);
+    else if (threadIdx.x < kTcTile / 2) cp_async16(sd + buf * kTcTile + 4 * i, delta + q0 + 4 * i);
+    cp_async_commit();
+  };
+  tile_async<kD>(sk, a.k + off + (long long)k0 * kD, kTcRows, n - k0);
+  tile_async<kD>(sv, a.v + off + (long long)k0 * kD, kTcRows, n - k0);
+  fetch(0, 0);
+
+  float dk[kN][4], dv[kN][4];
+#pragma unroll
+  for (int nd = 0; nd < kN; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[nd][j] = dv[nd][j] = 0.f;
+  const int tiles = (n + kTcTile - 1) / kTcTile;
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has arrived, and every warp is done with tile it - 1's split tiles
+    split_tile<kD>(sq, rq);
+    split_tile<kD>(sg, rg);
+    __syncthreads();
+    if (it + 1 < tiles) fetch((it + 1) * kTcTile, (it + 1) & 1);  // into the fp32 tiles, now read
+    const float* l = sl + (it & 1) * kTcTile;
+    const float* dl = sd + (it & 1) * kTcTile;
+    // S^T and dP^T: this warp's 16 keys by the tile's 64 queries
+    float s[8][4], dp[8][4];
+    first_products<kD>(s, dp, sk, sv, sq, sg);
+    // P^T and dS^T in place; queries past n have lse = +inf, so p = 0
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = 8 * nt + 2 * t + (j & 1);
+        const float p = exp2f(s[nt][j] * a.scale_log2 - l[qi]);
+        s[nt][j] = p;
+        dp[nt][j] = p * (dp[nt][j] - dl[qi]);
+      }
+    tile_product<kD>(dv, s, sg);  // dV += P^T G
+    tile_product<kD>(dk, dp, sq);  // dK += dS^T Q
+  }
+  __syncthreads();  // every warp is past its last read: sv and sk stage the results
+  stage_acc<kD>(sv, dv, 1.f);
+  stage_acc<kD>(sk, dk, a.scale);
+  __syncthreads();
+  store_staged<kD, false>(sv, a.dv + off, k0, n, nullptr, nullptr);
+  store_staged<kD, kRope>(sk, a.dk + off, k0, n, a.cos, a.sin);
+}
+
+// dQ of 128 queries: for each 64-key tile, S = Q K^T and dP = G V^T, P =
+// exp2(S scale - lse) (keys past n masked), dS = P (dP - delta), dQ += dS K;
+// warp w owns queries 16w..16w+15. grid: (ceil(n / 128), bh).
+template <int kD, bool kRope>
+__global__ void __launch_bounds__(kTcThreads, 1) tf32x3_bwd_dq_kernel(const Bwd32Args a) {
+  using S = TcShape<kD>;
+  constexpr int kN = kD / 8;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* sq = smem_tc;             // resident, fp32
+  float* sg = sq + S::kRes;
+  float* rk = sg + S::kRes;        // the next key tile's k, v in fp32
+  float* rv = rk + S::kTile;
+  float* sk = rv + S::kTile;       // the current one's, split: hi, lo
+  float* sv = sk + 2 * S::kTile;
+
+  const int n = a.n;
+  const long long off = (long long)blockIdx.y * n * kD;
+  const int q0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  auto fetch = [&](int kv0) {
+    tile_async<kD>(rk, a.k + off + (long long)kv0 * kD, kTcTile, n - kv0);
+    tile_async<kD>(rv, a.v + off + (long long)kv0 * kD, kTcTile, n - kv0);
+    cp_async_commit();
+  };
+  tile_async<kD>(sq, a.q + off + (long long)q0 * kD, kTcRows, n - q0);
+  tile_async<kD>(sg, a.g + off + (long long)q0 * kD, kTcRows, n - q0);
+  fetch(0);
+
+  // the lse and delta of this thread's rows g and g + 8 (rows past n: p = 0)
+  float lq[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const long long srow = (long long)blockIdx.y * a.npad + row;
+    lq[i] = row < n ? a.lse[srow] : INFINITY;
+    dl[i] = row < n ? a.delta[srow] : 0.f;
+  }
+  float dq[kN][4];
+#pragma unroll
+  for (int nd = 0; nd < kN; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[nd][j] = 0.f;
+  const int tiles = (n + kTcTile - 1) / kTcTile;
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has arrived, and every warp is done with tile it - 1's split tiles
+    split_tile<kD>(sk, rk);
+    split_tile<kD>(sv, rv);
+    __syncthreads();
+    if (it + 1 < tiles) fetch((it + 1) * kTcTile);
+    // S and dP: this warp's 16 queries by the tile's 64 keys
+    float s[8][4], dp[8][4];
+    first_products<kD>(s, dp, sq, sg, sk, sv);
+    // dS in place of dP; keys past n masked
+    const int valid = n - it * kTcTile;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = 8 * nt + 2 * t + (j & 1) < valid ? exp2f(s[nt][j] * a.scale_log2 - lq[j / 2]) : 0.f;
+        dp[nt][j] = p * (dp[nt][j] - dl[j / 2]);
+      }
+    tile_product<kD>(dq, dp, sk);  // dQ += dS K
+  }
+  __syncthreads();
+  stage_acc<kD>(sq, dq, a.scale);
+  __syncthreads();
+  store_staged<kD, kRope>(sq, a.dq + off, q0, n, a.cos, a.sin);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -447,13 +883,28 @@ cudaError_t bwd_launch(const Bwd32Args& b, int bh, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <int kD, bool kRope>
+cudaError_t tc_launch(const Bwd32Args& b, int bh, cudaStream_t s) {
+  using S = TcShape<kD>;
+  const dim3 grid((b.n + kTcRows - 1) / kTcRows, bh);
+  cudaError_t e = set_smem(tf32x3_bwd_dkdv_kernel<kD, kRope>, S::kSmemDkdv);
+  if (e != cudaSuccess) return e;
+  tf32x3_bwd_dkdv_kernel<kD, kRope><<<grid, kTcThreads, S::kSmemDkdv, s>>>(b);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = set_smem(tf32x3_bwd_dq_kernel<kD, kRope>, S::kSmemDq)) != cudaSuccess) return e;
+  tf32x3_bwd_dq_kernel<kD, kRope><<<grid, kTcThreads, S::kSmemDq, s>>>(b);
+  return cudaGetLastError();
+}
+
 // The backward on contiguous (bh, n, d) q, k (rotated for RoPE), v, g and
 // the forward's output o and lse_fwd (bh, n): the preprocess, then the dK/dV
-// and dQ kernels; lse, delta (bh, npad) fp32 scratch.
+// and dQ kernels, on the tensor cores as 3xTF32 at d = 64 and 72 with
+// 16-byte aligned rows (vec == 4), the SIMT kernels otherwise; lse, delta
+// (bh, npad) fp32 scratch.
 template <bool kRope>
 cudaError_t backward(const float* q, const float* k, const float* v, const float* g, const float* o,
                      const float* lse_fwd, const float* cos, const float* sin, float* dq, float* dk,
-                     float* dv, float* lse, float* delta, int bh, int n, int d, cudaStream_t s) {
+                     float* dv, float* lse, float* delta, int bh, int n, int d, int vec, cudaStream_t s) {
   if (o == nullptr || lse_fwd == nullptr || d < 1 || d > 128) return cudaErrorInvalidValue;
   const int npad = (n + kRows - 1) / kRows * kRows;
   const long long rows = (long long)bh * npad;
@@ -463,6 +914,8 @@ cudaError_t backward(const float* q, const float* k, const float* v, const float
   if (e != cudaSuccess) return e;
   const Bwd32Args b{q, k, v, g, lse, delta, dq, dk, dv, cos, sin, n, npad, d,
                     1.4426950408889634f / sqrtf((float)d), 1.f / sqrtf((float)d)};
+  if (vec == 4 && d == 64) return tc_launch<64, kRope>(b, bh, s);
+  if (vec == 4 && d == 72) return tc_launch<72, kRope>(b, bh, s);
   switch ((d + 15) / 16) {
 #define LDMAE_CASE(C) \
   case C: return bwd_launch<C, kRope>(b, bh, s);
@@ -556,7 +1009,7 @@ extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const voi
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(g), static_cast<const float*>(o), lse_fwd, nullptr, nullptr,
       static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), lse, delta, bh, n, d,
-      static_cast<cudaStream_t>(stream)));
+      vec, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, const void* v,
@@ -570,5 +1023,5 @@ extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, cons
   return static_cast<int>(backward<true>(
       static_cast<const float*>(qr), static_cast<const float*>(kr), static_cast<const float*>(v),
       static_cast<const float*>(g), static_cast<const float*>(o), lse_fwd, cos, sin, static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), lse, delta, bh, n, d, s));
+      static_cast<float*>(dk), static_cast<float*>(dv), lse, delta, bh, n, d, vec, s));
 }

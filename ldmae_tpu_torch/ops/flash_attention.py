@@ -36,9 +36,12 @@ launches the kernel or raises: bf16 or fp32 (the configs' two compute
 dtypes), any head dim 1 <= d <= 128 (every arch of both registries; d > 128
 raises), any N. bf16 runs ``csrc/flash_attention.cu``, fp32
 ``csrc/flash_attention_fp32.cu``; within bf16 the kernel is chosen by shape
-(see ``flash_attention`` and ``flash_attention_rope``). In fp32 the forward
-always writes lse, and the backward takes it with the output, as at d = 64
-and 72 in bf16. ``<wrapper>.launches`` counts kernel launches. The plain
+(see ``flash_attention`` and ``flash_attention_rope``), and so is the fp32
+backward's, in its C dispatch: at d = 64 and 72 with 16-byte aligned rows
+every product runs on the tensor cores as 3xTF32, at other head dims on the
+FMA pipes. In fp32 the forward always writes lse, and the backward
+takes it with the output, as at d = 64 and 72 in bf16.
+``<wrapper>.launches`` counts kernel launches. The plain
 versions compute in fp32, or in float64 for float64 inputs
 (``torch.autograd.gradcheck``).
 """
@@ -446,7 +449,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
       single-pass backward ``flash_bwd_wgmma_kernel``;
     * every other bf16 shape (VMAE d = 8 to 80 under autograd or past
       RESIDENT_MAX_N): the ``mma.sync`` core and the three-pass backward;
-    * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``).
+    * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``): the SIMT
+      forward; the backward's dK/dV and dQ kernels on the tensor cores as
+      3xTF32 (``tf32x3_bwd_dkdv_kernel``, ``tf32x3_bwd_dq_kernel``) at d =
+      64 and 72 with 16-byte aligned rows, the SIMT ones at other d.
 
     ``launches`` counts the forward launches but the resident kernel's
     (``flash_attention_resident.launches``)."""
@@ -484,7 +490,8 @@ def flash_attention_rope(
     backward), and the backward is the single-pass ``flash_bwd_wgmma_kernel``;
     every other bf16 head dim d <= 128 runs the ``mma.sync`` core that the
     other attention kernels share, and the three-pass backward; fp32 runs
-    the fp32 kernels."""
+    the fp32 kernels, the backward on the tensor cores at d = 64 and 72 as
+    ``flash_attention``'s."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
     return _flash_attention_rope_fwd(q, k, v, cos, sin)

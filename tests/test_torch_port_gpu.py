@@ -359,7 +359,7 @@ def _traced_names(fn) -> list:
     return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def _kernel_names(fn, attempts: int = 3) -> tuple:
+def _kernel_names(fn, attempts: int = 3, need=None) -> tuple:
     """(names of the device kernels that ``fn`` launches, by torch.profiler,
     and how many times ``fn`` was called).
 
@@ -371,10 +371,13 @@ def _kernel_names(fn, attempts: int = 3) -> tuple:
     must be callable again), at most ``attempts`` times in all. A trace with
     other device records is returned whole, whatever it holds. In a long
     pytest process traces have also come back without the session's first
-    kernel record (PERF.md), so the marker also runs first."""
+    kernel record (PERF.md), so the marker also runs first. With ``need``
+    (a test of the names) a trace that fails it is taken again too, as
+    ``chip_smoke.device_split`` does: late in a long process traces have come
+    back with only the last of ``fn``'s kernels (PERF.md)."""
     for calls in range(1, attempts + 1):
         names = _traced_names(fn)
-        if any("FillFunctor" not in name for name in names):
+        if any("FillFunctor" not in name for name in names) and (need is None or need(names)):
             return names, calls
     return names, calls
 
@@ -1925,3 +1928,82 @@ def test_cuda_gate_any_kernel_equals_the_vector_kernel(cuda, dtype):
     q2, s2 = tfad.fused_silu_mul_quant(shifted[1:].view(rows, 2 * h))
     torch.cuda.synchronize()
     assert torch.equal(q1, q2) and torch.equal(s1, s2)
+
+
+# the fp32 backward on the tensor cores (3xTF32, ``tf32x3_bwd_dkdv_kernel``
+# and ``tf32x3_bwd_dq_kernel``): B/1's and XL/1's training shapes, the
+# patch-2 archs' N = 256, a ragged N
+_TF32X3_SHAPES = [(32, 12, 1024, 64), (32, 16, 1024, 72), (32, 16, 256, 64), (2, 12, 1000, 64)]
+
+
+def _f32_bwd_call(shape, rope, device):
+    """fp32 q, k, v, g of ``shape`` (and the RoPE tables), the backward
+    wrapper and its plain version."""
+    q, k, v, g = (_randn(shape, s, device, torch.float32) for s in range(4))
+    tables = _rope_tables(shape[3], shape[2], device) if rope else ()
+    name = "flash_attention_rope_bwd" if rope else "flash_attention_bwd"
+    return (q, k, v, g, *tables), getattr(tfa, name), getattr(tfa, f"{name}_plain")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("shape", _TF32X3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_fp32_bwd_tensor_cores_vs_plain(cuda, shape, rope):
+    """Through the autograd Functions (the forward saves lse): dq, dk, dv
+    within F32_BWD of the plain fp32 backward, and the same bits from two
+    backward calls (nothing is summed across blocks)."""
+    (q, k, v, g, *tables), _, plain = _f32_bwd_call(shape, rope, cuda)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = (tfa.flash_attention_rope if rope else tfa.flash_attention)(*leaves, *tables)
+    first = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, g)
+    _assert_f32_bwd_close(first, plain(*(t.detach() for t in leaves), g, *tables))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("shape", [(4, 12, 1024, 64), (4, 16, 1024, 72)], ids=["d64", "d72"])
+def test_cuda_fp32_bwd_tensor_cores_vs_fp64(cuda, shape, rope):
+    """``chip_smoke.py``'s fp64 gate: each of dq, dk, dv within max(F64_SLACK
+    x the plain fp32 backward's relative L2 error against the fp64
+    backward, F64_FLOOR) of it; the plain backward with TF32 matmuls (one
+    TF32 product) reads above that bound."""
+    import chip_smoke
+
+    args, kernel, plain = _f32_bwd_call(shape, rope, cuda)
+    q, k, v, g, *tables = args
+    exact = plain(q.double(), k.double(), v.double(), g.double(), *tables)
+
+    def rels(outs):
+        return [float((o.double() - r).norm() / r.norm()) for o, r in zip(outs, exact)]
+
+    got, f32 = rels(kernel(*args)), rels(plain(*args))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = rels(plain(*args))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bounds = [max(chip_smoke.F64_SLACK * e, chip_smoke.F64_FLOOR) for e in f32]
+    assert all(e <= b for e, b in zip(got, bounds)), (got, bounds)
+    assert all(e > b for e, b in zip(tf32, bounds)), (tf32, bounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("d", [16, 64, 72, 128])
+def test_cuda_fp32_bwd_kernels_by_head_dim(cuda, d, rope):
+    """At d = 64 and 72 (the C dispatch's choice) the fp32 backward runs the
+    tensor-core kernels and not the SIMT ones, at d = 16 and 128 the SIMT
+    kernels; every one within F32_BWD of the plain backward (N ragged)."""
+    args, kernel, plain = _f32_bwd_call((2, 12, 1000, d), rope, cuda)
+    tc = d in (64, 72)
+    want = {"flash32_bwd_preprocess_kernel"} | (
+        {"tf32x3_bwd_dkdv_kernel", "tf32x3_bwd_dq_kernel"} if tc else {"flash32_bwd_dkdv_kernel", "flash32_bwd_dq_kernel"})
+
+    def ours(names):
+        return {m.group(1) for n in names if (m := re.search(r"((?:tf32x3|flash32)_bwd_\w+_kernel)", n))}
+
+    names, _ = _kernel_names(lambda: kernel(*args), need=lambda names: ours(names) == want)
+    assert ours(names) == want, names
+    _assert_f32_bwd_close(kernel(*args), plain(*args))
