@@ -33,10 +33,17 @@ attention bounds), then:
      ``torch._int_mm`` alone and cuBLAS bf16;
   1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
      80 and 128 against their plain versions; every fp32 instantiation
-     (#1, #2 at the training shape (32, 12, 1024, 64); #3, #4, #9, #10 at
-     the B/1 shapes; #7, #8 at batch 8) against its plain fp32 version,
-     timed; #5 and #6 in fp32, on the tensor cores as 3xTF32 at d = 64 and
-     72 (``fp32_bwd_phase``): against the plain fp32 backward at B/1's and
+     (#3, #4, #9, #10 at the B/1 shapes) against its plain fp32 version,
+     timed; #1, #2, #7 and #8 in fp32, on the tensor cores as 3xTF32 at d =
+     64 and 72 (``fp32_fwd_phase``): against the plain fp32 forward (and
+     its lse) at B/1's and XL/1's training shapes, N = 256, a ragged N and
+     the sampling shape (#7 and #8 on views of a packed qkv), against the
+     fp64 forward with the plain forward under TF32 matmuls as the control
+     that must fail, bit for bit from run to run, the kernels that ran named
+     by torch.profiler, timed warm and queued beside SDPA's fp32 forward and
+     the bound by both routes; the SIMT fp32 forward at d = 16, 128 and for
+     an unaligned view the same way; #5 and #6 in fp32, on the tensor cores
+     as 3xTF32 at d = 64 and 72 (``fp32_bwd_phase``): against the plain fp32 backward at B/1's and
      XL/1's training shapes, N = 256 and a ragged N, against the fp64
      backward with the plain backward under TF32 matmuls as the control
      that must fail, bit for bit from run to run, the kernels that ran
@@ -331,7 +338,11 @@ without asserting which kernels ran: copied into an unpacked earlier commit
 kernels at the same shapes. ``--fp32-bwd`` builds the attention libraries
 and runs the fp32 backward's gates and times (phase 1b's
 ``fp32_bwd_phase``) alone, ending with an ``{"fp32_bwd_times": {...}}``
-line.
+line; ``--fp32-fwd`` the same for the fp32 forward (``fp32_fwd_phase``),
+ending with an ``{"fp32_fwd_times": {...}}`` line. Copied into an unpacked
+earlier commit, either times that commit's kernels at the same shapes
+(``--fp32-fwd --any-route`` names the forward's kernels without asserting
+them, for a commit whose fp32 forward ran other kernels).
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -391,6 +402,8 @@ KERNELS = {
     "flash_attention_bwd_fp32": (_FA32, f"{_PALLAS_FA}:151", "grad_fp32_interleaved", "flash_attention_bwd"),
     "flash_attention_rope_bwd_fp32": (_FA32, f"{_PALLAS_FA}:429", "train_fp32", "flash_attention_rope_bwd"),
     # the same at XL's head dim 72, launched by the fp32 gradient checks at XL/1
+    "flash_attention_fp32_xl": (_FA32, f"{_PALLAS_FA}:77", "grad_fp32_xl_interleaved", "flash_attention"),
+    "flash_attention_rope_fp32_xl": (_FA32, f"{_PALLAS_FA}:323", "grad_fp32_xl_half", "flash_attention_rope"),
     "flash_attention_bwd_fp32_xl": (_FA32, f"{_PALLAS_FA}:151", "grad_fp32_xl_interleaved", "flash_attention_bwd"),
     "flash_attention_rope_bwd_fp32_xl": (_FA32, f"{_PALLAS_FA}:429", "grad_fp32_xl_half", "flash_attention_rope_bwd"),
     "fused_norm_modulate_fp32": ("ldmae_tpu_torch/csrc/fused_norm_modulate.cu", f"{_PALLAS_AD}:232", "train_fp32",
@@ -701,15 +714,19 @@ def _profiled(fn, iters: int):
 def kernel_device_ms(fn, names, iters: int = 20) -> dict:
     """Device time per call of each kernel whose name contains one of
     ``names``, from torch.profiler over ``iters`` calls of ``fn`` after a
-    warm-up call: the parts of a wrapper that launches more than one kernel."""
-    out = dict.fromkeys(names, 0.0)
-    for key, ms in _profiled(fn, iters):
-        for name in names:
-            if name in key:
-                out[name] += ms
-    if not all(out.values()):
-        raise SystemExit(f"the profiler saw none of {[n for n, v in out.items() if not v]}")
-    return out
+    warm-up call: the parts of a wrapper that launches more than one kernel.
+    A trace without some of them is taken again, up to three in all, as
+    ``device_split`` does (late in a long process traces have come back
+    without some kernels' records)."""
+    for _ in range(3):
+        out = dict.fromkeys(names, 0.0)
+        for key, ms in _profiled(fn, iters):
+            for name in names:
+                if name in key:
+                    out[name] += ms
+        if all(out.values()):
+            return out
+    raise SystemExit(f"the profiler saw none of {[n for n, v in out.items() if not v]}")
 
 
 def device_ms(fn, iters: int = 20):
@@ -993,9 +1010,9 @@ def wgmma_ptxas(report: dict) -> None:
     """ptxas's registers at entry (setmaxnreg then gives the consumer
     warpgroups more), static shared memory (the rings are dynamic) and
     spills of the attention library's wgmma kernels and of the fp32
-    library's tensor-core backward; every instantiation of the forward and
+    library's tensor-core kernels; every instantiation of the forward and
     the single-pass backward (d = 64 and 72, with and without lse / RoPE)
-    and of the fp32 backward's two kernels must not spill."""
+    and of the fp32 forward and backward's two kernels must not spill."""
     log(f"  ptxas flash_fwd_resident_kernel: "
         f"{ptxas_summary(report['flash_attention']['ptxas'], 'flash_fwd_resident_kernel')}")
     for lib, names in (("flash_attention", ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")),
@@ -1008,6 +1025,11 @@ def wgmma_ptxas(report: dict) -> None:
                     if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
                         raise SystemExit(f"{kernel}<{d}, {bool(flag)}>: ptxas reports spills (or no entry): "
                                          f"{summary}")
+    for d in (64, 72):  # the fp32 forward on the tensor cores
+        summary = ptxas_summary(report["flash_attention_fp32"]["ptxas"], f"tf32x3_fwd_kernelILi{d}EE")
+        log(f"  ptxas tf32x3_fwd_kernel<{d}>: {summary}")
+        if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
+            raise SystemExit(f"tf32x3_fwd_kernel<{d}>: ptxas reports spills (or no entry): {summary}")
 
 
 def engine_ptxas(report: dict) -> None:
@@ -2646,19 +2668,226 @@ def fp32_bwd_only(dev) -> int:
     return 0
 
 
-def fp32_kernel_phase(dev, batch: int) -> dict:
-    """Every kernel's fp32 instantiation against its plain fp32 version
-    (TF32 off) and timed beside it and a library call: #1 and #2 at the
-    training shape (32, 12, 1024, 64), #5 and #6 by ``fp32_bwd_phase``,
-    #3, #4, #9 and #10 at the B/1 sampling shapes at ``batch``
-    (CFG-doubled), #7 and #8 at the sampling attention shape. Returns name
-    -> row of the kernels line."""
+# The fp32 forward (#1, #2, #7, #8) on the tensor cores as 3xTF32 at d = 64
+# and 72 (tf32x3_fwd_kernel behind each wrapper's pre-pass): against the
+# plain fp32 forward within F32_FWD at F32_FWD_SHAPES (#1 and #2 with lse
+# at B/1's and XL/1's training shapes, the patch-2 archs' N = 256 and a
+# ragged N) and at the sampling shape (#1, and #7 and #8 on views of a
+# packed qkv); lse (log2 units) within F32_LSE of the plain lse
+# (flash_attention_lse_plain; both sum fp32 exponentials in another
+# order); the output and lse equal bit for bit between two calls; against
+# the fp64 forward at F32_F64_SHAPES, the output within max(F64_SLACK x the
+# plain fp32 forward's relative L2 error, F64_FLOOR) and lse (whose
+# magnitude is mostly a common offset) within max(F64_SLACK x the plain
+# lse's largest error, F64_FLOOR) absolute, which the plain forward with
+# TF32 matmuls (one TF32 product) must exceed on both; the kernels that ran
+# named by torch.profiler, the SIMT forward absent. At F32_SIMT_FWD_SHAPES
+# (head dims the tensor-core kernel does not take) and for an unaligned
+# view at d = 64 flash32_fwd_kernel is held the same way (F32_FWD, bit for
+# bit, its route with the tensor-core kernel absent)
+F32_FWD_SHAPES = ((TRAIN_BATCH, 12, 1024, 64), (TRAIN_BATCH, 16, 1024, 72), (TRAIN_BATCH, 16, 256, 64),
+                  (2, 12, 1000, 64))
+F32_SIMT_FWD_SHAPES = ((2, 12, 1000, 16), (2, 12, 1000, 128))
+F32_LSE = 1e-4
+TF32X3_FWD, SIMT_F32_FWD = ("tf32x3_fwd_kernel",), ("flash32_fwd_kernel",)
+
+
+def fp32_fwd_phase(dev, batch: int, strict: bool = True) -> dict:
+    """#1, #2, #7 and #8 in fp32 by the gates above (with ``strict`` False
+    the kernels that ran are named but not asserted: an earlier commit's); #1 and #2 with lse at
+    (32, 12, 1024, 64) and XL's (32, 16, 1024, 72), #7 and #8 at the
+    sampling shape (2 x ``batch``, 12, 1024, 64), timed warm and with the
+    device's queue full (by kernel, torch.profiler) beside the plain
+    forward and SDPA's fp32 forward (TF32 off, on the rotated or normed q,
+    k) and the bound by both routes: 3xTF32 on the tensor cores (the
+    kernels line's bound_ms) and the FMA pipes (``fma_bound_ms``). Returns
+    the kernels line's rows (``..._fp32``, ``..._fp32_xl`` at d = 72)."""
     import torch
     import torch.nn.functional as F
 
     from ldmae_tpu_torch.ops import flash_attention as fa
-    from ldmae_tpu_torch.ops import fused_adaln as fad
     from ldmae_tpu_torch.ops.rope import build_rope_table, to_half_layout
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def tables(n, d):
+        grid = math.isqrt(n - 1) + 1
+        return tuple(torch.from_numpy(to_half_layout(t)[:n]).to(dev) for t in build_rope_table(d // 2, grid))
+
+    def checked(what, run, plain, want, absent, lse_of=None):
+        """run() against plain() (F32_FWD; lse against the plain lse of
+        lse_of()'s q, k), twice bit for bit, its kernels named."""
+        first, again = run(), run()
+        out, lse = first if lse_of else (first, None)
+        err = f32_compare(what, out, plain())
+        if lse is not None:
+            lse_err = float((lse - fa.flash_attention_lse_plain(*lse_of())).abs().max())
+            ok = lse_err <= F32_LSE
+            log(f"  {what}: lse max |err| {lse_err:.3g} (tolerance {F32_LSE:g}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{what}: lse disagrees with the plain lse")
+        same = all(torch.equal(x, y) for x, y in zip(first, again)) if lse_of else torch.equal(first, again)
+        log(f"  run to run: the output{' and lse' if lse_of else ''} equal bit for bit: {same} -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"{what}: the output differs from run to run")
+        del first, again
+        if strict:
+            return err, train_route(what, run, want, absent)
+        split = device_split(run)
+        log(f"  {what}: kernels that ran {sorted(split)} (not asserted)")
+        return err, {"kernels_ms": split}
+
+    def timed(key, err, parts, run, plain, lib, nbytes, flops, exps):
+        ms, queued = cuda_ms(run, 5), queued_ms(run, 10)
+        plain_ms = cuda_ms(plain, 2, 1)
+        lib_ms, lib_queued = cuda_ms(lib, 5), queued_ms(lib, 10)
+        bnd = bound(nbytes, tf32x3_flops=flops, exps=exps)
+        fma = bound(nbytes, fp32_flops=flops, exps=exps)[0]
+        parts |= {"queued_ms": queued, "library_queued_ms": lib_queued, "fma_bound_ms": fma}
+        log(f"  {key}: kernel {ms:.4f} ms (queued {queued:.4f}), parts "
+            f"{ {n_: round(v_, 4) for n_, v_ in parts['kernels_ms'].items()} }, plain {plain_ms:.4f} ms, SDPA's fp32 "
+            f"forward {lib_ms:.4f} ms (queued {lib_queued:.4f}; kernel / SDPA {ms / lib_ms:.3f}), bound 3xTF32 "
+            f"{bnd[0]:.4f} ms ({bnd[1]}; share {bnd[0] / ms:.3f}), FMA pipes {fma:.4f} ms (share {fma / ms:.3f})")
+        rows[key] = (err, ms, plain_ms, lib_ms, *bnd, parts)
+
+    rows = {}
+    log(f"[fp32] the forward (#1, #2, #7, #8) on the tensor cores as 3xTF32 at {list(F32_FWD_SHAPES)} and the "
+        f"sampling shape, on the SIMT kernel at {list(F32_SIMT_FWD_SHAPES)} and an unaligned view")
+    for shape in F32_FWD_SHAPES + F32_SIMT_FWD_SHAPES + ("unaligned",):
+        unaligned = shape == "unaligned"
+        if unaligned:  # contiguous views of a buffer one float past a 16-byte boundary
+            shape = (2, 12, 1000, 64)
+            q, k, v = randn(3 * math.prod(shape) + 1)[1:].view(3, *shape).unbind(0)
+        else:
+            q, k, v = (randn(*shape) for _ in range(3))
+        b, h, n, d = shape
+        cos, sin = tables(n, d)
+        tc = d in (64, 72) and not unaligned
+        want, absent = (TF32X3_FWD, SIMT_F32_FWD) if tc else (SIMT_F32_FWD, TF32X3_FWD)
+        for rope in (True, False):
+            name = "flash_attention_rope" if rope else "flash_attention"
+            tab = (cos, sin) if rope else ()
+            qs, ks = (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)) if rope else (q, k)
+            fwd = fa._flash_attention_rope_fwd if rope else fa._flash_attention_fwd
+            plain = getattr(fa, f"{name}_plain")
+
+            def run(fwd=fwd, tab=tab):
+                return fwd(q, k, v, *tab, with_lse=True)
+
+            what = f"{name} fp32 {'unaligned ' if unaligned else ''}{shape}"
+            rope_pass = () if not rope else ("norm_rope_any_kernel",) if unaligned else ("norm_rope_kernel",)
+            err, parts = checked(what, run, lambda: plain(q, k, v, *tab), want + rope_pass, absent,
+                                 lse_of=lambda: (qs, ks))
+            if shape in F32_FWD_SHAPES[:2]:
+                timed(f"{name}_fp32" + ("_xl" if d == 72 else ""), err, parts, run, lambda: plain(q, k, v, *tab),
+                      lambda: F.scaled_dot_product_attention(qs, ks, v), 4 * b * h * n * d * 4 + b * h * n * 4
+                      + (2 * n * d * 4 if rope else 0), 4 * b * h * n * n * d, b * h * n * n)
+            del qs, ks
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # the sampling shape: #1 on contiguous operands, #7 on the attention
+    # module's views of a packed qkv (B, N, 3, H, d), #8 on its rows
+    b, h, n, d = 2 * batch, 12, 1024, 64
+    cos, sin = tables(n, d)
+    qkv = randn(b, n, 3, h, d, scale=3.0)
+    qv, kv, vv = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    w_q, w_k = (1 + 0.1 * randn(d) for _ in range(2))
+    qc, kc, vc = (t.contiguous() for t in (qv, kv, vv))
+    qr, kr = fa._rope_fp32(qc, cos, sin), fa._rope_fp32(kc, cos, sin)
+    qn, kn = fa._qknorm_rope_fp32(qv, w_q, cos, sin), fa._qknorm_rope_fp32(kv, w_k, cos, sin)
+    qf, kf, vf = qkv.unbind(2)
+    nbytes, flops, exps = 4 * b * h * n * d * 4 + 2 * n * d * 4, 4 * b * h * n * n * d, b * h * n * n
+    rope_pass = ("norm_rope_kernel",)
+    cases = (
+        ("flash_attention_rope", lambda: fa.flash_attention_rope(qc, kc, vc, cos, sin),
+         lambda: fa.flash_attention_rope_plain(qc, kc, vc, cos, sin), lambda: F.scaled_dot_product_attention(qr, kr, vc)),
+        ("flash_attention_qknorm_rope", lambda: fa.flash_attention_qknorm_rope(qv, kv, vv, w_q, w_k, cos, sin),
+         lambda: fa.flash_attention_qknorm_rope_plain(qv, kv, vv, w_q, w_k, cos, sin),
+         lambda: F.scaled_dot_product_attention(qn, kn, vv)),
+        ("flash_attention_fused_rope", lambda: fa.flash_attention_fused_rope(qf, kf, vf, cos, sin),
+         lambda: fa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin),
+         lambda: F.scaled_dot_product_attention(qr, kr, vc)),
+    )
+    for name, run, plain, lib in cases:
+        err, parts = checked(f"{name} fp32 sampling ({b},{h},{n},{d})", run, plain, TF32X3_FWD + rope_pass,
+                             SIMT_F32_FWD)
+        if name != "flash_attention_rope":
+            timed(f"{name}_fp32", err, parts, run, plain, lib, nbytes, flops, exps)
+    del qkv, qv, kv, vv, qc, kc, vc, qr, kr, qn, kn, qf, kf, vf
+    torch.cuda.empty_cache()
+
+    for shape in F32_F64_SHAPES:
+        q, k, v = (randn(*shape) for _ in range(3))
+        exact, exact_lse = fa.flash_attention_plain(*(t.double() for t in (q, k, v))), \
+            fa.flash_attention_lse_plain(q.double(), k.double())
+
+        def errs(out, lse):
+            return (float((out.double() - exact).norm() / exact.norm()),
+                    float((lse.double() - exact_lse).abs().max()))
+
+        def plain_pair():
+            return fa.flash_attention_plain(q, k, v), fa.flash_attention_lse_plain(q, k)
+
+        kernel, f32 = errs(*fa._flash_attention_fwd(q, k, v, with_lse=True)), errs(*plain_pair())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = errs(*plain_pair())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        bounds = [max(F64_SLACK * e, F64_FLOOR) for e in f32]
+        ok = all(e <= bd for e, bd in zip(kernel, bounds))
+        control = all(e > bd for e, bd in zip(tf32, bounds))
+        log(f"  flash_attention fp32 {shape} against fp64 (output relative L2, lse max |err|): kernel "
+            f"{_fmt3(kernel)}, plain fp32 {_fmt3(f32)}, bound {_fmt3(bounds)} -> {'ok' if ok else 'FAIL'}; control "
+            f"(plain, TF32 matmuls) {_fmt3(tf32)} must exceed it -> {'ok' if control else 'FAIL'}")
+        if not (ok and control):
+            raise SystemExit(f"flash_attention fp32 {shape}: the fp64 gate failed, or its TF32 control read within it")
+        del q, k, v, exact, exact_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp32_fwd_only(dev) -> int:
+    """``--fp32-fwd``: ``fp32_fwd_phase`` alone, after the attention
+    libraries' build (ptxas's registers and spills printed) and the rate
+    probes; ends with an ``{"fp32_fwd_times": {...}}`` line. Run it in two
+    unpacked commits in one call to compare them on one card (with
+    ``--any-route`` in a commit whose fp32 forward ran other kernels)."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build(["flash_attention", "flash_attention_fp32"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    regs = [ln.strip() for ln in report["flash_attention_fp32"]["ptxas"].splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("  flash_attention_fp32:" + "".join(f"\n    {r}" for r in regs))
+    rate_probes(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.perf_counter()
+    rows = fp32_fwd_phase(dev, BATCH, strict="--any-route" not in sys.argv[1:])
+    log(f"[time] the fp32 forward phase {time.perf_counter() - t1:.1f} s")
+    log(json.dumps({"fp32_fwd_times": {name: {"ms": r[1], "plain_ms": r[2], "library_ms": r[3], "bound_ms": r[4],
+                                              "parts": r[6]} for name, r in rows.items()}}))
+    return 0
+
+
+def fp32_kernel_phase(dev, batch: int) -> dict:
+    """Every kernel's fp32 instantiation against its plain fp32 version
+    (TF32 off) and timed beside it and a library call: #1, #2, #7 and #8
+    by ``fp32_fwd_phase``, #5 and #6 by ``fp32_bwd_phase``, #3, #4, #9
+    and #10 at the B/1 sampling shapes at ``batch`` (CFG-doubled). Returns
+    name -> row of the kernels line."""
+    import torch
+
+    from ldmae_tpu_torch.ops import fused_adaln as fad
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2667,49 +2896,9 @@ def fp32_kernel_phase(dev, batch: int) -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    rows = {}
-    b, h, n, d = TRAIN_BATCH, 12, 1024, 64
-    cos, sin = (torch.from_numpy(to_half_layout(t)).to(dev) for t in build_rope_table(d // 2, 32))
-    q, k, v, g = (randn(b, h, n, d) for _ in range(4))
-    attn_bytes, attn_flops, exps = 4 * b * h * n * d * 4, 4 * b * h * n * n * d, b * h * n * n
-    log(f"[fp32] attention at the training shape ({b},{h},{n},{d}) fp32")
-    for name, kern, plain, lib, tables in (
-        ("flash_attention_fp32", fa.flash_attention, fa.flash_attention_plain, (q, k), ()),
-        ("flash_attention_rope_fp32", fa.flash_attention_rope, fa.flash_attention_rope_plain,
-         (fa._rope_fp32(q, cos, sin), fa._rope_fp32(k, cos, sin)), (cos, sin)),
-    ):
-        err = f32_compare(name, kern(q, k, v, *tables), plain(q, k, v, *tables))
-        ms = cuda_ms(lambda: kern(q, k, v, *tables), 5)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, *tables), 3, 1)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*lib, v), 5)
-        bnd = bound(attn_bytes + (2 * n * d * 4 if tables else 0), fp32_flops=attn_flops, exps=exps)
-        rows[name] = (err, ms, plain_ms, lib_ms, *bnd, {})
-    del q, k, v, g
+    rows = fp32_fwd_phase(dev, batch)
     rows |= fp32_bwd_phase(dev)
-
     b2 = 2 * batch
-    b, h, n, d = b2, 12, 1024, 64
-    log(f"[fp32] opt-in attention at the sampling shape ({b},{h},{n},{d}) fp32")
-    q, k, v = randn(b, h, n, d, scale=3.0), randn(b, h, n, d, scale=3.0), randn(b, h, n, d)
-    qs_, ks_ = (1 + 0.1 * randn(d) for _ in range(2))
-    err = f32_compare("flash_attention_qknorm_rope_fp32", fa.flash_attention_qknorm_rope(q, k, v, qs_, ks_, cos, sin),
-                      fa.flash_attention_qknorm_rope_plain(q, k, v, qs_, ks_, cos, sin))
-    ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope(q, k, v, qs_, ks_, cos, sin), 5)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_qknorm_rope_plain(q, k, v, qs_, ks_, cos, sin), 3, 1)
-    qr, kr = fa._qknorm_rope_fp32(q, qs_, cos, sin), fa._qknorm_rope_fp32(k, ks_, cos, sin)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), 5)
-    bnd = bound(4 * b * h * n * d * 4, fp32_flops=4 * b * h * n * n * d, exps=b * h * n * n)
-    rows["flash_attention_qknorm_rope_fp32"] = (err, ms, plain_ms, lib_ms, *bnd, {})
-    qkv = randn(b, n, 3, h, d)
-    qf, kf, vf = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
-    err = f32_compare("flash_attention_fused_rope_fp32", fa.flash_attention_fused_rope(qf, kf, vf, cos, sin),
-                      fa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin))
-    ms = cuda_ms(lambda: fa.flash_attention_fused_rope(qf, kf, vf, cos, sin), 5)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_fused_rope_plain(qf, kf, vf, cos, sin), 3, 1)
-    qr, kr = (fa._rope_fp32(t.transpose(1, 2), cos, sin) for t in (qf, kf))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vf.transpose(1, 2)), 5)
-    rows["flash_attention_fused_rope_fp32"] = (err, ms, plain_ms, lib_ms, *bnd, {})
-    del q, k, v, qr, kr, qkv, qf, kf, vf
 
     log(f"[fp32] adaLN and SwiGLU kernels at the B/1 sampling shapes (batch {batch}, CFG-doubled) fp32")
     rows |= adaln_row_kernels(dev, b2, f"fp32 (batch {batch})", torch.float32)
@@ -7205,6 +7394,8 @@ def main() -> int:
         return xl_kernels_only(dev)
     if "--fp32-bwd" in sys.argv[1:]:
         return fp32_bwd_only(dev)
+    if "--fp32-fwd" in sys.argv[1:]:
+        return fp32_fwd_only(dev)
     if "--xl" in sys.argv[1:]:
         return xl_only(dev, smi)
     if "--registry" in sys.argv[1:]:

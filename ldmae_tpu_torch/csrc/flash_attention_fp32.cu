@@ -18,48 +18,54 @@
 // pre-pass (attention_common.cuh) instantiated for fp32, where its
 // roundings to the element type vanish.
 //
-// Two routes, chosen by shape in the C dispatch (backward()):
+// Two routes, chosen by shape in the C dispatches (fwd_dispatch(),
+// backward()):
 //
-// * The backward at d = 64 and 72 with 16-byte aligned rows (every DiT
-//   registry arch; what fp32 training launches) runs every product on the
-//   tensor cores as 3xTF32 (tf32x3_bwd_dkdv_kernel, tf32x3_bwd_dq_kernel,
-//   the section below). One TF32 product keeps 10 mantissa bits, far from
-//   fp32; the sum of three (a_lo b_hi + a_hi b_lo + a_hi b_hi) keeps about
-//   22, as SDPA's fp32 backward does: on an H100, 1.7e-6 relative L2 from
-//   an fp64 backward at (4, 12, 1024, 64), against the plain fp32
-//   backward's 6.6e-7 and SDPA's 8.5e-7 (PERF.md). What bounds it at (32,
-//   12, 1024, 64): the five products, 10 b h N^2 d = 2.58e11 operations,
-//   are three TF32 products each, 1.56 ms at the tensor cores' 495 TFLOP/s
-//   (3.85 ms on the FMA pipes); mma.sync reaches about half that TF32
-//   rate (wgmma takes TF32 only with both shared-memory operands K-major,
-//   which dV = P^T G, dK = dS^T Q and dQ = dS K's are not), and the two
-//   kernels do 14 b h N^2 d, S and dP in both. Design: a block of 8 warps keeps 128 rows
-//   of one side in shared memory (K, V for dK/dV; q, g for dQ), each warp
-//   16 of them, and streams 64-row tiles of the other side by cp.async, the
-//   next tile's fp32 copy in flight while the block works on the current
-//   one, which it has split once into a hi and a lo tile (every warp reads
-//   the same tile: splitting it per warp was 45 % of the instructions).
-//   Fragments come by ldmatrix (the first products' operands) and 32-bit
-//   loads, rows padded to d + 4 floats so that neither meets a bank
-//   conflict; P and dS pass from the first products' accumulators to the
-//   second products as A operands in registers. The second products are
-//   summed over a tile from zero and added to the running sums in fp32:
-//   the tensor cores truncate each sum into the accumulator, and over all
-//   N / 8 steps that bias read 8e-6. Nothing is summed across blocks, so
-//   dq, dk and dv are the same bits from run to run.
+// * At d = 64 and 72 with 16-byte aligned rows (every DiT registry arch;
+//   what fp32 sampling and training launch) every product runs on the
+//   tensor cores as 3xTF32: the forward (tf32x3_fwd_kernel, for all four
+//   entries: fwd_dispatch checks every operand's base and strides, so #7's
+//   and #8's strided views of qkv qualify) and the backward
+//   (tf32x3_bwd_dkdv_kernel, tf32x3_bwd_dq_kernel), the section below. One
+//   TF32 product keeps 10 mantissa bits, far from fp32; the sum of three
+//   (a_lo b_hi + a_hi b_lo + a_hi b_hi) keeps about 22, as SDPA's fp32 path
+//   does: on an H100 the forward reads 9.7e-7 relative L2 from an fp64
+//   forward at (4, 12, 1024, 64), the backward 1.7e-6, against the plain
+//   fp32 versions' 6.4e-7 and 6.6e-7 (PERF.md). What bounds them at (32,
+//   12, 1024, 64): the products, 4 b h N^2 d = 1.03e11 operations forward
+//   and 10 b h N^2 d = 2.58e11 backward, are three TF32 products each,
+//   0.62 and 1.56 ms at the tensor cores' 495 TFLOP/s (1.54 and 3.85 ms on
+//   the FMA pipes); mma.sync reaches about half that TF32 rate (wgmma takes
+//   TF32 only with both shared-memory operands K-major, which dV = P^T G,
+//   dK = dS^T Q and dQ = dS K's are not), the backward's two kernels do 14
+//   b h N^2 d, S and dP in both; the forward reads each B operand (K and V
+//   split, 1 KB a key a warp at d = 64) from shared memory for 16 rows.
+//   Design: a block of 8 warps keeps 128 rows of one side (K, V for dK/dV
+//   and q, g for dQ in shared memory; the forward's q as split fragments in
+//   registers), each warp 16 of them, and streams 64-row tiles of the other
+//   side by cp.async, the next tile's fp32 copy in flight while the block
+//   works on the current one, which it has split once into a hi and a lo
+//   tile (every warp reads the same tile: splitting it per warp was 45 % of
+//   the instructions). Fragments come by ldmatrix (the first products'
+//   operands) and 32-bit loads, rows padded to d + 4 floats so that neither
+//   meets a bank conflict; P and dS pass from the first products'
+//   accumulators to the second products as A operands in registers. The
+//   second products are summed over a tile from zero and added to the
+//   running sums in fp32: the tensor cores truncate each sum into the
+//   accumulator, and over all N / 8 steps that bias read 8e-6. Nothing is
+//   summed across blocks, so every output and lse are the same bits from
+//   run to run.
 //
-// * The forward, and the backward at other head dims, run on the CUDA
-//   cores' fp32 FMA pipes (67 TFLOP/s; at (32, 12, 1024, 64) the forward's
-//   4 b h N^2 d = 1.03e11 flops take 1.5 ms at that rate). The design is
-//   the plain tiled one, right first: a block of 256 threads owns 64 query
+// * Other head dims (the VMAE's d = 16 decode, d = 128) and unaligned views
+//   run on the CUDA cores' fp32 FMA pipes (67 TFLOP/s). The design is the
+//   plain tiled one, right first: a block of 256 threads owns 64 query
 //   rows (forward, dQ) or 64 keys (dK/dV) and streams 64-row tiles of the
 //   other side through shared memory (rows padded to an odd stride, so a
 //   column of rows hits 32 banks); thread (ty, tx) of 16 x 16 owns rows ty
 //   + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64 score tile, and
 //   columns tx + 16 c of each output row; the probabilities go through a
 //   shared 64 x 64 tile into the second product. Shared-memory loads, two
-//   per FMA in the score products, bound it before the FMA pipes do; the
-//   forwards on the tensor cores are later work.
+//   per FMA in the score products, bound it before the FMA pipes do.
 #include "attention_common.cuh"
 
 namespace {
@@ -436,7 +442,7 @@ __global__ void __launch_bounds__(kThreads) flash32_bwd_dq_kernel(const Bwd32Arg
   store_rows32<kC, kRope>(dq, a.scale, sk, a.dq + off, q0, n, d, a.cos, a.sin);
 }
 
-// ---- The backward on the tensor cores as 3xTF32 (d = 64 and 72) -----------
+// ---- The products on the tensor cores as 3xTF32 (d = 64 and 72) -----------
 //
 // Each fp32 operand x is split into x = hi + lo + e, hi the TF32 rounding of
 // x (cvt.rna.tf32.f32's: to nearest, ties away from zero), lo that of x - hi
@@ -450,8 +456,8 @@ __global__ void __launch_bounds__(kThreads) flash32_bwd_dq_kernel(const Bwd32Arg
 //   A (16x8, row): a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
 //   B (8x8, col):  b0 = (k = t, n = g), b1 = (k = t+4, n = g)
 //   C (16x8):      c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
-// The second products (dV = P^T G, dK = dS^T Q, dQ = dS K) take P and dS
-// from the first products' accumulators as A without a shuffle: their k
+// The second products (O = P V, dV = P^T G, dK = dS^T Q, dQ = dS K) take P
+// and dS from the first products' accumulators as A without a shuffle: their k
 // index (keys or queries) is summed, so k = t stands for column 2t of the
 // accumulator and k = t+4 for 2t+1, and B reads rows 2t and 2t+1 to match.
 
@@ -509,20 +515,24 @@ struct TcShape {
   // lse and delta
   static constexpr int kSmemDq = (2 * kRes + 6 * kTile) * 4;
   static constexpr int kSmemDkdv = kSmemDq + 4 * kTcTile * 4;
+  // the forward: the next K and V tiles in fp32, the current ones split
+  // (K hi, K lo, V hi, V lo); Q is staged in the split tiles before the
+  // first split
+  static constexpr int kSmemFwd = 6 * kTile * 4;
   // the first products' k loop unrolled whole at d = 64; at d = 72 by 3,
   // where whole it spilled (the dQ kernel 256-436 bytes) at no gain
   static constexpr int kUnrollK = kD / 8 > 8 ? 3 : kD / 8;
 };
 
-// rows 0..rows-1 of a contiguous (., kD) operand at g into a tile of row
-// stride kD + 4 by 16-byte cp.async; rows >= valid are zeros
+// rows 0..rows-1 of an operand at g (row stride sr, rows 16-byte aligned)
+// into a tile of row stride kD + 4 by 16-byte cp.async; rows >= valid are zeros
 template <int kD>
-__device__ __forceinline__ void tile_async(float* s, const float* g, int rows, int valid) {
+__device__ __forceinline__ void tile_async(float* s, const float* g, long long sr, int rows, int valid) {
   constexpr int kC = kD / 4, kLd = TcShape<kD>::kLd;
   for (int i = threadIdx.x; i < rows * kC; i += kTcThreads) {
     const int r = i / kC, c = 4 * (i % kC);
     const bool in = r < valid;
-    cp_async16_zfill(s + r * kLd + c, in ? g + (long long)r * kD + c : g, in ? 16 : 0);
+    cp_async16_zfill(s + r * kLd + c, in ? g + r * sr + c : g, in ? 16 : 0);
   }
 }
 
@@ -721,15 +731,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) tf32x3_bwd_dkdv_kernel(const Bw
 
   // rows q0.. of q and g into the fp32 tiles, lse and delta (padded to npad) into stage buf
   auto fetch = [&](int q0, int buf) {
-    tile_async<kD>(rq, a.q + off + (long long)q0 * kD, kTcTile, n - q0);
-    tile_async<kD>(rg, a.g + off + (long long)q0 * kD, kTcTile, n - q0);
+    tile_async<kD>(rq, a.q + off + (long long)q0 * kD, kD, kTcTile, n - q0);
+    tile_async<kD>(rg, a.g + off + (long long)q0 * kD, kD, kTcTile, n - q0);
     const int i = threadIdx.x % (kTcTile / 4);
     if (threadIdx.x < kTcTile / 4) cp_async16(sl + buf * kTcTile + 4 * i, lse + q0 + 4 * i);
     else if (threadIdx.x < kTcTile / 2) cp_async16(sd + buf * kTcTile + 4 * i, delta + q0 + 4 * i);
     cp_async_commit();
   };
-  tile_async<kD>(sk, a.k + off + (long long)k0 * kD, kTcRows, n - k0);
-  tile_async<kD>(sv, a.v + off + (long long)k0 * kD, kTcRows, n - k0);
+  tile_async<kD>(sk, a.k + off + (long long)k0 * kD, kD, kTcRows, n - k0);
+  tile_async<kD>(sv, a.v + off + (long long)k0 * kD, kD, kTcRows, n - k0);
   fetch(0, 0);
 
   float dk[kN][4], dv[kN][4];
@@ -792,12 +802,12 @@ __global__ void __launch_bounds__(kTcThreads, 1) tf32x3_bwd_dq_kernel(const Bwd3
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 
   auto fetch = [&](int kv0) {
-    tile_async<kD>(rk, a.k + off + (long long)kv0 * kD, kTcTile, n - kv0);
-    tile_async<kD>(rv, a.v + off + (long long)kv0 * kD, kTcTile, n - kv0);
+    tile_async<kD>(rk, a.k + off + (long long)kv0 * kD, kD, kTcTile, n - kv0);
+    tile_async<kD>(rv, a.v + off + (long long)kv0 * kD, kD, kTcTile, n - kv0);
     cp_async_commit();
   };
-  tile_async<kD>(sq, a.q + off + (long long)q0 * kD, kTcRows, n - q0);
-  tile_async<kD>(sg, a.g + off + (long long)q0 * kD, kTcRows, n - q0);
+  tile_async<kD>(sq, a.q + off + (long long)q0 * kD, kD, kTcRows, n - q0);
+  tile_async<kD>(sg, a.g + off + (long long)q0 * kD, kD, kTcRows, n - q0);
   fetch(0);
 
   // the lse and delta of this thread's rows g and g + 8 (rows past n: p = 0)
@@ -842,6 +852,132 @@ __global__ void __launch_bounds__(kTcThreads, 1) tf32x3_bwd_dq_kernel(const Bwd3
   store_staged<kD, kRope>(sq, a.dq + off, q0, n, a.cos, a.sin);
 }
 
+// ---- The forward on the tensor cores as 3xTF32 (d = 64 and 72) ------------
+//
+// A block of 8 warps owns 128 query rows, warp w rows 16w..16w+15, whose Q
+// fragments it loads and splits once and keeps in registers, and streams
+// the head's keys and values in 64-row tiles as the backward's dQ kernel
+// streams them (the next tile's fp32 copy in flight, the current one split
+// once for the block). Per tile: S = Q K^T as 3xTF32, summed from zero over
+// the d / 8 k steps; the online softmax in exp2 units in the C layout, a
+// row's statistics across the quad of lanes that holds it; O <- O alpha +
+// P V, P passed from S's accumulators as the A operand (split like any
+// operand) and the tile's P V summed from zero before it is added in fp32
+// (tile_product). On an H100, Q resident in shared memory and split at
+// every k step took fewer registers and ran a little slower, and two
+// stages of K and V (the block splitting tile it + 1 beside tile it's
+// products, one barrier a tile) ran no faster (PERF.md).
+// grid: (ceil(n / 128), batch * heads).
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, 1) tf32x3_fwd_kernel(const Fwd32Args a) {
+  using S = TcShape<kD>;
+  constexpr int kN = kD / 8, kLd = S::kLd;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* rk = smem_tc;            // the next key tile's k, v in fp32
+  float* rv = rk + S::kTile;
+  float* sk = rv + S::kTile;      // the current one's, split: hi, lo
+  float* sv = sk + 2 * S::kTile;
+  float* sq = sk;                 // Q in fp32 (128 rows), read before the first split
+
+  const int n = a.n;
+  const int bi = blockIdx.y / a.heads, hi = blockIdx.y % a.heads;
+  const float* q = a.q.p + bi * a.q.sb + hi * a.q.sh;
+  const float* k = a.k.p + bi * a.k.sb + hi * a.k.sh;
+  const float* v = a.v.p + bi * a.v.sb + hi * a.v.sh;
+  float* out = const_cast<float*>(a.o.p) + bi * a.o.sb + hi * a.o.sh;
+  const int q0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  auto fetch = [&](int kv0) {
+    tile_async<kD>(rk, k + (long long)kv0 * a.k.sr, a.k.sr, kTcTile, n - kv0);
+    tile_async<kD>(rv, v + (long long)kv0 * a.v.sr, a.v.sr, kTcTile, n - kv0);
+    cp_async_commit();
+  };
+  tile_async<kD>(sq, q + (long long)q0 * a.q.sr, a.q.sr, kTcRows, n - q0);
+  fetch(0);  // Q lands with the first tile
+  cp_async_wait<0>();
+  __syncthreads();
+  FragA qf[kN];  // this warp's 16 rows of Q, split
+#pragma unroll
+  for (int ks = 0; ks < kN; ++ks) ldsm_a(qf[ks], sq + warp * 16 * kLd + a_lane<kLd>() + 8 * ks);
+
+  float o[kN][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < kN; ++nd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[nd][j] = 0.f;
+  const int tiles = (n + kTcTile - 1) / kTcTile;
+  const int bo = b_lane<kLd>();
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has arrived, and every warp is done with tile it - 1's split tiles (and Q)
+    split_tile<kD>(sk, rk);
+    split_tile<kD>(sv, rv);
+    __syncthreads();
+    if (it + 1 < tiles) fetch((it + 1) * kTcTile);
+    // S = Q K^T: this warp's 16 queries by the tile's 64 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kN; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < 8; nt += 2) {
+        FragB b0, b1;
+        ldsm_b2<S::kTile>(b0, b1, sk + 8 * nt * kLd + bo + 8 * ks);
+        mma3(s[nt], qf[ks], b0);
+        mma3(s[nt + 1], qf[ks], b1);
+      }
+    // the online softmax in exp2 units; keys past n masked
+    const int valid = n - it * kTcTile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = 8 * nt + 2 * t + (j & 1) < valid ? s[nt][j] * a.scale_log2 : -INFINITY;
+        s[nt][j] = x;
+        mx[j / 2] = fmaxf(mx[j / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(m[i], attn::quad_max(mx[i]));
+      alpha[i] = exp2f(m[i] - mn);
+      m[i] = mn;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[nt][j] - m[j / 2]);
+        s[nt][j] = p;
+        l[j / 2] += p;  // this lane's part of the row's sum
+      }
+#pragma unroll
+    for (int nd = 0; nd < kN; ++nd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[nd][j] *= alpha[j / 2];
+    tile_product<kD>(o, s, sv);  // O += P V
+  }
+  // O / l through o's strides, lse = m + log2 l
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sum = attn::quad_sum(l[i]);
+    const int row = q0 + warp * 16 + g + 8 * i;
+    if (row >= n) continue;
+    const float inv = 1.f / sum;
+    float* dst = out + (long long)row * a.o.sr + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < kN; ++nd)
+      *reinterpret_cast<float2*>(dst + 8 * nd) = make_float2(o[nd][2 * i] * inv, o[nd][2 * i + 1] * inv);
+    if (a.lse != nullptr && t == 0) a.lse[(long long)blockIdx.y * n + row] = m[i] + log2f(sum);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -858,8 +994,26 @@ cudaError_t fwd_launch(const Fwd32Args& a, int bh, cudaStream_t s) {
 
 #define LDMAE_COLUMN_CLASSES(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
+template <int kD>
+cudaError_t tc_fwd_launch(const Fwd32Args& a, int bh, cudaStream_t s) {
+  constexpr int kSmem = TcShape<kD>::kSmemFwd;
+  const cudaError_t e = set_smem(tf32x3_fwd_kernel<kD>, kSmem);
+  if (e != cudaSuccess) return e;
+  tf32x3_fwd_kernel<kD><<<dim3((a.n + kTcRows - 1) / kTcRows, bh), kTcThreads, kSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// rows 16-byte aligned wherever (b, h, row) puts them
+bool aligned16(const Operand& x) {
+  return reinterpret_cast<uintptr_t>(x.p) % 16 == 0 && x.sb % 4 == 0 && x.sh % 4 == 0 && x.sr % 4 == 0;
+}
+
+// The forward: on the tensor cores as 3xTF32 at d = 64 and 72 when every
+// operand's rows are 16-byte aligned, flash32_fwd_kernel otherwise.
 cudaError_t fwd_dispatch(const Fwd32Args& a, int bh, cudaStream_t s) {
   if (a.d < 1 || a.d > 128) return cudaErrorInvalidValue;
+  if ((a.d == 64 || a.d == 72) && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o))
+    return a.d == 64 ? tc_fwd_launch<64>(a, bh, s) : tc_fwd_launch<72>(a, bh, s);
   switch ((a.d + 15) / 16) {
 #define LDMAE_CASE(C) \
   case C: return fwd_launch<C>(a, bh, s);
@@ -949,7 +1103,8 @@ NormRopeArgs rope_args(const void* q, const void* k, const float* cos, const flo
 // The entry points of flash_attention.cu with fp32 tensors in place of bf16
 // (same arguments, so the wrappers pick the library by dtype). lse, when
 // not null, receives the (bh, n) log2 denominators at every head dim; vec
-// is used by the RoPE pre-pass only.
+// is used by the RoPE pre-pass only (fwd_dispatch reads the operands'
+// alignment itself).
 extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                          float* lse, int bh, int n, int d, int vec, void* stream) {
   return static_cast<int>(fwd_dispatch(contiguous_fwd(q, k, v, out, lse, n, d), bh, static_cast<cudaStream_t>(stream)));

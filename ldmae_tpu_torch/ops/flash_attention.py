@@ -36,9 +36,11 @@ launches the kernel or raises: bf16 or fp32 (the configs' two compute
 dtypes), any head dim 1 <= d <= 128 (every arch of both registries; d > 128
 raises), any N. bf16 runs ``csrc/flash_attention.cu``, fp32
 ``csrc/flash_attention_fp32.cu``; within bf16 the kernel is chosen by shape
-(see ``flash_attention`` and ``flash_attention_rope``), and so is the fp32
-backward's, in its C dispatch: at d = 64 and 72 with 16-byte aligned rows
-every product runs on the tensor cores as 3xTF32, at other head dims on the
+(see ``flash_attention`` and ``flash_attention_rope``), and so are the fp32
+forward's and backward's, in their C dispatches: at d = 64 and 72 with
+16-byte aligned rows every product runs on the tensor cores as 3xTF32
+(the forward ``tf32x3_fwd_kernel`` for all four wrappers, #7's and #8's
+strided views included), at other head dims and for unaligned views on the
 FMA pipes. In fp32 the forward always writes lse, and the backward
 takes it with the output, as at d = 64 and 72 in bf16.
 ``<wrapper>.launches`` counts kernel launches. The plain
@@ -449,10 +451,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
       single-pass backward ``flash_bwd_wgmma_kernel``;
     * every other bf16 shape (VMAE d = 8 to 80 under autograd or past
       RESIDENT_MAX_N): the ``mma.sync`` core and the three-pass backward;
-    * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``): the SIMT
-      forward; the backward's dK/dV and dQ kernels on the tensor cores as
-      3xTF32 (``tf32x3_bwd_dkdv_kernel``, ``tf32x3_bwd_dq_kernel``) at d =
-      64 and 72 with 16-byte aligned rows, the SIMT ones at other d.
+    * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``): at d = 64
+      and 72 with 16-byte aligned rows on the tensor cores as 3xTF32, the
+      forward ``tf32x3_fwd_kernel`` and the backward's dK/dV and dQ kernels
+      (``tf32x3_bwd_dkdv_kernel``, ``tf32x3_bwd_dq_kernel``); the SIMT
+      ones (``flash32_fwd_kernel`` and the like) at other d.
 
     ``launches`` counts the forward launches but the resident kernel's
     (``flash_attention_resident.launches``)."""
@@ -490,7 +493,7 @@ def flash_attention_rope(
     backward), and the backward is the single-pass ``flash_bwd_wgmma_kernel``;
     every other bf16 head dim d <= 128 runs the ``mma.sync`` core that the
     other attention kernels share, and the three-pass backward; fp32 runs
-    the fp32 kernels, the backward on the tensor cores at d = 64 and 72 as
+    the fp32 kernels, on the tensor cores at d = 64 and 72 as
     ``flash_attention``'s."""
     if _needs_grad(q, k, v):
         return _FlashAttentionRope.apply(q, k, v, cos, sin)
@@ -521,7 +524,8 @@ def flash_attention_qknorm_rope(
     permuted views of the packed qkv are: the pre-pass reads q and k and the
     attention reads v in place. Returns a contiguous (B, H, N, d) tensor.
     The attention after the pre-pass is chosen by shape as in
-    ``flash_attention_rope`` (bf16 at d = 64 or 72: the wgmma kernel)."""
+    ``flash_attention_rope`` (at d = 64 or 72 with 16-byte aligned rows
+    and strides: in bf16 the wgmma kernel, in fp32 ``tf32x3_fwd_kernel``)."""
     what = "flash_attention_qknorm_rope"
     _forward_only(what, q, k, v, q_scale, k_scale)
     if q.device.type == "cpu":
@@ -568,7 +572,8 @@ def flash_attention_fused_rope(
     directly, nothing transposed: in bf16 at d = 64 or 72 with 16-byte
     aligned rows and strides the wgmma kernel ``flash_fwd_wgmma_kernel`` (4D tensor
     maps over the strided operands), else the ``mma.sync`` core; fp32 the
-    fp32 kernels."""
+    fp32 kernels (at d = 64 or 72 with 16-byte aligned rows and strides
+    ``tf32x3_fwd_kernel``, on the tensor cores as 3xTF32)."""
     what = "flash_attention_fused_rope"
     _forward_only(what, q, k, v)
     if q.device.type == "cpu":

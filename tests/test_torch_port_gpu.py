@@ -149,8 +149,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def _assert_route(fn, d, aligned):
     """fn's attention ran on the wgmma forward at d = 64 or 72 with 16-byte
     aligned operands, else on the mma.sync core (by kernel name)."""
-    names, _ = _kernel_names(fn)
     wgmma = d in tfa.WGMMA_HEAD_DIMS and aligned
+
+    def route(names):
+        return (any("flash_fwd_wgmma_kernel" in k for k in names) == wgmma
+                and any("flash_fwd_kernel" in k for k in names) == (not wgmma))
+
+    names, _ = _kernel_names(fn, need=route)
     assert any("flash_fwd_wgmma_kernel" in k for k in names) == wgmma, names
     assert any("flash_fwd_kernel" in k for k in names) == (not wgmma), names
 
@@ -415,11 +420,16 @@ def _check_one_pass(shape, rope, device):
     fwd = tfa.flash_attention_rope if rope else tfa.flash_attention
     bwd = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
     counts = fwd.launches, bwd.launches
-    names, calls = _kernel_names(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    want = sorted(["flash_bwd_postprocess_kernel", "flash_bwd_preprocess_kernel", "flash_bwd_wgmma_kernel"]
+                  + (["norm_rope_kernel"] if rope else []))
+
+    def ours(names):
+        return sorted(m.group(1) for n in names if (m := re.search(r"(flash_\w+_kernel|norm_rope_kernel)", n)))
+
+    names, calls = _kernel_names(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                                 need=lambda names: ours(names) == want)
     assert (fwd.launches, bwd.launches) == (counts[0], counts[1] + calls)
-    ours = sorted(m.group(1) for n in names if (m := re.search(r"(flash_\w+_kernel|norm_rope_kernel)", n)))
-    want = ["flash_bwd_postprocess_kernel", "flash_bwd_preprocess_kernel", "flash_bwd_wgmma_kernel"]
-    assert ours == sorted(want + (["norm_rope_kernel"] if rope else [])), names
+    assert ours(names) == want, names
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     refs = (tfa.flash_attention_rope_bwd_plain(qd, kd, vd, g, cos, sin) if rope
             else tfa.flash_attention_bwd_plain(qd, kd, vd, g))
@@ -654,6 +664,71 @@ def test_cuda_fp32_training_shape(cuda, rope):
     grads = torch.autograd.grad(out, (q, k, v), g)
     plain = tfa.flash_attention_rope_bwd_plain if rope else tfa.flash_attention_bwd_plain
     _assert_f32_bwd_close(grads, plain(qd, kd, vd, g, *tables))
+
+
+# the fp32 forward on the tensor cores (3xTF32, ``tf32x3_fwd_kernel``) for
+# #1, #2, #7 and #8: B/1's and XL/1's training shapes, the patch-2 archs' N
+# = 256, a ragged N; #7 and #8 on views of a packed qkv at the sampling shape
+_F32_FWD_SHAPES = [(32, 12, 1024, 64), (32, 16, 1024, 72), (32, 16, 256, 64), (2, 12, 1000, 64),
+                   (2, 12, 1000, 72)]
+_FWD_NAMES = ["flash_attention", "flash_attention_rope", "flash_attention_qknorm_rope", "flash_attention_fused_rope"]
+
+
+# which fp32 kernels run, by torch.profiler: early in the file, since late
+# in a long process traces have come back without some kernels' records
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("d", [16, 64, 72, 128])
+def test_cuda_fp32_bwd_kernels_by_head_dim(cuda, d, rope):
+    """At d = 64 and 72 (the C dispatch's choice) the fp32 backward runs the
+    tensor-core kernels and not the SIMT ones, at d = 16 and 128 the SIMT
+    kernels; every one within F32_BWD of the plain backward (N ragged)."""
+    args, kernel, plain = _f32_bwd_call((2, 12, 1000, d), rope, cuda)
+    tc = d in (64, 72)
+    want = {"flash32_bwd_preprocess_kernel"} | (
+        {"tf32x3_bwd_dkdv_kernel", "tf32x3_bwd_dq_kernel"} if tc else {"flash32_bwd_dkdv_kernel", "flash32_bwd_dq_kernel"})
+
+    def ours(names):
+        return {m.group(1) for n in names if (m := re.search(r"((?:tf32x3|flash32)_bwd_\w+_kernel)", n))}
+
+    names, _ = _kernel_names(lambda: kernel(*args), need=lambda names: ours(names) == want)
+    assert ours(names) == want, names
+    _assert_f32_bwd_close(kernel(*args), plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _FWD_NAMES)
+@pytest.mark.parametrize("d,unaligned", [(16, False), (64, False), (72, False), (128, False), (64, True)],
+                         ids=["16", "64", "72", "128", "64-unaligned"])
+def test_cuda_fp32_fwd_kernel_by_head_dim(cuda, d, unaligned, name):
+    """At d = 64 and 72 with 16-byte aligned rows (the C dispatch's choice)
+    every fp32 forward runs the tensor-core kernel and not the SIMT one; at
+    d = 16 and 128, and with v one float off a 16-byte boundary, the SIMT
+    kernel; every one within F32_FWD of its plain version (N ragged)."""
+    shape = (2, 12, 1000, d)
+    if unaligned:
+        b, h, n, _ = shape
+        cos, sin = _rope_tables(d, n, cuda)
+        q, k = (_randn(shape, s, cuda, torch.float32) for s in range(2))
+        if name in ("flash_attention", "flash_attention_rope"):
+            v = _randn((b * h * n * d + 1,), 2, cuda, torch.float32)[1:].view(shape)
+        else:  # rows of a packed qkv padded by one float
+            qkv = _randn((b, n, 3 * h * d + 1), 2, cuda, torch.float32)[..., :3 * h * d].unflatten(-1, (3, h, d))
+            q, k, v = qkv.unbind(2) if name == "flash_attention_fused_rope" else qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        qs, ks = (1 + 0.1 * _randn((d,), s, cuda, torch.float32) for s in (3, 4))
+        tab = {"flash_attention": (), "flash_attention_qknorm_rope": (qs, ks, cos, sin)}.get(name, (cos, sin))
+        kernel = (lambda: getattr(tfa, name)(q, k, v, *tab))
+        plain = (lambda: getattr(tfa, f"{name}_plain")(q, k, v, *tab))
+    else:
+        kernel, plain = _f32_fwd_call(name, shape, cuda)
+    want = {"tf32x3_fwd_kernel"} if d in (64, 72) and not unaligned else {"flash32_fwd_kernel"}
+
+    def ours(names):
+        return {m.group(1) for n in names if (m := re.search(r"((?:tf32x3|flash32)_fwd_kernel)", n))}
+
+    names, _ = _kernel_names(kernel, need=lambda names: ours(names) == want)
+    assert ours(names) == want, names
+    _assert_f32_close(kernel(), plain())
 
 
 @pytest.mark.gpu
@@ -1989,21 +2064,86 @@ def test_cuda_fp32_bwd_tensor_cores_vs_fp64(cuda, shape, rope):
     assert all(e > b for e, b in zip(tf32, bounds)), (tf32, bounds)
 
 
+def _f32_fwd_call(name, shape, device):
+    """The wrapper ``name`` on fp32 operands of (B, H, N, d) ``shape`` as the
+    attention module passes them (#7 the permuted views of a packed qkv, #8
+    its (B, N, H, d) slices), and its plain version, as two thunks."""
+    b, h, n, d = shape
+    cos, sin = _rope_tables(d, n, device)
+    if name in ("flash_attention", "flash_attention_rope"):
+        q, k, v = (_randn(shape, s, device, torch.float32) for s in range(3))
+        tab = (cos, sin) if name == "flash_attention_rope" else ()
+        return (lambda: getattr(tfa, name)(q, k, v, *tab)), (lambda: getattr(tfa, f"{name}_plain")(q, k, v, *tab))
+    qkv = _randn((b, n, 3, h, d), 5, device, torch.float32, scale=3.0)
+    if name == "flash_attention_fused_rope":
+        q, k, v = qkv.unbind(2)
+        return (lambda: tfa.flash_attention_fused_rope(q, k, v, cos, sin),
+                lambda: tfa.flash_attention_fused_rope_plain(q, k, v, cos, sin))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    qs, ks = (1 + 0.1 * _randn((d,), s, device, torch.float32) for s in (3, 4))
+    return (lambda: tfa.flash_attention_qknorm_rope(q, k, v, qs, ks, cos, sin),
+            lambda: tfa.flash_attention_qknorm_rope_plain(q, k, v, qs, ks, cos, sin))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _FWD_NAMES)
+@pytest.mark.parametrize("shape", _F32_FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_fp32_fwd_tensor_cores_vs_plain(cuda, shape, name):
+    """Each fp32 forward within F32_FWD of its plain version, the same bits
+    from two calls (nothing is summed across blocks)."""
+    if name in ("flash_attention_qknorm_rope", "flash_attention_fused_rope") and shape[0] == 32:
+        shape = (16, *shape[1:])  # the sampling batch (CFG-doubled 8)
+    kernel, plain = _f32_fwd_call(name, shape, cuda)
+    first, second = kernel(), kernel()
+    _assert_f32_close(first, plain())
+    assert torch.equal(first, second)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
-@pytest.mark.parametrize("d", [16, 64, 72, 128])
-def test_cuda_fp32_bwd_kernels_by_head_dim(cuda, d, rope):
-    """At d = 64 and 72 (the C dispatch's choice) the fp32 backward runs the
-    tensor-core kernels and not the SIMT ones, at d = 16 and 128 the SIMT
-    kernels; every one within F32_BWD of the plain backward (N ragged)."""
-    args, kernel, plain = _f32_bwd_call((2, 12, 1000, d), rope, cuda)
-    tc = d in (64, 72)
-    want = {"flash32_bwd_preprocess_kernel"} | (
-        {"tf32x3_bwd_dkdv_kernel", "tf32x3_bwd_dq_kernel"} if tc else {"flash32_bwd_dkdv_kernel", "flash32_bwd_dq_kernel"})
+@pytest.mark.parametrize("shape", [(32, 12, 1024, 64), (32, 16, 1024, 72), (2, 12, 1000, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_fp32_fwd_lse_vs_plain(cuda, shape, rope):
+    """Under autograd the fp32 forward saves lse: within chip_smoke's F32_LSE
+    of the plain lse (log2 units), the same bits from two calls."""
+    import chip_smoke
 
-    def ours(names):
-        return {m.group(1) for n in names if (m := re.search(r"((?:tf32x3|flash32)_bwd_\w+_kernel)", n))}
+    q, k, v = (_randn(shape, s, cuda, torch.float32).requires_grad_() for s in range(3))
+    tables = _rope_tables(shape[3], shape[2], cuda) if rope else ()
+    fwd = tfa.flash_attention_rope if rope else tfa.flash_attention
+    outs = [fwd(q, k, v, *tables) for _ in range(2)]  # alive: the Function saves its output
+    lse, again = (out.grad_fn.saved_tensors[-1] for out in outs)
+    qd, kd = ((tfa._rope_fp32(t.detach(), *tables) for t in (q, k)) if rope else (q.detach(), k.detach()))
+    assert float((lse - tfa.flash_attention_lse_plain(qd, kd)).abs().max()) <= chip_smoke.F32_LSE
+    assert torch.equal(lse, again)
 
-    names, _ = _kernel_names(lambda: kernel(*args), need=lambda names: ours(names) == want)
-    assert ours(names) == want, names
-    _assert_f32_bwd_close(kernel(*args), plain(*args))
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 12, 1024, 64), (4, 16, 1024, 72)], ids=["d64", "d72"])
+def test_cuda_fp32_fwd_tensor_cores_vs_fp64(cuda, shape):
+    """``chip_smoke.py``'s fp64 gate on the forward: the output within
+    max(F64_SLACK x the plain fp32 forward's relative L2 error against the
+    fp64 forward, F64_FLOOR), lse within max(F64_SLACK x the plain lse's
+    largest error, F64_FLOOR); the plain forward with TF32 matmuls (one TF32
+    product) reads above both bounds."""
+    import chip_smoke
+
+    q, k, v = (_randn(shape, s, cuda, torch.float32) for s in range(3))
+    exact = tfa.flash_attention_plain(q.double(), k.double(), v.double())
+    exact_lse = tfa.flash_attention_lse_plain(q.double(), k.double())
+
+    def errs(out, lse):
+        return float((out.double() - exact).norm() / exact.norm()), float((lse.double() - exact_lse).abs().max())
+
+    def plain():
+        return tfa.flash_attention_plain(q, k, v), tfa.flash_attention_lse_plain(q, k)
+
+    got, f32 = errs(*tfa._flash_attention_fwd(q, k, v, with_lse=True)), errs(*plain())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = errs(*plain())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bounds = [max(chip_smoke.F64_SLACK * e, chip_smoke.F64_FLOOR) for e in f32]
+    assert all(e <= b for e, b in zip(got, bounds)), (got, bounds)
+    assert all(e > b for e, b in zip(tf32, bounds)), (tf32, bounds)
