@@ -34,7 +34,10 @@ attention bounds), then:
   1b. bf16 attention forward and backward at head dims 8, 12, 24, 32, 36,
      80 and 128 against their plain versions; every fp32 instantiation
      (#3, #4, #9, #10 at the B/1 shapes) against its plain fp32 version,
-     timed; #1, #2, #7 and #8 in fp32, on the tensor cores as 3xTF32 at d =
+     timed; #4 in fp32 (3xTF32 on the GEMM engine) also against the fp64
+     function at B/1's and XL/1's widths with the TF32-matmul control that
+     must fail, its kernels named, beside ``torch.addmm`` and the bound by
+     both routes (``matmul_silu_f32_row``); #1, #2, #7 and #8 in fp32, on the tensor cores as 3xTF32 at d =
      64 and 72 (``fp32_fwd_phase``): against the plain fp32 forward (and
      its lse) at B/1's and XL/1's training shapes, N = 256, a ragged N and
      the sampling shape (#7 and #8 on views of a packed qkv), against the
@@ -223,10 +226,13 @@ attention bounds), then:
      ``checkpoint-0.pth`` with its frozen parameters bitwise unchanged,
      steps/s, images/s, TFLOP/s, MFU and peak memory; a micro-batch's
      gradients against ``dense``'s plain version and LPIPS's gradient in
-     the reconstruction; the flash leg (#2 and #5 at head dim 16 counted by
+     the reconstruction; the flash leg (#2, under autograd the resident
+     kernel with lse, and #5, the single pass, at head dim 16 counted by
      shape, gradients against xla, one step timed under each); #2 and #5 at
-     the three d = 16 shapes against their plain versions beside SDPA,
-     with bounds (their own JSON line, ``{"vmae_train_kernels": [...]}``);
+     the three d = 16 shapes against their plain versions (#5 bit for bit
+     from run to run, its kernels named) beside SDPA (warm and queued), with
+     bounds (their own JSON line, ``{"vmae_train_kernels": [...]}``; stage
+     3's #5 also the kernels line's ``flash_attention_bwd_d16``);
      one micro-batch's device time split by group; then stage 1 with
      ``--gradual_resol`` (patch 4: 1,024 tokens either side of the token
      convolutions; the micro-batch cut to 32 x 8), dense counted by shape,
@@ -342,7 +348,11 @@ line; ``--fp32-fwd`` the same for the fp32 forward (``fp32_fwd_phase``),
 ending with an ``{"fp32_fwd_times": {...}}`` line. Copied into an unpacked
 earlier commit, either times that commit's kernels at the same shapes
 (``--fp32-fwd --any-route`` names the forward's kernels without asserting
-them, for a commit whose fp32 forward ran other kernels).
+them, for a commit whose fp32 forward ran other kernels). ``--redesigned``
+builds the libraries of #5 at d = 16 and #4 in fp32 and runs their rows
+alone (``vmae_attention_rows`` at the flash leg's shapes,
+``matmul_silu_f32_row``), ending with a ``{"redesigned_times": {...}}``
+line.
 
 ``python3 chip_smoke.py --rows`` runs only the #3 / #9 row phases (batch 8,
 batch 36, the training shape, fp32) after building their two libraries,
@@ -444,6 +454,9 @@ KERNELS = {
     "fused_norm_modulate_bwd_tp_train": (_NORM_ROWS, f"{_PALLAS_AD}:263", "tp_train",
                                          "fused_norm_modulate_bwd_kernel"),
     "dense_tp_train": (_DENSE, "ldmae_tpu/ops/linear.py:21", "tp_train", "dense_bias_f32"),
+    # #5 at the VMAE's d = 16 (the single pass), stage 3's decoder shape and
+    # launches a step of the flash leg (make_vmae_train_step(attn_impl="flash"))
+    "flash_attention_bwd_d16": (_FA, f"{_PALLAS_FA}:151", "vmae_flash_stage3", "flash_attention_bwd"),
     "dense_f32_out_tp_train": (_DENSE, "ldmae_tpu/ops/linear.py:21", "tp_train", "dense_f32_out"),
 }
 WRAPPERS = ("flash_attention_rope", "flash_attention", "fused_norm_modulate", "fused_matmul_silu",
@@ -1025,11 +1038,16 @@ def wgmma_ptxas(report: dict) -> None:
                     if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
                         raise SystemExit(f"{kernel}<{d}, {bool(flag)}>: ptxas reports spills (or no entry): "
                                          f"{summary}")
-    for d in (64, 72):  # the fp32 forward on the tensor cores
-        summary = ptxas_summary(report["flash_attention_fp32"]["ptxas"], f"tf32x3_fwd_kernelILi{d}EE")
-        log(f"  ptxas tf32x3_fwd_kernel<{d}>: {summary}")
+    # the fp32 forward on the tensor cores; the single-pass backward at d = 16
+    # (no RoPE); #4's fp32 GEMM (3xTF32 on wgmma)
+    for lib, kernel, label in (
+            *(("flash_attention_fp32", f"tf32x3_fwd_kernelILi{d}EE", f"tf32x3_fwd_kernel<{d}>") for d in (64, 72)),
+            ("flash_attention", "flash_bwd_wgmma_kernelILi16ELb0EE", "flash_bwd_wgmma_kernel<16, false>"),
+            ("fused_matmul_silu", "GateEpiF32", "gemm_kernel<float, ..., GateEpiF32>")):
+        summary = ptxas_summary(report[lib]["ptxas"], kernel)
+        log(f"  ptxas {label}: {summary}")
         if re.search(r"[1-9]\d* bytes spill", summary) or summary == "not in the report":
-            raise SystemExit(f"tf32x3_fwd_kernel<{d}>: ptxas reports spills (or no entry): {summary}")
+            raise SystemExit(f"{label}: ptxas reports spills (or no entry): {summary}")
 
 
 def engine_ptxas(report: dict) -> None:
@@ -1053,12 +1071,12 @@ def gemm_ptxas(report: dict) -> None:
     for lib in ("fused_matmul_silu", "dense"):
         log_ = report[lib]["ptxas"]
         for name in sorted(set(re.findall(r"Compiling entry function '(_ZN4gemm11gemm_kernel[^']*)'", log_))):
-            cfg = re.search(r"ConfigI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE", name)
-            epi = re.search(r"(BiasEpi|GateEpi|DequantEpiI13__nv_bfloat16E|DequantEpiIfE)", name)
+            cfg = re.search(r"ConfigI(13__nv_bfloat16|a|f)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE", name)
+            epi = re.search(r"(BiasEpi|GateEpiF32|GateEpi|DequantEpiI13__nv_bfloat16E|DequantEpiIfE)", name)
             if cfg is None or epi is None:
                 log(f"  ptxas {name}: {ptxas_summary(log_, name)}")
                 continue
-            label = (f"{'bf16' if cfg[1].startswith('13') else 'int8'} BN={cfg[2]} cluster={cfg[3]} "
+            label = (f"{ {'a': 'int8', 'f': 'fp32 (3xTF32)'}.get(cfg[1], 'bf16')} BN={cfg[2]} cluster={cfg[3]} "
                      f"stages={cfg[4]}x{cfg[5]} {epi[1].replace('I13__nv_bfloat16E', '<bf16>').replace('IfE', '<fp32>')}")
             log(f"  ptxas gemm_kernel {label}: {ptxas_summary(log_, name)}")
 
@@ -2357,7 +2375,7 @@ OWN_KERNELS = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "norm_rope_kernel",
                "gemm_kernel", "silu_mul_quant_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_preprocess_kernel",
                "flash_bwd_wgmma_kernel", "flash_bwd_postprocess_kernel", "flash_fwd_resident_kernel",
-               "norm_rope_any_kernel", "flash32_", "matmul_silu_f32_kernel")
+               "norm_rope_any_kernel", "flash32_", "split_tf32_kernel")
 # device-time groups of the profile, by kernel name; the first match wins
 PROFILE_GROUPS = (
     ("port kernels", OWN_KERNELS),
@@ -2668,6 +2686,39 @@ def fp32_bwd_only(dev) -> int:
     return 0
 
 
+# the flash leg's d = 16 shapes and #5's launches a step at them (the VMAE
+# stage 1 encoder and decoder at batch 128, stage 3's decoder at 16: its
+# kernels-line row)
+VMAE_D16_SHAPE = [16, 12, 1024, 16]
+VMAE_D16_LAUNCHES = {(128, 12, 192, 16): 24, (128, 12, 256, 16): 24, tuple(VMAE_D16_SHAPE): 192}
+
+
+def redesigned_only(dev) -> int:
+    """``--redesigned``: #5 at d = 16 (``vmae_attention_rows`` at the flash
+    leg's three shapes, the launches a step of a full run) and #4 in fp32
+    (``matmul_silu_f32_row``) alone, after the two libraries' build (the
+    ptxas checks of the single pass at d = 16 and the fp32 GEMM) and the
+    rate probes; ends with a ``{"redesigned_times": {...}}`` line. Copied
+    into an unpacked earlier commit it times that commit's kernels the same
+    way where its wrappers take the same arguments."""
+    import torch
+
+    from ldmae_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    report = kernels.build(["flash_attention", "flash_attention_fp32", "fused_matmul_silu", "dense"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    wgmma_ptxas(report)
+    gemm_ptxas(report)
+    rate_probes(dev)
+    t1 = time.perf_counter()
+    rows = vmae_attention_rows(dev, VMAE_D16_LAUNCHES, VMAE_D16_LAUNCHES)
+    f32 = matmul_silu_f32_row(dev, 2 * BATCH)
+    log(f"[time] the two kernels' rows {time.perf_counter() - t1:.1f} s")
+    log(json.dumps({"redesigned_times": {"vmae": rows, "fused_matmul_silu_fp32": f32}}))
+    return 0
+
+
 # The fp32 forward (#1, #2, #7, #8) on the tensor cores as 3xTF32 at d = 64
 # and 72 (tf32x3_fwd_kernel behind each wrapper's pre-pass): against the
 # plain fp32 forward within F32_FWD at F32_FWD_SHAPES (#1 and #2 with lse
@@ -2879,6 +2930,87 @@ def fp32_fwd_only(dev) -> int:
     return 0
 
 
+F32X3_REL = 1e-5  # #4 in fp32 (3xTF32) against the fp64 function: relative L2
+
+
+def matmul_silu_f64_gate(x, w12, b12) -> dict:
+    """#4 in fp32 against the fp64 function on the same operands: fails
+    unless within F32X3_REL relative L2, and unless the plain version with
+    TF32 matmuls (one TF32 product) reads above that bound."""
+    import torch
+
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+
+    acc = x.double() @ w12.double().t() + b12.double()
+    x1, x2 = acc.chunk(2, dim=-1)
+    exact = x1 * torch.sigmoid(x1) * x2
+    del acc, x1, x2
+
+    def rel(out):
+        return float((out.double() - exact).norm() / exact.norm())
+
+    kernel, f32 = rel(fad.fused_matmul_silu(x, w12, b12)), rel(fad.fused_matmul_silu_plain(x, w12, b12))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = rel(fad.fused_matmul_silu_plain(x, w12, b12))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ok, control = kernel <= F32X3_REL, tf32 > F32X3_REL
+    log(f"  fused_matmul_silu fp32 {tuple(x.shape)} x {tuple(w12.shape)} against fp64 (relative L2): kernel "
+        f"{kernel:.3g}, plain fp32 {f32:.3g}, bound {F32X3_REL:g} -> {'ok' if ok else 'FAIL'}; control (plain, TF32 "
+        f"matmuls) {tf32:.3g} must exceed it -> {'ok' if control else 'FAIL'}")
+    if not (ok and control):
+        raise SystemExit("fused_matmul_silu fp32: the fp64 gate failed, or its TF32 control read within it")
+    return {"fp64_rel_l2": kernel, "plain_fp64_rel_l2": f32, "tf32_control_rel_l2": tf32}
+
+
+def matmul_silu_f32_row(dev, b2: int) -> tuple:
+    """#4 in fp32 at the B/1 sampling shape (b2 images of 1,024 tokens, the
+    CFG-doubled batch): against its plain version (F32_FWD) and the fp64
+    function (``matmul_silu_f64_gate``), by route (the split pass and the
+    GEMM engine), timed beside ``torch.addmm`` (TF32 off) and its bounds,
+    3xTF32 and the FMA pipes; then XL/1's widths, the gates alone. Returns
+    the kernels line's row."""
+    import torch
+
+    from ldmae_tpu_torch.ops import fused_adaln as fad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    d = 768
+    m, h2 = b2 * 1024, 4096
+    x = randn(m, d)
+    w12 = randn(h2, d, scale=d**-0.5)
+    b12 = randn(h2, scale=0.1)
+    run = lambda: fad.fused_matmul_silu(x, w12, b12)  # noqa: E731
+    err = f32_compare("fused_matmul_silu_fp32", run(), fad.fused_matmul_silu_plain(x, w12, b12))
+    gate = matmul_silu_f64_gate(x, w12, b12)
+    # the split pass, then the GEMM engine (its fp32 configuration: the only one that takes fp32)
+    parts = train_route("fused_matmul_silu fp32 (B/1)", run, ("split_tf32_kernel", "gemm_kernel"), ())
+    ms, queued = cuda_ms(run, 10), queued_ms(run, 20)
+    plain_ms = cuda_ms(lambda: fad.fused_matmul_silu_plain(x, w12, b12), 3, 1)
+    lib_ms = cuda_ms(lambda: torch.addmm(b12, x, w12.t()), 5)
+    nbytes, flops = (m * d + h2 * d + m * h2 // 2) * 4 + h2 * 4, 2 * m * d * h2
+    bnd, fma = bound(nbytes, tf32x3_flops=flops), bound(nbytes, fp32_flops=flops)[0]
+    log(f"  fused_matmul_silu_fp32 ({m}, {d}) x ({h2}, {d}): kernel {ms:.4f} ms (queued {queued:.4f}), parts "
+        f"{ {n_: round(v_, 4) for n_, v_ in parts['kernels_ms'].items()} }, torch.addmm {lib_ms:.4f} ms (kernel / "
+        f"addmm {ms / lib_ms:.3f}), bound 3xTF32 {bnd[0]:.4f} ms ({bnd[1]}; share {bnd[0] / ms:.3f}), FMA pipes "
+        f"{fma:.4f} ms (share {fma / ms:.3f})")
+    row = (err, ms, plain_ms, lib_ms, *bnd, parts | gate | {"queued_ms": queued, "fma_bound_ms": fma})
+    d, h2 = 1152, 6144  # XL/1's widths: the gates alone
+    x, w12, b12 = randn(m, d), randn(h2, d, scale=d**-0.5), randn(h2, scale=0.1)
+    f32_compare(f"fused_matmul_silu_fp32 XL/1 ({m}, {d}) x ({h2}, {d})", fad.fused_matmul_silu(x, w12, b12),
+                fad.fused_matmul_silu_plain(x, w12, b12))
+    matmul_silu_f64_gate(x, w12, b12)
+    del x, w12
+    torch.cuda.empty_cache()
+    return row
+
+
 def fp32_kernel_phase(dev, batch: int) -> dict:
     """Every kernel's fp32 instantiation against its plain fp32 version
     (TF32 off) and timed beside it and a library call: #1, #2, #7 and #8
@@ -2904,19 +3036,8 @@ def fp32_kernel_phase(dev, batch: int) -> dict:
     rows |= adaln_row_kernels(dev, b2, f"fp32 (batch {batch})", torch.float32)
     rows["fused_norm_modulate_bwd_fp32"] = fnm_bwd_row(dev, "fp32 (B/1 training shape)", TRAIN_BATCH, 1024, 768, 22,
                                                        torch.float32)
-    d = 768
+    rows["fused_matmul_silu_fp32"] = matmul_silu_f32_row(dev, b2)
     m, h2 = b2 * 1024, 4096
-    x = randn(m, d)
-    w12 = randn(h2, d, scale=d**-0.5)
-    b12 = randn(h2, scale=0.1)
-    err = f32_compare("fused_matmul_silu_fp32", fad.fused_matmul_silu(x, w12, b12),
-                      fad.fused_matmul_silu_plain(x, w12, b12))
-    ms = cuda_ms(lambda: fad.fused_matmul_silu(x, w12, b12), 5)
-    plain_ms = cuda_ms(lambda: fad.fused_matmul_silu_plain(x, w12, b12), 3, 1)
-    lib_ms = cuda_ms(lambda: torch.addmm(b12, x, w12.t()), 5)
-    rows["fused_matmul_silu_fp32"] = (err, ms, plain_ms, lib_ms, *bound(
-        (m * d + h2 * d + m * h2 // 2) * 4 + h2 * 4, fp32_flops=2 * m * d * h2), {})
-    del x, w12
     x12 = randn(b2, 1024, h2, scale=2.0)
     err = compare_quant("fused_silu_mul_quant_fp32", fad.fused_silu_mul_quant(x12), fad.fused_silu_mul_quant_plain(x12))
     ms = cuda_ms(lambda: fad.fused_silu_mul_quant(x12), 20)
@@ -4035,11 +4156,17 @@ def vmae_flash_leg(dev, stage: dict, tune_decoder: bool, lp_fn) -> dict:
     want = collections.Counter({dec: a * spec.decoder_depth})
     if not tune_decoder:
         want[enc] += a * spec.depth
+    # under autograd at d = 16 and N <= 3,072 #2 is the resident kernel with
+    # lse (the single-pass backward's), counted as flash_attention_resident,
+    # as are stage 3's encoder forwards without a gradient
+    resident = collections.Counter({sh: c for sh, c in want.items()
+                                    if fa._resident_lse(torch.bfloat16, sh[3], 8, sh[2], False)})
+    fwd_want = resident + collections.Counter({enc: a * spec.depth} if tune_decoder else {})
     what = f"vmae_flash_{'stage3' if tune_decoder else 'stage1'}"
     EXPECTED_LAUNCHES[f"{what}_xla"] = _NONE | {"dense_bias_f32": dense_n}
-    EXPECTED_LAUNCHES[what] = _NONE | {"dense_bias_f32": dense_n, "flash_attention": sum(want.values()),
+    EXPECTED_LAUNCHES[what] = _NONE | {"dense_bias_f32": dense_n, "flash_attention": sum((want - resident).values()),
                                        "flash_attention_bwd": sum(want.values()),
-                                       "flash_attention_resident": a * spec.depth if tune_decoder else 0}
+                                       "flash_attention_resident": sum(fwd_want.values())}
     out = {}
     for attn_impl in ("xla", "flash"):
         model = _vmae_model(dev, stage, tune_decoder)
@@ -4051,7 +4178,7 @@ def vmae_flash_leg(dev, stage: dict, tune_decoder: bool, lp_fn) -> dict:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         shape = lambda q, *rest: tuple(q.shape)  # noqa: E731
-        with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention", shape) as fwd, \
+        with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention_resident", shape) as fwd, \
                 launches_by_shape(fa, "flash_attention_bwd", "flash_attention_bwd", shape) as bwd:
             t0 = time.perf_counter()
             metrics = step(state, batch, gen)
@@ -4062,7 +4189,7 @@ def vmae_flash_leg(dev, stage: dict, tune_decoder: bool, lp_fn) -> dict:
             f"loss {float(metrics['loss']):.6g}; launches { {k: v for k, v in counts.items() if v} }")
         check_counts(what if attn_impl == "flash" else f"{what}_xla", counts)
         if attn_impl == "flash":
-            check_shapes(f"{what}: #2 by shape", fwd, want)
+            check_shapes(f"{what}: #2 (resident) by shape", fwd, fwd_want)
             check_shapes(f"{what}: #5 by shape", bwd, want)
         out[attn_impl] = dict(counts=counts, fwd_shapes=dict(fwd), bwd_shapes=dict(bwd), ms=ms)
         if not bool(metrics["loss_finite"]):
@@ -4073,13 +4200,15 @@ def vmae_flash_leg(dev, stage: dict, tune_decoder: bool, lp_fn) -> dict:
 
 
 def vmae_attention_rows(dev, shapes: dict, bwd_shapes: dict) -> list:
-    """#2's forward (the mma.sync core with autograd recording; d = 16) and
-    #5's three-pass backward at the VMAE training shapes against their plain
+    """#2's forward (with autograd recording at d = 16: the resident kernel
+    with lse) and #5's backward (the single pass given that output and lse:
+    preprocess, flash_bwd_wgmma_kernel<16>, postprocess; two runs' dq, dk, dv
+    bit for bit equal) at the VMAE training shapes against their plain
     versions, timed beside SDPA's forward and backward (fwd+bwd minus fwd),
-    with their bounds (bytes: q, k, v in and the output out for #2; q, k,
-    v, g in and dq, dk, dv out for #5; operations: 4 and 10 b h N^2 d bf16
-    FLOPs; b h N^2 exponentials). ``shapes`` / ``bwd_shapes``: launches a
-    step by shape, from the flash leg."""
+    with their bounds (bytes: q, k, v in and the output and lse out for #2;
+    q, k, v, g, the output and lse in and dq, dk, dv out for #5; operations:
+    4 and 10 b h N^2 d bf16 FLOPs; b h N^2 exponentials). ``shapes`` /
+    ``bwd_shapes``: launches a step by shape, from the flash leg."""
     import torch
     import torch.nn.functional as F
 
@@ -4091,8 +4220,8 @@ def vmae_attention_rows(dev, shapes: dict, bwd_shapes: dict) -> list:
         b, h, n, d = shape
         q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(4))
         ref = fa.flash_attention_plain(q, k, v)
-        err_f = compare(f"flash_attention {shape}", fa._launch(q, k, v, "flash_attention", with_lse=True)[0], ref,
-                        **attn_tol(ref))
+        out, lse = fa._launch(q, k, v, "flash_attention", with_lse=True)
+        err_f = compare(f"flash_attention {shape}", out, ref, **attn_tol(ref))
         fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, "flash_attention", with_lse=True), 20)
         plain_f = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -4105,39 +4234,41 @@ def vmae_attention_rows(dev, shapes: dict, bwd_shapes: dict) -> list:
                 F.scaled_dot_product_attention(qs, ks, vs)
 
         fb_ms, f_ms = cuda_ms(sdpa_fwd_bwd, 10), cuda_ms(sdpa_fwd, 20)
-        bnd_f = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, exps=b * h * n * n)
+        # queued, without the host's launch time (autograd's, at these shapes, varied with the host)
+        lib_queued = queued_ms(sdpa_fwd_bwd, 10) - queued_ms(sdpa_fwd, 20)
+        bnd_f = bound(4 * b * h * n * d * 2 + b * h * n * 4, 4 * b * h * n * n * d, exps=b * h * n * n)
         rows.append({"name": "flash_attention", "route": "cuda", "source": _FA, "replaces": f"{_PALLAS_FA}:77",
                      "shape": list(shape), "launches": launches, "max_abs_err": err_f, "ms": fwd_ms,
                      "plain_ms": plain_f, "bound_ms": bnd_f[0], "bound_by": bnd_f[1], "library_ms": f_ms})
         refs = fa.flash_attention_bwd_plain(q, k, v, g)
-        outs = fa.flash_attention_bwd(q, k, v, g)
+        run = lambda: fa.flash_attention_bwd(q, k, v, g, out, lse)  # noqa: E731  the Function's call
+        outs = run()
         rel, elem = bwd_errors(outs, refs)
-        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM
+        same = all(torch.equal(x_, y_) for x_, y_ in zip(outs, run()))  # dq summed in key-tile order
+        ok = rel <= BWD_REL_L2 and elem <= BWD_ELEM and same
         err_b = max(float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs))
         del outs, refs
-        bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), 10)
-        # the three passes: the row statistics (the forward kernel), dk and dv, dq
-        parts = kernel_device_ms(lambda: fa.flash_attention_bwd(q, k, v, g),
-                                 ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+        bwd_ms, queued = cuda_ms(run, 10), queued_ms(run, 20)
+        parts = train_route(f"flash_attention_bwd {shape}", run, BWD_ROUTE)["kernels_ms"]
         plain_b = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g), 3, 1)
-        bnd_b = bound(7 * b * h * n * d * 2, 10 * b * h * n * n * d, exps=b * h * n * n)
-        log(f"[vmae kernel] {shape} bf16: #2 forward {fwd_ms:.4f} ms (SDPA {f_ms:.4f}, plain {plain_f:.4f}, "
+        bnd_b = bound(8 * b * h * n * d * 2 + b * h * n * 4, 10 * b * h * n * n * d, exps=b * h * n * n)
+        log(f"[vmae kernel] {shape} bf16: #2 forward with lse {fwd_ms:.4f} ms (SDPA {f_ms:.4f}, plain {plain_f:.4f}, "
             f"bound {bnd_f[0]:.4f} ({bnd_f[1]}), share {bnd_f[0] / fwd_ms:.3f}); #5 backward vs plain: relative L2 "
-            f"{rel:.4g} (bound {BWD_REL_L2}), max |err| / max |value| {elem:.4g} (bound {BWD_ELEM}) -> "
-            f"{'ok' if ok else 'FAIL'}; {bwd_ms:.4f} ms (stats {parts['flash_fwd_kernel']:.4f}, dkdv "
-            f"{parts['flash_bwd_dkdv_kernel']:.4f}, dq {parts['flash_bwd_dq_kernel']:.4f}), SDPA backward {fb_ms - f_ms:.4f} ms (fwd+bwd {fb_ms:.4f} minus "
-            f"fwd {f_ms:.4f}), kernel / library {bwd_ms / (fb_ms - f_ms):.3f}, plain {plain_b:.4f}, bound "
-            f"{bnd_b[0]:.4f} ({bnd_b[1]}), share {bnd_b[0] / bwd_ms:.3f}; launches a step {launches} / "
+            f"{rel:.4g} (bound {BWD_REL_L2}), max |err| / max |value| {elem:.4g} (bound {BWD_ELEM}), two runs bit "
+            f"for bit {same} -> {'ok' if ok else 'FAIL'}; {bwd_ms:.4f} ms (queued {queued:.4f}; parts "
+            f"{ {n_: round(v_, 4) for n_, v_ in parts.items()} }), SDPA backward {fb_ms - f_ms:.4f} ms (fwd+bwd "
+            f"{fb_ms:.4f} minus fwd {f_ms:.4f}; queued {lib_queued:.4f}), kernel / library {bwd_ms / (fb_ms - f_ms):.3f} "
+            f"(queued {queued / lib_queued:.3f}), plain {plain_b:.4f}, "
+            f"bound {bnd_b[0]:.4f} ({bnd_b[1]}), share {bnd_b[0] / bwd_ms:.3f}; launches a step {launches} / "
             f"{bwd_shapes.get(shape, 0)}")
         if not ok:
-            raise SystemExit(f"flash_attention_bwd {shape}: kernel disagrees with its plain backward")
+            raise SystemExit(f"flash_attention_bwd {shape}: kernel disagrees with its plain backward, or two runs differ")
         rows.append({"name": "flash_attention_bwd", "route": "cuda", "source": _FA,
                      "replaces": f"{_PALLAS_FA}:151", "shape": list(shape), "launches": bwd_shapes.get(shape, 0),
                      "max_abs_err": err_b, "ms": bwd_ms, "plain_ms": plain_b, "bound_ms": bnd_b[0],
-                     "bound_by": bnd_b[1], "library_ms": fb_ms - f_ms,
-                     "stats_ms": parts["flash_fwd_kernel"], "dkdv_ms": parts["flash_bwd_dkdv_kernel"],
-                     "dq_ms": parts["flash_bwd_dq_kernel"]})
-        del q, k, v, g, qs, ks, vs
+                     "bound_by": bnd_b[1], "library_ms": fb_ms - f_ms, "queued_ms": queued,
+                     "library_queued_ms": lib_queued, "kernels_ms": parts})
+        del q, k, v, g, qs, ks, vs, out, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -4274,17 +4405,21 @@ def vmae_gradual_phase(dev, smi: str, tmp: str, common: list, lp_fn) -> dict:
     grads("xla")  # warm-up
     want = collections.Counter({(m, spec.num_heads, n_tok, 16): down + spec.decoder_depth - up,
                                 (m, spec.num_heads, n_tok // 4, 16): spec.depth - down + up})
+    # #2 under autograd at d = 16: the resident kernel with lse (``vmae_flash_leg``)
+    resident = collections.Counter({sh: c for sh, c in want.items()
+                                    if fa._resident_lse(torch.bfloat16, sh[3], 8, sh[2], False)})
     EXPECTED_LAUNCHES["vmae_gradual_flash"] = _NONE | {
-        "flash_attention": sum(want.values()), "flash_attention_bwd": sum(want.values()),
+        "flash_attention": sum((want - resident).values()), "flash_attention_resident": sum(resident.values()),
+        "flash_attention_bwd": sum(want.values()),
         "dense_bias_f32": sum(vmae_gradual_dense_shapes(spec, m, down, up).values())}
     ops.reset_launch_counts()
     shape = lambda q, *rest: tuple(q.shape)  # noqa: E731
-    with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention", shape) as fwd, \
+    with launches_by_shape(fa, "_flash_attention_fwd", "flash_attention_resident", shape) as fwd, \
             launches_by_shape(fa, "flash_attention_bwd", "flash_attention_bwd", shape) as bwd:
         loss_f, g_f, _ = grads("flash")
     counts = ops.launch_counts()
     check_counts("vmae_gradual_flash", counts)
-    check_shapes("vmae_gradual_flash: #2 by shape", fwd, want)
+    check_shapes("vmae_gradual_flash: #2 (resident) by shape", fwd, resident)
     check_shapes("vmae_gradual_flash: #5 by shape", bwd, want)
     loss_x, g_x, ms_x = grads("xla")
     _, _, ms_f = grads("flash")
@@ -7336,6 +7471,15 @@ def registry_only(dev, smi: str) -> int:
     return 0
 
 
+def vmae_kernel_tuple(vmae_rows: list, name: str, shape: list) -> tuple:
+    """A vmae_train_kernels row as a kernels-line row (``kernel_rows``):
+    (err, ms, plain ms, library ms, bound ms, bound by, the other keys)."""
+    row = next(r for r in vmae_rows if r["name"] == name and r["shape"] == shape)
+    core = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rest = {k: v for k, v in row.items() if k not in core + ("name", "route", "source", "replaces", "launches")}
+    return (*(row[k] for k in core), rest)
+
+
 def kernel_rows(rows: dict, counts: dict) -> list:
     """The kernels line's entries: each measured kernel with its launches on
     the path that runs it (``KERNELS``)."""
@@ -7396,6 +7540,8 @@ def main() -> int:
         return fp32_bwd_only(dev)
     if "--fp32-fwd" in sys.argv[1:]:
         return fp32_fwd_only(dev)
+    if "--redesigned" in sys.argv[1:]:
+        return redesigned_only(dev)
     if "--xl" in sys.argv[1:]:
         return xl_only(dev, smi)
     if "--registry" in sys.argv[1:]:
@@ -7478,6 +7624,7 @@ def main() -> int:
         mark("the tokenizer family")
         counts, vmae_rows = vmae_train_phase(dev, smi, tmp, origin)
         result["counts"] |= counts
+        rows["flash_attention_bwd_d16"] = vmae_kernel_tuple(vmae_rows, "flash_attention_bwd", VMAE_D16_SHAPE)
         mark("VMAE training")
         multiproc = multiproc_phase(dev, smi, tmp, origin)
         mark("the multi-process slice")

@@ -67,7 +67,8 @@
 // in place (contiguous, or the permuted view of the packed qkv);
 // flash_attention_fused_rope on its pre-pass's scratch, v read in place as
 // the strided view of the packed qkv, the output written as (B, N, H*d)
-// rows. flash_attention without lse at d = 8 or 16 and N <= 3,072 runs
+// rows. flash_attention without lse at d = 8 or 16 and N <= 3,072, and
+// with lse at d = 16 (under autograd, for the single-pass backward), runs
 // flash_fwd_resident_kernel (wgmma, K and V of a head resident in shared
 // memory; its own note below). Every other shape (other head dims,
 // misaligned rows) runs this one, as does the backward's statistics pass.
@@ -791,8 +792,8 @@ cudaError_t launch_wgmma(const AttnArgs& a, float* lse, int bh, cudaStream_t str
 // flash_attention forward at d = 16 (the VMAE decoder's, and encoder's,
 // head dim; d = 8 shares it, padded with zeros by TMA) with K and V of a
 // head resident in shared memory: replaces _flash_fwd_kernel
-// (ldmae_tpu/ops/flash_attention.py, pallas_call at :77) at these head dims
-// on the no-grad path, N <= kRsMaxChunks * 128.
+// (ldmae_tpu/ops/flash_attention.py, pallas_call at :77) at these head dims,
+// N <= kRsMaxChunks * 128: on the no-grad path, and at d = 16 under autograd.
 //
 // What bounds it: at (8, 12, 1024, 16) the two products are 4 b h N^2 d =
 // 6.4e9 flops (0.0065 ms at 989 TFLOP/s), the 8 b h N d bytes 0.0038 ms,
@@ -827,6 +828,11 @@ cudaError_t launch_wgmma(const AttnArgs& a, float* lse, int bh, cudaStream_t str
 //
 // Rounding as the other forward kernels: p rounded to bf16 before it is
 // normalised, the row sum in fp32, one division at the end.
+//
+// Under autograd at d = 16 (the VMAE's training with attn_impl "flash") it
+// also writes lse = m + log2(l), the backward's row statistics (as the wgmma
+// forward's, in the exp2 units of the logits scaled by scale_log2), from
+// the two passes' row maximum m and sum l, for the single-pass backward.
 
 constexpr int kRsWG = 2;                    // consumer warpgroups, 64 query rows each
 constexpr int kRsRows = 64 * kRsWG;         // query rows per block
@@ -850,12 +856,13 @@ __device__ __forceinline__ void mask_keys(float (&s)[64], int valid, int t) {
       if (8 * j + 2 * t + (i & 1) >= valid) s[4 * j + i] = -INFINITY;
 }
 
-// grid: (ceil(n / kRsRows), bh); dynamic shared memory rs_smem(ceil(n / 128)).
+// grid: (ceil(n / kRsRows), bh); dynamic shared memory rs_smem(ceil(n / 128));
+// lse (bh, n) fp32, or null.
 __global__ void __launch_bounds__(kRsThreads, 2)
     flash_fwd_resident_kernel(const __grid_constant__ CUtensorMap tmap_q,
                               const __grid_constant__ CUtensorMap tmap_k,
-                              const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out, int n,
-                              int d, float scale_log2) {
+                              const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
+                              float* __restrict__ lse, int n, int d, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -948,9 +955,14 @@ __global__ void __launch_bounds__(kRsThreads, 2)
     for (int i = 0; i < 8; ++i) hopper::fence_regs(p[i]);
   }
 
-  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+  const float inv0 = 1.f / s0, inv1 = 1.f / s1;
   const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
   bf16* ob = out + (long long)bh * n * d;
+  if (lse != nullptr && t == 0) {
+    if (r0 < n) lse[(long long)bh * n + r0] = m0 + log2f(s0);
+    if (r1 < n) lse[(long long)bh * n + r1] = m1 + log2f(s1);
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int col = 8 * i + 2 * t;
@@ -962,11 +974,12 @@ __global__ void __launch_bounds__(kRsThreads, 2)
 }
 
 // The resident kernel on contiguous (bh, n, d) q, k, v, out, d in {8, 16},
-// 16-byte aligned, n <= kRsMaxChunks * 128.
-cudaError_t launch_resident(const void* q, const void* k, const void* v, void* out, int bh, int n, int d,
-                            cudaStream_t stream) {
+// 16-byte aligned, n <= kRsMaxChunks * 128; with lse (not null: d = 16) also
+// the (bh, n) fp32 log2 denominators.
+cudaError_t launch_resident(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int n,
+                            int d, cudaStream_t stream) {
   const int chunks = (n + kRsKeys - 1) / kRsKeys;
-  if ((d != 8 && d != 16) || chunks > kRsMaxChunks) return cudaErrorInvalidValue;
+  if ((d != 8 && d != 16) || chunks > kRsMaxChunks || (lse != nullptr && d != 16)) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   // 16-element boxes of 32-byte rows: at d = 8 the columns past d arrive as zeros
@@ -982,7 +995,7 @@ cudaError_t launch_resident(const void* q, const void* k, const void* v, void* o
   if (e != cudaSuccess) return e;
   const dim3 grid((n + kRsRows - 1) / kRsRows, bh);
   flash_fwd_resident_kernel<<<grid, kRsThreads, rs_smem(chunks), stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), n, d, 1.4426950408889634f / sqrtf((float)d));
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, n, d, 1.4426950408889634f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
@@ -1076,10 +1089,12 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 // block's shared memory here, so the work is split over key tiles, and no
 // (N, N) tensor is written. Two designs, chosen by head dim:
 //
-// d = 64 and 72 (DiT B to 1p6B, and XL: the training path), single pass on
-// wgmma and TMA (FlashAttention-3's decomposition), in the section "Backward
-// at d = 64 and 72" below: the forward saves lse (flash_fwd_wgmma_kernel<kD,
-// true>) and its bf16
+// d = 64 and 72 (DiT B to 1p6B, and XL: the training path), and d = 16
+// without RoPE for N <= 3,072 (the VMAE's training under attn_impl
+// "flash"), single pass on wgmma and TMA (FlashAttention-3's
+// decomposition), in the section "Backward at d = 64, 72 and 16" below: the
+// forward saves lse (flash_fwd_wgmma_kernel<kD, true>; at d = 16
+// flash_fwd_resident_kernel) and its bf16
 // output; a preprocess kernel forms delta = rowsum(g * o) from them and
 // zeroes an fp32 dq accumulator; flash_bwd_wgmma_kernel does the 10 b h N^2
 // d operations once, dq summed across key-tile blocks by bulk reductions in
@@ -1087,8 +1102,8 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 // Jacobian) into bf16.
 //
 // Every other head dim (1 <= d <= 128, in the classes of the forward core:
-// VMAE d = 8 to 80), three passes on mma.sync (this section),
-// deterministic (no atomics):
+// VMAE d = 8 to 80; d = 16 with RoPE or past 3,072 keys), three passes on
+// mma.sync (this section), deterministic (no atomics):
 //   1. statistics: the forward kernel (flash_fwd_kernel<DK, true>) recomputes
 //      the softmax row maximum and denominator as lse, and delta = rowsum(g *
 //      o) = rowsum(dp * p), with o the fp32 output normalised by the fp32 row
@@ -1102,13 +1117,14 @@ cudaError_t forward(const AttnArgs& a, float* lse, int bh, cudaStream_t s) {
 //      dq += ds k.
 // It does 18 b h N^2 d operations (the statistics pass repeats the
 // forward's two products, and passes 2 and 3 both recompute q k^T and g
-// v^T); at these head dims it runs in the VMAE's training only (under
-// attn_impl "flash", which no CLI passes).
+// v^T) and forms every exponential three times; no shipped path runs it.
 //
 // Rounding (both designs): p and ds are rounded to bf16 as the A operand of
 // the dv, dk and dq products; the TPU kernel keeps p, dp and ds in fp32. dq,
 // dk, dv are fp32 until one rounding to bf16 at the end. delta comes from the
-// forward's bf16 output at d = 64 and 72 and from its fp32 output here.
+// forward's bf16 output in the single pass (at d = 16 since it took that
+// pass: before, the statistics pass formed it from the fp32 output) and
+// from the fp32 output in the three passes.
 //
 // RoPE (flash_attention_rope_trainable): q and k are rotated once by the
 // forward's pre-pass (norm_rope_kernel, no norm) into bf16 scratch, as the
@@ -1450,8 +1466,9 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 }
 
 // ---------------------------------------------------------------------------
-// Backward at d = 64 and 72: flash_attention_bwd and flash_attention_rope_bwd
-// on the DiT training path, FlashAttention-3's single pass on wgmma and TMA.
+// Backward at d = 64, 72 and 16: flash_attention_bwd and
+// flash_attention_rope_bwd on the DiT training path, and flash_attention_bwd
+// on the VMAE's, FlashAttention-3's single pass on wgmma and TMA.
 //
 // What bounds it, at the DiT B/1 training shapes (b h N d = 32 12 1024 64):
 // the five products are 10 b h N^2 d = 2.58e11 flops, 0.261 ms at 989
@@ -1523,15 +1540,41 @@ cudaError_t backward3(const void* q, const void* k, const void* v, const void* g
 // m64n16k16 into 8 more registers each (columns 64-79; 72-79 stay zero and
 // are not stored); dQ's columns 64-79 are one more m64n16k16 (dS and K's
 // second part both MN-major), split by keys, not columns: each consumer sums
-// its own 64 keys (4 k-steps) into a 64 x 8 part that it adds into the
-// accumulator with a second bulk reduction, so both consumers issue the same
-// products (no branch on the warpgroup around a product) and the two
-// partial sums meet in the accumulator's fp32 adds. The accumulator of a
-// (b h, 64-query tile) holds 64 x 72 values as the two 64 x 32 parts and
-// the 64 x 8 part (2 KB, 32-byte rows) after them. The RoPE pairs c with c
-// + 36, in another thread: dK d^-1/2 is staged in fp32 in shared memory
-// (64 x 72 a consumer) for the Jacobian, and the postprocess pairs c with c
-// + 36 across the parts. Registers: dK and dV 40 each, dQ 24.
+// its own 64 keys (4 k-steps) into a 64 x 8 part, so both consumers issue
+// the same products (no branch on the warpgroup around a product); the
+// reducer warp adds consumer 1's part to consumer 0's, then adds that into
+// the accumulator with a second bulk reduction. The accumulator of a (b h,
+// 64-query tile) holds 64 x 72 values as the two 64 x 32 parts and the 64 x
+// 8 part (2 KB, 32-byte rows) after them. The RoPE pairs c with c + 36, in
+// another thread: dK d^-1/2 is staged in fp32 in shared memory (64 x 72 a
+// consumer) for the Jacobian, and the postprocess pairs c with c + 36
+// across the parts. Registers: dK and dV 40 each, dQ 24.
+//
+// d = 16 (the VMAE's head dim; replaces _flash_bwd_kernel, pallas_call at
+// :151, at that head dim; no RoPE): d = 72's second part alone, all 16 of
+// its columns stored (Bw<16>: no main part), on persistent blocks. What bounds it at the VMAE's
+// (16, 12, 1024, 16): the b h N^2 = 2.0e8 exponentials, 0.048 ms on the
+// SFUs, against 10 b h N^2 d = 3.2e10 flops (0.033 ms) and 8 b h N d bf16
+// values (0.015 ms); the three passes formed each exponential three times. So
+// every exponential is formed once, one S^T and one dP^T wgmma a query
+// tile (m64n64k16), four m64n16k16 each of dV, dK and dQ. A tile's products
+// are short, so the next tile's S^T and dP^T are issued before this
+// tile's dV, dK and dQ are waited for, and a consumer's dQ, over its own 64
+// keys, waits for its own warpgroup's dS^T rows only, not for the other
+// consumer's. The parts of four query tiles (16 KB, contiguous in the
+// accumulator at d = 16) are staged and reduced at once, under one counter
+// (kGroup): one or eight a reduction ran slower. The blocks are
+// persistent (kPersistent: one an SM walks (key tile, b h) units, K and V
+// double-buffered), so a unit's loads, start and last ordered reductions
+// overlap the next unit's tiles: 1.5x faster at the VMAE's N = 192 and
+// 256, whose units are 3 and 4 query tiles, 3 % at 1,024. What is left, at
+// 0.15 of the bound, is about 1.6 us a query tile and unit (3,200 clocks)
+// at every N, which on an H100 (PERF.md) no one part sets: without the
+// exponentials it ran 12 % faster, without the ordered reductions 18 %,
+// without dV and dK 6 %; the ring's depth (3 to 10 stages), four dQ
+// staging buffers, a tile retired after the next S^T, and the consumers'
+// exponentials in turns gained nothing, and three consumers a block (192
+// keys) ran slower at N = 1,024 and 256.
 
 constexpr int kBwKeys = 128;                   // keys per block, 64 per consumer warpgroup
 constexpr int kBwQ = 64;                       // queries per streamed tile
@@ -1540,29 +1583,51 @@ constexpr int kBwDsTile = kBwKeys * kBwQ * 2;  // bytes of a dS^T staging tile
 constexpr int kBwDqPart = kBwQ * 32;           // fp32 values of a warpgroup's dQ part (64 x 32)
 constexpr int kBwThreads = 384;
 
-// Shared-memory bytes by head dim; at d = 72 each tile adds its 32-byte-row
-// second part, and the dQ parts of columns 64-71 and the dK staging follow.
+// The parts of a tile by head dim: the main part, columns 0-63 under the
+// 128-byte swizzle (d = 64, 72), and the tail, 16 columns under the 32-byte
+// swizzle (d = 72: columns 64-79, 72-79 zero-filled and not stored; d = 16:
+// the whole row). Shared-memory bytes: at d = 72 and 16 the dQ parts of the
+// tail's columns, and at d = 72 the dK staging, follow.
 template <int kD>
 struct Bw {
-  static_assert(kD == 64 || kD == 72, "the single-pass backward takes d = 64 or 72");
-  static constexpr bool kTail = kD > 64;
-  static constexpr int kKMain = kBwKeys * 128;                      // a K or V tile's first part
+  static_assert(kD == 16 || kD == 64 || kD == 72, "the single-pass backward takes d = 16, 64 or 72");
+  static constexpr bool kMain = kD >= 64;
+  static constexpr bool kTail = kD != 64;
+  static constexpr int kTailCol0 = kMain ? 64 : 0;                  // the tail's first column
+  static constexpr int kTailCols = kD - kTailCol0;                  // its stored columns: 8 or 16
+  static constexpr int kMainParts = kMain ? 2 : 0;                  // 64 x 32 dQ parts of the main columns
+  // query tiles of one ordered dq reduction: at d = 16 four (16 KB), since
+  // a tile's 4 KB part takes less time to form than its turn in the order
+  static constexpr int kGroup = kD == 16 ? 4 : 1;
+  // d = 16: persistent blocks that walk (key tile, b h) units, K and V
+  // double-buffered, so a unit's loads and the last reductions of the one
+  // before overlap (a unit is short: 16 query tiles at N = 1,024)
+  static constexpr bool kPersistent = kD == 16;
+  static constexpr int kKvBufs = kPersistent ? 2 : 1;
+  static constexpr int kKMain = kMain ? kBwKeys * 128 : 0;          // a K or V tile's main part
   static constexpr int kKTile = kKMain + (kTail ? kBwKeys * 32 : 0);
-  static constexpr int kQMain = kBwQ * 128;                         // a q or g tile's first part
+  static constexpr int kQMain = kMain ? kBwQ * 128 : 0;             // a q or g tile's main part
   static constexpr int kQTile = kQMain + (kTail ? kBwQ * 32 : 0);
-  static constexpr int kDqTail = kTail ? kBwQ * 8 : 0;              // fp32 values of a dQ part of columns 64-71
+  static constexpr int kDqTail = kTail ? kBwQ * kTailCols : 0;      // fp32 values of a dQ part of the tail
   static constexpr int kStRow = 76;                                 // fp32 row stride of the dK staging
-  static constexpr int kDkStage = kTail ? 64 * kStRow : 0;          // fp32 values of a consumer's dK staging
-  static constexpr int kSmem = 2 * kKTile + 2 * kBwStages * kQTile + 2 * kBwDsTile + 4 * kBwDqPart * 4 +
-                               2 * kBwStages * kBwQ * 4 + 4 * kDqTail * 4 + 2 * kDkStage * 4 + 1024;
+  static constexpr int kDkStage = kD == 72 ? 64 * kStRow : 0;       // fp32 values of a consumer's dK staging
+  // setmaxnreg's split of the launch's 384 x 168 registers: 128 x kProducerRegs
+  // + 256 x kConsumerRegs = 64,512; at d = 16 the reducer's loop over a
+  // group spilled at 24, and the consumers need far fewer than 232
+  static constexpr int kProducerRegs = kD == 16 ? 40 : 24, kConsumerRegs = kD == 16 ? 232 : 240;
+  static constexpr int kSmem = 2 * kKvBufs * kKTile + 2 * kBwStages * kQTile + 2 * kBwDsTile +
+                               2 * kMainParts * kBwDqPart * 4 + 2 * kBwStages * kBwQ * 4 +
+                               4 * kGroup * kDqTail * 4 + 2 * kDkStage * 4 + 1024;
 };
 
-// Offset in the dq accumulator of the dQ part (query tile qt; c = 0, 1: columns
-// 32 c..; c = 2 at d = 72: columns 64-71) of (b, h) bh: the parts of a
-// query tile lie together in the order (bh, query tile), 64 x kD values,
-// each 64 x 32 part's row r's 8-value block j stored at block j ^ (r % 4)
-// (so that the consumers' stores to its staging copy in shared memory hit
-// every bank), the 64 x 8 part in plain rows.
+// Offset in the dq accumulator of the dQ part (query tile qt; c < kMainParts:
+// columns 32 c..; c = kMainParts: the tail's columns, 64-71 at d = 72, 0-15
+// at d = 16) of (b, h) bh: the parts of a query tile lie together in the
+// order (bh, query tile), 64 x kD values, each 64 x 32 part's row r's
+// 8-value block j stored at block j ^ (r % 4) (so that the consumers'
+// stores to its staging copy in shared memory hit every bank), the tail's
+// part in plain rows (at d = 16 the parts of consecutive query tiles, each
+// 64 x 16, are contiguous: a group's reduction is one bulk copy).
 template <int kD>
 __host__ __device__ __forceinline__ long long dq_part(long long bh, int nq, int qt, int c) {
   return (bh * nq + qt) * (kBwQ * kD) + c * kBwDqPart;
@@ -1570,15 +1635,15 @@ __host__ __device__ __forceinline__ long long dq_part(long long bh, int nq, int 
 
 struct BwdWgmmaArgs {
   float* dq_acc;             // bh npad d fp32 as dQ parts (dq_part), zeroed; dq summed here
-  int* dq_sem;               // bh npad / kBwQ, zeroed: key tiles of a (b h, query tile) that have added
+  int* dq_sem;               // a (b h, group of kGroup query tiles)'s key tiles that have added, zeroed
   bf16 *dk, *dv;             // (bh, n, d), written
   const float *lse, *delta;  // (bh, npad): lse +inf and delta 0 past n
   const float *cos, *sin;    // (n, d) fp32 half-split tables (kRope only)
-  int n, npad;
+  int n, npad, nbh;
   float scale_log2, scale;
 };
 
-// The maps of columns 64-79 (d = 72); unused at d = 64.
+// The maps of the tail (d = 72: columns 64-79; d = 16: 0-15); unused at d = 64.
 struct BwTailMaps {
   CUtensorMap q, k, v, g;
 };
@@ -1590,12 +1655,14 @@ __global__ void __launch_bounds__(256)
                                 const float* __restrict__ lse_fwd, float* __restrict__ lse,
                                 float* __restrict__ delta, float* __restrict__ dq_acc,
                                 int* __restrict__ dq_sem, long long rows, int n, int npad) {
+  constexpr int kGroupRows = kBwQ * Bw<kD>::kGroup;
   const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
   const int j = threadIdx.x % 8;
   const long long bh = row / npad;
   const int r = (int)(row % npad);
   float acc = 0.f;
-  // the 8-value chunk ch of the row: lane j's is j (at d = 72 lane 0 also adds the ninth)
+  // the 8-value chunk ch of the row: lane j's is j (at d = 72 lane 0 also adds the ninth; at d = 16
+  // lanes 0 and 1 hold the row)
   auto chunk = [&](int ch) {
     const long long off = (bh * n + r) * kD + 8 * ch;
     const uint4 gu = *reinterpret_cast<const uint4*>(go + off);
@@ -1606,7 +1673,7 @@ __global__ void __launch_bounds__(256)
     for (int e = 0; e < 8; ++e) acc += __bfloat162float(ge[e]) * __bfloat162float(oe[e]);
   };
   if (row < rows && r < n) {
-    chunk(j);
+    if (j < kD / 8) chunk(j);
     if constexpr (kD == 72) {
       if (j == 0) chunk(8);
     }
@@ -1624,11 +1691,13 @@ __global__ void __launch_bounds__(256)
   if (j == 0) {
     delta[row] = acc;
     lse[row] = r < n ? lse_fwd[bh * n + r] : INFINITY;
-    if (r % kBwQ == 0) dq_sem[row / kBwQ] = 0;
+    if (r % kGroupRows == 0) dq_sem[bh * ((npad + kGroupRows - 1) / kGroupRows) + r / kGroupRows] = 0;
   }
 }
 
-// grid: (ceil(n / 128), bh); see the note above.
+// grid: (ceil(n / 128), bh), or at d = 16 (kPersistent) one block an SM at
+// most, walking the (key tile, b h) units u = blockIdx.x, + gridDim.x, ..
+// (key tile u % ceil(n / 128), b h u / ceil(n / 128)); see the note above.
 template <int kD, bool kRope>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
@@ -1637,29 +1706,40 @@ __global__ void __launch_bounds__(kBwThreads, 1)
                            const __grid_constant__ CUtensorMap tmap_g, const BwdWgmmaArgs a,
                            const __grid_constant__ BwTailMaps tail) {
   using B = Bw<kD>;
+  constexpr int kGroup = B::kGroup;
+  static_assert(!B::kMain || kGroup == 1, "the main dQ parts are reduced a query tile at a time");
+  static_assert(!kRope || kD != 16, "RoPE at d = 16 runs the three passes");
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sk = reinterpret_cast<unsigned char*>(
+  // K and V: kKvBufs pairs of tiles
+  unsigned char* skv = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* sv = sk + B::kKTile;
-  unsigned char* sq = sv + B::kKTile;                // kBwStages tiles
+  unsigned char* sq = skv + 2 * B::kKvBufs * B::kKTile;  // kBwStages tiles
   unsigned char* sg = sq + kBwStages * B::kQTile;    // kBwStages tiles
   unsigned char* sds = sg + kBwStages * B::kQTile;   // two dS^T staging tiles
-  float* sdq = reinterpret_cast<float*>(sds + 2 * kBwDsTile);  // dQ parts, two per consumer
-  float* sl = sdq + 4 * kBwDqPart;                             // lse rows, kBwStages x kBwQ
+  float* sdq = reinterpret_cast<float*>(sds + 2 * kBwDsTile);  // main dQ parts, two per consumer
+  float* sl = sdq + 2 * B::kMainParts * kBwDqPart;             // lse rows, kBwStages x kBwQ
   float* sd = sl + kBwStages * kBwQ;                           // delta rows, likewise
-  float* sdqt = sd + kBwStages * kBwQ;  // d = 72: dQ parts of columns 64-71, two per consumer
-  float* sdk = sdqt + 4 * B::kDqTail;   // d = 72 with RoPE: dK d^-1/2 staged, one per consumer
-  __shared__ __align__(8) uint64_t kv_full, full[kBwStages], empty[kBwStages];
-  // the dQ staging buffers (two, each holding both consumers' parts) between
-  // the consumers and the reducer warp
+  // the tail's dQ parts: [consumer][buffer][query tile of the group]
+  float* sdqt = sd + kBwStages * kBwQ;
+  float* sdk = sdqt + 4 * kGroup * B::kDqTail;  // d = 72 with RoPE: dK d^-1/2 staged, one per consumer
+  __shared__ __align__(8) uint64_t kv_full[B::kKvBufs], kv_empty[B::kKvBufs], full[kBwStages], empty[kBwStages];
+  // the dQ staging buffers (two, each holding both consumers' parts of a
+  // group of query tiles) between the consumers and the reducer warp
   __shared__ __align__(8) uint64_t dq_full[2], dq_empty[2];
 
-  const int n = a.n, bh = blockIdx.y, k0 = blockIdx.x * kBwKeys;
-  const int nq = a.npad / kBwQ;
+  const int n = a.n, nq = a.npad / kBwQ, ngroups = (nq + kGroup - 1) / kGroup;
+  const int nkt = (n + kBwKeys - 1) / kBwKeys;
+  const int nunits = B::kPersistent ? nkt * a.nbh : 1;
+  const int ufirst = B::kPersistent ? blockIdx.x : 0, ustep = B::kPersistent ? gridDim.x : 1;
+  auto unit_kt = [&](int u) { return B::kPersistent ? u % nkt : static_cast<int>(blockIdx.x); };
+  auto unit_bh = [&](int u) { return B::kPersistent ? u / nkt : static_cast<int>(blockIdx.y); };
   // broadcast, so that ptxas sees the role branches as warp-uniform
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
-    hopper::mbar_init(&kv_full, 1);
+    for (int b = 0; b < B::kKvBufs; ++b) {
+      hopper::mbar_init(&kv_full[b], 1);
+      hopper::mbar_init(&kv_empty[b], 2);  // each consumer's leader
+    }
     for (int s = 0; s < kBwStages; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
@@ -1673,79 +1753,97 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   __syncthreads();
 
   if (wg == 0) {
-    hopper::reg_dealloc<24>();
+    hopper::reg_dealloc<B::kProducerRegs>();
     if (threadIdx.x == 0) {
-      hopper::mbar_expect_tx(&kv_full, 2 * B::kKTile);
-      hopper::tma_load_3d(sk, &tmap_k, &kv_full, 0, k0, bh);
-      hopper::tma_load_3d(sv, &tmap_v, &kv_full, 0, k0, bh);
-      if constexpr (B::kTail) {
-        hopper::tma_load_3d(sk + B::kKMain, &tail.k, &kv_full, 64, k0, bh);
-        hopper::tma_load_3d(sv + B::kKMain, &tail.v, &kv_full, 64, k0, bh);
-      }
-      const long long row0 = (long long)bh * a.npad;
       int stage = 0;
       uint32_t phase = 0;
-      for (int it = 0; it < nq; ++it) {
-        unsigned char* qt = sq + stage * B::kQTile;
-        unsigned char* gt = sg + stage * B::kQTile;
-        hopper::mbar_wait(&empty[stage], phase ^ 1);
-        hopper::mbar_expect_tx(&full[stage], 2 * B::kQTile + 2 * kBwQ * 4);
-        const int q0 = it * kBwQ;
-        hopper::tma_load_3d(qt, &tmap_q, &full[stage], 0, q0, bh);
-        hopper::tma_load_3d(gt, &tmap_g, &full[stage], 0, q0, bh);
-        if constexpr (B::kTail) {
-          hopper::tma_load_3d(qt + B::kQMain, &tail.q, &full[stage], 64, q0, bh);
-          hopper::tma_load_3d(gt + B::kQMain, &tail.g, &full[stage], 64, q0, bh);
+      for (int u = ufirst, ui = 0; u < nunits; u += ustep, ++ui) {
+        const int bh = unit_bh(u), k0 = unit_kt(u) * kBwKeys, ub = ui % B::kKvBufs;
+        if (ui >= B::kKvBufs) hopper::mbar_wait(&kv_empty[ub], (ui / B::kKvBufs - 1) & 1);
+        unsigned char* sk = skv + ub * 2 * B::kKTile;
+        unsigned char* sv = sk + B::kKTile;
+        hopper::mbar_expect_tx(&kv_full[ub], 2 * B::kKTile);
+        if constexpr (B::kMain) {
+          hopper::tma_load_3d(sk, &tmap_k, &kv_full[ub], 0, k0, bh);
+          hopper::tma_load_3d(sv, &tmap_v, &kv_full[ub], 0, k0, bh);
         }
-        hopper::bulk_load(sl + stage * kBwQ, a.lse + row0 + q0, kBwQ * 4, &full[stage]);
-        hopper::bulk_load(sd + stage * kBwQ, a.delta + row0 + q0, kBwQ * 4, &full[stage]);
-        if (++stage == kBwStages) stage = 0, phase ^= 1;
+        if constexpr (B::kTail) {
+          hopper::tma_load_3d(sk + B::kKMain, &tail.k, &kv_full[ub], B::kTailCol0, k0, bh);
+          hopper::tma_load_3d(sv + B::kKMain, &tail.v, &kv_full[ub], B::kTailCol0, k0, bh);
+        }
+        const long long row0 = (long long)bh * a.npad;
+        for (int it = 0; it < nq; ++it) {
+          unsigned char* qt = sq + stage * B::kQTile;
+          unsigned char* gt = sg + stage * B::kQTile;
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          hopper::mbar_expect_tx(&full[stage], 2 * B::kQTile + 2 * kBwQ * 4);
+          const int q0 = it * kBwQ;
+          if constexpr (B::kMain) {
+            hopper::tma_load_3d(qt, &tmap_q, &full[stage], 0, q0, bh);
+            hopper::tma_load_3d(gt, &tmap_g, &full[stage], 0, q0, bh);
+          }
+          if constexpr (B::kTail) {
+            hopper::tma_load_3d(qt + B::kQMain, &tail.q, &full[stage], B::kTailCol0, q0, bh);
+            hopper::tma_load_3d(gt + B::kQMain, &tail.g, &full[stage], B::kTailCol0, q0, bh);
+          }
+          hopper::bulk_load(sl + stage * kBwQ, a.lse + row0 + q0, kBwQ * 4, &full[stage]);
+          hopper::bulk_load(sd + stage * kBwQ, a.delta + row0 + q0, kBwQ * 4, &full[stage]);
+          if (++stage == kBwStages) stage = 0, phase ^= 1;
+        }
       }
     } else if (threadIdx.x / 32 == 1) {
-      // The reducer warp: each query tile's dQ parts of both consumers into
-      // the accumulator, in key-tile order: the block of key tile j waits
-      // until the counter of (b h, query tile) reads j, adds its parts (one
-      // bulk reduction each), waits for them to complete and bumps the
-      // counter, so every run sums dq in the same order.
+      // The reducer warp: each group's dQ parts of both consumers into the
+      // accumulator, in key-tile order: the block of key tile j waits until
+      // the counter of (b h, group) reads j, adds its parts (one bulk
+      // reduction each), waits for them to complete and bumps the counter,
+      // so every run sums dq in the same order.
       const int lane = threadIdx.x % 32;
-      int* sem = a.dq_sem + (long long)bh * nq;
-      for (int it = 0; it < nq; ++it) {
-        const int buf = it & 1;
-        hopper::mbar_wait(&dq_full[buf], (it >> 1) & 1);
-        if constexpr (B::kTail) {  // columns 64-71: consumer 1's part added to consumer 0's, in that order
-          float* t0 = sdqt + buf * B::kDqTail;
-          const float* t1 = sdqt + (2 + buf) * B::kDqTail;
-          for (int i = lane; i < B::kDqTail; i += 32) t0[i] += t1[i];
-          hopper::fence_proxy_async();
+      int seq = 0;  // groups this block has reduced: the staging buffers' sequence
+      for (int u = ufirst; u < nunits; u += ustep) {
+        const int bh = unit_bh(u), kt = unit_kt(u);
+        int* sem = a.dq_sem + (long long)bh * ngroups;
+        for (int grp = 0; grp < ngroups; ++grp, ++seq) {
+          const int buf = seq & 1, it0 = grp * kGroup;
+          const int tiles = kGroup == 1 || nq - it0 >= kGroup ? kGroup : nq - it0;
+          hopper::mbar_wait(&dq_full[buf], (seq >> 1) & 1);
+          float* t0 = sdqt + buf * kGroup * B::kDqTail;
+          if constexpr (B::kTail) {  // the tail's parts: consumer 1's added to consumer 0's, in that order
+            const float* t1 = sdqt + (2 + buf) * kGroup * B::kDqTail;
+            for (int i = lane; i < tiles * B::kDqTail; i += 32) t0[i] += t1[i];
+            hopper::fence_proxy_async();
+          }
+          __syncwarp();
+          if (lane == 0) {
+            hopper::wait_eq_acquire(sem + grp, kt);
+            hopper::fence_proxy_async_global();
+            if constexpr (B::kMain) {
+              hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it0, 0), sdq + buf * kBwDqPart,
+                                          kBwDqPart * 4);
+              hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it0, 1), sdq + (2 + buf) * kBwDqPart,
+                                          kBwDqPart * 4);
+            }
+            if constexpr (B::kTail)
+              hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it0, B::kMainParts), t0,
+                                          tiles * B::kDqTail * 4);
+            hopper::bulk_commit();
+            hopper::bulk_wait<0>();
+            hopper::fence_proxy_async_global();
+            hopper::red_add_release(sem + grp, 1);
+            hopper::mbar_arrive(&dq_empty[buf]);
+          }
+          __syncwarp();
         }
-        __syncwarp();
-        if (lane == 0) {
-          hopper::wait_eq_acquire(sem + it, blockIdx.x);
-          hopper::fence_proxy_async_global();
-          hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 0), sdq + buf * kBwDqPart, kBwDqPart * 4);
-          hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 1), sdq + (2 + buf) * kBwDqPart,
-                                      kBwDqPart * 4);
-          if constexpr (B::kTail)
-            hopper::bulk_reduce_add_f32(a.dq_acc + dq_part<kD>(bh, nq, it, 2), sdqt + buf * B::kDqTail,
-                                        B::kDqTail * 4);
-          hopper::bulk_commit();
-          hopper::bulk_wait<0>();
-          hopper::fence_proxy_async_global();
-          hopper::red_add_release(sem + it, 1);
-          hopper::mbar_arrive(&dq_empty[buf]);
-        }
-        __syncwarp();
       }
     }
     return;
   }
 
-  hopper::reg_alloc<240>();  // 2 x 128 x 240 + 128 x 24 <= 65,536
-  const int c = wg - 1;      // keys k0 + 64c ..
+  hopper::reg_alloc<B::kConsumerRegs>();
+  const int c = wg - 1;  // keys k0 + 64c ..
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const uint64_t kdesc = hopper::desc_sw128(sk + c * (B::kKMain / 2), 16, 1024);
-  const uint64_t vdesc = hopper::desc_sw128(sv + c * (B::kKMain / 2), 16, 1024);
+  unsigned char* sk = skv;  // the unit's K tile (V's follows), and their descriptors
+  uint64_t kdesc = 0, vdesc = 0;
   const float scale_log2 = a.scale_log2;
   // Accumulator layouts (column block j of 8): x[4j], x[4j+1] at row 16 warp
   // + g, columns 8j + 2t, +1; x[4j+2], x[4j+3] at row + 8. Rows of s, dp, dk,
@@ -1754,28 +1852,27 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   // 32c + 8j + 2t.
   float dk[32], dv[32], s[32], dp[32], dq[16];
   uint32_t pf[4][4], df[4][4];  // P^T and dS^T in bf16: the A fragments of 4 query steps of 16
-  // d = 72: columns 64 + 8j + 2t of dK, dV and dQ (j = 1: the zero columns
-  // 72-79), and the second parts of K and V, 64 rows of 32 bytes a consumer
+  // the tail: columns kTailCol0 + 8j + 2t of dK, dV and dQ (d = 72: j = 1
+  // the zero columns 72-79), and the tail parts of K and V, 64 rows of 32
+  // bytes a consumer
   constexpr int kT = B::kTail ? 8 : 1;
   float dkt[kT], dvt[kT], dqt[kT];
   uint64_t kdesc_tail = 0, vdesc_tail = 0;
-  if constexpr (B::kTail) {
-    kdesc_tail = hopper::desc_sw32(sk + B::kKMain + c * 64 * 32, 16, 256);
-    vdesc_tail = hopper::desc_sw32(sv + B::kKMain + c * 64 * 32, 16, 256);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dkt[i] = dvt[i] = dqt[i] = 0.f;
-  }
+  for (int i = 0; i < kT; ++i) dqt[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) dq[i] = 0.f;
   // the staging row of this thread's first key (16-byte chunk j of row r is
   // stored at chunk j ^ (r % 8), TMA's and wgmma's 128-byte swizzle)
   const int srow = c * 64 + warp * 16 + g;
   auto fence_all = [&]() {
-    hopper::fence_regs(dq);
-    hopper::fence_regs(dk);
-    hopper::fence_regs(dv);
+    if constexpr (B::kMain) {
+      hopper::fence_regs(dq);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+    }
     if constexpr (B::kTail) {
       hopper::fence_regs(dqt);
       hopper::fence_regs(dkt);
@@ -1788,210 +1885,294 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     }
   };
 
-  hopper::mbar_wait(&kv_full, 0);
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int it = 0; it < nq; ++it) {
-    hopper::mbar_wait(&full[stage], phase);
-    const unsigned char* qt = sq + stage * B::kQTile;
-    const unsigned char* gt = sg + stage * B::kQTile;
-    const float* lt = sl + stage * kBwQ;
-    const float* dt = sd + stage * kBwQ;
-    unsigned char* st = sds + (it & 1) * kBwDsTile;
+  // S^T = K Q^T and dP^T = V G^T of the query tile in stage stg: two commit groups
+  auto issue_s_dp = [&](int stg) {
+    const unsigned char* qt = sq + stg * B::kQTile;
+    const unsigned char* gt = sg + stg * B::kQTile;
     const uint64_t qdesc = hopper::desc_sw128(qt, 16, 1024);
     const uint64_t gdesc = hopper::desc_sw128(gt, 16, 1024);
-
     hopper::wgmma_fence();
+    if constexpr (B::kMain) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(s, kdesc + 2 * k, qdesc + 2 * k, k > 0);
-    if constexpr (B::kTail)  // the fifth k-step: columns 64-79 (72-79 zero)
-      hopper::wgmma_m64n64k16_ss(s, kdesc_tail, hopper::desc_sw32(qt + B::kQMain, 16, 256), 1);
+      for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(s, kdesc + 2 * k, qdesc + 2 * k, k > 0);
+    }
+    if constexpr (B::kTail)  // the tail's k step (d = 72: the fifth, columns 64-79, 72-79 zero)
+      hopper::wgmma_m64n64k16_ss(s, kdesc_tail, hopper::desc_sw32(qt + B::kQMain, 16, 256), B::kMain);
     hopper::wgmma_commit();
+    if constexpr (B::kMain) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(dp, vdesc + 2 * k, gdesc + 2 * k, k > 0);
+      for (int k = 0; k < 4; ++k) hopper::wgmma_m64n64k16_ss(dp, vdesc + 2 * k, gdesc + 2 * k, k > 0);
+    }
     if constexpr (B::kTail)
-      hopper::wgmma_m64n64k16_ss(dp, vdesc_tail, hopper::desc_sw32(gt + B::kQMain, 16, 256), 1);
+      hopper::wgmma_m64n64k16_ss(dp, vdesc_tail, hopper::desc_sw32(gt + B::kQMain, 16, 256), B::kMain);
     hopper::wgmma_commit();
-
-    // P^T = exp2(S^T scale - lse) while dP^T runs
-    hopper::wgmma_wait<1>();
-    hopper::fence_regs(s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
-      s[4 * j] = fa_exp2(fmaf(s[4 * j], scale_log2, -l.x));
-      s[4 * j + 1] = fa_exp2(fmaf(s[4 * j + 1], scale_log2, -l.y));
-      s[4 * j + 2] = fa_exp2(fmaf(s[4 * j + 2], scale_log2, -l.x));
-      s[4 * j + 3] = fa_exp2(fmaf(s[4 * j + 3], scale_log2, -l.y));
-      pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-    }
-    // dV += P^T G, G MN-major: 16 queries = 2 KB (512 bytes of the second part)
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_rs(dv, pf[kk], hopper::desc_sw128(gt + kk * 2048, B::kQMain, 1024), 1);
-    if constexpr (B::kTail) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n16k16_rs(dvt, pf[kk], hopper::desc_sw32(gt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
-    }
-    hopper::wgmma_commit();
-
-    // dS^T = P^T (dP^T - delta) while dV runs; into df and the staging tile
-    hopper::wgmma_wait<1>();
-    hopper::fence_regs(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(dt + 8 * j + 2 * t);
-      const uint32_t lo = pack_bf16(s[4 * j] * (dp[4 * j] - dl.x), s[4 * j + 1] * (dp[4 * j + 1] - dl.y));
-      const uint32_t hi =
-          pack_bf16(s[4 * j + 2] * (dp[4 * j + 2] - dl.x), s[4 * j + 3] * (dp[4 * j + 3] - dl.y));
-      df[j / 2][(j % 2) * 2] = lo;
-      df[j / 2][(j % 2) * 2 + 1] = hi;
-      *reinterpret_cast<uint32_t*>(st + srow * 128 + ((j ^ (srow & 7)) << 4) + 4 * t) = lo;
-      *reinterpret_cast<uint32_t*>(st + (srow + 8) * 128 + ((j ^ ((srow + 8) & 7)) << 4) + 4 * t) = hi;
-    }
-    // dK += dS^T Q, Q MN-major
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_rs(dk, df[kk], hopper::desc_sw128(qt + kk * 2048, B::kQMain, 1024), 1);
-    if constexpr (B::kTail) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n16k16_rs(dkt, df[kk], hopper::desc_sw32(qt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
-    }
-    hopper::wgmma_commit();
-
-    // dQ[:, 32c..] = dS K over the block's 128 keys, once both consumers'
-    // dS^T rows are in the staging tile: dS^T and K both MN-major, 16 keys
-    // = 2 KB, this warpgroup's 32 columns 64 bytes into K's rows; at d = 72
-    // also dQ[:, 64..80) over this warpgroup's 64 keys (16 keys = 512 bytes
-    // of K's second part)
-    hopper::fence_proxy_async();
-    hopper::bar_sync(1, 256);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      hopper::wgmma_m64n32k16_ss_tt(dq, hopper::desc_sw128(st + kk * 2048, kBwDsTile, 1024),
-                                    hopper::desc_sw128(sk + kk * 2048 + c * 64, B::kKMain, 1024), kk > 0);
-    if constexpr (B::kTail) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int ks = 4 * c + kk;  // this warpgroup's key steps
-        hopper::wgmma_m64n16k16_ss_tt(dqt, hopper::desc_sw128(st + ks * 2048, kBwDsTile, 1024),
-                                      hopper::desc_sw32(sk + B::kKMain + ks * 512, kBwKeys * 32, 256), kk > 0);
-      }
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
+  };
+  // Retires query tile i (in stage stg) once its dV, dK and dQ are done:
+  // the stage goes back to the producer, and the tile's dQ part is staged
+  // in shared memory (two buffers of a group a warpgroup) for the reducer
+  // warp, once it is done with the buffer's previous group.
+  int gbase = 0;  // groups of the block's earlier units: the staging buffers' sequence
+  auto retire = [&](int i, int stg) {
     fence_all();
-    if (lane == 0) hopper::mbar_arrive(&empty[stage]);  // q, g, lse, delta of this stage are read
-
-    // The dQ part staged in shared memory (two buffers a warpgroup) for the
-    // reducer warp, once it is done with the buffer's previous tile.
-    if (it >= 2) hopper::mbar_wait(&dq_empty[it & 1], ((it >> 1) - 1) & 1);
-    float* part = sdq + (c * 2 + (it & 1)) * kBwDqPart;
+    if (lane == 0) hopper::mbar_arrive(&empty[stg]);  // q, g, lse, delta of this stage are read
+    const int gi = i % kGroup, seq = gbase + i / kGroup, buf = seq & 1;
+    if (gi == 0 && seq >= 2) hopper::mbar_wait(&dq_empty[buf], ((seq >> 1) - 1) & 1);
     const int row = warp * 16 + g;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int blk = 8 * (j ^ (row & 3)) + 2 * t;  // rows row and row + 8 swizzle alike
-      *reinterpret_cast<float2*>(part + row * 32 + blk) = make_float2(dq[4 * j], dq[4 * j + 1]);
-      *reinterpret_cast<float2*>(part + (row + 8) * 32 + blk) = make_float2(dq[4 * j + 2], dq[4 * j + 3]);
-    }
-    float* part_t = sdqt + (c * 2 + (it & 1)) * B::kDqTail;
-    if constexpr (B::kTail) {  // columns 64-71: rows of 8 values
-      *reinterpret_cast<float2*>(part_t + row * 8 + 2 * t) = make_float2(dqt[0], dqt[1]);
-      *reinterpret_cast<float2*>(part_t + (row + 8) * 8 + 2 * t) = make_float2(dqt[2], dqt[3]);
-    }
-    hopper::fence_proxy_async();
-    hopper::bar_sync(2 + c, 128);
-    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&dq_full[it & 1]);
-    if (++stage == kBwStages) stage = 0, phase ^= 1;
-  }
-
-  // dV, and dK d^-1/2 (with kRope J^T of it), in bf16 for keys < n
-  const int r0 = k0 + srow, r1 = r0 + 8;
-  bf16* dvb = a.dv + (long long)bh * n * kD;
-  bf16* dkb = a.dk + (long long)bh * n * kD;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] *= a.scale;
-  if constexpr (B::kTail) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dkt[i] *= a.scale;
-  }
-  if (kD == 64 && kRope) {
-    // columns c < 32 pair with c + 32 (block j with j + 4), in this thread:
-    // out_lo = y_lo cos_lo + y_hi sin_hi, out_hi = y_hi cos_hi - y_lo sin_lo
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h ? r1 : r0;
-      if (row >= n) continue;
-      const float* cs = a.cos + (size_t)row * 64;
-      const float* sn = a.sin + (size_t)row * 64;
+    if constexpr (B::kMain) {
+      float* part = sdq + (c * 2 + buf) * kBwDqPart;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = 8 * j + 2 * t;
-        const float2 c1 = *reinterpret_cast<const float2*>(cs + col);
-        const float2 c2 = *reinterpret_cast<const float2*>(cs + col + 32);
-        const float2 s1 = *reinterpret_cast<const float2*>(sn + col);
-        const float2 s2 = *reinterpret_cast<const float2*>(sn + col + 32);
-        float& y1a = dk[4 * j + 2 * h];
-        float& y1b = dk[4 * j + 2 * h + 1];
-        float& y2a = dk[4 * (j + 4) + 2 * h];
-        float& y2b = dk[4 * (j + 4) + 2 * h + 1];
-        const float o1a = __fadd_rn(__fmul_rn(y1a, c1.x), __fmul_rn(y2a, s2.x));
-        const float o1b = __fadd_rn(__fmul_rn(y1b, c1.y), __fmul_rn(y2b, s2.y));
-        const float o2a = __fadd_rn(__fmul_rn(y2a, c2.x), -__fmul_rn(y1a, s1.x));
-        const float o2b = __fadd_rn(__fmul_rn(y2b, c2.y), -__fmul_rn(y1b, s1.y));
-        y1a = o1a, y1b = o1b, y2a = o2a, y2b = o2b;
+        const int blk = 8 * (j ^ (row & 3)) + 2 * t;  // rows row and row + 8 swizzle alike
+        *reinterpret_cast<float2*>(part + row * 32 + blk) = make_float2(dq[4 * j], dq[4 * j + 1]);
+        *reinterpret_cast<float2*>(part + (row + 8) * 32 + blk) = make_float2(dq[4 * j + 2], dq[4 * j + 3]);
       }
     }
-  }
+    if constexpr (B::kTail) {  // the tail's stored columns: rows of kTailCols values
+      float* part_t = sdqt + ((c * 2 + buf) * kGroup + gi) * B::kDqTail;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    if (r0 < n) {
-      *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + col) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
-      if (kD == 64 || !kRope)
-        *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + col) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      for (int j = 0; j < B::kTailCols / 8; ++j) {
+        *reinterpret_cast<float2*>(part_t + row * B::kTailCols + 8 * j + 2 * t) =
+            make_float2(dqt[4 * j], dqt[4 * j + 1]);
+        *reinterpret_cast<float2*>(part_t + (row + 8) * B::kTailCols + 8 * j + 2 * t) =
+            make_float2(dqt[4 * j + 2], dqt[4 * j + 3]);
+      }
     }
-    if (r1 < n) {
-      *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + col) =
-          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
-      if (kD == 64 || !kRope)
-        *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + col) =
-            pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+    if (gi == kGroup - 1 || i == nq - 1) {  // the group is staged
+      hopper::fence_proxy_async();
+      hopper::bar_sync(2 + c, 128);
+      if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&dq_full[buf]);
     }
-  }
-  if constexpr (B::kTail) {  // columns 64 + 2t, +1
-    if (r0 < n) *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + 64 + 2 * t) = pack_bf16(dvt[0], dvt[1]);
-    if (r1 < n) *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + 64 + 2 * t) = pack_bf16(dvt[2], dvt[3]);
-    if constexpr (!kRope) {
-      if (r0 < n) *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + 64 + 2 * t) = pack_bf16(dkt[0], dkt[1]);
-      if (r1 < n) *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + 64 + 2 * t) = pack_bf16(dkt[2], dkt[3]);
-    } else {
-      // c pairs with c + 36, in another thread: this warpgroup's 64 x 72
-      // rows of dK d^-1/2 through shared memory, then J^T element by element
-      float* stg = sdk + c * B::kDkStage;
-      const int lr = warp * 16 + g;  // this thread's rows lr and lr + 8 of the warpgroup's 64 keys
+  };
+  // d = 16 (no main part): a tile's products are short, so the next tile's
+  // S^T and dP^T are issued before this tile's dV, dK and dQ are waited
+  // for, and each consumer's dQ, over its own 64 keys, waits only for its
+  // own warpgroup's dS^T rows.
+  constexpr bool kAhead = !B::kMain;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int u = ufirst, ui = 0; u < nunits; u += ustep, ++ui, gbase += ngroups) {
+    const int bh = unit_bh(u), k0 = unit_kt(u) * kBwKeys, ub = ui % B::kKvBufs;
+    sk = skv + ub * 2 * B::kKTile;
+    unsigned char* sv = sk + B::kKTile;
+    kdesc = hopper::desc_sw128(sk + c * (B::kKMain / 2), 16, 1024);
+    vdesc = hopper::desc_sw128(sv + c * (B::kKMain / 2), 16, 1024);
+    if constexpr (B::kTail) {
+      kdesc_tail = hopper::desc_sw32(sk + B::kKMain + c * 64 * 32, 16, 256);
+      vdesc_tail = hopper::desc_sw32(sv + B::kKMain + c * 64 * 32, 16, 256);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dkt[i] = dvt[i] = 0.f;
+    }
+    if constexpr (B::kMain) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    }
+    hopper::mbar_wait(&kv_full[ub], (ui / B::kKvBufs) & 1);
+    if constexpr (kAhead) {
+      hopper::mbar_wait(&full[stage], phase);
+      issue_s_dp(stage);
+    }
+    for (int it = 0; it < nq; ++it) {
+      if constexpr (!kAhead) {
+        hopper::mbar_wait(&full[stage], phase);
+        issue_s_dp(stage);
+      }
+      const unsigned char* qt = sq + stage * B::kQTile;
+      const unsigned char* gt = sg + stage * B::kQTile;
+      const float* lt = sl + stage * kBwQ;
+      const float* dt = sd + stage * kBwQ;
+      unsigned char* st = sds + (it & 1) * kBwDsTile;
+
+      // P^T = exp2(S^T scale - lse) while dP^T runs
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<float2*>(stg + lr * B::kStRow + 8 * j + 2 * t) = make_float2(dk[4 * j], dk[4 * j + 1]);
-        *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 8 * j + 2 * t) =
-            make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        const float2 l = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+        s[4 * j] = fa_exp2(fmaf(s[4 * j], scale_log2, -l.x));
+        s[4 * j + 1] = fa_exp2(fmaf(s[4 * j + 1], scale_log2, -l.y));
+        s[4 * j + 2] = fa_exp2(fmaf(s[4 * j + 2], scale_log2, -l.x));
+        s[4 * j + 3] = fa_exp2(fmaf(s[4 * j + 3], scale_log2, -l.y));
+        pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
       }
-      *reinterpret_cast<float2*>(stg + lr * B::kStRow + 64 + 2 * t) = make_float2(dkt[0], dkt[1]);
-      *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 64 + 2 * t) = make_float2(dkt[2], dkt[3]);
-      hopper::bar_sync(2 + c, 128);
-      const int key0 = k0 + c * 64;
-      for (int idx = threadIdx.x % 128; idx < 64 * kD; idx += 128) {
-        const int r = idx / kD, col = idx % kD, key = key0 + r;
-        if (key >= n) continue;
-        const float y = attn::rope_transpose(stg + r * B::kStRow, col, kD, a.cos + (size_t)key * kD,
-                                             a.sin + (size_t)key * kD);
-        dkb[(long long)key * kD + col] = __float2bfloat16_rn(y);
+      // dV += P^T G, G MN-major: 16 queries = 2 KB of the main part (512 bytes of the tail)
+      hopper::wgmma_fence();
+      if constexpr (B::kMain) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n64k16_rs(dv, pf[kk], hopper::desc_sw128(gt + kk * 2048, B::kQMain, 1024), 1);
+      }
+      if constexpr (B::kTail) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n16k16_rs(dvt, pf[kk], hopper::desc_sw32(gt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
+      }
+      hopper::wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta) while dV runs; into df and the staging tile
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(dt + 8 * j + 2 * t);
+        const uint32_t lo = pack_bf16(s[4 * j] * (dp[4 * j] - dl.x), s[4 * j + 1] * (dp[4 * j + 1] - dl.y));
+        const uint32_t hi =
+            pack_bf16(s[4 * j + 2] * (dp[4 * j + 2] - dl.x), s[4 * j + 3] * (dp[4 * j + 3] - dl.y));
+        df[j / 2][(j % 2) * 2] = lo;
+        df[j / 2][(j % 2) * 2 + 1] = hi;
+        *reinterpret_cast<uint32_t*>(st + srow * 128 + ((j ^ (srow & 7)) << 4) + 4 * t) = lo;
+        *reinterpret_cast<uint32_t*>(st + (srow + 8) * 128 + ((j ^ ((srow + 8) & 7)) << 4) + 4 * t) = hi;
+      }
+      // dK += dS^T Q, Q MN-major
+      hopper::wgmma_fence();
+      if constexpr (B::kMain) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n64k16_rs(dk, df[kk], hopper::desc_sw128(qt + kk * 2048, B::kQMain, 1024), 1);
+      }
+      if constexpr (B::kTail) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n16k16_rs(dkt, df[kk], hopper::desc_sw32(qt + B::kQMain + kk * 512, kBwQ * 32, 256), 1);
+      }
+      hopper::wgmma_commit();
+
+      // dQ[:, 32c..] = dS K over the block's 128 keys, once both consumers'
+      // dS^T rows are in the staging tile: dS^T and K both MN-major, 16 keys
+      // = 2 KB, this warpgroup's 32 columns 64 bytes into K's rows; the tail's
+      // columns dQ[:, kTailCol0..] over this warpgroup's 64 keys (16 keys =
+      // 512 bytes of K's tail)
+      hopper::fence_proxy_async();
+      if constexpr (kAhead)
+        hopper::bar_sync(2 + c, 128);
+      else
+        hopper::bar_sync(1, 256);
+      hopper::wgmma_fence();
+      if constexpr (B::kMain) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_m64n32k16_ss_tt(dq, hopper::desc_sw128(st + kk * 2048, kBwDsTile, 1024),
+                                        hopper::desc_sw128(sk + kk * 2048 + c * 64, B::kKMain, 1024), kk > 0);
+      }
+      if constexpr (B::kTail) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int ks = 4 * c + kk;  // this warpgroup's key steps
+          hopper::wgmma_m64n16k16_ss_tt(dqt, hopper::desc_sw128(st + ks * 2048, kBwDsTile, 1024),
+                                        hopper::desc_sw32(sk + B::kKMain + ks * 512, kBwKeys * 32, 256), kk > 0);
+        }
+      }
+      hopper::wgmma_commit();
+      if (kAhead && it + 1 < nq) {
+        const int next = stage + 1 == kBwStages ? 0 : stage + 1;
+        hopper::mbar_wait(&full[next], next == 0 ? phase ^ 1 : phase);
+        issue_s_dp(next);         // into s and dp, which dS^T has read
+        hopper::wgmma_wait<2>();  // this tile's dV, dK and dQ; the next tile's S^T and dP^T run on
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      retire(it, stage);
+      if (++stage == kBwStages) stage = 0, phase ^= 1;
+    }
+    // the unit's K and V are read (its products waited for): the buffer back to the producer
+    if (B::kPersistent && threadIdx.x % 128 == 0) hopper::mbar_arrive(&kv_empty[ub]);
+
+    // dV, and dK d^-1/2 (with kRope J^T of it), in bf16 for keys < n
+    const int r0 = k0 + srow, r1 = r0 + 8;
+    bf16* dvb = a.dv + (long long)bh * n * kD;
+    bf16* dkb = a.dk + (long long)bh * n * kD;
+    if constexpr (B::kMain) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] *= a.scale;
+    }
+    if constexpr (B::kTail) {
+#pragma unroll
+      for (int i = 0; i < B::kTailCols / 2; ++i) dkt[i] *= a.scale;
+    }
+    if (kD == 64 && kRope) {
+      // columns c < 32 pair with c + 32 (block j with j + 4), in this thread:
+      // out_lo = y_lo cos_lo + y_hi sin_hi, out_hi = y_hi cos_hi - y_lo sin_lo
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? r1 : r0;
+        if (row >= n) continue;
+        const float* cs = a.cos + (size_t)row * 64;
+        const float* sn = a.sin + (size_t)row * 64;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 c1 = *reinterpret_cast<const float2*>(cs + col);
+          const float2 c2 = *reinterpret_cast<const float2*>(cs + col + 32);
+          const float2 s1 = *reinterpret_cast<const float2*>(sn + col);
+          const float2 s2 = *reinterpret_cast<const float2*>(sn + col + 32);
+          float& y1a = dk[4 * j + 2 * h];
+          float& y1b = dk[4 * j + 2 * h + 1];
+          float& y2a = dk[4 * (j + 4) + 2 * h];
+          float& y2b = dk[4 * (j + 4) + 2 * h + 1];
+          const float o1a = __fadd_rn(__fmul_rn(y1a, c1.x), __fmul_rn(y2a, s2.x));
+          const float o1b = __fadd_rn(__fmul_rn(y1b, c1.y), __fmul_rn(y2b, s2.y));
+          const float o2a = __fadd_rn(__fmul_rn(y2a, c2.x), -__fmul_rn(y1a, s1.x));
+          const float o2b = __fadd_rn(__fmul_rn(y2b, c2.y), -__fmul_rn(y1b, s1.y));
+          y1a = o1a, y1b = o1b, y2a = o2a, y2b = o2b;
+        }
+      }
+    }
+    if constexpr (B::kMain) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (r0 < n) {
+          *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + col) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
+          if (kD == 64 || !kRope)
+            *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + col) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
+        }
+        if (r1 < n) {
+          *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + col) =
+              pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+          if (kD == 64 || !kRope)
+            *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + col) =
+                pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+        }
+      }
+    }
+    if constexpr (B::kTail) {  // columns kTailCol0 + 8j + 2t, +1
+#pragma unroll
+      for (int j = 0; j < B::kTailCols / 8; ++j) {
+        const int col = B::kTailCol0 + 8 * j + 2 * t;
+        if (r0 < n)
+          *reinterpret_cast<uint32_t*>(dvb + (long long)r0 * kD + col) = pack_bf16(dvt[4 * j], dvt[4 * j + 1]);
+        if (r1 < n)
+          *reinterpret_cast<uint32_t*>(dvb + (long long)r1 * kD + col) = pack_bf16(dvt[4 * j + 2], dvt[4 * j + 3]);
+        if constexpr (!kRope) {
+          if (r0 < n)
+            *reinterpret_cast<uint32_t*>(dkb + (long long)r0 * kD + col) = pack_bf16(dkt[4 * j], dkt[4 * j + 1]);
+          if (r1 < n)
+            *reinterpret_cast<uint32_t*>(dkb + (long long)r1 * kD + col) = pack_bf16(dkt[4 * j + 2], dkt[4 * j + 3]);
+        }
+      }
+      if constexpr (kRope && kD == 72) {
+        // c pairs with c + 36, in another thread: this warpgroup's 64 x 72
+        // rows of dK d^-1/2 through shared memory, then J^T element by element
+        float* stg = sdk + c * B::kDkStage;
+        const int lr = warp * 16 + g;  // this thread's rows lr and lr + 8 of the warpgroup's 64 keys
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<float2*>(stg + lr * B::kStRow + 8 * j + 2 * t) = make_float2(dk[4 * j], dk[4 * j + 1]);
+          *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 8 * j + 2 * t) =
+              make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        }
+        *reinterpret_cast<float2*>(stg + lr * B::kStRow + 64 + 2 * t) = make_float2(dkt[0], dkt[1]);
+        *reinterpret_cast<float2*>(stg + (lr + 8) * B::kStRow + 64 + 2 * t) = make_float2(dkt[2], dkt[3]);
+        hopper::bar_sync(2 + c, 128);
+        const int key0 = k0 + c * 64;
+        for (int idx = threadIdx.x % 128; idx < 64 * kD; idx += 128) {
+          const int r = idx / kD, col = idx % kD, key = key0 + r;
+          if (key >= n) continue;
+          const float y = attn::rope_transpose(stg + r * B::kStRow, col, kD, a.cos + (size_t)key * kD,
+                                               a.sin + (size_t)key * kD);
+          dkb[(long long)key * kD + col] = __float2bfloat16_rn(y);
+        }
       }
     }
   }
@@ -1999,8 +2180,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 
 // grid: (ceil(rows / 32), 256 threads) at d = 64, rows = bh * n: eight lanes
 // a row, lane j owning columns 4j..4j+3 and their RoPE partners
-// 4j+32..4j+35. At d = 72: ceil(rows * 36 / 256) blocks, a thread a pair of
-// columns (c, c + 36) of a row, which lie in different parts.
+// 4j+32..4j+35. At d = 72 (16): ceil(rows * 36 (8) / 256) blocks, a thread a
+// pair of columns (c, c + d / 2) of a row, at d = 72 in different parts.
 template <int kD, bool kRope>
 __global__ void __launch_bounds__(256)
     flash_bwd_postprocess_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
@@ -2040,12 +2221,13 @@ __global__ void __launch_bounds__(256)
     const long long row = idx / kHalf;
     const int c = (int)(idx % kHalf), r = (int)(row % n), rr = r % kBwQ;
     const float* blk = dq_acc + dq_part<kD>(row / n, npad / kBwQ, r / kBwQ, 0);
+    using B = Bw<kD>;
     auto at = [&](int col) {  // element (rr, col) of the query tile's parts
-      if (col < 64) {
+      if (B::kMain && col < 64) {
         const int cc = col % 32;
         return blk[(col / 32) * kBwDqPart + rr * 32 + 8 * ((cc / 8) ^ (rr & 3)) + cc % 8];
       }
-      return blk[2 * kBwDqPart + rr * 8 + col - 64];
+      return blk[B::kMainParts * kBwDqPart + rr * B::kTailCols + col - B::kTailCol0];
     };
     float y1 = at(c) * scale, y2 = at(c + kHalf) * scale;
     if (kRope) {  // J^T: (c, c + half), in the TPU kernel's op order
@@ -2061,10 +2243,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The single pass at d = kD (64 or 72) on contiguous (bh, n, kD) q, k
+// The single pass at d = kD (16, 64 or 72) on contiguous (bh, n, kD) q, k
 // (rotated for RoPE), v, g, o; lse_fwd (bh, n) from the forward; lse, delta
 // (bh, npad) and dq_acc (bh, npad, kD) fp32 scratch, followed by bh npad /
-// 64 ints (the reduction order's counters).
+// 64 ints (the reduction order's counters, one a group of query tiles).
 template <int kD, bool kRope>
 cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const void* g, const void* o,
                            const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
@@ -2080,26 +2262,29 @@ cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const vo
       npad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  CUtensorMap maps[4];
+  CUtensorMap maps[4] = {};
   BwTailMaps tail{};
   CUtensorMap* tails[4] = {&tail.q, &tail.k, &tail.v, &tail.g};
   const void* ptrs[4] = {q, k, v, g};
   for (int i = 0; i < 4; ++i) {
     const int rows = i == 1 || i == 2 ? kBwKeys : kBwQ;
-    if ((e = tmap_rows(&maps[i], ptrs[i], kD, bh, n, rows)) != cudaSuccess) return e;
+    if (B::kMain && (e = tmap_rows(&maps[i], ptrs[i], kD, bh, n, rows)) != cudaSuccess) return e;
     if (B::kTail && (e = tmap_rows(tails[i], ptrs[i], kD, bh, n, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B)) != cudaSuccess)
       return e;
   }
   if ((e = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<kD, kRope>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, B::kSmem)) != cudaSuccess)
     return e;
-  // d = 64: the scales exactly as before (8 = sqrt(64)); d = 72: the forward's
-  // scale_log2 (make_args), which its lse is in
+  // d = 64: the scales exactly as before (8 = sqrt(64)); d = 72 and 16: the
+  // forwards' scale_log2 (make_args, launch_resident), which their lse is in
   const float scale_log2 = kD == 64 ? 1.4426950408889634f / 8.f : 1.4426950408889634f / sqrtf((float)kD);
   const float scale = kD == 64 ? 0.125f : 1.f / sqrtf((float)kD);
   const BwdWgmmaArgs a{dq_acc, dq_sem, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, cos, sin, n,
-                       npad, scale_log2, scale};
-  const dim3 grid((n + kBwKeys - 1) / kBwKeys, bh);
+                       npad, bh, scale_log2, scale};
+  const int nkt = (n + kBwKeys - 1) / kBwKeys;
+  const long long units = (long long)nkt * bh;
+  const int sms = hopper::sm_count();
+  const dim3 grid = B::kPersistent ? dim3(units < sms ? (unsigned)units : (unsigned)sms) : dim3(nkt, bh);
   flash_bwd_wgmma_kernel<kD, kRope><<<grid, kBwThreads, B::kSmem, s>>>(maps[0], maps[1], maps[2], maps[3], a,
                                                                         tail);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -2111,8 +2296,9 @@ cudaError_t backward_wgmma(const void* q, const void* k, const void* v, const vo
 }
 
 // The backward on contiguous (bh, n, d) operands: the single pass at d = 64
-// and 72 with 16-byte aligned rows, the three passes otherwise (o, lse_fwd,
-// dq_acc unused there).
+// and 72 with 16-byte aligned rows, and without RoPE at d = 16 with them and
+// n <= kRsMaxChunks * 128 (where the resident forward wrote lse); the three
+// passes otherwise (o, lse_fwd, dq_acc unused there).
 template <bool kRope>
 cudaError_t backward(const void* q, const void* k, const void* v, const void* g, const void* o,
                      const float* lse_fwd, const float* cos, const float* sin, void* dq, void* dk,
@@ -2122,6 +2308,10 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* g,
     return backward_wgmma<64, kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
   if (d == 72 && vec == 8)
     return backward_wgmma<72, kRope>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
+  if constexpr (!kRope) {
+    if (d == 16 && vec == 8 && n <= kRsMaxChunks * kRsKeys)
+      return backward_wgmma<16, false>(q, k, v, g, o, lse_fwd, cos, sin, dq, dk, dv, lse, delta, dq_acc, bh, n, s);
+  }
   return backward3<kRope>(q, k, v, g, cos, sin, dq, dk, dv, lse, delta, bh, n, d, vec, s);
 }
 
@@ -2148,13 +2338,15 @@ extern "C" int ldmae_flash_attention_fwd(const void* q, const void* k, const voi
   return static_cast<int>(forward(contiguous_args(q, k, v, out, n, d, vec), lse, bh, static_cast<cudaStream_t>(stream)));
 }
 
-// The resident kernel (no lse): q, k, v, out contiguous (bh, n, d) bf16, d
-// = 8 or 16, 16-byte aligned, n <= 3,072; flash_attention picks it for those
-// shapes when no gradient is recorded (ops/flash_attention.py). Returns the
+// The resident kernel: q, k, v, out contiguous (bh, n, d) bf16, d = 8 or
+// 16, 16-byte aligned, n <= 3,072; lse null, or at d = 16 the (bh, n) fp32
+// log2 softmax denominators the single-pass backward takes (written).
+// flash_attention picks it for those shapes when no gradient is recorded,
+// and with lse at d = 16 when one is (ops/flash_attention.py). Returns the
 // CUDA error of the launch (0 on success).
 extern "C" int ldmae_flash_attention_resident_fwd(const void* q, const void* k, const void* v, void* out,
-                                                  int bh, int n, int d, void* stream) {
-  return static_cast<int>(launch_resident(q, k, v, out, bh, n, d, static_cast<cudaStream_t>(stream)));
+                                                  float* lse, int bh, int n, int d, void* stream) {
+  return static_cast<int>(launch_resident(q, k, v, out, lse, bh, n, d, static_cast<cudaStream_t>(stream)));
 }
 
 // As above with half-split RoPE: cos, sin are contiguous (n, d) fp32 tables;
@@ -2222,8 +2414,9 @@ extern "C" int ldmae_flash_attention_fused_rope_fwd(
 // Backward of ldmae_flash_attention_fwd: q, k, v, g (the output's gradient)
 // contiguous (bh, n, d) bf16; dq, dk, dv written likewise; lse, delta are
 // (bh, npad) fp32 scratch with npad = n rounded up to a multiple of 64. At d
-// = 64 or 72 with vec = 8, o is the forward's output, lse_fwd its (bh, n)
-// lse, and dq_acc (bh, npad, d) fp32 scratch; the other shapes ignore the
+// = 64 or 72 with vec = 8, and at d = 16 with vec = 8 and n <= 3,072, o is
+// the forward's output, lse_fwd its (bh, n) lse, and dq_acc (bh, npad, d)
+// fp32 scratch followed by bh npad / 64 ints; the other shapes ignore the
 // three.
 extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                          const void* o, const float* lse_fwd, void* dq, void* dk,
@@ -2236,7 +2429,7 @@ extern "C" int ldmae_flash_attention_bwd(const void* q, const void* k, const voi
 // Backward of ldmae_flash_attention_rope_fwd: as above with the (n, d) fp32
 // half-split tables cos, sin, and qr, kr (bh, n, d) bf16 scratch that
 // receive the rotated q and k; dq and dk are the gradients of the unrotated
-// q and k.
+// q and k. At d = 16 it runs the three passes at any n.
 extern "C" int ldmae_flash_attention_rope_bwd(const void* q, const void* k, const void* v,
                                               const void* g, const void* o, const float* lse_fwd,
                                               const float* cos, const float* sin, void* qr, void* kr,

@@ -67,6 +67,7 @@
 //   shared 64 x 64 tile into the second product. Shared-memory loads, two
 //   per FMA in the score products, bound it before the FMA pipes do.
 #include "attention_common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -444,13 +445,10 @@ __global__ void __launch_bounds__(kThreads) flash32_bwd_dq_kernel(const Bwd32Arg
 
 // ---- The products on the tensor cores as 3xTF32 (d = 64 and 72) -----------
 //
-// Each fp32 operand x is split into x = hi + lo + e, hi the TF32 rounding of
-// x (cvt.rna.tf32.f32's: to nearest, ties away from zero), lo that of x - hi
-// (exact in fp32), |e| <= 2^-22 |x|; a product a b is accumulated in fp32
-// as a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first (CUTLASS's
-// OpMultiplyAddFastF32, what SDPA's fp32 path runs), each by mma.sync
-// m16n8k8 tf32. The a_lo b_lo term left out is below 2^-22 of the product.
-// p and ds are split alike: neither is rounded to one TF32 value.
+// Each fp32 operand is split into TF32 hi and lo parts (split_tf32, tf32.cuh)
+// and a product a b accumulated in fp32 as a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// each by mma.sync m16n8k8 tf32. p and ds are split alike: neither is
+// rounded to one TF32 value.
 //
 // m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4):
 //   A (16x8, row): a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
@@ -460,17 +458,6 @@ __global__ void __launch_bounds__(kThreads) flash32_bwd_dq_kernel(const Bwd32Arg
 // and dS from the first products' accumulators as A without a shuffle: their k
 // index (keys or queries) is summed, so k = t stands for column 2t of the
 // accumulator and k = t+4 for 2t+1, and B reads rows 2t and 2t+1 to match.
-
-// cvt.rna.tf32.f32 by integer operations: + 2^12 on the magnitude bits, the
-// 13 low bits cleared (the sign bit stands apart). ptxas lowers the cvt to
-// about five instructions with its NaN checks; this is two, the same bits
-// for every finite x.
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(__float_as_uint(x));
-  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
-}
 
 struct FragA {
   uint32_t hi[4], lo[4];

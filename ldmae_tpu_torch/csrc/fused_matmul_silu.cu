@@ -32,7 +32,7 @@
 //
 // Shape gate as in the TPU kernel (checked by the wrapper): M % 128 == 0,
 // D % 128 == 0, 2H % 256 == 0 (the rows of a unit past M arrive as zeros
-// from TMA and are not stored).
+// from TMA and are not stored). bf16 and fp32 (the section "fp32" below).
 #include "gemm.cuh"
 
 namespace {
@@ -73,68 +73,70 @@ struct GateEpi {
 using GateConfig = gemm::Config<bf16, 256, 4, 5>;
 
 // ---------------------------------------------------------------------------
-// fp32 (the configs' other compute dtype): the same function with fp32
-// operands, products and output, for the configs' float32 compute dtype
-// (the TPU kernel's astype(x.dtype) of w12 and output are then no-ops). The
-// tensor cores take no fp32 (TF32 keeps 10 mantissa bits, far from the plain
-// fp32 product), so this is a plain tiled SIMT GEMM on the FMA pipes (67
-// TFLOP/s: 1.5 ms at the B/1 shape), right first: a block of 256 threads
-// computes a 64-row tile of x1 and the same columns of x2 (64 + 64 of 2H)
-// over depth steps of 16 staged in shared memory (x and both w12 blocks
-// transposed, so each thread reads its 4 rows and 4 + 4 columns as float4),
-// 4 x 4 outputs of each a thread; the epilogue adds the bias and forms
-// silu(x1) x2 = x1 x2 / (1 + e^-x1) in fp32 (expf and a true division, as the
-// plain version's sigmoid). Shape gate as above.
-constexpr int kSBM = 64, kSBN = 64, kSBK = 16, kSLd = 64 + 4;
+// fp32 (the configs' other compute dtype: parallel.compute_dtype float32):
+// the same function with fp32 operands, products and output (the TPU
+// kernel's astype(x.dtype) of w12 and output are then no-ops); on the CPU
+// JAX computes this dot in full fp32.
+//
+// What bounds it: at the B/1 sampling shape the 2 M D 2H = 1.03e11
+// operations take 1.54 ms on the FMA pipes (67 TFLOP/s), where the SIMT GEMM
+// this replaces ran at 0.52 of that (2.94 ms, 1.41x torch.addmm's 2.09 ms).
+// One TF32 product keeps 10 mantissa bits, far from fp32; three of them
+// (3xTF32, tf32.cuh) keep about 22, as the fp32 attention's tensor-core
+// kernels do, and take 3 x 1.03e11 / 495e12 = 0.625 ms: the
+// tensor cores bound it, and only wgmma reaches their rate. The bytes (x,
+// w12 and the (M, H) output once each) take 0.059 ms.
+//
+// Design: the GEMM engine's fp32 configuration (gemm.cuh, "fp32 operands")
+// with #4's paired tiles (64 columns of x1 and of x2: the partial sums
+// against the tensor cores' truncation take a second accumulator) and
+// clusters of four, as in bf16: a pass splits w12 once a call into its TF32
+// hi and lo parts (split_tf32_kernel: 2H D values, 25 MB written at B/1),
+// every stage of the ring holds x's tile and both parts of the w12 block,
+// and x is split in registers as the register A operand of the three
+// products. The epilogue (GateEpiF32) is
+// the plain version's: the fp32 bias, then silu(x1) x2 = x1 x2 / (1 +
+// e^-x1) with expf and a true division, fp32 out. Shape gate as above.
 
-__global__ void __launch_bounds__(256)
-    matmul_silu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w12,
-                           const float* __restrict__ bias, float* __restrict__ out, int m, int d, int h) {
-  __shared__ __align__(16) float sa[kSBK][kSLd], sb1[kSBK][kSLd], sb2[kSBK][kSLd];
-  const int m0 = blockIdx.y * kSBM, n0 = blockIdx.x * kSBN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc1[4][4], acc2[4][4];
+using GateConfigF32 = gemm::Config<float, 128, 4, 5>;
+
+// out (m, h) fp32 = silu(x1) x2 from the accumulator's fragment, as GateEpi
+// in fp32: 8-byte stores of two columns.
+struct GateEpiF32 {
+  static constexpr bool kPaired = true;
+  using Out = float;
+  const float* bias;
+  float* out;
+
+  template <class Cfg>
+  __device__ __forceinline__ void store(const float (&acc)[Cfg::kAcc], const gemm::Tile& tl) const {
+    const int row = tl.m0 + tl.warp * 16 + tl.g, h = tl.n;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int jb = 0; jb < Cfg::kBN / 16; ++jb) {
+      const int col = tl.n0 + jb * 8 + 2 * tl.t;
+      const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + col));
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + h + col));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc1[i][j] = acc2[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kSBK) {
-    // 64 rows x 16 deep of x, and of the x1 and x2 rows of w12, transposed
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = threadIdx.x + 256 * i, r = idx / kSBK, c = idx % kSBK;
-      sa[c][r] = x[(size_t)(m0 + r) * d + k0 + c];
-      sb1[c][r] = w12[(size_t)(n0 + r) * d + k0 + c];
-      sb2[c][r] = w12[(size_t)(h + n0 + r) * d + k0 + c];
+      for (int hr = 0; hr < 2; ++hr) {
+        const float x1a = acc[4 * jb + 2 * hr] + b1.x, x1b = acc[4 * jb + 2 * hr + 1] + b1.y;
+        const float x2a = acc[Cfg::kAcc / 2 + 4 * jb + 2 * hr] + b2.x;
+        const float x2b = acc[Cfg::kAcc / 2 + 4 * jb + 2 * hr + 1] + b2.y;
+        const float ya = __fdiv_rn(x1a, __fadd_rn(1.f, expf(-x1a))) * x2a;
+        const float yb = __fdiv_rn(x1b, __fadd_rn(1.f, expf(-x1b))) * x2b;
+        if (row + 8 * hr < tl.m) *reinterpret_cast<float2*>(out + (size_t)(row + 8 * hr) * h + col) = make_float2(ya, yb);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sa[kk][4 * ty]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sb1[kk][4 * tx]);
-      const float4 b2 = *reinterpret_cast<const float4*>(&sb2[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, b1v[4] = {b1.x, b1.y, b1.z, b1.w},
-                  b2v[4] = {b2.x, b2.y, b2.z, b2.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc1[i][j] = fmaf(av[i], b1v[j], acc1[i][j]);
-          acc2[i][j] = fmaf(av[i], b2v[j], acc2[i][j]);
-        }
-    }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + 4 * tx + j;
-      const float x1 = acc1[i][j] + bias[col], x2 = acc2[i][j] + bias[h + col];
-      y[j] = __fdiv_rn(x1, __fadd_rn(1.f, expf(-x1))) * x2;
-    }
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + 4 * ty + i) * h + n0 + 4 * tx) = make_float4(y[0], y[1], y[2], y[3]);
+};
+
+// w (count fp32 values) into its TF32 parts: hi at hi[i], lo at hi[count + i].
+__global__ void __launch_bounds__(256)
+    split_tf32_kernel(const float* __restrict__ w, float* __restrict__ hi, long long count) {
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < count; i += (long long)gridDim.x * 256) {
+    uint32_t h, l;
+    split_tf32(w[i], h, l);
+    hi[i] = __uint_as_float(h);
+    hi[count + i] = __uint_as_float(l);
   }
 }
 
@@ -153,13 +155,19 @@ extern "C" int ldmae_fused_matmul_silu(const void* x, const void* w12, const flo
 }
 
 // The fp32 function: x (m, d), w12 (2h, d), b12 (2h,), out (m, h), all fp32
-// and contiguous; m % 64 == 0, d % 16 == 0, h % 64 == 0 (the wrapper's shape
-// gate is stricter). Returns the CUDA error of the launch (0 on success).
+// and contiguous, x 16-byte aligned; w_split (4h, d) fp32 scratch that
+// receives w12's hi and lo parts. Requires m % 128 == 0, d % 32 == 0, h %
+// 128 == 0 (the wrapper's gate: d % 128). Returns the CUDA error of the
+// first failed launch (0 on success).
 extern "C" int ldmae_fused_matmul_silu_f32(const float* x, const float* w12, const float* b12, float* out,
-                                           int m, int d, int h, void* stream) {
-  if (m % kSBM != 0 || d % kSBK != 0 || h % kSBN != 0 || m / kSBM > 65535)
+                                           float* w_split, int m, int d, int h, void* stream) {
+  if (m % 128 != 0 || d % GateConfigF32::kBK != 0 || h % (GateConfigF32::kBN / 2) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  matmul_silu_f32_kernel<<<dim3(h / kSBN, m / kSBM), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w12, b12, out, m, d, h);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long count = 2LL * h * d;
+  const long long blocks = (count + 255) / 256;
+  split_tf32_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, s>>>(w12, w_split, count);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(gemm::launch<GateConfigF32>(x, w_split, 4 * h, GateEpiF32{b12, out}, m, d, h, s));
 }

@@ -1,10 +1,11 @@
 // The port's GEMM engine for Hopper (sm_90a): a persistent, warp-specialised
 // wgmma/TMA product out (m, n) = epilogue(x (m, k) @ w (rows, k)^T), both
 // operands K-major (nn.Linear's layout: nothing is transposed), with fp32
-// (bf16 operands) or exact int32 (int8 operands) sums. Three kernels
-// instantiate it:
+// (bf16 operands; fp32 operands as 3xTF32) or exact int32 (int8 operands)
+// sums. Three kernels instantiate it:
 //  * #4 fused_matmul_silu (csrc/fused_matmul_silu.cu): the SwiGLU w12 GEMM
-//    with the silu gate in its epilogue;
+//    with the silu gate in its epilogue, in bf16 and in fp32 (3xTF32: the
+//    section "fp32 operands" below);
 //  * dense (csrc/dense.cu): the bf16 linear layer with an fp32 bias added in
 //    fp32 and one rounding;
 //  * int8_dense (csrc/dense.cu): the w8a8 linear layer, int8 x int8 with the
@@ -62,9 +63,29 @@
 //    at small m only past n = 4,096). At m < 64 the TMA box holds only
 //    the rows that exist (the accumulator rows past them read stale shared
 //    memory and are never stored).
+//
+// fp32 operands (#4's fp32 instantiation, Config<float, ...>): each product
+// runs as 3xTF32 (tf32.cuh), x_lo w_hi + x_hi w_lo + x_hi w_hi per k step of
+// 8, the small terms first. wgmma takes TF32 only K-major, which x (m, k)
+// and w (rows, k) are. w comes split: its hi and lo parts as rows [0, rows)
+// and [rows, 2 rows) of one (2 rows, k) array (split_tf32_kernel, once a
+// call), each stage holding x's tile and both parts of the unit's w block
+// (8 + 16 + 16 KB at kBN = 128: five stages). x is split as the consumer
+// reads it: the register A operand of wgmma m64nNk8 (rows 16 warp + g, + 8;
+// columns t, t + 4 of each k step: four conflict-free 32-bit loads from the
+// 128-byte-swizzled tile, two integer operations a value), double-buffered
+// by k step, so the next k step's split runs while the tensor cores do this
+// one's three products. The products of kFlush stages (128 of depth) are
+// summed from zero in a second accumulator, then added to the tile's in
+// fp32: the tensor cores truncate each sum into their accumulator, and
+// three products a k step into one accumulator over k = 1,152 read 1.6e-5
+// relative L2 from fp64 (an H100, PERF.md), where the plain fp32 product
+// reads about 1e-7. Two 64 x 128 accumulators take 128 registers a thread,
+// so kBN = 128, not the bf16 configuration's 256.
 #pragma once
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace gemm {
 
@@ -174,6 +195,30 @@ __device__ __forceinline__ void wgmma_ss(int (&d)[128], uint64_t desc_a, uint64_
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A * B, m64n128k8 tf32 (fp32 bit patterns whose 13 low bits are
+// zero): A (64 x 8) from registers, a[0..3] = (row 16 warp + g, column t),
+// (row + 8, t), (row, t + 4), (row + 8, t + 4); B K-major in shared memory
+// (128-byte swizzle); fp32 accumulator of 64 registers a thread.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 template <typename T>
 struct Operand;
 template <>
@@ -185,6 +230,11 @@ template <>
 struct Operand<int8_t> {
   using Acc = int;
   static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies the bits
+};
+template <>
+struct Operand<float> {  // 3xTF32: w as its hi and lo parts
+  using Acc = float;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
 // A tile configuration: operand type T, kBN accumulator columns a tile (the
@@ -199,8 +249,10 @@ struct Config {
   static constexpr int kBN = BN, kCluster = Cluster, kStages = Stages, kSub = Sub;
   static constexpr int kRowK = 128 / static_cast<int>(sizeof(T));  // depth of a swizzle row
   static constexpr int kBK = kRowK * kSub;                         // depth a stage
+  static constexpr bool kTf32x3 = sizeof(T) == 4;                  // fp32: w's hi and lo parts a stage
   static constexpr int kARow = kBM * 128, kBRow = kBN * 128;       // bytes of one swizzle row of depth
-  static constexpr int kATile = kARow * kSub, kBTile = kBRow * kSub, kStageBytes = kATile + kBTile;
+  static constexpr int kATile = kARow * kSub, kBTile = kBRow * kSub;
+  static constexpr int kStageBytes = kATile + (kTf32x3 ? 2 : 1) * kBTile;
   static constexpr int kWRows = kBN / kCluster;  // rows of a unit's w block each CTA loads
   static constexpr int kAcc = kBN / 2;           // accumulator registers a thread
   static constexpr int kThreads = 384;           // producer warpgroup + two consumer warpgroups
@@ -338,16 +390,21 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
         for (int kb = 0; kb < nk; ++kb) {
           hopper::mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * Cfg::kStageBytes;
-          hopper::mbar_expect_tx(&full[stage], (a_bytes + Cfg::kBRow) * Cfg::kSub);
+          hopper::mbar_expect_tx(&full[stage], (a_bytes + (Cfg::kTf32x3 ? 2 : 1) * Cfg::kBRow) * Cfg::kSub);
 #pragma unroll
           for (int s = 0; s < Cfg::kSub; ++s) {
             const int k0 = kb * kBK + s * Cfg::kRowK;
             hopper::tma_load_2d(st + s * Cfg::kARow, &tmap_x, &full[stage], k0, m0);
-            unsigned char* wdst = st + Cfg::kATile + s * Cfg::kBRow + sub * 128;
-            if constexpr (kCluster > 1)
-              hopper::tma_load_2d_multicast(wdst, &tmap_w, &full[stage], k0, wrow, (1u << kCluster) - 1);
-            else
-              hopper::tma_load_2d(wdst, &tmap_w, &full[stage], k0, wrow);
+            // fp32: w's hi part, then its lo part (rows w_rows.., 2 n of them paired) a tile later
+#pragma unroll
+            for (int part = 0; part < (Cfg::kTf32x3 ? 2 : 1); ++part) {
+              unsigned char* wdst = st + Cfg::kATile + part * Cfg::kBTile + s * Cfg::kBRow + sub * 128;
+              const int row = wrow + part * (Epi::kPaired ? 2 * n : n);
+              if constexpr (kCluster > 1)
+                hopper::tma_load_2d_multicast(wdst, &tmap_w, &full[stage], k0, row, (1u << kCluster) - 1);
+              else
+                hopper::tma_load_2d(wdst, &tmap_w, &full[stage], k0, row);
+            }
           }
           if (++stage == kStages) stage = 0, phase ^= 1;
         }
@@ -389,23 +446,71 @@ __global__ void __launch_bounds__(Cfg::kThreads, 1)
       hopper::bar_sync(1 + c, 256);
       const int m0 = (unit / tiles_n * kCluster + rank) * kBM, n0 = unit % tiles_n * kUnitCols;
       int pos = j * nk, prev = 0;  // place of this unit's first stage in the ring's sequence
-      for (int kb = 0; kb < nk; ++kb, ++pos) {
-        const int stage = pos % kStages;
-        hopper::mbar_wait(&full[stage], (pos / kStages) & 1);
-        const unsigned char* st = ring + stage * Cfg::kStageBytes;
-        hopper::wgmma_fence();
+      uint32_t xh[2][4], xl[2][4];  // fp32: x's hi and lo A fragments of the k steps in flight (k step % 2)
+      if constexpr (Cfg::kTf32x3) {
+        constexpr int kFlush = 4;  // stages summed from zero in part before they are added to acc
+        float part[Cfg::kAcc];
+        const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;  // rows r0, r0 + 8 (r0 % 8 = g)
 #pragma unroll
-        for (int s = 0; s < Cfg::kSub; ++s) {
-          const uint64_t da = hopper::desc_sw128(st + s * Cfg::kARow, 16, 1024);
-          const uint64_t db = hopper::desc_sw128(st + Cfg::kATile + s * Cfg::kBRow, 16, 1024);
+        for (int i = 0; i < Cfg::kAcc; ++i) acc[i] = 0.f;
+        for (int kb = 0; kb < nk; ++kb, ++pos) {
+          const int stage = pos % kStages;
+          hopper::mbar_wait(&full[stage], (pos / kStages) & 1);
+          const unsigned char* st = ring + stage * Cfg::kStageBytes;
+          const uint64_t dh = hopper::desc_sw128(st + Cfg::kATile, 16, 1024);
+          const uint64_t dl = hopper::desc_sw128(st + Cfg::kATile + Cfg::kBTile, 16, 1024);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)  // 32 bytes of depth a step along the swizzled row
-            wgmma_ss(acc, da + 2 * kk, db + 2 * kk, kb > 0 || s > 0 || kk > 0);
+          for (int kk = 0; kk < 4; ++kk) {  // 8 values (32 bytes) of depth a step
+            const int b = kk & 1;
+            // columns 8 kk + t and + 4: 16-byte chunks 2 kk and 2 kk + 1 of the row, at chunk ^ (row % 8)
+            const unsigned char* c0 = st + r0 * 128 + (((2 * kk) ^ g) << 4) + 4 * t;
+            const unsigned char* c1 = st + r0 * 128 + (((2 * kk + 1) ^ g) << 4) + 4 * t;
+            const float v[4] = {*reinterpret_cast<const float*>(c0), *reinterpret_cast<const float*>(c0 + 8 * 128),
+                                *reinterpret_cast<const float*>(c1), *reinterpret_cast<const float*>(c1 + 8 * 128)};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split_tf32(v[i], xh[b][i], xl[b][i]);
+            hopper::wgmma_fence();
+            wgmma_tf32_rs(part, xl[b], dh + 2 * kk, kb % kFlush > 0 || kk > 0);
+            wgmma_tf32_rs(part, xh[b], dl + 2 * kk, 1);
+            wgmma_tf32_rs(part, xh[b], dh + 2 * kk, 1);
+            hopper::wgmma_commit();
+            // the previous k step's products are done: its fragments may be
+            // overwritten, and at this stage's first step the previous stage
+            // is read
+            hopper::wgmma_wait<1>();
+            hopper::fence_regs(xh[b ^ 1]);
+            hopper::fence_regs(xl[b ^ 1]);
+            if (kk == 0 && kb > 0) release(prev);
+          }
+          prev = stage;
+          if (kb % kFlush == kFlush - 1 || kb == nk - 1) {  // part into acc, in fp32
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(part);
+            hopper::fence_regs(xh[1]);
+            hopper::fence_regs(xl[1]);
+#pragma unroll
+            for (int i = 0; i < Cfg::kAcc; ++i) acc[i] += part[i];
+          }
         }
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (kb > 0) release(prev);
-        prev = stage;
+      } else {
+        for (int kb = 0; kb < nk; ++kb, ++pos) {
+          const int stage = pos % kStages;
+          hopper::mbar_wait(&full[stage], (pos / kStages) & 1);
+          const unsigned char* st = ring + stage * Cfg::kStageBytes;
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < Cfg::kSub; ++s) {
+            const uint64_t da = hopper::desc_sw128(st + s * Cfg::kARow, 16, 1024);
+            const uint64_t db = hopper::desc_sw128(st + Cfg::kATile + s * Cfg::kBRow, 16, 1024);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)  // 32 bytes of depth a step along the swizzled row
+              wgmma_ss(acc, da + 2 * kk, db + 2 * kk, kb > 0 || s > 0 || kk > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
+          if (kb > 0) release(prev);
+          prev = stage;
+        }
       }
       if (unit + nclusters < nunits) hopper::bar_arrive(2 - c, 256);  // unit j + 1 exists
       hopper::wgmma_wait<0>();

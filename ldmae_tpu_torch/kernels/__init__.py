@@ -57,7 +57,7 @@ _ATTENTION = {
 LIBRARIES = {
     "flash_attention": (
         "flash_attention.cu",
-        _ATTENTION | {"ldmae_flash_attention_resident_fwd": [_P] * 4 + [_I] * 3 + [_P],
+        _ATTENTION | {"ldmae_flash_attention_resident_fwd": [_P] * 5 + [_I] * 3 + [_P],
                       "ldmae_rate_probe": [_P, _I, _I, _I, _P]},
     ),
     "flash_attention_fp32": ("flash_attention_fp32.cu", _ATTENTION),
@@ -70,7 +70,7 @@ LIBRARIES = {
     "fused_matmul_silu": (
         "fused_matmul_silu.cu",
         {"ldmae_fused_matmul_silu": [_P, _P, _P, _P, _I, _I, _I, _P],
-         "ldmae_fused_matmul_silu_f32": [_P, _P, _P, _P, _I, _I, _I, _P]},
+         "ldmae_fused_matmul_silu_f32": [_P] * 5 + [_I] * 3 + [_P]},
     ),
     "dense": (
         "dense.cu",

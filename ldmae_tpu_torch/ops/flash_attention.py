@@ -25,11 +25,12 @@ dq = ds k d^-1/2, dk = ds^T q d^-1/2 on the rotated q, k, then for RoPE the
 transposed RoPE Jacobian on dq and dk; cos and sin get no gradient. lse is
 the log2 of each query row's softmax denominator, max included, in the
 units of the logits times log2(e) (``flash_attention_lse_plain``): the CUDA
-forward writes it at head dims 64 and 72, where the backward is one pass that
-takes it and the output instead of recomputing them; on the CPU the Functions save
-the plain lse, which the plain backward does not need. The other two
-wrappers are forward only (sampling), as in the JAX package, and raise when
-autograd would have to record them.
+forward writes it at head dims 64 and 72, and without RoPE at 16 for N <=
+RESIDENT_MAX_N (the resident kernel), where the backward is one pass that
+takes it and the output instead of recomputing them (``_uses_lse``); on the
+CPU the Functions save the plain lse, which the plain backward does not
+need. The other two wrappers are forward only (sampling), as in the JAX
+package, and raise when autograd would have to record them.
 
 A wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises: bf16 or fp32 (the configs' two compute
@@ -201,12 +202,19 @@ def _lib(dtype: torch.dtype):
     return kernels.load("flash_attention" if dtype == torch.bfloat16 else "flash_attention_fp32")
 
 
-def _uses_lse(dtype: torch.dtype, d: int, vec: int) -> bool:
+def _resident_lse(dtype: torch.dtype, d: int, vec: int, n: int, rope: bool) -> bool:
+    """Whether the forward writes lse by the resident kernel for the
+    single-pass backward: bf16 at d = 16 with 16-byte aligned rows, N <=
+    RESIDENT_MAX_N, no RoPE."""
+    return dtype == torch.bfloat16 and d == 16 and vec == 8 and n <= RESIDENT_MAX_N and not rope
+
+
+def _uses_lse(dtype: torch.dtype, d: int, vec: int, n: int = RESIDENT_MAX_N, rope: bool = False) -> bool:
     """Whether the CUDA backward takes the forward's output and lse (one
-    pass at bf16 d = 64 or 72 with 16-byte aligned rows, and every fp32
-    backward) instead of recomputing the row statistics (the bf16 three
-    passes)."""
-    return dtype == torch.float32 or (d in WGMMA_HEAD_DIMS and vec == 8)
+    pass at bf16 d = 64 or 72 with 16-byte aligned rows, and at d = 16 as
+    ``_resident_lse`` says; every fp32 backward) instead of recomputing the
+    row statistics (the bf16 three passes)."""
+    return dtype == torch.float32 or (d in WGMMA_HEAD_DIMS and vec == 8) or _resident_lse(dtype, d, vec, n, rope)
 
 
 def _check_head_dim(what: str, b: int, h: int, d: int) -> None:
@@ -271,11 +279,13 @@ def _launch(q, k, v, what: str, cos=None, sin=None, with_lse=False):
     out = torch.empty_like(q)
     vec = _vec(d, q, k, v, out)
     lse = None
-    if with_lse and _uses_lse(q.dtype, d, vec):
+    if with_lse and _uses_lse(q.dtype, d, vec, n, rope=cos is not None):
         lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
     lse_ptr = None if lse is None else lse.data_ptr()
     lib = _lib(q.dtype)
-    if cos is None:
+    if lse is not None and _resident_lse(q.dtype, d, vec, n, rope=cos is not None):
+        err = _resident_call(q, k, v, out, lse)
+    elif cos is None:
         err = kernels.on_device(q, lib.ldmae_flash_attention_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), lse_ptr, b * h, n, d, vec)
     else:
@@ -299,7 +309,7 @@ def _launch_bwd(q, k, v, g, what: str, cos=None, sin=None, out=None, lse=None):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     vec = _vec(d, q, k, v, g, dq, dk, dv)
     dq_acc = None
-    if not _uses_lse(q.dtype, d, vec):  # the three passes recompute the row statistics
+    if not _uses_lse(q.dtype, d, vec, n, rope=cos is not None):  # the three passes recompute the row statistics
         out = lse = None
     else:
         if out is None or lse is None:
@@ -336,26 +346,38 @@ def _resident_fits(q, k, v) -> bool:
             and _vec(d, q, k, v) == 8)
 
 
-def flash_attention_resident(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _resident_call(q, k, v, out, lse=None) -> int:
+    """The resident kernel's C entry on checked contiguous operands; lse (d
+    = 16) is written when given."""
+    b, h, n, d = q.shape
+    return kernels.on_device(q, kernels.load("flash_attention").ldmae_flash_attention_resident_fwd, q.data_ptr(),
+                             k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                             b * h, n, d)
+
+
+def flash_attention_resident(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """The forward of ``flash_attention`` by the resident kernel
     (``flash_fwd_resident_kernel``: K and V of a head in shared memory, an
     exact two-pass softmax): bf16, d = 8 or 16, N <= RESIDENT_MAX_N, 16-byte
     aligned, forward only. ``flash_attention`` calls it for those shapes
-    when no gradient is recorded; ``launches`` counts its launches."""
-    _forward_only("flash_attention_resident", q, k, v)
+    when no gradient is recorded, and with ``with_lse`` (d = 16: returns
+    (output, lse), lse as ``flash_attention_lse_plain``) in its autograd
+    Function's forward, whose backward then takes the single pass;
+    ``launches`` counts its launches."""
+    what = "flash_attention_resident"
+    _forward_only(what, q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    b, h, n, d = _check_bhnd("flash_attention_resident", q=q, k=k, v=v)
-    if not _resident_fits(q, k, v):
-        raise ValueError("flash_attention_resident: takes 16-byte aligned bf16 operands at d = 8 or 16, "
+        out = flash_attention_plain(q, k, v)
+        return (out, flash_attention_lse_plain(q, k)) if with_lse else out
+    b, h, n, d = _check_bhnd(what, q=q, k=k, v=v)
+    if not _resident_fits(q, k, v) or (with_lse and d != 16):
+        raise ValueError(f"{what}: takes 16-byte aligned bf16 operands at d = 8 or 16 (with lse: 16), "
                          f"N <= {RESIDENT_MAX_N}; got {q.dtype} {tuple(q.shape)}")
     out = torch.empty_like(q)
-    lib = kernels.load("flash_attention")
-    err = kernels.on_device(q, lib.ldmae_flash_attention_resident_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), b * h, n, d)
-    kernels.check(err, "flash_attention_resident")
+    lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32) if with_lse else None
+    kernels.check(_resident_call(q, k, v, out, lse), what)
     flash_attention_resident.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_resident.launches = 0
@@ -366,8 +388,8 @@ def _flash_attention_fwd(q, k, v, with_lse=False):
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v)
         return (out, flash_attention_lse_plain(q, k)) if with_lse else out
-    if not with_lse and _resident_fits(q, k, v):
-        return flash_attention_resident(q, k, v)
+    if _resident_fits(q, k, v) and (not with_lse or q.shape[-1] == 16):
+        return flash_attention_resident(q, k, v, with_lse=with_lse)
     res = _launch(q, k, v, "flash_attention", with_lse=with_lse)
     flash_attention.launches += 1
     return res
@@ -379,9 +401,10 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient g. out and
     lse, the forward's output and lse, are what the CUDA kernel takes in
-    bf16 at head dims 64 and 72 (one pass) and in fp32; when either is
-    missing (a standalone call) the forward kernel is first run through the
-    library, uncounted. The bf16 three passes at the other head dims and the plain
+    bf16 at head dims 64 and 72 and at 16 for N <= RESIDENT_MAX_N (one pass,
+    ``flash_bwd_wgmma_kernel``) and in fp32; when either is missing (a
+    standalone call) the forward kernel is first run through the library,
+    uncounted. The bf16 three passes at the other head dims and the plain
     version (CPU) need neither."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g)
@@ -446,11 +469,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     * bf16, d = 8 or 16 (VMAE), N <= RESIDENT_MAX_N, 16-byte aligned, no
       gradient recorded: ``flash_attention_resident`` (which counts it);
+    * the same at d = 16 under autograd: ``flash_attention_resident`` with
+      lse, and the single-pass backward ``flash_bwd_wgmma_kernel``;
     * bf16, d = 64 or 72, 16-byte aligned: the wgmma forward
       ``flash_fwd_wgmma_kernel`` (see ``flash_attention_rope``) and the
       single-pass backward ``flash_bwd_wgmma_kernel``;
-    * every other bf16 shape (VMAE d = 8 to 80 under autograd or past
-      RESIDENT_MAX_N): the ``mma.sync`` core and the three-pass backward;
+    * every other bf16 shape (VMAE d = 8 to 80 but 16 under autograd, or
+      past RESIDENT_MAX_N): the ``mma.sync`` core and the three-pass
+      backward;
     * fp32: the fp32 kernels (``csrc/flash_attention_fp32.cu``): at d = 64
       and 72 with 16-byte aligned rows on the tensor cores as 3xTF32, the
       forward ``tf32x3_fwd_kernel`` and the backward's dK/dV and dQ kernels

@@ -12,9 +12,10 @@ the JAX package's custom VJP is (``fused_norm_modulate_bwd_kernel``, with
 forward only (sampling). A wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel or
 raises. The kernels take bf16 or fp32 (the configs' two compute dtypes);
-fp32 runs the same kernels with the element type a template parameter,
-except ``fused_matmul_silu``, whose fp32 kernel is a plain SIMT GEMM (the
-tensor cores take no fp32). Rows of D <= MAX_WIDTH elements, D a multiple
+fp32 runs the same kernels with the element type a template parameter;
+``fused_matmul_silu`` in fp32 runs the GEMM engine's fp32 configuration,
+every product on the tensor cores as 3xTF32 (w12 split into its TF32 hi
+and lo parts by a pass a call). Rows of D <= MAX_WIDTH elements, D a multiple
 of 8 (bf16) or 4 (fp32): every width of the DiT registry (64 to 1,792).
 ``<wrapper>.launches`` counts kernel launches.
 
@@ -289,8 +290,12 @@ def fused_matmul_silu(
     x: (..., D); w12: (2H, D), the reference's packed ``w12`` weight; b12:
     (2H,) or None. Returns (..., H), or None when the shape gate of the TPU
     kernel fails (M % 128, D % 128 and 2H % 256 must all be 0), in which
-    case the caller runs the unfused path. bf16 runs the wgmma kernel, fp32
-    the SIMT one (``matmul_silu_f32_kernel``). Forward only, as the JAX
+    case the caller runs the unfused path. bf16 runs the wgmma kernel
+    (``gemm_kernel`` with ``GateEpi``), fp32 the same engine as 3xTF32
+    (``split_tf32_kernel`` on w12, then ``gemm_kernel`` with ``GateEpiF32``),
+    within about 1e-6 relative L2 of an fp64 product. The TMA loads need x
+    (and in bf16 w12) at a 16-byte aligned base, the epilogue the fp32 bias
+    at an 8-byte one: a view off those raises ValueError. Forward only, as the JAX
     kernel is: off the CPU, where autograd would record the call (an input
     that requires grad, grad enabled) it raises before any launch, since
     the kernel's output would carry no gradient to x, w12 or b12; on the
@@ -315,10 +320,18 @@ def fused_matmul_silu(
         torch.zeros(h2, device=x.device, dtype=torch.float32) if b12 is None
         else b12.to(device=x.device, dtype=torch.float32).contiguous()
     )
+    if x.data_ptr() % 16 or (x.dtype == torch.bfloat16 and w.data_ptr() % 16) or bias.data_ptr() % 8:
+        raise ValueError("fused_matmul_silu: x (and in bf16 w12) must start at a 16-byte aligned address and "
+                         "b12 at an 8-byte aligned one")
     out = torch.empty(*x.shape[:-1], h2 // 2, device=x.device, dtype=x.dtype)
     lib = kernels.load("fused_matmul_silu")
-    entry = lib.ldmae_fused_matmul_silu if x.dtype == torch.bfloat16 else lib.ldmae_fused_matmul_silu_f32
-    err = kernels.on_device(x, entry, x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, h2 // 2)
+    if x.dtype == torch.bfloat16:
+        err = kernels.on_device(x, lib.ldmae_fused_matmul_silu, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), m, d, h2 // 2)
+    else:  # w12's TF32 hi and lo parts (scratch), rows [0, 2H) and [2H, 4H)
+        w_split = torch.empty(2 * h2, d, device=x.device, dtype=torch.float32)
+        err = kernels.on_device(x, lib.ldmae_fused_matmul_silu_f32, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), w_split.data_ptr(), m, d, h2 // 2)
     kernels.check(err, "fused_matmul_silu")
     fused_matmul_silu.launches += 1
     return out

@@ -239,9 +239,9 @@ def _bwd_inputs(shape, rope, device):
     return (q, k, v, g), tables
 
 
-# b, h, d, n: the single pass (d = 64, 72) at ragged and whole tiles of 64
-# queries and 128 keys, and at the DiT B/1 and XL training shapes; the three
-# passes (d = 16)
+# b, h, d, n: the single pass (d = 64, 72; d = 16 without RoPE) at ragged
+# and whole tiles of 64 queries and 128 keys, and at the DiT B/1 and XL
+# training shapes; the three passes (d = 16 with RoPE)
 _BWD_CASES = [(2, 3, 16, 1024), (2, 3, 64, 1024), (2, 3, 72, 200), (2, 3, 64, 1000), (2, 3, 16, 200),
               (2, 3, 64, 64), (2, 3, 64, 128), (2, 3, 64, 200), (2, 3, 64, 256), (32, 12, 64, 1024),
               (2, 3, 72, 1024), (2, 3, 72, 1000), (32, 16, 72, 1024)]
@@ -259,7 +259,7 @@ def test_cuda_flash_attention_bwd_vs_plain(cuda, b, h, d, n, rope):
         outs = tfa.flash_attention_bwd(q, k, v, g)
         refs = tfa.flash_attention_bwd_plain(q, k, v, g)
     _assert_bwd_close(outs, refs)
-    if d in tfa.WGMMA_HEAD_DIMS:  # the residuals passed in, as the autograd Functions pass them
+    if tfa._uses_lse(torch.bfloat16, d, 8, n, rope):  # the residuals passed in, as the autograd Functions pass them
         out, lse = tfa._launch(q, k, v, "test", *tables, with_lse=True)
         kernel = tfa.flash_attention_rope_bwd if rope else tfa.flash_attention_bwd
         _assert_bwd_close(kernel(q, k, v, g, *tables, out=out, lse=lse), refs)
@@ -312,6 +312,14 @@ def test_cuda_bwd_dq_run_to_run_d72(cuda, rope):
     """As above at head dim 72, where dq's columns 64-71 of a key tile's two
     consumer warpgroups are added together before their one reduction."""
     _check_dq_run_to_run((4, 16, 1024, 72), rope, cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_dq_run_to_run_d16(cuda):
+    """As above at the VMAE's head dim 16 (the single pass given the resident
+    forward's output and lse), where a block adds the dQ parts of four
+    query tiles at once, in key-tile order."""
+    _check_dq_run_to_run((4, 12, 1024, 16), False, cuda)
 
 
 def _check_dq_run_to_run(shape, rope, device):
@@ -404,6 +412,33 @@ def test_cuda_autograd_backward_at_d72_is_one_pass(cuda, rope):
     none of the three passes' kernels run, the gradients within the
     backward's bounds of the plain backward."""
     _check_one_pass((2, 4, 1024, 72), rope, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1024, 200])
+def test_cuda_autograd_at_d16_is_resident_and_one_pass(cuda, n):
+    """At the VMAE's head dim 16 under autograd (N <= RESIDENT_MAX_N): the
+    forward is the resident kernel with lse (counted as
+    ``flash_attention_resident``), its lse within 1e-4 plus 1e-5 relative of
+    the plain lse and its output the no-lse resident forward's bit for bit;
+    the backward is the single pass as at d = 64."""
+    shape = (2, 4, n, 16)
+    q, k, v = (_bf16(shape, s, cuda).requires_grad_() for s in range(3))
+
+    def ours(names):
+        return sorted(m.group(1) for n in names if (m := re.search(r"(flash_\w+_kernel)", n)))
+
+    counts = tfa.flash_attention_resident.launches, tfa.flash_attention.launches
+    names, calls = _kernel_names(lambda: tfa.flash_attention(q, k, v),
+                                 need=lambda names: ours(names) == ["flash_fwd_resident_kernel"])
+    assert ours(names) == ["flash_fwd_resident_kernel"], names
+    assert (tfa.flash_attention_resident.launches, tfa.flash_attention.launches) == (counts[0] + calls, counts[1])
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    out = tfa.flash_attention(q, k, v)
+    lse = out.grad_fn.saved_tensors[-1]
+    torch.testing.assert_close(lse, tfa.flash_attention_lse_plain(qd, kd), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out.detach(), tfa.flash_attention_resident(qd, kd, vd), rtol=0, atol=0)
+    _check_one_pass(shape, False, cuda)
 
 
 def _check_one_pass(shape, rope, device):
@@ -782,6 +817,57 @@ def test_cuda_fused_norm_modulate_registry_widths(cuda, d, kind):
                     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
                 _assert_quant_close(tfad.fused_norm_modulate_quant(x, w, sh, sc, kind=kind),
                                     tfad.fused_norm_modulate_quant_plain(x, w, sh, sc, kind=kind))
+
+
+def _matmul_silu_f64(x, w12, b12):
+    acc = x.double() @ w12.double().t() + b12.double()
+    x1, x2 = acc.chunk(2, dim=-1)
+    return x1 * torch.sigmoid(x1) * x2
+
+
+def _rel_l2(out, ref):
+    return float((out.double() - ref).norm() / ref.norm())
+
+
+# #4 in fp32 at B/1's and XL/1's sampling widths (batch 8, CFG-doubled); early
+# in the file, as the other route checks
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,h2", [(16384, 768, 4096), (16384, 1152, 6144)], ids=["B1", "XL1"])
+def test_cuda_fused_matmul_silu_fp32_vs_fp64(cuda, m, d, h2):
+    """#4 in fp32 runs the split pass and the GEMM engine's fp32 (3xTF32)
+    configuration: within 1e-5 relative L2 of the fp64 function and within
+    F32_FWD of the plain fp32 version; the plain version with TF32 allowed
+    (one TF32 product) reads above 1e-5 from fp64."""
+    x = _randn((m, d), 0, cuda, torch.float32)
+    w12 = _randn((h2, d), 1, cuda, torch.float32, d**-0.5)
+    b12 = _randn((h2,), 2, cuda, torch.float32, 0.1)
+
+    def ours(names):
+        return (any("split_tf32_kernel" in n for n in names)
+                and any("gemm_kernel" in n and "GateEpiF32" in n for n in names))
+
+    names, _ = _kernel_names(lambda: tfad.fused_matmul_silu(x, w12, b12), need=ours)
+    assert ours(names), names
+    out = tfad.fused_matmul_silu(x, w12, b12)
+    ref = _matmul_silu_f64(x, w12, b12)
+    _assert_f32_close(out, tfad.fused_matmul_silu_plain(x, w12, b12))
+    assert _rel_l2(out, ref) <= 1e-5, _rel_l2(out, ref)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = tfad.fused_matmul_silu_plain(x, w12, b12)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert _rel_l2(control, ref) > 1e-5, _rel_l2(control, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_matmul_silu_rejects_unaligned_bases(cuda):
+    """The TMA loads need x at a 16-byte aligned base: a view off it raises
+    instead of running another kernel."""
+    x = _randn((128 * 128 + 1,), 0, cuda, torch.float32)[1:].view(128, 128)
+    w12 = _randn((256, 128), 1, cuda, torch.float32)
+    with pytest.raises(ValueError, match="aligned"):
+        tfad.fused_matmul_silu(x, w12, None)
 
 
 @pytest.mark.gpu

@@ -197,7 +197,8 @@ def test_xl_train_step_matches_jax():
     (torch.bfloat16, 64, 8, True),
     (torch.bfloat16, 72, 4, False),  # rows off 16 bytes: the three passes
     (torch.bfloat16, 80, 8, False),
-    (torch.bfloat16, 16, 8, False),
+    (torch.bfloat16, 16, 8, True),   # the VMAE's d = 16 (N <= RESIDENT_MAX_N, no RoPE): the one-pass backward
+    (torch.bfloat16, 16, 4, False),
     (torch.float32, 72, 4, True),    # every fp32 backward takes lse
 ])
 def test_uses_lse_route(dtype, d, vec, want):
